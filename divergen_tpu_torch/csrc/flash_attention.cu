@@ -1,0 +1,369 @@
+// Flash attention forward for Hopper (sm_90a), bf16 in and out, f32 softmax.
+//
+// Replaces two Pallas TPU kernels of divergen_tpu/ops/pallas/flash_attention.py:
+//   * flash_attention_packed (_packed_kernel / _packed_kernel2): self-attention
+//     read straight out of a fused (B, N, 3C) QKV projection, written to
+//     (B, N, C) with no transposes. Head h of slot s is channels
+//     [s*C + h*d, s*C + (h+1)*d).
+//   * flash_attention (_attn_kernel_main / _attn_bias_kernel): (BH, S, D)
+//     attention with padded keys masked by index and an optional dense
+//     (BH, Sq, Sk) bias added to the score tile.
+// Both are one templated body: q, k, v and o are addressed as
+// base + b*batch_stride + h*head_stride + row*row_stride, so the packed
+// layout and the (BH, S, D) layout differ only in the strides the wrapper
+// passes.
+//
+// What bounds it on the H100: the two products per K tile run on the tensor
+// cores; between them the online softmax (scale, max, exp2, sum, rescale) runs
+// on the FP32 units, and at SDXL's d = 64 it costs about as much as the
+// products. What must not happen is a round trip of scores, probabilities or
+// the output accumulator through shared memory, and the K/V loads must
+// overlap the math.
+//
+// Design (FlashAttention-2 style): one block per (q tile, head, batch) loops
+// over K tiles inside the block (the TPU's sequential "arbitrary" grid axis
+// becomes this loop). K/V tiles stream through a two-stage cp.async ring, so
+// the next tile loads while this one is computed. Each warp keeps its q rows
+// as mma.sync A fragments, computes its scores in registers (m16n8k16 bf16
+// products, f32 accumulate), runs the base-2 online softmax on them in
+// registers (log2(e) folded into the scale; row max and sum reduced over the
+// four lanes that share a row), reuses the probabilities in registers as the
+// A operand of P@V, and keeps the f32 output accumulator in registers.
+//   * d = 64: 4 warps x 16 q rows, K tiles of 64 keys.
+//   * d = 512 (the VAE's single head): a 16-row accumulator of 512 floats does
+//     not fit one warp's registers, so the head dimension is split over 8
+//     warps of 64 columns each, every warp holding 32 q rows. Each warp
+//     computes the scores over its 64 columns only; the 8 partial score tiles
+//     are summed through shared memory, and every warp then runs the same
+//     softmax on the same sums (bit-identical, so no further exchange) and
+//     the P@V product for its own 64 output columns. K tiles of 32 keys.
+// No TMA, wgmma or warp specialisation yet.
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+#include "mma_sm90.cuh"
+
+namespace {
+
+typedef __nv_bfloat16 bf16;
+
+constexpr float kNegInf = -1e30f;
+constexpr float kLog2e = 1.4426950408889634f;
+
+struct AttnParams {
+  const bf16* q;
+  const bf16* k;
+  const bf16* v;
+  const float* bias;  // may be null
+  bf16* o;
+  int heads, sq, sk;
+  int64_t q_bs, q_hs, q_rs;
+  int64_t kv_bs, kv_hs, kv_rs;
+  int64_t o_bs, o_hs, o_rs;
+  int64_t bias_bs, bias_hs, bias_rs;  // key stride of the bias is 1
+  float scale_log2;                   // softmax scale * log2(e)
+};
+
+// D: head dim; ND warps split D; NR warps split the q rows; RG 16-row groups
+// per warp; BK keys per tile.
+template <int D, int ND, int NR, int RG, int BK>
+struct Cfg {
+  static constexpr int WD = D / ND;          // output columns per warp
+  static constexpr int BQ = NR * RG * 16;    // q rows per block
+  static constexpr int THREADS = 32 * ND * NR;
+  static constexpr int LD = D + 8;           // bf16 row stride in shared memory
+  static constexpr int LDS = BK + 4;         // f32 row stride of partial scores
+  static constexpr size_t q_bytes = sizeof(bf16) * BQ * LD;
+  static constexpr size_t kv_bytes = sizeof(bf16) * BK * LD;  // one tile
+  static constexpr size_t s_bytes = ND > 1 ? sizeof(float) * ND * NR * RG * 16 * LDS : 0;
+  static constexpr size_t bytes = q_bytes + 4 * kv_bytes + s_bytes;
+  static_assert(WD % 16 == 0 && BK % 16 == 0 && D % 8 == 0, "tile shapes");
+  static_assert(q_bytes % 128 == 0 && kv_bytes % 128 == 0, "aligned regions");
+};
+
+// rows x D tile, global -> shared, 16-byte cp.async; rows >= valid are zeros
+template <int D, int THREADS>
+__device__ __forceinline__ void load_tile(bf16* dst, int ld, const bf16* src,
+                                          int64_t stride, int rows, int valid) {
+  constexpr int CPR = D / 8;
+  for (int c = threadIdx.x; c < rows * CPR; c += THREADS) {
+    const int r = c / CPR;
+    const int col = (c - r * CPR) * 8;
+    const bool ok = r < valid;
+    dg::cp_async16(dst + r * ld + col, ok ? src + r * stride + col : src, ok);
+  }
+}
+
+template <int D, int ND, int NR, int RG, int BK>
+__global__ void __launch_bounds__(Cfg<D, ND, NR, RG, BK>::THREADS)
+    flash_attn_kernel(const AttnParams p) {
+  using C = Cfg<D, ND, NR, RG, BK>;
+  constexpr int WD = C::WD;
+  extern __shared__ __align__(128) unsigned char smem[];
+  bf16* sQ = reinterpret_cast<bf16*>(smem);
+  bf16* sK = reinterpret_cast<bf16*>(smem + C::q_bytes);  // 2 stages
+  bf16* sV = reinterpret_cast<bf16*>(smem + C::q_bytes + 2 * C::kv_bytes);
+  float* sS = reinterpret_cast<float*>(smem + C::q_bytes + 4 * C::kv_bytes);
+
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int wd = warp % ND;  // which WD-wide slice of the head dim
+  const int wr = warp / ND;  // which rows
+  const int g = lane >> 2;
+  const int t4 = lane & 3;
+  const int b = blockIdx.z;
+  const int h = blockIdx.y;
+  const int q0 = blockIdx.x * C::BQ;
+  const int row0 = wr * RG * 16;  // first block row of this warp
+
+  const bf16* q = p.q + b * p.q_bs + h * p.q_hs;
+  const bf16* k = p.k + b * p.kv_bs + h * p.kv_hs;
+  const bf16* v = p.v + b * p.kv_bs + h * p.kv_hs;
+  bf16* o = p.o + b * p.o_bs + h * p.o_hs;
+  const float* bias = p.bias ? p.bias + b * p.bias_bs + h * p.bias_hs : nullptr;
+
+  const int n_tiles = (p.sk + BK - 1) / BK;
+  load_tile<D, C::THREADS>(sQ, C::LD, q + q0 * p.q_rs, p.q_rs, C::BQ, p.sq - q0);
+  dg::cp_async_commit();
+  load_tile<D, C::THREADS>(sK, C::LD, k, p.kv_rs, BK, p.sk);
+  load_tile<D, C::THREADS>(sV, C::LD, v, p.kv_rs, BK, p.sk);
+  dg::cp_async_commit();
+  dg::cp_async_wait<1>();  // q has landed
+  __syncthreads();
+
+  // q rows of this warp as A fragments over its WD columns
+  uint32_t qf[RG][WD / 16][4];
+#pragma unroll
+  for (int rg = 0; rg < RG; ++rg)
+#pragma unroll
+    for (int kk = 0; kk < WD / 16; ++kk)
+      dg::ldmatrix_x4(qf[rg][kk], sQ + (row0 + rg * 16 + (lane & 15)) * C::LD +
+                                      wd * WD + kk * 16 + (lane >> 4) * 8);
+
+  float acc[RG][WD / 8][4];
+  float m_run[RG][2], l_run[RG][2];
+#pragma unroll
+  for (int rg = 0; rg < RG; ++rg) {
+#pragma unroll
+    for (int n = 0; n < WD / 8; ++n)
+      acc[rg][n][0] = acc[rg][n][1] = acc[rg][n][2] = acc[rg][n][3] = 0.f;
+    m_run[rg][0] = m_run[rg][1] = kNegInf;
+    l_run[rg][0] = l_run[rg][1] = 0.f;
+  }
+
+  for (int t = 0; t < n_tiles; ++t) {
+    const int st = t & 1;
+    const int k0 = t * BK;
+    if (t + 1 < n_tiles) {  // prefetch the next tile into the other stage
+      const int k1 = k0 + BK;
+      load_tile<D, C::THREADS>(sK + (st ^ 1) * BK * C::LD, C::LD, k + k1 * p.kv_rs,
+                               p.kv_rs, BK, p.sk - k1);
+      load_tile<D, C::THREADS>(sV + (st ^ 1) * BK * C::LD, C::LD, v + k1 * p.kv_rs,
+                               p.kv_rs, BK, p.sk - k1);
+      dg::cp_async_commit();
+      dg::cp_async_wait<1>();
+    } else {
+      dg::cp_async_wait<0>();
+    }
+    __syncthreads();
+    const bf16* tK = sK + st * BK * C::LD;
+    const bf16* tV = sV + st * BK * C::LD;
+
+    // scores over this warp's WD columns of the head dim
+    float s[RG][BK / 8][4];
+#pragma unroll
+    for (int rg = 0; rg < RG; ++rg)
+#pragma unroll
+      for (int j = 0; j < BK / 8; ++j) s[rg][j][0] = s[rg][j][1] = s[rg][j][2] = s[rg][j][3] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < WD / 16; ++kk) {
+#pragma unroll
+      for (int nb = 0; nb < BK / 16; ++nb) {
+        uint32_t kb[4];
+        dg::ldmatrix_x4(kb, tK + (nb * 16 + (lane & 7) + ((lane >> 4) << 3)) * C::LD +
+                                wd * WD + kk * 16 + ((lane >> 3) & 1) * 8);
+#pragma unroll
+        for (int rg = 0; rg < RG; ++rg) {
+          dg::mma_bf16_16816(s[rg][2 * nb], qf[rg][kk], kb[0], kb[1]);
+          dg::mma_bf16_16816(s[rg][2 * nb + 1], qf[rg][kk], kb[2], kb[3]);
+        }
+      }
+    }
+    if (ND > 1) {  // sum the ND partial score tiles through shared memory
+      float* mine = sS + warp * (RG * 16 * C::LDS);
+#pragma unroll
+      for (int rg = 0; rg < RG; ++rg)
+#pragma unroll
+        for (int j = 0; j < BK / 8; ++j) {
+          float* cell = mine + (rg * 16 + g) * C::LDS + j * 8 + 2 * t4;
+          *reinterpret_cast<float2*>(cell) = make_float2(s[rg][j][0], s[rg][j][1]);
+          *reinterpret_cast<float2*>(cell + 8 * C::LDS) = make_float2(s[rg][j][2], s[rg][j][3]);
+        }
+      __syncthreads();
+#pragma unroll
+      for (int rg = 0; rg < RG; ++rg)
+#pragma unroll
+        for (int j = 0; j < BK / 8; ++j) {
+          float sum[4] = {0.f, 0.f, 0.f, 0.f};
+          for (int w = 0; w < ND; ++w) {
+            const float* cell = sS + (wr * ND + w) * (RG * 16 * C::LDS) +
+                                (rg * 16 + g) * C::LDS + j * 8 + 2 * t4;
+            const float2 lo = *reinterpret_cast<const float2*>(cell);
+            const float2 hi = *reinterpret_cast<const float2*>(cell + 8 * C::LDS);
+            sum[0] += lo.x;
+            sum[1] += lo.y;
+            sum[2] += hi.x;
+            sum[3] += hi.y;
+          }
+#pragma unroll
+          for (int e = 0; e < 4; ++e) s[rg][j][e] = sum[e];
+        }
+    }
+
+    // base-2 online softmax in registers; lanes 4g..4g+3 share rows g and g+8
+#pragma unroll
+    for (int rg = 0; rg < RG; ++rg) {
+      const int qrow = q0 + row0 + rg * 16 + g;
+      float mx[2] = {kNegInf, kNegInf};
+#pragma unroll
+      for (int j = 0; j < BK / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int key = k0 + j * 8 + 2 * t4 + (e & 1);
+          const int qi = qrow + (e >> 1) * 8;
+          float x = s[rg][j][e] * p.scale_log2;
+          if (key >= p.sk) {
+            x = kNegInf;
+          } else if (bias != nullptr && qi < p.sq) {
+            x += bias[qi * p.bias_rs + key] * kLog2e;
+          }
+          s[rg][j][e] = x;
+          mx[e >> 1] = fmaxf(mx[e >> 1], x);
+        }
+      float alpha[2];
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+        const float m_new = fmaxf(m_run[rg][r], mx[r]);
+        alpha[r] = exp2f(m_run[rg][r] - m_new);
+        m_run[rg][r] = m_new;
+      }
+      float rs[2] = {0.f, 0.f};  // this lane's share of the row sums
+#pragma unroll
+      for (int j = 0; j < BK / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float pe = exp2f(s[rg][j][e] - m_run[rg][e >> 1]);
+          s[rg][j][e] = pe;
+          rs[e >> 1] += pe;
+        }
+#pragma unroll
+      for (int r = 0; r < 2; ++r) l_run[rg][r] = l_run[rg][r] * alpha[r] + rs[r];
+#pragma unroll
+      for (int n = 0; n < WD / 8; ++n) {
+        acc[rg][n][0] *= alpha[0];
+        acc[rg][n][1] *= alpha[0];
+        acc[rg][n][2] *= alpha[1];
+        acc[rg][n][3] *= alpha[1];
+      }
+    }
+
+    // acc += P V for this warp's WD output columns; P is already in A layout
+#pragma unroll
+    for (int ks = 0; ks < BK / 16; ++ks) {
+      uint32_t pa[RG][4];
+#pragma unroll
+      for (int rg = 0; rg < RG; ++rg) {
+        pa[rg][0] = dg::pack_bf16x2(s[rg][2 * ks][0], s[rg][2 * ks][1]);
+        pa[rg][1] = dg::pack_bf16x2(s[rg][2 * ks][2], s[rg][2 * ks][3]);
+        pa[rg][2] = dg::pack_bf16x2(s[rg][2 * ks + 1][0], s[rg][2 * ks + 1][1]);
+        pa[rg][3] = dg::pack_bf16x2(s[rg][2 * ks + 1][2], s[rg][2 * ks + 1][3]);
+      }
+#pragma unroll
+      for (int db = 0; db < WD / 16; ++db) {
+        uint32_t vb[4];
+        dg::ldmatrix_x4_trans(vb, tV + (ks * 16 + (lane & 15)) * C::LD + wd * WD + db * 16 +
+                                      (lane >> 4) * 8);
+#pragma unroll
+        for (int rg = 0; rg < RG; ++rg) {
+          dg::mma_bf16_16816(acc[rg][2 * db], pa[rg], vb[0], vb[1]);
+          dg::mma_bf16_16816(acc[rg][2 * db + 1], pa[rg], vb[2], vb[3]);
+        }
+      }
+    }
+    __syncthreads();  // this stage and the partial scores are free again
+  }
+
+#pragma unroll
+  for (int rg = 0; rg < RG; ++rg) {
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      float l = l_run[rg][r];
+      l += __shfl_xor_sync(0xffffffffu, l, 1);
+      l += __shfl_xor_sync(0xffffffffu, l, 2);
+      const float inv = 1.f / fmaxf(l, 1e-30f);
+      const int qi = q0 + row0 + rg * 16 + g + r * 8;
+      if (qi >= p.sq) continue;
+      bf16* dst = o + qi * p.o_rs + wd * WD + 2 * t4;
+#pragma unroll
+      for (int n = 0; n < WD / 8; ++n)
+        *reinterpret_cast<__nv_bfloat162*>(dst + n * 8) = __floats2bfloat162_rn(
+            acc[rg][n][2 * r] * inv, acc[rg][n][2 * r + 1] * inv);
+    }
+  }
+}
+
+template <int D, int ND, int NR, int RG, int BK>
+int launch(const AttnParams& p, int batch, cudaStream_t stream) {
+  using C = Cfg<D, ND, NR, RG, BK>;
+  cudaError_t err = cudaFuncSetAttribute(flash_attn_kernel<D, ND, NR, RG, BK>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(C::bytes));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid((p.sq + C::BQ - 1) / C::BQ, p.heads, batch);
+  flash_attn_kernel<D, ND, NR, RG, BK><<<grid, C::THREADS, C::bytes, stream>>>(p);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+extern "C" int dg_flash_attention_bf16(
+    const void* q, const void* k, const void* v, const void* bias, void* o,
+    int batch, int heads, int sq, int sk, int d, int64_t q_bs, int64_t q_hs,
+    int64_t q_rs, int64_t kv_bs, int64_t kv_hs, int64_t kv_rs, int64_t o_bs,
+    int64_t o_hs, int64_t o_rs, int64_t bias_bs, int64_t bias_hs,
+    int64_t bias_rs, float scale, void* stream) {
+  AttnParams p;
+  p.q = static_cast<const bf16*>(q);
+  p.k = static_cast<const bf16*>(k);
+  p.v = static_cast<const bf16*>(v);
+  p.bias = static_cast<const float*>(bias);
+  p.o = static_cast<bf16*>(o);
+  p.heads = heads;
+  p.sq = sq;
+  p.sk = sk;
+  p.q_bs = q_bs;
+  p.q_hs = q_hs;
+  p.q_rs = q_rs;
+  p.kv_bs = kv_bs;
+  p.kv_hs = kv_hs;
+  p.kv_rs = kv_rs;
+  p.o_bs = o_bs;
+  p.o_hs = o_hs;
+  p.o_rs = o_rs;
+  p.bias_bs = bias_bs;
+  p.bias_hs = bias_hs;
+  p.bias_rs = bias_rs;
+  p.scale_log2 = scale * kLog2e;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (d == 64) return launch<64, 1, 4, 1, 64>(p, batch, s);
+  if (d == 512) return launch<512, 8, 1, 2, 32>(p, batch, s);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+extern "C" const char* dg_error_string(int code) {
+  return cudaGetErrorString(static_cast<cudaError_t>(code));
+}

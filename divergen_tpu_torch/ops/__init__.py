@@ -1,0 +1,2 @@
+"""Device ops: each wraps a hand-written CUDA kernel (``csrc/``) and keeps its
+plain torch version beside it, for CPU tensors and as the reference."""

@@ -1,0 +1,320 @@
+"""SDXL-architecture diffusion UNet (torch, NHWC).
+
+Counterpart of ``divergen_tpu/pipeline/generation/unet.py`` on its default
+path: blocks (320, 640, 1280); down = [ResOnly, CrossAttn(depth 2),
+CrossAttn(depth 10)]; mid CrossAttn(depth 10); context dim 2048; the
+"text_time" added conditioning (pooled 1280 + 6 Fourier time ids → 2816 →
+1280). Self-attention runs through ``flash_attention_packed`` on the fused
+(B, N, 3C) projection, and norm3 → GEGLU through ``fused_ln_matmul``
+(``ln_gemm="geglu"``); both launch hand-written CUDA kernels on the card.
+Cross-attention over ≤128 text tokens stays plain torch, as the JAX package
+leaves it to XLA. Submodules carry the flax scope names, so
+``utils.convert.params_from_jax`` maps the JAX tree one to one.
+"""
+from __future__ import annotations
+
+import math
+from typing import Optional, Sequence, Tuple
+
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+from ...modeling.layers import Conv, Dense, LayerNorm
+from ...ops.flash_attention import flash_attention, flash_attention_packed
+from ...ops.ln_matmul import fused_ln_matmul
+
+
+def timestep_embedding(t: torch.Tensor, dim: int, max_period: float = 10000.0) -> torch.Tensor:
+    """Sinusoidal embedding in float32, (B,) → (B, dim): cos half, then sin
+    half (diffusers, flip_sin_to_cos=True)."""
+    half = dim // 2
+    freqs = torch.exp(-math.log(max_period)
+                      * torch.arange(half, dtype=torch.float32, device=t.device) / half)
+    args = t.float()[:, None] * freqs[None]
+    return torch.cat([torch.cos(args), torch.sin(args)], dim=-1)
+
+
+class GroupNorm32(nn.Module):
+    """GroupNorm over NHWC with gcd(32, C) groups and eps 1e-6 (the diffusers
+    UNet/VAE value), float32 statistics and affine, output in the input's
+    dtype. The affine lives in the child ``GroupNorm_0``, as in flax.
+
+    As in the JAX module, the moments are taken per channel over (H, W) and
+    then combined within each group (var = E[x²] − E[x]²): on NHWC this is a
+    reduction over the leading spatial axes, where ``F.group_norm`` would
+    copy to NCHW and reduce each whole group in one block."""
+
+    def __init__(self, channels: int, device=None):
+        super().__init__()
+        self.GroupNorm_0 = nn.GroupNorm(math.gcd(32, channels), channels, eps=1e-6,
+                                        device=device, dtype=torch.float32)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        gn = self.GroupNorm_0
+        b, c = x.shape[0], x.shape[-1]
+        per_group = c // gn.num_groups
+        xf = x.float()
+        mean = xf.mean(dim=(1, 2)).view(b, gn.num_groups, per_group).mean(-1)
+        var = xf.square().mean(dim=(1, 2)).view(b, gn.num_groups, per_group).mean(-1)
+        var = var - mean * mean
+        scale = torch.rsqrt(var + gn.eps).repeat_interleave(per_group, dim=-1) * gn.weight
+        shift = gn.bias - mean.repeat_interleave(per_group, dim=-1) * scale
+        return torch.addcmul(shift[:, None, None], xf, scale[:, None, None]).to(x.dtype)
+
+
+class ResBlock(nn.Module):
+    def __init__(self, in_channels: int, out_channels: int, temb_dim: int,
+                 dtype=torch.float32, device=None):
+        super().__init__()
+        kw = dict(dtype=dtype, device=device)
+        self.norm1 = GroupNorm32(in_channels, device)
+        self.conv1 = Conv(in_channels, out_channels, 3, **kw)
+        self.time_emb_proj = Dense(temb_dim, out_channels, **kw)
+        self.norm2 = GroupNorm32(out_channels, device)
+        self.conv2 = Conv(out_channels, out_channels, 3, **kw)
+        self.conv_shortcut = (Conv(in_channels, out_channels, 1, **kw)
+                              if in_channels != out_channels else None)
+
+    def forward(self, x: torch.Tensor, emb: torch.Tensor) -> torch.Tensor:
+        h = self.conv1(F.silu(self.norm1(x)))
+        h = h + self.time_emb_proj(F.silu(emb))[:, None, None, :]
+        h = self.conv2(F.silu(self.norm2(h)))
+        if self.conv_shortcut is not None:
+            x = self.conv_shortcut(x)
+        return x + h
+
+
+def _attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, heads: int) -> torch.Tensor:
+    """(B, Nq, C) x (B, Nk, C) multi-head attention. Over ≤128 keys (the
+    77 text tokens) plain torch; longer key sets go through
+    ``flash_attention`` in (B·H, N, d) layout."""
+    b, nq, c = q.shape
+    nk = k.shape[1]
+    d = c // heads
+    if nk <= 128:
+        qh = q.reshape(b, nq, heads, d)
+        kh = k.reshape(b, nk, heads, d)
+        vh = v.reshape(b, nk, heads, d)
+        s = torch.einsum("bnhd,bmhd->bhnm", qh.float(), kh.float()) / math.sqrt(d)
+        p = torch.softmax(s, dim=-1)
+        out = torch.einsum("bhnm,bmhd->bnhd", p.to(vh.dtype).float(), vh.float())
+        return out.to(q.dtype).reshape(b, nq, c)
+
+    def heads_first(t: torch.Tensor, n: int) -> torch.Tensor:
+        return t.reshape(b, n, heads, d).transpose(1, 2).reshape(b * heads, n, d).contiguous()
+
+    out = flash_attention(heads_first(q, nq), heads_first(k, nk), heads_first(v, nk))
+    return out.reshape(b, heads, nq, d).transpose(1, 2).reshape(b, nq, c)
+
+
+class TransformerBlock(nn.Module):
+    """self-attn → cross-attn → GEGLU FF (diffusers BasicTransformerBlock)."""
+
+    def __init__(self, channels: int, heads: int, context_dim: int,
+                 dtype=torch.float32, ln_gemm="geglu", device=None):
+        super().__init__()
+        if ln_gemm not in ("geglu", False):
+            raise ValueError(f"ln_gemm {ln_gemm!r}: the port has 'geglu' and False")
+        c = channels
+        kw = dict(dtype=dtype, device=device)
+        self.heads, self.ln_gemm = heads, ln_gemm
+        self.norm1 = LayerNorm(c, device=device)
+        self.attn1_qkv = Dense(c, 3 * c, bias=False, **kw)
+        self.attn1_out = Dense(c, c, **kw)
+        self.norm2 = LayerNorm(c, device=device)
+        self.attn2_q = Dense(c, c, bias=False, **kw)
+        self.attn2_kv = Dense(context_dim, 2 * c, bias=False, **kw)
+        self.attn2_out = Dense(c, c, **kw)
+        self.norm3 = LayerNorm(c, device=device)
+        self.ff_geglu = Dense(c, 8 * c, **kw)
+        self.ff_out = Dense(4 * c, c, **kw)
+
+    def forward(self, x: torch.Tensor, context: torch.Tensor) -> torch.Tensor:
+        qkv = self.attn1_qkv(self.norm1(x))
+        x = x + self.attn1_out(
+            flash_attention_packed(qkv, self.heads, softmax_mode="rawmax"))
+        q = self.attn2_q(self.norm2(x))
+        k, v = self.attn2_kv(context).chunk(2, dim=-1)
+        x = x + self.attn2_out(_attention(q, k, v, self.heads))
+        if self.ln_gemm == "geglu":
+            # LayerNorm folded into the GEGLU projection; the weight's
+            # transpose view is the (K, N) operand, read without a copy
+            b, n, c = x.shape
+            h = fused_ln_matmul(x.reshape(b * n, c), self.ff_geglu.weight.t(),
+                                self.norm3.weight, self.norm3.bias, self.norm3.eps,
+                                self.ff_geglu.bias, geglu=True).reshape(b, n, -1)
+        else:
+            a, gate = self.ff_geglu(self.norm3(x)).chunk(2, dim=-1)
+            h = a * F.gelu(gate)
+        return x + self.ff_out(h)
+
+
+class SpatialTransformer(nn.Module):
+    def __init__(self, channels: int, heads: int, depth: int, context_dim: int,
+                 dtype=torch.float32, ln_gemm="geglu", device=None):
+        super().__init__()
+        self.depth = depth
+        self.norm = GroupNorm32(channels, device)
+        self.proj_in = Dense(channels, channels, dtype=dtype, device=device)
+        for i in range(depth):
+            self.add_module(f"block{i}", TransformerBlock(
+                channels, heads, context_dim, dtype, ln_gemm, device))
+        self.proj_out = Dense(channels, channels, dtype=dtype, device=device)
+
+    def forward(self, x: torch.Tensor, context: torch.Tensor) -> torch.Tensor:
+        b, h, w, c = x.shape
+        res = x
+        x = self.proj_in(self.norm(x)).reshape(b, h * w, c)
+        for i in range(self.depth):
+            x = getattr(self, f"block{i}")(x, context)
+        return self.proj_out(x.reshape(b, h, w, c)) + res
+
+
+class Downsample(nn.Module):
+    def __init__(self, channels: int, dtype=torch.float32, device=None):
+        super().__init__()
+        self.conv = Conv(channels, channels, 3, stride=2, dtype=dtype, device=device)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.conv(x)
+
+
+class Upsample(nn.Module):
+    """Nearest ×2, then a 3×3 conv."""
+
+    def __init__(self, channels: int, dtype=torch.float32, device=None):
+        super().__init__()
+        self.conv = Conv(channels, channels, 3, dtype=dtype, device=device)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.conv(upsample_nearest2x(x))
+
+
+def upsample_nearest2x(x: torch.Tensor) -> torch.Tensor:
+    """NHWC nearest-neighbour ×2 (``jax.image.resize`` "nearest")."""
+    y = F.interpolate(x.permute(0, 3, 1, 2), scale_factor=2, mode="nearest")
+    return y.permute(0, 2, 3, 1)
+
+
+class UNetSDXL(nn.Module):
+    """SDXL-base UNet. Inputs NHWC latents (B, H/8, W/8, 4).
+
+    ``text_time`` builds the pooled-text + time-ids added conditioning
+    (``add_embed_1/2``); the JAX module creates it when it is initialized with
+    those inputs. Faster-Diffusion encoder reuse, int8 ``quant`` and
+    ``num_class_embeds`` are not ported yet and raise."""
+
+    def __init__(self, in_channels: int = 4, out_channels: int = 4,
+                 block_channels: Sequence[int] = (320, 640, 1280),
+                 layers_per_block: int = 2,
+                 transformer_depths: Sequence[int] = (0, 2, 10),
+                 context_dim: int = 2048, head_dim: int = 64,
+                 addition_time_embed_dim: int = 256, pooled_proj_dim: int = 2816,
+                 text_time: bool = True, num_class_embeds: Optional[int] = None,
+                 quant: bool = False, ln_gemm="geglu", dtype=torch.float32, device=None):
+        super().__init__()
+        if num_class_embeds is not None or quant:
+            raise NotImplementedError("num_class_embeds and quant are not ported yet")
+        self.in_channels = in_channels
+        self.block_channels = tuple(block_channels)
+        self.layers_per_block = layers_per_block
+        self.transformer_depths = tuple(transformer_depths)
+        self.context_dim = context_dim
+        self.addition_time_embed_dim = addition_time_embed_dim
+        self.dtype = dtype
+        kw = dict(dtype=dtype, device=device)
+        ch0 = self.block_channels[0]
+        temb = 4 * ch0
+        self.time_embed_1 = Dense(ch0, temb, **kw)
+        self.time_embed_2 = Dense(temb, temb, **kw)
+        if text_time:
+            self.add_embed_1 = Dense(pooled_proj_dim, temb, **kw)
+            self.add_embed_2 = Dense(temb, temb, **kw)
+        self.conv_in = Conv(in_channels, ch0, 3, **kw)
+
+        def attn(name, ch, depth):
+            if depth:
+                self.add_module(name, SpatialTransformer(
+                    ch, ch // head_dim, depth, context_dim, dtype, ln_gemm, device))
+
+        cur, skips = ch0, [ch0]
+        n = len(self.block_channels)
+        for lvl, ch in enumerate(self.block_channels):
+            for i in range(layers_per_block):
+                self.add_module(f"down{lvl}_res{i}", ResBlock(cur, ch, temb, **kw))
+                attn(f"down{lvl}_attn{i}", ch, self.transformer_depths[lvl])
+                cur = ch
+                skips.append(ch)
+            if lvl < n - 1:
+                self.add_module(f"down{lvl}_ds", Downsample(ch, **kw))
+                skips.append(ch)
+        self.mid_res0 = ResBlock(cur, cur, temb, **kw)
+        attn("mid_attn", cur, self.transformer_depths[-1])
+        self.mid_res1 = ResBlock(cur, cur, temb, **kw)
+        for lvl in reversed(range(n)):
+            ch = self.block_channels[lvl]
+            for i in range(layers_per_block + 1):
+                self.add_module(f"up{lvl}_res{i}", ResBlock(cur + skips.pop(), ch, temb, **kw))
+                attn(f"up{lvl}_attn{i}", ch, self.transformer_depths[lvl])
+                cur = ch
+            if lvl > 0:
+                self.add_module(f"up{lvl}_us", Upsample(ch, **kw))
+        self.norm_out = GroupNorm32(cur, device)
+        # conv_out runs in float32, as in the JAX module
+        self.conv_out = Conv(cur, out_channels, 3, dtype=torch.float32, device=device)
+
+    def _attn(self, name: str, x: torch.Tensor, context: torch.Tensor) -> torch.Tensor:
+        block = getattr(self, name, None)
+        return x if block is None else block(x, context)
+
+    def forward(self, latents: torch.Tensor, timesteps: torch.Tensor,
+                context: torch.Tensor, pooled_text: Optional[torch.Tensor] = None,
+                time_ids: Optional[torch.Tensor] = None,
+                class_labels: Optional[torch.Tensor] = None,
+                cached_encoder: Optional[Tuple] = None,
+                return_encoder: bool = False) -> torch.Tensor:
+        if class_labels is not None or cached_encoder is not None or return_encoder:
+            raise NotImplementedError(
+                "class labels and Faster-Diffusion encoder reuse are not ported yet")
+        ch0 = self.block_channels[0]
+        emb = self.time_embed_1(timestep_embedding(timesteps, ch0))
+        emb = self.time_embed_2(F.silu(emb))
+        if pooled_text is not None and time_ids is not None:
+            ids = timestep_embedding(time_ids.reshape(-1), self.addition_time_embed_dim)
+            ids = ids.reshape(latents.shape[0], -1)
+            add = torch.cat([pooled_text, ids.to(pooled_text.dtype)], dim=-1)
+            add = self.add_embed_2(F.silu(self.add_embed_1(add)))
+            emb = emb + add
+
+        context = context.to(self.dtype)
+        x = self.conv_in(latents)
+        skips = [x]
+        n = len(self.block_channels)
+        for lvl in range(n):
+            for i in range(self.layers_per_block):
+                x = getattr(self, f"down{lvl}_res{i}")(x, emb)
+                x = self._attn(f"down{lvl}_attn{i}", x, context)
+                skips.append(x)
+            if lvl < n - 1:
+                x = getattr(self, f"down{lvl}_ds")(x)
+                skips.append(x)
+        x = self.mid_res0(x, emb)
+        x = self._attn("mid_attn", x, context)
+        x = self.mid_res1(x, emb)
+        for lvl in reversed(range(n)):
+            for i in range(self.layers_per_block + 1):
+                x = torch.cat([x, skips.pop()], dim=-1)
+                x = getattr(self, f"up{lvl}_res{i}")(x, emb)
+                x = self._attn(f"up{lvl}_attn{i}", x, context)
+            if lvl > 0:
+                x = getattr(self, f"up{lvl}_us")(x)
+        x = F.silu(self.norm_out(x))
+        return self.conv_out(x)
+
+    @classmethod
+    def tiny(cls, **kw) -> "UNetSDXL":
+        """Small config for tests."""
+        kw.setdefault("text_time", False)
+        return cls(block_channels=(32, 64), transformer_depths=(0, 1), context_dim=64,
+                   head_dim=16, layers_per_block=1, **kw)

@@ -1,0 +1,106 @@
+"""The port's SDXL pipeline and txt2img CLI against the JAX package.
+
+The tiny pipeline's denoise loop runs for both samplers from the same numpy
+initial latents and contexts, with the same weights (flax ``init`` →
+``params_from_jax``), float32 on the CPU, then the VAE decode; the images
+must agree within 1e-3 of the 0–255 range (0.255). The CLI test runs the
+port's ``txt2img.main --tiny`` at 64²: reference file naming, resume, and the
+stdlib PNG writer read back by OpenCV.
+"""
+import os
+
+import cv2
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from divergen_tpu.pipeline.generation import pipeline as jpipe
+from divergen_tpu.pipeline.generation import unet as junet
+from divergen_tpu.pipeline.generation import vae as jvae
+from divergen_tpu_torch.pipeline.generation import pipeline as tpipe
+from divergen_tpu_torch.pipeline.generation import txt2img
+from divergen_tpu_torch.pipeline.generation import unet as tunet
+from divergen_tpu_torch.pipeline.generation import vae as tvae
+from divergen_tpu_torch.utils.convert import params_from_jax
+from divergen_tpu_torch.utils.png import write_png
+
+torch.set_num_threads(1)
+
+
+@pytest.fixture(scope="module")
+def tiny_models():
+    lat = jnp.zeros((1, 8, 8, 4))
+    ju, jv = junet.UNetSDXL.tiny(), jvae.VAEDecoder(channels=(32, 32))
+    up = jax.jit(ju.init)(jax.random.PRNGKey(0), lat, jnp.zeros((1,)), jnp.zeros((1, 77, 64)))
+    vp = jax.jit(jv.init)(jax.random.PRNGKey(1), lat)
+    tu, tv = tunet.UNetSDXL.tiny(), tvae.VAEDecoder(channels=(32, 32))
+    tu.load_state_dict(params_from_jax(jax.tree.map(np.asarray, up)))
+    tv.load_state_dict(params_from_jax(jax.tree.map(np.asarray, vp)))
+    return (ju, up, jv, vp), (tu, tv)
+
+
+@pytest.mark.parametrize("sampler", ["euler", "dpmpp_2m"])
+def test_tiny_pipeline_denoise_and_decode(tiny_models, sampler):
+    (ju, up, jv, vp), (tu, tv) = tiny_models
+    rng = np.random.RandomState(3)
+    b, steps = 2, 3
+    lat = rng.randn(b, 8, 8, 4).astype(np.float32)
+    ctx = rng.randn(b, 77, 64).astype(np.float32)
+    unc = rng.randn(b, 77, 64).astype(np.float32)
+
+    jp = jpipe.SDXLPipeline(ju, up, jv, vp, steps=steps, sampler=sampler)
+    want_lat = jp._denoise(up, jnp.asarray(lat * jp._init_scale), jnp.asarray(ctx),
+                           jnp.asarray(unc), None, None, None)
+    want = np.stack([np.asarray(jnp.clip((jv.apply(vp, l[None])[0] + 1.0) * 127.5, 0, 255))
+                     for l in want_lat])
+
+    tp = tpipe.SDXLPipeline(tu, tv, steps=steps, sampler=sampler)
+    assert tp._init_scale == pytest.approx(jp._init_scale, rel=1e-6)
+    got_lat = tp.denoise(torch.from_numpy(lat * tp._init_scale), torch.from_numpy(ctx),
+                         torch.from_numpy(unc))
+    np.testing.assert_allclose(got_lat.numpy(), np.asarray(want_lat), rtol=1e-4,
+                               atol=1e-4 * np.abs(np.asarray(want_lat)).max())
+    got = tp.decode(got_lat)
+    assert got.shape == (b, 16, 16, 3)  # the tiny VAE upsamples x2
+    assert np.abs(got.numpy() - want).max() <= 1e-3 * 255
+    u8 = tpipe.images_to_uint8(got)
+    assert u8.dtype == np.uint8 and u8.shape == (b, 16, 16, 3)
+
+
+def test_txt2img_tiny_naming_resume_png(tmp_path):
+    prompts = tmp_path / "prompts"
+    prompts.mkdir()
+    (prompts / "37.txt").write_text("a photo of a single cat\n")
+    out = tmp_path / "out"
+    argv = ["--from_file", str(prompts), "--outdir", str(out), "--n_samples", "2",
+            "--max_batch_size", "2", "--offset", "5", "--tiny", "--height", "64",
+            "--width", "64", "--steps", "2", "--sampler", "dpmpp_2m", "--device", "cpu"]
+    assert txt2img.main(argv) == 0
+    sample_dir = out / "samples" / "XL"
+    names = sorted(os.listdir(sample_dir))
+    assert names == ["37_0000005.png", "37_0000006.png"]
+    mtimes = [os.stat(sample_dir / n).st_mtime_ns for n in names]
+    for n in names:
+        img = cv2.imread(str(sample_dir / n), cv2.IMREAD_UNCHANGED)
+        assert img.shape == (16, 16, 3) and img.dtype == np.uint8
+    assert txt2img.main(argv + ["--disable_overwrite"]) == 0
+    assert [os.stat(sample_dir / n).st_mtime_ns for n in names] == mtimes
+
+
+def test_png_writer_round_trips_through_cv2(tmp_path):
+    rgb = np.random.RandomState(4).randint(0, 256, (7, 13, 3), dtype=np.uint8)
+    write_png(str(tmp_path / "a.png"), rgb)
+    # OpenCV decodes to BGR: the same pixels cv2.imwrite stores from RGB→BGR
+    np.testing.assert_array_equal(cv2.imread(str(tmp_path / "a.png"))[..., ::-1], rgb)
+    cv2.imwrite(str(tmp_path / "b.png"), cv2.cvtColor(rgb, cv2.COLOR_RGB2BGR))
+    np.testing.assert_array_equal(cv2.imread(str(tmp_path / "b.png")),
+                                  cv2.imread(str(tmp_path / "a.png")))
+
+
+def test_unported_flags_exit():
+    for flag in (["--int8"], ["--encoder_reuse"], ["--data_parallel"], ["--stages", "XL", "x4"],
+                 ["--stages", "I"]):
+        with pytest.raises(SystemExit, match="not yet ported"):
+            txt2img.main(flag + ["--tiny", "--device", "cpu"])
