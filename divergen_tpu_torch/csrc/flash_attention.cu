@@ -1,6 +1,6 @@
 // Flash attention forward for Hopper (sm_90a), bf16 in and out, f32 softmax.
 //
-// Replaces two Pallas TPU kernels of divergen_tpu/ops/pallas/flash_attention.py:
+// Replaces three Pallas TPU kernels of divergen_tpu/ops/pallas/flash_attention.py:
 //   * flash_attention_packed (_packed_kernel / _packed_kernel2): self-attention
 //     read straight out of a fused (B, N, 3C) QKV projection, written to
 //     (B, N, C) with no transposes. Head h of slot s is channels
@@ -8,10 +8,15 @@
 //   * flash_attention (_attn_kernel_main / _attn_bias_kernel): (BH, S, D)
 //     attention with padded keys masked by index and an optional dense
 //     (BH, Sq, Sk) bias added to the score tile.
-// Both are one templated body: q, k, v and o are addressed as
+//   * flash_attention_relpos (_relpos_kernel): global self-attention over an
+//     H x W token grid with the decomposed relative-position bias of ViTDet
+//     and SAM, bias[q, k = (u, v)] = Bh[u, q] + Bw[v, q], given as the two
+//     f32 factors (BH, H, N) and (BH, W, N). The (N, N) bias never exists in
+//     memory.
+// All three are one templated body: q, k, v and o are addressed as
 // base + b*batch_stride + h*head_stride + row*row_stride, so the packed
-// layout and the (BH, S, D) layout differ only in the strides the wrapper
-// passes.
+// layout, the (BH, S, D) layout and strided views of a fused projection
+// differ only in the strides the wrapper passes.
 //
 // What bounds it on the H100: the two products per K tile run on the tensor
 // cores; between them the online softmax (scale, max, exp2, sum, rescale) runs
@@ -37,6 +42,25 @@
 //     are summed through shared memory, and every warp then runs the same
 //     softmax on the same sums (bit-identical, so no further exchange) and
 //     the P@V product for its own 64 output columns. K tiles of 32 keys.
+//   * d = 80 (SAM ViT-H) and the relative-position bias: the d = 64 shape
+//     with five k-steps per product instead of four. Rows are 160 bytes and
+//     are stored at a stride of 176 bytes (D + 8 elements), which keeps every
+//     ldmatrix row address 16-byte aligned and the eight rows of one 8x8
+//     matrix on distinct banks; there is no swizzle that assumes a power of
+//     two, and the head dimension is not padded, so nothing is wasted.
+//     The TPU kernel computes the score tile transposed so that both bias
+//     broadcasts run along sublanes, and needs N to divide by its blocks;
+//     neither carries over. Here the block stages the two factor slabs of its
+//     q tile once, (H x BQ) and (W x BQ) f32, already multiplied by log2(e),
+//     in shared memory (34 KB at H = W = 64), and every score element adds
+//     bh[u][qi] + bw[v][qi]. The key's grid position (u, v) costs one integer
+//     division per thread and K tile and is stepped from there. The slab rows
+//     are padded by four floats so that the four lanes of a row group, whose
+//     keys differ by two grid columns, read distinct banks. Any H, W >= 1:
+//     ragged tiles are masked by index. At SAM's shape the kernel is bound by
+//     operations (4·BH·N²·d), as kernel 1 is; the bias adds two shared-memory
+//     reads and one add per score element to the softmax work between the
+//     products.
 // No TMA, wgmma or warp specialisation yet.
 
 #include <cuda_bf16.h>
@@ -64,6 +88,11 @@ struct AttnParams {
   int64_t o_bs, o_hs, o_rs;
   int64_t bias_bs, bias_hs, bias_rs;  // key stride of the bias is 1
   float scale_log2;                   // softmax scale * log2(e)
+  // decomposed relative-position bias: contiguous (batch*heads, H, sq) and
+  // (batch*heads, W, sq) f32 factors over an H x W key grid, sk == H*W
+  const float* rel_bh;
+  const float* rel_bw;
+  int rel_h, rel_w;
 };
 
 // D: head dim; ND warps split D; NR warps split the q rows; RG 16-row groups
@@ -75,12 +104,15 @@ struct Cfg {
   static constexpr int THREADS = 32 * ND * NR;
   static constexpr int LD = D + 8;           // bf16 row stride in shared memory
   static constexpr int LDS = BK + 4;         // f32 row stride of partial scores
+  static constexpr int LDB = BQ + 4;         // f32 row stride of the rel-pos slabs
   static constexpr size_t q_bytes = sizeof(bf16) * BQ * LD;
   static constexpr size_t kv_bytes = sizeof(bf16) * BK * LD;  // one tile
   static constexpr size_t s_bytes = ND > 1 ? sizeof(float) * ND * NR * RG * 16 * LDS : 0;
   static constexpr size_t bytes = q_bytes + 4 * kv_bytes + s_bytes;
   static_assert(WD % 16 == 0 && BK % 16 == 0 && D % 8 == 0, "tile shapes");
   static_assert(q_bytes % 128 == 0 && kv_bytes % 128 == 0, "aligned regions");
+  // the rel-pos factor slabs of one q tile follow the other regions
+  static size_t rel_bytes(int h, int w) { return sizeof(float) * (h + w) * LDB; }
 };
 
 // rows x D tile, global -> shared, 16-byte cp.async; rows >= valid are zeros
@@ -96,7 +128,7 @@ __device__ __forceinline__ void load_tile(bf16* dst, int ld, const bf16* src,
   }
 }
 
-template <int D, int ND, int NR, int RG, int BK>
+template <int D, int ND, int NR, int RG, int BK, bool REL>
 __global__ void __launch_bounds__(Cfg<D, ND, NR, RG, BK>::THREADS)
     flash_attn_kernel(const AttnParams p) {
   using C = Cfg<D, ND, NR, RG, BK>;
@@ -106,6 +138,8 @@ __global__ void __launch_bounds__(Cfg<D, ND, NR, RG, BK>::THREADS)
   bf16* sK = reinterpret_cast<bf16*>(smem + C::q_bytes);  // 2 stages
   bf16* sV = reinterpret_cast<bf16*>(smem + C::q_bytes + 2 * C::kv_bytes);
   float* sS = reinterpret_cast<float*>(smem + C::q_bytes + 4 * C::kv_bytes);
+  float* sBh = reinterpret_cast<float*>(smem + C::bytes);  // (H, LDB), REL only
+  float* sBw = sBh + (REL ? p.rel_h : 0) * C::LDB;         // (W, LDB)
 
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
@@ -130,6 +164,19 @@ __global__ void __launch_bounds__(Cfg<D, ND, NR, RG, BK>::THREADS)
   load_tile<D, C::THREADS>(sK, C::LD, k, p.kv_rs, BK, p.sk);
   load_tile<D, C::THREADS>(sV, C::LD, v, p.kv_rs, BK, p.sk);
   dg::cp_async_commit();
+  if constexpr (REL) {
+    // the bias factors of this q tile, times log2(e); rows past sq are zeros
+    const int64_t bh_idx = static_cast<int64_t>(b) * p.heads + h;
+    const float* gbh = p.rel_bh + bh_idx * p.rel_h * p.sq;
+    const float* gbw = p.rel_bw + bh_idx * p.rel_w * p.sq;
+    for (int i = threadIdx.x; i < (p.rel_h + p.rel_w) * C::BQ; i += C::THREADS) {
+      const int r = i / C::BQ;
+      const int c = i - r * C::BQ;
+      const float* src = r < p.rel_h ? gbh + static_cast<int64_t>(r) * p.sq
+                                     : gbw + static_cast<int64_t>(r - p.rel_h) * p.sq;
+      sBh[r * C::LDB + c] = q0 + c < p.sq ? src[q0 + c] * kLog2e : 0.f;
+    }
+  }
   dg::cp_async_wait<1>();  // q has landed
   __syncthreads();
 
@@ -222,13 +269,48 @@ __global__ void __launch_bounds__(Cfg<D, ND, NR, RG, BK>::THREADS)
         }
     }
 
+    // grid position (u, v) of this lane's first key of the tile
+    int u_tile = 0, v_tile = 0;
+    if constexpr (REL) {
+      u_tile = (k0 + 2 * t4) / p.rel_w;
+      v_tile = k0 + 2 * t4 - u_tile * p.rel_w;
+    }
+
     // base-2 online softmax in registers; lanes 4g..4g+3 share rows g and g+8
 #pragma unroll
     for (int rg = 0; rg < RG; ++rg) {
       const int qrow = q0 + row0 + rg * 16 + g;
       float mx[2] = {kNegInf, kNegInf};
+      int ua = u_tile, va = v_tile;  // of key k0 + j*8 + 2*t4, stepped with j
 #pragma unroll
-      for (int j = 0; j < BK / 8; ++j)
+      for (int j = 0; j < BK / 8; ++j) {
+        float rel[4] = {0.f, 0.f, 0.f, 0.f};
+        if constexpr (REL) {
+          const int key = k0 + j * 8 + 2 * t4;
+          const int ql = row0 + rg * 16 + g;  // row of the slabs; + 8 for e >= 2
+          int ub = ua, vb = va + 1;           // of key + 1
+          if (vb == p.rel_w) {
+            vb = 0;
+            ++ub;
+          }
+          if (key < p.sk) {
+            const float* bh = sBh + ua * C::LDB + ql;
+            const float* bw = sBw + va * C::LDB + ql;
+            rel[0] = bh[0] + bw[0];
+            rel[2] = bh[8] + bw[8];
+          }
+          if (key + 1 < p.sk) {
+            const float* bh = sBh + ub * C::LDB + ql;
+            const float* bw = sBw + vb * C::LDB + ql;
+            rel[1] = bh[0] + bw[0];
+            rel[3] = bh[8] + bw[8];
+          }
+          va += 8;
+          while (va >= p.rel_w) {
+            va -= p.rel_w;
+            ++ua;
+          }
+        }
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
           const int key = k0 + j * 8 + 2 * t4 + (e & 1);
@@ -236,12 +318,15 @@ __global__ void __launch_bounds__(Cfg<D, ND, NR, RG, BK>::THREADS)
           float x = s[rg][j][e] * p.scale_log2;
           if (key >= p.sk) {
             x = kNegInf;
+          } else if (REL) {
+            x += rel[e];
           } else if (bias != nullptr && qi < p.sq) {
             x += bias[qi * p.bias_rs + key] * kLog2e;
           }
           s[rg][j][e] = x;
           mx[e >> 1] = fmaxf(mx[e >> 1], x);
         }
+      }
       float alpha[2];
 #pragma unroll
       for (int r = 0; r < 2; ++r) {
@@ -316,31 +401,27 @@ __global__ void __launch_bounds__(Cfg<D, ND, NR, RG, BK>::THREADS)
   }
 }
 
-template <int D, int ND, int NR, int RG, int BK>
+template <int D, int ND, int NR, int RG, int BK, bool REL = false>
 int launch(const AttnParams& p, int batch, cudaStream_t stream) {
   using C = Cfg<D, ND, NR, RG, BK>;
-  cudaError_t err = cudaFuncSetAttribute(flash_attn_kernel<D, ND, NR, RG, BK>,
+  const size_t bytes = C::bytes + (REL ? C::rel_bytes(p.rel_h, p.rel_w) : 0);
+  cudaError_t err = cudaFuncSetAttribute(flash_attn_kernel<D, ND, NR, RG, BK, REL>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         static_cast<int>(C::bytes));
+                                         static_cast<int>(bytes));
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid((p.sq + C::BQ - 1) / C::BQ, p.heads, batch);
-  flash_attn_kernel<D, ND, NR, RG, BK><<<grid, C::THREADS, C::bytes, stream>>>(p);
+  flash_attn_kernel<D, ND, NR, RG, BK, REL><<<grid, C::THREADS, bytes, stream>>>(p);
   return static_cast<int>(cudaGetLastError());
 }
 
-}  // namespace
-
-extern "C" int dg_flash_attention_bf16(
-    const void* q, const void* k, const void* v, const void* bias, void* o,
-    int batch, int heads, int sq, int sk, int d, int64_t q_bs, int64_t q_hs,
-    int64_t q_rs, int64_t kv_bs, int64_t kv_hs, int64_t kv_rs, int64_t o_bs,
-    int64_t o_hs, int64_t o_rs, int64_t bias_bs, int64_t bias_hs,
-    int64_t bias_rs, float scale, void* stream) {
-  AttnParams p;
+AttnParams make_params(const void* q, const void* k, const void* v, void* o, int heads,
+                       int sq, int sk, int64_t q_bs, int64_t q_hs, int64_t q_rs,
+                       int64_t kv_bs, int64_t kv_hs, int64_t kv_rs, int64_t o_bs,
+                       int64_t o_hs, int64_t o_rs, float scale) {
+  AttnParams p = {};
   p.q = static_cast<const bf16*>(q);
   p.k = static_cast<const bf16*>(k);
   p.v = static_cast<const bf16*>(v);
-  p.bias = static_cast<const float*>(bias);
   p.o = static_cast<bf16*>(o);
   p.heads = heads;
   p.sq = sq;
@@ -354,13 +435,49 @@ extern "C" int dg_flash_attention_bf16(
   p.o_bs = o_bs;
   p.o_hs = o_hs;
   p.o_rs = o_rs;
+  p.scale_log2 = scale * kLog2e;
+  return p;
+}
+
+}  // namespace
+
+extern "C" int dg_flash_attention_bf16(
+    const void* q, const void* k, const void* v, const void* bias, void* o,
+    int batch, int heads, int sq, int sk, int d, int64_t q_bs, int64_t q_hs,
+    int64_t q_rs, int64_t kv_bs, int64_t kv_hs, int64_t kv_rs, int64_t o_bs,
+    int64_t o_hs, int64_t o_rs, int64_t bias_bs, int64_t bias_hs,
+    int64_t bias_rs, float scale, void* stream) {
+  AttnParams p = make_params(q, k, v, o, heads, sq, sk, q_bs, q_hs, q_rs, kv_bs, kv_hs,
+                             kv_rs, o_bs, o_hs, o_rs, scale);
+  p.bias = static_cast<const float*>(bias);
   p.bias_bs = bias_bs;
   p.bias_hs = bias_hs;
   p.bias_rs = bias_rs;
-  p.scale_log2 = scale * kLog2e;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (d == 64) return launch<64, 1, 4, 1, 64>(p, batch, s);
   if (d == 512) return launch<512, 8, 1, 2, 32>(p, batch, s);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// Self-attention over a grid_h x grid_w token grid (n = grid_h * grid_w rows)
+// with the decomposed relative-position bias; bias_h (batch*heads, grid_h, n)
+// and bias_w (batch*heads, grid_w, n) are contiguous f32.
+extern "C" int dg_flash_attention_relpos_bf16(
+    const void* q, const void* k, const void* v, const void* bias_h,
+    const void* bias_w, void* o, int batch, int heads, int grid_h, int grid_w,
+    int d, int64_t q_bs, int64_t q_hs, int64_t q_rs, int64_t kv_bs,
+    int64_t kv_hs, int64_t kv_rs, int64_t o_bs, int64_t o_hs, int64_t o_rs,
+    float scale, void* stream) {
+  if (grid_h < 1 || grid_w < 1) return static_cast<int>(cudaErrorInvalidValue);
+  const int n = grid_h * grid_w;
+  AttnParams p = make_params(q, k, v, o, heads, n, n, q_bs, q_hs, q_rs, kv_bs, kv_hs,
+                             kv_rs, o_bs, o_hs, o_rs, scale);
+  p.rel_bh = static_cast<const float*>(bias_h);
+  p.rel_bw = static_cast<const float*>(bias_w);
+  p.rel_h = grid_h;
+  p.rel_w = grid_w;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (d == 80) return launch<80, 1, 4, 1, 64, true>(p, batch, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

@@ -4,13 +4,15 @@ The JAX package's flax modules keep their parameters in float32 and cast
 dense and conv weights to the module's compute ``dtype`` at apply time, while
 norms keep float32 scale and bias. The port stores weights the same way:
 ``Dense`` and ``Conv`` hold theirs in the compute dtype, ``LayerNorm`` holds
-float32. Activations are NHWC, as in the JAX package; ``Conv`` hands the
-convolution a channels-last NCHW view and returns NHWC again.
+float32. Activations are NHWC, as in the JAX package; ``Conv`` and
+``ConvTranspose`` hand the convolution a channels-last NCHW view and return
+NHWC again. flax ``nn.LayerNorm`` defaults to eps 1e-6, the port's
+``LayerNorm`` to torch's 1e-5: the ViT and SAM modules pass 1e-6, CLIP 1e-5.
 """
 from __future__ import annotations
 
 import math
-from typing import Dict
+from typing import Dict, Optional
 
 import torch
 import torch.nn as nn
@@ -25,12 +27,31 @@ class Dense(nn.Linear):
 
 
 class Conv(nn.Conv2d):
-    """flax ``nn.Conv`` on NHWC activations ("SAME"-style padding k // 2)."""
+    """flax ``nn.Conv`` on NHWC activations. ``padding`` defaults to the
+    "SAME"-style k // 2; a patch embedding (stride = kernel) passes 0."""
 
     def __init__(self, in_channels: int, out_channels: int, kernel_size: int = 3,
-                 stride: int = 1, dtype=None, device=None):
+                 stride: int = 1, dtype=None, device=None, bias: bool = True,
+                 padding: Optional[int] = None):
         super().__init__(in_channels, out_channels, kernel_size, stride=stride,
-                         padding=kernel_size // 2, dtype=dtype, device=device)
+                         padding=kernel_size // 2 if padding is None else padding,
+                         bias=bias, dtype=dtype, device=device)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = super().forward(x.to(self.weight.dtype).permute(0, 3, 1, 2))
+        return y.permute(0, 2, 3, 1)
+
+
+class ConvTranspose(nn.ConvTranspose2d):
+    """flax ``nn.ConvTranspose`` with kernel = stride (an exact ×stride
+    upsampling) on NHWC activations. torch keeps the weight as (in, out, kh,
+    kw) in scatter form; ``utils.convert.params_from_jax`` flips and
+    transposes flax's (kh, kw, in, out) kernel into it."""
+
+    def __init__(self, in_channels: int, out_channels: int, kernel_size: int = 2,
+                 dtype=None, device=None):
+        super().__init__(in_channels, out_channels, kernel_size, stride=kernel_size,
+                         dtype=dtype, device=device)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         y = super().forward(x.to(self.weight.dtype).permute(0, 3, 1, 2))
@@ -76,6 +97,10 @@ def flax_init_(module: nn.Module, gen: torch.Generator) -> nn.Module:
             _lecun_normal_(mod.weight, mod.weight[0].numel(), gen)
             if mod.bias is not None:
                 mod.bias.zero_()
+        elif isinstance(mod, nn.ConvTranspose2d):
+            # weight (in, out, kh, kw); fan_in = in_channels · kh · kw
+            _lecun_normal_(mod.weight, mod.weight[:, 0].numel(), gen)
+            mod.bias.zero_()
         elif isinstance(mod, nn.Embedding):
             mod.weight.normal_(0.0, mod.embedding_dim ** -0.5, generator=gen)
         elif isinstance(mod, (nn.LayerNorm, nn.GroupNorm)):

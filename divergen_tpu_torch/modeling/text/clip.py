@@ -1,11 +1,13 @@
-"""CLIP text towers (torch).
+"""CLIP text and vision towers (torch).
 
 Counterpart of ``divergen_tpu/modeling/text/clip.py``: pre-LN residual
 blocks, QuickGELU (OpenAI CLIP) or exact GELU (OpenCLIP bigG), a causal mask
 of -1e9, argmax-EOT pooling, and the penultimate hidden states that SDXL
 conditions on. Submodules carry the flax scope names (``resblock{i}.ln_1``,
 ``attn.in_proj``, ``mlp_c_fc``, …) so ``utils.convert.params_from_jax`` maps
-the JAX tree one to one. ``CLIPVision`` comes with the filtration slice.
+the JAX tree one to one. ``CLIPVision`` is the ViT tower with cls-token
+pooling that the filtration stage scores images with: 257 tokens at d = 64,
+dense attention as in the JAX package. Every LayerNorm here has eps 1e-5.
 """
 from __future__ import annotations
 
@@ -15,7 +17,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from ..layers import Dense, LayerNorm
+from ..layers import Conv, Dense, LayerNorm
 
 
 def quick_gelu(x: torch.Tensor) -> torch.Tensor:
@@ -101,6 +103,74 @@ class CLIPText(nn.Module):
         if return_sequence:
             return pooled, (hidden if penultimate else x)
         return pooled
+
+
+class CLIPVision(nn.Module):
+    """ViT tower with cls-token pooling and output projection."""
+
+    def __init__(self, embed_dim: int = 768, image_size: int = 224, patch: int = 14,
+                 width: int = 1024, heads: int = 16, layers: int = 24,
+                 dtype=torch.float32, device=None):
+        super().__init__()
+        self.layers, self.width, self.dtype = layers, width, dtype
+        self.conv1 = Conv(3, width, patch, stride=patch, padding=0, bias=False, dtype=dtype,
+                          device=device)
+        n_pos = (image_size // patch) ** 2 + 1
+        self.class_embedding = nn.Parameter(torch.zeros(width, device=device))
+        self.positional_embedding = nn.Parameter(torch.zeros(n_pos, width, device=device))
+        self.ln_pre = LayerNorm(width, device=device)
+        for i in range(layers):
+            self.add_module(f"resblock{i}",
+                            ResidualAttentionBlock(width, heads, dtype, device=device))
+        self.ln_post = LayerNorm(width, device=device)
+        self.proj = nn.Parameter(torch.zeros(width, embed_dim, device=device))
+        self.raw_init_std = {"class_embedding": 0.02, "positional_embedding": 0.02,
+                             "proj": width**-0.5}
+
+    def forward(self, images: torch.Tensor) -> torch.Tensor:
+        """images (B, H, W, 3) normalized → (B, embed_dim)."""
+        b = images.shape[0]
+        x = self.conv1(images).reshape(b, -1, self.width)
+        cls = self.class_embedding.to(x.dtype).expand(b, 1, -1)
+        x = torch.cat([cls, x], dim=1)
+        x = self.ln_pre(x + self.positional_embedding[None, : x.shape[1]].to(x.dtype))
+        for i in range(self.layers):
+            x = getattr(self, f"resblock{i}")(x)
+        x = self.ln_post(x[:, 0])
+        return x @ self.proj.to(x.dtype)
+
+
+CLIP_CONFIGS = {
+    # embed_dim, vision(width, layers, heads, patch), text(width, layers, heads)
+    "ViT-B/32": (512, (768, 12, 12, 32), (512, 12, 8)),
+    "ViT-B/16": (512, (768, 12, 12, 16), (512, 12, 8)),
+    "ViT-L/14": (768, (1024, 24, 16, 14), (768, 12, 12)),
+}
+
+CLIP_PIXEL_MEAN = (0.48145466, 0.4578275, 0.40821073)
+CLIP_PIXEL_STD = (0.26862954, 0.26130258, 0.27577711)
+
+
+def build_clip(name: str = "ViT-L/14", image_size: int = 224, dtype=torch.float32,
+               device=None) -> Tuple[CLIPVision, CLIPText]:
+    embed, (vw, vl, vh, vp), (tw, tl, th) = CLIP_CONFIGS[name]
+    vision = CLIPVision(embed_dim=embed, image_size=image_size, patch=vp, width=vw,
+                        heads=vh, layers=vl, dtype=dtype, device=device)
+    text = CLIPText(embed_dim=embed, width=tw, heads=th, layers=tl, dtype=dtype,
+                    device=device)
+    return vision, text
+
+
+def preprocess_images(images: torch.Tensor) -> torch.Tensor:
+    """uint8/float RGB 0..255 (B, H, W, 3) → CLIP-normalized float32."""
+    x = images.float() / 255.0
+    mean = torch.tensor(CLIP_PIXEL_MEAN, device=x.device)
+    std = torch.tensor(CLIP_PIXEL_STD, device=x.device)
+    return (x - mean) / std
+
+
+def normalize(v: torch.Tensor, dim: int = -1) -> torch.Tensor:
+    return v / torch.linalg.norm(v, dim=dim, keepdim=True).clamp_min(1e-8)
 
 
 def build_sdxl_text_towers(dtype=torch.float32, device=None) -> Tuple[CLIPText, CLIPText]:

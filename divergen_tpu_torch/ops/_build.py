@@ -83,6 +83,8 @@ def _declare(lib: ctypes.CDLL) -> None:
     p, i, i64, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, ctypes.c_float
     lib.dg_flash_attention_bf16.argtypes = [p] * 5 + [i] * 5 + [i64] * 12 + [f, p]
     lib.dg_flash_attention_bf16.restype = i
+    lib.dg_flash_attention_relpos_bf16.argtypes = [p] * 6 + [i] * 5 + [i64] * 9 + [f, p]
+    lib.dg_flash_attention_relpos_bf16.restype = i
     lib.dg_ln_matmul_bf16.argtypes = [p] * 7 + [i] * 3 + [f, i, p]
     lib.dg_ln_matmul_bf16.restype = i
     lib.dg_error_string.argtypes = [i]

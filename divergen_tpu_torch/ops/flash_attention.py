@@ -1,25 +1,32 @@
 """Flash attention: hand-written CUDA kernel on the card, plain torch on the CPU.
 
 Counterpart of ``divergen_tpu/ops/pallas/flash_attention.py``:
-``flash_attention`` ((BH, S, D), optional dense bias) and
+``flash_attention`` ((BH, S, D), optional dense bias),
 ``flash_attention_packed`` (self-attention straight out of a fused
-(B, N, 3C) QKV projection). Both launch ``csrc/flash_attention.cu`` for a
-CUDA tensor and use the plain version in this module, the numerics reference,
-for a CPU tensor. A CUDA tensor the kernel cannot take raises.
+(B, N, 3C) QKV projection) and ``flash_attention_relpos`` (global attention
+over a token grid with the decomposed relative-position bias of ViTDet and
+SAM). All launch ``csrc/flash_attention.cu`` for a CUDA tensor and use the
+plain version in this module, the numerics reference, for a CPU tensor. A
+CUDA tensor the kernel cannot take raises.
 
 Each wrapper counts its kernel launches in a plain int attribute
-(``flash_attention.launches``, ``flash_attention_packed.launches``).
+(``flash_attention.launches``, ``flash_attention_packed.launches``,
+``flash_attention_relpos.launches``).
 """
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
 from . import _build
 
 KERNEL_HEAD_DIMS = (64, 512)  # head dims the kernel is instantiated for
+RELPOS_HEAD_DIMS = (80,)  # ... with the relative-position bias (SAM ViT-H)
+# The block keeps H + W rows of 64 + 4 floats beside its q tile and K/V ring
+# (5 tiles of 64 rows of d + 8 bf16) in the 232,448 bytes it may use.
+RELPOS_MAX_GRID_SIDES = (232448 - 5 * 64 * (80 + 8) * 2) // ((64 + 4) * 4)
 SOFTMAX_MODES = ("exact", "rawmax")  # the same math; the TPU's bf16exp is not ported
 
 
@@ -47,17 +54,36 @@ def reference_attention_packed(qkv: torch.Tensor, heads: int) -> torch.Tensor:
     return out.to(qkv.dtype).reshape(b, n, heads * d)
 
 
-def _require_kernel_input(name: str, t: torch.Tensor, d: int) -> None:
+def reference_attention_relpos(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                               bias_h_t: torch.Tensor, bias_w_t: torch.Tensor,
+                               hw: Tuple[int, int]) -> torch.Tensor:
+    """Plain attention with the decomposed relative-position bias: q/k/v
+    (BH, N, D); bias_h_t (BH, H, N); bias_w_t (BH, W, N); N = H·W. The bias of
+    query q against key (u, v) is ``bias_h_t[b, u, q] + bias_w_t[b, v, q]``."""
+    bh, n, d = q.shape
+    s = torch.einsum("bqd,bkd->bqk", q.float(), k.float()) / math.sqrt(d)
+    bias = bias_h_t[:, :, None, :] + bias_w_t[:, None, :, :]  # (BH, H, W, N)
+    s = s + bias.reshape(bh, n, n).transpose(1, 2).float()
+    p = torch.softmax(s, dim=-1)
+    return torch.einsum("bqk,bkd->bqd", p.to(v.dtype).float(), v.float()).to(q.dtype)
+
+
+def _require_kernel_input(name: str, t: torch.Tensor, d: int, head_dims=KERNEL_HEAD_DIMS,
+                          strided: bool = False) -> None:
     if t.device.type != "cuda":
         raise ValueError(f"{name}: expected a CUDA or CPU tensor, got {t.device}")
     if t.dtype != torch.bfloat16:
         raise ValueError(f"{name}: the kernel takes bfloat16, got {t.dtype}")
-    if not t.is_contiguous():
+    if strided:
+        if t.stride(-1) != 1 or any(st % 8 for st in t.stride()[:-1]):
+            raise ValueError(f"{name}: the kernel takes a unit last stride and other "
+                             f"strides that are multiples of 8, got {t.stride()}")
+    elif not t.is_contiguous():
         raise ValueError(f"{name}: the kernel takes a contiguous tensor")
     if t.data_ptr() % 16:
         raise ValueError(f"{name}: the kernel needs 16-byte aligned data")
-    if d not in KERNEL_HEAD_DIMS:
-        raise ValueError(f"head dim {d} has no kernel (instantiated: {KERNEL_HEAD_DIMS})")
+    if d not in head_dims:
+        raise ValueError(f"head dim {d} has no kernel (instantiated: {head_dims})")
 
 
 def _launch(q_ptr, k_ptr, v_ptr, bias, out, batch, heads, sq, sk, d,
@@ -132,3 +158,67 @@ def flash_attention_packed(qkv: torch.Tensor, heads: int,
 
 
 flash_attention_packed.launches = 0
+
+
+def flash_attention_relpos(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                           bias_h_t: torch.Tensor, bias_w_t: torch.Tensor,
+                           hw: Tuple[int, int]) -> torch.Tensor:
+    """Global self-attention over an H × W token grid with the decomposed
+    relative-position bias, ``softmax(q·kᵀ/√d + bias)·v`` with
+    ``bias[b, q, k=(u, v)] = bias_h_t[b, u, q] + bias_w_t[b, v, q]``.
+
+    q/k/v are (BH, N, D) with N = H·W, bias_h_t (BH, H, N), bias_w_t
+    (BH, W, N) float32; the result is (BH, N, D) in q's dtype. The (N, N)
+    bias is never built: the kernel rebuilds it per score tile from the two
+    factors. Any H, W ≥ 1.
+
+    q/k/v may also be 4-D views (B, heads, N, D) with a unit last stride, for
+    example slices of a fused (B, N, 3, heads, D) projection permuted to
+    heads-first: the kernel reads them by stride, the factors are then
+    (B, heads, H|W, N) or (B·heads, H|W, N), and the result is a
+    (B, heads, N, D) view of a (B, N, heads·D) buffer, so that
+    ``out.permute(0, 2, 1, 3).reshape(B, N, heads·D)`` copies nothing."""
+    h, w = hw
+    if q.dim() not in (3, 4) or k.shape != q.shape or v.shape != q.shape:
+        raise ValueError(f"shapes q {tuple(q.shape)} k {tuple(k.shape)} v {tuple(v.shape)}")
+    n, d = q.shape[-2:]
+    if h < 1 or w < 1 or n != h * w:
+        raise ValueError(f"{n} tokens are not an {h} x {w} grid")
+    bh = q.shape[:-2].numel()
+    bias_h_t = bias_h_t.reshape(bh, h, n)
+    bias_w_t = bias_w_t.reshape(bh, w, n)
+    if q.device.type == "cpu":
+        flat = lambda t: t.reshape(bh, n, d)
+        out = reference_attention_relpos(flat(q), flat(k), flat(v), bias_h_t, bias_w_t, hw)
+        return out.reshape(q.shape)
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        _require_kernel_input(name, t, d, RELPOS_HEAD_DIMS, strided=True)
+    if h + w > RELPOS_MAX_GRID_SIDES:
+        raise ValueError(f"grid {h} x {w}: the bias factors of one q tile do not fit "
+                         f"shared memory (H + W <= {RELPOS_MAX_GRID_SIDES})")
+    f32 = dict(device=q.device, dtype=torch.float32)
+    bias_h_t = bias_h_t.to(**f32).contiguous()
+    bias_w_t = bias_w_t.to(**f32).contiguous()
+    if q.dim() == 3:
+        batch, heads = bh, 1
+        out = torch.empty((bh, n, d), dtype=q.dtype, device=q.device)
+        o_strides = (n * d, 0, d)
+        strides = lambda t: (t.stride(0), 0, t.stride(1))
+    else:
+        batch, heads = q.shape[:2]
+        out = torch.empty((batch, n, heads, d), dtype=q.dtype, device=q.device).permute(0, 2, 1, 3)
+        o_strides = (n * heads * d, d, heads * d)
+        strides = lambda t: (t.stride(0), t.stride(1), t.stride(2))
+    if k.stride() != v.stride():
+        raise ValueError(f"k and v must share strides, got {k.stride()} and {v.stride()}")
+    flash_attention_relpos.launches += 1
+    code = _build.lib().dg_flash_attention_relpos_bf16(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), bias_h_t.data_ptr(), bias_w_t.data_ptr(),
+        out.data_ptr(), batch, heads, h, w, d, *strides(q), *strides(k), *o_strides,
+        1.0 / math.sqrt(d), torch.cuda.current_stream(q.device).cuda_stream,
+    )
+    _build.check(code, "flash attention (relative position) kernel launch")
+    return out
+
+
+flash_attention_relpos.launches = 0

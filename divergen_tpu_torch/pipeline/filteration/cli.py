@@ -1,0 +1,259 @@
+"""Filtration stage CLIs (torch): four entry points sharing core.py.
+
+Counterpart of ``divergen_tpu/pipeline/filteration/cli.py``, with the same
+flags and artifact formats plus ``--device``:
+- ``extract_features``: CLIP embeddings of per-category images, ``.npy``
+- ``compute_similarity``: real × generated cosine similarity, total.json/csv
+- ``filter_by_similarity``: avg ≥ threshold keep list
+- ``clip_score``: masked image × "a photo of a single {category}" score,
+  mask whitening, per-rank partial results merged by rank 0
+
+Without a CLIP checkpoint the towers run on random weights: the artifact
+plumbing still runs end to end. ``clean_pool`` and ``lvis_crop`` (host-only
+image and mask-codec tools) and ``--method dinov2`` are not ported yet.
+
+    python -c "from divergen_tpu_torch.pipeline.filteration.cli import \\
+        extract_features as f; raise SystemExit(f())" --in_dir samples/ \\
+        --out_dir feats/ --mask_dir masks/
+"""
+from __future__ import annotations
+
+import argparse
+import csv
+import json
+import os
+from glob import glob
+from typing import Dict
+
+import numpy as np
+
+from ...utils.dist import rank_world
+from .core import (
+    ClipEncoder,
+    cosine_matrix,
+    dict_to_csv,
+    filename_dict_to_csv,
+    filename_pivot,
+    load_masked_image,
+    shard_indices,
+    threshold_filter,
+)
+
+_DEVICE_HELP = "torch device (default: cuda; without a card pass cpu, nothing falls back)"
+
+
+def _encoder(args) -> ClipEncoder:
+    if getattr(args, "method", "clip") == "dinov2":
+        from .core import DinoEncoder
+
+        return DinoEncoder(getattr(args, "dino_model", "vitg14"), batch=args.batch)
+    params = None
+    if getattr(args, "clip_ckpt", ""):
+        from ...utils.torch_weights import load_clip_params
+
+        params = load_clip_params(args.clip_ckpt, args.model_name)
+    return ClipEncoder(getattr(args, "model_name", "ViT-L/14"), batch=args.batch, params=params,
+                       device=args.device or None)
+
+
+# ---------------- 1. feature extraction ----------------
+def extract_features(argv=None) -> int:
+    p = argparse.ArgumentParser("get_image_feature")
+    p.add_argument("--in_dir", required=True, help="per-category image dirs")
+    p.add_argument("--out_dir", required=True)
+    p.add_argument("--mask_dir", default="", help="gen-image masks (background zeroed)")
+    p.add_argument("--model_name", default="ViT-L/14")
+    p.add_argument("--method", default="clip", choices=["clip", "dinov2"],
+                   help="feature tower")
+    p.add_argument("--dino_model", default="vitg14")
+    p.add_argument("--clip_ckpt", default="")
+    p.add_argument("--batch", type=int, default=64)
+    p.add_argument("--dist", action="store_true")
+    p.add_argument("--device", default="", help=_DEVICE_HELP)
+    args = p.parse_args(argv)
+
+    enc = _encoder(args)
+    cats = sorted(os.listdir(args.in_dir))
+    for ci in shard_indices(len(cats), *rank_world(args.dist)):
+        cat = cats[ci]
+        files = sorted(glob(os.path.join(args.in_dir, cat, "*")))
+        out_cat = os.path.join(args.out_dir, cat)
+        os.makedirs(out_cat, exist_ok=True)
+        todo, outs = [], []
+        for f in files:
+            out_path = os.path.join(
+                out_cat, os.path.basename(f).rsplit(".", 1)[0] + ".npy"
+            )
+            if os.path.exists(out_path):
+                continue
+            mask = (
+                os.path.join(args.mask_dir, cat, os.path.basename(f).rsplit(".", 1)[0] + ".png")
+                if args.mask_dir
+                else None
+            )
+            img, _ = load_masked_image(f, mask, background="zero")
+            todo.append(img)
+            outs.append(out_path)
+        if todo:
+            feats = enc.encode_images(np.stack(todo))
+            for feat, out_path in zip(feats, outs):
+                np.save(out_path, feat)
+    print("features done")
+    return 0
+
+
+# ---------------- 2. inter-similarity ----------------
+def compute_similarity(argv=None) -> int:
+    p = argparse.ArgumentParser("get_image_similarity_from_feature")
+    p.add_argument("--lvis_feature_dir", required=True)
+    p.add_argument("--gen_feature_dir", required=True)
+    p.add_argument("--out_dir", required=True)
+    p.add_argument("--category_map_json", default="", help="{cat_id: name} for gen dirs")
+    p.add_argument("--dist", action="store_true")
+    args = p.parse_args(argv)
+
+    id2name = {}
+    if args.category_map_json:
+        with open(args.category_map_json) as f:
+            id2name = json.load(f)
+    cats = sorted(os.listdir(args.lvis_feature_dir))
+    for ci in shard_indices(len(cats), *rank_world(args.dist)):
+        cat = cats[ci]
+        out_cat = os.path.join(args.out_dir, cat)
+        os.makedirs(out_cat, exist_ok=True)
+        json_path = os.path.join(out_cat, "total.json")
+        csv_path = os.path.join(out_cat, "total.csv")
+        if os.path.exists(csv_path):
+            continue
+        gen_cat = id2name.get(cat, cat)
+        lvis_files = sorted(glob(os.path.join(args.lvis_feature_dir, cat, "*.npy")))
+        gen_files = sorted(glob(os.path.join(args.gen_feature_dir, gen_cat, "*.npy")))
+        if not lvis_files or not gen_files:
+            continue
+        lvis_feats = np.stack([np.load(f) for f in lvis_files])
+        gen_feats = np.stack([np.load(f) for f in gen_files])
+        sims = cosine_matrix(lvis_feats, gen_feats)  # (L, G)
+        gen_names = [os.path.basename(f).replace(".npy", ".png") for f in gen_files]
+        total = {}
+        for li, lf in enumerate(lvis_files):
+            lvis_name = os.path.basename(lf).replace(".npy", ".png")
+            total[lvis_name] = {g: float(s) for g, s in zip(gen_names, sims[li])}
+        with open(json_path, "w") as f:
+            json.dump(total, f)
+        dict_to_csv(total, csv_path)
+    print("similarity done")
+    return 0
+
+
+# ---------------- 3. threshold filter ----------------
+def filter_by_similarity(argv=None) -> int:
+    p = argparse.ArgumentParser("filter_image_by_similarity")
+    p.add_argument("--sim_dir", required=True, help="dir of per-category total.json")
+    p.add_argument("--out_path", required=True)
+    p.add_argument("--threshold", type=float, default=0.6)
+    p.add_argument("--category_map_json", default="")
+    p.add_argument("--save_filtered_out", action="store_true")
+    args = p.parse_args(argv)
+
+    id2name = {}
+    if args.category_map_json:
+        with open(args.category_map_json) as f:
+            id2name = json.load(f)
+    out_dict: Dict[str, Dict[str, float]] = {}
+    dropped: Dict[str, Dict[str, float]] = {}
+    for cat in sorted(os.listdir(args.sim_dir)):
+        jp = os.path.join(args.sim_dir, cat, "total.json")
+        if not os.path.exists(jp):
+            continue
+        with open(jp) as f:
+            total = json.load(f)
+        fd = filename_pivot(total)
+        filename_dict_to_csv(fd, os.path.join(args.sim_dir, cat, "total_filename.csv"))
+        with open(os.path.join(args.sim_dir, cat, "total_filename.json"), "w") as f:
+            json.dump(fd, f)
+        name = id2name.get(cat, cat)
+        kept = threshold_filter(fd, args.threshold)
+        out_dict[name] = kept
+        if args.save_filtered_out:
+            dropped[name] = {
+                k: sum(v.values()) / max(len(v), 1)
+                for k, v in fd.items()
+                if k not in kept
+            }
+    os.makedirs(os.path.dirname(args.out_path) or ".", exist_ok=True)
+    base = args.out_path.rsplit(".", 1)[0]
+    with open(f"{base}_thres_{args.threshold}.csv", "w", newline="") as f:
+        w = csv.writer(f)
+        for name, kept in out_dict.items():
+            for fn, avg in kept.items():
+                w.writerow([name, fn, avg])
+    with open(f"{base}_thres_{args.threshold}.json", "w") as f:
+        json.dump(out_dict, f)
+    if args.save_filtered_out:
+        with open(f"{base}_thres_{args.threshold}_filtered_out.json", "w") as f:
+            json.dump(dropped, f)
+    print("filter done")
+    return 0
+
+
+# ---------------- 4. CLIP score ----------------
+def clip_score(argv=None) -> int:
+    p = argparse.ArgumentParser("get_clip_score")
+    p.add_argument("--in_dir", required=True, help="per-category gen images")
+    p.add_argument("--mask_dir", required=True, help="seg-method mask dir")
+    p.add_argument("--out_dir", required=True)
+    p.add_argument("--model_name", default="ViT-L/14")
+    p.add_argument("--clip_ckpt", default="")
+    p.add_argument("--bpe_path", default="")
+    p.add_argument("--batch", type=int, default=64)
+    p.add_argument("--dist", action="store_true")
+    p.add_argument("--device", default="", help=_DEVICE_HELP)
+    args = p.parse_args(argv)
+
+    enc = _encoder(args)
+    from ...modeling.text.tokenizer import SimpleTokenizer
+
+    tok = (
+        SimpleTokenizer(bpe_path=args.bpe_path)
+        if args.bpe_path
+        else SimpleTokenizer(merges=[])
+    )
+    results: Dict[str, Dict] = {}
+    cats = sorted(os.listdir(args.in_dir))
+    for ci in shard_indices(len(cats), *rank_world(args.dist)):
+        cat = cats[ci]
+        prompt = f"a photo of a single {cat}"
+        text_feat = enc.encode_texts(tok.tokenize([prompt]))
+        files = sorted(glob(os.path.join(args.in_dir, cat, "*")))
+        imgs, fracs, names = [], [], []
+        for f in files:
+            mask = os.path.join(
+                args.mask_dir, cat, os.path.basename(f).rsplit(".", 1)[0] + ".png"
+            )
+            img, frac = load_masked_image(f, mask, background="white")
+            imgs.append(img)
+            fracs.append(frac)
+            names.append(os.path.basename(f))
+        if not imgs:
+            continue
+        feats = enc.encode_images(np.stack(imgs))
+        scores = (feats @ text_feat.T)[:, 0]
+        for n, s, fr in zip(names, scores, fracs):
+            results[f"{cat}/{n}"] = {"clip_score": float(s), "mask_area": float(fr)}
+    os.makedirs(args.out_dir, exist_ok=True)
+    # per-rank partial + rank-0 merge
+    rank, world = rank_world(args.dist)
+    part = os.path.join(args.out_dir, f"results_rank{rank}.json")
+    with open(part, "w") as f:
+        json.dump(results, f)
+    if rank == 0:
+        merged = {}
+        for r in range(world):
+            pth = os.path.join(args.out_dir, f"results_rank{r}.json")
+            if os.path.exists(pth):
+                with open(pth) as f:
+                    merged.update(json.load(f))
+        with open(os.path.join(args.out_dir, "results.json"), "w") as f:
+            json.dump(merged, f)
+    print("clip_score done")
+    return 0

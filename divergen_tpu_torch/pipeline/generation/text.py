@@ -14,10 +14,9 @@ from typing import List, Tuple
 import numpy as np
 import torch
 
-from divergen_tpu.modeling.text.tokenizer import SimpleTokenizer
-
 from ...modeling.layers import flax_init_
 from ...modeling.text.clip import CLIPText, build_sdxl_text_towers
+from ...modeling.text.tokenizer import SimpleTokenizer
 
 
 def tiny_sdxl_text_towers(dtype=torch.float32, device=None) -> Tuple[CLIPText, CLIPText]:

@@ -65,7 +65,7 @@ def build_argparser() -> argparse.ArgumentParser:
     p.add_argument("--encoder_reuse", action="store_true")
     p.add_argument("--data_parallel", action="store_true")
     p.add_argument("--device", type=str, default="",
-                   help="torch device (default: cuda when available, else cpu)")
+                   help="torch device (default: cuda; without a card pass cpu, nothing falls back)")
     return p
 
 
@@ -98,13 +98,13 @@ def _build_pipeline(args, device: torch.device):
         vae = VAEDecoder(dtype=dtype, device=device)
     gen = torch.Generator(device=device)
     if args.unet_ckpt:
-        from divergen_tpu.utils.torch_weights import load_sdxl_unet_params
+        from ...utils.torch_weights import load_sdxl_unet_params
 
         _load(unet, load_sdxl_unet_params(args.unet_ckpt, unet))
     else:
         flax_init_(unet, gen.manual_seed(0))
     if args.vae_ckpt:
-        from divergen_tpu.utils.torch_weights import load_sdxl_vae_params
+        from ...utils.torch_weights import load_sdxl_vae_params
 
         _load(vae, load_sdxl_vae_params(args.vae_ckpt, n_levels=len(vae.channels)))
     else:
@@ -123,14 +123,6 @@ def encode_prompts_random(prompts: List[str], ctx_dim: int) -> torch.Tensor:
     return torch.from_numpy(np.stack(outs))
 
 
-def _rank_world(args):
-    if args.dist:
-        import torch.distributed as dist
-
-        return dist.get_rank(), dist.get_world_size()
-    return int(os.environ.get("RANK", 0)), int(os.environ.get("WORLD_SIZE", 1))
-
-
 def main(argv=None) -> int:
     args = build_argparser().parse_args(argv)
     if args.stages != ["XL"]:
@@ -139,11 +131,12 @@ def main(argv=None) -> int:
     for flag in _NOT_PORTED:
         if getattr(args, flag):
             raise SystemExit(f"--{flag} is not yet ported")
+    from ...utils.dist import entry_device, rank_world
     from ...utils.png import write_png
     from .pipeline import images_to_uint8
 
-    device = torch.device(args.device or ("cuda" if torch.cuda.is_available() else "cpu"))
-    rank, world = _rank_world(args)
+    device = entry_device(args.device)
+    rank, world = rank_world(args.dist)
     per_rank = args.n_samples // world
     if per_rank * world != args.n_samples:
         raise SystemExit("n_samples must divide by world size")
@@ -154,9 +147,8 @@ def main(argv=None) -> int:
 
     encoder = None
     if args.text_ckpt_l and args.text_ckpt_g:
-        from divergen_tpu.utils.torch_weights import load_sdxl_text_params
-
         from ...modeling.text.clip import build_sdxl_text_towers
+        from ...utils.torch_weights import load_sdxl_text_params
         from .text import SDXLTextEncoder
 
         clip_l, big_g = build_sdxl_text_towers(device=device)

@@ -104,3 +104,29 @@ def test_unported_flags_exit():
                  ["--stages", "I"]):
         with pytest.raises(SystemExit, match="not yet ported"):
             txt2img.main(flag + ["--tiny", "--device", "cpu"])
+
+
+def _no_device_entry_points():
+    from divergen_tpu_torch.pipeline.filteration import cli as fcli
+    from divergen_tpu_torch.pipeline.filteration.core import ClipEncoder
+    from divergen_tpu_torch.pipeline.segmentation import corner_masks
+
+    return {
+        "txt2img": lambda d: txt2img.main(["--tiny", "--prompt", "x", "--outdir", d]),
+        "corner_masks": lambda d: corner_masks.main(["--tiny", "--in_dir", d, "--out_dir", d]),
+        "build_sam": lambda d: corner_masks.build_sam(
+            corner_masks.build_argparser().parse_args(["--tiny", "--in_dir", d, "--out_dir", d])),
+        "ClipEncoder": lambda d: ClipEncoder("ViT-B/32", batch=1, image_size=32),
+        "extract_features": lambda d: fcli.extract_features(
+            ["--in_dir", d, "--out_dir", d, "--model_name", "ViT-B/32"]),
+    }
+
+
+@pytest.mark.skipif(torch.cuda.is_available(), reason="needs a machine without a card")
+@pytest.mark.parametrize("name", ["txt2img", "corner_masks", "build_sam", "ClipEncoder",
+                                  "extract_features"])
+def test_entry_points_do_not_fall_back_to_the_cpu(name, tmp_path):
+    """An entry point that was not asked for the CPU raises when no card is
+    visible; none carries on on the CPU on its own."""
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        _no_device_entry_points()[name](str(tmp_path))
