@@ -6,11 +6,16 @@ Run from the root of a checkout:  python3 chip_smoke.py
 1. Device: requires CUDA; prints the card's name and power limit.
 2. Build: compiles divergen_tpu_torch/csrc/*.cu with nvcc (timed).
 3. Kernel phases: each hand-written kernel (flash_attention_packed,
-   fused_ln_matmul, flash_attention, flash_attention_relpos) against its
+   fused_ln_matmul, flash_attention, flash_attention_relpos,
+   fused_window_attention_packed, fused_window_attention) against its
    plain torch version on the same bf16 inputs (plain version in float32),
-   at the shapes of the SDXL and SAM slices plus ragged cases;
+   at the shapes of the SDXL, SAM and Swin-L slices plus ragged cases;
    flash_attention_relpos first on heads-first views of a fused qkv
-   projection, as the ViT's attention calls it, then on (BH, N, D). Bound per
+   projection, as the ViT's attention calls it, then on (BH, N, D); the
+   packed window attention at the four Swin-L stage shapes of B = 2 at 896²
+   with and without the shift mask and on shrunk windows; the split window
+   attention at the stage-0 shape on contiguous tensors and on heads-first
+   views of the fused projection, where it must equal the packed one. Bound per
    phase: relative L2 error <= 1e-2 and max |error| <= 3e-2 * max
    |reference|. Prints both errors, the median times of kernel and plain
    version (CUDA events) and, at each kernel's main shape, the time of the
@@ -22,7 +27,9 @@ Run from the root of a checkout:  python3 chip_smoke.py
 4. Small models: a narrow UNet (d = 64 self-attention, GEGLU), a VAE decoder
    with a d = 512 mid attention, and a narrow SAM whose global layer runs the
    relative-position kernel at d = 80, bf16 on the card through the kernels,
-   against the same weights in float32 on the CPU.
+   against the same weights in float32 on the CPU; and a narrow detector
+   (Swin with d = 32 heads, window 7, FPN, CenterNet2 proposals, cascade and
+   mask heads): pyramid features by relative L2, and its top detections.
 5. Slice at full SDXL width, launch counters reset just before it:
    (a) the port's ``txt2img.main`` writing two 1024² PNGs;
    (b) ``SDXLTextEncoder.random(tiny=False)`` → ``SDXLPipeline.generate``,
@@ -41,7 +48,18 @@ Run from the root of a checkout:  python3 chip_smoke.py
    Every SAM forward must launch flash_attention_relpos 4 times and
    fused_ln_matmul 36 times. Then it times SAM per image at B = 4, CLIP per
    image at B = 16 and the compositor per pasted instance (medians of 3).
-7. Prints the kernels' JSON line, the card line, and as the last line
+7. Slice of the detector, launch counters reset just before it:
+   (a) ``graft_entry.entry()`` (Swin-T detector, 128²): 12
+       fused_window_attention_packed launches;
+   (b) ``graft_entry.flagship_entry()``: Swin-L + FPN + CenterNet2 + Detic
+       cascade (1453 classes) + mask head, seeded weights, B = 2, 896², bf16;
+       padded outputs of the expected shapes, finite under ``valid``, at least
+       one detection, exactly 24 fused_window_attention_packed launches per
+       forward, ``paste_masks`` on the result. Then it times the forward and
+       its three parts (medians of 3) and counts the host syncs of NMS.
+   fused_window_attention is not on this path (the packed kernel takes any
+   head count): phase 3 holds it, and its count here stays 0.
+8. Prints the kernels' JSON line, the card line, and as the last line
    {"ok": true, "device": {...}}. Any failed phase raises: exit code != 0.
 """
 from __future__ import annotations
@@ -63,6 +81,7 @@ PEAK_BF16_FLOPS = 989e12  # H100 SXM, dense
 PEAK_BYTES_PER_S = 3.35e12
 REL_L2_BOUND = 1e-2
 MAX_ABS_BOUND = 3e-2  # times max |reference|
+WINDOW_REPS = 10  # 20 timed calls of a window-attention kernel after the warm-up
 
 
 def log(msg: str) -> None:
@@ -275,6 +294,96 @@ def kernel_phases(gen: torch.Generator):
                4.0 * bh * n * n * d, 2.0 * 4 * bh * n * d + 4.0 * bh * (h + w) * n)
         del mask
         torch.cuda.empty_cache()
+
+    log("kernel phase: fused_window_attention_packed")
+    import divergen_tpu_torch.ops.window_attention as wa_mod
+
+    def window_case(bn, c, heads, nw, n, with_mask):
+        """qkv, bias, shift-like mask (about a third of the pairs at -100, the
+        diagonal open) and the work of one call."""
+        qkv = randn(bn, n, 3 * c)
+        bias = randn(heads, n, n, scale=0.5, dtype=torch.float32)
+        mask = None
+        if with_mask:
+            mask = torch.where(torch.rand((nw, n, n), generator=gen, device=dev) < 0.3, -100.0, 0.0)
+            mask.diagonal(dim1=1, dim2=2).zero_()
+        d = c // heads
+        ops = 4.0 * bn * heads * n * n * d
+        nbytes = 2.0 * bn * n * 4 * c + 4.0 * heads * n * n + (4.0 * nw * n * n if with_mask else 0.0)
+        return qkv, bias, mask, ops, nbytes
+
+    def dense_mask(bias, mask, bn):
+        """(bn, heads, n, n) bf16 bias + mask for the PyTorch call."""
+        full = bias[None].expand(bn, -1, -1, -1)
+        if mask is not None:
+            full = full + mask.repeat(bn // mask.shape[0], 1, 1)[:, None]
+        return full.bfloat16().contiguous()
+
+    def heads_first(qkv, heads):
+        bn, n, c3 = qkv.shape
+        return qkv.reshape(bn, n, 3, heads, c3 // (3 * heads)).permute(2, 0, 3, 1, 4)  # views
+
+    # the four Swin-L stages of B = 2 at 896² (window 12), then shrunk windows
+    for bn, c, heads, nw, n in ((722, 192, 6, 361, 144), (200, 384, 12, 100, 144),
+                                (50, 768, 24, 25, 144), (18, 1536, 48, 9, 144),
+                                (8, 96, 3, 4, 49), (8, 96, 3, 4, 16), (8, 96, 3, 2, 4)):
+        for with_mask in (True, False):
+            qkv, bias, mask, ops, nbytes = window_case(bn, c, heads, nw, n, with_mask)
+            got = wa_mod.fused_window_attention_packed(qkv, bias, mask, heads)
+            ref = wa_mod.reference_window_attention_packed(qkv.float(), bias, mask, heads)
+            err = compare(f"window packed bn={bn} C={c} H={heads} n={n} "
+                          f"mask={'nW ' + str(nw) if with_mask else 'none'}", got, ref)
+            del ref
+            ms, pms, span = time_pair(
+                lambda: wa_mod.fused_window_attention_packed(qkv, bias, mask, heads),
+                lambda: wa_mod.reference_window_attention_packed(qkv.float(), bias, mask, heads),
+                reps=WINDOW_REPS)
+            attn_mask = q4 = None
+            if "fused_window_attention_packed" not in results:  # built outside the timing
+                attn_mask = dense_mask(bias, mask, bn)
+                q4, k4, v4 = (t.contiguous() for t in heads_first(qkv, heads))
+            record("fused_window_attention_packed", err, ms, pms, span,
+                   lambda: F.scaled_dot_product_attention(q4, k4, v4, attn_mask=attn_mask),
+                   ops, nbytes)
+            del attn_mask, q4
+            torch.cuda.empty_cache()
+
+    log("kernel phase: fused_window_attention")
+    # Swin-L stage 0 (six heads, where the TPU path takes the split kernel):
+    # contiguous (B, H, N, D) tensors, then heads-first views of the fused
+    # projection that the packed kernel reads, where both must agree exactly
+    for layout in ("contiguous (B, H, N, D)", "views of fused qkv"):
+        bn, c, heads, nw, n = 722, 192, 6, 361, 144
+        qkv, bias, mask, ops, nbytes = window_case(bn, c, heads, nw, n, True)
+        q, k, v = heads_first(qkv, heads)
+        if layout.startswith("contiguous"):
+            q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+        got = wa_mod.fused_window_attention(q, k, v, bias, mask)
+        ref = wa_mod.reference_window_attention(q.float(), k.float(), v.float(), bias, mask)
+        err = compare(f"window split bn={bn} H={heads} n={n} d={c // heads} mask=nW {nw} {layout}",
+                      got, ref)
+        del ref
+        packed = wa_mod.fused_window_attention_packed(qkv, bias, mask, heads)
+        if not torch.equal(got.permute(0, 2, 1, 3).reshape(bn, n, c), packed):
+            raise AssertionError(f"window attention: split and packed kernels disagree ({layout})")
+        log("    equals fused_window_attention_packed on the same projection")
+        ms, pms, span = time_pair(
+            lambda: wa_mod.fused_window_attention(q, k, v, bias, mask),
+            lambda: wa_mod.reference_window_attention(q.float(), k.float(), v.float(), bias, mask),
+            reps=WINDOW_REPS)
+        attn_mask = dense_mask(bias, mask, bn) if "fused_window_attention" not in results else None
+        record("fused_window_attention", err, ms, pms, span,
+               lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=attn_mask), ops, nbytes)
+        del attn_mask
+        torch.cuda.empty_cache()
+    for bn, heads, nw, n in ((6, 3, 3, 49), (4, 1, 2, 4)):  # ragged, odd and tiny windows
+        qkv, bias, mask, ops, nbytes = window_case(bn, 32 * heads, heads, nw, n, True)
+        q, k, v = heads_first(qkv, heads)
+        got = wa_mod.fused_window_attention(q, k, v, bias, mask)
+        ref = wa_mod.reference_window_attention(q.float(), k.float(), v.float(), bias, mask)
+        err = compare(f"window split bn={bn} H={heads} n={n} views of fused qkv", got, ref)
+        results["fused_window_attention"]["max_abs_err"] = max(
+            results["fused_window_attention"]["max_abs_err"], err)
     return results
 
 
@@ -338,6 +447,64 @@ def small_models():
             masks.cpu(), ref_masks, rel_l2_bound=3e-2, max_abs_bound=1e-1)
     compare("small SAM IoU vs f32 CPU", iou.cpu(), ref_iou, rel_l2_bound=3e-2,
             max_abs_bound=1e-1)
+
+
+NARROW_SWIN = (32, (2, 2, 2, 1), (1, 2, 4, 8), 7, 0.0)  # embed, depths, heads (d = 32), window
+
+
+def small_detector():
+    """A narrow detector, bf16 on the card through the window-attention kernel
+    (windows of 49 tokens, shifted and padded; 16 in the last stage) against
+    the same weights in float32 on the CPU. Bounds: the pyramid features agree
+    to relative L2 <= 3e-2 (a whole bf16 network, as for the other small
+    models); the five best detections have scores within 0.05 of the CPU's
+    five best, and at least three of their boxes meet a CPU detection with
+    IoU >= 0.7 (NMS and top-k decide on scores a bf16 rounding apart, so not
+    every detection need survive on both sides)."""
+    from divergen_tpu_torch import graft_entry
+    from divergen_tpu_torch.modeling.backbone import swin
+    from divergen_tpu_torch.modeling.meta_arch.rcnn import build_model
+    from divergen_tpu_torch.ops.window_attention import fused_window_attention_packed
+    from divergen_tpu_torch.structures.boxes import pairwise_iou
+
+    dev = torch.device("cuda")
+    swin.SIZE2CONFIG["narrow"] = NARROW_SWIN
+    cfg = graft_entry._small_cfg(swin_size="narrow")
+    cfg.MODEL.FPN.OUT_CHANNELS = 64
+    cfg.MODEL.ROI_BOX_HEAD.FC_DIM = 128
+    canvas = (128, 160)
+    g = torch.Generator().manual_seed(11)
+    ref_model = graft_entry.fast_init_(build_model(cfg, input_size=canvas), g).eval()
+    cfg.FP16 = True
+    model = build_model(cfg, input_size=canvas, device=dev).eval()
+    model.load_state_dict(ref_model.state_dict())
+    images = torch.rand((2, *canvas, 3), generator=g) * 255
+    sizes = torch.tensor([[128, 160], [100, 120]])
+    before = fused_window_attention_packed.launches
+    with torch.no_grad():
+        feats = model.backbone_features(images.to(dev))
+        ref_feats = ref_model.backbone_features(images)
+    if fused_window_attention_packed.launches - before != 7:
+        raise AssertionError("small detector: expected 7 window-attention launches")
+    for name in ref_feats:
+        compare(f"small detector {name} vs f32 CPU", feats[name].cpu(), ref_feats[name],
+                rel_l2_bound=3e-2, max_abs_bound=1e-1)
+    dets = model(images.to(dev), sizes.to(dev))
+    ref = ref_model(images, sizes)
+    for i in range(2):
+        nv, nr = int(dets["valid"][i].sum()), int(ref["valid"][i].sum())
+        if min(nv, nr) < 5:
+            raise AssertionError(f"small detector image {i}: {nv} / {nr} detections")
+        top = dets["scores"][i, :5].cpu()
+        gap = (top - ref["scores"][i, :5]).abs().max().item()
+        iou = pairwise_iou(dets["boxes"][i, :5].cpu(), ref["boxes"][i][ref["valid"][i]])
+        matched = int((iou.max(dim=1).values >= 0.7).sum())
+        ok = gap <= 0.05 and matched >= 3
+        log(f"  small detector image {i}: {nv} detections (CPU {nr}); top-5 scores within "
+            f"{gap:.4f}; {matched} of 5 boxes meet a CPU detection at IoU >= 0.7 "
+            f"[{'ok' if ok else 'FAIL'}]")
+        if not ok:
+            raise AssertionError("small detector: detections disagree with the f32 CPU copy")
 
 
 def slice_txt2img(tmp: str):
@@ -593,6 +760,97 @@ def slice_chain(encoder, pipe, card: str):
     return chain_timings
 
 
+SWIN_L_BLOCKS = 24  # depths 2 / 2 / 18 / 2: one window attention per block
+
+
+def slice_detector(card: str):
+    """The detector's inference forward through ``graft_entry``: the small
+    Swin-T detector, then the flagship model at full width. Returns the function that takes the smoke timings."""
+    from divergen_tpu_torch import graft_entry
+    from divergen_tpu_torch.ops.mask_paste import paste_masks
+    from divergen_tpu_torch.ops.nms import nms_mask
+    from divergen_tpu_torch.ops.window_attention import fused_window_attention_packed
+
+    def check(dets, batch, k, what):
+        shapes = {"prop_idx": (batch, k), "boxes": (batch, k, 4), "scores": (batch, k),
+                  "classes": (batch, k), "valid": (batch, k), "mask_logits": (batch, k, 28, 28)}
+        for key, shape in shapes.items():
+            if tuple(dets[key].shape) != shape:
+                raise AssertionError(f"{what} {key}: {tuple(dets[key].shape)} != {shape}")
+        valid = dets["valid"]
+        for key in ("boxes", "scores", "mask_logits"):
+            if not torch.isfinite(dets[key].float()[valid]).all():
+                raise AssertionError(f"{what} {key}: non-finite under valid")
+        if not valid.any(dim=1).all():
+            raise AssertionError(f"{what}: an image without a detection")
+        return [int(n) for n in valid.sum(dim=1)]
+
+    model, (images, sizes) = graft_entry.entry()
+    before = fused_window_attention_packed.launches
+    dets = model(images, sizes)
+    torch.cuda.synchronize()
+    launched = fused_window_attention_packed.launches - before
+    if launched != 12:
+        raise AssertionError(f"entry(): {launched} window-attention launches, not 12")
+    n_det = check(dets, 1, 16, "entry()")
+    log(f"  graft_entry.entry(): Swin-T detector, 128², bf16: {n_det[0]} detections, "
+        f"{launched} fused_window_attention_packed launches")
+    del model, dets
+
+    t0 = time.perf_counter()
+    model, (images, sizes) = graft_entry.flagship_entry()
+    torch.cuda.synchronize()
+    log(f"  flagship detector built with seeded weights in {time.perf_counter() - t0:.1f} s "
+        f"({sum(p.numel() for p in model.parameters()) / 1e6:.1f} M parameters)")
+    before, syncs = fused_window_attention_packed.launches, nms_mask.host_syncs
+    dets = model(images, sizes)
+    torch.cuda.synchronize()
+    launched = fused_window_attention_packed.launches - before
+    syncs = nms_mask.host_syncs - syncs
+    if launched != SWIN_L_BLOCKS:
+        raise AssertionError(f"flagship forward: {launched} window-attention launches, "
+                             f"expected {SWIN_L_BLOCKS}")
+    n_det = check(dets, 2, 300, "flagship forward")
+    size = tuple(int(v) for v in sizes[0])
+    keep = dets["valid"][0]
+    pasted = paste_masks(torch.sigmoid(dets["mask_logits"][0][keep].float()),
+                         dets["boxes"][0][keep], size)
+    if (tuple(pasted.shape) != (n_det[0], *size) or not ((pasted == 0) | (pasted == 1)).all()
+            or not pasted.any()):
+        raise AssertionError(f"paste_masks: shape {tuple(pasted.shape)}, or not a binary mask")
+    log(f"  flagship forward (Swin-L 896², B=2, bf16, 1453 classes): detections {n_det} of 300, "
+        f"score range [{dets['scores'][dets['valid']].min().item():.3f}, "
+        f"{dets['scores'].max().item():.3f}], {launched} fused_window_attention_packed launches, "
+        f"{syncs} host syncs in NMS; paste_masks {tuple(pasted.shape)}, "
+        f"{pasted.mean().item():.2e} of the pixels set")
+    del pasted, dets
+
+    def wall(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return 1e3 * (time.perf_counter() - t0), out
+
+    def detector_timings():
+        with torch.no_grad():
+            model(images, sizes)  # warm-up
+            fwd = statistics.median(wall(lambda: model(images, sizes))[0] for _ in range(3))
+            runs = [wall(lambda: model.backbone_features(images)) for _ in range(3)]
+            feats = runs[0][1]
+            bb = statistics.median(r[0] for r in runs)
+            runs = [wall(lambda: model.proposals(feats, sizes)) for _ in range(3)]
+            props = runs[0][1]
+            pr = statistics.median(r[0] for r in runs)
+            roi = statistics.median(wall(lambda: model.roi_heads.inference(feats, props, sizes))[0]
+                                    for _ in range(3))
+        log(f"  detector forward (B=2, 896², bf16): {fwd:.1f} ms; backbone + FPN {bb:.1f} ms, "
+            f"proposals + NMS {pr:.1f} ms, ROI heads {roi:.1f} ms (host clock, medians of 3) "
+            f"[{card}]")
+
+    return detector_timings
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -604,6 +862,10 @@ def main() -> int:
         flash_attention_relpos,
     )
     from divergen_tpu_torch.ops.ln_matmul import fused_ln_matmul
+    from divergen_tpu_torch.ops.window_attention import (
+        fused_window_attention,
+        fused_window_attention_packed,
+    )
 
     card = card_line()
     log(f"device: {torch.cuda.get_device_name(0)}; nvidia-smi: {card}")
@@ -624,9 +886,11 @@ def main() -> int:
     results = kernel_phases(torch.Generator(device="cuda").manual_seed(0))
     log("small models")
     small_models()
+    small_detector()
 
     wrappers = (flash_attention_packed, fused_ln_matmul, flash_attention,
-                flash_attention_relpos)
+                flash_attention_relpos, fused_window_attention_packed, fused_window_attention)
+    chain_kernels = wrappers[:4]
 
     def reset():
         for w in wrappers:
@@ -654,9 +918,20 @@ def main() -> int:
         slice_corner_masks(tmp)
     torch.cuda.empty_cache()
     chain_timings = slice_chain(encoder, pipe, card)
-    chain = read(wrappers, "the instance-chain slice")
+    chain = read(chain_kernels, "the instance-chain slice")
     chain_timings()
-    launches = {name: sdxl[name] + chain[name] for name in sdxl}
+    del encoder, pipe, cond, chain_timings
+    torch.cuda.empty_cache()
+
+    log("slice: detector inference forward (Swin-T entry, then Swin-L flagship at full width)")
+    reset()
+    detector_timings = slice_detector(card)
+    detector = read((fused_window_attention_packed,), "the detector slice")
+    if fused_window_attention.launches:
+        raise AssertionError("fused_window_attention is not on the detector's path, yet its "
+                             f"count is {fused_window_attention.launches}")
+    detector_timings()
+    launches = {name: sdxl[name] + chain[name] + detector[name] for name in sdxl}
 
     sources = {
         "flash_attention_packed": ("divergen_tpu_torch/csrc/flash_attention.cu",
@@ -667,6 +942,10 @@ def main() -> int:
                             "divergen_tpu/ops/pallas/flash_attention.py:146"),
         "flash_attention_relpos": ("divergen_tpu_torch/csrc/flash_attention.cu",
                                    "divergen_tpu/ops/pallas/flash_attention.py:531"),
+        "fused_window_attention_packed": ("divergen_tpu_torch/csrc/window_attention.cu",
+                                          "divergen_tpu/ops/pallas/window_attention.py:470"),
+        "fused_window_attention": ("divergen_tpu_torch/csrc/window_attention.cu",
+                                   "divergen_tpu/ops/pallas/window_attention.py:245"),
     }
     kernels = [{"name": name, "route": "cuda", "source": src, "replaces": rep,
                 "launches": launches[name], **results[name]}

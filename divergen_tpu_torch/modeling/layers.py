@@ -7,12 +7,19 @@ norms keep float32 scale and bias. The port stores weights the same way:
 float32. Activations are NHWC, as in the JAX package; ``Conv`` and
 ``ConvTranspose`` hand the convolution a channels-last NCHW view and return
 NHWC again. flax ``nn.LayerNorm`` defaults to eps 1e-6, the port's
-``LayerNorm`` to torch's 1e-5: the ViT and SAM modules pass 1e-6, CLIP 1e-5.
+``LayerNorm`` to torch's 1e-5: the ViT and SAM modules pass 1e-6, CLIP and
+Swin 1e-5.
+
+The detector's blocks (``FrozenBatchNorm``, ``GroupNorm``, ``get_norm``,
+``ConvNorm``, ``Scale``, ``DropPath``) mirror ``divergen_tpu/modeling/layers.py``:
+a norm that flax creates inside a compact module sits in a child named after
+its class (``ConvNorm.GroupNorm_0``), and like flax norms with float32
+parameters these return float32 whatever the input's dtype.
 """
 from __future__ import annotations
 
 import math
-from typing import Dict, Optional
+from typing import Callable, Dict, Optional
 
 import torch
 import torch.nn as nn
@@ -70,6 +77,119 @@ class LayerNorm(nn.LayerNorm):
         return y.to(x.dtype)
 
 
+class FrozenBatchNorm(nn.Module):
+    """Affine-only batch norm, ``y = x * scale + bias`` with the frozen
+    statistics folded into the two vectors (float32; flax names ``scale`` and
+    ``bias``, here ``weight`` and ``bias``)."""
+
+    def __init__(self, features: int, device=None):
+        super().__init__()
+        self.weight = nn.Parameter(torch.ones(features, device=device))
+        self.bias = nn.Parameter(torch.zeros(features, device=device))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return x * self.weight + self.bias
+
+
+class GroupNorm(nn.GroupNorm):
+    """flax ``nn.GroupNorm`` over NHWC: float32 statistics (var = E[x²] −
+    E[x]²) and affine, float32 output. The moments are taken per channel over
+    (H, W) and combined within each group, a reduction over the leading
+    spatial axes with no copy to NCHW."""
+
+    def __init__(self, num_groups: int, channels: int, eps: float = 1e-5, device=None):
+        super().__init__(num_groups, channels, eps=eps, device=device, dtype=torch.float32)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        b, c = x.shape[0], x.shape[-1]
+        per_group = c // self.num_groups
+        xf = x.float()
+        mean = xf.mean(dim=(1, 2)).view(b, self.num_groups, per_group).mean(-1)
+        var = xf.square().mean(dim=(1, 2)).view(b, self.num_groups, per_group).mean(-1)
+        var = (var - mean * mean).clamp(min=0.0)
+        scale = torch.rsqrt(var + self.eps).repeat_interleave(per_group, dim=-1) * self.weight
+        shift = self.bias - mean.repeat_interleave(per_group, dim=-1) * scale
+        return torch.addcmul(shift[:, None, None], xf, scale[:, None, None])
+
+
+def get_norm(norm: Optional[str], features: int, device=None) -> Optional[nn.Module]:
+    """The norm layer a config string names, or None. "GN" is 32 groups (25
+    when the channels do not divide by 32); "BN" and "SyncBN" map to a
+    GroupNorm of gcd(32, features) groups, as in the JAX package."""
+    if norm in ("", "none", None):
+        return None
+    if norm == "GN":
+        return GroupNorm(32 if features % 32 == 0 else 25, features, eps=1e-5, device=device)
+    if norm == "FrozenBN":
+        return FrozenBatchNorm(features, device=device)
+    if norm == "LN":
+        return LayerNorm(features, eps=1e-6, device=device)
+    if norm in ("SyncBN", "BN"):
+        return GroupNorm(math.gcd(32, features), features, eps=1e-5, device=device)
+    raise ValueError(f"Unknown norm: {norm}")
+
+
+class ConvNorm(nn.Module):
+    """Conv + optional norm + optional activation on NHWC. The convolution
+    pads k // 2 on every side at any stride, and has a bias unless a norm
+    other than GN follows (``use_bias`` overrides). Children: ``conv`` and
+    the norm under its flax name (``GroupNorm_0``, ``FrozenBatchNorm_0``,
+    ``LayerNorm_0``)."""
+
+    def __init__(self, in_channels: int, features: int, kernel_size: int = 3, strides: int = 1,
+                 norm: str = "", activation: Optional[Callable] = None,
+                 use_bias: Optional[bool] = None, dtype=None, device=None):
+        super().__init__()
+        bias = use_bias if use_bias is not None else norm in ("", "GN")
+        self.conv = Conv(in_channels, features, kernel_size, stride=strides, bias=bias,
+                         dtype=dtype, device=device)
+        layer = get_norm(norm, features, device=device)
+        self.norm_name = None
+        if layer is not None:
+            flax_class = "GroupNorm" if isinstance(layer, GroupNorm) else type(layer).__name__
+            self.norm_name = f"{flax_class}_0"
+            self.add_module(self.norm_name, layer)
+        self.activation = activation
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = self.conv(x)
+        if self.norm_name is not None:
+            x = getattr(self, self.norm_name)(x)
+        if self.activation is not None:
+            x = self.activation(x)
+        return x
+
+
+class Scale(nn.Module):
+    """Learnable scalar multiplier (a ``()`` float32 parameter named
+    ``scale`` in flax, ``weight`` here); the product is at least float32."""
+
+    def __init__(self, init_value: float = 1.0, device=None):
+        super().__init__()
+        self.weight = nn.Parameter(torch.tensor(float(init_value), device=device))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return x.to(torch.promote_types(x.dtype, self.weight.dtype)) * self.weight
+
+
+class DropPath(nn.Module):
+    """Per-sample stochastic depth; the identity when ``deterministic`` (the
+    inference forward) or at rate 0."""
+
+    def __init__(self, rate: float = 0.0):
+        super().__init__()
+        self.rate = rate
+
+    def forward(self, x: torch.Tensor, deterministic: bool = True,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        if deterministic or self.rate == 0.0:
+            return x
+        keep = 1.0 - self.rate
+        shape = (x.shape[0],) + (1,) * (x.dim() - 1)
+        mask = torch.rand(shape, device=x.device, generator=generator) < keep
+        return torch.where(mask, x / keep, torch.zeros_like(x))
+
+
 # flax lecun_normal: variance_scaling(1, "fan_in", "truncated_normal") draws
 # from a normal truncated at ±2σ, with σ rescaled so the variance is 1/fan_in
 _TRUNC_STD_CORRECTION = 0.87962566103423978
@@ -103,7 +223,7 @@ def flax_init_(module: nn.Module, gen: torch.Generator) -> nn.Module:
             mod.bias.zero_()
         elif isinstance(mod, nn.Embedding):
             mod.weight.normal_(0.0, mod.embedding_dim ** -0.5, generator=gen)
-        elif isinstance(mod, (nn.LayerNorm, nn.GroupNorm)):
+        elif isinstance(mod, (nn.LayerNorm, nn.GroupNorm, FrozenBatchNorm)):
             mod.weight.fill_(1.0)
             mod.bias.zero_()
         raw: Dict[str, float] = getattr(mod, "raw_init_std", {})

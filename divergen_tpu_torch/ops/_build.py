@@ -1,8 +1,9 @@
 """Build the port's CUDA kernels with nvcc and load them with ctypes.
 
-Every ``divergen_tpu_torch/csrc/*.cu`` file is compiled on first use into one
-shared library under ``build/kernels/`` at the root of the checkout, for
-``sm_90a`` (H100), with a plain C interface. The library's name carries a
+Every ``divergen_tpu_torch/csrc/*.cu`` file is compiled on first use (one
+``nvcc`` per source, all started together) and linked into one shared library
+under ``build/kernels/`` at the root of the checkout, for ``sm_90a`` (H100),
+with a plain C interface. The library's name carries a
 hash of the sources and flags, so an edit to any source builds a new one.
 Nothing here runs at import time: the CPU tests import every module of the
 port, and a machine without ``nvcc`` only fails when a kernel is asked for.
@@ -24,7 +25,7 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",
+    "-Xcompiler", "-fPIC", "-Xptxas=-v",
 )
 
 _lock = threading.Lock()
@@ -66,15 +67,30 @@ def build() -> Path:
         return so
     nvcc = find_nvcc()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
-    cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), *map(str, sorted(CSRC.glob("*.cu")))]
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    if res.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed with code {res.returncode}:\n{' '.join(cmd)}\n"
-            f"{res.stdout}{res.stderr}"
-        )
-    so.with_suffix(".log").write_text(res.stdout + res.stderr)
+    tag = f"{so.stem}.{os.getpid()}"
+    objs = {src: BUILD_DIR / f"{tag}.{src.stem}.o" for src in sorted(CSRC.glob("*.cu"))}
+    procs = [(subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)],
+                               stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True), src)
+             for src, obj in objs.items()]
+    report, failed = "", []
+    for proc, src in procs:  # wait for all of them, so that none outlives a failure
+        out, _ = proc.communicate()
+        report += f"== {src.name}\n{out}"
+        if proc.returncode != 0:
+            failed.append(src.name)
+    tmp = BUILD_DIR / f"{tag}.tmp"
+    try:
+        if failed:
+            raise RuntimeError(f"nvcc failed on {', '.join(failed)}:\n{report}")
+        cmd = [nvcc, "-shared", "-o", str(tmp), *map(str, objs.values())]
+        res = subprocess.run(cmd, capture_output=True, text=True)
+        if res.returncode != 0:
+            raise RuntimeError(f"nvcc failed with code {res.returncode}:\n{' '.join(cmd)}\n"
+                               f"{res.stdout}{res.stderr}")
+    finally:
+        for obj in objs.values():
+            obj.unlink(missing_ok=True)
+    so.with_suffix(".log").write_text(report)
     os.replace(tmp, so)  # atomic: a concurrent process never loads a partial file
     return so
 
@@ -85,6 +101,10 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.dg_flash_attention_bf16.restype = i
     lib.dg_flash_attention_relpos_bf16.argtypes = [p] * 6 + [i] * 5 + [i64] * 9 + [f, p]
     lib.dg_flash_attention_relpos_bf16.restype = i
+    lib.dg_window_attention_bf16.argtypes = [p] * 6 + [i] * 4 + [i64] * 9 + [f, p]
+    lib.dg_window_attention_bf16.restype = i
+    lib.dg_window_attention_packed_bf16.argtypes = [p] * 4 + [i] * 4 + [f, p]
+    lib.dg_window_attention_packed_bf16.restype = i
     lib.dg_ln_matmul_bf16.argtypes = [p] * 7 + [i] * 3 + [f, i, p]
     lib.dg_ln_matmul_bf16.restype = i
     lib.dg_error_string.argtypes = [i]

@@ -11,11 +11,14 @@ The port names its submodules after the flax scopes of the JAX package
   convolution without a flip, ``torch.nn.ConvTranspose2d`` scatters. Which
   rank-4 kernels are transposed convolutions is read from the target module's
   type (``params_from_jax(tree, module)``), never guessed from a shape;
-- norm ``scale`` → ``weight``; ``bias`` stays ``bias``;
+- norm ``scale`` → ``weight`` (also ``FrozenBatchNorm``'s vector and
+  ``Scale``'s scalar); ``bias`` stays ``bias``;
 - ``Embed.embedding`` → ``weight``;
-- raw parameters (``positional_embedding``, ``text_projection``, …) as they are.
+- raw parameters (``positional_embedding``, ``text_projection``,
+  ``relative_position_bias_table``, ``zs_weight``, ``bg_bias``, …) as they are.
 
-Real checkpoints (diffusers, HF, openai CLIP, segment-anything) load by
+Real checkpoints (diffusers, HF, openai CLIP, segment-anything, Swin,
+detectron2 detectors) load by
 composing the numpy converters of ``utils/torch_weights.py`` with
 :func:`params_from_jax`.
 """

@@ -3,16 +3,18 @@
 The port's own copy of the converters it uses from
 ``divergen_tpu/utils/torch_weights.py``: each maps a torch ``state_dict``
 (openai CLIP, segment-anything SAM, diffusers SDXL UNet / AutoencoderKL, HF
-``CLIPTextModel``) into the nested tree that the JAX package's flax modules
+``CLIPTextModel``, Swin, a detectron2 detector checkpoint) into the nested tree that the JAX package's flax modules
 hold — linear kernels (in, out), conv kernels (kh, kw, in, out) — which
 ``utils.convert.params_from_jax`` then turns into the port's ``state_dict``.
 Pure name mapping: no module is constructed, ``torch.load`` only
-deserializes tensors. The Swin, detectron2 detector and IF converters come
-with their slices.
+deserializes tensors. ``load_swin_into`` and ``load_d2_detector_into`` compose
+the detector's converters with ``params_from_jax`` and load the result into
+the port's modules. The IF converter comes with its slice.
 """
 from __future__ import annotations
 
 import logging
+import re
 from typing import Any, Dict
 
 import numpy as np
@@ -556,3 +558,347 @@ def load_sdxl_vae_params(path: str, n_levels: int = 4) -> Dict:
     VAEDecoder params tree (use convert_sdxl_vae for the encoder too)."""
     sd = load_state_dict(path)
     return convert_sdxl_vae(sd, n_levels=n_levels)["decoder"]
+
+
+# ---------------- Swin ----------------
+def convert_swin(sd: Dict[str, np.ndarray], depths=(2, 2, 18, 2)) -> Dict:
+    """swin_*_patch4_window*.pth → our SwinTransformer params (under the
+    meta-arch this mounts at params['params']['bottom_up'])."""
+    p: Dict[str, Any] = {}
+    p["patch_embed"] = {
+        "kernel": _t_conv(sd["patch_embed.proj.weight"]),
+        "bias": sd["patch_embed.proj.bias"],
+    }
+    p["patch_norm"] = {
+        "scale": sd["patch_embed.norm.weight"],
+        "bias": sd["patch_embed.norm.bias"],
+    }
+    for stage, depth in enumerate(depths):
+        for blk in range(depth):
+            b = f"layers.{stage}.blocks.{blk}."
+            q: Dict[str, Any] = {}
+            q["norm1"] = {"scale": sd[b + "norm1.weight"], "bias": sd[b + "norm1.bias"]}
+            q["norm2"] = {"scale": sd[b + "norm2.weight"], "bias": sd[b + "norm2.bias"]}
+            q["attn"] = {
+                "qkv": {"kernel": _t_linear(sd[b + "attn.qkv.weight"]), "bias": sd[b + "attn.qkv.bias"]},
+                "proj": {"kernel": _t_linear(sd[b + "attn.proj.weight"]), "bias": sd[b + "attn.proj.bias"]},
+                "relative_position_bias_table": sd[b + "attn.relative_position_bias_table"],
+            }
+            q["mlp_fc1"] = {"kernel": _t_linear(sd[b + "mlp.fc1.weight"]), "bias": sd[b + "mlp.fc1.bias"]}
+            q["mlp_fc2"] = {"kernel": _t_linear(sd[b + "mlp.fc2.weight"]), "bias": sd[b + "mlp.fc2.bias"]}
+            p[f"stage{stage}_block{blk}"] = q
+        if stage < len(depths) - 1:
+            d = f"layers.{stage}.downsample."
+            p[f"merge{stage}"] = {
+                "norm": {"scale": sd[d + "norm.weight"], "bias": sd[d + "norm.bias"]},
+                "reduction": {"kernel": _t_linear(sd[d + "reduction.weight"])},
+            }
+    # out-feature norms: detectron2-style checkpoints carry norm0..norm3;
+    # classification checkpoints only a final 'norm' — map what exists
+    for stage in range(len(depths)):
+        key = f"norm{stage}.weight"
+        if key in sd:
+            p[f"s{stage + 2}_norm"] = {"scale": sd[key], "bias": sd[f"norm{stage}.bias"]}
+    return p
+
+
+def _load_converted(module, tree: Dict, what: str):
+    """Load a converted tree into ``module``: keys the module lacks and keys
+    of another shape are skipped with a warning (DetectionCheckpointer
+    semantics); the keys that were loaded and skipped are returned."""
+    from .convert import params_from_jax
+
+    target = module.state_dict()
+    loaded, skipped = {}, []
+    for key, value in params_from_jax(tree, module).items():
+        if key not in target:
+            skipped.append(f"{key} (unknown)")
+        elif tuple(target[key].shape) != tuple(value.shape):
+            skipped.append(f"{key} (shape {tuple(value.shape)} vs {tuple(target[key].shape)})")
+        else:
+            loaded[key] = value
+    module.load_state_dict(loaded, strict=False)
+    if skipped:
+        logger.warning("%s: skipped %d mismatched keys: %s", what, len(skipped), skipped[:8])
+    return sorted(loaded), skipped
+
+
+def load_swin_into(model, path_or_sd, depths=(2, 2, 18, 2)):
+    """Load a pretrained Swin (``swin_*_patch4_window*.pth``, or a state dict)
+    into ``model.bottom_up`` of a ``CustomRCNN``, or into ``model`` itself
+    when it is a ``SwinTransformer``. Returns (loaded keys, skipped keys)."""
+    sd = load_state_dict(path_or_sd) if isinstance(path_or_sd, str) else path_or_sd
+    sd = {k.replace("backbone.", "").replace("bottom_up.", ""): v for k, v in sd.items()}
+    return _load_converted(getattr(model, "bottom_up", model), convert_swin(sd, depths),
+                           "swin checkpoint")
+
+
+def _fold_frozen_bn(sd, src, eps=1e-5):
+    """detectron2 FrozenBatchNorm2d → our affine-only FrozenBatchNorm:
+    scale = γ/√(var+ε), bias = β − mean·scale. Caffe2-origin .pkl
+    checkpoints are already folded (no running stats) — pass through."""
+    g, b = sd[f"{src}.weight"], sd[f"{src}.bias"]
+    if f"{src}.running_var" in sd:
+        scale = g / np.sqrt(sd[f"{src}.running_var"] + eps)
+        return {"scale": scale, "bias": b - sd[f"{src}.running_mean"] * scale}
+    return {"scale": g, "bias": b}
+
+
+def _convert_d2_resnet(sd: Dict[str, np.ndarray], used_add=None) -> Dict:
+    """detectron2 ResNet (BasicStem + bottleneck stages, FrozenBN) → our
+    ResNet params (modeling/backbone/resnet.py: stem + res<s>_block<i> with
+    conv1/conv2/conv3/shortcut ConvNorm children)."""
+    used_add = used_add or (lambda k: None)
+
+    def conv_bn(src):
+        for k in (f"{src}.weight", f"{src}.norm.weight", f"{src}.norm.bias",
+                  f"{src}.norm.running_mean", f"{src}.norm.running_var"):
+            if k in sd:
+                used_add(k)
+        return {
+            "conv": {"kernel": _t_conv(sd[f"{src}.weight"])},
+            "FrozenBatchNorm_0": _fold_frozen_bn(sd, f"{src}.norm"),
+        }
+
+    p: Dict[str, Any] = {"stem": conv_bn("stem.conv1")}
+    for s in (2, 3, 4, 5):
+        i = 0
+        while f"res{s}.{i}.conv1.weight" in sd:
+            blk = {
+                c: conv_bn(f"res{s}.{i}.{c}") for c in ("conv1", "conv2", "conv3")
+            }
+            if f"res{s}.{i}.shortcut.weight" in sd:
+                blk["shortcut"] = conv_bn(f"res{s}.{i}.shortcut")
+            p[f"res{s}_block{i}"] = blk
+            i += 1
+    return p
+
+
+# ---------------- detectron2 GeneralizedRCNN detector checkpoint ----------------
+def convert_d2_detector(
+    sd: Dict[str, np.ndarray],
+    *,
+    swin_depths=(2, 2, 18, 2),
+    fpn_in_features=("res3", "res4", "res5"),
+    cascade_stages: int = 3,
+    use_zeroshot: bool = False,
+    box_pooler_resolution: int = 7,
+) -> Dict:
+    """Full detector checkpoint (DiverGen/Detic/BSGAL: Swin/ResNet + FPN +
+    CenterNet2 proposals + Detic cascade heads) → our CustomRCNN param tree.
+
+    Key layout follows the reference modules that produce these checkpoints:
+    ``backbone.bottom_up.*`` + ``backbone.fpn_lateral<s>/fpn_output<s>`` +
+    ``backbone.top_block.p6/p7`` (detectron2 fpn.py:84-99),
+    ``proposal_generator.centernet_head.{share,bbox,cls}_tower.<j>`` with
+    Sequential conv/GN/ReLU triples + ``agn_hm``/``bbox_pred``/``scales.<l>``
+    (centernet_head.py:57-108), ``roi_heads.box_head.<k>.fc{1,2}`` +
+    ``roi_heads.box_predictor.<k>.{cls_score,bbox_pred}``
+    (detic_fast_rcnn.py:29-130, zero_shot_classifier.py:9-86) and
+    ``roi_heads.mask_head.{mask_fcn*,deconv,predictor}`` (mask_head.py).
+
+    Returns {"bottom_up":…, "fpn":…, "centernet_head":…, "roi_heads":…}
+    plus "_stats" with mapped/unmapped key lists for coverage asserts.
+    """
+    used = set()
+
+    def take(k):
+        used.add(k)
+        return sd[k]
+
+    out: Dict[str, Any] = {}
+
+    # --- backbone bottom-up ---
+    swin_keys = {k for k in sd if k.startswith("backbone.bottom_up.")}
+    if any(".patch_embed." in k for k in swin_keys):
+        sub = {k[len("backbone.bottom_up."):]: sd[k] for k in swin_keys}
+        out["bottom_up"] = convert_swin(sub, swin_depths)
+        # convert_swin consumes the whole swin surface; rel-pos index buffers
+        # and attn masks are recomputed, not loaded
+        used |= {
+            k for k in swin_keys
+            if not k.endswith(("relative_position_index", "attn_mask"))
+        }
+    elif any(".stem." in k for k in swin_keys):
+        sub = {k[len("backbone.bottom_up."):]: sd[k] for k in swin_keys}
+        out["bottom_up"] = _convert_d2_resnet(sub, used_add=lambda k: used.add(
+            "backbone.bottom_up." + k))
+
+    # --- FPN ---
+    fpn: Dict[str, Any] = {}
+    stages = sorted(
+        int(m.group(1))
+        for m in (re.match(r"backbone\.fpn_lateral(\d+)\.weight$", k) for k in sd)
+        if m
+    )
+    assert len(stages) == len(fpn_in_features), (stages, fpn_in_features)
+
+    def conv_norm(dst, src):
+        d = {"conv": {"kernel": _t_conv(take(f"{src}.weight"))}}
+        if f"{src}.bias" in sd:
+            d["conv"]["bias"] = take(f"{src}.bias")
+        if f"{src}.norm.weight" in sd:
+            d["GroupNorm_0"] = {
+                "scale": take(f"{src}.norm.weight"),
+                "bias": take(f"{src}.norm.bias"),
+            }
+        dst_node = fpn if dst[0] == "fpn" else out.setdefault(dst[0], {})
+        dst_node[dst[1]] = d
+
+    for s, f in zip(stages, fpn_in_features):
+        conv_norm(("fpn", f"lateral_{f}"), f"backbone.fpn_lateral{s}")
+        conv_norm(("fpn", f"output_{f}"), f"backbone.fpn_output{s}")
+    for p in ("p6", "p7"):
+        if f"backbone.top_block.{p}.weight" in sd:
+            conv_norm(("fpn", f"top_{p}"), f"backbone.top_block.{p}")
+    out["fpn"] = fpn
+
+    # --- CenterNet head ---
+    cn: Dict[str, Any] = {}
+    pfx = "proposal_generator.centernet_head"
+    for tower, ours in (("share_tower", "share"), ("bbox_tower", "bbox"),
+                        ("cls_tower", "cls")):
+        # Sequential indices skip the param-less ReLUs: conv at 3k, GN at
+        # 3k+1 (or conv at 2k with norm=''); scan the indices present
+        idxs = sorted(
+            int(m.group(1))
+            for m in (
+                re.match(rf"{re.escape(pfx)}\.{tower}\.(\d+)\.weight$", k)
+                for k in sd
+            )
+            if m
+        )
+        conv_i = 0
+        for j in idxs:
+            w = sd[f"{pfx}.{tower}.{j}.weight"]
+            if w.ndim == 4:  # conv
+                node = cn.setdefault(f"{ours}_{conv_i}", {})
+                node["conv"] = {
+                    "kernel": _t_conv(take(f"{pfx}.{tower}.{j}.weight")),
+                    "bias": take(f"{pfx}.{tower}.{j}.bias"),
+                }
+                conv_i += 1
+            else:  # GroupNorm
+                cn[f"{ours}_{conv_i - 1}"]["GroupNorm_0"] = {
+                    "scale": take(f"{pfx}.{tower}.{j}.weight"),
+                    "bias": take(f"{pfx}.{tower}.{j}.bias"),
+                }
+    for head in ("agn_hm", "bbox_pred", "cls_logits"):
+        if f"{pfx}.{head}.weight" in sd:
+            cn[head] = {"conv": {
+                "kernel": _t_conv(take(f"{pfx}.{head}.weight")),
+                "bias": take(f"{pfx}.{head}.bias"),
+            }}
+    l = 0
+    while f"{pfx}.scales.{l}.scale" in sd:
+        cn[f"scale_{l}"] = {"scale": take(f"{pfx}.scales.{l}.scale").reshape(())}
+        l += 1
+    out["centernet_head"] = cn
+
+    # --- cascade ROI heads ---
+    rh: Dict[str, Any] = {}
+    for k in range(cascade_stages):
+        bh = {}
+        for fc in ("fc1", "fc2"):
+            if f"roi_heads.box_head.{k}.{fc}.weight" in sd:
+                w = take(f"roi_heads.box_head.{k}.{fc}.weight")
+                if fc == "fc1":
+                    # torch flattens the pooled roi NCHW (c·H·W + y·W + x);
+                    # our head flattens NHWC — permute the input axis or the
+                    # loaded head silently computes on scrambled features
+                    # (caught by tests/parity/test_full_graph_parity.py)
+                    res = box_pooler_resolution
+                    cin = w.shape[1] // (res * res)
+                    assert cin * res * res == w.shape[1], (w.shape, res)
+                    w = (
+                        w.reshape(-1, cin, res, res)
+                        .transpose(2, 3, 1, 0)
+                        .reshape(res * res * cin, -1)
+                    )
+                else:
+                    w = _t_linear(w)
+                bh[fc] = {
+                    "kernel": w,
+                    "bias": take(f"roi_heads.box_head.{k}.{fc}.bias"),
+                }
+        if bh:
+            rh[f"box_head{k}"] = bh
+        if f"roi_heads.box_predictor.{k}.bbox_pred.weight" not in sd:
+            continue
+        bp = {}
+        cs = f"roi_heads.box_predictor.{k}.cls_score"
+        if use_zeroshot:
+            bp["linear"] = {
+                "kernel": _t_linear(take(f"{cs}.linear.weight")),
+                "bias": take(f"{cs}.linear.bias"),
+            }
+            # reference zs_weight is D x (C+1) with an all-zero background
+            # column appended at init (zero_shot_classifier.py:42-44); ours
+            # keeps D x C and a separate bg_bias logit
+            bp["zs_weight"] = take(f"{cs}.zs_weight")[:, :-1]
+            if f"{cs}.cls_bias" in sd:
+                bp["bg_bias"] = take(f"{cs}.cls_bias")
+        else:
+            bp["cls_score"] = {
+                "kernel": _t_linear(take(f"{cs}.weight")),
+                "bias": take(f"{cs}.bias"),
+            }
+        bp["bbox_pred"] = {
+            "kernel": _t_linear(take(f"roi_heads.box_predictor.{k}.bbox_pred.weight")),
+            "bias": take(f"roi_heads.box_predictor.{k}.bbox_pred.bias"),
+        }
+        rh[f"box_predictor{k}"] = bp
+    mh = {}
+    i = 1
+    while f"roi_heads.mask_head.mask_fcn{i}.weight" in sd:
+        mh[f"mask_fcn{i}"] = {
+            "kernel": _t_conv(take(f"roi_heads.mask_head.mask_fcn{i}.weight")),
+            "bias": take(f"roi_heads.mask_head.mask_fcn{i}.bias"),
+        }
+        i += 1
+    if "roi_heads.mask_head.deconv.weight" in sd:
+        # torch ConvTranspose2d (in, out, kh, kw) → flax (kh, kw, in, out);
+        # torch scatters the kernel directly while lax.conv_transpose treats
+        # it as a fractionally-strided conv — spatial flip converts between
+        # the two (verified in tests/parity/test_detector_convert_parity.py)
+        w = take("roi_heads.mask_head.deconv.weight").transpose(2, 3, 0, 1)
+        mh["deconv"] = {
+            "kernel": np.ascontiguousarray(w[::-1, ::-1]),
+            "bias": take("roi_heads.mask_head.deconv.bias"),
+        }
+    if "roi_heads.mask_head.predictor.weight" in sd:
+        mh["predictor"] = {
+            "kernel": _t_conv(take("roi_heads.mask_head.predictor.weight")),
+            "bias": take("roi_heads.mask_head.predictor.bias"),
+        }
+    if mh:
+        rh["mask_head"] = mh
+    out["roi_heads"] = rh
+
+    ignorable = (
+        "freq_weight", "pixel_mean", "pixel_std", "cls_weight",
+        "relative_position_index", "attn_mask",
+    )
+    unmapped = [
+        k for k in sd
+        if k not in used and not k.endswith(ignorable)
+    ]
+    out["_stats"] = {"mapped": len(used), "unmapped": unmapped}
+    return out
+
+
+def load_d2_detector_into(model, path_or_sd, cfg=None, **kw):
+    """Load a reference detector checkpoint into a ``CustomRCNN``; the
+    converter's options default from ``cfg``. Returns (loaded keys, skipped
+    keys); checkpoint keys the converter did not map are logged."""
+    sd = load_state_dict(path_or_sd) if isinstance(path_or_sd, str) else path_or_sd
+    if cfg is not None:
+        kw.setdefault("use_zeroshot", cfg.MODEL.ROI_BOX_HEAD.USE_ZEROSHOT_CLS)
+        kw.setdefault("cascade_stages", len(cfg.MODEL.ROI_BOX_CASCADE_HEAD.IOUS))
+        kw.setdefault("box_pooler_resolution", cfg.MODEL.ROI_BOX_HEAD.POOLER_RESOLUTION)
+    converted = convert_d2_detector(sd, **kw)
+    stats = converted.pop("_stats")
+    if stats["unmapped"]:
+        logger.warning("detector checkpoint: %d keys unmapped: %s",
+                       len(stats["unmapped"]), stats["unmapped"][:8])
+    return _load_converted(model, converted, "detector checkpoint")

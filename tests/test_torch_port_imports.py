@@ -1,6 +1,6 @@
 """The port imports torch, never jax, and nothing of the JAX package: an AST
 scan of every Python file of ``divergen_tpu_torch`` and of ``chip_smoke.py``.
-OpenCV and PIL are banned too: the port decodes, resizes and writes images
+OpenCV, PIL and torchvision are banned too: the port decodes, resizes and writes images
 with torch and the standard library."""
 import ast
 import pathlib
@@ -8,7 +8,7 @@ import pathlib
 import pytest
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
-BANNED = ("divergen_tpu", "jax", "jaxlib", "flax", "optax", "orbax", "cv2", "PIL")
+BANNED = ("divergen_tpu", "jax", "jaxlib", "flax", "optax", "orbax", "cv2", "PIL", "torchvision")
 FILES = sorted((ROOT / "divergen_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
 
 

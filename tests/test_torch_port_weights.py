@@ -204,3 +204,205 @@ def test_conv_transpose_needs_the_module():
     sam = tsam.SAM.tiny(img_size=64)
     with pytest.raises(RuntimeError):
         sam.load_state_dict(params_from_jax(ttw.convert_sam(sd, 2)))
+
+
+# -- the detector's converters ---------------------------------------------------
+
+SWIN_TINY = (16, (1, 1, 2, 1), (1, 2, 4, 8), 4, 0.0)  # embed, depths, heads, window, drop path
+
+
+def synthetic_swin_state_dict(rng, embed, depths, heads, window, out_norms=(1, 2, 3), prefix=""):
+    """A Swin state dict in the naming of the published checkpoints, with the
+    index and mask buffers a detectron2 checkpoint also carries."""
+    sd = {}
+    f = lambda *s, scale=1.0: (rng.randn(*s) * scale).astype(np.float32)
+    sd["patch_embed.proj.weight"] = f(embed, 3, 4, 4, scale=0.1)
+    sd["patch_embed.proj.bias"] = f(embed, scale=0.1)
+    _ln(sd, rng, "patch_embed.norm", embed)
+    dim = embed
+    for stage, depth in enumerate(depths):
+        for blk in range(depth):
+            b = f"layers.{stage}.blocks.{blk}"
+            _ln(sd, rng, f"{b}.norm1", dim)
+            _ln(sd, rng, f"{b}.norm2", dim)
+            _lin(sd, rng, f"{b}.attn.qkv", 3 * dim, dim)
+            _lin(sd, rng, f"{b}.attn.proj", dim, dim)
+            sd[f"{b}.attn.relative_position_bias_table"] = f((2 * window - 1) ** 2, heads[stage],
+                                                             scale=0.5)
+            sd[f"{b}.attn.relative_position_index"] = np.zeros((window**2, window**2), np.int64)
+            _lin(sd, rng, f"{b}.mlp.fc1", 4 * dim, dim)
+            _lin(sd, rng, f"{b}.mlp.fc2", dim, 4 * dim)
+        if stage in out_norms:
+            _ln(sd, rng, f"norm{stage}", dim)
+        if stage < len(depths) - 1:
+            _ln(sd, rng, f"layers.{stage}.downsample.norm", 4 * dim)
+            sd[f"layers.{stage}.downsample.reduction.weight"] = f(2 * dim, 4 * dim, scale=0.1)
+            dim *= 2
+    return {prefix + k: v for k, v in sd.items()}
+
+
+def synthetic_detector_state_dict(rng, bottom_up, in_channels, fpn=32, fc=64, mask_dim=16,
+                                  classes=8, zeroshot=False, zs_dim=512):
+    """A detectron2 CustomRCNN checkpoint around the given ``backbone.bottom_up``
+    keys: FPN with P6/P7, CenterNet head (conv / GN / ReLU triples in a
+    Sequential), three cascade stages, mask head."""
+    sd = dict(bottom_up)
+    f = lambda *s, scale=1.0: (rng.randn(*s) * scale).astype(np.float32)
+
+    def conv(name, out_c, in_c, k, bias=True):
+        sd[f"{name}.weight"] = f(out_c, in_c, k, k, scale=(in_c * k * k) ** -0.5)
+        if bias:
+            sd[f"{name}.bias"] = f(out_c, scale=0.1)
+
+    for s, c in zip((3, 4, 5), in_channels):
+        conv(f"backbone.fpn_lateral{s}", fpn, c, 1)
+        conv(f"backbone.fpn_output{s}", fpn, fpn, 3)
+    for p in ("p6", "p7"):
+        conv(f"backbone.top_block.{p}", fpn, fpn, 3)
+    head = "proposal_generator.centernet_head"
+    for j in range(4):
+        conv(f"{head}.bbox_tower.{3 * j}", fpn, fpn, 3)
+        _ln(sd, rng, f"{head}.bbox_tower.{3 * j + 1}", fpn)
+    conv(f"{head}.agn_hm", 1, fpn, 3)
+    conv(f"{head}.bbox_pred", 4, fpn, 3)
+    for l in range(5):
+        sd[f"{head}.scales.{l}.scale"] = f(1) + 1.0
+    for k in range(3):
+        _lin(sd, rng, f"roi_heads.box_head.{k}.fc1", fc, fpn * 49)
+        _lin(sd, rng, f"roi_heads.box_head.{k}.fc2", fc, fc)
+        cs = f"roi_heads.box_predictor.{k}.cls_score"
+        if zeroshot:
+            _lin(sd, rng, f"{cs}.linear", zs_dim, fc)
+            sd[f"{cs}.zs_weight"] = np.concatenate([f(zs_dim, classes), np.zeros((zs_dim, 1), np.float32)], 1)
+            sd[f"{cs}.cls_bias"] = f(1)
+        else:
+            _lin(sd, rng, cs, classes + 1, fc)
+        _lin(sd, rng, f"roi_heads.box_predictor.{k}.bbox_pred", 4, fc)
+        sd[f"roi_heads.box_predictor.{k}.freq_weight"] = f(classes)
+    for i in range(4):
+        conv(f"roi_heads.mask_head.mask_fcn{i + 1}", mask_dim, fpn if i == 0 else mask_dim, 3)
+    sd["roi_heads.mask_head.deconv.weight"] = f(mask_dim, mask_dim, 2, 2, scale=0.2)
+    sd["roi_heads.mask_head.deconv.bias"] = f(mask_dim, scale=0.1)
+    conv("roi_heads.mask_head.predictor", 1, mask_dim, 1)
+    sd["pixel_mean"] = f(3, 1, 1)
+    sd["some.unknown.key"] = f(2)
+    return sd
+
+
+def synthetic_resnet_keys(rng):
+    """``backbone.bottom_up`` keys of a detectron2 ResNet: a stem and one
+    bottleneck with a shortcut, with and without running statistics."""
+    sd = {}
+    f = lambda *s: (rng.randn(*s) * 0.1).astype(np.float32)
+
+    def conv_bn(name, out_c, in_c, k, stats):
+        sd[f"{name}.weight"] = f(out_c, in_c, k, k)
+        sd[f"{name}.norm.weight"], sd[f"{name}.norm.bias"] = f(out_c) + 1.0, f(out_c)
+        if stats:
+            sd[f"{name}.norm.running_mean"] = f(out_c)
+            sd[f"{name}.norm.running_var"] = np.abs(f(out_c)) + 0.5
+
+    conv_bn("stem.conv1", 8, 3, 7, True)
+    for c, (o, i, k) in dict(conv1=(4, 8, 1), conv2=(4, 4, 3), conv3=(16, 4, 1),
+                             shortcut=(16, 8, 1)).items():
+        conv_bn(f"res2.0.{c}", o, i, k, c != "conv3")
+    return {"backbone.bottom_up." + k: v for k, v in sd.items()}
+
+
+def test_convert_swin_copy_equals_original():
+    embed, depths, heads, window, _ = SWIN_TINY
+    sd = synthetic_swin_state_dict(np.random.RandomState(6), embed, depths, heads, window)
+    got = ttw.convert_swin(sd, depths)
+    assert_trees_equal(got, jtw.convert_swin(sd, depths))
+    assert "s2_norm" not in got and set(got) >= {"s3_norm", "s4_norm", "s5_norm", "merge2"}
+
+
+@pytest.mark.parametrize("zeroshot", [False, True], ids=["linear", "zeroshot"])
+def test_convert_d2_detector_copy_equals_original(zeroshot):
+    rng = np.random.RandomState(7)
+    embed, depths, heads, window, _ = SWIN_TINY
+    swin = synthetic_swin_state_dict(rng, embed, depths, heads, window,
+                                     prefix="backbone.bottom_up.")
+    sd = synthetic_detector_state_dict(rng, swin, (32, 64, 128), zeroshot=zeroshot)
+    kw = dict(swin_depths=depths, fpn_in_features=("s3", "s4", "s5"), use_zeroshot=zeroshot)
+    got, want = ttw.convert_d2_detector(sd, **kw), jtw.convert_d2_detector(sd, **kw)
+    assert got.pop("_stats") == want.pop("_stats")
+    assert_trees_equal(got, want)
+
+
+def test_convert_d2_detector_resnet_branch_copy_equals_original():
+    rng = np.random.RandomState(8)
+    sd = synthetic_detector_state_dict(rng, synthetic_resnet_keys(rng), (16, 16, 16))
+    got, want = ttw.convert_d2_detector(sd), jtw.convert_d2_detector(sd)
+    assert got["_stats"] == want["_stats"] and got["_stats"]["unmapped"] == ["some.unknown.key"]
+    got.pop("_stats"), want.pop("_stats")
+    assert_trees_equal(got, want)
+    assert set(got["bottom_up"]["res2_block0"]) == {"conv1", "conv2", "conv3", "shortcut"}
+
+
+@pytest.fixture
+def tiny_detector(monkeypatch):
+    from divergen_tpu_torch import graft_entry
+    from divergen_tpu_torch.modeling.backbone import swin as tswin
+    from divergen_tpu_torch.modeling.meta_arch.rcnn import build_model
+
+    def make(zeroshot=False):
+        monkeypatch.setitem(tswin.SIZE2CONFIG, "tiny", SWIN_TINY)
+        cfg = graft_entry._small_cfg(swin_size="tiny")
+        cfg.MODEL.FPN.OUT_CHANNELS = 32
+        cfg.MODEL.ROI_BOX_HEAD.FC_DIM = 64
+        cfg.MODEL.ROI_MASK_HEAD.CONV_DIM = 16
+        cfg.MODEL.ROI_BOX_HEAD.USE_ZEROSHOT_CLS = zeroshot
+        return build_model(cfg), cfg
+
+    return make
+
+
+@pytest.mark.parametrize("zeroshot", [False, True], ids=["linear", "zeroshot"])
+def test_detector_checkpoint_loads(tiny_detector, zeroshot):
+    """Every parameter of the detector comes from the checkpoint, except the
+    stride-4 output norm that a detectron2 Swin (OUT_FEATURES 1, 2, 3) lacks."""
+    rng = np.random.RandomState(9)
+    embed, depths, heads, window, _ = SWIN_TINY
+    swin = synthetic_swin_state_dict(rng, embed, depths, heads, window,
+                                     prefix="backbone.bottom_up.")
+    sd = synthetic_detector_state_dict(rng, swin, (32, 64, 128), zeroshot=zeroshot)
+    model, cfg = tiny_detector(zeroshot)
+    loaded, skipped = ttw.load_d2_detector_into(model, sd, cfg, swin_depths=depths,
+                                                fpn_in_features=("s3", "s4", "s5"))
+    assert skipped == []
+    assert set(model.state_dict()) - set(loaded) == {"bottom_up.s2_norm.weight",
+                                                     "bottom_up.s2_norm.bias"}
+    state = {k: v.numpy() for k, v in model.state_dict().items()}
+    np.testing.assert_array_equal(state["bottom_up.stage2_block1.attn.qkv.weight"],
+                                  sd["backbone.bottom_up.layers.2.blocks.1.attn.qkv.weight"])
+    np.testing.assert_array_equal(state["fpn.top_p7.conv.weight"], sd["backbone.top_block.p7.weight"])
+    np.testing.assert_array_equal(state["centernet_head.bbox_2.GroupNorm_0.weight"],
+                                  sd["proposal_generator.centernet_head.bbox_tower.7.weight"])
+    np.testing.assert_array_equal(state["centernet_head.scale_3.weight"],
+                                  sd["proposal_generator.centernet_head.scales.3.scale"][0])
+    # the transposed convolution holds the checkpoint's own (in, out, kh, kw) weight
+    np.testing.assert_array_equal(state["roi_heads.mask_head.deconv.weight"],
+                                  sd["roi_heads.mask_head.deconv.weight"])
+    # fc1 takes the pooled roi flattened (y, x, c), the checkpoint (c, y, x)
+    w = sd["roi_heads.box_head.1.fc1.weight"].reshape(64, 32, 7, 7).transpose(0, 2, 3, 1)
+    np.testing.assert_array_equal(state["roi_heads.box_head1.fc1.weight"], w.reshape(64, -1))
+    if zeroshot:
+        np.testing.assert_array_equal(state["roi_heads.box_predictor2.zs_weight"],
+                                      sd["roi_heads.box_predictor.2.cls_score.zs_weight"][:, :-1])
+
+
+def test_swin_checkpoint_loads_and_mismatches_are_skipped(tiny_detector, tmp_path):
+    rng = np.random.RandomState(10)
+    embed, depths, heads, window, _ = SWIN_TINY
+    sd = synthetic_swin_state_dict(rng, embed, depths, heads, window, out_norms=())
+    sd["layers.0.blocks.0.attn.relative_position_bias_table"] = np.zeros((9, 1), np.float32)
+    path = str(tmp_path / "swin.pth")
+    torch.save({"model": {k: torch.from_numpy(v) for k, v in sd.items()}}, path)
+    model, _ = tiny_detector()
+    loaded, skipped = ttw.load_swin_into(model, path, depths)
+    assert len(skipped) == 1 and "relative_position_bias_table" in skipped[0]
+    assert "stage3_block0.mlp_fc2.weight" in loaded and not any("_norm" in k and k[0] == "s"
+                                                                for k in loaded)
+    np.testing.assert_array_equal(model.bottom_up.merge1.reduction.weight.detach().numpy(),
+                                  sd["layers.1.downsample.reduction.weight"])
