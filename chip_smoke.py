@@ -7,7 +7,8 @@ Run from the root of a checkout:  python3 chip_smoke.py
 2. Build: compiles divergen_tpu_torch/csrc/*.cu with nvcc (timed).
 3. Kernel phases: each hand-written kernel (flash_attention_packed,
    fused_ln_matmul, flash_attention, flash_attention_relpos,
-   fused_window_attention_packed, fused_window_attention) against its
+   fused_window_attention_packed, fused_window_attention, and the backward
+   kernels of the last two) against its
    plain torch version on the same bf16 inputs (plain version in float32),
    at the shapes of the SDXL, SAM and Swin-L slices plus ragged cases;
    flash_attention_relpos first on heads-first views of a fused qkv
@@ -23,13 +24,25 @@ Run from the root of a checkout:  python3 chip_smoke.py
    (``scaled_dot_product_attention``; ``F.linear(F.layer_norm(x))`` + GELU or
    GEGLU) and the card's bound: the larger of operations / 989 TFLOP/s and
    bytes / 3.35 TB/s. The PyTorch call is a yardstick only; the port never
-   calls it.
+   calls it. Then the backward kernels of the two window-attention wrappers
+   (their ``torch.autograd.Function``s) at the same four stage shapes with
+   and without the mask and on ragged windows: dq, dk, dv and the float32
+   dbias against ``reference_window_attention_packed_backward`` on the same
+   bf16 inputs (the same bounds), the split wrapper's gradients equal to the
+   packed one's bit for bit on the same projection, the same call twice equal
+   bit for bit, and beside the kernel's time that of the backward of
+   ``scaled_dot_product_attention`` alone (its forward graph built outside
+   the timing, as the kernel's is), with its forward + backward printed too.
 4. Small models: a narrow UNet (d = 64 self-attention, GEGLU), a VAE decoder
    with a d = 512 mid attention, and a narrow SAM whose global layer runs the
    relative-position kernel at d = 80, bf16 on the card through the kernels,
    against the same weights in float32 on the CPU; and a narrow detector
    (Swin with d = 32 heads, window 7, FPN, CenterNet2 proposals, cascade and
-   mask heads): pyramid features by relative L2, and its top detections.
+   mask heads): pyramid features by relative L2, and its top detections; and
+   one train step of that narrow detector (bf16 compute over float32
+   parameters, SGD with clipping, EMA) against its float32 CPU copy on the
+   same weights, batch and random draws: every loss, ``grad_norm`` and the
+   updates of eight named parameters.
 5. Slice at full SDXL width, launch counters reset just before it:
    (a) the port's ``txt2img.main`` writing two 1024² PNGs;
    (b) ``SDXLTextEncoder.random(tiny=False)`` → ``SDXLPipeline.generate``,
@@ -48,7 +61,16 @@ Run from the root of a checkout:  python3 chip_smoke.py
    Every SAM forward must launch flash_attention_relpos 4 times and
    fused_ln_matmul 36 times. Then it times SAM per image at B = 4, CLIP per
    image at B = 16 and the compositor per pasted instance (medians of 3).
-7. Slice of the detector, launch counters reset just before it:
+7. Slice of the detector's train step, launch counters reset just before it:
+   ``graft_entry.dryrun_train()`` (one checked step of the small detector),
+   then ``graft_entry.flagship_train_entry()``: Swin-L, 1453 classes, 896²,
+   B = 2, bf16 compute over float32 parameters, AdamW with clipping, EMA, the
+   federated loss, the compositor. Five steps of ``make_paste_train_step``
+   and one of ``make_train_step`` with rematerialized Swin blocks (48 forward
+   and 24 backward launches of fused_window_attention_packed per step), then
+   five steps without (24 and 24): finite losses, the step counter, changed
+   parameters and EMA, ms per step and peak memory for both.
+8. Slice of the detector's inference forward, launch counters reset just before it:
    (a) ``graft_entry.entry()`` (Swin-T detector, 128²): 12
        fused_window_attention_packed launches;
    (b) ``graft_entry.flagship_entry()``: Swin-L + FPN + CenterNet2 + Detic
@@ -57,9 +79,9 @@ Run from the root of a checkout:  python3 chip_smoke.py
        one detection, exactly 24 fused_window_attention_packed launches per
        forward, ``paste_masks`` on the result. Then it times the forward and
        its three parts (medians of 3) and counts the host syncs of NMS.
-   fused_window_attention is not on this path (the packed kernel takes any
-   head count): phase 3 holds it, and its count here stays 0.
-8. Prints the kernels' JSON line, the card line, and as the last line
+   fused_window_attention is on no slice's path (the packed kernels take any
+   head count): phase 3 holds its forward and backward, and its counts stay 0.
+9. Prints the kernels' JSON line, the card line, and as the last line
    {"ok": true, "device": {...}}. Any failed phase raises: exit code != 0.
 """
 from __future__ import annotations
@@ -384,6 +406,103 @@ def kernel_phases(gen: torch.Generator):
         err = compare(f"window split bn={bn} H={heads} n={n} views of fused qkv", got, ref)
         results["fused_window_attention"]["max_abs_err"] = max(
             results["fused_window_attention"]["max_abs_err"], err)
+
+    log("kernel phase: window attention backward (packed and split)")
+    # dqkv and dbias of the packed wrapper's autograd.Function against the plain
+    # backward on the same bf16 inputs (bound: relative L2 <= 1e-2 and max |error|
+    # <= 3e-2 * max |reference| for the bf16 dqkv parts and the float32 dbias);
+    # the split wrapper on heads-first views of the same projection, whose dq,
+    # dk, dv and dbias must equal the packed wrapper's bit for bit; and the same
+    # call twice, which must give the same bits (the partial bias gradients of
+    # the window chunks are added in a fixed order)
+    def backward_case(bn, c, heads, nw, n, with_mask):
+        qkv, bias, mask, _, _ = window_case(bn, c, heads, nw, n, with_mask)
+        do = randn(bn, n, c)
+        d = c // heads
+        ops = 5 * 2.0 * bn * heads * n * n * d
+        nbytes = (2.0 * bn * n * (3 * c + c + 3 * c) + 2 * 4.0 * heads * n * n
+                  + (4.0 * nw * n * n if with_mask else 0.0))
+        return qkv.requires_grad_(True), bias.requires_grad_(True), mask, do, ops, nbytes
+
+    def packed_backward(qkv, bias, mask, heads, do):
+        out = wa_mod.fused_window_attention_packed(qkv, bias, mask, heads)
+        return out, lambda: torch.autograd.grad(out, (qkv, bias), do, retain_graph=True)
+
+    for bn, c, heads, nw, n in ((722, 192, 6, 361, 144), (200, 384, 12, 100, 144),
+                                (50, 768, 24, 25, 144), (18, 1536, 48, 9, 144),
+                                (8, 96, 3, 4, 49), (8, 96, 3, 4, 16), (8, 96, 3, 2, 4)):
+        for with_mask in (True, False):
+            qkv, bias, mask, do, ops, nbytes = backward_case(bn, c, heads, nw, n, with_mask)
+            what = (f"bn={bn} C={c} H={heads} n={n} "
+                    f"mask={'nW ' + str(nw) if with_mask else 'none'}")
+            _, run = packed_backward(qkv, bias, mask, heads, do)
+            dqkv, dbias = run()
+            ref_dqkv, ref_dbias = wa_mod.reference_window_attention_packed_backward(
+                qkv.detach(), bias.detach(), mask, heads, do)
+            err = max(compare(f"window packed backward {part} {what}",
+                              dqkv[..., i * c:(i + 1) * c], ref_dqkv[..., i * c:(i + 1) * c])
+                      for i, part in enumerate(("dq", "dk", "dv")))
+            err_b = compare(f"window packed backward dbias {what}", dbias, ref_dbias)
+            again = run()
+            same = torch.equal(again[0], dqkv) and torch.equal(again[1], dbias)
+            log(f"    two runs give the same bits: {same}")
+            if not same:
+                raise AssertionError(f"window attention backward is not deterministic ({what})")
+            # the split wrapper on views of the same projection
+            q, k, v = (t.detach().requires_grad_(True) for t in heads_first(qkv.detach(), heads))
+            bias2 = bias.detach().clone().requires_grad_(True)
+            out2 = wa_mod.fused_window_attention(q, k, v, bias2, mask)
+            do4 = do.reshape(bn, n, heads, c // heads).permute(0, 2, 1, 3)
+            run_split = lambda: torch.autograd.grad(out2, (q, k, v, bias2), do4, retain_graph=True)
+            dq, dk, dv, dbias2 = run_split()
+            merged = torch.cat([t.permute(0, 2, 1, 3).reshape(bn, n, c) for t in (dq, dk, dv)], -1)
+            if not (torch.equal(merged, dqkv) and torch.equal(dbias2, dbias)):
+                raise AssertionError(f"window attention backward: split and packed disagree ({what})")
+            log("    fused_window_attention's backward equals the packed one on the same projection")
+            if n != 144:  # ragged windows: held, not timed
+                for key in ("fused_window_attention_packed_backward",
+                            "fused_window_attention_backward"):
+                    results[key]["max_abs_err"] = max(results[key]["max_abs_err"], err)
+                continue
+
+            plain = lambda: wa_mod.reference_window_attention_packed_backward(
+                qkv.detach(), bias.detach(), mask, heads, do)
+            ms, pms, span = time_pair(run, plain, reps=WINDOW_REPS)
+            first = "fused_window_attention_packed_backward" not in results
+            library = library_both = None
+            if first:
+                # the PyTorch call's inputs and its forward graph, built outside the
+                # timing: its backward alone is timed, as the kernel's is
+                attn_mask = dense_mask(bias.detach(), mask, bn)
+                q4, k4, v4 = (t.detach().contiguous().requires_grad_(True)
+                              for t in heads_first(qkv.detach(), heads))
+                do_c = do4.contiguous()
+                lib_out = F.scaled_dot_product_attention(q4, k4, v4, attn_mask=attn_mask)
+                library = lambda: torch.autograd.grad(lib_out, (q4, k4, v4), do_c, retain_graph=True)
+                library_both = lambda: torch.autograd.grad(
+                    F.scaled_dot_product_attention(q4, k4, v4, attn_mask=attn_mask),
+                    (q4, k4, v4), do_c)
+
+            log(f"    dbias max_abs_err {err_b:.6g}; bound: {nbytes / 1e6:.1f} MB, "
+                f"{ops / 1e9:.1f} GFLOP in five products")
+            record("fused_window_attention_packed_backward", err, ms, pms, span, library, ops, nbytes)
+            if first:
+                log(f"    (the PyTorch call is the backward of scaled_dot_product_attention alone, "
+                    f"without a gradient for its dense bias; its forward + backward takes "
+                    f"{time_one(library_both):.4f} ms)")
+                del attn_mask, q4, k4, v4, lib_out, library, library_both
+            ms2, pms2, span2 = time_pair(
+                run_split, lambda: wa_mod.reference_window_attention_backward(
+                    q.detach(), k.detach(), v.detach(), bias2.detach(), mask, do4), reps=WINDOW_REPS)
+            if "fused_window_attention_backward" not in results:
+                packed_entry = results["fused_window_attention_packed_backward"]
+                log(f"    split backward on views: kernel {ms2:.4f} ms (min {span2[0]:.4f}, max "
+                    f"{span2[1]:.4f}), plain {pms2:.4f} ms")
+                results["fused_window_attention_backward"] = dict(
+                    packed_entry, ms=ms2, plain_ms=pms2, max_abs_err=err)
+            results["fused_window_attention_backward"]["max_abs_err"] = max(
+                results["fused_window_attention_backward"]["max_abs_err"], err)
+            torch.cuda.empty_cache()
     return results
 
 
@@ -851,6 +970,171 @@ def slice_detector(card: str):
     return detector_timings
 
 
+PASTE_STEPS = 5  # per setting of remat; the first one is left out of the median
+TRAIN_DRAWS = {"match": (2, 40), "mask": (2, 40), "fed0": (9,), "fed1": (9,), "fed2": (9,)}
+
+
+def small_train_step():
+    """One train step of a narrow detector (Swin embed 32, d = 32 heads, window
+    7), bf16 compute over float32 parameters on the card through the forward
+    and backward window-attention kernels, against the same model in float32
+    on the CPU: same seeded weights, batch and uniform draws (made once on the
+    CPU and handed to both, since the two devices' generators differ). Bounds:
+    every loss within 5e-2 relative (+ 5e-3); ``grad_norm`` within 1e-1
+    relative; for a handful of named parameters the update ``after - before``
+    points the same way: cosine >= 0.9. The optimizer here is SGD with
+    momentum and clipping, whose update is linear in the gradient (AdamW's
+    first step moves every weight by the learning rate times its gradient's
+    sign, which bf16 noise flips wherever the gradient is small; the
+    full-width slice runs AdamW)."""
+    from divergen_tpu_torch import graft_entry
+    from divergen_tpu_torch.engine.train_loop import create_train_state, make_train_step
+    from divergen_tpu_torch.modeling.backbone import swin
+    from divergen_tpu_torch.modeling.meta_arch.rcnn import build_model
+    from divergen_tpu_torch.ops.window_attention import fused_window_attention_packed
+    from divergen_tpu_torch.solver.build import build_optimizer
+
+    swin.SIZE2CONFIG["narrow"] = NARROW_SWIN
+    names = ("bottom_up.stage0_block1.attn.qkv.weight", "bottom_up.stage2_block0.mlp_fc1.weight",
+             "bottom_up.stage1_block0.attn.relative_position_bias_table",
+             "fpn.output_s3.conv.weight", "centernet_head.agn_hm.conv.weight",
+             "roi_heads.box_head0.fc1.weight", "roi_heads.box_predictor2.cls_score.weight",
+             "roi_heads.mask_head.deconv.weight")
+    rng = np.random.RandomState(5)
+    canvas = (128, 160)
+    images = (rng.rand(2, *canvas, 3) * 255).astype(np.float32)
+    gt = graft_entry._synth_gt(rng, 2, 8, 8, img=128)
+    g = torch.Generator().manual_seed(13)
+    draws = {k: torch.rand(shape, generator=g) for k, shape in TRAIN_DRAWS.items()}
+    out = {}
+    for dev in ("cpu", "cuda"):
+        cfg = graft_entry._small_cfg(swin_size="narrow")
+        cfg.MODEL.FPN.OUT_CHANNELS = 64
+        cfg.MODEL.ROI_BOX_HEAD.FC_DIM = 128
+        cfg.MODEL.ROI_BOX_HEAD.FED_LOSS_NUM_CAT = 4
+        cfg.SOLVER.CLIP_GRADIENTS.ENABLED = True
+        cfg.SOLVER.OPTIMIZER = "SGD"
+        cfg.SOLVER.BASE_LR = 1e-3
+        cfg.SOLVER.WARMUP_ITERS = 0
+        cfg.FP16 = dev == "cuda"
+        model = build_model(cfg, input_size=canvas, device=dev, param_dtype=torch.float32)
+        graft_entry.fast_init_(model, torch.Generator().manual_seed(11))
+        if {p.dtype for p in model.parameters()} != {torch.float32}:
+            raise AssertionError("small train step: parameters are not float32")
+        optimizer = build_optimizer(cfg, model)
+        state = create_train_state(model, optimizer, ema=True)
+        before = {n: dict(model.named_parameters())[n].detach().cpu().clone() for n in names}
+        batch = {"images": torch.from_numpy(images).to(dev),
+                 "image_sizes": torch.tensor([[128, 160], [100, 120]], device=dev),
+                 "gt": {k: v.to(dev) for k, v in gt.items()},
+                 "fed_weight": torch.linspace(1.0, 3.0, 8, device=dev)}
+        launches = (fused_window_attention_packed.launches,
+                    fused_window_attention_packed.backward_launches)
+        state, metrics = make_train_step(model, optimizer, ema_decay=0.999)(state, batch, draws)
+        if dev == "cuda":
+            torch.cuda.synchronize()
+            fwd = fused_window_attention_packed.launches - launches[0]
+            bwd = fused_window_attention_packed.backward_launches - launches[1]
+            if (fwd, bwd) != (7, 7):
+                raise AssertionError(f"small train step: {fwd} forward and {bwd} backward "
+                                     "window-attention launches, expected 7 and 7")
+        after = {n: dict(model.named_parameters())[n].detach().cpu() - before[n] for n in names}
+        out[dev] = ({k: float(v) for k, v in metrics.items()}, after)
+    (ref, ref_upd), (got, got_upd) = out["cpu"], out["cuda"]
+    for k, want in ref.items():
+        tol = 1e-1 * abs(want) if k == "grad_norm" else 5e-2 * abs(want) + 5e-3
+        ok = abs(got[k] - want) <= tol
+        log(f"  small train step {k}: card {got[k]:.5f}, f32 CPU {want:.5f} [{'ok' if ok else 'FAIL'}]")
+        if not ok:
+            raise AssertionError(f"small train step: {k} disagrees with the f32 CPU copy")
+    for n in names:
+        cos = F.cosine_similarity(got_upd[n].flatten(), ref_upd[n].flatten(), dim=0).item()
+        ok = cos >= 0.9
+        log(f"  small train step update of {n}: cosine {cos:.4f} [{'ok' if ok else 'FAIL'}]")
+        if not ok:
+            raise AssertionError(f"small train step: the update of {n} disagrees with the CPU copy")
+
+
+def slice_train(card: str):
+    """The flagship train step at full width through ``graft_entry``: Swin-L,
+    1453 classes, 896², B = 2, bf16 compute over float32 parameters, AdamW with
+    clipping, EMA, the federated loss and the compositor. Five steps of
+    ``make_paste_train_step`` and one of ``make_train_step`` with the config's
+    rematerialization (48 forward launches of fused_window_attention_packed per
+    step, 24 backward), then five steps without it (24 and 24)."""
+    from divergen_tpu_torch import graft_entry
+    from divergen_tpu_torch.engine.train_loop import make_train_step
+    from divergen_tpu_torch.ops.nms import nms_mask
+    from divergen_tpu_torch.ops.window_attention import (fused_window_attention,
+                                                         fused_window_attention_packed)
+
+    packed, split = fused_window_attention_packed, fused_window_attention
+    print(json.dumps(graft_entry.dryrun_train()), flush=True)
+    probe = ("bottom_up.stage2_block17.attn.qkv.weight", "roi_heads.box_predictor0.cls_score.bias",
+             "centernet_head.agn_hm.conv.weight")
+    def run(remat):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        step, (state, batch, rng) = graft_entry.flagship_train_entry(remat=remat)
+        torch.cuda.synchronize()
+        params = dict(state.model.named_parameters())
+        if ({p.dtype for p in params.values()} | {e.dtype for e in state.ema_params.values()}
+                != {torch.float32}):
+            raise AssertionError("flagship train state: parameters or EMA are not float32")
+        if state.model.compute_dtype != torch.bfloat16 or state.model.bottom_up.remat != remat:
+            raise AssertionError("flagship train state: compute dtype or remat not as asked")
+        log(f"  flagship train state (remat {remat}) built in {time.perf_counter() - t0:.1f} s: "
+            f"{sum(p.numel() for p in params.values()) / 1e6:.1f} M float32 parameters, "
+            f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB with the batch")
+        before = {n: params[n].detach().clone() for n in probe}
+        ema_before = {n: state.ema_params[n].clone() for n in probe}
+        steps = [("paste", step)] * PASTE_STEPS
+        if remat:
+            plain_batch = {"images": batch["image"], "image_sizes": batch["image_size"],
+                           "gt": batch["gt"], "fed_weight": batch["fed_weight"]}
+            steps.append(("plain", make_train_step(state.model, state.optimizer,
+                                                   ema_decay=0.999)))
+        times = []
+        for i, (kind, fn) in enumerate(steps):
+            fwd, bwd, syncs = packed.launches, packed.backward_launches, nms_mask.host_syncs
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, metrics = fn(state, plain_batch if kind == "plain" else batch, rng)
+            torch.cuda.synchronize()
+            ms = 1e3 * (time.perf_counter() - t0)
+            fwd, bwd = packed.launches - fwd, packed.backward_launches - bwd
+            want = (2 * SWIN_L_BLOCKS if remat else SWIN_L_BLOCKS, SWIN_L_BLOCKS)
+            if (fwd, bwd) != want or split.launches or split.backward_launches:
+                raise AssertionError(f"train step {i} (remat {remat}): {fwd} forward and {bwd} "
+                                     f"backward launches of the packed kernel, expected {want}; "
+                                     f"split {split.launches}, {split.backward_launches}")
+            values = {k: float(v) for k, v in metrics.items()}
+            if state.step != i + 1 or not all(np.isfinite(v) for v in values.values()):
+                raise AssertionError(f"train step {i}: step counter {state.step}, metrics {values}")
+            if len(values) != (12 if kind == "plain" else 11):
+                raise AssertionError(f"train step {i}: {sorted(values)}")
+            log(f"  {kind} step {state.step} (remat {remat}): total_loss {values['total_loss']:.4f}, "
+                f"{ms:.1f} ms, {fwd} forward + {bwd} backward window-attention launches, "
+                f"{nms_mask.host_syncs - syncs} host syncs in NMS")
+            if kind == "paste":
+                times.append(ms)
+        log("    losses of the last step: " + ", ".join(
+            f"{k} {v:.4f}" for k, v in values.items() if k != "total_loss"))
+        for n in probe:
+            if torch.equal(params[n], before[n]) or torch.equal(state.ema_params[n], ema_before[n]):
+                raise AssertionError(f"train steps left {n} or its EMA copy unchanged")
+        return statistics.median(times[1:]), torch.cuda.max_memory_allocated() / 2**30
+
+    # one call each, so that nothing of the first state outlives it
+    stats = {remat: run(remat) for remat in (True, False)}
+    for remat, (ms, peak) in stats.items():
+        log(f"  flagship train step (B=2, 896², bf16 over f32, compositor on, remat {remat}): "
+            f"{ms:.1f} ms/step (host clock, median of the steps after the first), peak memory "
+            f"{peak:.2f} GiB [{card}]")
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -887,19 +1171,26 @@ def main() -> int:
     log("small models")
     small_models()
     small_detector()
+    small_train_step()
 
     wrappers = (flash_attention_packed, fused_ln_matmul, flash_attention,
                 flash_attention_relpos, fused_window_attention_packed, fused_window_attention)
-    chain_kernels = wrappers[:4]
+    chain_kernels = [w.__name__ for w in wrappers[:4]]
+
+    backward = {"fused_window_attention_packed_backward": fused_window_attention_packed,
+                "fused_window_attention_backward": fused_window_attention}
 
     def reset():
         for w in wrappers:
             w.launches = 0
+        for w in backward.values():
+            w.backward_launches = 0
 
     def read(path_kernels, what):
         counts = {w.__name__: w.launches for w in wrappers}
+        counts.update({name: w.backward_launches for name, w in backward.items()})
         log(f"  kernel launches in {what}: {counts}")
-        missing = [w.__name__ for w in path_kernels if w.launches == 0]
+        missing = [name for name in path_kernels if counts[name] == 0]
         if missing:
             raise AssertionError(f"kernels not launched in {what}: {missing}")
         return counts
@@ -910,7 +1201,8 @@ def main() -> int:
         slice_txt2img(tmp)
         torch.cuda.empty_cache()
         encoder, pipe, cond = slice_pipeline()
-        sdxl = read((flash_attention_packed, fused_ln_matmul, flash_attention), "the SDXL slice")
+        sdxl = read(("flash_attention_packed", "fused_ln_matmul", "flash_attention"),
+                    "the SDXL slice")
         timings(encoder, pipe, cond, card)
 
         log("slice: instance chain at full width (SAM ViT-H, CLIP ViT-L/14, compositor)")
@@ -923,15 +1215,23 @@ def main() -> int:
     del encoder, pipe, cond, chain_timings
     torch.cuda.empty_cache()
 
+    log("slice: detector train step (dryrun_train, then the Swin-L flagship at full width)")
+    reset()
+    slice_train(card)
+    train = read(("fused_window_attention_packed", "fused_window_attention_packed_backward"),
+                 "the train slice")
+
     log("slice: detector inference forward (Swin-T entry, then Swin-L flagship at full width)")
     reset()
     detector_timings = slice_detector(card)
-    detector = read((fused_window_attention_packed,), "the detector slice")
-    if fused_window_attention.launches:
-        raise AssertionError("fused_window_attention is not on the detector's path, yet its "
-                             f"count is {fused_window_attention.launches}")
+    detector = read(("fused_window_attention_packed",), "the detector slice")
     detector_timings()
-    launches = {name: sdxl[name] + chain[name] + detector[name] for name in sdxl}
+    launches = {name: sdxl[name] + chain[name] + train[name] + detector[name] for name in sdxl}
+    # the split wrapper is on no slice's path (the packed kernels take any head
+    # count): the kernel phases hold its forward and backward, its counts stay 0
+    for name in ("fused_window_attention", "fused_window_attention_backward"):
+        if launches[name]:
+            raise AssertionError(f"{name} is on no slice's path, yet its count is {launches[name]}")
 
     sources = {
         "flash_attention_packed": ("divergen_tpu_torch/csrc/flash_attention.cu",
@@ -946,6 +1246,11 @@ def main() -> int:
                                           "divergen_tpu/ops/pallas/window_attention.py:470"),
         "fused_window_attention": ("divergen_tpu_torch/csrc/window_attention.cu",
                                    "divergen_tpu/ops/pallas/window_attention.py:245"),
+        "fused_window_attention_packed_backward": (
+            "divergen_tpu_torch/csrc/window_attention.cu",
+            "divergen_tpu/ops/pallas/window_attention.py:408"),
+        "fused_window_attention_backward": ("divergen_tpu_torch/csrc/window_attention.cu",
+                                            "divergen_tpu/ops/pallas/window_attention.py:203"),
     }
     kernels = [{"name": name, "route": "cuda", "source": src, "replaces": rep,
                 "launches": launches[name], **results[name]}

@@ -1,26 +1,35 @@
-"""Entry points of the detector: configs and a ready-to-call inference model.
+"""Entry points of the detector: configs, a ready-to-call inference model and
+a ready-to-call train step.
 
-Counterpart of ``__graft_entry__.py`` (``_small_cfg``, ``_fast_init``,
-``entry``) for the inference forward, plus ``flagship_cfg`` for the model of
-``configs/DiverGen_swinL.yaml``. ``dryrun_multichip`` (the sharded training
-step) belongs to the training slice and is not ported yet.
+Counterpart of ``__graft_entry__.py`` (``_small_cfg``, ``_synth_gt``,
+``_fast_init``, ``entry``, and ``dryrun_train`` for the one-device part of
+``dryrun_multichip``), plus ``flagship_cfg`` for ``configs/DiverGen_swinL.yaml``.
+The mesh and the processes of ``dryrun_multichip`` are not ported yet.
 
     model, (images, image_sizes) = entry()          # on the card
     dets = model(images, image_sizes)               # padded detections
     model, args = entry(device="cpu")               # the same on the CPU
     model, args = flagship_entry()                  # Swin-L at 896², B = 2, bfloat16
+    step, (state, batch, rng) = train_entry()       # copy-paste + train step
+    state, metrics = step(state, batch, rng)
+    step, args = flagship_train_entry()             # the same at full width
+    dryrun_train()                                  # one checked step
 """
 from __future__ import annotations
 
 import math
-from typing import Tuple
+from typing import Callable, Dict, Tuple
 
+import numpy as np
 import torch
 import torch.nn as nn
 
 from .config import ConfigNode, get_cfg
+from .engine.train_loop import TrainState, create_train_state, make_train_step
+from .engine.trainer import make_paste_train_step
 from .modeling.layers import FrozenBatchNorm, Scale
 from .modeling.meta_arch.rcnn import CustomRCNN, build_model
+from .solver.build import build_optimizer
 from .utils.dist import entry_device
 
 
@@ -47,9 +56,11 @@ def flagship_cfg() -> ConfigNode:
     """``get_cfg()`` with what ``configs/DiverGen_swinL.yaml`` over
     ``configs/Base-C2_L_R5021k_640b64_4x.yaml`` sets for the model and the
     test path: Swin-L-22k-384 + FPN, CenterNet2 proposals, the three-stage
-    Detic cascade over 1453 classes, the mask head, 896², bfloat16. Keys of
-    the solver, the data loader and the copy-paste input are left at their
-    defaults (merge the YAML file for those)."""
+    Detic cascade over 1453 classes, the mask head, 896², bfloat16; and for
+    the train step: AdamW at 1e-4 under a warm-up cosine schedule, full-model
+    gradient clipping, EMA 0.999, the federated loss, 4000 / 2000 training
+    proposals, copy-paste with the ``basic`` blend, rematerialized Swin
+    blocks."""
     cfg = get_cfg()
     cfg.merge_from_list([
         "MODEL.BACKBONE.NAME", "build_swintransformer_fpn_backbone",
@@ -73,6 +84,16 @@ def flagship_cfg() -> ConfigNode:
         "TEST.EVAL_PERIOD", "10000",
         "INPUT.TRAIN_SIZE", "896",
         "INPUT.TEST_SIZE", "896",
+        "INPUT.USE_COPY_PASTE", "true",
+        "INPUT.INST_POOL_PATH", "LVIS_instance_pools.json",
+        "SOLVER.MAX_ITER", "180000",
+        "SOLVER.WARMUP_FACTOR", "0.0001",
+        "SOLVER.CLIP_GRADIENTS.ENABLED", "true",
+        "DATALOADER.SAMPLER_TRAIN", "RepeatFactorTrainingSampler",
+        "DATALOADER.NUM_WORKERS", "16",
+        "DATASETS.TRAIN", "['lvis_v1_train']",
+        "DATASETS.TEST", "['lvis_v1_val']",
+        "OUTPUT_DIR", "./output/auto",
         "FP16", "true",
     ])
     return cfg
@@ -144,3 +165,123 @@ def flagship_entry(device=None) -> Tuple[CustomRCNN, Tuple[torch.Tensor, torch.T
     images = (torch.rand(2, size, size, 3, generator=gen) * 255).to(dev)
     sizes = [[size, size], [size - size // 8, size - size // 4]]
     return model, (images, torch.tensor(sizes, device=dev))
+
+
+def _synth_gt(rng: np.random.RandomState, b: int, n: int, num_classes: int, img: int = 128,
+              device=None) -> Dict[str, torch.Tensor]:
+    """Synthetic ground truth as the JAX package's ``_synth_gt`` draws it:
+    ``n`` boxes per image of which the first three are valid, random classes
+    and random 28 × 28 box-frame masks."""
+    xy = rng.rand(b, n, 2) * (img - 40)
+    wh = rng.rand(b, n, 2) * 30 + 8
+    boxes = np.concatenate([xy, xy + wh], -1).astype(np.float32)
+    classes = rng.randint(0, num_classes, (b, n))
+    masks = (rng.rand(b, n, 28, 28) > 0.4).astype(np.float32)
+    valid = np.broadcast_to(np.arange(n)[None] < 3, (b, n)).copy()
+    gt = {"boxes": torch.from_numpy(boxes), "classes": torch.from_numpy(classes).long(),
+          "valid": torch.from_numpy(valid), "masks": torch.from_numpy(masks),
+          "instance_source": torch.zeros((b, n), dtype=torch.long)}
+    return {k: v.to(device) for k, v in gt.items()}
+
+
+def _train_parts(cfg: ConfigNode, dev: torch.device, size: int, batch: int, gt_valid: int,
+                 input_size) -> Tuple[Callable, Tuple[TrainState, Dict, torch.Generator]]:
+    """A model with float32 parameters, its optimizer and state, the
+    copy-paste train step, one seeded batch and the generator of the step's
+    draws, all on ``dev``."""
+    model = build_model(cfg, input_size=input_size, device=dev, param_dtype=torch.float32)
+    gen = torch.Generator().manual_seed(SEED)
+    fast_init_(model, gen)
+    optimizer = build_optimizer(cfg, model)
+    state = create_train_state(model, optimizer, ema=cfg.MODEL.MODEL_EMA > 0)
+    step = make_paste_train_step(model, optimizer, cfg)
+
+    rng = np.random.RandomState(SEED)
+    n, p, ps = cfg.DATALOADER.MAX_INSTANCES, cfg.DATALOADER.MAX_PASTES, cfg.DATALOADER.PATCH_SIZE
+    classes = cfg.MODEL.ROI_HEADS.NUM_CLASSES
+    gt = _synth_gt(rng, batch, n, classes, img=size)
+    gt["valid"] = torch.arange(n)[None].expand(batch, n) < gt_valid
+    # boxes as large, relative to the canvas, as _synth_gt's are at 128 px
+    xy, wh = gt["boxes"][..., :2], (gt["boxes"][..., 2:] - gt["boxes"][..., :2]) * (size / 128.0)
+    gt["boxes"] = torch.cat([xy, (xy + wh).clamp(max=float(size))], dim=-1)
+    xy = rng.rand(batch, p, 2) * (size * 0.6)
+    wh = rng.rand(batch, p, 2) * (size * 0.2) + size * 0.08
+    batch_dict = {
+        "image": torch.from_numpy((rng.rand(batch, size, size, 3) * 255).astype(np.float32)),
+        "image_size": torch.tensor([[size, size]] * batch),
+        "gt": gt,
+        "patches": torch.from_numpy(np.concatenate(
+            [rng.rand(batch, p, ps, ps, 3) * 255, rng.rand(batch, p, ps, ps, 1) > 0.3],
+            -1).astype(np.float32)),
+        "patch_boxes": torch.from_numpy(np.concatenate([xy, xy + wh], -1).astype(np.float32)),
+        "patch_classes": torch.from_numpy(rng.randint(0, classes, (batch, p))).long(),
+        "patch_valid": torch.arange(p)[None].expand(batch, p) < max(p // 2, 1),
+        "patch_flip": torch.from_numpy(rng.rand(batch, p) > 0.5),
+        # a synthetic class-frequency vector: the file the config names is not in the repository
+        "fed_weight": torch.from_numpy((rng.rand(classes) * 100 + 1).astype(np.float32) ** 0.5),
+    }
+    to_dev = lambda v: {k: to_dev(x) for k, x in v.items()} if isinstance(v, dict) else v.to(dev)
+    return step, (state, to_dev(batch_dict), torch.Generator(device=dev).manual_seed(SEED))
+
+
+def train_entry(device=None):
+    """``(step, (state, batch, rng))``: the small Swin detector with float32
+    parameters and seeded random weights, AdamW with gradient clipping, EMA,
+    the copy-paste train step (``engine.trainer.make_paste_train_step``) and
+    one seeded 128 × 128 batch of two images with patches to paste;
+    ``state, metrics = step(state, batch, rng)``. The device rule is
+    ``entry``'s: on the card it computes in bfloat16 over the float32
+    parameters, on the CPU in float32."""
+    dev = entry_device(device)
+    cfg = _small_cfg()
+    cfg.FP16 = dev.type == "cuda"
+    cfg.SOLVER.CLIP_GRADIENTS.ENABLED = True
+    cfg.MODEL.MODEL_EMA = 0.999
+    cfg.INPUT.USE_COPY_PASTE = True
+    cfg.MODEL.ROI_BOX_HEAD.FED_LOSS_NUM_CAT = 4  # of the small config's 8 classes
+    cfg.DATALOADER.MAX_INSTANCES = 8
+    cfg.DATALOADER.MAX_PASTES = 4
+    cfg.DATALOADER.PATCH_SIZE = 32
+    return _train_parts(cfg, dev, 128, 2, 3, (128, 128))
+
+
+def flagship_train_entry(device=None, remat: bool = True):
+    """``train_entry`` at full width: ``flagship_cfg`` (Swin-L, 1453 classes,
+    896², bfloat16 compute over float32 parameters, AdamW, clipping, EMA, the
+    federated loss, copy-paste), two images, 100 ground-truth slots of which
+    20 are valid and 8 patch slots of 128 px of which 4 are valid per image.
+    ``remat=False`` turns the config's ``MODEL.SWIN.USE_CHECKPOINT`` off."""
+    dev = entry_device(device)
+    cfg = flagship_cfg()
+    cfg.MODEL.SWIN.USE_CHECKPOINT = bool(remat)
+    return _train_parts(cfg, dev, cfg.INPUT.TRAIN_SIZE, 2, 20, None)
+
+
+def dryrun_train(device=None) -> Dict[str, float]:
+    """One train step on the small detector at 64 × 64 with clipping and EMA
+    on (the one-device part of the JAX package's ``dryrun_multichip``):
+    checks that the step counter is 1 and every metric is finite, prints and
+    returns the metrics."""
+    dev = entry_device(device)
+    cfg = _small_cfg()
+    cfg.FP16 = dev.type == "cuda"
+    cfg.MODEL.ROI_HEADS.BATCH_SIZE_PER_IMAGE = 32
+    cfg.MODEL.CENTERNET.PRE_NMS_TOPK_TRAIN = 32
+    cfg.MODEL.CENTERNET.POST_NMS_TOPK_TRAIN = 16
+    cfg.SOLVER.CLIP_GRADIENTS.ENABLED = True
+    model = build_model(cfg, input_size=(64, 64), device=dev, param_dtype=torch.float32)
+    fast_init_(model, torch.Generator().manual_seed(SEED))
+    optimizer = build_optimizer(cfg, model)
+    state = create_train_state(model, optimizer, ema=True)
+    rng = np.random.RandomState(SEED)
+    batch = {"images": torch.from_numpy(rng.rand(1, 64, 64, 3).astype(np.float32) * 255).to(dev),
+             "image_sizes": torch.tensor([[64, 64]], device=dev),
+             "gt": _synth_gt(rng, 1, 8, 8, img=64, device=dev)}
+    step = make_train_step(model, optimizer, ema_decay=0.999)
+    state, metrics = step(state, batch, torch.Generator(device=dev).manual_seed(2))
+    out = {k: float(v) for k, v in metrics.items()}
+    assert state.step == 1
+    for k, v in out.items():
+        assert math.isfinite(v), f"{k} not finite"
+    print(f"dryrun_train OK: device={dev}, total_loss={out['total_loss']:.4f}")
+    return out

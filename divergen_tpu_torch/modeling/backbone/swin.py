@@ -1,4 +1,4 @@
-"""Swin Transformer backbone (torch), NHWC, inference forward.
+"""Swin Transformer backbone (torch), NHWC.
 
 Counterpart of ``divergen_tpu/modeling/backbone/swin.py``: window attention
 with a relative-position bias, shifted windows, patch merging, four stages
@@ -32,6 +32,7 @@ import numpy as np
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from ...ops.window_attention import fused_window_attention_packed
 from ..layers import Conv, Dense, DropPath, LayerNorm
@@ -214,9 +215,11 @@ class SwinTransformer(nn.Module):
     (B, H, W, 3) input already normalized and in the compute dtype.
 
     ``input_size`` is the (H, W) canvas the model is built for, or None for
-    "no window shrinks" (module docstring). ``remat`` (rematerialization of
-    the blocks in the JAX package) has no meaning in eager PyTorch: it is
-    accepted and ignored."""
+    "no window shrinks" (module docstring). With ``remat`` each block runs
+    under ``torch.utils.checkpoint`` whenever gradients are recorded (the JAX
+    package wraps its blocks in ``nn.remat``): the block's activations are
+    dropped after the forward and recomputed in the backward, so its window
+    attention launches twice per step."""
 
     def __init__(self, embed_dim: int = 96, depths: Sequence[int] = (2, 2, 6, 2),
                  num_heads: Sequence[int] = (3, 6, 12, 24), window: int = 7,
@@ -226,7 +229,7 @@ class SwinTransformer(nn.Module):
                  input_size: Optional[Tuple[int, int]] = None, device=None):
         super().__init__()
         self.patch_size, self.depths, self.out_features = patch_size, tuple(depths), tuple(out_features)
-        self.dtype = dtype
+        self.dtype, self.remat = dtype, remat
         self.patch_embed = Conv(3, embed_dim, patch_size, stride=patch_size, padding=0,
                                 dtype=dtype, device=device)
         self.patch_norm = LayerNorm(embed_dim, eps=LN_EPS, device=device)
@@ -266,7 +269,13 @@ class SwinTransformer(nn.Module):
         outputs: Dict[str, torch.Tensor] = {}
         for stage, depth in enumerate(self.depths):
             for i in range(depth):
-                x = getattr(self, f"stage{stage}_block{i}")(x, deterministic)
+                block = getattr(self, f"stage{stage}_block{i}")
+                if self.remat and torch.is_grad_enabled():
+                    # nothing random runs in a block unless DropPath is on
+                    x = checkpoint(block, x, deterministic, use_reentrant=False,
+                                   preserve_rng_state=not deterministic)
+                else:
+                    x = block(x, deterministic)
             name = f"s{stage + 2}"
             if name in self.out_features:
                 outputs[name] = getattr(self, f"{name}_norm")(x)

@@ -1,12 +1,12 @@
-"""CenterNet2 proposal generator (torch): head and proposal decoding.
+"""CenterNet2 proposal generator (torch): head, ground truth, losses, decoding.
 
-Counterpart of ``divergen_tpu/modeling/centernet/centernet.py`` for the
-inference forward: ``CenterNetConfig``, ``CenterNetHead`` (conv towers shared
-over the levels with a per-level ``Scale``), ``level_geometry`` and
-``centernet_proposals`` over a flattened level axis M = Σ_l H_l·W_l with
-static shapes. The ground truth, the losses and the classwise
-``centernet_detections`` belong to the training slice and the standalone
-detector and are not ported yet.
+Counterpart of ``divergen_tpu/modeling/centernet/centernet.py``:
+``CenterNetConfig``, ``CenterNetHead`` (conv towers shared over the levels
+with a per-level ``Scale``), ``level_geometry``, ``centernet_ground_truth``,
+``centernet_losses`` and ``centernet_proposals`` over a flattened level axis
+M = Σ_l H_l·W_l with static shapes. The classwise ground truth and losses and
+``centernet_detections`` belong to the standalone detector and are not ported
+yet.
 """
 from __future__ import annotations
 
@@ -18,6 +18,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from ...ops.losses import heatmap_focal_loss, iou_loss
 from ...ops.nms import nms_mask, stable_topk, top_scoring
 from ..layers import ConvNorm, Scale
 
@@ -163,6 +164,104 @@ def level_geometry(cfg: CenterNetConfig, feature_shapes: Sequence[Tuple[int, int
     return dict(grids=torch.cat(grids), strides=torch.cat(strides),
                 size_ranges=torch.cat(ranges), level_ids=torch.cat(level_ids),
                 shapes=tuple(tuple(s) for s in feature_shapes))
+
+
+INF = 1e8  # marks "no ground truth at this location", as in the JAX package
+
+
+def _ground_truth_single(cfg: CenterNetConfig, geom: Dict, boxes: torch.Tensor,
+                         valid: torch.Tensor):
+    grids, strides, size_ranges = geom["grids"], geom["strides"], geom["size_ranges"]
+    m = grids.shape[0]
+    gx, gy = grids[:, 0:1], grids[:, 1:2]  # (M, 1)
+    l_ = gx - boxes[None, :, 0]  # (M, N)
+    t_ = gy - boxes[None, :, 1]
+    r_ = boxes[None, :, 2] - gx
+    b_ = boxes[None, :, 3] - gy
+    reg_target = torch.stack([l_, t_, r_, b_], dim=-1)  # (M, N, 4)
+
+    centers = (boxes[:, :2] + boxes[:, 2:]) / 2.0  # (N, 2)
+    st = strides[:, None]  # (M, 1)
+    # the centre's cell, truncated toward zero as an int32 cast does
+    cdx = (centers[None, :, 0] / st).to(torch.int32).float() * st + st / 2
+    cdy = (centers[None, :, 1] / st).to(torch.int32).float() * st + st / 2
+
+    is_peak = (gx == cdx) & (gy == cdy)
+    is_in_boxes = reg_target.amin(dim=-1) > 0
+    is_center3x3 = ((gx - cdx).abs() <= st) & ((gy - cdy).abs() <= st) & is_in_boxes
+    crit = torch.sqrt((l_ + r_) ** 2 + (t_ + b_) ** 2) / 2.0
+    is_cared = (crit >= size_ranges[:, 0:1]) & (crit <= size_ranges[:, 1:2])
+    reg_mask = is_center3x3 & is_cared & valid[None, :]
+
+    dist2 = (gx - centers[None, :, 0]) ** 2 + (gy - centers[None, :, 1]) ** 2
+    dist2 = torch.where(is_peak, torch.zeros_like(dist2), dist2)
+    area = (boxes[:, 2] - boxes[:, 0]).clamp(min=0) * (boxes[:, 3] - boxes[:, 1]).clamp(min=0)
+    radius2 = (cfg.delta ** 2 * 2.0 * area).clamp(min=cfg.min_radius ** 2)
+    wd2 = dist2 / radius2[None, :]  # (M, N)
+
+    # regression target: the nearest (weighted) cared ground truth per location
+    inf = torch.full_like(wd2, INF)
+    min_dist, min_idx = torch.where(reg_mask, wd2, inf).min(dim=1)
+    reg_targets = torch.gather(reg_target, 1, min_idx[:, None, None].expand(m, 1, 4))[:, 0]
+    reg_targets = torch.where(min_dist[:, None] >= INF, torch.full_like(reg_targets, -INF),
+                              reg_targets)
+    reg_targets = reg_targets / strides[:, None]
+
+    hm = torch.exp(-torch.where(valid[None, :], wd2, inf).amin(dim=1))
+    hm = torch.where(hm < 1e-4, torch.zeros_like(hm), hm)
+
+    # positives: the discretized centre cell at every cared level, with multiplicity
+    box_crit = torch.sqrt(((boxes[:, 2:] - boxes[:, :2]) ** 2).sum(dim=1)) / 2.0
+    pos_count = torch.zeros(m, dtype=torch.int32, device=boxes.device)
+    base = 0
+    for lvl, (h, w) in enumerate(geom["shapes"]):
+        s = float(cfg.strides[lvl])
+        lo, hi = cfg.sizes_of_interest[lvl]
+        cared = (box_crit >= lo) & (box_crit <= hi) & valid
+        cx = (centers[:, 0] / s).to(torch.int32).clamp(0, w - 1)
+        cy = (centers[:, 1] / s).to(torch.int32).clamp(0, h - 1)
+        pos_count.index_add_(0, (base + cy * w + cx).long(), cared.to(torch.int32))
+        base += h * w
+    return reg_targets, hm, pos_count
+
+
+def centernet_ground_truth(cfg: CenterNetConfig, geom: Dict, gt_boxes: torch.Tensor,
+                           gt_valid: torch.Tensor):
+    """Training targets from gt_boxes (B, N, 4) and gt_valid (B, N) bool:
+    reg_targets (B, M, 4) in stride units (−INF where a location has no
+    target), the agnostic heatmap (B, M), and pos_count (B, M) int32, the
+    centre-cell positives with multiplicity."""
+    per_image = [_ground_truth_single(cfg, geom, b.float(), v)
+                 for b, v in zip(gt_boxes, gt_valid)]
+    return tuple(torch.stack(t) for t in zip(*per_image))
+
+
+def centernet_losses(cfg: CenterNetConfig, agn_hm_pred: torch.Tensor, reg_pred: torch.Tensor,
+                     reg_targets: torch.Tensor, heatmaps: torch.Tensor,
+                     pos_count: torch.Tensor) -> Dict[str, torch.Tensor]:
+    """``loss_centernet_loc``, ``loss_centernet_agn_pos`` and
+    ``loss_centernet_agn_neg`` from agn_hm_pred (B, M) logits and reg_pred
+    (B, M, 4) in stride units (the ``only_proposal`` path; one process, so the
+    normalizers are this batch's own)."""
+    num_pos_avg = pos_count.sum().float().clamp(min=1.0)
+    reg_valid = reg_targets.amax(dim=-1) >= 0  # (B, M)
+    if not cfg.not_norm_reg:
+        raise NotImplementedError("heatmap-weighted regression (NOT_NORM_REG false) is not yet "
+                                  "ported: it belongs to the classwise head")
+    reg_weight_map = reg_valid.float()
+    reg_norm = reg_weight_map.sum().clamp(min=1.0)
+
+    flat_tgt = torch.where(reg_valid.reshape(-1, 1), reg_targets.reshape(-1, 4),
+                           torch.zeros((), device=reg_targets.device))
+    reg_loss = iou_loss(reg_pred.reshape(-1, 4), flat_tgt, weight=reg_weight_map.reshape(-1),
+                        loss_type=cfg.loc_loss_type, reduction="sum")
+    losses = {"loss_centernet_loc": cfg.reg_weight * reg_loss / reg_norm}
+    pos_loss, neg_loss = heatmap_focal_loss(
+        agn_hm_pred, heatmaps, pos_count, alpha=cfg.hm_focal_alpha, beta=cfg.hm_focal_beta,
+        gamma=cfg.loss_gamma, sigmoid_clamp=cfg.sigmoid_clamp, ignore_high_fp=cfg.ignore_high_fp)
+    losses["loss_centernet_agn_pos"] = cfg.pos_weight * pos_loss / num_pos_avg
+    losses["loss_centernet_agn_neg"] = cfg.neg_weight * neg_loss / num_pos_avg
+    return losses
 
 
 def centernet_proposals(cfg: CenterNetConfig, geom: Dict, agn_hm_pred: torch.Tensor,

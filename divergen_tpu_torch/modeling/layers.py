@@ -1,10 +1,15 @@
 """Layers shared by the port's models, and flax-style random initialization.
 
-The JAX package's flax modules keep their parameters in float32 and cast
-dense and conv weights to the module's compute ``dtype`` at apply time, while
-norms keep float32 scale and bias. The port stores weights the same way:
-``Dense`` and ``Conv`` hold theirs in the compute dtype, ``LayerNorm`` holds
-float32. Activations are NHWC, as in the JAX package; ``Conv`` and
+The JAX package's flax modules keep their parameters in float32
+(``param_dtype``) and cast dense and conv weights and biases to the module's
+compute ``dtype`` at apply time, while norms keep float32 scale and bias. The
+port has one rule for ``Dense``, ``Conv`` and ``ConvTranspose``: a layer is
+built in its compute ``dtype`` and stores its parameters there, so nothing is
+cast per call (the inference entry points: bfloat16-stored weights).
+``set_param_dtype_(model, torch.float32)`` then moves the storage of a built
+model: the parameters, and so the gradients, the optimizer state and the EMA
+copy, are float32 and are cast to the compute dtype at apply time as flax casts
+them (the training entry points). ``LayerNorm`` always holds float32. Activations are NHWC, as in the JAX package; ``Conv`` and
 ``ConvTranspose`` hand the convolution a channels-last NCHW view and return
 NHWC again. flax ``nn.LayerNorm`` defaults to eps 1e-6, the port's
 ``LayerNorm`` to torch's 1e-5: the ViT and SAM modules pass 1e-6, CLIP and
@@ -26,14 +31,41 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 
-class Dense(nn.Linear):
-    """flax ``nn.Dense``: casts its input to the weight's dtype."""
+class _CastAtApply:
+    """The dtype rule of ``Dense``, ``Conv`` and ``ConvTranspose``.
+    ``compute_dtype`` is None while the parameters are stored in the dtype
+    they compute in."""
+
+    compute_dtype: Optional[torch.dtype] = None
+
+    def _operands(self, x: torch.Tensor):
+        dt = self.compute_dtype or self.weight.dtype
+        bias = None if self.bias is None else self.bias.to(dt)
+        return x.to(dt), self.weight.to(dt), bias
+
+
+@torch.no_grad()
+def set_param_dtype_(module: nn.Module, param_dtype: torch.dtype) -> nn.Module:
+    """Store the parameters of every ``Dense``, ``Conv`` and ``ConvTranspose``
+    under ``module`` in ``param_dtype``; each layer goes on computing in the
+    dtype it computed in before."""
+    for mod in module.modules():
+        if isinstance(mod, _CastAtApply) and mod.weight.dtype != param_dtype:
+            compute = mod.compute_dtype or mod.weight.dtype
+            for p in mod.parameters(recurse=False):
+                p.data = p.data.to(param_dtype)
+            mod.compute_dtype = None if compute == param_dtype else compute
+    return module
+
+
+class Dense(_CastAtApply, nn.Linear):
+    """flax ``nn.Dense``: input, weight and bias in the compute dtype."""
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.linear(x.to(self.weight.dtype), self.weight, self.bias)
+        return F.linear(*self._operands(x))
 
 
-class Conv(nn.Conv2d):
+class Conv(_CastAtApply, nn.Conv2d):
     """flax ``nn.Conv`` on NHWC activations. ``padding`` defaults to the
     "SAME"-style k // 2; a patch embedding (stride = kernel) passes 0."""
 
@@ -45,11 +77,12 @@ class Conv(nn.Conv2d):
                          bias=bias, dtype=dtype, device=device)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = super().forward(x.to(self.weight.dtype).permute(0, 3, 1, 2))
+        x, weight, bias = self._operands(x)
+        y = self._conv_forward(x.permute(0, 3, 1, 2), weight, bias)
         return y.permute(0, 2, 3, 1)
 
 
-class ConvTranspose(nn.ConvTranspose2d):
+class ConvTranspose(_CastAtApply, nn.ConvTranspose2d):
     """flax ``nn.ConvTranspose`` with kernel = stride (an exact ×stride
     upsampling) on NHWC activations. torch keeps the weight as (in, out, kh,
     kw) in scatter form; ``utils.convert.params_from_jax`` flips and
@@ -61,7 +94,8 @@ class ConvTranspose(nn.ConvTranspose2d):
                          dtype=dtype, device=device)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = super().forward(x.to(self.weight.dtype).permute(0, 3, 1, 2))
+        x, weight, bias = self._operands(x)
+        y = F.conv_transpose2d(x.permute(0, 3, 1, 2), weight, bias, self.stride)
         return y.permute(0, 2, 3, 1)
 
 

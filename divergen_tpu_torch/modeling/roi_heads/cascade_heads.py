@@ -1,4 +1,4 @@
-"""Detic cascade ROI heads (torch): the inference forward, static shapes.
+"""Detic cascade ROI heads (torch): losses and inference, static shapes.
 
 Counterpart of ``divergen_tpu/modeling/roi_heads/cascade_heads.py``: a
 three-stage cascade (``FastRCNNConvFCHead`` + ``DeticOutputLayers`` per
@@ -10,24 +10,32 @@ to ``detections_per_image`` with a ``valid`` mask, as in the JAX package.
 Children carry the flax scope names (``box_head0.fc1``,
 ``box_predictor0.cls_score``, ``mask_head.deconv``, …).
 
-Not ported yet, with the training slice: ``losses``, ``image_label_losses``,
-``_mask_loss``, proposal matching and sampling, the caption columns and the
-sampled vocabulary of the zero-shot classifier, the WSDDN proposal-score
-branch, and ``RefineMaskHead``.
+Training: ``CascadeROIHeads.losses`` (matching, sampling, per-stage
+``_fast_rcnn_losses`` with the federated class mask, ``_mask_loss``) returns
+the JAX package's loss dict. Its random draws come through
+``ops.losses.uniform_draw``: ``match`` and ``mask`` of shape (B, P + N) and
+``fed0``, ``fed1``, ``fed2`` of shape (C + 1,).
+
+Not ported yet: ``image_label_losses`` (weak supervision), the caption columns
+of the zero-shot classifier, the WSDDN proposal-score branch, and
+``RefineMaskHead``.
 """
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from ...ops.losses import (Rng, get_fed_loss_classes, giou_loss_xyxy, optax_sigmoid_bce,
+                           smooth_l1_loss, uniform_draw)
 from ...ops.nms import batched_nms_mask, stable_topk, top_scoring
 from ...ops.roi_align import multilevel_roi_align
 from ...structures import boxes as box_ops
+from ...structures.masks import mask_target_in_box
 from ..layers import Conv, ConvTranspose, Dense
 from . import box_regression
 
@@ -207,12 +215,17 @@ class DeticOutputLayers(nn.Module):
             self.cls_score = Dense(in_features, num_classes + 1, **kw)
         self.bbox_pred = Dense(in_features, 4 if cls_agnostic else 4 * num_classes, **kw)
 
-    def forward(self, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    def forward(self, x: torch.Tensor,
+                cls_inds: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, torch.Tensor]:
+        """``cls_inds`` (K,) restricts the zero-shot classifier to a sampled
+        vocabulary (the dynamic classifier): scores are then (N, K + 1)."""
         if self.use_zeroshot_cls:
             emb = self.linear(x)
             emb = emb / torch.linalg.norm(emb, dim=-1, keepdim=True).clamp(min=1e-6)
             zs = self.zs_weight
             zs = zs / torch.linalg.norm(zs, dim=0, keepdim=True).clamp(min=1e-6)
+            if cls_inds is not None:
+                zs = zs[:, cls_inds]
             # float32 weights against features in the compute dtype promote
             cls_logits = self.norm_temp * (emb.to(torch.promote_types(emb.dtype, zs.dtype)) @ zs)
             bg = self.bg_bias.to(cls_logits.dtype).expand(x.shape[0], 1)
@@ -243,10 +256,58 @@ class MaskRCNNConvUpsampleHead(nn.Module):
         return self.predictor(F.relu(self.deconv(x)))[..., 0]
 
 
+def match_proposals(proposal_boxes: torch.Tensor, gt_boxes: torch.Tensor,
+                    gt_valid: torch.Tensor, iou_thresh: float):
+    """detectron2's Matcher with one threshold: proposal_boxes (P, 4) against
+    gt_boxes (N, 4) → (matched_idx (P,), fg (P,) bool). Invalid ground-truth
+    rows never match."""
+    iou = box_ops.pairwise_iou(gt_boxes, proposal_boxes)  # (N, P)
+    iou = torch.where(gt_valid[:, None], iou, torch.full_like(iou, -1.0))
+    matched_iou, matched_idx = iou.max(dim=0)
+    return matched_idx, matched_iou >= iou_thresh
+
+
+def subsample_proposals(r: torch.Tensor, fg: torch.Tensor, valid: torch.Tensor,
+                        num_samples: int, positive_fraction: float):
+    """detectron2's ``subsample_labels`` with static shapes: up to
+    ``positive_fraction · num_samples`` positives, the rest negatives, chosen
+    by the uniform priorities ``r`` (P,). Returns (indices (num_samples,),
+    validity). Positives beyond the budget are left out, not recycled as
+    negatives."""
+    p = fg.shape[0]
+    num_samples = min(num_samples, p)
+    max_pos = int(num_samples * positive_fraction)
+    inf = torch.full_like(r, float("inf"))
+    pos_rank = torch.argsort(torch.argsort(torch.where(fg & valid, r, inf), stable=True),
+                             stable=True)
+    keep_pos = fg & valid & (pos_rank < max_pos)
+    priority = torch.where(keep_pos, 2.0 + r, torch.where(valid & ~fg, r, -inf))
+    topv, topi = stable_topk(priority, num_samples)
+    return topi, topv > float("-inf")
+
+
+class _ScaleGradient(torch.autograd.Function):
+    """The identity whose gradient is multiplied by ``scale``."""
+
+    @staticmethod
+    def forward(ctx, x, scale):
+        ctx.scale = scale
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad * ctx.scale, None
+
+
+def _scale_gradient(x: torch.Tensor, scale: float) -> torch.Tensor:
+    return _ScaleGradient.apply(x, scale)
+
+
 class CascadeROIHeads(nn.Module):
     """Cascade box heads + mask head over FPN features of ``in_channels``
-    channels. ``inference`` returns padded detections; the training entry
-    points are not ported yet."""
+    channels. ``losses`` returns the training loss dict (``loss_cls_stage{k}``,
+    ``loss_box_reg_stage{k}``, ``loss_mask``), ``inference`` padded
+    detections."""
 
     def __init__(self, cfg: ROIHeadsConfig, in_channels: int = 256, dtype=torch.float32,
                  device=None):
@@ -278,20 +339,128 @@ class CascadeROIHeads(nn.Module):
                                        boxes[i], resolution) for i in range(boxes.shape[0])]
         return torch.cat(pooled)
 
-    def _run_stage(self, features: Dict[str, torch.Tensor], boxes: torch.Tensor, stage: int):
+    def _run_stage(self, features: Dict[str, torch.Tensor], boxes: torch.Tensor, stage: int,
+                   cls_inds: Optional[torch.Tensor] = None):
         """ROIAlign + box head + predictor of one stage: boxes (B, P, 4) →
-        (scores (B, P, C + 1), deltas (B, P, 4))."""
+        (scores (B, P, C + 1), deltas (B, P, 4)). The gradient into the
+        pyramid is scaled by 1 / stages, as in the JAX package."""
         b, p = boxes.shape[:2]
         pooled = self._pool(features, boxes, self.cfg.pooler_resolution)
+        pooled = _scale_gradient(pooled, 1.0 / self.num_stages)
         box_feat = getattr(self, f"box_head{stage}")(pooled)
-        scores, deltas = getattr(self, f"box_predictor{stage}")(box_feat)
+        scores, deltas = getattr(self, f"box_predictor{stage}")(box_feat, cls_inds)
         return scores.reshape(b, p, -1), deltas.reshape(b, p, -1)
 
-    def losses(self, *args, **kwargs):
-        raise NotImplementedError("CascadeROIHeads.losses is not yet ported")
+    def losses(self, rng: Rng, features: Dict[str, torch.Tensor],
+               proposals: Dict[str, torch.Tensor], gt: Dict[str, torch.Tensor],
+               fed_weight: Optional[torch.Tensor] = None,
+               cls_inds: Optional[torch.Tensor] = None,
+               image_sizes: Optional[torch.Tensor] = None) -> Dict[str, torch.Tensor]:
+        """The cascade's training losses. proposals: boxes (B, P, 4), scores
+        (B, P), valid (B, P); gt: boxes (B, N, 4), classes (B, N), valid
+        (B, N), masks (B, N, S, S) in their own box frames and optionally
+        instance_source (B, N); fed_weight (C,) the federated-loss class
+        weights; cls_inds (K,) the dynamic classifier's columns; image_sizes
+        (B, 2) to clip the boxes between stages. ``rng`` feeds the draws
+        ``match``, ``mask`` and ``fed{stage}`` (module docstring)."""
+        c = self.cfg
+        if c.add_gt_to_proposals:
+            pb = torch.cat([proposals["boxes"], gt["boxes"]], dim=1).float()
+            pv = torch.cat([proposals["valid"], gt["valid"]], dim=1)
+        else:
+            pb, pv = proposals["boxes"].float(), proposals["valid"]
+        b = pb.shape[0]
+        gt_boxes = gt["boxes"].float()
+
+        losses: Dict[str, torch.Tensor] = {}
+        boxes = sample_valid = None
+        for stage, iou_t in enumerate(c.cascade_ious):
+            if stage == 0:
+                # match, then subsample to batch_size_per_image
+                r = uniform_draw(rng, "match", tuple(pv.shape), pb.device)
+                picked = []
+                for i in range(b):
+                    midx, fg_i = match_proposals(pb[i], gt_boxes[i], gt["valid"][i], iou_t)
+                    fg_i = fg_i & pv[i]
+                    idx, ok = subsample_proposals(r[i], fg_i, pv[i], c.batch_size_per_image,
+                                                  c.positive_fraction)
+                    picked.append((pb[i][idx], midx[idx], fg_i[idx] & ok, ok))
+                boxes, matched_idx, fg, sample_valid = (torch.stack(t) for t in zip(*picked))
+            else:
+                matched = [match_proposals(boxes[i], gt_boxes[i], gt["valid"][i], iou_t)
+                           for i in range(b)]
+                matched_idx, fg = (torch.stack(t) for t in zip(*matched))
+                fg = fg & sample_valid
+
+            gt_classes = torch.gather(gt["classes"].long(), 1, matched_idx)
+            gt_classes = torch.where(fg, gt_classes, torch.full_like(gt_classes, c.num_classes))
+            gt_boxes_m = torch.gather(gt_boxes, 1, matched_idx[..., None].expand(-1, -1, 4))
+            inst_src = None
+            if "instance_source" in gt:
+                inst_src = torch.gather(gt["instance_source"], 1, matched_idx)
+                inst_src = torch.where(fg, inst_src, torch.zeros_like(inst_src))
+
+            scores, deltas = self._run_stage(features, boxes, stage, cls_inds=cls_inds)
+            stage_losses = _fast_rcnn_losses(c, rng, f"fed{stage}", scores, deltas, boxes,
+                                             gt_classes, gt_boxes_m, sample_valid, inst_src,
+                                             c.cascade_reg_weights[stage], fed_weight)
+            losses.update({f"{k}_stage{stage}": v for k, v in stage_losses.items()})
+
+            # the next stage's boxes carry no gradient; they are clipped to the
+            # image, and boxes that became empty leave the loss
+            refined = box_regression.apply_deltas(deltas.detach().float(), boxes,
+                                                  c.cascade_reg_weights[stage])
+            if image_sizes is not None:
+                refined = box_ops.clip(refined, image_sizes)
+                sample_valid = sample_valid & box_ops.nonempty(refined)
+            boxes = refined
+
+        if self.mask_head is not None:
+            losses["loss_mask"] = c.mask_weight * self._mask_loss(rng, features, gt, proposals)
+        return losses
+
+    def _mask_loss(self, rng: Rng, features: Dict[str, torch.Tensor],
+                   gt: Dict[str, torch.Tensor],
+                   proposals: Dict[str, torch.Tensor]) -> torch.Tensor:
+        """The mask head trains on up to ``mask_fg_capacity`` foreground rows
+        per image of the proposals with the ground truth appended, picked by
+        the draw ``mask``."""
+        c = self.cfg
+        pb = torch.cat([proposals["boxes"], gt["boxes"]], dim=1).float()
+        pv = torch.cat([proposals["valid"], gt["valid"]], dim=1)
+        b = pb.shape[0]
+        gt_boxes = gt["boxes"].float()
+        cap = min(c.mask_fg_capacity, pb.shape[1])
+        src = gt.get("instance_source")
+        r = uniform_draw(rng, "mask", tuple(pv.shape), pb.device)
+        picked = []
+        for i in range(b):
+            midx, fg_i = match_proposals(pb[i], gt_boxes[i], gt["valid"][i], c.cascade_ious[0])
+            fg_i = fg_i & pv[i]
+            if not c.divergen_mask_loss and src is not None:
+                # ablation: only real (not pasted) instances train the mask head
+                fg_i = fg_i & (src[i][midx] == 0)
+            pri = torch.where(fg_i, r[i], torch.full_like(r[i], float("-inf")))
+            topv, topi = stable_topk(pri, cap)
+            picked.append((pb[i][topi], midx[topi], topv > float("-inf")))
+        boxes, midx, ok = (torch.stack(t) for t in zip(*picked))
+
+        logits = self.mask_head(self._pool(features, boxes, c.mask_pooler_resolution))
+        out_res = logits.shape[-1]
+        logits = logits.reshape(b, cap, out_res, out_res)
+        # ground-truth masks are (N, S, S) crops in their own box frame: resample
+        # each matched crop onto the proposal box at the head's resolution
+        s = gt["masks"].shape[-1]
+        crops = torch.gather(gt["masks"].float(), 1, midx[..., None, None].expand(-1, -1, s, s))
+        src_boxes = torch.gather(gt_boxes, 1, midx[..., None].expand(-1, -1, 4))
+        tgt = (mask_target_in_box(crops, src_boxes, boxes, out_res) >= 0.5).float()
+        per_roi = optax_sigmoid_bce(logits, tgt).mean(dim=(2, 3))
+        total = torch.where(ok, per_roi, torch.zeros_like(per_roi)).sum()
+        return total / ok.sum().clamp(min=1.0)
 
     def image_label_losses(self, *args, **kwargs):
-        raise NotImplementedError("CascadeROIHeads.image_label_losses is not yet ported")
+        raise NotImplementedError("CascadeROIHeads.image_label_losses (weak supervision) is "
+                                  "not yet ported")
 
     def inference(self, features: Dict[str, torch.Tensor], proposals: Dict[str, torch.Tensor],
                   image_sizes: torch.Tensor, return_logits: bool = False) -> Dict[str, torch.Tensor]:
@@ -364,3 +533,75 @@ def _fast_rcnn_inference_single(c: ROIHeadsConfig, boxes: torch.Tensor, scores: 
         cboxes, cscores, keep, c.detections_per_image, extras=(cls_idx, prop_idx))
     return {"prop_idx": out_prop, "boxes": out_boxes, "scores": out_scores,
             "classes": out_classes, "valid": out_valid}
+
+
+def _fast_rcnn_losses(c: ROIHeadsConfig, rng: Rng, draw_name: str, scores: torch.Tensor,
+                      deltas: torch.Tensor, proposal_boxes: torch.Tensor,
+                      gt_classes: torch.Tensor, gt_boxes: torch.Tensor, valid: torch.Tensor,
+                      instance_source: Optional[torch.Tensor], reg_weights: Tuple[float, ...],
+                      fed_weight: Optional[torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """``loss_cls`` (sigmoid CE over C columns with the federated class mask,
+    over the valid rows) and ``loss_box_reg`` (class-agnostic, foreground
+    rows) of one stage: scores (B, P, C + 1), deltas (B, P, 4), gt_classes
+    (B, P) with background = C. With ``split_paste_loss`` also the CE split by
+    whether a row matched a pasted instance, with ``per_paste_loss`` the
+    ``aux_*`` per-row columns."""
+    b, p, cp1 = scores.shape
+    num_classes = cp1 - 1
+    flat_scores = scores.reshape(-1, cp1).float()
+    flat_classes = gt_classes.reshape(-1)
+    flat_valid = valid.reshape(-1)
+    n_valid = flat_valid.sum().clamp(min=1.0)
+
+    # an id at or beyond the background column is an all-zero target
+    target = F.one_hot(flat_classes.clamp(max=num_classes), cp1)[:, :num_classes].float()
+    bce_nofed = optax_sigmoid_bce(flat_scores[:, :num_classes], target)
+    bce = bce_nofed
+    if c.use_fed_loss and fed_weight is not None:
+        background = torch.full_like(flat_classes, num_classes)
+        fed_mask = get_fed_loss_classes(rng, torch.where(flat_valid, flat_classes, background),
+                                        flat_valid, num_classes, c.fed_loss_num_cat, fed_weight,
+                                        draw_name=draw_name)
+        bce = bce * fed_mask[None, :num_classes]
+    bce = bce * flat_valid[:, None]
+    loss_cls = bce.sum() / n_valid
+
+    extra: Dict[str, torch.Tensor] = {}
+    if instance_source is not None and (c.split_paste_loss or c.per_paste_loss):
+        flat_src = instance_source.reshape(-1)
+        is_paste = (flat_src > 0) & flat_valid
+        zero = torch.zeros((), device=scores.device)
+        if c.split_paste_loss:
+            # the same per-row CE, split by source, with the shared normalizer
+            row_ce = bce.sum(dim=-1)
+            extra["loss_paste_ins"] = torch.where(is_paste, row_ce, zero).sum() / n_valid
+            extra["loss_nopaste_ins"] = torch.where(~is_paste, row_ce, zero).sum() / n_valid
+        if c.per_paste_loss:
+            # raw (no federated mask) per-row CE columns of the pasted rows
+            max_loss, max_class = bce_nofed.max(dim=-1)
+            extra["aux_paste_row_loss"] = torch.where(is_paste, bce_nofed.sum(dim=-1),
+                                                      zero).reshape(b, p)
+            extra["aux_paste_row_max_class"] = torch.where(
+                is_paste, max_class, torch.full_like(max_class, -1)).reshape(b, p)
+            extra["aux_paste_row_max_loss"] = torch.where(is_paste, max_loss, zero).reshape(b, p)
+            extra["aux_paste_row_id"] = torch.where(is_paste, flat_src,
+                                                    torch.zeros_like(flat_src)).reshape(b, p)
+
+    fg = (flat_classes >= 0) & (flat_classes < num_classes) & flat_valid
+    if instance_source is not None and not c.divergen_box_loss:
+        fg = fg & (instance_source.reshape(-1) == 0)
+    flat_pb = proposal_boxes.reshape(-1, 4)
+    flat_gb = gt_boxes.reshape(-1, 4)
+    flat_deltas = deltas.reshape(-1, 4).float()
+    # normalized by the element count of the foreground loss: 4·n_fg for
+    # smooth-L1, n_fg for GIoU
+    if c.box_reg_loss_type == "smooth_l1":
+        gt_deltas = box_regression.get_deltas(flat_pb, flat_gb, reg_weights)
+        reg = smooth_l1_loss(flat_deltas, gt_deltas, c.smooth_l1_beta).sum(dim=-1)
+        denom = (fg.sum() * 4.0).clamp(min=1.0)
+    else:
+        reg = giou_loss_xyxy(box_regression.apply_deltas(flat_deltas, flat_pb, reg_weights),
+                             flat_gb)
+        denom = (fg.sum() * 1.0).clamp(min=1.0)
+    loss_box = torch.where(fg, reg, torch.zeros_like(reg)).sum() / denom
+    return {"loss_cls": loss_cls, "loss_box_reg": loss_box, **extra}

@@ -105,6 +105,10 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.dg_window_attention_bf16.restype = i
     lib.dg_window_attention_packed_bf16.argtypes = [p] * 4 + [i] * 4 + [f, p]
     lib.dg_window_attention_packed_bf16.restype = i
+    lib.dg_window_attention_bwd_bf16.argtypes = [p] * 11 + [i] * 6 + [i64] * 12 + [f, p]
+    lib.dg_window_attention_bwd_bf16.restype = i
+    lib.dg_window_attention_packed_bwd_bf16.argtypes = [p] * 7 + [i] * 6 + [f, p]
+    lib.dg_window_attention_packed_bwd_bf16.restype = i
     lib.dg_ln_matmul_bf16.argtypes = [p] * 7 + [i] * 3 + [f, i, p]
     lib.dg_ln_matmul_bf16.restype = i
     lib.dg_error_string.argtypes = [i]

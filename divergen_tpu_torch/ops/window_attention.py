@@ -1,7 +1,7 @@
 """Swin window attention: hand-written CUDA kernel on the card, plain torch on the CPU.
 
-Counterpart of ``divergen_tpu/ops/pallas/window_attention.py``, forward only:
-``fused_window_attention_packed`` reads q, k and v straight out of the fused
+Counterpart of ``divergen_tpu/ops/pallas/window_attention.py``, forward and
+backward: ``fused_window_attention_packed`` reads q, k and v straight out of the fused
 (bn, n, 3C) projection and writes (bn, n, C); ``fused_window_attention`` takes
 split (B, H, N, D) tensors. Both compute, per window b and head h,
 
@@ -15,13 +15,19 @@ tensor. A CUDA tensor the kernel cannot take raises: bfloat16, head dim 32 and
 1 ≤ n ≤ 144 only, any head count (there is no lane rule, so six heads take the
 packed kernel like any other count).
 
-The JAX kernels carry a ``custom_vjp``; the backward kernels are not ported
-yet, so on a CUDA tensor both wrappers raise ``NotImplementedError`` when a
-gradient is asked for instead of letting autograd run through the plain
-version.
+The JAX kernels carry a ``custom_vjp``; here each wrapper is a
+``torch.autograd.Function`` on a CUDA tensor: its backward launches the
+backward kernel of ``csrc/window_attention.cu``, which recomputes the scores
+and returns dq, dk, dv (for the packed wrapper in one (bn, n, 3C) buffer) and
+the bias gradient summed over windows; the mask gets none. A block of that
+kernel takes one head and a chunk of consecutive windows and a second small
+kernel adds the chunks' partial bias gradients in a fixed order, so two runs
+give the same bits. On a CPU tensor ordinary autograd runs through the plain
+version. ``reference_window_attention_backward`` (and ``_packed``) repeat the
+kernel's arithmetic step by step, bfloat16 casts included.
 
-Each wrapper counts its kernel launches in a plain int attribute
-(``fused_window_attention_packed.launches``, ``fused_window_attention.launches``).
+Each wrapper counts its kernel launches in plain int attributes: ``.launches``
+for the forward kernel and ``.backward_launches`` for the backward kernel.
 """
 from __future__ import annotations
 
@@ -65,6 +71,49 @@ def reference_window_attention_packed(qkv: torch.Tensor, bias: torch.Tensor,
     return out.permute(0, 2, 1, 3).reshape(bn, n, c)
 
 
+def reference_window_attention_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                                        bias: torch.Tensor, mask: Optional[torch.Tensor],
+                                        do: torch.Tensor):
+    """The backward of ``reference_window_attention`` written out as the
+    kernel computes it: (dq, dk, dv, dbias) with dq, dk, dv in q's dtype and
+    dbias (H, N, N) in float32. Scores and softmax are recomputed in float32;
+    p and ds are cast to q's dtype for their products (``dv = pᵀ·do``,
+    ``dq = ds·k``, ``dk = dsᵀ·q``), ``dp = do·vᵀ`` and ``ds = p·(dp −
+    rowsum(p·dp))`` stay float32, dq and dk take the scale after the product,
+    and dbias is the float32 sum of ds over windows. The mask has no gradient."""
+    b, h, n, d = q.shape
+    scale = 1.0 / math.sqrt(d)
+    qf, kf, vf, dof = q.float(), k.float(), v.float(), do.float()
+    s = torch.einsum("bhnd,bhmd->bhnm", qf, kf) * scale + bias.float()[None]
+    if mask is not None:
+        nw = mask.shape[0]
+        s = (s.reshape(b // nw, nw, h, n, n) + mask.float()[None, :, None]).reshape(b, h, n, n)
+    p = torch.softmax(s, dim=-1)
+    pc = p.to(q.dtype).float()
+    dv = torch.einsum("bhnm,bhnd->bhmd", pc, dof)
+    dp = torch.einsum("bhnd,bhmd->bhnm", dof, vf)
+    ds = p * (dp - (p * dp).sum(dim=-1, keepdim=True))
+    dsc = ds.to(q.dtype).float()
+    dq = torch.einsum("bhnm,bhmd->bhnd", dsc, kf) * scale
+    dk = torch.einsum("bhnm,bhnd->bhmd", dsc, qf) * scale
+    return dq.to(q.dtype), dk.to(q.dtype), dv.to(q.dtype), ds.sum(dim=0)
+
+
+def reference_window_attention_packed_backward(qkv: torch.Tensor, bias: torch.Tensor,
+                                               mask: Optional[torch.Tensor], heads: int,
+                                               do: torch.Tensor):
+    """``reference_window_attention_backward`` on fused QKV (bn, n, 3C) and
+    do (bn, n, C): (dqkv (bn, n, 3C), dbias (H, n, n) float32)."""
+    bn, n, c3 = qkv.shape
+    c = c3 // 3
+    d = c // heads
+    split = lambda t: t.reshape(bn, n, heads, d).permute(0, 2, 1, 3)
+    q, k, v = (split(qkv[..., s * c:(s + 1) * c]) for s in range(3))
+    dq, dk, dv, dbias = reference_window_attention_backward(q, k, v, bias, mask, split(do))
+    merge = lambda t: t.permute(0, 2, 1, 3).reshape(bn, n, c)
+    return torch.cat([merge(dq), merge(dk), merge(dv)], dim=-1), dbias
+
+
 def _check_bias_mask(bias: torch.Tensor, mask: Optional[torch.Tensor], batch: int,
                      heads: int, n: int) -> None:
     if bias.shape != (heads, n, n):
@@ -86,8 +135,6 @@ def _require_kernel_input(name: str, t: torch.Tensor, n: int, d: int, strided: b
         raise ValueError(f"head dim {d} has no kernel (instantiated: {KERNEL_HEAD_DIM})")
     if not 1 <= n <= KERNEL_MAX_TOKENS:
         raise ValueError(f"{n} tokens per window: the kernel takes 1 to {KERNEL_MAX_TOKENS}")
-    if torch.is_grad_enabled() and t.requires_grad:
-        raise NotImplementedError("backward not yet ported")
     if strided:
         if t.stride(-1) != 1 or any(st % 8 for st in t.stride()[:-1]):
             raise ValueError(f"{name}: the kernel takes a unit last stride and other "
@@ -103,9 +150,102 @@ def _require_kernel_input(name: str, t: torch.Tensor, n: int, d: int, strided: b
 def _f32_on(t: Optional[torch.Tensor], device: torch.device) -> Optional[torch.Tensor]:
     if t is None:
         return None
-    if torch.is_grad_enabled() and t.requires_grad:
-        raise NotImplementedError("backward not yet ported")
-    return t.to(device=device, dtype=torch.float32).contiguous()
+    return t.detach().to(device=device, dtype=torch.float32).contiguous()
+
+
+def backward_chunks(batch: int, heads: int, device: torch.device) -> tuple:
+    """(chunks, windows per chunk) of the backward kernel's grid: a block takes
+    one head and a chunk of consecutive windows, and there are about as many
+    blocks as the card has multiprocessors (the kernel keeps a block's whole
+    bias-gradient sum in registers, so one block is resident on each)."""
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    per = -(-batch // min(batch, max(1, -(-sms // heads))))
+    return -(-batch // per), per
+
+
+class _WindowAttention(torch.autograd.Function):
+    """Split layout on CUDA tensors: forward and backward kernels."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, bias, mask):
+        b, h, n, d = q.shape
+        bias32 = _f32_on(bias, q.device)
+        mask32 = _f32_on(mask, q.device)
+        out = torch.empty((b, h, n, d), dtype=q.dtype, device=q.device)
+        fused_window_attention.launches += 1
+        code = _build.lib().dg_window_attention_bf16(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), bias32.data_ptr(),
+            None if mask32 is None else mask32.data_ptr(), out.data_ptr(),
+            b, h, n, 1 if mask32 is None else mask32.shape[0],
+            *q.stride()[:3], *k.stride()[:3], *out.stride()[:3],
+            1.0 / math.sqrt(d), torch.cuda.current_stream(q.device).cuda_stream)
+        _build.check(code, "window attention kernel launch")
+        ctx.save_for_backward(q, k, v, bias32, mask32)
+        ctx.bias_dtype = bias.dtype
+        return out
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, bias32, mask32 = ctx.saved_tensors
+        b, h, n, d = q.shape
+        do = do.contiguous()
+        dq, dk, dv = (torch.empty((b, h, n, d), dtype=q.dtype, device=q.device) for _ in range(3))
+        dbias = torch.empty((h, n, n), dtype=torch.float32, device=q.device)
+        chunks, per = backward_chunks(b, h, q.device)
+        partial = torch.empty((chunks if chunks > 1 else 0, h, n, n), dtype=torch.float32,
+                              device=q.device)
+        fused_window_attention.backward_launches += 1
+        code = _build.lib().dg_window_attention_bwd_bf16(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), bias32.data_ptr(),
+            None if mask32 is None else mask32.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+            dv.data_ptr(), dbias.data_ptr(), partial.data_ptr(), b, h, n,
+            1 if mask32 is None else mask32.shape[0], chunks, per,
+            *q.stride()[:3], *k.stride()[:3], *do.stride()[:3], *dq.stride()[:3],
+            1.0 / math.sqrt(d), torch.cuda.current_stream(q.device).cuda_stream)
+        _build.check(code, "window attention backward kernel launch")
+        return dq, dk, dv, dbias.to(ctx.bias_dtype), None
+
+
+class _WindowAttentionPacked(torch.autograd.Function):
+    """Packed layout on a CUDA tensor: forward and backward kernels."""
+
+    @staticmethod
+    def forward(ctx, qkv, bias, mask, heads):
+        bn, n, c3 = qkv.shape
+        c = c3 // 3
+        bias32 = _f32_on(bias, qkv.device)
+        mask32 = _f32_on(mask, qkv.device)
+        out = torch.empty((bn, n, c), dtype=qkv.dtype, device=qkv.device)
+        fused_window_attention_packed.launches += 1
+        code = _build.lib().dg_window_attention_packed_bf16(
+            qkv.data_ptr(), bias32.data_ptr(), None if mask32 is None else mask32.data_ptr(),
+            out.data_ptr(), bn, n, heads, 1 if mask32 is None else mask32.shape[0],
+            1.0 / math.sqrt(c // heads), torch.cuda.current_stream(qkv.device).cuda_stream)
+        _build.check(code, "packed window attention kernel launch")
+        ctx.save_for_backward(qkv, bias32, mask32)
+        ctx.heads, ctx.bias_dtype = heads, bias.dtype
+        return out
+
+    @staticmethod
+    def backward(ctx, do):
+        qkv, bias32, mask32 = ctx.saved_tensors
+        bn, n, c3 = qkv.shape
+        heads = ctx.heads
+        do = do.contiguous()
+        dqkv = torch.empty_like(qkv)
+        dbias = torch.empty((heads, n, n), dtype=torch.float32, device=qkv.device)
+        chunks, per = backward_chunks(bn, heads, qkv.device)
+        partial = torch.empty((chunks if chunks > 1 else 0, heads, n, n), dtype=torch.float32,
+                              device=qkv.device)
+        fused_window_attention_packed.backward_launches += 1
+        code = _build.lib().dg_window_attention_packed_bwd_bf16(
+            qkv.data_ptr(), do.data_ptr(), bias32.data_ptr(),
+            None if mask32 is None else mask32.data_ptr(), dqkv.data_ptr(), dbias.data_ptr(),
+            partial.data_ptr(), bn, n, heads, 1 if mask32 is None else mask32.shape[0],
+            chunks, per, 1.0 / math.sqrt(c3 // 3 // heads),
+            torch.cuda.current_stream(qkv.device).cuda_stream)
+        _build.check(code, "packed window attention backward kernel launch")
+        return dqkv, dbias.to(ctx.bias_dtype), None, None
 
 
 def fused_window_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -116,7 +256,8 @@ def fused_window_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
     q, k and v may be strided views with a unit last stride (for example the
     heads-first slices of a fused (B, N, 3, H, D) projection); k and v must
-    share strides. The result is contiguous."""
+    share strides. The result is contiguous. Differentiable in q, k, v and
+    bias: on CUDA tensors through the backward kernel."""
     if q.dim() != 4 or k.shape != q.shape or v.shape != q.shape:
         raise ValueError(f"shapes q {tuple(q.shape)} k {tuple(k.shape)} v {tuple(v.shape)}")
     b, h, n, d = q.shape
@@ -127,21 +268,11 @@ def fused_window_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         _require_kernel_input(name, t, n, d, strided=True)
     if k.stride() != v.stride():
         raise ValueError(f"k and v must share strides, got {k.stride()} and {v.stride()}")
-    bias = _f32_on(bias, q.device)
-    mask = _f32_on(mask, q.device)
-    out = torch.empty((b, h, n, d), dtype=q.dtype, device=q.device)
-    fused_window_attention.launches += 1
-    code = _build.lib().dg_window_attention_bf16(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(),
-        None if mask is None else mask.data_ptr(), out.data_ptr(),
-        b, h, n, 1 if mask is None else mask.shape[0],
-        *q.stride()[:3], *k.stride()[:3], *out.stride()[:3],
-        1.0 / math.sqrt(d), torch.cuda.current_stream(q.device).cuda_stream)
-    _build.check(code, "window attention kernel launch")
-    return out
+    return _WindowAttention.apply(q, k, v, bias, mask)
 
 
 fused_window_attention.launches = 0
+fused_window_attention.backward_launches = 0
 
 
 def fused_window_attention_packed(qkv: torch.Tensor, bias: torch.Tensor,
@@ -151,7 +282,9 @@ def fused_window_attention_packed(qkv: torch.Tensor, bias: torch.Tensor,
     The channel axis is [q | k | v], H·d channels each; head h of slot s is
     channels [s·C + h·d, s·C + (h+1)·d). bias is (H, n, n), mask (nW, n, n)
     or None with bn a multiple of nW. The kernel reads q, k and v from ``qkv``
-    by stride and writes (bn, n, C) directly: no transpose on either side."""
+    by stride and writes (bn, n, C) directly: no transpose on either side, and
+    its backward writes the gradient of ``qkv`` as one (bn, n, 3C) buffer.
+    Differentiable in qkv and bias."""
     if qkv.dim() != 3:
         raise ValueError(f"qkv {tuple(qkv.shape)} is not (bn, n, 3C)")
     bn, n, c3 = qkv.shape
@@ -160,18 +293,9 @@ def fused_window_attention_packed(qkv: torch.Tensor, bias: torch.Tensor,
     _check_bias_mask(bias, mask, bn, heads, n)
     if qkv.device.type == "cpu":
         return reference_window_attention_packed(qkv, bias, mask, heads)
-    c = c3 // 3
-    _require_kernel_input("qkv", qkv, n, c // heads, strided=False)
-    bias = _f32_on(bias, qkv.device)
-    mask = _f32_on(mask, qkv.device)
-    out = torch.empty((bn, n, c), dtype=qkv.dtype, device=qkv.device)
-    fused_window_attention_packed.launches += 1
-    code = _build.lib().dg_window_attention_packed_bf16(
-        qkv.data_ptr(), bias.data_ptr(), None if mask is None else mask.data_ptr(),
-        out.data_ptr(), bn, n, heads, 1 if mask is None else mask.shape[0],
-        1.0 / math.sqrt(c // heads), torch.cuda.current_stream(qkv.device).cuda_stream)
-    _build.check(code, "packed window attention kernel launch")
-    return out
+    _require_kernel_input("qkv", qkv, n, c3 // 3 // heads, strided=False)
+    return _WindowAttentionPacked.apply(qkv, bias, mask, heads)
 
 
 fused_window_attention_packed.launches = 0
+fused_window_attention_packed.backward_launches = 0

@@ -1,4 +1,4 @@
-"""JAX parameter trees → the port's ``state_dict``.
+"""JAX parameter trees → the port's ``state_dict``, and back for the tests.
 
 The port names its submodules after the flax scopes of the JAX package
 (``down1_attn0.block0.attn1_qkv``, ``norm1.GroupNorm_0``, ``resblock3.ln_1``,
@@ -70,3 +70,50 @@ def params_from_jax(tree: Mapping[str, Any],
 
     walk(tree, "")
     return out
+
+
+def tree_from_module(module: nn.Module, like: Mapping[str, Any], grad: bool = False):
+    """The inverse of :func:`params_from_jax`: ``module``'s parameters (or,
+    with ``grad``, their gradients, zeros where there is none) as numpy arrays
+    under the flax names and layouts of the tree ``like``."""
+    if set(like) == {"params"}:
+        return {"params": tree_from_module(module, like["params"], grad)}
+    named = dict(module.named_parameters())
+
+    def walk(node: Mapping[str, Any], prefix: str):
+        out = {}
+        for name, val in node.items():
+            if isinstance(val, Mapping):
+                out[name] = walk(val, f"{prefix}{name}.")
+                continue
+            ndim = np.ndim(val)
+            deconv = isinstance(module.get_submodule(prefix[:-1]), nn.ConvTranspose2d)
+            key, _ = _leaf(name, np.empty((0,) * ndim), deconv)
+            p = named[prefix + key]
+            t = p.grad if grad else p
+            arr = (torch.zeros_like(p) if t is None else t).detach().float().cpu().numpy()
+            if name == "kernel" and ndim == 2:
+                arr = arr.T
+            elif name == "kernel" and deconv:
+                arr = arr.transpose(2, 3, 0, 1)[::-1, ::-1]
+            elif name == "kernel":
+                arr = arr.transpose(2, 3, 1, 0)
+            out[name] = np.ascontiguousarray(arr).reshape(np.shape(val))
+        return out
+
+    return walk(like, "")
+
+
+@torch.no_grad()
+def load_adam_state(optim: torch.optim.Optimizer, module: nn.Module, mu: Mapping[str, Any],
+                    nu: Mapping[str, Any], count: int) -> None:
+    """Fill a ``torch.optim.Adam``/``AdamW`` state from an optax Adam state:
+    the first and second moment trees ``mu`` and ``nu`` (flax names, every
+    parameter present) and the step ``count``."""
+    first, second = params_from_jax(mu, module), params_from_jax(nu, module)
+    for name, p in module.named_parameters():
+        optim.state[p] = {
+            "step": torch.tensor(float(count)),
+            "exp_avg": first[name].to(p.device, p.dtype).contiguous(),
+            "exp_avg_sq": second[name].to(p.device, p.dtype).contiguous(),
+        }

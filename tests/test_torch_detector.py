@@ -276,9 +276,16 @@ def test_roi_heads_config_and_not_yet_ported():
         tch.CascadeROIHeads(tch.ROIHeadsConfig(mask_head_name="RefineMaskHead"), 16)
     heads = tch.CascadeROIHeads(tch.ROIHeadsConfig(**ROI), 16)
     with pytest.raises(NotImplementedError, match="not yet ported"):
-        heads.losses()
-    with pytest.raises(NotImplementedError, match="not yet ported"):
         heads.image_label_losses()
+    # ``losses`` is ported: the loss dict of the JAX package, finite
+    feats, props, sizes = roi_inputs(3)
+    gt = {"boxes": t(props["boxes"][:, :4]), "classes": torch.tensor([[0, 1, 2, 3]] * 2),
+          "valid": torch.ones(2, 4, dtype=torch.bool), "masks": torch.ones(2, 4, 28, 28)}
+    losses = heads.losses(torch.Generator().manual_seed(0), {k: t(v) for k, v in feats.items()},
+                          {k: t(v) for k, v in props.items()}, gt, image_sizes=t(sizes))
+    assert list(losses) == [f"loss_{kind}_stage{s}" for s in range(3)
+                            for kind in ("cls", "box_reg")] + ["loss_mask"]
+    assert all(torch.isfinite(v) and v.requires_grad for v in losses.values())
 
 
 # -- the slice as a whole ---------------------------------------------------------
@@ -339,8 +346,13 @@ def test_custom_rcnn_pyramid(detector_case):
 
 def test_custom_rcnn_not_yet_ported(detector_case):
     _, _, _, tm, images, sizes = detector_case
+    # the training forward is ported for box supervision; weak supervision is not
+    gt = tge._synth_gt(np.random.RandomState(0), 2, 8, 8, img=96)
     with pytest.raises(NotImplementedError, match="not yet ported"):
-        tm(t(images), t(sizes), training=True)
+        tm(t(images), t(sizes), gt=gt, rng=torch.Generator().manual_seed(0), training=True,
+           ann_type="image")
+    losses = tm(t(images), t(sizes), gt=gt, rng=torch.Generator().manual_seed(0), training=True)
+    assert len(losses) == 10 and all(torch.isfinite(v) for v in losses.values())
     cfg = tge._small_cfg()
     for key, value in (("MODEL.BACKBONE.NAME", "build_p67_timm_fpn_backbone"),
                        ("MODEL.BACKBONE.NAME", "build_p37_swin_bifpn_backbone"),

@@ -107,6 +107,7 @@ def test_unported_flags_exit():
 
 
 def _no_device_entry_points():
+    from divergen_tpu_torch import graft_entry
     from divergen_tpu_torch.pipeline.filteration import cli as fcli
     from divergen_tpu_torch.pipeline.filteration.core import ClipEncoder
     from divergen_tpu_torch.pipeline.segmentation import corner_masks
@@ -119,12 +120,14 @@ def _no_device_entry_points():
         "ClipEncoder": lambda d: ClipEncoder("ViT-B/32", batch=1, image_size=32),
         "extract_features": lambda d: fcli.extract_features(
             ["--in_dir", d, "--out_dir", d, "--model_name", "ViT-B/32"]),
+        "train_entry": lambda d: graft_entry.train_entry(),
+        "dryrun_train": lambda d: graft_entry.dryrun_train(),
     }
 
 
 @pytest.mark.skipif(torch.cuda.is_available(), reason="needs a machine without a card")
 @pytest.mark.parametrize("name", ["txt2img", "corner_masks", "build_sam", "ClipEncoder",
-                                  "extract_features"])
+                                  "extract_features", "train_entry", "dryrun_train"])
 def test_entry_points_do_not_fall_back_to_the_cpu(name, tmp_path):
     """An entry point that was not asked for the CPU raises when no card is
     visible; none carries on on the CPU on its own."""

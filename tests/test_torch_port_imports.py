@@ -28,3 +28,6 @@ def test_no_jax_imports(path):
 
 def test_scan_sees_the_port():
     assert len(FILES) > 10
+    seen = {str(p.relative_to(ROOT / "divergen_tpu_torch")) for p in FILES[:-1]}
+    assert {"engine/train_loop.py", "engine/trainer.py", "solver/build.py", "ops/losses.py",
+            "structures/masks.py"} <= seen

@@ -2,8 +2,8 @@
 """Device-time breakdown of the PyTorch port's instance chain and detector on one GPU.
 
 Runs from the root of a checkout:
-    python3 tools/profile_torch_chain.py [sam] [clip] [paste] [detector]
-(no argument: all four targets).
+    python3 tools/profile_torch_chain.py [sam] [clip] [paste] [detector] [train]
+(no argument: all five targets).
 
 Builds SAM ViT-H (bf16, fused encoder), the CLIP ViT-L/14 vision tower
 (float32), the compositor's benchmark batch, and the flagship detector
@@ -14,7 +14,12 @@ up twice, then traces 3 back-to-back calls of each with ``torch.profiler``
 summed device time and the number of its kernel launches, the idle share
 (1 − device time / wall)
 and the kernels that take most of the device time; for the detector also its
-three parts on their own and the host syncs of NMS per forward.
+three parts on their own and the host syncs of NMS per forward. The ``train``
+target builds ``graft_entry.flagship_train_entry`` (the same detector with
+float32 parameters, AdamW, EMA, the compositor) and traces the whole step with
+and without rematerialization, then, with it, the compositor, the forward with
+its losses, forward + backward, and the optimizer with the EMA on their own;
+the backward's share is the difference of the middle two.
 Needs a CUDA device; prints the card's name and power limit first.
 """
 from __future__ import annotations
@@ -45,11 +50,12 @@ def trace(name: str, fn) -> None:
             fn()
         torch.cuda.synchronize()
         wall_ms = 1e3 * (time.perf_counter() - t0) / CALLS
-    # device-side events only: an operator's row repeats its kernels' time
+    # device-side events only: an operator's row repeats its kernels' time, and so
+    # does the device-side annotation that torch.optim puts around its step
     rows = [(e.key, e.self_device_time_total / 1e3 / CALLS, e.count // CALLS)
             for e in prof.key_averages()
             if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0
-            and e.key != "Command Buffer Full"]
+            and e.key != "Command Buffer Full" and not e.key.startswith("Optimizer.step#")]
     rows.sort(key=lambda r: -r[1])
     device_ms = sum(r[1] for r in rows)
     print(f"{name}: wall {wall_ms:.3f} ms/call, device kernels {device_ms:.3f} ms/call "
@@ -59,7 +65,7 @@ def trace(name: str, fn) -> None:
         print(f"    {ms:9.3f} ms  x{count:<4d} {key[:110]}")
 
 
-TARGETS = ("sam", "clip", "paste", "detector")
+TARGETS = ("sam", "clip", "paste", "detector", "train")
 
 
 def profile_sam(dev, g) -> None:
@@ -132,6 +138,51 @@ def profile_detector(dev, g) -> None:
               lambda: model.roi_heads.inference(feats, props, sizes))
 
 
+def profile_train(dev, g) -> None:
+    from divergen_tpu_torch import graft_entry
+    from divergen_tpu_torch.engine.trainer import composite
+    from divergen_tpu_torch.ops.nms import nms_mask
+    from divergen_tpu_torch.ops.window_attention import fused_window_attention_packed as packed
+    from divergen_tpu_torch.solver.build import ema_update
+
+    for remat in (False, True):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        step, (state, batch, rng) = graft_entry.flagship_train_entry(device=dev, remat=remat)
+        model, optimizer = state.model, state.optimizer
+        b, size = batch["image"].shape[:2]
+        what = f"B={b}, {size}², bf16 over f32 parameters, remat {remat}"
+        fwd, bwd, syncs = packed.launches, packed.backward_launches, nms_mask.host_syncs
+        state, metrics = step(state, batch, rng)
+        print(f"train step ({what}): {packed.launches - fwd} forward and "
+              f"{packed.backward_launches - bwd} backward fused_window_attention_packed launches, "
+              f"{nms_mask.host_syncs - syncs} host syncs in NMS, total_loss "
+              f"{float(metrics['total_loss']):.4f}", flush=True)
+        trace(f"train step, compositor on ({what})", lambda: step(state, batch, rng))
+        print(f"    peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
+        if not remat:
+            del step, state, batch, rng, model, optimizer, metrics
+            continue
+        images, gt = composite(batch, "basic")
+
+        def forward():
+            return model(images, batch["image_size"], gt=gt, rng=rng,
+                         fed_weight=batch["fed_weight"], training=True)
+
+        def forward_backward():
+            optimizer.zero_grad()
+            sum(forward().values()).backward()
+
+        def update():
+            optimizer.step()
+            ema_update(state.ema_params, state.params, 0.999)
+
+        trace(f"compositor ({what})", lambda: composite(batch, "basic"))
+        trace(f"forward with losses ({what})", forward)
+        trace(f"forward + backward ({what})", forward_backward)
+        trace(f"clip + AdamW + EMA ({what})", update)
+
+
 def main(argv=None) -> int:
     targets = list(sys.argv[1:] if argv is None else argv) or list(TARGETS)
     unknown = [t for t in targets if t not in TARGETS]
@@ -150,7 +201,7 @@ def main(argv=None) -> int:
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(0)
     run = {"sam": profile_sam, "clip": profile_clip, "paste": profile_paste,
-           "detector": profile_detector}
+           "detector": profile_detector, "train": profile_train}
     for target in targets:
         run[target](dev, g)
         torch.cuda.empty_cache()
