@@ -33,6 +33,15 @@ Run from the root of a checkout:  python3 chip_smoke.py
    bit for bit, and beside the kernel's time that of the backward of
    ``scaled_dot_product_attention`` alone (its forward graph built outside
    the timing, as the kernel's is), with its forward + backward printed too.
+   Then the kernels of SDXL's int8 + fused-norm serving path
+   (``serving_kernel_phases``): int8_matmul_fused_quant at level-2 ff_geglu
+   and level-1 attn1_qkv, int8_matmul_pallas at level-2 ff_out and attn2_kv
+   (M = 4 x 77), each with a ragged case, against their plain versions'
+   bf16 results (relative L2 <= 1e-3; the count of differing elements is
+   printed); fused_group_norm and fused_layer_norm at the UNet's shapes and
+   ragged ones (the usual bounds); every one the same bits twice; yardsticks
+   ``torch._int_mm`` (and the bf16 matmul it replaces), ``F.group_norm`` and
+   ``F.layer_norm``; bounds at 1979 TOPS int8 or 67 TFLOP/s f32.
 4. Small models: a narrow UNet (d = 64 self-attention, GEGLU), a VAE decoder
    with a d = 512 mid attention, and a narrow SAM whose global layer runs the
    relative-position kernel at d = 80, bf16 on the card through the kernels,
@@ -42,7 +51,10 @@ Run from the root of a checkout:  python3 chip_smoke.py
    one train step of that narrow detector (bf16 compute over float32
    parameters, SGD with clipping, EMA) against its float32 CPU copy on the
    same weights, batch and random draws: every loss, ``grad_norm`` and the
-   updates of eight named parameters.
+   updates of eight named parameters. The narrow UNet also with ``quant``,
+   ``fused_ln`` and ``fused_gn`` against its float32 CPU copy with the same
+   flags (mean |diff| / mean |ref| < 0.1), and with the fused norms alone
+   against the plain norms on the card (relative L2 <= 3e-2).
 5. Slice at full SDXL width, launch counters reset just before it:
    (a) the port's ``txt2img.main`` writing two 1024² PNGs;
    (b) ``SDXLTextEncoder.random(tiny=False)`` → ``SDXLPipeline.generate``,
@@ -61,6 +73,18 @@ Run from the root of a checkout:  python3 chip_smoke.py
    Every SAM forward must launch flash_attention_relpos 4 times and
    fused_ln_matmul 36 times. Then it times SAM per image at B = 4, CLIP per
    image at B = 16 and the compositor per pasted instance (medians of 3).
+6b. Slice of SDXL's int8 + fused-norm serving path at full width, launch
+   counters reset just before it: (a) ``txt2img.main --int8`` (a ``quant``
+   UNet) writing two 1024² PNGs: exactly 382 int8_matmul_fused_quant and 130
+   int8_matmul_pallas launches per UNet call, no norm kernel, no
+   fused_ln_matmul; (b) ``SDXLPipeline(int8=True)`` over
+   ``UNetSDXL(quant, fused_ln, fused_gn)`` with the weights, VAE,
+   conditioning and initial noise of 5(b): images finite in [0, 255], their
+   mean |diff| from 5(b)'s printed, and exactly 382 / 130 / 210
+   fused_layer_norm / 46 fused_group_norm / 70 flash_attention_packed
+   launches per UNet call, fused_ln_matmul 0, flash_attention once per
+   decoded image. Then a CFG step of the bf16 and of this pipeline in turns
+   (medians of 3) and ``quantize_unet_`` alone.
 7. Slice of the detector's train step, launch counters reset just before it:
    ``graft_entry.dryrun_train()`` (one checked step of the small detector),
    then ``graft_entry.flagship_train_entry()``: Swin-L, 1453 classes, 896²,
@@ -87,6 +111,7 @@ Run from the root of a checkout:  python3 chip_smoke.py
 from __future__ import annotations
 
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -100,6 +125,8 @@ import torch.nn.functional as F
 
 STEPS = 4
 PEAK_BF16_FLOPS = 989e12  # H100 SXM, dense
+PEAK_INT8_OPS = 1979e12  # the same, int8 tensor cores
+PEAK_F32_FLOPS = 67e12  # the same, float32 outside the tensor cores
 PEAK_BYTES_PER_S = 3.35e12
 REL_L2_BOUND = 1e-2
 MAX_ABS_BOUND = 3e-2  # times max |reference|
@@ -153,10 +180,11 @@ def time_one(fn, reps: int = 10) -> float:
     return statistics.median(times)
 
 
-def bound(ops: float, nbytes: float):
+def bound(ops: float, nbytes: float, peak: float = PEAK_BF16_FLOPS):
     """(ms, "operations" | "bytes"): the least time the card could take for
-    bf16 tensor-core work of ``ops`` operations moving ``nbytes`` bytes."""
-    t_ops, t_bytes = ops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES_PER_S
+    ``ops`` operations at ``peak`` per second (default: bf16 on the tensor
+    cores) moving ``nbytes`` bytes."""
+    t_ops, t_bytes = ops / peak, nbytes / PEAK_BYTES_PER_S
     return 1e3 * max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
 
 
@@ -506,6 +534,142 @@ def kernel_phases(gen: torch.Generator):
     return results
 
 
+def serving_kernel_phases(gen: torch.Generator):
+    """The kernels of SDXL's int8 + fused-norm serving path against their plain
+    versions on the same bf16 inputs, at the UNet's shapes plus ragged ones.
+
+    int8 GEMMs (int8_matmul_fused_quant, int8_matmul_pallas): the int8
+    operands and the int32 sums are exact, so the kernel must equal the plain
+    version's bf16 result: bound relative L2 <= 1e-3, and the count of output
+    elements that differ at all is printed (expected 0); the relative L2 to
+    the plain version's unrounded float32 result is printed too (bf16
+    rounding, about 1.6e-3). Norms (fused_group_norm, fused_layer_norm): the
+    usual bounds against the float32 plain version. Every kernel: the same
+    call twice gives the same bits. Yardsticks, never called by the port:
+    ``torch._int_mm`` on the int8 operands (int32 product only) beside the
+    bf16 ``torch.matmul`` the int8 path replaces; ``F.group_norm`` (+
+    ``F.silu``) on the NCHW view and ``F.layer_norm``, in bf16."""
+    import divergen_tpu_torch.ops.group_norm as gn_mod
+    import divergen_tpu_torch.ops.int8_matmul as i8_mod
+    import divergen_tpu_torch.ops.layer_norm as ln_mod
+    from divergen_tpu_torch.ops.quant import quantize_act, quantize_weight
+
+    dev = torch.device("cuda")
+    results = {}
+
+    def randn(*shape, scale=1.0, dtype=torch.bfloat16):
+        return (torch.randn(shape, generator=gen, device=dev) * scale).to(dtype)
+
+    def same_bits(name, got, fn):
+        again = fn()
+        if not torch.equal(got, again):
+            raise AssertionError(f"{name}: two runs of the kernel give different bits")
+        log("    two runs give the same bits: True")
+
+    def record(kernel, err, kernel_fn, plain_fn, library_fn, ops, nbytes, peak, extra=None):
+        """The first case of a kernel is its main-path shape: its times, the
+        yardstick's time and the bound are the kernel's numbers."""
+        ms, plain_ms, span = time_pair(kernel_fn, plain_fn)
+        log(f"    kernel {ms:.4f} ms (min {span[0]:.4f}, max {span[1]:.4f} of its timed calls), "
+            f"plain f32 {plain_ms:.4f} ms")
+        if kernel not in results:
+            b_ms, by = bound(ops, nbytes, peak)
+            lib_ms = time_one(library_fn)
+            log(f"    PyTorch call {lib_ms:.4f} ms; bound {b_ms:.4f} ms by {by} "
+                f"({ops / 1e9:.2f} G operations, {nbytes / 1e6:.1f} MB)")
+            if extra is not None:
+                log(f"    bf16 torch.matmul of the same shape {time_one(extra):.4f} ms")
+            results[kernel] = {"max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms,
+                               "bound_ms": b_ms, "bound_by": by, "library_ms": lib_ms}
+        results[kernel]["max_abs_err"] = max(results[kernel]["max_abs_err"], err)
+
+    def int8_case(kernel, m, k, n):
+        x = randn(m, k)
+        w = randn(n, k, scale=k ** -0.5, dtype=torch.float32)  # an nn.Linear weight
+        w_q, w_s = quantize_weight(w.t())
+        w_q = w_q.t().contiguous().t()  # (K, N) view of an (N, K) buffer, as the UNet holds it
+        x_q, x_s = quantize_act(x)
+        if kernel == "int8_matmul_fused_quant":
+            run = lambda: i8_mod.int8_matmul_fused_quant(x, w_q, w_s)
+            plain = lambda dt: i8_mod.int8_matmul_fused_quant_reference(x, w_q, w_s, dt)
+            nbytes = 2.0 * m * k + k * n + 4.0 * n + 2.0 * m * n
+        else:
+            run = lambda: i8_mod.int8_matmul_pallas(x_q, x_s, w_q, w_s)
+            plain = lambda dt: i8_mod.int8_matmul_pallas_reference(x_q, x_s, w_q, w_s, dt)
+            nbytes = 1.0 * m * k + 4.0 * m + k * n + 4.0 * n + 2.0 * m * n
+        got = run()
+        ref = plain(torch.bfloat16)
+        name = f"{kernel} M={m} K={k} N={n}"
+        err = compare(name, got, ref, rel_l2_bound=1e-3)
+        ref32 = plain(torch.float32)
+        rel32 = ((got.float() - ref32).norm() / ref32.norm()).item()
+        log(f"    elements that differ from the plain version's bf16 result: "
+            f"{int((got != ref).sum())} of {got.numel()}; rel_l2 to its float32 result "
+            f"{rel32:.3g}")
+        del ref, ref32
+        same_bits(name, got, run)
+        w16 = w.bfloat16()
+        record(kernel, err, run, lambda: plain(torch.float32), lambda: torch._int_mm(x_q, w_q),
+               2.0 * m * k * n, nbytes, PEAK_INT8_OPS, extra=lambda: torch.matmul(x, w16.t()))
+        torch.cuda.empty_cache()
+
+    log("kernel phase: int8_matmul_fused_quant")
+    # level-2 ff_geglu and level-1 attn1_qkv of the UNet at B = 2, 1024² (UNet
+    # batch 4), then a ragged case: M, N and K off every tile, N odd
+    for m, k, n in ((4096, 1280, 10240), (16384, 640, 1920), (1000, 656, 1001)):
+        int8_case("int8_matmul_fused_quant", m, k, n)
+    log("kernel phase: int8_matmul_pallas")
+    # level-2 ff_out (K 5120, over the fused kernel's limit) and the level-2
+    # cross-attention attn2_kv over the 77 text tokens (M = 4 x 77), which the
+    # JAX package leaves to XLA; then a tiny ragged case
+    for m, k, n in ((4096, 5120, 1280), (308, 2048, 2560), (77, 48, 3)):
+        int8_case("int8_matmul_pallas", m, k, n)
+
+    log("kernel phase: fused_group_norm")
+    # ResBlock norm at level 0 (with SiLU), a level-2 transformer norm
+    # (without), then ragged: W = 7, and C = 36 (not a multiple of 8; 4 groups)
+    for (b, h, w, c), silu in (((4, 128, 128, 320), True), ((4, 32, 32, 1280), False),
+                               ((2, 5, 7, 96), True), ((2, 9, 11, 36), True)):
+        x = randn(b, h, w, c, scale=2.0) + 0.5
+        scale = 1.0 + 0.1 * torch.randn(c, generator=gen, device=dev)
+        bias = 0.1 * torch.randn(c, generator=gen, device=dev)
+        groups = math.gcd(32, c)
+        run = lambda: gn_mod.fused_group_norm(x, scale, bias, 32, 1e-6, silu)
+        plain = lambda: gn_mod.group_norm_reference(x.float(), scale, bias, groups, 1e-6, silu)
+        name = f"group_norm B={b} H={h} W={w} C={c} silu={silu}"
+        got = run()
+        err = compare(name, got, plain())
+        same_bits(name, got, run)
+        nchw = x.permute(0, 3, 1, 2)  # a view: channels-last memory
+        s16, b16 = scale.bfloat16(), bias.bfloat16()
+
+        def library():
+            y = F.group_norm(nchw, groups, s16, b16, 1e-6)
+            return F.silu(y) if silu else y
+
+        record("fused_group_norm", err, run, plain, library,
+               x.numel() * (9.0 if silu else 5.0), 4.0 * x.numel() + 8.0 * c, PEAK_F32_FLOPS)
+
+    log("kernel phase: fused_layer_norm")
+    # the UNet's transformer LayerNorms (rows of 4096 x 1280 and 16384 x 640),
+    # then C not a multiple of 128 (1000) and C not a multiple of 8 (333)
+    for rows, c in ((4096, 1280), (16384, 640), (4096, 1000), (777, 333)):
+        x = randn(rows, c, scale=3.0) + 1.0
+        gamma = 1.0 + 0.1 * torch.randn(c, generator=gen, device=dev)
+        beta = 0.1 * torch.randn(c, generator=gen, device=dev)
+        run = lambda: ln_mod.fused_layer_norm(x, gamma, beta, 1e-5)
+        plain = lambda: ln_mod.layer_norm_reference(x.float(), gamma, beta, 1e-5)
+        name = f"layer_norm rows={rows} C={c}"
+        got = run()
+        err = compare(name, got, plain())
+        same_bits(name, got, run)
+        g16, b16 = gamma.bfloat16(), beta.bfloat16()
+        record("fused_layer_norm", err, run, plain,
+               lambda: F.layer_norm(x, (c,), g16, b16, 1e-5), 8.0 * x.numel(),
+               4.0 * x.numel() + 8.0 * c, PEAK_F32_FLOPS)
+    return results
+
+
 def small_models():
     """Narrow UNet and VAE, bf16 through the kernels vs float32 plain on the CPU.
 
@@ -566,6 +730,56 @@ def small_models():
             masks.cpu(), ref_masks, rel_l2_bound=3e-2, max_abs_bound=1e-1)
     compare("small SAM IoU vs f32 CPU", iou.cpu(), ref_iou, rel_l2_bound=3e-2,
             max_abs_bound=1e-1)
+
+
+def small_serving_unets():
+    """The narrow UNet of ``small_models`` with SDXL's serving options.
+
+    (1) ``quant``, ``fused_ln`` and ``fused_gn``, bf16 on the card through the
+    int8 GEMM and norm kernels, against the same weights with the same flags
+    in float32 on the CPU: mean |diff| / mean |ref| < 0.1, the serving bound
+    of ``tests/test_quant.py`` (every int8 rounding tie can fall either way
+    after bf16 arithmetic). (2) ``fused_ln`` and ``fused_gn`` only, against
+    the plain ``GroupNorm32`` / ``LayerNorm`` UNet on the card, both bf16:
+    relative L2 <= 3e-2, the whole-network bound of ``small_models`` (each
+    norm rounds to bf16 a rounding apart from its plain twin, and every later
+    layer rounds again: 1.3e-2 measured on an H100)."""
+    from divergen_tpu_torch.modeling.layers import flax_init_
+    from divergen_tpu_torch.pipeline.generation.unet import UNetSDXL, quantize_unet_
+
+    dev = torch.device("cuda")
+    g = torch.Generator().manual_seed(17)
+    kw = dict(block_channels=(64, 128), transformer_depths=(0, 1), head_dim=64,
+              context_dim=64, layers_per_block=1, text_time=False)
+    serving = dict(quant=True, fused_ln=True, fused_gn=True)
+    ref_unet = flax_init_(UNetSDXL(**kw, **serving), g).eval()
+    unet = UNetSDXL(dtype=torch.bfloat16, device=dev, **kw, **serving).eval()
+    unet.load_state_dict(ref_unet.state_dict())
+    quantize_unet_(ref_unet)
+    quantize_unet_(unet)
+    lat = torch.randn((2, 32, 32, 4), generator=g)
+    t = torch.tensor([500.0, 20.0])
+    ctx = torch.randn((2, 77, 64), generator=g)
+    with torch.inference_mode():
+        got = unet(lat.to(dev), t.to(dev), ctx.to(dev)).cpu()
+        ref = ref_unet(lat, t, ctx)
+    if not torch.isfinite(got).all():
+        raise AssertionError("small int8 UNet: non-finite output")
+    rel = ((got - ref).abs().mean() / ref.abs().mean()).item()
+    ok = rel < 0.1
+    log(f"  small UNet (quant + fused_ln + fused_gn) vs f32 CPU with the same flags: mean |diff| "
+        f"/ mean |ref| {rel:.5f} [{'ok' if ok else 'FAIL'}]")
+    if not ok:
+        raise AssertionError("small int8 UNet: disagrees with its f32 CPU copy")
+
+    fused = UNetSDXL(dtype=torch.bfloat16, device=dev, fused_ln=True, fused_gn=True, **kw).eval()
+    plain = UNetSDXL(dtype=torch.bfloat16, device=dev, **kw).eval()
+    fused.load_state_dict(ref_unet.state_dict())
+    plain.load_state_dict(ref_unet.state_dict())
+    with torch.inference_mode():
+        x, tt, cc = lat.to(dev), t.to(dev), ctx.to(dev)
+        compare("small UNet fused_ln + fused_gn vs plain GroupNorm32 / LayerNorm (bf16, card)",
+                fused(x, tt, cc), plain(x, tt, cc), rel_l2_bound=3e-2)
 
 
 NARROW_SWIN = (32, (2, 2, 2, 1), (1, 2, 4, 8), 7, 0.0)  # embed, depths, heads (d = 32), window
@@ -675,7 +889,7 @@ def slice_pipeline():
     log(f"  SDXLPipeline.generate: images (2, 1024, 1024, 3), finite, "
         f"range [{imgs.min().item():.1f}, {imgs.max().item():.1f}], "
         f"std {imgs.float().std().item():.2f}")
-    return encoder, pipe, (ctx, unc, pooled, unc_pooled)
+    return encoder, pipe, (ctx, unc, pooled, unc_pooled), imgs
 
 
 def timings(encoder, pipe, cond, card: str):
@@ -701,6 +915,110 @@ def timings(encoder, pipe, cond, card: str):
         f"{1000 * den_s / STEPS:.1f} ms/step, median of 3 {STEPS}-step runs [{card}]")
     log(f"  VAE decode (2 images, 1024², one at a time): {dec_s:.3f} s, median of 3 [{card}]")
     log(f"  text encode (CLIP-L + bigG, 1 prompt): {1000 * enc_s:.1f} ms [{card}]")
+
+
+# Launches per UNet call of the serving kernels in UNetSDXL(quant, fused_ln,
+# fused_gn) at SDXL-base widths. Transformer blocks: 10 at level 1 (C 640,
+# 4096 tokens an image), 60 at level 2 (C 1280, 1024 tokens); 5 and 6 spatial
+# transformers; 17 ResBlocks. At UNet batch 4:
+# - int8_matmul_fused_quant: every GEMM with K <= 4096 and tileable M and N;
+#   level 1: qkv, attn1_out, attn2_q, attn2_out, ff_geglu, ff_out (K 2560) per
+#   block, 6 x 10, + proj_in/out 2 x 5; level 2: the same but ff_out, 5 x 60,
+#   + 2 x 6: 60 + 10 + 300 + 12 = 382;
+# - int8_matmul_pallas: level-2 ff_out (K 5120) 60 + attn2_kv (M = 4 x 77) 70;
+# - fused_layer_norm: norm1, norm2, norm3 of 70 blocks (quant turns ln_gemm off);
+# - fused_group_norm: 2 x 17 ResBlock norms + 11 transformer norms + norm_out.
+SERVING_LAUNCHES = {"int8_matmul_fused_quant": 382, "int8_matmul_pallas": 130,
+                    "fused_layer_norm": 210, "fused_group_norm": 46}
+INT8_ONLY_LAUNCHES = {"int8_matmul_fused_quant": 382, "int8_matmul_pallas": 130,
+                      "fused_layer_norm": 0, "fused_group_norm": 0}
+
+
+def slice_txt2img_int8(tmp: str):
+    """``txt2img.main --int8``: a ``quant`` UNet (no fused norms), two 1024² PNGs."""
+    from divergen_tpu_torch.pipeline.generation import txt2img
+    from divergen_tpu_torch.utils.png import read_png
+
+    out = os.path.join(tmp, "out_int8")
+    t0 = time.perf_counter()
+    rc = txt2img.main(["--prompt", "a photo of a single red apple", "--outdir", out,
+                       "--n_samples", "2", "--max_batch_size", "2", "--height", "1024",
+                       "--width", "1024", "--sampler", "dpmpp_2m", "--steps", str(STEPS),
+                       "--int8"])
+    torch.cuda.synchronize()
+    if rc != 0:
+        raise AssertionError(f"txt2img.main --int8 returned {rc}")
+    for name in ("prompt_0000000.png", "prompt_0000001.png"):
+        img = read_png(os.path.join(out, "samples", "XL", name))
+        if img.shape != (1024, 1024, 3):
+            raise AssertionError(f"{name}: {img.shape}")
+    log(f"  txt2img.main --int8 wrote prompt_0000000.png, prompt_0000001.png (1024x1024) in "
+        f"{time.perf_counter() - t0:.1f} s (model build included)")
+
+
+def slice_serving_pipeline(pipe, cond, bf16_images):
+    """``SDXLPipeline(int8=True)`` over ``UNetSDXL(quant, fused_ln, fused_gn)``
+    with the bf16 pipeline's weights, VAE, conditioning and initial noise
+    (seed 42), B = 2, 1024², DPM-Solver++ 2M. Returns the pipeline."""
+    from divergen_tpu_torch.pipeline.generation.pipeline import SDXLPipeline
+    from divergen_tpu_torch.pipeline.generation.unet import UNetSDXL
+
+    dev = torch.device("cuda")
+    ctx, unc, pooled, unc_pooled = cond
+    unet = UNetSDXL(dtype=torch.bfloat16, device=dev, quant=True, fused_ln=True, fused_gn=True)
+    unet.load_state_dict(pipe.unet.state_dict())
+    pipe8 = SDXLPipeline(unet, pipe.vae, steps=STEPS, sampler="dpmpp_2m", int8=True)
+    gen = torch.Generator(device=dev).manual_seed(42)
+    imgs = pipe8.generate(gen, ctx, unc, pooled, unc_pooled, 1024, 1024)
+    torch.cuda.synchronize()
+    if tuple(imgs.shape) != (2, 1024, 1024, 3):
+        raise AssertionError(f"int8 images {tuple(imgs.shape)}")
+    if not torch.isfinite(imgs).all() or imgs.min() < 0 or imgs.max() > 255:
+        raise AssertionError("int8 images not finite in [0, 255]")
+    diff = (imgs - bf16_images).abs().mean().item()
+    log(f"  SDXLPipeline(int8=True) over UNetSDXL(quant, fused_ln, fused_gn): images "
+        f"(2, 1024, 1024, 3), finite, range [{imgs.min().item():.1f}, {imgs.max().item():.1f}]; "
+        f"mean |diff| from the bf16 pipeline's images on the same weights and noise "
+        f"{diff:.3f} of 255 (a smoke number)")
+    return pipe8
+
+
+def serving_timings(pipe, pipe8, cond, card: str):
+    """One CFG step of the bf16 and of the int8 + fused-norm pipeline, in turns
+    (bf16, int8, int8, bf16, ...), medians of 3 denoise runs of STEPS steps;
+    the int8 run includes its once-per-call ``quantize_unet_``, timed alone
+    too."""
+    from divergen_tpu_torch.pipeline.generation.unet import quantize_unet_
+
+    ctx, unc, pooled, unc_pooled = cond
+
+    def wall(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    lat0 = torch.randn((2, 128, 128, 4), generator=gen, device="cuda") * pipe._init_scale
+    time_ids = torch.tensor([1024.0, 1024, 0, 0, 1024, 1024], device="cuda").expand(2, 6)
+    run = {p: (lambda p=p: p.denoise(lat0, ctx, unc, pooled, unc_pooled, time_ids))
+           for p in (pipe, pipe8)}
+    times = {pipe: [], pipe8: []}
+    for order in ((pipe, pipe8), (pipe8, pipe), (pipe, pipe8)):
+        for p in order:
+            times[p].append(wall(run[p]))
+    quant_s = statistics.median(wall(lambda: quantize_unet_(pipe8.unet)) for _ in range(3))
+    bf16_ms = 1000 * statistics.median(times[pipe]) / STEPS
+    int8_ms = 1000 * statistics.median(times[pipe8]) / STEPS
+    log(f"  CFG denoise step (B=2 images, UNet batch 4, 1024²): bf16 {bf16_ms:.1f} ms/step; "
+        f"int8 + fused norms {int8_ms:.1f} ms/step, of which quantize_unet_ "
+        f"{1000 * quant_s:.1f} ms once per {STEPS}-step call; median of 3 runs each, in turns "
+        f"[{card}]")
+    log("    every run, ms/step: bf16 "
+        + ", ".join(f"{1000 * s / STEPS:.1f}" for s in times[pipe]) + "; int8 "
+        + ", ".join(f"{1000 * s / STEPS:.1f}" for s in times[pipe8])
+        + f"; {torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
 
 
 SAM_KERNEL_LAUNCHES = {"flash_attention_relpos": 4, "fused_ln_matmul": 36}  # per forward
@@ -1145,6 +1463,9 @@ def main() -> int:
         flash_attention_packed,
         flash_attention_relpos,
     )
+    from divergen_tpu_torch.ops.group_norm import fused_group_norm
+    from divergen_tpu_torch.ops.int8_matmul import int8_matmul_fused_quant, int8_matmul_pallas
+    from divergen_tpu_torch.ops.layer_norm import fused_layer_norm
     from divergen_tpu_torch.ops.ln_matmul import fused_ln_matmul
     from divergen_tpu_torch.ops.window_attention import (
         fused_window_attention,
@@ -1168,13 +1489,16 @@ def main() -> int:
                 log(f"  ptxas: {line.strip()}")
 
     results = kernel_phases(torch.Generator(device="cuda").manual_seed(0))
+    results.update(serving_kernel_phases(torch.Generator(device="cuda").manual_seed(1)))
     log("small models")
     small_models()
+    small_serving_unets()
     small_detector()
     small_train_step()
 
     wrappers = (flash_attention_packed, fused_ln_matmul, flash_attention,
-                flash_attention_relpos, fused_window_attention_packed, fused_window_attention)
+                flash_attention_relpos, fused_window_attention_packed, fused_window_attention,
+                int8_matmul_fused_quant, int8_matmul_pallas, fused_layer_norm, fused_group_norm)
     chain_kernels = [w.__name__ for w in wrappers[:4]]
 
     backward = {"fused_window_attention_packed_backward": fused_window_attention_packed,
@@ -1200,7 +1524,7 @@ def main() -> int:
         reset()
         slice_txt2img(tmp)
         torch.cuda.empty_cache()
-        encoder, pipe, cond = slice_pipeline()
+        encoder, pipe, cond, bf16_images = slice_pipeline()
         sdxl = read(("flash_attention_packed", "fused_ln_matmul", "flash_attention"),
                     "the SDXL slice")
         timings(encoder, pipe, cond, card)
@@ -1212,7 +1536,35 @@ def main() -> int:
     chain_timings = slice_chain(encoder, pipe, card)
     chain = read(chain_kernels, "the instance-chain slice")
     chain_timings()
-    del encoder, pipe, cond, chain_timings
+    del chain_timings
+    torch.cuda.empty_cache()
+
+    log("slice: SDXL int8 + fused norms at full width (txt2img --int8, then "
+        "SDXLPipeline(int8=True) over UNetSDXL(quant, fused_ln, fused_gn))")
+    reset()
+    with tempfile.TemporaryDirectory() as tmp:
+        slice_txt2img_int8(tmp)
+    torch.cuda.empty_cache()
+    after_a = read(("int8_matmul_fused_quant", "int8_matmul_pallas", "flash_attention_packed",
+                    "flash_attention"), "txt2img --int8")
+    pipe8 = slice_serving_pipeline(pipe, cond, bf16_images)
+    serving = read(("flash_attention_packed", "flash_attention", *SERVING_LAUNCHES),
+                   "the int8 + fused-norm slice")
+    unet_calls = STEPS  # one generate call of B = 2: one UNet call (batch 4) per step
+    want_a = {k: v * unet_calls for k, v in INT8_ONLY_LAUNCHES.items()}
+    want_a["fused_ln_matmul"] = 0
+    want_b = {k: v * unet_calls for k, v in SERVING_LAUNCHES.items()}
+    want_b.update(fused_ln_matmul=0, flash_attention_packed=70 * unet_calls, flash_attention=2)
+    for what, counts, want in (("txt2img --int8", after_a, want_a),
+                               ("SDXLPipeline(int8=True)",
+                                {k: serving[k] - after_a[k] for k in serving}, want_b)):
+        wrong = {k: (counts[k], n) for k, n in want.items() if counts[k] != n}
+        if wrong:
+            raise AssertionError(f"{what}: launches (got, expected) {wrong}")
+        log(f"  {what}: launches as expected per UNet call x {unet_calls} calls: "
+            f"{ {k: counts[k] for k in want} }")
+    serving_timings(pipe, pipe8, cond, card)
+    del encoder, pipe, cond, bf16_images, pipe8
     torch.cuda.empty_cache()
 
     log("slice: detector train step (dryrun_train, then the Swin-L flagship at full width)")
@@ -1226,7 +1578,8 @@ def main() -> int:
     detector_timings = slice_detector(card)
     detector = read(("fused_window_attention_packed",), "the detector slice")
     detector_timings()
-    launches = {name: sdxl[name] + chain[name] + train[name] + detector[name] for name in sdxl}
+    launches = {name: sdxl[name] + chain[name] + serving[name] + train[name] + detector[name]
+                for name in sdxl}
     # the split wrapper is on no slice's path (the packed kernels take any head
     # count): the kernel phases hold its forward and backward, its counts stay 0
     for name in ("fused_window_attention", "fused_window_attention_backward"):
@@ -1251,6 +1604,14 @@ def main() -> int:
             "divergen_tpu/ops/pallas/window_attention.py:408"),
         "fused_window_attention_backward": ("divergen_tpu_torch/csrc/window_attention.cu",
                                             "divergen_tpu/ops/pallas/window_attention.py:203"),
+        "fused_group_norm": ("divergen_tpu_torch/csrc/group_norm.cu",
+                             "divergen_tpu/ops/pallas/group_norm.py:111"),
+        "fused_layer_norm": ("divergen_tpu_torch/csrc/layer_norm.cu",
+                             "divergen_tpu/ops/pallas/layer_norm.py:59"),
+        "int8_matmul_pallas": ("divergen_tpu_torch/csrc/int8_matmul.cu",
+                               "divergen_tpu/ops/pallas/int8_matmul.py:63"),
+        "int8_matmul_fused_quant": ("divergen_tpu_torch/csrc/int8_matmul.cu",
+                                    "divergen_tpu/ops/pallas/int8_matmul.py:130"),
     }
     kernels = [{"name": name, "route": "cuda", "source": src, "replaces": rep,
                 "launches": launches[name], **results[name]}

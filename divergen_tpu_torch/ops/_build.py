@@ -111,6 +111,14 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.dg_window_attention_packed_bwd_bf16.restype = i
     lib.dg_ln_matmul_bf16.argtypes = [p] * 7 + [i] * 3 + [f, i, p]
     lib.dg_ln_matmul_bf16.restype = i
+    lib.dg_int8_matmul_bf16.argtypes = [p] * 5 + [i] * 3 + [p]
+    lib.dg_int8_matmul_bf16.restype = i
+    lib.dg_int8_matmul_fused_quant_bf16.argtypes = [p] * 4 + [i] * 3 + [p]
+    lib.dg_int8_matmul_fused_quant_bf16.restype = i
+    lib.dg_group_norm_bf16.argtypes = [p] * 6 + [i] * 5 + [f, i, p]
+    lib.dg_group_norm_bf16.restype = i
+    lib.dg_layer_norm_bf16.argtypes = [p] * 4 + [i] * 2 + [f, p]
+    lib.dg_layer_norm_bf16.restype = i
     lib.dg_error_string.argtypes = [i]
     lib.dg_error_string.restype = ctypes.c_char_p
 

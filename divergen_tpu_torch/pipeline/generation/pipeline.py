@@ -5,7 +5,10 @@ Counterpart of ``divergen_tpu/pipeline/generation/pipeline.py``. The JAX
 on the 2B-image batch [uncond | cond] and combines the two halves with the
 guidance scale. Both samplers are ported: Euler (SDXL's default) and
 DPM-Solver++ 2M. Decoding runs one image at a time, as at 1024² the
-decoder's full-resolution activations dominate memory.
+decoder's full-resolution activations dominate memory. With ``int8`` the
+UNet (built with ``quant=True``) holds float weights and quantizes its
+transformer matmuls once per ``denoise`` call, before the step loop, as the
+JAX pipeline quantizes its parameter tree once per generate call.
 """
 from __future__ import annotations
 
@@ -25,7 +28,7 @@ from .scheduler import (
     euler_step,
     make_scheduler,
 )
-from .unet import UNetSDXL
+from .unet import UNetSDXL, quantize_unet_
 from .vae import VAEDecoder
 
 
@@ -36,10 +39,13 @@ class SDXLPipeline:
                  scheduler: Optional[SchedulerConfig] = None, steps: int = 50,
                  guidance_scale: float = 7.5, encoder_reuse: bool = False,
                  int8: bool = False, mesh=None, sampler: str = "euler"):
-        if encoder_reuse or int8 or mesh is not None:
-            raise NotImplementedError("encoder_reuse, int8 and mesh are not ported yet")
+        if encoder_reuse or mesh is not None:
+            raise NotImplementedError("encoder_reuse and mesh are not ported yet")
         if sampler not in ("euler", "dpmpp_2m"):
             raise ValueError(f"unknown sampler {sampler!r}")
+        if int8 and not unet.quant:
+            raise ValueError("int8=True needs a UNet built with quant=True")
+        self.int8 = int8
         self.unet = unet.eval()
         self.vae = vae.eval() if vae is not None else None
         self.sched = scheduler or make_scheduler("scaled_linear")
@@ -67,6 +73,8 @@ class SDXLPipeline:
         """Run every sampler step from the initial (noise-scaled) latents."""
         g = self.guidance
         sigmas, ts = self._sigmas, self._ts
+        if self.int8:
+            quantize_unet_(self.unet)
         ctx = torch.cat([uncond_context, context], dim=0)
         pl = torch.cat([uncond_pooled, pooled], dim=0) if pooled is not None else None
         tid = torch.cat([time_ids, time_ids], dim=0) if time_ids is not None else None

@@ -8,7 +8,8 @@ txt2img.py:main``, with the same flags: one prompt file per category (or
 Without ``--unet_ckpt`` / ``--vae_ckpt`` the modules run on random weights
 drawn from a fixed seed; without both text checkpoints the full-width path
 conditions on hash-seeded pseudo-embeddings, and ``--tiny`` runs tiny random
-text towers. The x4 upscaler, the IF cascade, ``--int8``,
+text towers. ``--int8`` runs the W8A8 int8 transformer matmuls (a ``quant``
+UNet, quantized once per generate call). The x4 upscaler, the IF cascade,
 ``--encoder_reuse`` and ``--data_parallel`` are not ported yet.
 
     python -m divergen_tpu_torch.pipeline.generation.txt2img \\
@@ -24,7 +25,7 @@ from typing import List, Optional
 import numpy as np
 import torch
 
-_NOT_PORTED = ("int8", "encoder_reuse", "data_parallel")
+_NOT_PORTED = ("encoder_reuse", "data_parallel")
 
 
 def build_argparser() -> argparse.ArgumentParser:
@@ -61,7 +62,8 @@ def build_argparser() -> argparse.ArgumentParser:
     p.add_argument("--sampler", type=str, default="euler", choices=["euler", "dpmpp_2m"])
     p.add_argument("--guidance", type=float, default=7.5)
     p.add_argument("--tiny", action="store_true", help="tiny random model (smoke/test)")
-    p.add_argument("--int8", action="store_true")
+    p.add_argument("--int8", action="store_true",
+                   help="W8A8 int8 transformer matmuls (hand-written int8 GEMM kernels)")
     p.add_argument("--encoder_reuse", action="store_true")
     p.add_argument("--data_parallel", action="store_true")
     p.add_argument("--device", type=str, default="",
@@ -90,11 +92,13 @@ def _build_pipeline(args, device: torch.device):
     from .vae import VAEDecoder
 
     dtype = torch.bfloat16
+    # the weights are float either way; with --int8 the pipeline quantizes the
+    # transformer matmuls once per generate call, before the step loop
     if args.tiny:
-        unet = UNetSDXL.tiny(dtype=dtype, device=device)
+        unet = UNetSDXL.tiny(quant=args.int8, dtype=dtype, device=device)
         vae = VAEDecoder(channels=(32, 32), dtype=dtype, device=device)
     else:
-        unet = UNetSDXL(dtype=dtype, device=device)
+        unet = UNetSDXL(quant=args.int8, dtype=dtype, device=device)
         vae = VAEDecoder(dtype=dtype, device=device)
     gen = torch.Generator(device=device)
     if args.unet_ckpt:
@@ -110,7 +114,7 @@ def _build_pipeline(args, device: torch.device):
     else:
         flax_init_(vae, gen.manual_seed(1))
     pipe = SDXLPipeline(unet, vae, steps=args.steps, guidance_scale=args.guidance,
-                        sampler=args.sampler)
+                        int8=args.int8, sampler=args.sampler)
     return pipe, unet.context_dim
 
 

@@ -10,11 +10,18 @@ CrossAttn(depth 10)]; mid CrossAttn(depth 10); context dim 2048; the
 Cross-attention over ≤128 text tokens stays plain torch, as the JAX package
 leaves it to XLA. Submodules carry the flax scope names, so
 ``utils.convert.params_from_jax`` maps the JAX tree one to one.
+
+The serving options of the JAX module are ported too: ``quant`` (W8A8 int8
+transformer matmuls through ``ops/int8_matmul.py``, after
+:func:`quantize_unet_`; it turns ``ln_gemm`` off, as in JAX), ``fused_ln``
+(the transformer LayerNorms through ``ops/layer_norm.py``) and ``fused_gn``
+(every GroupNorm, with its SiLU, through ``ops/group_norm.py``). None of
+them changes the parameters, so checkpoints and converters are the same.
 """
 from __future__ import annotations
 
 import math
-from typing import Optional, Sequence, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import torch
 import torch.nn as nn
@@ -22,7 +29,10 @@ import torch.nn.functional as F
 
 from ...modeling.layers import Conv, Dense, LayerNorm
 from ...ops.flash_attention import flash_attention, flash_attention_packed
+from ...ops.group_norm import fused_group_norm
+from ...ops.layer_norm import fused_layer_norm
 from ...ops.ln_matmul import fused_ln_matmul
+from ...ops.quant import int8_matmul, quantize_weight
 
 
 def timestep_embedding(t: torch.Tensor, dim: int, max_period: float = 10000.0) -> torch.Tensor:
@@ -63,11 +73,94 @@ class GroupNorm32(nn.Module):
         return torch.addcmul(shift[:, None, None], xf, scale[:, None, None]).to(x.dtype)
 
 
+def _group_norm(x: torch.Tensor, norm: GroupNorm32, fused: bool, silu: bool) -> torch.Tensor:
+    """``norm`` (+ SiLU), either plain or through the fused kernel (the JAX
+    ``_gn_silu``; eps 1e-6, gcd(32, C) groups, output in x's dtype)."""
+    if not fused:
+        y = norm(x)
+        return F.silu(y) if silu else y
+    gn = norm.GroupNorm_0
+    return fused_group_norm(x, gn.weight, gn.bias, gn.num_groups, gn.eps, silu)
+
+
+class FusedLayerNorm(LayerNorm):
+    """``LayerNorm`` (same parameters) through ``fused_layer_norm``, on the
+    input cast to the module's dtype, as the JAX ``FusedLayerNorm`` does."""
+
+    def __init__(self, channels: int, dtype=torch.float32, device=None):
+        super().__init__(channels, device=device)
+        self.compute_dtype = dtype
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return fused_layer_norm(x.to(self.compute_dtype), self.weight, self.bias, self.eps)
+
+
+class MaybeQuantDense(Dense):
+    """``Dense`` that, built with ``quant=True``, multiplies in int8: the
+    float ``weight`` and ``bias`` stay (so a state dict loads unchanged),
+    :func:`quantize_unet_` fills the non-persistent buffers ``weight_q``
+    (int8, (out, in): the (N, K) row-major operand the kernels read) and
+    ``weight_scale`` (f32, (out,)), and the forward runs
+    ``ops.quant.int8_matmul`` on them, then adds the bias in the output
+    dtype."""
+
+    def __init__(self, in_features: int, out_features: int, bias: bool = True,
+                 quant: bool = False, dtype=None, device=None):
+        super().__init__(in_features, out_features, bias=bias, dtype=dtype, device=device)
+        self.quant = quant
+        self.register_buffer("weight_q", None, persistent=False)
+        self.register_buffer("weight_scale", None, persistent=False)
+
+    @torch.no_grad()
+    def quantize_(self) -> None:
+        """Quantize the float weight into ``weight_q`` / ``weight_scale``."""
+        q, scale = quantize_weight(self.weight.t())
+        self.weight_q = q.t().contiguous()
+        self.weight_scale = scale
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.quant:
+            return super().forward(x)
+        if self.weight_q is None:
+            raise RuntimeError("a quant layer runs only after quantize_unet_ filled weight_q")
+        dt = self.compute_dtype or self.weight.dtype
+        y = int8_matmul(x, self.weight_q.t(), self.weight_scale, out_dtype=dt)
+        return y if self.bias is None else y + self.bias.to(dt)
+
+
+def transformer_quant_select(path: Tuple[str, ...]) -> bool:
+    """Module paths of the int8 layers: the big transformer matmuls (time and
+    class embeddings and the convs stay in the float dtype)."""
+    name = path[-1]
+    return name.startswith(("attn1_", "attn2_", "ff_")) or name in ("proj_in", "proj_out")
+
+
+@torch.no_grad()
+def quantize_unet_(unet: nn.Module) -> List[str]:
+    """Fill the int8 buffers of every layer that ``transformer_quant_select``
+    picks, from its float weight: the module form of the JAX
+    ``quantize_param_tree(params, select=transformer_quant_select)``. Returns
+    the names of the quantized layers. Raises if a picked layer cannot run
+    int8 (a UNet built without ``quant``)."""
+    names = []
+    for name, mod in unet.named_modules():
+        if not name or not isinstance(mod, nn.Linear):
+            continue
+        if not transformer_quant_select(tuple(name.split("."))):
+            continue
+        if not (isinstance(mod, MaybeQuantDense) and mod.quant):
+            raise ValueError(f"{name} is not an int8 layer: build the UNet with quant=True")
+        mod.quantize_()
+        names.append(name)
+    return names
+
+
 class ResBlock(nn.Module):
     def __init__(self, in_channels: int, out_channels: int, temb_dim: int,
-                 dtype=torch.float32, device=None):
+                 dtype=torch.float32, device=None, fused_gn: bool = False):
         super().__init__()
         kw = dict(dtype=dtype, device=device)
+        self.fused_gn = fused_gn
         self.norm1 = GroupNorm32(in_channels, device)
         self.conv1 = Conv(in_channels, out_channels, 3, **kw)
         self.time_emb_proj = Dense(temb_dim, out_channels, **kw)
@@ -77,9 +170,9 @@ class ResBlock(nn.Module):
                               if in_channels != out_channels else None)
 
     def forward(self, x: torch.Tensor, emb: torch.Tensor) -> torch.Tensor:
-        h = self.conv1(F.silu(self.norm1(x)))
+        h = self.conv1(_group_norm(x, self.norm1, self.fused_gn, silu=True))
         h = h + self.time_emb_proj(F.silu(emb))[:, None, None, :]
-        h = self.conv2(F.silu(self.norm2(h)))
+        h = self.conv2(_group_norm(h, self.norm2, self.fused_gn, silu=True))
         if self.conv_shortcut is not None:
             x = self.conv_shortcut(x)
         return x + h
@@ -112,23 +205,29 @@ class TransformerBlock(nn.Module):
     """self-attn → cross-attn → GEGLU FF (diffusers BasicTransformerBlock)."""
 
     def __init__(self, channels: int, heads: int, context_dim: int,
-                 dtype=torch.float32, ln_gemm="geglu", device=None):
+                 dtype=torch.float32, ln_gemm="geglu", device=None, quant: bool = False,
+                 fused_ln: bool = False):
         super().__init__()
         if ln_gemm not in ("geglu", False):
             raise ValueError(f"ln_gemm {ln_gemm!r}: the port has 'geglu' and False")
         c = channels
-        kw = dict(dtype=dtype, device=device)
-        self.heads, self.ln_gemm = heads, ln_gemm
-        self.norm1 = LayerNorm(c, device=device)
-        self.attn1_qkv = Dense(c, 3 * c, bias=False, **kw)
-        self.attn1_out = Dense(c, c, **kw)
-        self.norm2 = LayerNorm(c, device=device)
-        self.attn2_q = Dense(c, c, bias=False, **kw)
-        self.attn2_kv = Dense(context_dim, 2 * c, bias=False, **kw)
-        self.attn2_out = Dense(c, c, **kw)
-        self.norm3 = LayerNorm(c, device=device)
-        self.ff_geglu = Dense(c, 8 * c, **kw)
-        self.ff_out = Dense(4 * c, c, **kw)
+        kw = dict(quant=quant, dtype=dtype, device=device)
+        # the int8 path keeps every LayerNorm standalone (unet.py:386 of the JAX module)
+        self.heads, self.ln_gemm = heads, (False if quant else ln_gemm)
+
+        def norm():
+            return FusedLayerNorm(c, dtype, device) if fused_ln else LayerNorm(c, device=device)
+
+        self.norm1 = norm()
+        self.attn1_qkv = MaybeQuantDense(c, 3 * c, bias=False, **kw)
+        self.attn1_out = MaybeQuantDense(c, c, **kw)
+        self.norm2 = norm()
+        self.attn2_q = MaybeQuantDense(c, c, bias=False, **kw)
+        self.attn2_kv = MaybeQuantDense(context_dim, 2 * c, bias=False, **kw)
+        self.attn2_out = MaybeQuantDense(c, c, **kw)
+        self.norm3 = norm()
+        self.ff_geglu = MaybeQuantDense(c, 8 * c, **kw)
+        self.ff_out = MaybeQuantDense(4 * c, c, **kw)
 
     def forward(self, x: torch.Tensor, context: torch.Tensor) -> torch.Tensor:
         qkv = self.attn1_qkv(self.norm1(x))
@@ -152,20 +251,24 @@ class TransformerBlock(nn.Module):
 
 class SpatialTransformer(nn.Module):
     def __init__(self, channels: int, heads: int, depth: int, context_dim: int,
-                 dtype=torch.float32, ln_gemm="geglu", device=None):
+                 dtype=torch.float32, ln_gemm="geglu", device=None, quant: bool = False,
+                 fused_ln: bool = False, fused_gn: bool = False):
         super().__init__()
         self.depth = depth
+        self.fused_gn = fused_gn
         self.norm = GroupNorm32(channels, device)
-        self.proj_in = Dense(channels, channels, dtype=dtype, device=device)
+        kw = dict(quant=quant, dtype=dtype, device=device)
+        self.proj_in = MaybeQuantDense(channels, channels, **kw)
         for i in range(depth):
             self.add_module(f"block{i}", TransformerBlock(
-                channels, heads, context_dim, dtype, ln_gemm, device))
-        self.proj_out = Dense(channels, channels, dtype=dtype, device=device)
+                channels, heads, context_dim, dtype, ln_gemm, device, quant, fused_ln))
+        self.proj_out = MaybeQuantDense(channels, channels, **kw)
 
     def forward(self, x: torch.Tensor, context: torch.Tensor) -> torch.Tensor:
         b, h, w, c = x.shape
         res = x
-        x = self.proj_in(self.norm(x)).reshape(b, h * w, c)
+        x = _group_norm(x, self.norm, self.fused_gn, silu=False)
+        x = self.proj_in(x).reshape(b, h * w, c)
         for i in range(self.depth):
             x = getattr(self, f"block{i}")(x, context)
         return self.proj_out(x.reshape(b, h, w, c)) + res
@@ -202,7 +305,9 @@ class UNetSDXL(nn.Module):
 
     ``text_time`` builds the pooled-text + time-ids added conditioning
     (``add_embed_1/2``); the JAX module creates it when it is initialized with
-    those inputs. Faster-Diffusion encoder reuse, int8 ``quant`` and
+    those inputs. ``quant``, ``fused_ln`` and ``fused_gn`` are the JAX
+    module's serving options (see the module docstring); a ``quant`` UNet
+    runs after :func:`quantize_unet_`. Faster-Diffusion encoder reuse and
     ``num_class_embeds`` are not ported yet and raise."""
 
     def __init__(self, in_channels: int = 4, out_channels: int = 4,
@@ -212,10 +317,12 @@ class UNetSDXL(nn.Module):
                  context_dim: int = 2048, head_dim: int = 64,
                  addition_time_embed_dim: int = 256, pooled_proj_dim: int = 2816,
                  text_time: bool = True, num_class_embeds: Optional[int] = None,
-                 quant: bool = False, ln_gemm="geglu", dtype=torch.float32, device=None):
+                 quant: bool = False, ln_gemm="geglu", fused_ln: bool = False,
+                 fused_gn: bool = False, dtype=torch.float32, device=None):
         super().__init__()
-        if num_class_embeds is not None or quant:
-            raise NotImplementedError("num_class_embeds and quant are not ported yet")
+        if num_class_embeds is not None:
+            raise NotImplementedError("num_class_embeds is not ported yet")
+        self.quant, self.fused_gn = quant, fused_gn
         self.in_channels = in_channels
         self.block_channels = tuple(block_channels)
         self.layers_per_block = layers_per_block
@@ -236,26 +343,30 @@ class UNetSDXL(nn.Module):
         def attn(name, ch, depth):
             if depth:
                 self.add_module(name, SpatialTransformer(
-                    ch, ch // head_dim, depth, context_dim, dtype, ln_gemm, device))
+                    ch, ch // head_dim, depth, context_dim, dtype, ln_gemm, device, quant,
+                    fused_ln, fused_gn))
+
+        def res(cin, cout):
+            return ResBlock(cin, cout, temb, dtype, device, fused_gn)
 
         cur, skips = ch0, [ch0]
         n = len(self.block_channels)
         for lvl, ch in enumerate(self.block_channels):
             for i in range(layers_per_block):
-                self.add_module(f"down{lvl}_res{i}", ResBlock(cur, ch, temb, **kw))
+                self.add_module(f"down{lvl}_res{i}", res(cur, ch))
                 attn(f"down{lvl}_attn{i}", ch, self.transformer_depths[lvl])
                 cur = ch
                 skips.append(ch)
             if lvl < n - 1:
                 self.add_module(f"down{lvl}_ds", Downsample(ch, **kw))
                 skips.append(ch)
-        self.mid_res0 = ResBlock(cur, cur, temb, **kw)
+        self.mid_res0 = res(cur, cur)
         attn("mid_attn", cur, self.transformer_depths[-1])
-        self.mid_res1 = ResBlock(cur, cur, temb, **kw)
+        self.mid_res1 = res(cur, cur)
         for lvl in reversed(range(n)):
             ch = self.block_channels[lvl]
             for i in range(layers_per_block + 1):
-                self.add_module(f"up{lvl}_res{i}", ResBlock(cur + skips.pop(), ch, temb, **kw))
+                self.add_module(f"up{lvl}_res{i}", res(cur + skips.pop(), ch))
                 attn(f"up{lvl}_attn{i}", ch, self.transformer_depths[lvl])
                 cur = ch
             if lvl > 0:
@@ -309,7 +420,7 @@ class UNetSDXL(nn.Module):
                 x = self._attn(f"up{lvl}_attn{i}", x, context)
             if lvl > 0:
                 x = getattr(self, f"up{lvl}_us")(x)
-        x = F.silu(self.norm_out(x))
+        x = _group_norm(x, self.norm_out, self.fused_gn, silu=True)
         return self.conv_out(x)
 
     @classmethod

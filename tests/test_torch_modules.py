@@ -98,7 +98,7 @@ def test_text_encoder_tiny():
 
 
 def test_constructor_rejects_unported_options():
-    for kw in ({"quant": True}, {"num_class_embeds": 1000}, {"ln_gemm": "all"}):
+    for kw in ({"num_class_embeds": 1000}, {"ln_gemm": "all"}):
         with pytest.raises((NotImplementedError, ValueError)):
             tunet.UNetSDXL.tiny(**kw)
 

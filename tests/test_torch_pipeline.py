@@ -100,7 +100,7 @@ def test_png_writer_round_trips_through_cv2(tmp_path):
 
 
 def test_unported_flags_exit():
-    for flag in (["--int8"], ["--encoder_reuse"], ["--data_parallel"], ["--stages", "XL", "x4"],
+    for flag in (["--encoder_reuse"], ["--data_parallel"], ["--stages", "XL", "x4"],
                  ["--stages", "I"]):
         with pytest.raises(SystemExit, match="not yet ported"):
             txt2img.main(flag + ["--tiny", "--device", "cpu"])
@@ -114,6 +114,7 @@ def _no_device_entry_points():
 
     return {
         "txt2img": lambda d: txt2img.main(["--tiny", "--prompt", "x", "--outdir", d]),
+        "txt2img_int8": lambda d: txt2img.main(["--tiny", "--int8", "--prompt", "x", "--outdir", d]),
         "corner_masks": lambda d: corner_masks.main(["--tiny", "--in_dir", d, "--out_dir", d]),
         "build_sam": lambda d: corner_masks.build_sam(
             corner_masks.build_argparser().parse_args(["--tiny", "--in_dir", d, "--out_dir", d])),
@@ -126,7 +127,7 @@ def _no_device_entry_points():
 
 
 @pytest.mark.skipif(torch.cuda.is_available(), reason="needs a machine without a card")
-@pytest.mark.parametrize("name", ["txt2img", "corner_masks", "build_sam", "ClipEncoder",
+@pytest.mark.parametrize("name", ["txt2img", "txt2img_int8", "corner_masks", "build_sam", "ClipEncoder",
                                   "extract_features", "train_entry", "dryrun_train"])
 def test_entry_points_do_not_fall_back_to_the_cpu(name, tmp_path):
     """An entry point that was not asked for the CPU raises when no card is

@@ -2,8 +2,14 @@
 """Device-time breakdown of the PyTorch port's instance chain and detector on one GPU.
 
 Runs from the root of a checkout:
-    python3 tools/profile_torch_chain.py [sam] [clip] [paste] [detector] [train]
-(no argument: all five targets).
+    python3 tools/profile_torch_chain.py [sdxl] [sam] [clip] [paste] [detector] [train]
+(no argument: all six targets).
+
+The ``sdxl`` target traces one CFG UNet call of SDXL-base at B = 2 (UNet
+batch 4), 1024², seeded weights, in bf16 and then in the int8 + fused-norm
+serving configuration (``UNetSDXL(quant, fused_ln, fused_gn)`` on the same
+weights, after ``quantize_unet_``, which it also traces alone), and prints
+the kernel launches of one call of each.
 
 Builds SAM ViT-H (bf16, fused encoder), the CLIP ViT-L/14 vision tower
 (float32), the compositor's benchmark batch, and the flagship detector
@@ -40,7 +46,9 @@ CALLS = 3
 TOP = 12
 
 
-def trace(name: str, fn) -> None:
+def trace(name: str, fn, also=()) -> None:
+    """Prints the wall and device time of ``fn`` and its largest device items,
+    and beyond those the items whose name holds one of the strings ``also``."""
     for _ in range(2):
         fn()
     torch.cuda.synchronize()
@@ -61,11 +69,45 @@ def trace(name: str, fn) -> None:
     print(f"{name}: wall {wall_ms:.3f} ms/call, device kernels {device_ms:.3f} ms/call "
           f"in {sum(r[2] for r in rows)} launches, "
           f"idle share {max(0.0, 1 - device_ms / wall_ms):.3f}", flush=True)
-    for key, ms, count in rows[:TOP]:
-        print(f"    {ms:9.3f} ms  x{count:<4d} {key[:110]}")
+    for i, (key, ms, count) in enumerate(rows):
+        if i < TOP or any(a in key for a in also):
+            print(f"    {ms:9.3f} ms  x{count:<4d} {key[:110]}")
 
 
-TARGETS = ("sam", "clip", "paste", "detector", "train")
+TARGETS = ("sdxl", "sam", "clip", "paste", "detector", "train")
+
+
+def profile_sdxl(dev, g) -> None:
+    from divergen_tpu_torch.modeling.layers import flax_init_
+    from divergen_tpu_torch.ops import flash_attention, group_norm, int8_matmul, layer_norm
+    from divergen_tpu_torch.ops import ln_matmul
+    from divergen_tpu_torch.pipeline.generation.unet import UNetSDXL, quantize_unet_
+
+    wrappers = (flash_attention.flash_attention_packed, ln_matmul.fused_ln_matmul,
+                int8_matmul.int8_matmul_fused_quant, int8_matmul.int8_matmul_pallas,
+                layer_norm.fused_layer_norm, group_norm.fused_group_norm)
+    bf16 = torch.bfloat16
+    unet = flax_init_(UNetSDXL(dtype=bf16, device=dev), torch.Generator(device=dev).manual_seed(0))
+    unet8 = UNetSDXL(dtype=bf16, device=dev, quant=True, fused_ln=True, fused_gn=True)
+    unet8.load_state_dict(unet.state_dict())
+    quantize_unet_(unet8)
+    args = (torch.randn((4, 128, 128, 4), generator=g, device=dev),
+            torch.full((4,), 500.0, device=dev),
+            torch.randn((4, 77, 2048), generator=g, device=dev),
+            torch.randn((4, 1280), generator=g, device=dev),
+            torch.tensor([1024.0, 1024, 0, 0, 1024, 1024], device=dev).expand(4, 6))
+    what = "B=2 images (UNet batch 4), 1024²"
+    with torch.inference_mode():
+        for name, model in (("bf16", unet), ("int8 + fused norms", unet8)):
+            before = [w.launches for w in wrappers]
+            model(*args)
+            counts = {w.__name__: w.launches - b for w, b in zip(wrappers, before)}
+            print(f"UNet call ({name}): kernel launches {counts}", flush=True)
+            trace(f"UNet call, {name}, {what}", lambda: model(*args),
+                  also=("int8_gemm", "gn_moments", "gn_finalize", "gn_apply", "ln_vec",
+                        "ln_any"))
+        trace("quantize_unet_ (the transformer weights of SDXL-base, once per denoise call)",
+              lambda: quantize_unet_(unet8))
 
 
 def profile_sam(dev, g) -> None:
@@ -200,7 +242,7 @@ def main(argv=None) -> int:
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(0)
-    run = {"sam": profile_sam, "clip": profile_clip, "paste": profile_paste,
+    run = {"sdxl": profile_sdxl, "sam": profile_sam, "clip": profile_clip, "paste": profile_paste,
            "detector": profile_detector, "train": profile_train}
     for target in targets:
         run[target](dev, g)
