@@ -10,7 +10,8 @@ Run from the root of a checkout:  python3 chip_smoke.py
    fused_window_attention_packed, fused_window_attention, and the backward
    kernels of the last two) against its
    plain torch version on the same bf16 inputs (plain version in float32),
-   at the shapes of the SDXL, SAM and Swin-L slices plus ragged cases;
+   at the shapes of the SDXL, SAM and Swin-L slices plus ragged cases
+   (flash_attention_packed also on float32 qkv);
    flash_attention_relpos first on heads-first views of a fused qkv
    projection, as the ViT's attention calls it, then on (BH, N, D); the
    packed window attention at the four Swin-L stage shapes of B = 2 at 896²
@@ -39,9 +40,15 @@ Run from the root of a checkout:  python3 chip_smoke.py
    (M = 4 x 77), each with a ragged case, against their plain versions'
    bf16 results (relative L2 <= 1e-3; the count of differing elements is
    printed); fused_group_norm and fused_layer_norm at the UNet's shapes and
-   ragged ones (the usual bounds); every one the same bits twice; yardsticks
-   ``torch._int_mm`` (and the bf16 matmul it replaces), ``F.group_norm`` and
-   ``F.layer_norm``; bounds at 1979 TOPS int8 or 67 TFLOP/s f32.
+   ragged ones (the usual bounds); each of the four also with float32 x and
+   output (GroupNorm at C = 7680); then fused_gn_silu_conv3x3 at the fused
+   ResBlock's level-0 (4, 128, 128, 320) -> 320 and level-2 (4, 32, 32, 2560)
+   -> 1280, ragged (C = 48, and C = 36 to Co = 21) and float32 x against its
+   twin in float32 (the usual bounds); every one the same bits twice;
+   yardsticks ``torch._int_mm`` (and the bf16 matmul it replaces),
+   ``F.group_norm``, ``F.layer_norm`` and ``F.group_norm`` + ``F.silu`` +
+   ``F.conv2d``; bounds at 1979 TOPS int8, 67 TFLOP/s f32 or 989 TFLOP/s
+   bf16.
 4. Small models: a narrow UNet (d = 64 self-attention, GEGLU), a VAE decoder
    with a d = 512 mid attention, and a narrow SAM whose global layer runs the
    relative-position kernel at d = 80, bf16 on the card through the kernels,
@@ -54,7 +61,11 @@ Run from the root of a checkout:  python3 chip_smoke.py
    updates of eight named parameters. The narrow UNet also with ``quant``,
    ``fused_ln`` and ``fused_gn`` against its float32 CPU copy with the same
    flags (mean |diff| / mean |ref| < 0.1), and with the fused norms alone
-   against the plain norms on the card (relative L2 <= 3e-2).
+   against the plain norms on the card (relative L2 <= 3e-2); with
+   ``conv_matmul="fused"`` in bf16 against the float32 CPU default path
+   (relative L2 <= 3e-2); and a float32 ``UNetSDXL(quant, fused_ln, fused_gn,
+   conv_matmul="fused")`` on the card, kernels 7 to 11 in float32, against its
+   float32 CPU copy (mean |diff| / mean |ref| < 0.1).
 5. Slice at full SDXL width, launch counters reset just before it:
    (a) the port's ``txt2img.main`` writing two 1024² PNGs;
    (b) ``SDXLTextEncoder.random(tiny=False)`` → ``SDXLPipeline.generate``,
@@ -85,6 +96,17 @@ Run from the root of a checkout:  python3 chip_smoke.py
    launches per UNet call, fused_ln_matmul 0, flash_attention once per
    decoded image. Then a CFG step of the bf16 and of this pipeline in turns
    (medians of 3) and ``quantize_unet_`` alone.
+6c. Slice of SDXL with fused ResBlocks at full width, launch counters reset
+   just before it: ``SDXLPipeline`` over ``UNetSDXL(conv_matmul="fused")``
+   with the weights, VAE, conditioning and initial noise of 5(b): images
+   finite in [0, 255], their mean |diff| from 5(b)'s printed, exactly 34
+   fused_gn_silu_conv3x3 / 0 fused_group_norm / 70 flash_attention_packed /
+   70 fused_ln_matmul launches per UNet call, flash_attention once per
+   decoded image. Then one UNet call, batch 4, of ``UNetSDXL(quant,
+   fused_ln, fused_gn, conv_matmul="fused")`` after ``quantize_unet_``:
+   exactly 382 / 130 / 210 / 12 / 34 launches of kernels 11 / 10 / 9 / 7 / 8.
+   Then a CFG step of the bf16 and of the fused-ResBlock pipeline in turns
+   (medians of 3).
 7. Slice of the detector's train step, launch counters reset just before it:
    ``graft_entry.dryrun_train()`` (one checked step of the small detector),
    then ``graft_entry.flagship_train_entry()``: Swin-L, 1453 classes, 896²,
@@ -105,8 +127,9 @@ Run from the root of a checkout:  python3 chip_smoke.py
        its three parts (medians of 3) and counts the host syncs of NMS.
    fused_window_attention is on no slice's path (the packed kernels take any
    head count): phase 3 holds its forward and backward, and its counts stay 0.
-9. Prints the kernels' JSON line, the card line, and as the last line
-   {"ok": true, "device": {...}}. Any failed phase raises: exit code != 0.
+9. Prints the kernels' JSON line (all 12 kernels), the card line, and as the
+   last line {"ok": true, "device": {...}}. Any failed phase raises: exit
+   code != 0.
 """
 from __future__ import annotations
 
@@ -233,11 +256,18 @@ def kernel_phases(gen: torch.Generator):
         results[kernel]["max_abs_err"] = max(results[kernel]["max_abs_err"], err)
 
     log("kernel phase: flash_attention_packed")
-    for b, n, c, h in ((2, 4096, 640, 10), (2, 1024, 1280, 20), (1, 1000, 640, 10)):
-        qkv = randn(b, n, 3 * c)
+    # the last case in float32 (a float32 UNet's self-attention: q, k, v
+    # rounded to bf16 on load, float32 out)
+    for b, n, c, h, dtype in ((2, 4096, 640, 10, torch.bfloat16),
+                              (2, 1024, 1280, 20, torch.bfloat16),
+                              (1, 1000, 640, 10, torch.bfloat16),
+                              (1, 1000, 640, 10, torch.float32)):
+        qkv = randn(b, n, 3 * c, dtype=dtype)
         got = fa_mod.flash_attention_packed(qkv, h, softmax_mode="rawmax")
+        if got.dtype != dtype:
+            raise AssertionError(f"packed attention wrote {got.dtype} for {dtype} qkv")
         ref = fa_mod.reference_attention_packed(qkv.float(), h)
-        err = compare(f"packed B={b} N={n} C={c} H={h}", got, ref)
+        err = compare(f"packed B={b} N={n} C={c} H={h} {str(dtype)[6:]}", got, ref)
         ms, pms, span = time_pair(lambda: fa_mod.flash_attention_packed(qkv, h, "rawmax"),
                             lambda: fa_mod.reference_attention_packed(qkv.float(), h))
         q4, k4, v4 = (t.reshape(b, n, h, c // h).transpose(1, 2).contiguous()
@@ -544,11 +574,17 @@ def serving_kernel_phases(gen: torch.Generator):
     elements that differ at all is printed (expected 0); the relative L2 to
     the plain version's unrounded float32 result is printed too (bf16
     rounding, about 1.6e-3). Norms (fused_group_norm, fused_layer_norm): the
-    usual bounds against the float32 plain version. Every kernel: the same
-    call twice gives the same bits. Yardsticks, never called by the port:
-    ``torch._int_mm`` on the int8 operands (int32 product only) beside the
-    bf16 ``torch.matmul`` the int8 path replaces; ``F.group_norm`` (+
-    ``F.silu``) on the NCHW view and ``F.layer_norm``, in bf16."""
+    usual bounds against the float32 plain version. Each of these four also
+    with float32 x and output, the float32 UNet's path. The fused GroupNorm
+    + SiLU + 3x3 conv (fused_gn_silu_conv3x3) at the fused ResBlock's level-0
+    and level-2 shapes, ragged ones and float32 x, the usual bounds against
+    its twin in float32. Every kernel: the same call twice gives the same
+    bits. Yardsticks, never called by the port: ``torch._int_mm`` on the int8
+    operands (int32 product only) beside the bf16 ``torch.matmul`` the int8
+    path replaces; ``F.group_norm`` (+ ``F.silu``) on the NCHW view,
+    ``F.layer_norm``, and ``F.group_norm`` + ``F.silu`` + ``F.conv2d``, in
+    bf16."""
+    import divergen_tpu_torch.ops.gn_conv as gc_mod
     import divergen_tpu_torch.ops.group_norm as gn_mod
     import divergen_tpu_torch.ops.int8_matmul as i8_mod
     import divergen_tpu_torch.ops.layer_norm as ln_mod
@@ -583,27 +619,30 @@ def serving_kernel_phases(gen: torch.Generator):
                                "bound_ms": b_ms, "bound_by": by, "library_ms": lib_ms}
         results[kernel]["max_abs_err"] = max(results[kernel]["max_abs_err"], err)
 
-    def int8_case(kernel, m, k, n):
-        x = randn(m, k)
+    def int8_case(kernel, m, k, n, dtype=torch.bfloat16):
+        """``dtype``: x's (fused quant) and the output's; float32 is the
+        float32 UNet's path."""
+        x = randn(m, k, dtype=dtype)
         w = randn(n, k, scale=k ** -0.5, dtype=torch.float32)  # an nn.Linear weight
         w_q, w_s = quantize_weight(w.t())
         w_q = w_q.t().contiguous().t()  # (K, N) view of an (N, K) buffer, as the UNet holds it
         x_q, x_s = quantize_act(x)
+        size = x.element_size()
         if kernel == "int8_matmul_fused_quant":
-            run = lambda: i8_mod.int8_matmul_fused_quant(x, w_q, w_s)
+            run = lambda: i8_mod.int8_matmul_fused_quant(x, w_q, w_s, out_dtype=dtype)
             plain = lambda dt: i8_mod.int8_matmul_fused_quant_reference(x, w_q, w_s, dt)
-            nbytes = 2.0 * m * k + k * n + 4.0 * n + 2.0 * m * n
+            nbytes = size * m * k + k * n + 4.0 * n + size * m * n
         else:
-            run = lambda: i8_mod.int8_matmul_pallas(x_q, x_s, w_q, w_s)
+            run = lambda: i8_mod.int8_matmul_pallas(x_q, x_s, w_q, w_s, out_dtype=dtype)
             plain = lambda dt: i8_mod.int8_matmul_pallas_reference(x_q, x_s, w_q, w_s, dt)
-            nbytes = 1.0 * m * k + 4.0 * m + k * n + 4.0 * n + 2.0 * m * n
+            nbytes = 1.0 * m * k + 4.0 * m + k * n + 4.0 * n + size * m * n
         got = run()
-        ref = plain(torch.bfloat16)
-        name = f"{kernel} M={m} K={k} N={n}"
+        ref = plain(dtype)
+        name = f"{kernel} M={m} K={k} N={n} {str(dtype)[6:]}"
         err = compare(name, got, ref, rel_l2_bound=1e-3)
         ref32 = plain(torch.float32)
         rel32 = ((got.float() - ref32).norm() / ref32.norm()).item()
-        log(f"    elements that differ from the plain version's bf16 result: "
+        log(f"    elements that differ from the plain version's {str(dtype)[6:]} result: "
             f"{int((got != ref).sum())} of {got.numel()}; rel_l2 to its float32 result "
             f"{rel32:.3g}")
         del ref, ref32
@@ -618,25 +657,36 @@ def serving_kernel_phases(gen: torch.Generator):
     # batch 4), then a ragged case: M, N and K off every tile, N odd
     for m, k, n in ((4096, 1280, 10240), (16384, 640, 1920), (1000, 656, 1001)):
         int8_case("int8_matmul_fused_quant", m, k, n)
+    # float32 x and output (the float32 UNet): level-1 attn1_qkv at B = 1, ragged
+    for m, k, n in ((4096, 640, 1920), (1000, 656, 1001)):
+        int8_case("int8_matmul_fused_quant", m, k, n, torch.float32)
     log("kernel phase: int8_matmul_pallas")
     # level-2 ff_out (K 5120, over the fused kernel's limit) and the level-2
     # cross-attention attn2_kv over the 77 text tokens (M = 4 x 77), which the
     # JAX package leaves to XLA; then a tiny ragged case
     for m, k, n in ((4096, 5120, 1280), (308, 2048, 2560), (77, 48, 3)):
         int8_case("int8_matmul_pallas", m, k, n)
+    for m, k, n in ((308, 2048, 2560), (77, 48, 3)):  # float32 output
+        int8_case("int8_matmul_pallas", m, k, n, torch.float32)
 
     log("kernel phase: fused_group_norm")
     # ResBlock norm at level 0 (with SiLU), a level-2 transformer norm
-    # (without), then ragged: W = 7, and C = 36 (not a multiple of 8; 4 groups)
-    for (b, h, w, c), silu in (((4, 128, 128, 320), True), ((4, 32, 32, 1280), False),
-                               ((2, 5, 7, 96), True), ((2, 9, 11, 36), True)):
-        x = randn(b, h, w, c, scale=2.0) + 0.5
+    # (without), then ragged: W = 7, and C = 36 (not a multiple of 8; 4 groups);
+    # float32 x: C = 7680 (over the 6144 that the group combine once held in
+    # shared memory) and C = 36
+    for (b, h, w, c), silu, dtype in (((4, 128, 128, 320), True, torch.bfloat16),
+                                      ((4, 32, 32, 1280), False, torch.bfloat16),
+                                      ((2, 5, 7, 96), True, torch.bfloat16),
+                                      ((2, 9, 11, 36), True, torch.bfloat16),
+                                      ((2, 16, 16, 7680), True, torch.float32),
+                                      ((2, 9, 11, 36), False, torch.float32)):
+        x = randn(b, h, w, c, scale=2.0, dtype=dtype) + 0.5
         scale = 1.0 + 0.1 * torch.randn(c, generator=gen, device=dev)
         bias = 0.1 * torch.randn(c, generator=gen, device=dev)
         groups = math.gcd(32, c)
         run = lambda: gn_mod.fused_group_norm(x, scale, bias, 32, 1e-6, silu)
         plain = lambda: gn_mod.group_norm_reference(x.float(), scale, bias, groups, 1e-6, silu)
-        name = f"group_norm B={b} H={h} W={w} C={c} silu={silu}"
+        name = f"group_norm B={b} H={h} W={w} C={c} silu={silu} {str(dtype)[6:]}"
         got = run()
         err = compare(name, got, plain())
         same_bits(name, got, run)
@@ -653,13 +703,16 @@ def serving_kernel_phases(gen: torch.Generator):
     log("kernel phase: fused_layer_norm")
     # the UNet's transformer LayerNorms (rows of 4096 x 1280 and 16384 x 640),
     # then C not a multiple of 128 (1000) and C not a multiple of 8 (333)
-    for rows, c in ((4096, 1280), (16384, 640), (4096, 1000), (777, 333)):
-        x = randn(rows, c, scale=3.0) + 1.0
+    # float32 x: the vector path (1280) and the any-C path (333)
+    for rows, c, dtype in ((4096, 1280, torch.bfloat16), (16384, 640, torch.bfloat16),
+                           (4096, 1000, torch.bfloat16), (777, 333, torch.bfloat16),
+                           (4096, 1280, torch.float32), (777, 333, torch.float32)):
+        x = randn(rows, c, scale=3.0, dtype=dtype) + 1.0
         gamma = 1.0 + 0.1 * torch.randn(c, generator=gen, device=dev)
         beta = 0.1 * torch.randn(c, generator=gen, device=dev)
         run = lambda: ln_mod.fused_layer_norm(x, gamma, beta, 1e-5)
         plain = lambda: ln_mod.layer_norm_reference(x.float(), gamma, beta, 1e-5)
-        name = f"layer_norm rows={rows} C={c}"
+        name = f"layer_norm rows={rows} C={c} {str(dtype)[6:]}"
         got = run()
         err = compare(name, got, plain())
         same_bits(name, got, run)
@@ -667,6 +720,46 @@ def serving_kernel_phases(gen: torch.Generator):
         record("fused_layer_norm", err, run, plain,
                lambda: F.layer_norm(x, (c,), g16, b16, 1e-5), 8.0 * x.numel(),
                4.0 * x.numel() + 8.0 * c, PEAK_F32_FLOPS)
+
+    log("kernel phase: fused_gn_silu_conv3x3")
+    # the fused ResBlock's norm -> SiLU -> conv at level 0 (C 320) and at
+    # level 2's widest input (the up path's concatenation, C 2560 -> 1280);
+    # ragged: C = 48 (24 groups, not gcd's 16) on a 12 x 20 map, C = 36 (not a
+    # multiple of 8: the masked element path, 18 groups) to an odd Co; float32
+    # x. Plain: the twin on the same inputs in float32 (bf16 y and weight, an
+    # f32 conv, TF32 off). Yardstick: F.group_norm + F.silu + F.conv2d in bf16
+    # on channels-last views, what the port's default ResBlock runs.
+    for (b, h, w, c), co, dtype in (((4, 128, 128, 320), 320, torch.bfloat16),
+                                    ((4, 32, 32, 2560), 1280, torch.bfloat16),
+                                    ((1, 12, 20, 48), 16, torch.bfloat16),
+                                    ((2, 9, 11, 36), 21, torch.bfloat16),
+                                    ((2, 32, 32, 640), 320, torch.float32)):
+        x = randn(b, h, w, c, scale=2.0, dtype=dtype) + 0.5
+        scale = 1.0 + 0.1 * torch.randn(c, generator=gen, device=dev)
+        gbias = 0.1 * torch.randn(c, generator=gen, device=dev)
+        weight = randn(co, c, 3, 3, scale=(9 * c) ** -0.5)  # a bf16 UNet's Conv weight
+        cbias = randn(co, scale=0.1)
+        run = lambda: gc_mod.fused_gn_silu_conv3x3(x, scale, gbias, weight, cbias)
+        plain = lambda: gc_mod.fused_gn_silu_conv3x3_reference(x.float(), scale, gbias, weight,
+                                                               cbias)
+        name = f"gn_silu_conv3x3 B={b} H={h} W={w} C={c} -> {co} {str(dtype)[6:]}"
+        got = run()
+        err = compare(name, got, plain())
+        same_bits(name, got, run)
+        groups = gc_mod.group_count(c)
+        nchw = x.permute(0, 3, 1, 2).bfloat16()  # channels-last memory
+        s16, b16 = scale.bfloat16(), gbias.bfloat16()
+        w16 = weight.contiguous(memory_format=torch.channels_last)
+
+        def library():
+            y = F.silu(F.group_norm(nchw, groups, s16, b16, 1e-6))
+            return F.conv2d(y, w16, cbias, padding=1)
+
+        m_pix = b * h * w
+        record("fused_gn_silu_conv3x3", err, run, plain, library, 2.0 * m_pix * 9 * c * co,
+               x.element_size() * m_pix * (c + co) + 2.0 * co * 9 * c + 4.0 * (2 * c + co),
+               PEAK_BF16_FLOPS)
+        torch.cuda.empty_cache()
     return results
 
 
@@ -743,9 +836,21 @@ def small_serving_unets():
     the plain ``GroupNorm32`` / ``LayerNorm`` UNet on the card, both bf16:
     relative L2 <= 3e-2, the whole-network bound of ``small_models`` (each
     norm rounds to bf16 a rounding apart from its plain twin, and every later
-    layer rounds again: 1.3e-2 measured on an H100)."""
+    layer rounds again: 1.3e-2 measured on an H100). (3) ``conv_matmul=
+    "fused"`` in bf16 on the card, every ResBlock through
+    fused_gn_silu_conv3x3, against the same weights in float32 on the CPU on
+    the default path: relative L2 <= 3e-2, as in ``small_models``. (4) A
+    float32 ``UNetSDXL(quant, fused_ln, fused_gn, conv_matmul="fused")`` on
+    the card, so kernels 7 to 11 and the packed attention read and write
+    float32, against its float32 CPU copy with the same flags under the bound
+    of (1); each of the six kernels must have launched."""
     from divergen_tpu_torch.modeling.layers import flax_init_
-    from divergen_tpu_torch.pipeline.generation.unet import UNetSDXL, quantize_unet_
+    from divergen_tpu_torch.ops.flash_attention import flash_attention_packed
+    from divergen_tpu_torch.ops.gn_conv import fused_gn_silu_conv3x3
+    from divergen_tpu_torch.ops.group_norm import fused_group_norm
+    from divergen_tpu_torch.ops.int8_matmul import int8_matmul_fused_quant, int8_matmul_pallas
+    from divergen_tpu_torch.ops.layer_norm import fused_layer_norm
+    from divergen_tpu_torch.pipeline.generation.unet import ResBlock, UNetSDXL, quantize_unet_
 
     dev = torch.device("cuda")
     g = torch.Generator().manual_seed(17)
@@ -763,14 +868,18 @@ def small_serving_unets():
     with torch.inference_mode():
         got = unet(lat.to(dev), t.to(dev), ctx.to(dev)).cpu()
         ref = ref_unet(lat, t, ctx)
-    if not torch.isfinite(got).all():
-        raise AssertionError("small int8 UNet: non-finite output")
-    rel = ((got - ref).abs().mean() / ref.abs().mean()).item()
-    ok = rel < 0.1
-    log(f"  small UNet (quant + fused_ln + fused_gn) vs f32 CPU with the same flags: mean |diff| "
-        f"/ mean |ref| {rel:.5f} [{'ok' if ok else 'FAIL'}]")
-    if not ok:
-        raise AssertionError("small int8 UNet: disagrees with its f32 CPU copy")
+
+    def int8_bound(what, got, ref):
+        if not torch.isfinite(got).all():
+            raise AssertionError(f"{what}: non-finite output")
+        rel = ((got - ref).abs().mean() / ref.abs().mean()).item()
+        ok = rel < 0.1
+        log(f"  {what} vs f32 CPU with the same flags: mean |diff| / mean |ref| {rel:.5f} "
+            f"[{'ok' if ok else 'FAIL'}]")
+        if not ok:
+            raise AssertionError(f"{what}: disagrees with its f32 CPU copy")
+
+    int8_bound("small UNet (quant + fused_ln + fused_gn)", got, ref)
 
     fused = UNetSDXL(dtype=torch.bfloat16, device=dev, fused_ln=True, fused_gn=True, **kw).eval()
     plain = UNetSDXL(dtype=torch.bfloat16, device=dev, **kw).eval()
@@ -780,6 +889,45 @@ def small_serving_unets():
         x, tt, cc = lat.to(dev), t.to(dev), ctx.to(dev)
         compare("small UNet fused_ln + fused_gn vs plain GroupNorm32 / LayerNorm (bf16, card)",
                 fused(x, tt, cc), plain(x, tt, cc), rel_l2_bound=3e-2)
+    del fused, plain
+
+    state = ref_unet.state_dict()
+    float_cpu = UNetSDXL(**kw).eval()
+    float_cpu.load_state_dict(state)
+    fused_rb = UNetSDXL(dtype=torch.bfloat16, device=dev, conv_matmul="fused", **kw).eval()
+    fused_rb.load_state_dict(state)
+    before = fused_gn_silu_conv3x3.launches
+    with torch.inference_mode():
+        got = fused_rb(x, tt, cc).cpu()
+        ref = float_cpu(lat, t, ctx)
+    want = 2 * sum(isinstance(m, ResBlock) for m in fused_rb.modules())  # two convs each
+    if fused_gn_silu_conv3x3.launches - before != want:
+        raise AssertionError(f"small fused-ResBlock UNet: expected {want} fused_gn_silu_conv3x3 "
+                             f"launches, got {fused_gn_silu_conv3x3.launches - before}")
+    compare('small UNet conv_matmul="fused" (bf16, card) vs f32 CPU default path', got, ref,
+            rel_l2_bound=3e-2)
+
+    every = dict(serving, conv_matmul="fused")
+    ref_all = UNetSDXL(**kw, **every).eval()
+    unet32 = UNetSDXL(dtype=torch.float32, device=dev, **kw, **every).eval()
+    ref_all.load_state_dict(state)
+    unet32.load_state_dict(state)
+    quantize_unet_(ref_all)
+    quantize_unet_(unet32)
+    wrappers = (int8_matmul_fused_quant, int8_matmul_pallas, fused_layer_norm, fused_group_norm,
+                fused_gn_silu_conv3x3, flash_attention_packed)
+    before = [w.launches for w in wrappers]
+    with torch.inference_mode():
+        got = unet32(x, tt, cc)
+        ran = {w.__name__: w.launches - b0 for w, b0 in zip(wrappers, before)}
+        if got.dtype != torch.float32:
+            raise AssertionError(f"float32 UNet wrote {got.dtype}")
+        ref = ref_all(lat, t, ctx)
+    log(f"    float32 UNet's kernel launches: {ran}")
+    if not all(ran.values()):
+        raise AssertionError(f"float32 UNet: a kernel did not launch: {ran}")
+    int8_bound('small float32 UNet (quant + fused_ln + fused_gn + conv_matmul="fused", card)',
+               got.cpu(), ref)
 
 
 NARROW_SWIN = (32, (2, 2, 2, 1), (1, 2, 4, 8), 7, 0.0)  # embed, depths, heads (d = 32), window
@@ -983,6 +1131,31 @@ def slice_serving_pipeline(pipe, cond, bf16_images):
     return pipe8
 
 
+def wall_s(fn) -> float:
+    """Seconds of ``fn`` on the host's clock, between two synchronizations."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0
+
+
+def denoise_in_turns(pipe, other, cond):
+    """Three denoise runs of STEPS steps of each pipeline from the same
+    latents, in turns (pipe, other, other, pipe, pipe, other): two lists of
+    seconds."""
+    ctx, unc, pooled, unc_pooled = cond
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    lat0 = torch.randn((2, 128, 128, 4), generator=gen, device="cuda") * pipe._init_scale
+    time_ids = torch.tensor([1024.0, 1024, 0, 0, 1024, 1024], device="cuda").expand(2, 6)
+    times = {pipe: [], other: []}
+    for order in ((pipe, other), (other, pipe), (pipe, other)):
+        for p in order:
+            times[p].append(wall_s(lambda: p.denoise(lat0, ctx, unc, pooled, unc_pooled,
+                                                     time_ids)))
+    return times[pipe], times[other]
+
+
 def serving_timings(pipe, pipe8, cond, card: str):
     """One CFG step of the bf16 and of the int8 + fused-norm pipeline, in turns
     (bf16, int8, int8, bf16, ...), medians of 3 denoise runs of STEPS steps;
@@ -990,25 +1163,8 @@ def serving_timings(pipe, pipe8, cond, card: str):
     too."""
     from divergen_tpu_torch.pipeline.generation.unet import quantize_unet_
 
-    ctx, unc, pooled, unc_pooled = cond
-
-    def wall(fn):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        return time.perf_counter() - t0
-
-    gen = torch.Generator(device="cuda").manual_seed(1)
-    lat0 = torch.randn((2, 128, 128, 4), generator=gen, device="cuda") * pipe._init_scale
-    time_ids = torch.tensor([1024.0, 1024, 0, 0, 1024, 1024], device="cuda").expand(2, 6)
-    run = {p: (lambda p=p: p.denoise(lat0, ctx, unc, pooled, unc_pooled, time_ids))
-           for p in (pipe, pipe8)}
-    times = {pipe: [], pipe8: []}
-    for order in ((pipe, pipe8), (pipe8, pipe), (pipe, pipe8)):
-        for p in order:
-            times[p].append(wall(run[p]))
-    quant_s = statistics.median(wall(lambda: quantize_unet_(pipe8.unet)) for _ in range(3))
+    times = dict(zip((pipe, pipe8), denoise_in_turns(pipe, pipe8, cond)))
+    quant_s = statistics.median(wall_s(lambda: quantize_unet_(pipe8.unet)) for _ in range(3))
     bf16_ms = 1000 * statistics.median(times[pipe]) / STEPS
     int8_ms = 1000 * statistics.median(times[pipe8]) / STEPS
     log(f"  CFG denoise step (B=2 images, UNet batch 4, 1024²): bf16 {bf16_ms:.1f} ms/step; "
@@ -1019,6 +1175,91 @@ def serving_timings(pipe, pipe8, cond, card: str):
         + ", ".join(f"{1000 * s / STEPS:.1f}" for s in times[pipe]) + "; int8 "
         + ", ".join(f"{1000 * s / STEPS:.1f}" for s in times[pipe8])
         + f"; {torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
+
+
+# Launches per UNet call of UNetSDXL(conv_matmul="fused") at SDXL-base widths:
+# two fused_gn_silu_conv3x3 in each of the 17 ResBlocks; no fused_group_norm
+# (fused_gn is off, and the fused ResBlocks would ignore it); the 70
+# transformer blocks' packed self-attention and norm3 -> GEGLU as on the
+# default path.
+FUSED_RESBLOCK_LAUNCHES = {"fused_gn_silu_conv3x3": 34, "fused_group_norm": 0,
+                           "flash_attention_packed": 70, "fused_ln_matmul": 70}
+# ... of UNetSDXL(quant, fused_ln, fused_gn, conv_matmul="fused"): the
+# SERVING_LAUNCHES with the 34 ResBlock norms moved into kernel 8
+EVERY_OPTION_LAUNCHES = {"int8_matmul_fused_quant": 382, "int8_matmul_pallas": 130,
+                         "fused_layer_norm": 210, "fused_group_norm": 12,
+                         "fused_gn_silu_conv3x3": 34}
+
+
+def slice_fused_resblocks(pipe, cond, bf16_images):
+    """``SDXLPipeline`` over ``UNetSDXL(conv_matmul="fused")`` with the bf16
+    pipeline's weights, VAE, conditioning and initial noise (seed 42), B = 2,
+    1024², DPM-Solver++ 2M. Returns the pipeline."""
+    from divergen_tpu_torch.pipeline.generation.pipeline import SDXLPipeline
+    from divergen_tpu_torch.pipeline.generation.unet import UNetSDXL
+
+    dev = torch.device("cuda")
+    ctx, unc, pooled, unc_pooled = cond
+    unet = UNetSDXL(dtype=torch.bfloat16, device=dev, conv_matmul="fused")
+    unet.load_state_dict(pipe.unet.state_dict())
+    pipe_f = SDXLPipeline(unet, pipe.vae, steps=STEPS, sampler="dpmpp_2m")
+    gen = torch.Generator(device=dev).manual_seed(42)
+    imgs = pipe_f.generate(gen, ctx, unc, pooled, unc_pooled, 1024, 1024)
+    torch.cuda.synchronize()
+    if tuple(imgs.shape) != (2, 1024, 1024, 3):
+        raise AssertionError(f"fused-ResBlock images {tuple(imgs.shape)}")
+    if not torch.isfinite(imgs).all() or imgs.min() < 0 or imgs.max() > 255:
+        raise AssertionError("fused-ResBlock images not finite in [0, 255]")
+    diff = (imgs - bf16_images).abs().mean().item()
+    log(f'  SDXLPipeline over UNetSDXL(conv_matmul="fused"): images (2, 1024, 1024, 3), finite, '
+        f"range [{imgs.min().item():.1f}, {imgs.max().item():.1f}]; mean |diff| from the bf16 "
+        f"pipeline's images on the same weights and noise {diff:.3f} of 255 (a smoke number)")
+    return pipe_f
+
+
+def every_option_unet_call(pipe, cond, wrappers):
+    """One UNet call, batch 4 (the CFG batch of B = 2 at 1024²), of
+    ``UNetSDXL(quant, fused_ln, fused_gn, conv_matmul="fused")`` on the bf16
+    pipeline's weights after ``quantize_unet_``; the output finite, and the
+    launches of every kernel of ``EVERY_OPTION_LAUNCHES`` exact."""
+    from divergen_tpu_torch.pipeline.generation.unet import UNetSDXL, quantize_unet_
+
+    dev = torch.device("cuda")
+    ctx, unc, pooled, unc_pooled = cond
+    unet = UNetSDXL(dtype=torch.bfloat16, device=dev, quant=True, fused_ln=True, fused_gn=True,
+                    conv_matmul="fused")
+    unet.load_state_dict(pipe.unet.state_dict())
+    quantize_unet_(unet)
+    gen = torch.Generator(device=dev).manual_seed(5)
+    args = (torch.randn((4, 128, 128, 4), generator=gen, device=dev),
+            torch.full((4,), 500.0, device=dev), torch.cat([unc, ctx]),
+            torch.cat([unc_pooled, pooled]),
+            torch.tensor([1024.0, 1024, 0, 0, 1024, 1024], device=dev).expand(4, 6))
+    before = {w.__name__: w.launches for w in wrappers}
+    with torch.inference_mode():
+        out = unet(*args)
+    torch.cuda.synchronize()
+    counts = {w.__name__: w.launches - before[w.__name__] for w in wrappers}
+    if tuple(out.shape) != (4, 128, 128, 4) or not torch.isfinite(out).all():
+        raise AssertionError("every-option UNet: output not finite (4, 128, 128, 4)")
+    wrong = {k: (counts[k], n) for k, n in EVERY_OPTION_LAUNCHES.items() if counts[k] != n}
+    if wrong:
+        raise AssertionError(f"every-option UNet call: launches (got, expected) {wrong}")
+    log(f'  one UNet call of UNetSDXL(quant, fused_ln, fused_gn, conv_matmul="fused"), batch 4: '
+        f"output finite, launches as expected: { {k: counts[k] for k in EVERY_OPTION_LAUNCHES} }")
+    return counts
+
+
+def fused_timings(pipe, pipe_f, cond, card: str):
+    """One CFG step of the bf16 and of the fused-ResBlock pipeline in turns,
+    medians of 3 denoise runs of STEPS steps each."""
+    t_bf16, t_fused = denoise_in_turns(pipe, pipe_f, cond)
+    bf16_ms = 1000 * statistics.median(t_bf16) / STEPS
+    fused_ms = 1000 * statistics.median(t_fused) / STEPS
+    log(f"  CFG denoise step (B=2 images, UNet batch 4, 1024²): bf16 {bf16_ms:.1f} ms/step; "
+        f'conv_matmul="fused" {fused_ms:.1f} ms/step; median of 3 runs each, in turns [{card}]')
+    log("    every run, ms/step: bf16 " + ", ".join(f"{1000 * s / STEPS:.1f}" for s in t_bf16)
+        + '; fused ' + ", ".join(f"{1000 * s / STEPS:.1f}" for s in t_fused))
 
 
 SAM_KERNEL_LAUNCHES = {"flash_attention_relpos": 4, "fused_ln_matmul": 36}  # per forward
@@ -1463,6 +1704,7 @@ def main() -> int:
         flash_attention_packed,
         flash_attention_relpos,
     )
+    from divergen_tpu_torch.ops.gn_conv import fused_gn_silu_conv3x3
     from divergen_tpu_torch.ops.group_norm import fused_group_norm
     from divergen_tpu_torch.ops.int8_matmul import int8_matmul_fused_quant, int8_matmul_pallas
     from divergen_tpu_torch.ops.layer_norm import fused_layer_norm
@@ -1498,7 +1740,8 @@ def main() -> int:
 
     wrappers = (flash_attention_packed, fused_ln_matmul, flash_attention,
                 flash_attention_relpos, fused_window_attention_packed, fused_window_attention,
-                int8_matmul_fused_quant, int8_matmul_pallas, fused_layer_norm, fused_group_norm)
+                int8_matmul_fused_quant, int8_matmul_pallas, fused_layer_norm, fused_group_norm,
+                fused_gn_silu_conv3x3)
     chain_kernels = [w.__name__ for w in wrappers[:4]]
 
     backward = {"fused_window_attention_packed_backward": fused_window_attention_packed,
@@ -1564,7 +1807,27 @@ def main() -> int:
         log(f"  {what}: launches as expected per UNet call x {unet_calls} calls: "
             f"{ {k: counts[k] for k in want} }")
     serving_timings(pipe, pipe8, cond, card)
-    del encoder, pipe, cond, bf16_images, pipe8
+    del pipe8
+    torch.cuda.empty_cache()
+
+    log('slice: SDXL with fused ResBlocks at full width (SDXLPipeline over '
+        'UNetSDXL(conv_matmul="fused"), then one UNet call with every serving option)')
+    reset()
+    pipe_f = slice_fused_resblocks(pipe, cond, bf16_images)
+    fused = read(("flash_attention_packed", "fused_ln_matmul", "flash_attention",
+                  "fused_gn_silu_conv3x3"), "the fused-ResBlock slice")
+    want = {k: v * unet_calls for k, v in FUSED_RESBLOCK_LAUNCHES.items()}
+    want["flash_attention"] = 2
+    wrong = {k: (fused[k], n) for k, n in want.items() if fused[k] != n}
+    if wrong:
+        raise AssertionError(f'SDXLPipeline over UNetSDXL(conv_matmul="fused"): launches (got, '
+                             f"expected) {wrong}")
+    log(f"  launches as expected per UNet call x {unet_calls} calls: "
+        f"{ {k: fused[k] for k in want} }")
+    every = every_option_unet_call(pipe, cond, wrappers)
+    fused = {k: fused[k] + every.get(k, 0) for k in fused}
+    fused_timings(pipe, pipe_f, cond, card)
+    del encoder, pipe, cond, bf16_images, pipe_f
     torch.cuda.empty_cache()
 
     log("slice: detector train step (dryrun_train, then the Swin-L flagship at full width)")
@@ -1578,8 +1841,8 @@ def main() -> int:
     detector_timings = slice_detector(card)
     detector = read(("fused_window_attention_packed",), "the detector slice")
     detector_timings()
-    launches = {name: sdxl[name] + chain[name] + serving[name] + train[name] + detector[name]
-                for name in sdxl}
+    launches = {name: sdxl[name] + chain[name] + serving[name] + fused[name] + train[name]
+                + detector[name] for name in sdxl}
     # the split wrapper is on no slice's path (the packed kernels take any head
     # count): the kernel phases hold its forward and backward, its counts stay 0
     for name in ("fused_window_attention", "fused_window_attention_backward"):
@@ -1612,6 +1875,8 @@ def main() -> int:
                                "divergen_tpu/ops/pallas/int8_matmul.py:63"),
         "int8_matmul_fused_quant": ("divergen_tpu_torch/csrc/int8_matmul.cu",
                                     "divergen_tpu/ops/pallas/int8_matmul.py:130"),
+        "fused_gn_silu_conv3x3": ("divergen_tpu_torch/csrc/gn_conv.cu",
+                                  "divergen_tpu/ops/pallas/fused_gn_conv.py:84"),
     }
     kernels = [{"name": name, "route": "cuda", "source": src, "replaces": rep,
                 "launches": launches[name], **results[name]}

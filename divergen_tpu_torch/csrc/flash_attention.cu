@@ -1,4 +1,5 @@
-// Flash attention forward for Hopper (sm_90a), bf16 in and out, f32 softmax.
+// Flash attention forward for Hopper (sm_90a), bf16 in and out, f32 softmax;
+// the packed and (BH, S, D) kernels also take and write f32 (a float32 model).
 //
 // Replaces three Pallas TPU kernels of divergen_tpu/ops/pallas/flash_attention.py:
 //   * flash_attention_packed (_packed_kernel / _packed_kernel2): self-attention
@@ -61,12 +62,17 @@
 //     operations (4·BH·N²·d), as kernel 1 is; the bias adds two shared-memory
 //     reads and one add per score element to the softmax work between the
 //     products.
+// f32 q, k and v (packed and (BH, S, D) only) are rounded to bf16 on their
+// way into shared memory, by plain loads in place of the cp.async copies, so
+// the products run on the bf16 tensor cores as for bf16 inputs; the output is
+// written in f32 without a last rounding.
 // No TMA, wgmma or warp specialisation yet.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "gn_moments.cuh"  // dg::load_vec, dg::store_pair
 #include "mma_sm90.cuh"
 
 namespace {
@@ -77,11 +83,11 @@ constexpr float kNegInf = -1e30f;
 constexpr float kLog2e = 1.4426950408889634f;
 
 struct AttnParams {
-  const bf16* q;
-  const bf16* k;
-  const bf16* v;
+  const void* q;  // T: bf16, or f32 for the packed and (BH, S, D) kernels
+  const void* k;
+  const void* v;
   const float* bias;  // may be null
-  bf16* o;
+  void* o;
   int heads, sq, sk;
   int64_t q_bs, q_hs, q_rs;
   int64_t kv_bs, kv_hs, kv_rs;
@@ -115,20 +121,29 @@ struct Cfg {
   static size_t rel_bytes(int h, int w) { return sizeof(float) * (h + w) * LDB; }
 };
 
-// rows x D tile, global -> shared, 16-byte cp.async; rows >= valid are zeros
-template <int D, int THREADS>
-__device__ __forceinline__ void load_tile(bf16* dst, int ld, const bf16* src,
+// rows x D tile, global -> shared bf16; rows >= valid are zeros. bf16: 16-byte
+// cp.async; f32: plain loads of 8 values, rounded to bf16, one 16-byte store
+template <int D, int THREADS, typename T>
+__device__ __forceinline__ void load_tile(bf16* dst, int ld, const T* src,
                                           int64_t stride, int rows, int valid) {
   constexpr int CPR = D / 8;
   for (int c = threadIdx.x; c < rows * CPR; c += THREADS) {
     const int r = c / CPR;
     const int col = (c - r * CPR) * 8;
     const bool ok = r < valid;
-    dg::cp_async16(dst + r * ld + col, ok ? src + r * stride + col : src, ok);
+    if constexpr (sizeof(T) == sizeof(bf16)) {
+      dg::cp_async16(dst + r * ld + col, ok ? src + r * stride + col : src, ok);
+    } else {
+      float f[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+      if (ok) dg::load_vec<8>(src + r * stride + col, f);
+      *reinterpret_cast<uint4*>(dst + r * ld + col) =
+          make_uint4(dg::pack_bf16x2(f[0], f[1]), dg::pack_bf16x2(f[2], f[3]),
+                     dg::pack_bf16x2(f[4], f[5]), dg::pack_bf16x2(f[6], f[7]));
+    }
   }
 }
 
-template <int D, int ND, int NR, int RG, int BK, bool REL>
+template <typename T, int D, int ND, int NR, int RG, int BK, bool REL>
 __global__ void __launch_bounds__(Cfg<D, ND, NR, RG, BK>::THREADS)
     flash_attn_kernel(const AttnParams p) {
   using C = Cfg<D, ND, NR, RG, BK>;
@@ -152,17 +167,17 @@ __global__ void __launch_bounds__(Cfg<D, ND, NR, RG, BK>::THREADS)
   const int q0 = blockIdx.x * C::BQ;
   const int row0 = wr * RG * 16;  // first block row of this warp
 
-  const bf16* q = p.q + b * p.q_bs + h * p.q_hs;
-  const bf16* k = p.k + b * p.kv_bs + h * p.kv_hs;
-  const bf16* v = p.v + b * p.kv_bs + h * p.kv_hs;
-  bf16* o = p.o + b * p.o_bs + h * p.o_hs;
+  const T* q = static_cast<const T*>(p.q) + b * p.q_bs + h * p.q_hs;
+  const T* k = static_cast<const T*>(p.k) + b * p.kv_bs + h * p.kv_hs;
+  const T* v = static_cast<const T*>(p.v) + b * p.kv_bs + h * p.kv_hs;
+  T* o = static_cast<T*>(p.o) + b * p.o_bs + h * p.o_hs;
   const float* bias = p.bias ? p.bias + b * p.bias_bs + h * p.bias_hs : nullptr;
 
   const int n_tiles = (p.sk + BK - 1) / BK;
-  load_tile<D, C::THREADS>(sQ, C::LD, q + q0 * p.q_rs, p.q_rs, C::BQ, p.sq - q0);
+  load_tile<D, C::THREADS, T>(sQ, C::LD, q + q0 * p.q_rs, p.q_rs, C::BQ, p.sq - q0);
   dg::cp_async_commit();
-  load_tile<D, C::THREADS>(sK, C::LD, k, p.kv_rs, BK, p.sk);
-  load_tile<D, C::THREADS>(sV, C::LD, v, p.kv_rs, BK, p.sk);
+  load_tile<D, C::THREADS, T>(sK, C::LD, k, p.kv_rs, BK, p.sk);
+  load_tile<D, C::THREADS, T>(sV, C::LD, v, p.kv_rs, BK, p.sk);
   dg::cp_async_commit();
   if constexpr (REL) {
     // the bias factors of this q tile, times log2(e); rows past sq are zeros
@@ -205,9 +220,9 @@ __global__ void __launch_bounds__(Cfg<D, ND, NR, RG, BK>::THREADS)
     const int k0 = t * BK;
     if (t + 1 < n_tiles) {  // prefetch the next tile into the other stage
       const int k1 = k0 + BK;
-      load_tile<D, C::THREADS>(sK + (st ^ 1) * BK * C::LD, C::LD, k + k1 * p.kv_rs,
+      load_tile<D, C::THREADS, T>(sK + (st ^ 1) * BK * C::LD, C::LD, k + k1 * p.kv_rs,
                                p.kv_rs, BK, p.sk - k1);
-      load_tile<D, C::THREADS>(sV + (st ^ 1) * BK * C::LD, C::LD, v + k1 * p.kv_rs,
+      load_tile<D, C::THREADS, T>(sV + (st ^ 1) * BK * C::LD, C::LD, v + k1 * p.kv_rs,
                                p.kv_rs, BK, p.sk - k1);
       dg::cp_async_commit();
       dg::cp_async_wait<1>();
@@ -392,25 +407,24 @@ __global__ void __launch_bounds__(Cfg<D, ND, NR, RG, BK>::THREADS)
       const float inv = 1.f / fmaxf(l, 1e-30f);
       const int qi = q0 + row0 + rg * 16 + g + r * 8;
       if (qi >= p.sq) continue;
-      bf16* dst = o + qi * p.o_rs + wd * WD + 2 * t4;
+      T* dst = o + qi * p.o_rs + wd * WD + 2 * t4;
 #pragma unroll
       for (int n = 0; n < WD / 8; ++n)
-        *reinterpret_cast<__nv_bfloat162*>(dst + n * 8) = __floats2bfloat162_rn(
-            acc[rg][n][2 * r] * inv, acc[rg][n][2 * r + 1] * inv);
+        dg::store_pair(dst + n * 8, acc[rg][n][2 * r] * inv, acc[rg][n][2 * r + 1] * inv);
     }
   }
 }
 
-template <int D, int ND, int NR, int RG, int BK, bool REL = false>
+template <typename T, int D, int ND, int NR, int RG, int BK, bool REL = false>
 int launch(const AttnParams& p, int batch, cudaStream_t stream) {
   using C = Cfg<D, ND, NR, RG, BK>;
   const size_t bytes = C::bytes + (REL ? C::rel_bytes(p.rel_h, p.rel_w) : 0);
-  cudaError_t err = cudaFuncSetAttribute(flash_attn_kernel<D, ND, NR, RG, BK, REL>,
+  cudaError_t err = cudaFuncSetAttribute(flash_attn_kernel<T, D, ND, NR, RG, BK, REL>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(bytes));
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid((p.sq + C::BQ - 1) / C::BQ, p.heads, batch);
-  flash_attn_kernel<D, ND, NR, RG, BK, REL><<<grid, C::THREADS, bytes, stream>>>(p);
+  flash_attn_kernel<T, D, ND, NR, RG, BK, REL><<<grid, C::THREADS, bytes, stream>>>(p);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -419,10 +433,10 @@ AttnParams make_params(const void* q, const void* k, const void* v, void* o, int
                        int64_t kv_bs, int64_t kv_hs, int64_t kv_rs, int64_t o_bs,
                        int64_t o_hs, int64_t o_rs, float scale) {
   AttnParams p = {};
-  p.q = static_cast<const bf16*>(q);
-  p.k = static_cast<const bf16*>(k);
-  p.v = static_cast<const bf16*>(v);
-  p.o = static_cast<bf16*>(o);
+  p.q = q;
+  p.k = k;
+  p.v = v;
+  p.o = o;
   p.heads = heads;
   p.sq = sq;
   p.sk = sk;
@@ -441,12 +455,13 @@ AttnParams make_params(const void* q, const void* k, const void* v, void* o, int
 
 }  // namespace
 
-extern "C" int dg_flash_attention_bf16(
+// q, k, v, o bf16 or, with x_f32, f32 (strides in elements)
+extern "C" int dg_flash_attention(
     const void* q, const void* k, const void* v, const void* bias, void* o,
     int batch, int heads, int sq, int sk, int d, int64_t q_bs, int64_t q_hs,
     int64_t q_rs, int64_t kv_bs, int64_t kv_hs, int64_t kv_rs, int64_t o_bs,
     int64_t o_hs, int64_t o_rs, int64_t bias_bs, int64_t bias_hs,
-    int64_t bias_rs, float scale, void* stream) {
+    int64_t bias_rs, float scale, int x_f32, void* stream) {
   AttnParams p = make_params(q, k, v, o, heads, sq, sk, q_bs, q_hs, q_rs, kv_bs, kv_hs,
                              kv_rs, o_bs, o_hs, o_rs, scale);
   p.bias = static_cast<const float*>(bias);
@@ -454,8 +469,12 @@ extern "C" int dg_flash_attention_bf16(
   p.bias_hs = bias_hs;
   p.bias_rs = bias_rs;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (d == 64) return launch<64, 1, 4, 1, 64>(p, batch, s);
-  if (d == 512) return launch<512, 8, 1, 2, 32>(p, batch, s);
+  if (d == 64)
+    return x_f32 ? launch<float, 64, 1, 4, 1, 64>(p, batch, s)
+                 : launch<bf16, 64, 1, 4, 1, 64>(p, batch, s);
+  if (d == 512)
+    return x_f32 ? launch<float, 512, 8, 1, 2, 32>(p, batch, s)
+                 : launch<bf16, 512, 8, 1, 2, 32>(p, batch, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -477,7 +496,7 @@ extern "C" int dg_flash_attention_relpos_bf16(
   p.rel_h = grid_h;
   p.rel_w = grid_w;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (d == 80) return launch<80, 1, 4, 1, 64, true>(p, batch, s);
+  if (d == 80) return launch<bf16, 80, 1, 4, 1, 64, true>(p, batch, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

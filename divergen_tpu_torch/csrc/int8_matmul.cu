@@ -1,18 +1,19 @@
 // W8A8 GEMM with a dequantization epilogue, for Hopper (sm_90a): int8 x int8
 // products on the tensor cores into int32, then
-//     out[r, c] = bf16( (float(acc[r, c]) * x_scale[r]) * w_scale[c] ).
+//     out[r, c] = (float(acc[r, c]) * x_scale[r]) * w_scale[c]
+// written as bf16 or f32.
 //
 // Replaces the two Pallas TPU kernels of divergen_tpu/ops/pallas/int8_matmul.py:
 //   * int8_matmul_pallas (_kernel): x already quantized (int8 (M, K) and a
 //     per-row f32 scale, from ops/quant.py:quantize_act);
-//   * int8_matmul_fused_quant (_kernel_fq): bf16 x, quantized inside the
-//     kernel with the per-row scale max(absmax, 1e-12) / 127, a true
+//   * int8_matmul_fused_quant (_kernel_fq): bf16 or f32 x, quantized inside
+//     the kernel with the per-row scale max(absmax, 1e-12) / 127, a true
 //     division, round half to even and a clip to +-127 (the TPU kernel's own
 //     formula, which differs from quantize_act's max(absmax / 127, 1e-12) for
 //     rows whose absmax is below 1.27e-10).
 // The int32 sums are exact, so the result equals the plain version's bit for
 // bit: the same int8 operands, the same f32 products in the same order, the
-// same rounding to bf16.
+// same rounding to the output type.
 //
 // What bounds it on the H100: operations. At the SDXL UNet's shapes (M 4096
 // or 16384 tokens, K 640..5120, N 640..10240) a GEMM does 2MKN int8
@@ -27,11 +28,12 @@
 // 128 x 256 output tile with 8 warps of 64 x 64, K in steps of 64 through a
 // three-stage cp.async ring (two tiles in flight while one is multiplied);
 // the accumulator lives in registers and the epilogue dequantizes it there
-// and writes bf16 straight to device memory. The fused-quant variant first
-// reads its 128 rows of x across the whole K for their absmax (overlapped
-// with the first copies of the ring), keeps the 128 scales in shared memory,
-// streams raw bf16 x tiles through the ring and has each thread quantize the
-// chunks it copied into an int8 tile beside them before the tile is used.
+// and writes bf16 or f32 straight to device memory. The fused-quant variant
+// first reads its 128 rows of x across the whole K for their absmax
+// (overlapped with the first copies of the ring), keeps the 128 scales in
+// shared memory, streams raw x tiles (bf16, or f32 in chunks of two 16-byte
+// copies) through the ring and has each thread quantize the chunks it copied
+// into an int8 tile beside them before the tile is used.
 // K is never split across blocks. Any M and N; K a multiple of 16 (whole
 // 16-byte chunks), with the M, N and K tails masked (zero-filled on load,
 // not stored). No TMA, wgmma or warp specialisation yet.
@@ -40,6 +42,7 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "gn_moments.cuh"  // dg::load_vec, dg::store_pair, dg::store_one
 #include "mma_sm90.cuh"
 
 namespace {
@@ -55,36 +58,39 @@ constexpr int kWN = 64;     // output columns per warp
 constexpr int kWarpsN = kBN / kWN;
 constexpr int kThreads = 32 * (kBM / kWM) * kWarpsN;
 constexpr int kLDQ = kBK + 16;  // bytes per int8 row in shared memory
-constexpr int kLDX = kBK + 8;   // bf16 elements per raw x row in shared memory
 constexpr int kQRowStep = kThreads / (kBK / 16);  // rows between a thread's int8 chunks
-constexpr int kXRowStep = kThreads / (kBK / 8);   // ... and its bf16 chunks
+constexpr int kXRowStep = kThreads / (kBK / 8);   // ... and its 8-element x chunks
 constexpr int kAQChunks = kBM / kQRowStep;        // 16-byte int8 x chunks per thread
 constexpr int kBChunks = kBN / kQRowStep;         // 16-byte weight chunks per thread
-constexpr int kAXChunks = kBM / kXRowStep;        // 16-byte bf16 x chunks per thread
+constexpr int kAXChunks = kBM / kXRowStep;        // 8-element raw x chunks per thread
 constexpr size_t kTileQA = static_cast<size_t>(kBM) * kLDQ;
 constexpr size_t kTileB = static_cast<size_t>(kBN) * kLDQ;
-constexpr size_t kTileX = sizeof(bf16) * kBM * kLDX;
 static_assert(kThreads == 256 && kAQChunks * kQRowStep == kBM &&
                   kBChunks * kQRowStep == kBN && kAXChunks * kXRowStep == kBM,
               "tile plan");
-static_assert(kTileQA % 128 == 0 && kTileB % 128 == 0 && kTileX % 128 == 0,
-              "aligned regions");
+static_assert(kTileQA % 128 == 0 && kTileB % 128 == 0, "aligned regions");
 
-template <bool FQ>
+// TX: the raw x element of the fused-quant variant (bf16 or f32)
+template <bool FQ, typename TX>
 struct Plan {
+  // elements per raw x row: 16 bytes of padding
+  static constexpr int kLDX = kBK + 16 / static_cast<int>(sizeof(TX));
+  static constexpr size_t kTileX = sizeof(TX) * kBM * kLDX;
   static constexpr size_t kStage = kTileQA + kTileB + (FQ ? kTileX : 0);
   static constexpr size_t kSmem = kStages * kStage;
+  static_assert(kTileX % 128 == 0, "aligned regions");
 };
 
 struct Args {
   const int8_t* xq;  // (m, k) int8 (int8_matmul_pallas)
   const float* xs;   // (m,) f32 (int8_matmul_pallas)
-  const bf16* x;     // (m, k) bf16 (int8_matmul_fused_quant)
+  const void* x;     // (m, k) TX (int8_matmul_fused_quant)
   const int8_t* wq;  // (n, k) int8: the (k, n) weight read as its transpose
   const float* ws;   // (n,) f32
-  bf16* out;         // (m, n)
+  void* out;         // (m, n) TO
   int m, n, k;
 };
+
 
 // one int8 of round-half-even(v / s) clipped to +-127, as a byte
 __device__ __forceinline__ uint32_t quant_byte(float v, float s) {
@@ -92,10 +98,12 @@ __device__ __forceinline__ uint32_t quant_byte(float v, float s) {
   return static_cast<uint32_t>(static_cast<int>(q)) & 0xffu;
 }
 
-template <bool FQ>
+template <bool FQ, typename TX, typename TO>
 __global__ void __launch_bounds__(kThreads, 1) int8_gemm_kernel(const Args a) {
   extern __shared__ __align__(128) unsigned char smem[];
   __shared__ float s_xs[kBM];  // the block's per-row activation scales
+  typedef Plan<FQ, TX> P;
+  const TX* x = static_cast<const TX*>(a.x);
 
   const int m0 = blockIdx.y * kBM;
   const int n0 = blockIdx.x * kBN;
@@ -106,16 +114,16 @@ __global__ void __launch_bounds__(kThreads, 1) int8_gemm_kernel(const Args a) {
   const int g = lane >> 2;
   const int t4 = lane & 3;
   // this thread copies int8 chunks at rows qr + i * kQRowStep, bytes qc..qc+15,
-  // and bf16 chunks at rows xr + i * kXRowStep, elements xc..xc+7, of each tile
+  // and raw x chunks at rows xr + i * kXRowStep, elements xc..xc+7, of each tile
   const int qr = threadIdx.x / (kBK / 16);
   const int qc = (threadIdx.x % (kBK / 16)) * 16;
   const int xr = threadIdx.x / (kBK / 8);
   const int xc = (threadIdx.x % (kBK / 8)) * 8;
 
-  auto stage_qa = [&](int st) { return smem + st * Plan<FQ>::kStage; };
-  auto stage_b = [&](int st) { return smem + st * Plan<FQ>::kStage + kTileQA; };
+  auto stage_qa = [&](int st) { return smem + st * P::kStage; };
+  auto stage_b = [&](int st) { return smem + st * P::kStage + kTileQA; };
   auto stage_x = [&](int st) {
-    return reinterpret_cast<bf16*>(smem + st * Plan<FQ>::kStage + kTileQA + kTileB);
+    return reinterpret_cast<TX*>(smem + st * P::kStage + kTileQA + kTileB);
   };
   auto load_tile = [&](int st, int k0) {  // zeros outside M, N and K
     const bool kq_ok = k0 + qc < a.k;
@@ -132,8 +140,11 @@ __global__ void __launch_bounds__(kThreads, 1) int8_gemm_kernel(const Args a) {
       for (int i = 0; i < kAXChunks; ++i) {
         const int r = xr + i * kXRowStep;
         const bool ok = kx_ok && m0 + r < a.m;
-        dg::cp_async16(stage_x(st) + r * kLDX + xc,
-                       ok ? a.x + static_cast<int64_t>(m0 + r) * a.k + k0 + xc : a.x, ok);
+        const TX* src = ok ? x + static_cast<int64_t>(m0 + r) * a.k + k0 + xc : x;
+        TX* dst = stage_x(st) + r * P::kLDX + xc;
+#pragma unroll
+        for (int part = 0; part < static_cast<int>(sizeof(TX)) / 2; ++part)  // 16 bytes each
+          dg::cp_async16(dst + part * 4, src + part * 4, ok);
       }
     } else {
 #pragma unroll
@@ -145,21 +156,18 @@ __global__ void __launch_bounds__(kThreads, 1) int8_gemm_kernel(const Args a) {
       }
     }
   };
-  auto quantize_tile = [&](int st) {  // this thread's own bf16 chunks -> int8 tile
+  auto quantize_tile = [&](int st) {  // this thread's own raw x chunks -> int8 tile
 #pragma unroll
     for (int i = 0; i < kAXChunks; ++i) {
       const int r = xr + i * kXRowStep;
       const float s = s_xs[r];
-      const uint4 u = *reinterpret_cast<const uint4*>(stage_x(st) + r * kLDX + xc);
-      const __nv_bfloat162* h2 = reinterpret_cast<const __nv_bfloat162*>(&u);
+      float v[8];
+      dg::load_vec<8>(stage_x(st) + r * P::kLDX + xc, v);
       uint32_t word[2];
 #pragma unroll
-      for (int w = 0; w < 2; ++w) {
-        const float2 lo = __bfloat1622float2(h2[2 * w]);
-        const float2 hi = __bfloat1622float2(h2[2 * w + 1]);
-        word[w] = quant_byte(lo.x, s) | (quant_byte(lo.y, s) << 8) |
-                  (quant_byte(hi.x, s) << 16) | (quant_byte(hi.y, s) << 24);
-      }
+      for (int w = 0; w < 2; ++w)
+        word[w] = quant_byte(v[4 * w], s) | (quant_byte(v[4 * w + 1], s) << 8) |
+                  (quant_byte(v[4 * w + 2], s) << 16) | (quant_byte(v[4 * w + 3], s) << 24);
       *reinterpret_cast<uint2*>(stage_qa(st) + r * kLDQ + xc) = make_uint2(word[0], word[1]);
     }
   };
@@ -179,15 +187,13 @@ __global__ void __launch_bounds__(kThreads, 1) int8_gemm_kernel(const Args a) {
       const int row = m0 + r;
       float amax = 0.f;
       if (row < a.m) {
-        const bf16* xrow = a.x + static_cast<int64_t>(row) * a.k;
+        const TX* xrow = x + static_cast<int64_t>(row) * a.k;
         for (int c = lane * 8; c < a.k; c += 256) {
-          const uint4 u = *reinterpret_cast<const uint4*>(xrow + c);
-          const __nv_bfloat162* h2 = reinterpret_cast<const __nv_bfloat162*>(&u);
+          float v[8];
+          dg::load_vec<8>(xrow + c, v);
 #pragma unroll
-          for (int j = 0; j < 4; ++j) {
-            const float2 f = __bfloat1622float2(h2[j]);
-            amax = fmaxf(amax, fmaxf(fabsf(f.x), fabsf(f.y)));
-          }
+          for (int j = 0; j < 4; ++j)
+            amax = fmaxf(amax, fmaxf(fabsf(v[2 * j]), fabsf(v[2 * j + 1])));
         }
       }
 #pragma unroll
@@ -241,8 +247,8 @@ __global__ void __launch_bounds__(kThreads, 1) int8_gemm_kernel(const Args a) {
   }
   dg::cp_async_wait<0>();
 
-  // dequantize in registers: (float(acc) * x_scale[row]) * w_scale[col] -> bf16
-  const bool pairs = (a.n & 1) == 0;  // bf16x2 stores stay 4-byte aligned
+  // dequantize in registers: (float(acc) * x_scale[row]) * w_scale[col] -> TO
+  const bool pairs = (a.n & 1) == 0;  // pair stores stay aligned
 #pragma unroll
   for (int i = 0; i < kMI; ++i)
 #pragma unroll
@@ -250,7 +256,7 @@ __global__ void __launch_bounds__(kThreads, 1) int8_gemm_kernel(const Args a) {
       const int r = wm * kWM + i * 16 + g + 8 * h;
       if (m0 + r >= a.m) continue;
       const float xs = s_xs[r];
-      bf16* orow = a.out + static_cast<int64_t>(m0 + r) * a.n;
+      TO* orow = static_cast<TO*>(a.out) + static_cast<int64_t>(m0 + r) * a.n;
 #pragma unroll
       for (int j = 0; j < kNJ; ++j) {
         const int col = n0 + wn * kWN + j * 8 + 2 * t4;
@@ -260,60 +266,66 @@ __global__ void __launch_bounds__(kThreads, 1) int8_gemm_kernel(const Args a) {
           const float v1 =
               __fmul_rn(__fmul_rn(__int2float_rn(acc[i][j][2 * h + 1]), xs), a.ws[col + 1]);
           if (pairs) {
-            *reinterpret_cast<__nv_bfloat162*>(orow + col) = __floats2bfloat162_rn(v0, v1);
+            dg::store_pair(orow + col, v0, v1);
           } else {
-            orow[col] = __float2bfloat16(v0);
-            orow[col + 1] = __float2bfloat16(v1);
+            dg::store_one(orow + col, v0);
+            dg::store_one(orow + col + 1, v1);
           }
         } else {
-          orow[col] = __float2bfloat16(v0);
+          dg::store_one(orow + col, v0);
         }
       }
     }
 }
 
-template <bool FQ>
+template <bool FQ, typename TX, typename TO>
 int launch(const Args& a, cudaStream_t stream) {
   if (a.k % 16 != 0 || a.m <= 0 || a.n <= 0 || a.k <= 0)
     return static_cast<int>(cudaErrorInvalidValue);
-  cudaError_t err = cudaFuncSetAttribute(int8_gemm_kernel<FQ>,
+  typedef Plan<FQ, TX> P;
+  cudaError_t err = cudaFuncSetAttribute(int8_gemm_kernel<FQ, TX, TO>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         static_cast<int>(Plan<FQ>::kSmem));
+                                         static_cast<int>(P::kSmem));
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid((a.n + kBN - 1) / kBN, (a.m + kBM - 1) / kBM);
-  int8_gemm_kernel<FQ><<<grid, kThreads, Plan<FQ>::kSmem, stream>>>(a);
+  int8_gemm_kernel<FQ, TX, TO><<<grid, kThreads, P::kSmem, stream>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
 // xq (m, k) int8, xs (m,) f32, wq (n, k) int8 (the transpose of w_q (k, n)),
-// ws (n,) f32, out (m, n) bf16; k a multiple of 16.
-extern "C" int dg_int8_matmul_bf16(const void* xq, const void* xs, const void* wq,
-                                   const void* ws, void* out, int m, int n, int k,
-                                   void* stream) {
+// ws (n,) f32, out (m, n) bf16 or, with out_f32, f32; k a multiple of 16.
+extern "C" int dg_int8_matmul(const void* xq, const void* xs, const void* wq, const void* ws,
+                              void* out, int m, int n, int k, int out_f32, void* stream) {
   Args a{};
   a.xq = static_cast<const int8_t*>(xq);
   a.xs = static_cast<const float*>(xs);
   a.wq = static_cast<const int8_t*>(wq);
   a.ws = static_cast<const float*>(ws);
-  a.out = static_cast<bf16*>(out);
+  a.out = out;
   a.m = m;
   a.n = n;
   a.k = k;
-  return launch<false>(a, static_cast<cudaStream_t>(stream));
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return out_f32 ? launch<false, bf16, float>(a, s) : launch<false, bf16, bf16>(a, s);
 }
 
-// x (m, k) bf16, quantized per row in the kernel; the rest as above.
-extern "C" int dg_int8_matmul_fused_quant_bf16(const void* x, const void* wq, const void* ws,
-                                               void* out, int m, int n, int k, void* stream) {
+// x (m, k) bf16 or, with x_f32, f32, quantized per row in the kernel; the
+// rest as above.
+extern "C" int dg_int8_matmul_fused_quant(const void* x, const void* wq, const void* ws, void* out,
+                                          int m, int n, int k, int x_f32, int out_f32,
+                                          void* stream) {
   Args a{};
-  a.x = static_cast<const bf16*>(x);
+  a.x = x;
   a.wq = static_cast<const int8_t*>(wq);
   a.ws = static_cast<const float*>(ws);
-  a.out = static_cast<bf16*>(out);
+  a.out = out;
   a.m = m;
   a.n = n;
   a.k = k;
-  return launch<true>(a, static_cast<cudaStream_t>(stream));
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (x_f32)
+    return out_f32 ? launch<true, float, float>(a, s) : launch<true, float, bf16>(a, s);
+  return out_f32 ? launch<true, bf16, float>(a, s) : launch<true, bf16, bf16>(a, s);
 }

@@ -97,8 +97,8 @@ def build() -> Path:
 
 def _declare(lib: ctypes.CDLL) -> None:
     p, i, i64, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, ctypes.c_float
-    lib.dg_flash_attention_bf16.argtypes = [p] * 5 + [i] * 5 + [i64] * 12 + [f, p]
-    lib.dg_flash_attention_bf16.restype = i
+    lib.dg_flash_attention.argtypes = [p] * 5 + [i] * 5 + [i64] * 12 + [f, i, p]
+    lib.dg_flash_attention.restype = i
     lib.dg_flash_attention_relpos_bf16.argtypes = [p] * 6 + [i] * 5 + [i64] * 9 + [f, p]
     lib.dg_flash_attention_relpos_bf16.restype = i
     lib.dg_window_attention_bf16.argtypes = [p] * 6 + [i] * 4 + [i64] * 9 + [f, p]
@@ -111,14 +111,16 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.dg_window_attention_packed_bwd_bf16.restype = i
     lib.dg_ln_matmul_bf16.argtypes = [p] * 7 + [i] * 3 + [f, i, p]
     lib.dg_ln_matmul_bf16.restype = i
-    lib.dg_int8_matmul_bf16.argtypes = [p] * 5 + [i] * 3 + [p]
-    lib.dg_int8_matmul_bf16.restype = i
-    lib.dg_int8_matmul_fused_quant_bf16.argtypes = [p] * 4 + [i] * 3 + [p]
-    lib.dg_int8_matmul_fused_quant_bf16.restype = i
-    lib.dg_group_norm_bf16.argtypes = [p] * 6 + [i] * 5 + [f, i, p]
-    lib.dg_group_norm_bf16.restype = i
-    lib.dg_layer_norm_bf16.argtypes = [p] * 4 + [i] * 2 + [f, p]
-    lib.dg_layer_norm_bf16.restype = i
+    lib.dg_int8_matmul.argtypes = [p] * 5 + [i] * 4 + [p]
+    lib.dg_int8_matmul.restype = i
+    lib.dg_int8_matmul_fused_quant.argtypes = [p] * 4 + [i] * 5 + [p]
+    lib.dg_int8_matmul_fused_quant.restype = i
+    lib.dg_group_norm.argtypes = [p] * 6 + [i] * 5 + [f, i, i, p]
+    lib.dg_group_norm.restype = i
+    lib.dg_layer_norm.argtypes = [p] * 4 + [i] * 2 + [f, i, p]
+    lib.dg_layer_norm.restype = i
+    lib.dg_gn_conv.argtypes = [p] * 9 + [i] * 8 + [f, i, p]
+    lib.dg_gn_conv.restype = i
     lib.dg_error_string.argtypes = [i]
     lib.dg_error_string.restype = ctypes.c_char_p
 

@@ -7,7 +7,11 @@ Counterpart of ``divergen_tpu/ops/pallas/flash_attention.py``:
 over a token grid with the decomposed relative-position bias of ViTDet and
 SAM). All launch ``csrc/flash_attention.cu`` for a CUDA tensor and use the
 plain version in this module, the numerics reference, for a CPU tensor. A
-CUDA tensor the kernel cannot take raises.
+CUDA tensor the kernel cannot take raises. ``flash_attention`` and
+``flash_attention_packed`` take bf16 or float32 (a float32 model's
+attention): the kernel rounds float32 q, k and v to bf16 as it loads them,
+multiplies on the bf16 tensor cores as for bf16, and writes float32;
+``flash_attention_relpos`` takes bf16.
 
 Each wrapper counts its kernel launches in a plain int attribute
 (``flash_attention.launches``, ``flash_attention_packed.launches``,
@@ -23,6 +27,7 @@ import torch
 from . import _build
 
 KERNEL_HEAD_DIMS = (64, 512)  # head dims the kernel is instantiated for
+KERNEL_DTYPES = (torch.bfloat16, torch.float32)  # q, k, v and output of those
 RELPOS_HEAD_DIMS = (80,)  # ... with the relative-position bias (SAM ViT-H)
 # The block keeps H + W rows of 64 + 4 floats beside its q tile and K/V ring
 # (5 tiles of 64 rows of d + 8 bf16) in the 232,448 bytes it may use.
@@ -69,11 +74,12 @@ def reference_attention_relpos(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
 
 
 def _require_kernel_input(name: str, t: torch.Tensor, d: int, head_dims=KERNEL_HEAD_DIMS,
-                          strided: bool = False) -> None:
+                          strided: bool = False, dtypes=KERNEL_DTYPES) -> None:
     if t.device.type != "cuda":
         raise ValueError(f"{name}: expected a CUDA or CPU tensor, got {t.device}")
-    if t.dtype != torch.bfloat16:
-        raise ValueError(f"{name}: the kernel takes bfloat16, got {t.dtype}")
+    if t.dtype not in dtypes:
+        raise ValueError(f"{name}: the kernel takes {' or '.join(map(str, dtypes))}, "
+                         f"got {t.dtype}")
     if strided:
         if t.stride(-1) != 1 or any(st % 8 for st in t.stride()[:-1]):
             raise ValueError(f"{name}: the kernel takes a unit last stride and other "
@@ -89,11 +95,12 @@ def _require_kernel_input(name: str, t: torch.Tensor, d: int, head_dims=KERNEL_H
 def _launch(q_ptr, k_ptr, v_ptr, bias, out, batch, heads, sq, sk, d,
             q_strides, kv_strides, o_strides, bias_strides, device) -> None:
     lib = _build.lib()
-    code = lib.dg_flash_attention_bf16(
+    code = lib.dg_flash_attention(
         q_ptr, k_ptr, v_ptr, None if bias is None else bias.data_ptr(),
         out.data_ptr(), batch, heads, sq, sk, d,
         *q_strides, *kv_strides, *o_strides, *bias_strides,
-        1.0 / math.sqrt(d), torch.cuda.current_stream(device).cuda_stream,
+        1.0 / math.sqrt(d), int(out.dtype == torch.float32),
+        torch.cuda.current_stream(device).cuda_stream,
     )
     _build.check(code, "flash attention kernel launch")
 
@@ -113,6 +120,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError("empty sequence")
     for name, t in (("q", q), ("k", k), ("v", v)):
         _require_kernel_input(name, t, d)
+    if not q.dtype == k.dtype == v.dtype:
+        raise ValueError(f"q, k, v dtypes {q.dtype}, {k.dtype}, {v.dtype} differ")
     bias_strides = (0, 0, 0)
     if bias is not None:
         bias = bias.to(device=q.device, dtype=torch.float32).expand(bh, sq, sk)
@@ -192,7 +201,8 @@ def flash_attention_relpos(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         out = reference_attention_relpos(flat(q), flat(k), flat(v), bias_h_t, bias_w_t, hw)
         return out.reshape(q.shape)
     for name, t in (("q", q), ("k", k), ("v", v)):
-        _require_kernel_input(name, t, d, RELPOS_HEAD_DIMS, strided=True)
+        _require_kernel_input(name, t, d, RELPOS_HEAD_DIMS, strided=True,
+                              dtypes=(torch.bfloat16,))
     if h + w > RELPOS_MAX_GRID_SIDES:
         raise ValueError(f"grid {h} x {w}: the bias factors of one q tile do not fit "
                          f"shared memory (H + W <= {RELPOS_MAX_GRID_SIDES})")

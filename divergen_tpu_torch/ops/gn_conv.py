@@ -1,0 +1,139 @@
+"""Fused GroupNorm → SiLU → 3×3 conv over NHWC activations: hand-written CUDA
+kernel on the card, plain torch on the CPU.
+
+Counterpart of ``divergen_tpu/ops/pallas/fused_gn_conv.py:
+fused_gn_silu_conv3x3``, with its semantics kept exactly:
+
+* **groups** is the largest divisor of C that is at most ``groups`` (not
+  ``gcd(32, C)``: the two differ at C = 48, 24 groups against 16);
+* **moments** are per-(B, C) ``E[x]`` and ``E[x²]`` over (H, W) in f32,
+  averaged within each group; ``rstd = rsqrt(E[x²] − mean² + eps)`` takes no
+  clamp (``ops/group_norm.py`` clamps, this function does not);
+* they fold into per-(B, C) ``a = rstd · scale`` and ``b = bias − mean · a``,
+  and ``y = silu(x · a + b)``;
+* **y and the conv weight are rounded to bfloat16**, whatever x's dtype; the
+  3×3 conv pads y with zeros (after the affine, so the border is 0, not
+  ``silu(b)``), sums in f32 and adds the conv bias in f32; the output is in
+  x's dtype.
+
+For a CUDA tensor :func:`fused_gn_silu_conv3x3` launches
+``csrc/gn_conv.cu`` (bf16 or f32 x, any shape): kernel 7's moments pass, a
+fold into ``a`` and ``b``, and an implicit-GEMM conv that applies the affine
+and the SiLU to each activation tile on its way into shared memory. Its
+weight operand is a ``(Co, 3, 3, C)`` bf16 copy of the port ``Conv``'s
+``(Co, C, 3, 3)`` weight, made on each call as the JAX function casts its
+kernel on each call. For a CPU tensor it runs
+:func:`fused_gn_silu_conv3x3_reference`. A CUDA tensor the kernel cannot take
+raises. Launches (one per call, whatever passes the kernel makes) are
+counted in ``fused_gn_silu_conv3x3.launches``.
+
+Forward only, as the JAX kernel (no ``custom_vjp``): on the card a call that
+would need a gradient raises.
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from . import _build
+from .group_norm import moment_splits
+
+
+def group_count(c: int, groups: int = 32) -> int:
+    """The largest divisor of ``c`` that is at most ``groups``."""
+    g = min(groups, c)
+    while c % g:
+        g -= 1
+    return g
+
+
+def fused_gn_silu_conv3x3_reference(x: torch.Tensor, gn_scale: torch.Tensor,
+                                    gn_bias: torch.Tensor, weight: torch.Tensor,
+                                    bias: torch.Tensor, groups: int = 32,
+                                    eps: float = 1e-6) -> torch.Tensor:
+    """The JAX function's CPU path op for op: the f32 affine on x, bf16 casts
+    of y and the weight, a conv computed in f32 on the bf16-valued operands,
+    the f32 bias, then x's dtype. x (B, H, W, C); weight (Co, C, 3, 3)."""
+    b, _, _, c = x.shape
+    g = group_count(c, groups)
+    xf = x.float()
+    gm = xf.mean(dim=(1, 2)).view(b, g, c // g).mean(-1)  # means of per-channel means
+    g2 = (xf * xf).mean(dim=(1, 2)).view(b, g, c // g).mean(-1)
+    inv = torch.rsqrt(g2 - gm * gm + eps)  # no clamp
+    a = inv.repeat_interleave(c // g, dim=-1) * gn_scale.float()
+    shift = gn_bias.float() - gm.repeat_interleave(c // g, dim=-1) * a
+    y = xf * a[:, None, None, :] + shift[:, None, None, :]
+    y = (y * torch.sigmoid(y)).to(torch.bfloat16)
+    out = F.conv2d(y.float().permute(0, 3, 1, 2), weight.to(torch.bfloat16).float(), padding=1)
+    return (out.permute(0, 2, 3, 1) + bias.float()).to(x.dtype)
+
+
+def weight_operand(weight: torch.Tensor) -> torch.Tensor:
+    """The kernel's weight operand: (Co, C, 3, 3) → (Co, 3, 3, Cp) bf16, the
+    (N, K) row-major layout with K = (tap, channel), C rounded up to Cp, a
+    multiple of 8 (whole 16-byte chunks), with zeros. One copy, with the cast."""
+    co, c = weight.shape[:2]
+    cp = -(-c // 8) * 8
+    wt = torch.empty((co, 3, 3, cp), device=weight.device, dtype=torch.bfloat16)
+    wt[..., :c].copy_(weight.permute(0, 2, 3, 1))
+    wt[..., c:].zero_()
+    return wt
+
+
+def _launch(x: torch.Tensor, gn_scale: torch.Tensor, gn_bias: torch.Tensor, weight: torch.Tensor,
+            bias: torch.Tensor, groups: int, eps: float) -> torch.Tensor:
+    b, h, w, c = x.shape
+    co = weight.shape[0]
+    if x.dtype not in (torch.bfloat16, torch.float32):
+        raise ValueError(f"fused_gn_silu_conv3x3: the kernel takes bfloat16 or float32, "
+                         f"got {x.dtype}")
+    if not x.is_contiguous() or x.data_ptr() % 16 or x.numel() == 0:
+        raise ValueError("fused_gn_silu_conv3x3: the kernel takes a contiguous, 16-byte aligned, "
+                         "non-empty x")
+    if tuple(weight.shape) != (co, c, 3, 3) or tuple(bias.shape) != (co,) or \
+            tuple(gn_scale.shape) != (c,) or tuple(gn_bias.shape) != (c,):
+        raise ValueError(f"fused_gn_silu_conv3x3: x {tuple(x.shape)}, weight "
+                         f"{tuple(weight.shape)}, bias {tuple(bias.shape)}, GroupNorm affine "
+                         f"{tuple(gn_scale.shape)}, {tuple(gn_bias.shape)}")
+    if any(t.device != x.device for t in (gn_scale, gn_bias, weight, bias)):
+        raise ValueError("fused_gn_silu_conv3x3: every operand must be on x's device")
+    g = group_count(c, groups)
+    f32 = dict(device=x.device, dtype=torch.float32)
+    scale = gn_scale.to(**f32).contiguous()
+    shift = gn_bias.to(**f32).contiguous()
+    conv_bias = bias.to(**f32).contiguous()
+    wt = weight_operand(weight)
+    splits = moment_splits(b, h * w, c)
+    part = torch.empty((b, splits, 2, c), **f32)
+    fa = torch.empty((b, c), **f32)
+    fs = torch.empty((b, c), **f32)
+    out = torch.empty((b, h, w, co), device=x.device, dtype=x.dtype)
+    lib = _build.lib()
+    fused_gn_silu_conv3x3.launches += 1
+    code = lib.dg_gn_conv(
+        x.data_ptr(), scale.data_ptr(), shift.data_ptr(), wt.data_ptr(), conv_bias.data_ptr(),
+        part.data_ptr(), fa.data_ptr(), fs.data_ptr(), out.data_ptr(), b, h, w, c,
+        wt.shape[-1], co, g, splits, eps, int(x.dtype == torch.float32),
+        torch.cuda.current_stream(x.device).cuda_stream)
+    _build.check(code, "fused GroupNorm + SiLU + conv3x3 kernel launch")
+    return out
+
+
+def fused_gn_silu_conv3x3(x: torch.Tensor, gn_scale: torch.Tensor, gn_bias: torch.Tensor,
+                          weight: torch.Tensor, bias: torch.Tensor, groups: int = 32,
+                          eps: float = 1e-6) -> torch.Tensor:
+    """``conv3x3(silu(groupnorm(x))) + bias``, padding 1. x (B, H, W, C)
+    NHWC; gn_scale, gn_bias (C,); weight (Co, C, 3, 3), the port ``Conv``'s
+    layout; bias (Co,). Returns (B, H, W, Co) in x's dtype."""
+    if x.device.type == "cpu":
+        return fused_gn_silu_conv3x3_reference(x, gn_scale, gn_bias, weight, bias, groups, eps)
+    if x.device.type != "cuda":
+        raise ValueError(f"fused_gn_silu_conv3x3: x on {x.device}; the kernel needs CUDA")
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (x, gn_scale, gn_bias, weight, bias)):
+        raise RuntimeError("fused_gn_silu_conv3x3 is forward only, as the JAX kernel (it has no "
+                           "custom_vjp): call it under torch.no_grad() or inference_mode()")
+    return _launch(x, gn_scale, gn_bias, weight, bias, groups, eps)
+
+
+fused_gn_silu_conv3x3.launches = 0

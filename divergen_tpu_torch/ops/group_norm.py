@@ -7,8 +7,8 @@ mean and ``rsqrt(max(E[x²] − mean², 0) + eps)`` (the kernel path's combine,
 ``group_norm.py:151-156``; the JAX file's ``_reference`` takes the mean of
 per-channel means and does not clamp), then ``(x − mean) · rstd · scale +
 bias`` and, with ``silu``, ``y · sigmoid(y)``, in x's dtype. For a CUDA
-tensor it launches ``csrc/group_norm.cu`` (bf16); for a CPU tensor it runs
-:func:`group_norm_reference`. A CUDA tensor the kernel cannot take raises.
+tensor it launches ``csrc/group_norm.cu`` (bf16 or f32, any C); for a CPU
+tensor it runs :func:`group_norm_reference`. A CUDA tensor the kernel cannot take raises.
 Launches (one per call, whatever passes the kernel makes) are counted in
 ``fused_group_norm.launches``.
 
@@ -24,7 +24,6 @@ import torch
 from . import _build
 
 SMS = 132  # H100 SXM: the moments pass aims at two blocks per SM
-MAX_CHANNELS = 6144  # the kernel's group combine keeps 2 C floats in shared memory
 
 
 def group_norm_reference(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
@@ -60,16 +59,15 @@ def moment_splits(batch: int, hw: int, c: int) -> int:
 def _launch(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor, groups: int, eps: float,
             silu: bool) -> torch.Tensor:
     b, h, w, c = x.shape
-    if x.dtype != torch.bfloat16:
-        raise ValueError(f"fused_group_norm: the kernel takes bfloat16, got {x.dtype}")
+    if x.dtype not in (torch.bfloat16, torch.float32):
+        raise ValueError(f"fused_group_norm: the kernel takes bfloat16 or float32, got {x.dtype}")
     if not x.is_contiguous() or x.data_ptr() % 16:
         raise ValueError("fused_group_norm: the kernel takes a contiguous, 16-byte aligned x")
     if scale.device != x.device or bias.device != x.device:
         raise ValueError(f"fused_group_norm: x on {x.device}, scale on {scale.device}, "
                          f"bias on {bias.device}")
-    if not 0 < groups <= 32 or c % groups or c > MAX_CHANNELS or x.numel() == 0:
-        raise ValueError(f"fused_group_norm: {groups} groups of C={c}, shape {tuple(x.shape)} "
-                         f"(the kernel takes C <= {MAX_CHANNELS})")
+    if not 0 < groups <= 32 or c % groups or x.numel() == 0:
+        raise ValueError(f"fused_group_norm: {groups} groups of C={c}, shape {tuple(x.shape)}")
     f32 = dict(device=x.device, dtype=torch.float32)
     scale = scale.to(**f32).contiguous()
     bias = bias.to(**f32).contiguous()
@@ -79,9 +77,9 @@ def _launch(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor, groups: in
     out = torch.empty_like(x)
     lib = _build.lib()
     fused_group_norm.launches += 1
-    code = lib.dg_group_norm_bf16(
+    code = lib.dg_group_norm(
         x.data_ptr(), scale.data_ptr(), bias.data_ptr(), part.data_ptr(), stats.data_ptr(),
-        out.data_ptr(), b, h * w, c, groups, splits, eps, int(silu),
+        out.data_ptr(), b, h * w, c, groups, splits, eps, int(silu), int(x.dtype == torch.float32),
         torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(code, "group norm kernel launch")
     return out

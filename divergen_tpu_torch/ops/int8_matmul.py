@@ -4,16 +4,16 @@ CUDA kernels on the card, plain torch on the CPU.
 Counterpart of ``divergen_tpu/ops/pallas/int8_matmul.py``:
 
 * :func:`int8_matmul_pallas` (x already quantized: int8 (M, K) and a per-row
-  f32 scale) → ``dg_int8_matmul_bf16``;
-* :func:`int8_matmul_fused_quant` (bf16 x, quantized per row in the kernel
-  with the TPU kernel's own scale ``max(absmax, 1e-12) / 127``, which differs
-  from ``quant.quantize_act``'s ``max(absmax / 127, 1e-12)`` for rows whose
-  absmax is below 1.27e-10) → ``dg_int8_matmul_fused_quant_bf16``.
+  f32 scale) → ``dg_int8_matmul``;
+* :func:`int8_matmul_fused_quant` (bf16 or f32 x, quantized per row in the
+  kernel with the TPU kernel's own scale ``max(absmax, 1e-12) / 127``, which
+  differs from ``quant.quantize_act``'s ``max(absmax / 127, 1e-12)`` for rows
+  whose absmax is below 1.27e-10) → ``dg_int8_matmul_fused_quant``.
 
 Both compute ``(float(x_q @ w_q) * x_scale) * w_scale`` with exact int32 sums
 and write ``out_dtype``; both launch ``csrc/int8_matmul.cu`` for a CUDA tensor
-(bf16 output, K a multiple of 16, any M and N) and run the plain versions in
-this module for a CPU tensor. A CUDA tensor the kernels cannot take raises.
+(bf16 or f32 output, K a multiple of 16, any M and N) and run the plain
+versions in this module for a CPU tensor. A CUDA tensor the kernels cannot take raises.
 Launches are counted in ``int8_matmul_pallas.launches`` and
 ``int8_matmul_fused_quant.launches``.
 
@@ -32,6 +32,7 @@ from . import _build
 _BLOCKS = (1024, 640, 512, 256, 128)
 _FQ_M_BLOCKS = (512, 256, 128)
 _FQ_N_BLOCKS = (1024, 640, 512, 256, 128)
+KERNEL_DTYPES = (torch.bfloat16, torch.float32)  # what the kernels read as x and write
 
 
 def _pick_block(dim: int, candidates: Sequence[int] = _BLOCKS) -> int:
@@ -97,8 +98,8 @@ def _check_cuda(what: str, m: int, k: int, w_q: torch.Tensor, w_scale: torch.Ten
     if w_q.dtype != torch.int8 or w_scale.dtype != torch.float32:
         raise ValueError(f"{what}: the kernel takes int8 w_q and float32 w_scale, got "
                          f"{w_q.dtype}, {w_scale.dtype}")
-    if out_dtype != torch.bfloat16:
-        raise ValueError(f"{what}: the kernel writes bfloat16, not {out_dtype}")
+    if out_dtype not in KERNEL_DTYPES:
+        raise ValueError(f"{what}: the kernel writes bfloat16 or float32, not {out_dtype}")
     if k % 16 or m == 0 or w_q.shape[1] == 0:
         raise ValueError(f"{what}: M={m}, K={k}, N={w_q.shape[1]}: the kernel needs K a "
                          "multiple of 16 and a non-empty product")
@@ -133,9 +134,10 @@ def int8_matmul_pallas(x_q: torch.Tensor, x_scale: torch.Tensor, w_q: torch.Tens
     out = torch.empty((m, n), device=x_q.device, dtype=out_dtype)
     lib = _build.lib()
     int8_matmul_pallas.launches += 1
-    code = lib.dg_int8_matmul_bf16(
+    code = lib.dg_int8_matmul(
         x_q.data_ptr(), xs.data_ptr(), wt.data_ptr(), w_scale.data_ptr(), out.data_ptr(),
-        m, n, k, torch.cuda.current_stream(x_q.device).cuda_stream)
+        m, n, k, int(out_dtype == torch.float32),
+        torch.cuda.current_stream(x_q.device).cuda_stream)
     _build.check(code, "int8 matmul kernel launch")
     return out
 
@@ -143,22 +145,24 @@ def int8_matmul_pallas(x_q: torch.Tensor, x_scale: torch.Tensor, w_q: torch.Tens
 def int8_matmul_fused_quant(x: torch.Tensor, w_q: torch.Tensor, w_scale: torch.Tensor,
                             out_dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
     """x (M, K) float, w_q (K, N) int8, w_scale (N,) f32 → (M, N), with the
-    per-row activation quantization inside the kernel (bf16 x on the card)."""
+    per-row activation quantization inside the kernel (bf16 or f32 x on the
+    card)."""
     m, k = x.shape
     if w_q.shape[0] != k:
         raise ValueError(f"x {tuple(x.shape)} and w_q {tuple(w_q.shape)} do not chain")
     if x.device.type == "cpu":
         return int8_matmul_fused_quant_reference(x, w_q, w_scale, out_dtype)
     wt = _check_cuda("int8_matmul_fused_quant", m, k, w_q, w_scale, out_dtype, x.device)
-    if x.dtype != torch.bfloat16 or not x.is_contiguous() or x.data_ptr() % 16:
+    if x.dtype not in KERNEL_DTYPES or not x.is_contiguous() or x.data_ptr() % 16:
         raise ValueError("int8_matmul_fused_quant: the kernel takes a contiguous, 16-byte "
-                         f"aligned bfloat16 x, got {x.dtype}")
+                         f"aligned bfloat16 or float32 x, got {x.dtype}")
     n = wt.shape[0]
     out = torch.empty((m, n), device=x.device, dtype=out_dtype)
     lib = _build.lib()
     int8_matmul_fused_quant.launches += 1
-    code = lib.dg_int8_matmul_fused_quant_bf16(
+    code = lib.dg_int8_matmul_fused_quant(
         x.data_ptr(), wt.data_ptr(), w_scale.data_ptr(), out.data_ptr(), m, n, k,
+        int(x.dtype == torch.float32), int(out_dtype == torch.float32),
         torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(code, "int8 fused-quant matmul kernel launch")
     return out

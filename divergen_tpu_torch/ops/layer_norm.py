@@ -3,8 +3,8 @@
 Counterpart of ``divergen_tpu/ops/pallas/layer_norm.py:fused_layer_norm``:
 over the last axis, in f32, ``mean``, then the centred variance
 ``mean((x − mean)²)``, then ``(x − mean) · rsqrt(var + eps) · gamma + beta``
-in x's dtype. For a CUDA tensor it launches ``csrc/layer_norm.cu`` (bf16,
-any C); for a CPU tensor it runs :func:`layer_norm_reference`. A CUDA tensor
+in x's dtype. For a CUDA tensor it launches ``csrc/layer_norm.cu`` (bf16 or
+f32, any C); for a CPU tensor it runs :func:`layer_norm_reference`. A CUDA tensor
 the kernel cannot take raises. Launches are counted in
 ``fused_layer_norm.launches``.
 
@@ -30,8 +30,8 @@ def layer_norm_reference(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tenso
 
 def _launch(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor, eps: float) -> torch.Tensor:
     c = x.shape[-1]
-    if x.dtype != torch.bfloat16:
-        raise ValueError(f"fused_layer_norm: the kernel takes bfloat16, got {x.dtype}")
+    if x.dtype not in (torch.bfloat16, torch.float32):
+        raise ValueError(f"fused_layer_norm: the kernel takes bfloat16 or float32, got {x.dtype}")
     if gamma.device != x.device or beta.device != x.device:
         raise ValueError(f"fused_layer_norm: x on {x.device}, gamma on {gamma.device}, "
                          f"beta on {beta.device}")
@@ -47,9 +47,9 @@ def _launch(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor, eps: float
     out = torch.empty_like(x2)
     lib = _build.lib()
     fused_layer_norm.launches += 1
-    code = lib.dg_layer_norm_bf16(x2.data_ptr(), gamma.data_ptr(), beta.data_ptr(),
-                                  out.data_ptr(), x2.shape[0], c, eps,
-                                  torch.cuda.current_stream(x.device).cuda_stream)
+    code = lib.dg_layer_norm(x2.data_ptr(), gamma.data_ptr(), beta.data_ptr(), out.data_ptr(),
+                             x2.shape[0], c, eps, int(x.dtype == torch.float32),
+                             torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(code, "layer norm kernel launch")
     return out.reshape(x.shape)
 

@@ -15,8 +15,11 @@ The serving options of the JAX module are ported too: ``quant`` (W8A8 int8
 transformer matmuls through ``ops/int8_matmul.py``, after
 :func:`quantize_unet_`; it turns ``ln_gemm`` off, as in JAX), ``fused_ln``
 (the transformer LayerNorms through ``ops/layer_norm.py``) and ``fused_gn``
-(every GroupNorm, with its SiLU, through ``ops/group_norm.py``). None of
-them changes the parameters, so checkpoints and converters are the same.
+(every GroupNorm, with its SiLU, through ``ops/group_norm.py``). So is
+``conv_matmul="fused"``: each ResBlock's norm → SiLU → 3×3 conv pairs run as
+one ``ops/gn_conv.py:fused_gn_silu_conv3x3`` call each (forward only; the
+ResBlocks then ignore ``fused_gn``, as in JAX). None of them changes the
+parameters, so checkpoints and converters are the same.
 """
 from __future__ import annotations
 
@@ -29,6 +32,7 @@ import torch.nn.functional as F
 
 from ...modeling.layers import Conv, Dense, LayerNorm
 from ...ops.flash_attention import flash_attention, flash_attention_packed
+from ...ops.gn_conv import fused_gn_silu_conv3x3
 from ...ops.group_norm import fused_group_norm
 from ...ops.layer_norm import fused_layer_norm
 from ...ops.ln_matmul import fused_ln_matmul
@@ -155,12 +159,27 @@ def quantize_unet_(unet: nn.Module) -> List[str]:
     return names
 
 
+def _check_conv_matmul(conv_matmul) -> None:
+    """The port takes the JAX option's ``False`` and ``"fused"``; ``True``,
+    ``'im2col'`` and ``'tapsum'`` were A/B knobs for TPU measurement."""
+    if conv_matmul is not False and conv_matmul != "fused":
+        raise NotImplementedError(f"conv_matmul={conv_matmul!r} is not ported: the port takes "
+                                  "False or \"fused\"")
+
+
 class ResBlock(nn.Module):
+    """GroupNorm → SiLU → 3×3 conv, + the time embedding, GroupNorm → SiLU →
+    3×3 conv, + the input (through a 1×1 ``conv_shortcut`` when the widths
+    differ). With ``conv_matmul="fused"`` each norm → SiLU → conv runs as one
+    ``fused_gn_silu_conv3x3`` call on the same submodules (the JAX
+    ``ResBlock._fused``)."""
+
     def __init__(self, in_channels: int, out_channels: int, temb_dim: int,
-                 dtype=torch.float32, device=None, fused_gn: bool = False):
+                 dtype=torch.float32, device=None, fused_gn: bool = False, conv_matmul=False):
         super().__init__()
+        _check_conv_matmul(conv_matmul)
         kw = dict(dtype=dtype, device=device)
-        self.fused_gn = fused_gn
+        self.fused_gn, self.conv_matmul = fused_gn, conv_matmul
         self.norm1 = GroupNorm32(in_channels, device)
         self.conv1 = Conv(in_channels, out_channels, 3, **kw)
         self.time_emb_proj = Dense(temb_dim, out_channels, **kw)
@@ -170,9 +189,23 @@ class ResBlock(nn.Module):
                               if in_channels != out_channels else None)
 
     def forward(self, x: torch.Tensor, emb: torch.Tensor) -> torch.Tensor:
+        if self.conv_matmul == "fused":
+            return self._fused(x, emb)
         h = self.conv1(_group_norm(x, self.norm1, self.fused_gn, silu=True))
         h = h + self.time_emb_proj(F.silu(emb))[:, None, None, :]
         h = self.conv2(_group_norm(h, self.norm2, self.fused_gn, silu=True))
+        if self.conv_shortcut is not None:
+            x = self.conv_shortcut(x)
+        return x + h
+
+    def _fused(self, x: torch.Tensor, emb: torch.Tensor) -> torch.Tensor:
+        """The JAX ``ResBlock._fused``: the time embedding added in float32
+        and cast back to x's dtype between the two fused calls."""
+        n1, n2 = self.norm1.GroupNorm_0, self.norm2.GroupNorm_0
+        h = fused_gn_silu_conv3x3(x, n1.weight, n1.bias, self.conv1.weight, self.conv1.bias)
+        e = self.time_emb_proj(F.silu(emb))
+        h = (h.float() + e.float()[:, None, None, :]).to(x.dtype)
+        h = fused_gn_silu_conv3x3(h, n2.weight, n2.bias, self.conv2.weight, self.conv2.bias)
         if self.conv_shortcut is not None:
             x = self.conv_shortcut(x)
         return x + h
@@ -305,9 +338,9 @@ class UNetSDXL(nn.Module):
 
     ``text_time`` builds the pooled-text + time-ids added conditioning
     (``add_embed_1/2``); the JAX module creates it when it is initialized with
-    those inputs. ``quant``, ``fused_ln`` and ``fused_gn`` are the JAX
-    module's serving options (see the module docstring); a ``quant`` UNet
-    runs after :func:`quantize_unet_`. Faster-Diffusion encoder reuse and
+    those inputs. ``quant``, ``fused_ln``, ``fused_gn`` and
+    ``conv_matmul="fused"`` are the JAX module's serving options (see the
+    module docstring); a ``quant`` UNet runs after :func:`quantize_unet_`. Faster-Diffusion encoder reuse and
     ``num_class_embeds`` are not ported yet and raise."""
 
     def __init__(self, in_channels: int = 4, out_channels: int = 4,
@@ -318,11 +351,12 @@ class UNetSDXL(nn.Module):
                  addition_time_embed_dim: int = 256, pooled_proj_dim: int = 2816,
                  text_time: bool = True, num_class_embeds: Optional[int] = None,
                  quant: bool = False, ln_gemm="geglu", fused_ln: bool = False,
-                 fused_gn: bool = False, dtype=torch.float32, device=None):
+                 fused_gn: bool = False, conv_matmul=False, dtype=torch.float32, device=None):
         super().__init__()
         if num_class_embeds is not None:
             raise NotImplementedError("num_class_embeds is not ported yet")
-        self.quant, self.fused_gn = quant, fused_gn
+        _check_conv_matmul(conv_matmul)
+        self.quant, self.fused_gn, self.conv_matmul = quant, fused_gn, conv_matmul
         self.in_channels = in_channels
         self.block_channels = tuple(block_channels)
         self.layers_per_block = layers_per_block
@@ -347,7 +381,7 @@ class UNetSDXL(nn.Module):
                     fused_ln, fused_gn))
 
         def res(cin, cout):
-            return ResBlock(cin, cout, temb, dtype, device, fused_gn)
+            return ResBlock(cin, cout, temb, dtype, device, fused_gn, conv_matmul)
 
         cur, skips = ch0, [ch0]
         n = len(self.block_channels)

@@ -228,18 +228,30 @@ def test_spatial_transformer_int8_vs_jax(flags):
 
 
 @pytest.mark.parametrize("flags", [{"fused_ln": True, "fused_gn": True}, {"quant": True},
-                                   {"quant": True, "fused_ln": True, "fused_gn": True}],
-                         ids=["fused_norms", "quant", "quant_fused_norms"])
+                                   {"quant": True, "fused_ln": True, "fused_gn": True},
+                                   {"conv_matmul": "fused"},
+                                   {"quant": True, "fused_ln": True, "fused_gn": True,
+                                    "conv_matmul": "fused"}],
+                         ids=["fused_norms", "quant", "quant_fused_norms", "fused_resblocks",
+                              "quant_fused_norms_fused_resblocks"])
 def test_unet_tiny_serving_options_vs_jax(tiny_params, flags):
     """The whole tiny UNet. Without ``quant`` the float32 results agree to
-    1e-4 of max |reference|. With it, the float32 activations of the two
+    1e-4 of max |reference|; with ``conv_matmul="fused"`` to 1e-2, since the
+    fused GroupNorm + SiLU + conv rounds its activation and weight to bfloat16
+    in both packages and a rounding tie can fall either way. With ``quant``,
+    the float32 activations of the two
     packages differ in the last bits before every int8 quantization, and a
     value that sits at a rounding tie then lands one step apart: on this
     model a relative perturbation of 1e-6 of the latents alone moves the int8
     output by 0.8 % of max |out|. So the int8 variants are held to a mean
     |Δ| of 1 % of mean |reference| and a max |Δ| of 2 % of max |reference|
     (the int8 path itself is 1.6 % from the float one here), and exactly, one
-    transformer at a time, by the test above."""
+    transformer at a time, by the test above. With ``quant`` and the fused
+    ResBlocks both, every ResBlock activation is rounded to bfloat16 as well:
+    there a 1e-6 relative perturbation of the latents moves the port's output
+    by 1.2 % of mean |out| and 1.4 % of max |out|, so that case is held to 3 %
+    of each (the fused ResBlock alone to 1e-2 above and in
+    ``tests/test_torch_gn_conv.py``)."""
     float_unet, params, state = tiny_params
     rng = np.random.RandomState(0)
     lat = rng.randn(2, 16, 16, 4).astype(np.float32)
@@ -258,8 +270,11 @@ def test_unet_tiny_serving_options_vs_jax(tiny_params, flags):
     assert got.shape == want.shape
     err = np.abs(_np(got) - _np(want))
     if flags.get("quant"):
-        assert err.mean() <= 1e-2 * np.abs(want).mean()
-        assert err.max() <= 2e-2 * np.abs(want).max()
+        both = flags.get("conv_matmul") == "fused"
+        assert err.mean() <= (3e-2 if both else 1e-2) * np.abs(want).mean()
+        assert err.max() <= (3e-2 if both else 2e-2) * np.abs(want).max()
+    elif flags.get("conv_matmul") == "fused":
+        assert err.max() <= 1e-2 * np.abs(want).max()
     else:
         assert err.max() <= 1e-4 * np.abs(want).max()
 

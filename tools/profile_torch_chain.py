@@ -6,10 +6,13 @@ Runs from the root of a checkout:
 (no argument: all six targets).
 
 The ``sdxl`` target traces one CFG UNet call of SDXL-base at B = 2 (UNet
-batch 4), 1024², seeded weights, in bf16 and then in the int8 + fused-norm
-serving configuration (``UNetSDXL(quant, fused_ln, fused_gn)`` on the same
-weights, after ``quantize_unet_``, which it also traces alone), and prints
-the kernel launches of one call of each.
+batch 4), 1024², seeded weights, in bf16, in the int8 + fused-norm serving
+configuration (``UNetSDXL(quant, fused_ln, fused_gn)`` on the same weights,
+after ``quantize_unet_``, which it also traces alone) and with fused
+ResBlocks (``UNetSDXL(conv_matmul="fused")``), and prints the kernel launches
+of one call of each. Then the 17 ResBlocks alone on the inputs they get in
+that call, bf16 (cuDNN convs and the plain GroupNorm) and fused (kernel 8),
+and kernel 8's per-call weight copies alone.
 
 Builds SAM ViT-H (bf16, fused encoder), the CLIP ViT-L/14 vision tower
 (float32), the compositor's benchmark batch, and the flagship detector
@@ -79,18 +82,21 @@ TARGETS = ("sdxl", "sam", "clip", "paste", "detector", "train")
 
 def profile_sdxl(dev, g) -> None:
     from divergen_tpu_torch.modeling.layers import flax_init_
-    from divergen_tpu_torch.ops import flash_attention, group_norm, int8_matmul, layer_norm
-    from divergen_tpu_torch.ops import ln_matmul
-    from divergen_tpu_torch.pipeline.generation.unet import UNetSDXL, quantize_unet_
+    from divergen_tpu_torch.ops import flash_attention, gn_conv, group_norm, int8_matmul
+    from divergen_tpu_torch.ops import layer_norm, ln_matmul
+    from divergen_tpu_torch.pipeline.generation.unet import ResBlock, UNetSDXL, quantize_unet_
 
     wrappers = (flash_attention.flash_attention_packed, ln_matmul.fused_ln_matmul,
                 int8_matmul.int8_matmul_fused_quant, int8_matmul.int8_matmul_pallas,
-                layer_norm.fused_layer_norm, group_norm.fused_group_norm)
+                layer_norm.fused_layer_norm, group_norm.fused_group_norm,
+                gn_conv.fused_gn_silu_conv3x3)
     bf16 = torch.bfloat16
     unet = flax_init_(UNetSDXL(dtype=bf16, device=dev), torch.Generator(device=dev).manual_seed(0))
     unet8 = UNetSDXL(dtype=bf16, device=dev, quant=True, fused_ln=True, fused_gn=True)
     unet8.load_state_dict(unet.state_dict())
     quantize_unet_(unet8)
+    unet_f = UNetSDXL(dtype=bf16, device=dev, conv_matmul="fused")
+    unet_f.load_state_dict(unet.state_dict())
     args = (torch.randn((4, 128, 128, 4), generator=g, device=dev),
             torch.full((4,), 500.0, device=dev),
             torch.randn((4, 77, 2048), generator=g, device=dev),
@@ -98,16 +104,39 @@ def profile_sdxl(dev, g) -> None:
             torch.tensor([1024.0, 1024, 0, 0, 1024, 1024], device=dev).expand(4, 6))
     what = "B=2 images (UNet batch 4), 1024²"
     with torch.inference_mode():
-        for name, model in (("bf16", unet), ("int8 + fused norms", unet8)):
+        for name, model in (("bf16", unet), ("int8 + fused norms", unet8),
+                            ('conv_matmul="fused"', unet_f)):
             before = [w.launches for w in wrappers]
             model(*args)
             counts = {w.__name__: w.launches - b for w, b in zip(wrappers, before)}
             print(f"UNet call ({name}): kernel launches {counts}", flush=True)
             trace(f"UNet call, {name}, {what}", lambda: model(*args),
                   also=("int8_gemm", "gn_moments", "gn_finalize", "gn_apply", "ln_vec",
-                        "ln_any"))
+                        "ln_any", "gn_conv", "gnc_fold"))
         trace("quantize_unet_ (the transformer weights of SDXL-base, once per denoise call)",
               lambda: quantize_unet_(unet8))
+
+        # the ResBlocks alone, on the inputs one UNet call gives them
+        inputs = {}
+
+        def keep(block, block_args):
+            inputs.setdefault(block, block_args)  # returns None: the call goes on unchanged
+
+        hooks = [m.register_forward_pre_hook(keep) for m in unet.modules()
+                 if isinstance(m, ResBlock)]
+        unet(*args)
+        for h in hooks:
+            h.remove()
+        pairs = [(dict(unet.named_modules())[n], unet_f.get_submodule(n))
+                 for n, m in unet.named_modules() if m in inputs]
+        trace(f"the {len(pairs)} ResBlocks alone, bf16 (cuDNN convs, plain GroupNorm32 + SiLU)",
+              lambda: [rb(*inputs[rb]) for rb, _ in pairs])
+        trace(f"the {len(pairs)} ResBlocks alone, fused (fused_gn_silu_conv3x3)",
+              lambda: [rf(*inputs[rb]) for rb, rf in pairs],
+              also=("gn_conv", "gnc_fold", "gn_moments"))
+        weights = [c.weight for _, rf in pairs for c in (rf.conv1, rf.conv2)]
+        trace(f"kernel 8's weight copies alone ({len(weights)} per UNet call)",
+              lambda: [gn_conv.weight_operand(w) for w in weights])
 
 
 def profile_sam(dev, g) -> None:
