@@ -35,12 +35,17 @@ Run from the root of a checkout:  python3 chip_smoke.py
    ``scaled_dot_product_attention`` alone (its forward graph built outside
    the timing, as the kernel's is), with its forward + backward printed too.
    Then the kernels of SDXL's int8 + fused-norm serving path
-   (``serving_kernel_phases``): int8_matmul_fused_quant at level-2 ff_geglu
-   and level-1 attn1_qkv, int8_matmul_pallas at level-2 ff_out and attn2_kv
-   (M = 4 x 77), each with a ragged case, against their plain versions'
-   bf16 results (relative L2 <= 1e-3; the count of differing elements is
-   printed); fused_group_norm and fused_layer_norm at the UNet's shapes and
-   ragged ones (the usual bounds); each of the four also with float32 x and
+   (``serving_kernel_phases``): int8_matmul_fused_quant at every GEMM shape
+   of an int8 UNet call that it takes (level-2 ff_geglu first),
+   int8_matmul_pallas at level-2 ff_out and the attn2_kv shapes (M = 4 x
+   77), each with a ragged case, equal to their plain versions' results in
+   every element (0 differing), each UNet shape with its device time,
+   torch._int_mm's, the bound and its launches per UNet call, summed per
+   kernel, and nothing written past the output (float32 cases with N % 8 ==
+   4 among them); the row-quantize pass of int8_matmul_fused_quant equal to
+   quantize_rows_fq_reference in every element, on rows built to hit its
+   ties and edges; fused_group_norm and fused_layer_norm at the UNet's
+   shapes and ragged ones (the usual bounds); each of the four also with float32 x and
    output (GroupNorm at C = 7680); then fused_gn_silu_conv3x3 at the fused
    ResBlock's level-0 (4, 128, 128, 320) -> 320 and level-2 (4, 32, 32, 2560)
    -> 1280, ragged (C = 48, and C = 36 to Co = 21) and float32 x against its
@@ -564,17 +569,42 @@ def kernel_phases(gen: torch.Generator):
     return results
 
 
+def device_ms(fn, reps: int = 10) -> float:
+    """Device time of ``fn`` in ms: its kernels' summed time under
+    ``torch.profiler`` over ``reps`` calls after one warm-up, per call."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(3):  # a trace that caught no kernel is taken again
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        total = sum(e.self_device_time_total for e in prof.key_averages()
+                    if e.self_device_time_total > 0 and "Memset" not in e.key)
+        if total > 0:
+            return total / 1e3 / reps
+    raise AssertionError("the profiler recorded no device time in three traces")
+
+
 def serving_kernel_phases(gen: torch.Generator):
     """The kernels of SDXL's int8 + fused-norm serving path against their plain
     versions on the same bf16 inputs, at the UNet's shapes plus ragged ones.
 
     int8 GEMMs (int8_matmul_fused_quant, int8_matmul_pallas): the int8
     operands and the int32 sums are exact, so the kernel must equal the plain
-    version's bf16 result: bound relative L2 <= 1e-3, and the count of output
-    elements that differ at all is printed (expected 0); the relative L2 to
-    the plain version's unrounded float32 result is printed too (bf16
-    rounding, about 1.6e-3). Norms (fused_group_norm, fused_layer_norm): the
-    usual bounds against the float32 plain version. Each of these four also
+    version's result in every element (0 differing, or the phase fails); the
+    relative L2 to the plain version's unrounded float32 result is printed too
+    (bf16 rounding, about 1.6e-3). Every distinct GEMM shape of an int8 UNet
+    call (``ops/int8_matmul.py:UNET_INT8_GEMMS``) runs on the kernel that takes it, with its
+    device time, ``torch._int_mm``'s, the bound, the launches per UNet call and
+    the plan's wave efficiency, and the sum of device time x launches per
+    kernel is printed. The row-quantize pass of int8_matmul_fused_quant
+    alone equals ``quantize_rows_fq_reference`` in every element (x_q and
+    scale), bf16 and f32, on rows built to hit its edge cases. Norms
+    (fused_group_norm, fused_layer_norm): the usual bounds against the float32
+    plain version; at the main shape also the device times (profiler) of the
+    kernel and of the PyTorch call, whose event times are the host's. Each of these four also
     with float32 x and output, the float32 UNet's path. The fused GroupNorm
     + SiLU + 3x3 conv (fused_gn_silu_conv3x3) at the fused ResBlock's level-0
     and level-2 shapes, ragged ones and float32 x, the usual bounds against
@@ -613,11 +643,18 @@ def serving_kernel_phases(gen: torch.Generator):
             lib_ms = time_one(library_fn)
             log(f"    PyTorch call {lib_ms:.4f} ms; bound {b_ms:.4f} ms by {by} "
                 f"({ops / 1e9:.2f} G operations, {nbytes / 1e6:.1f} MB)")
+            if kernel in ("fused_group_norm", "fused_layer_norm"):  # host-bound event times
+                log(f"    device time: kernel {device_ms(kernel_fn):.4f} ms, PyTorch call "
+                    f"{device_ms(library_fn):.4f} ms")
             if extra is not None:
                 log(f"    bf16 torch.matmul of the same shape {time_one(extra):.4f} ms")
             results[kernel] = {"max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms,
                                "bound_ms": b_ms, "bound_by": by, "library_ms": lib_ms}
         results[kernel]["max_abs_err"] = max(results[kernel]["max_abs_err"], err)
+
+    unet_gemms = i8_mod.UNET_INT8_GEMMS
+    unet_ms = {kernel: 0.0 for kernel in unet_gemms}
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
 
     def int8_case(kernel, m, k, n, dtype=torch.bfloat16):
         """``dtype``: x's (fused quant) and the output's; float32 is the
@@ -642,32 +679,99 @@ def serving_kernel_phases(gen: torch.Generator):
         err = compare(name, got, ref, rel_l2_bound=1e-3)
         ref32 = plain(torch.float32)
         rel32 = ((got.float() - ref32).norm() / ref32.norm()).item()
+        differ = int((got != ref).sum())
         log(f"    elements that differ from the plain version's {str(dtype)[6:]} result: "
-            f"{int((got != ref).sum())} of {got.numel()}; rel_l2 to its float32 result "
-            f"{rel32:.3g}")
+            f"{differ} of {got.numel()}; rel_l2 to its float32 result {rel32:.3g}")
+        if differ:
+            raise AssertionError(f"{name}: {differ} elements differ from the plain version")
         del ref, ref32
         same_bits(name, got, run)
+        # nothing written past the output: the GEMM into the first M rows of a
+        # buffer whose row M is NaN gives the same bits and leaves that row NaN
+        # (a store past a row's end lands in the next row, the last one's here)
+        a_q, a_s = (i8_mod._quantize_rows_fq(x) if kernel == "int8_matmul_fused_quant"
+                    else (x_q, x_s.reshape(m)))
+        guarded = torch.full((m + 1, n), float("nan"), device=dev, dtype=dtype)
+        i8_mod._gemm(a_q, a_s, w_q.t(), w_s, guarded[:m])
+        if not (torch.equal(guarded[:m], got) and bool(guarded[m].isnan().all())):
+            raise AssertionError(f"{name}: the GEMM wrote outside its (M, N) output")
+        log("    writes nothing past its output: True")
+        del a_q, a_s, guarded
         w16 = w.bfloat16()
         record(kernel, err, run, lambda: plain(torch.float32), lambda: torch._int_mm(x_q, w_q),
                2.0 * m * k * n, nbytes, PEAK_INT8_OPS, extra=lambda: torch.matmul(x, w16.t()))
+        launches = unet_gemms[kernel].get((m, k, n)) if dtype == torch.bfloat16 else None
+        if launches:
+            bn, ctas = i8_mod.gemm_plan(m, n, sms)
+            tiles = -(-m // i8_mod.GEMM_BM) * -(-n // bn)
+            waves = -(-tiles // ctas)
+            dev_ms, lib_ms = device_ms(run), device_ms(lambda: torch._int_mm(x_q, w_q))
+            b_ms, by = bound(2.0 * m * k * n, nbytes, PEAK_INT8_OPS)
+            unet_ms[kernel] += dev_ms * launches
+            log(f"    UNet shape: device {dev_ms:.4f} ms, torch._int_mm {lib_ms:.4f} ms, bound "
+                f"{b_ms:.4f} ms by {by}, {launches} launches per UNet call; tiles {bn} wide, "
+                f"{tiles} on {ctas} blocks, wave efficiency "
+                f"{m * n / (sms * waves * i8_mod.GEMM_BM * bn):.3f}")
         torch.cuda.empty_cache()
 
     log("kernel phase: int8_matmul_fused_quant")
-    # level-2 ff_geglu and level-1 attn1_qkv of the UNet at B = 2, 1024² (UNet
-    # batch 4), then a ragged case: M, N and K off every tile, N odd
-    for m, k, n in ((4096, 1280, 10240), (16384, 640, 1920), (1000, 656, 1001)):
+    # level-2 ff_geglu (the main shape), then the UNet's other shapes for this
+    # kernel, then a ragged case: M, N and K off every tile, N odd
+    fused_shapes = [shape for shape in unet_gemms["int8_matmul_fused_quant"]
+                    if shape != (4096, 1280, 10240)]
+    for m, k, n in ((4096, 1280, 10240), *fused_shapes, (1000, 656, 1001)):
         int8_case("int8_matmul_fused_quant", m, k, n)
-    # float32 x and output (the float32 UNet): level-1 attn1_qkv at B = 1, ragged
-    for m, k, n in ((4096, 640, 1920), (1000, 656, 1001)):
+    # float32 x and output (the float32 UNet): level-1 attn1_qkv at B = 1,
+    # ragged, and N % 8 == 4 (a row's last block of 8 columns half outside it)
+    for m, k, n in ((4096, 640, 1920), (1000, 656, 1001), (1000, 656, 1004)):
         int8_case("int8_matmul_fused_quant", m, k, n, torch.float32)
     log("kernel phase: int8_matmul_pallas")
-    # level-2 ff_out (K 5120, over the fused kernel's limit) and the level-2
-    # cross-attention attn2_kv over the 77 text tokens (M = 4 x 77), which the
-    # JAX package leaves to XLA; then a tiny ragged case
-    for m, k, n in ((4096, 5120, 1280), (308, 2048, 2560), (77, 48, 3)):
+    # level-2 ff_out (K 5120, over the fused kernel's limit) and the
+    # cross-attention attn2_kv over the 77 text tokens (M = 4 x 77) at both
+    # levels, which the JAX package leaves to XLA; then a tiny ragged case
+    for m, k, n in ((4096, 5120, 1280), (308, 2048, 2560), (308, 2048, 1280), (77, 48, 3)):
         int8_case("int8_matmul_pallas", m, k, n)
-    for m, k, n in ((308, 2048, 2560), (77, 48, 3)):  # float32 output
+    for m, k, n in ((308, 2048, 2560), (77, 48, 3), (77, 48, 12)):  # float32 output
         int8_case("int8_matmul_pallas", m, k, n, torch.float32)
+    for kernel, ms in unet_ms.items():
+        calls = sum(unet_gemms[kernel].values())
+        if calls != SERVING_LAUNCHES[kernel]:
+            raise AssertionError(f"{kernel}: UNET_INT8_GEMMS counts {calls} launches a UNet "
+                                 f"call, SERVING_LAUNCHES {SERVING_LAUNCHES[kernel]}")
+        log(f"  {kernel}: device time x launches per int8 UNet call, summed over its {calls} "
+            f"launches: {ms:.3f} ms")
+
+    log("kernel phase: the row-quantize pass of int8_matmul_fused_quant")
+    # rows: random, all zero, absmax below 1.27e-10 and below 1e-12 (the two
+    # scale formulas part there), absmax 127 with exact .5 ties (scale 1),
+    # values a random scale puts within an ulp of .5 ties, and +-absmax (the
+    # clip's edge); the main shape, the K 2560 shape and a ragged one
+    for (m, k), dtype in (((4096, 1280), torch.bfloat16), ((4096, 1280), torch.float32),
+                          ((16384, 2560), torch.bfloat16), ((1000, 656), torch.float32)):
+        x = torch.randn((m, k), generator=gen, device=dev)
+        x[1] = 0.0
+        x[2] *= 1e-11
+        x[3] *= 1e-13
+        x[4] = (torch.arange(k, device=dev) % 254 - 127).float() + 0.5
+        x[4, 0] = 127.0
+        half_ties = (torch.randint(-126, 127, (m - 8, k), generator=gen, device=dev) + 0.5)
+        x[8:] = torch.where(torch.rand((m - 8, k), generator=gen, device=dev) < 0.25,
+                            half_ties * x[8:].abs().amax(dim=1, keepdim=True) / 127, x[8:])
+        x[5, 7] = -x[5].abs().max() * 2
+        x = x.to(dtype)
+        got_q, got_s = i8_mod._quantize_rows_fq(x)
+        ref_q, ref_s = i8_mod.quantize_rows_fq_reference(x)
+        bad_q = int((got_q != ref_q).sum())
+        bad_s = int((got_s != ref_s.reshape(-1)).sum())
+        ms = device_ms(lambda: i8_mod._quantize_rows_fq(x))
+        log(f"  quantize rows M={m} K={k} {str(dtype)[6:]}: x_q elements that differ {bad_q} "
+            f"of {got_q.numel()}, scales that differ {bad_s} of {m}; device {ms:.4f} ms "
+            f"(bound {1e3 * (x.numel() * (x.element_size() + 1) + 4 * m) / PEAK_BYTES_PER_S:.4f} "
+            "ms by bytes)")
+        if bad_q or bad_s:
+            raise AssertionError("the row-quantize pass differs from quantize_rows_fq_reference")
+        del x, got_q, got_s, ref_q, ref_s
+        torch.cuda.empty_cache()
 
     log("kernel phase: fused_group_norm")
     # ResBlock norm at level 0 (with SiLU), a level-2 transformer norm

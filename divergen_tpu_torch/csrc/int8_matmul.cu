@@ -5,12 +5,12 @@
 //
 // Replaces the two Pallas TPU kernels of divergen_tpu/ops/pallas/int8_matmul.py:
 //   * int8_matmul_pallas (_kernel): x already quantized (int8 (M, K) and a
-//     per-row f32 scale, from ops/quant.py:quantize_act);
-//   * int8_matmul_fused_quant (_kernel_fq): bf16 or f32 x, quantized inside
-//     the kernel with the per-row scale max(absmax, 1e-12) / 127, a true
-//     division, round half to even and a clip to +-127 (the TPU kernel's own
-//     formula, which differs from quantize_act's max(absmax / 127, 1e-12) for
-//     rows whose absmax is below 1.27e-10).
+//     per-row f32 scale, from ops/quant.py:quantize_act): int8_gemm_kernel;
+//   * int8_matmul_fused_quant (_kernel_fq): bf16 or f32 x, quantized per row
+//     with the TPU kernel's own scale max(absmax, 1e-12) / 127, a true
+//     division, round half to even and a clip to +-127 (which differs from
+//     quantize_act's max(absmax / 127, 1e-12) for rows whose absmax is below
+//     1.27e-10): quantize_rows_kernel, then the same int8_gemm_kernel.
 // The int32 sums are exact, so the result equals the plain version's bit for
 // bit: the same int8 operands, the same f32 products in the same order, the
 // same rounding to the output type.
@@ -21,311 +21,522 @@
 // the card's 590 per byte at 1979 TOPS, so the tensor cores are the limit and
 // the int32 accumulator must never reach device memory.
 //
-// Design: the body of csrc/ln_matmul.cu in bytes. The s8 m16n8k32 product
-// reads fragments with the same byte layout as the bf16 m16n8k16 one, so a
-// tile of int8 rows of 64 bytes is loaded with the same ldmatrix calls as a
-// tile of bf16 rows of 32 elements (see mma_sm90.cuh). A block computes a
-// 128 x 256 output tile with 8 warps of 64 x 64, K in steps of 64 through a
-// three-stage cp.async ring (two tiles in flight while one is multiplied);
-// the accumulator lives in registers and the epilogue dequantizes it there
-// and writes bf16 or f32 straight to device memory. The fused-quant variant
-// first reads its 128 rows of x across the whole K for their absmax
-// (overlapped with the first copies of the ring), keeps the 128 scales in
-// shared memory, streams raw x tiles (bf16, or f32 in chunks of two 16-byte
-// copies) through the ring and has each thread quantize the chunks it copied
-// into an int8 tile beside them before the tile is used.
-// K is never split across blocks. Any M and N; K a multiple of 16 (whole
-// 16-byte chunks), with the M, N and K tails masked (zero-filled on load,
-// not stored). No TMA, wgmma or warp specialisation yet.
+// Why the quantization is a pass of its own: the TPU kernel quantizes x in
+// the GEMM because its block holds the whole K extent in VMEM and its grid
+// runs in order on one core, so each row is quantized once and x makes one
+// trip from HBM. Here the blocks are independent and each output tile of
+// BN columns would quantize its 128 rows again: at ff_geglu (N 10240) every
+// row 40 times, 40 absmax passes over x and 40x the true divisions. The pass
+// moves 3 bytes per bf16 element (about 5 us at ff_geglu at 3.35 TB/s); the
+// redundancy it removes cost most of a millisecond. One warp per row: the
+// absmax by a shuffle reduction, the scale by __fdiv_rn, then each element
+// quantized once (a product with the reciprocal where that provably rounds as
+// the true quotient does, the true division elsewhere: quant_byte; a true
+// division per element made the pass 1.34x slower at K 640 and 1.14x at K
+// 1280) into an int8 (M, K) and an f32 (M,) scratch the wrapper allocates.
+//
+// The GEMM: a persistent grid of one block per SM (the wrapper picks the
+// block count and the tile width BN, ops/int8_matmul.py:gemm_plan) walks the
+// 128 x BN output tiles, row tiles fastest, so the blocks in flight share a
+// band of the weight. Three warpgroups: one producer, whose one thread keeps
+// TMA loads of 128 x 128-byte x tiles and BN x 128-byte weight tiles in flight
+// through a ring of shared-memory stages (mbarriers: "full" when a stage's
+// bytes have landed, "empty" when its consumer is done with it), and two
+// consumer warpgroups that take the block's tiles in turn ("ping-pong"): each
+// issues wgmma.mma_async m64nBNk32.s32.s8.s8 for the two 64-row halves of its
+// tile on the stages as they arrive, one commit group in flight, the s32
+// accumulators in registers (BN a thread), then dequantizes them in registers
+// and stores bf16 or f32 straight to device memory, masked at the M and N
+// tails, while the other warpgroup's products keep the tensor cores busy (with
+// one tile shared by both warpgroups the tensor cores stood idle during every
+// epilogue). Before the stores, lanes trade sums within their quad so that
+// each holds 8 adjacent columns: a warp writes whole 32-byte sectors, 16 bytes
+// a lane (32 in f32). Both operands are K-major (x (M, K), the weight (N, K)), the only
+// layout wgmma takes for 8-bit types, and TMA's 128-byte swizzle lays them out
+// as the descriptors read them. setmaxnreg moves registers from the producer
+// to the consumers. TMA zero-fills reads past M, N and K, so any M and N work
+// and any K that is a multiple of 16 (TMA's 16-byte row strides). The tensor
+// maps are encoded on the host by libcuda's cuTensorMapEncodeTiled (its
+// entry point looked up at run time: no -lcuda) on every call: a cache of
+// them saved no host time that showed (under 0.1 ms an int8 UNet call).
 
+#include <cuda.h>  // CUtensorMap and its enums (types only: libcuda is not linked)
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include "gn_moments.cuh"  // dg::load_vec, dg::store_pair, dg::store_one
-#include "mma_sm90.cuh"
+#include "mma_sm90.cuh"    // dg::smem_addr
 
 namespace {
 
 typedef __nv_bfloat16 bf16;
 
-constexpr int kBM = 128;    // rows of x per block
-constexpr int kBN = 256;    // weight rows (output columns) per block
-constexpr int kBK = 64;     // K per tile: int8 elements = bytes
-constexpr int kStages = 3;  // cp.async ring depth
-constexpr int kWM = 64;     // rows per warp
-constexpr int kWN = 64;     // output columns per warp
-constexpr int kWarpsN = kBN / kWN;
-constexpr int kThreads = 32 * (kBM / kWM) * kWarpsN;
-constexpr int kLDQ = kBK + 16;  // bytes per int8 row in shared memory
-constexpr int kQRowStep = kThreads / (kBK / 16);  // rows between a thread's int8 chunks
-constexpr int kXRowStep = kThreads / (kBK / 8);   // ... and its 8-element x chunks
-constexpr int kAQChunks = kBM / kQRowStep;        // 16-byte int8 x chunks per thread
-constexpr int kBChunks = kBN / kQRowStep;         // 16-byte weight chunks per thread
-constexpr int kAXChunks = kBM / kXRowStep;        // 8-element raw x chunks per thread
-constexpr size_t kTileQA = static_cast<size_t>(kBM) * kLDQ;
-constexpr size_t kTileB = static_cast<size_t>(kBN) * kLDQ;
-static_assert(kThreads == 256 && kAQChunks * kQRowStep == kBM &&
-                  kBChunks * kQRowStep == kBN && kAXChunks * kXRowStep == kBM,
-              "tile plan");
-static_assert(kTileQA % 128 == 0 && kTileB % 128 == 0, "aligned regions");
+constexpr int kBM = 128;                    // output rows per tile
+constexpr int kBK = 128;                    // K bytes per stage: one 128-byte swizzle row
+constexpr int kConsumers = 2;               // warpgroups, each on tiles of its own
+constexpr int kThreads = 128 * (1 + kConsumers);
+constexpr int kStages = 6;                  // shared-memory ring depth
+constexpr int kQuantRows = 8;               // rows per block of the quantize pass (one a warp)
 
-// TX: the raw x element of the fused-quant variant (bf16 or f32)
-template <bool FQ, typename TX>
-struct Plan {
-  // elements per raw x row: 16 bytes of padding
-  static constexpr int kLDX = kBK + 16 / static_cast<int>(sizeof(TX));
-  static constexpr size_t kTileX = sizeof(TX) * kBM * kLDX;
-  static constexpr size_t kStage = kTileQA + kTileB + (FQ ? kTileX : 0);
-  static constexpr size_t kSmem = kStages * kStage;
-  static_assert(kTileX % 128 == 0, "aligned regions");
+template <int BN>
+struct Tile {
+  static_assert(BN % 32 == 0 && BN <= 160, "wgmma N; two accumulators of BN / 2 registers");
+  static constexpr int kBytesA = kBM * kBK;
+  static constexpr int kBytesB = BN * kBK;
+  static constexpr int kStage = kBytesA + kBytesB;
+  static constexpr int kSmem = kStages * kStage + 1024;  // + slack to align the ring to 1024
+  static_assert(kBytesA % 1024 == 0 && kBytesB % 1024 == 0, "swizzle atoms stay aligned");
+  static_assert(kSmem + 256 <= 232448, "the ring and the barriers fit in a block's 227 KB");
 };
 
-struct Args {
-  const int8_t* xq;  // (m, k) int8 (int8_matmul_pallas)
-  const float* xs;   // (m,) f32 (int8_matmul_pallas)
-  const void* x;     // (m, k) TX (int8_matmul_fused_quant)
-  const int8_t* wq;  // (n, k) int8: the (k, n) weight read as its transpose
-  const float* ws;   // (n,) f32
-  void* out;         // (m, n) TO
+struct GemmArgs {
+  const float* xs;  // (m,) f32 row scales
+  const float* ws;  // (n,) f32 column scales
+  void* out;        // (m, n) TO
   int m, n, k;
+  int tiles_m, tiles;
 };
 
-
-// one int8 of round-half-even(v / s) clipped to +-127, as a byte
-__device__ __forceinline__ uint32_t quant_byte(float v, float s) {
-  const float q = fminf(fmaxf(rintf(__fdiv_rn(v, s)), -127.f), 127.f);
+// one int8 of round-half-even(fl(v / s)) clipped to +-127, as a byte, where
+// fl(v / s) is the correctly rounded quotient. With r = fl(1 / s), fl(v r)
+// lies within 3 * 2^-24 |v / s| of fl(v / s); since |v / s| <= 127 (1 + 2^-24),
+// the two round to the same integer unless fl(v r) is within 2.3e-5 of a
+// half-integer, and only then (ties included) is the quotient computed by a
+// true division.
+__device__ __forceinline__ uint32_t quant_byte(float v, float s, float r) {
+  float q = __fmul_rn(v, r);
+  if (fabsf(q - rintf(q)) > 0.4999f) q = __fdiv_rn(v, s);
+  q = fminf(fmaxf(rintf(q), -127.f), 127.f);
   return static_cast<uint32_t>(static_cast<int>(q)) & 0xffu;
 }
 
-template <bool FQ, typename TX, typename TO>
-__global__ void __launch_bounds__(kThreads, 1) int8_gemm_kernel(const Args a) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  __shared__ float s_xs[kBM];  // the block's per-row activation scales
-  typedef Plan<FQ, TX> P;
-  const TX* x = static_cast<const TX*>(a.x);
-
-  const int m0 = blockIdx.y * kBM;
-  const int n0 = blockIdx.x * kBN;
+// x (m, k) TX -> xq (m, k) int8 and xs (m,) f32, one warp per row; k % 8 == 0
+template <typename TX>
+__global__ void __launch_bounds__(32 * kQuantRows) quantize_rows_kernel(
+    const TX* __restrict__ x, int8_t* __restrict__ xq, float* __restrict__ xs, int m, int k) {
   const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int wm = warp / kWarpsN;  // 2 warps down, 64 rows each
-  const int wn = warp % kWarpsN;  // 4 warps across, 64 columns each
-  const int g = lane >> 2;
-  const int t4 = lane & 3;
-  // this thread copies int8 chunks at rows qr + i * kQRowStep, bytes qc..qc+15,
-  // and raw x chunks at rows xr + i * kXRowStep, elements xc..xc+7, of each tile
-  const int qr = threadIdx.x / (kBK / 16);
-  const int qc = (threadIdx.x % (kBK / 16)) * 16;
-  const int xr = threadIdx.x / (kBK / 8);
-  const int xc = (threadIdx.x % (kBK / 8)) * 8;
-
-  auto stage_qa = [&](int st) { return smem + st * P::kStage; };
-  auto stage_b = [&](int st) { return smem + st * P::kStage + kTileQA; };
-  auto stage_x = [&](int st) {
-    return reinterpret_cast<TX*>(smem + st * P::kStage + kTileQA + kTileB);
-  };
-  auto load_tile = [&](int st, int k0) {  // zeros outside M, N and K
-    const bool kq_ok = k0 + qc < a.k;
+  const int row = blockIdx.x * kQuantRows + (threadIdx.x >> 5);
+  if (row >= m) return;
+  const TX* xr = x + static_cast<int64_t>(row) * k;
+  float amax = 0.f;
+#pragma unroll 4
+  for (int c = lane * 8; c < k; c += 256) {
+    float v[8];
+    dg::load_vec<8>(xr + c, v);
 #pragma unroll
-    for (int i = 0; i < kBChunks; ++i) {
-      const int r = qr + i * kQRowStep;
-      const bool ok = kq_ok && n0 + r < a.n;
-      dg::cp_async16(stage_b(st) + r * kLDQ + qc,
-                     ok ? a.wq + static_cast<int64_t>(n0 + r) * a.k + k0 + qc : a.wq, ok);
-    }
-    if (FQ) {
-      const bool kx_ok = k0 + xc < a.k;
-#pragma unroll
-      for (int i = 0; i < kAXChunks; ++i) {
-        const int r = xr + i * kXRowStep;
-        const bool ok = kx_ok && m0 + r < a.m;
-        const TX* src = ok ? x + static_cast<int64_t>(m0 + r) * a.k + k0 + xc : x;
-        TX* dst = stage_x(st) + r * P::kLDX + xc;
-#pragma unroll
-        for (int part = 0; part < static_cast<int>(sizeof(TX)) / 2; ++part)  // 16 bytes each
-          dg::cp_async16(dst + part * 4, src + part * 4, ok);
-      }
-    } else {
-#pragma unroll
-      for (int i = 0; i < kAQChunks; ++i) {
-        const int r = qr + i * kQRowStep;
-        const bool ok = kq_ok && m0 + r < a.m;
-        dg::cp_async16(stage_qa(st) + r * kLDQ + qc,
-                       ok ? a.xq + static_cast<int64_t>(m0 + r) * a.k + k0 + qc : a.xq, ok);
-      }
-    }
-  };
-  auto quantize_tile = [&](int st) {  // this thread's own raw x chunks -> int8 tile
-#pragma unroll
-    for (int i = 0; i < kAXChunks; ++i) {
-      const int r = xr + i * kXRowStep;
-      const float s = s_xs[r];
-      float v[8];
-      dg::load_vec<8>(stage_x(st) + r * P::kLDX + xc, v);
-      uint32_t word[2];
-#pragma unroll
-      for (int w = 0; w < 2; ++w)
-        word[w] = quant_byte(v[4 * w], s) | (quant_byte(v[4 * w + 1], s) << 8) |
-                  (quant_byte(v[4 * w + 2], s) << 16) | (quant_byte(v[4 * w + 3], s) << 24);
-      *reinterpret_cast<uint2*>(stage_qa(st) + r * kLDQ + xc) = make_uint2(word[0], word[1]);
-    }
-  };
-
-  const int n_tiles = (a.k + kBK - 1) / kBK;
-#pragma unroll
-  for (int s = 0; s < kStages - 1; ++s) {  // one commit group per tile, even if empty
-    if (s < n_tiles) load_tile(s, s * kBK);
-    dg::cp_async_commit();
+    for (int j = 0; j < 8; ++j) amax = fmaxf(amax, fabsf(v[j]));
   }
-
-  if (FQ) {
-    // per-row absmax over the whole K while the first tiles are in flight:
-    // warp w takes rows w, w + 8, ...; rows past M get scale 1 (their zeros
-    // quantize to zeros)
-    for (int r = warp; r < kBM; r += kThreads / 32) {
-      const int row = m0 + r;
-      float amax = 0.f;
-      if (row < a.m) {
-        const TX* xrow = x + static_cast<int64_t>(row) * a.k;
-        for (int c = lane * 8; c < a.k; c += 256) {
-          float v[8];
-          dg::load_vec<8>(xrow + c, v);
 #pragma unroll
-          for (int j = 0; j < 4; ++j)
-            amax = fmaxf(amax, fmaxf(fabsf(v[2 * j]), fabsf(v[2 * j + 1])));
-        }
-      }
+  for (int off = 16; off > 0; off >>= 1)
+    amax = fmaxf(amax, __shfl_xor_sync(0xffffffffu, amax, off));
+  const float s = __fdiv_rn(fmaxf(amax, 1e-12f), 127.f);
+  const float r = __frcp_rn(s);
+  if (lane == 0) xs[row] = s;
+  int8_t* qr = xq + static_cast<int64_t>(row) * k;
+#pragma unroll 4
+  for (int c = lane * 8; c < k; c += 256) {
+    float v[8];
+    dg::load_vec<8>(xr + c, v);
+    uint32_t word[2];
 #pragma unroll
-      for (int off = 16; off > 0; off >>= 1)
-        amax = fmaxf(amax, __shfl_xor_sync(0xffffffffu, amax, off));
-      if (lane == 0) s_xs[r] = row < a.m ? fmaxf(amax, 1e-12f) / 127.f : 1.f;
-    }
-  } else {
-    for (int r = threadIdx.x; r < kBM; r += kThreads)
-      s_xs[r] = m0 + r < a.m ? a.xs[m0 + r] : 0.f;
+    for (int w = 0; w < 2; ++w)
+      word[w] = quant_byte(v[4 * w], s, r) | (quant_byte(v[4 * w + 1], s, r) << 8) |
+                (quant_byte(v[4 * w + 2], s, r) << 16) | (quant_byte(v[4 * w + 3], s, r) << 24);
+    *reinterpret_cast<uint2*>(qr + c) = make_uint2(word[0], word[1]);
   }
-  __syncthreads();  // the scales are visible to every thread
-
-  constexpr int kMI = kWM / 16;  // m16 tiles per warp
-  constexpr int kNJ = kWN / 8;   // n8 tiles per warp
-  int acc[kMI][kNJ][4];
-#pragma unroll
-  for (int i = 0; i < kMI; ++i)
-#pragma unroll
-    for (int j = 0; j < kNJ; ++j) acc[i][j][0] = acc[i][j][1] = acc[i][j][2] = acc[i][j][3] = 0;
-
-  for (int t = 0; t < n_tiles; ++t) {
-    const int st = t % kStages;
-    dg::cp_async_wait<kStages - 2>();  // tile t's own chunks have landed
-    if (FQ) quantize_tile(st);
-    __syncthreads();  // tile t complete for all; stage (t - 1) % kStages free
-    if (t + kStages - 1 < n_tiles)
-      load_tile((t + kStages - 1) % kStages, (t + kStages - 1) * kBK);
-    dg::cp_async_commit();
-    const unsigned char* tA = stage_qa(st);
-    const unsigned char* tB = stage_b(st);
-#pragma unroll
-    for (int kk = 0; kk < kBK; kk += 32) {  // bytes: one m16n8k32 step
-      uint32_t af[kMI][4], bfr[kNJ / 2][4];
-#pragma unroll
-      for (int i = 0; i < kMI; ++i)
-        dg::ldmatrix_x4(af[i], tA + (wm * kWM + i * 16 + (lane & 15)) * kLDQ + kk +
-                                   (lane >> 4) * 16);
-#pragma unroll
-      for (int j = 0; j < kNJ / 2; ++j)
-        dg::ldmatrix_x4(bfr[j], tB + (wn * kWN + j * 16 + (lane & 7) + ((lane >> 4) << 3)) * kLDQ +
-                                    kk + ((lane >> 3) & 1) * 16);
-#pragma unroll
-      for (int i = 0; i < kMI; ++i)
-#pragma unroll
-        for (int j = 0; j < kNJ / 2; ++j) {
-          dg::mma_s8_16832(acc[i][2 * j], af[i], bfr[j][0], bfr[j][1]);
-          dg::mma_s8_16832(acc[i][2 * j + 1], af[i], bfr[j][2], bfr[j][3]);
-        }
-    }
-  }
-  dg::cp_async_wait<0>();
-
-  // dequantize in registers: (float(acc) * x_scale[row]) * w_scale[col] -> TO
-  const bool pairs = (a.n & 1) == 0;  // pair stores stay aligned
-#pragma unroll
-  for (int i = 0; i < kMI; ++i)
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int r = wm * kWM + i * 16 + g + 8 * h;
-      if (m0 + r >= a.m) continue;
-      const float xs = s_xs[r];
-      TO* orow = static_cast<TO*>(a.out) + static_cast<int64_t>(m0 + r) * a.n;
-#pragma unroll
-      for (int j = 0; j < kNJ; ++j) {
-        const int col = n0 + wn * kWN + j * 8 + 2 * t4;
-        if (col >= a.n) continue;
-        const float v0 = __fmul_rn(__fmul_rn(__int2float_rn(acc[i][j][2 * h]), xs), a.ws[col]);
-        if (col + 1 < a.n) {
-          const float v1 =
-              __fmul_rn(__fmul_rn(__int2float_rn(acc[i][j][2 * h + 1]), xs), a.ws[col + 1]);
-          if (pairs) {
-            dg::store_pair(orow + col, v0, v1);
-          } else {
-            dg::store_one(orow + col, v0);
-            dg::store_one(orow + col + 1, v1);
-          }
-        } else {
-          dg::store_one(orow + col, v0);
-        }
-      }
-    }
 }
 
-template <bool FQ, typename TX, typename TO>
-int launch(const Args& a, cudaStream_t stream) {
-  if (a.k % 16 != 0 || a.m <= 0 || a.n <= 0 || a.k <= 0)
-    return static_cast<int>(cudaErrorInvalidValue);
-  typedef Plan<FQ, TX> P;
-  cudaError_t err = cudaFuncSetAttribute(int8_gemm_kernel<FQ, TX, TO>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         static_cast<int>(P::kSmem));
+// 8 adjacent outputs, 16-byte aligned: 16 bytes of bf16 or 32 of f32
+__device__ __forceinline__ void store8(bf16* p, const float (&y)[8]) {
+  *reinterpret_cast<uint4*>(p) =
+      make_uint4(dg::pack_bf16x2(y[0], y[1]), dg::pack_bf16x2(y[2], y[3]),
+                 dg::pack_bf16x2(y[4], y[5]), dg::pack_bf16x2(y[6], y[7]));
+}
+__device__ __forceinline__ void store8(float* p, const float (&y)[8]) {
+  *reinterpret_cast<float4*>(p) = make_float4(y[0], y[1], y[2], y[3]);
+  *reinterpret_cast<float4*>(p + 4) = make_float4(y[4], y[5], y[6], y[7]);
+}
+
+// ---- mbarriers, TMA and wgmma (PTX ISA 8.0, sm_90a)
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(dg::smem_addr(bar)), "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(dg::smem_addr(bar))
+               : "memory");
+}
+
+// arrive, and expect `bytes` more of TMA transactions in this phase
+__device__ __forceinline__ void mbar_arrive_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+                   dg::smem_addr(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+// wait until the phase of parity `parity` has completed
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  const uint32_t addr = dg::smem_addr(bar);
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(addr), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+// the (c0, c1) box of `map` (c0 the inner, K coordinate, in bytes) into dst;
+// completion is counted on `bar`
+__device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map, uint64_t* bar,
+                                            int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4}], [%2];\n" ::"r"(dg::smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(dg::smem_addr(bar)), "r"(c0), "r"(c1)
+      : "memory");
+}
+
+// wgmma shared-memory descriptor of a K-major tile whose rows are 128 bytes
+// under the 128-byte swizzle: start address >> 4, leading offset 1 (unused
+// for this layout), stride 1024 bytes between groups of 8 rows, layout 1
+// (128-byte swizzle). The tile must start on a 1024-byte boundary; the k-th
+// 32-byte step of K inside the swizzled row is the start address + 32 k.
+__device__ __forceinline__ uint64_t sw128_desc(const void* tile) {
+  const uint64_t addr = dg::smem_addr(tile);
+  return ((addr & 0x3ffff) >> 4) | (1ull << 16) | (64ull << 32) | (1ull << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// keeps the compiler from moving reads or writes of the accumulator across
+// the asynchronous wgmma instructions
+template <int R>
+__device__ __forceinline__ void fence_acc(int (&d)[R]) {
+#pragma unroll
+  for (int i = 0; i < R; ++i) asm volatile("" : "+r"(d[i])::"memory");
+}
+
+// d (64 x N s32, the warpgroup's accumulator fragment) += A (64 x 32 s8, K-major,
+// descriptor a) * B (N x 32 s8, K-major, descriptor b)^T; scale_d = 0: d = A B^T.
+// Fragment: thread t of the warpgroup holds rows 16 (t / 32) + (t % 32) / 4 + {0, 8},
+// columns 8 j + 2 (t % 4) + {0, 1}, as d[4 j + {0, 1}] (row +0), d[4 j + {2, 3}] (row +8).
+template <int N>
+__device__ __forceinline__ void wgmma_s8(int (&d)[N / 2], uint64_t a, uint64_t b, int scale_d);
+
+#define DG_R8(i)                                                                          \
+  "+r"(d[i]), "+r"(d[i + 1]), "+r"(d[i + 2]), "+r"(d[i + 3]), "+r"(d[i + 4]), "+r"(d[i + 5]), \
+      "+r"(d[i + 6]), "+r"(d[i + 7])
+
+template <>
+__device__ __forceinline__ void wgmma_s8<128>(int (&d)[64], uint64_t a, uint64_t b,
+                                             int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p;\n}\n"
+      : DG_R8(0), DG_R8(8), DG_R8(16), DG_R8(24), DG_R8(32), DG_R8(40), DG_R8(48),
+        DG_R8(56)
+      : "l"(a), "l"(b), "r"(scale_d));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_s8<160>(int (&d)[80], uint64_t a, uint64_t b,
+                                             int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %82, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n160k32.s32.s8.s8 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79"
+      "}, %80, %81, p;\n}\n"
+      : DG_R8(0), DG_R8(8), DG_R8(16), DG_R8(24), DG_R8(32), DG_R8(40), DG_R8(48),
+        DG_R8(56), DG_R8(64), DG_R8(72)
+      : "l"(a), "l"(b), "r"(scale_d));
+}
+
+#undef DG_R8
+
+template <int BN, typename TO>
+__global__ void __launch_bounds__(kThreads, 1)
+    int8_gemm_kernel(const __grid_constant__ CUtensorMap map_x,
+                     const __grid_constant__ CUtensorMap map_w, const GemmArgs a) {
+  typedef Tile<BN> T;
+  extern __shared__ unsigned char smem_raw[];
+  __shared__ __align__(8) uint64_t full[kStages], empty[kStages], turn[kConsumers];
+  // the ring starts on a 1024-byte boundary of the shared window (the swizzle's atom)
+  unsigned char* ring = smem_raw + ((1024 - (dg::smem_addr(smem_raw) & 1023)) & 1023);
+  auto tile_x = [&](int st) { return ring + st * T::kStage; };
+  auto tile_w = [&](int st) { return ring + st * T::kStage + T::kBytesA; };
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 1);  // released by the one consumer that owns the tile
+    }
+    for (int c = 0; c < kConsumers; ++c) mbar_init(&turn[c], 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  // the block's j-th tile is t = blockIdx.x + j * gridDim.x; its k-th stage of
+  // K is the (j * n_k + k)-th use of the ring
+  const int n_k = (a.k + kBK - 1) / kBK;
+  const int wg = threadIdx.x / 128;
+  if (wg == 0) {
+    // producer: one thread issues every load; the warpgroup gives up registers
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n" ::: "memory");
+    if (threadIdx.x == 0) {
+      int stage = 0;
+      uint32_t phase = 0;
+      for (int t = blockIdx.x; t < a.tiles; t += gridDim.x) {
+        const int m0 = (t % a.tiles_m) * kBM;
+        const int n0 = (t / a.tiles_m) * BN;
+        for (int kt = 0; kt < n_k; ++kt) {
+          mbar_wait(&empty[stage], phase ^ 1);  // the first pass over the ring does not wait
+          mbar_arrive_expect_tx(&full[stage], T::kStage);
+          tma_load_2d(tile_x(stage), &map_x, &full[stage], kt * kBK, m0);
+          tma_load_2d(tile_w(stage), &map_w, &full[stage], kt * kBK, n0);
+          if (++stage == kStages) stage = 0, phase ^= 1;
+        }
+      }
+    }
+  } else {
+    // consumer c = wg - 1 takes the block's tiles j = c, c + 2, ...: while one
+    // dequantizes and stores a tile, the other's products keep the tensor cores
+    // busy. Their K loops take turns (turn[c]: the other has passed its last
+    // wait on the ring), so that no consumer waits on a stage more than one
+    // pass of the ring ahead of the loads, where a phase parity would alias.
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n" ::: "memory");
+    const int c = wg - 1;
+    const int tid = threadIdx.x % 128;
+    const int lane = tid & 31;
+    int acc[2][BN / 2];  // rows 0..63 and 64..127 of the tile
+#pragma unroll
+    for (int i = 0; i < BN / 2; ++i) acc[0][i] = acc[1][i] = 0;  // each tile overwrites them
+    for (int j = c, t = blockIdx.x + j * gridDim.x; t < a.tiles;
+         j += kConsumers, t += kConsumers * gridDim.x) {
+      const int m0 = (t % a.tiles_m) * kBM;
+      const int n0 = (t / a.tiles_m) * BN;
+      if (j > 0) mbar_wait(&turn[c], ((j - 1) / kConsumers) & 1);
+      int held = -1;  // the stage read by the commit group still in flight
+      for (int kt = 0; kt < n_k; ++kt) {
+        const int use = j * n_k + kt;
+        const int stage = use % kStages;
+        mbar_wait(&full[stage], (use / kStages) & 1);
+        const uint64_t da = sw128_desc(tile_x(stage));
+        const uint64_t db = sw128_desc(tile_w(stage));
+        fence_acc(acc[0]);
+        fence_acc(acc[1]);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < kBK / 32; ++kk) {  // 32 bytes of K per instruction
+          wgmma_s8<BN>(acc[0], da + 2 * kk, db + 2 * kk, (kt | kk) != 0);
+          wgmma_s8<BN>(acc[1], da + (64 * kBK >> 4) + 2 * kk, db + 2 * kk, (kt | kk) != 0);
+        }
+        wgmma_commit();
+        fence_acc(acc[0]);
+        fence_acc(acc[1]);
+        wgmma_wait<1>();  // the previous stage's products are done: release it
+        if (held >= 0 && tid == 0) mbar_arrive(&empty[held]);
+        held = stage;
+      }
+      if (tid == 0) mbar_arrive(&turn[1 - c]);
+      wgmma_wait<0>();
+      fence_acc(acc[0]);
+      fence_acc(acc[1]);
+      if (tid == 0) mbar_arrive(&empty[held]);
+
+      // dequantize in registers: (float(acc) * x_scale[row]) * w_scale[col] -> TO.
+      // Lane t of a quad holds columns 2 t, 2 t + 1 of each block of 8; two
+      // exchanges (with lane t ^ 1, then t ^ 2) leave it all 8 columns of
+      // block 4 q + t of each group of 4 blocks, so that each lane stores 16
+      // bytes (bf16) or 32 (f32) and a warp whole 32-byte sectors.
+      const int t4 = lane & 3;
+      const bool o1 = t4 & 1, o2 = t4 & 2;
+      // whole, aligned blocks of 8 columns: store8 writes all 8, in 16-byte stores
+      const bool vec = a.n % 8 == 0;
+#pragma unroll
+      for (int half = 0; half < 2; ++half)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int row = m0 + 64 * half + (tid >> 5) * 16 + (lane >> 2) + 8 * h;
+          const float xs = row < a.m ? a.xs[row] : 0.f;
+          TO* orow = static_cast<TO*>(a.out) + static_cast<int64_t>(row) * a.n;
+#pragma unroll
+          for (int q = 0; q < BN / 32; ++q) {
+            // with lane t ^ 1: 4 adjacent columns of blocks 4 q + o1 and 4 q + 2 + o1
+            int s1[2][4];
+#pragma unroll
+            for (int pr = 0; pr < 2; ++pr) {
+              const int l0 = acc[half][4 * (4 * q + 2 * pr) + 2 * h];
+              const int l1 = acc[half][4 * (4 * q + 2 * pr) + 2 * h + 1];
+              const int h0 = acc[half][4 * (4 * q + 2 * pr + 1) + 2 * h];
+              const int h1 = acc[half][4 * (4 * q + 2 * pr + 1) + 2 * h + 1];
+              const int r0 = __shfl_xor_sync(0xffffffffu, o1 ? l0 : h0, 1);
+              const int r1 = __shfl_xor_sync(0xffffffffu, o1 ? l1 : h1, 1);
+              s1[pr][0] = o1 ? r0 : l0;
+              s1[pr][1] = o1 ? r1 : l1;
+              s1[pr][2] = o1 ? h0 : r0;
+              s1[pr][3] = o1 ? h1 : r1;
+            }
+            // with lane t ^ 2: the 8 columns of block 4 q + t
+            int v[8];
+#pragma unroll
+            for (int i = 0; i < 4; ++i) {
+              const int r = __shfl_xor_sync(0xffffffffu, o2 ? s1[0][i] : s1[1][i], 2);
+              v[i] = o2 ? r : s1[0][i];
+              v[4 + i] = o2 ? s1[1][i] : r;
+            }
+            const int col = n0 + 8 * (4 * q + t4);
+            if (row >= a.m || col >= a.n) continue;
+            float y[8];
+#pragma unroll
+            for (int i = 0; i < 8; ++i)
+              y[i] = col + i < a.n
+                         ? __fmul_rn(__fmul_rn(__int2float_rn(v[i]), xs), __ldg(a.ws + col + i))
+                         : 0.f;
+            if (vec) {
+              store8(orow + col, y);
+            } else {
+#pragma unroll
+              for (int i = 0; i < 8; ++i)
+                if (col + i < a.n) dg::store_one(orow + col + i, y[i]);
+            }
+          }
+        }
+    }
+  }
+}
+
+// ---- host side: tensor maps
+
+typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                  const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                  const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                  CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+EncodeTiledFn encode_tiled() {
+  static const EncodeTiledFn fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
+                                                             cudaEnableDefault, &found);
+#else
+    const cudaError_t err =
+        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    return err == cudaSuccess && found == cudaDriverEntryPointSuccess
+               ? reinterpret_cast<EncodeTiledFn>(p)
+               : nullptr;
+  }();
+  return fn;
+}
+
+// the map of a row-major (rows, cols) int8 matrix read in boxes of box_rows x
+// 128 bytes with the 128-byte swizzle, zeros past its edges; false if the
+// encoder refuses it
+bool tensor_map(CUtensorMap* map, const void* ptr, int rows, int cols, int box_rows) {
+  const EncodeTiledFn encode = encode_tiled();
+  if (encode == nullptr) return false;
+  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(cols), static_cast<cuuint64_t>(rows)};
+  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(cols)};  // bytes, of dimension 1
+  const cuuint32_t box[2] = {static_cast<cuuint32_t>(kBK), static_cast<cuuint32_t>(box_rows)};
+  const cuuint32_t steps[2] = {1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2, const_cast<void*>(ptr), dims, strides,
+                box, steps, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <int BN, typename TO>
+int launch_gemm(const CUtensorMap& map_x, const CUtensorMap& map_w, const GemmArgs& a, int ctas,
+                cudaStream_t stream) {
+  const cudaError_t err = cudaFuncSetAttribute(
+      int8_gemm_kernel<BN, TO>, cudaFuncAttributeMaxDynamicSharedMemorySize, Tile<BN>::kSmem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((a.n + kBN - 1) / kBN, (a.m + kBM - 1) / kBM);
-  int8_gemm_kernel<FQ, TX, TO><<<grid, kThreads, P::kSmem, stream>>>(a);
+  int8_gemm_kernel<BN, TO><<<ctas, kThreads, Tile<BN>::kSmem, stream>>>(map_x, map_w, a);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <typename TO>
+int launch_gemm_bn(const CUtensorMap& map_x, const CUtensorMap& map_w, const GemmArgs& a, int bn,
+                   int ctas, cudaStream_t stream) {
+  switch (bn) {
+    case 160: return launch_gemm<160, TO>(map_x, map_w, a, ctas, stream);
+    case 128: return launch_gemm<128, TO>(map_x, map_w, a, ctas, stream);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 }  // namespace
 
-// xq (m, k) int8, xs (m,) f32, wq (n, k) int8 (the transpose of w_q (k, n)),
-// ws (n,) f32, out (m, n) bf16 or, with out_f32, f32; k a multiple of 16.
-extern "C" int dg_int8_matmul(const void* xq, const void* xs, const void* wq, const void* ws,
-                              void* out, int m, int n, int k, int out_f32, void* stream) {
-  Args a{};
-  a.xq = static_cast<const int8_t*>(xq);
-  a.xs = static_cast<const float*>(xs);
-  a.wq = static_cast<const int8_t*>(wq);
-  a.ws = static_cast<const float*>(ws);
-  a.out = out;
-  a.m = m;
-  a.n = n;
-  a.k = k;
+// x (m, k) bf16 or, with x_f32, f32 -> xq (m, k) int8 and xs (m,) f32 with
+// the fused kernel's row scale max(absmax, 1e-12) / 127; k a multiple of 16
+extern "C" int dg_int8_quantize_rows(const void* x, void* xq, void* xs, int m, int k, int x_f32,
+                                     void* stream) {
+  if (m <= 0 || k <= 0 || k % 16 != 0) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return out_f32 ? launch<false, bf16, float>(a, s) : launch<false, bf16, bf16>(a, s);
+  const int blocks = (m + kQuantRows - 1) / kQuantRows;
+  int8_t* q = static_cast<int8_t*>(xq);
+  float* sc = static_cast<float*>(xs);
+  if (x_f32)
+    quantize_rows_kernel<float><<<blocks, 32 * kQuantRows, 0, s>>>(static_cast<const float*>(x),
+                                                                  q, sc, m, k);
+  else
+    quantize_rows_kernel<bf16><<<blocks, 32 * kQuantRows, 0, s>>>(static_cast<const bf16*>(x),
+                                                                 q, sc, m, k);
+  return static_cast<int>(cudaGetLastError());
 }
 
-// x (m, k) bf16 or, with x_f32, f32, quantized per row in the kernel; the
-// rest as above.
-extern "C" int dg_int8_matmul_fused_quant(const void* x, const void* wq, const void* ws, void* out,
-                                          int m, int n, int k, int x_f32, int out_f32,
-                                          void* stream) {
-  Args a{};
-  a.x = x;
-  a.wq = static_cast<const int8_t*>(wq);
+// xq (m, k) int8, xs (m,) f32, wq (n, k) int8 (the transpose of w_q (k, n)),
+// ws (n,) f32, out (m, n) bf16 or, with out_f32, f32; k a multiple of 16,
+// xq and wq 16-byte aligned. bn (160 or 128) is the tile width and ctas
+// the number of persistent blocks (ops/int8_matmul.py:gemm_plan).
+extern "C" int dg_int8_matmul(const void* xq, const void* xs, const void* wq, const void* ws,
+                              void* out, int m, int n, int k, int out_f32, int bn, int ctas,
+                              void* stream) {
+  if (m <= 0 || n <= 0 || k <= 0 || k % 16 != 0 || ctas <= 0 ||
+      (bn != 160 && bn != 128))
+    return static_cast<int>(cudaErrorInvalidValue);
+  CUtensorMap map_x, map_w;
+  if (!tensor_map(&map_x, xq, m, k, kBM) || !tensor_map(&map_w, wq, n, k, bn))
+    return static_cast<int>(cudaErrorInvalidValue);
+  GemmArgs a{};
+  a.xs = static_cast<const float*>(xs);
   a.ws = static_cast<const float*>(ws);
   a.out = out;
   a.m = m;
   a.n = n;
   a.k = k;
+  a.tiles_m = (m + kBM - 1) / kBM;
+  a.tiles = a.tiles_m * ((n + bn - 1) / bn);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (x_f32)
-    return out_f32 ? launch<true, float, float>(a, s) : launch<true, float, bf16>(a, s);
-  return out_f32 ? launch<true, bf16, float>(a, s) : launch<true, bf16, bf16>(a, s);
+  return out_f32 ? launch_gemm_bn<float>(map_x, map_w, a, bn, ctas, s)
+                 : launch_gemm_bn<bf16>(map_x, map_w, a, bn, ctas, s);
 }

@@ -1,6 +1,6 @@
 // Warp-level building blocks shared by the port's kernels: cp.async copies,
-// ldmatrix loads and the bf16 m16n8k16 and s8 m16n8k32 tensor-core products
-// (mma.sync), with the register layouts the PTX ISA documents for them. For one warp, with
+// ldmatrix loads and the bf16 m16n8k16 tensor-core product (mma.sync), with
+// the register layouts the PTX ISA documents for them. For one warp, with
 // g = lane / 4 and t = lane % 4:
 //   A (16 x 16, row-major) a[0..3]: (row g,   cols 2t..2t+1), (row g+8, cols 2t..),
 //                                   (row g,   cols 2t+8..),   (row g+8, cols 2t+8..)
@@ -54,19 +54,6 @@ __device__ __forceinline__ void mma_bf16_16816(float (&c)[4], const uint32_t (&a
       "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
       "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
       : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// c += a (16x32 s8) * b (32x8 s8), s32 accumulate. The s8 fragments hold the
-// same bytes as the bf16 m16n8k16 ones above (a register holds four int8
-// where it held two bf16: A row g, cols 4t..4t+3 etc.; B k 4t..4t+3, col g),
-// so ldmatrix on a tile of int8 rows, read as b16 pairs, loads them unchanged.
-__device__ __forceinline__ void mma_s8_16832(int (&c)[4], const uint32_t (&a)[4],
-                                             uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 

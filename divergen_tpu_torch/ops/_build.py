@@ -111,10 +111,10 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.dg_window_attention_packed_bwd_bf16.restype = i
     lib.dg_ln_matmul_bf16.argtypes = [p] * 7 + [i] * 3 + [f, i, p]
     lib.dg_ln_matmul_bf16.restype = i
-    lib.dg_int8_matmul.argtypes = [p] * 5 + [i] * 4 + [p]
+    lib.dg_int8_matmul.argtypes = [p] * 5 + [i] * 6 + [p]
     lib.dg_int8_matmul.restype = i
-    lib.dg_int8_matmul_fused_quant.argtypes = [p] * 4 + [i] * 5 + [p]
-    lib.dg_int8_matmul_fused_quant.restype = i
+    lib.dg_int8_quantize_rows.argtypes = [p] * 3 + [i] * 3 + [p]
+    lib.dg_int8_quantize_rows.restype = i
     lib.dg_group_norm.argtypes = [p] * 6 + [i] * 5 + [f, i, i, p]
     lib.dg_group_norm.restype = i
     lib.dg_layer_norm.argtypes = [p] * 4 + [i] * 2 + [f, i, p]
