@@ -11,7 +11,12 @@ Run from the root of a checkout:  python3 chip_smoke.py
    kernels of the last two) against its
    plain torch version on the same bf16 inputs (plain version in float32),
    at the shapes of the SDXL, SAM and Swin-L slices plus ragged cases
-   (flash_attention_packed also on float32 qkv);
+   (flash_attention_packed also on float32 qkv, and at SDXL's two
+   self-attention shapes of a UNet call, (4, 4096, 640, 10) and
+   (4, 1024, 1280, 20), with its device time, SDPA's, the bound and their
+   sums over the call's 70 launches; it and flash_attention give the same
+   bits twice and write nothing past their output, which they are given as
+   the first rows of a buffer whose next row is NaN);
    flash_attention_relpos first on heads-first views of a fused qkv
    projection, as the ViT's attention calls it, then on (BH, N, D); the
    packed window attention at the four Swin-L stage shapes of B = 2 at 896²
@@ -235,9 +240,22 @@ def compare(name: str, got: torch.Tensor, ref: torch.Tensor, rel_l2_bound=REL_L2
     return err
 
 
+def same_bits(name: str, got: torch.Tensor, fn) -> None:
+    """``fn()``, the kernel's call again, must give ``got``'s bits."""
+    if not torch.equal(got, fn()):
+        raise AssertionError(f"{name}: two runs of the kernel give different bits")
+    log("    two runs give the same bits: True")
+
+
+# flash_attention_packed's launches per SDXL UNet call (batch 4: CFG over two
+# images) at each self-attention shape (B, N, C, heads): levels 1 and 2
+UNET_ATTN_LAUNCHES = {(4, 4096, 640, 10): 10, (4, 1024, 1280, 20): 60}
+
+
 def kernel_phases(gen: torch.Generator):
     import divergen_tpu_torch.ops.flash_attention as fa_mod
     import divergen_tpu_torch.ops.ln_matmul as ln_mod
+    from divergen_tpu_torch.ops import _build
 
     dev = torch.device("cuda")
 
@@ -260,26 +278,65 @@ def kernel_phases(gen: torch.Generator):
                                "bound_ms": b_ms, "bound_by": by, "library_ms": lib_ms}
         results[kernel]["max_abs_err"] = max(results[kernel]["max_abs_err"], err)
 
+    def guarded(name, got, fn, rows):
+        """The kernel into the first ``rows`` rows of a buffer whose row
+        ``rows`` is NaN (per batch): the same bits, and that row untouched."""
+        buf = torch.full((got.shape[0], rows + 1, got.shape[2]), float("nan"), device=dev,
+                         dtype=got.dtype)
+        fn(buf[:, :rows])
+        if not (torch.equal(buf[:, :rows], got) and bool(buf[:, rows].isnan().all())):
+            raise AssertionError(f"{name}: the kernel wrote outside its output")
+        log("    writes nothing past its output: True")
+
     log("kernel phase: flash_attention_packed")
-    # the last case in float32 (a float32 UNet's self-attention: q, k, v
-    # rounded to bf16 on load, float32 out)
+    if sum(UNET_ATTN_LAUNCHES.values()) != FUSED_RESBLOCK_LAUNCHES["flash_attention_packed"]:
+        raise AssertionError("UNET_ATTN_LAUNCHES does not add up to a UNet call's launches")
+    lib_rows = _build.lib().dg_flash_attention_sm90_rows()
+    if lib_rows != fa_mod.SM90_TILE:
+        raise AssertionError(f"the d = 64 kernel takes {lib_rows} q rows a work item, "
+                             f"ops/flash_attention.py plans {fa_mod.SM90_TILE}")
+    # the main shape; SDXL's two self-attention shapes at B = 4 (one CFG UNet
+    # call of two images: 10 and 60 launches), each with its device time, SDPA's
+    # and their sums a UNet call; (2, 1024); ragged N; the last in float32 (a
+    # float32 UNet's self-attention: q, k, v rounded to bf16, float32 out)
+    unet_sum = {"kernel": 0.0, "SDPA": 0.0, "bound": 0.0}
     for b, n, c, h, dtype in ((2, 4096, 640, 10, torch.bfloat16),
+                              (4, 4096, 640, 10, torch.bfloat16),
+                              (4, 1024, 1280, 20, torch.bfloat16),
                               (2, 1024, 1280, 20, torch.bfloat16),
                               (1, 1000, 640, 10, torch.bfloat16),
                               (1, 1000, 640, 10, torch.float32)):
         qkv = randn(b, n, 3 * c, dtype=dtype)
-        got = fa_mod.flash_attention_packed(qkv, h, softmax_mode="rawmax")
+        run = lambda: fa_mod.flash_attention_packed(qkv, h, softmax_mode="rawmax")
+        got = run()
         if got.dtype != dtype:
             raise AssertionError(f"packed attention wrote {got.dtype} for {dtype} qkv")
         ref = fa_mod.reference_attention_packed(qkv.float(), h)
-        err = compare(f"packed B={b} N={n} C={c} H={h} {str(dtype)[6:]}", got, ref)
-        ms, pms, span = time_pair(lambda: fa_mod.flash_attention_packed(qkv, h, "rawmax"),
-                            lambda: fa_mod.reference_attention_packed(qkv.float(), h))
+        name = f"packed B={b} N={n} C={c} H={h} {str(dtype)[6:]}"
+        err = compare(name, got, ref)
+        del ref
+        same_bits(name, got, run)
+        guarded(name, got, lambda out: fa_mod._packed_into(qkv, h, out), n)
+        ms, pms, span = time_pair(run, lambda: fa_mod.reference_attention_packed(qkv.float(), h))
         q4, k4, v4 = (t.reshape(b, n, h, c // h).transpose(1, 2).contiguous()
                       for t in qkv.chunk(3, dim=-1))
-        record("flash_attention_packed", err, ms, pms, span,
-               lambda: F.scaled_dot_product_attention(q4, k4, v4),
-               4.0 * b * h * n * n * (c // h), 2.0 * b * n * 4 * c)
+        sdpa = lambda: F.scaled_dot_product_attention(q4, k4, v4)
+        ops, nbytes = 4.0 * b * h * n * n * (c // h), 2.0 * b * n * 4 * c
+        record("flash_attention_packed", err, ms, pms, span, sdpa, ops, nbytes)
+        launches = UNET_ATTN_LAUNCHES.get((b, n, c, h)) if dtype == torch.bfloat16 else None
+        if launches:
+            dev_ms, sdpa_ms = device_ms(run), device_ms(sdpa)
+            b_ms, by = bound(ops, nbytes)
+            for key, t in (("kernel", dev_ms), ("SDPA", sdpa_ms), ("bound", b_ms)):
+                unet_sum[key] += t * launches
+            log(f"    UNet shape: device {dev_ms:.4f} ms ({ops / dev_ms / 1e9:.0f} TFLOP/s), SDPA "
+                f"{sdpa_ms:.4f} ms, bound {b_ms:.4f} ms by {by}, {launches} launches per UNet "
+                f"call")
+        del qkv, q4, k4, v4, got
+        torch.cuda.empty_cache()
+    log("  flash_attention_packed: device time x launches per UNet call, summed over its "
+        f"{sum(UNET_ATTN_LAUNCHES.values())} launches: kernel {unet_sum['kernel']:.3f} ms, SDPA "
+        f"{unet_sum['SDPA']:.3f} ms, bound {unet_sum['bound']:.3f} ms")
 
     log("kernel phase: fused_ln_matmul")
     # SDXL's shapes (eps 1e-5), SAM ViT-H's at B = 4 (eps 1e-6), one ragged
@@ -324,7 +381,10 @@ def kernel_phases(gen: torch.Generator):
         bias = torch.randn((bh, sq, sk), generator=gen, device=dev) if with_bias else None
         got = fa_mod.flash_attention(q, k, v, bias)
         ref = fa_mod.reference_attention(q.float(), k.float(), v.float(), bias)
-        err = compare(f"flash BH={bh} Sq={sq} Sk={sk} D={d} bias={with_bias}", got, ref)
+        name = f"flash BH={bh} Sq={sq} Sk={sk} D={d} bias={with_bias}"
+        err = compare(name, got, ref)
+        same_bits(name, got, lambda: fa_mod.flash_attention(q, k, v, bias))
+        guarded(name, got, lambda out: fa_mod._flash_into(q, k, v, bias, out), sq)
         ms, pms, span = time_pair(lambda: fa_mod.flash_attention(q, k, v, bias),
                             lambda: fa_mod.reference_attention(q.float(), k.float(),
                                                                v.float(), bias))
@@ -625,12 +685,6 @@ def serving_kernel_phases(gen: torch.Generator):
 
     def randn(*shape, scale=1.0, dtype=torch.bfloat16):
         return (torch.randn(shape, generator=gen, device=dev) * scale).to(dtype)
-
-    def same_bits(name, got, fn):
-        again = fn()
-        if not torch.equal(got, again):
-            raise AssertionError(f"{name}: two runs of the kernel give different bits")
-        log("    two runs give the same bits: True")
 
     def record(kernel, err, kernel_fn, plain_fn, library_fn, ops, nbytes, peak, extra=None):
         """The first case of a kernel is its main-path shape: its times, the
@@ -1954,7 +2008,7 @@ def main() -> int:
             raise AssertionError(f"{name} is on no slice's path, yet its count is {launches[name]}")
 
     sources = {
-        "flash_attention_packed": ("divergen_tpu_torch/csrc/flash_attention.cu",
+        "flash_attention_packed": ("divergen_tpu_torch/csrc/flash_attention_sm90.cu",
                                    "divergen_tpu/ops/pallas/flash_attention.py:337"),
         "fused_ln_matmul": ("divergen_tpu_torch/csrc/ln_matmul.cu",
                             "divergen_tpu/ops/pallas/ln_matmul.py:127"),

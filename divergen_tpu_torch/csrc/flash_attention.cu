@@ -1,14 +1,18 @@
-// Flash attention forward for Hopper (sm_90a), bf16 in and out, f32 softmax;
-// the packed and (BH, S, D) kernels also take and write f32 (a float32 model).
+// Flash attention forward for Hopper (sm_90a) on mma.sync, bf16 in and out,
+// f32 softmax; the packed and (BH, S, D) kernels also take and write f32 (a
+// float32 model). Head dims 512 and 80; head dim 64 (SDXL) runs on the wgmma
+// + TMA body of flash_attention_sm90.cu.
 //
-// Replaces three Pallas TPU kernels of divergen_tpu/ops/pallas/flash_attention.py:
+// Replaces three Pallas TPU kernels of divergen_tpu/ops/pallas/flash_attention.py
+// at those head dims:
 //   * flash_attention_packed (_packed_kernel / _packed_kernel2): self-attention
 //     read straight out of a fused (B, N, 3C) QKV projection, written to
 //     (B, N, C) with no transposes. Head h of slot s is channels
 //     [s*C + h*d, s*C + (h+1)*d).
 //   * flash_attention (_attn_kernel_main / _attn_bias_kernel): (BH, S, D)
 //     attention with padded keys masked by index and an optional dense
-//     (BH, Sq, Sk) bias added to the score tile.
+//     (BH, Sq, Sk) bias added to the score tile; d = 512 is the VAE's
+//     single-head mid attention.
 //   * flash_attention_relpos (_relpos_kernel): global self-attention over an
 //     H x W token grid with the decomposed relative-position bias of ViTDet
 //     and SAM, bias[q, k = (u, v)] = Bh[u, q] + Bw[v, q], given as the two
@@ -21,7 +25,7 @@
 //
 // What bounds it on the H100: the two products per K tile run on the tensor
 // cores; between them the online softmax (scale, max, exp2, sum, rescale) runs
-// on the FP32 units, and at SDXL's d = 64 it costs about as much as the
+// on the FP32 units, and at d = 64 to 80 it costs about as much as the
 // products. What must not happen is a round trip of scores, probabilities or
 // the output accumulator through shared memory, and the K/V loads must
 // overlap the math.
@@ -35,7 +39,6 @@
 // registers (log2(e) folded into the scale; row max and sum reduced over the
 // four lanes that share a row), reuses the probabilities in registers as the
 // A operand of P@V, and keeps the f32 output accumulator in registers.
-//   * d = 64: 4 warps x 16 q rows, K tiles of 64 keys.
 //   * d = 512 (the VAE's single head): a 16-row accumulator of 512 floats does
 //     not fit one warp's registers, so the head dimension is split over 8
 //     warps of 64 columns each, every warp holding 32 q rows. Each warp
@@ -43,8 +46,8 @@
 //     are summed through shared memory, and every warp then runs the same
 //     softmax on the same sums (bit-identical, so no further exchange) and
 //     the P@V product for its own 64 output columns. K tiles of 32 keys.
-//   * d = 80 (SAM ViT-H) and the relative-position bias: the d = 64 shape
-//     with five k-steps per product instead of four. Rows are 160 bytes and
+//   * d = 80 (SAM ViT-H) and the relative-position bias: 4 warps x 16 q
+//     rows, K tiles of 64 keys, five k-steps of 16 per product. Rows are 160 bytes and
 //     are stored at a stride of 176 bytes (D + 8 elements), which keeps every
 //     ldmatrix row address 16-byte aligned and the eight rows of one 8x8
 //     matrix on distinct banks; there is no swizzle that assumes a power of
@@ -66,7 +69,8 @@
 // way into shared memory, by plain loads in place of the cp.async copies, so
 // the products run on the bf16 tensor cores as for bf16 inputs; the output is
 // written in f32 without a last rounding.
-// No TMA, wgmma or warp specialisation yet.
+// No TMA, wgmma or warp specialisation yet: flash_attention_sm90.cu has them
+// for d = 64.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -455,7 +459,7 @@ AttnParams make_params(const void* q, const void* k, const void* v, void* o, int
 
 }  // namespace
 
-// q, k, v, o bf16 or, with x_f32, f32 (strides in elements)
+// q, k, v, o bf16 or, with x_f32, f32 (strides in elements); d = 512
 extern "C" int dg_flash_attention(
     const void* q, const void* k, const void* v, const void* bias, void* o,
     int batch, int heads, int sq, int sk, int d, int64_t q_bs, int64_t q_hs,
@@ -469,9 +473,6 @@ extern "C" int dg_flash_attention(
   p.bias_hs = bias_hs;
   p.bias_rs = bias_rs;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (d == 64)
-    return x_f32 ? launch<float, 64, 1, 4, 1, 64>(p, batch, s)
-                 : launch<bf16, 64, 1, 4, 1, 64>(p, batch, s);
   if (d == 512)
     return x_f32 ? launch<float, 512, 8, 1, 2, 32>(p, batch, s)
                  : launch<bf16, 512, 8, 1, 2, 32>(p, batch, s);

@@ -1,0 +1,517 @@
+// Flash attention forward at head dim 64 for Hopper (sm_90a): bf16 q, k and v
+// fed by TMA, products on wgmma (bf16 in, f32 sums), a base-2 softmax in f32
+// registers, bf16 or f32 out.
+//
+// Replaces, at d = 64, two Pallas TPU kernels of
+// divergen_tpu/ops/pallas/flash_attention.py:
+//   * flash_attention_packed (_packed_kernel / _packed_kernel2): SDXL's
+//     self-attention read straight out of a fused (B, N, 3C) QKV projection
+//     and written to (B, N, C) with no transposes; head h of slot s is
+//     channels [s*C + h*64, s*C + (h+1)*64);
+//   * flash_attention (_attn_kernel_main / _attn_bias_kernel) at d = 64:
+//     (BH, S, 64) q, k and v, an optional dense f32 (BH, Sq, Sk) bias.
+// Head dims 512 (the VAE) and 80 (SAM) stay on flash_attention.cu's mma.sync
+// body.
+//
+// What bounds it on the H100: operations, and two kinds at once. A score
+// element costs 4 d = 256 bf16 tensor-core FLOP (its share of Q K^T and
+// P V) and one ex2 on the SFU; the SM does about 4096 bf16 FLOP and 16 ex2 a
+// clock, so at d = 64 the exps take as long as the products. A body that
+// runs them one after the other cannot come within 2x of the tensor-core
+// bound. Shared memory must not set the pace either: mma.sync with 16 rows
+// a warp read every K and V tile once per warp.
+//
+// Design (FlashAttention-3's warp specialisation, ping-pong and
+// intra-warpgroup overlap): a persistent grid of one block per SM walks the
+// (kBQ q rows, head, batch) work items, q tiles fastest, so that the blocks
+// in flight share K and V in L2. Each block has 1 + kConsumers warpgroups.
+//   * Producer: one thread issues TMA loads: each item's Q tile (kBQ rows x
+//     64 channels) into one of two Q buffers, then its K and V tiles of 128
+//     keys (16 KB each) through a ring of kStages stages, running ahead into
+//     the next item while the consumers finish this one. mbarriers say when
+//     a buffer or stage is full (TMA's byte count) and when every consumer
+//     is done with it. Every tile is 128 bytes wide and lands under the
+//     128-byte swizzle, the layout wgmma's descriptors read. setmaxnreg
+//     gives its registers to the consumers.
+//   * Three consumer warpgroups, 64 q rows each (with two, the softmax of
+//     one hid less of its time under the products of the other: on an
+//     H100, 0.380 against 0.341 ms at SDXL's (4, 4096, 640, 10)). Per K
+//     tile t: S_t = Q K_t^T on wgmma m64n128k16 (Q and K both K-major, from
+//     shared memory; 64 f32 registers a thread), the online softmax in registers,
+//     and O += P_t V_t on wgmma m64n64k16 with P from registers (the f32
+//     score fragment of a 16-key slice, rounded to bf16 pairs, is wgmma's
+//     register-A layout) and V as an MN-major operand (the descriptor's
+//     transpose bit; keys along the rows), O in 32 f32 registers a thread.
+//   * The consumers take turns on the tensor cores (a ring of named
+//     barriers): turn t issues S_t, then P_{t-1} V_{t-1}, as two commit
+//     groups, and passes the turn on. The softmax of S_t starts as soon as
+//     S_t is done, under P_{t-1} V_{t-1} and the other warpgroups'
+//     products; O is rescaled and P_t written once P_{t-1} V_{t-1} is done.
+//     So one warpgroup's exps run under the others' products. An item's
+//     first turn (S_0 alone) and last (its last P V alone) are peeled off
+//     the loop: a product issued on a path that the compiler cannot prove
+//     uniform makes it serialise every product (1.45x slower).
+//   * Softmax: base 2, log2(e) folded into the scale; the running max in
+//     raw units (one FFMA and one ex2 an element); row max and row sum over
+//     the four lanes of a quad; the sums kept per lane until the end. With
+//     a bias the scores are scaled and biased first and the max runs on
+//     those.
+//   * Tails: TMA zero-fills rows past N; keys past N in the last K tile are
+//     masked to -1e30; q rows past N are not stored.
+//   * The maps are 3-D (channels, rows, batch), boxes (64, kBQ or 128, 1).
+//     The packed layout maps (3C, N, B) and reads head h of slot s at
+//     channel s*C + h*64; the (BH, S, 64) layout maps (64, S, BH). Encoded
+//     on every call.
+// The output is written from registers: bf16 pairs, or f32 pairs for a
+// float32 caller (whose q, k, v the wrapper rounds to bf16 first, as the
+// mma.sync body did on load).
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+#include "gn_moments.cuh"  // dg::store_pair
+#include "mma_sm90.cuh"    // dg::pack_bf16x2
+#include "sm90_async.cuh"  // mbarriers, TMA, named barriers, descriptors, wgmma fences
+
+namespace {
+
+typedef __nv_bfloat16 bf16;
+
+constexpr int kD = 64;          // head dim: one 128-byte swizzled row
+constexpr int kRows = 64;       // q rows per consumer warpgroup
+constexpr int kConsumers = 3;   // warpgroups taking turns on the tensor cores
+constexpr int kBQ = kRows * kConsumers;  // q rows per work item
+constexpr int kBK = 128;        // keys per tile
+constexpr int kStages = 4;      // K/V ring depth
+constexpr int kThreads = 128 * (1 + kConsumers);
+// registers a thread after setmaxnreg: producer, consumers (a 64K file)
+constexpr int kProducerRegs = kConsumers == 2 ? 40 : 24;
+constexpr int kConsumerRegs = kConsumers == 2 ? 232 : 160;
+constexpr int kQBytes = kBQ * kD * 2;     // one Q buffer
+constexpr int kTileBytes = kBK * kD * 2;  // one K or V tile
+constexpr int kSmem = 2 * kQBytes + 2 * kStages * kTileBytes + 1024;  // + slack to align
+constexpr int kTurnBar = 1;     // named barriers kTurnBar + c: consumer c's turn
+constexpr int kTurnThreads = 256;  // a turn's barrier: the warpgroup passing it on, the one taking it
+constexpr float kNegInf = -1e30f;
+constexpr float kLog2e = 1.4426950408889634f;
+static_assert(kQBytes % 1024 == 0, "tiles stay on the swizzle's 1024-byte atoms");
+static_assert(kSmem <= 232448, "the buffers fit a block's shared memory");
+static_assert(128 * kProducerRegs + 128 * kConsumers * kConsumerRegs <= 65536, "register file");
+
+struct Args {
+  const float* bias;  // may be null: (batch, heads, sq, sk) by the strides below, key stride 1
+  void* o;            // TO
+  int batch, heads, sq, sk;
+  int q_c0, k_c0, v_c0, head_c;  // channel of head h of each slot: c0 + h * head_c
+  int64_t o_bs, o_hs, o_rs;
+  int64_t bias_bs, bias_hs, bias_rs;
+  float scale_log2;  // softmax scale * log2(e)
+};
+
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+#define DG_F8(i)                                                                          \
+  "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]), "+f"(d[i + 4]), "+f"(d[i + 5]), \
+      "+f"(d[i + 6]), "+f"(d[i + 7])
+
+// d (64 x 128 f32) = [d +] A (64 x 16 bf16, K-major, descriptor a) B^T, B
+// (128 x 16 bf16, K-major, descriptor b); scale_d = 0 overwrites d.
+// Fragment of d: thread t of the warpgroup holds rows 16 (t / 32) + (t % 32) / 4
+// + {0, 8}, columns 8 j + 2 (t % 4) + {0, 1}, as d[4 j + {0, 1}] (row + 0),
+// d[4 j + {2, 3}] (row + 8).
+__device__ __forceinline__ void wgmma_qk(float (&d)[64], uint64_t a, uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+      : DG_F8(0), DG_F8(8), DG_F8(16), DG_F8(24), DG_F8(32), DG_F8(40), DG_F8(48), DG_F8(56)
+      : "l"(a), "l"(b), "r"(scale_d));
+}
+
+// d (64 x 64 f32) += A (64 x 16 bf16 from registers) B, B (16 x 64 bf16,
+// MN-major: N contiguous, descriptor b). A fragment, per warp of 16 rows
+// (g = lane / 4, t = lane % 4): a[0] (row g, k 2t..2t+1), a[1] (row g + 8,
+// k 2t..), a[2] (row g, k 2t+8..), a[3] (row g + 8, k 2t+8..), low half
+// the lower k.
+__device__ __forceinline__ void wgmma_pv(float (&d)[32], const uint32_t* a, uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : DG_F8(0), DG_F8(8), DG_F8(16), DG_F8(24)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+#undef DG_F8
+
+// S (64 x 128 f32 fragment) = Q (64 rows of the descriptor dq) K^T (the
+// 128-key tile at tile_k): four k-steps of 16 channels (32 bytes)
+__device__ __forceinline__ void issue_qk(float (&s)[64], uint64_t dq, const void* tile_k) {
+  const uint64_t dk = dg::sw128_desc(tile_k);
+#pragma unroll
+  for (int kk = 0; kk < kD / 16; ++kk) wgmma_qk(s, dq + 2 * kk, dk + 2 * kk, kk);
+}
+
+// O += P V: eight k-steps of 16 keys (16 rows of 128 bytes of the tile at tile_v)
+__device__ __forceinline__ void issue_pv(float (&o)[32], const uint32_t (&p)[32],
+                                         const void* tile_v) {
+  const uint64_t dv = dg::sw128_desc(tile_v, (kBK * kD * 2) >> 4);
+#pragma unroll
+  for (int kk = 0; kk < kBK / 16; ++kk) wgmma_pv(o, p + 4 * kk, dv + kk * ((16 * kD * 2) >> 4));
+}
+
+// The online softmax of one thread's two rows (row0 and row0 + 8; the four
+// lanes of a quad share them) over the K tiles: base 2, the running max in
+// raw units (biased scores are scaled first), the sums kept per lane.
+template <bool BIAS>
+struct Softmax {
+  const int row0, t4, sq, sk;
+  const float* bias;  // this (batch, head)'s rows, BIAS only
+  const int64_t bias_rs, o_rs;
+  const float scale_log2;
+  const float mult;  // raw scores are scaled inside the exponent, biased ones before
+  float m_run[2] = {kNegInf, kNegInf}, l_run[2] = {0.f, 0.f}, alpha[2] = {0.f, 0.f};
+
+  __device__ __forceinline__ Softmax(const Args& a, int row, int t, int b, int h)
+      : row0(row), t4(t), sq(a.sq), sk(a.sk),
+        bias(BIAS ? a.bias + b * a.bias_bs + h * a.bias_hs : nullptr), bias_rs(a.bias_rs),
+        o_rs(a.o_rs), scale_log2(a.scale_log2), mult(BIAS ? 1.f : a.scale_log2) {}
+
+  // S_t -> exp2 of its scores less the new running max, in place; alpha and
+  // the row sums updated
+  __device__ __forceinline__ void scores(float (&s)[64], int t) {
+    const int k0 = t * kBK;
+    if (BIAS || k0 + kBK > sk) {
+#pragma unroll
+      for (int j = 0; j < kBK / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int key = k0 + j * 8 + 2 * t4 + (e & 1);
+          const int qi = row0 + (e >> 1) * 8;
+          float x = s[4 * j + e];
+          if (key >= sk) {
+            x = kNegInf;
+          } else if (BIAS) {
+            x *= scale_log2;
+            if (qi < sq) x += bias[qi * bias_rs + key] * kLog2e;
+          }
+          s[4 * j + e] = x;
+        }
+    }
+    float mx[2] = {kNegInf, kNegInf};
+#pragma unroll
+    for (int j = 0; j < kBK / 8; ++j) {
+      mx[0] = fmaxf(mx[0], fmaxf(s[4 * j], s[4 * j + 1]));
+      mx[1] = fmaxf(mx[1], fmaxf(s[4 * j + 2], s[4 * j + 3]));
+    }
+    float neg_m[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+      const float m_new = fmaxf(m_run[r], mx[r]);
+      alpha[r] = ex2((m_run[r] - m_new) * mult);
+      m_run[r] = m_new;
+      neg_m[r] = -m_new * mult;
+    }
+    float rs[2] = {0.f, 0.f};  // this lane's share of the row sums
+#pragma unroll
+    for (int j = 0; j < kBK / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float pe = ex2(fmaf(s[4 * j + e], mult, neg_m[e >> 1]));
+        s[4 * j + e] = pe;
+        rs[e >> 1] += pe;
+      }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) l_run[r] = l_run[r] * alpha[r] + rs[r];
+  }
+
+  // O *= alpha
+  __device__ __forceinline__ void rescale(float (&o)[32]) const {
+#pragma unroll
+    for (int j = 0; j < kD / 8; ++j) {
+      o[4 * j] *= alpha[0];
+      o[4 * j + 1] *= alpha[0];
+      o[4 * j + 2] *= alpha[1];
+      o[4 * j + 3] *= alpha[1];
+    }
+  }
+
+  // P_t (bf16 pairs) as the A fragments of the next P V: slice kk is score
+  // columns 16 kk .. 16 kk + 15, i.e. fragments 2 kk and 2 kk + 1
+  __device__ __forceinline__ static void pack(const float (&s)[64], uint32_t (&p)[32]) {
+#pragma unroll
+    for (int kk = 0; kk < kBK / 16; ++kk) {
+      p[4 * kk] = dg::pack_bf16x2(s[8 * kk], s[8 * kk + 1]);
+      p[4 * kk + 1] = dg::pack_bf16x2(s[8 * kk + 2], s[8 * kk + 3]);
+      p[4 * kk + 2] = dg::pack_bf16x2(s[8 * kk + 4], s[8 * kk + 5]);
+      p[4 * kk + 3] = dg::pack_bf16x2(s[8 * kk + 6], s[8 * kk + 7]);
+    }
+  }
+
+  // O / l to rows row0 and row0 + 8 of out (row stride o_rs), rows past sq skipped
+  template <typename TO>
+  __device__ __forceinline__ void store(const float (&o)[32], TO* out) const {
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      float l = l_run[r];
+      l += __shfl_xor_sync(0xffffffffu, l, 1);
+      l += __shfl_xor_sync(0xffffffffu, l, 2);
+      const float inv = 1.f / fmaxf(l, 1e-30f);
+      const int qi = row0 + 8 * r;
+      if (qi >= sq) continue;
+      TO* dst = out + qi * o_rs + 2 * t4;
+#pragma unroll
+      for (int j = 0; j < kD / 8; ++j)
+        dg::store_pair(dst + 8 * j, o[4 * j + 2 * r] * inv, o[4 * j + 2 * r + 1] * inv);
+    }
+  }
+};
+
+template <typename TO, bool BIAS>
+__global__ void __launch_bounds__(kThreads, 1)
+    attn_sm90_kernel(const __grid_constant__ CUtensorMap map_q,
+                     const __grid_constant__ CUtensorMap map_k,
+                     const __grid_constant__ CUtensorMap map_v, const Args a) {
+  extern __shared__ unsigned char smem_raw[];
+  __shared__ __align__(8) uint64_t full_q[2], empty_q[2], full[kStages], empty[kStages];
+  // buffers start on 1024-byte boundaries of the shared window (the swizzle's atom)
+  unsigned char* base = smem_raw + ((1024 - (dg::smem_addr(smem_raw) & 1023)) & 1023);
+  auto tile_q = [&](int qb) { return base + qb * kQBytes; };
+  auto tile_k = [&](int st) { return base + 2 * kQBytes + 2 * st * kTileBytes; };
+  auto tile_v = [&](int st) { return base + 2 * kQBytes + (2 * st + 1) * kTileBytes; };
+
+  const int n_tiles = (a.sk + kBK - 1) / kBK;
+  const int q_tiles = (a.sq + kBQ - 1) / kBQ;
+  const int items = q_tiles * a.heads * a.batch;
+
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < 2; ++i) {
+      dg::mbar_init(&full_q[i], 1);
+      dg::mbar_init(&empty_q[i], kConsumers);
+    }
+    for (int s = 0; s < kStages; ++s) {
+      dg::mbar_init(&full[s], 1);
+      dg::mbar_init(&empty[s], kConsumers);  // one arrival from each consumer
+    }
+    dg::mbar_init_fence();
+  }
+  __syncthreads();
+
+  // this block's j-th item is w = blockIdx.x + j * gridDim.x: q tile w % q_tiles
+  // of head (w / q_tiles) % heads of batch w / (q_tiles * heads); it uses Q
+  // buffer j % 2, and its tile t is the (j * n_tiles + t)-th use of the ring
+  // the warpgroup index, taken from lane 0 so that the compiler knows it is
+  // the same in every thread of a warp
+  const int wg = __shfl_sync(0xffffffffu, static_cast<int>(threadIdx.x) / 128, 0);
+  if (wg == 0) {
+    // producer: one thread issues every load; the warpgroup gives up registers
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kProducerRegs) : "memory");
+    if (threadIdx.x == 0) {
+      int stage = 0;
+      uint32_t phase = 0;
+      for (int w = blockIdx.x, j = 0; w < items; w += gridDim.x, ++j) {
+        const int h = (w / q_tiles) % a.heads;
+        const int b = w / (q_tiles * a.heads);
+        const int qb = j & 1;
+        dg::mbar_wait(&empty_q[qb], ((j >> 1) & 1) ^ 1);  // each buffer's first use passes
+        dg::mbar_arrive_expect_tx(&full_q[qb], kQBytes);
+        dg::tma_load_3d(tile_q(qb), &map_q, &full_q[qb], a.q_c0 + h * a.head_c,
+                        (w % q_tiles) * kBQ, b);
+        for (int t = 0; t < n_tiles; ++t) {
+          dg::mbar_wait(&empty[stage], phase ^ 1);  // the first pass over the ring passes
+          dg::mbar_arrive_expect_tx(&full[stage], 2 * kTileBytes);
+          dg::tma_load_3d(tile_k(stage), &map_k, &full[stage], a.k_c0 + h * a.head_c, t * kBK,
+                          b);
+          dg::tma_load_3d(tile_v(stage), &map_v, &full[stage], a.v_c0 + h * a.head_c, t * kBK,
+                          b);
+          if (++stage == kStages) stage = 0, phase ^= 1;
+        }
+      }
+    }
+  } else {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kConsumerRegs) : "memory");
+    const int c = wg - 1;
+    const int tid = threadIdx.x % 128;
+    const int lane = tid & 31;
+    const int next_bar = kTurnBar + (c + 1) % kConsumers;
+    if (c == kConsumers - 1) dg::named_arrive(kTurnBar, kTurnThreads);  // consumer 0 goes first
+
+    float o[32], s[64];
+    uint32_t p[32];  // P of the previous tile: bf16 pairs, 4 for each 16-key slice
+    for (int w = blockIdx.x, j = 0; w < items; w += gridDim.x, ++j) {
+      const int q0 = (w % q_tiles) * kBQ;
+      const int h = (w / q_tiles) % a.heads;
+      const int b = w / (q_tiles * a.heads);
+      const int qb = j & 1;
+      // the last consumer's last turn of the block's last item is the last of all
+      const bool pass_last = c != kConsumers - 1 || w + static_cast<int>(gridDim.x) < items;
+      Softmax<BIAS> sm(a, q0 + c * kRows + (tid >> 5) * 16 + (lane >> 2), lane & 3, b, h);
+#pragma unroll
+      for (int i = 0; i < 32; ++i) o[i] = 0.f;
+      const uint64_t dq = dg::sw128_desc(tile_q(qb) + c * kRows * kD * 2);
+      dg::mbar_wait(&full_q[qb], (j >> 1) & 1);
+
+      // turn t issues S_t (t < n_tiles), then P_{t-1} V_{t-1} (t > 0); the
+      // first and the last turn are peeled off the loop
+      const int use0 = j * n_tiles;
+      dg::mbar_wait(&full[use0 % kStages], (use0 / kStages) & 1);
+      dg::named_sync(kTurnBar + c, kTurnThreads);
+      dg::fence_regs(s);
+      dg::wgmma_fence();
+      issue_qk(s, dq, tile_k(use0 % kStages));
+      dg::wgmma_commit();
+      dg::named_arrive(next_bar, kTurnThreads);
+      dg::wgmma_wait<0>();
+      dg::fence_regs(s);
+      sm.scores(s, 0);
+      Softmax<BIAS>::pack(s, p);  // O is still 0: nothing to rescale
+      for (int t = 1; t < n_tiles; ++t) {
+        const int use = use0 + t;
+        const int prev = (use - 1) % kStages;
+        dg::mbar_wait(&full[use % kStages], (use / kStages) & 1);
+        dg::named_sync(kTurnBar + c, kTurnThreads);
+        dg::fence_regs(o);
+        dg::fence_regs(s);
+        dg::fence_regs(p);
+        dg::wgmma_fence();
+        issue_qk(s, dq, tile_k(use % kStages));
+        dg::wgmma_commit();
+        issue_pv(o, p, tile_v(prev));
+        dg::wgmma_commit();
+        dg::named_arrive(next_bar, kTurnThreads);
+        dg::wgmma_wait<1>();  // S_t is done; P_{t-1} V_{t-1} may still run
+        dg::fence_regs(s);
+        sm.scores(s, t);
+        dg::wgmma_wait<0>();  // P_{t-1} V_{t-1} is done: O and P are free
+        dg::fence_regs(o);
+        dg::fence_regs(p);
+        if (tid == 0) dg::mbar_arrive(&empty[prev]);  // K and V of tile t - 1 are done
+        sm.rescale(o);
+        Softmax<BIAS>::pack(s, p);
+      }
+      const int last = (use0 + n_tiles - 1) % kStages;
+      dg::named_sync(kTurnBar + c, kTurnThreads);
+      dg::fence_regs(o);
+      dg::fence_regs(p);
+      dg::wgmma_fence();
+      issue_pv(o, p, tile_v(last));
+      dg::wgmma_commit();
+      if (pass_last) dg::named_arrive(next_bar, kTurnThreads);
+      dg::wgmma_wait<0>();
+      dg::fence_regs(o);
+      if (tid == 0) {
+        dg::mbar_arrive(&empty[last]);
+        dg::mbar_arrive(&empty_q[qb]);  // its last Q K^T is done
+      }
+      sm.store(o, static_cast<TO*>(a.o) + b * a.o_bs + h * a.o_hs);
+    }
+  }
+}
+
+// a 3-D bf16 map over (width channels, rows, batch) with the given element
+// strides of a row and of a batch, read in boxes of (64, box_rows, 1) under
+// the 128-byte swizzle, zeros past its edges; false if the encoder refuses it
+bool tensor_map(CUtensorMap* map, const void* ptr, int64_t width, int64_t rows, int64_t batch,
+                int64_t row_stride, int64_t batch_stride, int box_rows) {
+  const dg::EncodeTiledFn encode = dg::encode_tiled();
+  if (encode == nullptr) return false;
+  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(width), static_cast<cuuint64_t>(rows),
+                              static_cast<cuuint64_t>(batch)};
+  const cuuint64_t strides[2] = {static_cast<cuuint64_t>(row_stride) * 2,
+                                 static_cast<cuuint64_t>(batch_stride) * 2};  // bytes
+  const cuuint32_t box[3] = {kD, static_cast<cuuint32_t>(box_rows), 1};
+  const cuuint32_t steps[3] = {1, 1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(ptr), dims, strides,
+                box, steps, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <typename TO, bool BIAS>
+int launch(const CUtensorMap& mq, const CUtensorMap& mk, const CUtensorMap& mv, const Args& a,
+           int blocks, cudaStream_t stream) {
+  const cudaError_t err = cudaFuncSetAttribute(
+      attn_sm90_kernel<TO, BIAS>, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  attn_sm90_kernel<TO, BIAS><<<blocks, kThreads, kSmem, stream>>>(mq, mk, mv, a);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// q rows of a work item (ops/flash_attention.py: SM90_TILE)
+extern "C" int dg_flash_attention_sm90_rows() { return kBQ; }
+
+// Attention at head dim 64 over bf16 q, k and v, each read as a 3-D tensor of
+// (width channels, rows, batch) with element strides row_stride (the width)
+// and batch_stride; head h of a slot is channels c0 + h * head_c: the packed
+// (B, N, 3C) projection is q = k = v = qkv, width 3C, c0 = 0, C, 2C,
+// head_c = 64, heads = H; the (BH, S, 64) layout is width 64, c0 = 0,
+// head_c = 0, heads = 1, batch = BH. o (TO: bf16, or f32 with out_f32) at
+// o + b * o_bs + h * o_hs + row * o_rs; bias null or f32 with key stride 1.
+// At most `blocks` persistent blocks (one an SM) walk the ceil(sq / kBQ) *
+// heads * batch work items. Pointers and strides must suit TMA: 16-byte aligned, strides
+// multiples of 8.
+extern "C" int dg_flash_attention_sm90(
+    const void* q, const void* k, const void* v, const void* bias, void* o, int batch,
+    int heads, int sq, int sk, int64_t q_width, int64_t q_bs, int64_t kv_width, int64_t kv_bs,
+    int q_c0, int k_c0, int v_c0, int head_c, int64_t o_bs, int64_t o_hs, int64_t o_rs,
+    int64_t bias_bs, int64_t bias_hs, int64_t bias_rs, float scale, int out_f32, int blocks,
+    void* stream) {
+  if (batch <= 0 || heads <= 0 || sq <= 0 || sk <= 0 || blocks <= 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  CUtensorMap mq, mk, mv;
+  if (!tensor_map(&mq, q, q_width, sq, batch, q_width, q_bs, kBQ))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (kBQ == kBK && k == q && kv_width == q_width && kv_bs == q_bs && sk == sq) {
+    mk = mq;  // the packed projection: one map serves all three slots
+  } else if (!tensor_map(&mk, k, kv_width, sk, batch, kv_width, kv_bs, kBK)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (v == k) {
+    mv = mk;
+  } else if (!tensor_map(&mv, v, kv_width, sk, batch, kv_width, kv_bs, kBK)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const int64_t items = static_cast<int64_t>((sq + kBQ - 1) / kBQ) * heads * batch;
+  if (items < blocks) blocks = static_cast<int>(items);  // every block has an item
+  Args a{};
+  a.bias = static_cast<const float*>(bias);
+  a.o = o;
+  a.batch = batch;
+  a.heads = heads;
+  a.sq = sq;
+  a.sk = sk;
+  a.q_c0 = q_c0;
+  a.k_c0 = k_c0;
+  a.v_c0 = v_c0;
+  a.head_c = head_c;
+  a.o_bs = o_bs;
+  a.o_hs = o_hs;
+  a.o_rs = o_rs;
+  a.bias_bs = bias_bs;
+  a.bias_hs = bias_hs;
+  a.bias_rs = bias_rs;
+  a.scale_log2 = scale * kLog2e;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (bias != nullptr)
+    return out_f32 ? launch<float, true>(mq, mk, mv, a, blocks, s)
+                   : launch<bf16, true>(mq, mk, mv, a, blocks, s);
+  return out_f32 ? launch<float, false>(mq, mk, mv, a, blocks, s)
+                 : launch<bf16, false>(mq, mk, mv, a, blocks, s);
+}

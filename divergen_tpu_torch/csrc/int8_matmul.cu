@@ -60,13 +60,13 @@
 // entry point looked up at run time: no -lcuda) on every call: a cache of
 // them saved no host time that showed (under 0.1 ms an int8 UNet call).
 
-#include <cuda.h>  // CUtensorMap and its enums (types only: libcuda is not linked)
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include "gn_moments.cuh"  // dg::load_vec, dg::store_pair, dg::store_one
 #include "mma_sm90.cuh"    // dg::smem_addr
+#include "sm90_async.cuh"  // mbarriers, TMA, the swizzled descriptor, wgmma fences
 
 namespace {
 
@@ -158,81 +158,6 @@ __device__ __forceinline__ void store8(float* p, const float (&y)[8]) {
   *reinterpret_cast<float4*>(p + 4) = make_float4(y[4], y[5], y[6], y[7]);
 }
 
-// ---- mbarriers, TMA and wgmma (PTX ISA 8.0, sm_90a)
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(dg::smem_addr(bar)), "r"(count)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(dg::smem_addr(bar))
-               : "memory");
-}
-
-// arrive, and expect `bytes` more of TMA transactions in this phase
-__device__ __forceinline__ void mbar_arrive_expect_tx(uint64_t* bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
-                   dg::smem_addr(bar)),
-               "r"(bytes)
-               : "memory");
-}
-
-// wait until the phase of parity `parity` has completed
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
-  const uint32_t addr = dg::smem_addr(bar);
-  uint32_t done;
-  do {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(addr), "r"(parity)
-        : "memory");
-  } while (!done);
-}
-
-// the (c0, c1) box of `map` (c0 the inner, K coordinate, in bytes) into dst;
-// completion is counted on `bar`
-__device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map, uint64_t* bar,
-                                            int c0, int c1) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1, {%3, %4}], [%2];\n" ::"r"(dg::smem_addr(dst)),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(dg::smem_addr(bar)), "r"(c0), "r"(c1)
-      : "memory");
-}
-
-// wgmma shared-memory descriptor of a K-major tile whose rows are 128 bytes
-// under the 128-byte swizzle: start address >> 4, leading offset 1 (unused
-// for this layout), stride 1024 bytes between groups of 8 rows, layout 1
-// (128-byte swizzle). The tile must start on a 1024-byte boundary; the k-th
-// 32-byte step of K inside the swizzled row is the start address + 32 k.
-__device__ __forceinline__ uint64_t sw128_desc(const void* tile) {
-  const uint64_t addr = dg::smem_addr(tile);
-  return ((addr & 0x3ffff) >> 4) | (1ull << 16) | (64ull << 32) | (1ull << 62);
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
-}
-
-// keeps the compiler from moving reads or writes of the accumulator across
-// the asynchronous wgmma instructions
-template <int R>
-__device__ __forceinline__ void fence_acc(int (&d)[R]) {
-#pragma unroll
-  for (int i = 0; i < R; ++i) asm volatile("" : "+r"(d[i])::"memory");
-}
-
 // d (64 x N s32, the warpgroup's accumulator fragment) += A (64 x 32 s8, K-major,
 // descriptor a) * B (N x 32 s8, K-major, descriptor b)^T; scale_d = 0: d = A B^T.
 // Fragment: thread t of the warpgroup holds rows 16 (t / 32) + (t % 32) / 4 + {0, 8},
@@ -295,11 +220,11 @@ __global__ void __launch_bounds__(kThreads, 1)
 
   if (threadIdx.x == 0) {
     for (int s = 0; s < kStages; ++s) {
-      mbar_init(&full[s], 1);
-      mbar_init(&empty[s], 1);  // released by the one consumer that owns the tile
+      dg::mbar_init(&full[s], 1);
+      dg::mbar_init(&empty[s], 1);  // released by the one consumer that owns the tile
     }
-    for (int c = 0; c < kConsumers; ++c) mbar_init(&turn[c], 1);
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    for (int c = 0; c < kConsumers; ++c) dg::mbar_init(&turn[c], 1);
+    dg::mbar_init_fence();
   }
   __syncthreads();
 
@@ -317,10 +242,10 @@ __global__ void __launch_bounds__(kThreads, 1)
         const int m0 = (t % a.tiles_m) * kBM;
         const int n0 = (t / a.tiles_m) * BN;
         for (int kt = 0; kt < n_k; ++kt) {
-          mbar_wait(&empty[stage], phase ^ 1);  // the first pass over the ring does not wait
-          mbar_arrive_expect_tx(&full[stage], T::kStage);
-          tma_load_2d(tile_x(stage), &map_x, &full[stage], kt * kBK, m0);
-          tma_load_2d(tile_w(stage), &map_w, &full[stage], kt * kBK, n0);
+          dg::mbar_wait(&empty[stage], phase ^ 1);  // the first pass over the ring does not wait
+          dg::mbar_arrive_expect_tx(&full[stage], T::kStage);
+          dg::tma_load_2d(tile_x(stage), &map_x, &full[stage], kt * kBK, m0);
+          dg::tma_load_2d(tile_w(stage), &map_w, &full[stage], kt * kBK, n0);
           if (++stage == kStages) stage = 0, phase ^= 1;
         }
       }
@@ -342,34 +267,34 @@ __global__ void __launch_bounds__(kThreads, 1)
          j += kConsumers, t += kConsumers * gridDim.x) {
       const int m0 = (t % a.tiles_m) * kBM;
       const int n0 = (t / a.tiles_m) * BN;
-      if (j > 0) mbar_wait(&turn[c], ((j - 1) / kConsumers) & 1);
+      if (j > 0) dg::mbar_wait(&turn[c], ((j - 1) / kConsumers) & 1);
       int held = -1;  // the stage read by the commit group still in flight
       for (int kt = 0; kt < n_k; ++kt) {
         const int use = j * n_k + kt;
         const int stage = use % kStages;
-        mbar_wait(&full[stage], (use / kStages) & 1);
-        const uint64_t da = sw128_desc(tile_x(stage));
-        const uint64_t db = sw128_desc(tile_w(stage));
-        fence_acc(acc[0]);
-        fence_acc(acc[1]);
-        wgmma_fence();
+        dg::mbar_wait(&full[stage], (use / kStages) & 1);
+        const uint64_t da = dg::sw128_desc(tile_x(stage));
+        const uint64_t db = dg::sw128_desc(tile_w(stage));
+        dg::fence_regs(acc[0]);
+        dg::fence_regs(acc[1]);
+        dg::wgmma_fence();
 #pragma unroll
         for (int kk = 0; kk < kBK / 32; ++kk) {  // 32 bytes of K per instruction
           wgmma_s8<BN>(acc[0], da + 2 * kk, db + 2 * kk, (kt | kk) != 0);
           wgmma_s8<BN>(acc[1], da + (64 * kBK >> 4) + 2 * kk, db + 2 * kk, (kt | kk) != 0);
         }
-        wgmma_commit();
-        fence_acc(acc[0]);
-        fence_acc(acc[1]);
-        wgmma_wait<1>();  // the previous stage's products are done: release it
-        if (held >= 0 && tid == 0) mbar_arrive(&empty[held]);
+        dg::wgmma_commit();
+        dg::fence_regs(acc[0]);
+        dg::fence_regs(acc[1]);
+        dg::wgmma_wait<1>();  // the previous stage's products are done: release it
+        if (held >= 0 && tid == 0) dg::mbar_arrive(&empty[held]);
         held = stage;
       }
-      if (tid == 0) mbar_arrive(&turn[1 - c]);
-      wgmma_wait<0>();
-      fence_acc(acc[0]);
-      fence_acc(acc[1]);
-      if (tid == 0) mbar_arrive(&empty[held]);
+      if (tid == 0) dg::mbar_arrive(&turn[1 - c]);
+      dg::wgmma_wait<0>();
+      dg::fence_regs(acc[0]);
+      dg::fence_regs(acc[1]);
+      if (tid == 0) dg::mbar_arrive(&empty[held]);
 
       // dequantize in registers: (float(acc) * x_scale[row]) * w_scale[col] -> TO.
       // Lane t of a quad holds columns 2 t, 2 t + 1 of each block of 8; two
@@ -435,34 +360,11 @@ __global__ void __launch_bounds__(kThreads, 1)
 
 // ---- host side: tensor maps
 
-typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                  const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                  const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                  CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-EncodeTiledFn encode_tiled() {
-  static const EncodeTiledFn fn = [] {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    const cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
-                                                             cudaEnableDefault, &found);
-#else
-    const cudaError_t err =
-        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
-#endif
-    return err == cudaSuccess && found == cudaDriverEntryPointSuccess
-               ? reinterpret_cast<EncodeTiledFn>(p)
-               : nullptr;
-  }();
-  return fn;
-}
-
 // the map of a row-major (rows, cols) int8 matrix read in boxes of box_rows x
 // 128 bytes with the 128-byte swizzle, zeros past its edges; false if the
 // encoder refuses it
 bool tensor_map(CUtensorMap* map, const void* ptr, int rows, int cols, int box_rows) {
-  const EncodeTiledFn encode = encode_tiled();
+  const dg::EncodeTiledFn encode = dg::encode_tiled();
   if (encode == nullptr) return false;
   const cuuint64_t dims[2] = {static_cast<cuuint64_t>(cols), static_cast<cuuint64_t>(rows)};
   const cuuint64_t strides[1] = {static_cast<cuuint64_t>(cols)};  // bytes, of dimension 1

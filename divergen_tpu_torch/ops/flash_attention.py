@@ -5,13 +5,18 @@ Counterpart of ``divergen_tpu/ops/pallas/flash_attention.py``:
 ``flash_attention_packed`` (self-attention straight out of a fused
 (B, N, 3C) QKV projection) and ``flash_attention_relpos`` (global attention
 over a token grid with the decomposed relative-position bias of ViTDet and
-SAM). All launch ``csrc/flash_attention.cu`` for a CUDA tensor and use the
+SAM). All launch a hand-written CUDA kernel for a CUDA tensor and use the
 plain version in this module, the numerics reference, for a CPU tensor. A
-CUDA tensor the kernel cannot take raises. ``flash_attention`` and
-``flash_attention_packed`` take bf16 or float32 (a float32 model's
-attention): the kernel rounds float32 q, k and v to bf16 as it loads them,
-multiplies on the bf16 tensor cores as for bf16, and writes float32;
-``flash_attention_relpos`` takes bf16.
+CUDA tensor the kernel cannot take raises. The head dim picks the body:
+d = 64 (SDXL) runs ``csrc/flash_attention_sm90.cu`` (TMA, wgmma, three
+consumer warpgroups taking turns), d = 512 (the VAE) and the
+relative-position kernel at d = 80 (SAM) ``csrc/flash_attention.cu``
+(mma.sync). ``flash_attention`` and ``flash_attention_packed`` take bf16 or
+float32 (a float32 model's attention): float32 q, k and v are rounded to
+bf16 (by this module at d = 64, where TMA cannot convert; by the mma.sync
+body as it loads them at d = 512), the products run on the bf16 tensor
+cores as for bf16, and the output is float32; ``flash_attention_relpos``
+takes bf16.
 
 Each wrapper counts its kernel launches in a plain int attribute
 (``flash_attention.launches``, ``flash_attention_packed.launches``,
@@ -20,13 +25,15 @@ Each wrapper counts its kernel launches in a plain int attribute
 from __future__ import annotations
 
 import math
-from typing import Optional, Tuple
+from typing import Iterator, NamedTuple, Optional, Tuple
 
 import torch
 
 from . import _build
 
 KERNEL_HEAD_DIMS = (64, 512)  # head dims the kernel is instantiated for
+SM90_HEAD_DIM = 64  # ... on the wgmma + TMA body; the others on the mma.sync body
+SM90_TILE = 192  # q rows a work item of the wgmma body (its kBQ: 3 warpgroups of 64)
 KERNEL_DTYPES = (torch.bfloat16, torch.float32)  # q, k, v and output of those
 RELPOS_HEAD_DIMS = (80,)  # ... with the relative-position bias (SAM ViT-H)
 # The block keeps H + W rows of 64 + 4 floats beside its q tile and K/V ring
@@ -92,8 +99,59 @@ def _require_kernel_input(name: str, t: torch.Tensor, d: int, head_dims=KERNEL_H
         raise ValueError(f"head dim {d} has no kernel (instantiated: {head_dims})")
 
 
+class TilePlan(NamedTuple):
+    """How the d = 64 body covers one call. Its work items are (q tiles of
+    ``SM90_TILE`` rows, heads, batch), q tiles fastest; a persistent grid of
+    at most one block an SM walks them, block i taking items i, i + blocks,
+    ... q, k and v are read through maps of (``width`` channels, rows,
+    batch), and head h of a slot is the 64 channels from ``c0 + h * head_c``
+    of that slot."""
+    items: Tuple[int, int, int]
+    width: int
+    q_c0: int
+    k_c0: int
+    v_c0: int
+    head_c: int
+
+    def blocks(self, sms: int) -> int:
+        return min(math.prod(self.items), sms)
+
+    def boxes(self, sms: int) -> Iterator[Tuple[int, Tuple[int, int, int],
+                                                Tuple[int, int, int], int, int]]:
+        """Per block and item: (block, (q tile, head, batch), the (channel,
+        row, batch) origin of the q box, the channels of the k and v boxes),
+        as the kernel computes them (``csrc/flash_attention_sm90.cu``)."""
+        tiles, heads, _ = self.items
+        blocks = self.blocks(sms)
+        for block in range(blocks):
+            for w in range(block, math.prod(self.items), blocks):
+                t, h, b = w % tiles, (w // tiles) % heads, w // (tiles * heads)
+                yield (block, (t, h, b), (self.q_c0 + h * self.head_c, t * SM90_TILE, b),
+                       self.k_c0 + h * self.head_c, self.v_c0 + h * self.head_c)
+
+
+def packed_plan(batch: int, n: int, channels: int, heads: int) -> TilePlan:
+    """The plan of a fused (batch, n, 3 * channels) projection: one map over
+    all 3C channels, q, k and v at channel offsets 0, C and 2C."""
+    d = channels // heads
+    return TilePlan((-(-n // SM90_TILE), heads, batch), 3 * channels, 0, channels,
+                    2 * channels, d)
+
+
+def bhsd_plan(bh: int, sq: int, d: int) -> TilePlan:
+    """The plan of (BH, S, D) q, k and v: a map of (D, S, BH) each, one head."""
+    return TilePlan((-(-sq // SM90_TILE), 1, bh), d, 0, 0, 0, 0)
+
+
+def bf16_operand(t: torch.Tensor) -> torch.Tensor:
+    """What the d = 64 body reads: ``t`` rounded to bf16 (to nearest even,
+    as the mma.sync body rounded float32 on load); bf16 as it is."""
+    return t if t.dtype == torch.bfloat16 else t.to(torch.bfloat16)
+
+
 def _launch(q_ptr, k_ptr, v_ptr, bias, out, batch, heads, sq, sk, d,
             q_strides, kv_strides, o_strides, bias_strides, device) -> None:
+    """The mma.sync body (d = 512)."""
     lib = _build.lib()
     code = lib.dg_flash_attention(
         q_ptr, k_ptr, v_ptr, None if bias is None else bias.data_ptr(),
@@ -103,6 +161,34 @@ def _launch(q_ptr, k_ptr, v_ptr, bias, out, batch, heads, sq, sk, d,
         torch.cuda.current_stream(device).cuda_stream,
     )
     _build.check(code, "flash attention kernel launch")
+
+
+def _launch_sm90(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, plan: TilePlan,
+                 sq: int, sk: int, out: torch.Tensor, o_strides, bias=None,
+                 bias_strides=(0, 0, 0)) -> None:
+    """The wgmma body (d = 64) on bf16 q, k and v of shape (batch, rows,
+    width) (the same tensor for a packed projection), into ``out``, a
+    caller's buffer addressed by ``o_strides`` (batch, head, row)."""
+    sms = torch.cuda.get_device_properties(out.device).multi_processor_count
+    code = _build.lib().dg_flash_attention_sm90(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), None if bias is None else bias.data_ptr(),
+        out.data_ptr(), plan.items[2], plan.items[1], sq, sk, plan.width, q.stride(0),
+        plan.width, k.stride(0), plan.q_c0, plan.k_c0, plan.v_c0, plan.head_c, *o_strides,
+        *bias_strides, 1.0 / math.sqrt(SM90_HEAD_DIM), int(out.dtype == torch.float32),
+        plan.blocks(sms), torch.cuda.current_stream(out.device).cuda_stream,
+    )
+    _build.check(code, "flash attention (sm90) kernel launch")
+
+
+def _packed_into(qkv: torch.Tensor, heads: int, out: torch.Tensor) -> torch.Tensor:
+    """Launches the d = 64 body on a checked CUDA ``qkv`` (B, N, 3C) into
+    ``out``, a (B, N, C) view with a unit channel stride that the caller
+    allocates (a view of a larger buffer is fine)."""
+    b, n, c3 = qkv.shape
+    qkv16 = bf16_operand(qkv)
+    _launch_sm90(qkv16, qkv16, qkv16, packed_plan(b, n, c3 // 3, heads), n, n, out,
+                 (out.stride(0), c3 // (3 * heads), out.stride(1)))
+    return out
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -122,16 +208,32 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         _require_kernel_input(name, t, d)
     if not q.dtype == k.dtype == v.dtype:
         raise ValueError(f"q, k, v dtypes {q.dtype}, {k.dtype}, {v.dtype} differ")
+    out = torch.empty_like(q)
+    flash_attention.launches += 1
+    return _flash_into(q, k, v, bias, out)
+
+
+def _flash_into(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                bias: Optional[torch.Tensor], out: torch.Tensor) -> torch.Tensor:
+    """Launches the kernel on checked CUDA q, k, v (BH, S, D) into ``out``, a
+    (BH, Sq, D) view with a unit last stride that the caller allocates (a
+    view of a larger buffer is fine)."""
+    bh, sq, d = q.shape
+    sk = k.shape[1]
     bias_strides = (0, 0, 0)
     if bias is not None:
         bias = bias.to(device=q.device, dtype=torch.float32).expand(bh, sq, sk)
         if bias.stride(-1) != 1:
             bias = bias.contiguous()
         bias_strides = (bias.stride(0), 0, bias.stride(1))
-    out = torch.empty_like(q)
-    flash_attention.launches += 1
-    _launch(q.data_ptr(), k.data_ptr(), v.data_ptr(), bias, out, bh, 1, sq, sk, d,
-            (sq * d, 0, d), (sk * d, 0, d), (sq * d, 0, d), bias_strides, q.device)
+    o_strides = (out.stride(0), 0, out.stride(1))
+    if d == SM90_HEAD_DIM:
+        q16, k16, v16 = map(bf16_operand, (q, k, v))
+        _launch_sm90(q16, k16, v16, bhsd_plan(bh, sq, d), sq, sk, out, o_strides, bias,
+                     bias_strides)
+    else:
+        _launch(q.data_ptr(), k.data_ptr(), v.data_ptr(), bias, out, bh, 1, sq, sk, d,
+                (sq * d, 0, d), (sk * d, 0, d), o_strides, bias_strides, q.device)
     return out
 
 
@@ -158,9 +260,11 @@ def flash_attention_packed(qkv: torch.Tensor, heads: int,
     d = c // heads
     _require_kernel_input("qkv", qkv, d)
     out = torch.empty((b, n, c), dtype=qkv.dtype, device=qkv.device)
+    flash_attention_packed.launches += 1
+    if d == SM90_HEAD_DIM:
+        return _packed_into(qkv, heads, out)
     ptr = qkv.data_ptr()
     esz = qkv.element_size()
-    flash_attention_packed.launches += 1
     _launch(ptr, ptr + c * esz, ptr + 2 * c * esz, None, out, b, heads, n, n, d,
             (n * c3, d, c3), (n * c3, d, c3), (n * c, d, c), (0, 0, 0), qkv.device)
     return out

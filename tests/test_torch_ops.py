@@ -30,7 +30,10 @@ def assert_rel_close(got, ref, tol=TOL):
     assert err <= tol * np.abs(ref).max(), (err, np.abs(ref).max())
 
 
-@pytest.mark.parametrize("b,n,heads,d", [(2, 128, 4, 16), (1, 256, 2, 32)])
+# d = 64 is the head dim of the kernel's wgmma body (SDXL); at N = 72 the JAX
+# function cannot tile N and takes its transposed path
+@pytest.mark.parametrize("b,n,heads,d", [(2, 128, 4, 16), (1, 256, 2, 32), (1, 128, 2, 64),
+                                         (1, 72, 2, 64)])
 def test_flash_attention_packed_vs_pallas_interpret(b, n, heads, d):
     qkv = np.random.RandomState(0).randn(b, n, 3 * heads * d).astype(np.float32)
     want = jfa.flash_attention_packed(jnp.asarray(qkv), heads, interpret=True,
@@ -39,6 +42,58 @@ def test_flash_attention_packed_vs_pallas_interpret(b, n, heads, d):
         got = tfa.flash_attention_packed(torch.from_numpy(qkv), heads, softmax_mode=mode)
         assert got.shape == (b, n, heads * d)
         assert_rel_close(got.numpy(), want)
+
+
+@pytest.mark.parametrize("b,n,c,heads", [(4, 4096, 640, 10), (4, 1024, 1280, 20),
+                                         (1, 1000, 640, 10), (2, 1, 128, 2)])
+@pytest.mark.parametrize("sms", [132, 7])
+def test_packed_plan_covers_every_tile_once(b, n, c, heads, sms):
+    """The d = 64 body's work items: every (q tile, head, batch) taken by one
+    block exactly once, every q row of every head in exactly one q box, and
+    head h's q, k and v boxes at channels h·d, C + h·d and 2C + h·d."""
+    plan = tfa.packed_plan(b, n, c, heads)
+    d = c // heads
+    assert plan.width == 3 * c
+    tiles = -(-n // tfa.SM90_TILE)
+    assert plan.items == (tiles, heads, b)
+    seen = {}
+    rows = np.zeros((b, heads, n), np.int64)
+    for block, item, (qc, qr, qb), kc, vc in plan.boxes(sms):
+        assert 0 <= block < min(sms, tiles * heads * b)
+        assert item not in seen
+        seen[item] = block
+        t, h, bb = item
+        assert (qc, qr, qb) == (h * d, t * tfa.SM90_TILE, bb)
+        assert (kc, vc) == (c + h * d, 2 * c + h * d)
+        rows[bb, h, qr:qr + tfa.SM90_TILE] += 1
+    assert len(seen) == tiles * heads * b
+    assert (rows == 1).all()
+    # the blocks' shares differ by at most one item
+    counts = np.bincount(list(seen.values()))
+    assert counts.max() - counts.min() <= 1
+
+
+def test_bhsd_plan_reads_one_head_per_batch_row():
+    plan = tfa.bhsd_plan(6, 1000, 64)
+    assert plan.items == (-(-1000 // tfa.SM90_TILE), 1, 6) and plan.width == 64
+    assert {(qc, kc, vc) for _, _, (qc, _, _), kc, vc in plan.boxes(132)} == {(0, 0, 0)}
+
+
+def test_bf16_operand_rounds_float32_as_the_kernel_reads_it():
+    """Float32 q, k and v reach the d = 64 body rounded to bf16, to nearest
+    even; on bf16-exact inputs that changes nothing, so the plain twin gives
+    the same result on both."""
+    x = torch.tensor([1.0, 1.0 + 2 ** -8, 1.0 + 3 * 2 ** -8, -(1.0 + 2 ** -9), 3.0 + 2 ** -7])
+    got = tfa.bf16_operand(x)
+    assert got.dtype == torch.bfloat16
+    assert got.float().tolist() == [1.0, 1.0, 1.0 + 2 ** -6, -1.0, 3.0]
+    bf = torch.zeros(1, dtype=torch.bfloat16)
+    assert tfa.bf16_operand(bf) is bf
+    qkv = torch.from_numpy(np.random.RandomState(3).randn(1, 64, 3 * 128).astype(np.float32))
+    qkv = qkv.bfloat16().float()  # bf16-exact
+    assert torch.equal(tfa.bf16_operand(qkv).float(), qkv)
+    assert torch.equal(tfa.reference_attention_packed(tfa.bf16_operand(qkv).float(), 2),
+                       tfa.reference_attention_packed(qkv, 2))
 
 
 def test_flash_attention_packed_rejects_tpu_only_mode():

@@ -1,0 +1,187 @@
+#!/usr/bin/env python3
+"""A/B of SDXL's self-attention kernel (kernel 1, ``flash_attention_packed``
+at head dim 64) against an earlier build, at the shapes of an SDXL UNet call
+and the main shape, on one GPU.
+
+Runs from the root of a checkout. Extract the earlier source first (the
+machine that runs this needs no git), e.g. for the parent commit, whose
+``flash_attention.cu`` held the d = 64 body:
+
+    mkdir -p build/scratch/old
+    git show HEAD~1:divergen_tpu_torch/csrc/flash_attention.cu > build/scratch/old/flash_attention.cu
+    python3 tools/attention_ab.py build/scratch/old/flash_attention.cu
+
+Builds that source and the checkout's ``csrc/flash_attention_sm90.cu`` with
+nvcc, each into a library of its own under ``build/scratch/`` (headers from
+the source's own directory first, then ``csrc/``), and calls their C entry
+points on the same operands. An earlier build has either the interface of
+the mma.sync body (``dg_flash_attention``, strides) or the current one
+(``dg_flash_attention_sm90``, tensor maps), so a variant of the current
+source can be A/B'd as well.
+
+``--shape B,N,C,H`` (repeatable) times other shapes instead. For each
+shape (bf16, seeded qkv (B, N, 3C)) it prints, for both builds, the
+relative L2 and max |error| against the plain twin in float32
+(``reference_attention_packed``), the elements that differ from the twin's
+bf16 result, and whether two runs give the same bits; then the device time
+of both in turns (earlier, current, current, earlier, three times; each a
+``chip_smoke.device_ms`` of 10 calls; medians of 6) beside that of
+``scaled_dot_product_attention`` on contiguous (B, H, N, 64) q, k and v, and
+the bound (4 B H N² 64 FLOP at 989 TFLOP/s). Then the sums of median x
+launches per UNet call. Needs a CUDA device; prints the card's name and power
+limit first.
+"""
+from __future__ import annotations
+
+import argparse
+import ctypes
+import math
+import statistics
+import subprocess
+import sys
+from pathlib import Path
+
+import torch
+import torch.nn.functional as F
+
+ROOT = Path(__file__).resolve().parents[1]
+sys.path.insert(0, str(ROOT))
+
+from chip_smoke import PEAK_BF16_FLOPS, card_line, device_ms  # noqa: E402
+from divergen_tpu_torch.ops import _build  # noqa: E402
+from divergen_tpu_torch.ops import flash_attention as fa  # noqa: E402
+
+TURNS = 3
+ORDER = ("earlier", "current", "current", "earlier")
+# (B, N, C, heads) -> launches per SDXL UNet call at B = 2 images (batch 4);
+# None: the main shape of PERF.md's kernel table, on no UNet call
+SHAPES = {(4, 4096, 640, 10): 10, (4, 1024, 1280, 20): 60, (2, 4096, 640, 10): None}
+
+
+def build(name: str, src: Path) -> ctypes.CDLL:
+    out = ROOT / "build" / "scratch" / f"attention_ab_{name}.so"
+    out.parent.mkdir(parents=True, exist_ok=True)
+    cmd = [_build.find_nvcc(), *_build.NVCC_FLAGS, "-I", str(src.parent), "-I",
+           str(_build.CSRC), "-shared", "-o", str(out), str(src)]
+    res = subprocess.run(cmd, capture_output=True, text=True)
+    if res.returncode:
+        raise RuntimeError(f"nvcc failed on {src}:\n{res.stdout}{res.stderr}")
+    for line in (res.stdout + res.stderr).splitlines():
+        if "registers" in line or "spill" in line or "wgmma" in line.lower():
+            print(f"  ptxas ({name}): {line.strip()}", flush=True)
+    lib = ctypes.CDLL(str(out))
+    p, i, i64, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, ctypes.c_float
+    lib.sm90 = hasattr(lib, "dg_flash_attention_sm90")
+    if lib.sm90:
+        lib.dg_flash_attention_sm90.argtypes = ([p] * 5 + [i] * 4 + [i64] * 4 + [i] * 4
+                                                + [i64] * 6 + [f, i, i, p])
+    else:
+        lib.dg_flash_attention.argtypes = [p] * 5 + [i] * 5 + [i64] * 12 + [f, i, p]
+    return lib
+
+
+def call(lib, qkv: torch.Tensor, heads: int, out: torch.Tensor, stream: int, sms: int) -> None:
+    b, n, c3 = qkv.shape
+    c = c3 // 3
+    d = c // heads
+    ptr = qkv.data_ptr()
+    if lib.sm90:
+        plan = fa.packed_plan(b, n, c, heads)
+        code = lib.dg_flash_attention_sm90(
+            ptr, ptr, ptr, None, out.data_ptr(), b, heads, n, n, plan.width, n * c3,
+            plan.width, n * c3, plan.q_c0, plan.k_c0, plan.v_c0, plan.head_c, n * c, d, c,
+            0, 0, 0, 1.0 / math.sqrt(d), 0, sms, stream)
+    else:
+        code = lib.dg_flash_attention(
+            ptr, ptr + 2 * c, ptr + 4 * c, None, out.data_ptr(), b, heads, n, n, d,
+            n * c3, d, c3, n * c3, d, c3, n * c, d, c, 0, 0, 0, 1.0 / math.sqrt(d), 0, stream)
+    if code:
+        raise RuntimeError(f"launch failed with CUDA error {code}")
+
+
+def in_turns(fns: dict) -> dict:
+    """Median of ``device_ms(fns[name])`` over ``TURNS`` rounds of ``ORDER``."""
+    times = {name: [] for name in fns}
+    for _ in range(TURNS):
+        for name in ORDER:
+            times[name].append(device_ms(fns[name]))
+    return {name: (statistics.median(t), t) for name, t in times.items()}
+
+
+def main() -> int:
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("earlier", type=Path, help="the earlier build's source")
+    parser.add_argument("--shape", action="append", default=[], metavar="B,N,C,H",
+                        help="time this (B, N, C, heads) instead of the UNet's shapes "
+                             "(repeatable; no launches per UNet call)")
+    parser.add_argument("--timing-only", action="store_true",
+                        help="time an earlier build that is not meant to be right (a body with "
+                             "parts cut out, to see what they cost): print its errors, do not fail")
+    args = parser.parse_args()
+    if not torch.cuda.is_available():
+        print("needs a CUDA device", file=sys.stderr)
+        return 1
+    print(f"device: {torch.cuda.get_device_name(0)}; nvidia-smi: {card_line()}", flush=True)
+    libs = {"earlier": build("earlier", args.earlier.resolve()),
+            "current": build("current", _build.CSRC / "flash_attention_sm90.cu")}
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(0)
+    stream = torch.cuda.current_stream().cuda_stream
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    totals = {"earlier": 0.0, "current": 0.0, "SDPA": 0.0, "bound": 0.0}
+    shapes = ({tuple(int(v) for v in text.split(",")): None for text in args.shape}
+              if args.shape else SHAPES)
+    for (b, n, c, heads), launches in shapes.items():
+        d = c // heads
+        qkv = torch.randn((b, n, 3 * c), generator=g, device=dev).bfloat16()
+        ref = fa.reference_attention_packed(qkv.float(), heads)
+        ref16 = ref.bfloat16()
+        outs = {name: torch.empty((b, n, c), device=dev, dtype=torch.bfloat16) for name in libs}
+        runs = {name: (lambda lib=lib, name=name: call(lib, qkv, heads, outs[name], stream, sms))
+                for name, lib in libs.items()}
+        what = f"(B, N, C, H) = {(b, n, c, heads)}"
+        for name, run in runs.items():
+            run()
+            torch.cuda.synchronize()
+            got = outs[name].clone()
+            run()
+            torch.cuda.synchronize()
+            same = torch.equal(got, outs[name])
+            diff = (got.float() - ref)
+            rel = (diff.norm() / ref.norm()).item()
+            print(f"{what} {name}: rel_l2 {rel:.4g}, max_abs_err {diff.abs().max().item():.4g} "
+                  f"(max|ref| {ref.abs().max().item():.4g}), elements differing from the "
+                  f"plain twin's bf16 result {int((got != ref16).sum())} of {got.numel()}, "
+                  f"same bits twice: {same}", flush=True)
+            wrong = not torch.isfinite(got).all() or rel > 1e-2 or not same
+            if wrong and not (args.timing_only and name == "earlier"):
+                raise AssertionError(f"{name} build is wrong at {what}")
+        del ref, ref16
+        q4, k4, v4 = (t.reshape(b, n, heads, d).transpose(1, 2).contiguous()
+                      for t in qkv.chunk(3, dim=-1))
+        dev_ms = in_turns(runs)
+        sdpa = device_ms(lambda: F.scaled_dot_product_attention(q4, k4, v4))
+        flop = 4.0 * b * heads * n * n * d
+        bound = 1e3 * flop / PEAK_BF16_FLOPS
+        text = {name: ", ".join(f"{t:.4f}" for t in ts) for name, (_, ts) in dev_ms.items()}
+        print(f"{what}: device earlier {dev_ms['earlier'][0]:.4f} ms (runs {text['earlier']}), "
+              f"current {dev_ms['current'][0]:.4f} ms (runs {text['current']}), SDPA "
+              f"{sdpa:.4f} ms, bound {bound:.4f} ms ({flop / 1e9:.1f} GFLOP; current at "
+              f"{flop / dev_ms['current'][0] / 1e9:.0f} TFLOP/s); "
+              + (f"{launches} launches per UNet call" if launches else "on no UNet call"),
+              flush=True)
+        if launches:
+            for name in ("earlier", "current"):
+                totals[name] += dev_ms[name][0] * launches
+            totals["SDPA"] += sdpa * launches
+            totals["bound"] += bound * launches
+        del qkv, q4, k4, v4, outs
+        torch.cuda.empty_cache()
+    if not args.shape:
+        print("per UNet call (median x launches, ms): "
+              + ", ".join(f"{name} {ms:.3f}" for name, ms in totals.items()), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

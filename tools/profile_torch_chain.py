@@ -111,8 +111,8 @@ def profile_sdxl(dev, g) -> None:
             counts = {w.__name__: w.launches - b for w, b in zip(wrappers, before)}
             print(f"UNet call ({name}): kernel launches {counts}", flush=True)
             trace(f"UNet call, {name}, {what}", lambda: model(*args),
-                  also=("int8_gemm", "quantize_rows", "gn_moments", "gn_finalize", "gn_apply",
-                        "ln_vec", "ln_any", "gn_conv", "gnc_fold"))
+                  also=("attn_sm90", "int8_gemm", "quantize_rows", "gn_moments", "gn_finalize",
+                        "gn_apply", "ln_vec", "ln_any", "gn_conv", "gnc_fold"))
         trace("quantize_unet_ (the transformer weights of SDXL-base, once per denoise call)",
               lambda: quantize_unet_(unet8))
 
