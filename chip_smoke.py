@@ -54,7 +54,11 @@ Run from the root of a checkout:  python3 chip_smoke.py
    output (GroupNorm at C = 7680); then fused_gn_silu_conv3x3 at the fused
    ResBlock's level-0 (4, 128, 128, 320) -> 320 and level-2 (4, 32, 32, 2560)
    -> 1280, ragged (C = 48, and C = 36 to Co = 21) and float32 x against its
-   twin in float32 (the usual bounds); every one the same bits twice;
+   twin in float32 (the usual bounds), its apply pass's y within one bf16
+   ulp of the twin's bf16(silu(x a + s)), nothing written past its output
+   (a NaN guard row), and at each of the 12 shapes of a fused UNet call its
+   device time, the PyTorch call's and the bound, summed per call; every one
+   the same bits twice;
    yardsticks ``torch._int_mm`` (and the bf16 matmul it replaces),
    ``F.group_norm``, ``F.layer_norm`` and ``F.group_norm`` + ``F.silu`` +
    ``F.conv2d``; bounds at 1979 TOPS int8, 67 TFLOP/s f32 or 989 TFLOP/s
@@ -668,7 +672,11 @@ def serving_kernel_phases(gen: torch.Generator):
     with float32 x and output, the float32 UNet's path. The fused GroupNorm
     + SiLU + 3x3 conv (fused_gn_silu_conv3x3) at the fused ResBlock's level-0
     and level-2 shapes, ragged ones and float32 x, the usual bounds against
-    its twin in float32. Every kernel: the same call twice gives the same
+    its twin in float32; its apply pass (the fold within 1e-4 of the twin's,
+    y to one bf16 ulp) and a NaN guard row past its output; then every
+    kernel-8 shape of a fused UNet call (``ops/gn_conv.py:UNET_CONVS``)
+    against the twin, with its device time, the PyTorch call's and the
+    bound, summed per call. Every kernel: the same call twice gives the same
     bits. Yardsticks, never called by the port: ``torch._int_mm`` on the int8
     operands (int32 product only) beside the bf16 ``torch.matmul`` the int8
     path replaces; ``F.group_norm`` (+ ``F.silu``) on the NCHW view,
@@ -887,11 +895,7 @@ def serving_kernel_phases(gen: torch.Generator):
     # x. Plain: the twin on the same inputs in float32 (bf16 y and weight, an
     # f32 conv, TF32 off). Yardstick: F.group_norm + F.silu + F.conv2d in bf16
     # on channels-last views, what the port's default ResBlock runs.
-    for (b, h, w, c), co, dtype in (((4, 128, 128, 320), 320, torch.bfloat16),
-                                    ((4, 32, 32, 2560), 1280, torch.bfloat16),
-                                    ((1, 12, 20, 48), 16, torch.bfloat16),
-                                    ((2, 9, 11, 36), 21, torch.bfloat16),
-                                    ((2, 32, 32, 640), 320, torch.float32)):
+    def gn_conv_case(b, h, w, c, co, dtype):
         x = randn(b, h, w, c, scale=2.0, dtype=dtype) + 0.5
         scale = 1.0 + 0.1 * torch.randn(c, generator=gen, device=dev)
         gbias = 0.1 * torch.randn(c, generator=gen, device=dev)
@@ -900,10 +904,6 @@ def serving_kernel_phases(gen: torch.Generator):
         run = lambda: gc_mod.fused_gn_silu_conv3x3(x, scale, gbias, weight, cbias)
         plain = lambda: gc_mod.fused_gn_silu_conv3x3_reference(x.float(), scale, gbias, weight,
                                                                cbias)
-        name = f"gn_silu_conv3x3 B={b} H={h} W={w} C={c} -> {co} {str(dtype)[6:]}"
-        got = run()
-        err = compare(name, got, plain())
-        same_bits(name, got, run)
         groups = gc_mod.group_count(c)
         nchw = x.permute(0, 3, 1, 2).bfloat16()  # channels-last memory
         s16, b16 = scale.bfloat16(), gbias.bfloat16()
@@ -913,11 +913,80 @@ def serving_kernel_phases(gen: torch.Generator):
             y = F.silu(F.group_norm(nchw, groups, s16, b16, 1e-6))
             return F.conv2d(y, w16, cbias, padding=1)
 
+        name = f"gn_silu_conv3x3 B={b} H={h} W={w} C={c} -> {co} {str(dtype)[6:]}"
+        return x, scale, gbias, weight, cbias, run, plain, library, name
+
+    def bf16_ulps(a, b):
+        """|a - b| in units in the last place of bf16 (signs and zeros ordered)."""
+        def ordered(t):
+            i = t.contiguous().view(torch.int16).int()
+            return torch.where(i < 0, -(i & 0x7FFF), i)
+        return (ordered(a) - ordered(b)).abs()
+
+    for (b, h, w, c), co, dtype in (((4, 128, 128, 320), 320, torch.bfloat16),
+                                    ((4, 32, 32, 2560), 1280, torch.bfloat16),
+                                    ((1, 12, 20, 48), 16, torch.bfloat16),
+                                    ((2, 9, 11, 36), 21, torch.bfloat16),
+                                    ((2, 32, 32, 640), 320, torch.float32)):
+        x, scale, gbias, weight, cbias, run, plain, library, name = gn_conv_case(
+            b, h, w, c, co, dtype)
+        got = run()
+        err = compare(name, got, plain())
+        same_bits(name, got, run)
+        # the apply pass alone: its fold against the twin's (f32 moments in
+        # another order: within 1e-4 of the largest), and y against the twin's
+        # formula bf16(silu(x a + s)) on the pass's own a and s, in float64, to
+        # one bf16 ulp (on the twin's a and s, y near 0 would differ by more:
+        # a last-place change of a or s is many ulps of a tiny x a + s)
+        groups = gc_mod.group_count(c)
+        y, fa, fs = gc_mod._apply(x, scale, gbias, groups, 1e-6)
+        ref_a, ref_s = gc_mod.gn_silu_fold_reference(x, scale, gbias, groups, 1e-6)
+        fold_err = max(((fa - ref_a).abs().max() / ref_a.abs().max()).item(),
+                       ((fs - ref_s).abs().max() / ref_s.abs().max()).item())
+        t = x.double() * fa.double()[:, None, None, :] + fs.double()[:, None, None, :]
+        ulps = bf16_ulps(y[..., :c], (t * torch.sigmoid(t)).bfloat16()).max().item()
+        pad_zero = bool((y[..., c:] == 0).all())
+        log(f"    apply pass: fold within {fold_err:.3g} of the twin's, y within {ulps} bf16 "
+            f"ulp of bf16(silu(x a + s)), channels past C zero: {pad_zero}")
+        if fold_err > 1e-4 or ulps > 1 or not pad_zero:
+            raise AssertionError(f"{name}: the apply pass disagrees with the twin")
+        # nothing written past the output: the GEMM into the first B H W rows
+        # of a buffer whose next row is NaN gives the same bits, that row NaN
         m_pix = b * h * w
+        guard = torch.full((m_pix + 1, co), float("nan"), device=dev, dtype=dtype)
+        gc_mod._conv_gemm(y, gc_mod.weight_operand(weight), cbias.float(),
+                          guard[:m_pix].view(b, h, w, co))
+        if not (torch.equal(guard[:m_pix].view(b, h, w, co), got)
+                and bool(guard[m_pix].isnan().all())):
+            raise AssertionError(f"{name}: the GEMM wrote outside its output")
+        log("    writes nothing past its output: True")
+        del t, y, fa, fs, ref_a, ref_s, guard
         record("fused_gn_silu_conv3x3", err, run, plain, library, 2.0 * m_pix * 9 * c * co,
                x.element_size() * m_pix * (c + co) + 2.0 * co * 9 * c + 4.0 * (2 * c + co),
                PEAK_BF16_FLOPS)
         torch.cuda.empty_cache()
+
+    # every kernel-8 shape of a fused UNet call (gn_conv.UNET_CONVS), bf16:
+    # held against the twin, then device times of the kernel (its four
+    # launches and the weight copy) and of the PyTorch call, and the bound
+    unet_sum = {"kernel": 0.0, "PyTorch call": 0.0, "bound": 0.0}
+    for (b, h, w, c, co), launches in gc_mod.UNET_CONVS.items():
+        x, scale, gbias, weight, cbias, run, plain, library, name = gn_conv_case(
+            b, h, w, c, co, torch.bfloat16)
+        compare(name, run(), plain())
+        dev_ms, lib_ms = device_ms(run), device_ms(library)
+        flop = 2.0 * b * h * w * 9 * c * co
+        b_ms = 1e3 * flop / PEAK_BF16_FLOPS
+        for key, t in (("kernel", dev_ms), ("PyTorch call", lib_ms), ("bound", b_ms)):
+            unet_sum[key] += t * launches
+        log(f"    UNet shape: device {dev_ms:.4f} ms ({flop / dev_ms / 1e9:.0f} TFLOP/s), "
+            f"PyTorch call {lib_ms:.4f} ms, bound {b_ms:.4f} ms, {launches} launches per UNet "
+            f"call")
+        del x, weight
+        torch.cuda.empty_cache()
+    log("  fused_gn_silu_conv3x3: device time x launches per fused UNet call, summed over its "
+        f"{sum(gc_mod.UNET_CONVS.values())} launches: "
+        + ", ".join(f"{key} {ms:.3f} ms" for key, ms in unet_sum.items()))
     return results
 
 
@@ -1885,7 +1954,7 @@ def main() -> int:
     log_path = so.with_suffix(".log")
     if log_path.exists():
         for line in log_path.read_text().splitlines():
-            if "registers" in line or "spill" in line or "Compiling entry" in line:
+            if any(key in line for key in ("registers", "spill", "Compiling entry", "C7520")):
                 log(f"  ptxas: {line.strip()}")
 
     results = kernel_phases(torch.Generator(device="cuda").manual_seed(0))

@@ -17,397 +17,523 @@
 //
 // What bounds it on the H100: operations. It is an implicit GEMM of
 // M = B H W output pixels, N = Co and K = 9 C. At the UNet's level 0,
-// (4, 128, 128, 320) -> 320, that is 120.8 GFLOP against about 84 MB read
-// and written; at level 2, (4, 32, 32, 2560) -> 1280, 241.6 GFLOP. Thousands
-// of operations per byte, so the tensor cores are the limit, and the
-// normalized activation must not make a round trip through device memory.
+// (4, 128, 128, 320) -> 320, that is 120.8 GFLOP against about 84 MB of x
+// read and output written (0.122 ms at 989 TFLOP/s against 0.025 ms at
+// 3.35 TB/s); at level 2, (4, 32, 32, 2560) -> 1280, 241.6 GFLOP.
 //
-// Design: three launches on the caller's stream.
+// Why y makes one trip through device memory: a block of the GEMM reads
+// each input pixel nine times (once per tap) and each block of output
+// channels reads it again, so a transform applied on the way into shared
+// memory runs 9 times per element and channel block: at level 0, with the
+// mma.sync body's 256-wide blocks, some 377 M SiLUs (an exp and a
+// reciprocal each) where 21 M do, in the GEMM's critical path. Applied
+// once, y costs one write and one read of 42 MB at level 0 (about 0.025 ms,
+// much of the read from L2), and the GEMM reads only bf16, for bf16 and f32
+// x alike.
+//
+// Design: two C entry points, four launches on the caller's stream.
+//   dg_gn_conv_apply:
 //   1. dg::gn_moments_kernel (gn_moments.cuh), kernel 7's moments pass with
 //      its fixed order of sums: (B, splits, 2, C) channel sums.
-//   2. gnc_fold_kernel: one block per image walks C in chunks: a thread a
-//      channel adds the splits in order and divides by H W, then one thread
-//      per group adds its channels' means in order; it writes the folded
-//      a and s, (B, C) f32 each. The bits are the same on every run.
-//   3. gn_conv_kernel: the GEMM on kernel 2's block body (ln_matmul.cu): a
-//      128 x 256 output tile, 8 warps of 64 x 64, mma.sync m16n8k16 bf16 ->
-//      f32 with ldmatrix loads, K in steps of 64 through a cp.async ring.
-//      K runs over (tap, channel): a K tile is 64 channels of one tap, so
-//      there are 9 ceil(C / 64) tiles, the channels past C zero. A row of the
-//      A tile is one output pixel; for tap (dy, dx) its chunks of 8 channels
-//      come from input pixel (h + dy - 1, w + dx - 1) as raw x: 16-byte
-//      copies when C % 8 == 0, plain masked loads otherwise, zero-filled
-//      outside the image. Before the barrier each thread turns the chunks it
-//      copied into bf16 silu(a x + s), computed in f32, and writes zeros where
-//      the pixel lies outside the image or the channel past C (the quantize
-//      on load of int8_matmul.cu): in place for bf16 x, with a three-stage
-//      ring; from a raw f32 tile beside the bf16 one for f32 x, with two
-//      stages so that the ring fits in shared memory. The B tile reads the
-//      weight in the (N, K) row-major layout (Co, 3, 3, Cp) bf16, Cp = C
-//      rounded up to 8 with zeros, which the wrapper copies for each call.
-//      The epilogue adds the conv bias in f32 and writes x's type straight
-//      from the registers.
-// Any B, H, W, C and Co. No TMA, wgmma or warp specialisation yet.
+//   2. gnc_fold_kernel: one block per (group, image): a thread a channel
+//      adds the splits in order and divides by H W, then one thread adds the
+//      group's channel means in order; it writes the folded a and s, (B, C)
+//      f32 each. The bits are the same on every run.
+//   3. gnc_apply_kernel: y = bf16(silu(x a + s)) once per element, 8
+//      channels a thread, into (B, H, W, Cp) bf16 scratch, Cp = C rounded
+//      up to 8 (16-byte rows, as TMA needs), the channels past C zero.
+//   dg_gn_conv_gemm:
+//   4. conv_gemm_kernel<TO>: kernel 10's persistent, warp-specialized
+//      GEMM (int8_matmul.cu) on bf16 wgmma. An output tile is th x tw = 128
+//      pixels of one image (1 x 128, 2 x 64 or 4 x 32 at SDXL's widths: no
+//      row wasted) by 160 output channels (ops/gn_conv.py: conv_plan). K
+//      runs over (64-channel chunk, tap): for tap (dy, dx) and chunk c0 the
+//      A tile is one TMA box (64, tw, th, 1) of a 4-D map over y, (Cp, W, H,
+//      B), at (c0, w0 + dx - 1, h0 + dy - 1, b), and the B tile one box
+//      (64, 1, 160) of a 3-D map over the weight operand
+//      (Cp, 9, Co). TMA fills what lies outside a map with zeros, so a
+//      coordinate of -1, W or H is exactly the conv's zero padding of the
+//      normalized activation and no load carries a mask; channels past C
+//      read y's zeros or the map's. Both boxes land as rows of 128 bytes
+//      under the 128-byte swizzle, the K-major layout wgmma's descriptors
+//      read. One producer thread keeps the loads in flight through a ring
+//      of kStages mbarrier stages; two consumer warpgroups take the block's
+//      tiles in turns, each holding a whole 128 x 160 tile in f32 registers
+//      (wgmma m64n160k16 bf16, both operands from shared memory), so that one
+//      adds the conv bias and stores while the other's products run. The
+//      epilogue trades sums within each quad so that a lane writes 8
+//      adjacent channels (16 bytes of bf16), masked at H, W and Co.
+// Any B, H, W, C and Co; no atomics, so a call gives the same bits twice.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "gn_moments.cuh"
-#include "mma_sm90.cuh"
+#include "gn_moments.cuh"  // moments pass, dg::load_vec, dg::store_one
+#include "mma_sm90.cuh"    // dg::smem_addr, dg::pack_bf16x2
+#include "sm90_async.cuh"  // mbarriers, TMA, the swizzled descriptor, wgmma fences
 
 namespace {
 
 typedef __nv_bfloat16 bf16;
 
-constexpr int kBM = 128;    // output pixels per block
-constexpr int kBN = 256;    // output channels per block
-constexpr int kBK = 64;     // input channels of one tap per K tile
-constexpr int kWM = 64;     // pixels per warp
-constexpr int kWN = 64;     // output channels per warp
-constexpr int kWarpsN = kBN / kWN;
-constexpr int kThreads = 32 * (kBM / kWM) * kWarpsN;
-constexpr int kLD = kBK + 8;   // bf16 elements per A and B row in shared memory
-constexpr int kLDR = kBK + 4;  // floats per raw f32 x row in shared memory
-constexpr int kRowStep = kThreads / (kBK / 8);  // rows between a thread's chunks
-constexpr int kAChunks = kBM / kRowStep;        // 8-channel A chunks per thread per tile
-constexpr int kBChunks = kBN / kRowStep;        // 16-byte B chunks per thread per tile
-constexpr size_t kTileA = sizeof(bf16) * kBM * kLD;
-constexpr size_t kTileB = sizeof(bf16) * kBN * kLD;
-constexpr size_t kTileR = sizeof(float) * kBM * kLDR;
-constexpr int kFoldThreads = 256;
-constexpr int kFoldChunk = 1024;  // channels a fold block holds at a time
+constexpr int kBM = 128;          // output pixels per tile
+// output channels per tile (ops/gn_conv.py: CONV_BN): every Co of SDXL's UNet
+// is a multiple of 160, and a consumer's two m64n160 accumulators take 160
+// registers a thread
+constexpr int kBN = 160;
+constexpr int kBK = 64;           // channels per stage: one 128-byte swizzle row of bf16
+constexpr int kConsumers = 2;     // warpgroups, each on tiles of its own
+constexpr int kThreads = 128 * (1 + kConsumers);
+// shared-memory ring depth: on an H100 (tools/gn_conv_ab.py), at the 12
+// conv shapes of a UNet call, 3 stages took 10.24 ms a call against 4's
+// 8.85 (with the taps outermost in K); 4, 5 and 6 are within 0.3 % of each
+// other (7.90 ms), and 4 takes the least shared memory
+constexpr int kStages = 4;
+constexpr int kFoldThreads = 128;
 constexpr int kMaxGroups = 32;
-static_assert(kThreads == 256 && kAChunks * kRowStep == kBM && kBChunks * kRowStep == kBN,
-              "tile plan");
-static_assert(kTileA % 128 == 0 && kTileB % 128 == 0 && kTileR % 128 == 0, "aligned regions");
+constexpr int kMaxGroupChannels = 4096;  // the fold's 2 cpg floats: 32 KB at most
+constexpr int kApplyThreads = 256;
 
-// T: x's element. A bf16 x chunk is transformed in place in the A tile; an
-// f32 one is copied into a raw tile beside it.
-template <typename T>
-struct Plan {
-  static constexpr bool kInPlace = sizeof(T) == sizeof(bf16);
-  static constexpr int kStages = kInPlace ? 3 : 2;
-  static constexpr int kLDRaw = kInPlace ? kLD : kLDR;  // elements per raw x row
-  static constexpr size_t kRawOffset = kInPlace ? 0 : kTileA + kTileB;
-  static constexpr size_t kStage = kTileA + kTileB + (kInPlace ? 0 : kTileR);
-  static constexpr size_t kSmem = kStages * kStage;
-};
+constexpr int kBytesA = kBM * kBK * 2;
+constexpr int kBytesB = kBN * kBK * 2;
+constexpr int kStage = kBytesA + kBytesB;
+constexpr int kSmem = kStages * kStage + 1024;  // + slack to align the ring to 1024
+static_assert(kBytesA % 1024 == 0 && kBytesB % 1024 == 0, "swizzle atoms stay aligned");
+static_assert(kSmem + 256 <= 232448, "the ring and the barriers fit in a block's 227 KB");
 
-// one block per image: the channels in chunks; each thread adds the splits
-// of its channels in order, then one thread per group adds its channels'
-// means in order; then the fold of every channel
+// one block per (group, image): a thread per channel of the group adds the
+// splits in order and divides by H W; then one thread adds the group's
+// channel means in order; then the fold of each channel. chan: 2 cpg floats
+// of dynamic shared memory, the channels' E[x] and E[x^2].
 __global__ void __launch_bounds__(kFoldThreads) gnc_fold_kernel(
     const float* __restrict__ part, const float* __restrict__ scale,
     const float* __restrict__ bias, float* __restrict__ fa, float* __restrict__ fs, int hw,
     int c, int groups, int splits, float eps) {
-  __shared__ float chan[2][kFoldChunk];  // the chunk's E[x] and E[x^2] per channel
-  __shared__ float2 gstat[kMaxGroups];   // (mean, rstd) per group
-  const int b = blockIdx.x;
-  const int g = threadIdx.x;
+  extern __shared__ float chan[];
+  __shared__ float2 stat;  // the group's (mean, rstd)
+  const int b = blockIdx.y;
   const int cpg = c / groups;
+  const int c0 = blockIdx.x * cpg;
   const float n_pos = static_cast<float>(hw);
-  float t1 = 0.f, t2 = 0.f;  // thread g: its group's running sums of channel means
-  for (int c0 = 0; c0 < c; c0 += kFoldChunk) {
-    const int n = min(kFoldChunk, c - c0);
-    for (int i = threadIdx.x; i < n; i += blockDim.x) {
-      float c1 = 0.f, c2 = 0.f;
-      for (int s = 0; s < splits; ++s) {
-        const float* row = part + (static_cast<int64_t>(b) * splits + s) * 2 * c;
-        c1 += row[c0 + i];
-        c2 += row[c + c0 + i];
-      }
-      chan[0][i] = c1 / n_pos;
-      chan[1][i] = c2 / n_pos;
+  for (int i = threadIdx.x; i < cpg; i += blockDim.x) {
+    float c1 = 0.f, c2 = 0.f;
+#pragma unroll 8  // the loads in flight together; the adds stay in order
+    for (int s = 0; s < splits; ++s) {
+      const float* row = part + (static_cast<int64_t>(b) * splits + s) * 2 * c + c0 + i;
+      c1 += row[0];
+      c2 += row[c];
     }
-    __syncthreads();
-    if (g < groups) {
-      const int lo = max(g * cpg, c0), hi = min((g + 1) * cpg, c0 + n);
-      for (int ch = lo; ch < hi; ++ch) {
-        t1 += chan[0][ch - c0];
-        t2 += chan[1][ch - c0];
-      }
-    }
-    __syncthreads();  // the chunk is read before the next one overwrites it
-  }
-  if (g < groups) {
-    const float mean = t1 / static_cast<float>(cpg);
-    const float e2 = t2 / static_cast<float>(cpg);
-    gstat[g] = make_float2(mean, rsqrtf(e2 - mean * mean + eps));  // unclamped, as the TPU fold
+    chan[i] = c1 / n_pos;
+    chan[cpg + i] = c2 / n_pos;
   }
   __syncthreads();
-  for (int ch = threadIdx.x; ch < c; ch += blockDim.x) {
-    const float2 st = gstat[ch / cpg];
-    const float a = st.y * scale[ch];
-    fa[static_cast<int64_t>(b) * c + ch] = a;
-    fs[static_cast<int64_t>(b) * c + ch] = bias[ch] - st.x * a;
+  if (threadIdx.x == 0) {
+    float t1 = 0.f, t2 = 0.f;
+    for (int i = 0; i < cpg; ++i) {
+      t1 += chan[i];
+      t2 += chan[cpg + i];
+    }
+    const float mean = t1 / static_cast<float>(cpg);
+    const float e2 = t2 / static_cast<float>(cpg);
+    stat = make_float2(mean, rsqrtf(e2 - mean * mean + eps));  // unclamped, as the TPU fold
+  }
+  __syncthreads();
+  for (int i = threadIdx.x; i < cpg; i += blockDim.x) {
+    const float a = stat.y * scale[c0 + i];
+    fa[static_cast<int64_t>(b) * c + c0 + i] = a;
+    fs[static_cast<int64_t>(b) * c + c0 + i] = bias[c0 + i] - stat.x * a;
   }
 }
-
-struct ConvArgs {
-  const void* x;       // (batch, h, w, c) T
-  const float* fa;     // (batch, c) folded scale
-  const float* fs;     // (batch, c) folded shift
-  const bf16* wt;      // (co, 3, 3, cp): (N, K) row-major
-  const float* bias;   // (co,)
-  void* out;           // (batch, h, w, co) T
-  int batch, h, w, c, cp, co;
-};
 
 __device__ __forceinline__ float silu(float t) { return t * __frcp_rn(1.f + __expf(-t)); }
 
-// VEC: C % 8 == 0, so every 8-channel chunk is whole and 16-byte aligned
+// y (pixels, cp) bf16 = bf16(silu(x a + s)) for the channels below c, 0 past
+// them; a thread per 8 channels of a pixel. VEC: c % 8 == 0 (then cp == c),
+// so every chunk is whole and 16-byte aligned.
 template <typename T, bool VEC>
-__global__ void __launch_bounds__(kThreads, 1) gn_conv_kernel(const ConvArgs p) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  typedef Plan<T> P;
-  constexpr int kS = P::kStages;
-  const T* x = static_cast<const T*>(p.x);
-  const int hw = p.h * p.w;
-  const int m_total = p.batch * hw;
-  const int m0 = blockIdx.x * kBM;
-  const int n0 = blockIdx.y * kBN;
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int wm = warp / kWarpsN;  // 2 warps down, 64 pixels each
-  const int wn = warp % kWarpsN;  // 4 warps across, 64 output channels each
-  const int g = lane >> 2;
-  const int t4 = lane & 3;
-
-  // this thread copies (and transforms) chunks at rows cr + i * kRowStep,
-  // channels kc..kc+7 of every A and B tile
-  const int cr = threadIdx.x / (kBK / 8);
-  const int kc = (threadIdx.x % (kBK / 8)) * 8;
-  int a_img[kAChunks], a_y[kAChunks], a_x[kAChunks];  // each A row's output pixel
+__global__ void __launch_bounds__(kApplyThreads) gnc_apply_kernel(
+    const T* __restrict__ x, const float* __restrict__ fa, const float* __restrict__ fs,
+    bf16* __restrict__ y, int64_t chunks, int hw, int c, int cp) {
+  const int64_t i = static_cast<int64_t>(blockIdx.x) * kApplyThreads + threadIdx.x;
+  if (i >= chunks) return;
+  const int per_pixel = cp / 8;
+  const int64_t p = i / per_pixel;
+  const int ch = static_cast<int>(i - p * per_pixel) * 8;
+  const int64_t ab = (p / hw) * c + ch;
+  float v[8], fa8[8], fs8[8];
+  if constexpr (VEC) {
+    dg::load_vec<8>(x + p * c + ch, v);
+    dg::load_vec<8>(fa + ab, fa8);
+    dg::load_vec<8>(fs + ab, fs8);
+  } else {
 #pragma unroll
-  for (int i = 0; i < kAChunks; ++i) {
-    const int m = m0 + cr + i * kRowStep;
-    const int img = m / hw;
-    const int rem = m - img * hw;
-    a_img[i] = m < m_total ? img : -1;  // -1: a row past M, all zeros
-    a_y[i] = rem / p.w;
-    a_x[i] = rem - a_y[i] * p.w;
-  }
-  const int c_tiles = (p.c + kBK - 1) / kBK;
-  const int n_tiles = 9 * c_tiles;
-  const int64_t w_row = 9 * static_cast<int64_t>(p.cp);
-
-  auto stage_a = [&](int st) { return reinterpret_cast<bf16*>(smem + st * P::kStage); };
-  auto stage_b = [&](int st) {
-    return reinterpret_cast<bf16*>(smem + st * P::kStage + kTileA);
-  };
-  auto stage_raw = [&](int st) {
-    return reinterpret_cast<T*>(smem + st * P::kStage + P::kRawOffset);
-  };
-  // tile t is tap t / c_tiles, channels from (t % c_tiles) * kBK; the element
-  // offset of chunk i's input pixel and channel, or -1 when it reads nothing
-  auto source = [&](int t, int i, int& ch) -> int64_t {
-    const int tap = t / c_tiles;
-    ch = (t - tap * c_tiles) * kBK + kc;
-    const int yy = a_y[i] + tap / 3 - 1;
-    const int xx = a_x[i] + tap % 3 - 1;
-    if (a_img[i] < 0 || yy < 0 || yy >= p.h || xx < 0 || xx >= p.w || ch >= p.c) return -1;
-    return ((static_cast<int64_t>(a_img[i]) * p.h + yy) * p.w + xx) * p.c + ch;
-  };
-  auto load_tile = [&](int st, int t) {  // weight chunks and raw x chunks
-    const int tap = t / c_tiles;
-    const int cw = (t - tap * c_tiles) * kBK + kc;
-#pragma unroll
-    for (int i = 0; i < kBChunks; ++i) {
-      const int r = cr + i * kRowStep;
-      const bool ok = cw < p.cp && n0 + r < p.co;
-      dg::cp_async16(stage_b(st) + r * kLD + kc,
-                     ok ? p.wt + (n0 + r) * w_row + tap * p.cp + cw : p.wt, ok);
-    }
-#pragma unroll
-    for (int i = 0; i < kAChunks; ++i) {
-      int ch;
-      const int64_t off = source(t, i, ch);
-      T* dst = stage_raw(st) + (cr + i * kRowStep) * P::kLDRaw + kc;
-      if constexpr (VEC) {
-        constexpr int kPer = 16 / static_cast<int>(sizeof(T));  // elements per copy
-        const T* src = off >= 0 ? x + off : x;
-#pragma unroll
-        for (int q = 0; q < 8 / kPer; ++q) dg::cp_async16(dst + q * kPer, src + q * kPer, off >= 0);
-      } else if (off >= 0) {  // the transform reads only chunks of pixels in the image
-#pragma unroll
-        for (int j = 0; j < 8; ++j) dst[j] = ch + j < p.c ? x[off + j] : dg::from_float<T>(0.f);
-      }
-    }
-  };
-  auto transform_tile = [&](int st, int t) {  // this thread's own chunks -> bf16 A tile
-#pragma unroll
-    for (int i = 0; i < kAChunks; ++i) {
-      const int r = cr + i * kRowStep;
-      int ch;
-      const int64_t off = source(t, i, ch);
-      uint4 packed = make_uint4(0u, 0u, 0u, 0u);
-      if (off >= 0) {
-        float v[8], fa[8], fs[8];
-        const T* raw = stage_raw(st) + r * P::kLDRaw + kc;
-        const int64_t ab = static_cast<int64_t>(a_img[i]) * p.c + ch;
-        if constexpr (VEC) {
-          dg::load_vec<8>(raw, v);
-          dg::load_vec<8>(p.fa + ab, fa);
-          dg::load_vec<8>(p.fs + ab, fs);
-        } else {
-#pragma unroll
-          for (int j = 0; j < 8; ++j) {
-            const bool in = ch + j < p.c;
-            v[j] = dg::to_float(raw[j]);
-            fa[j] = in ? p.fa[ab + j] : 0.f;
-            fs[j] = in ? p.fs[ab + j] : 0.f;
-          }
-        }
-        uint32_t* word = reinterpret_cast<uint32_t*>(&packed);
-#pragma unroll
-        for (int j = 0; j < 8; j += 2) {
-          const float y0 = VEC || ch + j < p.c ? silu(v[j] * fa[j] + fs[j]) : 0.f;
-          const float y1 = VEC || ch + j + 1 < p.c ? silu(v[j + 1] * fa[j + 1] + fs[j + 1]) : 0.f;
-          word[j / 2] = dg::pack_bf16x2(y0, y1);
-        }
-      }
-      *reinterpret_cast<uint4*>(stage_a(st) + r * kLD + kc) = packed;
-    }
-  };
-
-  constexpr int kMI = kWM / 16;  // m16 tiles per warp
-  constexpr int kNJ = kWN / 8;   // n8 tiles per warp
-  float acc[kMI][kNJ][4];
-#pragma unroll
-  for (int i = 0; i < kMI; ++i)
-#pragma unroll
-    for (int j = 0; j < kNJ; ++j) acc[i][j][0] = acc[i][j][1] = acc[i][j][2] = acc[i][j][3] = 0.f;
-
-#pragma unroll
-  for (int s = 0; s < kS - 1; ++s) {  // one commit group per tile, even if empty
-    if (s < n_tiles) load_tile(s, s);
-    dg::cp_async_commit();
-  }
-  for (int t = 0; t < n_tiles; ++t) {
-    const int st = t % kS;
-    dg::cp_async_wait<kS - 2>();  // tile t's own chunks have landed
-    transform_tile(st, t);
-    __syncthreads();  // tile t complete for all; stage (t - 1) % kS free
-    if (t + kS - 1 < n_tiles) load_tile((t + kS - 1) % kS, t + kS - 1);
-    dg::cp_async_commit();
-    const bf16* tA = stage_a(st);
-    const bf16* tB = stage_b(st);
-#pragma unroll
-    for (int kk = 0; kk < kBK; kk += 16) {
-      uint32_t af[kMI][4], bfr[kNJ / 2][4];
-#pragma unroll
-      for (int i = 0; i < kMI; ++i)
-        dg::ldmatrix_x4(af[i], tA + (wm * kWM + i * 16 + (lane & 15)) * kLD + kk + (lane >> 4) * 8);
-#pragma unroll
-      for (int j = 0; j < kNJ / 2; ++j)
-        dg::ldmatrix_x4(bfr[j], tB + (wn * kWN + j * 16 + (lane & 7) + ((lane >> 4) << 3)) * kLD +
-                                   kk + ((lane >> 3) & 1) * 8);
-#pragma unroll
-      for (int i = 0; i < kMI; ++i)
-#pragma unroll
-        for (int j = 0; j < kNJ / 2; ++j) {
-          dg::mma_bf16_16816(acc[i][2 * j], af[i], bfr[j][0], bfr[j][1]);
-          dg::mma_bf16_16816(acc[i][2 * j + 1], af[i], bfr[j][2], bfr[j][3]);
-        }
+    for (int j = 0; j < 8; ++j) {  // past c: silu(0 * 0 + 0) = 0
+      const bool in = ch + j < c;
+      v[j] = in ? dg::to_float(x[p * c + ch + j]) : 0.f;
+      fa8[j] = in ? fa[ab + j] : 0.f;
+      fs8[j] = in ? fs[ab + j] : 0.f;
     }
   }
-  dg::cp_async_wait<0>();
-
-  // epilogue in registers: + conv bias (f32) -> T
-  T* out = static_cast<T*>(p.out);
-  const bool pairs = (p.co & 1) == 0;  // pair stores stay aligned
+  uint4 packed;
+  uint32_t* word = reinterpret_cast<uint32_t*>(&packed);
 #pragma unroll
-  for (int i = 0; i < kMI; ++i)
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int m = m0 + wm * kWM + i * 16 + g + 8 * h;
-      if (m >= m_total) continue;
-      T* orow = out + static_cast<int64_t>(m) * p.co;
-#pragma unroll
-      for (int j = 0; j < kNJ; ++j) {
-        const int col = n0 + wn * kWN + j * 8 + 2 * t4;
-        if (col >= p.co) continue;
-        const float v0 = acc[i][j][2 * h] + p.bias[col];
-        if (col + 1 < p.co) {
-          const float v1 = acc[i][j][2 * h + 1] + p.bias[col + 1];
-          if (pairs) {
-            dg::store_pair(orow + col, v0, v1);
-          } else {
-            dg::store_one(orow + col, v0);
-            dg::store_one(orow + col + 1, v1);
-          }
-        } else {
-          dg::store_one(orow + col, v0);
-        }
-      }
-    }
+  for (int j = 0; j < 8; j += 2)
+    word[j / 2] = dg::pack_bf16x2(silu(v[j] * fa8[j] + fs8[j]),
+                                  silu(v[j + 1] * fa8[j + 1] + fs8[j + 1]));
+  *reinterpret_cast<uint4*>(y + p * cp + ch) = packed;
 }
 
-template <typename T, bool VEC>
-cudaError_t launch_conv(const ConvArgs& a, cudaStream_t stream) {
-  typedef Plan<T> P;
-  cudaError_t err = cudaFuncSetAttribute(gn_conv_kernel<T, VEC>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         static_cast<int>(P::kSmem));
-  if (err != cudaSuccess) return err;
-  const int64_t m_total = static_cast<int64_t>(a.batch) * a.h * a.w;
-  const dim3 grid(static_cast<unsigned>((m_total + kBM - 1) / kBM), (a.co + kBN - 1) / kBN);
-  gn_conv_kernel<T, VEC><<<grid, kThreads, P::kSmem, stream>>>(a);
-  return cudaGetLastError();
+struct ConvArgs {
+  const float* bias;  // (co,) f32
+  void* out;          // (batch, h, w, co) TO
+  int h, w, co;
+  int tw_log2;        // the tile is th x tw pixels, tw = 1 << tw_log2, th = kBM / tw
+  int tiles_w, tiles_h, tiles_n, tiles;
+  int c_tiles;        // 64-channel chunks of cp
+};
+
+// tile t of the plan (ops/gn_conv.py:conv_plan): channel tiles fastest,
+// then w, h and image, so that the blocks in flight share a few rows of y,
+// and the whole weight through L2 (pixel tiles fastest made them sweep all
+// of y, 63 MB at (4, 64, 64, 1920): 0.5511 against 0.5179 ms on an H100)
+struct Origin {
+  int b, h0, w0, n0;
+};
+
+__device__ __forceinline__ Origin origin(const ConvArgs& a, int t) {
+  const int mt = t / a.tiles_n;
+  const int hb = mt / a.tiles_w;
+  Origin o;
+  o.n0 = (t - mt * a.tiles_n) * kBN;
+  o.w0 = (mt - hb * a.tiles_w) << a.tw_log2;
+  o.h0 = (hb % a.tiles_h) * (kBM >> a.tw_log2);
+  o.b = hb / a.tiles_h;
+  return o;
 }
 
-// fa, fs: the writable (batch, c) buffers that a.fa and a.fs point to
-template <typename T>
-int run(const ConvArgs& a, const float* scale, const float* bias, float* part, float* fa,
-        float* fs, int groups, int splits, float eps, cudaStream_t stream) {
-  const T* x = static_cast<const T*>(a.x);
-  const int hw = a.h * a.w;
-  const bool vec = a.c % 8 == 0;
-  cudaError_t err = vec ? dg::launch_moments<T, 8>(x, part, a.batch, hw, a.c, splits, stream)
-                        : dg::launch_moments<T, 1>(x, part, a.batch, hw, a.c, splits, stream);
+// 8 adjacent outputs, 16-byte aligned: 16 bytes of bf16 or 32 of f32
+__device__ __forceinline__ void store8(bf16* p, const float (&y)[8]) {
+  *reinterpret_cast<uint4*>(p) =
+      make_uint4(dg::pack_bf16x2(y[0], y[1]), dg::pack_bf16x2(y[2], y[3]),
+                 dg::pack_bf16x2(y[4], y[5]), dg::pack_bf16x2(y[6], y[7]));
+}
+__device__ __forceinline__ void store8(float* p, const float (&y)[8]) {
+  *reinterpret_cast<float4*>(p) = make_float4(y[0], y[1], y[2], y[3]);
+  *reinterpret_cast<float4*>(p + 4) = make_float4(y[4], y[5], y[6], y[7]);
+}
+
+// d (64 x 160 f32, the warpgroup's accumulator fragment) = [d +] A (64 x 16
+// bf16, K-major, descriptor a) B^T, B (160 x 16 bf16, K-major, descriptor b);
+// scale_d = 0 overwrites d. Fragment: thread t of the warpgroup holds rows
+// 16 (t / 32) + (t % 32) / 4 + {0, 8}, columns 8 j + 2 (t % 4) + {0, 1}, as
+// d[4 j + {0, 1}] (row + 0), d[4 j + {2, 3}] (row + 8).
+#define DG_F8(i)                                                                          \
+  "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]), "+f"(d[i + 4]), "+f"(d[i + 5]), \
+      "+f"(d[i + 6]), "+f"(d[i + 7])
+
+__device__ __forceinline__ void wgmma_bf16(float (&d)[kBN / 2], uint64_t a, uint64_t b,
+                                           int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %82, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n160k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79"
+      "}, %80, %81, p, 1, 1, 0, 0;\n}\n"
+      : DG_F8(0), DG_F8(8), DG_F8(16), DG_F8(24), DG_F8(32), DG_F8(40), DG_F8(48), DG_F8(56),
+        DG_F8(64), DG_F8(72)
+      : "l"(a), "l"(b), "r"(scale_d));
+}
+
+#undef DG_F8
+
+template <typename TO>
+__global__ void __launch_bounds__(kThreads, 1)
+    conv_gemm_kernel(const __grid_constant__ CUtensorMap map_y,
+                     const __grid_constant__ CUtensorMap map_w, const ConvArgs a) {
+  extern __shared__ unsigned char smem_raw[];
+  __shared__ __align__(8) uint64_t full[kStages], empty[kStages], turn[kConsumers];
+  // the ring starts on a 1024-byte boundary of the shared window (the swizzle's atom)
+  unsigned char* ring = smem_raw + ((1024 - (dg::smem_addr(smem_raw) & 1023)) & 1023);
+  auto tile_a = [&](int st) { return ring + st * kStage; };
+  auto tile_b = [&](int st) { return ring + st * kStage + kBytesA; };
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      dg::mbar_init(&full[s], 1);
+      dg::mbar_init(&empty[s], 1);  // released by the one consumer that owns the tile
+    }
+    for (int c = 0; c < kConsumers; ++c) dg::mbar_init(&turn[c], 1);
+    dg::mbar_init_fence();
+  }
+  __syncthreads();
+
+  // the block's j-th tile is t = blockIdx.x + j * gridDim.x; its k-th stage
+  // of K, channels 64 (k / 9) on of tap k % 9, is the (j * n_k + k)-th use of
+  // the ring. The nine taps of a chunk run back to back, so that the rows of
+  // y they share are still in L2 (with the taps outermost, the blocks in
+  // flight swept all C channels between two taps: at (4, 64, 64, 1920) 65
+  // MB, past L2, 0.8137 against 0.5511 ms on an H100)
+  const int n_k = 9 * a.c_tiles;
+  // the warpgroup index, taken from lane 0 so that the compiler knows it is
+  // the same in every thread of a warp
+  const int wg = __shfl_sync(0xffffffffu, static_cast<int>(threadIdx.x) / 128, 0);
+  if (wg == 0) {
+    // producer: one thread issues every load; the warpgroup gives up registers
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n" ::: "memory");
+    if (threadIdx.x == 0) {
+      int stage = 0;
+      uint32_t phase = 0;
+      for (int t = blockIdx.x; t < a.tiles; t += gridDim.x) {
+        const Origin o = origin(a, t);
+        for (int kt = 0; kt < n_k; ++kt) {
+          const int tap = kt % 9;
+          const int c0 = (kt / 9) * kBK;
+          dg::mbar_wait(&empty[stage], phase ^ 1);  // the first pass over the ring does not wait
+          dg::mbar_arrive_expect_tx(&full[stage], kStage);
+          dg::tma_load_4d(tile_a(stage), &map_y, &full[stage], c0, o.w0 + tap % 3 - 1,
+                          o.h0 + tap / 3 - 1, o.b);
+          dg::tma_load_3d(tile_b(stage), &map_w, &full[stage], c0, tap, o.n0);
+          if (++stage == kStages) stage = 0, phase ^= 1;
+        }
+      }
+    }
+  } else {
+    // consumer c = wg - 1 takes the block's tiles j = c, c + 2, ...: while one
+    // adds the bias and stores a tile, the other's products keep the tensor
+    // cores busy. Their K loops take turns (turn[c]: the other has passed its
+    // last wait on the ring), so that no consumer waits on a stage more than
+    // one pass of the ring ahead of the loads, where a phase parity would alias.
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n" ::: "memory");
+    const int c = wg - 1;
+    const int tid = threadIdx.x % 128;
+    const int lane = tid & 31;
+    float acc[2][kBN / 2];  // rows 0..63 and 64..127 of the tile
+#pragma unroll
+    for (int i = 0; i < kBN / 2; ++i) acc[0][i] = acc[1][i] = 0.f;  // each tile overwrites them
+    for (int j = c, t = blockIdx.x + j * gridDim.x; t < a.tiles;
+         j += kConsumers, t += kConsumers * gridDim.x) {
+      const Origin o = origin(a, t);
+      if (j > 0) dg::mbar_wait(&turn[c], ((j - 1) / kConsumers) & 1);
+      int held = -1;  // the stage read by the commit group still in flight
+      for (int kt = 0; kt < n_k; ++kt) {
+        const int use = j * n_k + kt;
+        const int stage = use % kStages;
+        dg::mbar_wait(&full[stage], (use / kStages) & 1);
+        const uint64_t da = dg::sw128_desc(tile_a(stage));
+        const uint64_t db = dg::sw128_desc(tile_b(stage));
+        dg::fence_regs(acc[0]);
+        dg::fence_regs(acc[1]);
+        dg::wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < kBK / 16; ++kk) {  // 32 bytes of K per instruction
+          wgmma_bf16(acc[0], da + 2 * kk, db + 2 * kk, (kt | kk) != 0);
+          wgmma_bf16(acc[1], da + (64 * 128 >> 4) + 2 * kk, db + 2 * kk, (kt | kk) != 0);
+        }
+        dg::wgmma_commit();
+        dg::fence_regs(acc[0]);
+        dg::fence_regs(acc[1]);
+        dg::wgmma_wait<1>();  // the previous stage's products are done: release it
+        if (held >= 0 && tid == 0) dg::mbar_arrive(&empty[held]);
+        held = stage;
+      }
+      if (tid == 0) dg::mbar_arrive(&turn[1 - c]);
+      dg::wgmma_wait<0>();
+      dg::fence_regs(acc[0]);
+      dg::fence_regs(acc[1]);
+      if (tid == 0) dg::mbar_arrive(&empty[held]);
+
+      // epilogue in registers: + conv bias (f32) -> TO. Lane t of a quad holds
+      // columns 2 t, 2 t + 1 of each block of 8; two exchanges (with lane
+      // t ^ 1, then t ^ 2) leave it all 8 columns of block 4 q + t of each
+      // group of 4 blocks, so that each lane stores 16 bytes (bf16) or 32
+      // (f32) and a warp whole 32-byte sectors.
+      const int t4 = lane & 3;
+      const bool o1 = t4 & 1, o2 = t4 & 2;
+      const bool vec = a.co % 8 == 0;  // whole, aligned blocks of 8 channels
+#pragma unroll
+      for (int half = 0; half < 2; ++half)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int r = 64 * half + (tid >> 5) * 16 + (lane >> 2) + 8 * h;  // row of the tile
+          const int py = o.h0 + (r >> a.tw_log2);
+          const int px = o.w0 + (r & ((1 << a.tw_log2) - 1));
+          const bool inside = py < a.h && px < a.w;
+          TO* orow = static_cast<TO*>(a.out) +
+                     ((static_cast<int64_t>(o.b) * a.h + py) * a.w + px) * a.co;
+#pragma unroll
+          for (int q = 0; q < kBN / 32; ++q) {
+            // with lane t ^ 1: 4 adjacent columns of blocks 4 q + o1 and 4 q + 2 + o1
+            float s1[2][4];
+#pragma unroll
+            for (int pr = 0; pr < 2; ++pr) {
+              const float l0 = acc[half][4 * (4 * q + 2 * pr) + 2 * h];
+              const float l1 = acc[half][4 * (4 * q + 2 * pr) + 2 * h + 1];
+              const float h0 = acc[half][4 * (4 * q + 2 * pr + 1) + 2 * h];
+              const float h1 = acc[half][4 * (4 * q + 2 * pr + 1) + 2 * h + 1];
+              const float r0 = __shfl_xor_sync(0xffffffffu, o1 ? l0 : h0, 1);
+              const float r1 = __shfl_xor_sync(0xffffffffu, o1 ? l1 : h1, 1);
+              s1[pr][0] = o1 ? r0 : l0;
+              s1[pr][1] = o1 ? r1 : l1;
+              s1[pr][2] = o1 ? h0 : r0;
+              s1[pr][3] = o1 ? h1 : r1;
+            }
+            // with lane t ^ 2: the 8 columns of block 4 q + t
+            float v[8];
+#pragma unroll
+            for (int i = 0; i < 4; ++i) {
+              const float x = __shfl_xor_sync(0xffffffffu, o2 ? s1[0][i] : s1[1][i], 2);
+              v[i] = o2 ? x : s1[0][i];
+              v[4 + i] = o2 ? s1[1][i] : x;
+            }
+            const int col = o.n0 + 8 * (4 * q + t4);
+            if (!inside || col >= a.co) continue;
+            float y[8];
+#pragma unroll
+            for (int i = 0; i < 8; ++i)
+              y[i] = col + i < a.co ? v[i] + __ldg(a.bias + col + i) : 0.f;
+            if (vec) {
+              store8(orow + col, y);
+            } else {
+#pragma unroll
+              for (int i = 0; i < 8; ++i)
+                if (col + i < a.co) dg::store_one(orow + col + i, y[i]);
+            }
+          }
+        }
+    }
+  }
+}
+
+// ---- host side
+
+// a bf16 map of `rank` dimensions (dims[0] innermost, contiguous; strides
+// in elements of dimensions 1 on), read in boxes under the 128-byte swizzle,
+// zeros outside it; false if the encoder refuses it
+bool tensor_map(CUtensorMap* map, const void* ptr, int rank, const int64_t* dims,
+                const int64_t* strides, const int* box) {
+  const dg::EncodeTiledFn encode = dg::encode_tiled();
+  if (encode == nullptr) return false;
+  cuuint64_t d[4], s[3];
+  cuuint32_t bx[4], steps[4];
+  for (int i = 0; i < rank; ++i) {
+    d[i] = static_cast<cuuint64_t>(dims[i]);
+    bx[i] = static_cast<cuuint32_t>(box[i]);
+    steps[i] = 1;
+    if (i > 0) s[i - 1] = static_cast<cuuint64_t>(strides[i - 1]) * sizeof(bf16);  // bytes
+  }
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank, const_cast<void*>(ptr), d, s, bx,
+                steps, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <typename TO>
+int launch_gemm(const CUtensorMap& map_y, const CUtensorMap& map_w, const ConvArgs& a,
+                int blocks, cudaStream_t stream) {
+  const cudaError_t err = cudaFuncSetAttribute(
+      conv_gemm_kernel<TO>, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  gnc_fold_kernel<<<a.batch, kFoldThreads, 0, stream>>>(part, scale, bias, fa, fs, hw, a.c,
-                                                         groups, splits, eps);
+  conv_gemm_kernel<TO><<<blocks, kThreads, kSmem, stream>>>(map_y, map_w, a);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int apply(const T* x, const float* scale, const float* bias, float* part, float* fa, float* fs,
+          bf16* y, int batch, int hw, int c, int cp, int groups, int splits, float eps,
+          cudaStream_t stream) {
+  const bool vec = c % 8 == 0;
+  cudaError_t err = vec ? dg::launch_moments<T, 8>(x, part, batch, hw, c, splits, stream)
+                        : dg::launch_moments<T, 1>(x, part, batch, hw, c, splits, stream);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int cpg = c / groups;
+  gnc_fold_kernel<<<dim3(groups, batch), kFoldThreads, 2 * cpg * sizeof(float), stream>>>(
+      part, scale, bias, fa, fs, hw, c, groups, splits, eps);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  return static_cast<int>(vec ? launch_conv<T, true>(a, stream) : launch_conv<T, false>(a, stream));
+  const int64_t chunks = static_cast<int64_t>(batch) * hw * (cp / 8);
+  const unsigned blocks = static_cast<unsigned>((chunks + kApplyThreads - 1) / kApplyThreads);
+  if (vec)
+    gnc_apply_kernel<T, true><<<blocks, kApplyThreads, 0, stream>>>(x, fa, fs, y, chunks, hw, c,
+                                                                    cp);
+  else
+    gnc_apply_kernel<T, false><<<blocks, kApplyThreads, 0, stream>>>(x, fa, fs, y, chunks, hw,
+                                                                     c, cp);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// x (batch, h, w, c) bf16 or, with x_f32, f32; scale, bias (c,) f32 (the
-// GroupNorm affine); wt (co, 3, 3, cp) bf16 with cp = c rounded up to 8 and
-// zeros past c; conv_bias (co,) f32; part (batch, splits, 2, c), fa and fs
-// (batch, c) f32 scratch; out (batch, h, w, co) in x's type. groups <= 32
-// divides c.
-extern "C" int dg_gn_conv(const void* x, const void* scale, const void* bias, const void* wt,
-                          const void* conv_bias, void* part, void* fa, void* fs, void* out,
-                          int batch, int h, int w, int c, int cp, int co, int groups, int splits,
-                          float eps, int x_f32, void* stream) {
-  if (batch <= 0 || h <= 0 || w <= 0 || c <= 0 || co <= 0 || cp < c || cp % 8 || groups <= 0 ||
-      groups > kMaxGroups || c % groups || splits <= 0 ||
-      static_cast<int64_t>(batch) * h * w > (static_cast<int64_t>(1) << 31) - kBM)
+// The normalized activation: x (batch, h, w, c) bf16 or, with x_f32, f32;
+// scale, bias (c,) f32 (the GroupNorm affine); part (batch, splits, 2, c),
+// fa and fs (batch, c) f32 scratch (fa, fs: the folded a and s); y (batch,
+// h, w, cp) bf16, cp = c rounded up to 8, 16-byte aligned. groups <= 32
+// divides c, with at most 4096 channels a group. Three launches: moments,
+// fold, apply.
+extern "C" int dg_gn_conv_apply(const void* x, const void* scale, const void* bias, void* part,
+                                void* fa, void* fs, void* y, int batch, int h, int w, int c,
+                                int cp, int groups, int splits, float eps, int x_f32,
+                                void* stream) {
+  if (batch <= 0 || h <= 0 || w <= 0 || c <= 0 || cp < c || cp % 8 || cp - c >= 8 ||
+      groups <= 0 || groups > kMaxGroups || c % groups || c / groups > kMaxGroupChannels ||
+      splits <= 0)
     return static_cast<int>(cudaErrorInvalidValue);
-  ConvArgs a;
-  a.x = x;
-  a.fa = static_cast<const float*>(fa);
-  a.fs = static_cast<const float*>(fs);
-  a.wt = static_cast<const bf16*>(wt);
-  a.bias = static_cast<const float*>(conv_bias);
-  a.out = out;
-  a.batch = batch;
-  a.h = h;
-  a.w = w;
-  a.c = c;
-  a.cp = cp;
-  a.co = co;
   const float* sp = static_cast<const float*>(scale);
   const float* bp = static_cast<const float*>(bias);
   float* pp = static_cast<float*>(part);
   float* fap = static_cast<float*>(fa);
   float* fsp = static_cast<float*>(fs);
+  bf16* yp = static_cast<bf16*>(y);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (x_f32) return run<float>(a, sp, bp, pp, fap, fsp, groups, splits, eps, st);
-  return run<bf16>(a, sp, bp, pp, fap, fsp, groups, splits, eps, st);
+  if (x_f32)
+    return apply(static_cast<const float*>(x), sp, bp, pp, fap, fsp, yp, batch, h * w, c, cp,
+                 groups, splits, eps, st);
+  return apply(static_cast<const bf16*>(x), sp, bp, pp, fap, fsp, yp, batch, h * w, c, cp,
+               groups, splits, eps, st);
+}
+
+// The conv as an implicit GEMM: y (batch, h, w, cp) bf16 from
+// dg_gn_conv_apply; wt (co, 3, 3, cp) bf16, zeros past c; conv_bias (co,)
+// f32; out (batch, h, w, co) bf16 or, with out_f32, f32. Tiles of th x tw =
+// 128 pixels (tw = 1 << tw_log2) by 160 channels on `blocks` persistent
+// blocks (ops/gn_conv.py:conv_plan). y and wt 16-byte aligned.
+extern "C" int dg_gn_conv_gemm(const void* y, const void* wt, const void* conv_bias, void* out,
+                               int batch, int h, int w, int cp, int co, int tw_log2, int blocks,
+                               int out_f32, void* stream) {
+  if (batch <= 0 || h <= 0 || w <= 0 || cp <= 0 || cp % 8 || co <= 0 || tw_log2 < 0 ||
+      tw_log2 > 7 || blocks <= 0 ||
+      static_cast<int64_t>(batch) * h * w > (static_cast<int64_t>(1) << 31) - kBM)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int tw = 1 << tw_log2, th = kBM / tw;
+  const int64_t dims_y[4] = {cp, w, h, batch};
+  const int64_t strides_y[3] = {cp, static_cast<int64_t>(w) * cp,
+                                static_cast<int64_t>(h) * w * cp};
+  const int box_y[4] = {kBK, tw, th, 1};
+  const int64_t dims_w[3] = {cp, 9, co};
+  const int64_t strides_w[2] = {cp, 9 * static_cast<int64_t>(cp)};
+  const int box_w[3] = {kBK, 1, kBN};
+  CUtensorMap map_y, map_w;
+  if (!tensor_map(&map_y, y, 4, dims_y, strides_y, box_y) ||
+      !tensor_map(&map_w, wt, 3, dims_w, strides_w, box_w))
+    return static_cast<int>(cudaErrorInvalidValue);
+  ConvArgs a{};
+  a.bias = static_cast<const float*>(conv_bias);
+  a.out = out;
+  a.h = h;
+  a.w = w;
+  a.co = co;
+  a.tw_log2 = tw_log2;
+  a.tiles_w = (w + tw - 1) / tw;
+  a.tiles_h = (h + th - 1) / th;
+  a.tiles_n = (co + kBN - 1) / kBN;
+  a.tiles = batch * a.tiles_w * a.tiles_h * a.tiles_n;
+  a.c_tiles = (cp + kBK - 1) / kBK;
+  if (a.tiles < blocks) blocks = a.tiles;  // every block has a tile
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return out_f32 ? launch_gemm<float>(map_y, map_w, a, blocks, s)
+                 : launch_gemm<bf16>(map_y, map_w, a, blocks, s);
 }

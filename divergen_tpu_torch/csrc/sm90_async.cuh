@@ -1,6 +1,6 @@
 // Hopper's asynchronous building blocks, shared by the kernels built on TMA
-// and wgmma (int8_matmul.cu, flash_attention_sm90.cu): mbarriers, TMA tile
-// loads, named barriers, the shared-memory descriptor of a tile under the
+// and wgmma (int8_matmul.cu, flash_attention_sm90.cu, gn_conv.cu): mbarriers,
+// TMA tile loads, named barriers, the shared-memory descriptor of a tile under the
 // 128-byte swizzle, the wgmma fence / commit / wait, and, on the host, the
 // lookup of libcuda's cuTensorMapEncodeTiled (PTX ISA 8.0, sm_90a).
 #pragma once
@@ -79,6 +79,16 @@ __device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map, u
       "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes "
       "[%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(smem_addr(dst)),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
+__device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map, uint64_t* bar,
+                                            int c0, int c1, int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)), "r"(c0), "r"(c1), "r"(c2),
+      "r"(c3)
       : "memory");
 }
 

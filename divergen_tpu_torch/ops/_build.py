@@ -124,8 +124,10 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.dg_group_norm.restype = i
     lib.dg_layer_norm.argtypes = [p] * 4 + [i] * 2 + [f, i, p]
     lib.dg_layer_norm.restype = i
-    lib.dg_gn_conv.argtypes = [p] * 9 + [i] * 8 + [f, i, p]
-    lib.dg_gn_conv.restype = i
+    lib.dg_gn_conv_apply.argtypes = [p] * 7 + [i] * 7 + [f, i, p]
+    lib.dg_gn_conv_apply.restype = i
+    lib.dg_gn_conv_gemm.argtypes = [p] * 4 + [i] * 8 + [p]
+    lib.dg_gn_conv_gemm.restype = i
     lib.dg_error_string.argtypes = [i]
     lib.dg_error_string.restype = ctypes.c_char_p
 

@@ -92,3 +92,66 @@ def test_wrapper_refuses_a_device_without_the_kernel_and_unported_options():
     assert tgc.fused_gn_silu_conv3x3.launches == 0
     with pytest.raises(NotImplementedError, match='"fused"'):
         tunet.UNetSDXL.tiny(conv_matmul="im2col")
+
+
+# SDXL's kernel-8 shapes (B, H, W, C, Co), then ragged ones: W off every
+# power of two (the box runs past W), H under the box's th, Co off both tile
+# widths, W over 128, one pixel
+PLAN_SHAPES = list(tgc.UNET_CONVS) + [(1, 12, 20, 48, 16), (2, 9, 11, 36, 21),
+                                      (2, 32, 32, 640, 320), (3, 5, 200, 8, 300),
+                                      (1, 1, 1, 8, 1)]
+
+
+@pytest.mark.parametrize("b,h,w,c,co", PLAN_SHAPES)
+def test_conv_plan_covers_each_output_once(b, h, w, c, co):
+    """The kernel's walk (``csrc/gn_conv.cu``: ``origin``, the boxes, the
+    epilogue's mask) writes every output pixel and channel exactly once; at
+    SDXL's shapes on 132 SMs no row or column of a tile falls outside the
+    output and the two warpgroups of each block are kept busy (wave
+    efficiency 0.97)."""
+    plan = tgc.conv_plan(b, h, w, co, 132)
+    th, tw = plan.th, plan.tw
+    assert th * tw == tgc.CONV_BM and tw & (tw - 1) == 0
+    tiles_h, tiles_w, bn = -(-h // th), -(-w // tw), tgc.CONV_BN
+    assert plan.tiles_m == b * tiles_h * tiles_w and plan.tiles_n == -(-co // bn)
+    tiles = plan.tiles_m * plan.tiles_n
+    assert plan.blocks == min(tiles, 132)
+    # the blocks' walk: block k takes tiles k, k + blocks, ...: each tile once
+    walked = np.concatenate([np.arange(k, tiles, plan.blocks) for k in range(plan.blocks)])
+    assert np.array_equal(np.sort(walked), np.arange(tiles))
+    t = np.arange(tiles)
+    mt, n0 = t // plan.tiles_n, (t % plan.tiles_n) * bn
+    hb = mt // tiles_w
+    w0, h0, img = (mt % tiles_w) * tw, (hb % tiles_h) * th, hb // tiles_h
+    r = np.arange(tgc.CONV_BM)
+    py, px = h0[:, None] + r // tw, w0[:, None] + r % tw
+    inside = (py < h) & (px < w)
+    pix = np.zeros((b, h, w), np.int64)
+    np.add.at(pix, (np.broadcast_to(img[:, None], py.shape)[inside], py[inside], px[inside]), 1)
+    cols = n0[:, None] + np.arange(bn)
+    chan = np.bincount(cols[cols < co], minlength=co)
+    # each (pixel, channel) pair is one (pixel tile, channel tile) pair's
+    assert (pix == plan.tiles_n).all() and (chan == plan.tiles_m).all()
+    if (b, h, w, c, co) in tgc.UNET_CONVS:
+        waves = -(-tiles // (2 * plan.blocks))
+        efficiency = b * h * w * co / (2 * plan.blocks * waves * tgc.CONV_BM * bn)
+        assert inside.all() and tw == w and co % bn == 0
+        assert plan.blocks == 132 and 0.969 < efficiency < 0.97
+
+
+def test_unet_convs_are_a_fused_unet_calls():
+    """``UNET_CONVS`` is what one full-width ``UNetSDXL(conv_matmul="fused")``
+    call at B = 2 images, 1024² (UNet batch 4, latents 128²) hands kernel 8:
+    two convs per ResBlock, at its level's map."""
+    model = tunet.UNetSDXL(conv_matmul="fused", device="meta")
+    levels = len(model.block_channels)
+    counts = {}
+    for name, m in model.named_modules():
+        if isinstance(m, tunet.ResBlock):
+            # down{lvl}_res{i}, up{lvl}_res{i}, or mid_res{i} at the last level
+            lvl = levels - 1 if name.startswith("mid") else int(name.split("_")[0][-1])
+            hw = 128 >> lvl
+            cout, cin = m.conv1.weight.shape[:2]
+            for key in ((4, hw, hw, cin, cout), (4, hw, hw, cout, cout)):
+                counts[key] = counts.get(key, 0) + 1
+    assert counts == tgc.UNET_CONVS and sum(counts.values()) == 34

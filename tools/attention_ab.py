@@ -36,40 +36,24 @@ from __future__ import annotations
 import argparse
 import ctypes
 import math
-import statistics
-import subprocess
 import sys
 from pathlib import Path
 
 import torch
 import torch.nn.functional as F
 
-ROOT = Path(__file__).resolve().parents[1]
-sys.path.insert(0, str(ROOT))
+from ab_common import build, in_turns
+from chip_smoke import PEAK_BF16_FLOPS, card_line, device_ms
+from divergen_tpu_torch.ops import _build
+from divergen_tpu_torch.ops import flash_attention as fa
 
-from chip_smoke import PEAK_BF16_FLOPS, card_line, device_ms  # noqa: E402
-from divergen_tpu_torch.ops import _build  # noqa: E402
-from divergen_tpu_torch.ops import flash_attention as fa  # noqa: E402
-
-TURNS = 3
-ORDER = ("earlier", "current", "current", "earlier")
 # (B, N, C, heads) -> launches per SDXL UNet call at B = 2 images (batch 4);
 # None: the main shape of PERF.md's kernel table, on no UNet call
 SHAPES = {(4, 4096, 640, 10): 10, (4, 1024, 1280, 20): 60, (2, 4096, 640, 10): None}
 
 
-def build(name: str, src: Path) -> ctypes.CDLL:
-    out = ROOT / "build" / "scratch" / f"attention_ab_{name}.so"
-    out.parent.mkdir(parents=True, exist_ok=True)
-    cmd = [_build.find_nvcc(), *_build.NVCC_FLAGS, "-I", str(src.parent), "-I",
-           str(_build.CSRC), "-shared", "-o", str(out), str(src)]
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    if res.returncode:
-        raise RuntimeError(f"nvcc failed on {src}:\n{res.stdout}{res.stderr}")
-    for line in (res.stdout + res.stderr).splitlines():
-        if "registers" in line or "spill" in line or "wgmma" in line.lower():
-            print(f"  ptxas ({name}): {line.strip()}", flush=True)
-    lib = ctypes.CDLL(str(out))
+def load(name: str, src: Path) -> ctypes.CDLL:
+    lib = build("attention_ab", name, src, report=True)
     p, i, i64, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, ctypes.c_float
     lib.sm90 = hasattr(lib, "dg_flash_attention_sm90")
     if lib.sm90:
@@ -99,15 +83,6 @@ def call(lib, qkv: torch.Tensor, heads: int, out: torch.Tensor, stream: int, sms
         raise RuntimeError(f"launch failed with CUDA error {code}")
 
 
-def in_turns(fns: dict) -> dict:
-    """Median of ``device_ms(fns[name])`` over ``TURNS`` rounds of ``ORDER``."""
-    times = {name: [] for name in fns}
-    for _ in range(TURNS):
-        for name in ORDER:
-            times[name].append(device_ms(fns[name]))
-    return {name: (statistics.median(t), t) for name, t in times.items()}
-
-
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("earlier", type=Path, help="the earlier build's source")
@@ -122,8 +97,8 @@ def main() -> int:
         print("needs a CUDA device", file=sys.stderr)
         return 1
     print(f"device: {torch.cuda.get_device_name(0)}; nvidia-smi: {card_line()}", flush=True)
-    libs = {"earlier": build("earlier", args.earlier.resolve()),
-            "current": build("current", _build.CSRC / "flash_attention_sm90.cu")}
+    libs = {"earlier": load("earlier", args.earlier.resolve()),
+            "current": load("current", _build.CSRC / "flash_attention_sm90.cu")}
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(0)
     stream = torch.cuda.current_stream().cuda_stream

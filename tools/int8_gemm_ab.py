@@ -36,35 +36,21 @@ from __future__ import annotations
 
 import argparse
 import ctypes
-import statistics
-import subprocess
 import sys
 import time
 from pathlib import Path
 
 import torch
 
-ROOT = Path(__file__).resolve().parents[1]
-sys.path.insert(0, str(ROOT))
-
-from chip_smoke import card_line, device_ms  # noqa: E402
-from divergen_tpu_torch.ops import _build  # noqa: E402
-from divergen_tpu_torch.ops import int8_matmul as i8  # noqa: E402
-from divergen_tpu_torch.ops.quant import quantize_act, quantize_weight  # noqa: E402
-
-TURNS = 3
-ORDER = ("earlier", "current", "current", "earlier")
+from ab_common import build, checked, in_turns
+from chip_smoke import card_line, device_ms
+from divergen_tpu_torch.ops import _build
+from divergen_tpu_torch.ops import int8_matmul as i8
+from divergen_tpu_torch.ops.quant import quantize_act, quantize_weight
 
 
-def build(name: str, src: Path) -> ctypes.CDLL:
-    out = ROOT / "build" / "scratch" / f"int8_ab_{name}.so"
-    out.parent.mkdir(parents=True, exist_ok=True)
-    cmd = [_build.find_nvcc(), *_build.NVCC_FLAGS, "-I", str(src.parent), "-I",
-           str(_build.CSRC), "-shared", "-o", str(out), str(src)]
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    if res.returncode:
-        raise RuntimeError(f"nvcc failed on {src}:\n{res.stdout}{res.stderr}")
-    lib = ctypes.CDLL(str(out))
+def load(name: str, src: Path) -> ctypes.CDLL:
+    lib = build("int8_ab", name, src)
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.mma_sync = hasattr(lib, "dg_int8_matmul_fused_quant")
     if lib.mma_sync:
@@ -89,20 +75,6 @@ def host_us(fn, calls: int = 100) -> float:
     return host / calls * 1e6
 
 
-def in_turns(fns: dict, timer) -> dict:
-    """Median of ``timer(fns[name])`` over ``TURNS`` rounds of ``ORDER``."""
-    times = {name: [] for name in fns}
-    for _ in range(TURNS):
-        for name in ORDER:
-            times[name].append(timer(fns[name]))
-    return {name: (statistics.median(t), t) for name, t in times.items()}
-
-
-def checked(code: int) -> None:
-    if code:
-        raise RuntimeError(f"launch failed with CUDA error {code}")
-
-
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("earlier", type=Path, help="the earlier build's int8_matmul.cu")
@@ -113,8 +85,8 @@ def main() -> int:
         print("needs a CUDA device", file=sys.stderr)
         return 1
     print(f"device: {torch.cuda.get_device_name(0)}; nvidia-smi: {card_line()}", flush=True)
-    libs = {"earlier": build("earlier", args.earlier.resolve()),
-            "current": build("current", _build.CSRC / "int8_matmul.cu")}
+    libs = {"earlier": load("earlier", args.earlier.resolve()),
+            "current": load("current", _build.CSRC / "int8_matmul.cu")}
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(0)
     sms = torch.cuda.get_device_properties(dev).multi_processor_count

@@ -112,7 +112,7 @@ def profile_sdxl(dev, g) -> None:
             print(f"UNet call ({name}): kernel launches {counts}", flush=True)
             trace(f"UNet call, {name}, {what}", lambda: model(*args),
                   also=("attn_sm90", "int8_gemm", "quantize_rows", "gn_moments", "gn_finalize",
-                        "gn_apply", "ln_vec", "ln_any", "gn_conv", "gnc_fold"))
+                        "gn_apply", "ln_vec", "ln_any", "conv_gemm", "gnc_fold", "gnc_apply"))
         trace("quantize_unet_ (the transformer weights of SDXL-base, once per denoise call)",
               lambda: quantize_unet_(unet8))
 
@@ -133,7 +133,7 @@ def profile_sdxl(dev, g) -> None:
               lambda: [rb(*inputs[rb]) for rb, _ in pairs])
         trace(f"the {len(pairs)} ResBlocks alone, fused (fused_gn_silu_conv3x3)",
               lambda: [rf(*inputs[rb]) for rb, rf in pairs],
-              also=("gn_conv", "gnc_fold", "gn_moments"))
+              also=("conv_gemm", "gnc_fold", "gnc_apply", "gn_moments"))
         weights = [c.weight for _, rf in pairs for c in (rf.conv1, rf.conv2)]
         trace(f"kernel 8's weight copies alone ({len(weights)} per UNet call)",
               lambda: [gn_conv.weight_operand(w) for w in weights])
