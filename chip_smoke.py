@@ -16,7 +16,10 @@ Run from the root of a checkout:  python3 chip_smoke.py
    (4, 1024, 1280, 20), with its device time, SDPA's, the bound and their
    sums over the call's 70 launches; it and flash_attention give the same
    bits twice and write nothing past their output, which they are given as
-   the first rows of a buffer whose next row is NaN);
+   the first rows of a buffer whose next row is NaN; flash_attention at
+   d = 512 at the VAE's (1, 16384, 16384), with its device time beside
+   SDPA's, ragged with a bias, in float32, and as a packed (1, 4096, 3 x 512)
+   projection of one head);
    flash_attention_relpos first on heads-first views of a fused qkv
    projection, as the ViT's attention calls it, then on (BH, N, D); the
    packed window attention at the four Swin-L stage shapes of B = 2 at 896²
@@ -141,7 +144,7 @@ Run from the root of a checkout:  python3 chip_smoke.py
        its three parts (medians of 3) and counts the host syncs of NMS.
    fused_window_attention is on no slice's path (the packed kernels take any
    head count): phase 3 holds its forward and backward, and its counts stay 0.
-9. Prints the kernels' JSON line (all 12 kernels), the card line, and as the
+9. Prints the kernels' JSON line (all 13 entries), the card line, and as the
    last line {"ok": true, "device": {...}}. Any failed phase raises: exit
    code != 0.
 """
@@ -380,23 +383,58 @@ def kernel_phases(gen: torch.Generator):
                2.0 * (m * k + k * n + m * cols) + 8.0 * k + (4.0 * n if with_bias else 0.0))
 
     log("kernel phase: flash_attention")
-    for bh, sq, sk, d, with_bias in ((1, 16384, 16384, 512, False), (4, 1000, 777, 64, True)):
-        q, k, v = randn(bh, sq, d), randn(bh, sk, d), randn(bh, sk, d)
-        bias = torch.randn((bh, sq, sk), generator=gen, device=dev) if with_bias else None
-        got = fa_mod.flash_attention(q, k, v, bias)
-        ref = fa_mod.reference_attention(q.float(), k.float(), v.float(), bias)
-        name = f"flash BH={bh} Sq={sq} Sk={sk} D={d} bias={with_bias}"
-        err = compare(name, got, ref)
-        same_bits(name, got, lambda: fa_mod.flash_attention(q, k, v, bias))
-        guarded(name, got, lambda out: fa_mod._flash_into(q, k, v, bias, out), sq)
-        ms, pms, span = time_pair(lambda: fa_mod.flash_attention(q, k, v, bias),
-                            lambda: fa_mod.reference_attention(q.float(), k.float(),
-                                                               v.float(), bias))
+    lib_rows = _build.lib().dg_flash_attention_d512_rows()
+    if lib_rows != fa_mod.D512_TILE:
+        raise AssertionError(f"the d = 512 kernel takes {lib_rows} q rows a work item, "
+                             f"ops/flash_attention.py plans {fa_mod.D512_TILE}")
+    # the main shape (the VAE's mid attention at 1024²), with its device time
+    # beside SDPA's; then ragged with a bias, float32 in and out, and a packed
+    # (B, N, 3C) projection at d = 512 (kernel 3's body behind
+    # flash_attention_packed); and d = 64 ragged with a bias (kernel 1's body)
+    for bh, sq, sk, d, with_bias, dtype, packed in (
+            (1, 16384, 16384, 512, False, torch.bfloat16, False),
+            (2, 1000, 777, 512, True, torch.bfloat16, False),
+            (2, 1000, 777, 512, False, torch.float32, False),
+            (1, 4096, 4096, 512, False, torch.bfloat16, True),
+            (4, 1000, 777, 64, True, torch.bfloat16, False)):
+        name = f"flash BH={bh} Sq={sq} Sk={sk} D={d} bias={with_bias} {str(dtype)[6:]}"
+        if packed:
+            qkv = randn(1, sq, 3 * bh * d, dtype=dtype)
+            run = lambda: fa_mod.flash_attention_packed(qkv, bh)
+            plain = lambda: fa_mod.reference_attention_packed(qkv.float(), bh)
+            into = lambda out: fa_mod._packed_into(qkv, bh, out)
+            name = f"packed B=1 N={sq} C={bh * d} H={bh} {str(dtype)[6:]}"
+        else:
+            q, k, v = randn(bh, sq, d, dtype=dtype), randn(bh, sk, d, dtype=dtype), randn(
+                bh, sk, d, dtype=dtype)
+            bias = torch.randn((bh, sq, sk), generator=gen, device=dev) if with_bias else None
+            run = lambda: fa_mod.flash_attention(q, k, v, bias)
+            plain = lambda: fa_mod.reference_attention(q.float(), k.float(), v.float(), bias)
+            into = lambda out: fa_mod._flash_into(q, k, v, bias, out)
+        got = run()
+        if got.dtype != dtype:
+            raise AssertionError(f"{name}: wrote {got.dtype} for {dtype} inputs")
+        err = compare(name, got, plain())
+        same_bits(name, got, run)
+        guarded(name, got, into, sq)
+        if packed:  # the body's error; its timing is the main shape's
+            results["flash_attention"]["max_abs_err"] = max(
+                results["flash_attention"]["max_abs_err"], err)
+            del qkv, got
+            continue
+        ms, pms, span = time_pair(run, plain)
         mask = None if bias is None else bias.bfloat16()[None]
-        record("flash_attention", err, ms, pms, span,
-               lambda: F.scaled_dot_product_attention(q[None], k[None], v[None], attn_mask=mask),
-               4.0 * bh * sq * sk * d,
+        q16, k16, v16 = (t[None].bfloat16() for t in (q, k, v))
+        sdpa = lambda: F.scaled_dot_product_attention(q16, k16, v16, attn_mask=mask)
+        ops = 4.0 * bh * sq * sk * d
+        record("flash_attention", err, ms, pms, span, sdpa, ops,
                2.0 * bh * d * 2 * (sq + sk) + (4.0 * bh * sq * sk if with_bias else 0.0))
+        if sq == 16384:
+            dev_ms, sdpa_ms = device_ms(run, reps=3), device_ms(sdpa, reps=3)
+            log(f"    main shape: device {dev_ms:.4f} ms ({ops / dev_ms / 1e9:.0f} TFLOP/s), "
+                f"SDPA {sdpa_ms:.4f} ms, bound {results['flash_attention']['bound_ms']:.4f} ms")
+        del q, k, v, q16, k16, v16, got
+        torch.cuda.empty_cache()
 
     log("kernel phase: flash_attention_relpos")
     # First as ViTAttention calls it in SAM ViT-H's global layers, at B = 4 and
@@ -2081,7 +2119,7 @@ def main() -> int:
                                    "divergen_tpu/ops/pallas/flash_attention.py:337"),
         "fused_ln_matmul": ("divergen_tpu_torch/csrc/ln_matmul.cu",
                             "divergen_tpu/ops/pallas/ln_matmul.py:127"),
-        "flash_attention": ("divergen_tpu_torch/csrc/flash_attention.cu",
+        "flash_attention": ("divergen_tpu_torch/csrc/flash_attention_d512.cu",
                             "divergen_tpu/ops/pallas/flash_attention.py:146"),
         "flash_attention_relpos": ("divergen_tpu_torch/csrc/flash_attention.cu",
                                    "divergen_tpu/ops/pallas/flash_attention.py:531"),

@@ -1,74 +1,51 @@
-// Flash attention forward for Hopper (sm_90a) on mma.sync, bf16 in and out,
-// f32 softmax; the packed and (BH, S, D) kernels also take and write f32 (a
-// float32 model). Head dims 512 and 80; head dim 64 (SDXL) runs on the wgmma
-// + TMA body of flash_attention_sm90.cu.
+// Flash attention forward with the decomposed relative-position bias of
+// ViTDet and SAM, for Hopper (sm_90a) on mma.sync: bf16 in and out, f32
+// softmax, head dim 80 (SAM ViT-H). Head dims 64 (SDXL) and 512 (the VAE)
+// run on the wgmma + TMA bodies of flash_attention_sm90.cu and
+// flash_attention_d512.cu.
 //
-// Replaces three Pallas TPU kernels of divergen_tpu/ops/pallas/flash_attention.py
-// at those head dims:
-//   * flash_attention_packed (_packed_kernel / _packed_kernel2): self-attention
-//     read straight out of a fused (B, N, 3C) QKV projection, written to
-//     (B, N, C) with no transposes. Head h of slot s is channels
-//     [s*C + h*d, s*C + (h+1)*d).
-//   * flash_attention (_attn_kernel_main / _attn_bias_kernel): (BH, S, D)
-//     attention with padded keys masked by index and an optional dense
-//     (BH, Sq, Sk) bias added to the score tile; d = 512 is the VAE's
-//     single-head mid attention.
-//   * flash_attention_relpos (_relpos_kernel): global self-attention over an
-//     H x W token grid with the decomposed relative-position bias of ViTDet
-//     and SAM, bias[q, k = (u, v)] = Bh[u, q] + Bw[v, q], given as the two
-//     f32 factors (BH, H, N) and (BH, W, N). The (N, N) bias never exists in
-//     memory.
-// All three are one templated body: q, k, v and o are addressed as
-// base + b*batch_stride + h*head_stride + row*row_stride, so the packed
-// layout, the (BH, S, D) layout and strided views of a fused projection
-// differ only in the strides the wrapper passes.
+// Replaces the Pallas TPU kernel flash_attention_relpos (_relpos_kernel) of
+// divergen_tpu/ops/pallas/flash_attention.py: global self-attention over an
+// H x W token grid with the decomposed relative-position bias
+// bias[q, k = (u, v)] = Bh[u, q] + Bw[v, q], given as the two f32 factors
+// (BH, H, N) and (BH, W, N). The (N, N) bias never exists in memory. q, k, v
+// and o are addressed as base + b*batch_stride + h*head_stride +
+// row*row_stride, so the (BH, N, D) layout and heads-first views of a fused
+// projection differ only in the strides the wrapper passes.
 //
 // What bounds it on the H100: the two products per K tile run on the tensor
-// cores; between them the online softmax (scale, max, exp2, sum, rescale) runs
-// on the FP32 units, and at d = 64 to 80 it costs about as much as the
-// products. What must not happen is a round trip of scores, probabilities or
-// the output accumulator through shared memory, and the K/V loads must
-// overlap the math.
+// cores; between them the online softmax (scale, bias, max, exp2, sum,
+// rescale) runs on the FP32 units, and at d = 80 it costs about as much as
+// the products. What must not happen is a round trip of scores,
+// probabilities or the output accumulator through shared memory, and the K/V
+// loads must overlap the math.
 //
 // Design (FlashAttention-2 style): one block per (q tile, head, batch) loops
 // over K tiles inside the block (the TPU's sequential "arbitrary" grid axis
 // becomes this loop). K/V tiles stream through a two-stage cp.async ring, so
-// the next tile loads while this one is computed. Each warp keeps its q rows
-// as mma.sync A fragments, computes its scores in registers (m16n8k16 bf16
-// products, f32 accumulate), runs the base-2 online softmax on them in
-// registers (log2(e) folded into the scale; row max and sum reduced over the
-// four lanes that share a row), reuses the probabilities in registers as the
-// A operand of P@V, and keeps the f32 output accumulator in registers.
-//   * d = 512 (the VAE's single head): a 16-row accumulator of 512 floats does
-//     not fit one warp's registers, so the head dimension is split over 8
-//     warps of 64 columns each, every warp holding 32 q rows. Each warp
-//     computes the scores over its 64 columns only; the 8 partial score tiles
-//     are summed through shared memory, and every warp then runs the same
-//     softmax on the same sums (bit-identical, so no further exchange) and
-//     the P@V product for its own 64 output columns. K tiles of 32 keys.
-//   * d = 80 (SAM ViT-H) and the relative-position bias: 4 warps x 16 q
-//     rows, K tiles of 64 keys, five k-steps of 16 per product. Rows are 160 bytes and
-//     are stored at a stride of 176 bytes (D + 8 elements), which keeps every
-//     ldmatrix row address 16-byte aligned and the eight rows of one 8x8
-//     matrix on distinct banks; there is no swizzle that assumes a power of
-//     two, and the head dimension is not padded, so nothing is wasted.
-//     The TPU kernel computes the score tile transposed so that both bias
-//     broadcasts run along sublanes, and needs N to divide by its blocks;
-//     neither carries over. Here the block stages the two factor slabs of its
-//     q tile once, (H x BQ) and (W x BQ) f32, already multiplied by log2(e),
-//     in shared memory (34 KB at H = W = 64), and every score element adds
-//     bh[u][qi] + bw[v][qi]. The key's grid position (u, v) costs one integer
-//     division per thread and K tile and is stepped from there. The slab rows
-//     are padded by four floats so that the four lanes of a row group, whose
-//     keys differ by two grid columns, read distinct banks. Any H, W >= 1:
-//     ragged tiles are masked by index. At SAM's shape the kernel is bound by
-//     operations (4·BH·N²·d), as kernel 1 is; the bias adds two shared-memory
-//     reads and one add per score element to the softmax work between the
-//     products.
-// f32 q, k and v (packed and (BH, S, D) only) are rounded to bf16 on their
-// way into shared memory, by plain loads in place of the cp.async copies, so
-// the products run on the bf16 tensor cores as for bf16 inputs; the output is
-// written in f32 without a last rounding.
+// the next tile loads while this one is computed. Each of 4 warps keeps its
+// 16 q rows as mma.sync A fragments, computes its scores in registers
+// (m16n8k16 bf16 products, f32 accumulate, five k-steps of 16), runs the
+// base-2 online softmax on them in registers (log2(e) folded into the scale;
+// row max and sum reduced over the four lanes that share a row), reuses the
+// probabilities in registers as the A operand of P@V, and keeps the f32
+// output accumulator in registers. K tiles of 64 keys. Rows are 160 bytes
+// and are stored at a stride of 176 bytes (D + 8 elements), which keeps
+// every ldmatrix row address 16-byte aligned and the eight rows of one 8x8
+// matrix on distinct banks; there is no swizzle that assumes a power of two,
+// and the head dimension is not padded, so nothing is wasted.
+// The TPU kernel computes the score tile transposed so that both bias
+// broadcasts run along sublanes, and needs N to divide by its blocks;
+// neither carries over. Here the block stages the two factor slabs of its q
+// tile once, (H x BQ) and (W x BQ) f32, already multiplied by log2(e), in
+// shared memory (34 KB at H = W = 64), and every score element adds
+// bh[u][qi] + bw[v][qi]. The key's grid position (u, v) costs one integer
+// division per thread and K tile and is stepped from there. The slab rows
+// are padded by four floats so that the four lanes of a row group, whose
+// keys differ by two grid columns, read distinct banks. Any H, W >= 1:
+// ragged tiles are masked by index. At SAM's shape the kernel is bound by
+// operations (4·BH·N²·d); the bias adds two shared-memory reads and one add
+// per score element to the softmax work between the products.
 // No TMA, wgmma or warp specialisation yet: flash_attention_sm90.cu has them
 // for d = 64.
 
@@ -76,7 +53,7 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "gn_moments.cuh"  // dg::load_vec, dg::store_pair
+#include "gn_moments.cuh"  // dg::store_pair
 #include "mma_sm90.cuh"
 
 namespace {
@@ -87,17 +64,15 @@ constexpr float kNegInf = -1e30f;
 constexpr float kLog2e = 1.4426950408889634f;
 
 struct AttnParams {
-  const void* q;  // T: bf16, or f32 for the packed and (BH, S, D) kernels
-  const void* k;
-  const void* v;
-  const float* bias;  // may be null
-  void* o;
+  const bf16* q;
+  const bf16* k;
+  const bf16* v;
+  bf16* o;
   int heads, sq, sk;
   int64_t q_bs, q_hs, q_rs;
   int64_t kv_bs, kv_hs, kv_rs;
   int64_t o_bs, o_hs, o_rs;
-  int64_t bias_bs, bias_hs, bias_rs;  // key stride of the bias is 1
-  float scale_log2;                   // softmax scale * log2(e)
+  float scale_log2;  // softmax scale * log2(e)
   // decomposed relative-position bias: contiguous (batch*heads, H, sq) and
   // (batch*heads, W, sq) f32 factors over an H x W key grid, sk == H*W
   const float* rel_bh;
@@ -105,85 +80,68 @@ struct AttnParams {
   int rel_h, rel_w;
 };
 
-// D: head dim; ND warps split D; NR warps split the q rows; RG 16-row groups
-// per warp; BK keys per tile.
-template <int D, int ND, int NR, int RG, int BK>
+// D: head dim; NR warps split the q rows; RG 16-row groups per warp; BK keys
+// per tile.
+template <int D, int NR, int RG, int BK>
 struct Cfg {
-  static constexpr int WD = D / ND;          // output columns per warp
-  static constexpr int BQ = NR * RG * 16;    // q rows per block
-  static constexpr int THREADS = 32 * ND * NR;
-  static constexpr int LD = D + 8;           // bf16 row stride in shared memory
-  static constexpr int LDS = BK + 4;         // f32 row stride of partial scores
-  static constexpr int LDB = BQ + 4;         // f32 row stride of the rel-pos slabs
+  static constexpr int BQ = NR * RG * 16;  // q rows per block
+  static constexpr int THREADS = 32 * NR;
+  static constexpr int LD = D + 8;         // bf16 row stride in shared memory
+  static constexpr int LDB = BQ + 4;       // f32 row stride of the rel-pos slabs
   static constexpr size_t q_bytes = sizeof(bf16) * BQ * LD;
   static constexpr size_t kv_bytes = sizeof(bf16) * BK * LD;  // one tile
-  static constexpr size_t s_bytes = ND > 1 ? sizeof(float) * ND * NR * RG * 16 * LDS : 0;
-  static constexpr size_t bytes = q_bytes + 4 * kv_bytes + s_bytes;
-  static_assert(WD % 16 == 0 && BK % 16 == 0 && D % 8 == 0, "tile shapes");
+  static constexpr size_t bytes = q_bytes + 4 * kv_bytes;
+  static_assert(D % 16 == 0 && BK % 16 == 0, "tile shapes");
   static_assert(q_bytes % 128 == 0 && kv_bytes % 128 == 0, "aligned regions");
   // the rel-pos factor slabs of one q tile follow the other regions
   static size_t rel_bytes(int h, int w) { return sizeof(float) * (h + w) * LDB; }
 };
 
-// rows x D tile, global -> shared bf16; rows >= valid are zeros. bf16: 16-byte
-// cp.async; f32: plain loads of 8 values, rounded to bf16, one 16-byte store
-template <int D, int THREADS, typename T>
-__device__ __forceinline__ void load_tile(bf16* dst, int ld, const T* src,
-                                          int64_t stride, int rows, int valid) {
+// rows x D tile, global -> shared by 16-byte cp.async; rows >= valid are zeros
+template <int D, int THREADS>
+__device__ __forceinline__ void load_tile(bf16* dst, int ld, const bf16* src, int64_t stride,
+                                          int rows, int valid) {
   constexpr int CPR = D / 8;
   for (int c = threadIdx.x; c < rows * CPR; c += THREADS) {
     const int r = c / CPR;
     const int col = (c - r * CPR) * 8;
     const bool ok = r < valid;
-    if constexpr (sizeof(T) == sizeof(bf16)) {
-      dg::cp_async16(dst + r * ld + col, ok ? src + r * stride + col : src, ok);
-    } else {
-      float f[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
-      if (ok) dg::load_vec<8>(src + r * stride + col, f);
-      *reinterpret_cast<uint4*>(dst + r * ld + col) =
-          make_uint4(dg::pack_bf16x2(f[0], f[1]), dg::pack_bf16x2(f[2], f[3]),
-                     dg::pack_bf16x2(f[4], f[5]), dg::pack_bf16x2(f[6], f[7]));
-    }
+    dg::cp_async16(dst + r * ld + col, ok ? src + r * stride + col : src, ok);
   }
 }
 
-template <typename T, int D, int ND, int NR, int RG, int BK, bool REL>
-__global__ void __launch_bounds__(Cfg<D, ND, NR, RG, BK>::THREADS)
-    flash_attn_kernel(const AttnParams p) {
-  using C = Cfg<D, ND, NR, RG, BK>;
-  constexpr int WD = C::WD;
+template <int D, int NR, int RG, int BK>
+__global__ void __launch_bounds__(Cfg<D, NR, RG, BK>::THREADS)
+    flash_attn_relpos_kernel(const AttnParams p) {
+  using C = Cfg<D, NR, RG, BK>;
   extern __shared__ __align__(128) unsigned char smem[];
   bf16* sQ = reinterpret_cast<bf16*>(smem);
   bf16* sK = reinterpret_cast<bf16*>(smem + C::q_bytes);  // 2 stages
   bf16* sV = reinterpret_cast<bf16*>(smem + C::q_bytes + 2 * C::kv_bytes);
-  float* sS = reinterpret_cast<float*>(smem + C::q_bytes + 4 * C::kv_bytes);
-  float* sBh = reinterpret_cast<float*>(smem + C::bytes);  // (H, LDB), REL only
-  float* sBw = sBh + (REL ? p.rel_h : 0) * C::LDB;         // (W, LDB)
+  float* sBh = reinterpret_cast<float*>(smem + C::bytes);  // (H, LDB)
+  float* sBw = sBh + p.rel_h * C::LDB;                     // (W, LDB)
 
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
-  const int wd = warp % ND;  // which WD-wide slice of the head dim
-  const int wr = warp / ND;  // which rows
   const int g = lane >> 2;
   const int t4 = lane & 3;
   const int b = blockIdx.z;
   const int h = blockIdx.y;
   const int q0 = blockIdx.x * C::BQ;
-  const int row0 = wr * RG * 16;  // first block row of this warp
+  const int row0 = warp * RG * 16;  // first block row of this warp
 
-  const T* q = static_cast<const T*>(p.q) + b * p.q_bs + h * p.q_hs;
-  const T* k = static_cast<const T*>(p.k) + b * p.kv_bs + h * p.kv_hs;
-  const T* v = static_cast<const T*>(p.v) + b * p.kv_bs + h * p.kv_hs;
-  T* o = static_cast<T*>(p.o) + b * p.o_bs + h * p.o_hs;
-  const float* bias = p.bias ? p.bias + b * p.bias_bs + h * p.bias_hs : nullptr;
+  const bf16* q = p.q + b * p.q_bs + h * p.q_hs;
+  const bf16* k = p.k + b * p.kv_bs + h * p.kv_hs;
+  const bf16* v = p.v + b * p.kv_bs + h * p.kv_hs;
+  bf16* o = p.o + b * p.o_bs + h * p.o_hs;
 
   const int n_tiles = (p.sk + BK - 1) / BK;
-  load_tile<D, C::THREADS, T>(sQ, C::LD, q + q0 * p.q_rs, p.q_rs, C::BQ, p.sq - q0);
+  load_tile<D, C::THREADS>(sQ, C::LD, q + q0 * p.q_rs, p.q_rs, C::BQ, p.sq - q0);
   dg::cp_async_commit();
-  load_tile<D, C::THREADS, T>(sK, C::LD, k, p.kv_rs, BK, p.sk);
-  load_tile<D, C::THREADS, T>(sV, C::LD, v, p.kv_rs, BK, p.sk);
+  load_tile<D, C::THREADS>(sK, C::LD, k, p.kv_rs, BK, p.sk);
+  load_tile<D, C::THREADS>(sV, C::LD, v, p.kv_rs, BK, p.sk);
   dg::cp_async_commit();
-  if constexpr (REL) {
+  {
     // the bias factors of this q tile, times log2(e); rows past sq are zeros
     const int64_t bh_idx = static_cast<int64_t>(b) * p.heads + h;
     const float* gbh = p.rel_bh + bh_idx * p.rel_h * p.sq;
@@ -199,21 +157,21 @@ __global__ void __launch_bounds__(Cfg<D, ND, NR, RG, BK>::THREADS)
   dg::cp_async_wait<1>();  // q has landed
   __syncthreads();
 
-  // q rows of this warp as A fragments over its WD columns
-  uint32_t qf[RG][WD / 16][4];
+  // q rows of this warp as A fragments
+  uint32_t qf[RG][D / 16][4];
 #pragma unroll
   for (int rg = 0; rg < RG; ++rg)
 #pragma unroll
-    for (int kk = 0; kk < WD / 16; ++kk)
-      dg::ldmatrix_x4(qf[rg][kk], sQ + (row0 + rg * 16 + (lane & 15)) * C::LD +
-                                      wd * WD + kk * 16 + (lane >> 4) * 8);
+    for (int kk = 0; kk < D / 16; ++kk)
+      dg::ldmatrix_x4(qf[rg][kk],
+                      sQ + (row0 + rg * 16 + (lane & 15)) * C::LD + kk * 16 + (lane >> 4) * 8);
 
-  float acc[RG][WD / 8][4];
+  float acc[RG][D / 8][4];
   float m_run[RG][2], l_run[RG][2];
 #pragma unroll
   for (int rg = 0; rg < RG; ++rg) {
 #pragma unroll
-    for (int n = 0; n < WD / 8; ++n)
+    for (int n = 0; n < D / 8; ++n)
       acc[rg][n][0] = acc[rg][n][1] = acc[rg][n][2] = acc[rg][n][3] = 0.f;
     m_run[rg][0] = m_run[rg][1] = kNegInf;
     l_run[rg][0] = l_run[rg][1] = 0.f;
@@ -224,10 +182,10 @@ __global__ void __launch_bounds__(Cfg<D, ND, NR, RG, BK>::THREADS)
     const int k0 = t * BK;
     if (t + 1 < n_tiles) {  // prefetch the next tile into the other stage
       const int k1 = k0 + BK;
-      load_tile<D, C::THREADS, T>(sK + (st ^ 1) * BK * C::LD, C::LD, k + k1 * p.kv_rs,
-                               p.kv_rs, BK, p.sk - k1);
-      load_tile<D, C::THREADS, T>(sV + (st ^ 1) * BK * C::LD, C::LD, v + k1 * p.kv_rs,
-                               p.kv_rs, BK, p.sk - k1);
+      load_tile<D, C::THREADS>(sK + (st ^ 1) * BK * C::LD, C::LD, k + k1 * p.kv_rs, p.kv_rs, BK,
+                               p.sk - k1);
+      load_tile<D, C::THREADS>(sV + (st ^ 1) * BK * C::LD, C::LD, v + k1 * p.kv_rs, p.kv_rs, BK,
+                               p.sk - k1);
       dg::cp_async_commit();
       dg::cp_async_wait<1>();
     } else {
@@ -237,19 +195,18 @@ __global__ void __launch_bounds__(Cfg<D, ND, NR, RG, BK>::THREADS)
     const bf16* tK = sK + st * BK * C::LD;
     const bf16* tV = sV + st * BK * C::LD;
 
-    // scores over this warp's WD columns of the head dim
     float s[RG][BK / 8][4];
 #pragma unroll
     for (int rg = 0; rg < RG; ++rg)
 #pragma unroll
       for (int j = 0; j < BK / 8; ++j) s[rg][j][0] = s[rg][j][1] = s[rg][j][2] = s[rg][j][3] = 0.f;
 #pragma unroll
-    for (int kk = 0; kk < WD / 16; ++kk) {
+    for (int kk = 0; kk < D / 16; ++kk) {
 #pragma unroll
       for (int nb = 0; nb < BK / 16; ++nb) {
         uint32_t kb[4];
         dg::ldmatrix_x4(kb, tK + (nb * 16 + (lane & 7) + ((lane >> 4) << 3)) * C::LD +
-                                wd * WD + kk * 16 + ((lane >> 3) & 1) * 8);
+                                kk * 16 + ((lane >> 3) & 1) * 8);
 #pragma unroll
         for (int rg = 0; rg < RG; ++rg) {
           dg::mma_bf16_16816(s[rg][2 * nb], qf[rg][kk], kb[0], kb[1]);
@@ -257,91 +214,46 @@ __global__ void __launch_bounds__(Cfg<D, ND, NR, RG, BK>::THREADS)
         }
       }
     }
-    if (ND > 1) {  // sum the ND partial score tiles through shared memory
-      float* mine = sS + warp * (RG * 16 * C::LDS);
-#pragma unroll
-      for (int rg = 0; rg < RG; ++rg)
-#pragma unroll
-        for (int j = 0; j < BK / 8; ++j) {
-          float* cell = mine + (rg * 16 + g) * C::LDS + j * 8 + 2 * t4;
-          *reinterpret_cast<float2*>(cell) = make_float2(s[rg][j][0], s[rg][j][1]);
-          *reinterpret_cast<float2*>(cell + 8 * C::LDS) = make_float2(s[rg][j][2], s[rg][j][3]);
-        }
-      __syncthreads();
-#pragma unroll
-      for (int rg = 0; rg < RG; ++rg)
-#pragma unroll
-        for (int j = 0; j < BK / 8; ++j) {
-          float sum[4] = {0.f, 0.f, 0.f, 0.f};
-          for (int w = 0; w < ND; ++w) {
-            const float* cell = sS + (wr * ND + w) * (RG * 16 * C::LDS) +
-                                (rg * 16 + g) * C::LDS + j * 8 + 2 * t4;
-            const float2 lo = *reinterpret_cast<const float2*>(cell);
-            const float2 hi = *reinterpret_cast<const float2*>(cell + 8 * C::LDS);
-            sum[0] += lo.x;
-            sum[1] += lo.y;
-            sum[2] += hi.x;
-            sum[3] += hi.y;
-          }
-#pragma unroll
-          for (int e = 0; e < 4; ++e) s[rg][j][e] = sum[e];
-        }
-    }
 
     // grid position (u, v) of this lane's first key of the tile
-    int u_tile = 0, v_tile = 0;
-    if constexpr (REL) {
-      u_tile = (k0 + 2 * t4) / p.rel_w;
-      v_tile = k0 + 2 * t4 - u_tile * p.rel_w;
-    }
+    const int u_tile = (k0 + 2 * t4) / p.rel_w;
+    const int v_tile = k0 + 2 * t4 - u_tile * p.rel_w;
 
     // base-2 online softmax in registers; lanes 4g..4g+3 share rows g and g+8
 #pragma unroll
     for (int rg = 0; rg < RG; ++rg) {
-      const int qrow = q0 + row0 + rg * 16 + g;
       float mx[2] = {kNegInf, kNegInf};
       int ua = u_tile, va = v_tile;  // of key k0 + j*8 + 2*t4, stepped with j
 #pragma unroll
       for (int j = 0; j < BK / 8; ++j) {
         float rel[4] = {0.f, 0.f, 0.f, 0.f};
-        if constexpr (REL) {
-          const int key = k0 + j * 8 + 2 * t4;
-          const int ql = row0 + rg * 16 + g;  // row of the slabs; + 8 for e >= 2
-          int ub = ua, vb = va + 1;           // of key + 1
-          if (vb == p.rel_w) {
-            vb = 0;
-            ++ub;
-          }
-          if (key < p.sk) {
-            const float* bh = sBh + ua * C::LDB + ql;
-            const float* bw = sBw + va * C::LDB + ql;
-            rel[0] = bh[0] + bw[0];
-            rel[2] = bh[8] + bw[8];
-          }
-          if (key + 1 < p.sk) {
-            const float* bh = sBh + ub * C::LDB + ql;
-            const float* bw = sBw + vb * C::LDB + ql;
-            rel[1] = bh[0] + bw[0];
-            rel[3] = bh[8] + bw[8];
-          }
-          va += 8;
-          while (va >= p.rel_w) {
-            va -= p.rel_w;
-            ++ua;
-          }
+        const int key = k0 + j * 8 + 2 * t4;
+        const int ql = row0 + rg * 16 + g;  // row of the slabs; + 8 for e >= 2
+        int ub = ua, vb = va + 1;           // of key + 1
+        if (vb == p.rel_w) {
+          vb = 0;
+          ++ub;
+        }
+        if (key < p.sk) {
+          const float* bh = sBh + ua * C::LDB + ql;
+          const float* bw = sBw + va * C::LDB + ql;
+          rel[0] = bh[0] + bw[0];
+          rel[2] = bh[8] + bw[8];
+        }
+        if (key + 1 < p.sk) {
+          const float* bh = sBh + ub * C::LDB + ql;
+          const float* bw = sBw + vb * C::LDB + ql;
+          rel[1] = bh[0] + bw[0];
+          rel[3] = bh[8] + bw[8];
+        }
+        va += 8;
+        while (va >= p.rel_w) {
+          va -= p.rel_w;
+          ++ua;
         }
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
-          const int key = k0 + j * 8 + 2 * t4 + (e & 1);
-          const int qi = qrow + (e >> 1) * 8;
-          float x = s[rg][j][e] * p.scale_log2;
-          if (key >= p.sk) {
-            x = kNegInf;
-          } else if (REL) {
-            x += rel[e];
-          } else if (bias != nullptr && qi < p.sq) {
-            x += bias[qi * p.bias_rs + key] * kLog2e;
-          }
+          const float x = key + (e & 1) < p.sk ? s[rg][j][e] * p.scale_log2 + rel[e] : kNegInf;
           s[rg][j][e] = x;
           mx[e >> 1] = fmaxf(mx[e >> 1], x);
         }
@@ -367,7 +279,7 @@ __global__ void __launch_bounds__(Cfg<D, ND, NR, RG, BK>::THREADS)
 #pragma unroll
       for (int r = 0; r < 2; ++r) l_run[rg][r] = l_run[rg][r] * alpha[r] + rs[r];
 #pragma unroll
-      for (int n = 0; n < WD / 8; ++n) {
+      for (int n = 0; n < D / 8; ++n) {
         acc[rg][n][0] *= alpha[0];
         acc[rg][n][1] *= alpha[0];
         acc[rg][n][2] *= alpha[1];
@@ -375,7 +287,7 @@ __global__ void __launch_bounds__(Cfg<D, ND, NR, RG, BK>::THREADS)
       }
     }
 
-    // acc += P V for this warp's WD output columns; P is already in A layout
+    // acc += P V; P is already in A layout
 #pragma unroll
     for (int ks = 0; ks < BK / 16; ++ks) {
       uint32_t pa[RG][4];
@@ -387,9 +299,9 @@ __global__ void __launch_bounds__(Cfg<D, ND, NR, RG, BK>::THREADS)
         pa[rg][3] = dg::pack_bf16x2(s[rg][2 * ks + 1][2], s[rg][2 * ks + 1][3]);
       }
 #pragma unroll
-      for (int db = 0; db < WD / 16; ++db) {
+      for (int db = 0; db < D / 16; ++db) {
         uint32_t vb[4];
-        dg::ldmatrix_x4_trans(vb, tV + (ks * 16 + (lane & 15)) * C::LD + wd * WD + db * 16 +
+        dg::ldmatrix_x4_trans(vb, tV + (ks * 16 + (lane & 15)) * C::LD + db * 16 +
                                       (lane >> 4) * 8);
 #pragma unroll
         for (int rg = 0; rg < RG; ++rg) {
@@ -398,7 +310,7 @@ __global__ void __launch_bounds__(Cfg<D, ND, NR, RG, BK>::THREADS)
         }
       }
     }
-    __syncthreads();  // this stage and the partial scores are free again
+    __syncthreads();  // this stage is free again
   }
 
 #pragma unroll
@@ -411,73 +323,28 @@ __global__ void __launch_bounds__(Cfg<D, ND, NR, RG, BK>::THREADS)
       const float inv = 1.f / fmaxf(l, 1e-30f);
       const int qi = q0 + row0 + rg * 16 + g + r * 8;
       if (qi >= p.sq) continue;
-      T* dst = o + qi * p.o_rs + wd * WD + 2 * t4;
+      bf16* dst = o + qi * p.o_rs + 2 * t4;
 #pragma unroll
-      for (int n = 0; n < WD / 8; ++n)
+      for (int n = 0; n < D / 8; ++n)
         dg::store_pair(dst + n * 8, acc[rg][n][2 * r] * inv, acc[rg][n][2 * r + 1] * inv);
     }
   }
 }
 
-template <typename T, int D, int ND, int NR, int RG, int BK, bool REL = false>
+template <int D, int NR, int RG, int BK>
 int launch(const AttnParams& p, int batch, cudaStream_t stream) {
-  using C = Cfg<D, ND, NR, RG, BK>;
-  const size_t bytes = C::bytes + (REL ? C::rel_bytes(p.rel_h, p.rel_w) : 0);
-  cudaError_t err = cudaFuncSetAttribute(flash_attn_kernel<T, D, ND, NR, RG, BK, REL>,
+  using C = Cfg<D, NR, RG, BK>;
+  const size_t bytes = C::bytes + C::rel_bytes(p.rel_h, p.rel_w);
+  cudaError_t err = cudaFuncSetAttribute(flash_attn_relpos_kernel<D, NR, RG, BK>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(bytes));
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid((p.sq + C::BQ - 1) / C::BQ, p.heads, batch);
-  flash_attn_kernel<T, D, ND, NR, RG, BK, REL><<<grid, C::THREADS, bytes, stream>>>(p);
+  flash_attn_relpos_kernel<D, NR, RG, BK><<<grid, C::THREADS, bytes, stream>>>(p);
   return static_cast<int>(cudaGetLastError());
 }
 
-AttnParams make_params(const void* q, const void* k, const void* v, void* o, int heads,
-                       int sq, int sk, int64_t q_bs, int64_t q_hs, int64_t q_rs,
-                       int64_t kv_bs, int64_t kv_hs, int64_t kv_rs, int64_t o_bs,
-                       int64_t o_hs, int64_t o_rs, float scale) {
-  AttnParams p = {};
-  p.q = q;
-  p.k = k;
-  p.v = v;
-  p.o = o;
-  p.heads = heads;
-  p.sq = sq;
-  p.sk = sk;
-  p.q_bs = q_bs;
-  p.q_hs = q_hs;
-  p.q_rs = q_rs;
-  p.kv_bs = kv_bs;
-  p.kv_hs = kv_hs;
-  p.kv_rs = kv_rs;
-  p.o_bs = o_bs;
-  p.o_hs = o_hs;
-  p.o_rs = o_rs;
-  p.scale_log2 = scale * kLog2e;
-  return p;
-}
-
 }  // namespace
-
-// q, k, v, o bf16 or, with x_f32, f32 (strides in elements); d = 512
-extern "C" int dg_flash_attention(
-    const void* q, const void* k, const void* v, const void* bias, void* o,
-    int batch, int heads, int sq, int sk, int d, int64_t q_bs, int64_t q_hs,
-    int64_t q_rs, int64_t kv_bs, int64_t kv_hs, int64_t kv_rs, int64_t o_bs,
-    int64_t o_hs, int64_t o_rs, int64_t bias_bs, int64_t bias_hs,
-    int64_t bias_rs, float scale, int x_f32, void* stream) {
-  AttnParams p = make_params(q, k, v, o, heads, sq, sk, q_bs, q_hs, q_rs, kv_bs, kv_hs,
-                             kv_rs, o_bs, o_hs, o_rs, scale);
-  p.bias = static_cast<const float*>(bias);
-  p.bias_bs = bias_bs;
-  p.bias_hs = bias_hs;
-  p.bias_rs = bias_rs;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (d == 512)
-    return x_f32 ? launch<float, 512, 8, 1, 2, 32>(p, batch, s)
-                 : launch<bf16, 512, 8, 1, 2, 32>(p, batch, s);
-  return static_cast<int>(cudaErrorInvalidValue);
-}
 
 // Self-attention over a grid_h x grid_w token grid (n = grid_h * grid_w rows)
 // with the decomposed relative-position bias; bias_h (batch*heads, grid_h, n)
@@ -490,14 +357,30 @@ extern "C" int dg_flash_attention_relpos_bf16(
     float scale, void* stream) {
   if (grid_h < 1 || grid_w < 1) return static_cast<int>(cudaErrorInvalidValue);
   const int n = grid_h * grid_w;
-  AttnParams p = make_params(q, k, v, o, heads, n, n, q_bs, q_hs, q_rs, kv_bs, kv_hs,
-                             kv_rs, o_bs, o_hs, o_rs, scale);
+  AttnParams p = {};
+  p.q = static_cast<const bf16*>(q);
+  p.k = static_cast<const bf16*>(k);
+  p.v = static_cast<const bf16*>(v);
+  p.o = static_cast<bf16*>(o);
+  p.heads = heads;
+  p.sq = n;
+  p.sk = n;
+  p.q_bs = q_bs;
+  p.q_hs = q_hs;
+  p.q_rs = q_rs;
+  p.kv_bs = kv_bs;
+  p.kv_hs = kv_hs;
+  p.kv_rs = kv_rs;
+  p.o_bs = o_bs;
+  p.o_hs = o_hs;
+  p.o_rs = o_rs;
+  p.scale_log2 = scale * kLog2e;
   p.rel_bh = static_cast<const float*>(bias_h);
   p.rel_bw = static_cast<const float*>(bias_w);
   p.rel_h = grid_h;
   p.rel_w = grid_w;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (d == 80) return launch<bf16, 80, 1, 4, 1, 64, true>(p, batch, s);
+  if (d == 80) return launch<80, 4, 1, 64>(p, batch, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

@@ -70,8 +70,7 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "gn_moments.cuh"  // dg::store_pair
-#include "mma_sm90.cuh"    // dg::pack_bf16x2
+#include "attn_sm90.cuh"   // the softmax, P V, tensor maps (shared with flash_attention_d512.cu)
 #include "sm90_async.cuh"  // mbarriers, TMA, named barriers, descriptors, wgmma fences
 
 namespace {
@@ -93,8 +92,6 @@ constexpr int kTileBytes = kBK * kD * 2;  // one K or V tile
 constexpr int kSmem = 2 * kQBytes + 2 * kStages * kTileBytes + 1024;  // + slack to align
 constexpr int kTurnBar = 1;     // named barriers kTurnBar + c: consumer c's turn
 constexpr int kTurnThreads = 256;  // a turn's barrier: the warpgroup passing it on, the one taking it
-constexpr float kNegInf = -1e30f;
-constexpr float kLog2e = 1.4426950408889634f;
 static_assert(kQBytes % 1024 == 0, "tiles stay on the swizzle's 1024-byte atoms");
 static_assert(kSmem <= 232448, "the buffers fit a block's shared memory");
 static_assert(128 * kProducerRegs + 128 * kConsumers * kConsumerRegs <= 65536, "register file");
@@ -108,12 +105,6 @@ struct Args {
   int64_t bias_bs, bias_hs, bias_rs;
   float scale_log2;  // softmax scale * log2(e)
 };
-
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
 
 #define DG_F8(i)                                                                          \
   "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]), "+f"(d[i + 4]), "+f"(d[i + 5]), \
@@ -138,23 +129,6 @@ __device__ __forceinline__ void wgmma_qk(float (&d)[64], uint64_t a, uint64_t b,
       : "l"(a), "l"(b), "r"(scale_d));
 }
 
-// d (64 x 64 f32) += A (64 x 16 bf16 from registers) B, B (16 x 64 bf16,
-// MN-major: N contiguous, descriptor b). A fragment, per warp of 16 rows
-// (g = lane / 4, t = lane % 4): a[0] (row g, k 2t..2t+1), a[1] (row g + 8,
-// k 2t..), a[2] (row g, k 2t+8..), a[3] (row g + 8, k 2t+8..), low half
-// the lower k.
-__device__ __forceinline__ void wgmma_pv(float (&d)[32], const uint32_t* a, uint64_t b) {
-  asm volatile(
-      "{\n.reg .pred p;\n"
-      "setp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
-      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      : DG_F8(0), DG_F8(8), DG_F8(16), DG_F8(24)
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
-}
-
 #undef DG_F8
 
 // S (64 x 128 f32 fragment) = Q (64 rows of the descriptor dq) K^T (the
@@ -170,123 +144,16 @@ __device__ __forceinline__ void issue_pv(float (&o)[32], const uint32_t (&p)[32]
                                          const void* tile_v) {
   const uint64_t dv = dg::sw128_desc(tile_v, (kBK * kD * 2) >> 4);
 #pragma unroll
-  for (int kk = 0; kk < kBK / 16; ++kk) wgmma_pv(o, p + 4 * kk, dv + kk * ((16 * kD * 2) >> 4));
+  for (int kk = 0; kk < kBK / 16; ++kk)
+    dg::wgmma_pv(o, p + 4 * kk, dv + kk * ((16 * kD * 2) >> 4));
 }
-
-// The online softmax of one thread's two rows (row0 and row0 + 8; the four
-// lanes of a quad share them) over the K tiles: base 2, the running max in
-// raw units (biased scores are scaled first), the sums kept per lane.
-template <bool BIAS>
-struct Softmax {
-  const int row0, t4, sq, sk;
-  const float* bias;  // this (batch, head)'s rows, BIAS only
-  const int64_t bias_rs, o_rs;
-  const float scale_log2;
-  const float mult;  // raw scores are scaled inside the exponent, biased ones before
-  float m_run[2] = {kNegInf, kNegInf}, l_run[2] = {0.f, 0.f}, alpha[2] = {0.f, 0.f};
-
-  __device__ __forceinline__ Softmax(const Args& a, int row, int t, int b, int h)
-      : row0(row), t4(t), sq(a.sq), sk(a.sk),
-        bias(BIAS ? a.bias + b * a.bias_bs + h * a.bias_hs : nullptr), bias_rs(a.bias_rs),
-        o_rs(a.o_rs), scale_log2(a.scale_log2), mult(BIAS ? 1.f : a.scale_log2) {}
-
-  // S_t -> exp2 of its scores less the new running max, in place; alpha and
-  // the row sums updated
-  __device__ __forceinline__ void scores(float (&s)[64], int t) {
-    const int k0 = t * kBK;
-    if (BIAS || k0 + kBK > sk) {
-#pragma unroll
-      for (int j = 0; j < kBK / 8; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int key = k0 + j * 8 + 2 * t4 + (e & 1);
-          const int qi = row0 + (e >> 1) * 8;
-          float x = s[4 * j + e];
-          if (key >= sk) {
-            x = kNegInf;
-          } else if (BIAS) {
-            x *= scale_log2;
-            if (qi < sq) x += bias[qi * bias_rs + key] * kLog2e;
-          }
-          s[4 * j + e] = x;
-        }
-    }
-    float mx[2] = {kNegInf, kNegInf};
-#pragma unroll
-    for (int j = 0; j < kBK / 8; ++j) {
-      mx[0] = fmaxf(mx[0], fmaxf(s[4 * j], s[4 * j + 1]));
-      mx[1] = fmaxf(mx[1], fmaxf(s[4 * j + 2], s[4 * j + 3]));
-    }
-    float neg_m[2];
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
-      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
-      const float m_new = fmaxf(m_run[r], mx[r]);
-      alpha[r] = ex2((m_run[r] - m_new) * mult);
-      m_run[r] = m_new;
-      neg_m[r] = -m_new * mult;
-    }
-    float rs[2] = {0.f, 0.f};  // this lane's share of the row sums
-#pragma unroll
-    for (int j = 0; j < kBK / 8; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const float pe = ex2(fmaf(s[4 * j + e], mult, neg_m[e >> 1]));
-        s[4 * j + e] = pe;
-        rs[e >> 1] += pe;
-      }
-#pragma unroll
-    for (int r = 0; r < 2; ++r) l_run[r] = l_run[r] * alpha[r] + rs[r];
-  }
-
-  // O *= alpha
-  __device__ __forceinline__ void rescale(float (&o)[32]) const {
-#pragma unroll
-    for (int j = 0; j < kD / 8; ++j) {
-      o[4 * j] *= alpha[0];
-      o[4 * j + 1] *= alpha[0];
-      o[4 * j + 2] *= alpha[1];
-      o[4 * j + 3] *= alpha[1];
-    }
-  }
-
-  // P_t (bf16 pairs) as the A fragments of the next P V: slice kk is score
-  // columns 16 kk .. 16 kk + 15, i.e. fragments 2 kk and 2 kk + 1
-  __device__ __forceinline__ static void pack(const float (&s)[64], uint32_t (&p)[32]) {
-#pragma unroll
-    for (int kk = 0; kk < kBK / 16; ++kk) {
-      p[4 * kk] = dg::pack_bf16x2(s[8 * kk], s[8 * kk + 1]);
-      p[4 * kk + 1] = dg::pack_bf16x2(s[8 * kk + 2], s[8 * kk + 3]);
-      p[4 * kk + 2] = dg::pack_bf16x2(s[8 * kk + 4], s[8 * kk + 5]);
-      p[4 * kk + 3] = dg::pack_bf16x2(s[8 * kk + 6], s[8 * kk + 7]);
-    }
-  }
-
-  // O / l to rows row0 and row0 + 8 of out (row stride o_rs), rows past sq skipped
-  template <typename TO>
-  __device__ __forceinline__ void store(const float (&o)[32], TO* out) const {
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      float l = l_run[r];
-      l += __shfl_xor_sync(0xffffffffu, l, 1);
-      l += __shfl_xor_sync(0xffffffffu, l, 2);
-      const float inv = 1.f / fmaxf(l, 1e-30f);
-      const int qi = row0 + 8 * r;
-      if (qi >= sq) continue;
-      TO* dst = out + qi * o_rs + 2 * t4;
-#pragma unroll
-      for (int j = 0; j < kD / 8; ++j)
-        dg::store_pair(dst + 8 * j, o[4 * j + 2 * r] * inv, o[4 * j + 2 * r + 1] * inv);
-    }
-  }
-};
 
 template <typename TO, bool BIAS>
 __global__ void __launch_bounds__(kThreads, 1)
     attn_sm90_kernel(const __grid_constant__ CUtensorMap map_q,
                      const __grid_constant__ CUtensorMap map_k,
                      const __grid_constant__ CUtensorMap map_v, const Args a) {
+  using Softmax = dg::AttnSoftmax<BIAS, kBK>;
   extern __shared__ unsigned char smem_raw[];
   __shared__ __align__(8) uint64_t full_q[2], empty_q[2], full[kStages], empty[kStages];
   // buffers start on 1024-byte boundaries of the shared window (the swizzle's atom)
@@ -360,7 +227,7 @@ __global__ void __launch_bounds__(kThreads, 1)
       const int qb = j & 1;
       // the last consumer's last turn of the block's last item is the last of all
       const bool pass_last = c != kConsumers - 1 || w + static_cast<int>(gridDim.x) < items;
-      Softmax<BIAS> sm(a, q0 + c * kRows + (tid >> 5) * 16 + (lane >> 2), lane & 3, b, h);
+      Softmax sm(a, q0 + c * kRows + (tid >> 5) * 16 + (lane >> 2), lane & 3, b, h);
 #pragma unroll
       for (int i = 0; i < 32; ++i) o[i] = 0.f;
       const uint64_t dq = dg::sw128_desc(tile_q(qb) + c * kRows * kD * 2);
@@ -379,7 +246,7 @@ __global__ void __launch_bounds__(kThreads, 1)
       dg::wgmma_wait<0>();
       dg::fence_regs(s);
       sm.scores(s, 0);
-      Softmax<BIAS>::pack(s, p);  // O is still 0: nothing to rescale
+      Softmax::pack(s, p);  // O is still 0: nothing to rescale
       for (int t = 1; t < n_tiles; ++t) {
         const int use = use0 + t;
         const int prev = (use - 1) % kStages;
@@ -402,7 +269,7 @@ __global__ void __launch_bounds__(kThreads, 1)
         dg::fence_regs(p);
         if (tid == 0) dg::mbar_arrive(&empty[prev]);  // K and V of tile t - 1 are done
         sm.rescale(o);
-        Softmax<BIAS>::pack(s, p);
+        Softmax::pack(s, p);
       }
       const int last = (use0 + n_tiles - 1) % kStages;
       dg::named_sync(kTurnBar + c, kTurnThreads);
@@ -421,25 +288,6 @@ __global__ void __launch_bounds__(kThreads, 1)
       sm.store(o, static_cast<TO*>(a.o) + b * a.o_bs + h * a.o_hs);
     }
   }
-}
-
-// a 3-D bf16 map over (width channels, rows, batch) with the given element
-// strides of a row and of a batch, read in boxes of (64, box_rows, 1) under
-// the 128-byte swizzle, zeros past its edges; false if the encoder refuses it
-bool tensor_map(CUtensorMap* map, const void* ptr, int64_t width, int64_t rows, int64_t batch,
-                int64_t row_stride, int64_t batch_stride, int box_rows) {
-  const dg::EncodeTiledFn encode = dg::encode_tiled();
-  if (encode == nullptr) return false;
-  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(width), static_cast<cuuint64_t>(rows),
-                              static_cast<cuuint64_t>(batch)};
-  const cuuint64_t strides[2] = {static_cast<cuuint64_t>(row_stride) * 2,
-                                 static_cast<cuuint64_t>(batch_stride) * 2};  // bytes
-  const cuuint32_t box[3] = {kD, static_cast<cuuint32_t>(box_rows), 1};
-  const cuuint32_t steps[3] = {1, 1, 1};
-  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(ptr), dims, strides,
-                box, steps, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
 template <typename TO, bool BIAS>
@@ -476,16 +324,16 @@ extern "C" int dg_flash_attention_sm90(
   if (batch <= 0 || heads <= 0 || sq <= 0 || sk <= 0 || blocks <= 0)
     return static_cast<int>(cudaErrorInvalidValue);
   CUtensorMap mq, mk, mv;
-  if (!tensor_map(&mq, q, q_width, sq, batch, q_width, q_bs, kBQ))
+  if (!dg::attn_tensor_map(&mq, q, q_width, sq, batch, q_width, q_bs, kBQ))
     return static_cast<int>(cudaErrorInvalidValue);
   if (kBQ == kBK && k == q && kv_width == q_width && kv_bs == q_bs && sk == sq) {
     mk = mq;  // the packed projection: one map serves all three slots
-  } else if (!tensor_map(&mk, k, kv_width, sk, batch, kv_width, kv_bs, kBK)) {
+  } else if (!dg::attn_tensor_map(&mk, k, kv_width, sk, batch, kv_width, kv_bs, kBK)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (v == k) {
     mv = mk;
-  } else if (!tensor_map(&mv, v, kv_width, sk, batch, kv_width, kv_bs, kBK)) {
+  } else if (!dg::attn_tensor_map(&mv, v, kv_width, sk, batch, kv_width, kv_bs, kBK)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const int64_t items = static_cast<int64_t>((sq + kBQ - 1) / kBQ) * heads * batch;
@@ -507,7 +355,7 @@ extern "C" int dg_flash_attention_sm90(
   a.bias_bs = bias_bs;
   a.bias_hs = bias_hs;
   a.bias_rs = bias_rs;
-  a.scale_log2 = scale * kLog2e;
+  a.scale_log2 = scale * dg::kLog2e;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (bias != nullptr)
     return out_f32 ? launch<float, true>(mq, mk, mv, a, blocks, s)

@@ -1,8 +1,9 @@
 // Hopper's asynchronous building blocks, shared by the kernels built on TMA
-// and wgmma (int8_matmul.cu, flash_attention_sm90.cu, gn_conv.cu): mbarriers,
-// TMA tile loads, named barriers, the shared-memory descriptor of a tile under the
-// 128-byte swizzle, the wgmma fence / commit / wait, and, on the host, the
-// lookup of libcuda's cuTensorMapEncodeTiled (PTX ISA 8.0, sm_90a).
+// and wgmma (int8_matmul.cu, flash_attention_sm90.cu, flash_attention_d512.cu,
+// gn_conv.cu): mbarriers, TMA tile loads, named barriers, the shared-memory
+// descriptor of a tile under the 128-byte swizzle, the wgmma fence / commit /
+// wait, and, on the host, the lookup of libcuda's cuTensorMapEncodeTiled (PTX
+// ISA 8.0, sm_90a).
 #pragma once
 
 #include <cuda.h>  // CUtensorMap and its enums (types only: libcuda is not linked)

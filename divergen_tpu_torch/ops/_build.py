@@ -97,13 +97,13 @@ def build() -> Path:
 
 def _declare(lib: ctypes.CDLL) -> None:
     p, i, i64, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, ctypes.c_float
-    lib.dg_flash_attention.argtypes = [p] * 5 + [i] * 5 + [i64] * 12 + [f, i, p]
-    lib.dg_flash_attention.restype = i
-    lib.dg_flash_attention_sm90.argtypes = ([p] * 5 + [i] * 4 + [i64] * 4 + [i] * 4 + [i64] * 6
-                                            + [f, i, i, p])
-    lib.dg_flash_attention_sm90.restype = i
-    lib.dg_flash_attention_sm90_rows.argtypes = []
-    lib.dg_flash_attention_sm90_rows.restype = i
+    for name in ("dg_flash_attention_sm90", "dg_flash_attention_d512"):
+        getattr(lib, name).argtypes = ([p] * 5 + [i] * 4 + [i64] * 4 + [i] * 4 + [i64] * 6
+                                       + [f, i, i, p])
+        getattr(lib, name).restype = i
+    for name in ("dg_flash_attention_sm90_rows", "dg_flash_attention_d512_rows"):
+        getattr(lib, name).argtypes = []
+        getattr(lib, name).restype = i
     lib.dg_flash_attention_relpos_bf16.argtypes = [p] * 6 + [i] * 5 + [i64] * 9 + [f, p]
     lib.dg_flash_attention_relpos_bf16.restype = i
     lib.dg_window_attention_bf16.argtypes = [p] * 6 + [i] * 4 + [i64] * 9 + [f, p]

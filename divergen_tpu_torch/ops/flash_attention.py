@@ -9,14 +9,15 @@ SAM). All launch a hand-written CUDA kernel for a CUDA tensor and use the
 plain version in this module, the numerics reference, for a CPU tensor. A
 CUDA tensor the kernel cannot take raises. The head dim picks the body:
 d = 64 (SDXL) runs ``csrc/flash_attention_sm90.cu`` (TMA, wgmma, three
-consumer warpgroups taking turns), d = 512 (the VAE) and the
+consumer warpgroups taking turns), d = 512 (the VAE)
+``csrc/flash_attention_d512.cu`` (TMA, wgmma, the channels split over two
+consumer warpgroups that sum their shares of the scores), the
 relative-position kernel at d = 80 (SAM) ``csrc/flash_attention.cu``
 (mma.sync). ``flash_attention`` and ``flash_attention_packed`` take bf16 or
 float32 (a float32 model's attention): float32 q, k and v are rounded to
-bf16 (by this module at d = 64, where TMA cannot convert; by the mma.sync
-body as it loads them at d = 512), the products run on the bf16 tensor
-cores as for bf16, and the output is float32; ``flash_attention_relpos``
-takes bf16.
+bf16 by this module (TMA cannot convert), the products run on the bf16
+tensor cores as for bf16, and the output is float32;
+``flash_attention_relpos`` takes bf16.
 
 Each wrapper counts its kernel launches in a plain int attribute
 (``flash_attention.launches``, ``flash_attention_packed.launches``,
@@ -31,9 +32,10 @@ import torch
 
 from . import _build
 
-KERNEL_HEAD_DIMS = (64, 512)  # head dims the kernel is instantiated for
-SM90_HEAD_DIM = 64  # ... on the wgmma + TMA body; the others on the mma.sync body
-SM90_TILE = 192  # q rows a work item of the wgmma body (its kBQ: 3 warpgroups of 64)
+KERNEL_HEAD_DIMS = (64, 512)  # head dims of the wgmma + TMA bodies
+SM90_HEAD_DIM = 64  # ... flash_attention_sm90.cu's
+SM90_TILE = 192  # q rows a work item of that body (its kBQ: 3 warpgroups of 64)
+D512_TILE = 64  # q rows a work item of flash_attention_d512.cu (its kRows)
 KERNEL_DTYPES = (torch.bfloat16, torch.float32)  # q, k, v and output of those
 RELPOS_HEAD_DIMS = (80,)  # ... with the relative-position bias (SAM ViT-H)
 # The block keeps H + W rows of 64 + 4 floats beside its q tile and K/V ring
@@ -100,11 +102,11 @@ def _require_kernel_input(name: str, t: torch.Tensor, d: int, head_dims=KERNEL_H
 
 
 class TilePlan(NamedTuple):
-    """How the d = 64 body covers one call. Its work items are (q tiles of
-    ``SM90_TILE`` rows, heads, batch), q tiles fastest; a persistent grid of
-    at most one block an SM walks them, block i taking items i, i + blocks,
-    ... q, k and v are read through maps of (``width`` channels, rows,
-    batch), and head h of a slot is the 64 channels from ``c0 + h * head_c``
+    """How a wgmma body covers one call. Its work items are (q tiles of
+    ``rows`` rows, heads, batch), q tiles fastest; a persistent grid of at
+    most one block an SM walks them, block i taking items i, i + blocks, ...
+    q, k and v are read through maps of (``width`` channels, rows, batch),
+    and head h of a slot is the head dim's channels from ``c0 + h * head_c``
     of that slot."""
     items: Tuple[int, int, int]
     width: int
@@ -112,6 +114,7 @@ class TilePlan(NamedTuple):
     k_c0: int
     v_c0: int
     head_c: int
+    rows: int = SM90_TILE
 
     def blocks(self, sms: int) -> int:
         return min(math.prod(self.items), sms)
@@ -120,74 +123,72 @@ class TilePlan(NamedTuple):
                                                 Tuple[int, int, int], int, int]]:
         """Per block and item: (block, (q tile, head, batch), the (channel,
         row, batch) origin of the q box, the channels of the k and v boxes),
-        as the kernel computes them (``csrc/flash_attention_sm90.cu``)."""
+        as the kernel computes them (``csrc/flash_attention_sm90.cu``,
+        ``csrc/flash_attention_d512.cu``)."""
         tiles, heads, _ = self.items
         blocks = self.blocks(sms)
         for block in range(blocks):
             for w in range(block, math.prod(self.items), blocks):
                 t, h, b = w % tiles, (w // tiles) % heads, w // (tiles * heads)
-                yield (block, (t, h, b), (self.q_c0 + h * self.head_c, t * SM90_TILE, b),
+                yield (block, (t, h, b), (self.q_c0 + h * self.head_c, t * self.rows, b),
                        self.k_c0 + h * self.head_c, self.v_c0 + h * self.head_c)
+
+
+def _rows(d: int) -> int:
+    """q rows a work item of the body that takes head dim ``d``."""
+    return D512_TILE if d == 512 else SM90_TILE
 
 
 def packed_plan(batch: int, n: int, channels: int, heads: int) -> TilePlan:
     """The plan of a fused (batch, n, 3 * channels) projection: one map over
     all 3C channels, q, k and v at channel offsets 0, C and 2C."""
     d = channels // heads
-    return TilePlan((-(-n // SM90_TILE), heads, batch), 3 * channels, 0, channels,
-                    2 * channels, d)
+    rows = _rows(d)
+    return TilePlan((-(-n // rows), heads, batch), 3 * channels, 0, channels, 2 * channels, d,
+                    rows)
 
 
 def bhsd_plan(bh: int, sq: int, d: int) -> TilePlan:
     """The plan of (BH, S, D) q, k and v: a map of (D, S, BH) each, one head."""
-    return TilePlan((-(-sq // SM90_TILE), 1, bh), d, 0, 0, 0, 0)
+    rows = _rows(d)
+    return TilePlan((-(-sq // rows), 1, bh), d, 0, 0, 0, 0, rows)
 
 
 def bf16_operand(t: torch.Tensor) -> torch.Tensor:
-    """What the d = 64 body reads: ``t`` rounded to bf16 (to nearest even,
-    as the mma.sync body rounded float32 on load); bf16 as it is."""
+    """What the wgmma bodies read: ``t`` rounded to bf16, to nearest even;
+    bf16 as it is."""
     return t if t.dtype == torch.bfloat16 else t.to(torch.bfloat16)
 
 
-def _launch(q_ptr, k_ptr, v_ptr, bias, out, batch, heads, sq, sk, d,
-            q_strides, kv_strides, o_strides, bias_strides, device) -> None:
-    """The mma.sync body (d = 512)."""
+def _launch_wgmma(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, plan: TilePlan, d: int,
+                  sq: int, sk: int, out: torch.Tensor, o_strides, bias=None,
+                  bias_strides=(0, 0, 0)) -> None:
+    """The wgmma body of head dim ``d`` (64 or 512) on bf16 q, k and v of
+    shape (batch, rows, width) (the same tensor for a packed projection),
+    into ``out``, a caller's buffer addressed by ``o_strides`` (batch, head,
+    row)."""
     lib = _build.lib()
-    code = lib.dg_flash_attention(
-        q_ptr, k_ptr, v_ptr, None if bias is None else bias.data_ptr(),
-        out.data_ptr(), batch, heads, sq, sk, d,
-        *q_strides, *kv_strides, *o_strides, *bias_strides,
-        1.0 / math.sqrt(d), int(out.dtype == torch.float32),
-        torch.cuda.current_stream(device).cuda_stream,
-    )
-    _build.check(code, "flash attention kernel launch")
-
-
-def _launch_sm90(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, plan: TilePlan,
-                 sq: int, sk: int, out: torch.Tensor, o_strides, bias=None,
-                 bias_strides=(0, 0, 0)) -> None:
-    """The wgmma body (d = 64) on bf16 q, k and v of shape (batch, rows,
-    width) (the same tensor for a packed projection), into ``out``, a
-    caller's buffer addressed by ``o_strides`` (batch, head, row)."""
+    entry = lib.dg_flash_attention_sm90 if d == SM90_HEAD_DIM else lib.dg_flash_attention_d512
     sms = torch.cuda.get_device_properties(out.device).multi_processor_count
-    code = _build.lib().dg_flash_attention_sm90(
+    code = entry(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), None if bias is None else bias.data_ptr(),
         out.data_ptr(), plan.items[2], plan.items[1], sq, sk, plan.width, q.stride(0),
         plan.width, k.stride(0), plan.q_c0, plan.k_c0, plan.v_c0, plan.head_c, *o_strides,
-        *bias_strides, 1.0 / math.sqrt(SM90_HEAD_DIM), int(out.dtype == torch.float32),
+        *bias_strides, 1.0 / math.sqrt(d), int(out.dtype == torch.float32),
         plan.blocks(sms), torch.cuda.current_stream(out.device).cuda_stream,
     )
-    _build.check(code, "flash attention (sm90) kernel launch")
+    _build.check(code, f"flash attention (d = {d}) kernel launch")
 
 
 def _packed_into(qkv: torch.Tensor, heads: int, out: torch.Tensor) -> torch.Tensor:
-    """Launches the d = 64 body on a checked CUDA ``qkv`` (B, N, 3C) into
+    """Launches the wgmma body on a checked CUDA ``qkv`` (B, N, 3C) into
     ``out``, a (B, N, C) view with a unit channel stride that the caller
     allocates (a view of a larger buffer is fine)."""
     b, n, c3 = qkv.shape
+    d = c3 // (3 * heads)
     qkv16 = bf16_operand(qkv)
-    _launch_sm90(qkv16, qkv16, qkv16, packed_plan(b, n, c3 // 3, heads), n, n, out,
-                 (out.stride(0), c3 // (3 * heads), out.stride(1)))
+    _launch_wgmma(qkv16, qkv16, qkv16, packed_plan(b, n, c3 // 3, heads), d, n, n, out,
+                  (out.stride(0), d, out.stride(1)))
     return out
 
 
@@ -226,14 +227,9 @@ def _flash_into(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         if bias.stride(-1) != 1:
             bias = bias.contiguous()
         bias_strides = (bias.stride(0), 0, bias.stride(1))
-    o_strides = (out.stride(0), 0, out.stride(1))
-    if d == SM90_HEAD_DIM:
-        q16, k16, v16 = map(bf16_operand, (q, k, v))
-        _launch_sm90(q16, k16, v16, bhsd_plan(bh, sq, d), sq, sk, out, o_strides, bias,
-                     bias_strides)
-    else:
-        _launch(q.data_ptr(), k.data_ptr(), v.data_ptr(), bias, out, bh, 1, sq, sk, d,
-                (sq * d, 0, d), (sk * d, 0, d), o_strides, bias_strides, q.device)
+    q16, k16, v16 = map(bf16_operand, (q, k, v))
+    _launch_wgmma(q16, k16, v16, bhsd_plan(bh, sq, d), d, sq, sk, out,
+                  (out.stride(0), 0, out.stride(1)), bias, bias_strides)
     return out
 
 
@@ -261,13 +257,7 @@ def flash_attention_packed(qkv: torch.Tensor, heads: int,
     _require_kernel_input("qkv", qkv, d)
     out = torch.empty((b, n, c), dtype=qkv.dtype, device=qkv.device)
     flash_attention_packed.launches += 1
-    if d == SM90_HEAD_DIM:
-        return _packed_into(qkv, heads, out)
-    ptr = qkv.data_ptr()
-    esz = qkv.element_size()
-    _launch(ptr, ptr + c * esz, ptr + 2 * c * esz, None, out, b, heads, n, n, d,
-            (n * c3, d, c3), (n * c3, d, c3), (n * c, d, c), (0, 0, 0), qkv.device)
-    return out
+    return _packed_into(qkv, heads, out)
 
 
 flash_attention_packed.launches = 0

@@ -1,35 +1,40 @@
 #!/usr/bin/env python3
-"""A/B of SDXL's self-attention kernel (kernel 1, ``flash_attention_packed``
-at head dim 64) against an earlier build, at the shapes of an SDXL UNet call
-and the main shape, on one GPU.
+"""A/B of the wgmma attention kernels against an earlier build, on one GPU:
+SDXL's self-attention (kernel 1, ``flash_attention_packed`` at head dim 64)
+at the shapes of an SDXL UNet call and the main shape, or with ``--d512``
+the VAE's mid attention (kernel 3, ``flash_attention`` at head dim 512).
 
 Runs from the root of a checkout. Extract the earlier source first (the
-machine that runs this needs no git), e.g. for the parent commit, whose
-``flash_attention.cu`` held the d = 64 body:
+machine that runs this needs no git), e.g. an earlier commit's
+``flash_attention.cu``, which held the mma.sync bodies at d = 64 and d = 512
+before the wgmma ones replaced them:
 
     mkdir -p build/scratch/old
     git show HEAD~1:divergen_tpu_torch/csrc/flash_attention.cu > build/scratch/old/flash_attention.cu
-    python3 tools/attention_ab.py build/scratch/old/flash_attention.cu
+    python3 tools/attention_ab.py build/scratch/old/flash_attention.cu          # d = 64
+    python3 tools/attention_ab.py --d512 build/scratch/old/flash_attention.cu   # d = 512
 
-Builds that source and the checkout's ``csrc/flash_attention_sm90.cu`` with
-nvcc, each into a library of its own under ``build/scratch/`` (headers from
-the source's own directory first, then ``csrc/``), and calls their C entry
-points on the same operands. An earlier build has either the interface of
-the mma.sync body (``dg_flash_attention``, strides) or the current one
-(``dg_flash_attention_sm90``, tensor maps), so a variant of the current
-source can be A/B'd as well.
+Builds that source and the checkout's ``csrc/flash_attention_sm90.cu`` (or
+``csrc/flash_attention_d512.cu``) with nvcc, each into a library of its own
+under ``build/scratch/`` (headers from the source's own directory first,
+then ``csrc/``), and calls their C entry points on the same operands. An
+earlier build has either the interface of the mma.sync body
+(``dg_flash_attention``, strides) or the current one
+(``dg_flash_attention_sm90`` / ``dg_flash_attention_d512``, tensor maps), so
+a variant of the current source can be A/B'd as well.
 
-``--shape B,N,C,H`` (repeatable) times other shapes instead. For each
-shape (bf16, seeded qkv (B, N, 3C)) it prints, for both builds, the
-relative L2 and max |error| against the plain twin in float32
-(``reference_attention_packed``), the elements that differ from the twin's
-bf16 result, and whether two runs give the same bits; then the device time
-of both in turns (earlier, current, current, earlier, three times; each a
-``chip_smoke.device_ms`` of 10 calls; medians of 6) beside that of
-``scaled_dot_product_attention`` on contiguous (B, H, N, 64) q, k and v, and
-the bound (4 B H N² 64 FLOP at 989 TFLOP/s). Then the sums of median x
-launches per UNet call. Needs a CUDA device; prints the card's name and power
-limit first.
+``--shape`` (repeatable) times other shapes instead: B,N,C,H at d = 64,
+BH,S (Sq = Sk = S) at d = 512. For each shape (bf16, seeded) it prints, for
+both builds, the relative L2 and max |error| against the plain twin in
+float32 (``reference_attention_packed`` / ``reference_attention``), the
+elements that differ from the twin's bf16 result, and whether two runs give
+the same bits; then the device time of both in turns (earlier, current,
+current, earlier, three times; each a ``chip_smoke.device_ms`` of 10 calls,
+3 at d = 512; medians of 6) beside that of ``scaled_dot_product_attention``
+on the same q, k and v ((B, H, N, d) contiguous at d = 64), and the bound (4
+B H N² d FLOP at 989 TFLOP/s). At d = 64, then the sums of median x
+launches per UNet call. Needs a CUDA device; prints the card's name and
+power limit first.
 """
 from __future__ import annotations
 
@@ -50,14 +55,21 @@ from divergen_tpu_torch.ops import flash_attention as fa
 # (B, N, C, heads) -> launches per SDXL UNet call at B = 2 images (batch 4);
 # None: the main shape of PERF.md's kernel table, on no UNet call
 SHAPES = {(4, 4096, 640, 10): 10, (4, 1024, 1280, 20): 60, (2, 4096, 640, 10): None}
+# (BH, S) of the d = 512 attention: the VAE's mid block at 1024² (one launch
+# per decoded image), and at 512²
+D512_SHAPES = ((1, 16384), (1, 4096))
 
 
 def load(name: str, src: Path) -> ctypes.CDLL:
     lib = build("attention_ab", name, src, report=True)
     p, i, i64, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, ctypes.c_float
     lib.sm90 = hasattr(lib, "dg_flash_attention_sm90")
+    lib.d512 = hasattr(lib, "dg_flash_attention_d512")
     if lib.sm90:
         lib.dg_flash_attention_sm90.argtypes = ([p] * 5 + [i] * 4 + [i64] * 4 + [i] * 4
+                                                + [i64] * 6 + [f, i, i, p])
+    elif lib.d512:
+        lib.dg_flash_attention_d512.argtypes = ([p] * 5 + [i] * 4 + [i64] * 4 + [i] * 4
                                                 + [i64] * 6 + [f, i, i, p])
     else:
         lib.dg_flash_attention.argtypes = [p] * 5 + [i] * 5 + [i64] * 12 + [f, i, p]
@@ -83,12 +95,85 @@ def call(lib, qkv: torch.Tensor, heads: int, out: torch.Tensor, stream: int, sms
         raise RuntimeError(f"launch failed with CUDA error {code}")
 
 
+def call_d512(lib, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out: torch.Tensor,
+              stream: int, sms: int) -> None:
+    bh, sq, d = q.shape
+    sk = k.shape[1]
+    if lib.d512:
+        code = lib.dg_flash_attention_d512(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), None, out.data_ptr(), bh, 1, sq, sk, d,
+            sq * d, d, sk * d, 0, 0, 0, 0, sq * d, 0, d, 0, 0, 0, 1.0 / math.sqrt(d), 0,
+            sms, stream)
+    else:
+        code = lib.dg_flash_attention(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), None, out.data_ptr(), bh, 1, sq, sk, d,
+            sq * d, 0, d, sk * d, 0, d, sq * d, 0, d, 0, 0, 0, 1.0 / math.sqrt(d), 0, stream)
+    if code:
+        raise RuntimeError(f"launch failed with CUDA error {code}")
+
+
+def check(name: str, what: str, run, got_fn, ref: torch.Tensor, timing_only: bool) -> None:
+    """Two runs of ``run``: their errors against ``ref`` and whether they
+    give the same bits; raises if the build is wrong (unless it is the
+    earlier one and ``timing_only``)."""
+    run()
+    torch.cuda.synchronize()
+    got = got_fn().clone()
+    run()
+    torch.cuda.synchronize()
+    same = torch.equal(got, got_fn())
+    diff = got.float() - ref
+    rel = (diff.norm() / ref.norm()).item()
+    print(f"{what} {name}: rel_l2 {rel:.4g}, max_abs_err {diff.abs().max().item():.4g} "
+          f"(max|ref| {ref.abs().max().item():.4g}), elements differing from the "
+          f"plain twin's bf16 result {int((got != ref.bfloat16()).sum())} of {got.numel()}, "
+          f"same bits twice: {same}", flush=True)
+    wrong = not torch.isfinite(got).all() or rel > 1e-2 or not same
+    if wrong and not (timing_only and name == "earlier"):
+        raise AssertionError(f"{name} build is wrong at {what}")
+
+
+def main_d512(args, dev: torch.device, g: torch.Generator, stream: int, sms: int) -> int:
+    libs = {"earlier": load("earlier", args.earlier.resolve()),
+            "current": load("current", _build.CSRC / "flash_attention_d512.cu")}
+    shapes = ([tuple(int(v) for v in text.split(",")) for text in args.shape]
+              if args.shape else D512_SHAPES)
+    d = 512
+    for bh, n in shapes:
+        q, k, v = (torch.randn((bh, n, d), generator=g, device=dev).bfloat16() for _ in range(3))
+        ref = fa.reference_attention(q.float(), k.float(), v.float())
+        outs = {name: torch.empty_like(q) for name in libs}
+        runs = {name: (lambda lib=lib, name=name: call_d512(lib, q, k, v, outs[name], stream,
+                                                              sms))
+                for name, lib in libs.items()}
+        what = f"(BH, S, d) = {(bh, n, d)}"
+        for name, run in runs.items():
+            check(name, what, run, lambda name=name: outs[name], ref, args.timing_only)
+        del ref
+        torch.cuda.empty_cache()
+        dev_ms = in_turns(runs, timer=lambda fn: device_ms(fn, reps=3))
+        sdpa = device_ms(lambda: F.scaled_dot_product_attention(q[None], k[None], v[None]),
+                         reps=3)
+        flop = 4.0 * bh * n * n * d
+        bound = 1e3 * flop / PEAK_BF16_FLOPS
+        text = {name: ", ".join(f"{t:.4f}" for t in ts) for name, (_, ts) in dev_ms.items()}
+        print(f"{what}: device earlier {dev_ms['earlier'][0]:.4f} ms (runs {text['earlier']}), "
+              f"current {dev_ms['current'][0]:.4f} ms (runs {text['current']}), SDPA "
+              f"{sdpa:.4f} ms, bound {bound:.4f} ms ({flop / 1e9:.1f} GFLOP; current at "
+              f"{flop / dev_ms['current'][0] / 1e9:.0f} TFLOP/s)", flush=True)
+        del q, k, v, outs
+        torch.cuda.empty_cache()
+    return 0
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("earlier", type=Path, help="the earlier build's source")
-    parser.add_argument("--shape", action="append", default=[], metavar="B,N,C,H",
-                        help="time this (B, N, C, heads) instead of the UNet's shapes "
-                             "(repeatable; no launches per UNet call)")
+    parser.add_argument("--d512", action="store_true",
+                        help="the d = 512 body (kernel 3) in place of the d = 64 one")
+    parser.add_argument("--shape", action="append", default=[], metavar="B,N,C,H | BH,S",
+                        help="time this (B, N, C, heads), or with --d512 (BH, S), instead of "
+                             "the default shapes (repeatable; no launches per UNet call)")
     parser.add_argument("--timing-only", action="store_true",
                         help="time an earlier build that is not meant to be right (a body with "
                              "parts cut out, to see what they cost): print its errors, do not fail")
@@ -97,12 +182,14 @@ def main() -> int:
         print("needs a CUDA device", file=sys.stderr)
         return 1
     print(f"device: {torch.cuda.get_device_name(0)}; nvidia-smi: {card_line()}", flush=True)
-    libs = {"earlier": load("earlier", args.earlier.resolve()),
-            "current": load("current", _build.CSRC / "flash_attention_sm90.cu")}
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(0)
     stream = torch.cuda.current_stream().cuda_stream
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    if args.d512:
+        return main_d512(args, dev, g, stream, sms)
+    libs = {"earlier": load("earlier", args.earlier.resolve()),
+            "current": load("current", _build.CSRC / "flash_attention_sm90.cu")}
     totals = {"earlier": 0.0, "current": 0.0, "SDPA": 0.0, "bound": 0.0}
     shapes = ({tuple(int(v) for v in text.split(",")): None for text in args.shape}
               if args.shape else SHAPES)
@@ -110,28 +197,13 @@ def main() -> int:
         d = c // heads
         qkv = torch.randn((b, n, 3 * c), generator=g, device=dev).bfloat16()
         ref = fa.reference_attention_packed(qkv.float(), heads)
-        ref16 = ref.bfloat16()
         outs = {name: torch.empty((b, n, c), device=dev, dtype=torch.bfloat16) for name in libs}
         runs = {name: (lambda lib=lib, name=name: call(lib, qkv, heads, outs[name], stream, sms))
                 for name, lib in libs.items()}
         what = f"(B, N, C, H) = {(b, n, c, heads)}"
         for name, run in runs.items():
-            run()
-            torch.cuda.synchronize()
-            got = outs[name].clone()
-            run()
-            torch.cuda.synchronize()
-            same = torch.equal(got, outs[name])
-            diff = (got.float() - ref)
-            rel = (diff.norm() / ref.norm()).item()
-            print(f"{what} {name}: rel_l2 {rel:.4g}, max_abs_err {diff.abs().max().item():.4g} "
-                  f"(max|ref| {ref.abs().max().item():.4g}), elements differing from the "
-                  f"plain twin's bf16 result {int((got != ref16).sum())} of {got.numel()}, "
-                  f"same bits twice: {same}", flush=True)
-            wrong = not torch.isfinite(got).all() or rel > 1e-2 or not same
-            if wrong and not (args.timing_only and name == "earlier"):
-                raise AssertionError(f"{name} build is wrong at {what}")
-        del ref, ref16
+            check(name, what, run, lambda name=name: outs[name], ref, args.timing_only)
+        del ref
         q4, k4, v4 = (t.reshape(b, n, heads, d).transpose(1, 2).contiguous()
                       for t in qkv.chunk(3, dim=-1))
         dev_ms = in_turns(runs)
