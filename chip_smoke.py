@@ -11,15 +11,23 @@ Run from the root of a checkout:  python3 chip_smoke.py
    kernels of the last two) against its
    plain torch version on the same bf16 inputs (plain version in float32),
    at the shapes of the SDXL, SAM and Swin-L slices plus ragged cases
-   (flash_attention_packed also on float32 qkv, and at SDXL's two
+   (flash_attention_packed also on float32 qkv at the float32 bound below, and at SDXL's two
    self-attention shapes of a UNet call, (4, 4096, 640, 10) and
    (4, 1024, 1280, 20), with its device time, SDPA's, the bound and their
    sums over the call's 70 launches; it and flash_attention give the same
    bits twice and write nothing past their output, which they are given as
    the first rows of a buffer whose next row is NaN; flash_attention at
    d = 512 at the VAE's (1, 16384, 16384), with its device time beside
-   SDPA's, ragged with a bias, in float32, and as a packed (1, 4096, 3 x 512)
-   projection of one head);
+   SDPA's, ragged with a bias, in float32 (the float32 bound), and as a
+   packed (1, 4096, 3 x 512) projection of one head); fused_ln_matmul at the
+   UNet's two GEGLU shapes of a call (4096, 1280, 10240) and (16384, 640,
+   5120), SAM ViT-H's qkv (16384, 1280, 3840, bias) and mlp_fc1 (GELU, bias),
+   ragged (1000, 640, 3840) without and with GEGLU, (200, 2560, 336) GEGLU
+   (K past the apply pass's registers), and float32 x and w at
+   the float32 bound, each the same bits twice and nothing written past its
+   output (a NaN guard row), the bf16 ones at M >= 4096 with their device
+   time beside the PyTorch call's and the bound, summed over a UNet call's
+   70 launches;
    flash_attention_relpos first on heads-first views of a fused qkv
    projection, as the ViT's attention calls it, then on (BH, N, D); the
    packed window attention at the four Swin-L stage shapes of B = 2 at 896²
@@ -42,7 +50,14 @@ Run from the root of a checkout:  python3 chip_smoke.py
    bit for bit, and beside the kernel's time that of the backward of
    ``scaled_dot_product_attention`` alone (its forward graph built outside
    the timing, as the kernel's is), with its forward + backward printed too.
-   Then the kernels of SDXL's int8 + fused-norm serving path
+   Then kernels 1, 3, 4, 5 and 6 on float32 inputs (the float32 body,
+   ``csrc/attention_f32.cu``): packed (2, 256, 3 x 128, 2 heads), d = 512
+   with a bias (1, 1024, 1024), relpos (2, 16 heads, 16 x 16, d 80) on views
+   of a fused projection, and both window wrappers forward and backward at
+   bn 8, n 144, 6 heads with a mask, against their float32 twins at the
+   float32 bound, relative L2 <= 1e-5 and max |error| <= 1e-4 * max
+   |reference| (bf16 operands give 2-4e-3), each the same bits twice, with
+   its time beside the twin's. Then the kernels of SDXL's int8 + fused-norm serving path
    (``serving_kernel_phases``): int8_matmul_fused_quant at every GEMM shape
    of an int8 UNet call that it takes (level-2 ff_geglu first),
    int8_matmul_pallas at level-2 ff_out and the attn2_kv shapes (M = 4 x
@@ -69,7 +84,11 @@ Run from the root of a checkout:  python3 chip_smoke.py
 4. Small models: a narrow UNet (d = 64 self-attention, GEGLU), a VAE decoder
    with a d = 512 mid attention, and a narrow SAM whose global layer runs the
    relative-position kernel at d = 80, bf16 on the card through the kernels,
-   against the same weights in float32 on the CPU; and a narrow detector
+   against the same weights in float32 on the CPU; the same narrow UNet
+   (``UNetSDXL()``, its default ``ln_gemm="geglu"``) and SAM (``ln_gemm``,
+   global attention) in float32 on the card through kernels 1, 2 and 4, against
+   their float32 CPU copies at relative L2 <= 1e-4 and max |error| <= 1e-3 *
+   max |reference|; and a narrow detector
    (Swin with d = 32 heads, window 7, FPN, CenterNet2 proposals, cascade and
    mask heads): pyramid features by relative L2, and its top detections; and
    one train step of that narrow detector (bf16 compute over float32
@@ -134,8 +153,11 @@ Run from the root of a checkout:  python3 chip_smoke.py
    five steps without (24 and 24): finite losses, the step counter, changed
    parameters and EMA, ms per step and peak memory for both.
 8. Slice of the detector's inference forward, launch counters reset just before it:
-   (a) ``graft_entry.entry()`` (Swin-T detector, 128²): 12
-       fused_window_attention_packed launches;
+   (a) ``graft_entry.entry()`` (Swin-T detector, 128², float32 as the JAX
+       ``entry()``): 12 fused_window_attention_packed launches (the float32
+       body), its pyramid features within relative L2 1e-4 of the same
+       seeded model on the CPU, and the same detections and classes, scores
+       within 1e-3 and boxes within 1e-2 px;
    (b) ``graft_entry.flagship_entry()``: Swin-L + FPN + CenterNet2 + Detic
        cascade (1453 classes) + mask head, seeded weights, B = 2, 896², bf16;
        padded outputs of the expected shapes, finite under ``valid``, at least
@@ -170,6 +192,9 @@ PEAK_F32_FLOPS = 67e12  # the same, float32 outside the tensor cores
 PEAK_BYTES_PER_S = 3.35e12
 REL_L2_BOUND = 1e-2
 MAX_ABS_BOUND = 3e-2  # times max |reference|
+# a float32 kernel against its float32 twin: sums in another order only (a
+# bf16 operand anywhere gives 2-4e-3)
+F32_BOUNDS = dict(rel_l2_bound=1e-5, max_abs_bound=1e-4)
 WINDOW_REPS = 10  # 20 timed calls of a window-attention kernel after the warm-up
 
 
@@ -259,7 +284,7 @@ def same_bits(name: str, got: torch.Tensor, fn) -> None:
 UNET_ATTN_LAUNCHES = {(4, 4096, 640, 10): 10, (4, 1024, 1280, 20): 60}
 
 
-def kernel_phases(gen: torch.Generator):
+def kernel_phases(gen: torch.Generator, card: str):
     import divergen_tpu_torch.ops.flash_attention as fa_mod
     import divergen_tpu_torch.ops.ln_matmul as ln_mod
     from divergen_tpu_torch.ops import _build
@@ -305,7 +330,7 @@ def kernel_phases(gen: torch.Generator):
     # the main shape; SDXL's two self-attention shapes at B = 4 (one CFG UNet
     # call of two images: 10 and 60 launches), each with its device time, SDPA's
     # and their sums a UNet call; (2, 1024); ragged N; the last in float32 (a
-    # float32 UNet's self-attention: q, k, v rounded to bf16, float32 out)
+    # float32 UNet's self-attention: the float32 body, at the float32 bound)
     unet_sum = {"kernel": 0.0, "SDPA": 0.0, "bound": 0.0}
     for b, n, c, h, dtype in ((2, 4096, 640, 10, torch.bfloat16),
                               (4, 4096, 640, 10, torch.bfloat16),
@@ -320,7 +345,7 @@ def kernel_phases(gen: torch.Generator):
             raise AssertionError(f"packed attention wrote {got.dtype} for {dtype} qkv")
         ref = fa_mod.reference_attention_packed(qkv.float(), h)
         name = f"packed B={b} N={n} C={c} H={h} {str(dtype)[6:]}"
-        err = compare(name, got, ref)
+        err = compare(name, got, ref, **(F32_BOUNDS if dtype == torch.float32 else {}))
         del ref
         same_bits(name, got, run)
         guarded(name, got, lambda out: fa_mod._packed_into(qkv, h, out), n)
@@ -346,28 +371,55 @@ def kernel_phases(gen: torch.Generator):
         f"{unet_sum['SDPA']:.3f} ms, bound {unet_sum['bound']:.3f} ms")
 
     log("kernel phase: fused_ln_matmul")
-    # SDXL's shapes (eps 1e-5), SAM ViT-H's at B = 4 (eps 1e-6), one ragged
-    cases = ((8192, 640, 5120, True, "none", False, 1e-5),
-             (2048, 1280, 10240, True, "none", False, 1e-5),
-             (4096, 1280, 5120, False, "none", True, 1e-5),
-             (4096, 1280, 5120, False, "gelu", True, 1e-5),
-             (16384, 1280, 3840, False, "none", True, 1e-6),
-             (16384, 1280, 5120, False, "gelu", True, 1e-6),
-             (1000, 640, 5120, True, "none", True, 1e-5))
-    for m, k, n, geglu, act, with_bias, eps in cases:
-        x = randn(m, k)
-        w = randn(n, k, scale=k ** -0.5).t()  # (K, N) view of an nn.Linear weight
+    # The UNet's two GEGLU shapes of a call at 1024² (UNet batch 4; eps 1e-5;
+    # 60 and 10 launches), SAM ViT-H's qkv (bias) and mlp_fc1 (GELU, bias) at
+    # B = 4 (eps 1e-6), ragged M and N, K past the 2048 the apply pass holds
+    # in registers, and float32 x and w against the twin
+    # at the float32 bound. Each: the same bits twice, nothing written past
+    # its output (a NaN guard row), and for bf16 the device time beside the
+    # PyTorch call's and the bound, summed over a UNet call's 70 launches.
+    ln_unet = {"kernel": 0.0, "PyTorch call": 0.0, "bound": 0.0}
+    cases = ((4096, 1280, 10240, True, "none", False, 1e-5, torch.bfloat16, 60),
+             (16384, 640, 5120, True, "none", False, 1e-5, torch.bfloat16, 10),
+             (16384, 1280, 3840, False, "none", True, 1e-6, torch.bfloat16, 0),
+             (16384, 1280, 5120, False, "gelu", True, 1e-6, torch.bfloat16, 0),
+             (1000, 640, 3840, False, "none", True, 1e-5, torch.bfloat16, 0),
+             (1000, 640, 3840, True, "none", True, 1e-5, torch.bfloat16, 0),
+             (200, 2560, 336, True, "none", True, 1e-5, torch.bfloat16, 0),
+             (1000, 640, 3840, False, "none", True, 1e-5, torch.float32, 0),
+             (1000, 640, 3840, True, "none", True, 1e-5, torch.float32, 0),
+             (1000, 1280, 5120, False, "gelu", True, 1e-6, torch.float32, 0))
+    for m, k, n, geglu, act, with_bias, eps, dtype, launches in cases:
+        x = randn(m, k, scale=2.0, dtype=dtype)
+        w = randn(n, k, scale=k ** -0.5, dtype=dtype).t()  # (K, N) view of an nn.Linear weight
         gamma = 1.0 + 0.1 * torch.randn(k, generator=gen, device=dev)
         beta = 0.1 * torch.randn(k, generator=gen, device=dev)
         bias = 0.1 * torch.randn(n, generator=gen, device=dev) if with_bias else None
-        got = ln_mod.fused_ln_matmul(x, w, gamma, beta, eps, bias, geglu, act)
-        ref = ln_mod.ln_matmul_reference(x.float(), w.float(), gamma, beta, eps, bias, geglu, act)
+        run = lambda: ln_mod.fused_ln_matmul(x, w, gamma, beta, eps, bias, geglu, act)
+        plain = lambda: ln_mod.ln_matmul_reference(x.float(), w.float(), gamma, beta, eps,
+                                                   bias, geglu, act)
+        got = run()
+        if got.dtype != dtype:
+            raise AssertionError(f"fused_ln_matmul wrote {got.dtype} for {dtype} x")
         epi = "geglu" if geglu else act
-        err = compare(f"ln_matmul {epi} M={m} K={k} N={n} bias={with_bias} eps={eps}", got, ref)
-        ms, pms, span = time_pair(
-            lambda: ln_mod.fused_ln_matmul(x, w, gamma, beta, eps, bias, geglu, act),
-            lambda: ln_mod.ln_matmul_reference(x.float(), w.float(), gamma, beta, eps,
-                                               bias, geglu, act))
+        name = f"ln_matmul {epi} M={m} K={k} N={n} bias={with_bias} eps={eps} {str(dtype)[6:]}"
+        bounds = F32_BOUNDS if dtype == torch.float32 else {}
+        err = compare(name, got, plain(), **bounds)
+        same_bits(name, got, run)
+        cols = n // 2 if geglu else n
+        buf = torch.full((m + 1, cols), float("nan"), device=dev, dtype=dtype)
+        ln_mod._into(x, w.t(), gamma, beta, eps, bias, ln_mod._GEGLU if geglu
+                     else ln_mod._EPILOGUES[act], buf[:m])
+        if not (torch.equal(buf[:m], got) and bool(buf[m].isnan().all())):
+            raise AssertionError(f"{name}: the kernel wrote outside its output")
+        log("    writes nothing past its output: True")
+        ms, pms, span = time_pair(run, plain)
+        if dtype == torch.float32:
+            log(f"    float32: kernel {ms:.4f} ms (min {span[0]:.4f}, max {span[1]:.4f}), plain "
+                f"{pms:.4f} ms [{card}]")
+            results["fused_ln_matmul"]["max_abs_err"] = max(
+                results["fused_ln_matmul"]["max_abs_err"], err)
+            continue
         g16, b16, wt = gamma.bfloat16(), beta.bfloat16(), w.t()
         bias16 = None if bias is None else bias.bfloat16()
 
@@ -378,9 +430,22 @@ def kernel_phases(gen: torch.Generator):
                 return hidden * F.gelu(gate)
             return F.gelu(y) if act == "gelu" else y
 
-        cols = n // 2 if geglu else n
-        record("fused_ln_matmul", err, ms, pms, span, library, 2.0 * m * k * n,
-               2.0 * (m * k + k * n + m * cols) + 8.0 * k + (4.0 * n if with_bias else 0.0))
+        ops = 2.0 * m * k * n
+        nbytes = 2.0 * (m * k + k * n + m * cols) + 8.0 * k + (4.0 * n if with_bias else 0.0)
+        record("fused_ln_matmul", err, ms, pms, span, library, ops, nbytes)
+        if m >= 4096:
+            dev_ms, lib_ms = device_ms(run), device_ms(library)
+            b_ms, by = bound(ops, nbytes)
+            for key, t in (("kernel", dev_ms), ("PyTorch call", lib_ms), ("bound", b_ms)):
+                ln_unet[key] += t * launches
+            log(f"    device {dev_ms:.4f} ms ({ops / dev_ms / 1e9:.0f} TFLOP/s), PyTorch call "
+                f"{lib_ms:.4f} ms, bound {b_ms:.4f} ms by {by}; {launches} launches per UNet "
+                f"call [{card}]")
+        del x, w, got, buf
+        torch.cuda.empty_cache()
+    log("  fused_ln_matmul: device time x launches per UNet call, summed over its 70 "
+        f"launches: kernel {ln_unet['kernel']:.3f} ms, PyTorch call "
+        f"{ln_unet['PyTorch call']:.3f} ms, bound {ln_unet['bound']:.3f} ms")
 
     log("kernel phase: flash_attention")
     lib_rows = _build.lib().dg_flash_attention_d512_rows()
@@ -414,7 +479,7 @@ def kernel_phases(gen: torch.Generator):
         got = run()
         if got.dtype != dtype:
             raise AssertionError(f"{name}: wrote {got.dtype} for {dtype} inputs")
-        err = compare(name, got, plain())
+        err = compare(name, got, plain(), **(F32_BOUNDS if dtype == torch.float32 else {}))
         same_bits(name, got, run)
         guarded(name, got, into, sq)
         if packed:  # the body's error; its timing is the main shape's
@@ -668,7 +733,88 @@ def kernel_phases(gen: torch.Generator):
             results["fused_window_attention_backward"]["max_abs_err"] = max(
                 results["fused_window_attention_backward"]["max_abs_err"], err)
             torch.cuda.empty_cache()
+    float32_attention_phases(gen, card, results)
     return results
+
+
+def float32_attention_phases(gen: torch.Generator, card: str, results: dict) -> None:
+    """Kernels 1, 3, 4, 5 and 6 on float32 q, k and v (the float32 body,
+    ``csrc/attention_f32.cu``) against their float32 twins at the float32
+    bound, each the same bits twice, with its event time beside the twin's."""
+    import divergen_tpu_torch.ops.flash_attention as fa_mod
+    import divergen_tpu_torch.ops.window_attention as wa_mod
+
+    dev = torch.device("cuda")
+
+    def randn(*shape, scale=1.0):
+        return torch.randn(shape, generator=gen, device=dev) * scale
+
+    def case(kernel, name, run, plain):
+        got = run()
+        if got.dtype != torch.float32:
+            raise AssertionError(f"{name}: wrote {got.dtype} for float32 inputs")
+        err = compare(name, got, plain(), **F32_BOUNDS)
+        same_bits(name, got, run)
+        ms, pms, span = time_pair(run, plain)
+        log(f"    float32: kernel {ms:.4f} ms (min {span[0]:.4f}, max {span[1]:.4f}), plain "
+            f"{pms:.4f} ms [{card}]")
+        results[kernel]["max_abs_err"] = max(results[kernel]["max_abs_err"], err)
+
+    log("kernel phase: float32 attention (kernels 1, 3, 4, 5, 6)")
+    qkv = randn(2, 256, 3 * 128)
+    case("flash_attention_packed", "packed B=2 N=256 C=128 H=2 float32",
+         lambda: fa_mod.flash_attention_packed(qkv, 2),
+         lambda: fa_mod.reference_attention_packed(qkv, 2))
+    q, k, v = (randn(1, 1024, 512) for _ in range(3))
+    bias = randn(1, 1024, 1024)
+    case("flash_attention", "flash BH=1 S=1024 D=512 bias float32",
+         lambda: fa_mod.flash_attention(q, k, v, bias),
+         lambda: fa_mod.reference_attention(q, k, v, bias))
+    b, heads, (h, w), d = 2, 16, (16, 16), 80
+    n = h * w
+    fused = randn(b, n, 3, heads, d)
+    q, k, v = (fused[:, :, s].permute(0, 2, 1, 3) for s in range(3))  # views, as the ViT's
+    bh_t, bw_t = randn(b * heads, h, n, scale=0.7), randn(b * heads, w, n, scale=0.7)
+    case("flash_attention_relpos", f"relpos B={b} heads={heads} grid={h}x{w} D={d} float32",
+         lambda: fa_mod.flash_attention_relpos(q, k, v, bh_t, bw_t, (h, w)).reshape(
+             b * heads, n, d),
+         lambda: fa_mod.reference_attention_relpos(*(t.reshape(b * heads, n, d) for t in (q, k, v)),
+                                                   bh_t, bw_t, (h, w)))
+    bn, heads, nw, n = 8, 6, 4, 144
+    c = 32 * heads
+    qkv = randn(bn, n, 3 * c).requires_grad_(True)
+    bias = randn(heads, n, n, scale=0.5).requires_grad_(True)
+    mask = torch.where(torch.rand((nw, n, n), generator=gen, device=dev) < 0.3, -100.0, 0.0)
+    mask.diagonal(dim1=1, dim2=2).zero_()
+    do = randn(bn, n, c)
+    what = f"bn={bn} C={c} H={heads} n={n} mask=nW {nw} float32"
+    case("fused_window_attention_packed", f"window packed {what}",
+         lambda: wa_mod.fused_window_attention_packed(qkv, bias, mask, heads).detach(),
+         lambda: wa_mod.reference_window_attention_packed(qkv.detach(), bias.detach(), mask,
+                                                          heads))
+    split = lambda t: t.detach().reshape(bn, n, 3, heads, 32).permute(2, 0, 3, 1, 4)
+    q, k, v = (t.requires_grad_(True) for t in split(qkv))
+    bias2 = bias.detach().clone().requires_grad_(True)
+    case("fused_window_attention", f"window split {what} (views)",
+         lambda: wa_mod.fused_window_attention(q, k, v, bias2, mask).detach(),
+         lambda: wa_mod.reference_window_attention(q.detach(), k.detach(), v.detach(),
+                                                   bias2.detach(), mask))
+    out = wa_mod.fused_window_attention_packed(qkv, bias, mask, heads)
+    packed_grads = lambda: torch.autograd.grad(out, (qkv, bias), do, retain_graph=True)
+    ref = lambda: wa_mod.reference_window_attention_packed_backward(
+        qkv.detach(), bias.detach(), mask, heads, do)
+    for i, part in enumerate(("dq", "dk", "dv", "dbias")):
+        sl = (lambda g: g[1]) if part == "dbias" else (lambda g, i=i: g[0][..., i * c:(i + 1) * c])
+        case("fused_window_attention_packed_backward", f"window packed backward {part} {what}",
+             lambda sl=sl: sl(packed_grads()), lambda sl=sl: sl(ref()))
+    out2 = wa_mod.fused_window_attention(q, k, v, bias2, mask)
+    do4 = do.reshape(bn, n, heads, 32).permute(0, 2, 1, 3)
+    split_grads = lambda: torch.autograd.grad(out2, (q, k, v, bias2), do4, retain_graph=True)
+    ref4 = lambda: wa_mod.reference_window_attention_backward(
+        q.detach(), k.detach(), v.detach(), bias2.detach(), mask, do4)
+    for i, part in enumerate(("dq", "dk", "dv", "dbias")):
+        case("fused_window_attention_backward", f"window split backward {part} {what}",
+             lambda i=i: split_grads()[i], lambda i=i: ref4()[i])
 
 
 def device_ms(fn, reps: int = 10) -> float:
@@ -1088,6 +1234,74 @@ def small_models():
             masks.cpu(), ref_masks, rel_l2_bound=3e-2, max_abs_bound=1e-1)
     compare("small SAM IoU vs f32 CPU", iou.cpu(), ref_iou, rel_l2_bound=3e-2,
             max_abs_bound=1e-1)
+
+
+F32_MODEL_BOUNDS = dict(rel_l2_bound=1e-4, max_abs_bound=1e-3)
+
+
+def small_float32_models():
+    """A narrow float32 ``UNetSDXL()`` (its default ``ln_gemm="geglu"``:
+    kernels 1 and 2 on float32) and a narrow float32 SAM with ``ln_gemm``
+    and its global layer through the relative-position kernel, on the card,
+    each against the same weights in float32 on the CPU. Bound: relative L2
+    <= 1e-4 and max |error| <= 1e-3 * max |reference| (float32 sums in
+    another order through a whole network; a bf16 operand anywhere gives
+    ~1e-2). Each kernel on the path must have launched."""
+    from divergen_tpu_torch.modeling.layers import flax_init_
+    from divergen_tpu_torch.ops.flash_attention import (
+        flash_attention_packed,
+        flash_attention_relpos,
+    )
+    from divergen_tpu_torch.ops.ln_matmul import fused_ln_matmul
+    from divergen_tpu_torch.pipeline.generation.unet import UNetSDXL
+    from divergen_tpu_torch.pipeline.segmentation.sam import SAM, SAMImageEncoder
+
+    dev = torch.device("cuda")
+    g = torch.Generator().manual_seed(23)
+    kw = dict(block_channels=(64, 128), transformer_depths=(0, 1), head_dim=64,
+              context_dim=64, layers_per_block=1, text_time=False)
+    ref_unet = flax_init_(UNetSDXL(**kw), g).eval()
+    unet = UNetSDXL(dtype=torch.float32, device=dev, **kw).eval()
+    unet.load_state_dict(ref_unet.state_dict())
+    lat = torch.randn((2, 32, 32, 4), generator=g)
+    t = torch.tensor([500.0, 20.0])
+    ctx = torch.randn((2, 77, 64), generator=g)
+    wrappers = (fused_ln_matmul, flash_attention_packed)  # cross-attention: plain (77 keys)
+    before = [w.launches for w in wrappers]
+    with torch.inference_mode():
+        got = unet(lat.to(dev), t.to(dev), ctx.to(dev))
+        ran = {w.__name__: w.launches - b0 for w, b0 in zip(wrappers, before)}
+        ref = ref_unet(lat, t, ctx)
+    log(f"    float32 UNet's kernel launches: {ran}")
+    if got.dtype != torch.float32 or not all(ran.values()):
+        raise AssertionError(f"float32 UNet: dtype {got.dtype}, launches {ran}")
+    compare('small float32 UNetSDXL() (ln_gemm="geglu", card) vs f32 CPU', got.cpu(), ref,
+            **F32_MODEL_BOUNDS)
+
+    kw = dict(img_size=128, dim=160, layers=2, heads=2, window=4, global_layers=(1,))
+    ref_sam = flax_init_(SAM(SAMImageEncoder(**kw)), g).eval()
+    with torch.no_grad():
+        for name, prm in ref_sam.named_parameters():
+            if "rel_pos" in name:
+                prm.normal_(0.0, 0.3, generator=g)
+    sam = SAM(SAMImageEncoder(dtype=torch.float32, ln_gemm=True, flash_attn=True, device=dev,
+                              **kw), device=dev).eval()
+    sam.load_state_dict(ref_sam.state_dict())
+    imgs = torch.rand((2, 128, 128, 3), generator=g) * 255
+    pts = torch.tensor([[10.0, 10], [118, 10], [10, 118], [118, 118]]).expand(2, 4, 2)
+    lbl = torch.ones((2, 4), dtype=torch.int32)
+    wrappers = (fused_ln_matmul, flash_attention_relpos)
+    before = [w.launches for w in wrappers]
+    with torch.inference_mode():
+        masks, iou = sam(imgs.to(dev), pts.to(dev), lbl.to(dev))
+        ran = {w.__name__: w.launches - b0 for w, b0 in zip(wrappers, before)}
+        ref_masks, ref_iou = ref_sam(imgs, pts, lbl)
+    log(f"    float32 SAM's kernel launches: {ran}")
+    if masks.dtype != torch.float32 or not all(ran.values()):
+        raise AssertionError(f"float32 SAM: dtype {masks.dtype}, launches {ran}")
+    compare("small float32 SAM (ln_gemm, relpos global attention, card) mask logits vs f32 CPU",
+            masks.cpu(), ref_masks, **F32_MODEL_BOUNDS)
+    compare("small float32 SAM IoU vs f32 CPU", iou.cpu(), ref_iou, **F32_MODEL_BOUNDS)
 
 
 def small_serving_unets():
@@ -1729,6 +1943,8 @@ def slice_detector(card: str):
         return [int(n) for n in valid.sum(dim=1)]
 
     model, (images, sizes) = graft_entry.entry()
+    if next(model.parameters()).dtype != torch.float32:
+        raise AssertionError("entry(): the model does not compute in float32")
     before = fused_window_attention_packed.launches
     dets = model(images, sizes)
     torch.cuda.synchronize()
@@ -1736,9 +1952,30 @@ def slice_detector(card: str):
     if launched != 12:
         raise AssertionError(f"entry(): {launched} window-attention launches, not 12")
     n_det = check(dets, 1, 16, "entry()")
-    log(f"  graft_entry.entry(): Swin-T detector, 128², bf16: {n_det[0]} detections, "
+    # the same seeded model and image on the CPU, float32 as the JAX entry():
+    # the same detections, scores within 1e-3, boxes within 1e-2 pixels
+    cpu_model, (cpu_images, cpu_sizes) = graft_entry.entry(device="cpu")
+    with torch.no_grad():
+        feats = model.backbone_features(images)
+        ref_feats = cpu_model.backbone_features(cpu_images)
+        ref = cpu_model(cpu_images, cpu_sizes)
+    for name in ref_feats:
+        compare(f"entry() float32 {name} vs CPU", feats[name].cpu(), ref_feats[name],
+                **F32_MODEL_BOUNDS)
+    valid, ref_valid = dets["valid"].cpu(), ref["valid"]
+    score_gap = (dets["scores"].cpu() - ref["scores"])[valid].abs().max().item()
+    box_gap = (dets["boxes"].cpu() - ref["boxes"])[valid].abs().max().item()
+    same = torch.equal(valid, ref_valid) and torch.equal(dets["classes"].cpu()[valid],
+                                                         ref["classes"][ref_valid])
+    ok = same and score_gap <= 1e-3 and box_gap <= 1e-2
+    log(f"  entry() float32 vs CPU: the same {int(valid.sum())} detections and classes: {same}, "
+        f"max |score diff| {score_gap:.3g}, max |box diff| {box_gap:.3g} px "
+        f"[{'ok' if ok else 'FAIL'}]")
+    if not ok:
+        raise AssertionError("entry(): detections disagree with the CPU's")
+    log(f"  graft_entry.entry(): Swin-T detector, 128², float32: {n_det[0]} detections, "
         f"{launched} fused_window_attention_packed launches")
-    del model, dets
+    del model, dets, cpu_model, feats
 
     t0 = time.perf_counter()
     model, (images, sizes) = graft_entry.flagship_entry()
@@ -1995,10 +2232,11 @@ def main() -> int:
             if any(key in line for key in ("registers", "spill", "Compiling entry", "C7520")):
                 log(f"  ptxas: {line.strip()}")
 
-    results = kernel_phases(torch.Generator(device="cuda").manual_seed(0))
+    results = kernel_phases(torch.Generator(device="cuda").manual_seed(0), card)
     results.update(serving_kernel_phases(torch.Generator(device="cuda").manual_seed(1)))
     log("small models")
     small_models()
+    small_float32_models()
     small_serving_unets()
     small_detector()
     small_train_step()

@@ -1,90 +1,168 @@
 // Fused LayerNorm + GEMM (+ bias) with a none / GELU / GEGLU epilogue, for
-// Hopper (sm_90a), bf16 in and out, f32 accumulation.
+// Hopper (sm_90a): x and the weight in bf16 or f32, f32 sums, the output in
+// x's type.
 //
 // Replaces the Pallas TPU kernel divergen_tpu/ops/pallas/ln_matmul.py:
 // fused_ln_matmul (_kernel for the none/GELU epilogues, _kernel_geglu for
 // GEGLU). It computes
-//     y   = bf16( (x - mean) * rsqrt(max(E[x^2] - mean^2, 0) + eps) * g + b )
+//     y   = T( (x - mean) * rsqrt(max(E[x^2] - mean^2, 0) + eps) * g + b )
 //     out = epilogue( y @ w + bias )
-// with the epilogues: none; exact-erf GELU; or GEGLU h * gelu(gate), where h
-// is output column j and gate is column j + N/2, writing (M, N/2).
+// with T x's type and the epilogues: none; exact-erf GELU; or GEGLU
+// h * gelu(gate), where h is output column j and gate is column j + N/2,
+// writing (M, N/2).
 //
-// What bounds it on the H100: at the UNet's GEGLU shapes (M = 4096..16384,
-// K = 640 / 1280, N = 5120 / 10240) the product is compute-bound (well over
-// 300 FLOP per byte), so the tensor cores are the limit; the LayerNorm is
-// memory-bound and must not add a round trip of the normalized activation
-// through device memory.
+// What bounds it on the H100: operations. At the UNet's GEGLU shapes,
+// (16384, 640, 5120) and (4096, 1280, 10240), a launch is 107.4 GFLOP
+// (0.1086 ms at 989 TFLOP/s) against under 80 MB of x, weight and output
+// (0.024 ms at 3.35 TB/s); SAM ViT-H's (16384, 1280, 3840 / 5120) likewise.
 //
-// Design: a stats pass writes only (mean, rstd) per row, (M, 2) floats; the
-// GEMM normalizes each A tile on its way from x into shared memory, so the
-// normalized activation exists only on chip. The GEMM is a 128 x 256 block
-// tile over K tiles of 64, 8 warps of 64 x 64, on the tensor cores through
-// mma.sync m16n8k16 (bf16 x bf16 -> f32) with ldmatrix operand loads. x and
-// weight tiles stream through a three-stage cp.async ring, so two tiles are
-// in flight while one is multiplied; each thread normalizes the x chunks it
-// copied, in place in shared memory, before the tile is used. The 64 x 64
-// warp tile keeps shared-memory reads per product low enough that the
-// ldmatrix traffic does not cap the tensor cores. For GEGLU the block's 256
-// weight columns are 128 h columns and their 128 gate columns N/2 further
-// on, so the epilogue pairs them in shared memory and writes 128 outputs.
-// The weight is read in nn.Linear's (N, K) row-major layout, which is the
-// "col" B operand of the product. No TMA, wgmma or warp specialisation yet.
+// Why the LayerNorm is a pass of its own: the TPU kernel normalizes a row
+// block once into VMEM scratch (at j == 0) because its grid runs in order on
+// one core. Here the blocks are independent, and a GEMM block that
+// normalized its own A tiles repeated the work once per column tile: at N
+// 10240 GEGLU every row 40 times, in the GEMM's critical path. The apply
+// pass reads x once and writes y once (about 0.5 ms of a UNet call's 70
+// launches at 3.35 TB/s, y mostly found again in L2 by the GEMM).
+//
+// Design: two C entry points, two launches on the caller's stream.
+//   dg_ln_apply: ln_apply_kernel<T, CH>, one warp a row, each lane's
+//     chunks of 8 elements held in registers as loaded (K <= 2048; a
+//     longer row is read again from L1/L2), the moments in f32 by
+//     shuffles, then y written once in x's type into (M, K) scratch the
+//     wrapper allocates.
+//   dg_ln_gemm (bf16): ln_gemm_kernel<EPI>, kernel 10's persistent,
+//     warp-specialized GEMM (int8_matmul.cu) on bf16 wgmma m64n160k16 as
+//     kernel 8 runs it (gn_conv.cu). An output tile is 128 rows by 160
+//     weight rows, walked in groups of row tiles (ops/ln_matmul.py:
+//     gemm_plan). Each K
+//     stage is one TMA box of y (128 x 64) and two boxes of 80 rows of the
+//     (N, K) weight, nn.Linear's layout read in place (no copy), stacked in
+//     one shared-memory tile: rows 160 t .. 160 t + 159 for the none / GELU
+//     epilogues; for GEGLU h rows 80 t .. and gate rows N/2 + 80 t ..
+//     (ops/ln_matmul.py:weight_boxes). In wgmma's accumulator a thread holds
+//     the same offsets in every 8-column group, so it holds h column c and
+//     gate column c + 80 itself: h * gelu(gate) is formed in registers, no
+//     shared-memory exchange. One producer thread keeps the loads in flight
+//     through a ring of kStages mbarrier stages; two consumer warpgroups take
+//     the block's tiles in turns, each holding a 128 x 160 f32 tile, so that
+//     one runs its epilogue while the other's products run. The epilogue
+//     adds the f32 bias, applies GELU or GEGLU, rounds to bf16 and trades
+//     values within each quad so that a lane stores 16 bytes (8 for the
+//     last pair of 8-column groups of a GEGLU tile), masked at the M and N
+//     tails. TMA zero-fills loads past M, N and K.
+//   dg_ln_gemm_f32: ln_gemm_f32_kernel<EPI>, float32 y and weight on the CUDA
+//     cores (FMA, true f32 products), the same weight-row pairing and
+//     epilogues; a simple 64 x 128 block tile, off the bf16 main path.
+// No atomics: a call gives the same bits twice.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "mma_sm90.cuh"
+#include "gn_moments.cuh"  // dg::load_vec, dg::store_vec
+#include "mma_sm90.cuh"    // dg::smem_addr, dg::pack_bf16x2
+#include "sm90_async.cuh"  // mbarriers, TMA, the swizzled descriptor, wgmma fences
 
 namespace {
 
 typedef __nv_bfloat16 bf16;
 
-constexpr int kBM = 128;     // rows of x per block
-constexpr int kBW = 256;     // weight columns per block
-constexpr int kBK = 64;      // K per tile
-constexpr int kStages = 3;   // cp.async ring depth
-constexpr int kWM = 64;      // rows per warp
-constexpr int kWN = 64;      // weight columns per warp
-constexpr int kWarpsN = kBW / kWN;
-constexpr int kLD = kBK + 8;
-constexpr int kLDC = kBW + 4;
-constexpr int kThreads = 32 * (kBM / kWM) * kWarpsN;
-constexpr int kRowStep = kThreads / (kBK / 8);  // rows between a thread's chunks
-constexpr int kAChunks = kBM / kRowStep;        // 16-byte chunks per thread per tile
-constexpr int kBChunks = kBW / kRowStep;
-constexpr size_t kTileA = sizeof(bf16) * kBM * kLD;
-constexpr size_t kStageBytes = kTileA + sizeof(bf16) * kBW * kLD;
-constexpr size_t kPipeBytes = kStages * kStageBytes;
-constexpr size_t kCBytes = sizeof(float) * kBM * kLDC;  // epilogue, reuses the ring
-constexpr size_t kSmem = kPipeBytes > kCBytes ? kPipeBytes : kCBytes;
-static_assert(kThreads == 256 && kAChunks * kRowStep == kBM && kBChunks * kRowStep == kBW,
-              "tile plan");
-static_assert(kTileA % 128 == 0 && kStageBytes % 128 == 0, "aligned regions");
-
 enum Epilogue { kNone = 0, kGelu = 1, kGeglu = 2 };
 
+constexpr int kApplyRows = 8;       // rows per block of the apply pass (one a warp)
+
+constexpr int kBM = 128;            // output rows per tile
+constexpr int kBox = 80;            // weight rows per TMA box (ops/ln_matmul.py: WEIGHT_BOX)
+constexpr int kBN = 2 * kBox;       // weight rows per tile: the wgmma's N
+constexpr int kBK = 64;             // K per stage: one 128-byte swizzle row of bf16
+constexpr int kConsumers = 2;       // warpgroups, each on tiles of its own
+constexpr int kThreads = 128 * (1 + kConsumers);
+// shared-memory ring depth: on an H100 (tools/ln_matmul_ab.py), 6 stages
+// were within 1 % of 4 at the UNet's and SAM's four shapes
+constexpr int kStages = 4;
+
+constexpr int kBytesA = kBM * kBK * 2;
+constexpr int kBytesBox = kBox * kBK * 2;
+constexpr int kStage = kBytesA + 2 * kBytesBox;
+constexpr int kSmem = kStages * kStage + 1024;  // + slack to align the ring to 1024
+static_assert(kBytesA % 1024 == 0 && kBytesBox % 1024 == 0, "swizzle atoms stay aligned");
+static_assert(kSmem + 256 <= 232448, "the ring and the barriers fit in a block's 227 KB");
+
+// exact-erf GELU; the TPU kernel's Abramowitz-Stegun erf (a division and an
+// exp) took 0.2252 against erff's 0.2001 ms at (16384, 640, 5120) GEGLU
 __device__ __forceinline__ float gelu_erf(float v) {
   return 0.5f * v * (1.f + erff(v * 0.70710678118654752f));
 }
 
-// one warp per row: mean and rstd from E[x] and E[x^2] in f32
-__global__ void ln_stats_kernel(const bf16* __restrict__ x, float2* __restrict__ stats,
-                                int m, int k, float eps) {
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const int row = blockIdx.x * (blockDim.x >> 5) + warp;
-  if (row >= m) return;
-  const bf16* xr = x + static_cast<int64_t>(row) * k;
-  float s = 0.f, ss = 0.f;
-  for (int c = lane * 8; c < k; c += 256) {
-    const uint4 u = *reinterpret_cast<const uint4*>(xr + c);
-    const __nv_bfloat162* h2 = reinterpret_cast<const __nv_bfloat162*>(&u);
+// ---- the apply pass
+
+// 8 elements of T as they are loaded: 16 bytes of bf16, 32 of f32
+template <typename T>
+struct Raw {
+  uint4 w[sizeof(T) / 2];
+};
+
+template <typename T>
+__device__ __forceinline__ void load_raw(const T* p, Raw<T>& r) {
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const float2 f = __bfloat1622float2(h2[i]);
-      s += f.x + f.y;
-      ss += f.x * f.x + f.y * f.y;
+  for (int i = 0; i < static_cast<int>(sizeof(T)) / 2; ++i)
+    r.w[i] = reinterpret_cast<const uint4*>(p)[i];
+}
+
+__device__ __forceinline__ void unpack(const Raw<bf16>& r, float (&v)[8]) {
+  const __nv_bfloat162* h2 = reinterpret_cast<const __nv_bfloat162*>(&r.w[0]);
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const float2 f = __bfloat1622float2(h2[j]);
+    v[2 * j] = f.x;
+    v[2 * j + 1] = f.y;
+  }
+}
+
+__device__ __forceinline__ void unpack(const Raw<float>& r, float (&v)[8]) {
+  const float* f = reinterpret_cast<const float*>(&r.w[0]);
+#pragma unroll
+  for (int j = 0; j < 8; ++j) v[j] = f[j];
+}
+
+// y (m, k) T = T((x - mean) rstd g + b), one warp per row; k % 8 == 0. A
+// lane holds its CH chunks of 8 elements as loaded (k <= 256 CH; raw bf16
+// takes half the registers of floats, so more rows are in flight), all
+// loads issued before the first sum; CH = 0 reads the row again instead.
+template <typename T, int CH>
+__global__ void __launch_bounds__(32 * kApplyRows) ln_apply_kernel(
+    const T* __restrict__ x, const float* __restrict__ gamma, const float* __restrict__ beta,
+    T* __restrict__ y, int m, int k, float eps) {
+  const int lane = threadIdx.x & 31;
+  const int row = blockIdx.x * kApplyRows + (threadIdx.x >> 5);
+  if (row >= m) return;
+  const T* xr = x + static_cast<int64_t>(row) * k;
+  T* yr = y + static_cast<int64_t>(row) * k;
+  Raw<T> raw[CH > 0 ? CH : 1];
+  float s = 0.f, ss = 0.f;
+  auto add = [&](const float (&v)[8]) {
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      s += v[j];
+      ss += v[j] * v[j];
+    }
+  };
+  if constexpr (CH > 0) {
+#pragma unroll
+    for (int i = 0; i < CH; ++i)
+      if ((lane + 32 * i) * 8 < k) load_raw(xr + (lane + 32 * i) * 8, raw[i]);
+#pragma unroll
+    for (int i = 0; i < CH; ++i)
+      if ((lane + 32 * i) * 8 < k) {
+        float v[8];
+        unpack(raw[i], v);
+        add(v);
+      }
+  } else {
+    for (int c = lane * 8; c < k; c += 256) {
+      float v[8];
+      dg::load_vec<8>(xr + c, v);
+      add(v);
     }
   }
 #pragma unroll
@@ -92,231 +170,495 @@ __global__ void ln_stats_kernel(const bf16* __restrict__ x, float2* __restrict__
     s += __shfl_xor_sync(0xffffffffu, s, off);
     ss += __shfl_xor_sync(0xffffffffu, ss, off);
   }
-  if (lane == 0) {
-    const float mean = s / k;
-    const float var = fmaxf(ss / k - mean * mean, 0.f);
-    stats[row] = make_float2(mean, rsqrtf(var + eps));
+  const float mean = s / k;
+  const float rstd = 1.f / sqrtf(fmaxf(ss / k - mean * mean, 0.f) + eps);
+  auto write = [&](int c, const float (&u)[8]) {
+    float g[8], b[8], o[8];
+    dg::load_vec<8>(gamma + c, g);
+    dg::load_vec<8>(beta + c, b);
+#pragma unroll
+    for (int j = 0; j < 8; ++j) o[j] = (u[j] - mean) * rstd * g[j] + b[j];
+    dg::store_vec<8>(yr + c, o);
+  };
+  if constexpr (CH > 0) {
+#pragma unroll
+    for (int i = 0; i < CH; ++i)
+      if ((lane + 32 * i) * 8 < k) {
+        float v[8];
+        unpack(raw[i], v);
+        write((lane + 32 * i) * 8, v);
+      }
+  } else {
+    for (int c = lane * 8; c < k; c += 256) {
+      float v[8];
+      dg::load_vec<8>(xr + c, v);
+      write(c, v);
+    }
   }
 }
+
+template <typename T>
+int launch_apply(const T* x, const float* gamma, const float* beta, T* y, int m, int k,
+                 float eps, cudaStream_t stream) {
+  const int blocks = (m + kApplyRows - 1) / kApplyRows;
+  const int threads = 32 * kApplyRows;
+  switch ((k + 255) / 256) {  // chunks a lane holds
+#define DG_APPLY(CH)                                                                   \
+  case CH:                                                                             \
+    ln_apply_kernel<T, CH><<<blocks, threads, 0, stream>>>(x, gamma, beta, y, m, k, eps); \
+    break;
+    DG_APPLY(1) DG_APPLY(2) DG_APPLY(3) DG_APPLY(4) DG_APPLY(5) DG_APPLY(6) DG_APPLY(7)
+    DG_APPLY(8)
+#undef DG_APPLY
+    default: ln_apply_kernel<T, 0><<<blocks, threads, 0, stream>>>(x, gamma, beta, y, m, k, eps);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// ---- the bf16 GEMM
 
 struct GemmArgs {
-  const bf16* x;
-  const bf16* wt;  // (n, k)
-  const float* gamma;
-  const float* beta;
-  const float* bias;  // may be null
-  const float2* stats;
-  bf16* out;
-  int m, n, k;
+  const float* bias;  // (n,) f32 or null
+  bf16* out;          // (m, out_cols)
+  int m, out_cols;
+  // tile column u reads weight rows u step + [0, 80) and u step + off2 + [0, 80)
+  int step, off2;
+  int tiles_m, tiles_n, tiles;
+  int group;          // row tiles of a group (ops/ln_matmul.py:GemmPlan)
+  int k_tiles;
 };
 
+// tile t of the plan (ops/ln_matmul.py:GemmPlan.tiles): groups of `group`
+// row tiles, each swept over every column tile, row tiles fastest inside a
+// group, so that the blocks in flight share a band of y and of the weight
+__device__ __forceinline__ int2 tile_of(const GemmArgs& a, int t) {
+  const int per_group = a.group * a.tiles_n;
+  const int gi = t / per_group, local = t - gi * per_group;
+  const int rows = min(a.group, a.tiles_m - gi * a.group);
+  return make_int2(gi * a.group + local % rows, local / rows);
+}
+
+// d (64 x 160 f32, the warpgroup's accumulator fragment) = [d +] A (64 x 16
+// bf16, K-major, descriptor a) B^T, B (160 x 16 bf16, K-major, descriptor b);
+// scale_d = 0 overwrites d. Fragment: thread t of the warpgroup holds rows
+// 16 (t / 32) + (t % 32) / 4 + {0, 8}, columns 8 j + 2 (t % 4) + {0, 1}, as
+// d[4 j + {0, 1}] (row + 0), d[4 j + {2, 3}] (row + 8).
+#define DG_F8(i)                                                                          \
+  "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]), "+f"(d[i + 4]), "+f"(d[i + 5]), \
+      "+f"(d[i + 6]), "+f"(d[i + 7])
+
+__device__ __forceinline__ void wgmma_bf16(float (&d)[kBN / 2], uint64_t a, uint64_t b,
+                                           int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %82, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n160k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79"
+      "}, %80, %81, p, 1, 1, 0, 0;\n}\n"
+      : DG_F8(0), DG_F8(8), DG_F8(16), DG_F8(24), DG_F8(32), DG_F8(40), DG_F8(48), DG_F8(56),
+        DG_F8(64), DG_F8(72)
+      : "l"(a), "l"(b), "r"(scale_d));
+}
+
+#undef DG_F8
+
 template <int EPI>
-__global__ void __launch_bounds__(kThreads, 1) ln_matmul_kernel(const GemmArgs a) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  float* sC = reinterpret_cast<float*>(smem);  // after the main loop
+__global__ void __launch_bounds__(kThreads, 1)
+    ln_gemm_kernel(const __grid_constant__ CUtensorMap map_y,
+                   const __grid_constant__ CUtensorMap map_w, const GemmArgs a) {
+  // 8-column groups of the output tile: 10 (GEGLU: h is groups 0..9, gate 10..19) or 20
+  constexpr int kGroups = EPI == kGeglu ? kBox / 8 : kBN / 8;
+  extern __shared__ unsigned char smem_raw[];
+  __shared__ __align__(8) uint64_t full[kStages], empty[kStages], turn[kConsumers];
+  // the ring starts on a 1024-byte boundary of the shared window (the swizzle's atom)
+  unsigned char* ring = smem_raw + ((1024 - (dg::smem_addr(smem_raw) & 1023)) & 1023);
+  auto tile_a = [&](int st) { return ring + st * kStage; };
+  auto tile_b = [&](int st) { return ring + st * kStage + kBytesA; };
 
-  constexpr int kOutCols = EPI == kGeglu ? kBW / 2 : kBW;
-  const int half = a.n / 2;
-  const int m0 = blockIdx.y * kBM;
-  const int n0 = blockIdx.x * kOutCols;  // first output column of the block
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int wm = warp / kWarpsN;  // 2 warps down, 64 rows each
-  const int wn = warp % kWarpsN;  // 4 warps across, 64 weight columns each
-  const int g = lane >> 2;
-  const int t4 = lane & 3;
-
-  // this thread copies (and normalizes) chunks at rows cr + i * kRowStep,
-  // columns kc..kc+7 of every A and B tile
-  const int cr = threadIdx.x / (kBK / 8);
-  const int kc = (threadIdx.x % (kBK / 8)) * 8;
-  int b_col[kBChunks];  // weight row (output column) of each B chunk, -1 if none
-  float2 a_stat[kAChunks];
-#pragma unroll
-  for (int i = 0; i < kBChunks; ++i) {
-    const int r = cr + i * kRowStep;
-    if (EPI == kGeglu) {
-      const int col = n0 + (r % (kBW / 2));
-      b_col[i] = col < half ? (r < kBW / 2 ? col : half + col) : -1;
-    } else {
-      b_col[i] = n0 + r < a.n ? n0 + r : -1;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      dg::mbar_init(&full[s], 1);
+      dg::mbar_init(&empty[s], 1);  // released by the one consumer that owns the tile
     }
+    for (int c = 0; c < kConsumers; ++c) dg::mbar_init(&turn[c], 1);
+    dg::mbar_init_fence();
   }
-#pragma unroll
-  for (int i = 0; i < kAChunks; ++i) {
-    const int r = cr + i * kRowStep;
-    a_stat[i] = m0 + r < a.m ? a.stats[m0 + r] : make_float2(0.f, 0.f);
-  }
-
-  auto stage_a = [&](int st) {
-    return reinterpret_cast<bf16*>(smem + st * kStageBytes);
-  };
-  auto stage_b = [&](int st) {
-    return reinterpret_cast<bf16*>(smem + st * kStageBytes + kTileA);
-  };
-  auto load_tile = [&](int st, int k0) {  // raw x and w chunks; zeros outside
-    const bool k_ok = k0 + kc < a.k;
-#pragma unroll
-    for (int i = 0; i < kAChunks; ++i) {
-      const int r = cr + i * kRowStep;
-      const bool a_ok = k_ok && m0 + r < a.m;
-      dg::cp_async16(stage_a(st) + r * kLD + kc,
-                     a_ok ? a.x + static_cast<int64_t>(m0 + r) * a.k + k0 + kc : a.x, a_ok);
-    }
-#pragma unroll
-    for (int i = 0; i < kBChunks; ++i) {
-      const int r = cr + i * kRowStep;
-      const bool b_ok = k_ok && b_col[i] >= 0;
-      dg::cp_async16(stage_b(st) + r * kLD + kc,
-                     b_ok ? a.wt + static_cast<int64_t>(b_col[i]) * a.k + k0 + kc : a.wt, b_ok);
-    }
-  };
-  auto normalize_tile = [&](int st, int k0) {  // this thread's own A chunks, in place
-    if (k0 + kc >= a.k) return;
-    const float4 g0 = *reinterpret_cast<const float4*>(a.gamma + k0 + kc);
-    const float4 g1 = *reinterpret_cast<const float4*>(a.gamma + k0 + kc + 4);
-    const float4 b0 = *reinterpret_cast<const float4*>(a.beta + k0 + kc);
-    const float4 b1 = *reinterpret_cast<const float4*>(a.beta + k0 + kc + 4);
-    const float gg[8] = {g0.x, g0.y, g0.z, g0.w, g1.x, g1.y, g1.z, g1.w};
-    const float bb[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
-#pragma unroll
-    for (int i = 0; i < kAChunks; ++i) {
-      const int r = cr + i * kRowStep;
-      if (m0 + r >= a.m) continue;  // padding rows stay zero
-      uint4* cell = reinterpret_cast<uint4*>(stage_a(st) + r * kLD + kc);
-      uint4 u = *cell;
-      uint32_t* w = reinterpret_cast<uint32_t*>(&u);
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const float2 f = __bfloat1622float2(*reinterpret_cast<__nv_bfloat162*>(&w[j]));
-        const float y0 = (f.x - a_stat[i].x) * a_stat[i].y * gg[2 * j] + bb[2 * j];
-        const float y1 = (f.y - a_stat[i].x) * a_stat[i].y * gg[2 * j + 1] + bb[2 * j + 1];
-        w[j] = dg::pack_bf16x2(y0, y1);
-      }
-      *cell = u;
-    }
-  };
-
-  constexpr int kMI = kWM / 16;  // m16 tiles per warp
-  constexpr int kNJ = kWN / 8;   // n8 tiles per warp
-  float acc[kMI][kNJ][4];
-#pragma unroll
-  for (int i = 0; i < kMI; ++i)
-#pragma unroll
-    for (int j = 0; j < kNJ; ++j) acc[i][j][0] = acc[i][j][1] = acc[i][j][2] = acc[i][j][3] = 0.f;
-
-  const int n_tiles = (a.k + kBK - 1) / kBK;
-#pragma unroll
-  for (int s = 0; s < kStages - 1; ++s) {  // one commit group per tile, even if empty
-    if (s < n_tiles) load_tile(s, s * kBK);
-    dg::cp_async_commit();
-  }
-  for (int t = 0; t < n_tiles; ++t) {
-    const int st = t % kStages;
-    dg::cp_async_wait<kStages - 2>();  // tile t's own chunks have landed
-    normalize_tile(st, t * kBK);
-    __syncthreads();  // tile t complete for all; stage (t - 1) % kStages free
-    if (t + kStages - 1 < n_tiles)
-      load_tile((t + kStages - 1) % kStages, (t + kStages - 1) * kBK);
-    dg::cp_async_commit();
-    const bf16* tA = stage_a(st);
-    const bf16* tB = stage_b(st);
-#pragma unroll
-    for (int kk = 0; kk < kBK; kk += 16) {
-      uint32_t af[kMI][4], bfr[kNJ / 2][4];
-#pragma unroll
-      for (int i = 0; i < kMI; ++i)
-        dg::ldmatrix_x4(af[i], tA + (wm * kWM + i * 16 + (lane & 15)) * kLD + kk + (lane >> 4) * 8);
-#pragma unroll
-      for (int j = 0; j < kNJ / 2; ++j)
-        dg::ldmatrix_x4(bfr[j], tB + (wn * kWN + j * 16 + (lane & 7) + ((lane >> 4) << 3)) * kLD +
-                                   kk + ((lane >> 3) & 1) * 8);
-#pragma unroll
-      for (int i = 0; i < kMI; ++i)
-#pragma unroll
-        for (int j = 0; j < kNJ / 2; ++j) {
-          dg::mma_bf16_16816(acc[i][2 * j], af[i], bfr[j][0], bfr[j][1]);
-          dg::mma_bf16_16816(acc[i][2 * j + 1], af[i], bfr[j][2], bfr[j][3]);
-        }
-    }
-  }
-  dg::cp_async_wait<0>();
-  __syncthreads();  // the ring is free: reuse it for the output tile
-
-#pragma unroll
-  for (int i = 0; i < kMI; ++i)
-#pragma unroll
-    for (int j = 0; j < kNJ; ++j) {
-      float* cell = sC + (wm * kWM + i * 16 + g) * kLDC + wn * kWN + j * 8 + 2 * t4;
-      *reinterpret_cast<float2*>(cell) = make_float2(acc[i][j][0], acc[i][j][1]);
-      *reinterpret_cast<float2*>(cell + 8 * kLDC) = make_float2(acc[i][j][2], acc[i][j][3]);
-    }
   __syncthreads();
 
-  const int out_cols = EPI == kGeglu ? half : a.n;
-  for (int e = threadIdx.x; e < kBM * kOutCols; e += kThreads) {
-    const int r = e / kOutCols;
-    const int c = e % kOutCols;
-    const int gm = m0 + r;
-    const int gn = n0 + c;
-    if (gm >= a.m || gn >= out_cols) continue;
-    float val = sC[r * kLDC + c];
-    if (a.bias != nullptr) val += a.bias[gn];
-    if (EPI == kGeglu) {
-      float gate = sC[r * kLDC + kBW / 2 + c];
-      if (a.bias != nullptr) gate += a.bias[half + gn];
-      val *= gelu_erf(gate);
-    } else if (EPI == kGelu) {
-      val = gelu_erf(val);
+  // the block's j-th tile is t = blockIdx.x + j * gridDim.x; its k-th stage
+  // of K is the (j * k_tiles + k)-th use of the ring
+  const int n_k = a.k_tiles;
+  // the warpgroup index, taken from lane 0 so that the compiler knows it is
+  // the same in every thread of a warp
+  const int wg = __shfl_sync(0xffffffffu, static_cast<int>(threadIdx.x) / 128, 0);
+  if (wg == 0) {
+    // producer: one thread issues every load; the warpgroup gives up registers
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n" ::: "memory");
+    if (threadIdx.x == 0) {
+      int stage = 0;
+      uint32_t phase = 0;
+      for (int t = blockIdx.x; t < a.tiles; t += gridDim.x) {
+        const int2 tile = tile_of(a, t);
+        const int m0 = tile.x * kBM;
+        const int r0 = tile.y * a.step;
+        for (int kt = 0; kt < n_k; ++kt) {
+          dg::mbar_wait(&empty[stage], phase ^ 1);  // the first pass over the ring does not wait
+          dg::mbar_arrive_expect_tx(&full[stage], kStage);
+          dg::tma_load_2d(tile_a(stage), &map_y, &full[stage], kt * kBK, m0);
+          dg::tma_load_2d(tile_b(stage), &map_w, &full[stage], kt * kBK, r0);
+          dg::tma_load_2d(tile_b(stage) + kBytesBox, &map_w, &full[stage], kt * kBK,
+                          r0 + a.off2);
+          if (++stage == kStages) stage = 0, phase ^= 1;
+        }
+      }
     }
-    a.out[static_cast<int64_t>(gm) * out_cols + gn] = __float2bfloat16(val);
+  } else {
+    // consumer c = wg - 1 takes the block's tiles j = c, c + 2, ...: while one
+    // runs its epilogue, the other's products keep the tensor cores busy.
+    // Their K loops take turns (turn[c]: the other has passed its last wait
+    // on the ring), so that no consumer waits on a stage more than one pass
+    // of the ring ahead of the loads, where a phase parity would alias.
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n" ::: "memory");
+    const int c = wg - 1;
+    const int tid = threadIdx.x % 128;
+    const int lane = tid & 31;
+    float acc[2][kBN / 2];  // rows 0..63 and 64..127 of the tile
+#pragma unroll
+    for (int i = 0; i < kBN / 2; ++i) acc[0][i] = acc[1][i] = 0.f;  // each tile overwrites them
+    for (int j = c, t = blockIdx.x + j * gridDim.x; t < a.tiles;
+         j += kConsumers, t += kConsumers * gridDim.x) {
+      const int2 tile = tile_of(a, t);
+      const int m0 = tile.x * kBM;
+      const int col0 = tile.y * a.step;  // the tile's first output column
+      if (j > 0) dg::mbar_wait(&turn[c], ((j - 1) / kConsumers) & 1);
+      int held = -1;  // the stage read by the commit group still in flight
+      for (int kt = 0; kt < n_k; ++kt) {
+        const int use = j * n_k + kt;
+        const int stage = use % kStages;
+        dg::mbar_wait(&full[stage], (use / kStages) & 1);
+        const uint64_t da = dg::sw128_desc(tile_a(stage));
+        const uint64_t db = dg::sw128_desc(tile_b(stage));
+        dg::fence_regs(acc[0]);
+        dg::fence_regs(acc[1]);
+        dg::wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < kBK / 16; ++kk) {  // 32 bytes of K per instruction
+          wgmma_bf16(acc[0], da + 2 * kk, db + 2 * kk, (kt | kk) != 0);
+          wgmma_bf16(acc[1], da + (64 * 128 >> 4) + 2 * kk, db + 2 * kk, (kt | kk) != 0);
+        }
+        dg::wgmma_commit();
+        dg::fence_regs(acc[0]);
+        dg::fence_regs(acc[1]);
+        dg::wgmma_wait<1>();  // the previous stage's products are done: release it
+        if (held >= 0 && tid == 0) dg::mbar_arrive(&empty[held]);
+        held = stage;
+      }
+      if (tid == 0) dg::mbar_arrive(&turn[1 - c]);
+      dg::wgmma_wait<0>();
+      dg::fence_regs(acc[0]);
+      dg::fence_regs(acc[1]);
+      if (tid == 0) dg::mbar_arrive(&empty[held]);
+
+      // epilogue in registers, one run of column groups at a time (the bias
+      // of those groups only, the accumulators dying as they are stored: the
+      // whole tile's bias at once spilled 28 bytes for GEGLU, 96 for GELU,
+      // and took 0.2154 against 0.2001 ms at (16384, 640, 5120) on an H100):
+      // + bias (f32), then GELU, or GEGLU with the gate
+      // kBox columns further on; then the stores. Lane t of a quad holds
+      // columns 2 t, 2 t + 1 of each group of 8; two exchanges (with lane
+      // t ^ 1, then t ^ 2) leave it all 8 columns of group 4 q + t of each
+      // run of 4 groups (16-byte stores, a warp writing whole 32-byte
+      // sectors); a last pair of groups (GEGLU's 8 and 9) takes one exchange
+      // and 8-byte stores
+      const int t4 = lane & 3;
+      const bool o1 = t4 & 1, o2 = t4 & 2;
+      // the output of group g's column 2 t + e in row 8 h of half `half`
+      auto value = [&](int half, int g, int h, int e, const float (&bh)[2],
+                       const float (&bg)[2]) {
+        float v = acc[half][4 * g + 2 * h + e] + bh[e];
+        if (EPI == kGeglu) {
+          v *= gelu_erf(acc[half][4 * (g + kGroups) + 2 * h + e] + bg[e]);
+        } else if (EPI == kGelu) {
+          v = gelu_erf(v);
+        }
+        return v;
+      };
+      // the f32 bias of group g's columns 2 t, 2 t + 1 (and of their gates)
+      auto bias_of = [&](int g, float (&bh)[2], float (&bg)[2]) {
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int col = col0 + 8 * g + 2 * t4 + e;
+          const bool in = a.bias != nullptr && col < a.out_cols;
+          bh[e] = in ? __ldg(a.bias + col) : 0.f;
+          bg[e] = in && EPI == kGeglu ? __ldg(a.bias + a.off2 + col) : 0.f;
+        }
+      };
+#pragma unroll
+      for (int q = 0; q < kGroups / 4; ++q) {
+        float bh[4][2], bg[4][2];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) bias_of(4 * q + i, bh[i], bg[i]);
+        const int col = col0 + 8 * (4 * q + t4);
+#pragma unroll
+        for (int half = 0; half < 2; ++half)
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const int row = m0 + 64 * half + (tid >> 5) * 16 + (lane >> 2) + 8 * h;
+            // with lane t ^ 1: 4 adjacent columns of groups 4 q + o1 and 4 q + 2 + o1
+            float s1[2][4];
+#pragma unroll
+            for (int pr = 0; pr < 2; ++pr) {
+              const int gl = 4 * q + 2 * pr, il = 2 * pr;
+              const float l0 = value(half, gl, h, 0, bh[il], bg[il]);
+              const float l1 = value(half, gl, h, 1, bh[il], bg[il]);
+              const float h0 = value(half, gl + 1, h, 0, bh[il + 1], bg[il + 1]);
+              const float h1 = value(half, gl + 1, h, 1, bh[il + 1], bg[il + 1]);
+              const float r0 = __shfl_xor_sync(0xffffffffu, o1 ? l0 : h0, 1);
+              const float r1 = __shfl_xor_sync(0xffffffffu, o1 ? l1 : h1, 1);
+              s1[pr][0] = o1 ? r0 : l0;
+              s1[pr][1] = o1 ? r1 : l1;
+              s1[pr][2] = o1 ? h0 : r0;
+              s1[pr][3] = o1 ? h1 : r1;
+            }
+            // with lane t ^ 2: the 8 columns of group 4 q + t
+            float v[8];
+#pragma unroll
+            for (int i = 0; i < 4; ++i) {
+              const float x = __shfl_xor_sync(0xffffffffu, o2 ? s1[0][i] : s1[1][i], 2);
+              v[i] = o2 ? x : s1[0][i];
+              v[4 + i] = o2 ? s1[1][i] : x;
+            }
+            if (row < a.m && col < a.out_cols)  // out_cols % 8 == 0: whole groups
+              *reinterpret_cast<uint4*>(a.out + static_cast<int64_t>(row) * a.out_cols + col) =
+                  make_uint4(dg::pack_bf16x2(v[0], v[1]), dg::pack_bf16x2(v[2], v[3]),
+                             dg::pack_bf16x2(v[4], v[5]), dg::pack_bf16x2(v[6], v[7]));
+          }
+      }
+      if constexpr (kGroups % 4 == 2) {
+        // groups p and p + 1: lane t (t even) gets columns 2 t .. 2 t + 3 of
+        // group p, lane t + 1 the same columns of group p + 1
+        constexpr int p = kGroups - 2;
+        float bh[2][2], bg[2][2];
+        bias_of(p, bh[0], bg[0]);
+        bias_of(p + 1, bh[1], bg[1]);
+        const int col = col0 + 8 * (p + o1) + 4 * (t4 >> 1);
+#pragma unroll
+        for (int half = 0; half < 2; ++half)
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const int row = m0 + 64 * half + (tid >> 5) * 16 + (lane >> 2) + 8 * h;
+            const float l0 = value(half, p, h, 0, bh[0], bg[0]);
+            const float l1 = value(half, p, h, 1, bh[0], bg[0]);
+            const float h0 = value(half, p + 1, h, 0, bh[1], bg[1]);
+            const float h1 = value(half, p + 1, h, 1, bh[1], bg[1]);
+            const float r0 = __shfl_xor_sync(0xffffffffu, o1 ? l0 : h0, 1);
+            const float r1 = __shfl_xor_sync(0xffffffffu, o1 ? l1 : h1, 1);
+            if (row < a.m && col < a.out_cols)
+              *reinterpret_cast<uint2*>(a.out + static_cast<int64_t>(row) * a.out_cols + col) =
+                  o1 ? make_uint2(dg::pack_bf16x2(r0, r1), dg::pack_bf16x2(h0, h1))
+                     : make_uint2(dg::pack_bf16x2(l0, l1), dg::pack_bf16x2(r0, r1));
+          }
+      }
+    }
   }
 }
 
+// ---- the float32 GEMM: CUDA-core FMA, 64 rows x (64 + 64) weight rows a block
+
+constexpr int kFM = 64;        // rows per block
+constexpr int kFBox = 64;      // weight rows per half of the block's B tile
+constexpr int kFK = 16;        // K per stage
+constexpr int kFThreads = 256;
+
+struct GemmF32Args {
+  const float* y;     // (m, k)
+  const float* wt;    // (n, k)
+  const float* bias;  // (n,) or null
+  float* out;         // (m, out_cols)
+  int m, n, k, out_cols;
+  int step, off2;     // as GemmArgs, with 64-row halves
+};
+
+// thread (tr, tc) holds rows tr + 16 i and weight columns tc + 16 j of each half
 template <int EPI>
-int launch_gemm(const GemmArgs& a, cudaStream_t stream) {
-  cudaError_t err = cudaFuncSetAttribute(ln_matmul_kernel<EPI>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         static_cast<int>(kSmem));
+__global__ void __launch_bounds__(kFThreads) ln_gemm_f32_kernel(const GemmF32Args a) {
+  __shared__ float as[kFK][kFM + 4];
+  __shared__ float bs[kFK][2 * kFBox + 4];
+  const int tid = threadIdx.x;
+  const int tr = tid / 16, tc = tid % 16;
+  const int m0 = blockIdx.x * kFM;
+  const int r0 = blockIdx.y * a.step;  // weight row of half 0's column 0; half 1 at + off2
+  float acc[2][4][4] = {};
+  for (int k0 = 0; k0 < a.k; k0 += kFK) {
+    // 64 x 16 of y and 2 x 64 x 16 of the weight, transposed into shared memory
+    for (int e = tid; e < kFM * kFK; e += kFThreads) {
+      const int r = e / kFK, kk = e % kFK;
+      const int gr = m0 + r, gk = k0 + kk;
+      as[kk][r] = gr < a.m && gk < a.k ? a.y[static_cast<int64_t>(gr) * a.k + gk] : 0.f;
+    }
+    for (int e = tid; e < 2 * kFBox * kFK; e += kFThreads) {
+      const int r = e / kFK, kk = e % kFK;
+      const int wr = r0 + (r < kFBox ? r : a.off2 + r - kFBox), gk = k0 + kk;
+      bs[kk][r] = wr < a.n && gk < a.k ? a.wt[static_cast<int64_t>(wr) * a.k + gk] : 0.f;
+    }
+    __syncthreads();
+#pragma unroll
+    for (int kk = 0; kk < kFK; ++kk) {
+      float av[4], bv[2][4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) av[i] = as[kk][tr + 16 * i];
+#pragma unroll
+      for (int s = 0; s < 2; ++s)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) bv[s][j] = bs[kk][s * kFBox + tc + 16 * j];
+#pragma unroll
+      for (int s = 0; s < 2; ++s)
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int j = 0; j < 4; ++j) acc[s][i][j] = fmaf(av[i], bv[s][j], acc[s][i][j]);
+    }
+    __syncthreads();
+  }
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int row = m0 + tr + 16 * i;
+    if (row >= a.m) continue;
+    float* orow = a.out + static_cast<int64_t>(row) * a.out_cols;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int c = tc + 16 * j;
+      if (EPI == kGeglu) {
+        const int col = r0 + c;  // output column = h weight row; gate row off2 + col
+        if (col >= a.out_cols) continue;
+        const float bh = a.bias != nullptr ? a.bias[col] : 0.f;
+        const float bg = a.bias != nullptr ? a.bias[a.off2 + col] : 0.f;
+        orow[col] = (acc[0][i][j] + bh) * gelu_erf(acc[1][i][j] + bg);
+      } else {
+#pragma unroll
+        for (int s = 0; s < 2; ++s) {
+          const int col = r0 + s * a.off2 + c;
+          if (col >= a.out_cols) continue;
+          float v = acc[s][i][j] + (a.bias != nullptr ? a.bias[col] : 0.f);
+          orow[col] = EPI == kGelu ? gelu_erf(v) : v;
+        }
+      }
+    }
+  }
+}
+
+// ---- host side
+
+// the bf16 map of a row-major (rows, cols) matrix read in boxes of box_rows x
+// 64 elements under the 128-byte swizzle, zeros past its edges; false if the
+// encoder refuses it
+bool tensor_map(CUtensorMap* map, const void* ptr, int rows, int cols, int box_rows) {
+  const dg::EncodeTiledFn encode = dg::encode_tiled();
+  if (encode == nullptr) return false;
+  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(cols), static_cast<cuuint64_t>(rows)};
+  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(cols) * sizeof(bf16)};  // bytes
+  const cuuint32_t box[2] = {static_cast<cuuint32_t>(kBK), static_cast<cuuint32_t>(box_rows)};
+  const cuuint32_t steps[2] = {1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(ptr), dims, strides,
+                box, steps, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <int EPI>
+int launch_gemm(const CUtensorMap& map_y, const CUtensorMap& map_w, const GemmArgs& a,
+                int blocks, cudaStream_t stream) {
+  const cudaError_t err = cudaFuncSetAttribute(
+      ln_gemm_kernel<EPI>, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const int out_cols = EPI == kGeglu ? a.n / 2 : a.n;
-  const int block_cols = EPI == kGeglu ? kBW / 2 : kBW;
-  const dim3 grid((out_cols + block_cols - 1) / block_cols, (a.m + kBM - 1) / kBM);
-  ln_matmul_kernel<EPI><<<grid, kThreads, kSmem, stream>>>(a);
+  ln_gemm_kernel<EPI><<<blocks, kThreads, kSmem, stream>>>(map_y, map_w, a);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int EPI>
+int launch_gemm_f32(const GemmF32Args& a, cudaStream_t stream) {
+  const int tiles_n = (a.out_cols + a.step - 1) / a.step;
+  const dim3 grid((a.m + kFM - 1) / kFM, tiles_n);
+  ln_gemm_f32_kernel<EPI><<<grid, kFThreads, 0, stream>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// x (m, k) bf16, wt (n, k) bf16 (the transpose of w (k, n)), gamma/beta (k,)
-// f32, bias (n,) f32 or null, stats (m, 2) f32 scratch, out (m, n) bf16 or
-// (m, n/2) for GEGLU. Launches the stats pass, then the GEMM.
-extern "C" int dg_ln_matmul_bf16(const void* x, const void* wt, const void* gamma,
-                                 const void* beta, const void* bias, void* stats, void* out,
-                                 int m, int n, int k, float eps, int epilogue, void* stream) {
+// y (m, k) = the LayerNorm of x (m, k) with gamma, beta (k,) f32, in x's
+// type: bf16, or f32 with x_f32; k a multiple of 8, x and y 16-byte aligned
+extern "C" int dg_ln_apply(const void* x, const void* gamma, const void* beta, void* y, int m,
+                           int k, float eps, int x_f32, void* stream) {
+  if (m <= 0 || k <= 0 || k % 8) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  GemmArgs a;
-  a.x = static_cast<const bf16*>(x);
-  a.wt = static_cast<const bf16*>(wt);
-  a.gamma = static_cast<const float*>(gamma);
-  a.beta = static_cast<const float*>(beta);
+  const float* g = static_cast<const float*>(gamma);
+  const float* b = static_cast<const float*>(beta);
+  return x_f32 ? launch_apply(static_cast<const float*>(x), g, b, static_cast<float*>(y), m, k,
+                              eps, s)
+               : launch_apply(static_cast<const bf16*>(x), g, b, static_cast<bf16*>(y), m, k,
+                              eps, s);
+}
+
+// out = epilogue(y @ wt^T + bias): y (m, k) bf16 from dg_ln_apply, wt (n, k)
+// bf16 (nn.Linear's weight), bias (n,) f32 or null, out (m, n) bf16, or (m,
+// n / 2) for GEGLU; k a multiple of 8, n of 8 (of 16 for GEGLU), y and wt
+// 16-byte aligned. `blocks` persistent blocks walk the tiles in groups of
+// `group` row tiles (ops/ln_matmul.py:gemm_plan).
+extern "C" int dg_ln_gemm(const void* y, const void* wt, const void* bias, void* out, int m,
+                          int n, int k, int epilogue, int blocks, int group, void* stream) {
+  const bool geglu = epilogue == kGeglu;
+  if (m <= 0 || n <= 0 || k <= 0 || k % 8 || n % (geglu ? 16 : 8) || blocks <= 0 ||
+      group <= 0 || epilogue < kNone || epilogue > kGeglu)
+    return static_cast<int>(cudaErrorInvalidValue);
+  CUtensorMap map_y, map_w;
+  if (!tensor_map(&map_y, y, m, k, kBM) || !tensor_map(&map_w, wt, n, k, kBox))
+    return static_cast<int>(cudaErrorInvalidValue);
+  GemmArgs a{};
   a.bias = static_cast<const float*>(bias);
-  a.stats = static_cast<const float2*>(stats);
   a.out = static_cast<bf16*>(out);
+  a.m = m;
+  a.out_cols = geglu ? n / 2 : n;
+  a.step = geglu ? kBox : kBN;
+  a.off2 = geglu ? n / 2 : kBox;
+  a.tiles_m = (m + kBM - 1) / kBM;
+  a.tiles_n = (a.out_cols + a.step - 1) / a.step;
+  a.tiles = a.tiles_m * a.tiles_n;
+  a.group = group < a.tiles_m ? group : a.tiles_m;
+  a.k_tiles = (k + kBK - 1) / kBK;
+  if (a.tiles < blocks) blocks = a.tiles;  // every block has a tile
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (epilogue) {
+    case kNone: return launch_gemm<kNone>(map_y, map_w, a, blocks, s);
+    case kGelu: return launch_gemm<kGelu>(map_y, map_w, a, blocks, s);
+    default: return launch_gemm<kGeglu>(map_y, map_w, a, blocks, s);
+  }
+}
+
+// the same on float32 y, wt, out (CUDA-core FMA); bias f32 or null
+extern "C" int dg_ln_gemm_f32(const void* y, const void* wt, const void* bias, void* out, int m,
+                              int n, int k, int epilogue, void* stream) {
+  const bool geglu = epilogue == kGeglu;
+  if (m <= 0 || n <= 0 || k <= 0 || (geglu && n % 2) || epilogue < kNone || epilogue > kGeglu)
+    return static_cast<int>(cudaErrorInvalidValue);
+  GemmF32Args a{};
+  a.y = static_cast<const float*>(y);
+  a.wt = static_cast<const float*>(wt);
+  a.bias = static_cast<const float*>(bias);
+  a.out = static_cast<float*>(out);
   a.m = m;
   a.n = n;
   a.k = k;
-  ln_stats_kernel<<<(m + 7) / 8, 256, 0, s>>>(a.x, static_cast<float2*>(stats), m, k, eps);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
+  a.out_cols = geglu ? n / 2 : n;
+  a.step = geglu ? kFBox : 2 * kFBox;
+  a.off2 = geglu ? n / 2 : kFBox;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (epilogue) {
-    case kNone:
-      return launch_gemm<kNone>(a, s);
-    case kGelu:
-      return launch_gemm<kGelu>(a, s);
-    case kGeglu:
-      return launch_gemm<kGeglu>(a, s);
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
+    case kNone: return launch_gemm_f32<kNone>(a, s);
+    case kGelu: return launch_gemm_f32<kGelu>(a, s);
+    default: return launch_gemm_f32<kGeglu>(a, s);
   }
 }

@@ -134,13 +134,11 @@ def entry(device=None) -> Tuple[CustomRCNN, Tuple[torch.Tensor, torch.Tensor]]:
     """``(model, (images, image_sizes))``: the small Swin detector with seeded
     random weights and one 128 × 128 example image, ready for
     ``model(images, image_sizes)``. Runs on the card unless ``device`` names
-    another one; without a card and without a request it raises.
-    On a CUDA device the model computes in bfloat16 (``cfg.FP16``), the only
-    dtype the window-attention kernels take; on the CPU in float32, as the
-    JAX package's ``entry()``."""
+    another one; without a card and without a request it raises. It computes
+    in float32 on any device, as the JAX package's ``entry()`` does (the
+    window-attention kernels take float32 on the card)."""
     dev = entry_device(device)
     cfg = _small_cfg()
-    cfg.FP16 = dev.type == "cuda"
     model = build_model(cfg, input_size=(128, 128), device=dev)
     gen = torch.Generator().manual_seed(SEED)
     fast_init_(model, gen).eval()

@@ -114,8 +114,19 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.dg_window_attention_bwd_bf16.restype = i
     lib.dg_window_attention_packed_bwd_bf16.argtypes = [p] * 7 + [i] * 6 + [f, p]
     lib.dg_window_attention_packed_bwd_bf16.restype = i
-    lib.dg_ln_matmul_bf16.argtypes = [p] * 7 + [i] * 3 + [f, i, p]
-    lib.dg_ln_matmul_bf16.restype = i
+    lib.dg_ln_apply.argtypes = [p] * 4 + [i] * 2 + [f, i, p]
+    lib.dg_ln_apply.restype = i
+    lib.dg_ln_gemm.argtypes = [p] * 4 + [i] * 6 + [p]
+    lib.dg_ln_gemm.restype = i
+    lib.dg_ln_gemm_f32.argtypes = [p] * 4 + [i] * 4 + [p]
+    lib.dg_ln_gemm_f32.restype = i
+    lib.dg_attention_f32.argtypes = [p] * 6 + [i] * 6 + [i64] * 12 + [i] * 3 + [f, p]
+    lib.dg_attention_f32.restype = i
+    lib.dg_window_attention_bwd_f32.argtypes = lib.dg_window_attention_bwd_bf16.argtypes
+    lib.dg_window_attention_bwd_f32.restype = i
+    lib.dg_window_attention_packed_bwd_f32.argtypes = (
+        lib.dg_window_attention_packed_bwd_bf16.argtypes)
+    lib.dg_window_attention_packed_bwd_f32.restype = i
     lib.dg_int8_matmul.argtypes = [p] * 5 + [i] * 6 + [p]
     lib.dg_int8_matmul.restype = i
     lib.dg_int8_quantize_rows.argtypes = [p] * 3 + [i] * 3 + [p]

@@ -13,11 +13,11 @@ consumer warpgroups taking turns), d = 512 (the VAE)
 ``csrc/flash_attention_d512.cu`` (TMA, wgmma, the channels split over two
 consumer warpgroups that sum their shares of the scores), the
 relative-position kernel at d = 80 (SAM) ``csrc/flash_attention.cu``
-(mma.sync). ``flash_attention`` and ``flash_attention_packed`` take bf16 or
-float32 (a float32 model's attention): float32 q, k and v are rounded to
-bf16 by this module (TMA cannot convert), the products run on the bf16
-tensor cores as for bf16, and the output is float32;
-``flash_attention_relpos`` takes bf16.
+(mma.sync). Each takes bf16 or float32, as the TPU kernels take the input's
+dtype: float32 q, k and v (a float32 model's attention) run the float32 body
+``csrc/attention_f32.cu`` (true float32 products, at head dims 32, 64, 80
+and 512; ``attention_f32.body_for`` is the dispatch), and the output is in
+q's dtype; any other dtype raises.
 
 Each wrapper counts its kernel launches in a plain int attribute
 (``flash_attention.launches``, ``flash_attention_packed.launches``,
@@ -31,13 +31,11 @@ from typing import Iterator, NamedTuple, Optional, Tuple
 import torch
 
 from . import _build
+from . import attention_f32
 
-KERNEL_HEAD_DIMS = (64, 512)  # head dims of the wgmma + TMA bodies
-SM90_HEAD_DIM = 64  # ... flash_attention_sm90.cu's
+SM90_HEAD_DIM = 64  # head dim of flash_attention_sm90.cu (bf16)
 SM90_TILE = 192  # q rows a work item of that body (its kBQ: 3 warpgroups of 64)
 D512_TILE = 64  # q rows a work item of flash_attention_d512.cu (its kRows)
-KERNEL_DTYPES = (torch.bfloat16, torch.float32)  # q, k, v and output of those
-RELPOS_HEAD_DIMS = (80,)  # ... with the relative-position bias (SAM ViT-H)
 # The block keeps H + W rows of 64 + 4 floats beside its q tile and K/V ring
 # (5 tiles of 64 rows of d + 8 bf16) in the 232,448 bytes it may use.
 RELPOS_MAX_GRID_SIDES = (232448 - 5 * 64 * (80 + 8) * 2) // ((64 + 4) * 4)
@@ -82,13 +80,13 @@ def reference_attention_relpos(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
     return torch.einsum("bqk,bkd->bqd", p.to(v.dtype).float(), v.float()).to(q.dtype)
 
 
-def _require_kernel_input(name: str, t: torch.Tensor, d: int, head_dims=KERNEL_HEAD_DIMS,
-                          strided: bool = False, dtypes=KERNEL_DTYPES) -> None:
+def _require_kernel_input(name: str, t: torch.Tensor, d: int, bias_mode: str,
+                          strided: bool = False) -> None:
+    """Raise on a non-CPU tensor the kernel cannot take (its dtype and head
+    dim: :func:`attention_f32.body_for`)."""
     if t.device.type != "cuda":
         raise ValueError(f"{name}: expected a CUDA or CPU tensor, got {t.device}")
-    if t.dtype not in dtypes:
-        raise ValueError(f"{name}: the kernel takes {' or '.join(map(str, dtypes))}, "
-                         f"got {t.dtype}")
+    attention_f32.body_for(t.dtype, d, bias_mode)
     if strided:
         if t.stride(-1) != 1 or any(st % 8 for st in t.stride()[:-1]):
             raise ValueError(f"{name}: the kernel takes a unit last stride and other "
@@ -97,8 +95,6 @@ def _require_kernel_input(name: str, t: torch.Tensor, d: int, head_dims=KERNEL_H
         raise ValueError(f"{name}: the kernel takes a contiguous tensor")
     if t.data_ptr() % 16:
         raise ValueError(f"{name}: the kernel needs 16-byte aligned data")
-    if d not in head_dims:
-        raise ValueError(f"head dim {d} has no kernel (instantiated: {head_dims})")
 
 
 class TilePlan(NamedTuple):
@@ -154,16 +150,10 @@ def bhsd_plan(bh: int, sq: int, d: int) -> TilePlan:
     return TilePlan((-(-sq // rows), 1, bh), d, 0, 0, 0, 0, rows)
 
 
-def bf16_operand(t: torch.Tensor) -> torch.Tensor:
-    """What the wgmma bodies read: ``t`` rounded to bf16, to nearest even;
-    bf16 as it is."""
-    return t if t.dtype == torch.bfloat16 else t.to(torch.bfloat16)
-
-
 def _launch_wgmma(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, plan: TilePlan, d: int,
                   sq: int, sk: int, out: torch.Tensor, o_strides, bias=None,
                   bias_strides=(0, 0, 0)) -> None:
-    """The wgmma body of head dim ``d`` (64 or 512) on bf16 q, k and v of
+    """The bf16 wgmma body of head dim ``d`` (64 or 512) on q, k and v of
     shape (batch, rows, width) (the same tensor for a packed projection),
     into ``out``, a caller's buffer addressed by ``o_strides`` (batch, head,
     row)."""
@@ -186,9 +176,15 @@ def _packed_into(qkv: torch.Tensor, heads: int, out: torch.Tensor) -> torch.Tens
     allocates (a view of a larger buffer is fine)."""
     b, n, c3 = qkv.shape
     d = c3 // (3 * heads)
-    qkv16 = bf16_operand(qkv)
-    _launch_wgmma(qkv16, qkv16, qkv16, packed_plan(b, n, c3 // 3, heads), d, n, n, out,
-                  (out.stride(0), d, out.stride(1)))
+    o_strides = (out.stride(0), d, out.stride(1))
+    if qkv.dtype == torch.float32:
+        c, size = c3 // 3, qkv.element_size()
+        strides = (qkv.stride(0), d, qkv.stride(1))
+        return attention_f32.launch(
+            qkv, qkv.data_ptr() + c * size, qkv.data_ptr() + 2 * c * size, out, batch=b,
+            heads=heads, sq=n, sk=n, d=d, q_strides=strides, kv_strides=strides,
+            o_strides=o_strides, scale=1.0 / math.sqrt(d))
+    _launch_wgmma(qkv, qkv, qkv, packed_plan(b, n, c3 // 3, heads), d, n, n, out, o_strides)
     return out
 
 
@@ -206,7 +202,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if sq == 0 or sk == 0:
         raise ValueError("empty sequence")
     for name, t in (("q", q), ("k", k), ("v", v)):
-        _require_kernel_input(name, t, d)
+        _require_kernel_input(name, t, d, "none" if bias is None else "dense")
     if not q.dtype == k.dtype == v.dtype:
         raise ValueError(f"q, k, v dtypes {q.dtype}, {k.dtype}, {v.dtype} differ")
     out = torch.empty_like(q)
@@ -227,9 +223,14 @@ def _flash_into(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         if bias.stride(-1) != 1:
             bias = bias.contiguous()
         bias_strides = (bias.stride(0), 0, bias.stride(1))
-    q16, k16, v16 = map(bf16_operand, (q, k, v))
-    _launch_wgmma(q16, k16, v16, bhsd_plan(bh, sq, d), d, sq, sk, out,
-                  (out.stride(0), 0, out.stride(1)), bias, bias_strides)
+    o_strides = (out.stride(0), 0, out.stride(1))
+    if q.dtype == torch.float32:
+        return attention_f32.launch(
+            q, k.data_ptr(), v.data_ptr(), out, batch=bh, heads=1, sq=sq, sk=sk, d=d,
+            q_strides=(q.stride(0), 0, q.stride(1)), kv_strides=(k.stride(0), 0, k.stride(1)),
+            o_strides=o_strides, bias_mode="none" if bias is None else "dense", bias=bias,
+            bias_strides=bias_strides, scale=1.0 / math.sqrt(d))
+    _launch_wgmma(q, k, v, bhsd_plan(bh, sq, d), d, sq, sk, out, o_strides, bias, bias_strides)
     return out
 
 
@@ -254,7 +255,7 @@ def flash_attention_packed(qkv: torch.Tensor, heads: int,
         return reference_attention_packed(qkv, heads)
     c = c3 // 3
     d = c // heads
-    _require_kernel_input("qkv", qkv, d)
+    _require_kernel_input("qkv", qkv, d, "none")
     out = torch.empty((b, n, c), dtype=qkv.dtype, device=qkv.device)
     flash_attention_packed.launches += 1
     return _packed_into(qkv, heads, out)
@@ -295,9 +296,10 @@ def flash_attention_relpos(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         out = reference_attention_relpos(flat(q), flat(k), flat(v), bias_h_t, bias_w_t, hw)
         return out.reshape(q.shape)
     for name, t in (("q", q), ("k", k), ("v", v)):
-        _require_kernel_input(name, t, d, RELPOS_HEAD_DIMS, strided=True,
-                              dtypes=(torch.bfloat16,))
-    if h + w > RELPOS_MAX_GRID_SIDES:
+        _require_kernel_input(name, t, d, "relpos", strided=True)
+    if not q.dtype == k.dtype == v.dtype:
+        raise ValueError(f"q, k, v dtypes {q.dtype}, {k.dtype}, {v.dtype} differ")
+    if q.dtype == torch.bfloat16 and h + w > RELPOS_MAX_GRID_SIDES:
         raise ValueError(f"grid {h} x {w}: the bias factors of one q tile do not fit "
                          f"shared memory (H + W <= {RELPOS_MAX_GRID_SIDES})")
     f32 = dict(device=q.device, dtype=torch.float32)
@@ -316,6 +318,12 @@ def flash_attention_relpos(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if k.stride() != v.stride():
         raise ValueError(f"k and v must share strides, got {k.stride()} and {v.stride()}")
     flash_attention_relpos.launches += 1
+    if q.dtype == torch.float32:
+        return attention_f32.launch(
+            q, k.data_ptr(), v.data_ptr(), out, batch=batch, heads=heads, sq=n, sk=n, d=d,
+            q_strides=strides(q), kv_strides=strides(k), o_strides=o_strides,
+            bias_mode="relpos", bias=bias_h_t, bias2=bias_w_t, grid=(h, w),
+            scale=1.0 / math.sqrt(d))
     code = _build.lib().dg_flash_attention_relpos_bf16(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), bias_h_t.data_ptr(), bias_w_t.data_ptr(),
         out.data_ptr(), batch, heads, h, w, d, *strides(q), *strides(k), *o_strides,

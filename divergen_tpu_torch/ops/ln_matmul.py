@@ -4,15 +4,21 @@ on the CPU.
 Counterpart of ``divergen_tpu/ops/pallas/ln_matmul.py:fused_ln_matmul``:
 ``LN(x) @ w (+ bias)`` with the epilogue none, exact-erf GELU (``act="gelu"``)
 or GEGLU (``geglu=True``: ``h · gelu(gate)`` over the two halves of the
-output columns, writing (M, N/2)). For a CUDA tensor it launches
-``csrc/ln_matmul.cu``; for a CPU tensor it runs :func:`ln_matmul_reference`,
-the plain version (``_reference`` of the TPU file). A CUDA tensor the kernel
-cannot take raises. Kernel launches are counted in
-``fused_ln_matmul.launches``.
+output columns, writing (M, N/2)). x and w in bf16 or float32, the output in
+x's dtype. For a CUDA tensor it launches ``csrc/ln_matmul.cu`` through two C
+entry points: ``dg_ln_apply`` (the LayerNorm applied once per element into
+(M, K) scratch in x's dtype, :func:`ln_apply_reference`'s y) then the GEMM,
+``dg_ln_gemm`` for bf16 (a persistent, warp-specialized wgmma + TMA body;
+:func:`gemm_plan` picks its blocks and :func:`weight_rows` says which weight
+rows a tile reads) or ``dg_ln_gemm_f32`` for float32 (CUDA-core FMA). For a
+CPU tensor it runs :func:`ln_matmul_reference`, the plain version
+(``_reference`` of the TPU file). A CUDA tensor the kernel cannot take
+raises. Launches (one per call, whatever passes the kernel makes) are
+counted in ``fused_ln_matmul.launches``.
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import Iterator, List, NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -21,19 +27,35 @@ from . import _build
 
 _EPILOGUES = {"none": 0, "gelu": 1}
 _GEGLU = 2
+GEMM_BM = 128  # output rows per tile of the bf16 GEMM (csrc/ln_matmul.cu: kBM)
+WEIGHT_BOX = 80  # weight rows per TMA box; a tile stacks two (kBox)
+# row tiles a group of the bf16 GEMM's tile order sweeps over every column
+# tile. On an H100 (tools/ln_matmul_ab.py, device ms): 8 took 0.2599 at SAM's
+# (16384, 1280, 3840) against 0.4218 with all 128 row tiles in one group (the
+# activation, 42 MB, read again for every column tile past what L2 keeps) and
+# 0.2977 with one (the weight swept for every row tile); within 1 % of the
+# best of 1, 2, 4, 8, 16 at the other three shapes
+GEMM_GROUP = 8
+KERNEL_DTYPES = (torch.bfloat16, torch.float32)
+
+
+def ln_apply_reference(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
+                       eps: float = 1e-5) -> torch.Tensor:
+    """Row LayerNorm with var = E[x²] − E[x]² clamped at 0, in f32, rounded
+    to x's dtype: the apply pass's y."""
+    xf = x.float()
+    mean = xf.mean(-1, keepdim=True)
+    var = (xf * xf).mean(-1, keepdim=True) - mean * mean
+    y = (xf - mean) * torch.rsqrt(var.clamp_min(0.0) + eps)
+    return (y * gamma.float() + beta.float()).to(x.dtype)
 
 
 def ln_matmul_reference(x: torch.Tensor, w: torch.Tensor, gamma: torch.Tensor,
                         beta: torch.Tensor, eps: float = 1e-5,
                         bias: Optional[torch.Tensor] = None, geglu: bool = False,
                         act: str = "none") -> torch.Tensor:
-    """Row LayerNorm with var = E[x²] − E[x]² clamped at 0, normalized rows
-    rounded to x's dtype, then the product in f32 and the epilogue."""
-    xf = x.float()
-    mean = xf.mean(-1, keepdim=True)
-    var = (xf * xf).mean(-1, keepdim=True) - mean * mean
-    y = (xf - mean) * torch.rsqrt(var.clamp_min(0.0) + eps)
-    y = (y * gamma.float() + beta.float()).to(x.dtype)
+    """:func:`ln_apply_reference`, then the product in f32 and the epilogue."""
+    y = ln_apply_reference(x, gamma, beta, eps)
     out = y.float() @ w.float()
     if bias is not None:
         out = out + bias.float()
@@ -43,6 +65,87 @@ def ln_matmul_reference(x: torch.Tensor, w: torch.Tensor, gamma: torch.Tensor,
     elif act == "gelu":
         out = F.gelu(out)
     return out.to(x.dtype)
+
+
+class GemmPlan(NamedTuple):
+    """The bf16 GEMM's output tiles: ``tiles_m`` row tiles of ``GEMM_BM`` by
+    ``tiles_n`` column tiles of ``step`` output columns, walked by ``blocks``
+    persistent blocks in groups of ``group`` row tiles: a group sweeps every
+    column tile, row tiles fastest inside it, so that the blocks in flight
+    share a band of the activation and one of the weight, both kept in L2
+    (``csrc/ln_matmul.cu:tile_of``). Block i takes tiles i, i + blocks, …
+    and hands them to its two consumer warpgroups in turns."""
+    tiles_m: int
+    tiles_n: int
+    step: int
+    blocks: int
+    group: int
+
+    def tile(self, t: int) -> Tuple[int, int]:
+        """(row tile, column tile) of tile ``t``."""
+        gi, local = divmod(t, self.group * self.tiles_n)
+        rows = min(self.group, self.tiles_m - gi * self.group)
+        return gi * self.group + local % rows, local // rows
+
+    def tiles(self, block: int) -> Iterator[Tuple[int, int]]:
+        """(row tile, column tile) of each tile of ``block``, in order."""
+        for t in range(block, self.tiles_m * self.tiles_n, self.blocks):
+            yield self.tile(t)
+
+
+def gemm_plan(m: int, n: int, geglu: bool, sms: int) -> GemmPlan:
+    """The tiles of an (m, K) x (K, n) product on a card of ``sms`` SMs: a
+    tile covers 160 output columns, or 80 for GEGLU (its 80 h columns and
+    their 80 gate columns fill the same 160-wide product)."""
+    step = WEIGHT_BOX if geglu else 2 * WEIGHT_BOX
+    out_cols = n // 2 if geglu else n
+    tiles_m, tiles_n = -(-m // GEMM_BM), -(-out_cols // step)
+    return GemmPlan(tiles_m, tiles_n, step, min(tiles_m * tiles_n, sms), min(GEMM_GROUP, tiles_m))
+
+
+def weight_rows(u: int, n: int, geglu: bool) -> List[int]:
+    """The 160 weight rows (output columns of ``y @ w``, rows of the (N, K)
+    operand) that column tile ``u`` stacks in shared memory, as two TMA boxes
+    of ``WEIGHT_BOX`` rows: rows 160 u … 160 u + 159, or for GEGLU the h rows
+    80 u … 80 u + 79 and then their gate rows N/2 + 80 u …; -1 where a box
+    runs past N (TMA's zeros)."""
+    step = WEIGHT_BOX if geglu else 2 * WEIGHT_BOX
+    second = n // 2 if geglu else WEIGHT_BOX
+    rows = [u * step + i for i in range(WEIGHT_BOX)]
+    rows += [u * step + second + i for i in range(WEIGHT_BOX)]
+    return [r if r < n else -1 for r in rows]
+
+
+def _apply(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor, eps: float,
+           y: torch.Tensor) -> torch.Tensor:
+    """The apply pass on a checked CUDA x (M, K) into y, (M, K) in x's dtype."""
+    m, k = x.shape
+    code = _build.lib().dg_ln_apply(
+        x.data_ptr(), gamma.data_ptr(), beta.data_ptr(), y.data_ptr(), m, k, eps,
+        int(x.dtype == torch.float32), torch.cuda.current_stream(x.device).cuda_stream)
+    _build.check(code, "LayerNorm apply pass launch")
+    return y
+
+
+def _gemm(y: torch.Tensor, wt: torch.Tensor, bias: Optional[torch.Tensor], out: torch.Tensor,
+          epilogue: int) -> torch.Tensor:
+    """The GEMM on checked CUDA operands: y (M, K) from :func:`_apply`, wt
+    (N, K) in y's dtype, bias (N,) f32 or None, into out (M, N or N/2)."""
+    m, k = y.shape
+    n = wt.shape[0]
+    stream = torch.cuda.current_stream(y.device).cuda_stream
+    bias_ptr = None if bias is None else bias.data_ptr()
+    lib = _build.lib()
+    if y.dtype == torch.float32:
+        code = lib.dg_ln_gemm_f32(y.data_ptr(), wt.data_ptr(), bias_ptr, out.data_ptr(), m, n,
+                                  k, epilogue, stream)
+    else:
+        sms = torch.cuda.get_device_properties(y.device).multi_processor_count
+        plan = gemm_plan(m, n, epilogue == _GEGLU, sms)
+        code = lib.dg_ln_gemm(y.data_ptr(), wt.data_ptr(), bias_ptr, out.data_ptr(), m, n, k,
+                              epilogue, plan.blocks, plan.group, stream)
+    _build.check(code, "fused LayerNorm-matmul GEMM launch")
+    return out
 
 
 def fused_ln_matmul(x: torch.Tensor, w: torch.Tensor, gamma: torch.Tensor,
@@ -66,8 +169,9 @@ def fused_ln_matmul(x: torch.Tensor, w: torch.Tensor, gamma: torch.Tensor,
     cols = n // 2 if geglu else n
     if x.device.type != "cuda" or w.device != x.device:
         raise ValueError(f"x on {x.device}, w on {w.device}: the kernel needs CUDA")
-    if x.dtype != torch.bfloat16 or w.dtype != torch.bfloat16:
-        raise ValueError(f"the kernel takes bfloat16 x and w, got {x.dtype}, {w.dtype}")
+    if x.dtype not in KERNEL_DTYPES or w.dtype != x.dtype:
+        raise ValueError(f"the kernel takes bfloat16 or float32 x and w of one dtype, got "
+                         f"{x.dtype}, {w.dtype}")
     if not x.is_contiguous() or x.data_ptr() % 16:
         raise ValueError("the kernel takes a contiguous, 16-byte aligned x")
     if k % 8 or n % 8 or (geglu and n % 16):
@@ -83,19 +187,19 @@ def fused_ln_matmul(x: torch.Tensor, w: torch.Tensor, gamma: torch.Tensor,
     beta = beta.to(**f32).contiguous()
     if bias is not None:
         bias = bias.to(**f32).contiguous()
-    stats = torch.empty((m, 2), **f32)
     out = torch.empty((m, cols), device=x.device, dtype=x.dtype)
-    epilogue = _GEGLU if geglu else _EPILOGUES[act]
-    lib = _build.lib()
     fused_ln_matmul.launches += 1
-    code = lib.dg_ln_matmul_bf16(
-        x.data_ptr(), wt.data_ptr(), gamma.data_ptr(), beta.data_ptr(),
-        None if bias is None else bias.data_ptr(), stats.data_ptr(),
-        out.data_ptr(), m, n, k, eps, epilogue,
-        torch.cuda.current_stream(x.device).cuda_stream,
-    )
-    _build.check(code, "fused LayerNorm-matmul kernel launch")
-    return out
+    return _into(x, wt, gamma, beta, eps, bias, _GEGLU if geglu else _EPILOGUES[act], out)
+
+
+def _into(x: torch.Tensor, wt: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
+          eps: float, bias: Optional[torch.Tensor], epilogue: int,
+          out: torch.Tensor) -> torch.Tensor:
+    """The apply pass, then the GEMM, on checked CUDA operands (gamma, beta
+    and bias f32) into ``out``, a contiguous (M, N or N/2) tensor in x's
+    dtype that the caller allocates (the first rows of a larger one are
+    fine)."""
+    return _gemm(_apply(x, gamma, beta, eps, torch.empty_like(x)), wt, bias, out, epilogue)
 
 
 fused_ln_matmul.launches = 0

@@ -11,9 +11,11 @@ with the scale applied to the float32 scores after the product, the
 probabilities cast to v's dtype before the second product and the result in
 the input's dtype. Both launch ``csrc/window_attention.cu`` for a CUDA tensor
 and use the plain version in this module, the numerics reference, for a CPU
-tensor. A CUDA tensor the kernel cannot take raises: bfloat16, head dim 32 and
-1 ≤ n ≤ 144 only, any head count (there is no lane rule, so six heads take the
-packed kernel like any other count).
+tensor. A CUDA tensor the kernel cannot take raises: bfloat16 or float32 (as
+the TPU kernels take the input's dtype; float32 runs the float32 body
+``csrc/attention_f32.cu``, forward and backward, with true float32 products),
+head dim 32 and 1 ≤ n ≤ 144 only, any head count (there is no lane rule, so
+six heads take the packed kernel like any other count).
 
 The JAX kernels carry a ``custom_vjp``; here each wrapper is a
 ``torch.autograd.Function`` on a CUDA tensor: its backward launches the
@@ -37,6 +39,7 @@ from typing import Optional
 import torch
 
 from . import _build
+from . import attention_f32
 
 KERNEL_HEAD_DIM = 32  # every Swin variant's head dim
 KERNEL_MAX_TOKENS = 144  # a 12 x 12 window; the scores of a row stay in registers
@@ -129,9 +132,8 @@ def _require_kernel_input(name: str, t: torch.Tensor, n: int, d: int, strided: b
     """Raise on a non-CPU tensor the kernel cannot take. The device is checked
     last, so the other rules can be exercised without a card (a ``meta``
     tensor reaches them)."""
-    if t.dtype != torch.bfloat16:
-        raise ValueError(f"{name}: the kernel takes bfloat16, got {t.dtype}")
-    if d != KERNEL_HEAD_DIM:
+    attention_f32.body_for(t.dtype, d, "window")  # bfloat16 or float32
+    if d != KERNEL_HEAD_DIM:  # the float32 body's other head dims: not its backward's
         raise ValueError(f"head dim {d} has no kernel (instantiated: {KERNEL_HEAD_DIM})")
     if not 1 <= n <= KERNEL_MAX_TOKENS:
         raise ValueError(f"{n} tokens per window: the kernel takes 1 to {KERNEL_MAX_TOKENS}")
@@ -172,14 +174,20 @@ class _WindowAttention(torch.autograd.Function):
         bias32 = _f32_on(bias, q.device)
         mask32 = _f32_on(mask, q.device)
         out = torch.empty((b, h, n, d), dtype=q.dtype, device=q.device)
+        nw = 1 if mask32 is None else mask32.shape[0]
         fused_window_attention.launches += 1
-        code = _build.lib().dg_window_attention_bf16(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), bias32.data_ptr(),
-            None if mask32 is None else mask32.data_ptr(), out.data_ptr(),
-            b, h, n, 1 if mask32 is None else mask32.shape[0],
-            *q.stride()[:3], *k.stride()[:3], *out.stride()[:3],
-            1.0 / math.sqrt(d), torch.cuda.current_stream(q.device).cuda_stream)
-        _build.check(code, "window attention kernel launch")
+        if q.dtype == torch.float32:
+            attention_f32.launch(
+                q, k.data_ptr(), v.data_ptr(), out, batch=b, heads=h, sq=n, sk=n, d=d,
+                q_strides=q.stride()[:3], kv_strides=k.stride()[:3], o_strides=out.stride()[:3],
+                bias_mode="window", bias=bias32, bias2=mask32, nw=nw, scale=1.0 / math.sqrt(d))
+        else:
+            code = _build.lib().dg_window_attention_bf16(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), bias32.data_ptr(),
+                None if mask32 is None else mask32.data_ptr(), out.data_ptr(), b, h, n, nw,
+                *q.stride()[:3], *k.stride()[:3], *out.stride()[:3],
+                1.0 / math.sqrt(d), torch.cuda.current_stream(q.device).cuda_stream)
+            _build.check(code, "window attention kernel launch")
         ctx.save_for_backward(q, k, v, bias32, mask32)
         ctx.bias_dtype = bias.dtype
         return out
@@ -195,7 +203,10 @@ class _WindowAttention(torch.autograd.Function):
         partial = torch.empty((chunks if chunks > 1 else 0, h, n, n), dtype=torch.float32,
                               device=q.device)
         fused_window_attention.backward_launches += 1
-        code = _build.lib().dg_window_attention_bwd_bf16(
+        lib = _build.lib()
+        entry = (lib.dg_window_attention_bwd_f32 if q.dtype == torch.float32
+                 else lib.dg_window_attention_bwd_bf16)
+        code = entry(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), bias32.data_ptr(),
             None if mask32 is None else mask32.data_ptr(), dq.data_ptr(), dk.data_ptr(),
             dv.data_ptr(), dbias.data_ptr(), partial.data_ptr(), b, h, n,
@@ -216,12 +227,22 @@ class _WindowAttentionPacked(torch.autograd.Function):
         bias32 = _f32_on(bias, qkv.device)
         mask32 = _f32_on(mask, qkv.device)
         out = torch.empty((bn, n, c), dtype=qkv.dtype, device=qkv.device)
+        nw = 1 if mask32 is None else mask32.shape[0]
+        d = c // heads
         fused_window_attention_packed.launches += 1
-        code = _build.lib().dg_window_attention_packed_bf16(
-            qkv.data_ptr(), bias32.data_ptr(), None if mask32 is None else mask32.data_ptr(),
-            out.data_ptr(), bn, n, heads, 1 if mask32 is None else mask32.shape[0],
-            1.0 / math.sqrt(c // heads), torch.cuda.current_stream(qkv.device).cuda_stream)
-        _build.check(code, "packed window attention kernel launch")
+        if qkv.dtype == torch.float32:
+            strides, size = (n * c3, d, c3), qkv.element_size()
+            attention_f32.launch(
+                qkv, qkv.data_ptr() + c * size, qkv.data_ptr() + 2 * c * size, out, batch=bn,
+                heads=heads, sq=n, sk=n, d=d, q_strides=strides, kv_strides=strides,
+                o_strides=(n * c, d, c),
+                bias_mode="window", bias=bias32, bias2=mask32, nw=nw, scale=1.0 / math.sqrt(d))
+        else:
+            code = _build.lib().dg_window_attention_packed_bf16(
+                qkv.data_ptr(), bias32.data_ptr(), None if mask32 is None else mask32.data_ptr(),
+                out.data_ptr(), bn, n, heads, nw, 1.0 / math.sqrt(d),
+                torch.cuda.current_stream(qkv.device).cuda_stream)
+            _build.check(code, "packed window attention kernel launch")
         ctx.save_for_backward(qkv, bias32, mask32)
         ctx.heads, ctx.bias_dtype = heads, bias.dtype
         return out
@@ -238,7 +259,10 @@ class _WindowAttentionPacked(torch.autograd.Function):
         partial = torch.empty((chunks if chunks > 1 else 0, heads, n, n), dtype=torch.float32,
                               device=qkv.device)
         fused_window_attention_packed.backward_launches += 1
-        code = _build.lib().dg_window_attention_packed_bwd_bf16(
+        lib = _build.lib()
+        entry = (lib.dg_window_attention_packed_bwd_f32 if qkv.dtype == torch.float32
+                 else lib.dg_window_attention_packed_bwd_bf16)
+        code = entry(
             qkv.data_ptr(), do.data_ptr(), bias32.data_ptr(),
             None if mask32 is None else mask32.data_ptr(), dqkv.data_ptr(), dbias.data_ptr(),
             partial.data_ptr(), bn, n, heads, 1 if mask32 is None else mask32.shape[0],

@@ -79,23 +79,6 @@ def test_bhsd_plan_reads_one_head_per_batch_row():
     assert {(qc, kc, vc) for _, _, (qc, _, _), kc, vc in plan.boxes(132)} == {(0, 0, 0)}
 
 
-def test_bf16_operand_rounds_float32_as_the_kernel_reads_it():
-    """Float32 q, k and v reach the d = 64 body rounded to bf16, to nearest
-    even; on bf16-exact inputs that changes nothing, so the plain twin gives
-    the same result on both."""
-    x = torch.tensor([1.0, 1.0 + 2 ** -8, 1.0 + 3 * 2 ** -8, -(1.0 + 2 ** -9), 3.0 + 2 ** -7])
-    got = tfa.bf16_operand(x)
-    assert got.dtype == torch.bfloat16
-    assert got.float().tolist() == [1.0, 1.0, 1.0 + 2 ** -6, -1.0, 3.0]
-    bf = torch.zeros(1, dtype=torch.bfloat16)
-    assert tfa.bf16_operand(bf) is bf
-    qkv = torch.from_numpy(np.random.RandomState(3).randn(1, 64, 3 * 128).astype(np.float32))
-    qkv = qkv.bfloat16().float()  # bf16-exact
-    assert torch.equal(tfa.bf16_operand(qkv).float(), qkv)
-    assert torch.equal(tfa.reference_attention_packed(tfa.bf16_operand(qkv).float(), 2),
-                       tfa.reference_attention_packed(qkv, 2))
-
-
 def test_flash_attention_packed_rejects_tpu_only_mode():
     with pytest.raises(ValueError):
         tfa.flash_attention_packed(torch.zeros(1, 8, 3 * 64), 1, softmax_mode="bf16exp")

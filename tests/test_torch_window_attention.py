@@ -127,7 +127,7 @@ BIAS = torch.zeros(3, 16, 16)
 
 
 @pytest.mark.parametrize("case,qkv,heads,error,match", [
-    ("float32", meta(4, 16, 288, dtype=torch.float32), 3, ValueError, "bfloat16"),
+    ("float16", meta(4, 16, 288, dtype=torch.float16), 3, ValueError, "bfloat16 or float32"),
     ("head dim 64", meta(4, 16, 576), 3, ValueError, "head dim 64"),
     ("not contiguous", meta(4, 16, 576)[..., :288], 3, ValueError, "contiguous"),
     ("neither CPU nor CUDA", meta(4, 16, 288), 3, ValueError, "CUDA or CPU"),
@@ -145,7 +145,7 @@ def test_packed_wrapper_gradient_allowed_under_no_grad():
 
 
 @pytest.mark.parametrize("case,kw,error,match", [
-    ("float32", dict(dtype=torch.float32), ValueError, "bfloat16"),
+    ("float16", dict(dtype=torch.float16), ValueError, "bfloat16 or float32"),
     ("head dim 16", dict(d=16), ValueError, "head dim 16"),
     ("too many tokens", dict(n=169), ValueError, "169 tokens"),
     ("neither CPU nor CUDA", dict(), ValueError, "CUDA or CPU"),

@@ -1,5 +1,5 @@
 """What the A/B tools share (``attention_ab.py``, ``int8_gemm_ab.py``,
-``gn_conv_ab.py``): building one kernel source into a library of its own, and
+``gn_conv_ab.py``, ``ln_matmul_ab.py``): building one kernel source into a library of its own, and
 timing several builds in turns on one GPU.
 
 Each tool runs from the root of a checkout as ``python3 tools/<tool>.py``;
