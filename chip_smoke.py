@@ -47,9 +47,15 @@ Run from the root of a checkout:  python3 chip_smoke.py
    dbias against ``reference_window_attention_packed_backward`` on the same
    bf16 inputs (the same bounds), the split wrapper's gradients equal to the
    packed one's bit for bit on the same projection, the same call twice equal
-   bit for bit, and beside the kernel's time that of the backward of
+   bit for bit, the C entry point into dqkv and dbias buffers whose next row
+   is NaN (the same bits, that row still NaN), the bf16 body's shared memory
+   equal to ``backward_smem(n)`` (which sizes its grid) for n = 1..144, and
+   beside the kernel's time that of the backward of
    ``scaled_dot_product_attention`` alone (its forward graph built outside
-   the timing, as the kernel's is), with its forward + backward printed too.
+   the timing, as the kernel's is), with its forward + backward printed too;
+   at the four stage shapes the device time of the backward kernels alone
+   beside SDPA's backward and the bound, and their sums over a train step's
+   24 launches.
    Then kernels 1, 3, 4, 5 and 6 on float32 inputs (the float32 body,
    ``csrc/attention_f32.cu``): packed (2, 256, 3 x 128, 2 heads), d = 512
    with a bias (1, 1024, 1024), relpos (2, 16 heads, 16 x 16, d 80) on views
@@ -642,9 +648,23 @@ def kernel_phases(gen: torch.Generator, card: str):
     # backward on the same bf16 inputs (bound: relative L2 <= 1e-2 and max |error|
     # <= 3e-2 * max |reference| for the bf16 dqkv parts and the float32 dbias);
     # the split wrapper on heads-first views of the same projection, whose dq,
-    # dk, dv and dbias must equal the packed wrapper's bit for bit; and the same
+    # dk, dv and dbias must equal the packed wrapper's bit for bit; the same
     # call twice, which must give the same bits (the partial bias gradients of
-    # the window chunks are added in a fixed order)
+    # the window chunks are added in a fixed order); the C entry point into
+    # dqkv and dbias buffers whose next row is NaN, which must give the same
+    # bits and leave that row NaN. At the four stage shapes, the device time of
+    # the backward kernels alone beside that of SDPA's backward and the bound,
+    # and their sums over a train step's 24 launches (2, 2, 18 and 2 at the four
+    # stages, the shift mask on every second block).
+    lib = _build.lib()
+    wrong = [n for n in range(1, 145)
+             if lib.dg_window_attention_bwd_smem(n) != wa_mod.backward_smem(n)]
+    if wrong:
+        raise AssertionError(f"the backward body's shared memory differs from backward_smem "
+                             f"at n = {wrong}")
+    log("    the bf16 backward body's shared memory per block equals backward_smem(n), "
+        f"n = 1..144 ({wa_mod.backward_smem(144)} bytes at n = 144)")
+
     def backward_case(bn, c, heads, nw, n, with_mask):
         qkv, bias, mask, _, _ = window_case(bn, c, heads, nw, n, with_mask)
         do = randn(bn, n, c)
@@ -658,6 +678,29 @@ def kernel_phases(gen: torch.Generator, card: str):
         out = wa_mod.fused_window_attention_packed(qkv, bias, mask, heads)
         return out, lambda: torch.autograd.grad(out, (qkv, bias), do, retain_graph=True)
 
+    def guarded_backward(qkv, bias, mask, heads, do, dqkv, dbias, what):
+        """The packed C entry point into dqkv and dbias buffers whose next row
+        is NaN: the wrapper's bits, and that row untouched."""
+        bn, n, c3 = qkv.shape
+        plan = wa_mod.backward_plan(bn, heads, n, dev)
+        gq = torch.full((bn * n + 1, c3), float("nan"), device=dev, dtype=torch.bfloat16)
+        gb = torch.full((heads * n * n + n,), float("nan"), device=dev)
+        part = torch.empty(plan.scratch, device=dev)
+        _build.check(lib.dg_window_attention_packed_bwd_bf16(
+            qkv.data_ptr(), do.data_ptr(), bias.data_ptr(),
+            None if mask is None else mask.data_ptr(), gq.data_ptr(), gb.data_ptr(),
+            part.data_ptr(), bn, n, heads, 1 if mask is None else mask.shape[0], plan.chunks,
+            plan.per_chunk, (c3 // 3 // heads) ** -0.5, torch.cuda.current_stream().cuda_stream),
+            "packed window attention backward kernel launch")
+        if not (torch.equal(gq[:-1].view(bn, n, c3), dqkv) and bool(gq[-1].isnan().all())
+                and torch.equal(gb[:-n].view(heads, n, n), dbias) and bool(gb[-n:].isnan().all())):
+            raise AssertionError(f"window attention backward wrote outside dqkv or dbias ({what})")
+        log(f"    writes nothing past dqkv and dbias (chunks {plan.chunks} x {plan.per_chunk} "
+            f"windows): True")
+
+    if sum(SWIN_L_STAGE_LAUNCHES.values()) != SWIN_L_BLOCKS:
+        raise AssertionError("SWIN_L_STAGE_LAUNCHES does not add up to a Swin-L forward's launches")
+    step = {"kernel": 0.0, "SDPA backward": 0.0, "bound": 0.0}
     for bn, c, heads, nw, n in ((722, 192, 6, 361, 144), (200, 384, 12, 100, 144),
                                 (50, 768, 24, 25, 144), (18, 1536, 48, 9, 144),
                                 (8, 96, 3, 4, 49), (8, 96, 3, 4, 16), (8, 96, 3, 2, 4)):
@@ -673,11 +716,13 @@ def kernel_phases(gen: torch.Generator, card: str):
                               dqkv[..., i * c:(i + 1) * c], ref_dqkv[..., i * c:(i + 1) * c])
                       for i, part in enumerate(("dq", "dk", "dv")))
             err_b = compare(f"window packed backward dbias {what}", dbias, ref_dbias)
+            del ref_dqkv, ref_dbias
             again = run()
             same = torch.equal(again[0], dqkv) and torch.equal(again[1], dbias)
             log(f"    two runs give the same bits: {same}")
             if not same:
                 raise AssertionError(f"window attention backward is not deterministic ({what})")
+            guarded_backward(qkv.detach(), bias.detach(), mask, heads, do, dqkv, dbias, what)
             # the split wrapper on views of the same projection
             q, k, v = (t.detach().requires_grad_(True) for t in heads_first(qkv.detach(), heads))
             bias2 = bias.detach().clone().requires_grad_(True)
@@ -699,40 +744,55 @@ def kernel_phases(gen: torch.Generator, card: str):
                 qkv.detach(), bias.detach(), mask, heads, do)
             ms, pms, span = time_pair(run, plain, reps=WINDOW_REPS)
             first = "fused_window_attention_packed_backward" not in results
-            library = library_both = None
-            if first:
-                # the PyTorch call's inputs and its forward graph, built outside the
-                # timing: its backward alone is timed, as the kernel's is
-                attn_mask = dense_mask(bias.detach(), mask, bn)
-                q4, k4, v4 = (t.detach().contiguous().requires_grad_(True)
-                              for t in heads_first(qkv.detach(), heads))
-                do_c = do4.contiguous()
-                lib_out = F.scaled_dot_product_attention(q4, k4, v4, attn_mask=attn_mask)
-                library = lambda: torch.autograd.grad(lib_out, (q4, k4, v4), do_c, retain_graph=True)
-                library_both = lambda: torch.autograd.grad(
-                    F.scaled_dot_product_attention(q4, k4, v4, attn_mask=attn_mask),
-                    (q4, k4, v4), do_c)
+            # the PyTorch call's inputs and its forward graph, built outside the
+            # timing: its backward alone is timed, as the kernel's is
+            attn_mask = dense_mask(bias.detach(), mask, bn)
+            q4, k4, v4 = (t.detach().contiguous().requires_grad_(True)
+                          for t in heads_first(qkv.detach(), heads))
+            do_c = do4.contiguous()
+            lib_out = F.scaled_dot_product_attention(q4, k4, v4, attn_mask=attn_mask)
+            library = lambda: torch.autograd.grad(lib_out, (q4, k4, v4), do_c, retain_graph=True)
+            # device time of the backward kernels alone (the body and the reduce of
+            # the chunks' partial bias gradients) and of SDPA's backward
+            dev_ms, lib_dev = device_ms(run), device_ms(library)
+            b_ms, _ = bound(ops, nbytes)
+            share = SWIN_L_STAGE_LAUNCHES[bn] / 2  # half the stage's blocks take the mask
+            step["kernel"] += share * dev_ms
+            step["SDPA backward"] += share * lib_dev
+            step["bound"] += share * b_ms
+            log(f"    device: kernels {dev_ms:.4f} ms, SDPA backward {lib_dev:.4f} ms, bound "
+                f"{b_ms:.4f} ms; {share:g} launches a train step")
 
             log(f"    dbias max_abs_err {err_b:.6g}; bound: {nbytes / 1e6:.1f} MB, "
                 f"{ops / 1e9:.1f} GFLOP in five products")
             record("fused_window_attention_packed_backward", err, ms, pms, span, library, ops, nbytes)
             if first:
+                library_both = lambda: torch.autograd.grad(
+                    F.scaled_dot_product_attention(q4, k4, v4, attn_mask=attn_mask),
+                    (q4, k4, v4), do_c)
                 log(f"    (the PyTorch call is the backward of scaled_dot_product_attention alone, "
                     f"without a gradient for its dense bias; its forward + backward takes "
                     f"{time_one(library_both):.4f} ms)")
-                del attn_mask, q4, k4, v4, lib_out, library, library_both
+                results["fused_window_attention_packed_backward"].update(
+                    device_ms=dev_ms, library_device_ms=lib_dev)
+                del library_both
+            del attn_mask, q4, k4, v4, lib_out, library
             ms2, pms2, span2 = time_pair(
                 run_split, lambda: wa_mod.reference_window_attention_backward(
                     q.detach(), k.detach(), v.detach(), bias2.detach(), mask, do4), reps=WINDOW_REPS)
             if "fused_window_attention_backward" not in results:
                 packed_entry = results["fused_window_attention_packed_backward"]
+                dev2 = device_ms(run_split)
                 log(f"    split backward on views: kernel {ms2:.4f} ms (min {span2[0]:.4f}, max "
-                    f"{span2[1]:.4f}), plain {pms2:.4f} ms")
+                    f"{span2[1]:.4f}), plain {pms2:.4f} ms; device {dev2:.4f} ms")
                 results["fused_window_attention_backward"] = dict(
-                    packed_entry, ms=ms2, plain_ms=pms2, max_abs_err=err)
+                    packed_entry, ms=ms2, plain_ms=pms2, max_abs_err=err, device_ms=dev2)
             results["fused_window_attention_backward"]["max_abs_err"] = max(
                 results["fused_window_attention_backward"]["max_abs_err"], err)
             torch.cuda.empty_cache()
+    log("  window attention backward, a train step's 24 launches (device ms): "
+        + ", ".join(f"{name} {ms:.4f}" for name, ms in step.items()))
+    results["fused_window_attention_packed_backward"]["step_device_ms"] = step["kernel"]
     float32_attention_phases(gen, card, results)
     return results
 
@@ -1918,6 +1978,9 @@ def slice_chain(encoder, pipe, card: str):
 
 
 SWIN_L_BLOCKS = 24  # depths 2 / 2 / 18 / 2: one window attention per block
+# window-attention launches a Swin-L forward (and backward) makes at each stage,
+# by its windows at B = 2, 896², window 12
+SWIN_L_STAGE_LAUNCHES = {722: 2, 200: 2, 50: 18, 18: 2}
 
 
 def slice_detector(card: str):

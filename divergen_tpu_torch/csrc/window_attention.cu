@@ -47,6 +47,7 @@
 #include <stdint.h>
 
 #include "mma_sm90.cuh"
+#include "sm90_async.cuh"  // the backward's mbarriers and TMA
 
 namespace {
 
@@ -253,94 +254,137 @@ int dispatch(const WinParams& p, int batch, cudaStream_t stream) {
 // with s = q k^T scale + bias[h] + mask[b % nW] and p = softmax(s) recomputed,
 //   dv = p^T do,  dp = do v^T,  ds = p (dp - rowsum(p dp)),
 //   dq = ds k scale,  dk = ds^T q scale,  dbias[h] = sum over windows of ds,
-// p and ds rounded to bf16 for their products, everything else in f32, the
-// mask without a gradient. One body for both layouts: q, k, v by the forward's
-// strides, do by its own, dq, dk and dv by one shared triple (the packed entry
-// points them into one (bn, n, 3C) buffer, so no concatenation follows).
+// p and ds rounded to bf16 for their products, everything else in f32 (dbias
+// sums the unrounded ds), the mask without a gradient: the Pallas body's five
+// products. One body for both layouts: q, k, v by the forward's strides, do by
+// its own, dq, dk and dv by one shared triple (the packed entry points them
+// into one (bn, n, 3C) buffer, so no concatenation follows).
 //
-// What bounds it on the H100: bytes again (seven small products per window
-// and head, 9 MFLOP on 45 KB of q, k, v, do, dq, dk, dv), so the scores,
-// probabilities and ds never leave the chip. What is hard here, and what the
-// design does:
-//   * dv and dk reduce over query rows, which the forward's layout spreads
-//     over warps. Instead of staging p and ds in shared memory, the block runs
-//     two phases on the same tiles. Phase 1 is the forward's layout (a warp
-//     owns 16 query rows): it recomputes p, takes dp tile by tile twice (once
-//     for rowsum(p dp), once for ds) and feeds ds in registers to ds k. It
-//     leaves each row's max, 1/sum and rowsum in shared memory. Phase 2 is the
-//     transposed problem (a warp owns 16 key rows and all queries): it
-//     recomputes s^T = k q^T, rebuilds p^T from the saved row statistics, and
-//     feeds p^T and ds^T in registers to p^T do and ds^T q. Two more products
-//     than the minimum, no n x n buffer, no reduction across warps.
-//   * dbias sums over every window of a head. The TPU kernel keeps the
-//     windows innermost in a sequential grid; here a block owns one head and a
-//     chunk of consecutive windows, loops over them, and keeps its ds sum in
-//     registers (a thread owns the same (row, key) elements in every window).
-//     It writes one partial per chunk, and dbias_reduce_kernel adds the
-//     partials in chunk order: no atomics, the same bits on every run. With one
-//     chunk the partial is the result.
-// Limits as the forward's: bf16, d = 32, 1 <= n <= 144, rows past n zero-filled
-// in shared memory and keys past n masked by index.
+// What bounds it on the H100: bytes (at n = 144 five products of 1.3 MFLOP per
+// window and head on 37 KB of q, k, v, do and 28 KB of dq, dk, dv, 92
+// operations a byte against the card's 295), then what a window waits on:
+// its loads, 166 KB of bias and mask from L2 for every window and head, the
+// block's barriers. What is hard here, and what the design does:
+//   * dv and dk reduce over query rows, which phase 1's layout (a warp owns 16
+//     query rows and all keys, as in the forward) spreads over warps. Phase 1
+//     computes s, p, dp, rowsum(p dp), ds and dq = ds k once, in registers, and
+//     leaves p and ds, rounded to bf16, in two n x n shared tiles. After a block
+//     barrier phase 2 (a warp owns 16 keys) takes dv = p^T do and dk = ds^T q
+//     with ldmatrix.trans from those tiles: nothing is recomputed transposed,
+//     and the bias and mask are read once, in row order.
+//   * q, k, v and do come by TMA (one rank-4 map each over (d, n, heads,
+//     batch) at the wrapper's strides, a box of one window and head, the
+//     64-byte swizzle, rows past n zero-filled) on mbarriers, one thread
+//     issuing: q and do through kQDStages buffers, so the next window's arrive
+//     while this one computes, k and v through one, refilled for the next
+//     window as soon as phase 1 is done with them.
+//   * dbias sums ds over every window of a head. The TPU kernel keeps windows
+//     innermost in a sequential grid; here a block owns one head and a chunk of
+//     consecutive windows and adds each window's f32 ds into an n x n f32 tile
+//     in shared memory. A thread owns the same elements in every window, so no
+//     barrier guards the sum, and registers keep p and dp instead. The block
+//     writes one partial per chunk, and dbias_reduce_kernel adds the partials
+//     in chunk order: no atomics, the same bits on every run. With one chunk
+//     the partial is the result. The wrapper's plan
+//     (ops/window_attention.py:backward_plan) sizes the chunks so that the
+//     blocks fill the slots the shared memory leaves on each multiprocessor.
+//   * What is left is latency: at n = 144 the tiles take 230,936 bytes, so one
+//     block of nine warps runs on a multiprocessor, in step at the barriers,
+//     and three warps on one scheduler cap a thread at 168 registers (p and dp
+//     alone take 144; a few spill). The bias and mask loads are therefore all
+//     issued at once at a window's start and become the starting value of the
+//     q k^T accumulator ((bias + mask) / scale, then s scale log2(e)): one
+//     wait for L2 a window, and no registers held for the products meanwhile.
+//     When n = 16 NT (144 on the main path) a warp reads its 16 rows of each
+//     as one contiguous run of float4 and stages their sum through its own p
+//     and ds rows, since in the scores' layout every load touches 8 rows.
+//     Prefetching the next window's bias or mask during phase 2, taking dv and
+//     dk one after the other, recomputing dp instead of keeping it, one q/do
+//     buffer, and a body specialised to n = 144 were each measured slower
+//     (PERF.md).
+// Limits as the forward's: bf16, d = 32, 1 <= n <= 144, keys past n masked by
+// index.
+
+constexpr int kRowBytes = kD * 2;    // a row of a q, k, v or do tile: 64 bytes, no padding
+constexpr int kSwizzleSpan = 512;    // the 64-byte swizzle's pattern repeats every 512 bytes
+constexpr int kQDStages = 2;         // buffers of q and do
+
+// shared memory of window_attn_bwd_kernel<NT>: byte offsets from a 512-byte boundary
+template <int NT>
+struct BwdSmem {
+  static constexpr int NP = 16 * NT;
+  static constexpr int kTile = NP * kRowBytes;  // q, k, v or do of one window and head
+  static constexpr int kLD = NP + 8;            // row stride of the p, ds (bf16) and sum (f32) tiles
+  static constexpr int kKV = 2 * kQDStages * kTile;  // after q, do of each stage: k, then v
+  static constexpr int kP = kKV + 2 * kTile;
+  static constexpr int kDS = kP + NP * kLD * 2;
+  static constexpr int kSum = kDS + NP * kLD * 2;
+  static constexpr int kBars = kSum + NP * kLD * 4;  // q/do full per stage, k/v full
+  static constexpr int kBytes = kBars + (kQDStages + 1) * 8 + kSwizzleSpan;  // the launch's ask
+};
 
 struct WinBwdParams {
-  const bf16* q;
-  const bf16* k;
-  const bf16* v;
-  const bf16* d_o;
   const float* bias;  // (heads, n, n)
   const float* mask;  // (nw, n, n) or null
   bf16* dq;
   bf16* dk;
   bf16* dv;
-  float* partial;  // (chunks, heads, n, n)
+  float* partial;  // (chunks, heads, n, n), or dbias itself with one chunk
   int batch, heads, n, nw, per_chunk;
-  int64_t q_bs, q_hs, q_rs;
-  int64_t kv_bs, kv_hs, kv_rs;
-  int64_t do_bs, do_hs, do_rs;
-  int64_t g_bs, g_hs, g_rs;  // dq, dk and dv
+  int head_at[4], batch_at[4];  // per map (q, k, v, do): the coordinate of head and window
+  int64_t g_bs, g_hs, g_rs;     // dq, dk and dv
   float scale, scale_log2;
 };
 
-// c[2][4] = (16 rows of `a` at row0) x (16 rows of `b` at nb*16)^T over d = 32:
-// columns nb*16 + {2t, 2t+1} in c[0] and + 8 in c[1]
-__device__ __forceinline__ void rows_times_rows(float (&c)[2][4], const uint32_t (&af)[kD / 16][4],
-                                                const bf16* b, int nb, int lane) {
+// the 16-byte chunk `chunk` (eight of d's 32 columns) of `row` in a tile that
+// TMA wrote under the 64-byte swizzle: the chunk index is XORed with bits 7-8
+// of the row's offset
+__device__ __forceinline__ const unsigned char* sw64(const unsigned char* tile, int row,
+                                                     int chunk) {
+  return tile + row * kRowBytes + ((chunk ^ ((row >> 1) & 3)) << 4);
+}
+
+// the A fragments of rows row0..row0+15 of a swizzled tile, over d = 32
+__device__ __forceinline__ void load_rows(uint32_t (&af)[kD / 16][4], const unsigned char* t,
+                                          int row0, int lane) {
 #pragma unroll
-  for (int t = 0; t < 2; ++t) c[t][0] = c[t][1] = c[t][2] = c[t][3] = 0.f;
+  for (int kk = 0; kk < kD / 16; ++kk)
+    dg::ldmatrix_x4(af[kk], sw64(t, row0 + (lane & 15), kk * 2 + (lane >> 4)));
+}
+
+// (c0, c1) += (16 rows in af) x (rows nb*16..+15 of the swizzled tile t)^T over
+// d = 32: columns nb*16 + {2t, 2t+1} in c0 and + 8 in c1
+__device__ __forceinline__ void rows_times_rows(float (&c0)[4], float (&c1)[4],
+                                                const uint32_t (&af)[kD / 16][4],
+                                                const unsigned char* t, int nb, int lane) {
 #pragma unroll
   for (int kk = 0; kk < kD / 16; ++kk) {
     uint32_t kb[4];
-    dg::ldmatrix_x4(kb, b + (nb * 16 + (lane & 7) + ((lane >> 4) << 3)) * kLD + kk * 16 +
-                            ((lane >> 3) & 1) * 8);
-    dg::mma_bf16_16816(c[0], af[kk], kb[0], kb[1]);
-    dg::mma_bf16_16816(c[1], af[kk], kb[2], kb[3]);
+    dg::ldmatrix_x4(kb, sw64(t, nb * 16 + (lane & 7) + ((lane >> 4) << 3),
+                             kk * 2 + ((lane >> 3) & 1)));
+    dg::mma_bf16_16816(c0, af[kk], kb[0], kb[1]);
+    dg::mma_bf16_16816(c1, af[kk], kb[2], kb[3]);
   }
 }
 
-// the A fragments of 16 rows of a shared tile, over d = 32
-__device__ __forceinline__ void load_rows(uint32_t (&af)[kD / 16][4], const bf16* a, int row0,
-                                          int lane) {
-#pragma unroll
-  for (int kk = 0; kk < kD / 16; ++kk)
-    dg::ldmatrix_x4(af[kk], a + (row0 + (lane & 15)) * kLD + kk * 16 + (lane >> 4) * 8);
-}
-
-// acc (16 x 32) += x (16 rows x keys ks*16..+15, f32 in the C layout, rounded to
-// bf16 here) x (rows ks*16..+15 of the shared tile `b`)
-__device__ __forceinline__ void frag_times_tile(float (&acc)[kD / 8][4], const float (&x)[2][4],
-                                                const bf16* b, int ks, int lane) {
-  uint32_t pa[4];
-  pa[0] = dg::pack_bf16x2(x[0][0], x[0][1]);
-  pa[1] = dg::pack_bf16x2(x[0][2], x[0][3]);
-  pa[2] = dg::pack_bf16x2(x[1][0], x[1][1]);
-  pa[3] = dg::pack_bf16x2(x[1][2], x[1][3]);
+// acc (16 x 32) += a (16 x 16, the A layout) x (rows ks*16..+15 of the swizzled tile t)
+__device__ __forceinline__ void frag_times_tile(float (&acc)[kD / 8][4], const uint32_t (&a)[4],
+                                                const unsigned char* t, int ks, int lane) {
 #pragma unroll
   for (int db = 0; db < kD / 16; ++db) {
     uint32_t vb[4];
-    dg::ldmatrix_x4_trans(vb, b + (ks * 16 + (lane & 15)) * kLD + db * 16 + (lane >> 4) * 8);
-    dg::mma_bf16_16816(acc[2 * db], pa, vb[0], vb[1]);
-    dg::mma_bf16_16816(acc[2 * db + 1], pa, vb[2], vb[3]);
+    dg::ldmatrix_x4_trans(vb, sw64(t, ks * 16 + (lane & 15), db * 2 + (lane >> 4)));
+    dg::mma_bf16_16816(acc[2 * db], a, vb[0], vb[1]);
+    dg::mma_bf16_16816(acc[2 * db + 1], a, vb[2], vb[3]);
   }
+}
+
+// the A fragment of x^T at (keys j0..j0+15, queries i0..i0+15), x a row-major
+// [query][key] tile of row stride ld
+__device__ __forceinline__ void load_transposed(uint32_t (&a)[4], const bf16* x, int ld, int i0,
+                                                int j0, int lane) {
+  dg::ldmatrix_x4_trans(a, x + (i0 + (lane & 7) + ((lane >> 4) << 3)) * ld + j0 +
+                               ((lane >> 3) & 1) * 8);
 }
 
 // rows row0 + g and row0 + g + 8 of a 16 x 32 f32 accumulator, times `mul`, as bf16
@@ -359,17 +403,120 @@ __device__ __forceinline__ void store_rows(bf16* base, int64_t row_stride,
   }
 }
 
+// the box of window b and head h (rows 0..NP-1; the host put head and window
+// at coordinates head_at and batch_at of the map)
+__device__ __forceinline__ void tma_window(void* dst, const CUtensorMap* map, uint64_t* bar,
+                                           int head_at, int batch_at, int h, int b) {
+  const int c1 = head_at == 1 ? h : (batch_at == 1 ? b : 0);
+  const int c2 = head_at == 2 ? h : (batch_at == 2 ? b : 0);
+  const int c3 = head_at == 3 ? h : (batch_at == 3 ? b : 0);
+  dg::tma_load_4d(dst, map, bar, 0, c1, c2, c3);
+}
+
+// an (n, n) f32 matrix (bias[h] or mask[b % nW]) at this thread's (row, key)
+// pairs of the 16-row tile at row0, in the scores' layout. The indices of rows
+// and keys past n are clamped (their scores are masked or never used), so no
+// load sits behind a branch and all of them can be in flight at once.
+template <int NT, bool PAIRS>
+__device__ __forceinline__ void load_pairs_as(float (&x)[2 * NT][4], const float* src, int row0,
+                                              int n, int g, int t4) {
+#pragma unroll
+  for (int j = 0; j < 2 * NT; ++j)
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int64_t row = min(row0 + g + r * 8, n - 1);
+      const int key = j * 8 + 2 * t4;
+      if (PAIRS) {  // n even: key < n means key + 1 < n
+        const float2 v =
+            __ldg(reinterpret_cast<const float2*>(src + row * n + (key < n ? key : 0)));
+        x[j][2 * r] = v.x;
+        x[j][2 * r + 1] = v.y;
+      } else {
+#pragma unroll
+        for (int e = 0; e < 2; ++e) x[j][2 * r + e] = __ldg(src + row * n + min(key + e, n - 1));
+      }
+    }
+}
+
 template <int NT>
-__global__ void __launch_bounds__(32 * NT, 1) window_attn_bwd_kernel(const WinBwdParams p) {
+__device__ __forceinline__ void load_pairs(float (&x)[2 * NT][4], const float* src, int row0,
+                                           int n, int g, int t4) {
+  if ((n & 1) == 0) load_pairs_as<NT, true>(x, src, row0, n, g, t4);  // 8-byte aligned pairs
+  else load_pairs_as<NT, false>(x, src, row0, n, g, t4);
+}
+
+// bias[h] + mask (mask may be null) at this thread's (row, key) pairs of the
+// 16-row tile at row0, in the scores' layout, when n = 16 NT: the warp's 16
+// rows of each are one contiguous run, read as float4 by consecutive lanes
+// (each load touches 4 cache lines, not the 8 rows of the scores' layout),
+// added, and staged through shared memory: rows 0-7 at stage_lo, 8-15 at
+// stage_hi, 16 NT + 8 floats apart (conflict-free reads in the scores'
+// layout). The staging is exactly the warp's own p and ds rows, free until
+// it writes them later in phase 1.
+template <int NT>
+__device__ __forceinline__ void load_rows_staged(float (&x)[2 * NT][4], const float* bias,
+                                                 const float* mask, float* stage_lo,
+                                                 float* stage_hi, int row0, int lane, int g,
+                                                 int t4) {
   constexpr int NP = 16 * NT;
-  constexpr int THREADS = 32 * NT;
-  __shared__ __align__(128) bf16 sQ[NP * kLD];
-  __shared__ __align__(128) bf16 sK[NP * kLD];
-  __shared__ __align__(128) bf16 sV[NP * kLD];
-  __shared__ __align__(128) bf16 sDO[NP * kLD];
-  __shared__ __align__(16) float sMax[NP];    // per query row: max of the base-2 scores,
-  __shared__ __align__(16) float sInv[NP];    // 1 / sum of exp2,
-  __shared__ __align__(16) float sDelta[NP];  // rowsum(p dp)
+  constexpr int LD = NP + 8;
+  constexpr int kPerRow = NP / 4;  // float4 a row
+  constexpr int kPerLane = 2 * NT;  // 16 rows x kPerRow float4 over 32 lanes
+  const float4* b4 = reinterpret_cast<const float4*>(bias + static_cast<int64_t>(row0) * NP);
+  const float4* m4 = reinterpret_cast<const float4*>(mask + static_cast<int64_t>(row0) * NP);
+  float4 v[kPerLane];
+#pragma unroll
+  for (int k = 0; k < kPerLane; ++k) v[k] = __ldg(b4 + k * 32 + lane);
+  if (mask) {
+#pragma unroll
+    for (int k = 0; k < kPerLane; ++k) {
+      const float4 m = __ldg(m4 + k * 32 + lane);
+      v[k].x += m.x;
+      v[k].y += m.y;
+      v[k].z += m.z;
+      v[k].w += m.w;
+    }
+  }
+#pragma unroll
+  for (int k = 0; k < kPerLane; ++k) {
+    const int f = k * 32 + lane;
+    const int row = f / kPerRow;
+    float* dst = row < 8 ? stage_lo + row * LD : stage_hi + (row - 8) * LD;
+    *reinterpret_cast<float4*>(dst + (f % kPerRow) * 4) = v[k];
+  }
+  __syncwarp();
+#pragma unroll
+  for (int j = 0; j < 2 * NT; ++j)
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const float2 e =
+          *reinterpret_cast<const float2*>((r ? stage_hi : stage_lo) + g * LD + j * 8 + 2 * t4);
+      x[j][2 * r] = e.x;
+      x[j][2 * r + 1] = e.y;
+    }
+  __syncwarp();
+}
+
+template <int NT>
+__global__ void __launch_bounds__(32 * NT)
+    window_attn_bwd_kernel(const __grid_constant__ CUtensorMap map_q,
+                           const __grid_constant__ CUtensorMap map_k,
+                           const __grid_constant__ CUtensorMap map_v,
+                           const __grid_constant__ CUtensorMap map_do, const WinBwdParams p) {
+  using L = BwdSmem<NT>;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* base =
+      smem_raw + ((kSwizzleSpan - (dg::smem_addr(smem_raw) & (kSwizzleSpan - 1))) &
+                  (kSwizzleSpan - 1));
+  auto tile_q = [&](int st) { return base + 2 * st * L::kTile; };
+  auto tile_do = [&](int st) { return base + (2 * st + 1) * L::kTile; };
+  unsigned char* tk = base + L::kKV;
+  unsigned char* tv = base + L::kKV + L::kTile;
+  bf16* sP = reinterpret_cast<bf16*>(base + L::kP);
+  bf16* sDS = reinterpret_cast<bf16*>(base + L::kDS);
+  float* sSum = reinterpret_cast<float*>(base + L::kSum);
+  uint64_t* full_qd = reinterpret_cast<uint64_t*>(base + L::kBars);
+  uint64_t* full_kv = full_qd + kQDStages;
 
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
@@ -378,91 +525,99 @@ __global__ void __launch_bounds__(32 * NT, 1) window_attn_bwd_kernel(const WinBw
   const int h = blockIdx.x % p.heads;
   const int chunk = blockIdx.x / p.heads;
   const int n = p.n;
+  const int tiles = (n + 15) / 16;
   const int row0 = warp * 16;
   const bool active = row0 < n;  // a tile of padding rows only takes no part in the phases
-  const bool pairs = (n & 1) == 0;
   const float* bias = p.bias + static_cast<int64_t>(h) * n * n;
+  const float bias_to_acc = 1.f / p.scale;  // bias and mask in units of q k^T
+  const int b0 = chunk * p.per_chunk;
+  const int count = min(p.batch, b0 + p.per_chunk) - b0;  // >= 1: dispatch_bwd checks
 
-  // this thread's share of the chunk's ds sum: rows row0 + g (+ 8), keys j*8 + 2*t4 (+ 1)
-  float dsum[2 * NT][4];
+  // (the lambdas take copies of the slots: a reference to p would move it to local memory)
+  const int head_at[4] = {p.head_at[0], p.head_at[1], p.head_at[2], p.head_at[3]};
+  const int batch_at[4] = {p.batch_at[0], p.batch_at[1], p.batch_at[2], p.batch_at[3]};
+  auto load_qd = [&](int st, int b) {
+    dg::mbar_arrive_expect_tx(&full_qd[st], 2 * L::kTile);
+    tma_window(tile_q(st), &map_q, &full_qd[st], head_at[0], batch_at[0], h, b);
+    tma_window(tile_do(st), &map_do, &full_qd[st], head_at[3], batch_at[3], h, b);
+  };
+  auto load_kv = [&](int b) {
+    dg::mbar_arrive_expect_tx(full_kv, 2 * L::kTile);
+    tma_window(tk, &map_k, full_kv, head_at[1], batch_at[1], h, b);
+    tma_window(tv, &map_v, full_kv, head_at[2], batch_at[2], h, b);
+  };
+  if (threadIdx.x == 0) {
+    for (int i = 0; i <= kQDStages; ++i) dg::mbar_init(&full_qd[i], 1);
+    dg::mbar_init_fence();
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    load_kv(b0);
+    for (int i = 0; i < kQDStages && i < count; ++i) load_qd(i, b0 + i);
+  }
+
+  // this thread's share of the chunk's ds sum (rows row0 + g (+ 8), keys j*8 +
+  // 2*t4 (+ 1)): it alone adds to it, window after window
+  if (active) {
 #pragma unroll
-  for (int j = 0; j < 2 * NT; ++j) dsum[j][0] = dsum[j][1] = dsum[j][2] = dsum[j][3] = 0.f;
+    for (int j = 0; j < 2 * NT; ++j)
+#pragma unroll
+      for (int r = 0; r < 2; ++r)
+        *reinterpret_cast<float2*>(sSum + (row0 + g + r * 8) * L::kLD + j * 8 + 2 * t4) =
+            make_float2(0.f, 0.f);
+  }
 
-  const int b_end = min(p.batch, (chunk + 1) * p.per_chunk);
-  for (int b = chunk * p.per_chunk; b < b_end; ++b) {
-    const bf16* q = p.q + b * p.q_bs + h * p.q_hs;
-    const bf16* k = p.k + b * p.kv_bs + h * p.kv_hs;
-    const bf16* v = p.v + b * p.kv_bs + h * p.kv_hs;
-    const bf16* d_o = p.d_o + b * p.do_bs + h * p.do_hs;
-    for (int c = threadIdx.x; c < NP * (kD / 8); c += THREADS) {
-      const int r = c >> 2;
-      const int col = (c & 3) * 8;
-      const bool ok = r < n;
-      dg::cp_async16(sQ + r * kLD + col, ok ? q + r * p.q_rs + col : q, ok);
-      dg::cp_async16(sK + r * kLD + col, ok ? k + r * p.kv_rs + col : k, ok);
-      dg::cp_async16(sV + r * kLD + col, ok ? v + r * p.kv_rs + col : v, ok);
-      dg::cp_async16(sDO + r * kLD + col, ok ? d_o + r * p.do_rs + col : d_o, ok);
-    }
-    dg::cp_async_commit();
-    dg::cp_async_wait<0>();
-    __syncthreads();
-
+  for (int i = 0; i < count; ++i) {
+    const int b = b0 + i;
+    const int st = i % kQDStages;
+    const unsigned char* tq = tile_q(st);
+    const unsigned char* tdo = tile_do(st);
     const float* mask = p.mask ? p.mask + static_cast<int64_t>(b % p.nw) * n * n : nullptr;
     const int64_t g_off = b * p.g_bs + h * p.g_hs;
+    dg::mbar_wait(&full_qd[st], (i / kQDStages) & 1);
+    dg::mbar_wait(full_kv, i & 1);
 
     if (active) {
       // ---- phase 1: this warp's 16 query rows against all keys ----
-      uint32_t af[kD / 16][4];
-      load_rows(af, sQ, row0, lane);
+      // s = (bias + mask) / scale + q k^T: every bias and mask load is issued at
+      // once, and the products, which add onto them, start when they are in
+      // (one wait for L2 a window, and no registers held for the products'
+      // sake meanwhile); then, in base 2, s scale log2(e)
       float s[2 * NT][4];
+      if (n == 16 * NT) {
+        load_rows_staged<NT>(s, bias, mask, reinterpret_cast<float*>(sP + row0 * L::kLD),
+                             reinterpret_cast<float*>(sDS + row0 * L::kLD), row0, lane, g, t4);
+      } else {
+        load_pairs<NT>(s, bias, row0, n, g, t4);
+        if (mask) {
+          float m[2 * NT][4];
+          load_pairs<NT>(m, mask, row0, n, g, t4);
 #pragma unroll
-      for (int nb = 0; nb < NT; ++nb) {
-        float c[2][4];
-        rows_times_rows(c, af, sK, nb, lane);
+          for (int j = 0; j < 2 * NT; ++j)
 #pragma unroll
-        for (int t = 0; t < 2; ++t)
-#pragma unroll
-          for (int e = 0; e < 4; ++e) s[2 * nb + t][e] = c[t][e];
-      }
-      float mx[2] = {kNegInf, kNegInf};
-#pragma unroll
-      for (int j = 0; j < 2 * NT; ++j) {
-        const int key = j * 8 + 2 * t4;
-#pragma unroll
-        for (int r = 0; r < 2; ++r) {
-          const int row = row0 + g + r * 8;
-          float add[2] = {0.f, 0.f};
-          if (row < n && key < n) {
-            const int64_t at = static_cast<int64_t>(row) * n + key;
-            if (pairs) {
-              const float2 bv = __ldg(reinterpret_cast<const float2*>(bias + at));
-              add[0] = bv.x;
-              add[1] = bv.y;
-              if (mask) {
-                const float2 mv = __ldg(reinterpret_cast<const float2*>(mask + at));
-                add[0] += mv.x;
-                add[1] += mv.y;
-              }
-            } else {
-              add[0] = __ldg(bias + at);
-              if (mask) add[0] += __ldg(mask + at);
-              if (key + 1 < n) {
-                add[1] = __ldg(bias + at + 1);
-                if (mask) add[1] += __ldg(mask + at + 1);
-              }
-            }
-          }
-#pragma unroll
-          for (int e = 0; e < 2; ++e) {
-            float x = s[j][2 * r + e] * p.scale_log2 + add[e] * kLog2e;
-            if (key + e >= n) x = kNegInf;
-            s[j][2 * r + e] = x;
-            mx[r] = fmaxf(mx[r], x);
-          }
+            for (int e = 0; e < 4; ++e) s[j][e] += m[j][e];
         }
       }
+#pragma unroll
+      for (int j = 0; j < 2 * NT; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[j][e] *= bias_to_acc;
+      uint32_t af[kD / 16][4];
+      load_rows(af, tq, row0, lane);
+#pragma unroll
+      for (int nb = 0; nb < NT; ++nb)
+        rows_times_rows(s[2 * nb], s[2 * nb + 1], af, tk, nb, lane);
+      float mx[2] = {kNegInf, kNegInf};  // keys past n masked by index
+#pragma unroll
+      for (int j = 0; j < 2 * NT; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          float x = s[j][e] * p.scale_log2;
+          if (j * 8 + 2 * t4 + (e & 1) >= n) x = kNegInf;
+          s[j][e] = x;
+          mx[e >> 1] = fmaxf(mx[e >> 1], x);
+        }
       float sum[2] = {0.f, 0.f};
-      float inv[2];
 #pragma unroll
       for (int r = 0; r < 2; ++r) {
         mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
@@ -476,148 +631,116 @@ __global__ void __launch_bounds__(32 * NT, 1) window_attn_bwd_kernel(const WinBw
           s[j][e] = pe;
           sum[e >> 1] += pe;
         }
+      float inv[2];
 #pragma unroll
       for (int r = 0; r < 2; ++r) {
         sum[r] += __shfl_xor_sync(0xffffffffu, sum[r], 1);
         sum[r] += __shfl_xor_sync(0xffffffffu, sum[r], 2);
         inv[r] = 1.f / sum[r];
       }
+      // p in f32, and rounded to bf16 into the p tile for phase 2
 #pragma unroll
       for (int j = 0; j < 2 * NT; ++j)
 #pragma unroll
-        for (int e = 0; e < 4; ++e) s[j][e] *= inv[e >> 1];  // p, f32
+        for (int r = 0; r < 2; ++r) {
+          s[j][2 * r] *= inv[r];
+          s[j][2 * r + 1] *= inv[r];
+          *reinterpret_cast<uint32_t*>(sP + (row0 + g + r * 8) * L::kLD + j * 8 + 2 * t4) =
+              dg::pack_bf16x2(s[j][2 * r], s[j][2 * r + 1]);
+        }
 
-      // rowsum(p dp), with dp = do v^T taken 16 keys at a time
-      load_rows(af, sDO, row0, lane);
+      // dp = do v^T, and rowsum(p dp)
+      load_rows(af, tdo, row0, lane);
+      float dp[2 * NT][4];
+#pragma unroll
+      for (int j = 0; j < 2 * NT; ++j) dp[j][0] = dp[j][1] = dp[j][2] = dp[j][3] = 0.f;
+#pragma unroll
+      for (int nb = 0; nb < NT; ++nb)
+        rows_times_rows(dp[2 * nb], dp[2 * nb + 1], af, tv, nb, lane);
       float delta[2] = {0.f, 0.f};
 #pragma unroll
-      for (int nb = 0; nb < NT; ++nb) {
-        float dp[2][4];
-        rows_times_rows(dp, af, sV, nb, lane);
+      for (int j = 0; j < 2 * NT; ++j)
 #pragma unroll
-        for (int t = 0; t < 2; ++t)
-#pragma unroll
-          for (int e = 0; e < 4; ++e) delta[e >> 1] += s[2 * nb + t][e] * dp[t][e];
-      }
+        for (int e = 0; e < 4; ++e) delta[e >> 1] += s[j][e] * dp[j][e];
 #pragma unroll
       for (int r = 0; r < 2; ++r) {
         delta[r] += __shfl_xor_sync(0xffffffffu, delta[r], 1);
         delta[r] += __shfl_xor_sync(0xffffffffu, delta[r], 2);
       }
-      if (t4 == 0) {
+
+      // ds = p (dp - delta), in place of dp: to the ds tile in bf16, then into
+      // the chunk's sum in f32 (a loop of its own, so that its loads need not
+      // wait behind the tile's stores)
+#pragma unroll
+      for (int j = 0; j < 2 * NT; ++j)
 #pragma unroll
         for (int r = 0; r < 2; ++r) {
-          sMax[row0 + g + r * 8] = mx[r];
-          sInv[row0 + g + r * 8] = inv[r];
-          sDelta[row0 + g + r * 8] = delta[r];
+          const float d0 = s[j][2 * r] * (dp[j][2 * r] - delta[r]);
+          const float d1 = s[j][2 * r + 1] * (dp[j][2 * r + 1] - delta[r]);
+          dp[j][2 * r] = d0;
+          dp[j][2 * r + 1] = d1;
+          *reinterpret_cast<uint32_t*>(sDS + (row0 + g + r * 8) * L::kLD + j * 8 + 2 * t4) =
+              dg::pack_bf16x2(d0, d1);
         }
-      }
+      float2* sum_row[2] = {reinterpret_cast<float2*>(sSum + (row0 + g) * L::kLD + 2 * t4),
+                            reinterpret_cast<float2*>(sSum + (row0 + g + 8) * L::kLD + 2 * t4)};
+#pragma unroll
+      for (int j = 0; j < 2 * NT; ++j)
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          float2 v = sum_row[r][j * 4];
+          v.x += dp[j][2 * r];
+          v.y += dp[j][2 * r + 1];
+          sum_row[r][j * 4] = v;
+        }
 
-      // ds = p (dp - delta), summed for dbias, and dq = ds k scale
+      // dq = ds k scale, ds rounded to bf16 as the A operand
       float acc[kD / 8][4];
 #pragma unroll
       for (int c = 0; c < kD / 8; ++c) acc[c][0] = acc[c][1] = acc[c][2] = acc[c][3] = 0.f;
 #pragma unroll
       for (int nb = 0; nb < NT; ++nb) {
-        float ds[2][4];
-        rows_times_rows(ds, af, sV, nb, lane);
-#pragma unroll
-        for (int t = 0; t < 2; ++t)
-#pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            ds[t][e] = s[2 * nb + t][e] * (ds[t][e] - delta[e >> 1]);
-            dsum[2 * nb + t][e] += ds[t][e];
-          }
-        frag_times_tile(acc, ds, sK, nb, lane);
+        uint32_t a[4];
+        a[0] = dg::pack_bf16x2(dp[2 * nb][0], dp[2 * nb][1]);
+        a[1] = dg::pack_bf16x2(dp[2 * nb][2], dp[2 * nb][3]);
+        a[2] = dg::pack_bf16x2(dp[2 * nb + 1][0], dp[2 * nb + 1][1]);
+        a[3] = dg::pack_bf16x2(dp[2 * nb + 1][2], dp[2 * nb + 1][3]);
+        frag_times_tile(acc, a, tk, nb, lane);
       }
       store_rows(p.dq + g_off, p.g_rs, acc, p.scale, row0, n, g, t4);
     }
-    __syncthreads();  // every row's statistics are in shared memory
+    __syncthreads();  // the p and ds tiles are whole; k and v are free
+    if (threadIdx.x == 0 && i + 1 < count) load_kv(b + 1);
 
     if (active) {
-      // ---- phase 2: this warp's 16 key rows against all queries ----
-      // pt[j][..]: keys row0 + g (+ 8), queries j*8 + 2*t4 (+ 1)
-      uint32_t af[kD / 16][4];
-      load_rows(af, sK, row0, lane);
-      float pt[2 * NT][4];
+      // ---- phase 2: this warp's 16 keys against all queries ----
+      // dv = p^T do and dk = ds^T q scale; only the query tiles phase 1 wrote
+      float av[kD / 8][4], ak[kD / 8][4];
 #pragma unroll
-      for (int nb = 0; nb < NT; ++nb) {
-        float c[2][4];
-        rows_times_rows(c, af, sQ, nb, lane);
+      for (int c = 0; c < kD / 8; ++c) {
+        av[c][0] = av[c][1] = av[c][2] = av[c][3] = 0.f;
+        ak[c][0] = ak[c][1] = ak[c][2] = ak[c][3] = 0.f;
+      }
 #pragma unroll
-        for (int t = 0; t < 2; ++t) {
-          const int qi = (2 * nb + t) * 8 + 2 * t4;
-#pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            const int query = qi + (e & 1);
-            const int key = row0 + g + (e >> 1) * 8;
-            float val = 0.f;
-            if (query < n && key < n) {
-              const int64_t at = static_cast<int64_t>(query) * n + key;
-              float add = __ldg(bias + at);
-              if (mask) add += __ldg(mask + at);
-              const float x = c[t][e] * p.scale_log2 + add * kLog2e;
-              val = exp2f(x - sMax[query]) * sInv[query];
-            }
-            pt[2 * nb + t][e] = val;
-          }
+      for (int ks = 0; ks < NT; ++ks) {
+        if (ks < tiles) {
+          uint32_t a[4];
+          load_transposed(a, sP, L::kLD, ks * 16, row0, lane);
+          frag_times_tile(av, a, tdo, ks, lane);
+          load_transposed(a, sDS, L::kLD, ks * 16, row0, lane);
+          frag_times_tile(ak, a, tq, ks, lane);
         }
       }
-      // dv = p^T do
-      float acc[kD / 8][4];
-#pragma unroll
-      for (int c = 0; c < kD / 8; ++c) acc[c][0] = acc[c][1] = acc[c][2] = acc[c][3] = 0.f;
-#pragma unroll
-      for (int nb = 0; nb < NT; ++nb) {
-        float x[2][4];
-#pragma unroll
-        for (int t = 0; t < 2; ++t)
-#pragma unroll
-          for (int e = 0; e < 4; ++e) x[t][e] = pt[2 * nb + t][e];
-        frag_times_tile(acc, x, sDO, nb, lane);
-      }
-      store_rows(p.dv + g_off, p.g_rs, acc, 1.f, row0, n, g, t4);
-
-      // dk = ds^T q scale, with dp^T = v do^T taken 16 queries at a time
-      load_rows(af, sV, row0, lane);
-#pragma unroll
-      for (int c = 0; c < kD / 8; ++c) acc[c][0] = acc[c][1] = acc[c][2] = acc[c][3] = 0.f;
-#pragma unroll
-      for (int nb = 0; nb < NT; ++nb) {
-        float ds[2][4];
-        rows_times_rows(ds, af, sDO, nb, lane);
-#pragma unroll
-        for (int t = 0; t < 2; ++t) {
-          const int qi = (2 * nb + t) * 8 + 2 * t4;
-#pragma unroll
-          for (int e = 0; e < 4; ++e)
-            ds[t][e] = pt[2 * nb + t][e] * (ds[t][e] - sDelta[qi + (e & 1)]);
-        }
-        frag_times_tile(acc, ds, sQ, nb, lane);
-      }
-      store_rows(p.dk + g_off, p.g_rs, acc, p.scale, row0, n, g, t4);
+      store_rows(p.dv + g_off, p.g_rs, av, 1.f, row0, n, g, t4);
+      store_rows(p.dk + g_off, p.g_rs, ak, p.scale, row0, n, g, t4);
     }
-    __syncthreads();  // the tiles and statistics are free for the next window
+    __syncthreads();  // the p and ds tiles and this stage's q and do are free
+    if (threadIdx.x == 0 && i + kQDStages < count) load_qd(st, b + kQDStages);
   }
 
-  if (!active) return;
+  // the chunk's ds sum (the loop ended on a barrier)
   float* out = p.partial + (static_cast<int64_t>(chunk) * p.heads + h) * n * n;
-#pragma unroll
-  for (int j = 0; j < 2 * NT; ++j) {
-    const int key = j * 8 + 2 * t4;
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      const int row = row0 + g + r * 8;
-      if (row >= n || key >= n) continue;
-      float* dst = out + static_cast<int64_t>(row) * n + key;
-      if (pairs) {
-        *reinterpret_cast<float2*>(dst) = make_float2(dsum[j][2 * r], dsum[j][2 * r + 1]);
-      } else {
-        dst[0] = dsum[j][2 * r];
-        if (key + 1 < n) dst[1] = dsum[j][2 * r + 1];
-      }
-    }
-  }
+  for (int e = threadIdx.x; e < n * n; e += 32 * NT) out[e] = sSum[(e / n) * L::kLD + e % n];
 }
 
 // dbias[e] = partial[0][e] + partial[1][e] + ... in chunk order
@@ -629,25 +752,91 @@ __global__ void dbias_reduce_kernel(const float* partial, float* dbias, int chun
   dbias[e] = sum;
 }
 
+// A rank-4 bf16 map of one operand, (d = 32, n, heads, batch) at element
+// strides rs, hs and bs, read in boxes of one window and head (32 x `rows`)
+// under the 64-byte swizzle, zeros past n. Dimensions 1-3 go in order of
+// stride (the packed layout's heads lie inside its rows); head_at and batch_at
+// say which coordinate the head and the window became. False if the encoder
+// refuses it.
+bool window_map(CUtensorMap* map, int* head_at, int* batch_at, const void* ptr, int n, int heads,
+                int batch, int64_t rs, int64_t hs, int64_t bs, int rows) {
+  const dg::EncodeTiledFn encode = dg::encode_tiled();
+  if (encode == nullptr) return false;
+  const int64_t ext[3] = {n, heads, batch};
+  const int64_t str[3] = {rs, hs, bs};
+  int order[3] = {0, 1, 2};
+  for (int i = 1; i < 3; ++i)
+    for (int j = i; j > 0 && str[order[j - 1]] > str[order[j]]; --j) {
+      const int t = order[j];
+      order[j] = order[j - 1];
+      order[j - 1] = t;
+    }
+  cuuint64_t dims[4] = {kD, 1, 1, 1};
+  cuuint64_t strides[3];
+  cuuint32_t box[4] = {kD, 1, 1, 1};
+  cuuint32_t steps[4] = {1, 1, 1, 1};
+  for (int i = 0; i < 3; ++i) {
+    const int o = order[i];
+    dims[i + 1] = static_cast<cuuint64_t>(ext[o]);
+    strides[i] = static_cast<cuuint64_t>(str[o]) * sizeof(bf16);  // bytes
+    if (o == 0) box[i + 1] = static_cast<cuuint32_t>(rows);
+    if (o == 1) *head_at = i + 1;
+    if (o == 2) *batch_at = i + 1;
+  }
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims, strides,
+                box, steps, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_64B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// the operands of the backward as the entry points take them: pointers, and
+// (batch, head, row) strides in elements
+struct BwdOperands {
+  const void* ptr[4];  // q, k, v, do
+  int64_t strides[4][3];
+};
+
 template <int NT>
-int launch_bwd(const WinBwdParams& p, int chunks, cudaStream_t stream) {
-  window_attn_bwd_kernel<NT><<<chunks * p.heads, 32 * NT, 0, stream>>>(p);
+int launch_bwd(WinBwdParams p, const BwdOperands& x, int chunks, cudaStream_t stream) {
+  using L = BwdSmem<NT>;
+  // a runtime call first: it makes the device's context current in this thread
+  // (autograd runs a backward on a thread of its own), which the encoder, a
+  // driver call, needs
+  const cudaError_t err = cudaFuncSetAttribute(
+      window_attn_bwd_kernel<NT>, cudaFuncAttributeMaxDynamicSharedMemorySize, L::kBytes);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  CUtensorMap maps[4];
+  for (int i = 0; i < 4; ++i)
+    if (!window_map(&maps[i], &p.head_at[i], &p.batch_at[i], x.ptr[i], p.n, p.heads, p.batch,
+                    x.strides[i][2], x.strides[i][1], x.strides[i][0], L::NP))
+      return static_cast<int>(cudaErrorInvalidValue);
+  window_attn_bwd_kernel<NT><<<chunks * p.heads, 32 * NT, L::kBytes, stream>>>(
+      maps[0], maps[1], maps[2], maps[3], p);
   return static_cast<int>(cudaGetLastError());
 }
 
-int dispatch_bwd(WinBwdParams p, float* dbias, int chunks, cudaStream_t stream) {
-  if (p.batch < 1 || p.heads < 1 || p.n < 1 || p.n > 144 || chunks < 1 || p.per_chunk < 1 ||
-      static_cast<int64_t>(chunks) * p.per_chunk < p.batch)
+// 16-row tiles of the body that takes n tokens (0 if none does)
+int bwd_tiles(int n) {
+  if (n < 1 || n > 144) return 0;
+  const int tiles = (n + 15) / 16;
+  return tiles <= 1 ? 1 : tiles <= 2 ? 2 : tiles <= 4 ? 4 : tiles <= 7 ? 7 : 9;
+}
+
+int dispatch_bwd(WinBwdParams p, const BwdOperands& x, float* dbias, int chunks,
+                 cudaStream_t stream) {
+  const int nt = bwd_tiles(p.n);
+  if (p.batch < 1 || p.heads < 1 || nt == 0 || chunks < 1 || p.per_chunk < 1 ||
+      static_cast<int64_t>(chunks) * p.per_chunk < p.batch ||
+      static_cast<int64_t>(chunks - 1) * p.per_chunk >= p.batch)  // every chunk has a window
     return static_cast<int>(cudaErrorInvalidValue);
   if (p.mask && (p.nw < 1 || p.batch % p.nw)) return static_cast<int>(cudaErrorInvalidValue);
   if (chunks == 1) p.partial = dbias;
-  const int tiles = (p.n + 15) / 16;
   int code;
-  if (tiles <= 1) code = launch_bwd<1>(p, chunks, stream);
-  else if (tiles <= 2) code = launch_bwd<2>(p, chunks, stream);
-  else if (tiles <= 4) code = launch_bwd<4>(p, chunks, stream);
-  else if (tiles <= 7) code = launch_bwd<7>(p, chunks, stream);
-  else code = launch_bwd<9>(p, chunks, stream);
+  if (nt == 1) code = launch_bwd<1>(p, x, chunks, stream);
+  else if (nt == 2) code = launch_bwd<2>(p, x, chunks, stream);
+  else if (nt == 4) code = launch_bwd<4>(p, x, chunks, stream);
+  else if (nt == 7) code = launch_bwd<7>(p, x, chunks, stream);
+  else code = launch_bwd<9>(p, x, chunks, stream);
   if (code != 0 || chunks == 1) return code;
   const int64_t size = static_cast<int64_t>(p.heads) * p.n * p.n;
   dbias_reduce_kernel<<<static_cast<unsigned>((size + 255) / 256), 256, 0, stream>>>(
@@ -703,19 +892,22 @@ extern "C" int dg_window_attention_packed_bf16(
 // Backward, split layout. q, k, v as in the forward; d_o, and dq, dk, dv (one
 // stride triple for the three) addressed the same way. dbias (heads, n, n) f32
 // is written, not added to. Each block takes one head and `per_chunk`
-// consecutive windows; partial is scratch of (chunks, heads, n, n) f32 (unused
-// with one chunk), chunks * per_chunk >= batch.
+// consecutive windows, every chunk at least one; partial is scratch of
+// (chunks, heads, n, n) f32 (unused with one chunk), chunks * per_chunk >=
+// batch. q, k, v and d_o are read by TMA: 16-byte aligned, strides multiples
+// of 8 elements.
 extern "C" int dg_window_attention_bwd_bf16(
     const void* q, const void* k, const void* v, const void* d_o, const void* bias,
     const void* mask, void* dq, void* dk, void* dv, void* dbias, void* partial, int batch,
     int heads, int n, int nw, int chunks, int per_chunk, int64_t q_bs, int64_t q_hs, int64_t q_rs,
     int64_t kv_bs, int64_t kv_hs, int64_t kv_rs, int64_t do_bs, int64_t do_hs, int64_t do_rs,
     int64_t g_bs, int64_t g_hs, int64_t g_rs, float scale, void* stream) {
+  const BwdOperands x = {{q, k, v, d_o},
+                         {{q_bs, q_hs, q_rs},
+                          {kv_bs, kv_hs, kv_rs},
+                          {kv_bs, kv_hs, kv_rs},
+                          {do_bs, do_hs, do_rs}}};
   WinBwdParams p = {};
-  p.q = static_cast<const bf16*>(q);
-  p.k = static_cast<const bf16*>(k);
-  p.v = static_cast<const bf16*>(v);
-  p.d_o = static_cast<const bf16*>(d_o);
   p.bias = static_cast<const float*>(bias);
   p.mask = static_cast<const float*>(mask);
   p.dq = static_cast<bf16*>(dq);
@@ -727,21 +919,12 @@ extern "C" int dg_window_attention_bwd_bf16(
   p.n = n;
   p.nw = nw;
   p.per_chunk = per_chunk;
-  p.q_bs = q_bs;
-  p.q_hs = q_hs;
-  p.q_rs = q_rs;
-  p.kv_bs = kv_bs;
-  p.kv_hs = kv_hs;
-  p.kv_rs = kv_rs;
-  p.do_bs = do_bs;
-  p.do_hs = do_hs;
-  p.do_rs = do_rs;
   p.g_bs = g_bs;
   p.g_hs = g_hs;
   p.g_rs = g_rs;
   p.scale = scale;
   p.scale_log2 = scale * kLog2e;
-  return dispatch_bwd(p, static_cast<float*>(dbias), chunks, static_cast<cudaStream_t>(stream));
+  return dispatch_bwd(p, x, static_cast<float*>(dbias), chunks, static_cast<cudaStream_t>(stream));
 }
 
 // Backward, packed layout: qkv and dqkv (bn, n, 3C), d_o (bn, n, C), all
@@ -757,4 +940,17 @@ extern "C" int dg_window_attention_packed_bwd_bf16(
       base, base + c, base + 2 * c, d_o, bias, mask, grad, grad + c, grad + 2 * c, dbias, partial,
       bn, heads, n, nw, chunks, per_chunk, n * 3 * c, kD, 3 * c, n * 3 * c, kD, 3 * c, n * c, kD,
       c, n * 3 * c, kD, 3 * c, scale, stream);
+}
+
+// Dynamic shared memory the backward body asks for at n tokens, 0 if no body
+// takes n (ops/window_attention.py:backward_smem mirrors it for the plan).
+extern "C" int dg_window_attention_bwd_smem(int n) {
+  switch (bwd_tiles(n)) {
+    case 1: return BwdSmem<1>::kBytes;
+    case 2: return BwdSmem<2>::kBytes;
+    case 4: return BwdSmem<4>::kBytes;
+    case 7: return BwdSmem<7>::kBytes;
+    case 9: return BwdSmem<9>::kBytes;
+    default: return 0;
+  }
 }

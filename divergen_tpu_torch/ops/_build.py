@@ -114,6 +114,8 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.dg_window_attention_bwd_bf16.restype = i
     lib.dg_window_attention_packed_bwd_bf16.argtypes = [p] * 7 + [i] * 6 + [f, p]
     lib.dg_window_attention_packed_bwd_bf16.restype = i
+    lib.dg_window_attention_bwd_smem.argtypes = [i]
+    lib.dg_window_attention_bwd_smem.restype = i
     lib.dg_ln_apply.argtypes = [p] * 4 + [i] * 2 + [f, i, p]
     lib.dg_ln_apply.restype = i
     lib.dg_ln_gemm.argtypes = [p] * 4 + [i] * 6 + [p]

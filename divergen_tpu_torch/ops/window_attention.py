@@ -22,11 +22,14 @@ The JAX kernels carry a ``custom_vjp``; here each wrapper is a
 backward kernel of ``csrc/window_attention.cu``, which recomputes the scores
 and returns dq, dk, dv (for the packed wrapper in one (bn, n, 3C) buffer) and
 the bias gradient summed over windows; the mask gets none. A block of that
-kernel takes one head and a chunk of consecutive windows and a second small
+kernel takes one head and a chunk of consecutive windows (``backward_plan``
+for bfloat16, ``backward_chunks`` for the float32 body) and a second small
 kernel adds the chunks' partial bias gradients in a fixed order, so two runs
 give the same bits. On a CPU tensor ordinary autograd runs through the plain
 version. ``reference_window_attention_backward`` (and ``_packed``) repeat the
-kernel's arithmetic step by step, bfloat16 casts included.
+kernel's arithmetic step by step, bfloat16 casts included (the bf16 kernel
+forms the scores as ((bias + mask) / scale + q·kᵀ)·scale, the same float32
+values to rounding).
 
 Each wrapper counts its kernel launches in plain int attributes: ``.launches``
 for the forward kernel and ``.backward_launches`` for the backward kernel.
@@ -34,7 +37,7 @@ for the forward kernel and ``.backward_launches`` for the backward kernel.
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -156,13 +159,74 @@ def _f32_on(t: Optional[torch.Tensor], device: torch.device) -> Optional[torch.T
 
 
 def backward_chunks(batch: int, heads: int, device: torch.device) -> tuple:
-    """(chunks, windows per chunk) of the backward kernel's grid: a block takes
-    one head and a chunk of consecutive windows, and there are about as many
-    blocks as the card has multiprocessors (the kernel keeps a block's whole
-    bias-gradient sum in registers, so one block is resident on each)."""
+    """(chunks, windows per chunk) of the float32 backward body's grid
+    (``csrc/attention_f32.cu``): a block takes one head and a chunk of
+    consecutive windows, and there are about as many blocks as the card has
+    multiprocessors (that body keeps a block's whole bias-gradient sum in
+    registers, so one block is resident on each)."""
     sms = torch.cuda.get_device_properties(device).multi_processor_count
     per = -(-batch // min(batch, max(1, -(-sms // heads))))
     return -(-batch // per), per
+
+
+BWD_TILE_COUNTS = (1, 2, 4, 7, 9)  # the bf16 backward body's instances: 16-row tiles a window
+SM_SHARED_BYTES = 233472  # shared memory of an H100 multiprocessor that blocks can take
+BLOCK_RESERVED_BYTES = 1024  # the runtime's own share of it per block
+SM_WARPS = 64
+
+
+def _bwd_tiles(n: int) -> int:
+    """16-row tiles of the bf16 backward body that takes ``n`` tokens."""
+    return next(t for t in BWD_TILE_COUNTS if 16 * t >= n)
+
+
+def backward_smem(n: int) -> int:
+    """Dynamic shared memory of the bf16 backward body at ``n`` tokens, as
+    ``csrc/window_attention.cu:BwdSmem<NT>::kBytes`` lays it out (the library's
+    ``dg_window_attention_bwd_smem`` gives the same): q and do of two windows,
+    k and v of one (TMA tiles of 64-byte rows), the p and ds tiles in bf16 and
+    the bias-gradient sum in f32 (rows padded by 8), three mbarriers, and 512
+    bytes to align the swizzled tiles."""
+    rows = 16 * _bwd_tiles(n)
+    return 6 * rows * 64 + rows * (rows + 8) * (2 + 2 + 4) + 3 * 8 + 512
+
+
+class BackwardPlan(NamedTuple):
+    """The bf16 backward body's grid: block ``i`` takes head ``i % heads`` and
+    windows ``[c * per_chunk, min(batch, (c + 1) * per_chunk))`` of chunk
+    ``c = i // heads``; ``scratch`` is the shape of the partial bias gradients
+    the wrapper allocates (no rows with one chunk: the kernel writes dbias)."""
+    chunks: int
+    per_chunk: int
+    scratch: tuple
+
+
+def backward_plan(batch: int, heads: int, n: int, device: torch.device,
+                  smem: Optional[int] = None) -> BackwardPlan:
+    """Chunks of consecutive windows for the bf16 backward body: as many
+    chunks per head as fill the blocks the card holds at once (its
+    multiprocessors times the blocks that the body's shared memory, by
+    default ``backward_smem(n)``, and the warp slots leave on each; one at
+    n = 144), then as even as windows divide. Fewer chunks mean fewer partial
+    bias gradients to add; one chunk more a head than the slots take would
+    double the time of the last wave."""
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    smem = backward_smem(n) if smem is None else smem
+    resident = max(1, min(SM_SHARED_BYTES // (smem + BLOCK_RESERVED_BYTES),
+                          SM_WARPS // _bwd_tiles(n)))
+    chunks = max(1, min(batch, sms * resident // heads))
+    per = -(-batch // chunks)
+    chunks = -(-batch // per)
+    return BackwardPlan(chunks, per, (chunks if chunks > 1 else 0, heads, n, n))
+
+
+def _plan(dtype: torch.dtype, batch: int, heads: int, n: int, device: torch.device) -> tuple:
+    """(chunks, windows per chunk, partial scratch shape) of the backward body
+    that takes ``dtype``."""
+    if dtype == torch.float32:
+        chunks, per = backward_chunks(batch, heads, device)
+        return chunks, per, (chunks if chunks > 1 else 0, heads, n, n)
+    return backward_plan(batch, heads, n, device)
 
 
 class _WindowAttention(torch.autograd.Function):
@@ -199,9 +263,8 @@ class _WindowAttention(torch.autograd.Function):
         do = do.contiguous()
         dq, dk, dv = (torch.empty((b, h, n, d), dtype=q.dtype, device=q.device) for _ in range(3))
         dbias = torch.empty((h, n, n), dtype=torch.float32, device=q.device)
-        chunks, per = backward_chunks(b, h, q.device)
-        partial = torch.empty((chunks if chunks > 1 else 0, h, n, n), dtype=torch.float32,
-                              device=q.device)
+        chunks, per, scratch = _plan(q.dtype, b, h, n, q.device)
+        partial = torch.empty(scratch, dtype=torch.float32, device=q.device)
         fused_window_attention.backward_launches += 1
         lib = _build.lib()
         entry = (lib.dg_window_attention_bwd_f32 if q.dtype == torch.float32
@@ -255,9 +318,8 @@ class _WindowAttentionPacked(torch.autograd.Function):
         do = do.contiguous()
         dqkv = torch.empty_like(qkv)
         dbias = torch.empty((heads, n, n), dtype=torch.float32, device=qkv.device)
-        chunks, per = backward_chunks(bn, heads, qkv.device)
-        partial = torch.empty((chunks if chunks > 1 else 0, heads, n, n), dtype=torch.float32,
-                              device=qkv.device)
+        chunks, per, scratch = _plan(qkv.dtype, bn, heads, n, qkv.device)
+        partial = torch.empty(scratch, dtype=torch.float32, device=qkv.device)
         fused_window_attention_packed.backward_launches += 1
         lib = _build.lib()
         entry = (lib.dg_window_attention_packed_bwd_f32 if qkv.dtype == torch.float32

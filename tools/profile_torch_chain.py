@@ -229,7 +229,8 @@ def profile_train(dev, g) -> None:
               f"{packed.backward_launches - bwd} backward fused_window_attention_packed launches, "
               f"{nms_mask.host_syncs - syncs} host syncs in NMS, total_loss "
               f"{float(metrics['total_loss']):.4f}", flush=True)
-        trace(f"train step, compositor on ({what})", lambda: step(state, batch, rng))
+        trace(f"train step, compositor on ({what})", lambda: step(state, batch, rng),
+              also=("window_attn", "dbias_reduce"))
         print(f"    peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
         if not remat:
             del step, state, batch, rng, model, optimizer, metrics

@@ -1,0 +1,198 @@
+#!/usr/bin/env python3
+"""A/B of the bf16 window-attention backward (the backward of kernels 5 and 6,
+``fused_window_attention_packed`` and ``fused_window_attention``) against an
+earlier build, at the four Swin-L stage shapes of the flagship train step, on
+one GPU.
+
+Runs from the root of a checkout. Extract the earlier source first (the
+machine that runs this needs no git), e.g. for the parent commit:
+
+    mkdir -p build/scratch/old
+    git show HEAD~1:divergen_tpu_torch/csrc/window_attention.cu \\
+        > build/scratch/old/window_attention.cu
+    python3 tools/window_attention_ab.py build/scratch/old/window_attention.cu
+
+Builds that source and the checkout's ``csrc/window_attention.cu`` with nvcc,
+each into a library of its own under ``build/scratch/`` (headers from the
+source's own directory first, then ``csrc/``), and calls their packed
+backward entry point (``dg_window_attention_packed_bwd_bf16``, the interface
+both bodies share) on the same seeded bf16 operands, scratch allocated once.
+A build with ``dg_window_attention_bwd_smem`` takes the chunks of
+``ops/window_attention.py:backward_plan`` for the shared memory that entry
+point reports, an earlier one those of ``backward_chunks``; ``--chunks``
+forces the current build's chunks per head.
+
+Shapes: Swin-L at B = 2, 896², window 12 (n 144, d 32), with and without the
+shift mask: (bn, heads) = (722, 6), (200, 12), (50, 24), (18, 48). For each
+it prints, for both builds, the relative L2 and max |error| of dq, dk, dv and
+the float32 dbias against ``reference_window_attention_packed_backward`` on
+the same bf16 inputs (bound: relative L2 <= 1e-2, max |error| <= 3e-2 max |reference|) and
+whether two runs give the same bits; then the device time of both in turns
+(earlier, current, current, earlier, three times; each a
+``chip_smoke.device_ms`` of 10 calls; medians of 6) beside that of the
+backward of ``scaled_dot_product_attention`` alone on the same q, k, v and do
+(its dense bias + mask and its forward built outside the timing; no bias
+gradient) and the bound (bytes of q, k, v, do, dq, dk, dv, bias, dbias and
+mask at 3.35 TB/s against five products at 989 TFLOP/s). Then the sums over a
+train step's 24 launches: 2, 2, 18 and 2 at the four stages, the mask on
+every second. ``--timing-only`` times an earlier build that is not meant to
+be right; ``--windows 722,50`` runs only those stages. Needs a CUDA device;
+prints the card's name and power limit first.
+"""
+from __future__ import annotations
+
+import argparse
+import ctypes
+import sys
+from pathlib import Path
+
+import torch
+import torch.nn.functional as F
+
+from ab_common import build, checked, in_turns
+from chip_smoke import PEAK_BF16_FLOPS, PEAK_BYTES_PER_S, card_line, device_ms
+from divergen_tpu_torch.ops import _build
+from divergen_tpu_torch.ops import window_attention as wa
+
+# (bn, C, heads, nW) of Swin-L's four stages at B = 2, 896², window 12 -> launches a step
+STAGES = {(722, 192, 6, 361): 2, (200, 384, 12, 100): 2, (50, 768, 24, 25): 18,
+          (18, 1536, 48, 9): 2}
+N = 144
+
+
+def load(name: str, src: Path) -> ctypes.CDLL:
+    lib = build("window_attention_ab", name, src, report=True)
+    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    lib.dg_window_attention_packed_bwd_bf16.argtypes = [p] * 7 + [i] * 6 + [f, p]
+    lib.planned = hasattr(lib, "dg_window_attention_bwd_smem")
+    if lib.planned:
+        lib.dg_window_attention_bwd_smem.argtypes = [i]
+    return lib
+
+
+def plan(lib, bn: int, heads: int, dev: torch.device, chunks: int = 0) -> tuple:
+    """(chunks, windows per chunk) this build is launched with."""
+    if not lib.planned:
+        return wa.backward_chunks(bn, heads, dev)
+    if chunks:
+        per = -(-bn // chunks)
+        return -(-bn // per), per
+    got = wa.backward_plan(bn, heads, N, dev, smem=lib.dg_window_attention_bwd_smem(N))
+    return got.chunks, got.per_chunk
+
+
+def main() -> int:
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("earlier", type=Path, help="the earlier build's window_attention.cu")
+    parser.add_argument("--timing-only", action="store_true",
+                        help="time an earlier build that is not meant to be right: print its "
+                             "errors, do not fail")
+    parser.add_argument("--chunks", type=int, default=0,
+                        help="chunks per head for the current build (default: backward_plan)")
+    parser.add_argument("--windows", default="",
+                        help="comma-separated window counts (bn) of the stages to run "
+                             "(default: all four; the step's sums then cover only these)")
+    args = parser.parse_args()
+    only = {int(x) for x in args.windows.split(",") if x}
+    if not torch.cuda.is_available():
+        print("needs a CUDA device", file=sys.stderr)
+        return 1
+    print(f"device: {torch.cuda.get_device_name(0)}; nvidia-smi: {card_line()}", flush=True)
+    libs = {"earlier": load("earlier", args.earlier.resolve()),
+            "current": load("current", _build.CSRC / "window_attention.cu")}
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(0)
+    stream = torch.cuda.current_stream().cuda_stream
+    names = ("earlier", "current", "SDPA backward", "bound")
+    totals = dict.fromkeys(names, 0.0)
+    for (bn, c, heads, nw), launches in STAGES.items():
+        if only and bn not in only:
+            continue
+        for with_mask in (True, False):
+            d = c // heads
+            qkv = torch.randn((bn, N, 3 * c), generator=g, device=dev).bfloat16()
+            do = torch.randn((bn, N, c), generator=g, device=dev).bfloat16()
+            bias = 0.5 * torch.randn((heads, N, N), generator=g, device=dev)
+            mask = None
+            if with_mask:  # a shift-like mask: about a third of the pairs closed, the diagonal open
+                mask = torch.where(torch.rand((nw, N, N), generator=g, device=dev) < 0.3,
+                                   -100.0, 0.0)
+                mask.diagonal(dim1=1, dim2=2).zero_()
+            dqkv = torch.empty_like(qkv)
+            dbias = torch.empty((heads, N, N), device=dev)
+            plans = {"earlier": plan(libs["earlier"], bn, heads, dev),
+                     "current": plan(libs["current"], bn, heads, dev, args.chunks)}
+            scratch = {name: torch.empty((ch if ch > 1 else 0, heads, N, N), device=dev)
+                       for name, (ch, _) in plans.items()}
+
+            def call(name):
+                chunks, per = plans[name]
+                checked(libs[name].dg_window_attention_packed_bwd_bf16(
+                    qkv.data_ptr(), do.data_ptr(), bias.data_ptr(),
+                    None if mask is None else mask.data_ptr(), dqkv.data_ptr(),
+                    dbias.data_ptr(), scratch[name].data_ptr(), bn, N, heads,
+                    nw if mask is not None else 1, chunks, per, d ** -0.5, stream))
+
+            what = (f"bn={bn} C={c} H={heads} n={N} mask={'nW ' + str(nw) if with_mask else 'none'}")
+            ref_dqkv, ref_dbias = wa.reference_window_attention_packed_backward(
+                qkv, bias, mask, heads, do)  # the bf16 roundings of p and ds included
+            ref_dqkv = ref_dqkv.float()
+            for name in ("earlier", "current"):
+                call(name)
+                got = (dqkv.clone(), dbias.clone())
+                call(name)
+                same = torch.equal(got[0], dqkv) and torch.equal(got[1], dbias)
+                wrong = not same
+                parts = [(f"d{s}", got[0][..., i * c:(i + 1) * c], ref_dqkv[..., i * c:(i + 1) * c])
+                         for i, s in enumerate("qkv")] + [("dbias", got[1], ref_dbias)]
+                text = []
+                for part, x, ref in parts:
+                    diff = x.float() - ref
+                    rel = (diff.norm() / ref.norm()).item()
+                    err = diff.abs().max().item()
+                    text.append(f"{part} rel_l2 {rel:.3g} max_abs_err {err:.3g}")
+                    wrong |= (not torch.isfinite(x).all() or rel > 1e-2
+                              or err > 3e-2 * ref.abs().max().item())
+                print(f"{what} {name} (chunks {plans[name][0]} x {plans[name][1]} windows): "
+                      f"{'; '.join(text)}; same bits twice: {same}", flush=True)
+                if wrong and not (args.timing_only and name == "earlier"):
+                    raise AssertionError(f"{name} build is wrong at {what}")
+            del ref_dqkv, ref_dbias, got
+            runs = {name: (lambda name=name: call(name)) for name in ("earlier", "current")}
+            dev_ms = in_turns(runs)
+
+            # the PyTorch call: the backward of SDPA alone, its inputs and forward built here
+            q4, k4, v4 = (qkv[..., i * c:(i + 1) * c].reshape(bn, N, heads, d).transpose(1, 2)
+                          .contiguous().requires_grad_(True) for i in range(3))
+            dense = bias[None].expand(bn, -1, -1, -1)
+            if mask is not None:
+                dense = dense + mask.repeat(bn // nw, 1, 1)[:, None]
+            dense = dense.bfloat16().contiguous()
+            do4 = do.reshape(bn, N, heads, d).transpose(1, 2).contiguous()
+            out4 = F.scaled_dot_product_attention(q4, k4, v4, attn_mask=dense)
+            sdpa = device_ms(lambda: torch.autograd.grad(out4, (q4, k4, v4), do4,
+                                                         retain_graph=True))
+            del q4, k4, v4, dense, do4, out4
+            ops = 5 * 2.0 * bn * heads * N * N * d
+            nbytes = (2.0 * bn * N * (3 * c + c + 3 * c) + 2 * 4.0 * heads * N * N
+                      + (4.0 * nw * N * N if with_mask else 0.0))
+            bound = 1e3 * max(ops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES_PER_S)
+            runs_text = {name: ", ".join(f"{t:.4f}" for t in ts) for name, (_, ts) in dev_ms.items()}
+            print(f"{what}, {launches // 2} launches a step: device earlier "
+                  f"{dev_ms['earlier'][0]:.4f} ms (runs {runs_text['earlier']}), current "
+                  f"{dev_ms['current'][0]:.4f} ms (runs {runs_text['current']}), SDPA backward "
+                  f"{sdpa:.4f} ms, bound {bound:.4f} ms ({nbytes / 1e6:.1f} MB, "
+                  f"{ops / 1e9:.1f} GFLOP; current at "
+                  f"{nbytes / dev_ms['current'][0] / 1e6:.0f} GB/s)", flush=True)
+            for name, ms in (("earlier", dev_ms["earlier"][0]), ("current", dev_ms["current"][0]),
+                             ("SDPA backward", sdpa), ("bound", bound)):
+                totals[name] += ms * launches / 2
+            del qkv, do, bias, mask, dqkv, dbias, scratch
+            torch.cuda.empty_cache()
+    print("a train step's 24 launches (median x launches, ms): "
+          + ", ".join(f"{name} {ms:.4f}" for name, ms in totals.items()), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
