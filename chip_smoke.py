@@ -29,7 +29,11 @@ Run from the root of a checkout:  python3 chip_smoke.py
    time beside the PyTorch call's and the bound, summed over a UNet call's
    70 launches;
    flash_attention_relpos first on heads-first views of a fused qkv
-   projection, as the ViT's attention calls it, then on (BH, N, D); the
+   projection, as the ViT's attention calls it, then on (BH, N, D), each the
+   same bits twice and nothing written past its output (a NaN guard row), its
+   q rows a work item and shared memory equal to ``RELPOS_TILE`` and
+   ``relpos_smem()``, and at (4, 16 heads, 64 x 64, d 80) its device time
+   beside SDPA's (the dense bias as a bf16 mask) and the bound; the
    packed window attention at the four Swin-L stage shapes of B = 2 at 896²
    with and without the shift mask and on shrunk windows; the split window
    attention at the stage-0 shape on contiguous tensors and on heads-first
@@ -74,7 +78,9 @@ Run from the root of a checkout:  python3 chip_smoke.py
    4 among them); the row-quantize pass of int8_matmul_fused_quant equal to
    quantize_rows_fq_reference in every element, on rows built to hit its
    ties and edges; fused_group_norm and fused_layer_norm at the UNet's
-   shapes and ragged ones (the usual bounds); each of the four also with float32 x and
+   shapes and ragged ones (the usual bounds), fused_layer_norm with its
+   device time at both UNet shapes beside ``F.layer_norm``'s and the bound,
+   summed over an int8 UNet call's 210 launches; each of the four also with float32 x and
    output (GroupNorm at C = 7680); then fused_gn_silu_conv3x3 at the fused
    ResBlock's level-0 (4, 128, 128, 320) -> 320 and level-2 (4, 32, 32, 2560)
    -> 1280, ragged (C = 48, and C = 36 to Co = 21) and float32 x against its
@@ -420,24 +426,28 @@ def kernel_phases(gen: torch.Generator, card: str):
             raise AssertionError(f"{name}: the kernel wrote outside its output")
         log("    writes nothing past its output: True")
         ms, pms, span = time_pair(run, plain)
-        if dtype == torch.float32:
-            log(f"    float32: kernel {ms:.4f} ms (min {span[0]:.4f}, max {span[1]:.4f}), plain "
-                f"{pms:.4f} ms [{card}]")
-            results["fused_ln_matmul"]["max_abs_err"] = max(
-                results["fused_ln_matmul"]["max_abs_err"], err)
-            continue
-        g16, b16, wt = gamma.bfloat16(), beta.bfloat16(), w.t()
-        bias16 = None if bias is None else bias.bfloat16()
+        # the PyTorch call in x's dtype (float32 with TF32 off: the float32 bound)
+        gl, bl, wt = gamma.to(dtype), beta.to(dtype), w.t()
+        bias_l = None if bias is None else bias.to(dtype)
 
         def library():
-            y = F.linear(F.layer_norm(x, (k,), g16, b16, eps), wt, bias16)
+            y = F.linear(F.layer_norm(x, (k,), gl, bl, eps), wt, bias_l)
             if geglu:
                 hidden, gate = y.chunk(2, dim=-1)
                 return hidden * F.gelu(gate)
             return F.gelu(y) if act == "gelu" else y
 
         ops = 2.0 * m * k * n
-        nbytes = 2.0 * (m * k + k * n + m * cols) + 8.0 * k + (4.0 * n if with_bias else 0.0)
+        nbytes = (x.element_size() * (m * k + k * n + m * cols) + 8.0 * k
+                  + (4.0 * n if with_bias else 0.0))
+        if dtype == torch.float32:
+            b_ms, by = bound(ops, nbytes, PEAK_F32_FLOPS)
+            log(f"    float32: kernel {ms:.4f} ms (min {span[0]:.4f}, max {span[1]:.4f}), plain "
+                f"{pms:.4f} ms, PyTorch call (float32) {time_one(library):.4f} ms, bound "
+                f"{b_ms:.4f} ms by {by} [{card}]")
+            results["fused_ln_matmul"]["max_abs_err"] = max(
+                results["fused_ln_matmul"]["max_abs_err"], err)
+            continue
         record("fused_ln_matmul", err, ms, pms, span, library, ops, nbytes)
         if m >= 4096:
             dev_ms, lib_ms = device_ms(run), device_ms(library)
@@ -508,15 +518,29 @@ def kernel_phases(gen: torch.Generator, card: str):
         torch.cuda.empty_cache()
 
     log("kernel phase: flash_attention_relpos")
+    lib_rows = _build.lib().dg_flash_attention_relpos_rows()
+    lib_smem = _build.lib().dg_flash_attention_relpos_smem()
+    if (lib_rows, lib_smem) != (fa_mod.RELPOS_TILE, fa_mod.relpos_smem()):
+        raise AssertionError(f"the d = 80 kernel takes {lib_rows} q rows a work item and "
+                             f"{lib_smem} bytes of shared memory, ops/flash_attention.py plans "
+                             f"{fa_mod.RELPOS_TILE} and {fa_mod.relpos_smem()}")
     # First as ViTAttention calls it in SAM ViT-H's global layers, at B = 4 and
     # B = 1: q, k and v are heads-first views of the fused (B, N, 3, heads, d)
     # projection (row stride 3·heads·d), the result is a view of a (B, N, C)
     # buffer. Then the (BH, N, D) layout at the same sizes, a ragged and a
-    # non-square grid. Factors of scale 0.7 so that the bias matters.
+    # non-square grid (W = 7 and 16: K tiles of whole grid rows of 8 and 16
+    # slots, empty slots past W), W = 32, W = 8 with an odd H (a K tile half
+    # past the grid), and W = 80 (the general path: W > 64). Factors of scale
+    # 0.7 so that the bias matters. Each: the same bits twice, and nothing
+    # written past its output (a NaN guard row: the ragged tails and the
+    # 16-channel part of the output are written from registers). At the main
+    # shape the device time beside SDPA's (the dense bias as a bf16 mask, built
+    # outside the timing) and the bound.
     for fused, b, heads, (h, w), d in ((True, 4, 16, (64, 64), 80), (True, 1, 16, (64, 64), 80),
                                        (False, 1, 16, (64, 64), 80), (False, 1, 64, (64, 64), 80),
                                        (True, 2, 3, (5, 7), 80), (False, 1, 2, (5, 7), 80),
-                                       (False, 1, 2, (8, 16), 80)):
+                                       (False, 1, 2, (8, 16), 80), (False, 1, 2, (16, 32), 80),
+                                       (True, 1, 3, (9, 8), 80), (True, 2, 2, (3, 80), 80)):
         n, bh = h * w, b * heads
         if fused:
             qkv = randn(b, n, 3, heads, d)
@@ -539,17 +563,33 @@ def kernel_phases(gen: torch.Generator, card: str):
             got = merged
             ref = ref.reshape(b, heads, n, d).permute(0, 2, 1, 3).reshape(b, n, heads * d)
         layout = "views of fused qkv" if fused else "(BH, N, D)"
-        err = compare(f"relpos B={b} heads={heads} grid={h}x{w} D={d} {layout}", got, ref)
+        name = f"relpos B={b} heads={heads} grid={h}x{w} D={d} {layout}"
+        err = compare(name, got, ref)
         del ref
-        ms, pms, span = time_pair(
-            lambda: fa_mod.flash_attention_relpos(q, k, v, bh_t, bw_t, (h, w)), plain, reps=3)
+        run = lambda: fa_mod.flash_attention_relpos(q, k, v, bh_t, bw_t, (h, w))
+        if fused:
+            same_bits(name, got, lambda: run().permute(0, 2, 1, 3).reshape(b, n, heads * d))
+            into = lambda out: fa_mod._relpos_into(q, k, v, bh_t, bw_t, (h, w),
+                                                   out.unflatten(2, (heads, d)).permute(0, 2, 1, 3))
+        else:
+            same_bits(name, got, run)
+            into = lambda out: fa_mod._relpos_into(q, k, v, bh_t, bw_t, (h, w), out)
+        guarded(name, got, into, n)
+        ms, pms, span = time_pair(run, plain, reps=3)
         mask = None
-        if "flash_attention_relpos" not in results:  # the dense bias, built outside the timing
-            mask = (bh_t[:, :, None, :] + bw_t[:, None, :, :]).reshape(bh, n, n)
-            mask = mask.transpose(1, 2).bfloat16().contiguous().reshape(b, heads, n, n)
-        record("flash_attention_relpos", err, ms, pms, span,
-               lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask),
-               4.0 * bh * n * n * d, 2.0 * 4 * bh * n * d + 4.0 * bh * (h + w) * n)
+        main_shape = "flash_attention_relpos" not in results
+        if main_shape:  # the dense bias, built outside the timing
+            mask = fa_mod.relpos_dense_bias(bh_t, bw_t).bfloat16().contiguous().reshape(
+                b, heads, n, n)
+        sdpa = lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask)
+        ops = 4.0 * bh * n * n * d
+        record("flash_attention_relpos", err, ms, pms, span, sdpa, ops,
+               2.0 * 4 * bh * n * d + 4.0 * bh * (h + w) * n)
+        if main_shape:
+            dev_ms, sdpa_ms = device_ms(run), device_ms(sdpa)
+            log(f"    main shape: device {dev_ms:.4f} ms ({ops / dev_ms / 1e9:.0f} TFLOP/s), "
+                f"SDPA {sdpa_ms:.4f} ms, bound "
+                f"{results['flash_attention_relpos']['bound_ms']:.4f} ms [{card}]")
         del mask
         torch.cuda.empty_cache()
 
@@ -800,7 +840,10 @@ def kernel_phases(gen: torch.Generator, card: str):
 def float32_attention_phases(gen: torch.Generator, card: str, results: dict) -> None:
     """Kernels 1, 3, 4, 5 and 6 on float32 q, k and v (the float32 body,
     ``csrc/attention_f32.cu``) against their float32 twins at the float32
-    bound, each the same bits twice, with its event time beside the twin's."""
+    bound, each the same bits twice, with its event time beside the twin's,
+    the PyTorch call's in float32 (SDPA, with the dense bias as a float32
+    mask; for a backward, SDPA's backward alone) and the float32 bound
+    (operations at 67 TFLOP/s, bytes at 3.35 TB/s)."""
     import divergen_tpu_torch.ops.flash_attention as fa_mod
     import divergen_tpu_torch.ops.window_attention as wa_mod
 
@@ -809,37 +852,56 @@ def float32_attention_phases(gen: torch.Generator, card: str, results: dict) -> 
     def randn(*shape, scale=1.0):
         return torch.randn(shape, generator=gen, device=dev) * scale
 
-    def case(kernel, name, run, plain):
+    def case(kernel, name, run, plain, library=None, ops=0.0, nbytes=0.0):
         got = run()
         if got.dtype != torch.float32:
             raise AssertionError(f"{name}: wrote {got.dtype} for float32 inputs")
         err = compare(name, got, plain(), **F32_BOUNDS)
         same_bits(name, got, run)
         ms, pms, span = time_pair(run, plain)
-        log(f"    float32: kernel {ms:.4f} ms (min {span[0]:.4f}, max {span[1]:.4f}), plain "
-            f"{pms:.4f} ms [{card}]")
+        line = (f"    float32: kernel {ms:.4f} ms (min {span[0]:.4f}, max {span[1]:.4f}), plain "
+                f"{pms:.4f} ms")
+        if library is not None:
+            b_ms, by = bound(ops, nbytes, PEAK_F32_FLOPS)
+            line += (f", PyTorch call (float32) {time_one(library):.4f} ms, bound {b_ms:.4f} ms "
+                     f"by {by} ({ops / 1e9:.2f} GFLOP, {nbytes / 1e6:.1f} MB)")
+        log(f"{line} [{card}]")
         results[kernel]["max_abs_err"] = max(results[kernel]["max_abs_err"], err)
 
+    def heads_first(t, heads):
+        """(B, N, heads · d) -> contiguous (B, heads, N, d)."""
+        return t.unflatten(-1, (heads, -1)).transpose(1, 2).contiguous()
+
     log("kernel phase: float32 attention (kernels 1, 3, 4, 5, 6)")
-    qkv = randn(2, 256, 3 * 128)
-    case("flash_attention_packed", "packed B=2 N=256 C=128 H=2 float32",
-         lambda: fa_mod.flash_attention_packed(qkv, 2),
-         lambda: fa_mod.reference_attention_packed(qkv, 2))
-    q, k, v = (randn(1, 1024, 512) for _ in range(3))
-    bias = randn(1, 1024, 1024)
-    case("flash_attention", "flash BH=1 S=1024 D=512 bias float32",
+    b, n, c, heads = 2, 256, 128, 2
+    qkv = randn(b, n, 3 * c)
+    q4, k4, v4 = (heads_first(t, heads) for t in qkv.chunk(3, dim=-1))
+    case("flash_attention_packed", f"packed B={b} N={n} C={c} H={heads} float32",
+         lambda: fa_mod.flash_attention_packed(qkv, heads),
+         lambda: fa_mod.reference_attention_packed(qkv, heads),
+         lambda: F.scaled_dot_product_attention(q4, k4, v4),
+         4.0 * b * n * n * c, 4.0 * b * n * 4 * c)
+    bh, s, d = 1, 1024, 512
+    q, k, v = (randn(bh, s, d) for _ in range(3))
+    bias = randn(bh, s, s)
+    case("flash_attention", f"flash BH={bh} S={s} D={d} bias float32",
          lambda: fa_mod.flash_attention(q, k, v, bias),
-         lambda: fa_mod.reference_attention(q, k, v, bias))
+         lambda: fa_mod.reference_attention(q, k, v, bias),
+         lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=bias),
+         4.0 * bh * s * s * d, 4.0 * bh * 4 * s * d + 4.0 * bh * s * s)
     b, heads, (h, w), d = 2, 16, (16, 16), 80
     n = h * w
     fused = randn(b, n, 3, heads, d)
     q, k, v = (fused[:, :, s].permute(0, 2, 1, 3) for s in range(3))  # views, as the ViT's
     bh_t, bw_t = randn(b * heads, h, n, scale=0.7), randn(b * heads, w, n, scale=0.7)
+    dense = fa_mod.relpos_dense_bias(bh_t, bw_t).contiguous().reshape(b, heads, n, n)
     case("flash_attention_relpos", f"relpos B={b} heads={heads} grid={h}x{w} D={d} float32",
          lambda: fa_mod.flash_attention_relpos(q, k, v, bh_t, bw_t, (h, w)).reshape(
              b * heads, n, d),
          lambda: fa_mod.reference_attention_relpos(*(t.reshape(b * heads, n, d) for t in (q, k, v)),
-                                                   bh_t, bw_t, (h, w)))
+                                                   bh_t, bw_t, (h, w)),
+         lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=dense),
+         4.0 * b * heads * n * n * d, 4.0 * 4 * b * heads * n * d + 4.0 * b * heads * (h + w) * n)
     bn, heads, nw, n = 8, 6, 4, 144
     c = 32 * heads
     qkv = randn(bn, n, 3 * c).requires_grad_(True)
@@ -848,17 +910,33 @@ def float32_attention_phases(gen: torch.Generator, card: str, results: dict) -> 
     mask.diagonal(dim1=1, dim2=2).zero_()
     do = randn(bn, n, c)
     what = f"bn={bn} C={c} H={heads} n={n} mask=nW {nw} float32"
+    # the PyTorch call: SDPA on contiguous heads-first q, k, v with bias + mask
+    # as one dense float32 mask; for the backward its forward graph is built
+    # outside the timing, and only dq, dk and dv are asked of it
+    win_mask = (bias.detach()[None] + mask.repeat(bn // nw, 1, 1)[:, None]).contiguous()
+    q4, k4, v4 = (heads_first(t, heads).requires_grad_(True)
+                  for t in qkv.detach().chunk(3, dim=-1))
+    do4c = heads_first(do, heads)
+    lib_out = F.scaled_dot_product_attention(q4, k4, v4, attn_mask=win_mask)
+    fwd_ops, fwd_bytes = 4.0 * bn * n * n * c, 4.0 * bn * n * 4 * c + 4.0 * (heads + nw) * n * n
+    bwd_ops = 5 * 2.0 * bn * n * n * c
+    bwd_bytes = 4.0 * bn * n * 7 * c + 4.0 * (2 * heads + nw) * n * n
     case("fused_window_attention_packed", f"window packed {what}",
          lambda: wa_mod.fused_window_attention_packed(qkv, bias, mask, heads).detach(),
          lambda: wa_mod.reference_window_attention_packed(qkv.detach(), bias.detach(), mask,
-                                                          heads))
+                                                          heads),
+         lambda: F.scaled_dot_product_attention(q4, k4, v4, attn_mask=win_mask), fwd_ops,
+         fwd_bytes)
     split = lambda t: t.detach().reshape(bn, n, 3, heads, 32).permute(2, 0, 3, 1, 4)
     q, k, v = (t.requires_grad_(True) for t in split(qkv))
     bias2 = bias.detach().clone().requires_grad_(True)
     case("fused_window_attention", f"window split {what} (views)",
          lambda: wa_mod.fused_window_attention(q, k, v, bias2, mask).detach(),
          lambda: wa_mod.reference_window_attention(q.detach(), k.detach(), v.detach(),
-                                                   bias2.detach(), mask))
+                                                   bias2.detach(), mask),
+         lambda: F.scaled_dot_product_attention(q4, k4, v4, attn_mask=win_mask), fwd_ops,
+         fwd_bytes)
+    sdpa_backward = lambda: torch.autograd.grad(lib_out, (q4, k4, v4), do4c, retain_graph=True)
     out = wa_mod.fused_window_attention_packed(qkv, bias, mask, heads)
     packed_grads = lambda: torch.autograd.grad(out, (qkv, bias), do, retain_graph=True)
     ref = lambda: wa_mod.reference_window_attention_packed_backward(
@@ -866,7 +944,8 @@ def float32_attention_phases(gen: torch.Generator, card: str, results: dict) -> 
     for i, part in enumerate(("dq", "dk", "dv", "dbias")):
         sl = (lambda g: g[1]) if part == "dbias" else (lambda g, i=i: g[0][..., i * c:(i + 1) * c])
         case("fused_window_attention_packed_backward", f"window packed backward {part} {what}",
-             lambda sl=sl: sl(packed_grads()), lambda sl=sl: sl(ref()))
+             lambda sl=sl: sl(packed_grads()), lambda sl=sl: sl(ref()),
+             *((sdpa_backward, bwd_ops, bwd_bytes) if part == "dq" else ()))
     out2 = wa_mod.fused_window_attention(q, k, v, bias2, mask)
     do4 = do.reshape(bn, n, heads, 32).permute(0, 2, 1, 3)
     split_grads = lambda: torch.autograd.grad(out2, (q, k, v, bias2), do4, retain_graph=True)
@@ -874,7 +953,8 @@ def float32_attention_phases(gen: torch.Generator, card: str, results: dict) -> 
         q.detach(), k.detach(), v.detach(), bias2.detach(), mask, do4)
     for i, part in enumerate(("dq", "dk", "dv", "dbias")):
         case("fused_window_attention_backward", f"window split backward {part} {what}",
-             lambda i=i: split_grads()[i], lambda i=i: ref4()[i])
+             lambda i=i: split_grads()[i], lambda i=i: ref4()[i],
+             *((sdpa_backward, bwd_ops, bwd_bytes) if part == "dq" else ()))
 
 
 def device_ms(fn, reps: int = 10) -> float:
@@ -949,7 +1029,7 @@ def serving_kernel_phases(gen: torch.Generator):
             lib_ms = time_one(library_fn)
             log(f"    PyTorch call {lib_ms:.4f} ms; bound {b_ms:.4f} ms by {by} "
                 f"({ops / 1e9:.2f} G operations, {nbytes / 1e6:.1f} MB)")
-            if kernel in ("fused_group_norm", "fused_layer_norm"):  # host-bound event times
+            if kernel == "fused_group_norm":  # host-bound event times
                 log(f"    device time: kernel {device_ms(kernel_fn):.4f} ms, PyTorch call "
                     f"{device_ms(library_fn):.4f} ms")
             if extra is not None:
@@ -1111,9 +1191,14 @@ def serving_kernel_phases(gen: torch.Generator):
                x.numel() * (9.0 if silu else 5.0), 4.0 * x.numel() + 8.0 * c, PEAK_F32_FLOPS)
 
     log("kernel phase: fused_layer_norm")
-    # the UNet's transformer LayerNorms (rows of 4096 x 1280 and 16384 x 640),
-    # then C not a multiple of 128 (1000) and C not a multiple of 8 (333)
-    # float32 x: the vector path (1280) and the any-C path (333)
+    # the UNet's transformer LayerNorms (rows of 4096 x 1280 and 16384 x 640:
+    # 180 and 30 launches an int8 UNet call, each with its device time beside
+    # F.layer_norm's and the bound, summed over the call, since their event
+    # times are the host's), then C not a multiple of 128 (1000) and C not a
+    # multiple of 8 (333); float32 x: the vector path (1280) and the any-C
+    # path (333)
+    ln_launches = {(4096, 1280): 180, (16384, 640): 30}
+    ln_unet = {"kernel": 0.0, "F.layer_norm": 0.0, "bound": 0.0}
     for rows, c, dtype in ((4096, 1280, torch.bfloat16), (16384, 640, torch.bfloat16),
                            (4096, 1000, torch.bfloat16), (777, 333, torch.bfloat16),
                            (4096, 1280, torch.float32), (777, 333, torch.float32)):
@@ -1127,9 +1212,20 @@ def serving_kernel_phases(gen: torch.Generator):
         err = compare(name, got, plain())
         same_bits(name, got, run)
         g16, b16 = gamma.bfloat16(), beta.bfloat16()
-        record("fused_layer_norm", err, run, plain,
-               lambda: F.layer_norm(x, (c,), g16, b16, 1e-5), 8.0 * x.numel(),
+        library = lambda: F.layer_norm(x, (c,), g16, b16, 1e-5)
+        record("fused_layer_norm", err, run, plain, library, 8.0 * x.numel(),
                4.0 * x.numel() + 8.0 * c, PEAK_F32_FLOPS)
+        launches = ln_launches.get((rows, c)) if dtype == torch.bfloat16 else None
+        if launches:
+            dev_ms, lib_ms = device_ms(run), device_ms(library)
+            b_ms, by = bound(8.0 * x.numel(), 4.0 * x.numel() + 8.0 * c, PEAK_F32_FLOPS)
+            for key, t in (("kernel", dev_ms), ("F.layer_norm", lib_ms), ("bound", b_ms)):
+                ln_unet[key] += t * launches
+            log(f"    device {dev_ms:.4f} ms, F.layer_norm {lib_ms:.4f} ms, bound {b_ms:.4f} ms "
+                f"by {by}; {launches} launches per int8 UNet call")
+    log("  fused_layer_norm: device time x launches per int8 UNet call, summed over its 210 "
+        f"launches: kernel {ln_unet['kernel']:.4f} ms, F.layer_norm "
+        f"{ln_unet['F.layer_norm']:.4f} ms, bound {ln_unet['bound']:.4f} ms")
 
     log("kernel phase: fused_gn_silu_conv3x3")
     # the fused ResBlock's norm -> SiLU -> conv at level 0 (C 320) and at
@@ -2422,7 +2518,7 @@ def main() -> int:
                             "divergen_tpu/ops/pallas/ln_matmul.py:127"),
         "flash_attention": ("divergen_tpu_torch/csrc/flash_attention_d512.cu",
                             "divergen_tpu/ops/pallas/flash_attention.py:146"),
-        "flash_attention_relpos": ("divergen_tpu_torch/csrc/flash_attention.cu",
+        "flash_attention_relpos": ("divergen_tpu_torch/csrc/flash_attention_relpos_sm90.cu",
                                    "divergen_tpu/ops/pallas/flash_attention.py:531"),
         "fused_window_attention_packed": ("divergen_tpu_torch/csrc/window_attention.cu",
                                           "divergen_tpu/ops/pallas/window_attention.py:470"),

@@ -8,8 +8,9 @@
 // flash_attention, flash_attention_relpos) and window_attention.py
 // (fused_window_attention_packed and fused_window_attention, forward and
 // backward). Their bf16 cases run the bf16 bodies (flash_attention_sm90.cu,
-// flash_attention_d512.cu, flash_attention.cu, window_attention.cu); the
-// wrappers send float32 here and raise on any other dtype.
+// flash_attention_d512.cu, flash_attention_relpos_sm90.cu,
+// window_attention.cu); the wrappers send float32 here and raise on any
+// other dtype.
 //
 // The forward, per (batch b, head h) and query row r:
 //     out[r] = softmax_k(scale (q_r . k_k) + bias(b, h, r, k)) v

@@ -1,6 +1,8 @@
 // What the wgmma + TMA attention bodies share (flash_attention_sm90.cu at
-// head dim 64, flash_attention_d512.cu at head dim 512): the base-2 exp, the
-// P V product on wgmma m64n64k16 with P from registers, the online softmax of
+// head dim 64, flash_attention_d512.cu at head dim 512,
+// flash_attention_relpos_sm90.cu at head dim 80): the base-2 exp, the
+// Q K^T products on wgmma m64n128k16 and m64n64k16, the P V products on
+// wgmma m64n64k16 and m64n16k16 with P from registers, the online softmax of
 // a consumer warpgroup's 64 q rows over K tiles of BK keys, and, on the
 // host, the 3-D tensor maps of q, k and v.
 #pragma once
@@ -22,6 +24,44 @@ __device__ __forceinline__ float ex2(float x) {
   asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
   return y;
 }
+
+#define DG_F8(i)                                                                          \
+  "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]), "+f"(d[i + 4]), "+f"(d[i + 5]), \
+      "+f"(d[i + 6]), "+f"(d[i + 7])
+
+// d (64 x 128 f32) = [d +] A (64 x 16 bf16, K-major, descriptor a) B^T, B
+// (128 x 16 bf16, K-major, descriptor b); scale_d = 0 overwrites d.
+// Fragment of d: thread t of the warpgroup holds rows 16 (t / 32) + (t % 32) / 4
+// + {0, 8}, columns 8 j + 2 (t % 4) + {0, 1}, as d[4 j + {0, 1}] (row + 0),
+// d[4 j + {2, 3}] (row + 8).
+__device__ __forceinline__ void wgmma_qk(float (&d)[64], uint64_t a, uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+      : DG_F8(0), DG_F8(8), DG_F8(16), DG_F8(24), DG_F8(32), DG_F8(40), DG_F8(48), DG_F8(56)
+      : "l"(a), "l"(b), "r"(scale_d));
+}
+
+// The same with n = 64 (B 64 x 16): d 32 registers
+__device__ __forceinline__ void wgmma_qk(float (&d)[32], uint64_t a, uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : DG_F8(0), DG_F8(8), DG_F8(16), DG_F8(24)
+      : "l"(a), "l"(b), "r"(scale_d));
+}
+
+#undef DG_F8
 
 // d (64 x 64 f32) += A (64 x 16 bf16 from registers) B, B (16 x 64 bf16,
 // MN-major: N contiguous, descriptor b). A fragment, per warp of 16 rows
@@ -47,6 +87,19 @@ __device__ __forceinline__ void wgmma_pv(float (&d)[32], const uint32_t* a, uint
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
 }
 
+// d (64 x 16 f32) += A (64 x 16 bf16 from registers) B, B (16 x 16 bf16,
+// MN-major, descriptor b): the fragments of wgmma_pv with j < 2
+__device__ __forceinline__ void wgmma_pv16(float (&d)[8], const uint32_t* a, uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, {%8, %9, %10, %11}, %12, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
 // The online softmax of one thread's two rows (row0 and row0 + 8; the four
 // lanes of a quad share them) over K tiles of BK keys, the score tile in the
 // wgmma fragment above (BK / 2 registers): base 2, the running max in raw
@@ -67,6 +120,15 @@ struct AttnSoftmax {
       : row0(row), t4(t), sq(a.sq), sk(a.sk),
         bias(BIAS ? a.bias + b * a.bias_bs + h * a.bias_hs : nullptr), bias_rs(a.bias_rs),
         o_rs(a.o_rs), scale_log2(a.scale_log2), mult(BIAS ? 1.f : a.scale_log2) {}
+
+  // without a bias of its own (a caller that starts S from its bias): sq and
+  // sk, the output's row stride, the softmax scale times log2(e)
+  __device__ __forceinline__ AttnSoftmax(int row, int t, int sq_, int sk_, int64_t o_rs_,
+                                         float scale_log2_)
+      : row0(row), t4(t), sq(sq_), sk(sk_), bias(nullptr), bias_rs(0), o_rs(o_rs_),
+        scale_log2(scale_log2_), mult(scale_log2_) {
+    static_assert(!BIAS, "a bias policy reads its bias through the kernel's arguments");
+  }
 
   // S_t -> exp2 of its scores less the new running max, in place; alpha and
   // the row sums updated

@@ -112,29 +112,6 @@ struct Args {
   float scale_log2;  // softmax scale * log2(e)
 };
 
-#define DG_F8(i)                                                                          \
-  "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]), "+f"(d[i + 4]), "+f"(d[i + 5]), \
-      "+f"(d[i + 6]), "+f"(d[i + 7])
-
-// d (64 x 64 f32) = [d +] A (64 x 16 bf16, K-major, descriptor a) B^T, B
-// (64 x 16 bf16, K-major, descriptor b); scale_d = 0 overwrites d.
-// Fragment of d: thread t of the warpgroup holds rows 16 (t / 32) + (t % 32) / 4
-// + {0, 8}, columns 8 j + 2 (t % 4) + {0, 1}, as d[4 j + {0, 1}] (row + 0),
-// d[4 j + {2, 3}] (row + 8).
-__device__ __forceinline__ void wgmma_qk(float (&d)[32], uint64_t a, uint64_t b, int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\n"
-      "setp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
-      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
-      : DG_F8(0), DG_F8(8), DG_F8(16), DG_F8(24)
-      : "l"(a), "l"(b), "r"(scale_d));
-}
-
-#undef DG_F8
-
 // S = this consumer's (c's) share + the other's, through shared memory (in
 // either order: the same bits in both consumers), as float4 at
 // x[q * 128 + tid]. Barrier kPartialBar: both shares are written;
@@ -246,7 +223,7 @@ __global__ void __launch_bounds__(kThreads, 1)
         const uint64_t dq = dg::sw128_desc(tile_q(ch));
         const uint64_t dk = dg::sw128_desc(buf(ch));
 #pragma unroll
-        for (int kk = 0; kk < kCW / 16; ++kk) wgmma_qk(acc, dq + 2 * kk, dk + 2 * kk, jj | kk);
+        for (int kk = 0; kk < kCW / 16; ++kk) dg::wgmma_qk(acc, dq + 2 * kk, dk + 2 * kk, jj | kk);
       }
     };
     // O += P V of the block's m-th tile over this consumer's 4 chunks of V:

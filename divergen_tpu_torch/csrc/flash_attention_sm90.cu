@@ -10,8 +10,8 @@
 //     channels [s*C + h*64, s*C + (h+1)*64);
 //   * flash_attention (_attn_kernel_main / _attn_bias_kernel) at d = 64:
 //     (BH, S, 64) q, k and v, an optional dense f32 (BH, Sq, Sk) bias.
-// Head dims 512 (the VAE) and 80 (SAM) stay on flash_attention.cu's mma.sync
-// body.
+// Head dims 512 (the VAE) and 80 (SAM's relative-position attention) run
+// flash_attention_d512.cu and flash_attention_relpos_sm90.cu.
 //
 // What bounds it on the H100: operations, and two kinds at once. A score
 // element costs 4 d = 256 bf16 tensor-core FLOP (its share of Q K^T and
@@ -106,37 +106,12 @@ struct Args {
   float scale_log2;  // softmax scale * log2(e)
 };
 
-#define DG_F8(i)                                                                          \
-  "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]), "+f"(d[i + 4]), "+f"(d[i + 5]), \
-      "+f"(d[i + 6]), "+f"(d[i + 7])
-
-// d (64 x 128 f32) = [d +] A (64 x 16 bf16, K-major, descriptor a) B^T, B
-// (128 x 16 bf16, K-major, descriptor b); scale_d = 0 overwrites d.
-// Fragment of d: thread t of the warpgroup holds rows 16 (t / 32) + (t % 32) / 4
-// + {0, 8}, columns 8 j + 2 (t % 4) + {0, 1}, as d[4 j + {0, 1}] (row + 0),
-// d[4 j + {2, 3}] (row + 8).
-__device__ __forceinline__ void wgmma_qk(float (&d)[64], uint64_t a, uint64_t b, int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\n"
-      "setp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
-      "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
-      : DG_F8(0), DG_F8(8), DG_F8(16), DG_F8(24), DG_F8(32), DG_F8(40), DG_F8(48), DG_F8(56)
-      : "l"(a), "l"(b), "r"(scale_d));
-}
-
-#undef DG_F8
-
 // S (64 x 128 f32 fragment) = Q (64 rows of the descriptor dq) K^T (the
 // 128-key tile at tile_k): four k-steps of 16 channels (32 bytes)
 __device__ __forceinline__ void issue_qk(float (&s)[64], uint64_t dq, const void* tile_k) {
   const uint64_t dk = dg::sw128_desc(tile_k);
 #pragma unroll
-  for (int kk = 0; kk < kD / 16; ++kk) wgmma_qk(s, dq + 2 * kk, dk + 2 * kk, kk);
+  for (int kk = 0; kk < kD / 16; ++kk) dg::wgmma_qk(s, dq + 2 * kk, dk + 2 * kk, kk);
 }
 
 // O += P V: eight k-steps of 16 keys (16 rows of 128 bytes of the tile at tile_v)

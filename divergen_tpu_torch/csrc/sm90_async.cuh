@@ -1,9 +1,9 @@
 // Hopper's asynchronous building blocks, shared by the kernels built on TMA
 // and wgmma (int8_matmul.cu, flash_attention_sm90.cu, flash_attention_d512.cu,
-// gn_conv.cu): mbarriers, TMA tile loads, named barriers, the shared-memory
-// descriptor of a tile under the 128-byte swizzle, the wgmma fence / commit /
-// wait, and, on the host, the lookup of libcuda's cuTensorMapEncodeTiled (PTX
-// ISA 8.0, sm_90a).
+// flash_attention_relpos_sm90.cu, gn_conv.cu): mbarriers, TMA tile loads,
+// named barriers, the shared-memory descriptors of a tile under the 128- and
+// 32-byte swizzles, the wgmma fence / commit / wait, and, on the host, the
+// lookup of libcuda's cuTensorMapEncodeTiled (PTX ISA 8.0, sm_90a).
 #pragma once
 
 #include <cuda.h>  // CUtensorMap and its enums (types only: libcuda is not linked)
@@ -93,6 +93,16 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map, u
       : "memory");
 }
 
+__device__ __forceinline__ void tma_load_5d(void* dst, const CUtensorMap* map, uint64_t* bar,
+                                            int c0, int c1, int c2, int c3, int c4) {
+  asm volatile(
+      "cp.async.bulk.tensor.5d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4, %5, %6, %7}], [%2];\n" ::"r"(smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)), "r"(c0), "r"(c1), "r"(c2),
+      "r"(c3), "r"(c4)
+      : "memory");
+}
+
 // ---- wgmma
 
 // Descriptor of a tile of 128-byte rows under the 128-byte swizzle (TMA's
@@ -109,6 +119,18 @@ __device__ __forceinline__ uint64_t sw128_desc(const void* tile, uint32_t lbo = 
   const uint64_t addr = smem_addr(tile);
   return ((addr & 0x3ffff) >> 4) | (static_cast<uint64_t>(lbo & 0x3fff) << 16) |
          (64ull << 32) | (1ull << 62);
+}
+
+// The same under the 32-byte swizzle (CU_TENSOR_MAP_SWIZZLE_32B): rows of
+// 32 bytes (16 bf16), eight rows (256 bytes, one swizzle atom) between
+// groups of 8 rows along the strided dimension, the tile on a 256-byte
+// boundary. K-major: one k-step of 16 is the whole row. MN-major (16 of M or
+// N in the row, the rows along K): a step of 16 rows of K is the start
+// address + 512 (+32).
+__device__ __forceinline__ uint64_t sw32_desc(const void* tile, uint32_t lbo = 1) {
+  const uint64_t addr = smem_addr(tile);
+  return ((addr & 0x3ffff) >> 4) | (static_cast<uint64_t>(lbo & 0x3fff) << 16) |
+         (16ull << 32) | (3ull << 62);
 }
 
 __device__ __forceinline__ void wgmma_fence() {

@@ -101,7 +101,8 @@ def _declare(lib: ctypes.CDLL) -> None:
         getattr(lib, name).argtypes = ([p] * 5 + [i] * 4 + [i64] * 4 + [i] * 4 + [i64] * 6
                                        + [f, i, i, p])
         getattr(lib, name).restype = i
-    for name in ("dg_flash_attention_sm90_rows", "dg_flash_attention_d512_rows"):
+    for name in ("dg_flash_attention_sm90_rows", "dg_flash_attention_d512_rows",
+                 "dg_flash_attention_relpos_rows", "dg_flash_attention_relpos_smem"):
         getattr(lib, name).argtypes = []
         getattr(lib, name).restype = i
     lib.dg_flash_attention_relpos_bf16.argtypes = [p] * 6 + [i] * 5 + [i64] * 9 + [f, p]

@@ -12,8 +12,10 @@ d = 64 (SDXL) runs ``csrc/flash_attention_sm90.cu`` (TMA, wgmma, three
 consumer warpgroups taking turns), d = 512 (the VAE)
 ``csrc/flash_attention_d512.cu`` (TMA, wgmma, the channels split over two
 consumer warpgroups that sum their shares of the scores), the
-relative-position kernel at d = 80 (SAM) ``csrc/flash_attention.cu``
-(mma.sync). Each takes bf16 or float32, as the TPU kernels take the input's
+relative-position kernel at d = 80 (SAM) ``csrc/flash_attention_relpos_sm90.cu``
+(TMA, wgmma, two consumer warpgroups taking turns, the bias started in the
+score accumulator). Each takes bf16 or float32, as the TPU kernels take the
+input's
 dtype: float32 q, k and v (a float32 model's attention) run the float32 body
 ``csrc/attention_f32.cu`` (true float32 products, at head dims 32, 64, 80
 and 512; ``attention_f32.body_for`` is the dispatch), and the output is in
@@ -36,9 +38,14 @@ from . import attention_f32
 SM90_HEAD_DIM = 64  # head dim of flash_attention_sm90.cu (bf16)
 SM90_TILE = 192  # q rows a work item of that body (its kBQ: 3 warpgroups of 64)
 D512_TILE = 64  # q rows a work item of flash_attention_d512.cu (its kRows)
-# The block keeps H + W rows of 64 + 4 floats beside its q tile and K/V ring
-# (5 tiles of 64 rows of d + 8 bf16) in the 232,448 bytes it may use.
-RELPOS_MAX_GRID_SIDES = (232448 - 5 * 64 * (80 + 8) * 2) // ((64 + 4) * 4)
+# flash_attention_relpos_sm90.cu (its kD, kBQ, kBK, kStages): head dim, q rows
+# of a work item (2 consumer warpgroups of 64), keys of a K tile, stages of
+# the K/V ring; checked against the library by chip_smoke.py, and the plan of
+# the body is mirrored in tests/test_torch_relpos_plan.py
+RELPOS_HEAD_DIM = 80
+RELPOS_TILE = 128
+RELPOS_BK = 128
+RELPOS_STAGES = 4
 SOFTMAX_MODES = ("exact", "rawmax")  # the same math; the TPU's bf16exp is not ported
 
 
@@ -66,16 +73,23 @@ def reference_attention_packed(qkv: torch.Tensor, heads: int) -> torch.Tensor:
     return out.to(qkv.dtype).reshape(b, n, heads * d)
 
 
+def relpos_dense_bias(bias_h_t: torch.Tensor, bias_w_t: torch.Tensor) -> torch.Tensor:
+    """The (BH, N, N) bias of the factors bias_h_t (BH, H, N) and bias_w_t
+    (BH, W, N): ``bias[b, q, k = u·W + v] = bias_h_t[b, u, q] + bias_w_t[b, v, q]``."""
+    bh, h, n = bias_h_t.shape
+    bias = bias_h_t[:, :, None, :] + bias_w_t[:, None, :, :]  # (BH, H, W, N)
+    return bias.reshape(bh, n, n).transpose(1, 2)
+
+
 def reference_attention_relpos(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                                bias_h_t: torch.Tensor, bias_w_t: torch.Tensor,
                                hw: Tuple[int, int]) -> torch.Tensor:
     """Plain attention with the decomposed relative-position bias: q/k/v
     (BH, N, D); bias_h_t (BH, H, N); bias_w_t (BH, W, N); N = H·W. The bias of
     query q against key (u, v) is ``bias_h_t[b, u, q] + bias_w_t[b, v, q]``."""
-    bh, n, d = q.shape
+    d = q.shape[-1]
     s = torch.einsum("bqd,bkd->bqk", q.float(), k.float()) / math.sqrt(d)
-    bias = bias_h_t[:, :, None, :] + bias_w_t[:, None, :, :]  # (BH, H, W, N)
-    s = s + bias.reshape(bh, n, n).transpose(1, 2).float()
+    s = s + relpos_dense_bias(bias_h_t, bias_w_t).float()
     p = torch.softmax(s, dim=-1)
     return torch.einsum("bqk,bkd->bqd", p.to(v.dtype).float(), v.float()).to(q.dtype)
 
@@ -128,6 +142,14 @@ class TilePlan(NamedTuple):
                 t, h, b = w % tiles, (w // tiles) % heads, w // (tiles * heads)
                 yield (block, (t, h, b), (self.q_c0 + h * self.head_c, t * self.rows, b),
                        self.k_c0 + h * self.head_c, self.v_c0 + h * self.head_c)
+
+
+def relpos_smem() -> int:
+    """Dynamic shared memory of a block of the body: two Q buffers and the
+    K/V ring, 80 channels a row, and 1024 bytes to align them to the
+    128-byte swizzle's atoms (its ``kSmem``)."""
+    row = RELPOS_HEAD_DIM * 2
+    return 2 * RELPOS_TILE * row + 2 * RELPOS_STAGES * RELPOS_BK * row + 1024
 
 
 def _rows(d: int) -> int:
@@ -299,34 +321,43 @@ def flash_attention_relpos(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         _require_kernel_input(name, t, d, "relpos", strided=True)
     if not q.dtype == k.dtype == v.dtype:
         raise ValueError(f"q, k, v dtypes {q.dtype}, {k.dtype}, {v.dtype} differ")
-    if q.dtype == torch.bfloat16 and h + w > RELPOS_MAX_GRID_SIDES:
-        raise ValueError(f"grid {h} x {w}: the bias factors of one q tile do not fit "
-                         f"shared memory (H + W <= {RELPOS_MAX_GRID_SIDES})")
+    if k.stride() != v.stride():
+        raise ValueError(f"k and v must share strides, got {k.stride()} and {v.stride()}")
+    if q.dim() == 3:
+        out = torch.empty((bh, n, d), dtype=q.dtype, device=q.device)
+    else:
+        batch, heads = q.shape[:2]
+        out = torch.empty((batch, n, heads, d), dtype=q.dtype, device=q.device).permute(0, 2, 1, 3)
+    flash_attention_relpos.launches += 1
+    return _relpos_into(q, k, v, bias_h_t, bias_w_t, hw, out)
+
+
+def _relpos_into(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, bias_h_t: torch.Tensor,
+                 bias_w_t: torch.Tensor, hw: Tuple[int, int], out: torch.Tensor) -> torch.Tensor:
+    """Launches the kernel on checked CUDA q, k, v ((BH, N, D) or
+    (B, heads, N, D), k and v sharing strides) and (BH, H|W, N) factors into
+    ``out``, a view of q's shape with a unit last stride that the caller
+    allocates (a view of a larger buffer is fine)."""
+    h, w = hw
+    n, d = q.shape[-2:]
     f32 = dict(device=q.device, dtype=torch.float32)
     bias_h_t = bias_h_t.to(**f32).contiguous()
     bias_w_t = bias_w_t.to(**f32).contiguous()
     if q.dim() == 3:
-        batch, heads = bh, 1
-        out = torch.empty((bh, n, d), dtype=q.dtype, device=q.device)
-        o_strides = (n * d, 0, d)
+        batch, heads = q.shape[0], 1
         strides = lambda t: (t.stride(0), 0, t.stride(1))
     else:
         batch, heads = q.shape[:2]
-        out = torch.empty((batch, n, heads, d), dtype=q.dtype, device=q.device).permute(0, 2, 1, 3)
-        o_strides = (n * heads * d, d, heads * d)
         strides = lambda t: (t.stride(0), t.stride(1), t.stride(2))
-    if k.stride() != v.stride():
-        raise ValueError(f"k and v must share strides, got {k.stride()} and {v.stride()}")
-    flash_attention_relpos.launches += 1
     if q.dtype == torch.float32:
         return attention_f32.launch(
             q, k.data_ptr(), v.data_ptr(), out, batch=batch, heads=heads, sq=n, sk=n, d=d,
-            q_strides=strides(q), kv_strides=strides(k), o_strides=o_strides,
+            q_strides=strides(q), kv_strides=strides(k), o_strides=strides(out),
             bias_mode="relpos", bias=bias_h_t, bias2=bias_w_t, grid=(h, w),
             scale=1.0 / math.sqrt(d))
     code = _build.lib().dg_flash_attention_relpos_bf16(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), bias_h_t.data_ptr(), bias_w_t.data_ptr(),
-        out.data_ptr(), batch, heads, h, w, d, *strides(q), *strides(k), *o_strides,
+        out.data_ptr(), batch, heads, h, w, d, *strides(q), *strides(k), *strides(out),
         1.0 / math.sqrt(d), torch.cuda.current_stream(q.device).cuda_stream,
     )
     _build.check(code, "flash attention (relative position) kernel launch")

@@ -1,6 +1,7 @@
 """What the A/B tools share (``attention_ab.py``, ``int8_gemm_ab.py``,
-``gn_conv_ab.py``, ``ln_matmul_ab.py``): building one kernel source into a library of its own, and
-timing several builds in turns on one GPU.
+``gn_conv_ab.py``, ``ln_matmul_ab.py``, ``window_attention_ab.py``,
+``layer_norm_ab.py``): building one kernel source into a library of its own,
+and timing several builds in turns on one GPU.
 
 Each tool runs from the root of a checkout as ``python3 tools/<tool>.py``;
 importing this module puts the checkout on ``sys.path``.

@@ -1,8 +1,11 @@
 #!/usr/bin/env python3
 """A/B of the wgmma attention kernels against an earlier build, on one GPU:
 SDXL's self-attention (kernel 1, ``flash_attention_packed`` at head dim 64)
-at the shapes of an SDXL UNet call and the main shape, or with ``--d512``
-the VAE's mid attention (kernel 3, ``flash_attention`` at head dim 512).
+at the shapes of an SDXL UNet call and the main shape, with ``--d512``
+the VAE's mid attention (kernel 3, ``flash_attention`` at head dim 512), or
+with ``--relpos`` SAM ViT-H's global attention (kernel 4,
+``flash_attention_relpos`` at head dim 80, on heads-first views of the fused
+(B, N, 3, 16, 80) projection, as ``modeling/backbone/vit.py`` calls it).
 
 Runs from the root of a checkout. Extract the earlier source first (the
 machine that runs this needs no git), e.g. an earlier commit's
@@ -13,9 +16,14 @@ before the wgmma ones replaced them:
     git show HEAD~1:divergen_tpu_torch/csrc/flash_attention.cu > build/scratch/old/flash_attention.cu
     python3 tools/attention_ab.py build/scratch/old/flash_attention.cu          # d = 64
     python3 tools/attention_ab.py --d512 build/scratch/old/flash_attention.cu   # d = 512
+    python3 tools/attention_ab.py --relpos build/scratch/old/flash_attention.cu # d = 80
+
+(at d = 80 the earlier source is the mma.sync body of PR 12 and before, or a
+variant of ``csrc/flash_attention_relpos_sm90.cu``; both have the entry
+``dg_flash_attention_relpos_bf16``).
 
 Builds that source and the checkout's ``csrc/flash_attention_sm90.cu`` (or
-``csrc/flash_attention_d512.cu``) with nvcc, each into a library of its own
+``csrc/flash_attention_d512.cu``, ``csrc/flash_attention_relpos_sm90.cu``) with nvcc, each into a library of its own
 under ``build/scratch/`` (headers from the source's own directory first,
 then ``csrc/``), and calls their C entry points on the same operands. An
 earlier build has either the interface of the mma.sync body
@@ -24,7 +32,7 @@ earlier build has either the interface of the mma.sync body
 a variant of the current source can be A/B'd as well.
 
 ``--shape`` (repeatable) times other shapes instead: B,N,C,H at d = 64,
-BH,S (Sq = Sk = S) at d = 512. For each shape (bf16, seeded) it prints, for
+BH,S (Sq = Sk = S) at d = 512, B,heads,H,W at d = 80. For each shape (bf16, seeded) it prints, for
 both builds, the relative L2 and max |error| against the plain twin in
 float32 (``reference_attention_packed`` / ``reference_attention``), the
 elements that differ from the twin's bf16 result, and whether two runs give
@@ -33,8 +41,10 @@ current, earlier, three times; each a ``chip_smoke.device_ms`` of 10 calls,
 3 at d = 512; medians of 6) beside that of ``scaled_dot_product_attention``
 on the same q, k and v ((B, H, N, d) contiguous at d = 64), and the bound (4
 B H N² d FLOP at 989 TFLOP/s). At d = 64, then the sums of median x
-launches per UNet call. Needs a CUDA device; prints the card's name and
-power limit first.
+launches per UNet call; at d = 80 (relative-position bias factors of scale
+0.7 against ``reference_attention_relpos``; SDPA with the dense bias built
+outside the timing as a bf16 mask), the sum over a SAM forward's 4 launches.
+Needs a CUDA device; prints the card's name and power limit first.
 """
 from __future__ import annotations
 
@@ -58,11 +68,17 @@ SHAPES = {(4, 4096, 640, 10): 10, (4, 1024, 1280, 20): 60, (2, 4096, 640, 10): N
 # (BH, S) of the d = 512 attention: the VAE's mid block at 1024² (one launch
 # per decoded image), and at 512²
 D512_SHAPES = ((1, 16384), (1, 4096))
+# (B, heads, H, W) of the d = 80 relative-position attention: SAM ViT-H's
+# global layers at 1024² and batch 4 (4 launches per forward), and batch 1
+RELPOS_SHAPES = ((4, 16, 64, 64), (1, 16, 64, 64))
+SAM_RELPOS_LAUNCHES = 4
 
 
 def load(name: str, src: Path) -> ctypes.CDLL:
     lib = build("attention_ab", name, src, report=True)
     p, i, i64, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, ctypes.c_float
+    if hasattr(lib, "dg_flash_attention_relpos_bf16"):
+        lib.dg_flash_attention_relpos_bf16.argtypes = [p] * 6 + [i] * 5 + [i64] * 9 + [f, p]
     lib.sm90 = hasattr(lib, "dg_flash_attention_sm90")
     lib.d512 = hasattr(lib, "dg_flash_attention_d512")
     if lib.sm90:
@@ -71,7 +87,7 @@ def load(name: str, src: Path) -> ctypes.CDLL:
     elif lib.d512:
         lib.dg_flash_attention_d512.argtypes = ([p] * 5 + [i] * 4 + [i64] * 4 + [i] * 4
                                                 + [i64] * 6 + [f, i, i, p])
-    else:
+    elif hasattr(lib, "dg_flash_attention"):
         lib.dg_flash_attention.argtypes = [p] * 5 + [i] * 5 + [i64] * 12 + [f, i, p]
     return lib
 
@@ -108,6 +124,20 @@ def call_d512(lib, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out: torch
         code = lib.dg_flash_attention(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), None, out.data_ptr(), bh, 1, sq, sk, d,
             sq * d, 0, d, sk * d, 0, d, sq * d, 0, d, 0, 0, 0, 1.0 / math.sqrt(d), 0, stream)
+    if code:
+        raise RuntimeError(f"launch failed with CUDA error {code}")
+
+
+def call_relpos(lib, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, bh_t: torch.Tensor,
+                bw_t: torch.Tensor, hw, out: torch.Tensor, stream: int) -> None:
+    """q, k, v (B, heads, N, 80) views sharing strides; out a (B, heads, N,
+    80) view; the factors contiguous (B·heads, H|W, N) f32."""
+    b, heads, _, d = q.shape
+    st = lambda t: (t.stride(0), t.stride(1), t.stride(2))
+    code = lib.dg_flash_attention_relpos_bf16(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), bh_t.data_ptr(), bw_t.data_ptr(),
+        out.data_ptr(), b, heads, hw[0], hw[1], d, *st(q), *st(k), *st(out),
+        1.0 / math.sqrt(d), stream)
     if code:
         raise RuntimeError(f"launch failed with CUDA error {code}")
 
@@ -166,14 +196,60 @@ def main_d512(args, dev: torch.device, g: torch.Generator, stream: int, sms: int
     return 0
 
 
+def main_relpos(args, dev: torch.device, g: torch.Generator, stream: int) -> int:
+    libs = {"earlier": load("earlier", args.earlier.resolve()),
+            "current": load("current", _build.CSRC / "flash_attention_relpos_sm90.cu")}
+    shapes = ([tuple(int(v) for v in text.split(",")) for text in args.shape]
+              if args.shape else RELPOS_SHAPES)
+    d = 80
+    for b, heads, h, w in shapes:
+        n, bh = h * w, b * heads
+        qkv = torch.randn((b, n, 3, heads, d), generator=g, device=dev).bfloat16()
+        q, k, v = (qkv[:, :, s].permute(0, 2, 1, 3) for s in range(3))
+        bh_t = 0.7 * torch.randn((bh, h, n), generator=g, device=dev)
+        bw_t = 0.7 * torch.randn((bh, w, n), generator=g, device=dev)
+        ref = fa.reference_attention_relpos(*(t.reshape(bh, n, d).float() for t in (q, k, v)),
+                                            bh_t, bw_t, (h, w)).reshape(b, heads, n, d)
+        outs = {name: torch.empty((b, n, heads, d), device=dev,
+                                  dtype=torch.bfloat16).permute(0, 2, 1, 3) for name in libs}
+        runs = {name: (lambda lib=lib, name=name: call_relpos(lib, q, k, v, bh_t, bw_t, (h, w),
+                                                                outs[name], stream))
+                for name, lib in libs.items()}
+        what = f"(B, heads, H, W, d) = {(b, heads, h, w, d)}"
+        for name, run in runs.items():
+            check(name, what, run, lambda name=name: outs[name], ref, args.timing_only)
+        del ref
+        mask = fa.relpos_dense_bias(bh_t, bw_t).bfloat16().contiguous().reshape(b, heads, n, n)
+        dev_ms = in_turns(runs)
+        sdpa = device_ms(lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask))
+        flop = 4.0 * bh * n * n * d
+        bound = 1e3 * flop / PEAK_BF16_FLOPS
+        text = {name: ", ".join(f"{t:.4f}" for t in ts) for name, (_, ts) in dev_ms.items()}
+        print(f"{what}: device earlier {dev_ms['earlier'][0]:.4f} ms (runs {text['earlier']}), "
+              f"current {dev_ms['current'][0]:.4f} ms (runs {text['current']}), SDPA "
+              f"{sdpa:.4f} ms, bound {bound:.4f} ms ({flop / 1e9:.1f} GFLOP; current at "
+              f"{flop / dev_ms['current'][0] / 1e9:.0f} TFLOP/s); per SAM forward "
+              f"({SAM_RELPOS_LAUNCHES} launches): earlier "
+              f"{dev_ms['earlier'][0] * SAM_RELPOS_LAUNCHES:.3f} ms, current "
+              f"{dev_ms['current'][0] * SAM_RELPOS_LAUNCHES:.3f} ms", flush=True)
+        del qkv, q, k, v, outs, mask
+        torch.cuda.empty_cache()
+    return 0
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("earlier", type=Path, help="the earlier build's source")
     parser.add_argument("--d512", action="store_true",
                         help="the d = 512 body (kernel 3) in place of the d = 64 one")
-    parser.add_argument("--shape", action="append", default=[], metavar="B,N,C,H | BH,S",
-                        help="time this (B, N, C, heads), or with --d512 (BH, S), instead of "
-                             "the default shapes (repeatable; no launches per UNet call)")
+    parser.add_argument("--relpos", action="store_true",
+                        help="the d = 80 relative-position body (kernel 4) in place of the "
+                             "d = 64 one")
+    parser.add_argument("--shape", action="append", default=[],
+                        metavar="B,N,C,H | BH,S | B,heads,H,W",
+                        help="time this (B, N, C, heads), with --d512 (BH, S), with --relpos "
+                             "(B, heads, H, W), instead of the default shapes (repeatable; no "
+                             "launches per UNet call)")
     parser.add_argument("--timing-only", action="store_true",
                         help="time an earlier build that is not meant to be right (a body with "
                              "parts cut out, to see what they cost): print its errors, do not fail")
@@ -188,6 +264,8 @@ def main() -> int:
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     if args.d512:
         return main_d512(args, dev, g, stream, sms)
+    if args.relpos:
+        return main_relpos(args, dev, g, stream)
     libs = {"earlier": load("earlier", args.earlier.resolve()),
             "current": load("current", _build.CSRC / "flash_attention_sm90.cu")}
     totals = {"earlier": 0.0, "current": 0.0, "SDPA": 0.0, "bound": 0.0}
