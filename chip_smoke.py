@@ -35,9 +35,17 @@ Run from the root of a checkout:  python3 chip_smoke.py
    ``relpos_smem()``, and at (4, 16 heads, 64 x 64, d 80) its device time
    beside SDPA's (the dense bias as a bf16 mask) and the bound; the
    packed window attention at the four Swin-L stage shapes of B = 2 at 896²
-   with and without the shift mask and on shrunk windows; the split window
+   with and without the shift mask and on shrunk windows, each the same bits
+   twice and nothing written past its output (a NaN guard row), the bf16
+   forward body's shared memory equal to ``forward_smem(n)`` for n = 1..144
+   and the blocks the card holds of each instance equal to
+   ``forward_resident(n)`` (both size its grid), at the four stages its
+   device time beside SDPA's (the dense bias + mask built outside the
+   timing) and the bound, summed over a Swin-L forward's 24 launches, and
+   the wrapper's float32 copy of a bf16 bias timed apart; the split window
    attention at the stage-0 shape on contiguous tensors and on heads-first
-   views of the fused projection, where it must equal the packed one. Bound per
+   views of the fused projection, and on ragged windows, where it must equal
+   the packed one. Bound per
    phase: relative L2 error <= 1e-2 and max |error| <= 3e-2 * max
    |reference|. Prints both errors, the median times of kernel and plain
    version (CUDA events) and, at each kernel's main shape, the time of the
@@ -81,7 +89,12 @@ Run from the root of a checkout:  python3 chip_smoke.py
    shapes and ragged ones (the usual bounds), fused_layer_norm with its
    device time at both UNet shapes beside ``F.layer_norm``'s and the bound,
    summed over an int8 UNet call's 210 launches; each of the four also with float32 x and
-   output (GroupNorm at C = 7680); then fused_gn_silu_conv3x3 at the fused
+   output (GroupNorm at C = 7680); fused_group_norm also nothing written past
+   its output (a NaN after it) and its block size equal to
+   ``NORM_THREADS``, and at each of the 14 shapes of an int8 UNet call's 46
+   launches (``UNET_GROUP_NORMS``), bf16 and float32, held as above with its
+   device time beside ``F.group_norm`` (+ ``F.silu``) and the bound, summed
+   over the call; then fused_gn_silu_conv3x3 at the fused
    ResBlock's level-0 (4, 128, 128, 320) -> 320 and level-2 (4, 32, 32, 2560)
    -> 1280, ragged (C = 48, and C = 36 to Co = 21) and float32 x against its
    twin in float32 (the usual bounds), its apply pass's y within one bf16
@@ -621,30 +634,92 @@ def kernel_phases(gen: torch.Generator, card: str):
         bn, n, c3 = qkv.shape
         return qkv.reshape(bn, n, 3, heads, c3 // (3 * heads)).permute(2, 0, 3, 1, 4)  # views
 
-    # the four Swin-L stages of B = 2 at 896² (window 12), then shrunk windows
+    # The forward body's plan: its shared memory per block equals
+    # forward_smem(n) for every n, and the card holds as many blocks of each
+    # instance at once as forward_resident(n) assumes (the occupancy
+    # calculator, registers included).
+    lib = _build.lib()
+    wrong = [n for n in range(1, 145)
+             if lib.dg_window_attention_fwd_smem(n) != wa_mod.forward_smem(n)]
+    if wrong:
+        raise AssertionError(f"the forward body's shared memory differs from forward_smem at n = "
+                             f"{wrong}")
+    resident = {n: (lib.dg_window_attention_fwd_resident(n), wa_mod.forward_resident(n))
+                for n in (16, 32, 64, 112, 144)}
+    log(f"    the bf16 forward body's shared memory per block equals forward_smem(n), n = 1..144 "
+        f"({wa_mod.forward_smem(144)} bytes at n = 144); blocks a multiprocessor holds "
+        f"(card, plan) by n: {resident}")
+    if any(card_blocks != plan_blocks for card_blocks, plan_blocks in resident.values()):
+        raise AssertionError("the card holds another number of forward blocks than "
+                             "forward_resident assumes")
+
+    def guarded_forward(qkv, bias, mask, heads, got, what):
+        """The packed C entry point into a buffer whose row after the output is
+        NaN: the wrapper's bits, and that row untouched."""
+        bn, n, c3 = qkv.shape
+        plan = wa_mod.forward_plan(bn, heads, n, dev)
+        buf = torch.full((bn * n + 1, c3 // 3), float("nan"), device=dev, dtype=torch.bfloat16)
+        _build.check(lib.dg_window_attention_packed_bf16(
+            qkv.data_ptr(), bias.data_ptr(), None if mask is None else mask.data_ptr(),
+            buf.data_ptr(), bn, n, heads, 1 if mask is None else mask.shape[0], *plan,
+            (c3 // 3 // heads) ** -0.5, torch.cuda.current_stream().cuda_stream),
+            "packed window attention kernel launch")
+        if not (torch.equal(buf[:-1].view(got.shape), got) and bool(buf[-1].isnan().all())):
+            raise AssertionError(f"window attention forward wrote outside its output ({what})")
+        log(f"    writes nothing past its output (chunks {plan.chunks} x {plan.per_chunk} "
+            f"windows): True")
+
+    # the four Swin-L stages of B = 2 at 896² (window 12), then shrunk windows;
+    # at the stages, the device time of the kernel beside SDPA's (its dense
+    # bias + mask built outside the timing) and the bound, summed over a
+    # Swin-L forward's 24 launches (2, 2, 18 and 2 at the four stages, the
+    # shift mask on every second block)
+    fwd_step = {"kernel": 0.0, "SDPA": 0.0, "bound": 0.0}
     for bn, c, heads, nw, n in ((722, 192, 6, 361, 144), (200, 384, 12, 100, 144),
                                 (50, 768, 24, 25, 144), (18, 1536, 48, 9, 144),
                                 (8, 96, 3, 4, 49), (8, 96, 3, 4, 16), (8, 96, 3, 2, 4)):
         for with_mask in (True, False):
             qkv, bias, mask, ops, nbytes = window_case(bn, c, heads, nw, n, with_mask)
-            got = wa_mod.fused_window_attention_packed(qkv, bias, mask, heads)
+            what = f"bn={bn} C={c} H={heads} n={n} mask={'nW ' + str(nw) if with_mask else 'none'}"
+            run = lambda: wa_mod.fused_window_attention_packed(qkv, bias, mask, heads)
+            got = run()
             ref = wa_mod.reference_window_attention_packed(qkv.float(), bias, mask, heads)
-            err = compare(f"window packed bn={bn} C={c} H={heads} n={n} "
-                          f"mask={'nW ' + str(nw) if with_mask else 'none'}", got, ref)
+            err = compare(f"window packed {what}", got, ref)
             del ref
+            same_bits(f"window packed {what}", got, run)
+            guarded_forward(qkv, bias, mask, heads, got, what)
             ms, pms, span = time_pair(
-                lambda: wa_mod.fused_window_attention_packed(qkv, bias, mask, heads),
-                lambda: wa_mod.reference_window_attention_packed(qkv.float(), bias, mask, heads),
+                run, lambda: wa_mod.reference_window_attention_packed(qkv.float(), bias, mask, heads),
                 reps=WINDOW_REPS)
             attn_mask = q4 = None
-            if "fused_window_attention_packed" not in results:  # built outside the timing
+            if n == 144:  # built outside the timing
                 attn_mask = dense_mask(bias, mask, bn)
                 q4, k4, v4 = (t.contiguous() for t in heads_first(qkv, heads))
-            record("fused_window_attention_packed", err, ms, pms, span,
-                   lambda: F.scaled_dot_product_attention(q4, k4, v4, attn_mask=attn_mask),
-                   ops, nbytes)
-            del attn_mask, q4
+            sdpa = lambda: F.scaled_dot_product_attention(q4, k4, v4, attn_mask=attn_mask)
+            first = "fused_window_attention_packed" not in results
+            record("fused_window_attention_packed", err, ms, pms, span, sdpa, ops, nbytes)
+            if n == 144:
+                dev_ms, sdpa_ms = device_ms(run), device_ms(sdpa)
+                b_ms, by = bound(ops, nbytes)
+                share = SWIN_L_STAGE_LAUNCHES[bn] / 2  # half the stage's blocks take the mask
+                for key, t in (("kernel", dev_ms), ("SDPA", sdpa_ms), ("bound", b_ms)):
+                    fwd_step[key] += share * t
+                log(f"    device: kernel {dev_ms:.4f} ms, SDPA {sdpa_ms:.4f} ms, bound {b_ms:.4f} "
+                    f"ms by {by} ({nbytes / 1e6:.1f} MB); {share:g} launches a Swin-L forward "
+                    f"[{card}]")
+                if first:
+                    results["fused_window_attention_packed"].update(
+                        device_ms=dev_ms, library_device_ms=sdpa_ms)
+                    # the wrapper's float32 copy of a bf16 bias: glue outside the kernel
+                    b16 = bias.bfloat16()
+                    log(f"    the wrapper's float32 copy of a bf16 bias ({heads}, {n}, {n}): "
+                        f"device {device_ms(lambda: wa_mod._f32_on(b16, dev)):.4f} ms (not in "
+                        "the kernel's time)")
+            del attn_mask, q4, sdpa
             torch.cuda.empty_cache()
+    log("  window attention forward, a Swin-L forward's 24 launches (device ms): "
+        + ", ".join(f"{name} {ms:.4f}" for name, ms in fwd_step.items()) + f" [{card}]")
+    results["fused_window_attention_packed"]["step_device_ms"] = fwd_step["kernel"]
 
     log("kernel phase: fused_window_attention")
     # Swin-L stage 0 (six heads, where the TPU path takes the split kernel):
@@ -661,6 +736,8 @@ def kernel_phases(gen: torch.Generator, card: str):
         err = compare(f"window split bn={bn} H={heads} n={n} d={c // heads} mask=nW {nw} {layout}",
                       got, ref)
         del ref
+        same_bits(f"window split {layout}", got,
+                  lambda: wa_mod.fused_window_attention(q, k, v, bias, mask))
         packed = wa_mod.fused_window_attention_packed(qkv, bias, mask, heads)
         if not torch.equal(got.permute(0, 2, 1, 3).reshape(bn, n, c), packed):
             raise AssertionError(f"window attention: split and packed kernels disagree ({layout})")
@@ -680,6 +757,10 @@ def kernel_phases(gen: torch.Generator, card: str):
         got = wa_mod.fused_window_attention(q, k, v, bias, mask)
         ref = wa_mod.reference_window_attention(q.float(), k.float(), v.float(), bias, mask)
         err = compare(f"window split bn={bn} H={heads} n={n} views of fused qkv", got, ref)
+        packed = wa_mod.fused_window_attention_packed(qkv, bias, mask, heads)
+        if not torch.equal(got.permute(0, 2, 1, 3).reshape(bn, n, 32 * heads), packed):
+            raise AssertionError(f"window attention: split and packed kernels disagree (n = {n})")
+        log("    equals fused_window_attention_packed on the same projection")
         results["fused_window_attention"]["max_abs_err"] = max(
             results["fused_window_attention"]["max_abs_err"], err)
 
@@ -959,11 +1040,13 @@ def float32_attention_phases(gen: torch.Generator, card: str, results: dict) -> 
 
 def device_ms(fn, reps: int = 10) -> float:
     """Device time of ``fn`` in ms: its kernels' summed time under
-    ``torch.profiler`` over ``reps`` calls after one warm-up, per call."""
+    ``torch.profiler`` over ``reps`` calls after one warm-up, per call. A
+    trace that caught no kernel is taken again; after six such traces the
+    CUDA-event time of ``reps`` calls is returned instead, and said so."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    for _ in range(3):  # a trace that caught no kernel is taken again
+    for _ in range(6):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(reps):
                 fn()
@@ -972,7 +1055,14 @@ def device_ms(fn, reps: int = 10) -> float:
                     if e.self_device_time_total > 0 and "Memset" not in e.key)
         if total > 0:
             return total / 1e3 / reps
-    raise AssertionError("the profiler recorded no device time in three traces")
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    end.synchronize()
+    log("    (the profiler caught no kernel in six traces: this time is CUDA events')")
+    return start.elapsed_time(end) / reps
 
 
 def serving_kernel_phases(gen: torch.Generator):
@@ -1010,6 +1100,7 @@ def serving_kernel_phases(gen: torch.Generator):
     import divergen_tpu_torch.ops.group_norm as gn_mod
     import divergen_tpu_torch.ops.int8_matmul as i8_mod
     import divergen_tpu_torch.ops.layer_norm as ln_mod
+    from divergen_tpu_torch.ops import _build
     from divergen_tpu_torch.ops.quant import quantize_act, quantize_weight
 
     dev = torch.device("cuda")
@@ -1162,17 +1253,45 @@ def serving_kernel_phases(gen: torch.Generator):
     log("kernel phase: fused_group_norm")
     # ResBlock norm at level 0 (with SiLU), a level-2 transformer norm
     # (without), then ragged: W = 7, and C = 36 (not a multiple of 8; 4 groups);
-    # float32 x: C = 7680 (over the 6144 that the group combine once held in
-    # shared memory) and C = 36
-    for (b, h, w, c), silu, dtype in (((4, 128, 128, 320), True, torch.bfloat16),
-                                      ((4, 32, 32, 1280), False, torch.bfloat16),
-                                      ((2, 5, 7, 96), True, torch.bfloat16),
-                                      ((2, 9, 11, 36), True, torch.bfloat16),
-                                      ((2, 16, 16, 7680), True, torch.float32),
-                                      ((2, 9, 11, 36), False, torch.float32)):
+    # float32 x: C = 7680 (two channel tiles) and C = 36. Each: the usual
+    # bounds against the float32 twin, the same bits twice, and the C entry
+    # point into a buffer whose element after the output is NaN.
+    lib = _build.lib()
+    if lib.dg_group_norm_threads() != gn_mod.NORM_THREADS:
+        raise AssertionError(f"the group norm kernel's blocks take {lib.dg_group_norm_threads()} "
+                             f"threads at most, norm_plan assumes {gn_mod.NORM_THREADS}")
+
+    def gn_inputs(b, h, w, c, dtype):
         x = randn(b, h, w, c, scale=2.0, dtype=dtype) + 0.5
         scale = 1.0 + 0.1 * torch.randn(c, generator=gen, device=dev)
         bias = 0.1 * torch.randn(c, generator=gen, device=dev)
+        return x, scale, bias
+
+    def gn_library(x, scale, bias, groups, silu):
+        nchw = x.permute(0, 3, 1, 2)  # a view: channels-last memory
+        s16, b16 = scale.to(x.dtype), bias.to(x.dtype)
+
+        def library():
+            y = F.group_norm(nchw, groups, s16, b16, 1e-6)
+            return F.silu(y) if silu else y
+        return library
+
+    def gn_guarded(x, scale, bias, groups, silu, got, name):
+        b, h, w, c = x.shape
+        plan = gn_mod.norm_plan(b, h * w, c)
+        part = torch.empty((b, plan.splits, plan.ctiles, 2, groups), device=dev)
+        buf = torch.full((x.numel() + 1,), float("nan"), device=dev, dtype=x.dtype)
+        _build.check(lib.dg_group_norm(
+            x.data_ptr(), scale.data_ptr(), bias.data_ptr(), part.data_ptr(), buf.data_ptr(), b,
+            h * w, c, groups, plan.tile_vecs, plan.rows, plan.ctiles, plan.splits, 1e-6, int(silu),
+            int(x.dtype == torch.float32), torch.cuda.current_stream().cuda_stream),
+            "group norm kernel launch")
+        if not (torch.equal(buf[:-1].view(x.shape), got) and bool(buf[-1].isnan())):
+            raise AssertionError(f"{name}: the kernel wrote outside its output")
+        log(f"    writes nothing past its output (plan {tuple(plan)}): True")
+
+    def gn_checked(b, h, w, c, silu, dtype):
+        x, scale, bias = gn_inputs(b, h, w, c, dtype)
         groups = math.gcd(32, c)
         run = lambda: gn_mod.fused_group_norm(x, scale, bias, 32, 1e-6, silu)
         plain = lambda: gn_mod.group_norm_reference(x.float(), scale, bias, groups, 1e-6, silu)
@@ -1180,15 +1299,46 @@ def serving_kernel_phases(gen: torch.Generator):
         got = run()
         err = compare(name, got, plain())
         same_bits(name, got, run)
-        nchw = x.permute(0, 3, 1, 2)  # a view: channels-last memory
-        s16, b16 = scale.bfloat16(), bias.bfloat16()
+        gn_guarded(x, scale, bias, groups, silu, got, name)
+        return x, run, plain, gn_library(x, scale, bias, groups, silu), err
 
-        def library():
-            y = F.group_norm(nchw, groups, s16, b16, 1e-6)
-            return F.silu(y) if silu else y
-
+    for (b, h, w, c), silu, dtype in (((4, 128, 128, 320), True, torch.bfloat16),
+                                      ((4, 32, 32, 1280), False, torch.bfloat16),
+                                      ((2, 5, 7, 96), True, torch.bfloat16),
+                                      ((2, 9, 11, 36), True, torch.bfloat16),
+                                      ((2, 16, 16, 7680), True, torch.float32),
+                                      ((2, 9, 11, 36), False, torch.float32)):
+        x, run, plain, library, err = gn_checked(b, h, w, c, silu, dtype)
         record("fused_group_norm", err, run, plain, library,
-               x.numel() * (9.0 if silu else 5.0), 4.0 * x.numel() + 8.0 * c, PEAK_F32_FLOPS)
+               x.numel() * (9.0 if silu else 5.0), x.element_size() * 2.0 * x.numel() + 8.0 * c,
+               PEAK_F32_FLOPS)
+        del x, run, plain, library
+    # every shape of an int8 UNet call's 46 launches (ops/group_norm.py:
+    # UNET_GROUP_NORMS), bf16 as that call runs them and float32 as the float32
+    # UNet would: held as above, then the device time of the kernel beside
+    # F.group_norm (+ F.silu) in x's dtype and the bound, and the sums over the
+    # call's launches
+    for dtype in (torch.bfloat16, torch.float32):
+        unet = {"kernel": 0.0, "F.group_norm": 0.0, "bound": 0.0}
+        for (b, h, w, c, silu), launches in gn_mod.UNET_GROUP_NORMS.items():
+            x, run, plain, library, err = gn_checked(b, h, w, c, silu, dtype)
+            results["fused_group_norm"]["max_abs_err"] = max(
+                results["fused_group_norm"]["max_abs_err"], err)
+            dev_ms, lib_ms = device_ms(run), device_ms(library)
+            nbytes = x.element_size() * 2.0 * x.numel() + 8.0 * c
+            b_ms, by = bound(x.numel() * (9.0 if silu else 5.0), nbytes, PEAK_F32_FLOPS)
+            for key, t in (("kernel", dev_ms), ("F.group_norm", lib_ms), ("bound", b_ms)):
+                unet[key] += t * launches
+            log(f"    device {dev_ms:.4f} ms, F.group_norm{' + F.silu' if silu else ''} "
+                f"{lib_ms:.4f} ms, bound {b_ms:.4f} ms by {by} ({nbytes / 1e6:.1f} MB, "
+                f"{nbytes / dev_ms / 1e9:.0f} GB/s); {launches} launches a UNet call")
+            del x, run, plain, library
+            torch.cuda.empty_cache()
+        log(f"  fused_group_norm {str(dtype)[6:]}: device time x launches per UNet call, summed "
+            f"over its {sum(gn_mod.UNET_GROUP_NORMS.values())} launches: "
+            + ", ".join(f"{key} {ms:.4f} ms" for key, ms in unet.items()))
+        if dtype == torch.bfloat16:
+            results["fused_group_norm"]["unet_device_ms"] = unet["kernel"]
 
     log("kernel phase: fused_layer_norm")
     # the UNet's transformer LayerNorms (rows of 4096 x 1280 and 16384 x 640:

@@ -1,7 +1,7 @@
-// Per-channel moments of NHWC activations, shared by the GroupNorm kernel
-// (group_norm.cu) and the fused GroupNorm + SiLU + 3x3 conv (gn_conv.cu), and
-// the element loads and stores the port's kernels use for bf16 and f32
-// tensors.
+// Per-channel moments of NHWC activations, the first pass of the fused
+// GroupNorm + SiLU + 3x3 conv (gn_conv.cu), and the element loads and stores
+// the port's kernels (the GroupNorm kernel, group_norm.cu, among them) use for
+// bf16 and f32 tensors.
 //
 // gn_moments_kernel: grid (channel tiles, splits, B), block 32 x 8. A block
 // owns 32 channel vectors (8 channels of 16 or 32 bytes each when C is a

@@ -107,10 +107,13 @@ def _declare(lib: ctypes.CDLL) -> None:
         getattr(lib, name).restype = i
     lib.dg_flash_attention_relpos_bf16.argtypes = [p] * 6 + [i] * 5 + [i64] * 9 + [f, p]
     lib.dg_flash_attention_relpos_bf16.restype = i
-    lib.dg_window_attention_bf16.argtypes = [p] * 6 + [i] * 4 + [i64] * 9 + [f, p]
+    lib.dg_window_attention_bf16.argtypes = [p] * 6 + [i] * 6 + [i64] * 9 + [f, p]
     lib.dg_window_attention_bf16.restype = i
-    lib.dg_window_attention_packed_bf16.argtypes = [p] * 4 + [i] * 4 + [f, p]
+    lib.dg_window_attention_packed_bf16.argtypes = [p] * 4 + [i] * 6 + [f, p]
     lib.dg_window_attention_packed_bf16.restype = i
+    for name in ("dg_window_attention_fwd_smem", "dg_window_attention_fwd_resident"):
+        getattr(lib, name).argtypes = [i]
+        getattr(lib, name).restype = i
     lib.dg_window_attention_bwd_bf16.argtypes = [p] * 11 + [i] * 6 + [i64] * 12 + [f, p]
     lib.dg_window_attention_bwd_bf16.restype = i
     lib.dg_window_attention_packed_bwd_bf16.argtypes = [p] * 7 + [i] * 6 + [f, p]
@@ -134,8 +137,10 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.dg_int8_matmul.restype = i
     lib.dg_int8_quantize_rows.argtypes = [p] * 3 + [i] * 3 + [p]
     lib.dg_int8_quantize_rows.restype = i
-    lib.dg_group_norm.argtypes = [p] * 6 + [i] * 5 + [f, i, i, p]
+    lib.dg_group_norm.argtypes = [p] * 5 + [i] * 8 + [f, i, i, p]
     lib.dg_group_norm.restype = i
+    lib.dg_group_norm_threads.argtypes = []
+    lib.dg_group_norm_threads.restype = i
     lib.dg_layer_norm.argtypes = [p] * 4 + [i] * 2 + [f, i, p]
     lib.dg_layer_norm.restype = i
     lib.dg_gn_conv_apply.argtypes = [p] * 7 + [i] * 7 + [f, i, p]

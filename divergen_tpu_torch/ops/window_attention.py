@@ -31,11 +31,19 @@ kernel's arithmetic step by step, bfloat16 casts included (the bf16 kernel
 forms the scores as ((bias + mask) / scale + q·kᵀ)·scale, the same float32
 values to rounding).
 
+The bf16 forward body, too, gives a block one head and a chunk of
+consecutive windows (``forward_plan``): it stages the head's bias in shared
+memory once and streams the chunk's q, k, v and masks through TMA buffers,
+the next window's behind this one's products. It forms the scores as the
+backward recomputes them, ``((bias + mask) / scale + q·kᵀ)·scale``: the same
+float32 values to rounding.
+
 Each wrapper counts its kernel launches in plain int attributes: ``.launches``
 for the forward kernel and ``.backward_launches`` for the backward kernel.
 """
 from __future__ import annotations
 
+import functools
 import math
 from typing import NamedTuple, Optional
 
@@ -220,6 +228,76 @@ def backward_plan(batch: int, heads: int, n: int, device: torch.device,
     return BackwardPlan(chunks, per, (chunks if chunks > 1 else 0, heads, n, n))
 
 
+# what a forward block spends before its windows stream, in windows: staging
+# its head's bias (83 KB from L2 at n = 144) and its first loads, which
+# nothing hides
+FWD_BLOCK_START = 2
+SM_BLOCKS = 32  # blocks a multiprocessor holds at most
+
+
+def forward_smem(n: int) -> int:
+    """Dynamic shared memory of the bf16 forward body at ``n`` tokens, as
+    ``csrc/window_attention.cu:FwdSmem<NT>::kBytes`` lays it out (the
+    library's ``dg_window_attention_fwd_smem`` gives the same): q, k and v of
+    two windows (TMA tiles of 64-byte rows), the head's bias in f32 (row
+    stride 16 mod 32 floats), one window's mask in f32 as in memory, four
+    mbarriers, and 512 bytes to align the swizzled tiles."""
+    rows = 16 * _bwd_tiles(n)
+    return 2 * 3 * rows * 64 + rows * (rows | 16) * 4 + rows * rows * 4 + 4 * 8 + 512
+
+
+def forward_resident(n: int, smem: Optional[int] = None) -> int:
+    """Blocks of the bf16 forward body at ``n`` tokens that a multiprocessor
+    holds at once: as its shared memory (by default ``forward_smem(n)``) and
+    warp slots allow (the body's launch bounds keep its registers from
+    allowing fewer; ``dg_window_attention_fwd_resident`` asks the card)."""
+    smem = forward_smem(n) if smem is None else smem
+    return max(1, min(SM_SHARED_BYTES // (smem + BLOCK_RESERVED_BYTES),
+                      SM_WARPS // _bwd_tiles(n), SM_BLOCKS))
+
+
+class ForwardPlan(NamedTuple):
+    """The bf16 forward body's grid: block ``i`` takes head ``i % heads`` and
+    windows ``[c * per_chunk, min(batch, (c + 1) * per_chunk))`` of chunk
+    ``c = i // heads``, in window order (``forward_walk``)."""
+    chunks: int
+    per_chunk: int
+
+
+@functools.lru_cache(maxsize=256)
+def _forward_grid(batch: int, heads: int, slots: int) -> ForwardPlan:
+    best, last = None, 0
+    for per in range(1, batch + 1):  # chunks fall as per grows
+        chunks = -(-batch // per)
+        if chunks == last:
+            continue  # as many chunks as a shorter one: no better
+        last = chunks
+        cost = -(-(chunks * heads) // slots) * (per + FWD_BLOCK_START)
+        if best is None or cost <= best[0]:
+            best = (cost, chunks, per)
+    return ForwardPlan(best[1], best[2])
+
+
+def forward_plan(batch: int, heads: int, n: int, device: torch.device,
+                 smem: Optional[int] = None) -> ForwardPlan:
+    """Chunks of consecutive windows for the bf16 forward body: the grid
+    whose blocks, in waves of the card's slots (its multiprocessors times
+    ``forward_resident(n, smem)``), finish soonest, a block taking as long as
+    its windows plus ``FWD_BLOCK_START``; on a tie, the fewest chunks. No
+    partial sums cross chunks, so any plan gives the same bits; this one is a
+    function of the shapes and the card's multiprocessor count only."""
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    return _forward_grid(batch, heads, sms * forward_resident(n, smem))
+
+
+def forward_walk(plan: ForwardPlan, batch: int, heads: int):
+    """The body's walk: (block, head, windows in the order the block takes
+    them) for every block of ``plan``."""
+    for block in range(plan.chunks * heads):
+        first = (block // heads) * plan.per_chunk
+        yield block, block % heads, list(range(first, min(batch, first + plan.per_chunk)))
+
+
 def _plan(dtype: torch.dtype, batch: int, heads: int, n: int, device: torch.device) -> tuple:
     """(chunks, windows per chunk, partial scratch shape) of the backward body
     that takes ``dtype``."""
@@ -249,7 +327,8 @@ class _WindowAttention(torch.autograd.Function):
             code = _build.lib().dg_window_attention_bf16(
                 q.data_ptr(), k.data_ptr(), v.data_ptr(), bias32.data_ptr(),
                 None if mask32 is None else mask32.data_ptr(), out.data_ptr(), b, h, n, nw,
-                *q.stride()[:3], *k.stride()[:3], *out.stride()[:3],
+                *forward_plan(b, h, n, q.device), *q.stride()[:3], *k.stride()[:3],
+                *out.stride()[:3],
                 1.0 / math.sqrt(d), torch.cuda.current_stream(q.device).cuda_stream)
             _build.check(code, "window attention kernel launch")
         ctx.save_for_backward(q, k, v, bias32, mask32)
@@ -303,7 +382,8 @@ class _WindowAttentionPacked(torch.autograd.Function):
         else:
             code = _build.lib().dg_window_attention_packed_bf16(
                 qkv.data_ptr(), bias32.data_ptr(), None if mask32 is None else mask32.data_ptr(),
-                out.data_ptr(), bn, n, heads, nw, 1.0 / math.sqrt(d),
+                out.data_ptr(), bn, n, heads, nw, *forward_plan(bn, heads, n, qkv.device),
+                1.0 / math.sqrt(d),
                 torch.cuda.current_stream(qkv.device).cuda_stream)
             _build.check(code, "packed window attention kernel launch")
         ctx.save_for_backward(qkv, bias32, mask32)

@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
-"""A/B of the bf16 window-attention backward (the backward of kernels 5 and 6,
-``fused_window_attention_packed`` and ``fused_window_attention``) against an
-earlier build, at the four Swin-L stage shapes of the flagship train step, on
-one GPU.
+"""A/B of the bf16 window-attention kernels (kernels 5 and 6,
+``fused_window_attention_packed`` and ``fused_window_attention``, one body
+each way), backward or, with ``--forward``, forward, against an earlier build,
+at the four Swin-L stage shapes of the flagship detector, on one GPU.
 
 Runs from the root of a checkout. Extract the earlier source first (the
 machine that runs this needs no git), e.g. for the parent commit:
@@ -10,34 +10,40 @@ machine that runs this needs no git), e.g. for the parent commit:
     mkdir -p build/scratch/old
     git show HEAD~1:divergen_tpu_torch/csrc/window_attention.cu \\
         > build/scratch/old/window_attention.cu
-    python3 tools/window_attention_ab.py build/scratch/old/window_attention.cu
+    python3 tools/window_attention_ab.py build/scratch/old/window_attention.cu [--forward]
 
 Builds that source and the checkout's ``csrc/window_attention.cu`` with nvcc,
 each into a library of its own under ``build/scratch/`` (headers from the
-source's own directory first, then ``csrc/``), and calls their packed
-backward entry point (``dg_window_attention_packed_bwd_bf16``, the interface
-both bodies share) on the same seeded bf16 operands, scratch allocated once.
-A build with ``dg_window_attention_bwd_smem`` takes the chunks of
+source's own directory first, then ``csrc/``), and calls their packed entry
+point on the same seeded bf16 operands, scratch allocated once.
+
+Backward (``dg_window_attention_packed_bwd_bf16``, the interface both bodies
+share): a build with ``dg_window_attention_bwd_smem`` takes the chunks of
 ``ops/window_attention.py:backward_plan`` for the shared memory that entry
 point reports, an earlier one those of ``backward_chunks``; ``--chunks``
-forces the current build's chunks per head.
+forces the current build's chunks per head. Forward
+(``dg_window_attention_packed_bf16``): a build with
+``dg_window_attention_fwd_smem`` takes its grid from ``forward_plan`` (for the
+shared memory it reports; ``--chunks`` forces the current build's), an
+earlier one (one block per window and head) none.
 
 Shapes: Swin-L at B = 2, 896², window 12 (n 144, d 32), with and without the
 shift mask: (bn, heads) = (722, 6), (200, 12), (50, 24), (18, 48). For each
-it prints, for both builds, the relative L2 and max |error| of dq, dk, dv and
-the float32 dbias against ``reference_window_attention_packed_backward`` on
-the same bf16 inputs (bound: relative L2 <= 1e-2, max |error| <= 3e-2 max |reference|) and
-whether two runs give the same bits; then the device time of both in turns
-(earlier, current, current, earlier, three times; each a
-``chip_smoke.device_ms`` of 10 calls; medians of 6) beside that of the
-backward of ``scaled_dot_product_attention`` alone on the same q, k, v and do
-(its dense bias + mask and its forward built outside the timing; no bias
-gradient) and the bound (bytes of q, k, v, do, dq, dk, dv, bias, dbias and
-mask at 3.35 TB/s against five products at 989 TFLOP/s). Then the sums over a
-train step's 24 launches: 2, 2, 18 and 2 at the four stages, the mask on
-every second. ``--timing-only`` times an earlier build that is not meant to
-be right; ``--windows 722,50`` runs only those stages. Needs a CUDA device;
-prints the card's name and power limit first.
+it prints, for both builds, the relative L2 and max |error| of each output
+(dq, dk, dv and the float32 dbias; or o) against the plain version on the same
+bf16 inputs (bound: relative L2 <= 1e-2, max |error| <= 3e-2 max |reference|)
+and whether two runs give the same bits; then the device time of both in
+turns (earlier, current, current, earlier, three times; each a
+``chip_smoke.device_ms`` of 10 calls; medians of 6) beside that of
+``scaled_dot_product_attention`` on the same q, k, v (and do) with its dense
+bias + mask built outside the timing (its backward alone, without a bias
+gradient; or its forward) and the bound (bytes of every input and output at
+3.35 TB/s against the products at 989 TFLOP/s). Then the sums over the
+24 launches of a train step's backward or of a Swin-L forward: 2, 2, 18 and
+2 at the four stages, the mask on every second. ``--timing-only`` times an
+earlier build that is not meant to be right; ``--windows 722,50`` runs only
+those stages. Needs a CUDA device; prints the card's name and power limit
+first.
 """
 from __future__ import annotations
 
@@ -67,7 +73,113 @@ def load(name: str, src: Path) -> ctypes.CDLL:
     lib.planned = hasattr(lib, "dg_window_attention_bwd_smem")
     if lib.planned:
         lib.dg_window_attention_bwd_smem.argtypes = [i]
+    lib.fwd_planned = hasattr(lib, "dg_window_attention_fwd_smem")
+    lib.dg_window_attention_packed_bf16.argtypes = (
+        [p] * 4 + [i] * (6 if lib.fwd_planned else 4) + [f, p])
+    if lib.fwd_planned:
+        lib.dg_window_attention_fwd_smem.argtypes = [i]
     return lib
+
+
+def forward_grid(lib, bn: int, heads: int, dev: torch.device, chunks: int = 0) -> tuple:
+    """The (chunks, windows per chunk) this build's forward takes, () for a
+    build without a plan."""
+    if not lib.fwd_planned:
+        return ()
+    if chunks:
+        per = -(-bn // chunks)
+        return -(-bn // per), per
+    return tuple(wa.forward_plan(bn, heads, N, dev, smem=lib.dg_window_attention_fwd_smem(N)))
+
+
+def inputs(g, bn: int, c: int, heads: int, nw: int, with_mask: bool, dev: torch.device):
+    """Seeded qkv (bn, N, 3C) bf16, bias (heads, N, N) and a shift-like mask
+    (about a third of the pairs closed, the diagonal open) or None."""
+    qkv = torch.randn((bn, N, 3 * c), generator=g, device=dev).bfloat16()
+    bias = 0.5 * torch.randn((heads, N, N), generator=g, device=dev)
+    mask = None
+    if with_mask:
+        mask = torch.where(torch.rand((nw, N, N), generator=g, device=dev) < 0.3, -100.0, 0.0)
+        mask.diagonal(dim1=1, dim2=2).zero_()
+    return qkv, bias, mask
+
+
+def held(what: str, name: str, parts, same: bool, timing_only: bool) -> None:
+    """Print each part's error against its reference; raise if a part is out
+    of bounds or two runs differ (unless an earlier build is only timed)."""
+    wrong = not same
+    text = []
+    for part, x, ref in parts:
+        diff = x.float() - ref
+        rel = (diff.norm() / ref.norm()).item()
+        err = diff.abs().max().item()
+        text.append(f"{part} rel_l2 {rel:.3g} max_abs_err {err:.3g}")
+        wrong |= (not torch.isfinite(x).all() or rel > 1e-2
+                  or err > 3e-2 * ref.abs().max().item())
+    print(f"{what} {name}: {'; '.join(text)}; same bits twice: {same}", flush=True)
+    if wrong and not (timing_only and name == "earlier"):
+        raise AssertionError(f"{name} build is wrong at {what}")
+
+
+def run_forward(args, libs, only, dev, g) -> None:
+    stream = torch.cuda.current_stream().cuda_stream
+    names = ("earlier", "current", "SDPA", "bound")
+    totals = dict.fromkeys(names, 0.0)
+    for (bn, c, heads, nw), launches in STAGES.items():
+        if only and bn not in only:
+            continue
+        for with_mask in (True, False):
+            d = c // heads
+            qkv, bias, mask = inputs(g, bn, c, heads, nw, with_mask, dev)
+            out = torch.empty((bn, N, c), device=dev, dtype=torch.bfloat16)
+            grids = {"earlier": forward_grid(libs["earlier"], bn, heads, dev),
+                     "current": forward_grid(libs["current"], bn, heads, dev, args.chunks)}
+
+            def call(name):
+                checked(libs[name].dg_window_attention_packed_bf16(
+                    qkv.data_ptr(), bias.data_ptr(), None if mask is None else mask.data_ptr(),
+                    out.data_ptr(), bn, N, heads, nw if mask is not None else 1, *grids[name],
+                    d ** -0.5, stream))
+
+            what = f"bn={bn} C={c} H={heads} n={N} mask={'nW ' + str(nw) if with_mask else 'none'}"
+            ref = wa.reference_window_attention_packed(qkv.float(), bias, mask, heads).float()
+            got = {}
+            for name in ("earlier", "current"):
+                call(name)
+                got[name] = out.clone()
+                call(name)
+                held(f"{what} (grid {grids[name] or 'a block a window and head'})", name,
+                     [("o", got[name], ref)], torch.equal(got[name], out), args.timing_only)
+            diff = (got["current"].float() - got["earlier"].float()).abs()
+            print(f"  current against earlier: {int((diff > 0).sum())} of {diff.numel()} elements "
+                  f"differ, max {diff.max().item():.3g}", flush=True)
+            del ref, got, diff
+            dev_ms = in_turns({name: (lambda name=name: call(name)) for name in ("earlier", "current")})
+            q4, k4, v4 = (qkv[..., i * c:(i + 1) * c].reshape(bn, N, heads, d).transpose(1, 2)
+                          .contiguous() for i in range(3))
+            dense = bias[None].expand(bn, -1, -1, -1)
+            if mask is not None:
+                dense = dense + mask.repeat(bn // nw, 1, 1)[:, None]
+            dense = dense.bfloat16().contiguous()
+            sdpa = device_ms(lambda: F.scaled_dot_product_attention(q4, k4, v4, attn_mask=dense))
+            del q4, k4, v4, dense
+            ops = 4.0 * bn * heads * N * N * d
+            nbytes = (2.0 * bn * N * 4 * c + 4.0 * heads * N * N
+                      + (4.0 * nw * N * N if with_mask else 0.0))
+            bound = 1e3 * max(ops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES_PER_S)
+            runs = {name: ", ".join(f"{t:.4f}" for t in ts) for name, (_, ts) in dev_ms.items()}
+            print(f"{what}, {launches // 2} launches a Swin-L forward: device earlier "
+                  f"{dev_ms['earlier'][0]:.4f} ms (runs {runs['earlier']}), current "
+                  f"{dev_ms['current'][0]:.4f} ms (runs {runs['current']}), SDPA {sdpa:.4f} ms, "
+                  f"bound {bound:.4f} ms ({nbytes / 1e6:.1f} MB, {ops / 1e9:.1f} GFLOP; current at "
+                  f"{nbytes / dev_ms['current'][0] / 1e6:.0f} GB/s)", flush=True)
+            for name, ms in (("earlier", dev_ms["earlier"][0]), ("current", dev_ms["current"][0]),
+                             ("SDPA", sdpa), ("bound", bound)):
+                totals[name] += ms * launches / 2
+            del qkv, bias, mask, out
+            torch.cuda.empty_cache()
+    print("a Swin-L forward's 24 launches (median x launches, ms): "
+          + ", ".join(f"{name} {ms:.4f}" for name, ms in totals.items()), flush=True)
 
 
 def plan(lib, bn: int, heads: int, dev: torch.device, chunks: int = 0) -> tuple:
@@ -87,8 +199,10 @@ def main() -> int:
     parser.add_argument("--timing-only", action="store_true",
                         help="time an earlier build that is not meant to be right: print its "
                              "errors, do not fail")
+    parser.add_argument("--forward", action="store_true",
+                        help="A/B the forward instead of the backward")
     parser.add_argument("--chunks", type=int, default=0,
-                        help="chunks per head for the current build (default: backward_plan)")
+                        help="chunks per head for the current build (default: its plan)")
     parser.add_argument("--windows", default="",
                         help="comma-separated window counts (bn) of the stages to run "
                              "(default: all four; the step's sums then cover only these)")
@@ -102,6 +216,9 @@ def main() -> int:
             "current": load("current", _build.CSRC / "window_attention.cu")}
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(0)
+    if args.forward:
+        run_forward(args, libs, only, dev, g)
+        return 0
     stream = torch.cuda.current_stream().cuda_stream
     names = ("earlier", "current", "SDPA backward", "bound")
     totals = dict.fromkeys(names, 0.0)
@@ -110,14 +227,8 @@ def main() -> int:
             continue
         for with_mask in (True, False):
             d = c // heads
-            qkv = torch.randn((bn, N, 3 * c), generator=g, device=dev).bfloat16()
+            qkv, bias, mask = inputs(g, bn, c, heads, nw, with_mask, dev)
             do = torch.randn((bn, N, c), generator=g, device=dev).bfloat16()
-            bias = 0.5 * torch.randn((heads, N, N), generator=g, device=dev)
-            mask = None
-            if with_mask:  # a shift-like mask: about a third of the pairs closed, the diagonal open
-                mask = torch.where(torch.rand((nw, N, N), generator=g, device=dev) < 0.3,
-                                   -100.0, 0.0)
-                mask.diagonal(dim1=1, dim2=2).zero_()
             dqkv = torch.empty_like(qkv)
             dbias = torch.empty((heads, N, N), device=dev)
             plans = {"earlier": plan(libs["earlier"], bn, heads, dev),
@@ -142,21 +253,10 @@ def main() -> int:
                 got = (dqkv.clone(), dbias.clone())
                 call(name)
                 same = torch.equal(got[0], dqkv) and torch.equal(got[1], dbias)
-                wrong = not same
                 parts = [(f"d{s}", got[0][..., i * c:(i + 1) * c], ref_dqkv[..., i * c:(i + 1) * c])
                          for i, s in enumerate("qkv")] + [("dbias", got[1], ref_dbias)]
-                text = []
-                for part, x, ref in parts:
-                    diff = x.float() - ref
-                    rel = (diff.norm() / ref.norm()).item()
-                    err = diff.abs().max().item()
-                    text.append(f"{part} rel_l2 {rel:.3g} max_abs_err {err:.3g}")
-                    wrong |= (not torch.isfinite(x).all() or rel > 1e-2
-                              or err > 3e-2 * ref.abs().max().item())
-                print(f"{what} {name} (chunks {plans[name][0]} x {plans[name][1]} windows): "
-                      f"{'; '.join(text)}; same bits twice: {same}", flush=True)
-                if wrong and not (args.timing_only and name == "earlier"):
-                    raise AssertionError(f"{name} build is wrong at {what}")
+                held(f"{what} (chunks {plans[name][0]} x {plans[name][1]} windows)", name, parts,
+                     same, args.timing_only)
             del ref_dqkv, ref_dbias, got
             runs = {name: (lambda name=name: call(name)) for name in ("earlier", "current")}
             dev_ms = in_turns(runs)
