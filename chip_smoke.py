@@ -75,7 +75,15 @@ Run from the root of a checkout:  python3 chip_smoke.py
    bn 8, n 144, 6 heads with a mask, against their float32 twins at the
    float32 bound, relative L2 <= 1e-5 and max |error| <= 1e-4 * max
    |reference| (bf16 operands give 2-4e-3), each the same bits twice, with
-   its time beside the twin's. Then the kernels of SDXL's int8 + fused-norm serving path
+   its time beside the twin's, after the body's tile plan
+   (``dg_attention_f32_plan``) is held against ``TC_PLANS``; then the same at full width (kernel 3 at
+   (1, 16384, 512) and (1, 4096, 512), kernel 4 at (4, 16, 64 x 64, 80),
+   kernel 1 at (4, 4096, 640, 10), the window forward at Swin-L stage 1,
+   (722, 6) with the mask), with the device time beside the twin's, the
+   PyTorch float32 call's and the name of its longest kernel, and the
+   bounds at 3xTF32 and at FMA (``PEAK_F32_TC_FLOPS``, ``PEAK_F32_FLOPS``);
+   fused_ln_matmul in float32 at the UNet's and SAM's four shapes the same
+   way. Then the kernels of SDXL's int8 + fused-norm serving path
    (``serving_kernel_phases``): int8_matmul_fused_quant at every GEMM shape
    of an int8 UNet call that it takes (level-2 ff_geglu first),
    int8_matmul_pallas at level-2 ff_out and the attn2_kv shapes (M = 4 x
@@ -214,6 +222,9 @@ STEPS = 4
 PEAK_BF16_FLOPS = 989e12  # H100 SXM, dense
 PEAK_INT8_OPS = 1979e12  # the same, int8 tensor cores
 PEAK_F32_FLOPS = 67e12  # the same, float32 outside the tensor cores
+# float32-accurate products on the TF32 tensor cores in three passes (3xTF32,
+# divergen_tpu_torch/ops/tf32x3.py): 494.7 TFLOP/s dense TF32 over three
+PEAK_F32_TC_FLOPS = 494.7e12 / 3
 PEAK_BYTES_PER_S = 3.35e12
 REL_L2_BOUND = 1e-2
 MAX_ABS_BOUND = 3e-2  # times max |reference|
@@ -413,7 +424,8 @@ def kernel_phases(gen: torch.Generator, card: str):
              (200, 2560, 336, True, "none", True, 1e-5, torch.bfloat16, 0),
              (1000, 640, 3840, False, "none", True, 1e-5, torch.float32, 0),
              (1000, 640, 3840, True, "none", True, 1e-5, torch.float32, 0),
-             (1000, 1280, 5120, False, "gelu", True, 1e-6, torch.float32, 0))
+             (1000, 1280, 5120, False, "gelu", True, 1e-6, torch.float32, 0),
+             (200, 2560, 336, True, "none", True, 1e-5, torch.float32, 0))
     for m, k, n, geglu, act, with_bias, eps, dtype, launches in cases:
         x = randn(m, k, scale=2.0, dtype=dtype)
         w = randn(n, k, scale=k ** -0.5, dtype=dtype).t()  # (K, N) view of an nn.Linear weight
@@ -454,10 +466,11 @@ def kernel_phases(gen: torch.Generator, card: str):
         nbytes = (x.element_size() * (m * k + k * n + m * cols) + 8.0 * k
                   + (4.0 * n if with_bias else 0.0))
         if dtype == torch.float32:
-            b_ms, by = bound(ops, nbytes, PEAK_F32_FLOPS)
+            b_ms, by = bound(ops, nbytes, PEAK_F32_TC_FLOPS)
+            fma_ms, _ = bound(ops, nbytes, PEAK_F32_FLOPS)
             log(f"    float32: kernel {ms:.4f} ms (min {span[0]:.4f}, max {span[1]:.4f}), plain "
                 f"{pms:.4f} ms, PyTorch call (float32) {time_one(library):.4f} ms, bound "
-                f"{b_ms:.4f} ms by {by} [{card}]")
+                f"{b_ms:.4f} ms by {by} at 3xTF32, {fma_ms:.4f} at FMA [{card}]")
             results["fused_ln_matmul"]["max_abs_err"] = max(
                 results["fused_ln_matmul"]["max_abs_err"], err)
             continue
@@ -915,6 +928,7 @@ def kernel_phases(gen: torch.Generator, card: str):
         + ", ".join(f"{name} {ms:.4f}" for name, ms in step.items()))
     results["fused_window_attention_packed_backward"]["step_device_ms"] = step["kernel"]
     float32_attention_phases(gen, card, results)
+    float32_full_width_phases(gen, card, results)
     return results
 
 
@@ -943,9 +957,11 @@ def float32_attention_phases(gen: torch.Generator, card: str, results: dict) -> 
         line = (f"    float32: kernel {ms:.4f} ms (min {span[0]:.4f}, max {span[1]:.4f}), plain "
                 f"{pms:.4f} ms")
         if library is not None:
-            b_ms, by = bound(ops, nbytes, PEAK_F32_FLOPS)
+            b_ms, by = bound(ops, nbytes, PEAK_F32_TC_FLOPS)
+            fma_ms, _ = bound(ops, nbytes, PEAK_F32_FLOPS)
             line += (f", PyTorch call (float32) {time_one(library):.4f} ms, bound {b_ms:.4f} ms "
-                     f"by {by} ({ops / 1e9:.2f} GFLOP, {nbytes / 1e6:.1f} MB)")
+                     f"by {by} at 3xTF32, {fma_ms:.4f} at FMA ({ops / 1e9:.2f} GFLOP, "
+                     f"{nbytes / 1e6:.1f} MB)")
         log(f"{line} [{card}]")
         results[kernel]["max_abs_err"] = max(results[kernel]["max_abs_err"], err)
 
@@ -954,6 +970,17 @@ def float32_attention_phases(gen: torch.Generator, card: str, results: dict) -> 
         return t.unflatten(-1, (heads, -1)).transpose(1, 2).contiguous()
 
     log("kernel phase: float32 attention (kernels 1, 3, 4, 5, 6)")
+    from divergen_tpu_torch.ops import _build
+    from divergen_tpu_torch.ops import attention_f32 as af_mod
+
+    for d, plan in af_mod.TC_PLANS.items():  # the body's tiles against their mirror
+        got = tuple(_build.lib().dg_attention_f32_plan(d, f) for f in range(6))
+        want = (plan.rows, plan.keys, plan.warps_r, plan.warps_c, plan.stages, plan.smem(d))
+        if got != want:
+            raise AssertionError(f"float32 attention plan at d = {d}: library {got}, "
+                                 f"ops/attention_f32.py {want}")
+    log(f"  float32 attention plans (rows, keys, warps by rows and channels, stages, "
+        f"shared bytes) match TC_PLANS: {dict((d, p.rows) for d, p in af_mod.TC_PLANS.items())}")
     b, n, c, heads = 2, 256, 128, 2
     qkv = randn(b, n, 3 * c)
     q4, k4, v4 = (heads_first(t, heads) for t in qkv.chunk(3, dim=-1))
@@ -1036,6 +1063,142 @@ def float32_attention_phases(gen: torch.Generator, card: str, results: dict) -> 
         case("fused_window_attention_backward", f"window split backward {part} {what}",
              lambda i=i: split_grads()[i], lambda i=i: ref4()[i],
              *((sdpa_backward, bwd_ops, bwd_bytes) if part == "dq" else ()))
+
+
+# float32 cases at the shapes of full-width models: (kernel, what, shape)
+F32_FULL_WIDTH = (
+    ("flash_attention", "a float32 VAEDecoder's mid attention at 1024²", (1, 16384, 512)),
+    ("flash_attention", "the same at 512²", (1, 4096, 512)),
+    ("flash_attention_relpos", "a float32 SAM.vit_h() global layer, B = 4", (4, 16, 64, 64, 80)),
+    ("flash_attention_packed", "a float32 UNetSDXL() level-1 self-attention",
+     (4, 4096, 640, 10)),
+    ("fused_window_attention_packed", "Swin-L stage 1 with the mask", (722, 6, 361, 144)),
+    ("fused_ln_matmul", "the UNet's GEGLU, 60 a call", (4096, 1280, 10240, "geglu")),
+    ("fused_ln_matmul", "the UNet's GEGLU, 10 a call", (16384, 640, 5120, "geglu")),
+    ("fused_ln_matmul", "SAM ViT-H's qkv, bias", (16384, 1280, 3840, "none")),
+    ("fused_ln_matmul", "SAM ViT-H's mlp_fc1, GELU, bias", (16384, 1280, 5120, "gelu")),
+)
+
+
+def device_kernels(fn, reps: int = 3, top: int = 2):
+    """[(name, ms per call)] of the ``top`` kernels with the most device time
+    in ``reps`` calls of ``fn`` under ``torch.profiler``, after one warm-up."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    events = sorted((e for e in prof.key_averages() if e.self_device_time_total > 0),
+                    key=lambda e: -e.self_device_time_total)
+    return [(e.key, e.self_device_time_total / 1e3 / reps) for e in events[:top]]
+
+
+def float32_full_width_phases(gen: torch.Generator, card: str, results: dict) -> None:
+    """The float32 bodies at the shapes of full-width models
+    (``F32_FULL_WIDTH``): each against its float32 twin at the float32 bound,
+    the same bits twice, then device times (``device_ms``) of the kernel, the
+    twin and the PyTorch float32 call (TF32 off: SDPA with the bias as a
+    float32 mask; ``F.linear(F.layer_norm(x))`` + the epilogue), the names of
+    that call's longest kernels, and the bounds: operations at 3xTF32
+    (``PEAK_F32_TC_FLOPS``, which applies to these bodies) and at FMA, bytes
+    at 3.35 TB/s."""
+    import divergen_tpu_torch.ops.flash_attention as fa_mod
+    import divergen_tpu_torch.ops.ln_matmul as ln_mod
+    import divergen_tpu_torch.ops.window_attention as wa_mod
+
+    dev = torch.device("cuda")
+
+    def randn(*shape, scale=1.0):
+        return torch.randn(shape, generator=gen, device=dev) * scale
+
+    def heads_first(t, heads):
+        return t.unflatten(-1, (heads, -1)).transpose(1, 2).contiguous()
+
+    log("kernel phase: float32 bodies at full width")
+    for kernel, what, shape in F32_FULL_WIDTH:
+        if kernel == "flash_attention":
+            bh, s, d = shape
+            q, k, v = (randn(bh, s, d) for _ in range(3))
+            run = lambda: fa_mod.flash_attention(q, k, v)
+            plain = lambda: fa_mod.reference_attention(q, k, v)
+            library = lambda: F.scaled_dot_product_attention(q[None], k[None], v[None])
+            ops, nbytes = 4.0 * bh * s * s * d, 4.0 * 4 * bh * s * d
+        elif kernel == "flash_attention_relpos":
+            b, heads, h, w, d = shape
+            n = h * w
+            fused = randn(b, n, 3, heads, d)
+            q, k, v = (fused[:, :, i].permute(0, 2, 1, 3) for i in range(3))
+            bh_t, bw_t = randn(b * heads, h, n, scale=0.7), randn(b * heads, w, n, scale=0.7)
+            dense = fa_mod.relpos_dense_bias(bh_t, bw_t).contiguous().reshape(b, heads, n, n)
+            run = lambda: fa_mod.flash_attention_relpos(q, k, v, bh_t, bw_t, (h, w))
+            plain = lambda: fa_mod.reference_attention_relpos(
+                *(t.reshape(b * heads, n, d) for t in (q, k, v)), bh_t, bw_t,
+                (h, w)).reshape(b, heads, n, d)
+            library = lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=dense)
+            ops = 4.0 * b * heads * n * n * d
+            nbytes = 4.0 * 4 * b * heads * n * d + 4.0 * b * heads * (h + w) * n
+        elif kernel == "flash_attention_packed":
+            b, n, c, heads = shape
+            qkv = randn(b, n, 3 * c)
+            q4, k4, v4 = (heads_first(t, heads) for t in qkv.chunk(3, dim=-1))
+            run = lambda: fa_mod.flash_attention_packed(qkv, heads)
+            plain = lambda: fa_mod.reference_attention_packed(qkv, heads)
+            library = lambda: F.scaled_dot_product_attention(q4, k4, v4)
+            ops, nbytes = 4.0 * b * n * n * c, 4.0 * b * n * 4 * c
+        elif kernel == "fused_window_attention_packed":
+            bn, heads, nw, n = shape
+            c = 32 * heads
+            qkv = randn(bn, n, 3 * c)
+            bias = randn(heads, n, n, scale=0.5)
+            mask = torch.where(torch.rand((nw, n, n), generator=gen, device=dev) < 0.3, -100.0,
+                               0.0)
+            mask.diagonal(dim1=1, dim2=2).zero_()
+            win_mask = (bias[None] + mask.repeat(bn // nw, 1, 1)[:, None]).contiguous()
+            q4, k4, v4 = (heads_first(t, heads) for t in qkv.chunk(3, dim=-1))
+            run = lambda: wa_mod.fused_window_attention_packed(qkv, bias, mask, heads)
+            plain = lambda: wa_mod.reference_window_attention_packed(qkv, bias, mask, heads)
+            library = lambda: F.scaled_dot_product_attention(q4, k4, v4, attn_mask=win_mask)
+            ops = 4.0 * bn * n * n * c
+            nbytes = 4.0 * bn * n * 4 * c + 4.0 * (heads + nw) * n * n
+        else:
+            m, kk, n, epi = shape
+            geglu, act = epi == "geglu", "gelu" if epi == "gelu" else "none"
+            x = randn(m, kk, scale=2.0)
+            w = randn(n, kk, scale=kk ** -0.5).t()
+            gamma = 1.0 + 0.1 * randn(kk)
+            beta = 0.1 * randn(kk)
+            bias = 0.1 * randn(n) if epi != "geglu" else None
+            run = lambda: ln_mod.fused_ln_matmul(x, w, gamma, beta, 1e-5, bias, geglu, act)
+            plain = lambda: ln_mod.ln_matmul_reference(x, w, gamma, beta, 1e-5, bias, geglu, act)
+
+            def library():
+                y = F.linear(F.layer_norm(x, (kk,), gamma, beta, 1e-5), w.t(), bias)
+                if geglu:
+                    hidden, gate = y.chunk(2, dim=-1)
+                    return hidden * F.gelu(gate)
+                return F.gelu(y) if act == "gelu" else y
+
+            cols = n // 2 if geglu else n
+            ops = 2.0 * m * kk * n
+            nbytes = 4.0 * (m * kk + kk * n + m * cols + 2 * kk + (n if bias is not None else 0))
+        name = f"{kernel} float32 {shape} ({what})"
+        got = run()
+        err = compare(name, got, plain(), **F32_BOUNDS)
+        same_bits(name, got, run)
+        del got
+        k_ms, p_ms, l_ms = device_ms(run, reps=3), device_ms(plain, reps=3), device_ms(library,
+                                                                                        reps=3)
+        names = "; ".join(f"{kname[:90]} {kms:.4f} ms" for kname, kms in device_kernels(library))
+        b_ms, by = bound(ops, nbytes, PEAK_F32_TC_FLOPS)
+        fma_ms, _ = bound(ops, nbytes, PEAK_F32_FLOPS)
+        log(f"    device: kernel {k_ms:.4f} ms ({ops / k_ms / 1e9:.1f} TFLOP/s), plain {p_ms:.4f} "
+            f"ms, PyTorch call (float32) {l_ms:.4f} ms [its kernels: {names}]; bound "
+            f"{b_ms:.4f} ms by {by} at 3xTF32, {fma_ms:.4f} at FMA ({ops / 1e9:.1f} GFLOP, "
+            f"{nbytes / 1e6:.1f} MB) [{card}]")
+        results[kernel]["max_abs_err"] = max(results[kernel]["max_abs_err"], err)
+        torch.cuda.empty_cache()
 
 
 def device_ms(fn, reps: int = 10) -> float:

@@ -1,7 +1,7 @@
 // Float32 attention for the port's five attention kernels, forward and the
 // window backward, for Hopper (sm_90a): q, k, v, the output and every product
-// in float32 on the CUDA cores (FMA), as the Pallas kernels compute a float32
-// input (their dots run in the input's dtype).
+// at float32 accuracy, as the Pallas kernels compute a float32 input (their
+// dots run in the input's dtype).
 //
 // Replaces the float32 case of the Pallas TPU kernels of
 // divergen_tpu/ops/pallas/flash_attention.py (flash_attention_packed,
@@ -26,12 +26,55 @@
 // stride), which covers the packed (B, N, 3C) projections of kernels 1 and 5,
 // (BH, S, D) and heads-first views; k and v share strides.
 //
-// What bounds it: operations, at 67 TFLOP/s of f32 FMA. A simple body that is
-// right: a block of 128 threads takes BQ query rows of one (b, h) and walks
-// the keys in tiles of BK; q, k and v tiles go through shared memory, each
-// thread holds a TR x TC patch of the scores and a TRo x TDo patch of the
-// output, and the row statistics are reduced by shuffles. Head dims 32, 64,
-// 80 (BQ = BK = 64) and 512 (BQ 16, BK 32).
+// What bounds it: operations. The products run on the TF32 tensor cores in
+// three passes (mma_sm90.cuh: each operand split into a big and a small tf32
+// part, a_small b_big + a_big b_small + a_big b_big, float32-accurate),
+// 494.7 / 3 = 165 TFLOP/s of float32 products against the 67 TFLOP/s of FMA
+// that bounded the CUDA-core body this one replaced. One-pass TF32 (about
+// 5e-4 relative) is not float32 and is not taken. The three passes of a step
+// run over all of a tile's accumulators in turn, so that the products side
+// by side are independent (an accumulator of its own for each pass was
+// slower at d = 512: 18.49 against 17.34 ms at 16384 keys on an H100); a
+// tile's P V starts from zero and is added to O in f32 (the tensor core's
+// accumulation truncates: one accumulator over all keys drifted by 3e-5
+// relative at 4096 keys, 1e-4 at 16384).
+//
+// Why mma.sync m16n8k8 and not wgmma: the split happens in registers, on
+// fragments loaded from shared memory, for every operand, so one body serves
+// every head dim and bias policy; and P V takes P straight from the S
+// accumulator. wgmma's tf32 B operand must be K-major in shared memory: S = Q
+// K^T fits, P V from V's natural (keys, d) rows would need V transposed and
+// both halves of its split staged.
+//
+// Design (ops/attention_f32.py: TC_PLANS mirrors the plan, tested on the
+// CPU in tests/test_torch_f32_plan.py):
+//   * A block takes BQ query rows of one (b, h); warps split the rows (16 MT
+//     each) and, at d = 512, the channels (kWarpsC groups of d / kWarpsC).
+//     K and V tiles of BK keys come by cp.async (16 bytes a thread, rows
+//     padded to d + 4 floats so that every fragment load is free of bank
+//     conflicts, keys past Sk zero-filled), kStages deep: at d <= 80 the
+//     tile two ahead is in flight behind the products, one barrier a tile.
+//   * d <= 80: warps of 16 rows (four, BQ 64; three at d = 32, the window
+//     policy's, so that n = 144 is three blocks of 48 rows and three tiles
+//     of 48 keys), Q split once into registers for the whole key loop; a
+//     tile's bias is loaded during the products of the tile before it.
+//   * d = 512: 32 rows by eight warps of 64 channels each (O 32 x 64 a warp;
+//     Q in shared memory, split as it is read: in registers it spilled), two
+//     K/V stages of 16 keys. Each warp's share of S goes to shared memory,
+//     warp w sums the w-th eighth of the eight shares in warp order, and
+//     every warp reads the sum back: all eight hold the same S, run the
+//     same softmax and feed P from their own registers (three barriers a
+//     tile).
+//   * P from the S accumulator: the tf32 A fragment holds columns t and t + 4
+//     where the accumulator holds 2t and 2t + 1, so P V's k-slot t is key 2t
+//     and slot t + 4 key 2t + 1 of each 8-key slab, and V's rows are read in
+//     that order (ops/attention_f32.py: pv_slot_key). S, the bias and the mask
+//     keep the keys' natural order.
+//   * The bias is loaded before a tile's products (each quad reads 32
+//     contiguous bytes of a row) and added to the scaled score; relpos keeps
+//     the key's grid row and column by increments, no division per element.
+//   * expf, not __expf: the fast one was 1.5-2 % quicker on an H100 and less
+//     accurate.
 //
 // The window backward (kernels 5 and 6): a block takes one head and a chunk
 // of consecutive windows; for each window q, k, v, do (n x 32) and the n x n
@@ -40,14 +83,16 @@
 // do v^T in place of P, dq = scale ds k, dk = scale ds^T q; the block adds its
 // windows' ds into a bias gradient in registers, and a second small kernel
 // adds the chunks' partial sums in a fixed order (two runs, the same bits).
+// Its products are float32 FMAs on the CUDA cores.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "mma_sm90.cuh"  // cp.async, the tf32 split and m16n8k8 product
+
 namespace {
 
 constexpr float kNegInf = -1e30f;
-constexpr int kThreads = 128;
 
 enum BiasMode { kNoBias = 0, kDense = 1, kRelpos = 2, kWindow = 3 };
 
@@ -66,195 +111,394 @@ struct AttnArgs {
   float scale;
 };
 
-template <int BIAS>
-__device__ __forceinline__ float bias_at(const AttnArgs& p, int b, int h, int r, int c) {
-  if constexpr (BIAS == kDense) {
-    return p.bias[b * p.b_bs + h * p.b_hs + r * p.b_rs + c];
-  } else if constexpr (BIAS == kRelpos) {
-    const int64_t bh = static_cast<int64_t>(b) * p.heads + h;
-    return p.bias[(bh * p.gh + c / p.gw) * p.sq + r] + p.bias2[(bh * p.gw + c % p.gw) * p.sq + r];
-  } else if constexpr (BIAS == kWindow) {
-    const int64_t rc = static_cast<int64_t>(r) * p.sk + c;
-    float v = p.bias[static_cast<int64_t>(h) * p.sq * p.sk + rc];
-    if (p.bias2 != nullptr) v += p.bias2[static_cast<int64_t>(b % p.nw) * p.sq * p.sk + rc];
-    return v;
-  } else {
-    return 0.f;
-  }
-}
-
-// tiles of the head dim D: BQ query rows, BK keys; scores TR x TC a thread
-// (rows rg + RG i, keys cg + CG j), output TRo x TDo (rows ro + RGo i,
-// channels dg + DG j)
+// the tile plan of head dim D (ops/attention_f32.py: TC_PLANS): warps by
+// rows and by channels, 16-row m-tiles a warp, keys a tile, tiles in flight
 template <int D>
-struct Cfg {
-  static constexpr int BQ = 64, BK = 64, TR = 4, TC = 8, DG = 16;
+struct Plan {
+  static constexpr int kWarpsR = 4, kWarpsC = 1, kMT = 1, kBK = 32, kStages = 3;
 };
+// the window policy's d: n = 144 is three blocks of 48 rows and three tiles of 48 keys
 template <>
-struct Cfg<512> {
-  static constexpr int BQ = 16, BK = 32, TR = 2, TC = 2, DG = 32;
+struct Plan<32> {
+  static constexpr int kWarpsR = 3, kWarpsC = 1, kMT = 1, kBK = 48, kStages = 3;
+};
+// Q in shared memory takes the third stage's room: raw in registers, split as
+// it was read, with three stages, it spilled and took 28.57 against 16.95 ms
+// at 16384 keys on an H100
+template <>
+struct Plan<512> {
+  static constexpr int kWarpsR = 1, kWarpsC = 8, kMT = 2, kBK = 16, kStages = 2;
 };
 
 template <int D>
-constexpr int smem_floats() {
-  typedef Cfg<D> C;
-  return (C::BQ + 2 * C::BK) * (D + 4) + C::BQ * (C::BK + 1) + 2 * C::BQ;
-}
+struct Tile : Plan<D> {
+  typedef Plan<D> P;
+  static constexpr int kWarps = P::kWarpsR * P::kWarpsC;
+  static constexpr int kThreads = 32 * kWarps;
+  static constexpr int kBQ = 16 * P::kMT * P::kWarpsR;  // query rows a block
+  static constexpr int kLD = D + 4;                     // floats a K or V row in shared memory
+  static constexpr int kNT = P::kBK / 8;                // 8-key slabs a tile
+  // with the channels split: Q in shared memory (not registers), the warps'
+  // shares of S and their sum, in float4s
+  static constexpr bool kSplitC = P::kWarpsC > 1;
+  static constexpr int kQ = kSplitC ? kBQ * kLD : 0;
+  static constexpr int kShare = kSplitC ? kWarps * P::kMT * kNT * 32 : 0;
+  static constexpr int kSum = kSplitC ? P::kMT * kNT * 32 : 0;
+  static constexpr int kSmem = (P::kStages * 2 * P::kBK * kLD + kQ + 4 * (kShare + kSum)) * 4;
+  static_assert(D % (8 * P::kWarpsC) == 0 && P::kBK % 8 == 0, "whole fragments");
+  static_assert(!kSplitC || (P::kWarpsR == 1 && kSum % P::kWarpsC == 0 &&
+                             kSum / P::kWarpsC <= 32), "one row group; a lane per summed float4");
+  static_assert(kSmem <= 232448, "a block's shared memory");
+};
 
 __device__ __forceinline__ float4 load4(const float* p) {
   return *reinterpret_cast<const float4*>(p);
 }
 
-// rows [r0, r0 + rows) of a (rows, D) tile at base + r * rs into smem (row
-// stride D + 4), zeros past `limit`
-template <int D>
-__device__ __forceinline__ void load_tile(float* dst, const float* base, int64_t rs, int r0,
-                                          int rows, int limit) {
-  for (int i = threadIdx.x; i < rows * (D / 4); i += kThreads) {
-    const int r = i / (D / 4), c = (i % (D / 4)) * 4;
-    const float4 v = r0 + r < limit ? load4(base + (r0 + r) * rs + c) : make_float4(0, 0, 0, 0);
-    *reinterpret_cast<float4*>(dst + r * (D + 4) + c) = v;
-  }
-}
-
 template <int D, int BIAS>
-__global__ void __launch_bounds__(kThreads) attn_f32_kernel(const AttnArgs p) {
-  typedef Cfg<D> C;
-  constexpr int BQ = C::BQ, BK = C::BK, TR = C::TR, TC = C::TC, DG = C::DG;
-  constexpr int RG = BQ / TR, CG = BK / TC;  // score patch grid: RG x CG threads
-  constexpr int RGo = kThreads / DG, TRo = BQ / RGo, TDo = D / DG;
-  constexpr int LD = D + 4, LDP = BK + 1;
-  static_assert(RG * CG == kThreads && CG <= 32 && (CG & (CG - 1)) == 0, "score patches");
-  static_assert(RGo * TRo == BQ && TDo * DG == D, "output patches");
+__global__ void __launch_bounds__(Tile<D>::kThreads) attn_f32_kernel(const AttnArgs p) {
+  typedef Tile<D> T;
+  constexpr int MT = T::kMT, NT = T::kNT, BK = T::kBK, LD = T::kLD, NS = T::kStages;
+  constexpr int WC = T::kWarpsC, DW = D / WC;
+  constexpr int KS = DW / 8;  // 8-channel steps of Q K^T a warp, and 8-channel tiles of its O
+  constexpr bool kSplitQ = WC == 1;  // Q split once into registers; else in shared memory
+  // channel tiles of P V taken at once: independent products side by side
+  constexpr int CB = MT > 1 ? 2 : (KS % 4 == 0 ? 4 : 5);
+  static_assert(KS % CB == 0, "whole channel blocks");
   extern __shared__ float4 smem4[];
-  float* qs = reinterpret_cast<float*>(smem4);
-  float* ks = qs + BQ * LD;
-  float* vs = ks + BK * LD;
-  float* ps = vs + BK * LD;
-  float* row_a = ps + BQ * LDP;  // per row: the rescale of this tile, then 1 / l
-  float* row_l = row_a + BQ;
+  float* kv = reinterpret_cast<float*>(smem4);  // NS stages of [K | V], BK rows of LD each
+  float* qs = kv + NS * 2 * BK * LD;            // WC > 1: the block's Q, BQ rows of LD
+  float4* share = reinterpret_cast<float4*>(qs + T::kQ);  // WC > 1: each warp's S
+  float4* ssum = share + T::kShare;                         // WC > 1: their sum
 
-  const int q0 = blockIdx.x * BQ, h = blockIdx.y, b = blockIdx.z;
-  const int tid = threadIdx.x;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int rg = warp / WC, cg = warp % WC;
+  const int b = blockIdx.z, h = blockIdx.y;
+  const int row0 = blockIdx.x * T::kBQ + 16 * MT * rg;  // the warp's first query row
+  const int c0 = cg * DW;                               // the warp's first channel
   const float* qb = p.q + b * p.q_bs + h * p.q_hs;
   const float* kb = p.k + b * p.kv_bs + h * p.kv_hs;
   const float* vb = p.v + b * p.kv_bs + h * p.kv_hs;
-  load_tile<D>(qs, qb, p.q_rs, q0, BQ, p.sq);
+  const int n_tiles = (p.sk + BK - 1) / BK;
 
-  const int rg = tid / CG, cg = tid % CG;
-  const int ro = tid / DG, dg = tid % DG;
-  float m_i[TR], l_i[TR], acc[TRo][TDo];
+  auto load_tile = [&](int j) {
+    float* ks = kv + (j % NS) * 2 * BK * LD;
+    float* vs = ks + BK * LD;
+    const int k0 = j * BK;
+    for (int i = tid; i < BK * (D / 4); i += T::kThreads) {
+      const int r = i / (D / 4), c = (i % (D / 4)) * 4;
+      const bool valid = k0 + r < p.sk;
+      const int64_t off = valid ? (k0 + r) * p.kv_rs + c : 0;
+      dg::cp_async16(ks + r * LD + c, kb + off, valid);
+      dg::cp_async16(vs + r * LD + c, vb + off, valid);
+    }
+  };
+  if constexpr (!kSplitQ) {  // the block's Q rows, with the first tile
+    const int q0 = blockIdx.x * T::kBQ;
+    for (int i = tid; i < T::kBQ * (D / 4); i += T::kThreads) {
+      const int r = i / (D / 4), c = (i % (D / 4)) * 4;
+      const bool valid = q0 + r < p.sq;
+      dg::cp_async16(qs + r * LD + c, qb + (valid ? (q0 + r) * p.q_rs + c : 0), valid);
+    }
+  }
 #pragma unroll
-  for (int i = 0; i < TR; ++i) m_i[i] = kNegInf, l_i[i] = 0.f;
-#pragma unroll
-  for (int i = 0; i < TRo; ++i)
-#pragma unroll
-    for (int j = 0; j < TDo; ++j) acc[i][j] = 0.f;
+  for (int s = 0; s < NS - 1; ++s) {
+    if (s < n_tiles) load_tile(s);
+    dg::cp_async_commit();
+  }
 
-  for (int k0 = 0; k0 < p.sk; k0 += BK) {
-    __syncthreads();  // the previous tile's K, V and P are read
-    load_tile<D>(ks, kb, p.kv_rs, k0, BK, p.sk);
-    load_tile<D>(vs, vb, p.kv_rs, k0, BK, p.sk);
-    __syncthreads();
-    float s[TR][TC];
+  // d <= 80: Q's A fragments, rows row0 + 16 mt + g (+ 8), channels c0 + 8 ks
+  // + t (+ 4), split once for the whole key loop
+  uint32_t qh[kSplitQ ? MT : 1][kSplitQ ? KS : 1][4], ql[kSplitQ ? MT : 1][kSplitQ ? KS : 1][4];
+  if constexpr (kSplitQ) {
 #pragma unroll
-    for (int i = 0; i < TR; ++i)
+    for (int mt = 0; mt < MT; ++mt) {
+      const int ra = row0 + 16 * mt + g, rb = ra + 8;
 #pragma unroll
-      for (int j = 0; j < TC; ++j) s[i][j] = 0.f;
-#pragma unroll 4
-    for (int d = 0; d < D; d += 4) {
-      float4 qv[TR], kv[TC];
+      for (int ks = 0; ks < KS; ++ks) {
+        const int ch = c0 + 8 * ks + t;
+        dg::tf32_split(ra < p.sq ? qb[ra * p.q_rs + ch] : 0.f, qh[mt][ks][0], ql[mt][ks][0]);
+        dg::tf32_split(rb < p.sq ? qb[rb * p.q_rs + ch] : 0.f, qh[mt][ks][1], ql[mt][ks][1]);
+        dg::tf32_split(ra < p.sq ? qb[ra * p.q_rs + ch + 4] : 0.f, qh[mt][ks][2], ql[mt][ks][2]);
+        dg::tf32_split(rb < p.sq ? qb[rb * p.q_rs + ch + 4] : 0.f, qh[mt][ks][3], ql[mt][ks][3]);
+      }
+    }
+  }
+
+  float m_i[MT][2], l_i[MT][2], o[MT][KS][4];
 #pragma unroll
-      for (int i = 0; i < TR; ++i) qv[i] = load4(qs + (rg + RG * i) * LD + d);
+  for (int mt = 0; mt < MT; ++mt) {
+    m_i[mt][0] = m_i[mt][1] = kNegInf;
+    l_i[mt][0] = l_i[mt][1] = 0.f;
 #pragma unroll
-      for (int j = 0; j < TC; ++j) kv[j] = load4(ks + (cg + CG * j) * LD + d);
+    for (int n = 0; n < KS; ++n) o[mt][n][0] = o[mt][n][1] = o[mt][n][2] = o[mt][n][3] = 0.f;
+  }
+  const int64_t bh = static_cast<int64_t>(b) * p.heads + h;
+  int kh0 = 0, kw0 = 0;  // kRelpos: grid row and column of the tile's first key
+
+  // a tile's bias: element (mt, n, 2 hh + e) is row row0 + 16 mt + g + 8 hh,
+  // key k0 + 8 n + 2 t + e (relpos: key k0 is grid row kh0, column kw0)
+  float bv[MT][NT][4];
+  auto load_bias = [&](int k0) {
 #pragma unroll
-      for (int i = 0; i < TR; ++i)
+    for (int mt = 0; mt < MT; ++mt)
 #pragma unroll
-        for (int j = 0; j < TC; ++j) {
-          s[i][j] = fmaf(qv[i].x, kv[j].x, s[i][j]);
-          s[i][j] = fmaf(qv[i].y, kv[j].y, s[i][j]);
-          s[i][j] = fmaf(qv[i].z, kv[j].z, s[i][j]);
-          s[i][j] = fmaf(qv[i].w, kv[j].w, s[i][j]);
+      for (int n = 0; n < NT; ++n)
+        bv[mt][n][0] = bv[mt][n][1] = bv[mt][n][2] = bv[mt][n][3] = 0.f;
+    if constexpr (BIAS != kNoBias) {
+#pragma unroll
+      for (int n = 0; n < NT; ++n)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int key = k0 + 8 * n + 2 * t + e;
+          int kh = kh0, kw = kw0 + 8 * n + 2 * t + e;
+          if constexpr (BIAS == kRelpos) {
+            while (kw >= p.gw) kw -= p.gw, ++kh;
+          }
+#pragma unroll
+          for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+            for (int hh = 0; hh < 2; ++hh) {
+              const int r = row0 + 16 * mt + g + 8 * hh;
+              if (r >= p.sq || key >= p.sk) continue;
+              float v;
+              if constexpr (BIAS == kDense) {
+                v = p.bias[b * p.b_bs + h * p.b_hs + r * p.b_rs + key];
+              } else if constexpr (BIAS == kRelpos) {
+                v = p.bias[(bh * p.gh + kh) * p.sq + r] + p.bias2[(bh * p.gw + kw) * p.sq + r];
+              } else {
+                const int64_t rk = static_cast<int64_t>(r) * p.sk + key;
+                v = p.bias[static_cast<int64_t>(h) * p.sq * p.sk + rk];
+                if (p.bias2 != nullptr)
+                  v += p.bias2[static_cast<int64_t>(b % p.nw) * p.sq * p.sk + rk];
+              }
+              bv[mt][n][2 * hh + e] = v;
+            }
         }
     }
+  };
+  // d <= 80: a tile's bias is loaded while the tile before it is in its
+  // products, hiding the latency (at d = 512 after the tile's S is summed;
+  // the VAE, its main path, has no bias)
+  if constexpr (WC == 1) load_bias(0);
+
+  for (int j = 0; j < n_tiles; ++j) {
+    dg::cp_async_wait<NS - 2>();  // tile j has landed
+    __syncthreads();              // for every thread; and tile j - 1's buffer is free
+    if (j + NS - 1 < n_tiles) load_tile(j + NS - 1);
+    dg::cp_async_commit();
+    const float* ks_t = kv + (j % NS) * 2 * BK * LD;
+    const float* vs_t = ks_t + BK * LD;
+    const int k0 = j * BK;
+
+    // S = Q K^T over the warp's channels; the three passes of each 8-channel
+    // step in turn over the tile's slabs, so that the products next to each
+    // other are independent
+    float s[MT][NT][4];
 #pragma unroll
-    for (int i = 0; i < TR; ++i) {
-      const int r = q0 + rg + RG * i;
-      float mx = kNegInf;
+    for (int mt = 0; mt < MT; ++mt)
 #pragma unroll
-      for (int j = 0; j < TC; ++j) {
-        const int c = k0 + cg + CG * j;
-        if (c < p.sk) {
-          s[i][j] *= p.scale;
-          if (r < p.sq) s[i][j] += bias_at<BIAS>(p, b, h, r, c);
+      for (int n = 0; n < NT; ++n) s[mt][n][0] = s[mt][n][1] = s[mt][n][2] = s[mt][n][3] = 0.f;
+#pragma unroll
+    for (int ks = 0; ks < KS; ++ks) {
+      uint32_t ah[MT][4], al[MT][4], kbig[NT][2], ksmall[NT][2];
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt) {
+        if constexpr (kSplitQ) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) ah[mt][e] = qh[mt][ks][e], al[mt][e] = ql[mt][ks][e];
         } else {
-          s[i][j] = kNegInf;
+          const float* qr = qs + (16 * mt + g) * LD + c0 + 8 * ks + t;
+          dg::tf32_split(qr[0], ah[mt][0], al[mt][0]);
+          dg::tf32_split(qr[8 * LD], ah[mt][1], al[mt][1]);
+          dg::tf32_split(qr[4], ah[mt][2], al[mt][2]);
+          dg::tf32_split(qr[8 * LD + 4], ah[mt][3], al[mt][3]);
         }
-        mx = fmaxf(mx, s[i][j]);
       }
 #pragma unroll
-      for (int off = CG / 2; off > 0; off >>= 1)
-        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
-      const float m_new = fmaxf(m_i[i], mx);
-      const float alpha = expf(m_i[i] - m_new);
-      float sum = 0.f;
-#pragma unroll
-      for (int j = 0; j < TC; ++j) {
-        const float e = expf(s[i][j] - m_new);
-        sum += e;
-        ps[(rg + RG * i) * LDP + cg + CG * j] = e;
+      for (int n = 0; n < NT; ++n) {
+        const float* kr = ks_t + (8 * n + g) * LD + c0 + 8 * ks + t;
+        dg::tf32_split(kr[0], kbig[n][0], ksmall[n][0]);
+        dg::tf32_split(kr[4], kbig[n][1], ksmall[n][1]);
       }
 #pragma unroll
-      for (int off = CG / 2; off > 0; off >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, off);
-      l_i[i] = l_i[i] * alpha + sum;
-      m_i[i] = m_new;
-      if (cg == 0) row_a[rg + RG * i] = alpha;
+      for (int n = 0; n < NT; ++n)
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt)
+          dg::mma_tf32_1688(s[mt][n], al[mt], kbig[n][0], kbig[n][1]);
+#pragma unroll
+      for (int n = 0; n < NT; ++n)
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt)
+          dg::mma_tf32_1688(s[mt][n], ah[mt], ksmall[n][0], ksmall[n][1]);
+#pragma unroll
+      for (int n = 0; n < NT; ++n)
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt)
+          dg::mma_tf32_1688(s[mt][n], ah[mt], kbig[n][0], kbig[n][1]);
     }
-    __syncthreads();
+    if constexpr (WC > 1) {
+      // the warps' shares of S (each lane's fragments as float4s); warp w
+      // sums the w-th WC-th of them in warp order, and every warp reads the
+      // whole sum back into its accumulator layout
+      constexpr int F = T::kSum, E = F / WC;
 #pragma unroll
-    for (int i = 0; i < TRo; ++i) {
-      const float a = row_a[ro + RGo * i];
+      for (int mt = 0; mt < MT; ++mt)
 #pragma unroll
-      for (int j = 0; j < TDo; ++j) acc[i][j] *= a;
+        for (int n = 0; n < NT; ++n)
+          share[warp * F + (mt * NT + n) * 32 + lane] =
+              make_float4(s[mt][n][0], s[mt][n][1], s[mt][n][2], s[mt][n][3]);
+      __syncthreads();
+      if (lane < E) {
+        const int i = warp * E + lane;
+        float4 a = share[i];
+#pragma unroll
+        for (int c = 1; c < WC; ++c) {
+          const float4 u = share[c * F + i];
+          a.x += u.x, a.y += u.y, a.z += u.z, a.w += u.w;
+        }
+        ssum[i] = a;
+      }
+      __syncthreads();
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+        for (int n = 0; n < NT; ++n) {
+          const float4 a = ssum[(mt * NT + n) * 32 + lane];
+          s[mt][n][0] = a.x, s[mt][n][1] = a.y, s[mt][n][2] = a.z, s[mt][n][3] = a.w;
+        }
+      load_bias(k0);
     }
-#pragma unroll 4
-    for (int kk = 0; kk < BK; ++kk) {
-      float pv[TRo], vv[TDo];
+
+    // scale, bias, the keys past Sk; the online softmax; P in place of S
+    const bool tail = k0 + BK > p.sk;
+    float alpha[MT][2];
 #pragma unroll
-      for (int i = 0; i < TRo; ++i) pv[i] = ps[(ro + RGo * i) * LDP + kk];
+    for (int mt = 0; mt < MT; ++mt)
 #pragma unroll
-      for (int j = 0; j < TDo; ++j) vv[j] = vs[kk * LD + dg + DG * j];
+      for (int hh = 0; hh < 2; ++hh) {
+        float mx = kNegInf;
 #pragma unroll
-      for (int i = 0; i < TRo; ++i)
+        for (int n = 0; n < NT; ++n)
 #pragma unroll
-        for (int j = 0; j < TDo; ++j) acc[i][j] = fmaf(pv[i], vv[j], acc[i][j]);
+          for (int e = 0; e < 2; ++e) {
+            float& x = s[mt][n][2 * hh + e];
+            x = fmaf(x, p.scale, bv[mt][n][2 * hh + e]);
+            if (tail && k0 + 8 * n + 2 * t + e >= p.sk) x = kNegInf;
+            mx = fmaxf(mx, x);
+          }
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+        const float m_new = fmaxf(m_i[mt][hh], mx);
+        alpha[mt][hh] = expf(m_i[mt][hh] - m_new);
+        float sum = 0.f;
+#pragma unroll
+        for (int n = 0; n < NT; ++n)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            float& x = s[mt][n][2 * hh + e];
+            x = expf(x - m_new);
+            sum += x;
+          }
+        // this thread's keys; the quad's sum at the end
+        l_i[mt][hh] = l_i[mt][hh] * alpha[mt][hh] + sum;
+        m_i[mt][hh] = m_new;
+      }
+    if constexpr (BIAS == kRelpos) {  // key k0 + BK's grid row and column
+      kw0 += BK;
+      while (kw0 >= p.gw) kw0 -= p.gw, ++kh0;
+    }
+    if constexpr (WC == 1) {
+      if (j + 1 < n_tiles) load_bias(k0 + BK);
+    }
+
+    // O = alpha O + P V. Slab n's k-slot t is key 8 n + 2 t, slot t + 4 key
+    // 8 n + 2 t + 1 (P's A fragment is the S accumulator as it stands). The
+    // tile's P V goes into `pv` from zero, CB channel tiles at a time, and is
+    // added to O in f32: the tensor core's accumulation truncates, and over
+    // every key tile in one accumulator it drifted by 3e-5 relative at 4096
+    // keys on an H100.
+    uint32_t ph[NT][MT][4], pl[NT][MT][4];
+#pragma unroll
+    for (int n = 0; n < NT; ++n)
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt) {
+        dg::tf32_split(s[mt][n][0], ph[n][mt][0], pl[n][mt][0]);
+        dg::tf32_split(s[mt][n][2], ph[n][mt][1], pl[n][mt][1]);
+        dg::tf32_split(s[mt][n][1], ph[n][mt][2], pl[n][mt][2]);
+        dg::tf32_split(s[mt][n][3], ph[n][mt][3], pl[n][mt][3]);
+      }
+#pragma unroll
+    for (int cb = 0; cb < KS; cb += CB) {
+      float pv[CB][MT][4];
+#pragma unroll
+      for (int c = 0; c < CB; ++c)
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt)
+          pv[c][mt][0] = pv[c][mt][1] = pv[c][mt][2] = pv[c][mt][3] = 0.f;
+#pragma unroll
+      for (int n = 0; n < NT; ++n) {
+        const float* vr = vs_t + (8 * n + 2 * t) * LD + c0 + g + 8 * cb;
+        uint32_t vbig[CB][2], vsmall[CB][2];
+#pragma unroll
+        for (int c = 0; c < CB; ++c) {
+          dg::tf32_split(vr[8 * c], vbig[c][0], vsmall[c][0]);
+          dg::tf32_split(vr[LD + 8 * c], vbig[c][1], vsmall[c][1]);
+        }
+#pragma unroll
+        for (int c = 0; c < CB; ++c)
+#pragma unroll
+          for (int mt = 0; mt < MT; ++mt)
+            dg::mma_tf32_1688(pv[c][mt], pl[n][mt], vbig[c][0], vbig[c][1]);
+#pragma unroll
+        for (int c = 0; c < CB; ++c)
+#pragma unroll
+          for (int mt = 0; mt < MT; ++mt)
+            dg::mma_tf32_1688(pv[c][mt], ph[n][mt], vsmall[c][0], vsmall[c][1]);
+#pragma unroll
+        for (int c = 0; c < CB; ++c)
+#pragma unroll
+          for (int mt = 0; mt < MT; ++mt)
+            dg::mma_tf32_1688(pv[c][mt], ph[n][mt], vbig[c][0], vbig[c][1]);
+      }
+#pragma unroll
+      for (int c = 0; c < CB; ++c)
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            o[mt][cb + c][e] = fmaf(o[mt][cb + c][e], alpha[mt][e >> 1], pv[c][mt][e]);
     }
   }
-  if (cg == 0) {
-#pragma unroll
-    for (int i = 0; i < TR; ++i) row_l[rg + RG * i] = fmaxf(l_i[i], 1e-30f);
-  }
-  __syncthreads();
+  dg::cp_async_wait<0>();  // no copy outlives the block
+
   float* ob = p.o + b * p.o_bs + h * p.o_hs;
 #pragma unroll
-  for (int i = 0; i < TRo; ++i) {
-    const int r = ro + RGo * i;
-    if (q0 + r >= p.sq) continue;
-    const float l = row_l[r];
+  for (int mt = 0; mt < MT; ++mt)
 #pragma unroll
-    for (int j = 0; j < TDo; ++j) ob[(q0 + r) * p.o_rs + dg + DG * j] = acc[i][j] / l;
-  }
+    for (int hh = 0; hh < 2; ++hh) {
+      float l = l_i[mt][hh];
+      l += __shfl_xor_sync(0xffffffffu, l, 1);
+      l += __shfl_xor_sync(0xffffffffu, l, 2);
+      l = fmaxf(l, 1e-30f);
+      const int r = row0 + 16 * mt + g + 8 * hh;
+      if (r >= p.sq) continue;
+#pragma unroll
+      for (int c = 0; c < KS; ++c)
+        *reinterpret_cast<float2*>(ob + r * p.o_rs + c0 + 8 * c + 2 * t) =
+            make_float2(o[mt][c][2 * hh] / l, o[mt][c][2 * hh + 1] / l);
+    }
 }
 
 template <int D, int BIAS>
 int launch_fwd(const AttnArgs& p, cudaStream_t stream) {
-  constexpr int bytes = smem_floats<D>() * static_cast<int>(sizeof(float));
+  typedef Tile<D> T;
   const cudaError_t err = cudaFuncSetAttribute(
-      attn_f32_kernel<D, BIAS>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+      attn_f32_kernel<D, BIAS>, cudaFuncAttributeMaxDynamicSharedMemorySize, T::kSmem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((p.sq + Cfg<D>::BQ - 1) / Cfg<D>::BQ, p.heads, p.batch);
-  attn_f32_kernel<D, BIAS><<<grid, kThreads, bytes, stream>>>(p);
+  const dim3 grid((p.sq + T::kBQ - 1) / T::kBQ, p.heads, p.batch);
+  attn_f32_kernel<D, BIAS><<<grid, T::kThreads, T::kSmem, stream>>>(p);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -266,6 +510,20 @@ int launch_mode(const AttnArgs& p, int mode, cudaStream_t stream) {
     case kRelpos: return launch_fwd<D, kRelpos>(p, stream);
     case kWindow: return launch_fwd<D, kWindow>(p, stream);
     default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+template <int D>
+int plan_field(int field) {
+  typedef Tile<D> T;
+  switch (field) {
+    case 0: return T::kBQ;
+    case 1: return T::kBK;
+    case 2: return T::kWarpsR;
+    case 3: return T::kWarpsC;
+    case 4: return T::kStages;
+    case 5: return T::kSmem;
+    default: return -1;
   }
 }
 
@@ -492,6 +750,19 @@ extern "C" int dg_attention_f32(const void* q, const void* k, const void* v, voi
     case 80: return launch_mode<80>(p, mode, s);
     case 512: return launch_mode<512>(p, mode, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+// The forward's plan at head dim d (ops/attention_f32.py: TC_PLANS): field 0
+// query rows a block, 1 keys a tile, 2 warps by rows, 3 warps by channels, 4
+// tiles in flight, 5 shared-memory bytes; -1 for another d or field
+extern "C" int dg_attention_f32_plan(int d, int field) {
+  switch (d) {
+    case 32: return plan_field<32>(field);
+    case 64: return plan_field<64>(field);
+    case 80: return plan_field<80>(field);
+    case 512: return plan_field<512>(field);
+    default: return -1;
   }
 }
 

@@ -24,13 +24,14 @@
 // pass reads x once and writes y once (about 0.5 ms of a UNet call's 70
 // launches at 3.35 TB/s, y mostly found again in L2 by the GEMM).
 //
-// Design: two C entry points, two launches on the caller's stream.
-//   dg_ln_apply: ln_apply_kernel<T, CH>, one warp a row, each lane's
+// Design: two C entry points, two launches on the caller's stream (a
+// third, dg_tf32_split, for float32).
+//   dg_ln_apply: ln_apply_kernel<T, CH, SPLIT>, one warp a row, each lane's
 //     chunks of 8 elements held in registers as loaded (K <= 2048; a
 //     longer row is read again from L1/L2), the moments in f32 by
-//     shuffles, then y written once in x's type into (M, K) scratch the
-//     wrapper allocates.
-//   dg_ln_gemm (bf16): ln_gemm_kernel<EPI>, kernel 10's persistent,
+//     shuffles, then y written once into scratch the wrapper allocates:
+//     (M, K) bf16, or for float32 (SPLIT) its two tf32 parts, (2, M, K).
+//   dg_ln_gemm (bf16): ln_gemm_kernel<EPI, false>, kernel 10's persistent,
 //     warp-specialized GEMM (int8_matmul.cu) on bf16 wgmma m64n160k16 as
 //     kernel 8 runs it (gn_conv.cu). An output tile is 128 rows by 160
 //     weight rows, walked in groups of row tiles (ops/ln_matmul.py:
@@ -50,9 +51,24 @@
 //     values within each quad so that a lane stores 16 bytes (8 for the
 //     last pair of 8-column groups of a GEGLU tile), masked at the M and N
 //     tails. TMA zero-fills loads past M, N and K.
-//   dg_ln_gemm_f32: ln_gemm_f32_kernel<EPI>, float32 y and weight on the CUDA
-//     cores (FMA, true f32 products), the same weight-row pairing and
-//     epilogues; a simple 64 x 128 block tile, off the bf16 main path.
+//   dg_ln_gemm_f32: the same body on float32 operands (ln_gemm_kernel<EPI,
+//     true>), at float32 accuracy on the TF32 tensor cores by three passes
+//     (3xTF32): each operand x is held as big = tf32(x) and small = tf32(x -
+//     big), both rounded to nearest (cvt.rna), and the accumulator takes
+//     a_small b_big + a_big b_small + a_big b_big (about 2^-21 relative a
+//     product, float32's own order; one-pass TF32's 5e-4 is not taken).
+//     wgmma m64n160k8 tf32 reads both operands K-major from shared memory,
+//     which y (M, K) and the weight (N, K) already are, so the split is done
+//     before the GEMM: the apply pass writes y's two parts (dg_ln_apply on
+//     float32 x: (2, M, K)), and dg_tf32_split writes the weight's ((2, N, K),
+//     a pass over the weight per call: it reads 4 N K bytes and writes 8 N
+//     K). A stage is then a 32-float (128-byte) slice of K of both parts of
+//     both operands, 72 KB, three deep. Both consumers take every tile, each
+//     64 of its 128 rows (consume_f32), and add each stage's products into
+//     their sums in f32: the tensor core's accumulation truncates, which a
+//     whole K in one accumulator showed (1e-5 relative at K = 1280). Bound:
+//     2 M K N products at 494.7 / 3 = 165 TFLOP/s (the FMA body it replaced
+//     was held to 67).
 // No atomics: a call gives the same bits twice.
 
 #include <cuda_bf16.h>
@@ -74,19 +90,32 @@ constexpr int kApplyRows = 8;       // rows per block of the apply pass (one a w
 constexpr int kBM = 128;            // output rows per tile
 constexpr int kBox = 80;            // weight rows per TMA box (ops/ln_matmul.py: WEIGHT_BOX)
 constexpr int kBN = 2 * kBox;       // weight rows per tile: the wgmma's N
-constexpr int kBK = 64;             // K per stage: one 128-byte swizzle row of bf16
 constexpr int kConsumers = 2;       // warpgroups, each on tiles of its own
 constexpr int kThreads = 128 * (1 + kConsumers);
-// shared-memory ring depth: on an H100 (tools/ln_matmul_ab.py), 6 stages
-// were within 1 % of 4 at the UNet's and SAM's four shapes
-constexpr int kStages = 4;
-
-constexpr int kBytesA = kBM * kBK * 2;
-constexpr int kBytesBox = kBox * kBK * 2;
-constexpr int kStage = kBytesA + 2 * kBytesBox;
-constexpr int kSmem = kStages * kStage + 1024;  // + slack to align the ring to 1024
+constexpr int kBytesA = kBM * 128;  // a stage's slice of K is one 128-byte swizzle row
+constexpr int kBytesBox = kBox * 128;
+constexpr int kBytesPart = kBytesA + 2 * kBytesBox;  // y's and the weight's tiles of one part
 static_assert(kBytesA % 1024 == 0 && kBytesBox % 1024 == 0, "swizzle atoms stay aligned");
-static_assert(kSmem + 256 <= 232448, "the ring and the barriers fit in a block's 227 KB");
+
+// the ring of the bf16 body (F32 false) and of the float32 one (3xTF32)
+template <bool F32>
+struct Ring {
+  static constexpr int kBK = F32 ? 32 : 64;      // K per stage: 128 bytes of a row
+  static constexpr int kParts = F32 ? 2 : 1;     // big and small parts of each operand
+  // depth: on an H100 (tools/ln_matmul_ab.py), 6 bf16 stages were within 1 %
+  // of 4 at the UNet's and SAM's four shapes; three float32 stages fill the
+  // block's shared memory
+  static constexpr int kStages = F32 ? 3 : 4;
+  static constexpr int kStage = kParts * kBytesPart;
+  static constexpr int kSmem = kStages * kStage + 1024;  // + slack to align the ring to 1024
+  static_assert(kSmem + 256 <= 232448, "the ring and the barriers fit in a block's 227 KB");
+};
+
+// the tensor maps of y and the weight, one for each part
+struct Maps {
+  CUtensorMap y[2];
+  CUtensorMap w[2];
+};
 
 // exact-erf GELU; the TPU kernel's Abramowitz-Stegun erf (a division and an
 // exp) took 0.2252 against erff's 0.2001 ms at (16384, 640, 5120) GEGLU
@@ -129,7 +158,8 @@ __device__ __forceinline__ void unpack(const Raw<float>& r, float (&v)[8]) {
 // lane holds its CH chunks of 8 elements as loaded (k <= 256 CH; raw bf16
 // takes half the registers of floats, so more rows are in flight), all
 // loads issued before the first sum; CH = 0 reads the row again instead.
-template <typename T, int CH>
+// SPLIT (float32): y is (2, m, k), its big then its small tf32 part.
+template <typename T, int CH, bool SPLIT>
 __global__ void __launch_bounds__(32 * kApplyRows) ln_apply_kernel(
     const T* __restrict__ x, const float* __restrict__ gamma, const float* __restrict__ beta,
     T* __restrict__ y, int m, int k, float eps) {
@@ -178,6 +208,17 @@ __global__ void __launch_bounds__(32 * kApplyRows) ln_apply_kernel(
     dg::load_vec<8>(beta + c, b);
 #pragma unroll
     for (int j = 0; j < 8; ++j) o[j] = (u[j] - mean) * rstd * g[j] + b[j];
+    if constexpr (SPLIT) {
+      float lo[8];
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        uint32_t big, small;
+        dg::tf32_split(o[j], big, small);
+        o[j] = __uint_as_float(big);
+        lo[j] = __uint_as_float(small);
+      }
+      dg::store_vec<8>(yr + static_cast<int64_t>(m) * k + c, lo);
+    }
     dg::store_vec<8>(yr + c, o);
   };
   if constexpr (CH > 0) {
@@ -197,7 +238,7 @@ __global__ void __launch_bounds__(32 * kApplyRows) ln_apply_kernel(
   }
 }
 
-template <typename T>
+template <typename T, bool SPLIT>
 int launch_apply(const T* x, const float* gamma, const float* beta, T* y, int m, int k,
                  float eps, cudaStream_t stream) {
   const int blocks = (m + kApplyRows - 1) / kApplyRows;
@@ -205,21 +246,22 @@ int launch_apply(const T* x, const float* gamma, const float* beta, T* y, int m,
   switch ((k + 255) / 256) {  // chunks a lane holds
 #define DG_APPLY(CH)                                                                   \
   case CH:                                                                             \
-    ln_apply_kernel<T, CH><<<blocks, threads, 0, stream>>>(x, gamma, beta, y, m, k, eps); \
+    ln_apply_kernel<T, CH, SPLIT><<<blocks, threads, 0, stream>>>(x, gamma, beta, y, m, k, eps); \
     break;
     DG_APPLY(1) DG_APPLY(2) DG_APPLY(3) DG_APPLY(4) DG_APPLY(5) DG_APPLY(6) DG_APPLY(7)
     DG_APPLY(8)
 #undef DG_APPLY
-    default: ln_apply_kernel<T, 0><<<blocks, threads, 0, stream>>>(x, gamma, beta, y, m, k, eps);
+    default:
+      ln_apply_kernel<T, 0, SPLIT><<<blocks, threads, 0, stream>>>(x, gamma, beta, y, m, k, eps);
   }
   return static_cast<int>(cudaGetLastError());
 }
 
-// ---- the bf16 GEMM
+// ---- the GEMM: bf16, or float32 by 3xTF32
 
 struct GemmArgs {
   const float* bias;  // (n,) f32 or null
-  bf16* out;          // (m, out_cols)
+  void* out;          // (m, out_cols) bf16, or f32 for the float32 body
   int m, out_cols;
   // tile column u reads weight rows u step + [0, 80) and u step + off2 + [0, 80)
   int step, off2;
@@ -264,25 +306,125 @@ __device__ __forceinline__ void wgmma_bf16(float (&d)[kBN / 2], uint64_t a, uint
       : "l"(a), "l"(b), "r"(scale_d));
 }
 
+// the same on tf32 operands (float32 storage, the low 13 bits clear), K 8
+__device__ __forceinline__ void wgmma_tf32(float (&d)[kBN / 2], uint64_t a, uint64_t b,
+                                           int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %82, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n160k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79"
+      "}, %80, %81, p, 1, 1;\n}\n"
+      : DG_F8(0), DG_F8(8), DG_F8(16), DG_F8(24), DG_F8(32), DG_F8(40), DG_F8(48), DG_F8(56),
+        DG_F8(64), DG_F8(72)
+      : "l"(a), "l"(b), "r"(scale_d));
+}
+
 #undef DG_F8
 
+// The float32 body's consumer warpgroup c: both consumers take every tile of
+// the block, consumer c its rows 64 c .. 64 c + 63 (80 accumulator registers,
+// beside 80 of sums). A stage's twelve products (four 8-deep steps of K, each
+// in three passes, the small terms first) go into `part` from zero, which is
+// then added into `sum` in f32: the tensor core's own accumulation truncates,
+// and over a whole K (up to 1920 products into one accumulator at K = 5120)
+// that drifted by 1e-5 relative on an H100; a stage at a time it stays at
+// float32's order. Then the epilogue: + bias, GELU or GEGLU, each lane storing
+// its two columns of every 8-column group (a quad's 32 contiguous bytes).
 template <int EPI>
+__device__ __forceinline__ void consume_f32(const GemmArgs& a, int c, int tid, int lane, int n_k,
+                                            unsigned char* ring, uint64_t* full,
+                                            uint64_t* empty) {
+  typedef Ring<true> R;
+  constexpr int kGroups = EPI == kGeglu ? kBox / 8 : kBN / 8;
+  constexpr uint64_t kSmall = kBytesPart >> 4;  // the small part's tile, in descriptor units
+  float sum[kBN / 2], part[kBN / 2];
+  for (int j = 0, t = blockIdx.x; t < a.tiles; ++j, t += gridDim.x) {
+    const int2 tile = tile_of(a, t);
+    const int m0 = tile.x * kBM + 64 * c;
+    const int col0 = tile.y * a.step;
+#pragma unroll
+    for (int i = 0; i < kBN / 2; ++i) sum[i] = 0.f;
+    for (int kt = 0; kt < n_k; ++kt) {
+      const int use = j * n_k + kt;
+      const int stage = use % R::kStages;
+      dg::mbar_wait(&full[stage], (use / R::kStages) & 1);
+      unsigned char* base = ring + stage * R::kStage;
+      const uint64_t da = dg::sw128_desc(base) + c * (64 * 128 >> 4);
+      const uint64_t db = dg::sw128_desc(base + kBytesA);
+      dg::fence_regs(part);
+      dg::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        wgmma_tf32(part, da + kSmall + 2 * kk, db + 2 * kk, kk != 0);
+        wgmma_tf32(part, da + 2 * kk, db + kSmall + 2 * kk, 1);
+        wgmma_tf32(part, da + 2 * kk, db + 2 * kk, 1);
+      }
+      dg::wgmma_commit();
+      dg::wgmma_wait<0>();
+      dg::fence_regs(part);
+      if (tid == 0) dg::mbar_arrive(&empty[stage]);
+#pragma unroll
+      for (int i = 0; i < kBN / 2; ++i) sum[i] += part[i];
+    }
+    const int t4 = lane & 3;
+    float* out = static_cast<float*>(a.out);
+#pragma unroll
+    for (int gi = 0; gi < kGroups; ++gi) {
+      const int col = col0 + 8 * gi + 2 * t4;
+      float bh[2] = {0.f, 0.f}, bg[2] = {0.f, 0.f};
+#pragma unroll
+      for (int e = 0; e < 2; ++e)
+        if (a.bias != nullptr && col + e < a.out_cols) {
+          bh[e] = __ldg(a.bias + col + e);
+          if (EPI == kGeglu) bg[e] = __ldg(a.bias + a.off2 + col + e);
+        }
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int row = m0 + (tid >> 5) * 16 + (lane >> 2) + 8 * h;
+        float v[2];
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          v[e] = sum[4 * gi + 2 * h + e] + bh[e];
+          if (EPI == kGeglu) {
+            v[e] *= gelu_erf(sum[4 * (gi + kGroups) + 2 * h + e] + bg[e]);
+          } else if (EPI == kGelu) {
+            v[e] = gelu_erf(v[e]);
+          }
+        }
+        if (row < a.m && col < a.out_cols)
+          *reinterpret_cast<float2*>(out + static_cast<int64_t>(row) * a.out_cols + col) =
+              make_float2(v[0], v[1]);
+      }
+    }
+  }
+}
+
+// F32: float32 y and weight, each as its two tf32 parts (maps y[0], w[0]
+// the big parts, y[1], w[1] the small ones), the output in float32
+template <int EPI, bool F32>
 __global__ void __launch_bounds__(kThreads, 1)
-    ln_gemm_kernel(const __grid_constant__ CUtensorMap map_y,
-                   const __grid_constant__ CUtensorMap map_w, const GemmArgs a) {
+    ln_gemm_kernel(const __grid_constant__ Maps maps, const GemmArgs a) {
+  typedef Ring<F32> R;
+  constexpr int kStages = R::kStages, kStage = R::kStage, kBK = R::kBK;
   // 8-column groups of the output tile: 10 (GEGLU: h is groups 0..9, gate 10..19) or 20
   constexpr int kGroups = EPI == kGeglu ? kBox / 8 : kBN / 8;
   extern __shared__ unsigned char smem_raw[];
   __shared__ __align__(8) uint64_t full[kStages], empty[kStages], turn[kConsumers];
   // the ring starts on a 1024-byte boundary of the shared window (the swizzle's atom)
   unsigned char* ring = smem_raw + ((1024 - (dg::smem_addr(smem_raw) & 1023)) & 1023);
-  auto tile_a = [&](int st) { return ring + st * kStage; };
-  auto tile_b = [&](int st) { return ring + st * kStage + kBytesA; };
+  auto tile_a = [&](int st, int part) { return ring + st * kStage + part * kBytesPart; };
+  auto tile_b = [&](int st, int part) { return tile_a(st, part) + kBytesA; };
 
   if (threadIdx.x == 0) {
     for (int s = 0; s < kStages; ++s) {
       dg::mbar_init(&full[s], 1);
-      dg::mbar_init(&empty[s], 1);  // released by the one consumer that owns the tile
+      // released by the one consumer that owns the tile (float32: by both)
+      dg::mbar_init(&empty[s], F32 ? kConsumers : 1);
     }
     for (int c = 0; c < kConsumers; ++c) dg::mbar_init(&turn[c], 1);
     dg::mbar_init_fence();
@@ -308,10 +450,13 @@ __global__ void __launch_bounds__(kThreads, 1)
         for (int kt = 0; kt < n_k; ++kt) {
           dg::mbar_wait(&empty[stage], phase ^ 1);  // the first pass over the ring does not wait
           dg::mbar_arrive_expect_tx(&full[stage], kStage);
-          dg::tma_load_2d(tile_a(stage), &map_y, &full[stage], kt * kBK, m0);
-          dg::tma_load_2d(tile_b(stage), &map_w, &full[stage], kt * kBK, r0);
-          dg::tma_load_2d(tile_b(stage) + kBytesBox, &map_w, &full[stage], kt * kBK,
-                          r0 + a.off2);
+#pragma unroll
+          for (int part = 0; part < R::kParts; ++part) {
+            dg::tma_load_2d(tile_a(stage, part), &maps.y[part], &full[stage], kt * kBK, m0);
+            dg::tma_load_2d(tile_b(stage, part), &maps.w[part], &full[stage], kt * kBK, r0);
+            dg::tma_load_2d(tile_b(stage, part) + kBytesBox, &maps.w[part], &full[stage],
+                            kt * kBK, r0 + a.off2);
+          }
           if (++stage == kStages) stage = 0, phase ^= 1;
         }
       }
@@ -326,6 +471,10 @@ __global__ void __launch_bounds__(kThreads, 1)
     const int c = wg - 1;
     const int tid = threadIdx.x % 128;
     const int lane = tid & 31;
+    if constexpr (F32) {
+      consume_f32<EPI>(a, c, tid, lane, n_k, ring, full, empty);
+      return;
+    }
     float acc[2][kBN / 2];  // rows 0..63 and 64..127 of the tile
 #pragma unroll
     for (int i = 0; i < kBN / 2; ++i) acc[0][i] = acc[1][i] = 0.f;  // each tile overwrites them
@@ -340,8 +489,8 @@ __global__ void __launch_bounds__(kThreads, 1)
         const int use = j * n_k + kt;
         const int stage = use % kStages;
         dg::mbar_wait(&full[stage], (use / kStages) & 1);
-        const uint64_t da = dg::sw128_desc(tile_a(stage));
-        const uint64_t db = dg::sw128_desc(tile_b(stage));
+        const uint64_t da = dg::sw128_desc(tile_a(stage, 0));
+        const uint64_t db = dg::sw128_desc(tile_b(stage, 0));
         dg::fence_regs(acc[0]);
         dg::fence_regs(acc[1]);
         dg::wgmma_fence();
@@ -397,6 +546,7 @@ __global__ void __launch_bounds__(kThreads, 1)
           bg[e] = in && EPI == kGeglu ? __ldg(a.bias + a.off2 + col) : 0.f;
         }
       };
+      bf16* out = static_cast<bf16*>(a.out);
 #pragma unroll
       for (int q = 0; q < kGroups / 4; ++q) {
         float bh[4][2], bg[4][2];
@@ -433,7 +583,7 @@ __global__ void __launch_bounds__(kThreads, 1)
               v[4 + i] = o2 ? s1[1][i] : x;
             }
             if (row < a.m && col < a.out_cols)  // out_cols % 8 == 0: whole groups
-              *reinterpret_cast<uint4*>(a.out + static_cast<int64_t>(row) * a.out_cols + col) =
+              *reinterpret_cast<uint4*>(out + static_cast<int64_t>(row) * a.out_cols + col) =
                   make_uint4(dg::pack_bf16x2(v[0], v[1]), dg::pack_bf16x2(v[2], v[3]),
                              dg::pack_bf16x2(v[4], v[5]), dg::pack_bf16x2(v[6], v[7]));
           }
@@ -458,7 +608,7 @@ __global__ void __launch_bounds__(kThreads, 1)
             const float r0 = __shfl_xor_sync(0xffffffffu, o1 ? l0 : h0, 1);
             const float r1 = __shfl_xor_sync(0xffffffffu, o1 ? l1 : h1, 1);
             if (row < a.m && col < a.out_cols)
-              *reinterpret_cast<uint2*>(a.out + static_cast<int64_t>(row) * a.out_cols + col) =
+              *reinterpret_cast<uint2*>(out + static_cast<int64_t>(row) * a.out_cols + col) =
                   o1 ? make_uint2(dg::pack_bf16x2(r0, r1), dg::pack_bf16x2(h0, h1))
                      : make_uint2(dg::pack_bf16x2(l0, l1), dg::pack_bf16x2(r0, r1));
           }
@@ -467,140 +617,103 @@ __global__ void __launch_bounds__(kThreads, 1)
   }
 }
 
-// ---- the float32 GEMM: CUDA-core FMA, 64 rows x (64 + 64) weight rows a block
-
-constexpr int kFM = 64;        // rows per block
-constexpr int kFBox = 64;      // weight rows per half of the block's B tile
-constexpr int kFK = 16;        // K per stage
-constexpr int kFThreads = 256;
-
-struct GemmF32Args {
-  const float* y;     // (m, k)
-  const float* wt;    // (n, k)
-  const float* bias;  // (n,) or null
-  float* out;         // (m, out_cols)
-  int m, n, k, out_cols;
-  int step, off2;     // as GemmArgs, with 64-row halves
-};
-
-// thread (tr, tc) holds rows tr + 16 i and weight columns tc + 16 j of each half
-template <int EPI>
-__global__ void __launch_bounds__(kFThreads) ln_gemm_f32_kernel(const GemmF32Args a) {
-  __shared__ float as[kFK][kFM + 4];
-  __shared__ float bs[kFK][2 * kFBox + 4];
-  const int tid = threadIdx.x;
-  const int tr = tid / 16, tc = tid % 16;
-  const int m0 = blockIdx.x * kFM;
-  const int r0 = blockIdx.y * a.step;  // weight row of half 0's column 0; half 1 at + off2
-  float acc[2][4][4] = {};
-  for (int k0 = 0; k0 < a.k; k0 += kFK) {
-    // 64 x 16 of y and 2 x 64 x 16 of the weight, transposed into shared memory
-    for (int e = tid; e < kFM * kFK; e += kFThreads) {
-      const int r = e / kFK, kk = e % kFK;
-      const int gr = m0 + r, gk = k0 + kk;
-      as[kk][r] = gr < a.m && gk < a.k ? a.y[static_cast<int64_t>(gr) * a.k + gk] : 0.f;
-    }
-    for (int e = tid; e < 2 * kFBox * kFK; e += kFThreads) {
-      const int r = e / kFK, kk = e % kFK;
-      const int wr = r0 + (r < kFBox ? r : a.off2 + r - kFBox), gk = k0 + kk;
-      bs[kk][r] = wr < a.n && gk < a.k ? a.wt[static_cast<int64_t>(wr) * a.k + gk] : 0.f;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < kFK; ++kk) {
-      float av[4], bv[2][4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) av[i] = as[kk][tr + 16 * i];
-#pragma unroll
-      for (int s = 0; s < 2; ++s)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) bv[s][j] = bs[kk][s * kFBox + tc + 16 * j];
-#pragma unroll
-      for (int s = 0; s < 2; ++s)
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int j = 0; j < 4; ++j) acc[s][i][j] = fmaf(av[i], bv[s][j], acc[s][i][j]);
-    }
-    __syncthreads();
-  }
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = m0 + tr + 16 * i;
-    if (row >= a.m) continue;
-    float* orow = a.out + static_cast<int64_t>(row) * a.out_cols;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int c = tc + 16 * j;
-      if (EPI == kGeglu) {
-        const int col = r0 + c;  // output column = h weight row; gate row off2 + col
-        if (col >= a.out_cols) continue;
-        const float bh = a.bias != nullptr ? a.bias[col] : 0.f;
-        const float bg = a.bias != nullptr ? a.bias[a.off2 + col] : 0.f;
-        orow[col] = (acc[0][i][j] + bh) * gelu_erf(acc[1][i][j] + bg);
-      } else {
-#pragma unroll
-        for (int s = 0; s < 2; ++s) {
-          const int col = r0 + s * a.off2 + c;
-          if (col >= a.out_cols) continue;
-          float v = acc[s][i][j] + (a.bias != nullptr ? a.bias[col] : 0.f);
-          orow[col] = EPI == kGelu ? gelu_erf(v) : v;
-        }
-      }
-    }
+// the weight's two tf32 parts: big[i] = tf32(x[i]), small[i] = tf32(x[i] -
+// big[i]), four elements a thread and step
+__global__ void tf32_split_kernel(const float4* __restrict__ x, float4* __restrict__ big,
+                                  float4* __restrict__ small, int64_t n4) {
+  for (int64_t i = blockIdx.x * static_cast<int64_t>(blockDim.x) + threadIdx.x; i < n4;
+       i += static_cast<int64_t>(gridDim.x) * blockDim.x) {
+    const float4 v = x[i];
+    uint32_t bx, by, bz, bw, sx, sy, sz, sw;
+    dg::tf32_split(v.x, bx, sx);
+    dg::tf32_split(v.y, by, sy);
+    dg::tf32_split(v.z, bz, sz);
+    dg::tf32_split(v.w, bw, sw);
+    big[i] = make_float4(__uint_as_float(bx), __uint_as_float(by), __uint_as_float(bz),
+                         __uint_as_float(bw));
+    small[i] = make_float4(__uint_as_float(sx), __uint_as_float(sy), __uint_as_float(sz),
+                           __uint_as_float(sw));
   }
 }
 
 // ---- host side
 
-// the bf16 map of a row-major (rows, cols) matrix read in boxes of box_rows x
-// 64 elements under the 128-byte swizzle, zeros past its edges; false if the
-// encoder refuses it
-bool tensor_map(CUtensorMap* map, const void* ptr, int rows, int cols, int box_rows) {
+// the bf16 (or f32) map of a row-major (rows, cols) matrix read in boxes of
+// box_rows x 128 bytes under the 128-byte swizzle, zeros past its edges;
+// false if the encoder refuses it
+bool tensor_map(CUtensorMap* map, const void* ptr, int rows, int cols, int box_rows, bool f32) {
   const dg::EncodeTiledFn encode = dg::encode_tiled();
   if (encode == nullptr) return false;
+  const int elem = f32 ? 4 : 2;
   const cuuint64_t dims[2] = {static_cast<cuuint64_t>(cols), static_cast<cuuint64_t>(rows)};
-  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(cols) * sizeof(bf16)};  // bytes
-  const cuuint32_t box[2] = {static_cast<cuuint32_t>(kBK), static_cast<cuuint32_t>(box_rows)};
+  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(cols) * elem};  // bytes
+  const cuuint32_t box[2] = {static_cast<cuuint32_t>(128 / elem),
+                             static_cast<cuuint32_t>(box_rows)};
   const cuuint32_t steps[2] = {1, 1};
-  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(ptr), dims, strides,
+  return encode(map, f32 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2,
+                const_cast<void*>(ptr), dims, strides,
                 box, steps, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
                 CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-template <int EPI>
-int launch_gemm(const CUtensorMap& map_y, const CUtensorMap& map_w, const GemmArgs& a,
-                int blocks, cudaStream_t stream) {
+template <int EPI, bool F32>
+int launch_gemm(const Maps& maps, const GemmArgs& a, int blocks, cudaStream_t stream) {
+  constexpr int smem = Ring<F32>::kSmem;
   const cudaError_t err = cudaFuncSetAttribute(
-      ln_gemm_kernel<EPI>, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
+      ln_gemm_kernel<EPI, F32>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  ln_gemm_kernel<EPI><<<blocks, kThreads, kSmem, stream>>>(map_y, map_w, a);
+  ln_gemm_kernel<EPI, F32><<<blocks, kThreads, smem, stream>>>(maps, a);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int EPI>
-int launch_gemm_f32(const GemmF32Args& a, cudaStream_t stream) {
-  const int tiles_n = (a.out_cols + a.step - 1) / a.step;
-  const dim3 grid((a.m + kFM - 1) / kFM, tiles_n);
-  ln_gemm_f32_kernel<EPI><<<grid, kFThreads, 0, stream>>>(a);
-  return static_cast<int>(cudaGetLastError());
+// the GEMM on maps already encoded: the tile walk of ops/ln_matmul.py:gemm_plan
+template <bool F32>
+int run_gemm(const Maps& maps, const void* bias, void* out, int m, int n, int k, int epilogue,
+             int blocks, int group, cudaStream_t s) {
+  const bool geglu = epilogue == kGeglu;
+  GemmArgs a{};
+  a.bias = static_cast<const float*>(bias);
+  a.out = out;
+  a.m = m;
+  a.out_cols = geglu ? n / 2 : n;
+  a.step = geglu ? kBox : kBN;
+  a.off2 = geglu ? n / 2 : kBox;
+  a.tiles_m = (m + kBM - 1) / kBM;
+  a.tiles_n = (a.out_cols + a.step - 1) / a.step;
+  a.tiles = a.tiles_m * a.tiles_n;
+  a.group = group < a.tiles_m ? group : a.tiles_m;
+  a.k_tiles = (k + Ring<F32>::kBK - 1) / Ring<F32>::kBK;
+  if (a.tiles < blocks) blocks = a.tiles;  // every block has a tile
+  switch (epilogue) {
+    case kNone: return launch_gemm<kNone, F32>(maps, a, blocks, s);
+    case kGelu: return launch_gemm<kGelu, F32>(maps, a, blocks, s);
+    default: return launch_gemm<kGeglu, F32>(maps, a, blocks, s);
+  }
+}
+
+bool gemm_args_ok(int m, int n, int k, int epilogue, int blocks, int group) {
+  const bool geglu = epilogue == kGeglu;
+  return m > 0 && n > 0 && k > 0 && k % 8 == 0 && n % (geglu ? 16 : 8) == 0 && blocks > 0 &&
+         group > 0 && epilogue >= kNone && epilogue <= kGeglu;
 }
 
 }  // namespace
 
-// y (m, k) = the LayerNorm of x (m, k) with gamma, beta (k,) f32, in x's
-// type: bf16, or f32 with x_f32; k a multiple of 8, x and y 16-byte aligned
+// y = the LayerNorm of x (m, k) with gamma, beta (k,) f32: bf16 x gives y
+// (m, k) bf16; float32 x (x_f32) gives y (2, m, k) f32, its big then its
+// small tf32 part, for the float32 GEMM. k a multiple of 8, x and y 16-byte
+// aligned
 extern "C" int dg_ln_apply(const void* x, const void* gamma, const void* beta, void* y, int m,
                            int k, float eps, int x_f32, void* stream) {
   if (m <= 0 || k <= 0 || k % 8) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* g = static_cast<const float*>(gamma);
   const float* b = static_cast<const float*>(beta);
-  return x_f32 ? launch_apply(static_cast<const float*>(x), g, b, static_cast<float*>(y), m, k,
-                              eps, s)
-               : launch_apply(static_cast<const bf16*>(x), g, b, static_cast<bf16*>(y), m, k,
-                              eps, s);
+  return x_f32 ? launch_apply<float, true>(static_cast<const float*>(x), g, b,
+                                           static_cast<float*>(y), m, k, eps, s)
+               : launch_apply<bf16, false>(static_cast<const bf16*>(x), g, b,
+                                           static_cast<bf16*>(y), m, k, eps, s);
 }
 
 // out = epilogue(y @ wt^T + bias): y (m, k) bf16 from dg_ln_apply, wt (n, k)
@@ -610,55 +723,44 @@ extern "C" int dg_ln_apply(const void* x, const void* gamma, const void* beta, v
 // `group` row tiles (ops/ln_matmul.py:gemm_plan).
 extern "C" int dg_ln_gemm(const void* y, const void* wt, const void* bias, void* out, int m,
                           int n, int k, int epilogue, int blocks, int group, void* stream) {
-  const bool geglu = epilogue == kGeglu;
-  if (m <= 0 || n <= 0 || k <= 0 || k % 8 || n % (geglu ? 16 : 8) || blocks <= 0 ||
-      group <= 0 || epilogue < kNone || epilogue > kGeglu)
+  if (!gemm_args_ok(m, n, k, epilogue, blocks, group))
     return static_cast<int>(cudaErrorInvalidValue);
-  CUtensorMap map_y, map_w;
-  if (!tensor_map(&map_y, y, m, k, kBM) || !tensor_map(&map_w, wt, n, k, kBox))
+  Maps maps;
+  if (!tensor_map(&maps.y[0], y, m, k, kBM, false) ||
+      !tensor_map(&maps.w[0], wt, n, k, kBox, false))
     return static_cast<int>(cudaErrorInvalidValue);
-  GemmArgs a{};
-  a.bias = static_cast<const float*>(bias);
-  a.out = static_cast<bf16*>(out);
-  a.m = m;
-  a.out_cols = geglu ? n / 2 : n;
-  a.step = geglu ? kBox : kBN;
-  a.off2 = geglu ? n / 2 : kBox;
-  a.tiles_m = (m + kBM - 1) / kBM;
-  a.tiles_n = (a.out_cols + a.step - 1) / a.step;
-  a.tiles = a.tiles_m * a.tiles_n;
-  a.group = group < a.tiles_m ? group : a.tiles_m;
-  a.k_tiles = (k + kBK - 1) / kBK;
-  if (a.tiles < blocks) blocks = a.tiles;  // every block has a tile
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (epilogue) {
-    case kNone: return launch_gemm<kNone>(map_y, map_w, a, blocks, s);
-    case kGelu: return launch_gemm<kGelu>(map_y, map_w, a, blocks, s);
-    default: return launch_gemm<kGeglu>(map_y, map_w, a, blocks, s);
-  }
+  return run_gemm<false>(maps, bias, out, m, n, k, epilogue, blocks, group,
+                         static_cast<cudaStream_t>(stream));
 }
 
-// the same on float32 y, wt, out (CUDA-core FMA); bias f32 or null
-extern "C" int dg_ln_gemm_f32(const void* y, const void* wt, const void* bias, void* out, int m,
-                              int n, int k, int epilogue, void* stream) {
-  const bool geglu = epilogue == kGeglu;
-  if (m <= 0 || n <= 0 || k <= 0 || (geglu && n % 2) || epilogue < kNone || epilogue > kGeglu)
+// The same at float32 accuracy (3xTF32): y2 (2, m, k) from dg_ln_apply's
+// mode 2, wt2 (2, n, k) from dg_tf32_split of nn.Linear's (n, k) weight,
+// out f32
+extern "C" int dg_ln_gemm_f32(const void* y2, const void* wt2, const void* bias, void* out,
+                              int m, int n, int k, int epilogue, int blocks, int group,
+                              void* stream) {
+  if (!gemm_args_ok(m, n, k, epilogue, blocks, group))
     return static_cast<int>(cudaErrorInvalidValue);
-  GemmF32Args a{};
-  a.y = static_cast<const float*>(y);
-  a.wt = static_cast<const float*>(wt);
-  a.bias = static_cast<const float*>(bias);
-  a.out = static_cast<float*>(out);
-  a.m = m;
-  a.n = n;
-  a.k = k;
-  a.out_cols = geglu ? n / 2 : n;
-  a.step = geglu ? kFBox : 2 * kFBox;
-  a.off2 = geglu ? n / 2 : kFBox;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (epilogue) {
-    case kNone: return launch_gemm_f32<kNone>(a, s);
-    case kGelu: return launch_gemm_f32<kGelu>(a, s);
-    default: return launch_gemm_f32<kGeglu>(a, s);
-  }
+  const float* y = static_cast<const float*>(y2);
+  const float* w = static_cast<const float*>(wt2);
+  Maps maps;
+  if (!tensor_map(&maps.y[0], y, m, k, kBM, true) ||
+      !tensor_map(&maps.y[1], y + static_cast<int64_t>(m) * k, m, k, kBM, true) ||
+      !tensor_map(&maps.w[0], w, n, k, kBox, true) ||
+      !tensor_map(&maps.w[1], w + static_cast<int64_t>(n) * k, n, k, kBox, true))
+    return static_cast<int>(cudaErrorInvalidValue);
+  return run_gemm<true>(maps, bias, out, m, n, k, epilogue, blocks, group,
+                        static_cast<cudaStream_t>(stream));
+}
+
+// out (2, count) = the tf32 parts of x (count): big then small; count a
+// multiple of 4, x and out 16-byte aligned
+extern "C" int dg_tf32_split(const void* x, void* out, int64_t count, void* stream) {
+  if (count <= 0 || count % 4) return static_cast<int>(cudaErrorInvalidValue);
+  const int64_t n4 = count / 4;
+  const int64_t blocks = (n4 + 255) / 256 < 4096 ? (n4 + 255) / 256 : 4096;
+  float4* o = static_cast<float4*>(out);
+  tf32_split_kernel<<<static_cast<unsigned>(blocks), 256, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float4*>(x), o, o + n4, n4);
+  return static_cast<int>(cudaGetLastError());
 }

@@ -124,10 +124,14 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.dg_ln_apply.restype = i
     lib.dg_ln_gemm.argtypes = [p] * 4 + [i] * 6 + [p]
     lib.dg_ln_gemm.restype = i
-    lib.dg_ln_gemm_f32.argtypes = [p] * 4 + [i] * 4 + [p]
+    lib.dg_ln_gemm_f32.argtypes = lib.dg_ln_gemm.argtypes
     lib.dg_ln_gemm_f32.restype = i
+    lib.dg_tf32_split.argtypes = [p, p, i64, p]
+    lib.dg_tf32_split.restype = i
     lib.dg_attention_f32.argtypes = [p] * 6 + [i] * 6 + [i64] * 12 + [i] * 3 + [f, p]
     lib.dg_attention_f32.restype = i
+    lib.dg_attention_f32_plan.argtypes = [i, i]
+    lib.dg_attention_f32_plan.restype = i
     lib.dg_window_attention_bwd_f32.argtypes = lib.dg_window_attention_bwd_bf16.argtypes
     lib.dg_window_attention_bwd_f32.restype = i
     lib.dg_window_attention_packed_bwd_f32.argtypes = (

@@ -5,13 +5,19 @@ The five attention kernels of ``flash_attention.py`` and
 ``window_attention.py`` take bfloat16 or float32, as their Pallas kernels
 take the input's dtype. bf16 runs each kernel's own body; float32 runs one
 float32 body for all of them, whose score bias is a policy (none, dense,
-relative position, window), and whose products are float32 FMAs: no operand
-is rounded to bf16. :func:`body_for` is the dispatch, a pure function of the
-dtype, head dim and bias; any other dtype raises.
+relative position, window), and whose products are float32-accurate: TF32
+tensor-core products in three passes (``tf32x3.py``), no operand rounded to
+bf16 or taken in one TF32 pass. :func:`body_for` is the dispatch, a pure
+function of the dtype, head dim and bias; any other dtype raises.
+
+The forward's tile plan is :data:`TC_PLANS` (the body's ``Plan<D>``, which
+the library reports through ``dg_attention_f32_plan``); :func:`block_rows`,
+:func:`warp_channels` and :func:`pv_slot_key` say which rows, channels and
+keys each block, warp and k-slot of the body takes.
 """
 from __future__ import annotations
 
-from typing import Optional, Sequence
+from typing import List, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
@@ -24,6 +30,73 @@ BF16_BODIES = {("none", 64): "dg_flash_attention_sm90", ("dense", 64): "dg_flash
                ("none", 512): "dg_flash_attention_d512", ("dense", 512): "dg_flash_attention_d512",
                ("relpos", 80): "dg_flash_attention_relpos_bf16",
                ("window", 32): "dg_window_attention_bf16"}
+
+
+class TcPlan(NamedTuple):
+    """The float32 forward's tiles at one head dim (``csrc/attention_f32.cu``:
+    ``Plan<D>``): ``warps_r`` warps split a block's query rows, ``m_tiles``
+    16-row tiles each; ``warps_c`` warps split the head dim's channels;
+    ``keys`` keys a K/V tile, ``stages`` tiles in flight."""
+    warps_r: int
+    warps_c: int
+    m_tiles: int
+    keys: int
+    stages: int
+
+    @property
+    def rows(self) -> int:
+        """Query rows a block."""
+        return 16 * self.m_tiles * self.warps_r
+
+    @property
+    def warps(self) -> int:
+        return self.warps_r * self.warps_c
+
+    def smem(self, d: int) -> int:
+        """Shared-memory bytes of a block: the K/V ring (rows padded to d + 4
+        floats) and, with the channels split, the block's Q, the warps'
+        shares of S (a float4 per lane and fragment) and their sum."""
+        ring = self.stages * 2 * self.keys * (d + 4)
+        if self.warps_c == 1:
+            return 4 * ring
+        frags = self.m_tiles * (self.keys // 8) * 32
+        return 4 * (ring + self.rows * (d + 4) + 4 * (self.warps + 1) * frags)
+
+
+# d 32 is the window policy's: n = 144 in three blocks of 48 rows, three tiles of 48 keys
+TC_PLANS = {32: TcPlan(3, 1, 1, 48, 3), 64: TcPlan(4, 1, 1, 32, 3), 80: TcPlan(4, 1, 1, 32, 3),
+            512: TcPlan(1, 8, 2, 16, 2)}
+
+
+def grid(sq: int, heads: int, batch: int, d: int) -> Tuple[int, int, int]:
+    """The forward's blocks: (query-row blocks, heads, batch)."""
+    return -(-sq // TC_PLANS[d].rows), heads, batch
+
+
+def block_rows(block: int, warp: int, sq: int, d: int) -> List[int]:
+    """The query rows that ``warp`` of row block ``block`` computes and
+    stores (rows past ``sq`` are computed on zeros and not stored)."""
+    plan = TC_PLANS[d]
+    first = block * plan.rows + 16 * plan.m_tiles * (warp // plan.warps_c)
+    return [r for r in range(first, first + 16 * plan.m_tiles) if r < sq]
+
+
+def warp_channels(warp: int, d: int) -> List[int]:
+    """The head-dim channels over which ``warp`` sums its share of q·kᵀ and
+    whose output columns it stores."""
+    plan = TC_PLANS[d]
+    width = d // plan.warps_c
+    return list(range((warp % plan.warps_c) * width, (warp % plan.warps_c + 1) * width))
+
+
+def pv_slot_key(slot: int) -> int:
+    """The key (0-7, within its 8-key slab) at k-slot ``slot`` of P·V's
+    m16n8k8 product: the tf32 A fragment holds k-slots t and t + 4 where the
+    S accumulator holds keys 2t and 2t + 1, so P is fed from the accumulator
+    as it stands and V's rows are read in this order."""
+    if not 0 <= slot < 8:
+        raise ValueError(f"slot {slot} not in 0..7")
+    return 2 * (slot % 4) + slot // 4
 
 
 def body_for(dtype: torch.dtype, d: int, bias_mode: str) -> str:

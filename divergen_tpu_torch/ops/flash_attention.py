@@ -17,8 +17,9 @@ relative-position kernel at d = 80 (SAM) ``csrc/flash_attention_relpos_sm90.cu``
 score accumulator). Each takes bf16 or float32, as the TPU kernels take the
 input's
 dtype: float32 q, k and v (a float32 model's attention) run the float32 body
-``csrc/attention_f32.cu`` (true float32 products, at head dims 32, 64, 80
-and 512; ``attention_f32.body_for`` is the dispatch), and the output is in
+``csrc/attention_f32.cu`` (float32-accurate products on the tensor cores in
+three TF32 passes, ``tf32x3.py``, at head dims 32, 64, 80 and 512;
+``attention_f32.body_for`` is the dispatch), and the output is in
 q's dtype; any other dtype raises.
 
 Each wrapper counts its kernel launches in a plain int attribute

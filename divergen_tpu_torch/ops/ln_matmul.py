@@ -10,7 +10,10 @@ entry points: ``dg_ln_apply`` (the LayerNorm applied once per element into
 (M, K) scratch in x's dtype, :func:`ln_apply_reference`'s y) then the GEMM,
 ``dg_ln_gemm`` for bf16 (a persistent, warp-specialized wgmma + TMA body;
 :func:`gemm_plan` picks its blocks and :func:`weight_rows` says which weight
-rows a tile reads) or ``dg_ln_gemm_f32`` for float32 (CUDA-core FMA). For a
+rows a tile reads) or ``dg_ln_gemm_f32`` for float32: the same body and plan
+at float32 accuracy on the TF32 tensor cores in three passes
+(``tf32x3.py``), y written by the apply pass as its two TF32 parts and the
+weight split into its two by ``dg_tf32_split`` on each call. For a
 CPU tensor it runs :func:`ln_matmul_reference`, the plain version
 (``_reference`` of the TPU file). A CUDA tensor the kernel cannot take
 raises. Launches (one per call, whatever passes the kernel makes) are
@@ -68,13 +71,15 @@ def ln_matmul_reference(x: torch.Tensor, w: torch.Tensor, gamma: torch.Tensor,
 
 
 class GemmPlan(NamedTuple):
-    """The bf16 GEMM's output tiles: ``tiles_m`` row tiles of ``GEMM_BM`` by
-    ``tiles_n`` column tiles of ``step`` output columns, walked by ``blocks``
-    persistent blocks in groups of ``group`` row tiles: a group sweeps every
-    column tile, row tiles fastest inside it, so that the blocks in flight
-    share a band of the activation and one of the weight, both kept in L2
-    (``csrc/ln_matmul.cu:tile_of``). Block i takes tiles i, i + blocks, …
-    and hands them to its two consumer warpgroups in turns."""
+    """The GEMM's output tiles, bf16 and float32 alike: ``tiles_m`` row
+    tiles of ``GEMM_BM`` by ``tiles_n`` column tiles of ``step`` output
+    columns, walked by ``blocks`` persistent blocks in groups of ``group``
+    row tiles: a group sweeps every column tile, row tiles fastest inside
+    it, so that the blocks in flight share a band of the activation and one
+    of the weight, both kept in L2 (``csrc/ln_matmul.cu:tile_of``). Block i
+    takes tiles i, i + blocks, … and hands them to its two consumer
+    warpgroups in turns (bf16), or gives each of them 64 rows of every tile
+    (float32)."""
     tiles_m: int
     tiles_n: int
     step: int
@@ -118,7 +123,9 @@ def weight_rows(u: int, n: int, geglu: bool) -> List[int]:
 
 def _apply(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor, eps: float,
            y: torch.Tensor) -> torch.Tensor:
-    """The apply pass on a checked CUDA x (M, K) into y, (M, K) in x's dtype."""
+    """The apply pass on a checked CUDA x (M, K) into y: (M, K) bf16 for
+    bf16 x; for float32 x (2, M, K), the TF32 parts of the LayerNorm's
+    output (``tf32x3.split_tf32`` of :func:`ln_apply_reference`'s y)."""
     m, k = x.shape
     code = _build.lib().dg_ln_apply(
         x.data_ptr(), gamma.data_ptr(), beta.data_ptr(), y.data_ptr(), m, k, eps,
@@ -127,21 +134,32 @@ def _apply(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor, eps: float,
     return y
 
 
+def _split(t: torch.Tensor) -> torch.Tensor:
+    """A contiguous CUDA float32 t as (2, *t.shape): its big then its small
+    TF32 part (``tf32x3.split_tf32``)."""
+    parts = torch.empty((2, *t.shape), device=t.device, dtype=torch.float32)
+    code = _build.lib().dg_tf32_split(t.data_ptr(), parts.data_ptr(), t.numel(),
+                                      torch.cuda.current_stream(t.device).cuda_stream)
+    _build.check(code, "TF32 split launch")
+    return parts
+
+
 def _gemm(y: torch.Tensor, wt: torch.Tensor, bias: Optional[torch.Tensor], out: torch.Tensor,
           epilogue: int) -> torch.Tensor:
-    """The GEMM on checked CUDA operands: y (M, K) from :func:`_apply`, wt
-    (N, K) in y's dtype, bias (N,) f32 or None, into out (M, N or N/2)."""
-    m, k = y.shape
+    """The GEMM on checked CUDA operands: y from :func:`_apply` ((M, K)
+    bf16, or float32's (2, M, K) parts), wt (N, K) in x's dtype, bias (N,)
+    f32 or None, into out (M, N or N/2)."""
+    m, k = y.shape[-2:]
     n = wt.shape[0]
     stream = torch.cuda.current_stream(y.device).cuda_stream
     bias_ptr = None if bias is None else bias.data_ptr()
+    sms = torch.cuda.get_device_properties(y.device).multi_processor_count
+    plan = gemm_plan(m, n, epilogue == _GEGLU, sms)
     lib = _build.lib()
     if y.dtype == torch.float32:
-        code = lib.dg_ln_gemm_f32(y.data_ptr(), wt.data_ptr(), bias_ptr, out.data_ptr(), m, n,
-                                  k, epilogue, stream)
+        code = lib.dg_ln_gemm_f32(y.data_ptr(), _split(wt).data_ptr(), bias_ptr, out.data_ptr(),
+                                  m, n, k, epilogue, plan.blocks, plan.group, stream)
     else:
-        sms = torch.cuda.get_device_properties(y.device).multi_processor_count
-        plan = gemm_plan(m, n, epilogue == _GEGLU, sms)
         code = lib.dg_ln_gemm(y.data_ptr(), wt.data_ptr(), bias_ptr, out.data_ptr(), m, n, k,
                               epilogue, plan.blocks, plan.group, stream)
     _build.check(code, "fused LayerNorm-matmul GEMM launch")
@@ -199,7 +217,9 @@ def _into(x: torch.Tensor, wt: torch.Tensor, gamma: torch.Tensor, beta: torch.Te
     and bias f32) into ``out``, a contiguous (M, N or N/2) tensor in x's
     dtype that the caller allocates (the first rows of a larger one are
     fine)."""
-    return _gemm(_apply(x, gamma, beta, eps, torch.empty_like(x)), wt, bias, out, epilogue)
+    y = torch.empty((2, *x.shape) if x.dtype == torch.float32 else x.shape, device=x.device,
+                    dtype=x.dtype)
+    return _gemm(_apply(x, gamma, beta, eps, y), wt, bias, out, epilogue)
 
 
 fused_ln_matmul.launches = 0

@@ -13,7 +13,8 @@ the input's dtype. Both launch ``csrc/window_attention.cu`` for a CUDA tensor
 and use the plain version in this module, the numerics reference, for a CPU
 tensor. A CUDA tensor the kernel cannot take raises: bfloat16 or float32 (as
 the TPU kernels take the input's dtype; float32 runs the float32 body
-``csrc/attention_f32.cu``, forward and backward, with true float32 products),
+``csrc/attention_f32.cu``: the forward's products at float32 accuracy on the
+tensor cores in three TF32 passes, the backward's float32 FMAs),
 head dim 32 and 1 ≤ n ≤ 144 only, any head count (there is no lane rule, so
 six heads take the packed kernel like any other count).
 

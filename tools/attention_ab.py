@@ -44,6 +44,19 @@ B H N² d FLOP at 989 TFLOP/s). At d = 64, then the sums of median x
 launches per UNet call; at d = 80 (relative-position bias factors of scale
 0.7 against ``reference_attention_relpos``; SDPA with the dense bias built
 outside the timing as a bf16 mask), the sum over a SAM forward's 4 launches.
+With ``--f32`` the float32 body of kernels 1, 3, 4, 5 and 6
+(``csrc/attention_f32.cu``, one C entry ``dg_attention_f32`` in every build
+since it came in) at the shapes of full-width float32 models: kernel 3 at
+(1, 16384, 512) and (1, 4096, 512) (a float32 ``VAEDecoder``'s mid
+attention at 1024² and 512²), kernel 4 at (4, 16, 64 x 64, 80) (a float32
+``SAM.vit_h()`` global layer), kernel 1 at (4, 4096, 640, 10) (a float32
+``UNetSDXL()`` level-1 self-attention) and the window forward at Swin-L's
+stage 1, (722, 6, n 144) with the mask; the earlier build is e.g. the parent's
+``attention_f32.cu`` (``git show HEAD~1:divergen_tpu_torch/csrc/attention_f32.cu``).
+Each is held against its float32 twin at ``chip_smoke.F32_BOUNDS`` (the
+earlier build too, unless ``--timing-only``) and timed in turns, beside the
+twin, the PyTorch float32 call (SDPA, the bias as a float32 mask; TF32 off)
+with the names of its longest kernels, and the bounds at 3xTF32 and at FMA.
 Needs a CUDA device; prints the card's name and power limit first.
 """
 from __future__ import annotations
@@ -58,9 +71,12 @@ import torch
 import torch.nn.functional as F
 
 from ab_common import build, in_turns
-from chip_smoke import PEAK_BF16_FLOPS, card_line, device_ms
+from chip_smoke import (F32_BOUNDS, PEAK_BF16_FLOPS, PEAK_BYTES_PER_S, PEAK_F32_FLOPS,
+                        PEAK_F32_TC_FLOPS, card_line, compare, device_kernels, device_ms)
 from divergen_tpu_torch.ops import _build
+from divergen_tpu_torch.ops import attention_f32 as af
 from divergen_tpu_torch.ops import flash_attention as fa
+from divergen_tpu_torch.ops import window_attention as wa
 
 # (B, N, C, heads) -> launches per SDXL UNet call at B = 2 images (batch 4);
 # None: the main shape of PERF.md's kernel table, on no UNet call
@@ -72,6 +88,10 @@ D512_SHAPES = ((1, 16384), (1, 4096))
 # global layers at 1024² and batch 4 (4 launches per forward), and batch 1
 RELPOS_SHAPES = ((4, 16, 64, 64), (1, 16, 64, 64))
 SAM_RELPOS_LAUNCHES = 4
+# the float32 body's full-width cases (--f32): (kind, shape)
+F32_SHAPES = (("flash", (1, 16384, 512)), ("flash", (1, 4096, 512)),
+              ("relpos", (4, 16, 64, 64, 80)), ("packed", (4, 4096, 640, 10)),
+              ("window", (722, 6, 361, 144)))
 
 
 def load(name: str, src: Path) -> ctypes.CDLL:
@@ -237,6 +257,129 @@ def main_relpos(args, dev: torch.device, g: torch.Generator, stream: int) -> int
     return 0
 
 
+def f32_case(kind, shape, dev, g):
+    """The operands of one float32 case: (the C entry's arguments bar the
+    output and the stream, the output, the plain twin, the PyTorch call,
+    FLOP, bytes)."""
+    randn = lambda *sh, scale=1.0: torch.randn(sh, generator=g, device=dev) * scale
+    st = lambda t: (t.stride(0), t.stride(1), t.stride(2))
+    if kind == "flash":
+        bh, n, d = shape
+        q, k, v = (randn(bh, n, d) for _ in range(3))
+        out = torch.empty_like(q)
+        args = dict(q=q, k=k.data_ptr(), v=v.data_ptr(), mode="none", bias=None, bias2=None,
+                    batch=bh, heads=1, sq=n, sk=n, d=d, qs=(n * d, 0, d), kvs=(n * d, 0, d),
+                    os=(n * d, 0, d), grid=(0, 0), nw=1)
+        plain = lambda: fa.reference_attention(q, k, v)
+        library = lambda: F.scaled_dot_product_attention(q[None], k[None], v[None])
+        return args, out, plain, library, 4.0 * bh * n * n * d, 16.0 * bh * n * d
+    if kind == "relpos":
+        b, heads, h, w, d = shape
+        n = h * w
+        fused = randn(b, n, 3, heads, d)
+        q, k, v = (fused[:, :, i].permute(0, 2, 1, 3) for i in range(3))
+        bh_t, bw_t = randn(b * heads, h, n, scale=0.7), randn(b * heads, w, n, scale=0.7)
+        out = torch.empty((b, heads, n, d), device=dev)
+        args = dict(q=q, k=k.data_ptr(), v=v.data_ptr(), mode="relpos", bias=bh_t, bias2=bw_t,
+                    batch=b, heads=heads, sq=n, sk=n, d=d, qs=st(q), kvs=st(k), os=st(out),
+                    grid=(h, w), nw=1)
+        plain = lambda: fa.reference_attention_relpos(
+            *(t.reshape(b * heads, n, d) for t in (q, k, v)), bh_t, bw_t,
+            (h, w)).reshape(b, heads, n, d)
+        dense = fa.relpos_dense_bias(bh_t, bw_t).contiguous().reshape(b, heads, n, n)
+        library = lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=dense)
+        return (args, out, plain, library, 4.0 * b * heads * n * n * d,
+                16.0 * b * heads * n * d + 4.0 * b * heads * (h + w) * n)
+    if kind == "packed":
+        b, n, c, heads = shape
+        bias = mask = None
+        nw = 1
+    else:
+        bn, heads, nw, n = shape
+        b, c = bn, 32 * heads
+        bias = randn(heads, n, n, scale=0.5)
+        mask = torch.where(torch.rand((nw, n, n), generator=g, device=dev) < 0.3, -100.0, 0.0)
+        mask.diagonal(dim1=1, dim2=2).zero_()
+    d = c // heads
+    qkv = randn(b, n, 3 * c)
+    out = torch.empty((b, n, c), device=dev)
+    strides = (n * 3 * c, d, 3 * c)
+    args = dict(q=qkv, k=qkv.data_ptr() + 4 * c, v=qkv.data_ptr() + 8 * c,
+                mode="none" if kind == "packed" else "window", bias=bias, bias2=mask, batch=b,
+                heads=heads, sq=n, sk=n, d=d, qs=strides, kvs=strides, os=(n * c, d, c),
+                grid=(0, 0), nw=nw)
+    q4, k4, v4 = (t.unflatten(-1, (heads, -1)).transpose(1, 2).contiguous()
+                  for t in qkv.chunk(3, dim=-1))
+    if kind == "packed":
+        plain = lambda: fa.reference_attention_packed(qkv, heads)
+        library = lambda: F.scaled_dot_product_attention(q4, k4, v4)
+        nbytes = 16.0 * b * n * c
+    else:
+        plain = lambda: wa.reference_window_attention_packed(qkv, bias, mask, heads)
+        win_mask = (bias[None] + mask.repeat(b // nw, 1, 1)[:, None]).contiguous()
+        library = lambda: F.scaled_dot_product_attention(q4, k4, v4, attn_mask=win_mask)
+        nbytes = 16.0 * b * n * c + 4.0 * (heads + nw) * n * n
+    return args, out, plain, library, 4.0 * b * n * n * c, nbytes
+
+
+def call_f32(lib, a: dict, out: torch.Tensor, stream: int) -> None:
+    code = lib.dg_attention_f32(
+        a["q"].data_ptr(), a["k"], a["v"], out.data_ptr(),
+        None if a["bias"] is None else a["bias"].data_ptr(),
+        None if a["bias2"] is None else a["bias2"].data_ptr(), af.BIAS_MODES[a["mode"]], a["d"],
+        a["batch"], a["heads"], a["sq"], a["sk"], *a["qs"], *a["kvs"], *a["os"], 0, 0, 0,
+        *a["grid"], a["nw"], 1.0 / math.sqrt(a["d"]), stream)
+    if code:
+        raise RuntimeError(f"launch failed with CUDA error {code}")
+
+
+def main_f32(args, dev: torch.device, g: torch.Generator, stream: int) -> int:
+    torch.backends.cuda.matmul.allow_tf32 = False  # the twins' float32 products
+    libs = {"earlier": build("attention_ab", "earlier", args.earlier.resolve(), report=True),
+            "current": build("attention_ab", "current", _build.CSRC / "attention_f32.cu",
+                             report=True)}
+    p, i, i64, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, ctypes.c_float
+    for lib in libs.values():
+        lib.dg_attention_f32.argtypes = [p] * 6 + [i] * 6 + [i64] * 12 + [i] * 3 + [f, p]
+    for kind, shape in F32_SHAPES:
+        a, out, plain, library, flop, nbytes = f32_case(kind, shape, dev, g)
+        ref = plain()
+        outs = {name: torch.empty_like(out) for name in libs}
+        runs = {name: (lambda lib=lib, name=name: call_f32(lib, a, outs[name], stream))
+                for name, lib in libs.items()}
+        what = f"float32 {kind} {shape}"
+        for name, run in runs.items():
+            run()
+            got = outs[name].clone()
+            run()
+            same = torch.equal(got, outs[name])
+            try:
+                compare(f"{what} {name}", got, ref, **F32_BOUNDS)
+                ok = True
+            except AssertionError:
+                ok = False
+            print(f"    same bits twice: {same}", flush=True)
+            if not (ok and same) and not (args.timing_only and name == "earlier"):
+                raise AssertionError(f"{name} build is wrong at {what}")
+        del ref
+        torch.cuda.empty_cache()
+        dev_ms = in_turns(runs, timer=lambda fn: device_ms(fn, reps=3))
+        lib_ms = device_ms(library, reps=3)
+        names = "; ".join(f"{n[:90]} {ms:.4f} ms" for n, ms in device_kernels(library))
+        plain_ms = device_ms(plain, reps=3)
+        tc = 1e3 * max(flop / PEAK_F32_TC_FLOPS, nbytes / PEAK_BYTES_PER_S)
+        fma = 1e3 * max(flop / PEAK_F32_FLOPS, nbytes / PEAK_BYTES_PER_S)
+        text = {name: ", ".join(f"{t:.4f}" for t in ts) for name, (_, ts) in dev_ms.items()}
+        print(f"{what}: device earlier {dev_ms['earlier'][0]:.4f} ms (runs {text['earlier']}), "
+              f"current {dev_ms['current'][0]:.4f} ms (runs {text['current']}; "
+              f"{flop / dev_ms['current'][0] / 1e9:.1f} TFLOP/s), PyTorch call (float32) "
+              f"{lib_ms:.4f} ms [its kernels: {names}], plain twin {plain_ms:.4f} ms; bound {tc:.4f} ms at 3xTF32, {fma:.4f} at FMA ({flop / 1e9:.1f} GFLOP)",
+              flush=True)
+        del a, out, outs
+        torch.cuda.empty_cache()
+    return 0
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("earlier", type=Path, help="the earlier build's source")
@@ -245,6 +388,9 @@ def main() -> int:
     parser.add_argument("--relpos", action="store_true",
                         help="the d = 80 relative-position body (kernel 4) in place of the "
                              "d = 64 one")
+    parser.add_argument("--f32", action="store_true",
+                        help="the float32 body (attention_f32.cu) of kernels 1, 3, 4, 5 and 6 "
+                             "at full-width float32 shapes")
     parser.add_argument("--shape", action="append", default=[],
                         metavar="B,N,C,H | BH,S | B,heads,H,W",
                         help="time this (B, N, C, heads), with --d512 (BH, S), with --relpos "
@@ -262,6 +408,8 @@ def main() -> int:
     g = torch.Generator(device=dev).manual_seed(0)
     stream = torch.cuda.current_stream().cuda_stream
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    if args.f32:
+        return main_f32(args, dev, g, stream)
     if args.d512:
         return main_d512(args, dev, g, stream, sms)
     if args.relpos:
