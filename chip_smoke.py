@@ -114,6 +114,20 @@ Run from the root of a checkout:  python3 chip_smoke.py
    ``F.group_norm``, ``F.layer_norm`` and ``F.group_norm`` + ``F.silu`` +
    ``F.conv2d``; bounds at 1979 TOPS int8, 67 TFLOP/s f32 or 989 TFLOP/s
    bf16.
+   Then the float32 window backward body (3xTF32 on mma.sync, one block per
+   head and chunk of windows) at Swin-L's four stage shapes and the smoke
+   shape (bn 8, 6 heads, nW 4), with and without the mask: dq, dk, dv and
+   dbias against the float32 twin at the float32 bound, the same bits twice,
+   device time beside the twin's, SDPA's float32 backward and the bound at
+   3xTF32, its shared memory and resident blocks held against
+   ``f32_backward_smem`` / ``_resident`` (n = 1..144, d 32 and 64). Then the
+   head dims padded to a body's width, each against its twin at the true
+   head dim with its time beside the twin's, SDPA's and the bound: kernel 3
+   at d = 16 and 96 with a bias (bf16 and float32), kernel 1 at d = 16
+   through kernel 3's path, kernel 4 at d = 64 on a 32 x 32 grid, the window
+   kernels forward and backward at d = 16 in bf16 and d = 64 in float32.
+   Then the six forward-only wrappers (and kernel 8) under
+   ``torch.enable_grad()`` on CUDA inputs that require grad: each must raise.
 4. Small models: a narrow UNet (d = 64 self-attention, GEGLU), a VAE decoder
    with a d = 512 mid attention, and a narrow SAM whose global layer runs the
    relative-position kernel at d = 80, bf16 on the card through the kernels,
@@ -134,7 +148,9 @@ Run from the root of a checkout:  python3 chip_smoke.py
    ``conv_matmul="fused"`` in bf16 against the float32 CPU default path
    (relative L2 <= 3e-2); and a float32 ``UNetSDXL(quant, fused_ln, fused_gn,
    conv_matmul="fused")`` on the card, kernels 7 to 11 in float32, against its
-   float32 CPU copy (mean |diff| / mean |ref| < 0.1).
+   float32 CPU copy (mean |diff| / mean |ref| < 0.1). ``UNetSDXL.tiny()``
+   (head dim 16: kernel 1 through kernel 3's path) one call in bf16 and in
+   float32 against its float32 CPU copy (relative L2 <= 3e-2; <= 1e-4).
 5. Slice at full SDXL width, launch counters reset just before it:
    (a) the port's ``txt2img.main`` writing two 1024² PNGs;
    (b) ``SDXLTextEncoder.random(tiny=False)`` → ``SDXLPipeline.generate``,
@@ -177,8 +193,11 @@ Run from the root of a checkout:  python3 chip_smoke.py
    Then a CFG step of the bf16 and of the fused-ResBlock pipeline in turns
    (medians of 3).
 7. Slice of the detector's train step, launch counters reset just before it:
-   ``graft_entry.dryrun_train()`` (one checked step of the small detector),
-   then ``graft_entry.flagship_train_entry()``: Swin-L, 1453 classes, 896²,
+   ``graft_entry.dryrun_train()`` (one checked step of the small detector in
+   float32, as the JAX ``dryrun_multichip``): its parameters and compute
+   float32, every window-attention forward and backward launch on the
+   float32 bodies, and every metric within ``DRYRUN_BOUNDS`` of
+   ``dryrun_train(device="cpu")`` (same weights, batch and draws); then ``graft_entry.flagship_train_entry()``: Swin-L, 1453 classes, 896²,
    B = 2, bf16 compute over float32 parameters, AdamW with clipping, EMA, the
    federated loss, the compositor. Five steps of ``make_paste_train_step``
    and one of ``make_train_step`` with rematerialized Swin blocks (48 forward
@@ -199,7 +218,9 @@ Run from the root of a checkout:  python3 chip_smoke.py
        its three parts (medians of 3) and counts the host syncs of NMS.
    fused_window_attention is on no slice's path (the packed kernels take any
    head count): phase 3 holds its forward and backward, and its counts stay 0.
-9. Prints the kernels' JSON line (all 13 entries), the card line, and as the
+9. Prints the kernels' JSON line (the 13 wrappers' entries; the float32
+   window backward body with its launches in 7; and each padded head-dim
+   case of 3 with its checked call's launch), the card line, and as the
    last line {"ok": true, "device": {...}}. Any failed phase raises: exit
    code != 0.
 """
@@ -932,6 +953,17 @@ def kernel_phases(gen: torch.Generator, card: str):
     return results
 
 
+def f32_row(results: dict, kernel: str) -> dict:
+    """The kernels line's row of the float32 body (``csrc/attention_f32.cu``)
+    of an attention kernel, ``"<kernel> (float32)"``; kernels 5 and 6 share
+    the packed wrapper's rows (one body)."""
+    kernel = kernel.replace("fused_window_attention_backward",
+                            "fused_window_attention_packed_backward")
+    if kernel == "fused_window_attention":
+        kernel = "fused_window_attention_packed"
+    return results.setdefault(f"{kernel} (float32)", {"max_abs_err": 0.0})
+
+
 def float32_attention_phases(gen: torch.Generator, card: str, results: dict) -> None:
     """Kernels 1, 3, 4, 5 and 6 on float32 q, k and v (the float32 body,
     ``csrc/attention_f32.cu``) against their float32 twins at the float32
@@ -963,7 +995,8 @@ def float32_attention_phases(gen: torch.Generator, card: str, results: dict) -> 
                      f"by {by} at 3xTF32, {fma_ms:.4f} at FMA ({ops / 1e9:.2f} GFLOP, "
                      f"{nbytes / 1e6:.1f} MB)")
         log(f"{line} [{card}]")
-        results[kernel]["max_abs_err"] = max(results[kernel]["max_abs_err"], err)
+        row = f32_row(results, kernel)
+        row["max_abs_err"] = max(row["max_abs_err"], err)
 
     def heads_first(t, heads):
         """(B, N, heads · d) -> contiguous (B, heads, N, d)."""
@@ -1197,8 +1230,431 @@ def float32_full_width_phases(gen: torch.Generator, card: str, results: dict) ->
             f"ms, PyTorch call (float32) {l_ms:.4f} ms [its kernels: {names}]; bound "
             f"{b_ms:.4f} ms by {by} at 3xTF32, {fma_ms:.4f} at FMA ({ops / 1e9:.1f} GFLOP, "
             f"{nbytes / 1e6:.1f} MB) [{card}]")
-        results[kernel]["max_abs_err"] = max(results[kernel]["max_abs_err"], err)
+        # kernel 2's float32 GEMM is in its bf16 body's source; the attention
+        # kernels' float32 body is a source of its own: its first shape's row
+        row = results[kernel] if kernel == "fused_ln_matmul" else f32_row(results, kernel)
+        if "ms" not in row:
+            row.update(ms=k_ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=by, library_ms=l_ms)
+        row["max_abs_err"] = max(row["max_abs_err"], err)
         torch.cuda.empty_cache()
+
+
+# the float32 window backward body at Swin-L's four stage shapes of B = 2 at
+# 896² (windows, heads, windows of the shift mask) and the smoke shape, n =
+# 144, d = 32: checked and timed, with and without the mask
+F32_WINDOW_BWD_SHAPES = ((722, 6, 361), (200, 12, 100), (50, 24, 25), (18, 48, 9), (8, 6, 4))
+# the launches of dryrun_train, the float32 main path (Swin-T at 64², B = 1,
+# d = 32): (windows, heads, n, windows of the shift mask or None), held by
+# dryrun_float32 to be all of its launches; then n at each count of 16-row
+# tiles the body is built for (1, 2, 4, 7, 9; n % 4 != 0 takes the scalar
+# staging), at d = 32 and 64, with and without a mask: checked, not timed
+F32_WINDOW_BWD_DRYRUN = ((9, 3, 49, 9), (9, 3, 49, None), (4, 6, 49, 4), (4, 6, 49, None),
+                         (1, 12, 16, None), (1, 24, 4, None))
+F32_WINDOW_BWD_TILES = (7, 25, 49, 64, 100, 144)
+
+
+def check_f32_window_backward(gen: torch.Generator, bn: int, heads: int, n: int, d: int,
+                              nw) -> tuple:
+    """The float32 window backward through the packed wrapper on random
+    inputs (``nw`` windows of a mask of -100 at 30 %, or no mask): dq, dk, dv
+    and dbias against the twin at ``F32_BOUNDS``, the same bits twice.
+    Returns (max error, inputs: qkv, bias, mask, do, out)."""
+    import divergen_tpu_torch.ops.window_attention as wa_mod
+
+    dev = torch.device("cuda")
+    c = heads * d
+    qkv = torch.randn((bn, n, 3 * c), generator=gen, device=dev).requires_grad_(True)
+    bias = (0.5 * torch.randn((heads, n, n), generator=gen, device=dev)).requires_grad_(True)
+    mask = None
+    if nw is not None:
+        mask = torch.where(torch.rand((nw, n, n), generator=gen, device=dev) < 0.3, -100.0, 0.0)
+        mask.diagonal(dim1=1, dim2=2).zero_()
+    do = torch.randn((bn, n, c), generator=gen, device=dev)
+    what = f"bn={bn} H={heads} n={n} d={d} mask={'none' if nw is None else f'nW {nw}'}"
+    out = wa_mod.fused_window_attention_packed(qkv, bias, mask, heads)
+    got = torch.autograd.grad(out, (qkv, bias), do, retain_graph=True)
+    ref = wa_mod.reference_window_attention_packed_backward(qkv.detach(), bias.detach(), mask,
+                                                            heads, do)
+    err = max(compare(f"float32 window backward {part} {what}", got[0][..., i * c:(i + 1) * c],
+                      ref[0][..., i * c:(i + 1) * c], **F32_BOUNDS)
+              for i, part in enumerate(("dq", "dk", "dv")))
+    err = max(err, compare(f"float32 window backward dbias {what}", got[1], ref[1], **F32_BOUNDS))
+    again = torch.autograd.grad(out, (qkv, bias), do, retain_graph=True)
+    if not (torch.equal(again[0], got[0]) and torch.equal(again[1], got[1])):
+        raise AssertionError(f"float32 window backward is not deterministic ({what})")
+    return err, (qkv, bias, mask, do, out)
+
+
+def float32_window_backward_phase(gen: torch.Generator, card: str, results: dict) -> None:
+    """The float32 window backward body (``csrc/attention_f32.cu:
+    window_bwd_tc_kernel``, kernels 5 and 6, 3xTF32 on mma.sync) through the
+    packed wrapper's backward (``check_f32_window_backward``): at the shapes
+    of ``dryrun_train``'s launches and at every tile count of the body
+    (``F32_WINDOW_BWD_DRYRUN``, ``F32_WINDOW_BWD_TILES``), checked; at
+    Swin-L's four stage shapes and the smoke shape (``F32_WINDOW_BWD_SHAPES``,
+    n = 144, d = 32), with and without the mask, checked and then timed: the
+    backward alone (the body and the reduce of the chunks' partial bias
+    gradients; its forward graph built outside the timing), the twin, and
+    SDPA's float32 backward (TF32 off, the bias + mask as one dense float32
+    mask, dq, dk and dv only) beside the bound: bytes (q, k, v, do read, dq,
+    dk, dv written, bias and mask read once, dbias written) at 3.35 TB/s,
+    five products at 3xTF32. Its shared memory and resident blocks are held
+    against ``f32_backward_smem`` / ``f32_backward_resident`` for n =
+    1..144, d = 32 and 64 (both size its grid)."""
+    import divergen_tpu_torch.ops.window_attention as wa_mod
+    from divergen_tpu_torch.ops import _build
+
+    lib = _build.lib()
+    log("kernel phase: float32 window attention backward (3xTF32 body)")
+    for d in wa_mod.F32_BWD_HEAD_DIMS:
+        wrong = [n for n in range(1, 145)
+                 if lib.dg_window_attention_bwd_f32_smem(n, d) != wa_mod.f32_backward_smem(n, d)
+                 or lib.dg_window_attention_bwd_f32_resident(n, d)
+                 != wa_mod.f32_backward_resident(n, d)]
+        if wrong:
+            raise AssertionError(f"float32 window backward at d = {d}: the library's shared "
+                                 f"memory or resident blocks differ from the plan's at n = {wrong}")
+    log(f"    shared memory and resident blocks equal f32_backward_smem / _resident, n = 1..144, "
+        f"d = 32 and 64 ({wa_mod.f32_backward_smem(144, 32)} bytes and "
+        f"{wa_mod.f32_backward_resident(144, 32)} block at n = 144, d = 32)")
+    cases = [(bn, heads, n, 32, nw) for bn, heads, n, nw in F32_WINDOW_BWD_DRYRUN]
+    cases += [(4, 2, n, d, nw) for d in wa_mod.F32_BWD_HEAD_DIMS for n in F32_WINDOW_BWD_TILES
+              for nw in (2, None)]
+    errs = [check_f32_window_backward(gen, *case)[0] for case in cases]
+    log(f"    {len(cases)} shapes of dryrun_train's launches and of every tile count at d = 32 and "
+        f"64 agree with the twin (max |error| {max(errs):.3g})")
+    n, d = 144, 32
+    for bn, heads, nw in F32_WINDOW_BWD_SHAPES:
+        c = heads * d
+        for with_mask in (True, False):
+            err, (qkv, bias, mask, do, out) = check_f32_window_backward(
+                gen, bn, heads, n, d, nw if with_mask else None)
+            run = lambda: torch.autograd.grad(out, (qkv, bias), do, retain_graph=True)
+            plain = lambda: wa_mod.reference_window_attention_packed_backward(
+                qkv.detach(), bias.detach(), mask, heads, do)
+            win_mask = bias.detach()[None].expand(bn, heads, n, n)
+            if mask is not None:
+                win_mask = win_mask + mask.repeat(bn // nw, 1, 1)[:, None]
+            win_mask = win_mask.contiguous()
+            q4, k4, v4 = (t.unflatten(-1, (heads, -1)).transpose(1, 2).contiguous()
+                          .requires_grad_(True) for t in qkv.detach().chunk(3, dim=-1))
+            do4 = do.unflatten(-1, (heads, -1)).transpose(1, 2).contiguous()
+            lib_out = F.scaled_dot_product_attention(q4, k4, v4, attn_mask=win_mask)
+            library = lambda: torch.autograd.grad(lib_out, (q4, k4, v4), do4, retain_graph=True)
+            k_ms, p_ms, l_ms = device_ms(run, reps=5), device_ms(plain, reps=3), device_ms(
+                library, reps=5)
+            ops = 5 * 2.0 * bn * heads * n * n * d
+            nbytes = 4.0 * bn * n * 7 * c + 4.0 * (2 * heads + (nw if with_mask else 0)) * n * n
+            b_ms, by = bound(ops, nbytes, PEAK_F32_TC_FLOPS)
+            log(f"    device: kernels {k_ms:.4f} ms ({b_ms / k_ms:.3f} of the bound), plain "
+                f"{p_ms:.4f} ms, SDPA float32 backward {l_ms:.4f} ms; bound {b_ms:.4f} ms by {by} "
+                f"({ops / 1e9:.2f} GFLOP at 3xTF32, {nbytes / 1e6:.1f} MB) [{card}]")
+            row = f32_row(results, "fused_window_attention_packed_backward")
+            if with_mask and "ms" not in row:  # stage 1 (the first shape) gives the row
+                row.update(ms=k_ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=by, library_ms=l_ms)
+            row["max_abs_err"] = max(row["max_abs_err"], err, *errs)
+            del out, lib_out, q4, k4, v4, win_mask, qkv, bias, mask, do
+            torch.cuda.empty_cache()
+
+
+def head_dim_phases(gen: torch.Generator, card: str) -> list:
+    """Head dims between the bodies' widths (``attention_f32.kernel_body``):
+    the wrappers pad q, k and v to a body's width and slice the output. Each
+    case against its twin at the true head dim (bf16: relative L2 <= 1e-2,
+    max |error| <= 3e-2 max |ref|; float32: ``F32_BOUNDS``), with its CUDA-event
+    time beside the twin's, the PyTorch call's (SDPA; for a backward, SDPA's
+    backward) and the bound of the true head dim's work: kernel 3 at d = 16
+    (bf16 width 64, float32 32) and d = 96 (bf16 512, float32 128) with a
+    dense bias; kernel 1 at d = 16 through kernel 3's path at a tiny UNet's
+    level-1 shape; kernel 4 at d = 64 (bf16 onto the d = 80 body) on a
+    32 x 32 grid; the window kernels, forward and backward, at d = 16 in bf16
+    (width 32, n = 49) and at d = 64 in float32 (the new body's d = 64, n =
+    144, with the mask); kernel 1 in float32 at d = 128 (the body's own
+    width, read by stride) and d = 96 (kernel 3's path), and in bf16 at d =
+    96 (kernel 3's path onto the d = 512 body); kernel 4 in bf16 at d = 96
+    (the float32 body on a float32 copy, width 128). Returns the kernels
+    line's entries of the cases, each with ``phase_launches``, the wrapper's
+    launches in the case's checked call, and the key under which the main
+    paths' launches of that body at that head dim are counted (wrapper,
+    backward, body entry, d; ``attention_f32.count``), from which ``main``
+    fills in ``launches``."""
+    import divergen_tpu_torch.ops.flash_attention as fa_mod
+    import divergen_tpu_torch.ops.window_attention as wa_mod
+    from divergen_tpu_torch.ops import attention_f32
+
+    dev = torch.device("cuda")
+    log("kernel phase: head dims padded to a body's width")
+
+    def randn(*shape, dtype=torch.float32, scale=1.0):
+        return (torch.randn(shape, generator=gen, device=dev) * scale).to(dtype)
+
+    entries = []
+    sources = {"dg_attention_f32": "attention_f32.cu",
+               "dg_flash_attention_sm90": "flash_attention_sm90.cu",
+               "dg_flash_attention_d512": "flash_attention_d512.cu",
+               "dg_flash_attention_relpos_bf16": "flash_attention_relpos_sm90.cu",
+               "dg_window_attention_bf16": "window_attention.cu"}
+    replaces = {"flash_attention": 146, "flash_attention_packed": 337,
+                "flash_attention_relpos": 531}
+
+    def case(key, wrapper, run, plain, library, ops, nbytes, dtype, backward=False):
+        counter = "backward_launches" if backward else "launches"
+        before = getattr(wrapper, counter)
+        got = run()
+        launched = getattr(wrapper, counter) - before
+        got = got if isinstance(got, (tuple, list)) else (got,)
+        ref = plain()
+        ref = ref if isinstance(ref, (tuple, list)) else (ref,)
+        bounds = F32_BOUNDS if dtype == torch.float32 else {}
+        err = max(compare(f"{key} [{i}]", g, r, **bounds) for i, (g, r) in enumerate(zip(got, ref)))
+        ms, pms, span = time_pair(run, plain)
+        b_ms, by = bound(ops, nbytes, PEAK_F32_TC_FLOPS if dtype == torch.float32
+                         else PEAK_BF16_FLOPS)
+        l_ms = time_one(library)
+        log(f"    kernel {ms:.4f} ms (min {span[0]:.4f}, max {span[1]:.4f}), plain {pms:.4f} ms, "
+            f"PyTorch call {l_ms:.4f} ms, bound {b_ms:.4f} ms by {by}; {launched} launch [{card}]")
+        name = wrapper.__name__ + ("_backward" if backward else "")
+        mode = ("window" if "window" in name else "relpos" if "relpos" in name
+                else "dense" if "bias" in key else "none")
+        d = int(key.split(" d")[1].split()[0])
+        body = attention_f32.kernel_body(dtype, d, mode)
+        entries.append(({"name": f"{key} (head-dim phase)", "route": "cuda",
+                         "source": f"divergen_tpu_torch/csrc/{sources[body.entry]}",
+                         "replaces": (f"divergen_tpu/ops/pallas/window_attention.py:"
+                                      f"{408 if backward else 470}" if "window" in name else
+                                      f"divergen_tpu/ops/pallas/flash_attention.py:"
+                                      f"{replaces[wrapper.__name__]}"),
+                         "max_abs_err": err, "ms": ms, "plain_ms": pms, "bound_ms": b_ms,
+                         "bound_by": by, "library_ms": l_ms, "phase_launches": launched},
+                        (wrapper, backward, body.entry, d)))
+        torch.cuda.empty_cache()
+
+    size = {torch.bfloat16: 2, torch.float32: 4}
+    with torch.no_grad():
+        for d in (16, 96):
+            for dtype in (torch.bfloat16, torch.float32):
+                bh, s = 8, 1024
+                q, k, v = (randn(bh, s, d, dtype=dtype) for _ in range(3))
+                bias = randn(bh, s, s)
+                mask = bias.to(dtype)
+                case(f"flash_attention d{d} {str(dtype)[6:]} bias", fa_mod.flash_attention,
+                     lambda: fa_mod.flash_attention(q, k, v, bias),
+                     lambda: fa_mod.reference_attention(q, k, v, bias),
+                     lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask),
+                     4.0 * bh * s * s * d, size[dtype] * 4.0 * bh * s * d + 4.0 * bh * s * s, dtype)
+        for dtype, d in ((torch.bfloat16, 16), (torch.float32, 16), (torch.bfloat16, 96),
+                         (torch.float32, 96), (torch.float32, 128)):
+            b, n, heads = 2, 1024, 4
+            qkv = randn(b, n, 3 * heads * d, dtype=dtype)
+            q4, k4, v4 = (t.unflatten(-1, (heads, -1)).transpose(1, 2).contiguous()
+                          for t in qkv.chunk(3, dim=-1))
+            case(f"flash_attention_packed d{d} {str(dtype)[6:]}", fa_mod.flash_attention_packed,
+                 lambda: fa_mod.flash_attention_packed(qkv, heads),
+                 lambda: fa_mod.reference_attention_packed(qkv, heads),
+                 lambda: F.scaled_dot_product_attention(q4, k4, v4),
+                 4.0 * b * n * n * heads * d, size[dtype] * 4.0 * b * n * heads * d, dtype)
+        for dtype, d in ((torch.bfloat16, 64), (torch.float32, 64), (torch.bfloat16, 96)):
+            b, heads, (h, w) = 2, 4, (32, 32)
+            n = h * w
+            fused = randn(b, n, 3, heads, d, dtype=dtype)
+            q, k, v = (fused[:, :, i].permute(0, 2, 1, 3) for i in range(3))
+            bh_t, bw_t = randn(b * heads, h, n, scale=0.7), randn(b * heads, w, n, scale=0.7)
+            dense = fa_mod.relpos_dense_bias(bh_t, bw_t).reshape(b, heads, n, n).to(dtype)
+            case(f"flash_attention_relpos d{d} {str(dtype)[6:]}", fa_mod.flash_attention_relpos,
+                 lambda: fa_mod.flash_attention_relpos(q, k, v, bh_t, bw_t, (h, w)).reshape(
+                     b * heads, n, d),
+                 lambda: fa_mod.reference_attention_relpos(
+                     *(t.reshape(b * heads, n, d) for t in (q, k, v)), bh_t, bw_t, (h, w)),
+                 lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=dense),
+                 4.0 * b * heads * n * n * d,
+                 size[dtype] * 4.0 * b * heads * n * d + 4.0 * b * heads * (h + w) * n, dtype)
+    for dtype, d, bn, heads, n, nw in ((torch.bfloat16, 16, 64, 3, 49, 16),
+                                       (torch.float32, 64, 32, 2, 144, 8)):
+        c = heads * d
+        qkv = randn(bn, n, 3 * c, dtype=dtype).requires_grad_(True)
+        bias = randn(heads, n, n, scale=0.5).requires_grad_(True)
+        mask = torch.where(torch.rand((nw, n, n), generator=gen, device=dev) < 0.3, -100.0, 0.0)
+        mask.diagonal(dim1=1, dim2=2).zero_()
+        do = randn(bn, n, c, dtype=dtype)
+        win_mask = (bias.detach()[None] + mask.repeat(bn // nw, 1, 1)[:, None]).to(dtype)
+        q4, k4, v4 = (t.unflatten(-1, (heads, -1)).transpose(1, 2).contiguous().requires_grad_(True)
+                      for t in qkv.detach().chunk(3, dim=-1))
+        do4 = do.unflatten(-1, (heads, -1)).transpose(1, 2).contiguous()
+        tag = f"d{d} {str(dtype)[6:]}"
+        fwd_bytes = size[dtype] * 4.0 * bn * n * c + 4.0 * (heads + nw) * n * n
+        bwd_bytes = size[dtype] * 7.0 * bn * n * c + 4.0 * (2 * heads + nw) * n * n
+        with torch.no_grad():
+            case(f"fused_window_attention_packed {tag}", wa_mod.fused_window_attention_packed,
+                 lambda: wa_mod.fused_window_attention_packed(qkv, bias, mask, heads),
+                 lambda: wa_mod.reference_window_attention_packed(qkv, bias, mask, heads),
+                 lambda: F.scaled_dot_product_attention(q4, k4, v4, attn_mask=win_mask),
+                 4.0 * bn * n * n * c, fwd_bytes, dtype)
+        out = wa_mod.fused_window_attention_packed(qkv, bias, mask, heads)
+        lib_out = F.scaled_dot_product_attention(q4, k4, v4, attn_mask=win_mask)
+        # the twin of the bf16 body rounds p and ds to bf16; for the padded
+        # bf16 case the plain twin runs at the true d, so the bf16 bound holds
+        case(f"fused_window_attention_packed_backward {tag}", wa_mod.fused_window_attention_packed,
+             lambda: torch.autograd.grad(out, (qkv, bias), do, retain_graph=True),
+             lambda: wa_mod.reference_window_attention_packed_backward(
+                 qkv.detach(), bias.detach(), mask, heads, do),
+             lambda: torch.autograd.grad(lib_out, (q4, k4, v4), do4, retain_graph=True),
+             5 * 2.0 * bn * n * n * c, bwd_bytes, dtype, backward=True)
+        del out, lib_out
+    return entries
+
+
+def body_route_sweep(gen: torch.Generator) -> int:
+    """Every route ``attention_f32.kernel_body`` takes for a head dim 1..128
+    or 512, on the card, each against its twin (bf16: the default bounds;
+    float32: ``F32_BOUNDS``), not timed: for each dtype and bias mode (none
+    and dense through kernel 3, relpos through kernel 4 on an 8 x 8 grid)
+    and each body width, the least head dim that takes it and the body's own
+    width where it takes that; kernel 1 by stride at each body's own width;
+    the window kernels' forward and backward at the least head dim of each
+    width. Returns the number of cases."""
+    import divergen_tpu_torch.ops.flash_attention as fa_mod
+    import divergen_tpu_torch.ops.window_attention as wa_mod
+    from divergen_tpu_torch.ops import attention_f32
+
+    dev = torch.device("cuda")
+
+    def randn(*shape, dtype=torch.float32, scale=1.0):
+        return (torch.randn(shape, generator=gen, device=dev) * scale).to(dtype)
+
+    dims = list(range(1, attention_f32.PADDED_HEAD_DIMS + 1)) + [512]
+    n_cases = 0
+    with torch.no_grad():
+        for dtype in (torch.bfloat16, torch.float32):
+            bounds = F32_BOUNDS if dtype == torch.float32 else {}
+            tag = str(dtype)[6:]
+            for mode in ("none", "dense", "relpos"):
+                routes = {}
+                for d in dims:
+                    routes.setdefault(attention_f32.kernel_body(dtype, d, mode), []).append(d)
+                for body, ds in routes.items():
+                    for d in sorted({ds[0]} | ({body.width} & set(ds))):
+                        if mode == "relpos":
+                            h = w = 8
+                            q, k, v = (randn(4, h * w, d, dtype=dtype) for _ in range(3))
+                            bh_t, bw_t = (randn(4, h, h * w, scale=0.7),
+                                          randn(4, w, h * w, scale=0.7))
+                            got = fa_mod.flash_attention_relpos(q, k, v, bh_t, bw_t, (h, w))
+                            ref = fa_mod.reference_attention_relpos(q, k, v, bh_t, bw_t, (h, w))
+                        else:
+                            q, k, v = (randn(2, 256, d, dtype=dtype) for _ in range(3))
+                            bias = randn(2, 256, 256) if mode == "dense" else None
+                            got = fa_mod.flash_attention(q, k, v, bias)
+                            ref = fa_mod.reference_attention(q, k, v, bias)
+                        compare(f"{mode} d{d} {tag} ({body.entry}, width {body.width})", got, ref,
+                                **bounds)
+                        n_cases += 1
+            for width in sorted({attention_f32.kernel_body(dtype, d, "none").width for d in dims}):
+                if attention_f32.kernel_body(dtype, width, "none").dtype != dtype:
+                    continue
+                b, n, heads = 2, 256, 2
+                qkv = randn(b, n, 3 * heads * width, dtype=dtype)
+                compare(f"packed by stride d{width} {tag}", fa_mod.flash_attention_packed(qkv, heads),
+                        fa_mod.reference_attention_packed(qkv, heads), **bounds)
+                n_cases += 1
+    for dtype in (torch.bfloat16, torch.float32):
+        bounds = F32_BOUNDS if dtype == torch.float32 else {}
+        widths = attention_f32.WINDOW_WIDTHS[dtype]
+        for d in [1] + [w + 1 for w in widths[:-1]]:
+            bn, heads, n, nw = 4, 2, 49, 2
+            c = heads * d
+            qkv = randn(bn, n, 3 * c, dtype=dtype).requires_grad_(True)
+            bias = randn(heads, n, n, scale=0.5).requires_grad_(True)
+            mask = torch.where(torch.rand((nw, n, n), generator=gen, device=dev) < 0.3, -100.0,
+                               0.0)
+            mask.diagonal(dim1=1, dim2=2).zero_()
+            do = randn(bn, n, c, dtype=dtype)
+            width = attention_f32.kernel_body(dtype, d, "window").width
+            what = f"window d{d} {str(dtype)[6:]} (width {width})"
+            out = wa_mod.fused_window_attention_packed(qkv, bias, mask, heads)
+            compare(f"{what} forward", out, wa_mod.reference_window_attention_packed(
+                qkv.detach(), bias.detach(), mask, heads), **bounds)
+            got = torch.autograd.grad(out, (qkv, bias), do)
+            ref = wa_mod.reference_window_attention_packed_backward(qkv.detach(), bias.detach(),
+                                                                    mask, heads, do)
+            for part, g, r in (("dqkv", got[0], ref[0]), ("dbias", got[1], ref[1])):
+                compare(f"{what} backward {part}", g, r, **bounds)
+            n_cases += 1
+    return n_cases
+
+
+def head_dim_models() -> None:
+    """``UNetSDXL.tiny()`` (head dim 16: kernel 1 through kernel 3's path,
+    kernel 2) one call on the card in bf16 and in float32, each against the
+    same module in float32 on the CPU (bf16: relative L2 <= 3e-2; float32:
+    ``F32_MODEL_BOUNDS``), kernels 1 and 2 launched."""
+    from divergen_tpu_torch.modeling.layers import flax_init_
+    from divergen_tpu_torch.ops.flash_attention import flash_attention_packed
+    from divergen_tpu_torch.ops.ln_matmul import fused_ln_matmul
+    from divergen_tpu_torch.pipeline.generation.unet import UNetSDXL
+
+    dev = torch.device("cuda")
+    g = torch.Generator().manual_seed(29)
+    ref = flax_init_(UNetSDXL.tiny(), g).eval()
+    lat = torch.randn((2, 32, 32, 4), generator=g)
+    t = torch.tensor([500.0, 20.0])
+    ctx = torch.randn((2, 77, 64), generator=g)
+    with torch.inference_mode():
+        want = ref(lat, t, ctx)
+    for dtype, bounds in ((torch.bfloat16, dict(rel_l2_bound=3e-2)),
+                          (torch.float32, F32_MODEL_BOUNDS)):
+        unet = UNetSDXL.tiny(dtype=dtype, device=dev).eval()
+        unet.load_state_dict(ref.state_dict())
+        before = (flash_attention_packed.launches, fused_ln_matmul.launches)
+        with torch.inference_mode():
+            got = unet(lat.to(dev), t.to(dev), ctx.to(dev))
+        ran = (flash_attention_packed.launches - before[0], fused_ln_matmul.launches - before[1])
+        log(f"    UNetSDXL.tiny() {dtype}: {ran[0]} flash_attention_packed (head dim 16) and "
+            f"{ran[1]} fused_ln_matmul launches")
+        if not all(ran):
+            raise AssertionError(f"UNetSDXL.tiny() {dtype}: launches {ran}")
+        compare(f"UNetSDXL.tiny() {dtype} (card) vs f32 CPU", got.float().cpu(), want, **bounds)
+
+
+def autograd_guard_phase() -> None:
+    """The forward-only wrappers under ``torch.enable_grad()`` on CUDA inputs
+    that require grad: each must raise (``_build.require_no_grad``) before it
+    launches, as kernel 8 does."""
+    from divergen_tpu_torch.ops import flash_attention as fa_mod
+    from divergen_tpu_torch.ops import int8_matmul as i8_mod
+    from divergen_tpu_torch.ops import ln_matmul as ln_mod
+    from divergen_tpu_torch.ops.gn_conv import fused_gn_silu_conv3x3
+
+    dev = torch.device("cuda")
+    bf = dict(device=dev, dtype=torch.bfloat16)
+    leaf = lambda *shape, **kw: torch.randn(*shape, **(kw or bf)).requires_grad_(True)
+    i8 = lambda *shape: torch.randint(-127, 128, shape, device=dev, dtype=torch.int8)
+    f32 = dict(device=dev, dtype=torch.float32)
+    calls = {
+        "flash_attention": lambda: fa_mod.flash_attention(*(leaf(2, 128, 64) for _ in range(3))),
+        "flash_attention_packed": lambda: fa_mod.flash_attention_packed(leaf(2, 128, 384), 2),
+        "flash_attention_relpos": lambda: fa_mod.flash_attention_relpos(
+            *(leaf(2, 64, 80) for _ in range(3)), leaf(2, 8, 64, **f32), leaf(2, 8, 64, **f32),
+            (8, 8)),
+        "fused_ln_matmul": lambda: ln_mod.fused_ln_matmul(leaf(64, 128), leaf(128, 256),
+                                                          leaf(128, **f32), leaf(128, **f32)),
+        "int8_matmul_pallas": lambda: i8_mod.int8_matmul_pallas(
+            i8(64, 128), leaf(64, 1, **f32), i8(128, 256), leaf(256, **f32)),
+        "int8_matmul_fused_quant": lambda: i8_mod.int8_matmul_fused_quant(
+            leaf(64, 128), i8(128, 256), leaf(256, **f32)),
+        "fused_gn_silu_conv3x3": lambda: fused_gn_silu_conv3x3(
+            leaf(1, 8, 8, 64), leaf(64, **f32), leaf(64, **f32), leaf(64, 64, 3, 3),
+            leaf(64, **f32)),
+    }
+    with torch.enable_grad():
+        for name, call in calls.items():
+            try:
+                call()
+            except RuntimeError as e:
+                if "forward only" not in str(e):
+                    raise
+                continue
+            raise AssertionError(f"{name} ran under enable_grad on inputs that require grad")
+    log(f"    under enable_grad each raises before it launches: {', '.join(calls)}")
 
 
 def device_ms(fn, reps: int = 10) -> float:
@@ -2165,11 +2621,12 @@ def slice_fused_resblocks(pipe, cond, bf16_images):
     return pipe_f
 
 
-def every_option_unet_call(pipe, cond, wrappers):
+def every_option_unet_call(pipe, cond, snapshot):
     """One UNet call, batch 4 (the CFG batch of B = 2 at 1024²), of
     ``UNetSDXL(quant, fused_ln, fused_gn, conv_matmul="fused")`` on the bf16
     pipeline's weights after ``quantize_unet_``; the output finite, and the
-    launches of every kernel of ``EVERY_OPTION_LAUNCHES`` exact."""
+    launches of every kernel of ``EVERY_OPTION_LAUNCHES`` exact. Returns the
+    call's launches, by the keys of ``snapshot()`` (``main``'s counts)."""
     from divergen_tpu_torch.pipeline.generation.unet import UNetSDXL, quantize_unet_
 
     dev = torch.device("cuda")
@@ -2183,11 +2640,11 @@ def every_option_unet_call(pipe, cond, wrappers):
             torch.full((4,), 500.0, device=dev), torch.cat([unc, ctx]),
             torch.cat([unc_pooled, pooled]),
             torch.tensor([1024.0, 1024, 0, 0, 1024, 1024], device=dev).expand(4, 6))
-    before = {w.__name__: w.launches for w in wrappers}
+    before = snapshot()
     with torch.inference_mode():
         out = unet(*args)
     torch.cuda.synchronize()
-    counts = {w.__name__: w.launches - before[w.__name__] for w in wrappers}
+    counts = {k: n - before.get(k, 0) for k, n in snapshot().items()}
     if tuple(out.shape) != (4, 128, 128, 4) or not torch.isfinite(out).all():
         raise AssertionError("every-option UNet: output not finite (4, 128, 128, 4)")
     wrong = {k: (counts[k], n) for k, n in EVERY_OPTION_LAUNCHES.items() if counts[k] != n}
@@ -2588,13 +3045,89 @@ def small_train_step():
             raise AssertionError(f"small train step: the update of {n} disagrees with the CPU copy")
 
 
+# dryrun_train on the card against its CPU copy: the same weights, batch and
+# draws, float32 on both; sums in another order (cuDNN's convolutions, the
+# 3xTF32 window bodies) through a whole step, its losses and its gradient norm
+DRYRUN_BOUNDS = dict(rel=1e-3, abs=1e-4)
+
+
+def dryrun_float32() -> tuple:
+    """``graft_entry.dryrun_train()`` on the card: its model's parameters and
+    compute dtype float32, its window attention through the float32 bodies
+    (every launch counted under ``dg_attention_f32`` in the packed wrapper's
+    ``bodies`` and ``backward_bodies``), the shapes of those launches the
+    ones ``float32_window_backward_phase`` checks (``F32_WINDOW_BWD_DRYRUN``),
+    and every metric within ``DRYRUN_BOUNDS`` of
+    ``dryrun_train(device="cpu")``. Returns (metrics, float32 window forward
+    launches, float32 window backward launches)."""
+    from divergen_tpu_torch import graft_entry
+    from divergen_tpu_torch.ops import attention_f32
+    from divergen_tpu_torch.ops import window_attention as wa_mod
+
+    packed = wa_mod.fused_window_attention_packed
+    seen, fwd, bwd = {}, [], []
+    build, launch, plan = graft_entry.build_model, attention_f32.launch, wa_mod._plan
+
+    def recording_build(cfg, **kw):
+        seen["model"] = build(cfg, **kw)
+        return seen["model"]
+
+    def recording_launch(*args, **kw):
+        fwd.append((kw["batch"], kw["heads"], kw["sq"], kw["d"],
+                    None if kw.get("bias2") is None else kw["nw"]))
+        return launch(*args, **kw)
+
+    def recording_plan(dtype, *args):
+        bwd.append((dtype, *args[:4]))
+        return plan(dtype, *args)
+
+    counts = (packed.launches, packed.backward_launches)
+    bodies = (dict(packed.bodies), dict(packed.backward_bodies))
+    graft_entry.build_model, attention_f32.launch, wa_mod._plan = (
+        recording_build, recording_launch, recording_plan)
+    try:
+        got = graft_entry.dryrun_train()
+        torch.cuda.synchronize()
+    finally:
+        graft_entry.build_model, attention_f32.launch, wa_mod._plan = build, launch, plan
+    counts = (packed.launches - counts[0], packed.backward_launches - counts[1])
+    key = ("dg_attention_f32", 32)
+    f32 = (packed.bodies[key] - bodies[0].get(key, 0),
+           packed.backward_bodies[key] - bodies[1].get(key, 0))
+    model = seen["model"]
+    dtypes = {p.dtype for p in model.parameters()}
+    log(f"  dryrun_train on the card: parameters {dtypes}, compute {model.compute_dtype}; "
+        f"{counts[0]} forward and {counts[1]} backward window-attention launches, of them "
+        f"{f32[0]} and {f32[1]} on the float32 bodies at d = 32")
+    if dtypes != {torch.float32} or model.compute_dtype != torch.float32:
+        raise AssertionError("dryrun_train: not float32 on the card")
+    if not (counts == f32 and min(counts) > 0 and len(fwd) == counts[0]
+            and len(bwd) == counts[1]):
+        raise AssertionError(f"dryrun_train: window launches {counts}, on the float32 bodies "
+                             f"{f32}, float32 forward launches {len(fwd)}, backward plans {bwd}")
+    checked = {(bn, h, n, 32, nw) for bn, h, n, nw in F32_WINDOW_BWD_DRYRUN}
+    if set(fwd) != checked or {(torch.float32, bn, h, n, 32) for bn, h, n, _, _ in fwd} != set(bwd):
+        raise AssertionError(f"dryrun_train: launch shapes {sorted(set(fwd), key=str)} (backward "
+                             f"{sorted(set(bwd), key=str)}), not those checked: "
+                             f"{sorted(checked, key=str)}")
+    ref = graft_entry.dryrun_train(device="cpu")
+    for k, want in ref.items():
+        ok = abs(got[k] - want) <= DRYRUN_BOUNDS["rel"] * abs(want) + DRYRUN_BOUNDS["abs"]
+        log(f"    {k}: card {got[k]:.6f}, CPU {want:.6f} [{'ok' if ok else 'FAIL'}]")
+        if not ok:
+            raise AssertionError(f"dryrun_train: {k} on the card disagrees with the CPU step")
+    return got, counts[0], counts[1]
+
+
 def slice_train(card: str):
     """The flagship train step at full width through ``graft_entry``: Swin-L,
     1453 classes, 896², B = 2, bf16 compute over float32 parameters, AdamW with
     clipping, EMA, the federated loss and the compositor. Five steps of
     ``make_paste_train_step`` and one of ``make_train_step`` with the config's
     rematerialization (48 forward launches of fused_window_attention_packed per
-    step, 24 backward), then five steps without it (24 and 24)."""
+    step, 24 backward), then five steps without it (24 and 24). First the
+    float32 ``dryrun_train`` (``dryrun_float32``). Returns its float32 window
+    (forward, backward) launches."""
     from divergen_tpu_torch import graft_entry
     from divergen_tpu_torch.engine.train_loop import make_train_step
     from divergen_tpu_torch.ops.nms import nms_mask
@@ -2602,7 +3135,8 @@ def slice_train(card: str):
                                                          fused_window_attention_packed)
 
     packed, split = fused_window_attention_packed, fused_window_attention
-    print(json.dumps(graft_entry.dryrun_train()), flush=True)
+    metrics, f32_fwd, f32_bwd = dryrun_float32()
+    print(json.dumps(metrics), flush=True)
     probe = ("bottom_up.stage2_block17.attn.qkv.weight", "roi_heads.box_predictor0.cls_score.bias",
              "centernet_head.agn_hm.conv.weight")
     def run(remat):
@@ -2666,6 +3200,7 @@ def slice_train(card: str):
             f"{ms:.1f} ms/step (host clock, median of the steps after the first), peak memory "
             f"{peak:.2f} GiB [{card}]")
     torch.cuda.empty_cache()
+    return f32_fwd, f32_bwd
 
 
 def main() -> int:
@@ -2705,10 +3240,18 @@ def main() -> int:
                 log(f"  ptxas: {line.strip()}")
 
     results = kernel_phases(torch.Generator(device="cuda").manual_seed(0), card)
+    float32_window_backward_phase(torch.Generator(device="cuda").manual_seed(2), card, results)
+    head_dim_entries = head_dim_phases(torch.Generator(device="cuda").manual_seed(3), card)
+    log("kernel phase: every body route of the head dims 1..128 and 512")
+    routes = body_route_sweep(torch.Generator(device="cuda").manual_seed(4))
+    log(f"    {routes} routes agree with their twins")
+    log("kernel phase: the forward-only kernels under autograd")
+    autograd_guard_phase()
     results.update(serving_kernel_phases(torch.Generator(device="cuda").manual_seed(1)))
     log("small models")
     small_models()
     small_float32_models()
+    head_dim_models()
     small_serving_unets()
     small_detector()
     small_train_step()
@@ -2722,16 +3265,35 @@ def main() -> int:
     backward = {"fused_window_attention_packed_backward": fused_window_attention_packed,
                 "fused_window_attention_backward": fused_window_attention}
 
+    # the attention wrappers also count by body and head dim
+    # (attention_f32.count): (name, backward, body entry, d) -> launches
+    attention = [w for w in wrappers if hasattr(w, "bodies")]
+
     def reset():
         for w in wrappers:
             w.launches = 0
         for w in backward.values():
             w.backward_launches = 0
+        for w in attention:
+            w.bodies.clear()
+            if hasattr(w, "backward_bodies"):
+                w.backward_bodies.clear()
 
-    def read(path_kernels, what):
+    def snapshot():
         counts = {w.__name__: w.launches for w in wrappers}
         counts.update({name: w.backward_launches for name, w in backward.items()})
-        log(f"  kernel launches in {what}: {counts}")
+        for w in attention:
+            counts.update({(w.__name__, False, *key): n for key, n in w.bodies.items()})
+            counts.update({(w.__name__, True, *key): n
+                           for key, n in getattr(w, "backward_bodies", {}).items()})
+        return counts
+
+    def read(path_kernels, what):
+        counts = snapshot()
+        log(f"  kernel launches in {what}: "
+            f"{ {k: n for k, n in counts.items() if isinstance(k, str)} }")
+        log(f"    by body and head dim: "
+            f"{ {k: n for k, n in counts.items() if not isinstance(k, str)} }")
         missing = [name for name in path_kernels if counts[name] == 0]
         if missing:
             raise AssertionError(f"kernels not launched in {what}: {missing}")
@@ -2775,7 +3337,7 @@ def main() -> int:
     want_b.update(fused_ln_matmul=0, flash_attention_packed=70 * unet_calls, flash_attention=2)
     for what, counts, want in (("txt2img --int8", after_a, want_a),
                                ("SDXLPipeline(int8=True)",
-                                {k: serving[k] - after_a[k] for k in serving}, want_b)):
+                                {k: serving[k] - after_a.get(k, 0) for k in serving}, want_b)):
         wrong = {k: (counts[k], n) for k, n in want.items() if counts[k] != n}
         if wrong:
             raise AssertionError(f"{what}: launches (got, expected) {wrong}")
@@ -2799,15 +3361,15 @@ def main() -> int:
                              f"expected) {wrong}")
     log(f"  launches as expected per UNet call x {unet_calls} calls: "
         f"{ {k: fused[k] for k in want} }")
-    every = every_option_unet_call(pipe, cond, wrappers)
-    fused = {k: fused[k] + every.get(k, 0) for k in fused}
+    every = every_option_unet_call(pipe, cond, snapshot)
+    fused = {k: fused.get(k, 0) + every.get(k, 0) for k in {**fused, **every}}
     fused_timings(pipe, pipe_f, cond, card)
     del encoder, pipe, cond, bf16_images, pipe_f
     torch.cuda.empty_cache()
 
     log("slice: detector train step (dryrun_train, then the Swin-L flagship at full width)")
     reset()
-    slice_train(card)
+    f32_fwd, f32_bwd = slice_train(card)
     train = read(("fused_window_attention_packed", "fused_window_attention_packed_backward"),
                  "the train slice")
 
@@ -2816,8 +3378,10 @@ def main() -> int:
     detector_timings = slice_detector(card)
     detector = read(("fused_window_attention_packed",), "the detector slice")
     detector_timings()
-    launches = {name: sdxl[name] + chain[name] + serving[name] + fused[name] + train[name]
-                + detector[name] for name in sdxl}
+    launches = {}
+    for counts in (sdxl, chain, serving, fused, train, detector):
+        for k, n in counts.items():
+            launches[k] = launches.get(k, 0) + n
     # the split wrapper is on no slice's path (the packed kernels take any head
     # count): the kernel phases hold its forward and backward, its counts stay 0
     for name in ("fused_window_attention", "fused_window_attention_backward"):
@@ -2853,9 +3417,45 @@ def main() -> int:
         "fused_gn_silu_conv3x3": ("divergen_tpu_torch/csrc/gn_conv.cu",
                                   "divergen_tpu/ops/pallas/fused_gn_conv.py:84"),
     }
+    # each main-path launch of an attention kernel goes to one row, by the
+    # body that ran it and the caller's head dim: a head-dim case's row takes
+    # its own (body, d); the float32 body's row every other float32-body
+    # launch of its wrapper; the kernel's own row the rest
+    head_dim_keys = {(w.__name__, back, entry, d) for _, (w, back, entry, d) in head_dim_entries}
+    if len(head_dim_keys) != len(head_dim_entries):
+        raise AssertionError("two head-dim cases share a (wrapper, body, head dim)")
+
+    def body_launches(name, f32):
+        wrapper, back = name.removesuffix("_backward"), name.endswith("_backward")
+        if not any(isinstance(k, tuple) and k[:2] == (wrapper, back) for k in launches):
+            return launches[name]  # not an attention kernel: one body
+        return sum(n for k, n in launches.items() if isinstance(k, tuple)
+                   and k[:2] == (wrapper, back) and (k[2] == "dg_attention_f32") == f32
+                   and k not in head_dim_keys)
+
     kernels = [{"name": name, "route": "cuda", "source": src, "replaces": rep,
-                "launches": launches[name], **results[name]}
+                "launches": body_launches(name, False), **results[name]}
                for name, (src, rep) in sources.items()]
+    # the float32 body of kernels 1, 3, 4, 5 and 6 (the split wrapper's
+    # float32 launches, none on a path, would be the packed rows')
+    for name in ("flash_attention_packed", "flash_attention", "flash_attention_relpos",
+                 "fused_window_attention_packed", "fused_window_attention_packed_backward"):
+        kernels.append({"name": f"{name} (float32)", "route": "cuda",
+                        "source": "divergen_tpu_torch/csrc/attention_f32.cu",
+                        "replaces": sources[name][1], "launches": body_launches(name, True),
+                        **results[f"{name} (float32)"]})
+    for entry, key in head_dim_entries:  # the head-dim phase's cases, each its own row
+        entry["launches"] = launches.get((key[0].__name__, *key[1:]), 0)
+        kernels.append(entry)
+    counted = sum(k["launches"] for k in kernels)
+    if counted != sum(n for name, n in launches.items() if isinstance(name, str)):
+        raise AssertionError(f"the kernels line counts {counted} main-path launches, the "
+                             f"wrappers {launches}")
+    f32_train = tuple(train.get(("fused_window_attention_packed", back, "dg_attention_f32", 32), 0)
+                      for back in (False, True))
+    if f32_train != (f32_fwd, f32_bwd):
+        raise AssertionError(f"the train slice's float32 window launches {f32_train} are not "
+                             f"dryrun_train's {(f32_fwd, f32_bwd)}")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -228,11 +228,10 @@ def train_entry(device=None):
     the copy-paste train step (``engine.trainer.make_paste_train_step``) and
     one seeded 128 × 128 batch of two images with patches to paste;
     ``state, metrics = step(state, batch, rng)``. The device rule is
-    ``entry``'s: on the card it computes in bfloat16 over the float32
-    parameters, on the CPU in float32."""
+    ``entry``'s: float32 on the card and on the CPU, as the JAX
+    ``_small_cfg()``."""
     dev = entry_device(device)
     cfg = _small_cfg()
-    cfg.FP16 = dev.type == "cuda"
     cfg.SOLVER.CLIP_GRADIENTS.ENABLED = True
     cfg.MODEL.MODEL_EMA = 0.999
     cfg.INPUT.USE_COPY_PASTE = True
@@ -257,12 +256,13 @@ def flagship_train_entry(device=None, remat: bool = True):
 
 def dryrun_train(device=None) -> Dict[str, float]:
     """One train step on the small detector at 64 × 64 with clipping and EMA
-    on (the one-device part of the JAX package's ``dryrun_multichip``):
-    checks that the step counter is 1 and every metric is finite, prints and
-    returns the metrics."""
+    on (the one-device part of the JAX package's ``dryrun_multichip``), in
+    float32 on any device as the JAX ``_small_cfg()``: checks that the step
+    counter is 1 and every metric is finite, prints and returns the metrics.
+    Weights, batch and the step's uniform draws come from CPU generators and
+    numpy seeds, so the card and the CPU take the same step."""
     dev = entry_device(device)
     cfg = _small_cfg()
-    cfg.FP16 = dev.type == "cuda"
     cfg.MODEL.ROI_HEADS.BATCH_SIZE_PER_IMAGE = 32
     cfg.MODEL.CENTERNET.PRE_NMS_TOPK_TRAIN = 32
     cfg.MODEL.CENTERNET.POST_NMS_TOPK_TRAIN = 16
@@ -276,7 +276,7 @@ def dryrun_train(device=None) -> Dict[str, float]:
              "image_sizes": torch.tensor([[64, 64]], device=dev),
              "gt": _synth_gt(rng, 1, 8, 8, img=64, device=dev)}
     step = make_train_step(model, optimizer, ema_decay=0.999)
-    state, metrics = step(state, batch, torch.Generator(device=dev).manual_seed(2))
+    state, metrics = step(state, batch, torch.Generator().manual_seed(2))
     out = {k: float(v) for k, v in metrics.items()}
     assert state.step == 1
     for k, v in out.items():

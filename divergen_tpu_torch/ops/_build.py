@@ -21,6 +21,8 @@ import subprocess
 import threading
 from pathlib import Path
 
+import torch
+
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 NVCC_FLAGS = (
@@ -132,11 +134,13 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.dg_attention_f32.restype = i
     lib.dg_attention_f32_plan.argtypes = [i, i]
     lib.dg_attention_f32_plan.restype = i
-    lib.dg_window_attention_bwd_f32.argtypes = lib.dg_window_attention_bwd_bf16.argtypes
+    lib.dg_window_attention_bwd_f32.argtypes = [p] * 11 + [i] * 7 + [i64] * 12 + [f, p]
     lib.dg_window_attention_bwd_f32.restype = i
-    lib.dg_window_attention_packed_bwd_f32.argtypes = (
-        lib.dg_window_attention_packed_bwd_bf16.argtypes)
+    lib.dg_window_attention_packed_bwd_f32.argtypes = [p] * 7 + [i] * 7 + [f, p]
     lib.dg_window_attention_packed_bwd_f32.restype = i
+    for name in ("dg_window_attention_bwd_f32_smem", "dg_window_attention_bwd_f32_resident"):
+        getattr(lib, name).argtypes = [i, i]
+        getattr(lib, name).restype = i
     lib.dg_int8_matmul.argtypes = [p] * 5 + [i] * 6 + [p]
     lib.dg_int8_matmul.restype = i
     lib.dg_int8_quantize_rows.argtypes = [p] * 3 + [i] * 3 + [p]
@@ -164,6 +168,16 @@ def lib() -> ctypes.CDLL:
             _declare(loaded)
             _lib = loaded
     return _lib
+
+
+def require_no_grad(name: str, *tensors) -> None:
+    """Raise when ``name``, a forward-only kernel, would be launched where
+    autograd records: grad mode on and any tensor argument requiring grad.
+    The kernel writes into a fresh buffer, so its result would be cut off
+    from the graph with no error. ``None`` arguments are skipped."""
+    if torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in tensors):
+        raise RuntimeError(f"{name} is forward only, as the JAX kernel (it has no custom_vjp): "
+                           "call it under torch.no_grad() or inference_mode()")
 
 
 def check(code: int, what: str) -> None:

@@ -1,5 +1,5 @@
-"""Which CUDA body an attention wrapper launches, and the launch of the
-float32 body (``csrc/attention_f32.cu``).
+"""Which CUDA body an attention wrapper launches, at which width, and the
+launch of the float32 body (``csrc/attention_f32.cu``).
 
 The five attention kernels of ``flash_attention.py`` and
 ``window_attention.py`` take bfloat16 or float32, as their Pallas kernels
@@ -7,8 +7,16 @@ take the input's dtype. bf16 runs each kernel's own body; float32 runs one
 float32 body for all of them, whose score bias is a policy (none, dense,
 relative position, window), and whose products are float32-accurate: TF32
 tensor-core products in three passes (``tf32x3.py``), no operand rounded to
-bf16 or taken in one TF32 pass. :func:`body_for` is the dispatch, a pure
-function of the dtype, head dim and bias; any other dtype raises.
+bf16 or taken in one TF32 pass. Any other dtype raises.
+
+The bodies are compiled for a few head dims; the Pallas kernels take any.
+:func:`kernel_body` maps (dtype, bias, d) to a body and a kernel width
+``dk >= d``: the wrapper hands the body q, k and v zero-padded along the head
+dim to ``dk`` (the zero channels add exact zeros to q·kᵀ, and P·0 is 0), keeps
+the scale at ``1/√d`` of the true d, and takes the first d output channels.
+Where no bf16 body is that wide (the relative-position bias above d = 80),
+the float32 body takes a float32 copy. :func:`count` adds a launch to a
+wrapper's counts, by body and head dim.
 
 The forward's tile plan is :data:`TC_PLANS` (the body's ``Plan<D>``, which
 the library reports through ``dg_attention_f32_plan``); :func:`block_rows`,
@@ -23,13 +31,84 @@ import torch
 
 from . import _build
 
-F32_HEAD_DIMS = (32, 64, 80, 512)
+F32_HEAD_DIMS = (32, 64, 80, 128, 512)
 BIAS_MODES = {"none": 0, "dense": 1, "relpos": 2, "window": 3}
 # the bf16 body of each (bias mode, head dim)
 BF16_BODIES = {("none", 64): "dg_flash_attention_sm90", ("dense", 64): "dg_flash_attention_sm90",
                ("none", 512): "dg_flash_attention_d512", ("dense", 512): "dg_flash_attention_d512",
                ("relpos", 80): "dg_flash_attention_relpos_bf16",
                ("window", 32): "dg_window_attention_bf16"}
+PADDED_HEAD_DIMS = 128  # head dims 1..128 pad up to a body's width; 512 is one
+# the window kernels' widths by dtype: their backward bodies'
+# (csrc/window_attention.cu at d = 32, csrc/attention_f32.cu at 32 and 64)
+WINDOW_WIDTHS = {torch.bfloat16: (32,), torch.float32: (32, 64)}
+
+
+class Body(NamedTuple):
+    """A body for one (dtype, bias mode, head dim): its C entry point, the
+    head dim it is launched at (``width >= d``; the channels past d are
+    zeros) and the dtype it computes in (the input's, or float32 for a bf16
+    input that no bf16 body is wide enough for)."""
+    entry: str
+    width: int
+    dtype: torch.dtype
+
+
+def _widths(dtype: torch.dtype, bias_mode: str) -> Tuple[int, ...]:
+    if bias_mode == "window":
+        return WINDOW_WIDTHS[dtype]
+    if dtype == torch.float32:
+        return F32_HEAD_DIMS
+    return tuple(sorted(dd for mode, dd in BF16_BODIES if mode == bias_mode))
+
+
+def kernel_body(dtype: torch.dtype, d: int, bias_mode: str) -> Body:
+    """The body that computes attention of head dim ``d`` with the score bias
+    ``bias_mode`` on ``dtype`` q, k and v, at the least width ``>= d`` that a
+    body of that dtype has; for bf16 without one (the relative-position bias
+    above d = 80), the float32 body's. Head dims 1 to 128 and 512 (the window
+    kernels: up to their backward's widest); raises on any other, and on a
+    dtype other than bfloat16 or float32."""
+    if bias_mode not in BIAS_MODES:
+        raise ValueError(f"bias mode {bias_mode!r} not in {tuple(BIAS_MODES)}")
+    if dtype not in (torch.bfloat16, torch.float32):
+        raise ValueError(f"the kernel takes bfloat16 or float32, got {dtype}")
+    widths = _widths(dtype, bias_mode)
+    if bias_mode == "window":
+        top = widths[-1]
+        if not 1 <= d <= top:
+            raise ValueError(f"head dim {d}: the {dtype} window kernels take 1 <= d <= {top} "
+                             f"(widths {widths})")
+    elif not (1 <= d <= PADDED_HEAD_DIMS or d == 512):
+        raise ValueError(f"head dim {d}: the attention kernels take 1 <= d <= "
+                         f"{PADDED_HEAD_DIMS} (padded to {dtype} widths {widths}) and d = 512")
+    width = next((w for w in widths if w >= d), None)
+    if width is None:  # bf16 relpos above d = 80
+        return Body("dg_attention_f32", next(w for w in F32_HEAD_DIMS if w >= d), torch.float32)
+    if dtype == torch.float32:
+        return Body("dg_attention_f32", width, dtype)
+    return Body(BF16_BODIES[(bias_mode, width)], width, dtype)
+
+
+def count(wrapper, body: Body, d: int, backward: bool = False) -> None:
+    """One launch of ``wrapper``'s kernel on ``body`` at the caller's head
+    dim ``d``: one more in ``wrapper.launches`` (``.backward_launches``) and
+    in ``wrapper.bodies`` (``.backward_bodies``) under (``body.entry``, d),
+    which tells the bodies and the padded head dims of its launches apart."""
+    if backward:
+        wrapper.backward_launches += 1
+        wrapper.backward_bodies[body.entry, d] += 1
+    else:
+        wrapper.launches += 1
+        wrapper.bodies[body.entry, d] += 1
+
+
+def pad_head_dim(t: torch.Tensor, body: Body) -> torch.Tensor:
+    """``t`` (..., d) as a new contiguous (..., ``body.width``) tensor in
+    ``body.dtype``, channels d.. zero: a layout step in front of the body."""
+    out = t.new_zeros((*t.shape[:-1], body.width), dtype=body.dtype)
+    out[..., :t.shape[-1]] = t
+    return out
 
 
 class TcPlan(NamedTuple):
@@ -65,7 +144,7 @@ class TcPlan(NamedTuple):
 
 # d 32 is the window policy's: n = 144 in three blocks of 48 rows, three tiles of 48 keys
 TC_PLANS = {32: TcPlan(3, 1, 1, 48, 3), 64: TcPlan(4, 1, 1, 32, 3), 80: TcPlan(4, 1, 1, 32, 3),
-            512: TcPlan(1, 8, 2, 16, 2)}
+            128: TcPlan(1, 4, 2, 16, 3), 512: TcPlan(1, 8, 2, 16, 2)}
 
 
 def grid(sq: int, heads: int, batch: int, d: int) -> Tuple[int, int, int]:
@@ -97,26 +176,6 @@ def pv_slot_key(slot: int) -> int:
     if not 0 <= slot < 8:
         raise ValueError(f"slot {slot} not in 0..7")
     return 2 * (slot % 4) + slot // 4
-
-
-def body_for(dtype: torch.dtype, d: int, bias_mode: str) -> str:
-    """The C entry point that computes attention of head dim ``d`` with the
-    score bias ``bias_mode`` on ``dtype`` q, k and v: the float32 body for
-    float32, the kernel's bf16 body for bfloat16. Raises on any other dtype
-    and on a head dim that has no body."""
-    if bias_mode not in BIAS_MODES:
-        raise ValueError(f"bias mode {bias_mode!r} not in {tuple(BIAS_MODES)}")
-    if dtype == torch.float32:
-        if d not in F32_HEAD_DIMS:
-            raise ValueError(f"head dim {d} has no float32 kernel (instantiated: {F32_HEAD_DIMS})")
-        return "dg_attention_f32"
-    if dtype != torch.bfloat16:
-        raise ValueError(f"the kernel takes bfloat16 or float32, got {dtype}")
-    body = BF16_BODIES.get((bias_mode, d))
-    if body is None:
-        dims = tuple(dd for mode, dd in BF16_BODIES if mode == bias_mode)
-        raise ValueError(f"head dim {d} has no kernel (instantiated: {dims})")
-    return body
 
 
 def launch(q: torch.Tensor, k_ptr: int, v_ptr: int, out: torch.Tensor, *, batch: int,

@@ -18,17 +18,28 @@ score accumulator). Each takes bf16 or float32, as the TPU kernels take the
 input's
 dtype: float32 q, k and v (a float32 model's attention) run the float32 body
 ``csrc/attention_f32.cu`` (float32-accurate products on the tensor cores in
-three TF32 passes, ``tf32x3.py``, at head dims 32, 64, 80 and 512;
-``attention_f32.body_for`` is the dispatch), and the output is in
-q's dtype; any other dtype raises.
+three TF32 passes, ``tf32x3.py``, at head dims 32, 64, 80, 128 and 512), and
+the output is in q's dtype; any other dtype raises. Every head dim from 1 to
+128, and 512, runs: ``attention_f32.kernel_body`` names the body and its
+width, and the wrapper zero-pads q, k and v along the head dim to that width
+first (the packed kernel through kernel 3's path, as the Pallas
+``flash_attention_packed`` sends a width it cannot tile to
+``flash_attention``); other head dims raise.
+
+The three are forward only, as the JAX kernels (no ``custom_vjp``): on a CUDA
+tensor each raises where autograd would record it
+(``_build.require_no_grad``), so call them under ``torch.no_grad()`` or
+``inference_mode()``; the CPU twins differentiate.
 
 Each wrapper counts its kernel launches in a plain int attribute
 (``flash_attention.launches``, ``flash_attention_packed.launches``,
-``flash_attention_relpos.launches``).
+``flash_attention_relpos.launches``), and in ``.bodies`` by the body that ran
+and the caller's head dim (``attention_f32.count``).
 """
 from __future__ import annotations
 
 import math
+from collections import Counter
 from typing import Iterator, NamedTuple, Optional, Tuple
 
 import torch
@@ -51,11 +62,14 @@ SOFTMAX_MODES = ("exact", "rawmax")  # the same math; the TPU's bf16exp is not p
 
 
 def reference_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                        bias: Optional[torch.Tensor] = None) -> torch.Tensor:
+                        bias: Optional[torch.Tensor] = None,
+                        scale: Optional[float] = None) -> torch.Tensor:
     """Plain softmax attention, q/k/v (BH, S, D): products in f32, P cast to
-    v's dtype before the P@V product, output in q's dtype."""
+    v's dtype before the P@V product, output in q's dtype. ``scale`` by
+    default ``1/√D`` (a head dim padded with zeros keeps its own)."""
     d = q.shape[-1]
-    s = torch.einsum("bqd,bkd->bqk", q.float(), k.float()) / math.sqrt(d)
+    scale = 1.0 / math.sqrt(d) if scale is None else scale
+    s = torch.einsum("bqd,bkd->bqk", q.float(), k.float()) * scale
     if bias is not None:
         s = s + bias.float()
     p = torch.softmax(s, dim=-1)
@@ -84,24 +98,26 @@ def relpos_dense_bias(bias_h_t: torch.Tensor, bias_w_t: torch.Tensor) -> torch.T
 
 def reference_attention_relpos(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                                bias_h_t: torch.Tensor, bias_w_t: torch.Tensor,
-                               hw: Tuple[int, int]) -> torch.Tensor:
+                               hw: Tuple[int, int], scale: Optional[float] = None) -> torch.Tensor:
     """Plain attention with the decomposed relative-position bias: q/k/v
     (BH, N, D); bias_h_t (BH, H, N); bias_w_t (BH, W, N); N = H·W. The bias of
-    query q against key (u, v) is ``bias_h_t[b, u, q] + bias_w_t[b, v, q]``."""
+    query q against key (u, v) is ``bias_h_t[b, u, q] + bias_w_t[b, v, q]``.
+    ``scale`` by default ``1/√D``."""
     d = q.shape[-1]
-    s = torch.einsum("bqd,bkd->bqk", q.float(), k.float()) / math.sqrt(d)
+    scale = 1.0 / math.sqrt(d) if scale is None else scale
+    s = torch.einsum("bqd,bkd->bqk", q.float(), k.float()) * scale
     s = s + relpos_dense_bias(bias_h_t, bias_w_t).float()
     p = torch.softmax(s, dim=-1)
     return torch.einsum("bqk,bkd->bqd", p.to(v.dtype).float(), v.float()).to(q.dtype)
 
 
-def _require_kernel_input(name: str, t: torch.Tensor, d: int, bias_mode: str,
-                          strided: bool = False) -> None:
-    """Raise on a non-CPU tensor the kernel cannot take (its dtype and head
-    dim: :func:`attention_f32.body_for`)."""
+def _require_kernel_input(name: str, t: torch.Tensor, strided: bool = False) -> None:
+    """Raise on a non-CPU tensor the kernel cannot take. Its dtype and head
+    dim are a body's own: the wrappers take the body from
+    :func:`attention_f32.kernel_body` (which raises on any other) and pad to
+    its width first, and these rules hold for the padded tensor."""
     if t.device.type != "cuda":
         raise ValueError(f"{name}: expected a CUDA or CPU tensor, got {t.device}")
-    attention_f32.body_for(t.dtype, d, bias_mode)
     if strided:
         if t.stride(-1) != 1 or any(st % 8 for st in t.stride()[:-1]):
             raise ValueError(f"{name}: the kernel takes a unit last stride and other "
@@ -175,11 +191,11 @@ def bhsd_plan(bh: int, sq: int, d: int) -> TilePlan:
 
 def _launch_wgmma(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, plan: TilePlan, d: int,
                   sq: int, sk: int, out: torch.Tensor, o_strides, bias=None,
-                  bias_strides=(0, 0, 0)) -> None:
+                  bias_strides=(0, 0, 0), scale: Optional[float] = None) -> None:
     """The bf16 wgmma body of head dim ``d`` (64 or 512) on q, k and v of
     shape (batch, rows, width) (the same tensor for a packed projection),
     into ``out``, a caller's buffer addressed by ``o_strides`` (batch, head,
-    row)."""
+    row); ``scale`` by default ``1/√d``."""
     lib = _build.lib()
     entry = lib.dg_flash_attention_sm90 if d == SM90_HEAD_DIM else lib.dg_flash_attention_d512
     sms = torch.cuda.get_device_properties(out.device).multi_processor_count
@@ -187,7 +203,8 @@ def _launch_wgmma(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, plan: TileP
         q.data_ptr(), k.data_ptr(), v.data_ptr(), None if bias is None else bias.data_ptr(),
         out.data_ptr(), plan.items[2], plan.items[1], sq, sk, plan.width, q.stride(0),
         plan.width, k.stride(0), plan.q_c0, plan.k_c0, plan.v_c0, plan.head_c, *o_strides,
-        *bias_strides, 1.0 / math.sqrt(d), int(out.dtype == torch.float32),
+        *bias_strides, 1.0 / math.sqrt(d) if scale is None else scale,
+        int(out.dtype == torch.float32),
         plan.blocks(sms), torch.cuda.current_stream(out.device).cuda_stream,
     )
     _build.check(code, f"flash attention (d = {d}) kernel launch")
@@ -224,21 +241,30 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"shapes q {tuple(q.shape)} k {tuple(k.shape)} v {tuple(v.shape)}")
     if sq == 0 or sk == 0:
         raise ValueError("empty sequence")
-    for name, t in (("q", q), ("k", k), ("v", v)):
-        _require_kernel_input(name, t, d, "none" if bias is None else "dense")
     if not q.dtype == k.dtype == v.dtype:
         raise ValueError(f"q, k, v dtypes {q.dtype}, {k.dtype}, {v.dtype} differ")
+    mode = "none" if bias is None else "dense"
+    body = attention_f32.kernel_body(q.dtype, d, mode)
+    _build.require_no_grad("flash_attention", q, k, v, bias)
+    dtype, copied = q.dtype, body.width != d or body.dtype != q.dtype
+    if copied:
+        q, k, v = (attention_f32.pad_head_dim(t, body) for t in (q, k, v))
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        _require_kernel_input(name, t)
     out = torch.empty_like(q)
-    flash_attention.launches += 1
-    return _flash_into(q, k, v, bias, out)
+    attention_f32.count(flash_attention, body, d)
+    _flash_into(q, k, v, bias, out, 1.0 / math.sqrt(d))
+    return out[..., :d].to(dtype).contiguous() if copied else out
 
 
 def _flash_into(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                bias: Optional[torch.Tensor], out: torch.Tensor) -> torch.Tensor:
+                bias: Optional[torch.Tensor], out: torch.Tensor,
+                scale: Optional[float] = None) -> torch.Tensor:
     """Launches the kernel on checked CUDA q, k, v (BH, S, D) into ``out``, a
     (BH, Sq, D) view with a unit last stride that the caller allocates (a
-    view of a larger buffer is fine)."""
+    view of a larger buffer is fine); ``scale`` by default ``1/√D``."""
     bh, sq, d = q.shape
+    scale = 1.0 / math.sqrt(d) if scale is None else scale
     sk = k.shape[1]
     bias_strides = (0, 0, 0)
     if bias is not None:
@@ -252,12 +278,14 @@ def _flash_into(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             q, k.data_ptr(), v.data_ptr(), out, batch=bh, heads=1, sq=sq, sk=sk, d=d,
             q_strides=(q.stride(0), 0, q.stride(1)), kv_strides=(k.stride(0), 0, k.stride(1)),
             o_strides=o_strides, bias_mode="none" if bias is None else "dense", bias=bias,
-            bias_strides=bias_strides, scale=1.0 / math.sqrt(d))
-    _launch_wgmma(q, k, v, bhsd_plan(bh, sq, d), d, sq, sk, out, o_strides, bias, bias_strides)
+            bias_strides=bias_strides, scale=scale)
+    _launch_wgmma(q, k, v, bhsd_plan(bh, sq, d), d, sq, sk, out, o_strides, bias, bias_strides,
+                  scale)
     return out
 
 
 flash_attention.launches = 0
+flash_attention.bodies = Counter()
 
 
 def flash_attention_packed(qkv: torch.Tensor, heads: int,
@@ -278,13 +306,46 @@ def flash_attention_packed(qkv: torch.Tensor, heads: int,
         return reference_attention_packed(qkv, heads)
     c = c3 // 3
     d = c // heads
-    _require_kernel_input("qkv", qkv, d, "none")
-    out = torch.empty((b, n, c), dtype=qkv.dtype, device=qkv.device)
-    flash_attention_packed.launches += 1
-    return _packed_into(qkv, heads, out)
+    body = attention_f32.kernel_body(qkv.dtype, d, "none")
+    _build.require_no_grad("flash_attention_packed", qkv)
+    if body.width == d and body.dtype == qkv.dtype:
+        _require_kernel_input("qkv", qkv)
+        out = torch.empty((b, n, c), dtype=qkv.dtype, device=qkv.device)
+        attention_f32.count(flash_attention_packed, body, d)
+        return _packed_into(qkv, heads, out)
+    # a width the body cannot read by stride: kernel 3's path
+    x = packed_heads(qkv, heads, body)
+    for name, t in zip("qkv", x):
+        _require_kernel_input(name, t)
+    out = torch.empty_like(x[0])
+    attention_f32.count(flash_attention_packed, body, d)
+    _flash_into(x[0], x[1], x[2], None, out, 1.0 / math.sqrt(d))
+    return packed_merge(out, b, d, qkv.dtype)
+
+
+def packed_heads(qkv: torch.Tensor, heads: int, body: attention_f32.Body) -> torch.Tensor:
+    """A fused (B, N, 3·H·d) projection as kernel 3's (3, B·H, N, width)
+    operands in ``body.dtype``, each head's channels zero-padded to the
+    body's width: the layout step of :func:`flash_attention_packed` at a
+    head dim that its body cannot read by stride."""
+    b, n, c3 = qkv.shape
+    d = c3 // (3 * heads)
+    x = qkv.new_zeros((3, b, heads, n, body.width), dtype=body.dtype)
+    x[..., :d] = qkv.reshape(b, n, 3, heads, d).permute(2, 0, 3, 1, 4)
+    return x.view(3, b * heads, n, body.width)
+
+
+def packed_merge(out: torch.Tensor, batch: int, d: int, dtype: torch.dtype) -> torch.Tensor:
+    """Kernel 3's (B·H, N, width) output of :func:`packed_heads`' operands
+    as the (B, N, H·d) result in ``dtype``."""
+    bh, n, width = out.shape
+    heads = bh // batch
+    out = out.view(batch, heads, n, width)[..., :d].permute(0, 2, 1, 3)
+    return out.to(dtype).reshape(batch, n, heads * d)
 
 
 flash_attention_packed.launches = 0
+flash_attention_packed.bodies = Counter()
 
 
 def flash_attention_relpos(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -318,29 +379,43 @@ def flash_attention_relpos(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         flat = lambda t: t.reshape(bh, n, d)
         out = reference_attention_relpos(flat(q), flat(k), flat(v), bias_h_t, bias_w_t, hw)
         return out.reshape(q.shape)
-    for name, t in (("q", q), ("k", k), ("v", v)):
-        _require_kernel_input(name, t, d, "relpos", strided=True)
     if not q.dtype == k.dtype == v.dtype:
         raise ValueError(f"q, k, v dtypes {q.dtype}, {k.dtype}, {v.dtype} differ")
+    body = attention_f32.kernel_body(q.dtype, d, "relpos")
+    _build.require_no_grad("flash_attention_relpos", q, k, v, bias_h_t, bias_w_t)
+    dtype, copied = q.dtype, body.width != d or body.dtype != q.dtype
+    if copied:
+        q, k, v = (attention_f32.pad_head_dim(t, body) for t in (q, k, v))
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        _require_kernel_input(name, t, strided=True)
     if k.stride() != v.stride():
         raise ValueError(f"k and v must share strides, got {k.stride()} and {v.stride()}")
-    if q.dim() == 3:
-        out = torch.empty((bh, n, d), dtype=q.dtype, device=q.device)
-    else:
+
+    def buffer(width, dt):
+        if q.dim() == 3:
+            return torch.empty((bh, n, width), dtype=dt, device=q.device)
         batch, heads = q.shape[:2]
-        out = torch.empty((batch, n, heads, d), dtype=q.dtype, device=q.device).permute(0, 2, 1, 3)
-    flash_attention_relpos.launches += 1
-    return _relpos_into(q, k, v, bias_h_t, bias_w_t, hw, out)
+        return torch.empty((batch, n, heads, width), dtype=dt, device=q.device).permute(0, 2, 1, 3)
+
+    out = buffer(body.width, body.dtype)
+    attention_f32.count(flash_attention_relpos, body, d)
+    _relpos_into(q, k, v, bias_h_t, bias_w_t, hw, out, 1.0 / math.sqrt(d))
+    if not copied:
+        return out
+    return buffer(d, dtype).copy_(out[..., :d])
 
 
 def _relpos_into(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, bias_h_t: torch.Tensor,
-                 bias_w_t: torch.Tensor, hw: Tuple[int, int], out: torch.Tensor) -> torch.Tensor:
+                 bias_w_t: torch.Tensor, hw: Tuple[int, int], out: torch.Tensor,
+                 scale: Optional[float] = None) -> torch.Tensor:
     """Launches the kernel on checked CUDA q, k, v ((BH, N, D) or
     (B, heads, N, D), k and v sharing strides) and (BH, H|W, N) factors into
     ``out``, a view of q's shape with a unit last stride that the caller
-    allocates (a view of a larger buffer is fine)."""
+    allocates (a view of a larger buffer is fine); ``scale`` by default
+    ``1/√D``."""
     h, w = hw
     n, d = q.shape[-2:]
+    scale = 1.0 / math.sqrt(d) if scale is None else scale
     f32 = dict(device=q.device, dtype=torch.float32)
     bias_h_t = bias_h_t.to(**f32).contiguous()
     bias_w_t = bias_w_t.to(**f32).contiguous()
@@ -354,15 +429,15 @@ def _relpos_into(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, bias_h_t: to
         return attention_f32.launch(
             q, k.data_ptr(), v.data_ptr(), out, batch=batch, heads=heads, sq=n, sk=n, d=d,
             q_strides=strides(q), kv_strides=strides(k), o_strides=strides(out),
-            bias_mode="relpos", bias=bias_h_t, bias2=bias_w_t, grid=(h, w),
-            scale=1.0 / math.sqrt(d))
+            bias_mode="relpos", bias=bias_h_t, bias2=bias_w_t, grid=(h, w), scale=scale)
     code = _build.lib().dg_flash_attention_relpos_bf16(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), bias_h_t.data_ptr(), bias_w_t.data_ptr(),
         out.data_ptr(), batch, heads, h, w, d, *strides(q), *strides(k), *strides(out),
-        1.0 / math.sqrt(d), torch.cuda.current_stream(q.device).cuda_stream,
+        scale, torch.cuda.current_stream(q.device).cuda_stream,
     )
     _build.check(code, "flash attention (relative position) kernel launch")
     return out
 
 
 flash_attention_relpos.launches = 0
+flash_attention_relpos.bodies = Counter()

@@ -214,10 +214,7 @@ def fused_gn_silu_conv3x3(x: torch.Tensor, gn_scale: torch.Tensor, gn_bias: torc
         return fused_gn_silu_conv3x3_reference(x, gn_scale, gn_bias, weight, bias, groups, eps)
     if x.device.type != "cuda":
         raise ValueError(f"fused_gn_silu_conv3x3: x on {x.device}; the kernel needs CUDA")
-    if torch.is_grad_enabled() and any(
-            t.requires_grad for t in (x, gn_scale, gn_bias, weight, bias)):
-        raise RuntimeError("fused_gn_silu_conv3x3 is forward only, as the JAX kernel (it has no "
-                           "custom_vjp): call it under torch.no_grad() or inference_mode()")
+    _build.require_no_grad("fused_gn_silu_conv3x3", x, gn_scale, gn_bias, weight, bias)
     return _launch(x, gn_scale, gn_bias, weight, bias, groups, eps)
 
 

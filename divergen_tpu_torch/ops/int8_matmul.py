@@ -17,7 +17,9 @@ and write ``out_dtype``; both launch ``csrc/int8_matmul.cu`` for a CUDA tensor
 (bf16 or f32 output, K a multiple of 16, any M and N) and run the plain
 versions in this module for a CPU tensor. A CUDA tensor the kernels cannot take raises.
 Launches are counted in ``int8_matmul_pallas.launches`` and
-``int8_matmul_fused_quant.launches`` (one per wrapper call).
+``int8_matmul_fused_quant.launches`` (one per wrapper call). Both are forward
+only, as the JAX kernels (no ``custom_vjp``): on a CUDA tensor they raise
+where autograd would record them (``_build.require_no_grad``).
 
 The GEMM is persistent: :func:`gemm_plan` picks its tile width and its
 number of blocks from the output's shape and the card's SM count.
@@ -217,6 +219,7 @@ def int8_matmul_pallas(x_q: torch.Tensor, x_scale: torch.Tensor, w_q: torch.Tens
         raise ValueError(f"x_q {tuple(x_q.shape)} and w_q {tuple(w_q.shape)} do not chain")
     if x_q.device.type == "cpu":
         return int8_matmul_pallas_reference(x_q, x_scale, w_q, w_scale, out_dtype)
+    _build.require_no_grad("int8_matmul_pallas", x_q, x_scale, w_q, w_scale)
     wt = _check_cuda("int8_matmul_pallas", m, k, w_q, w_scale, out_dtype, x_q.device)
     if x_q.dtype != torch.int8 or not x_q.is_contiguous() or x_q.data_ptr() % 16:
         raise ValueError("int8_matmul_pallas: the kernel takes a contiguous, 16-byte aligned "
@@ -239,6 +242,7 @@ def int8_matmul_fused_quant(x: torch.Tensor, w_q: torch.Tensor, w_scale: torch.T
         raise ValueError(f"x {tuple(x.shape)} and w_q {tuple(w_q.shape)} do not chain")
     if x.device.type == "cpu":
         return int8_matmul_fused_quant_reference(x, w_q, w_scale, out_dtype)
+    _build.require_no_grad("int8_matmul_fused_quant", x, w_q, w_scale)
     wt = _check_cuda("int8_matmul_fused_quant", m, k, w_q, w_scale, out_dtype, x.device)
     if x.dtype not in KERNEL_DTYPES or not x.is_contiguous() or x.data_ptr() % 16:
         raise ValueError("int8_matmul_fused_quant: the kernel takes a contiguous, 16-byte "

@@ -17,7 +17,9 @@ weight split into its two by ``dg_tf32_split`` on each call. For a
 CPU tensor it runs :func:`ln_matmul_reference`, the plain version
 (``_reference`` of the TPU file). A CUDA tensor the kernel cannot take
 raises. Launches (one per call, whatever passes the kernel makes) are
-counted in ``fused_ln_matmul.launches``.
+counted in ``fused_ln_matmul.launches``. Forward only, as the JAX kernel (no
+``custom_vjp``): on a CUDA tensor it raises where autograd would record it
+(``_build.require_no_grad``); the CPU twin differentiates.
 """
 from __future__ import annotations
 
@@ -180,6 +182,7 @@ def fused_ln_matmul(x: torch.Tensor, w: torch.Tensor, gamma: torch.Tensor,
         raise ValueError(f"act {act!r} not in {tuple(_EPILOGUES)}")
     if x.device.type == "cpu":
         return ln_matmul_reference(x, w, gamma, beta, eps, bias, geglu, act)
+    _build.require_no_grad("fused_ln_matmul", x, w, gamma, beta, bias)
     m, k = x.shape
     if w.shape[0] != k:
         raise ValueError(f"x {tuple(x.shape)} and w {tuple(w.shape)} do not chain")

@@ -23,10 +23,12 @@ Rng = Union[torch.Generator, Mapping[str, torch.Tensor]]
 
 
 def uniform_draw(rng: Rng, name: str, shape: Tuple[int, ...], device) -> torch.Tensor:
-    """U[0, 1) float32 of ``shape`` on ``device``: drawn from a generator, or
-    looked up by ``name`` in a mapping of arrays drawn elsewhere."""
+    """U[0, 1) float32 of ``shape`` on ``device``: drawn from a generator (on
+    the generator's own device, then moved), or looked up by ``name`` in a
+    mapping of arrays drawn elsewhere."""
     if isinstance(rng, torch.Generator):
-        return torch.rand(shape, generator=rng, device=device, dtype=torch.float32)
+        u = torch.rand(shape, generator=rng, device=rng.device, dtype=torch.float32)
+        return u.to(device)
     u = torch.as_tensor(rng[name], dtype=torch.float32).to(device)
     if tuple(u.shape) != tuple(shape):
         raise ValueError(f"draw {name!r} has shape {tuple(u.shape)}, expected {tuple(shape)}")

@@ -13,8 +13,11 @@ different result, not a float32 one.
 
 The kernels that take it: ``csrc/attention_f32.cu`` (``mma.sync`` m16n8k8,
 the split in registers) and ``csrc/ln_matmul.cu``'s float32 GEMM (``wgmma``,
-both parts of each operand in shared memory). This module is their CPU
-emulation, for the tests; no wrapper calls it.
+both parts of each operand in shared memory). The window backward of
+``attention_f32.cu`` splits by :func:`split_tf32_fast`: ``big`` as above,
+``small`` left for the tensor core to truncate (it reads the top 19 bits of
+a register), which saves two conversions and costs at most 2⁻²¹ relative.
+This module is their CPU emulation, for the tests; no wrapper calls it.
 """
 from __future__ import annotations
 
@@ -44,13 +47,27 @@ def split_tf32(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     return big, round_tf32(x - big)
 
 
-def matmul_3xtf32_reference(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+def truncate_tf32(x: torch.Tensor) -> torch.Tensor:
+    """``x`` (float32) as the tensor core reads a register that holds it: the
+    low 13 bits dropped."""
+    return (x.contiguous().view(torch.int32) & _KEEP).view(torch.float32)
+
+
+def split_tf32_fast(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(big, small) as the float32 window backward forms them
+    (``csrc/attention_f32.cu:split_fast``): ``big = tf32(x)`` rounded, and
+    ``small = x - big`` as the tensor core reads it, truncated."""
+    big = round_tf32(x)
+    return big, truncate_tf32(x - big)
+
+
+def matmul_3xtf32_reference(a: torch.Tensor, b: torch.Tensor, split=split_tf32) -> torch.Tensor:
     """``a @ b`` as the kernels take it: each product in three TF32 passes,
-    the small terms first, float32 sums. The TF32 parts multiply exactly in
-    float32 (11 significant bits each), so a float32 product of the parts is
-    what the tensor core forms."""
-    a_big, a_small = split_tf32(a)
-    b_big, b_small = split_tf32(b)
+    the small terms first, float32 sums, the operands split by ``split``. The
+    TF32 parts multiply exactly in float32 (11 significant bits each), so a
+    float32 product of the parts is what the tensor core forms."""
+    a_big, a_small = split(a)
+    b_big, b_small = split(b)
     return a_small @ b_big + a_big @ b_small + a_big @ b_big
 
 

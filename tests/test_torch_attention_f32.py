@@ -1,12 +1,13 @@
 """Float32 through the attention kernels: which body each wrapper launches.
 
 The five attention kernels take bfloat16 or float32 on the card, as their
-Pallas kernels take the input's dtype. ``ops/attention_f32.py:body_for`` is
-the dispatch every wrapper goes through (``flash_attention``,
+Pallas kernels take the input's dtype. ``ops/attention_f32.py:kernel_body``
+is the dispatch every wrapper goes through (``flash_attention``,
 ``flash_attention_packed``, ``flash_attention_relpos`` and both window
 wrappers): float32 reaches the float32 body ``csrc/attention_f32.cu``, whose
 products are float32 (no operand is rounded to bf16 on the way), bfloat16
-the kernel's own body, and any other dtype raises. The float32 plain twins
+the kernel's own body, and any other dtype raises. Head dims between the
+bodies' widths are padded up (held in ``test_torch_head_dims.py``). The float32 plain twins
 are held against the Pallas kernels in interpret mode by
 ``test_torch_ops.py``, ``test_torch_relpos.py`` and
 ``test_torch_window_attention.py``; the float32 body against those twins on
@@ -38,13 +39,13 @@ CASES = {
 @pytest.mark.parametrize("case", list(CASES))
 def test_float32_takes_the_float32_body(case):
     d, mode, _ = CASES[case]
-    assert af.body_for(torch.float32, d, mode) == "dg_attention_f32"
+    assert af.kernel_body(torch.float32, d, mode).entry == "dg_attention_f32"
 
 
 @pytest.mark.parametrize("case", list(CASES))
 def test_bfloat16_takes_the_kernels_own_body(case):
     d, mode, body = CASES[case]
-    assert af.body_for(torch.bfloat16, d, mode) == body
+    assert af.kernel_body(torch.bfloat16, d, mode).entry == body
 
 
 @pytest.mark.parametrize("dtype", [torch.float16, torch.float64, torch.int8])
@@ -53,22 +54,24 @@ def test_bfloat16_takes_the_kernels_own_body(case):
 def test_other_dtypes_raise(case, dtype):
     d, mode, _ = CASES[case]
     with pytest.raises(ValueError, match="bfloat16 or float32"):
-        af.body_for(dtype, d, mode)
+        af.kernel_body(dtype, d, mode).entry
 
 
-@pytest.mark.parametrize("dtype,d,mode", [(torch.float32, 16, "none"),
-                                          (torch.bfloat16, 80, "dense"),
-                                          (torch.bfloat16, 64, "relpos")])
+@pytest.mark.parametrize("dtype,d,mode", [(torch.float32, 200, "none"),
+                                          (torch.bfloat16, 129, "dense"),
+                                          (torch.bfloat16, 48, "window")])
 def test_head_dims_without_a_body_raise(dtype, d, mode):
+    """Head dims 1 to 128 and 512 pad up to a body (``test_torch_head_dims.py``);
+    past them, and past the window kernels' widths, the dispatch raises."""
     with pytest.raises(ValueError, match=f"head dim {d}"):
-        af.body_for(dtype, d, mode)
+        af.kernel_body(dtype, d, mode).entry
 
 
 def test_every_float32_head_dim_of_a_kernel_has_the_body():
     for d, mode in [(64, "none"), (512, "dense"), (80, "relpos"), (32, "window")]:
-        assert d in af.F32_HEAD_DIMS and af.body_for(torch.float32, d, mode)
+        assert d in af.F32_HEAD_DIMS and af.kernel_body(torch.float32, d, mode).entry
     with pytest.raises(ValueError, match="bias mode"):
-        af.body_for(torch.float32, 64, "alibi")
+        af.kernel_body(torch.float32, 64, "alibi").entry
 
 
 def test_no_float32_path_rounds_to_bf16():

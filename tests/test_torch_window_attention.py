@@ -146,7 +146,8 @@ def test_packed_wrapper_gradient_allowed_under_no_grad():
 
 @pytest.mark.parametrize("case,kw,error,match", [
     ("float16", dict(dtype=torch.float16), ValueError, "bfloat16 or float32"),
-    ("head dim 16", dict(d=16), ValueError, "head dim 16"),
+    ("head dim 16", dict(d=16), ValueError, "CUDA or CPU"),  # padded to 32: on to the device
+    ("head dim 48", dict(d=48), ValueError, "head dim 48"),  # bf16: widths up to 32
     ("too many tokens", dict(n=169), ValueError, "169 tokens"),
     ("neither CPU nor CUDA", dict(), ValueError, "CUDA or CPU"),
 ], ids=lambda v: v if isinstance(v, str) else None)

@@ -141,14 +141,15 @@ def test_wrapper_gradients_on_the_cpu_also_under_checkpoint(layout):
 
 
 def test_backward_chunks_cover_every_window(monkeypatch):
-    """The backward kernel's grid: chunks · per_chunk ≥ windows, no empty
-    chunk, and about one block per multiprocessor."""
+    """The float32 backward kernel's grid (``f32_backward_plan``): chunks ·
+    per_chunk ≥ windows, no empty chunk, and one block per multiprocessor at
+    n = 144 (the plan and layout in full: ``test_torch_window_bwd_f32.py``)."""
     class Props:
         multi_processor_count = 132
 
     monkeypatch.setattr(torch.cuda, "get_device_properties", lambda device: Props)
     for batch, heads in [(722, 6), (200, 12), (50, 24), (18, 48), (8, 3), (1, 1), (3, 200)]:
-        chunks, per = twa.backward_chunks(batch, heads, torch.device("cpu"))
+        chunks, per, _ = twa.f32_backward_plan(batch, heads, 144, 32, torch.device("cpu"))
         assert chunks * per >= batch > (chunks - 1) * per
         assert chunks * heads <= max(132 + heads, heads)
-    assert twa.backward_chunks(722, 6, torch.device("cpu")) == (22, 33)
+    assert twa.f32_backward_plan(722, 6, 144, 32, torch.device("cpu"))[:2] == (22, 33)

@@ -7,7 +7,7 @@ multiprocessor count monkeypatched (132 as on an H100, and 7): every (head,
 window) is covered once, chunks are runs of consecutive windows in window
 order, the grid fills the blocks the shared memory leaves resident, and the
 scratch of partial bias gradients is (chunks, heads, n, n). The float32
-body's ``backward_chunks`` is tested in ``test_torch_window_attention_bwd.py``.
+body's ``f32_backward_plan`` is tested in ``test_torch_window_bwd_f32.py``.
 Then the target the kernel is held to for dbias: the float32 sum over windows
 of the unrounded ds, not of ds rounded to bfloat16 (which feeds its products),
 as the Pallas kernel sums it; checked on the plain backward against ds

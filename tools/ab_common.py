@@ -24,13 +24,14 @@ TURNS = 3
 ORDER = ("earlier", "current", "current", "earlier")
 
 
-def build(tag: str, name: str, src: Path, report: bool = False) -> ctypes.CDLL:
-    """nvcc ``src`` alone into ``build/scratch/<tag>_<name>.so`` (headers from
-    the source's own directory first, then ``csrc/``) and load it. With
-    ``report``, print the compiler's lines on registers, spills and wgmma."""
+def build(tag: str, name: str, src: Path, report: bool = False, flags=()) -> ctypes.CDLL:
+    """nvcc ``src`` alone, with the extra ``flags``, into
+    ``build/scratch/<tag>_<name>.so`` (headers from the source's own
+    directory first, then ``csrc/``) and load it. With ``report``, print the
+    compiler's lines on registers, spills and wgmma."""
     out = ROOT / "build" / "scratch" / f"{tag}_{name}.so"
     out.parent.mkdir(parents=True, exist_ok=True)
-    cmd = [_build.find_nvcc(), *_build.NVCC_FLAGS, "-I", str(src.parent), "-I",
+    cmd = [_build.find_nvcc(), *_build.NVCC_FLAGS, *flags, "-I", str(src.parent), "-I",
            str(_build.CSRC), "-shared", "-o", str(out), str(src)]
     res = subprocess.run(cmd, capture_output=True, text=True)
     if res.returncode:
@@ -42,12 +43,12 @@ def build(tag: str, name: str, src: Path, report: bool = False) -> ctypes.CDLL:
     return ctypes.CDLL(str(out))
 
 
-def in_turns(fns: dict, timer=device_ms) -> dict:
+def in_turns(fns: dict, timer=device_ms, order=ORDER) -> dict:
     """``{name: (median, runs)}`` of ``timer(fns[name])`` over ``TURNS``
-    rounds of ``ORDER``."""
+    rounds of ``order``."""
     times = {name: [] for name in fns}
     for _ in range(TURNS):
-        for name in ORDER:
+        for name in order:
             times[name].append(timer(fns[name]))
     return {name: (statistics.median(t), t) for name, t in times.items()}
 
