@@ -218,7 +218,38 @@ Run from the root of a checkout:  python3 chip_smoke.py
        its three parts (medians of 3) and counts the host syncs of NMS.
    fused_window_attention is on no slice's path (the packed kernels take any
    head count): phase 3 holds its forward and backward, and its counts stay 0.
-9. Prints the kernels' JSON line (the 13 wrappers' entries; the float32
+9. Slice of the detector's serving and evaluation path, launch counters reset
+   just before it:
+   (a) ``Predictor`` on the small Swin-T detector in float32 at a 128² canvas,
+       on the card and on the CPU, the same seeded ``state_dict`` and PNG:
+       the same valid slots, boxes and scores within 1e-4 of max |ref|, the
+       pasted masks equal but at pixels within 1e-4 of 0.5;
+   (b) the flagship ``Predictor`` (Swin-L, 1453 classes, 896², bf16, seeded
+       weights) on four PNG images of 640 x 480, 480 x 640, 500 x 333 and
+       1024 x 683 (cropped by the canvas): 24 fused_window_attention_packed
+       launches per image on the bf16 body, masks (n, h, w), boxes inside
+       the image; wall ms per image and NMS host syncs per image;
+   (c) ``BatchPredictor`` at batch 8, depth 2 over 16 images, each image
+       against (b)'s result to bf16 tolerance (``same_detections``): as many
+       detections, at least 98 % of them paired with one of their class
+       whose box is within 1e-2 of max |ref|, the pairs' scores within
+       1e-2 (the batch of 8 rounds some of the heads' bf16 GEMMs otherwise,
+       and on random weights the 300 scores span 0.05, so near-ties at the
+       proposals' top-k, NMS and the top-300 cut trade places); images per
+       second;
+   (e) ``do_test`` on a synthetic LVIS-format set (16 PNG images, 1453
+       categories with r / c / f frequencies, polygon and RLE masks,
+       ``not_exhaustive_category_ids`` and ``neg_category_ids``), registered
+       with ``register_lvis_instances``, the weights through
+       ``Checkpointer.save`` and ``do_test(resume=True)``: bbox and segm AP,
+       APr, APc, APf finite; seconds per image (data, compute, total); the
+       ground truth fed to ``LVISEvaluator`` as predictions scores AP 1;
+   (f) ``VisualizationDemo`` writes a PNG that reads back at the image's
+       size.
+   The counts are read here; then (d) ``AsyncPredictor`` with two worker
+   threads on the card: results in request order, equal to (b)'s by
+   (c)'s comparison (its launches, counted by threads, are read by no slice).
+10. Prints the kernels' JSON line (the 13 wrappers' entries; the float32
    window backward body with its launches in 7; and each padded head-dim
    case of 3 with its checked call's launch), the card line, and as the
    last line {"ok": true, "device": {...}}. Any failed phase raises: exit
@@ -2960,6 +2991,304 @@ def slice_detector(card: str):
     return detector_timings
 
 
+# (h, w) of the serving slice's images: LVIS-like 640 x 480, 480 x 640 and
+# 500 x 333, and 1024 x 683, which the 896 canvas crops (889 x 1333 resized)
+SERVING_SIZES = ((480, 640), (640, 480), (333, 500), (683, 1024))
+SERVING_BATCH, SERVING_DEPTH, SERVING_IMAGES = 8, 2, 16
+SYNTH_LVIS = "synthetic_lvis_flagship"
+
+
+def synthetic_image(rng: np.random.RandomState, h: int, w: int) -> np.ndarray:
+    """Noise with a few flat-coloured rectangles, uint8 RGB."""
+    img = (rng.rand(h, w, 3) * 255).astype(np.uint8)
+    for _ in range(4):
+        y0, x0 = rng.randint(0, h - h // 4), rng.randint(0, w - w // 4)
+        img[y0:y0 + rng.randint(h // 8, h // 4), x0:x0 + rng.randint(w // 8, w // 4)] = \
+            rng.randint(0, 256, 3)
+    return img
+
+
+def serving_float32_card_vs_cpu(tmp: str) -> None:
+    """(a) ``Predictor`` on the small Swin-T detector in float32, on the card
+    and on the CPU, the same seeded ``state_dict`` and PNG file."""
+    from divergen_tpu_torch import graft_entry
+    from divergen_tpu_torch.data.dataset_mapper import read_image
+    from divergen_tpu_torch.evaluation.lvis_evaluator import paste_mask_prob
+    from divergen_tpu_torch.modeling.meta_arch.rcnn import build_model
+    from divergen_tpu_torch.predictor import Predictor
+    from divergen_tpu_torch.utils.png import write_png
+    from divergen_tpu_torch.utils.transfer import to_host
+
+    cfg = graft_entry._small_cfg()
+    cfg.INPUT.TEST_SIZE, cfg.INPUT.MIN_SIZE_TEST, cfg.INPUT.MAX_SIZE_TEST = 128, 96, 128
+    ref = build_model(cfg, input_size=(128, 128), device="cpu")
+    graft_entry.fast_init_(ref, torch.Generator().manual_seed(graft_entry.SEED))
+    params = ref.state_dict()
+    path = os.path.join(tmp, "small.png")
+    write_png(path, synthetic_image(np.random.RandomState(5), 96, 128))
+    image = read_image(path)
+    card, cpu = (Predictor(cfg, params, score_thresh=0.0, device=d) for d in ("cuda", "cpu"))
+    raw = []
+    for p in (card, cpu):
+        x, size, _ = p.preprocess(image)
+        raw.append(to_host(p._infer(x[None], size[None])))
+    got, want = raw
+    valid = want["valid"]
+    same = bool(np.array_equal(got["valid"], valid))
+    gaps = {k: float(np.abs(got[k][valid] - want[k][valid]).max() / np.abs(want[k][valid]).max())
+            for k in ("boxes", "scores")}
+    ok = same and valid.any() and max(gaps.values()) <= 1e-4
+    log(f"  (a) Predictor, Swin-T float32, 128² canvas, card vs CPU: the same {int(valid.sum())} "
+        f"valid slots: {same}; max |diff| / max |ref|: boxes {gaps['boxes']:.3g}, scores "
+        f"{gaps['scores']:.3g} (bound 1e-4) [{'ok' if ok else 'FAIL'}]")
+    if not ok:
+        raise AssertionError("the float32 Predictor's raw outputs disagree card vs CPU")
+    res_card, res_cpu = card(image), cpu(image)
+    keep = valid[0] & (want["scores"][0] >= 0.0)
+    probs = 1 / (1 + np.exp(-want["mask_logits"][0][keep]))
+    differ = close = 0
+    for m_card, m_cpu, prob, box in zip(res_card["masks"], res_cpu["masks"], probs,
+                                        res_cpu["boxes"]):
+        diff = m_card != m_cpu
+        differ += int(diff.sum())
+        close += int((np.abs(paste_mask_prob(prob, box, 96, 128)[diff] - 0.5) <= 1e-4).sum())
+    ok = res_card["masks"].shape == res_cpu["masks"].shape and differ == close
+    log(f"  (a) post-processed masks {res_cpu['masks'].shape}: {differ} pixels differ, {close} of "
+        f"them within 1e-4 of 0.5 [{'ok' if ok else 'FAIL'}]")
+    if not ok:
+        raise AssertionError("the float32 Predictor's masks disagree card vs CPU")
+
+
+PAIRED_SHARE = 0.98  # of an image's detections, batch 8 against batch 1 (bf16)
+
+
+def same_detections(got: dict, want: dict, tol: float = 1e-2,
+                    share: float = PAIRED_SHARE) -> dict:
+    """Two results of one image, compared to bf16 tolerance. Each of
+    ``want``'s detections (highest score first) is paired with an unpaired
+    one of ``got`` of its class whose box is within ``tol`` of max |ref|
+    (the nearest). ``ok``: as many detections, at least ``share`` of them
+    paired, and the pairs' scores within ``tol`` of max |ref|.
+
+    Why not every detection: a batch of 8 rounds some bf16 GEMMs of the
+    heads otherwise than a batch of 1 (the pyramid features are equal bit
+    for bit), and on random weights the 300 kept scores span 0.84-0.89, so
+    detections that tie within that rounding trade places at the proposals'
+    top-k and NMS and at the cut of the top 300: 297-300 of 300 paired per
+    image on the H100, the pairs' scores within 8.3e-4 of max |ref|."""
+    n_got, n_want = len(got["scores"]), len(want["scores"])
+    out = dict(ok=n_got == n_want, pairs=0, box_gap=0.0, score_gap=0.0)
+    if not n_want or not n_got:
+        return out
+    box_scale = max(float(np.abs(want["boxes"]).max()), 1e-12)
+    score_scale = max(float(np.abs(want["scores"]).max()), 1e-12)
+    dist = np.abs(want["boxes"][:, None] - got["boxes"][None]).max(-1) / box_scale
+    dist[want["classes"][:, None] != got["classes"][None]] = np.inf
+    used = np.zeros(n_got, bool)
+    for i in np.argsort(-want["scores"], kind="stable"):
+        d = np.where(used, np.inf, dist[i])
+        j = int(np.argmin(d))
+        if d[j] <= tol:
+            used[j] = True
+            out["pairs"] += 1
+            out["box_gap"] = max(out["box_gap"], float(d[j]))
+            out["score_gap"] = max(out["score_gap"], abs(float(got["scores"][j])
+                                                         - float(want["scores"][i])) / score_scale)
+    out["ok"] = out["ok"] and out["pairs"] >= share * n_want and out["score_gap"] <= tol
+    return out
+
+
+def clipped(res: dict, hw) -> dict:
+    boxes = res["boxes"].copy()
+    boxes[:, [0, 2]] = np.clip(boxes[:, [0, 2]], 0, hw[1])
+    boxes[:, [1, 3]] = np.clip(boxes[:, [1, 3]], 0, hw[0])
+    return dict(res, boxes=boxes)
+
+
+def slice_serving(card: str, tmp: str):
+    """The detector's serving and evaluation path (``predictor.py``,
+    ``engine/eval_loop.py``), parts (a)-(c), (e) and (f); returns the function
+    that runs (d), ``AsyncPredictor``, after the launch counts were read."""
+    from divergen_tpu_torch import graft_entry
+    from divergen_tpu_torch.data import DatasetCatalog, MetadataCatalog
+    from divergen_tpu_torch.data.dataset_mapper import read_image
+    from divergen_tpu_torch.data.datasets.lvis import lvis_meta_from_json, register_lvis_instances
+    from divergen_tpu_torch.data.datasets.synthetic_lvis import write_synthetic_lvis
+    from divergen_tpu_torch.engine import eval_loop
+    from divergen_tpu_torch.engine.checkpoint import Checkpointer
+    from divergen_tpu_torch.engine.train_loop import TrainState
+    from divergen_tpu_torch.evaluation.lvis_evaluator import LVISEvaluator, print_csv_format
+    from divergen_tpu_torch.ops.nms import nms_mask
+    from divergen_tpu_torch.ops.window_attention import fused_window_attention_packed as wa
+    from divergen_tpu_torch.predictor import (AsyncPredictor, BatchPredictor, Predictor,
+                                              VisualizationDemo)
+    from divergen_tpu_torch.utils.png import read_png, write_png
+    from divergen_tpu_torch.utils.visualizer import save_visualization
+
+    serving_float32_card_vs_cpu(tmp)
+
+    # (b) the flagship Predictor at full width on four PNG images
+    model, _ = graft_entry.flagship_entry()
+    cfg = graft_entry.flagship_cfg()
+    pred = Predictor(cfg, model.state_dict())
+    del model
+    torch.cuda.empty_cache()
+    rng = np.random.RandomState(graft_entry.SEED)
+    images = []
+    for k, (h, w) in enumerate(SERVING_SIZES):
+        path = os.path.join(tmp, f"serve_{k}.png")
+        write_png(path, synthetic_image(rng, h, w))
+        images.append(read_image(path))
+    pred(images[0])  # warm-up
+    results, walls, syncs, parts = [], [], [], []
+    for img in images:
+        h, w = img.shape[:2]
+        bf16 = lambda: sum(n for (entry, _), n in wa.bodies.items() if entry != "dg_attention_f32")
+        before, body_before, sync_before = wa.launches, bf16(), nms_mask.host_syncs
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = pred(img)
+        walls.append(1e3 * (time.perf_counter() - t0))
+        parts.append({k: 1e3 * v for k, v in pred.last_timing.items()})
+        launched, on_bf16 = wa.launches - before, bf16() - body_before
+        syncs.append(nms_mask.host_syncs - sync_before)
+        boxes = res["boxes"]
+        inside = bool(((boxes[:, [0, 2]] >= 0) & (boxes[:, [0, 2]] <= w)).all()
+                      and ((boxes[:, [1, 3]] >= 0) & (boxes[:, [1, 3]] <= h)).all())
+        ok = (launched == on_bf16 == SWIN_L_BLOCKS and res["masks"].shape == (len(boxes), h, w)
+              and inside and np.isfinite(res["scores"]).all())
+        log(f"  (b) flagship Predictor, {w}x{h}: {len(boxes)} detections, masks "
+            f"{res['masks'].shape}, boxes inside the image: {inside}, {launched} window-attention "
+            f"launches ({on_bf16} on the bf16 body), {syncs[-1]} NMS host syncs, "
+            f"{walls[-1]:.1f} ms [{'ok' if ok else 'FAIL'}]")
+        if not ok:
+            raise AssertionError("flagship Predictor: launches, mask shape or boxes wrong")
+        results.append(res)
+    split = {k: statistics.mean(p[k] for p in parts) for k in parts[0]}
+    log(f"  (b) flagship Predictor: {statistics.mean(walls):.1f} ms per image (wall; "
+        f"preprocess {split['preprocess_s']:.1f}, forward with the copies "
+        f"{split['forward_s']:.1f}, postprocess with the mask paste {split['postprocess_s']:.1f}), "
+        f"{1e3 / statistics.mean(walls):.2f} images/s, {statistics.mean(syncs):.1f} NMS host "
+        f"syncs per image [{card}]")
+
+    # (c) BatchPredictor: batch 8, depth 2, 16 images, against Predictor's results
+    stream = [images[k % len(images)] for k in range(SERVING_IMAGES)]
+    bp = BatchPredictor(pred, batch_size=SERVING_BATCH, depth=SERVING_DEPTH)
+    list(bp(stream[:SERVING_BATCH]))  # warm-up at batch 8
+    bp.host_syncs.clear()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    batch_out = list(bp(stream))
+    wall = time.perf_counter() - t0
+    checks = []
+    for k, res in enumerate(batch_out):
+        ref = results[k % len(images)]
+        checks.append(same_detections(clipped(res, stream[k].shape[:2]), ref))
+        if not checks[-1]["ok"]:
+            raise AssertionError(f"BatchPredictor image {k}: {len(res['scores'])} detections "
+                                 f"against Predictor's {len(ref['scores'])}: {checks[-1]}")
+    log(f"  (c) BatchPredictor (batch {SERVING_BATCH}, depth {SERVING_DEPTH}, "
+        f"{SERVING_IMAGES} images) against Predictor: {sum(c['pairs'] for c in checks)} of "
+        f"{sum(len(r['scores']) for r in batch_out)} detections paired (same class, box within "
+        f"1e-2 of max |ref|), the least per image {min(c['pairs'] for c in checks)} (bound "
+        f"{PAIRED_SHARE:.0%}); max |diff| / max |ref| of the pairs: boxes "
+        f"{max(c['box_gap'] for c in checks):.3g}, scores "
+        f"{max(c['score_gap'] for c in checks):.3g}; {SERVING_IMAGES / wall:.2f} images/s (no "
+        f"masks), NMS host syncs per batch {bp.host_syncs} [{card}]")
+
+    # (e) do_test on a synthetic LVIS-format set of 16 PNG images, the
+    # flagship's 1453 categories, through Checkpointer.save -> do_test(resume)
+    files = write_synthetic_lvis(os.path.join(tmp, "lvis"),
+                                 [SERVING_SIZES[k % 4] for k in range(SERVING_IMAGES)],
+                                 cfg.MODEL.ROI_HEADS.NUM_CLASSES, seed=graft_entry.SEED,
+                                 category_ids=range(1, 61))
+    for reg in (DatasetCatalog, MetadataCatalog):
+        reg.remove(SYNTH_LVIS)
+    register_lvis_instances(SYNTH_LVIS, lvis_meta_from_json(files["json_file"]),
+                            files["json_file"], files["image_root"])
+    test_cfg = cfg.clone()
+    test_cfg.DATASETS.TEST = (SYNTH_LVIS,)
+    test_cfg.OUTPUT_DIR = os.path.join(tmp, "output")
+    t0 = time.perf_counter()
+    Checkpointer(test_cfg.OUTPUT_DIR).save(1, TrainState(step=1, model=pred.model, optimizer=None))
+    save_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    metrics = eval_loop.do_test(test_cfg, resume=True)[SYNTH_LVIS]
+    test_s = time.perf_counter() - t0
+    timing = eval_loop.inference_on_dataset.last_timing
+    keys = ("AP", "APr", "APc", "APf")
+    finite = all(math.isfinite(metrics[t][k]) for t in ("bbox", "segm") for k in keys)
+    log(f"  (e) do_test on {SERVING_IMAGES} synthetic LVIS images "
+        f"({cfg.MODEL.ROI_HEADS.NUM_CLASSES} categories, checkpoint "
+        f"saved in {save_s:.1f} s, do_test {test_s:.1f} s): "
+        + "; ".join(f"{t} " + ", ".join(f"{k} {metrics[t][k]:.4f}" for k in keys)
+                    for t in ("bbox", "segm"))
+        + f" [{'ok' if finite else 'FAIL'}]")
+    log(f"  (e) s per image: total {timing['total_s_per_image']:.4f}, data "
+        f"{timing['data_s_per_image']:.4f}, compute {timing['compute_s_per_image']:.4f} "
+        f"(after {min(5, timing['images'])} warm-up images) [{card}]")
+    if not finite:
+        raise AssertionError("do_test: a non-finite AP")
+    with open(files["json_file"]) as f:
+        gt = json.load(f)
+    control = LVISEvaluator(SYNTH_LVIS)
+    for a in gt["annotations"]:
+        control._predictions.append({"image_id": a["image_id"], "category_id": a["category_id"],
+                                     "bbox": a["bbox"], "score": 1.0,
+                                     "segmentation": control._ann_rle(a, gt)})
+    ctrl = control.evaluate()
+    ok = all(ctrl[t]["AP"] == 1.0 for t in ("bbox", "segm"))
+    log(f"  (e) control, the ground truth as predictions: bbox AP {ctrl['bbox']['AP']}, segm AP "
+        f"{ctrl['segm']['AP']} [{'ok' if ok else 'FAIL'}]")
+    log("\n".join("    " + line for line in print_csv_format(ctrl).splitlines()[:3]))
+    if not ok:
+        raise AssertionError("the ground-truth control does not score AP 1")
+
+    # (f) VisualizationDemo writes a PNG at the image's size
+    names = lvis_meta_from_json(files["json_file"])["thing_classes"]
+    _, vis = VisualizationDemo(pred, names).run_on_image(images[2])
+    vis_path = os.path.join(tmp, "vis.png")
+    save_visualization(vis_path, vis)
+    back = read_png(vis_path)
+    ok = back.shape == images[2].shape and np.array_equal(back, vis) and (vis != images[2]).any()
+    log(f"  (f) VisualizationDemo: {vis_path.rsplit('/', 1)[-1]} {back.shape} read back "
+        f"[{'ok' if ok else 'FAIL'}]")
+    if not ok:
+        raise AssertionError("VisualizationDemo: the PNG does not read back")
+
+    def async_part():
+        """(d) AsyncPredictor, two workers on the card, each its own model and
+        stream: results in request order, equal to Predictor's."""
+        params = pred.model.state_dict()
+        torch.cuda.synchronize()
+        ap = AsyncPredictor(cfg, params, num_workers=2)
+        try:
+            for img in stream[:2]:  # a warm-up call on each worker
+                ap.put(img)
+            [ap.get() for _ in range(2)]
+            t0 = time.perf_counter()
+            for img in stream[:8]:
+                ap.put(img)
+            got = [ap.get() for _ in range(8)]
+            wall = time.perf_counter() - t0
+        finally:
+            ap.shutdown()
+        checks = [same_detections(res, results[k % len(images)]) for k, res in enumerate(got)]
+        for k, (res, check) in enumerate(zip(got, checks)):
+            ref = results[k % len(images)]
+            if not check["ok"] or res["masks"].shape != ref["masks"].shape:
+                raise AssertionError(f"AsyncPredictor result {k} is not Predictor's for that "
+                                     f"image (order or values): {check}")
+        log(f"  (d) AsyncPredictor (2 workers, one card): 8 results in request order, equal to "
+            f"Predictor's: {sum(c['pairs'] for c in checks)} of "
+            f"{sum(len(r['scores']) for r in got)} detections paired; max |diff| / max |ref| boxes "
+            f"{max(c['box_gap'] for c in checks):.3g}, scores "
+            f"{max(c['score_gap'] for c in checks):.3g}; {8 / wall:.2f} images/s with masks "
+            f"[{card}]")
+
+    return async_part
+
+
 PASTE_STEPS = 5  # per setting of remat; the first one is left out of the median
 TRAIN_DRAWS = {"match": (2, 40), "mask": (2, 40), "fed0": (9,), "fed1": (9,), "fed2": (9,)}
 
@@ -3378,8 +3707,22 @@ def main() -> int:
     detector_timings = slice_detector(card)
     detector = read(("fused_window_attention_packed",), "the detector slice")
     detector_timings()
+    del detector_timings
+    torch.cuda.empty_cache()
+
+    log("slice: detector serving and evaluation (Predictor, BatchPredictor, do_test, "
+        "VisualizationDemo; then AsyncPredictor)")
+    reset()
+    with tempfile.TemporaryDirectory() as tmp:
+        async_part = slice_serving(card, tmp)
+        detector_serving = read(("fused_window_attention_packed",), "the serving slice")
+        # worker threads bump the plain-int counters concurrently: AsyncPredictor
+        # runs after the read, and its launches are counted in no slice
+        async_part()
+    del async_part
+    torch.cuda.empty_cache()
     launches = {}
-    for counts in (sdxl, chain, serving, fused, train, detector):
+    for counts in (sdxl, chain, serving, fused, train, detector, detector_serving):
         for k, n in counts.items():
             launches[k] = launches.get(k, 0) + n
     # the split wrapper is on no slice's path (the packed kernels take any head

@@ -1,0 +1,174 @@
+"""do_test: timed inference over the test sets → LVIS/COCO metrics.
+
+Counterpart of ``divergen_tpu/engine/eval_loop.py`` (``build_evaluator``,
+``inference_on_dataset``, ``do_test``) on one card: the same loop over
+batches of mapped samples, the same data / compute timing after ``warmup``
+images and the same log line, the EMA weights first, ``RESET_CLS_TESTS``
+through ``rcnn.load_zs_weight`` and ``rcnn.reset_cls_test``, one result dict
+per ``DATASETS.TEST`` name. The output dict goes to the host in one copy
+per batch. Not ported yet: the data-parallel (pmap) branch, which needs
+``torch.distributed``, and ``inference_on_dataset_exp``, which needs the ROI
+heads' ``save_feature``.
+"""
+from __future__ import annotations
+
+import logging
+import time
+from typing import Dict, Optional
+
+import numpy as np
+import torch
+
+from ..data import DatasetCatalog, MetadataCatalog
+from ..data.dataset_mapper import DatasetMapper
+from ..evaluation.lvis_evaluator import CustomCOCOEvaluator, LVISEvaluator, OIDEvaluator
+from ..modeling.meta_arch.rcnn import build_model
+from ..utils.dist import entry_device
+from ..utils.transfer import to_device, to_host
+from .checkpoint import Checkpointer
+from .train_loop import TrainState
+
+logger = logging.getLogger(__name__)
+
+
+def build_evaluator(cfg, dataset_name: str):
+    etype = MetadataCatalog.get(dataset_name).evaluator_type
+    if etype == "lvis":
+        return LVISEvaluator(dataset_name)
+    if etype in ("coco", "coco_generalized"):
+        return CustomCOCOEvaluator(dataset_name)
+    if etype == "oid":
+        return OIDEvaluator(dataset_name)
+    if etype == "lvis_to_coco":
+        from ..evaluation.lvis_evaluator import LVISToCOCOEvaluator
+
+        meta = MetadataCatalog.get(dataset_name)
+        return LVISToCOCOEvaluator(
+            dataset_name,
+            mapper_json=getattr(meta, "lvis_to_coco_mapper", None),
+            lvis_json=getattr(meta, "lvis_json", None),
+        )
+    raise NotImplementedError(etype)
+
+
+def inference_on_dataset(model, params, cfg, dataset_name: str, evaluator,
+                         batch_size: int = 8, max_images: Optional[int] = None,
+                         mesh=None) -> Dict:
+    """Timed eval loop (divergen/evaluation/evaluator.py:106-216) on the
+    model's device. ``params``: a ``state_dict`` to load into ``model`` first,
+    or None to run the model as it is. A data-parallel width above 1
+    (``mesh``, ``PARALLEL.DATA_PARALLEL``) raises: spreading the batch over
+    cards waits for ``torch.distributed``."""
+    if mesh is not None or cfg.PARALLEL.DATA_PARALLEL > 1:
+        raise NotImplementedError(
+            "data-parallel inference over several cards is not yet ported (it needs "
+            "torch.distributed: ROADMAP.md §1 item 6c); run with PARALLEL.DATA_PARALLEL -1 or 1")
+    if params is not None:
+        model.load_state_dict(params)
+    model.eval()
+    device = next(model.parameters()).device
+    dataset = DatasetCatalog.get(dataset_name)
+    if max_images:
+        dataset = dataset[:max_images]
+    mapper = DatasetMapper(cfg, is_train=False)
+
+    evaluator.reset()
+    n = len(dataset)
+    t_data = t_comp = 0.0
+    rng = np.random.default_rng(0)
+    warmup = min(5, n)
+    start = time.perf_counter()
+    for ofs in range(0, n, batch_size):
+        recs = dataset[ofs : ofs + batch_size]
+        t0 = time.perf_counter()
+        samples = []
+        for r in recs:
+            s = mapper(r, rng)
+            s["orig_height"] = r.get("height")
+            s["orig_width"] = r.get("width")
+            samples.append(s)
+        pad = batch_size - len(samples)
+        images = np.stack([s["image"] for s in samples] + [samples[-1]["image"]] * pad)
+        sizes = np.stack([s["image_size"] for s in samples] + [samples[-1]["image_size"]] * pad)
+        t_data += time.perf_counter() - t0
+        t0 = time.perf_counter()
+        dev = to_device({"images": images, "sizes": sizes.astype(np.int64)}, device)
+        with torch.no_grad():
+            out = to_host(model(dev["images"], dev["sizes"], training=False))
+        if ofs >= warmup:
+            t_comp += time.perf_counter() - t0
+        evaluator.process(samples, out)
+    total = time.perf_counter() - start
+    logger.info(
+        "inference on %s: %d imgs, %.4f s/img total (data %.4f, compute %.4f)",
+        dataset_name, n, total / max(n, 1), t_data / max(n, 1), t_comp / max(n - warmup, 1),
+    )
+    inference_on_dataset.last_timing = {
+        "images": n, "total_s_per_image": total / max(n, 1),
+        "data_s_per_image": t_data / max(n, 1),
+        "compute_s_per_image": t_comp / max(n - warmup, 1)}
+    return evaluator.evaluate()
+
+
+inference_on_dataset.last_timing = None
+
+
+def _load_weights(model, model_state: Dict[str, torch.Tensor],
+                  ema_params: Optional[Dict[str, torch.Tensor]]) -> None:
+    """The model's state, then the EMA copy over its parameters (EMA-eval,
+    train_net.py:63-64); dtypes and devices follow the model."""
+    model.load_state_dict(model_state)
+    if ema_params is not None:
+        params = dict(model.named_parameters())
+        with torch.no_grad():
+            for k, v in ema_params.items():
+                params[k].copy_(v)
+
+
+def do_test(cfg, model=None, state: Optional[TrainState] = None, resume: bool = True,
+            max_images: Optional[int] = None, device=None) -> Dict:
+    """One result dict per ``cfg.DATASETS.TEST`` name, from ``state`` (its EMA
+    weights when it has them) or, without one, from the newest checkpoint
+    under ``cfg.OUTPUT_DIR`` (its EMA weights first). ``model``: the module
+    to evaluate in (default: built for the test canvas on ``device``, the
+    card unless the caller names another); with ``MODEL.RESET_CLS_TESTS``
+    the second and later test sets get a new one."""
+    dev = entry_device(device)
+    canvas = cfg.INPUT.TEST_SIZE
+    if state is None:
+        ckpt = Checkpointer(cfg.OUTPUT_DIR)
+        step = ckpt.latest_step()
+        if step is None:
+            raise FileNotFoundError(f"no checkpoint under {cfg.OUTPUT_DIR}")
+        raw = ckpt.load(step)
+        model_state, ema = raw["model"], raw["ema_params"]
+    else:
+        model_state, ema = state.model.state_dict(), state.ema_params
+
+    results = {}
+    for d, name in enumerate(cfg.DATASETS.TEST):
+        # a vocabulary swap changes the classifier's shape, so each test set
+        # then takes a model of its own
+        if model is None or (cfg.MODEL.RESET_CLS_TESTS and d > 0):
+            model = build_model(cfg, input_size=(canvas, canvas), device=dev)
+        eval_model = model
+        _load_weights(eval_model, model_state, ema)
+        if cfg.MODEL.RESET_CLS_TESTS:
+            # swap the zero-shot classifier vocabulary per test set
+            # (ref train_net.py:89-93 reset_cls_test); files are stored
+            # (C, zs_dim) and transposed on load (modeling/utils.py:40-43)
+            from ..modeling.meta_arch.rcnn import load_zs_weight, reset_cls_test
+
+            w = load_zs_weight(
+                cfg.MODEL.TEST_CLASSIFIERS[d],
+                zs_dim=cfg.MODEL.ROI_BOX_HEAD.ZEROSHOT_WEIGHT_DIM,
+            )
+            n_cls = int(cfg.MODEL.TEST_NUM_CLASSES[d]) if cfg.MODEL.TEST_NUM_CLASSES else w.shape[1]
+            assert w.shape[1] == n_cls, (w.shape, n_cls)
+            reset_cls_test(eval_model, w)
+        evaluator = build_evaluator(cfg, name)
+        results[name] = inference_on_dataset(
+            eval_model, None, cfg, name, evaluator, max_images=max_images
+        )
+        logger.info("results[%s] = %s", name, results[name])
+    return results

@@ -406,3 +406,94 @@ def test_swin_checkpoint_loads_and_mismatches_are_skipped(tiny_detector, tmp_pat
                                                                 for k in loaded)
     np.testing.assert_array_equal(model.bottom_up.merge1.reduction.weight.detach().numpy(),
                                   sd["layers.1.downsample.reduction.weight"])
+
+
+# -- the evaluation path's copies ------------------------------------------------
+
+import inspect  # noqa: E402
+import pathlib  # noqa: E402
+
+from divergen_tpu.data import catalog as jcatalog  # noqa: E402
+from divergen_tpu.data.datasets import lvis as jlvis  # noqa: E402
+from divergen_tpu.evaluation import coco_eval_np as jcoco  # noqa: E402
+from divergen_tpu.evaluation import oid_eval as joid  # noqa: E402
+from divergen_tpu.utils import mask_codec as jmask  # noqa: E402
+from divergen_tpu_torch.data import catalog as tcatalog  # noqa: E402
+from divergen_tpu_torch.data.datasets import lvis as tlvis  # noqa: E402
+from divergen_tpu_torch.evaluation import coco_eval_np as tcoco  # noqa: E402
+from divergen_tpu_torch.evaluation import oid_eval as toid  # noqa: E402
+from divergen_tpu_torch.utils import mask_codec as tmask  # noqa: E402
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+
+# functions and classes that are copies, line for line (docstrings included)
+COPIES = [
+    (tmask, jmask, ["rle_encode", "rle_decode", "_counts_to_string", "_string_to_counts",
+                    "rle_area", "mask_to_box"]),
+    (tcoco, jcoco, ["box_iou_xywh", "IOU_THRS", "REC_THRS", "AREA_RANGES"]),
+    (toid, joid, ["compute_average_precision", "hierarchy_ancestors", "expand_predictions",
+                  "_match_img_google", "OIDEval"]),
+    (tcatalog, jcatalog, ["_DatasetCatalog", "_Metadata", "_MetadataCatalog"]),
+    (tlvis, jlvis, ["load_lvis_json", "frequency_groups", "lvis_meta_from_json",
+                    "register_lvis_instances", "register_synthetic_instances",
+                    "register_builtin"]),
+]
+# DetEval: every method but _eval_img_cat, whose matching calls the native
+# library without a numpy fallback
+DETEVAL_METHODS = ["__init__", "_cap_per_image", "evaluate", "accumulate", "summarize",
+                   "per_category_ap"]
+
+
+@pytest.mark.parametrize("name", ["cocoeval.cpp", "mask_codec.cpp"])
+def test_native_sources_are_copies(name):
+    got = (ROOT / "divergen_tpu_torch" / "native" / name).read_bytes()
+    assert got == (ROOT / "divergen_tpu" / "native" / name).read_bytes()
+
+
+@pytest.mark.parametrize("port,orig,names", COPIES,
+                         ids=["mask_codec", "coco_eval_np", "oid_eval", "catalog", "lvis"])
+def test_evaluation_copies(port, orig, names):
+    for name in names:
+        got, want = getattr(port, name), getattr(orig, name)
+        if callable(want):
+            assert inspect.getsource(got) == inspect.getsource(want), name
+        elif isinstance(want, np.ndarray):
+            np.testing.assert_array_equal(got, want)
+        else:
+            assert got == want, name
+
+
+def test_deteval_methods_are_copies():
+    for name in DETEVAL_METHODS:
+        assert (inspect.getsource(getattr(tcoco.DetEval, name))
+                == inspect.getsource(getattr(jcoco.DetEval, name))), name
+
+
+def test_oid_functions_equal_on_seeded_inputs():
+    rng = np.random.RandomState(0)
+    for _ in range(5):
+        n = rng.randint(1, 20)
+        prec, rec = rng.rand(n), np.sort(rng.rand(n))
+        assert toid.compute_average_precision(prec.copy(), rec.copy()) == \
+            joid.compute_average_precision(prec.copy(), rec.copy())
+    hierarchy = {"LabelName": "/m/r", "Subcategory": [
+        {"LabelName": "/m/a", "Subcategory": [{"LabelName": "/m/b"}, {"LabelName": "/m/c"}]}]}
+    fb = {"/m/a": 1, "/m/b": 2, "/m/c": 3}
+    anc = toid.hierarchy_ancestors(hierarchy, fb)
+    assert anc == joid.hierarchy_ancestors(hierarchy, fb) == {2: {1}, 3: {1}}
+    preds = [{"image_id": 1, "category_id": c, "bbox": [0, 0, 5, 5], "score": 0.5}
+             for c in (1, 2, 3)]
+    assert toid.expand_predictions(preds, anc) == joid.expand_predictions(preds, anc)
+
+
+def test_catalogs_behave_alike():
+    for mod in (tcatalog, jcatalog):
+        cat = mod._DatasetCatalog()
+        cat.register("a", lambda: [{"x": 1}])
+        with pytest.raises(KeyError):
+            cat.register("a", lambda: [])
+        assert "a" in cat and cat.get("a") == [{"x": 1}] and cat.list() == ["a"]
+        cat.remove("a")
+        assert "a" not in cat
+        meta = mod._MetadataCatalog()
+        assert meta.get("m").set(k=2).k == 2 and meta.list() == ["m"]
