@@ -150,7 +150,11 @@ Run from the root of a checkout:  python3 chip_smoke.py
    conv_matmul="fused")`` on the card, kernels 7 to 11 in float32, against its
    float32 CPU copy (mean |diff| / mean |ref| < 0.1). ``UNetSDXL.tiny()``
    (head dim 16: kernel 1 through kernel 3's path) one call in bf16 and in
-   float32 against its float32 CPU copy (relative L2 <= 3e-2; <= 1e-4).
+   float32 against its float32 CPU copy (relative L2 <= 3e-2; <= 1e-4). One
+   float32 BSGAL step (``active/bsgal.py:make_active_train_step``) of the
+   Swin-T detector at 64² on the card against the CPU, the same weights,
+   batch, probe and draws: the same decision, ``grad_sim`` within 1e-4,
+   every metric within 2e-4 relative (``small_active_step``).
 5. Slice at full SDXL width, launch counters reset just before it:
    (a) the port's ``txt2img.main`` writing two 1024² PNGs;
    (b) ``SDXLTextEncoder.random(tiny=False)`` → ``SDXLPipeline.generate``,
@@ -249,7 +253,26 @@ Run from the root of a checkout:  python3 chip_smoke.py
    The counts are read here; then (d) ``AsyncPredictor`` with two worker
    threads on the card: results in request order, equal to (b)'s by
    (c)'s comparison (its launches, counted by threads, are read by no slice).
-10. Prints the kernels' JSON line (the 13 wrappers' entries; the float32
+10. Slice of the training loop, launch counters reset just before it
+   (``slice_do_train``): the port's ``train_net.main`` on synthetic
+   LVIS-format sets (24 PNG train images of 640 x 480, 480 x 640, 500 x 333
+   and 1024 x 683, 8 val images, a category-info json, an RGBA pool of 64
+   instances over 32 categories), IMS_PER_BATCH 2, CHECKPOINT_PERIOD 3:
+   (a) ``configs/BSGAL_SwinL.yaml`` at full width for 6 steps (grad bank
+       every 3, decision log every step, ``do_test`` at step 6), then
+       ``--resume`` for 2: exactly 72 forward and 72 backward launches of
+       fused_window_attention_packed a step outside ``do_test``, paste +
+       discard counts equal to the steps, one decision-log iteration per
+       step, ``grad_bank/`` holding steps 3 and 6, the resumed run starting
+       at 6 from the saved bank and counts, finite ``metrics.json``, an AP
+       dict from the in-training ``do_test``, the step-6 checkpoint's EMA
+       weights in ``Predictor`` giving detections;
+   (b) ``configs/DiverGen_swinL.yaml`` (remat) for 4 steps: exactly 48 and
+       24 launches a step, a checkpoint at step 3, finite metrics.
+   It prints seconds per step (CUDA events between iteration ends, median
+   after the first), ``data_time`` per step, the decisions and ``grad_sim``
+   per step and peak memory, with the card's name and power limit.
+11. Prints the kernels' JSON line (the 13 wrappers' entries; the float32
    window backward body with its launches in 7; and each padded head-dim
    case of 3 with its checked call's launch), the card line, and as the
    last line {"ok": true, "device": {...}}. Any failed phase raises: exit
@@ -3532,6 +3555,271 @@ def slice_train(card: str):
     return f32_fwd, f32_bwd
 
 
+# the float32 active step on the card against the CPU: decision equal,
+# grad_sim within 1e-4 absolute, every metric within 2e-4 relative
+ACTIVE_BOUNDS = dict(sim=1e-4, rel=2e-4, abs=1e-6)
+ACTIVE_P = 4  # patch slots per image of the card-vs-CPU active step
+
+
+def active_draws(gen: torch.Generator, rows: int, probe_rows: int, classes: int) -> dict:
+    """The draws of one BSGAL step on a batch of two images, made on the CPU:
+    the probe's forward (the ground truth as its proposals), the pasted and
+    the final forward, and the compare uniform."""
+    def forward(r):
+        out = {k: torch.rand((2, r), generator=gen) for k in ("match", "mask")}
+        out.update({f"fed{s}": torch.rand((classes + 1,), generator=gen) for s in range(3)})
+        return out
+
+    return {"probe": forward(probe_rows), "paste": forward(rows), "final": forward(rows),
+            "compare": torch.rand((), generator=gen)}
+
+
+def small_active_step() -> None:
+    """One float32 BSGAL step (``make_active_train_step``: gradient compare
+    from one forward, ``paste_or_ori``) of ``graft_entry._small_cfg()``'s
+    Swin-T detector at 64² on the card and on the CPU: the same
+    ``detector_init_`` weights, batch, probe and draws (made on the CPU).
+    Bounds ``ACTIVE_BOUNDS``; the card's window attention runs the float32
+    bodies forward and backward."""
+    from divergen_tpu_torch import graft_entry
+    from divergen_tpu_torch.active.bsgal import init_active_state, make_active_train_step
+    from divergen_tpu_torch.engine.train_loop import create_train_state
+    from divergen_tpu_torch.modeling.meta_arch.rcnn import build_model, detector_init_
+    from divergen_tpu_torch.solver.build import build_optimizer
+
+    cfg = graft_entry._small_cfg()
+    cfg.merge_from_list(["MODEL.ACTIVE.ENABLED", True, "INPUT.USE_COPY_PASTE", True,
+                         "MODEL.ROI_HEADS.BATCH_SIZE_PER_IMAGE", 32,
+                         "MODEL.CENTERNET.PRE_NMS_TOPK_TRAIN", 32,
+                         "MODEL.CENTERNET.POST_NMS_TOPK_TRAIN", 16,
+                         "MODEL.ROI_BOX_HEAD.FED_LOSS_NUM_CAT", 4, "DATALOADER.MAX_INSTANCES", 8,
+                         "DATALOADER.MAX_PASTES", ACTIVE_P, "DATALOADER.PATCH_SIZE", 32,
+                         "SOLVER.CLIP_GRADIENTS.ENABLED", True, "MODEL.MODEL_EMA", 0.999])
+    rng = np.random.RandomState(21)
+
+    def real_batch():
+        return {"image": torch.from_numpy((rng.rand(2, 64, 64, 3) * 255).astype(np.float32)),
+                "image_size": torch.tensor([[64, 64], [56, 48]]),
+                "gt": graft_entry._synth_gt(rng, 2, 8, 8, img=64)}
+
+    batch = real_batch()
+    xy = rng.rand(2, ACTIVE_P, 2) * 30
+    batch.update({
+        "patches": torch.from_numpy(np.concatenate(
+            [rng.rand(2, ACTIVE_P, 32, 32, 3) * 255, rng.rand(2, ACTIVE_P, 32, 32, 1) > 0.3],
+            -1).astype(np.float32)),
+        "patch_boxes": torch.from_numpy(np.concatenate(
+            [xy, xy + rng.rand(2, ACTIVE_P, 2) * 20 + 8], -1).astype(np.float32)),
+        "patch_classes": torch.from_numpy(rng.randint(0, 8, (2, ACTIVE_P))).long(),
+        "patch_valid": torch.arange(ACTIVE_P)[None].expand(2, ACTIVE_P) < 2,
+        "patch_flip": torch.from_numpy(rng.rand(2, ACTIVE_P) > 0.5),
+        "probe": real_batch()})
+    draws = active_draws(torch.Generator().manual_seed(22), 16 + 8 + ACTIVE_P, 16, 8)
+    weights = detector_init_(build_model(cfg, input_size=(64, 64), device="cpu",
+                                         param_dtype=torch.float32),
+                             torch.Generator().manual_seed(23)).state_dict()
+    to = lambda v, dev: ({k: to(x, dev) for k, x in v.items()} if isinstance(v, dict)
+                         else v.to(dev))
+    out = {}
+    for dev in ("cpu", "cuda"):
+        model = build_model(cfg, input_size=(64, 64), device=dev, param_dtype=torch.float32)
+        model.load_state_dict(weights)
+        optimizer = build_optimizer(cfg, model)
+        state = create_train_state(model, optimizer, ema=True)
+        astate = init_active_state(dict(model.named_parameters()), queue_size=8)
+        step = make_active_train_step(model, optimizer, cfg)
+        _, _, metrics = step(state, astate, to(batch, dev), to(draws, dev))
+        out[dev] = {k: float(v) for k, v in metrics.items()}
+    ref, got = out["cpu"], out["cuda"]
+    ok = got["paste_used"] == ref["paste_used"]
+    log(f"  float32 active step: decision card {got['paste_used']:.0f}, CPU "
+        f"{ref['paste_used']:.0f} [{'ok' if ok else 'FAIL'}]")
+    if not ok:
+        raise AssertionError("the float32 active step decides otherwise on the card")
+    for k, want in ref.items():
+        tol = (ACTIVE_BOUNDS["sim"] if k in ("grad_sim", "threshold")
+               else ACTIVE_BOUNDS["rel"] * abs(want) + ACTIVE_BOUNDS["abs"])
+        ok = abs(got[k] - want) <= tol
+        log(f"    {k}: card {got[k]:.6f}, CPU {want:.6f} [{'ok' if ok else 'FAIL'}]")
+        if not ok:
+            raise AssertionError(f"float32 active step: {k} disagrees with the CPU step")
+
+
+TRAIN_SET = 24  # synthetic train images of the do_train slice, SERVING_SIZES in turn
+VAL_SET = 8
+BSGAL_STEPS, BSGAL_RESUME_STEPS, DIVERGEN_STEPS = 6, 2, 4
+# per step: BSGAL's probe, pasted and final forward each with its backward;
+# DiverGen's forward, its rematerialized replay in the backward, the backward
+BSGAL_LAUNCHES = (3 * SWIN_L_BLOCKS, 3 * SWIN_L_BLOCKS)
+DIVERGEN_LAUNCHES = (2 * SWIN_L_BLOCKS, SWIN_L_BLOCKS)
+
+
+def slice_do_train(card: str, tmp: str) -> None:
+    """Both training configs through the port's ``train_net.main`` at full
+    width on synthetic LVIS-format sets (``write_training_root``: 24 PNG
+    train images of the four ``SERVING_SIZES``, 8 val images, a category-info
+    json, an RGBA pool of 64 instances over 32 categories), with the cuts
+    ``SOLVER.IMS_PER_BATCH 2``, ``CHECKPOINT_PERIOD 3`` and the paths:
+    (a) ``configs/BSGAL_SwinL.yaml`` (Swin-L, 1203 classes, 896², bf16 over
+    float32 parameters, AdamW, EMA, ``syn_copy`` with ``cas_random``, RFS)
+    for 6 steps with ``ACTIVE.BANK_CKPT_PERIOD 3``, ``LOG_PERIOD 1`` and
+    ``TEST.EVAL_PERIOD 6``, then ``--resume`` for 2 more; (b)
+    ``configs/DiverGen_swinL.yaml`` (1453 classes, remat, ``both``) for 4
+    steps. Checks the kernel-5 launches per step (its packed wrapper only),
+    the decision counts and logs, the grad bank's saves and its restore, the
+    metrics, the in-training ``do_test`` and the trained checkpoint in
+    ``Predictor``; prints seconds per step, ``data_time`` and peak memory."""
+    import shutil
+
+    from divergen_tpu_torch import train_net
+    from divergen_tpu_torch.data import DatasetCatalog, MetadataCatalog
+    from divergen_tpu_torch.data.dataset_mapper import read_image
+    from divergen_tpu_torch.data.datasets.synthetic_lvis import write_training_root
+    from divergen_tpu_torch.engine import eval_loop
+    from divergen_tpu_torch.engine.checkpoint import Checkpointer
+    from divergen_tpu_torch.engine.trainer import do_train
+    from divergen_tpu_torch.ops.window_attention import (fused_window_attention,
+                                                         fused_window_attention_packed)
+    from divergen_tpu_torch.predictor import Predictor
+
+    packed, split = fused_window_attention_packed, fused_window_attention
+    eval_launches = [0]
+    do_test = eval_loop.do_test
+
+    def counted_do_test(*args, **kw):  # the in-training evaluation's forwards, apart
+        before = packed.launches
+        try:
+            return do_test(*args, **kw)
+        finally:
+            eval_launches[0] += packed.launches - before
+
+    def run(config, root, out, classes, *extra):
+        t0 = time.perf_counter()
+        files = write_training_root(root, classes, SERVING_SIZES * (TRAIN_SET // 4),
+                                    SERVING_SIZES * (VAL_SET // 4), 64, 32, seed=0)
+        written = time.perf_counter() - t0
+        for name in ("lvis_v1_train", "lvis_v1_val", "lvis_v1_train_norare"):
+            DatasetCatalog.remove(name)
+            MetadataCatalog.remove(name)
+        os.environ["DETECTRON2_DATASETS"] = root
+        args = ["--config-file", config, *extra, *files["overrides"],
+                "SOLVER.IMS_PER_BATCH", "2", "SOLVER.CHECKPOINT_PERIOD", "3", "OUTPUT_DIR", out]
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        counts = (packed.launches, packed.backward_launches, eval_launches[0])
+        t0 = time.perf_counter()
+        state = train_net.main(train_net.default_argument_parser().parse_args(args))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        run_info = dict(do_train.last_run)
+        launches = (packed.launches - counts[0] - (eval_launches[0] - counts[2]),
+                    packed.backward_launches - counts[1])
+        steps = state.step - run_info["start_iter"]
+        step_s, data_s = run_info["step_s"], run_info["data_time"]
+        log(f"  {os.path.basename(config)} {' '.join(extra)}: {steps} steps in {wall:.1f} s "
+            f"(data written in {written:.1f} s); s/step "
+            f"{statistics.median(step_s[1:]) if len(step_s) > 1 else step_s[0]:.3f} "
+            f"(median after the first; every step {[round(s, 3) for s in step_s]}); data_time "
+            f"{[round(s, 4) for s in data_s]} s; peak memory "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB [{card}]")
+        if split.launches or split.backward_launches:
+            raise AssertionError("do_train launched the split window-attention wrapper")
+        return state, run_info, launches, steps
+
+    eval_loop.do_test = counted_do_test
+    try:
+        # (a) BSGAL, then --resume
+        root, out = os.path.join(tmp, "bsgal_data"), os.path.join(tmp, "bsgal")
+        keys = ("MODEL.ACTIVE.BANK_CKPT_PERIOD", "3", "MODEL.ACTIVE.LOG_PERIOD", "1",
+                "TEST.EVAL_PERIOD", "6")
+        state, info, launches, steps = run("configs/BSGAL_SwinL.yaml", root, out, 1203,
+                                           "--max-steps", str(BSGAL_STEPS), *keys)
+        want = tuple(n * BSGAL_STEPS for n in BSGAL_LAUNCHES)
+        if steps != BSGAL_STEPS or launches != want:
+            raise AssertionError(f"BSGAL: {steps} steps, kernel-5 launches (forward, backward) "
+                                 f"{launches} outside do_test, expected {want}")
+        astate = info["active_state"]
+        n_paste, n_discard = int(astate.n_paste), int(astate.n_discard)
+        bank = Checkpointer(os.path.join(out, "grad_bank"))
+        if n_paste + n_discard != BSGAL_STEPS or bank.all_steps() != [3, 6]:
+            raise AssertionError(f"BSGAL: paste {n_paste} + discard {n_discard}, grad bank "
+                                 f"saves {bank.all_steps()}")
+        ap = info["eval"]["lvis_v1_val"]
+        if not all(math.isfinite(ap[t]["AP"]) for t in ("bbox", "segm")):
+            raise AssertionError(f"BSGAL: the in-training do_test gave {ap}")
+        log(f"    in-training do_test on {VAL_SET} val images: bbox AP {ap['bbox']['AP']:.4f}, "
+            f"segm AP {ap['segm']['AP']:.4f}; {eval_launches[0]} kernel-5 launches in it")
+        saved = bank.load(6)["active_state"]
+        del state, astate, info
+        torch.cuda.empty_cache()
+        state, info, launches, steps = run("configs/BSGAL_SwinL.yaml", root, out, 1203,
+                                           "--max-steps", str(BSGAL_RESUME_STEPS), "--resume",
+                                           *keys)
+        want = tuple(n * BSGAL_RESUME_STEPS for n in BSGAL_LAUNCHES)
+        restored = info["restored_counts"]
+        if (info["start_iter"], info["bank_step"], state.step) != (6, 6, 8) or launches != want:
+            raise AssertionError(f"BSGAL --resume: start {info['start_iter']}, bank step "
+                                 f"{info['bank_step']}, final step {state.step}, launches "
+                                 f"{launches} (expected {want})")
+        if restored != (int(saved["n_paste"]), int(saved["n_discard"])) or abs(
+                info["restored_bank_norm"] - math.sqrt(sum(
+                    float((v.double() ** 2).sum()) for v in saved["grad_bank"].values()))) > \
+                1e-6 * max(info["restored_bank_norm"], 1e-12):
+            raise AssertionError("BSGAL --resume: the bank or its counters are not the saved ones")
+        astate = info["active_state"]
+        if int(astate.n_paste) + int(astate.n_discard) != BSGAL_STEPS + BSGAL_RESUME_STEPS:
+            raise AssertionError("BSGAL --resume: decision counts do not sum to the steps")
+        lines = open(os.path.join(out, "paste_source", "rank_0", "10000.txt")).read().splitlines()
+        per_step = {}
+        for line in lines:
+            it = int(line.split(" iter: ")[1].split()[0])
+            per_step[it] = (int(line.split(" paste: ")[1].split()[0]),
+                            float(line.split(" sim_paste_init: ")[1].split()[0]))
+        if sorted(per_step) != list(range(BSGAL_STEPS + BSGAL_RESUME_STEPS)) or sum(
+                p for p, _ in per_step.values()) != int(astate.n_paste):
+            raise AssertionError(f"BSGAL: decision log covers {sorted(per_step)}")
+        log(f"    decisions (paste, grad_sim) per step: {[per_step[i] for i in sorted(per_step)]}; "
+            f"{len(lines)} log lines; grad bank saves {bank.all_steps()}")
+        for row in map(json.loads, open(os.path.join(out, "metrics.json")).read().splitlines()):
+            if not all(math.isfinite(v) for v in row.values()):
+                raise AssertionError(f"BSGAL metrics.json: {row}")
+        cfg = train_net.setup(train_net.default_argument_parser().parse_args(
+            ["--config-file", "configs/BSGAL_SwinL.yaml", "OUTPUT_DIR", out]))
+        del state, astate, info
+        torch.cuda.empty_cache()
+        raw = Checkpointer(out).load()
+        params = dict(raw["model"], **raw["ema_params"])
+        pred = Predictor(cfg, params, score_thresh=0.0)
+        res = pred(read_image(os.path.join(root, "coco", "val2017", "000000000001.png")))
+        if not (len(res["boxes"]) and np.isfinite(res["boxes"]).all()
+                and np.isfinite(res["scores"]).all()):
+            raise AssertionError("the trained BSGAL checkpoint gave no detections in Predictor")
+        log(f"    Predictor on the step-{raw['step']} checkpoint (EMA weights): "
+            f"{len(res['boxes'])} detections, masks {res['masks'].shape}")
+        del pred, raw, params
+        shutil.rmtree(out)
+        torch.cuda.empty_cache()
+
+        # (b) DiverGen
+        root, out = os.path.join(tmp, "divergen_data"), os.path.join(tmp, "divergen")
+        state, info, launches, steps = run("configs/DiverGen_swinL.yaml", root, out, 1453,
+                                           "--max-steps", str(DIVERGEN_STEPS),
+                                           "TEST.EVAL_PERIOD", "6")
+        want = tuple(n * DIVERGEN_STEPS for n in DIVERGEN_LAUNCHES)
+        if steps != DIVERGEN_STEPS or launches != want or not state.model.bottom_up.remat:
+            raise AssertionError(f"DiverGen: {steps} steps, launches {launches}, expected {want}")
+        if Checkpointer(out).all_steps() != [3]:
+            raise AssertionError(f"DiverGen: checkpoints {Checkpointer(out).all_steps()}")
+        for row in map(json.loads, open(os.path.join(out, "metrics.json")).read().splitlines()):
+            if not all(math.isfinite(v) for v in row.values()):
+                raise AssertionError(f"DiverGen metrics.json: {row}")
+        del state, info
+        shutil.rmtree(out)
+    finally:
+        eval_loop.do_test = do_test
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3584,6 +3872,7 @@ def main() -> int:
     small_serving_unets()
     small_detector()
     small_train_step()
+    small_active_step()
 
     wrappers = (flash_attention_packed, fused_ln_matmul, flash_attention,
                 flash_attention_relpos, fused_window_attention_packed, fused_window_attention,
@@ -3721,8 +4010,17 @@ def main() -> int:
         async_part()
     del async_part
     torch.cuda.empty_cache()
+
+    log("slice: do_train through train_net at full width (configs/BSGAL_SwinL.yaml, then "
+        "--resume; configs/DiverGen_swinL.yaml)")
+    reset()
+    with tempfile.TemporaryDirectory() as tmp:
+        slice_do_train(card, tmp)
+    do_train_counts = read(("fused_window_attention_packed",
+                            "fused_window_attention_packed_backward"), "the do_train slice")
     launches = {}
-    for counts in (sdxl, chain, serving, fused, train, detector, detector_serving):
+    for counts in (sdxl, chain, serving, fused, train, detector, detector_serving,
+                   do_train_counts):
         for k, n in counts.items():
             launches[k] = launches.get(k, 0) + n
     # the split wrapper is on no slice's path (the packed kernels take any head

@@ -1,11 +1,14 @@
-"""Checkpointing of a ``TrainState``: model, EMA, optimizer and step.
+"""Checkpointing of a ``TrainState`` (model, EMA, optimizer and step) or of
+BSGAL's ``ActiveState`` (the grad bank, the threshold queue, the counters).
 
 Counterpart of ``divergen_tpu/engine/checkpoint.py`` with its API (``save``,
 ``wait``, ``latest_step``, ``restore``, ``resume_or_load``, ``max_to_keep``;
 ``PeriodicCheckpointer``). The JAX package writes orbax checkpoints; here a
 step is one ``torch.save`` file, ``<output_dir>/checkpoints/step_<N>.pt``,
-of ``{"step", "model" (state_dict), "ema_params", "optimizer"}``, read back
-with ``torch.load(weights_only=True)``. orbax checkpoints are not read (that
+of ``{"step", "model" (state_dict), "ema_params", "optimizer"}`` for a
+``TrainState`` and ``{"step", "active_state"}`` for an ``ActiveState``
+(``do_train`` keeps those under ``<OUTPUT_DIR>/grad_bank``), read back with
+``torch.load(weights_only=True)``. orbax checkpoints are not read (that
 needs JAX); JAX weights come in through ``utils/convert.py:params_from_jax``.
 Saves are synchronous, so ``wait`` has nothing to wait for.
 """
@@ -47,21 +50,25 @@ class Checkpointer:
     def all_steps(self) -> List[int]:
         return sorted(int(m.group(1)) for m in map(_NAME.match, os.listdir(self.dir)) if m)
 
-    def save(self, step: int, state: TrainState, force: bool = False) -> None:
-        """Write ``state`` as step ``step`` (``force`` overwrites an existing
-        step), then keep the newest ``max_to_keep`` steps."""
+    def save(self, step: int, state, force: bool = False) -> None:
+        """Write ``state`` (a ``TrainState`` or an ``ActiveState``) as step
+        ``step`` (``force`` overwrites an existing step), then keep the newest
+        ``max_to_keep`` steps."""
         path = self.path(step)
         if os.path.exists(path) and not force:
             logger.info("checkpoint step %d exists; not overwritten", step)
             return
-        opt = state.optimizer
-        payload = {
-            "step": int(state.step),
-            "model": _cpu(state.model.state_dict()),
-            "ema_params": _cpu(state.ema_params) if state.ema_params is not None else None,
-            "optimizer": (None if opt is None else
-                          {"optim": _cpu(opt.optim.state_dict()), "count": int(opt.count)}),
-        }
+        if not isinstance(state, TrainState):
+            payload = {"step": int(step), "active_state": _cpu(state.state_dict())}
+        else:
+            opt = state.optimizer
+            payload = {
+                "step": int(state.step),
+                "model": _cpu(state.model.state_dict()),
+                "ema_params": _cpu(state.ema_params) if state.ema_params is not None else None,
+                "optimizer": (None if opt is None else
+                              {"optim": _cpu(opt.optim.state_dict()), "count": int(opt.count)}),
+            }
         tmp = f"{path}.{os.getpid()}.tmp"
         torch.save(payload, tmp)
         os.replace(tmp, path)  # atomic: a reader never sees a partial file
@@ -83,10 +90,13 @@ class Checkpointer:
             raise FileNotFoundError(f"no checkpoint in {self.dir}")
         return torch.load(self.path(step), map_location="cpu", weights_only=True)
 
-    def restore(self, state_template: TrainState, step: Optional[int] = None) -> TrainState:
+    def restore(self, state_template, step: Optional[int] = None):
         """Load step ``step`` (default: the newest) into the template's model,
-        EMA copy and optimizer, in place, and return it."""
+        EMA copy and optimizer (an ``ActiveState``'s tensors), in place, and
+        return it."""
         raw = self.load(step)
+        if not isinstance(state_template, TrainState):
+            return state_template.load_state_dict(raw["active_state"])
         state_template.model.load_state_dict(raw["model"])
         if state_template.ema_params is not None and raw["ema_params"] is not None:
             for k, v in raw["ema_params"].items():
@@ -98,7 +108,7 @@ class Checkpointer:
         state_template.step = raw["step"]
         return state_template
 
-    def resume_or_load(self, state_template: TrainState, resume: bool = True):
+    def resume_or_load(self, state_template, resume: bool = True):
         """(state, start_iter): resume from latest if present, else the
         template unchanged at iter 0 (DetectionCheckpointer.resume_or_load)."""
         step = self.latest_step()
@@ -116,7 +126,7 @@ class PeriodicCheckpointer:
         self.period = max(int(period), 1)
         self.max_iter = max_iter
 
-    def step(self, iteration: int, state: TrainState) -> None:
+    def step(self, iteration: int, state) -> None:
         it = int(iteration)
         if (it + 1) % self.period == 0 or (it + 1) >= self.max_iter:
             self.ckpt.save(it + 1, state)

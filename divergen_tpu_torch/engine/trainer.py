@@ -1,24 +1,49 @@
-"""The training entry's step: on-device copy-paste, then the train step.
+"""do_train: the training entry (replaces ``DiverGen/train_net.py:62-304``).
 
-Counterpart of ``divergen_tpu/engine/trainer.py`` for ``load_fed_weight`` and
-``make_paste_train_step``: compositing (box-frame) → forward → backward →
-optimizer → EMA on the device. ``do_train`` with its data loader,
-checkpointing and evaluation is not ported yet.
+Counterpart of ``divergen_tpu/engine/trainer.py``: ``load_fed_weight``,
+``make_paste_train_step`` (compositing (box-frame) → forward → backward →
+optimizer → EMA on the device), ``build_train_loader`` and ``do_train`` with
+the BSGAL branch (``active/bsgal.py``). The host loader only decodes and
+assembles patch stacks (``data/loader.py``); batches reach the card through
+``device_prefetch``. One card: a data-parallel width above 1 raises (it needs
+``torch.distributed``, ROADMAP.md §1 item 6c). The JAX package's
+``_init_params`` (flax ``init``) is ``modeling/meta_arch/rcnn.py:detector_init_``
+with a generator seeded from ``SEED``.
 """
 from __future__ import annotations
 
 import json
+import logging
+import math
 import os
-from typing import Callable, Optional
+import time
+from typing import Callable, Dict, Optional
 
 import numpy as np
 import torch
 import torch.nn as nn
 
+from ..data import DatasetCatalog
+from ..data.copy_paste_mapper import CopyPasteMapper
+from ..data.dataset_mapper import DatasetMapper
+from ..data.loader import TrainLoader, device_prefetch
+from ..data.samplers import (
+    MultiDatasetSampler,
+    RepeatFactorTrainingSampler,
+    TrainingSampler,
+    repeat_factors_from_category_frequency,
+)
+from ..modeling.meta_arch.rcnn import build_model, detector_init_, load_zs_weight, reset_cls_test
 from ..ops.copy_paste import normalize_cp_method, paste_instances_boxframe
 from ..ops.losses import Rng
-from ..solver.build import SolverOptimizer
-from .train_loop import TrainState, apply_losses
+from ..solver.build import SolverOptimizer, build_optimizer
+from ..utils.dist import entry_device, rank_world
+from ..utils.transfer import to_host
+from .checkpoint import Checkpointer, PeriodicCheckpointer
+from .events import CommonMetricPrinter, EventStorage, JSONWriter
+from .train_loop import TrainState, apply_losses, create_train_state
+
+logger = logging.getLogger(__name__)
 
 
 def load_fed_weight(cfg, device=None) -> Optional[torch.Tensor]:
@@ -77,3 +102,244 @@ def make_paste_train_step(model: nn.Module, optimizer: SolverOptimizer, cfg) -> 
         return state, metrics
 
     return step_fn
+
+
+def build_train_loader(cfg, mapper=None) -> TrainLoader:
+    """The train loader of ``cfg``: the records of every ``DATASETS.TRAIN``
+    name, the train ``DatasetMapper`` (wrapped in a ``CopyPasteMapper`` with
+    ``INPUT.USE_COPY_PASTE``, its self-copy sources set to the records), and
+    the sampler: ``MultiDatasetSampler`` over several datasets, repeat-factor
+    sampling with ``INPUT.USE_RFS`` or ``RepeatFactorTrainingSampler``, else
+    ``TrainingSampler``; seeded from ``SEED``, sharded by rank."""
+    names = list(cfg.DATASETS.TRAIN)
+    dataset = []
+    for n in names:
+        dataset += DatasetCatalog.get(n)
+    if mapper is None:
+        base = DatasetMapper(cfg, is_train=True)
+        mapper = CopyPasteMapper(base, cfg) if cfg.INPUT.USE_COPY_PASTE else base
+        if isinstance(mapper, CopyPasteMapper):
+            mapper.set_dataset(dataset)
+    rank, world = rank_world()
+    use_rfs = cfg.INPUT.USE_RFS or (cfg.DATALOADER.SAMPLER_TRAIN == "RepeatFactorTrainingSampler")
+    if len(names) > 1:
+        # per-dataset ratio x optional per-dataset RFS
+        # (custom_dataset_dataloader.py:88-127)
+        sizes = [len(DatasetCatalog.get(n)) for n in names]
+        ratios = list(cfg.DATALOADER.DATASET_RATIO)
+        if len(ratios) != len(names):
+            ratios = [1.0] * len(names)
+        rfs_flags = list(cfg.DATALOADER.USE_RFS)
+        if len(rfs_flags) != len(names):
+            rfs_flags = [False] * len(names)
+        rfs_all, ofs = [], 0
+        for sz, flag in zip(sizes, rfs_flags):
+            rfs_all.append(repeat_factors_from_category_frequency(
+                dataset[ofs : ofs + sz], cfg.DATALOADER.REPEAT_THRESHOLD) if flag else np.ones(sz))
+            ofs += sz
+        sampler = MultiDatasetSampler(sizes, ratios, np.concatenate(rfs_all), seed=cfg.SEED,
+                                      rank=rank, world_size=world)
+    elif use_rfs:
+        rfs = repeat_factors_from_category_frequency(dataset, cfg.DATALOADER.REPEAT_THRESHOLD)
+        sampler = RepeatFactorTrainingSampler(rfs, seed=cfg.SEED, rank=rank, world_size=world)
+    else:
+        sampler = TrainingSampler(len(dataset), seed=cfg.SEED, rank=rank, world_size=world)
+    return TrainLoader(dataset, mapper, sampler, batch_size=cfg.SOLVER.IMS_PER_BATCH,
+                       num_workers=cfg.DATALOADER.NUM_WORKERS, seed=cfg.SEED)
+
+
+def _probe_of(probe: Dict, size: int) -> Dict:
+    """The first ``size`` images of a real batch: BSGAL's probe
+    (ACTIVE_TEST_BATCHSIZE, ref config.py:79)."""
+    pb = min(size, probe["image"].shape[0])
+    return {"image": probe["image"][:pb], "image_size": probe["image_size"][:pb],
+            "gt": {k: v[:pb] for k, v in probe["gt"].items()}}
+
+
+class _StepClock:
+    """Seconds between the ends of consecutive iterations, without a host
+    sync: on the card each end is a CUDA event read after the loop, so a
+    step's time is the device's (or the host's, where the device waited)."""
+
+    def __init__(self, device: torch.device):
+        self.cuda = device.type == "cuda"
+        self.marks = []
+        self.mark()
+
+    def mark(self) -> None:
+        if self.cuda:
+            ev = torch.cuda.Event(enable_timing=True)
+            ev.record()
+            self.marks.append(ev)
+        else:
+            self.marks.append(time.perf_counter())
+
+    def seconds(self):
+        if self.cuda:
+            torch.cuda.synchronize()
+            return [a.elapsed_time(b) / 1e3 for a, b in zip(self.marks, self.marks[1:])]
+        return [b - a for a, b in zip(self.marks, self.marks[1:])]
+
+
+def do_train(cfg, resume: bool = False, max_steps: Optional[int] = None,
+             device=None) -> TrainState:
+    """Train ``cfg``'s model on ``cfg.DATASETS.TRAIN`` on ``device`` (the card
+    unless the caller names another; without a card and without a request it
+    raises): the model with float32 parameters and random weights seeded
+    from ``SEED``, the train loader, the optimizer and EMA, resumed from
+    ``OUTPUT_DIR/checkpoints`` with ``resume``; with ``MODEL.ACTIVE.ENABLED``
+    BSGAL's step, its probe the first ``PROBE_BATCH`` images of the loader's
+    next batch, its grad bank under ``OUTPUT_DIR/grad_bank`` (the newest two
+    kept, saved every ``BANK_CKPT_PERIOD``, restored with ``resume``) and its
+    decision logs every ``LOG_PERIOD``. Every 20 iterations (and the first)
+    the metrics are checked finite and written (``metrics.json``, the log);
+    ``TEST.EVAL_PERIOD`` runs ``do_test`` on the EMA weights;
+    ``PROFILE_START_ITER`` traces ``PROFILE_NUM_ITERS`` iterations with
+    ``torch.profiler`` into ``OUTPUT_DIR/profile``. ``max_steps`` caps the
+    iterations of this call. ``do_train.last_run`` keeps what a caller may
+    check: ``start_iter``, the restored bank's step, decision counts and
+    norm, ``data_time`` and ``step_s`` per iteration, the last ``do_test``
+    result and the ``ActiveState``."""
+    dev = entry_device(device)
+    if cfg.PARALLEL.DATA_PARALLEL > 1:
+        raise NotImplementedError(
+            "data-parallel training over several cards is not yet ported (it needs "
+            "torch.distributed: ROADMAP.md §1 item 6c); run with PARALLEL.DATA_PARALLEL -1 or 1")
+    out_dir = cfg.OUTPUT_DIR
+    os.makedirs(out_dir, exist_ok=True)
+    canvas = (cfg.INPUT.TRAIN_SIZE,) * 2
+    model = build_model(cfg, input_size=canvas, device=dev, param_dtype=torch.float32)
+    detector_init_(model, torch.Generator(device=dev).manual_seed(cfg.SEED))
+    zs_path = cfg.MODEL.ROI_BOX_HEAD.ZEROSHOT_WEIGHT_PATH
+    if cfg.MODEL.ROI_BOX_HEAD.USE_ZEROSHOT_CLS and zs_path and zs_path != "rand":
+        # the CLIP-text classifier (ZeroShotClassifier init); files are stored
+        # (C, zs_dim) (modeling/utils.py:40-43)
+        reset_cls_test(model, load_zs_weight(zs_path,
+                                             zs_dim=cfg.MODEL.ROI_BOX_HEAD.ZEROSHOT_WEIGHT_DIM))
+    logger.info("model parameters: %.2fM", sum(p.numel() for p in model.parameters()) / 1e6)
+    loader = build_train_loader(cfg)
+
+    optimizer = build_optimizer(cfg, model)
+    state = create_train_state(model, optimizer, ema=cfg.MODEL.MODEL_EMA > 0)
+    ckpt = Checkpointer(out_dir)
+    state, start_iter = ckpt.resume_or_load(state, resume=resume)
+    periodic = PeriodicCheckpointer(ckpt, cfg.SOLVER.CHECKPOINT_PERIOD, cfg.SOLVER.MAX_ITER)
+    run: Dict = {"start_iter": start_iter, "eval": None}
+    do_train.last_run = run
+
+    active = cfg.MODEL.ACTIVE.ENABLED
+    rank, _ = rank_world()
+    if active:
+        from ..active.bsgal import (DecisionLogger, init_active_state, make_active_train_step,
+                                    paste_ins_rows)
+
+        astate = init_active_state({n: p for n, p in model.named_parameters() if p.requires_grad},
+                                   queue_size=cfg.MODEL.ACTIVE.QUEUE_SIZE)
+        a_ckpt = Checkpointer(os.path.join(out_dir, "grad_bank"), max_to_keep=2)
+        astate, a_it = a_ckpt.resume_or_load(astate, resume=resume)
+        norm2 = torch.stack([(v.double() ** 2).sum() for v in astate.grad_bank.values()]).sum()
+        run.update(active_state=astate, bank_step=a_it,
+                   restored_counts=(int(astate.n_paste), int(astate.n_discard)),
+                   restored_bank_norm=math.sqrt(float(norm2)))
+        step = make_active_train_step(model, optimizer, cfg)
+        # per-rank decision logs in the reference layout (custom_rcnn.py:
+        # 610-686: paste_source/rank_*/N0000.txt + paste_ins_loss/rank_*/N0000.txt)
+        decision_log = DecisionLogger(out_dir, rank)
+    else:
+        step = make_paste_train_step(model, optimizer, cfg)
+    storage = EventStorage(start_iter)
+    writers = [CommonMetricPrinter(cfg.SOLVER.MAX_ITER),
+               JSONWriter(os.path.join(out_dir, "metrics.json"))]
+    rng = torch.Generator(device=dev).manual_seed(cfg.SEED + 1)
+    max_iter = (cfg.SOLVER.MAX_ITER if max_steps is None
+                else min(cfg.SOLVER.MAX_ITER, start_iter + max_steps))
+    data_iter = device_prefetch(iter(loader), size=cfg.DATALOADER.PREFETCH_TO_DEVICE, device=dev)
+    # torch.profiler window over iterations [PROFILE_START_ITER, +PROFILE_NUM_ITERS)
+    prof_start = cfg.get("PROFILE_START_ITER", -1)
+    prof_n = cfg.get("PROFILE_NUM_ITERS", 5)
+    prof = None
+    eval_model = None
+    data_times = []
+    clock = _StepClock(dev)
+    t_data = time.perf_counter()
+    for it in range(start_iter, max_iter):
+        if prof_start >= 0 and it == prof_start:
+            activities = [torch.profiler.ProfilerActivity.CPU]
+            if dev.type == "cuda":
+                activities.append(torch.profiler.ProfilerActivity.CUDA)
+            prof = torch.profiler.profile(activities=activities)
+            prof.start()
+        if prof is not None and it == prof_start + prof_n:
+            _stop_profile(prof, out_dir)
+            prof = None
+        batch = next(data_iter)
+        batch.pop("tfms", None)
+        batch.pop("image_ids", None)
+        # host-side provenance (string arrays never reach the device)
+        paste_filenames = batch.pop("patch_filenames", None)
+        data_times.append(time.perf_counter() - t_data)
+        storage.put_scalar("data_time", data_times[-1])
+        if active:
+            # probe = the next real batch (ACTIVE_TEST 'select' pairing is the
+            # mapper's job; any real batch works as the default)
+            probe = next(data_iter)
+            batch["probe"] = _probe_of(probe, cfg.MODEL.ACTIVE.PROBE_BATCH)
+            state, astate, metrics = step(state, astate, batch, rng)
+            aux_rows = metrics.pop("aux_paste_rows", None)
+            if (it + 1) % max(cfg.MODEL.ACTIVE.LOG_PERIOD, 1) == 0 or it == start_iter:
+                h = to_host({"sim": metrics["grad_sim"], "use": metrics["paste_used"],
+                             "thr": metrics["threshold"], "num": metrics["paste_num"],
+                             **({"cls": batch["patch_classes"]} if "patch_classes" in batch
+                                else {})})
+                names, sel_classes = [], []
+                if paste_filenames is not None and "cls" in h:
+                    for f, c in zip(np.asarray(paste_filenames).reshape(-1).tolist(),
+                                    h["cls"].reshape(-1).tolist()):
+                        if f:
+                            names.append(f)
+                            sel_classes.append(int(c))
+                decision_log.log_decision(it, names or ["<none>"], sel_classes or [-1],
+                                          int(h["use"]), float(h["sim"]), float(h["thr"]),
+                                          int(h["num"]))
+                if aux_rows is not None:
+                    rows = paste_ins_rows(to_host(aux_rows), paste_filenames)
+                    if rows:
+                        decision_log.log_paste_ins(it, rows, int(h["use"]), int(h["num"]))
+            if (it + 1) % cfg.MODEL.ACTIVE.BANK_CKPT_PERIOD == 0:
+                a_ckpt.save(it + 1, astate)
+        else:
+            state, metrics = step(state, batch, rng)
+        if (it + 1) % 20 == 0 or it == start_iter:
+            host = to_host(metrics)
+            if not np.isfinite(host["total_loss"]):
+                raise FloatingPointError(f"non-finite loss at iter {it}: {host}")
+            storage.put_scalars(**{k: float(v) for k, v in host.items()})
+            for w in writers:
+                w.write(storage)
+        periodic.step(it, state)
+        if cfg.TEST.EVAL_PERIOD > 0 and (it + 1) % cfg.TEST.EVAL_PERIOD == 0:
+            from .eval_loop import do_test
+
+            # evaluated in a model of its own: do_test loads the EMA weights
+            # into the model it is given
+            if eval_model is None:
+                eval_model = build_model(cfg, input_size=(cfg.INPUT.TEST_SIZE,) * 2, device=dev)
+            run["eval"] = do_test(cfg, model=eval_model, state=state, device=dev)
+        storage.step()
+        clock.mark()
+        t_data = time.perf_counter()
+    if prof is not None:  # the window reached past the last iteration
+        _stop_profile(prof, out_dir)
+    run.update(data_time=data_times, step_s=clock.seconds())
+    writers[1].close()
+    loader.stop()
+    return state
+
+
+do_train.last_run = None
+
+
+def _stop_profile(prof, out_dir: str) -> None:
+    prof.stop()
+    os.makedirs(os.path.join(out_dir, "profile"), exist_ok=True)
+    prof.export_chrome_trace(os.path.join(out_dir, "profile", "trace.json"))

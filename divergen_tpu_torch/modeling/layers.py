@@ -262,5 +262,6 @@ def flax_init_(module: nn.Module, gen: torch.Generator) -> nn.Module:
             mod.bias.zero_()
         raw: Dict[str, float] = getattr(mod, "raw_init_std", {})
         for name, std in raw.items():
-            getattr(mod, name).normal_(0.0, std, generator=gen)
+            if hasattr(mod, name):  # an optional parameter may be absent
+                getattr(mod, name).normal_(0.0, std, generator=gen)
     return module

@@ -15,6 +15,7 @@ and the dynamic classifier. Every other backbone name, ``fpn_kind='bifpn'``,
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Dict, Optional, Sequence, Tuple
 
 import numpy as np
@@ -26,7 +27,7 @@ from ..backbone.swin import SIZE2CONFIG, SwinTransformer
 from ...ops.losses import Rng, sample_dynamic_classifier_inds
 from ..centernet.centernet import (CenterNetConfig, CenterNetHead, centernet_ground_truth,
                                    centernet_losses, centernet_proposals, level_geometry)
-from ..layers import set_param_dtype_
+from ..layers import flax_init_, set_param_dtype_
 from ..roi_heads.cascade_heads import CascadeROIHeads, ROIHeadsConfig
 
 
@@ -199,6 +200,43 @@ def build_model(cfg, input_size: Optional[Tuple[int, int]] = None, device=None,
         device=device,
     )
     return model if param_dtype is None else set_param_dtype_(model, param_dtype)
+
+
+@torch.no_grad()
+def detector_init_(model: CustomRCNN, gen: torch.Generator) -> CustomRCNN:
+    """Random weights as the JAX detector's ``init`` draws them (not the same
+    bits), for training from scratch: ``flax_init_`` everywhere, then the
+    initializers the JAX heads name where they set a loss's scale at the
+    start: the CenterNet head's convolutions normal(0.01), its heatmap bias
+    at the prior ``-log((1 - p) / p)`` and its box bias 8; each cascade
+    stage's classifier normal(0.01) with the prior bias (sigmoid CE) and its
+    box regressor normal(0.001); the mask predictor normal(0.001)."""
+    flax_init_(model, gen)
+
+    def normal_(w, std):
+        w.copy_(torch.empty(w.shape, dtype=torch.float32, device=w.device)
+                .normal_(0.0, std, generator=gen))
+
+    prior = lambda p: -math.log((1 - p) / p)
+    for name, mod in model.centernet_head.named_modules():
+        if isinstance(mod, nn.Conv2d):
+            normal_(mod.weight, 0.01)
+            if mod.bias is not None:
+                mod.bias.fill_(prior(model.centernet_cfg.prior_prob) if name == "agn_hm.conv"
+                               else 8.0 if name == "bbox_pred.conv" else 0.0)
+    heads = model.roi_heads
+    bias = prior(heads.cfg.prior_prob) if heads.cfg.use_sigmoid_ce else 0.0
+    for k in range(heads.num_stages):
+        pred = getattr(heads, f"box_predictor{k}")
+        if pred.use_zeroshot_cls:
+            pred.bg_bias.fill_(bias)
+        else:
+            normal_(pred.cls_score.weight, 0.01)
+            pred.cls_score.bias.fill_(bias)
+        normal_(pred.bbox_pred.weight, 0.001)
+    if heads.mask_head is not None:
+        normal_(heads.mask_head.predictor.weight, 0.001)
+    return model
 
 
 def load_zs_weight(path, zs_dim: Optional[int] = None) -> np.ndarray:

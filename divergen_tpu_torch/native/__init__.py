@@ -5,9 +5,10 @@ Counterpart of ``divergen_tpu/native/__init__.py``: greedy COCO matching and
 the RLE mask IoU (``cocoeval.cpp``), the fused paste + RLE encode of a
 detection mask and the RLE string codec (``mask_codec.cpp``; both files are
 copies of the JAX package's), plus the polygon fill of ``cv2.fillPoly``
-(``polygon_fill.cpp``), which the JAX package takes from OpenCV.
+(``polygon_fill.cpp``) and the outer borders of ``cv2.findContours``
+(``contours.cpp``), which the JAX package takes from OpenCV.
 
-The three sources are built with ``g++ -O3 -shared -fPIC -std=c++17`` into
+The four sources are built with ``g++ -O3 -shared -fPIC -std=c++17`` into
 one library under ``build/native/`` at the root of the checkout, named by a
 hash of the sources, so an edit builds a new one. Nothing is built at import
 time. A failed build raises: there is no numpy fallback here (the JAX package
@@ -29,7 +30,8 @@ from typing import List, Tuple
 import numpy as np
 
 SOURCES = tuple(Path(__file__).resolve().parent / name
-                for name in ("cocoeval.cpp", "mask_codec.cpp", "polygon_fill.cpp"))
+                for name in ("cocoeval.cpp", "mask_codec.cpp", "polygon_fill.cpp",
+                               "contours.cpp"))
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "native"
 GXX_FLAGS = ("-O3", "-shared", "-fPIC", "-std=c++17")
 
@@ -82,6 +84,8 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.rle_string_to_counts.restype = i64
     lib.fill_polygon.argtypes = [p, i64, i64, p, i64]
     lib.fill_polygon.restype = i64
+    lib.external_contours.argtypes = [p, i64, i64, p, i64, p, i64, p]
+    lib.external_contours.restype = i64
 
 
 def get_lib() -> ctypes.CDLL:
@@ -189,3 +193,37 @@ def fill_polygon(mask: np.ndarray, pts: np.ndarray) -> None:
     if not len(pts):  # cv2.fillPoly asserts on an empty contour
         raise ValueError("fill_polygon: a polygon without vertices")
     get_lib().fill_polygon(_ptr(mask), mask.shape[0], mask.shape[1], _ptr(pts), len(pts))
+
+
+def external_contours(mask: np.ndarray) -> List[np.ndarray]:
+    """The outer borders of a 2-D mask (nonzero = set), each an (n, 2) int64
+    array of (x, y) points, as ``cv2.findContours(mask, cv2.RETR_EXTERNAL,
+    cv2.CHAIN_APPROX_SIMPLE)`` returns them: the same points in the same
+    order, and the contours in its order."""
+    if mask.ndim != 2:
+        raise ValueError(f"external_contours: a 2-D mask, got {mask.shape}")
+    m = np.ascontiguousarray(mask != 0, np.uint8)
+    h, w = m.shape
+    lib = get_lib()
+    cap_pts, cap_counts = 4 * (h + w) + 16, 64
+    while True:
+        pts = np.zeros((cap_pts, 2), np.int64)
+        counts = np.zeros(cap_counts, np.int64)
+        total = ctypes.c_int64(0)
+        n = lib.external_contours(_ptr(m), h, w, _ptr(pts), cap_pts, _ptr(counts), cap_counts,
+                                  ctypes.byref(total))
+        if n <= cap_counts and total.value <= cap_pts:
+            break
+        cap_pts, cap_counts = max(cap_pts, int(total.value)), max(cap_counts, int(n))
+    ends = np.cumsum(counts[:n])
+    return [pts[e - c:e] for c, e in zip(counts[:n], ends)]
+
+
+def contour_area(pts: np.ndarray) -> float:
+    """``cv2.contourArea`` of integer points: the shoelace sum in float64
+    over the points as given, halved, made positive."""
+    pts = np.asarray(pts, np.float64).reshape(-1, 2)
+    if not len(pts):
+        return 0.0
+    prev = np.roll(pts, 1, axis=0)
+    return abs(float(np.sum(prev[:, 0] * pts[:, 1] - prev[:, 1] * pts[:, 0])) * 0.5)

@@ -1,6 +1,6 @@
 """A small PNG writer and reader on the standard library (zlib + struct).
 
-The writer stores 8-bit RGB or 8-bit gray, the pixels ``cv2.imwrite`` would
+The writer stores 8-bit RGB, RGBA or gray, the pixels ``cv2.imwrite`` would
 store for the same array (RGB given as RGB, not BGR). The reader decodes
 8-bit gray, RGB and RGBA, non-interlaced, with all five scanline filters. So
 the port needs neither OpenCV nor PIL. There is no JPEG decoder.
@@ -22,14 +22,15 @@ def _chunk(tag: bytes, data: bytes) -> bytes:
 
 
 def write_png(path: str, img: np.ndarray) -> None:
-    """img: (H, W, 3) uint8 RGB, or (H, W) uint8 gray."""
+    """img: (H, W, 3) uint8 RGB, (H, W, 4) uint8 RGBA, or (H, W) uint8 gray."""
     img = np.ascontiguousarray(img)
-    if img.dtype != np.uint8 or not (img.ndim == 2 or (img.ndim == 3 and img.shape[2] == 3)):
-        raise ValueError(f"expected (H, W, 3) or (H, W) uint8, got {img.shape} {img.dtype}")
+    if img.dtype != np.uint8 or not (img.ndim == 2 or (img.ndim == 3 and img.shape[2] in (3, 4))):
+        raise ValueError(f"expected (H, W, 3), (H, W, 4) or (H, W) uint8, got {img.shape} "
+                         f"{img.dtype}")
     h, w = img.shape[:2]
     # each scanline starts with filter type 0 (none)
     raw = np.concatenate([np.zeros((h, 1), np.uint8), img.reshape(h, -1)], axis=1)
-    color_type = 2 if img.ndim == 3 else 0
+    color_type = {3: 2, 4: 6}[img.shape[2]] if img.ndim == 3 else 0
     ihdr = struct.pack(">IIBBBBB", w, h, 8, color_type, 0, 0, 0)
     with open(path, "wb") as f:
         f.write(_SIGNATURE)

@@ -112,3 +112,25 @@ def test_rle_string_codec():
     rle = rle_encode(rng.rand(33, 47) > 0.5)
     np.testing.assert_array_equal(tnative._runs_of(rle), jnative._runs_of(rle))
 
+
+
+def test_contours_in_the_library():
+    """``contours.cpp`` is one of the library's sources and its entry point is
+    bound: the outer borders of a ring with a speck in its hole and a line
+    beside it, in ``cv2.findContours``' order (the last found first)."""
+    assert "contours.cpp" in {src.name for src in tnative.SOURCES}
+    assert hasattr(tnative.get_lib(), "external_contours")
+    m = np.zeros((9, 14), np.uint8)
+    m[1:8, 1:8] = 1
+    m[3:6, 3:6] = 0
+    m[4, 4] = 1
+    m[2, 10:13] = 1
+    got = tnative.external_contours(m)
+    assert [c.tolist() for c in got] == [[[10, 2], [12, 2]], [[1, 1], [1, 7], [7, 7], [7, 1]]]
+    assert [tnative.contour_area(c) for c in got] == [0.0, 36.0]
+    assert tnative.external_contours(np.zeros((3, 3), np.uint8)) == []
+    big = np.zeros((40, 40), np.uint8)
+    big[::2, ::2] = 1  # 400 single pixels: more than the first buffers hold
+    assert len(tnative.external_contours(big)) == 400
+    with pytest.raises(ValueError, match="2-D"):
+        tnative.external_contours(np.zeros((2, 2, 2), np.uint8))

@@ -66,13 +66,14 @@ def test_read_png_matches_opencv(tmp_path, shape):
     assert np.abs(png.read_gray(path).astype(int) - gray).max() <= 1  # fixed-point BT.601
 
 
-@pytest.mark.parametrize("shape", [(12, 17), (12, 17, 3)])
+@pytest.mark.parametrize("shape", [(12, 17), (12, 17, 3), (12, 17, 4)])
 def test_write_png_read_back_by_opencv(tmp_path, shape):
     img = np.random.RandomState(1).randint(0, 256, shape).astype(np.uint8)
     path = str(tmp_path / "a.png")
     png.write_png(path, img)
     back = cv2.imread(path, cv2.IMREAD_UNCHANGED)
-    np.testing.assert_array_equal(back if back.ndim == 2 else back[..., ::-1], img)
+    np.testing.assert_array_equal(back if back.ndim == 2 else back[..., [2, 1, 0, 3][:shape[2]]],
+                                  img)
     np.testing.assert_array_equal(png.read_png(path), img)
 
 

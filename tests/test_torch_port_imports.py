@@ -32,4 +32,6 @@ def test_scan_sees_the_port():
     assert {"engine/train_loop.py", "engine/trainer.py", "solver/build.py", "ops/losses.py",
             "structures/masks.py", "predictor.py", "engine/eval_loop.py",
             "engine/checkpoint.py", "evaluation/lvis_evaluator.py", "native/__init__.py",
-            "data/dataset_mapper.py", "utils/visualizer.py"} <= seen
+            "data/dataset_mapper.py", "utils/visualizer.py", "active/bsgal.py", "train_net.py",
+            "data/inst_pool.py", "data/copy_paste_mapper.py", "data/loader.py",
+            "data/samplers.py", "engine/events.py"} <= seen

@@ -139,5 +139,9 @@ def test_non_png_and_train_half_raise(tmp_path):
     other.write_bytes(b"GIF89a" + bytes(32))
     with pytest.raises(ValueError, match="not a PNG"):
         tdm.read_image(str(other))
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        tdm.DatasetMapper(tget_cfg(), is_train=True)
+    # the train half is ported: it builds, and a missing image file raises
+    # FileNotFoundError, which the train loader skips
+    mapper = tdm.DatasetMapper(tget_cfg(), is_train=True)
+    assert mapper.is_train and mapper.canvas == tget_cfg().INPUT.TRAIN_SIZE
+    with pytest.raises(FileNotFoundError):
+        mapper({"file_name": str(tmp_path / "missing.png"), "annotations": []})
