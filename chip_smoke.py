@@ -150,11 +150,7 @@ Run from the root of a checkout:  python3 chip_smoke.py
    conv_matmul="fused")`` on the card, kernels 7 to 11 in float32, against its
    float32 CPU copy (mean |diff| / mean |ref| < 0.1). ``UNetSDXL.tiny()``
    (head dim 16: kernel 1 through kernel 3's path) one call in bf16 and in
-   float32 against its float32 CPU copy (relative L2 <= 3e-2; <= 1e-4). One
-   float32 BSGAL step (``active/bsgal.py:make_active_train_step``) of the
-   Swin-T detector at 64² on the card against the CPU, the same weights,
-   batch, probe and draws: the same decision, ``grad_sim`` within 1e-4,
-   every metric within 2e-4 relative (``small_active_step``).
+   float32 against its float32 CPU copy (relative L2 <= 3e-2; <= 1e-4).
 5. Slice at full SDXL width, launch counters reset just before it:
    (a) the port's ``txt2img.main`` writing two 1024² PNGs;
    (b) ``SDXLTextEncoder.random(tiny=False)`` → ``SDXLPipeline.generate``,
@@ -197,11 +193,7 @@ Run from the root of a checkout:  python3 chip_smoke.py
    Then a CFG step of the bf16 and of the fused-ResBlock pipeline in turns
    (medians of 3).
 7. Slice of the detector's train step, launch counters reset just before it:
-   ``graft_entry.dryrun_train()`` (one checked step of the small detector in
-   float32, as the JAX ``dryrun_multichip``): its parameters and compute
-   float32, every window-attention forward and backward launch on the
-   float32 bodies, and every metric within ``DRYRUN_BOUNDS`` of
-   ``dryrun_train(device="cpu")`` (same weights, batch and draws); then ``graft_entry.flagship_train_entry()``: Swin-L, 1453 classes, 896²,
+   ``graft_entry.flagship_train_entry()``: Swin-L, 1453 classes, 896²,
    B = 2, bf16 compute over float32 parameters, AdamW with clipping, EMA, the
    federated loss, the compositor. Five steps of ``make_paste_train_step``
    and one of ``make_train_step`` with rematerialized Swin blocks (48 forward
@@ -253,8 +245,16 @@ Run from the root of a checkout:  python3 chip_smoke.py
    The counts are read here; then (d) ``AsyncPredictor`` with two worker
    threads on the card: results in request order, equal to (b)'s by
    (c)'s comparison (its launches, counted by threads, are read by no slice).
-10. Slice of the training loop, launch counters reset just before it
-   (``slice_do_train``): the port's ``train_net.main`` on synthetic
+10. Slice of the training loop, launch counters reset just before it: one
+   float32 BSGAL step (``active/bsgal.py:make_active_train_step``) of the
+   small Swin-T detector at 64² on the card against the same step on the
+   CPU, the same weights, batch, probe and draws (``small_active_step``: the
+   same decision, ``grad_sim`` within 1e-4, every metric within 2e-4
+   relative; its window attention on the float32 bodies, forward and
+   backward, the float32 main path since ``dryrun_train`` builds ResNet-18:
+   every launch on the float32 bodies, 36 forward and 36 backward, at the
+   shapes the float32 backward phase checks), then
+   (``slice_do_train``) the port's ``train_net.main`` on synthetic
    LVIS-format sets (24 PNG train images of 640 x 480, 480 x 640, 500 x 333
    and 1024 x 683, 8 val images, a category-info json, an RGBA pool of 64
    instances over 32 categories), IMS_PER_BATCH 2, CHECKPOINT_PERIOD 3:
@@ -272,8 +272,28 @@ Run from the root of a checkout:  python3 chip_smoke.py
    It prints seconds per step (CUDA events between iteration ends, median
    after the first), ``data_time`` per step, the decisions and ``grad_sim``
    per step and peak memory, with the card's name and power limit.
-11. Prints the kernels' JSON line (the 13 wrappers' entries; the float32
-   window backward body with its launches in 7; and each padded head-dim
+11. Slice of the detector's other architectures, launch counters reset just
+   before it (``slice_architectures``):
+   (a) ``configs/BSGAL_R50.yaml`` (ResNet-50 + FPN, 1203 classes, 640², bf16
+       over float32 parameters) through ``train_net.main`` as 10(a), with
+       ``ACTIVE.PROBE_BATCH 2``: the same checks (``bsgal_run``), no launch
+       of any kernel wrapper;
+   (b) each other architecture of ``build_model`` at full width, B = 2, bf16
+       over float32 parameters, from ``get_cfg()`` with its name set
+       (``ARCHITECTURES``; ``CenterNetDetector`` also with ``NOT_NORM_REG
+       false`` at B = 1, the one batch size its JAX loss takes): two train steps (``make_train_step``, AdamW, EMA;
+       the second timed), finite losses, then two inference forwards (the
+       second timed), detections of the expected shapes, finite under
+       ``valid``; Swin-L + BiFPN exactly 24 forward + 24 backward launches
+       of fused_window_attention_packed a step and 24 a forward, every other
+       architecture none;
+   (c) ``dryrun_train()`` (ResNet-18 + FPN, float32, as the JAX dryrun):
+       no kernel launch, every loss within 2e-6 relative and ``grad_norm``
+       within 2e-4 of the CPU step (``dryrun_resnet18``).
+   It prints seconds per step, ``data_time``, ms per step and per forward,
+   and peak memory, with the card's name and power limit.
+12. Prints the kernels' JSON line (the 13 wrappers' entries; the float32
+   window backward body with its launches in 10; and each padded head-dim
    case of 3 with its checked call's launch), the card line, and as the
    last line {"ok": true, "device": {...}}. Any failed phase raises: exit
    code != 0.
@@ -1297,13 +1317,14 @@ def float32_full_width_phases(gen: torch.Generator, card: str, results: dict) ->
 # 896² (windows, heads, windows of the shift mask) and the smoke shape, n =
 # 144, d = 32: checked and timed, with and without the mask
 F32_WINDOW_BWD_SHAPES = ((722, 6, 361), (200, 12, 100), (50, 24, 25), (18, 48, 9), (8, 6, 4))
-# the launches of dryrun_train, the float32 main path (Swin-T at 64², B = 1,
-# d = 32): (windows, heads, n, windows of the shift mask or None), held by
-# dryrun_float32 to be all of its launches; then n at each count of 16-row
-# tiles the body is built for (1, 2, 4, 7, 9; n % 4 != 0 takes the scalar
-# staging), at d = 32 and 64, with and without a mask: checked, not timed
-F32_WINDOW_BWD_DRYRUN = ((9, 3, 49, 9), (9, 3, 49, None), (4, 6, 49, 4), (4, 6, 49, None),
-                         (1, 12, 16, None), (1, 24, 4, None))
+# the launches of small_active_step, the float32 main path (the small Swin-T
+# detector at 64², B = 2, d = 32): (windows, heads, n, windows of the shift
+# mask or None), held by small_active_step to be all of its launches; then n
+# at each count of 16-row tiles the body is built for (1, 2, 4, 7, 9; n % 4 !=
+# 0 takes the scalar staging), at d = 32 and 64, with and without a mask:
+# checked, not timed
+F32_WINDOW_BWD_SWIN_T = ((18, 3, 49, 9), (18, 3, 49, None), (8, 6, 49, 4), (8, 6, 49, None),
+                         (2, 12, 16, None), (2, 24, 4, None))
 F32_WINDOW_BWD_TILES = (7, 25, 49, 64, 100, 144)
 
 
@@ -1343,8 +1364,8 @@ def float32_window_backward_phase(gen: torch.Generator, card: str, results: dict
     """The float32 window backward body (``csrc/attention_f32.cu:
     window_bwd_tc_kernel``, kernels 5 and 6, 3xTF32 on mma.sync) through the
     packed wrapper's backward (``check_f32_window_backward``): at the shapes
-    of ``dryrun_train``'s launches and at every tile count of the body
-    (``F32_WINDOW_BWD_DRYRUN``, ``F32_WINDOW_BWD_TILES``), checked; at
+    of a float32 Swin-T step's launches and at every tile count of the body
+    (``F32_WINDOW_BWD_SWIN_T``, ``F32_WINDOW_BWD_TILES``), checked; at
     Swin-L's four stage shapes and the smoke shape (``F32_WINDOW_BWD_SHAPES``,
     n = 144, d = 32), with and without the mask, checked and then timed: the
     backward alone (the body and the reduce of the chunks' partial bias
@@ -1371,11 +1392,11 @@ def float32_window_backward_phase(gen: torch.Generator, card: str, results: dict
     log(f"    shared memory and resident blocks equal f32_backward_smem / _resident, n = 1..144, "
         f"d = 32 and 64 ({wa_mod.f32_backward_smem(144, 32)} bytes and "
         f"{wa_mod.f32_backward_resident(144, 32)} block at n = 144, d = 32)")
-    cases = [(bn, heads, n, 32, nw) for bn, heads, n, nw in F32_WINDOW_BWD_DRYRUN]
+    cases = [(bn, heads, n, 32, nw) for bn, heads, n, nw in F32_WINDOW_BWD_SWIN_T]
     cases += [(4, 2, n, d, nw) for d in wa_mod.F32_BWD_HEAD_DIMS for n in F32_WINDOW_BWD_TILES
               for nw in (2, None)]
     errs = [check_f32_window_backward(gen, *case)[0] for case in cases]
-    log(f"    {len(cases)} shapes of dryrun_train's launches and of every tile count at d = 32 and "
+    log(f"    {len(cases)} shapes of a float32 Swin-T step's launches and of every tile count at d = 32 and "
         f"64 agree with the twin (max |error| {max(errs):.3g})")
     n, d = 144, 32
     for bn, heads, nw in F32_WINDOW_BWD_SHAPES:
@@ -2408,7 +2429,7 @@ def small_detector():
 
     dev = torch.device("cuda")
     swin.SIZE2CONFIG["narrow"] = NARROW_SWIN
-    cfg = graft_entry._small_cfg(swin_size="narrow")
+    cfg = graft_entry._small_cfg(backbone="swin", swin_size="narrow")
     cfg.MODEL.FPN.OUT_CHANNELS = 64
     cfg.MODEL.ROI_BOX_HEAD.FC_DIM = 128
     canvas = (128, 160)
@@ -3042,7 +3063,7 @@ def serving_float32_card_vs_cpu(tmp: str) -> None:
     from divergen_tpu_torch.utils.png import write_png
     from divergen_tpu_torch.utils.transfer import to_host
 
-    cfg = graft_entry._small_cfg()
+    cfg = graft_entry._small_cfg(backbone="swin")
     cfg.INPUT.TEST_SIZE, cfg.INPUT.MIN_SIZE_TEST, cfg.INPUT.MAX_SIZE_TEST = 128, 96, 128
     ref = build_model(cfg, input_size=(128, 128), device="cpu")
     graft_entry.fast_init_(ref, torch.Generator().manual_seed(graft_entry.SEED))
@@ -3350,7 +3371,7 @@ def small_train_step():
     draws = {k: torch.rand(shape, generator=g) for k, shape in TRAIN_DRAWS.items()}
     out = {}
     for dev in ("cpu", "cuda"):
-        cfg = graft_entry._small_cfg(swin_size="narrow")
+        cfg = graft_entry._small_cfg(backbone="swin", swin_size="narrow")
         cfg.MODEL.FPN.OUT_CHANNELS = 64
         cfg.MODEL.ROI_BOX_HEAD.FC_DIM = 128
         cfg.MODEL.ROI_BOX_HEAD.FED_LOSS_NUM_CAT = 4
@@ -3398,77 +3419,53 @@ def small_train_step():
 
 
 # dryrun_train on the card against its CPU copy: the same weights, batch and
-# draws, float32 on both; sums in another order (cuDNN's convolutions, the
-# 3xTF32 window bodies) through a whole step, its losses and its gradient norm
-DRYRUN_BOUNDS = dict(rel=1e-3, abs=1e-4)
+# draws, float32 on both (TF32 off); sums in another order (cuDNN's
+# convolutions) through a whole step: every loss, and the gradient norm (the
+# CPU's float32 norm sums otherwise)
+DRYRUN_BOUNDS = dict(loss=2e-6, grad_norm=2e-4)  # relative
 
 
-def dryrun_float32() -> tuple:
-    """``graft_entry.dryrun_train()`` on the card: its model's parameters and
-    compute dtype float32, its window attention through the float32 bodies
-    (every launch counted under ``dg_attention_f32`` in the packed wrapper's
-    ``bodies`` and ``backward_bodies``), the shapes of those launches the
-    ones ``float32_window_backward_phase`` checks (``F32_WINDOW_BWD_DRYRUN``),
-    and every metric within ``DRYRUN_BOUNDS`` of
-    ``dryrun_train(device="cpu")``. Returns (metrics, float32 window forward
-    launches, float32 window backward launches)."""
+def dryrun_resnet18(snapshot) -> dict:
+    """``graft_entry.dryrun_train()`` on the card: the JAX dryrun's model
+    (``_small_cfg()``: ResNet-18 + FPN), its parameters and compute float32,
+    no launch of any kernel wrapper, and every loss within
+    ``DRYRUN_BOUNDS["loss"]`` relative of ``dryrun_train(device="cpu")`` (the
+    same weights, batch and draws), ``grad_norm`` within
+    ``DRYRUN_BOUNDS["grad_norm"]``. Returns the card's metrics."""
     from divergen_tpu_torch import graft_entry
-    from divergen_tpu_torch.ops import attention_f32
-    from divergen_tpu_torch.ops import window_attention as wa_mod
+    from divergen_tpu_torch.modeling.backbone.resnet import ResNet
 
-    packed = wa_mod.fused_window_attention_packed
-    seen, fwd, bwd = {}, [], []
-    build, launch, plan = graft_entry.build_model, attention_f32.launch, wa_mod._plan
+    seen, build = {}, graft_entry.build_model
 
     def recording_build(cfg, **kw):
         seen["model"] = build(cfg, **kw)
         return seen["model"]
 
-    def recording_launch(*args, **kw):
-        fwd.append((kw["batch"], kw["heads"], kw["sq"], kw["d"],
-                    None if kw.get("bias2") is None else kw["nw"]))
-        return launch(*args, **kw)
-
-    def recording_plan(dtype, *args):
-        bwd.append((dtype, *args[:4]))
-        return plan(dtype, *args)
-
-    counts = (packed.launches, packed.backward_launches)
-    bodies = (dict(packed.bodies), dict(packed.backward_bodies))
-    graft_entry.build_model, attention_f32.launch, wa_mod._plan = (
-        recording_build, recording_launch, recording_plan)
+    before = snapshot()
+    graft_entry.build_model = recording_build
     try:
         got = graft_entry.dryrun_train()
         torch.cuda.synchronize()
     finally:
-        graft_entry.build_model, attention_f32.launch, wa_mod._plan = build, launch, plan
-    counts = (packed.launches - counts[0], packed.backward_launches - counts[1])
-    key = ("dg_attention_f32", 32)
-    f32 = (packed.bodies[key] - bodies[0].get(key, 0),
-           packed.backward_bodies[key] - bodies[1].get(key, 0))
+        graft_entry.build_model = build
     model = seen["model"]
     dtypes = {p.dtype for p in model.parameters()}
-    log(f"  dryrun_train on the card: parameters {dtypes}, compute {model.compute_dtype}; "
-        f"{counts[0]} forward and {counts[1]} backward window-attention launches, of them "
-        f"{f32[0]} and {f32[1]} on the float32 bodies at d = 32")
-    if dtypes != {torch.float32} or model.compute_dtype != torch.float32:
-        raise AssertionError("dryrun_train: not float32 on the card")
-    if not (counts == f32 and min(counts) > 0 and len(fwd) == counts[0]
-            and len(bwd) == counts[1]):
-        raise AssertionError(f"dryrun_train: window launches {counts}, on the float32 bodies "
-                             f"{f32}, float32 forward launches {len(fwd)}, backward plans {bwd}")
-    checked = {(bn, h, n, 32, nw) for bn, h, n, nw in F32_WINDOW_BWD_DRYRUN}
-    if set(fwd) != checked or {(torch.float32, bn, h, n, 32) for bn, h, n, _, _ in fwd} != set(bwd):
-        raise AssertionError(f"dryrun_train: launch shapes {sorted(set(fwd), key=str)} (backward "
-                             f"{sorted(set(bwd), key=str)}), not those checked: "
-                             f"{sorted(checked, key=str)}")
+    launched = launched_since(before, snapshot)
+    log(f"  dryrun_train on the card: {model.backbone_name}, parameters {dtypes}, compute "
+        f"{model.compute_dtype}; kernel launches {launched}")
+    if (dtypes != {torch.float32} or model.compute_dtype != torch.float32
+            or not isinstance(model.bottom_up, ResNet) or model.backbone_name != "resnet18"):
+        raise AssertionError("dryrun_train: not the float32 ResNet-18 detector on the card")
+    if launched:
+        raise AssertionError(f"dryrun_train launched kernels: {launched}")
     ref = graft_entry.dryrun_train(device="cpu")
     for k, want in ref.items():
-        ok = abs(got[k] - want) <= DRYRUN_BOUNDS["rel"] * abs(want) + DRYRUN_BOUNDS["abs"]
-        log(f"    {k}: card {got[k]:.6f}, CPU {want:.6f} [{'ok' if ok else 'FAIL'}]")
+        rel = DRYRUN_BOUNDS["grad_norm" if k == "grad_norm" else "loss"]
+        ok = abs(got[k] - want) <= rel * abs(want)
+        log(f"    {k}: card {got[k]:.8f}, CPU {want:.8f} [{'ok' if ok else 'FAIL'}]")
         if not ok:
             raise AssertionError(f"dryrun_train: {k} on the card disagrees with the CPU step")
-    return got, counts[0], counts[1]
+    return got
 
 
 def slice_train(card: str):
@@ -3477,9 +3474,9 @@ def slice_train(card: str):
     clipping, EMA, the federated loss and the compositor. Five steps of
     ``make_paste_train_step`` and one of ``make_train_step`` with the config's
     rematerialization (48 forward launches of fused_window_attention_packed per
-    step, 24 backward), then five steps without it (24 and 24). First the
-    float32 ``dryrun_train`` (``dryrun_float32``). Returns its float32 window
-    (forward, backward) launches."""
+    step, 24 backward), then five steps without it (24 and 24). (The float32
+    ``dryrun_train`` runs in the architectures slice: it is ResNet-18, as the
+    JAX dryrun.)"""
     from divergen_tpu_torch import graft_entry
     from divergen_tpu_torch.engine.train_loop import make_train_step
     from divergen_tpu_torch.ops.nms import nms_mask
@@ -3487,8 +3484,6 @@ def slice_train(card: str):
                                                          fused_window_attention_packed)
 
     packed, split = fused_window_attention_packed, fused_window_attention
-    metrics, f32_fwd, f32_bwd = dryrun_float32()
-    print(json.dumps(metrics), flush=True)
     probe = ("bottom_up.stage2_block17.attn.qkv.weight", "roi_heads.box_predictor0.cls_score.bias",
              "centernet_head.agn_hm.conv.weight")
     def run(remat):
@@ -3552,7 +3547,6 @@ def slice_train(card: str):
             f"{ms:.1f} ms/step (host clock, median of the steps after the first), peak memory "
             f"{peak:.2f} GiB [{card}]")
     torch.cuda.empty_cache()
-    return f32_fwd, f32_bwd
 
 
 # the float32 active step on the card against the CPU: decision equal,
@@ -3574,20 +3568,32 @@ def active_draws(gen: torch.Generator, rows: int, probe_rows: int, classes: int)
             "compare": torch.rand((), generator=gen)}
 
 
+# the float32 active step's window launches (forward, backward): the probe,
+# pasted and final forwards of Swin-T (depths 2 / 2 / 6 / 2), each with its
+# backward
+SWIN_T_BLOCKS = 12
+ACTIVE_F32_LAUNCHES = (3 * SWIN_T_BLOCKS, 3 * SWIN_T_BLOCKS)
+
+
 def small_active_step() -> None:
     """One float32 BSGAL step (``make_active_train_step``: gradient compare
-    from one forward, ``paste_or_ori``) of ``graft_entry._small_cfg()``'s
+    from one forward, ``paste_or_ori``) of ``graft_entry._small_cfg(backbone="swin")``'s
     Swin-T detector at 64² on the card and on the CPU: the same
     ``detector_init_`` weights, batch, probe and draws (made on the CPU).
-    Bounds ``ACTIVE_BOUNDS``; the card's window attention runs the float32
-    bodies forward and backward."""
+    Bounds ``ACTIVE_BOUNDS``. The float32 main path of the window attention:
+    on the card every launch runs the float32 bodies (counted under
+    ``dg_attention_f32`` in the packed wrapper's ``bodies`` and
+    ``backward_bodies``), ``ACTIVE_F32_LAUNCHES`` of them, at the shapes
+    ``float32_window_backward_phase`` checks (``F32_WINDOW_BWD_SWIN_T``)."""
     from divergen_tpu_torch import graft_entry
     from divergen_tpu_torch.active.bsgal import init_active_state, make_active_train_step
     from divergen_tpu_torch.engine.train_loop import create_train_state
     from divergen_tpu_torch.modeling.meta_arch.rcnn import build_model, detector_init_
+    from divergen_tpu_torch.ops import attention_f32
+    from divergen_tpu_torch.ops import window_attention as wa_mod
     from divergen_tpu_torch.solver.build import build_optimizer
 
-    cfg = graft_entry._small_cfg()
+    cfg = graft_entry._small_cfg(backbone="swin")
     cfg.merge_from_list(["MODEL.ACTIVE.ENABLED", True, "INPUT.USE_COPY_PASTE", True,
                          "MODEL.ROI_HEADS.BATCH_SIZE_PER_IMAGE", 32,
                          "MODEL.CENTERNET.PRE_NMS_TOPK_TRAIN", 32,
@@ -3620,6 +3626,19 @@ def small_active_step() -> None:
                              torch.Generator().manual_seed(23)).state_dict()
     to = lambda v, dev: ({k: to(x, dev) for k, x in v.items()} if isinstance(v, dict)
                          else v.to(dev))
+    packed = wa_mod.fused_window_attention_packed
+    fwd, bwd = [], []
+    launch, plan = attention_f32.launch, wa_mod._plan
+
+    def recording_launch(*args, **kw):
+        fwd.append((kw["batch"], kw["heads"], kw["sq"], kw["d"],
+                    None if kw.get("bias2") is None else kw["nw"]))
+        return launch(*args, **kw)
+
+    def recording_plan(dtype, *args):
+        bwd.append((dtype, *args[:4]))
+        return plan(dtype, *args)
+
     out = {}
     for dev in ("cpu", "cuda"):
         model = build_model(cfg, input_size=(64, 64), device=dev, param_dtype=torch.float32)
@@ -3628,8 +3647,32 @@ def small_active_step() -> None:
         state = create_train_state(model, optimizer, ema=True)
         astate = init_active_state(dict(model.named_parameters()), queue_size=8)
         step = make_active_train_step(model, optimizer, cfg)
-        _, _, metrics = step(state, astate, to(batch, dev), to(draws, dev))
-        out[dev] = {k: float(v) for k, v in metrics.items()}
+        if dev == "cuda":
+            counts = (packed.launches, packed.backward_launches)
+            bodies = (dict(packed.bodies), dict(packed.backward_bodies))
+            attention_f32.launch, wa_mod._plan = recording_launch, recording_plan
+        try:
+            _, _, metrics = step(state, astate, to(batch, dev), to(draws, dev))
+            out[dev] = {k: float(v) for k, v in metrics.items()}
+        finally:
+            attention_f32.launch, wa_mod._plan = launch, plan
+    counts = (packed.launches - counts[0], packed.backward_launches - counts[1])
+    key = ("dg_attention_f32", 32)
+    f32 = (packed.bodies[key] - bodies[0].get(key, 0),
+           packed.backward_bodies[key] - bodies[1].get(key, 0))
+    log(f"  float32 active step on the card: {counts[0]} forward and {counts[1]} backward "
+        f"window-attention launches, of them {f32[0]} and {f32[1]} on the float32 bodies at "
+        f"d = 32 (expected {ACTIVE_F32_LAUNCHES})")
+    if not (counts == f32 == ACTIVE_F32_LAUNCHES and len(fwd) == counts[0]
+            and len(bwd) == counts[1]):
+        raise AssertionError(f"float32 active step: window launches {counts}, on the float32 "
+                             f"bodies {f32}, expected {ACTIVE_F32_LAUNCHES}; float32 forward "
+                             f"launches {len(fwd)}, backward plans {len(bwd)}")
+    checked = {(bn, h, n, 32, nw) for bn, h, n, nw in F32_WINDOW_BWD_SWIN_T}
+    if set(fwd) != checked or {(torch.float32, bn, h, n, 32) for bn, h, n, _, _ in fwd} != set(bwd):
+        raise AssertionError(f"float32 active step: launch shapes {sorted(set(fwd), key=str)} "
+                             f"(backward {sorted(set(bwd), key=str)}), not those checked: "
+                             f"{sorted(checked, key=str)}")
     ref, got = out["cpu"], out["cuda"]
     ok = got["paste_used"] == ref["paste_used"]
     log(f"  float32 active step: decision card {got['paste_used']:.0f}, CPU "
@@ -3654,7 +3697,184 @@ BSGAL_LAUNCHES = (3 * SWIN_L_BLOCKS, 3 * SWIN_L_BLOCKS)
 DIVERGEN_LAUNCHES = (2 * SWIN_L_BLOCKS, SWIN_L_BLOCKS)
 
 
-def slice_do_train(card: str, tmp: str) -> None:
+def train_net_run(card: str, config: str, root: str, out: str, classes: int, *extra):
+    """``train_net.main`` with ``config`` on a synthetic LVIS-format root
+    written to ``root`` (``write_training_root``: ``TRAIN_SET`` PNG train
+    images of the four ``SERVING_SIZES``, ``VAL_SET`` val images, ``classes``
+    categories, an RGBA pool of 64 instances over 32 categories), with the
+    cuts ``SOLVER.IMS_PER_BATCH 2``, ``CHECKPOINT_PERIOD 3`` and ``extra``
+    (arguments, then config keys); prints seconds per step (median after the
+    first), ``data_time`` and peak memory beside the card. Returns (the final
+    state, ``do_train.last_run``, the steps taken)."""
+    from divergen_tpu_torch import train_net
+    from divergen_tpu_torch.data import DatasetCatalog, MetadataCatalog
+    from divergen_tpu_torch.data.datasets.synthetic_lvis import write_training_root
+    from divergen_tpu_torch.engine.trainer import do_train
+
+    t0 = time.perf_counter()
+    files = write_training_root(root, classes, SERVING_SIZES * (TRAIN_SET // 4),
+                                SERVING_SIZES * (VAL_SET // 4), 64, 32, seed=0)
+    written = time.perf_counter() - t0
+    for name in ("lvis_v1_train", "lvis_v1_val", "lvis_v1_train_norare"):
+        DatasetCatalog.remove(name)
+        MetadataCatalog.remove(name)
+    os.environ["DETECTRON2_DATASETS"] = root
+    args = ["--config-file", config, *extra, *files["overrides"],
+            "SOLVER.IMS_PER_BATCH", "2", "SOLVER.CHECKPOINT_PERIOD", "3", "OUTPUT_DIR", out]
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    state = train_net.main(train_net.default_argument_parser().parse_args(args))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    run_info = dict(do_train.last_run)
+    steps = state.step - run_info["start_iter"]
+    step_s, data_s = run_info["step_s"], run_info["data_time"]
+    log(f"  {os.path.basename(config)} {' '.join(extra)}: {steps} steps in {wall:.1f} s "
+        f"(data written in {written:.1f} s); s/step "
+        f"{statistics.median(step_s[1:]) if len(step_s) > 1 else step_s[0]:.3f} "
+        f"(median after the first; every step {[round(x, 3) for x in step_s]}); data_time "
+        f"{[round(x, 4) for x in data_s]} s; peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB [{card}]")
+    return state, run_info, steps
+
+
+def launched_since(before: dict, snapshot) -> dict:
+    """The kernel wrappers' launches, by name, since ``before`` (an earlier
+    ``snapshot()``); wrappers that launched nothing are left out."""
+    return {k: n - before.get(k, 0) for k, n in snapshot().items()
+            if isinstance(k, str) and n != before.get(k, 0)}
+
+
+def path_launches(per_step, steps: int) -> dict:
+    """The packed window-attention launches of ``steps`` steps at ``per_step``
+    (forward, backward) a step, as ``launched_since`` gives them."""
+    want = {"fused_window_attention_packed": per_step[0] * steps,
+            "fused_window_attention_packed_backward": per_step[1] * steps}
+    return {k: n for k, n in want.items() if n}
+
+
+def counted_train_net_run(card: str, snapshot, config: str, root: str, out: str,
+                          classes: int, *extra):
+    """``train_net_run`` with the kernel launches of the in-training
+    ``do_test`` counted apart from the training's. Returns (the final state,
+    ``do_train.last_run``, the steps taken, the launches outside ``do_test``,
+    the launches in it)."""
+    from divergen_tpu_torch.engine import eval_loop
+
+    in_eval, do_test = {}, eval_loop.do_test
+
+    def counted_do_test(*args, **kw):
+        before = snapshot()
+        try:
+            return do_test(*args, **kw)
+        finally:
+            for k, n in launched_since(before, snapshot).items():
+                in_eval[k] = in_eval.get(k, 0) + n
+
+    before = snapshot()
+    eval_loop.do_test = counted_do_test
+    try:
+        state, info, steps = train_net_run(card, config, root, out, classes, *extra)
+    finally:
+        eval_loop.do_test = do_test
+    launched = {k: n - in_eval.get(k, 0) for k, n in launched_since(before, snapshot).items()
+                if n != in_eval.get(k, 0)}
+    return state, info, steps, launched, in_eval
+
+
+def bsgal_run(card: str, config: str, root: str, out: str, per_step, snapshot,
+              *extra_keys) -> None:
+    """BSGAL through ``counted_train_net_run`` for ``BSGAL_STEPS`` with the
+    grad bank every 3 steps, a decision-log line a step and ``do_test`` at
+    step 6, then ``--resume`` for ``BSGAL_RESUME_STEPS``: outside ``do_test``
+    exactly the packed window-attention launches of ``per_step`` (forward,
+    backward) a step and no other kernel's, paste + discard counts equal to
+    the steps, ``grad_bank/`` holding steps 3 and 6, the resumed run starting
+    at 6 from the saved bank and counts, one decision a step in the log,
+    finite ``metrics.json``, an AP dict from the in-training ``do_test``, and
+    the step-6 checkpoint's EMA weights in ``Predictor`` giving detections
+    with masks."""
+    import shutil
+
+    from divergen_tpu_torch import train_net
+    from divergen_tpu_torch.data.dataset_mapper import read_image
+    from divergen_tpu_torch.engine.checkpoint import Checkpointer
+    from divergen_tpu_torch.predictor import Predictor
+
+    keys = ("MODEL.ACTIVE.BANK_CKPT_PERIOD", "3", "MODEL.ACTIVE.LOG_PERIOD", "1",
+            "TEST.EVAL_PERIOD", "6", *extra_keys)
+    state, info, steps, launches, in_eval = counted_train_net_run(
+        card, snapshot, config, root, out, 1203, "--max-steps", str(BSGAL_STEPS), *keys)
+    want = path_launches(per_step, BSGAL_STEPS)
+    if steps != BSGAL_STEPS or launches != want:
+        raise AssertionError(f"BSGAL: {steps} steps, kernel launches {launches} outside "
+                             f"do_test, expected {want}")
+    astate = info["active_state"]
+    n_paste, n_discard = int(astate.n_paste), int(astate.n_discard)
+    bank = Checkpointer(os.path.join(out, "grad_bank"))
+    if n_paste + n_discard != BSGAL_STEPS or bank.all_steps() != [3, 6]:
+        raise AssertionError(f"BSGAL: paste {n_paste} + discard {n_discard}, grad bank "
+                             f"saves {bank.all_steps()}")
+    ap = info["eval"]["lvis_v1_val"]
+    if not all(math.isfinite(ap[t]["AP"]) for t in ("bbox", "segm")):
+        raise AssertionError(f"BSGAL: the in-training do_test gave {ap}")
+    log(f"    in-training do_test on {VAL_SET} val images: bbox AP {ap['bbox']['AP']:.4f}, "
+        f"segm AP {ap['segm']['AP']:.4f}; kernel launches in it {in_eval}")
+    saved = bank.load(6)["active_state"]
+    del state, astate, info
+    torch.cuda.empty_cache()
+    state, info, steps, launches, _ = counted_train_net_run(
+        card, snapshot, config, root, out, 1203, "--max-steps", str(BSGAL_RESUME_STEPS),
+        "--resume", *keys)
+    want = path_launches(per_step, BSGAL_RESUME_STEPS)
+    restored = info["restored_counts"]
+    if (info["start_iter"], info["bank_step"], state.step) != (6, 6, 8) or launches != want:
+        raise AssertionError(f"BSGAL --resume: start {info['start_iter']}, bank step "
+                             f"{info['bank_step']}, final step {state.step}, launches "
+                             f"{launches} (expected {want})")
+    if restored != (int(saved["n_paste"]), int(saved["n_discard"])) or abs(
+            info["restored_bank_norm"] - math.sqrt(sum(
+                float((v.double() ** 2).sum()) for v in saved["grad_bank"].values()))) > \
+            1e-6 * max(info["restored_bank_norm"], 1e-12):
+        raise AssertionError("BSGAL --resume: the bank or its counters are not the saved ones")
+    astate = info["active_state"]
+    if int(astate.n_paste) + int(astate.n_discard) != BSGAL_STEPS + BSGAL_RESUME_STEPS:
+        raise AssertionError("BSGAL --resume: decision counts do not sum to the steps")
+    lines = open(os.path.join(out, "paste_source", "rank_0", "10000.txt")).read().splitlines()
+    decisions = {}
+    for line in lines:
+        it = int(line.split(" iter: ")[1].split()[0])
+        decisions[it] = (int(line.split(" paste: ")[1].split()[0]),
+                         float(line.split(" sim_paste_init: ")[1].split()[0]))
+    if sorted(decisions) != list(range(BSGAL_STEPS + BSGAL_RESUME_STEPS)) or sum(
+            p for p, _ in decisions.values()) != int(astate.n_paste):
+        raise AssertionError(f"BSGAL: decision log covers {sorted(decisions)}")
+    log(f"    decisions (paste, grad_sim) per step: {[decisions[i] for i in sorted(decisions)]}; "
+        f"{len(lines)} log lines; grad bank saves {bank.all_steps()}")
+    for row in map(json.loads, open(os.path.join(out, "metrics.json")).read().splitlines()):
+        if not all(math.isfinite(v) for v in row.values()):
+            raise AssertionError(f"BSGAL metrics.json: {row}")
+    cfg = train_net.setup(train_net.default_argument_parser().parse_args(
+        ["--config-file", config, "OUTPUT_DIR", out]))
+    del state, astate, info
+    torch.cuda.empty_cache()
+    raw = Checkpointer(out).load()
+    params = dict(raw["model"], **raw["ema_params"])
+    pred = Predictor(cfg, params, score_thresh=0.0)
+    res = pred(read_image(os.path.join(root, "coco", "val2017", "000000000001.png")))
+    if not (raw["step"] == BSGAL_STEPS and len(res["boxes"])
+            and np.isfinite(res["boxes"]).all() and np.isfinite(res["scores"]).all()
+            and res["masks"].shape[0] == len(res["boxes"])):
+        raise AssertionError("the trained BSGAL checkpoint gave no detections in Predictor")
+    log(f"    Predictor on the step-{raw['step']} checkpoint (EMA weights): "
+        f"{len(res['boxes'])} detections, masks {res['masks'].shape}")
+    del pred, raw, params
+    shutil.rmtree(out)
+    torch.cuda.empty_cache()
+
+
+def slice_do_train(card: str, tmp: str, snapshot) -> None:
     """Both training configs through the port's ``train_net.main`` at full
     width on synthetic LVIS-format sets (``write_training_root``: 24 PNG
     train images of the four ``SERVING_SIZES``, 8 val images, a category-info
@@ -3663,161 +3883,160 @@ def slice_do_train(card: str, tmp: str) -> None:
     (a) ``configs/BSGAL_SwinL.yaml`` (Swin-L, 1203 classes, 896², bf16 over
     float32 parameters, AdamW, EMA, ``syn_copy`` with ``cas_random``, RFS)
     for 6 steps with ``ACTIVE.BANK_CKPT_PERIOD 3``, ``LOG_PERIOD 1`` and
-    ``TEST.EVAL_PERIOD 6``, then ``--resume`` for 2 more; (b)
+    ``TEST.EVAL_PERIOD 6``, then ``--resume`` for 2 more (``bsgal_run``); (b)
     ``configs/DiverGen_swinL.yaml`` (1453 classes, remat, ``both``) for 4
-    steps. Checks the kernel-5 launches per step (its packed wrapper only),
-    the decision counts and logs, the grad bank's saves and its restore, the
-    metrics, the in-training ``do_test`` and the trained checkpoint in
-    ``Predictor``; prints seconds per step, ``data_time`` and peak memory."""
+    steps. Checks the kernel launches per step outside ``do_test`` (the
+    packed window-attention wrapper only), the decision counts and logs, the
+    grad bank's saves and its restore, the metrics, the in-training
+    ``do_test`` and the trained checkpoint in ``Predictor``; prints seconds
+    per step, ``data_time`` and peak memory."""
     import shutil
 
-    from divergen_tpu_torch import train_net
-    from divergen_tpu_torch.data import DatasetCatalog, MetadataCatalog
-    from divergen_tpu_torch.data.dataset_mapper import read_image
-    from divergen_tpu_torch.data.datasets.synthetic_lvis import write_training_root
-    from divergen_tpu_torch.engine import eval_loop
     from divergen_tpu_torch.engine.checkpoint import Checkpointer
-    from divergen_tpu_torch.engine.trainer import do_train
-    from divergen_tpu_torch.ops.window_attention import (fused_window_attention,
-                                                         fused_window_attention_packed)
-    from divergen_tpu_torch.predictor import Predictor
 
-    packed, split = fused_window_attention_packed, fused_window_attention
-    eval_launches = [0]
-    do_test = eval_loop.do_test
+    # (a) BSGAL, then --resume
+    bsgal_run(card, "configs/BSGAL_SwinL.yaml", os.path.join(tmp, "bsgal_data"),
+              os.path.join(tmp, "bsgal"), BSGAL_LAUNCHES, snapshot)
 
-    def counted_do_test(*args, **kw):  # the in-training evaluation's forwards, apart
-        before = packed.launches
-        try:
-            return do_test(*args, **kw)
-        finally:
-            eval_launches[0] += packed.launches - before
-
-    def run(config, root, out, classes, *extra):
-        t0 = time.perf_counter()
-        files = write_training_root(root, classes, SERVING_SIZES * (TRAIN_SET // 4),
-                                    SERVING_SIZES * (VAL_SET // 4), 64, 32, seed=0)
-        written = time.perf_counter() - t0
-        for name in ("lvis_v1_train", "lvis_v1_val", "lvis_v1_train_norare"):
-            DatasetCatalog.remove(name)
-            MetadataCatalog.remove(name)
-        os.environ["DETECTRON2_DATASETS"] = root
-        args = ["--config-file", config, *extra, *files["overrides"],
-                "SOLVER.IMS_PER_BATCH", "2", "SOLVER.CHECKPOINT_PERIOD", "3", "OUTPUT_DIR", out]
-        torch.cuda.empty_cache()
-        torch.cuda.reset_peak_memory_stats()
-        counts = (packed.launches, packed.backward_launches, eval_launches[0])
-        t0 = time.perf_counter()
-        state = train_net.main(train_net.default_argument_parser().parse_args(args))
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        run_info = dict(do_train.last_run)
-        launches = (packed.launches - counts[0] - (eval_launches[0] - counts[2]),
-                    packed.backward_launches - counts[1])
-        steps = state.step - run_info["start_iter"]
-        step_s, data_s = run_info["step_s"], run_info["data_time"]
-        log(f"  {os.path.basename(config)} {' '.join(extra)}: {steps} steps in {wall:.1f} s "
-            f"(data written in {written:.1f} s); s/step "
-            f"{statistics.median(step_s[1:]) if len(step_s) > 1 else step_s[0]:.3f} "
-            f"(median after the first; every step {[round(s, 3) for s in step_s]}); data_time "
-            f"{[round(s, 4) for s in data_s]} s; peak memory "
-            f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB [{card}]")
-        if split.launches or split.backward_launches:
-            raise AssertionError("do_train launched the split window-attention wrapper")
-        return state, run_info, launches, steps
-
-    eval_loop.do_test = counted_do_test
-    try:
-        # (a) BSGAL, then --resume
-        root, out = os.path.join(tmp, "bsgal_data"), os.path.join(tmp, "bsgal")
-        keys = ("MODEL.ACTIVE.BANK_CKPT_PERIOD", "3", "MODEL.ACTIVE.LOG_PERIOD", "1",
-                "TEST.EVAL_PERIOD", "6")
-        state, info, launches, steps = run("configs/BSGAL_SwinL.yaml", root, out, 1203,
-                                           "--max-steps", str(BSGAL_STEPS), *keys)
-        want = tuple(n * BSGAL_STEPS for n in BSGAL_LAUNCHES)
-        if steps != BSGAL_STEPS or launches != want:
-            raise AssertionError(f"BSGAL: {steps} steps, kernel-5 launches (forward, backward) "
-                                 f"{launches} outside do_test, expected {want}")
-        astate = info["active_state"]
-        n_paste, n_discard = int(astate.n_paste), int(astate.n_discard)
-        bank = Checkpointer(os.path.join(out, "grad_bank"))
-        if n_paste + n_discard != BSGAL_STEPS or bank.all_steps() != [3, 6]:
-            raise AssertionError(f"BSGAL: paste {n_paste} + discard {n_discard}, grad bank "
-                                 f"saves {bank.all_steps()}")
-        ap = info["eval"]["lvis_v1_val"]
-        if not all(math.isfinite(ap[t]["AP"]) for t in ("bbox", "segm")):
-            raise AssertionError(f"BSGAL: the in-training do_test gave {ap}")
-        log(f"    in-training do_test on {VAL_SET} val images: bbox AP {ap['bbox']['AP']:.4f}, "
-            f"segm AP {ap['segm']['AP']:.4f}; {eval_launches[0]} kernel-5 launches in it")
-        saved = bank.load(6)["active_state"]
-        del state, astate, info
-        torch.cuda.empty_cache()
-        state, info, launches, steps = run("configs/BSGAL_SwinL.yaml", root, out, 1203,
-                                           "--max-steps", str(BSGAL_RESUME_STEPS), "--resume",
-                                           *keys)
-        want = tuple(n * BSGAL_RESUME_STEPS for n in BSGAL_LAUNCHES)
-        restored = info["restored_counts"]
-        if (info["start_iter"], info["bank_step"], state.step) != (6, 6, 8) or launches != want:
-            raise AssertionError(f"BSGAL --resume: start {info['start_iter']}, bank step "
-                                 f"{info['bank_step']}, final step {state.step}, launches "
-                                 f"{launches} (expected {want})")
-        if restored != (int(saved["n_paste"]), int(saved["n_discard"])) or abs(
-                info["restored_bank_norm"] - math.sqrt(sum(
-                    float((v.double() ** 2).sum()) for v in saved["grad_bank"].values()))) > \
-                1e-6 * max(info["restored_bank_norm"], 1e-12):
-            raise AssertionError("BSGAL --resume: the bank or its counters are not the saved ones")
-        astate = info["active_state"]
-        if int(astate.n_paste) + int(astate.n_discard) != BSGAL_STEPS + BSGAL_RESUME_STEPS:
-            raise AssertionError("BSGAL --resume: decision counts do not sum to the steps")
-        lines = open(os.path.join(out, "paste_source", "rank_0", "10000.txt")).read().splitlines()
-        per_step = {}
-        for line in lines:
-            it = int(line.split(" iter: ")[1].split()[0])
-            per_step[it] = (int(line.split(" paste: ")[1].split()[0]),
-                            float(line.split(" sim_paste_init: ")[1].split()[0]))
-        if sorted(per_step) != list(range(BSGAL_STEPS + BSGAL_RESUME_STEPS)) or sum(
-                p for p, _ in per_step.values()) != int(astate.n_paste):
-            raise AssertionError(f"BSGAL: decision log covers {sorted(per_step)}")
-        log(f"    decisions (paste, grad_sim) per step: {[per_step[i] for i in sorted(per_step)]}; "
-            f"{len(lines)} log lines; grad bank saves {bank.all_steps()}")
-        for row in map(json.loads, open(os.path.join(out, "metrics.json")).read().splitlines()):
-            if not all(math.isfinite(v) for v in row.values()):
-                raise AssertionError(f"BSGAL metrics.json: {row}")
-        cfg = train_net.setup(train_net.default_argument_parser().parse_args(
-            ["--config-file", "configs/BSGAL_SwinL.yaml", "OUTPUT_DIR", out]))
-        del state, astate, info
-        torch.cuda.empty_cache()
-        raw = Checkpointer(out).load()
-        params = dict(raw["model"], **raw["ema_params"])
-        pred = Predictor(cfg, params, score_thresh=0.0)
-        res = pred(read_image(os.path.join(root, "coco", "val2017", "000000000001.png")))
-        if not (len(res["boxes"]) and np.isfinite(res["boxes"]).all()
-                and np.isfinite(res["scores"]).all()):
-            raise AssertionError("the trained BSGAL checkpoint gave no detections in Predictor")
-        log(f"    Predictor on the step-{raw['step']} checkpoint (EMA weights): "
-            f"{len(res['boxes'])} detections, masks {res['masks'].shape}")
-        del pred, raw, params
-        shutil.rmtree(out)
-        torch.cuda.empty_cache()
-
-        # (b) DiverGen
-        root, out = os.path.join(tmp, "divergen_data"), os.path.join(tmp, "divergen")
-        state, info, launches, steps = run("configs/DiverGen_swinL.yaml", root, out, 1453,
-                                           "--max-steps", str(DIVERGEN_STEPS),
-                                           "TEST.EVAL_PERIOD", "6")
-        want = tuple(n * DIVERGEN_STEPS for n in DIVERGEN_LAUNCHES)
-        if steps != DIVERGEN_STEPS or launches != want or not state.model.bottom_up.remat:
-            raise AssertionError(f"DiverGen: {steps} steps, launches {launches}, expected {want}")
-        if Checkpointer(out).all_steps() != [3]:
-            raise AssertionError(f"DiverGen: checkpoints {Checkpointer(out).all_steps()}")
-        for row in map(json.loads, open(os.path.join(out, "metrics.json")).read().splitlines()):
-            if not all(math.isfinite(v) for v in row.values()):
-                raise AssertionError(f"DiverGen metrics.json: {row}")
-        del state, info
-        shutil.rmtree(out)
-    finally:
-        eval_loop.do_test = do_test
+    # (b) DiverGen
+    root, out = os.path.join(tmp, "divergen_data"), os.path.join(tmp, "divergen")
+    state, info, steps, launches, _ = counted_train_net_run(
+        card, snapshot, "configs/DiverGen_swinL.yaml", root, out, 1453,
+        "--max-steps", str(DIVERGEN_STEPS), "TEST.EVAL_PERIOD", "6")
+    want = path_launches(DIVERGEN_LAUNCHES, DIVERGEN_STEPS)
+    if steps != DIVERGEN_STEPS or launches != want or not state.model.bottom_up.remat:
+        raise AssertionError(f"DiverGen: {steps} steps, launches {launches}, expected {want}")
+    if Checkpointer(out).all_steps() != [3]:
+        raise AssertionError(f"DiverGen: checkpoints {Checkpointer(out).all_steps()}")
+    for row in map(json.loads, open(os.path.join(out, "metrics.json")).read().splitlines()):
+        if not all(math.isfinite(v) for v in row.values()):
+            raise AssertionError(f"DiverGen metrics.json: {row}")
+    del state, info
+    shutil.rmtree(out)
     torch.cuda.empty_cache()
+
+
+# (label, config keys over get_cfg(), canvas, images) of slice_architectures
+# (b): every architecture of build_model but Swin + FPN (the earlier slices)
+# and ResNet-50 + FPN with the cascade (its (a)); CenterNetDetector also with
+# NOT_NORM_REG false, which the JAX package computes at one image only
+ARCHITECTURES = (
+    ("Res2Net-50 + FPN", ["MODEL.BACKBONE.NAME", "build_res2net_fpn_backbone"], 640, 2),
+    ("ConvNeXt-T + FPN", ["MODEL.BACKBONE.NAME", "build_convnext_fpn_backbone"], 640, 2),
+    ("ViTDet-B", ["MODEL.BACKBONE.NAME", "build_vit_fpn_backbone"], 1024, 2),
+    ("DLA-34 + BiFPN", ["MODEL.BACKBONE.NAME", "build_dla_bifpn_backbone",
+                        "MODEL.BIFPN.NUM_BIFPN", 4], 640, 2),
+    ("Swin-L + BiFPN", ["MODEL.BACKBONE.NAME", "build_p37_swin_bifpn_backbone",
+                        "MODEL.SWIN.SIZE", "L-22k-384"], 896, 2),
+    ("R50 + CustomRes5ROIHeads", ["MODEL.ROI_HEADS.NAME", "CustomRes5ROIHeads",
+                                  "MODEL.ROI_HEADS.IN_FEATURES", "['p4']"], 640, 2),
+    ("R50 + RefineMaskHead", ["MODEL.ROI_MASK_HEAD.NAME", "RefineMaskHead",
+                              "MODEL.ROI_MASK_HEAD.SEM_SEG_ON", True], 640, 2),
+    ("CenterNetDetector (R50)", ["MODEL.META_ARCHITECTURE", "CenterNetDetector"], 640, 2),
+    ("CenterNetDetector (R50), NOT_NORM_REG false",
+     ["MODEL.META_ARCHITECTURE", "CenterNetDetector", "MODEL.CENTERNET.NOT_NORM_REG", False],
+     640, 1),
+)
+
+
+def architecture_step(card: str, label: str, keys, size: int, b: int, snapshot) -> None:
+    """One architecture of ``ARCHITECTURES``: ``graft_entry._train_parts``'s
+    float32-parameter model, AdamW, EMA and batch (``b`` images of ``size``,
+    100 ground-truth slots of which 20 valid, a class-frequency vector; with
+    ``SEM_SEG_ON`` a stride-8 semantic target), two steps of
+    ``make_train_step`` and two inference forwards, each timed on the host
+    clock after a synchronize; the kernel launches of each."""
+    from divergen_tpu_torch import graft_entry
+    from divergen_tpu_torch.config import get_cfg
+    from divergen_tpu_torch.engine.train_loop import make_train_step
+    from divergen_tpu_torch.modeling.meta_arch.rcnn import CenterNetDetector
+
+    cfg = get_cfg()
+    cfg.merge_from_list(["FP16", True, "MODEL.MODEL_EMA", 0.999, *keys])
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    _, (state, batch, _) = graft_entry._train_parts(cfg, torch.device("cuda"), size, b, 20,
+                                                   (size, size))
+    model = state.model
+    if cfg.MODEL.ROI_MASK_HEAD.SEM_SEG_ON:
+        s8 = size // 8
+        batch["gt"]["sem_seg"] = (torch.rand(b, s8, s8, device="cuda") > 0.7).float()
+    plain = {"images": batch["image"], "image_sizes": batch["image_size"], "gt": batch["gt"],
+             "fed_weight": batch["fed_weight"]}
+    step = make_train_step(model, state.optimizer, ema_decay=0.999)
+    rng = torch.Generator(device="cuda").manual_seed(0)
+    torch.cuda.synchronize()
+    built = time.perf_counter() - t0
+    step_ms, launches = [], []
+    for _ in range(2):
+        before = snapshot()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, metrics = step(state, plain, rng)
+        values = {k: float(v) for k, v in metrics.items()}  # synchronizes
+        step_ms.append(1e3 * (time.perf_counter() - t0))
+        launches.append(launched_since(before, snapshot))
+        if not all(math.isfinite(v) for v in values.values()):
+            raise AssertionError(f"{label}: train step metrics {values}")
+    model.eval()
+    fwd_ms, fwd_launches = [], []
+    for _ in range(2):
+        before = snapshot()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        dets = model(batch["image"], batch["image_size"])
+        torch.cuda.synchronize()
+        fwd_ms.append(1e3 * (time.perf_counter() - t0))
+        fwd_launches.append(launched_since(before, snapshot))
+    if isinstance(model, CenterNetDetector):
+        k = cfg.MODEL.CENTERNET.POST_NMS_TOPK_TEST
+        shapes = {"boxes": (b, k, 4), "scores": (b, k), "classes": (b, k), "valid": (b, k)}
+    else:
+        k = cfg.TEST.DETECTIONS_PER_IMAGE
+        side = {"CustomRes5ROIHeads": 14}.get(cfg.MODEL.ROI_HEADS.NAME, 28)
+        if cfg.MODEL.ROI_MASK_HEAD.NAME == "RefineMaskHead":
+            side = cfg.MODEL.ROI_MASK_HEAD.STAGE_SUP_SIZE[-1]
+        shapes = {"boxes": (b, k, 4), "scores": (b, k), "classes": (b, k), "valid": (b, k),
+                  "mask_logits": (b, k, side, side)}
+    got = {name: tuple(dets[name].shape) for name in shapes}
+    valid = dets["valid"]
+    if got != shapes or not bool(valid.any()) or not all(
+            bool(torch.isfinite(dets[n][valid]).all()) for n in shapes if n != "valid"):
+        raise AssertionError(f"{label}: detections {got} (expected {shapes}), "
+                             f"{int(valid.sum())} valid")
+    want = ({"fused_window_attention_packed": 24, "fused_window_attention_packed_backward": 24}
+            if "Swin" in label else {})
+    want_fwd = {"fused_window_attention_packed": 24} if "Swin" in label else {}
+    if launches != [want, want] or fwd_launches != [want_fwd, want_fwd]:
+        raise AssertionError(f"{label}: kernel launches per step {launches} (expected {want}), "
+                             f"per forward {fwd_launches} (expected {want_fwd})")
+    log(f"  {label} at {size}², B = {b}: built in {built:.1f} s, "
+        f"{sum(p.numel() for p in model.parameters()) / 1e6:.1f} M parameters; train step "
+        f"{step_ms[1]:.1f} ms (first {step_ms[0]:.1f}), total_loss {values['total_loss']:.4f} "
+        f"({len(values) - 2} losses); forward {fwd_ms[1]:.1f} ms (first {fwd_ms[0]:.1f}), "
+        f"{int(valid.sum())} valid detections; kernel launches a step {launches[1]}, a forward "
+        f"{fwd_launches[1]}; peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB "
+        f"[{card}]")
+
+
+def slice_architectures(card: str, tmp: str, snapshot) -> None:
+    """(a) ``configs/BSGAL_R50.yaml`` through ``train_net.main`` (``bsgal_run``
+    with ``ACTIVE.PROBE_BATCH 2``), no kernel launch; (b) each of
+    ``ARCHITECTURES`` (``architecture_step``); (c) ``dryrun_resnet18``."""
+    before = snapshot()
+    bsgal_run(card, "configs/BSGAL_R50.yaml", os.path.join(tmp, "r50_data"),
+              os.path.join(tmp, "r50"), (0, 0), snapshot, "MODEL.ACTIVE.PROBE_BATCH", "2")
+    launched = launched_since(before, snapshot)
+    if launched:
+        raise AssertionError(f"configs/BSGAL_R50.yaml launched kernels: {launched}")
+    log("    configs/BSGAL_R50.yaml: no kernel launch in training, do_test or Predictor")
+    torch.cuda.empty_cache()
+    for label, keys, size, b in ARCHITECTURES:
+        architecture_step(card, label, keys, size, b, snapshot)
+        torch.cuda.empty_cache()
+    metrics = dryrun_resnet18(snapshot)
+    print(json.dumps(metrics), flush=True)
 
 
 def main() -> int:
@@ -3872,7 +4091,6 @@ def main() -> int:
     small_serving_unets()
     small_detector()
     small_train_step()
-    small_active_step()
 
     wrappers = (flash_attention_packed, fused_ln_matmul, flash_attention,
                 flash_attention_relpos, fused_window_attention_packed, fused_window_attention,
@@ -3985,9 +4203,9 @@ def main() -> int:
     del encoder, pipe, cond, bf16_images, pipe_f
     torch.cuda.empty_cache()
 
-    log("slice: detector train step (dryrun_train, then the Swin-L flagship at full width)")
+    log("slice: detector train step (the Swin-L flagship at full width)")
     reset()
-    f32_fwd, f32_bwd = slice_train(card)
+    slice_train(card)
     train = read(("fused_window_attention_packed", "fused_window_attention_packed_backward"),
                  "the train slice")
 
@@ -4011,16 +4229,27 @@ def main() -> int:
     del async_part
     torch.cuda.empty_cache()
 
-    log("slice: do_train through train_net at full width (configs/BSGAL_SwinL.yaml, then "
-        "--resume; configs/DiverGen_swinL.yaml)")
+    log("slice: training (a float32 BSGAL step of Swin-T against the CPU; do_train through "
+        "train_net at full width: configs/BSGAL_SwinL.yaml, then --resume; "
+        "configs/DiverGen_swinL.yaml)")
     reset()
+    small_active_step()  # the float32 main path of the window backward body
     with tempfile.TemporaryDirectory() as tmp:
-        slice_do_train(card, tmp)
+        slice_do_train(card, tmp, snapshot)
     do_train_counts = read(("fused_window_attention_packed",
                             "fused_window_attention_packed_backward"), "the do_train slice")
+
+    log("slice: the detector's other architectures (configs/BSGAL_R50.yaml through train_net, "
+        "then a step and a forward of each other architecture at full width, then "
+        "dryrun_train on ResNet-18)")
+    reset()
+    with tempfile.TemporaryDirectory() as tmp:
+        slice_architectures(card, tmp, snapshot)
+    architectures = read(("fused_window_attention_packed",
+                          "fused_window_attention_packed_backward"), "the architectures slice")
     launches = {}
     for counts in (sdxl, chain, serving, fused, train, detector, detector_serving,
-                   do_train_counts):
+                   do_train_counts, architectures):
         for k, n in counts.items():
             launches[k] = launches.get(k, 0) + n
     # the split wrapper is on no slice's path (the packed kernels take any head
@@ -4092,11 +4321,9 @@ def main() -> int:
     if counted != sum(n for name, n in launches.items() if isinstance(name, str)):
         raise AssertionError(f"the kernels line counts {counted} main-path launches, the "
                              f"wrappers {launches}")
-    f32_train = tuple(train.get(("fused_window_attention_packed", back, "dg_attention_f32", 32), 0)
-                      for back in (False, True))
-    if f32_train != (f32_fwd, f32_bwd):
-        raise AssertionError(f"the train slice's float32 window launches {f32_train} are not "
-                             f"dryrun_train's {(f32_fwd, f32_bwd)}")
+    f32_train = [n for k, n in train.items() if isinstance(k, tuple) and k[2] == "dg_attention_f32"]
+    if any(f32_train):
+        raise AssertionError(f"the bf16 train slice launched the float32 bodies: {f32_train}")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -13,7 +13,7 @@ The mesh and the processes of ``dryrun_multichip`` are not ported yet.
     step, (state, batch, rng) = train_entry()       # copy-paste + train step
     state, metrics = step(state, batch, rng)
     step, args = flagship_train_entry()             # the same at full width
-    dryrun_train()                                  # one checked step
+    dryrun_train()                                  # one checked step (ResNet-18)
 """
 from __future__ import annotations
 
@@ -27,16 +27,24 @@ import torch.nn as nn
 from .config import ConfigNode, get_cfg
 from .engine.train_loop import TrainState, create_train_state, make_train_step
 from .engine.trainer import make_paste_train_step
-from .modeling.layers import FrozenBatchNorm, Scale
+from .modeling.layers import BatchNorm, FrozenBatchNorm, Scale
 from .modeling.meta_arch.rcnn import CustomRCNN, build_model
 from .solver.build import build_optimizer
 from .utils.dist import entry_device
 
 
-def _small_cfg(num_classes: int = 8, swin_size: str = "T") -> ConfigNode:
-    """The small Swin detector of the JAX package's ``entry()``: few classes,
-    few proposals and detections, float32."""
+def _small_cfg(num_classes: int = 8, backbone: str = "resnet", swin_size: str = "T",
+               levels=None) -> ConfigNode:
+    """The JAX package's small detector config: few classes, few proposals
+    and detections, float32; ResNet-18 + FPN (the default backbone
+    ``"resnet"``, as the JAX ``dryrun_multichip`` builds it) or, with
+    ``backbone="swin"``, Swin of ``swin_size`` (the JAX ``entry()``'s).
+    ``levels`` keeps that many proposal levels."""
     cfg = get_cfg()
+    if levels:
+        cn = cfg.MODEL.CENTERNET
+        cn.IN_FEATURES, cn.FPN_STRIDES = cn.IN_FEATURES[:levels], cn.FPN_STRIDES[:levels]
+        cn.SOI = cn.SOI[:levels - 1] + [[cn.SOI[levels - 1][0], 10000000]]
     cfg.MODEL.CENTERNET.NUM_CLASSES = num_classes
     cfg.MODEL.ROI_HEADS.NUM_CLASSES = num_classes
     cfg.MODEL.ROI_HEADS.BATCH_SIZE_PER_IMAGE = 64
@@ -47,8 +55,9 @@ def _small_cfg(num_classes: int = 8, swin_size: str = "T") -> ConfigNode:
     cfg.MODEL.RESNETS.DEPTH = 18
     cfg.TEST.DETECTIONS_PER_IMAGE = 16
     cfg.FP16 = False
-    cfg.MODEL.BACKBONE.NAME = "build_swintransformer_fpn_backbone"
-    cfg.MODEL.SWIN.SIZE = swin_size
+    if backbone == "swin":
+        cfg.MODEL.BACKBONE.NAME = "build_swintransformer_fpn_backbone"
+        cfg.MODEL.SWIN.SIZE = swin_size
     return cfg
 
 
@@ -107,7 +116,7 @@ def fast_init_(module: nn.Module, gen: torch.Generator) -> nn.Module:
     kernel area of a dense or conv kernel, rows of a table, 1 for a vector).
     Drawn on the CPU from ``gen`` and copied, so a seed gives the same weights
     on any device."""
-    scale_like = (nn.LayerNorm, nn.GroupNorm, FrozenBatchNorm, Scale)
+    scale_like = (nn.LayerNorm, nn.GroupNorm, FrozenBatchNorm, BatchNorm, Scale)
     for mod in module.modules():
         for name, p in mod.named_parameters(recurse=False):
             if name == "weight" and isinstance(mod, scale_like):
@@ -138,7 +147,7 @@ def entry(device=None) -> Tuple[CustomRCNN, Tuple[torch.Tensor, torch.Tensor]]:
     in float32 on any device, as the JAX package's ``entry()`` does (the
     window-attention kernels take float32 on the card)."""
     dev = entry_device(device)
-    cfg = _small_cfg()
+    cfg = _small_cfg(backbone="swin")
     model = build_model(cfg, input_size=(128, 128), device=dev)
     gen = torch.Generator().manual_seed(SEED)
     fast_init_(model, gen).eval()
@@ -229,9 +238,10 @@ def train_entry(device=None):
     one seeded 128 × 128 batch of two images with patches to paste;
     ``state, metrics = step(state, batch, rng)``. The device rule is
     ``entry``'s: float32 on the card and on the CPU, as the JAX
-    ``_small_cfg()``."""
+    ``_small_cfg()``. The Swin-T model is this entry's own: the JAX package
+    has no train entry."""
     dev = entry_device(device)
-    cfg = _small_cfg()
+    cfg = _small_cfg(backbone="swin")
     cfg.SOLVER.CLIP_GRADIENTS.ENABLED = True
     cfg.MODEL.MODEL_EMA = 0.999
     cfg.INPUT.USE_COPY_PASTE = True
@@ -255,9 +265,10 @@ def flagship_train_entry(device=None, remat: bool = True):
 
 
 def dryrun_train(device=None) -> Dict[str, float]:
-    """One train step on the small detector at 64 × 64 with clipping and EMA
-    on (the one-device part of the JAX package's ``dryrun_multichip``), in
-    float32 on any device as the JAX ``_small_cfg()``: checks that the step
+    """One train step on the JAX dryrun's model, ResNet-18 + FPN
+    (``_small_cfg()``), at 64 × 64 with clipping and EMA on (the one-device
+    part of the JAX package's ``dryrun_multichip``), in float32 on any device
+    as the JAX ``_small_cfg()``: checks that the step
     counter is 1 and every metric is finite, prints and returns the metrics.
     Weights, batch and the step's uniform draws come from CPU generators and
     numpy seeds, so the card and the CPU take the same step."""

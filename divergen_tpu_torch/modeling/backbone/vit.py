@@ -4,9 +4,12 @@ decomposed relative positions.
 Counterpart of ``divergen_tpu/modeling/backbone/vit.py`` (``_rel_pos_bias``,
 ``ViTAttention``, ``window_partition``, ``window_unpartition``, ``ViTBlock``).
 The SAM image encoder is built from these blocks. Submodules carry the flax
-scope names (``norm1``, ``attn.qkv``, ``attn.proj``, ``mlp_fc1``, …). The
-detection trunk (``ViT``, ``SimpleFeaturePyramid``, ``ViTDet``) comes with the
-detector's slice.
+scope names (``norm1``, ``attn.qkv``, ``attn.proj``, ``mlp_fc1``, …).
+The detection trunk: ``ViT`` (a 16×16/16 patch embedding, padded as flax's
+default ``"SAME"``, plus a (64, 64, dim) position table sliced to the grid,
+so canvases up to 1024²), ``SimpleFeaturePyramid`` (p2..p7 from the
+stride-16 map) and ``ViTDet``. The global layers' relative-position tables
+are sized by the grid of the canvas given at construction.
 
 With ``ln_gemm`` the block's LayerNorms fold into the GEMMs that consume
 them (``ops.ln_matmul.fused_ln_matmul``): norm2 → mlp_fc1 + exact GELU on
@@ -18,7 +21,7 @@ memory. Window layers (196 tokens) are dense products, as in the JAX package.
 """
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Dict, Optional, Sequence, Tuple
 
 import torch
 import torch.nn as nn
@@ -26,7 +29,7 @@ import torch.nn.functional as F
 
 from ...ops.flash_attention import flash_attention_relpos
 from ...ops.ln_matmul import fused_ln_matmul
-from ..layers import Dense, LayerNorm
+from ..layers import Conv, ConvTranspose, Dense, LayerNorm, max_pool
 
 LN_EPS = 1e-6  # flax nn.LayerNorm's default, which every norm of the ViT uses
 
@@ -148,3 +151,89 @@ class ViTBlock(nn.Module):
         else:
             y = F.gelu(self.mlp_fc1(self.norm2(x)))
         return x + self.mlp_fc2(y)
+
+
+class ViT(nn.Module):
+    """ViTDet trunk: (B, H, W, 3) → the stride-16 map (B, H/16, W/16, dim).
+    ``input_hw`` is the canvas; it sizes the global layers' relative-position
+    tables, and a forward at another grid raises."""
+
+    raw_init_std = {"pos_embed": 0.02}
+
+    def __init__(self, patch: int = 16, dim: int = 768, layers: int = 12, heads: int = 12,
+                 window: int = 14, global_layers: Sequence[int] = (2, 5, 8, 11),
+                 dtype=torch.float32, input_hw: Tuple[int, int] = (1024, 1024), device=None):
+        super().__init__()
+        self.layers, self.dtype = layers, dtype
+        self.grid = tuple(-(-n // patch) for n in input_hw)
+        if max(self.grid) > 64:
+            raise ValueError(f"canvas {tuple(input_hw)} exceeds the 64 × 64 position table "
+                             f"({64 * patch} px a side)")
+        self.patch_embed = Conv(3, dim, patch, stride=patch, padding="SAME", dtype=dtype,
+                                device=device)
+        self.pos_embed = nn.Parameter(torch.zeros(64, 64, dim, device=device))
+        for i in range(layers):
+            self.add_module(f"block{i}", ViTBlock(
+                dim, heads, 0 if i in global_layers else window, dtype, input_hw=self.grid,
+                device=device))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = self.patch_embed(x.to(self.dtype))
+        h, w = x.shape[1], x.shape[2]
+        if (h, w) != self.grid:
+            raise ValueError(f"ViT built for a {self.grid} grid (its global layers' "
+                             f"relative-position tables) got a {(h, w)} grid; build it with "
+                             f"input_size = the canvas")
+        x = x + self.pos_embed[None, :h, :w].to(x.dtype)
+        for i in range(self.layers):
+            x = getattr(self, f"block{i}")(x)
+        return x
+
+
+class SimpleFeaturePyramid(nn.Module):
+    """ViTDet's pyramid: p2 and p3 by ×2 transposed convs (LayerNorm + GELU
+    between the two of p2), p4 as it is, p5 by a 2×2 max-pool, each then
+    1×1 conv → LayerNorm → 3×3 conv → LayerNorm; p6 and p7 take every
+    other row and column of the level before."""
+
+    def __init__(self, in_channels: int, out_channels: int = 256, dtype=torch.float32,
+                 device=None):
+        super().__init__()
+        c = in_channels
+        kw = dict(dtype=dtype, device=device)
+        self.up4_1 = ConvTranspose(c, c // 2, 2, **kw)
+        self.up4_ln = LayerNorm(c // 2, eps=LN_EPS, device=device)
+        self.up4_2 = ConvTranspose(c // 2, c // 4, 2, **kw)
+        self.up8 = ConvTranspose(c, c // 2, 2, **kw)
+        for name, cin in (("p2", c // 4), ("p3", c // 2), ("p4", c), ("p5", c)):
+            self.add_module(f"{name}_lateral", Conv(cin, out_channels, 1, bias=False, **kw))
+            self.add_module(f"{name}_ln1", LayerNorm(out_channels, eps=LN_EPS, device=device))
+            self.add_module(f"{name}_out", Conv(out_channels, out_channels, 3, padding=1,
+                                                bias=False, **kw))
+            self.add_module(f"{name}_ln2", LayerNorm(out_channels, eps=LN_EPS, device=device))
+
+    def _norm_convs(self, y: torch.Tensor, name: str) -> torch.Tensor:
+        y = getattr(self, f"{name}_ln1")(getattr(self, f"{name}_lateral")(y))
+        return getattr(self, f"{name}_ln2")(getattr(self, f"{name}_out")(y))
+
+    def forward(self, x: torch.Tensor) -> Dict[str, torch.Tensor]:
+        up4 = self.up4_2(F.gelu(self.up4_ln(self.up4_1(x))))
+        outs = {"p2": self._norm_convs(up4, "p2"), "p3": self._norm_convs(self.up8(x), "p3"),
+                "p4": self._norm_convs(x, "p4"), "p5": self._norm_convs(max_pool(x, 2, 2), "p5")}
+        outs["p6"] = outs["p5"][:, ::2, ::2]  # flax max_pool (1, 1) at stride 2
+        outs["p7"] = outs["p6"][:, ::2, ::2]
+        return outs
+
+
+class ViTDet(nn.Module):
+    """``ViT`` + ``SimpleFeaturePyramid`` (scope ``sfp``): emits p2..p7 itself,
+    so the detector builds no lateral FPN over it."""
+
+    def __init__(self, vit: ViT, out_channels: int = 256, device=None):
+        super().__init__()
+        self.vit = vit
+        self.sfp = SimpleFeaturePyramid(vit.patch_embed.out_channels, out_channels,
+                                        dtype=vit.dtype, device=device)
+
+    def forward(self, x: torch.Tensor) -> Dict[str, torch.Tensor]:
+        return self.sfp(self.vit(x))

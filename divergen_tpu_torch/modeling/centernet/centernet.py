@@ -4,22 +4,22 @@ Counterpart of ``divergen_tpu/modeling/centernet/centernet.py``:
 ``CenterNetConfig``, ``CenterNetHead`` (conv towers shared over the levels
 with a per-level ``Scale``), ``level_geometry``, ``centernet_ground_truth``,
 ``centernet_losses`` and ``centernet_proposals`` over a flattened level axis
-M = Σ_l H_l·W_l with static shapes. The classwise ground truth and losses and
-``centernet_detections`` belong to the standalone detector and are not ported
-yet.
+M = Σ_l H_l·W_l with static shapes; and for the standalone detector
+(``only_proposal=False``) the classwise head, ``centernet_ground_truth_classwise``,
+``centernet_losses_classwise`` and ``centernet_detections`` (class-aware NMS).
 """
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Dict, List, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
 from ...ops.losses import heatmap_focal_loss, iou_loss
-from ...ops.nms import nms_mask, stable_topk, top_scoring
+from ...ops.nms import batched_nms_mask, nms_mask, stable_topk, top_scoring
 from ..layers import ConvNorm, Scale
 
 
@@ -103,14 +103,13 @@ class CenterNetConfig:
 
 class CenterNetHead(nn.Module):
     """Conv towers + (agn_hm, bbox) outputs, shared over the levels of
-    ``cfg.in_features``, ``in_channels`` channels each. The classwise head of
-    the standalone detector (``only_proposal=False``) is not ported yet."""
+    ``cfg.in_features``, ``in_channels`` channels each; with
+    ``only_proposal=False`` also a class tower and ``cls_logits`` of
+    ``num_classes`` channels (the standalone detector)."""
 
     def __init__(self, cfg: CenterNetConfig, in_channels: int = 256, dtype=torch.float32,
                  device=None):
         super().__init__()
-        if not cfg.only_proposal:
-            raise NotImplementedError("the classwise CenterNet head is not yet ported")
         self.cfg = cfg
         c = cfg
         kw = dict(dtype=dtype, device=device)
@@ -123,6 +122,11 @@ class CenterNetHead(nn.Module):
 
         self._share = tower("share", c.num_share_convs)
         self._bbox = tower("bbox", c.num_box_convs)
+        self._cls = tower("cls", 0 if c.only_proposal else c.num_cls_convs)
+        self.cls_logits = None
+        if not c.only_proposal:
+            self.cls_logits = ConvNorm(in_channels, c.num_classes, 3, 1, "", None, use_bias=True,
+                                       **kw)
         self.agn_hm = None
         if c.with_agn_hm:
             self.agn_hm = ConvNorm(in_channels, 1, 3, 1, "", None, use_bias=True, **kw)
@@ -132,7 +136,7 @@ class CenterNetHead(nn.Module):
 
     def forward(self, features: Sequence[torch.Tensor]):
         """Per level: (agn_hm (B, H, W) or None, bbox_reg (B, H, W, 4) ≥ 0,
-        None for the classwise scores), the JAX module's triple."""
+        class logits (B, H, W, C) or None), the JAX module's triple."""
         agn_hms, bbox_regs, clss = [], [], []
         for l, x in enumerate(features):
             for n in self._share:
@@ -140,7 +144,13 @@ class CenterNetHead(nn.Module):
             bx = x
             for n in self._bbox:
                 bx = getattr(self, n)(bx)
-            clss.append(None)
+            if self.cls_logits is not None:
+                cx = x
+                for n in self._cls:
+                    cx = getattr(self, n)(cx)
+                clss.append(self.cls_logits(cx))
+            else:
+                clss.append(None)
             agn_hms.append(self.agn_hm(bx)[..., 0] if self.agn_hm is not None else None)
             bbox_regs.append(F.relu(getattr(self, f"scale_{l}")(self.bbox_pred(bx))))
         return agn_hms, bbox_regs, clss
@@ -241,14 +251,22 @@ def centernet_losses(cfg: CenterNetConfig, agn_hm_pred: torch.Tensor, reg_pred: 
                      pos_count: torch.Tensor) -> Dict[str, torch.Tensor]:
     """``loss_centernet_loc``, ``loss_centernet_agn_pos`` and
     ``loss_centernet_agn_neg`` from agn_hm_pred (B, M) logits and reg_pred
-    (B, M, 4) in stride units (the ``only_proposal`` path; one process, so the
-    normalizers are this batch's own)."""
+    (B, M, 4) in stride units (one process, so the normalizers are this
+    batch's own). With ``not_norm_reg`` off the regression is weighted by
+    the heatmap's maximum over the image's locations, as the JAX package
+    weights it: its maximum over the last axis of the (B, M) heatmap
+    broadcasts against (B, M) only at B = 1, so other batch sizes raise."""
     num_pos_avg = pos_count.sum().float().clamp(min=1.0)
     reg_valid = reg_targets.amax(dim=-1) >= 0  # (B, M)
-    if not cfg.not_norm_reg:
-        raise NotImplementedError("heatmap-weighted regression (NOT_NORM_REG false) is not yet "
-                                  "ported: it belongs to the classwise head")
     reg_weight_map = reg_valid.float()
+    if not cfg.not_norm_reg:
+        if heatmaps.shape[0] != 1:
+            raise ValueError(
+                f"NOT_NORM_REG false at a batch of {heatmaps.shape[0]} images: the JAX "
+                f"package's weight jnp.max(heatmaps, axis=-1), one value per image, "
+                f"broadcasts against the (B, M) locations only at B = 1")
+        reg_weight_map = torch.where(reg_valid, heatmaps.amax(dim=-1, keepdim=True),
+                                     torch.zeros((), device=heatmaps.device))
     reg_norm = reg_weight_map.sum().clamp(min=1.0)
 
     flat_tgt = torch.where(reg_valid.reshape(-1, 1), reg_targets.reshape(-1, 4),
@@ -311,3 +329,132 @@ def centernet_proposals(cfg: CenterNetConfig, geom: Dict, agn_hm_pred: torch.Ten
         out.append(top_scoring(b, s, keep, post_topk)[:3])
     boxes, scores, valid = (torch.stack(t) for t in zip(*out))
     return {"boxes": boxes, "scores": scores, "valid": valid}
+
+
+def _classwise_single(cfg: CenterNetConfig, geom: Dict, boxes: torch.Tensor,
+                      classes: torch.Tensor, valid: torch.Tensor):
+    grids, strides = geom["grids"], geom["strides"]
+    m, c = grids.shape[0], cfg.num_classes
+    gx, gy = grids[:, 0:1], grids[:, 1:2]
+    centers = (boxes[:, :2] + boxes[:, 2:]) / 2.0
+    st = strides[:, None]
+    cdx = (centers[None, :, 0] / st).to(torch.int32).float() * st + st / 2
+    cdy = (centers[None, :, 1] / st).to(torch.int32).float() * st + st / 2
+    is_peak = (gx == cdx) & (gy == cdy)
+    dist2 = (gx - centers[None, :, 0]) ** 2 + (gy - centers[None, :, 1]) ** 2
+    dist2 = torch.where(is_peak, torch.zeros_like(dist2), dist2)
+    area = (boxes[:, 2] - boxes[:, 0]).clamp(min=0) * (boxes[:, 3] - boxes[:, 1]).clamp(min=0)
+    radius2 = (cfg.delta ** 2 * 2.0 * area).clamp(min=cfg.min_radius ** 2)
+    wd2 = dist2 / radius2[None, :]  # (M, N)
+    hm_per_gt = torch.exp(-torch.where(valid[None, :], wd2, torch.full_like(wd2, INF)))
+    # per class the maximum over its ground truths; invalid rows go to an
+    # extra column that is dropped, empty classes stay at -inf and become 0
+    seg = torch.where(valid, classes.long(), torch.full_like(classes.long(), c))
+    hm_cls = torch.full((m, c + 1), float("-inf"), device=boxes.device).scatter_reduce(
+        1, seg[None].expand(m, -1), hm_per_gt, "amax")[:, :c]
+    hm_cls = torch.where(hm_cls < 1e-4, torch.zeros_like(hm_cls), hm_cls.clamp(min=0.0))
+
+    box_crit = torch.sqrt(((boxes[:, 2:] - boxes[:, :2]) ** 2).sum(dim=1)) / 2.0
+    pos = torch.zeros((m, c), dtype=torch.int32, device=boxes.device)
+    cls_idx = classes.long().clamp(0, c - 1)
+    base = 0
+    for lvl, (h, w) in enumerate(geom["shapes"]):
+        s = float(cfg.strides[lvl])
+        lo, hi = cfg.sizes_of_interest[lvl]
+        cared = (box_crit >= lo) & (box_crit <= hi) & valid
+        cx = (centers[:, 0] / s).to(torch.int32).clamp(0, w - 1)
+        cy = (centers[:, 1] / s).to(torch.int32).clamp(0, h - 1)
+        pos.index_put_(((base + cy * w + cx).long(), cls_idx), cared.to(torch.int32),
+                       accumulate=True)
+        base += h * w
+    return hm_cls, pos
+
+
+def centernet_ground_truth_classwise(cfg: CenterNetConfig, geom: Dict, gt_boxes: torch.Tensor,
+                                     gt_classes: torch.Tensor, gt_valid: torch.Tensor):
+    """The standalone detector's targets: ``centernet_ground_truth``'s
+    reg_targets and agnostic heatmap, per-class heatmaps (B, M, C) and the
+    per-(location, class) positive counts (B, M, C) int32."""
+    reg_targets, hm_agn, _ = centernet_ground_truth(cfg, geom, gt_boxes, gt_valid)
+    per_image = [_classwise_single(cfg, geom, b.float(), k, v)
+                 for b, k, v in zip(gt_boxes, gt_classes, gt_valid)]
+    hm_cls, pos_cls = (torch.stack(t) for t in zip(*per_image))
+    return reg_targets, hm_agn, hm_cls, pos_cls
+
+
+def centernet_losses_classwise(cfg: CenterNetConfig, cls_logits: torch.Tensor,
+                               agn_hm_pred: Optional[torch.Tensor], reg_pred: torch.Tensor,
+                               reg_targets: torch.Tensor, hm_agn: torch.Tensor,
+                               hm_cls: torch.Tensor,
+                               pos_cls: torch.Tensor) -> Dict[str, torch.Tensor]:
+    """The standalone detector's losses: ``centernet_losses`` over the
+    positive locations of every class (without the agnostic terms when
+    ``agn_hm_pred`` is None), plus the classwise focal terms
+    ``loss_centernet_pos`` and ``loss_centernet_neg`` of cls_logits
+    (B, M, C)."""
+    losses = centernet_losses(
+        cfg, agn_hm_pred if agn_hm_pred is not None else torch.zeros_like(hm_agn), reg_pred,
+        reg_targets, hm_agn, pos_cls.sum(dim=-1))
+    if agn_hm_pred is None:
+        losses.pop("loss_centernet_agn_pos")
+        losses.pop("loss_centernet_agn_neg")
+    num_pos_avg = pos_cls.sum().float().clamp(min=1.0)
+    pos_loss, neg_loss = heatmap_focal_loss(
+        cls_logits.float(), hm_cls, pos_cls, alpha=cfg.hm_focal_alpha, beta=cfg.hm_focal_beta,
+        gamma=cfg.loss_gamma, sigmoid_clamp=cfg.sigmoid_clamp, ignore_high_fp=cfg.ignore_high_fp)
+    losses["loss_centernet_pos"] = cfg.pos_weight * pos_loss / num_pos_avg
+    losses["loss_centernet_neg"] = cfg.neg_weight * neg_loss / num_pos_avg
+    return losses
+
+
+def centernet_detections(cfg: CenterNetConfig, geom: Dict, cls_logits: torch.Tensor,
+                         agn_hm_pred: Optional[torch.Tensor], reg_pred: torch.Tensor,
+                         image_sizes: torch.Tensor, training: bool) -> Dict[str, torch.Tensor]:
+    """Classwise decoding: cls_logits (B, M, C), agn_hm_pred (B, M) or None,
+    reg_pred (B, M, 4) → boxes (B, K, 4), scores (B, K), classes (B, K),
+    valid (B, K), K = post_nms_topk. Candidates are the (location, class)
+    pairs whose class heatmap passes ``score_thresh``; the score is
+    ``sqrt(class · agnostic)`` with the agnostic heatmap; per level a top-k
+    of the flattened pairs, then ``pre_nms_total`` across levels, then one
+    class-aware NMS."""
+    grids, strides = geom["grids"], geom["strides"]
+    c = cfg.num_classes
+    hm = torch.sigmoid(cls_logits.float())
+    cand = hm > cfg.score_thresh  # the threshold is on the raw classwise heatmap
+    if agn_hm_pred is not None:
+        hm = hm * torch.sigmoid(agn_hm_pred.float())[..., None]
+    scores_all = torch.sqrt(hm) if cfg.with_agn_hm else hm
+    reg = reg_pred.float() * strides[None, :, None]
+    x1 = grids[None, :, 0] - reg[..., 0]
+    y1 = grids[None, :, 1] - reg[..., 1]
+    x2 = torch.maximum(grids[None, :, 0] + reg[..., 2], x1 + 0.01)
+    y2 = torch.maximum(grids[None, :, 1] + reg[..., 3], y1 + 0.01)
+    boxes_all = torch.stack([x1, y1, x2, y2], dim=-1)
+
+    pre_topk = cfg.pre_nms_topk_train if training else cfg.pre_nms_topk_test
+    post_topk = cfg.post_nms_topk_train if training else cfg.post_nms_topk_test
+    nms_th = cfg.nms_thresh_train if training else cfg.nms_thresh_test
+    neg_inf = float("-inf")
+    out = []
+    for scores, ok, boxes in zip(scores_all, cand, boxes_all):
+        cs, cb, cc = [], [], []
+        start = 0
+        for h, w in geom["shapes"]:
+            size = h * w
+            flat = torch.where(ok[start:start + size], scores[start:start + size],
+                               torch.full_like(scores[start:start + size], neg_inf)).reshape(-1)
+            topv, topi = stable_topk(flat, min(pre_topk, flat.shape[0]))
+            cs.append(topv)
+            cb.append(boxes[start:start + size][topi // c])
+            cc.append(topi % c)
+            start += size
+        s, b, cl = torch.cat(cs), torch.cat(cb), torch.cat(cc)
+        topv, topi = stable_topk(s, min(cfg.pre_nms_total, s.shape[0]))
+        b, cl = b[topi], cl[topi]
+        v = topv > neg_inf
+        s = torch.where(v, topv, torch.zeros_like(topv))
+        keep = batched_nms_mask(b, s, cl, nms_th, valid=v)
+        ob, os_, ov, _, (ocls,) = top_scoring(b, s, keep, post_topk, extras=(cl,))
+        out.append((ob, os_, ocls, ov))
+    boxes, scores, classes, valid = (torch.stack(t) for t in zip(*out))
+    return {"boxes": boxes, "scores": scores, "classes": classes, "valid": valid}

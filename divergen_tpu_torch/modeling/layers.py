@@ -24,7 +24,7 @@ parameters these return float32 whatever the input's dtype.
 from __future__ import annotations
 
 import math
-from typing import Callable, Dict, Optional
+from typing import Callable, Dict, Optional, Tuple, Union
 
 import torch
 import torch.nn as nn
@@ -65,19 +65,39 @@ class Dense(_CastAtApply, nn.Linear):
         return F.linear(*self._operands(x))
 
 
+def same_pads(n: int, k: int, s: int, dilation: int = 1) -> Tuple[int, int]:
+    """flax ``padding="SAME"`` along one axis of extent ``n``: the total
+    ``max((ceil(n / s) - 1) · s + k' - n, 0)`` (k' the dilated kernel), low
+    half first."""
+    k = (k - 1) * dilation + 1
+    total = max((-(-n // s) - 1) * s + k - n, 0)
+    return total // 2, total - total // 2
+
+
 class Conv(_CastAtApply, nn.Conv2d):
     """flax ``nn.Conv`` on NHWC activations. ``padding`` defaults to the
-    "SAME"-style k // 2; a patch embedding (stride = kernel) passes 0."""
+    symmetric k // 2; a patch embedding (stride = kernel) passes 0, and
+    ``padding="SAME"`` pads as flax's default does, from the input's extent
+    (asymmetric where the stride does not divide it). ``groups`` and
+    ``dilation`` are flax's ``feature_group_count`` and
+    ``kernel_dilation``."""
 
     def __init__(self, in_channels: int, out_channels: int, kernel_size: int = 3,
                  stride: int = 1, dtype=None, device=None, bias: bool = True,
-                 padding: Optional[int] = None):
-        super().__init__(in_channels, out_channels, kernel_size, stride=stride,
-                         padding=kernel_size // 2 if padding is None else padding,
-                         bias=bias, dtype=dtype, device=device)
+                 padding: Union[int, str, None] = None, groups: int = 1, dilation: int = 1):
+        self.flax_same = padding == "SAME"
+        pad = 0 if self.flax_same else kernel_size // 2 if padding is None else padding
+        super().__init__(in_channels, out_channels, kernel_size, stride=stride, padding=pad,
+                         dilation=dilation, groups=groups, bias=bias, dtype=dtype,
+                         device=device)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x, weight, bias = self._operands(x)
+        if self.flax_same:
+            (k, _), (s, _), (d, _) = self.kernel_size, self.stride, self.dilation
+            ph, pw = same_pads(x.shape[1], k, s, d), same_pads(x.shape[2], k, s, d)
+            if any(ph + pw):
+                x = F.pad(x, (0, 0, *pw, *ph))
         y = self._conv_forward(x.permute(0, 3, 1, 2), weight, bias)
         return y.permute(0, 2, 3, 1)
 
@@ -144,6 +164,52 @@ class GroupNorm(nn.GroupNorm):
         scale = torch.rsqrt(var + self.eps).repeat_interleave(per_group, dim=-1) * self.weight
         shift = self.bias - mean.repeat_interleave(per_group, dim=-1) * scale
         return torch.addcmul(shift[:, None, None], xf, scale[:, None, None])
+
+
+class BatchNorm(nn.Module):
+    """flax ``nn.BatchNorm(use_running_average=True)``: the stored statistics
+    normalize in training as at inference, ``y = (x − mean) · rsqrt(var +
+    eps) · weight + bias`` in float32, returned in ``dtype``. The statistics
+    are buffers (flax's ``batch_stats`` collection: ``mean``, ``var``), so no
+    optimizer sees them."""
+
+    def __init__(self, features: int, eps: float = 1e-5, dtype=torch.float32, device=None):
+        super().__init__()
+        self.eps, self.dtype = eps, dtype
+        self.weight = nn.Parameter(torch.ones(features, device=device))
+        self.bias = nn.Parameter(torch.zeros(features, device=device))
+        self.register_buffer("running_mean", torch.zeros(features, device=device))
+        self.register_buffer("running_var", torch.ones(features, device=device))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        mul = torch.rsqrt(self.running_var + self.eps) * self.weight
+        return ((x.float() - self.running_mean) * mul + self.bias).to(self.dtype)
+
+
+def max_pool(x: torch.Tensor, k: int, stride: int, padding: int = 0) -> torch.Tensor:
+    """flax ``nn.max_pool`` on NHWC; ``padding`` pads −inf on every side (0
+    is flax's "VALID", which floors an odd extent)."""
+    y = F.max_pool2d(x.permute(0, 3, 1, 2), k, stride, padding)
+    return y.permute(0, 2, 3, 1)
+
+
+def avg_pool(x: torch.Tensor, k: int, stride: int, padding: int = 0) -> torch.Tensor:
+    """flax ``nn.avg_pool`` on NHWC with zero padding counted in the mean
+    (flax's default ``count_include_pad=True``)."""
+    y = F.avg_pool2d(x.permute(0, 3, 1, 2), k, stride, padding, count_include_pad=True)
+    return y.permute(0, 2, 3, 1)
+
+
+def resize_nearest(x: torch.Tensor, h: int, w: int) -> torch.Tensor:
+    """``jax.image.resize(..., "nearest")`` of axes 1 and 2 to (h, w): output
+    index i reads input ``floor((i + 0.5) · n_in / n_out)`` (half-pixel
+    centres), computed in float32 in that order, as JAX computes it."""
+    for axis, n in ((1, h), (2, w)):
+        m = x.shape[axis]
+        if m != n:
+            src = ((torch.arange(n, dtype=torch.float32, device=x.device) + 0.5) * m / n).floor()
+            x = x.index_select(axis, src.long())
+    return x
 
 
 def get_norm(norm: Optional[str], features: int, device=None) -> Optional[nn.Module]:
@@ -257,7 +323,7 @@ def flax_init_(module: nn.Module, gen: torch.Generator) -> nn.Module:
             mod.bias.zero_()
         elif isinstance(mod, nn.Embedding):
             mod.weight.normal_(0.0, mod.embedding_dim ** -0.5, generator=gen)
-        elif isinstance(mod, (nn.LayerNorm, nn.GroupNorm, FrozenBatchNorm)):
+        elif isinstance(mod, (nn.LayerNorm, nn.GroupNorm, FrozenBatchNorm, BatchNorm)):
             mod.weight.fill_(1.0)
             mod.bias.zero_()
         raw: Dict[str, float] = getattr(mod, "raw_init_std", {})

@@ -16,9 +16,14 @@ the JAX package's loss dict. Its random draws come through
 ``ops.losses.uniform_draw``: ``match`` and ``mask`` of shape (B, P + N) and
 ``fed0``, ``fed1``, ``fed2`` of shape (C + 1,).
 
+With ``mask_head_name="RefineMaskHead"`` the mask head is
+``refine_mask_head.RefineMaskHead`` with its ``semantic_branch`` over the
+first ROI level: the loss is the staged ``refine_cross_entropy`` (a target
+per supervision size), inference returns the composed final-size logits, and
+a ground truth with ``sem_seg`` adds ``loss_semantic``.
+
 Not ported yet: ``image_label_losses`` (weak supervision), the caption columns
-of the zero-shot classifier, the WSDDN proposal-score branch, and
-``RefineMaskHead``.
+of the zero-shot classifier and the WSDDN proposal-score branch.
 """
 from __future__ import annotations
 
@@ -33,11 +38,13 @@ import torch.nn.functional as F
 from ...ops.losses import (Rng, get_fed_loss_classes, giou_loss_xyxy, optax_sigmoid_bce,
                            smooth_l1_loss, uniform_draw)
 from ...ops.nms import batched_nms_mask, stable_topk, top_scoring
-from ...ops.roi_align import multilevel_roi_align
+from ...ops.roi_align import multilevel_roi_align, roi_align
 from ...structures import boxes as box_ops
 from ...structures.masks import mask_target_in_box
-from ..layers import Conv, ConvTranspose, Dense
+from ..layers import Conv, ConvTranspose, Dense, resize_nearest
 from . import box_regression
+from .refine_mask_head import (RefineMaskHead, SemanticBranch, compose_stage_preds,
+                               refine_cross_entropy)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -325,9 +332,17 @@ class CascadeROIHeads(nn.Module):
                 use_zeroshot_cls=c.use_zeroshot_cls, norm_temp=c.norm_temp,
                 with_softmax_prop=c.with_softmax_prop, **kw))
         self.mask_head = None
-        if c.mask_on:
-            if c.mask_head_name == "RefineMaskHead":
-                raise NotImplementedError("RefineMaskHead is not yet ported")
+        self.refine = c.mask_on and c.mask_head_name == "RefineMaskHead"
+        if self.refine:
+            n_sup = len(c.stage_sup_size)
+            # the last stage is class-agnostic whatever CLS_AGNOSTIC_MASK says
+            stage_ncls = tuple(1 if c.cls_agnostic_mask else c.num_classes
+                               for _ in range(n_sup - 1)) + (1,)
+            self.mask_head = RefineMaskHead(in_channels, c.mask_conv_dim, c.mask_conv_dim,
+                                            stage_sup_size=c.stage_sup_size,
+                                            stage_num_classes=stage_ncls, **kw)
+            self.semantic_branch = SemanticBranch(in_channels, c.mask_conv_dim, **kw)
+        elif c.mask_on:
             self.mask_head = MaskRCNNConvUpsampleHead(in_channels, c.mask_num_conv,
                                                       c.mask_conv_dim, **kw)
 
@@ -338,6 +353,29 @@ class CascadeROIHeads(nn.Module):
         pooled = [multilevel_roi_align([features[f][i] for f in c.in_features], list(c.strides),
                                        boxes[i], resolution) for i in range(boxes.shape[0])]
         return torch.cat(pooled)
+
+    def _refine_stages(self, features: Dict[str, torch.Tensor], pooled: torch.Tensor,
+                       boxes: torch.Tensor) -> Tuple[torch.Tensor, ...]:
+        """RefineMask's per-stage logits for (B·K, r, r, C) pooled features
+        of boxes (B, K, 4); each stage crops the semantic branch's maps
+        (ROIAlign, 2 samples a bin) at the first ROI level's stride."""
+        c = self.cfg
+        sem_feat, sem_pred = self.semantic_branch(features[c.in_features[0]])
+        scale = 1.0 / c.strides[0]
+
+        def crop(full_map: torch.Tensor, res: int) -> torch.Tensor:
+            return torch.cat([roi_align(full_map[i], boxes[i], res, scale)
+                              for i in range(boxes.shape[0])])
+
+        return self.mask_head(pooled, sem_feat, sem_pred, crop)
+
+    def _mask_logits(self, features: Dict[str, torch.Tensor],
+                     boxes: torch.Tensor) -> torch.Tensor:
+        """The mask head's final logits (B·K, S, S) for boxes (B, K, 4)."""
+        pooled = self._pool(features, boxes, self.cfg.mask_pooler_resolution)
+        if self.refine:
+            return compose_stage_preds(self._refine_stages(features, pooled, boxes))
+        return self.mask_head(pooled)
 
     def _run_stage(self, features: Dict[str, torch.Tensor], boxes: torch.Tensor, stage: int,
                    cls_inds: Optional[torch.Tensor] = None):
@@ -417,6 +455,12 @@ class CascadeROIHeads(nn.Module):
 
         if self.mask_head is not None:
             losses["loss_mask"] = c.mask_weight * self._mask_loss(rng, features, gt, proposals)
+            if self.refine and "sem_seg" in gt:
+                # the auxiliary semantic loss, its target resized (nearest) to the logits
+                _, sem_logits = self.semantic_branch(features[c.in_features[0]])
+                tgt = resize_nearest(gt["sem_seg"].float(), *sem_logits.shape[1:])
+                losses["loss_semantic"] = c.sem_seg_weight * optax_sigmoid_bce(sem_logits,
+                                                                               tgt).mean()
         return losses
 
     def _mask_loss(self, rng: Rng, features: Dict[str, torch.Tensor],
@@ -445,15 +489,24 @@ class CascadeROIHeads(nn.Module):
             picked.append((pb[i][topi], midx[topi], topv > float("-inf")))
         boxes, midx, ok = (torch.stack(t) for t in zip(*picked))
 
-        logits = self.mask_head(self._pool(features, boxes, c.mask_pooler_resolution))
-        out_res = logits.shape[-1]
-        logits = logits.reshape(b, cap, out_res, out_res)
         # ground-truth masks are (N, S, S) crops in their own box frame: resample
         # each matched crop onto the proposal box at the head's resolution
         s = gt["masks"].shape[-1]
         crops = torch.gather(gt["masks"].float(), 1, midx[..., None, None].expand(-1, -1, s, s))
         src_boxes = torch.gather(gt_boxes, 1, midx[..., None].expand(-1, -1, 4))
-        tgt = (mask_target_in_box(crops, src_boxes, boxes, out_res) >= 0.5).float()
+        target = lambda res: (mask_target_in_box(crops, src_boxes, boxes, res) >= 0.5).float()
+        pooled = self._pool(features, boxes, c.mask_pooler_resolution)
+        if self.refine:
+            # a target at every stage's size; the stage weights (i + 1) / stages
+            stages = self._refine_stages(features, pooled, boxes)
+            n = len(stages)
+            return refine_cross_entropy(
+                stages, [target(lg.shape[-1]).reshape(b * cap, *lg.shape[-2:]) for lg in stages],
+                ok.reshape(-1), stage_weights=tuple((i + 1) / n for i in range(n)))
+        logits = self.mask_head(pooled)
+        out_res = logits.shape[-1]
+        logits = logits.reshape(b, cap, out_res, out_res)
+        tgt = target(out_res)
         per_roi = optax_sigmoid_bce(logits, tgt).mean(dim=(2, 3))
         total = torch.where(ok, per_roi, torch.zeros_like(per_roi)).sum()
         return total / ok.sum().clamp(min=1.0)
@@ -506,8 +559,7 @@ class CascadeROIHeads(nn.Module):
             dets["logits"] = torch.gather(cls_scores, 1, index)
         if self.mask_head is not None:
             k = dets["boxes"].shape[1]
-            mask_logits = self.mask_head(self._pool(features, dets["boxes"],
-                                                    c.mask_pooler_resolution))
+            mask_logits = self._mask_logits(features, dets["boxes"])
             dets["mask_logits"] = mask_logits.reshape(b, k, *mask_logits.shape[-2:])
         return dets
 

@@ -15,7 +15,9 @@ The port names its submodules after the flax scopes of the JAX package
   ``Scale``'s scalar); ``bias`` stays ``bias``;
 - ``Embed.embedding`` → ``weight``;
 - raw parameters (``positional_embedding``, ``text_projection``,
-  ``relative_position_bias_table``, ``zs_weight``, ``bg_bias``, …) as they are.
+  ``relative_position_bias_table``, ``zs_weight``, ``bg_bias``, …) as they are;
+- flax ``batch_stats`` (``nn.BatchNorm``'s ``mean`` and ``var``) → the
+  ``running_mean`` and ``running_var`` buffers of ``layers.BatchNorm``.
 
 Real checkpoints (diffusers, HF, openai CLIP, segment-anything, Swin,
 detectron2 detectors) load by
@@ -48,28 +50,34 @@ def _leaf(name: str, arr: np.ndarray, transposed_conv: bool = False):
 def params_from_jax(tree: Mapping[str, Any],
                     module: Optional[nn.Module] = None) -> Dict[str, torch.Tensor]:
     """Nested dicts of arrays (a flax ``init`` tree, with or without the
-    top-level ``"params"``) → flat ``{dotted name: tensor}``. ``module`` is
-    the port's module the result is meant for; it is needed when the tree
-    holds an ``nn.ConvTranspose`` kernel."""
-    if set(tree) == {"params"}:
-        tree = tree["params"]
+    top-level ``"params"``, and with its ``"batch_stats"`` beside them) →
+    flat ``{dotted name: tensor}``. ``module`` is the port's module the
+    result is meant for; it is needed when the tree holds an
+    ``nn.ConvTranspose`` kernel."""
+    stats = {}
+    if "params" in tree and set(tree) <= {"params", "batch_stats"}:
+        tree, stats = tree["params"], tree.get("batch_stats", {})
     out: Dict[str, torch.Tensor] = {}
 
-    def walk(node: Mapping[str, Any], prefix: str) -> None:
+    def walk(node: Mapping[str, Any], prefix: str, leaf) -> None:
         for name, val in node.items():
             if isinstance(val, Mapping):
-                walk(val, f"{prefix}{name}.")
+                walk(val, f"{prefix}{name}.", leaf)
                 continue
             arr = np.asarray(val)
             if arr.dtype.name == "bfloat16":
                 arr = arr.astype(np.float32)  # numpy's bfloat16 has no torch twin
             deconv = module is not None and isinstance(
                 module.get_submodule(prefix[:-1]), nn.ConvTranspose2d)
-            key, arr = _leaf(name, arr, deconv)
+            key, arr = leaf(name, arr, deconv)
             out[prefix + key] = torch.from_numpy(np.array(arr))  # a writable copy
 
-    walk(tree, "")
+    walk(tree, "", _leaf)
+    walk(stats, "", lambda name, arr, _: (_STATS[name], arr))
     return out
+
+
+_STATS = {"mean": "running_mean", "var": "running_var"}
 
 
 def tree_from_module(module: nn.Module, like: Mapping[str, Any], grad: bool = False):

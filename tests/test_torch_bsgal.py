@@ -239,7 +239,7 @@ def run_both(tiny, keys, seed=51, key_seed=10):
     metrics, model, optimizer), the initial params, cfg, lr)."""
     keys = dict(ACTIVE, **keys)
     jcfg = train_cfg(lambda: tiny._small_cfg(backbone="swin"), **keys)
-    tcfg = train_cfg(tge._small_cfg, **keys)
+    tcfg = train_cfg(lambda: tge._small_cfg(backbone="swin"), **keys)
     batch = active_batch(seed)
     key = jax.random.PRNGKey(key_seed)
     rng = np.random.RandomState(seed + 7)

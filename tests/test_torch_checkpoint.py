@@ -34,7 +34,7 @@ def setup(tmp_path_factory):
     mp = pytest.MonkeyPatch()
     mp.setitem(tswin.SIZE2CONFIG, "tiny", TINY_SWIN)
     root = tmp_path_factory.mktemp("ckpt")
-    cfg = tiny_cfg(tge._small_cfg)
+    cfg = tiny_cfg(lambda: tge._small_cfg(backbone="swin"))
     cfg.INPUT.TEST_SIZE = cfg.INPUT.MIN_SIZE_TEST = cfg.INPUT.MAX_SIZE_TEST = 64
     cfg.DATASETS.TEST = (DATASET,)
     cfg.OUTPUT_DIR = str(root / "out")

@@ -93,9 +93,13 @@ def test_small_cfg_equals_the_jax_entry():
     import importlib
 
     jentry = importlib.import_module("__graft_entry__")
-    assert graft_entry._small_cfg().dump() == jentry._small_cfg(backbone="swin").dump()
-    assert (graft_entry._small_cfg(5, "B").dump()
+    assert graft_entry._small_cfg().dump() == jentry._small_cfg().dump()
+    assert graft_entry._small_cfg().MODEL.RESNETS.DEPTH == 18
+    assert (graft_entry._small_cfg(backbone="swin").dump()
+            == jentry._small_cfg(backbone="swin").dump())
+    assert (graft_entry._small_cfg(5, "swin", "B").dump()
             == jentry._small_cfg(5, backbone="swin", swin_size="B").dump())
+    assert graft_entry._small_cfg(levels=3).dump() == jentry._small_cfg(levels=3).dump()
 
 
 def test_get_cfg_works_without_yaml(monkeypatch):

@@ -126,6 +126,26 @@ def compare_detections(got, want, mask_tol=1e-3):
                          mask_tol)
 
 
+def assert_same_parameters(jcfg, tcfg, size, training=False):
+    """The port's ``state_dict`` has exactly the names and shapes that
+    ``params_from_jax`` makes of the JAX detector's variable tree."""
+    jm = jrcnn.build_model(jcfg)
+    images = jnp.zeros((1, size, size, 3), jnp.float32)
+    sizes = jnp.asarray([[size, size]])
+    kw = dict(training=training)
+    if training:
+        jentry = importlib.import_module("__graft_entry__")
+        kw.update(gt=jentry._synth_gt(np.random.RandomState(0), 1, 8, 8, img=size),
+                  rng=jax.random.PRNGKey(0))
+    tree = jax.eval_shape(lambda k: jm.init(k, images, sizes, **kw), jax.random.PRNGKey(0))
+    tm = trcnn.build_model(tcfg, input_size=(size, size), device="meta")
+    want = params_from_jax(jax.tree.map(lambda s: np.zeros(s.shape, np.float32), dict(tree)), tm)
+    got = tm.state_dict()
+    assert sorted(got) == sorted(want)
+    assert all(tuple(got[k].shape) == tuple(want[k].shape) for k in want)
+    return tm
+
+
 # -- FPN -----------------------------------------------------------------------
 
 def test_fpn():
@@ -272,13 +292,21 @@ def test_roi_heads_config_and_not_yet_ported():
     from divergen_tpu_torch.config import get_cfg as tget
 
     assert tch.ROIHeadsConfig.from_cfg(tget()).__dict__ == jch.ROIHeadsConfig.from_cfg(jget()).__dict__
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        tch.CascadeROIHeads(tch.ROIHeadsConfig(mask_head_name="RefineMaskHead"), 16)
+    # RefineMaskHead is ported: the heads' parameters are the JAX tree's
+    feats, props, sizes = roi_inputs(3)
+    kw = dict(ROI, mask_head_name="RefineMaskHead", mask_conv_dim=32)
+    jm = jch.CascadeROIHeads(jch.ROIHeadsConfig(**kw))
+    tree = jax.eval_shape(lambda k: jm.init(k, *(jax.tree.map(jnp.asarray, a) for a in (
+        feats, props, sizes)), method=jm.inference), jax.random.PRNGKey(0))
+    refine = tch.CascadeROIHeads(tch.ROIHeadsConfig(**kw), 16, device="meta")
+    want = params_from_jax(jax.tree.map(lambda x: np.zeros(x.shape, np.float32), dict(tree)),
+                           refine)
+    assert sorted(refine.state_dict()) == sorted(want)
+    assert {k.split(".")[0] for k in want} >= {"mask_head", "semantic_branch"}
     heads = tch.CascadeROIHeads(tch.ROIHeadsConfig(**ROI), 16)
     with pytest.raises(NotImplementedError, match="not yet ported"):
         heads.image_label_losses()
     # ``losses`` is ported: the loss dict of the JAX package, finite
-    feats, props, sizes = roi_inputs(3)
     gt = {"boxes": t(props["boxes"][:, :4]), "classes": torch.tensor([[0, 1, 2, 3]] * 2),
           "valid": torch.ones(2, 4, dtype=torch.bool), "masks": torch.ones(2, 4, 28, 28)}
     losses = heads.losses(torch.Generator().manual_seed(0), {k: t(v) for k, v in feats.items()},
@@ -320,7 +348,7 @@ def detector_case():
                                        training=False), rng)
         want = jax.jit(lambda p, a, s: jm.apply(p, a, s, training=False, return_logits=True))(
             params, jnp.asarray(images), jnp.asarray(sizes))
-        tm = load(trcnn.build_model(tiny_cfg(tge._small_cfg), input_size=CANVAS), params)
+        tm = load(trcnn.build_model(tiny_cfg(lambda: tge._small_cfg(backbone="swin")), input_size=CANVAS), params)
         yield jm, params, jax.tree.map(np.asarray, want), tm, images, sizes
     finally:
         mp.undo()
@@ -353,15 +381,17 @@ def test_custom_rcnn_not_yet_ported(detector_case):
            ann_type="image")
     losses = tm(t(images), t(sizes), gt=gt, rng=torch.Generator().manual_seed(0), training=True)
     assert len(losses) == 10 and all(torch.isfinite(v) for v in losses.values())
-    cfg = tge._small_cfg()
-    for key, value in (("MODEL.BACKBONE.NAME", "build_p67_timm_fpn_backbone"),
-                       ("MODEL.BACKBONE.NAME", "build_p37_swin_bifpn_backbone"),
-                       ("MODEL.META_ARCHITECTURE", "CenterNetDetector"),
-                       ("MODEL.ROI_HEADS.NAME", "CustomRes5ROIHeads")):
-        bad = cfg.clone()
-        bad.merge_from_list([key, value])
-        with pytest.raises(NotImplementedError, match="not yet ported"):
-            trcnn.build_model(bad)
+    # every other architecture builds, with the JAX detector's parameter names
+    jentry = importlib.import_module("__graft_entry__")
+    for key, value, size in (("MODEL.BACKBONE.NAME", "build_p67_timm_fpn_backbone", 64),
+                             ("MODEL.BACKBONE.NAME", "build_p37_swin_bifpn_backbone", 128),
+                             ("MODEL.META_ARCHITECTURE", "CenterNetDetector", 64),
+                             ("MODEL.ROI_HEADS.NAME", "CustomRes5ROIHeads", 64)):
+        jcfg, tcfg = jentry._small_cfg(), tge._small_cfg()
+        for cfg in (jcfg, tcfg):
+            cfg.merge_from_list([key, value])
+        built = assert_same_parameters(jcfg, tcfg, size, training=value == "CustomRes5ROIHeads")
+        assert hasattr(built, "roi_heads") == (value != "CenterNetDetector")
 
 
 def test_reset_cls_test_and_zero_shot_classifier(tmp_path):

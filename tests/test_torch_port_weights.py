@@ -348,7 +348,7 @@ def tiny_detector(monkeypatch):
 
     def make(zeroshot=False):
         monkeypatch.setitem(tswin.SIZE2CONFIG, "tiny", SWIN_TINY)
-        cfg = graft_entry._small_cfg(swin_size="tiny")
+        cfg = graft_entry._small_cfg(backbone="swin", swin_size="tiny")
         cfg.MODEL.FPN.OUT_CHANNELS = 32
         cfg.MODEL.ROI_BOX_HEAD.FC_DIM = 64
         cfg.MODEL.ROI_MASK_HEAD.CONV_DIM = 16
@@ -390,6 +390,63 @@ def test_detector_checkpoint_loads(tiny_detector, zeroshot):
     if zeroshot:
         np.testing.assert_array_equal(state["roi_heads.box_predictor2.zs_weight"],
                                       sd["roi_heads.box_predictor.2.cls_score.zs_weight"][:, :-1])
+
+
+def synthetic_r50_keys(rng):
+    """``backbone.bottom_up`` keys of a detectron2 ResNet-50 at full width
+    (BasicStem, stages of 3 / 4 / 6 / 3 bottlenecks, FrozenBN without running
+    statistics, as the MIIL-21k detectors store it); ``rng`` a numpy
+    ``Generator``."""
+    sd = {}
+    f = lambda *s: rng.standard_normal(s, dtype=np.float32) * np.float32(0.05)
+
+    def conv_bn(name, out_c, in_c, k):
+        sd[f"{name}.weight"] = f(out_c, in_c, k, k)
+        sd[f"{name}.norm.weight"], sd[f"{name}.norm.bias"] = f(out_c) + 1.0, f(out_c)
+
+    conv_bn("stem.conv1", 64, 3, 7)
+    cin = 64
+    for s, (n, out_c) in enumerate(zip((3, 4, 6, 3), (256, 512, 1024, 2048)), start=2):
+        for i in range(n):
+            mid = out_c // 4
+            for c, (o, ic, k) in dict(conv1=(mid, cin, 1), conv2=(mid, mid, 3),
+                                      conv3=(out_c, mid, 1)).items():
+                conv_bn(f"res{s}.{i}.{c}", o, ic, k)
+            if i == 0:
+                conv_bn(f"res{s}.{i}.shortcut", out_c, cin, 1)
+            cin = out_c
+    return {"backbone.bottom_up." + k: v for k, v in sd.items()}
+
+
+def test_d2_r50_detector_loads_into_bsgal_r50():
+    """configs/BSGAL_R50.yaml builds ResNet-50 + FPN + CenterNet2 + the Detic
+    cascade at full width (1203 classes, bfloat16 compute); a detectron2-format
+    checkpoint of that detector fills every entry of its ``state_dict``, and
+    nothing in the checkpoint is skipped."""
+    import os
+
+    from divergen_tpu_torch.config import get_cfg
+    from divergen_tpu_torch.modeling.backbone.resnet import ResNet
+    from divergen_tpu_torch.modeling.meta_arch.rcnn import build_model
+
+    cfg = get_cfg()
+    cfg.merge_from_file(os.path.join(os.path.dirname(__file__), "..", "configs", "BSGAL_R50.yaml"))
+    model = build_model(cfg, device="cpu", param_dtype=torch.float32)
+    assert model.backbone_name == "resnet50" and isinstance(model.bottom_up, ResNet)
+    assert model.compute_dtype == torch.bfloat16 and model.roi_cfg.num_classes == 1203
+    rng = np.random.RandomState(11)
+    r50 = synthetic_r50_keys(np.random.default_rng(11))
+    sd = synthetic_detector_state_dict(rng, r50, (512, 1024, 2048), fpn=256,
+                                       fc=1024, mask_dim=256, classes=1203)
+    loaded, skipped = ttw.load_d2_detector_into(model, sd, cfg)
+    assert skipped == [] and loaded == sorted(model.state_dict())
+    state = model.state_dict()
+    np.testing.assert_array_equal(state["bottom_up.res4_block5.conv2.conv.weight"].numpy(),
+                                  sd["backbone.bottom_up.res4.5.conv2.weight"])
+    np.testing.assert_array_equal(state["bottom_up.res3_block0.shortcut.FrozenBatchNorm_0.bias"],
+                                  sd["backbone.bottom_up.res3.0.shortcut.norm.bias"])
+    np.testing.assert_array_equal(state["fpn.lateral_res5.conv.weight"].numpy(),
+                                  sd["backbone.fpn_lateral5.weight"])
 
 
 def test_swin_checkpoint_loads_and_mismatches_are_skipped(tiny_detector, tmp_path):

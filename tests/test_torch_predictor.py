@@ -49,7 +49,7 @@ def cfg_pair(test_size, min_size, max_size):
     """(port cfg, JAX cfg) of the tiny Swin detector at one test canvas."""
     jentry = importlib.import_module("__graft_entry__")
     out = []
-    for cfg in (tiny_cfg(tge._small_cfg), tiny_cfg(lambda: jentry._small_cfg(backbone="swin"))):
+    for cfg in (tiny_cfg(lambda: tge._small_cfg(backbone="swin")), tiny_cfg(lambda: jentry._small_cfg(backbone="swin"))):
         cfg.INPUT.TEST_SIZE = test_size
         cfg.INPUT.MIN_SIZE_TEST, cfg.INPUT.MAX_SIZE_TEST = min_size, max_size
         cfg.PARALLEL.DATA_PARALLEL = 1

@@ -172,8 +172,18 @@ def test_centernet_losses(loc_loss_type):
     total_of(got).backward()
     for g, w in zip((ta.grad, tr.grad), want_g):
         assert np.abs(g.numpy() - np.asarray(w)).max() <= 1e-4 * np.abs(np.asarray(w)).max()
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        tcn.centernet_losses(tcn.CenterNetConfig(not_norm_reg=False), ta, tr,
+    # NOT_NORM_REG false (the heatmap-weighted regression) is ported; the JAX
+    # function's max over the last axis of the (B, M) heatmap runs at B = 1,
+    # and the port raises at other B
+    kw["not_norm_reg"] = False
+    one = [np.asarray(x)[:1] for x in targets]
+    want = jcn.centernet_losses(jcn.CenterNetConfig(**kw), jnp.asarray(agn[:1]),
+                                jnp.asarray(reg[:1]), *(jnp.asarray(x) for x in one))
+    got = tcn.centernet_losses(tcn.CenterNetConfig(**kw), t(agn[:1]), t(reg[:1]),
+                               *(t(x) for x in one))
+    assert_losses_close(got, want)
+    with pytest.raises(ValueError, match="only at B = 1"):
+        tcn.centernet_losses(tcn.CenterNetConfig(**kw), ta, tr,
                              *(t(np.asarray(x)) for x in targets))
 
 
@@ -446,7 +456,7 @@ def test_custom_rcnn_training_losses_and_gradients(tiny_swin, variant):
 
     (_, want), want_g = jax.jit(jax.value_and_grad(jloss, has_aux=True))(params)
 
-    tm = trcnn.build_model(train_cfg(tge._small_cfg, **keys), input_size=CANVAS)
+    tm = trcnn.build_model(train_cfg(lambda: tge._small_cfg(backbone="swin"), **keys), input_size=CANVAS)
     tm.load_state_dict(params_from_jax(params, tm), strict=variant != "gt as proposals")
     tm.train()
     classes = 5 if variant == "dynamic classifier" else 8
@@ -477,7 +487,7 @@ def test_custom_rcnn_training_losses_and_gradients(tiny_swin, variant):
 
 def test_training_forward_refuses_what_is_not_ported(tiny_swin):
     images, sizes, gt, fed = detector_batch(33)
-    tm = trcnn.build_model(train_cfg(tge._small_cfg), input_size=CANVAS)
+    tm = trcnn.build_model(train_cfg(lambda: tge._small_cfg(backbone="swin")), input_size=CANVAS)
     gen = torch.Generator().manual_seed(0)
     with pytest.raises(NotImplementedError, match="not yet ported"):
         tm(t(images), t(sizes), gt=torch_gt(gt), rng=gen, training=True, ann_type="image")

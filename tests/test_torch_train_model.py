@@ -86,7 +86,7 @@ def test_set_param_dtype_moves_storage_and_keeps_the_compute_dtype():
 
 def narrow_cfg(fp16):
     tswin.SIZE2CONFIG["narrow"] = (32, (2, 1, 1, 1), (1, 2, 4, 8), 4, 0.0)
-    cfg = tge._small_cfg(swin_size="narrow")
+    cfg = tge._small_cfg(backbone="swin", swin_size="narrow")
     cfg.FP16 = fp16
     return cfg
 

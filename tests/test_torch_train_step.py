@@ -288,7 +288,7 @@ def test_make_train_step_two_steps(tiny_swin):
     rng = np.random.RandomState(42)
     key = jax.random.PRNGKey(8)
     jcfg = train_cfg(lambda: tiny_swin._small_cfg(backbone="swin"), **SOLVER)
-    tcfg = train_cfg(tge._small_cfg, **SOLVER)
+    tcfg = train_cfg(lambda: tge._small_cfg(backbone="swin"), **SOLVER)
     jm = jrcnn.build_model(jcfg)
     params = randomized(shape_init(jm, jnp.asarray(images), jnp.asarray(sizes), gt=jx(gt), rng=key,
                                    fed_weight=jnp.asarray(fed), training=True), rng)
@@ -351,7 +351,7 @@ def test_make_paste_train_step(tiny_swin, tmp_path):
                            "DATALOADER.PATCH_SIZE": 16,
                            "MODEL.ROI_BOX_HEAD.CAT_FREQ_PATH": str(freq)})
     jcfg = train_cfg(lambda: tiny_swin._small_cfg(backbone="swin"), **keys)
-    tcfg = train_cfg(tge._small_cfg, **keys)
+    tcfg = train_cfg(lambda: tge._small_cfg(backbone="swin"), **keys)
     p, ps = 3, 16
     xy = rng.rand(2, p, 2) * 30
     batch = {
