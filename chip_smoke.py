@@ -128,6 +128,15 @@ Run from the root of a checkout:  python3 chip_smoke.py
    kernels forward and backward at d = 16 in bf16 and d = 64 in float32.
    Then the six forward-only wrappers (and kernel 8) under
    ``torch.enable_grad()`` on CUDA inputs that require grad: each must raise.
+   Then kernels 1, 2 and 3 at the x4 upscaler's shapes
+   (``upscaler_kernel_phases``): kernel 1 at (4, 16384, 512, 8), (4, 4096,
+   512, 8) and (4, 1024, 1024, 16), kernel 2's GEGLU at (65536, 512, 4096),
+   (16384, 512, 4096) and (4096, 1024, 8192), kernel 3 at the x4 VAE's (2,
+   65536, 512), each against its float32 twin computed a block of queries at
+   a time (the usual bounds), the same bits twice, with its device time
+   beside the PyTorch call's (SDPA, memory-efficient at d = 512; the LayerNorm
+   + linear + GEGLU call) and the bound, kernels 1 and 2 summed over an
+   upscaler UNet call's 16 launches.
 4. Small models: a narrow UNet (d = 64 self-attention, GEGLU), a VAE decoder
    with a d = 512 mid attention, and a narrow SAM whose global layer runs the
    relative-position kernel at d = 80, bf16 on the card through the kernels,
@@ -192,6 +201,25 @@ Run from the root of a checkout:  python3 chip_smoke.py
    exactly 382 / 130 / 210 / 12 / 34 launches of kernels 11 / 10 / 9 / 7 / 8.
    Then a CFG step of the bf16 and of the fused-ResBlock pipeline in turns
    (medians of 3).
+6d. Slice of the IF cascade and the x4 upscaler at full width, bf16, seeded
+   random weights, launch counters reset just before it
+   (``slice_if_cascade``): (a) ``IFStageIPipeline(IFUNet.if_i_xl())``, B = 2,
+   4 steps at 64², then ``IFStageIIPipeline(IFUNet.if_ii_l())`` on its output,
+   4 steps to 256² (images finite in [-1, 1], no kernel launch: the IF
+   attentions are plain in both packages); (b) ``UpscalePipeline(
+   upscaler_unet())`` with its three-level VAE on the 256² images, 2 steps
+   and the x4 decode to 1024² (exactly 16 + 16 launches of kernels 1 and 2 a
+   UNet call, one of kernel 3: the batch decodes at once); (c)
+   ``txt2img.main`` with ``--stages I II``, ``--stages XL x4`` at 256² and
+   ``--encoder_reuse`` at 512², each file read back at its size, exact
+   launches; (d) ``SDXLPipeline(encoder_reuse=True)`` with 5(b)'s weights,
+   conditioning and noise: exactly 70 and 46 launches of kernels 1 and 2 on
+   full and reuse UNet calls in turn, the images' mean |diff| from 5(b)'s
+   printed; (e) ``txt2img --tiny``'s stage-I UNet in float32, three steps on
+   the card against the CPU with the same per-step noise (within 1e-4 of the
+   [-1, 1] range). Then the timings: a CFG step of stage I and of stage II,
+   an upscaler UNet call and the x4 decode (medians of 3), and SDXL's CFG step
+   with and without encoder reuse in turns (medians of 3).
 7. Slice of the detector's train step, launch counters reset just before it:
    ``graft_entry.flagship_train_entry()``: Swin-L, 1453 classes, 896²,
    B = 2, bf16 compute over float32 parameters, AdamW with clipping, EMA, the
@@ -4039,6 +4067,353 @@ def slice_architectures(card: str, tmp: str, snapshot) -> None:
     print(json.dumps(metrics), flush=True)
 
 
+# ---- the IF cascade and the x4 upscaler --------------------------------------
+IF_STEPS = 4  # of stage I and of stage II, B = 2 images (UNet batch 4: CFG)
+UPSCALE_STEPS = 2  # of the x4 upscaler on the 256² stage-II images
+# kernels 1 and 2 per x4-upscaler UNet call (UNet batch 4 at a 256² latent
+# grid): (B, N, C, heads) of each self-attention and (M, K, N) of each GEGLU,
+# levels 1, 2 and 3 (2 down + 3 up, 2 + 3, 2 + 3 + mid)
+UPSCALER_ATTN_LAUNCHES = {(4, 16384, 512, 8): 5, (4, 4096, 512, 8): 5, (4, 1024, 1024, 16): 6}
+UPSCALER_GEGLU_LAUNCHES = {(65536, 512, 4096): 5, (16384, 512, 4096): 5, (4096, 1024, 8192): 6}
+UPSCALER_CALL = {"flash_attention_packed": 16, "fused_ln_matmul": 16}
+# kernels 1 and 2 per SDXL UNet call under encoder reuse: a full step, a
+# reuse step (the 24 transformer blocks of the down path skipped)
+REUSE_LAUNCHES = (70, 46)
+IF_RANGE_BOUND = 1e-4 * 2  # of the [-1, 1] range: the float32 tiny stage I, card vs CPU
+
+
+def packed_twin(qkv: torch.Tensor, heads: int, rows: int = 4096) -> torch.Tensor:
+    """``reference_attention_packed`` in float32, one batch element and
+    ``rows`` queries at a time: a whole call's scores do not fit the card at
+    the upscaler's 16384 tokens."""
+    from divergen_tpu_torch.ops.flash_attention import reference_attention
+
+    b, n, c3 = qkv.shape
+    c = c3 // 3
+    out = torch.empty((b, n, c), device=qkv.device)
+    for i in range(b):
+        q, k, v = (qkv[i, :, s * c:(s + 1) * c].float().reshape(n, heads, -1).transpose(0, 1)
+                   for s in range(3))
+        for r in range(0, n, rows):
+            out[i, r:r + rows] = reference_attention(q[:, r:r + rows], k, v).transpose(
+                0, 1).reshape(-1, c)
+    return out
+
+
+def bhsd_twin(q, k, v, rows: int = 4096) -> torch.Tensor:
+    """``reference_attention`` in float32, ``rows`` queries at a time (65536²
+    float32 scores are 17 GB a head)."""
+    from divergen_tpu_torch.ops.flash_attention import reference_attention
+
+    out = torch.empty(q.shape, device=q.device)
+    for r in range(0, q.shape[1], rows):
+        out[:, r:r + rows] = reference_attention(q[:, r:r + rows].float(), k.float(), v.float())
+    return out
+
+
+def upscaler_kernel_phases(gen: torch.Generator, card: str, results: dict) -> None:
+    """Kernels 1, 2 and 3 at the x4 upscaler's shapes (256² → 1024², B = 2):
+    each against its float32 twin (computed a block of queries at a time),
+    the same bits twice, its device time beside the PyTorch call's and the
+    bound, and kernels 1 and 2 summed over an upscaler UNet call's 16
+    launches each."""
+    import divergen_tpu_torch.ops.flash_attention as fa_mod
+    import divergen_tpu_torch.ops.ln_matmul as ln_mod
+
+    dev = torch.device("cuda")
+
+    def randn(*shape, scale=1.0):
+        return (torch.randn(shape, generator=gen, device=dev) * scale).bfloat16()
+
+    def fold(kernel, err):
+        results[kernel]["max_abs_err"] = max(results[kernel]["max_abs_err"], err)
+
+    def report(what, run, library, ops, nbytes, launches, sums):
+        dev_ms = device_ms(run, reps=5)
+        lib_ms = device_ms(library, reps=5) if library is not None else float("nan")
+        b_ms, by = bound(ops, nbytes)
+        for key, t in (("kernel", dev_ms), ("PyTorch call", lib_ms), ("bound", b_ms)):
+            sums[key] = sums.get(key, 0.0) + t * launches
+        log(f"    {what}: device {dev_ms:.4f} ms ({ops / dev_ms / 1e9:.0f} TFLOP/s), PyTorch "
+            f"call {lib_ms:.4f} ms, bound {b_ms:.4f} ms by {by}; {launches} launches per "
+            f"upscaler UNet call [{card}]")
+
+    log("kernel phase: flash_attention_packed at the x4 upscaler's shapes")
+    sums = {}
+    for (b, n, c, h), launches in UPSCALER_ATTN_LAUNCHES.items():
+        qkv = randn(b, n, 3 * c)
+        run = lambda: fa_mod.flash_attention_packed(qkv, h, softmax_mode="rawmax")
+        got = run()
+        name = f"packed B={b} N={n} C={c} H={h} bf16 (x4 upscaler)"
+        fold("flash_attention_packed", compare(name, got, packed_twin(qkv, h)))
+        same_bits(name, got, run)
+        q4, k4, v4 = (t.reshape(b, n, h, c // h).transpose(1, 2).contiguous()
+                      for t in qkv.chunk(3, dim=-1))
+        report("upscaler shape", run, lambda: F.scaled_dot_product_attention(q4, k4, v4),
+               4.0 * b * h * n * n * (c // h), 2.0 * b * n * 4 * c, launches, sums)
+        del qkv, q4, k4, v4, got
+        torch.cuda.empty_cache()
+    log(f"  flash_attention_packed over an upscaler UNet call's {UPSCALER_CALL['flash_attention_packed']} "
+        f"launches: kernel {sums['kernel']:.3f} ms, SDPA {sums['PyTorch call']:.3f} ms, bound "
+        f"{sums['bound']:.3f} ms [{card}]")
+
+    log("kernel phase: fused_ln_matmul (GEGLU) at the x4 upscaler's shapes")
+    sums = {}
+    for (m, k, n), launches in UPSCALER_GEGLU_LAUNCHES.items():
+        x, w = randn(m, k, scale=2.0), randn(n, k, scale=k ** -0.5).t()
+        gamma = 1.0 + 0.1 * torch.randn(k, generator=gen, device=dev)
+        beta = 0.1 * torch.randn(k, generator=gen, device=dev)
+        bias = 0.1 * torch.randn(n, generator=gen, device=dev)
+        run = lambda: ln_mod.fused_ln_matmul(x, w, gamma, beta, 1e-5, bias, True)
+        got = run()
+        name = f"ln_matmul geglu M={m} K={k} N={n} bf16 (x4 upscaler)"
+        ref = ln_mod.ln_matmul_reference(x.float(), w.float(), gamma, beta, 1e-5, bias, True)
+        fold("fused_ln_matmul", compare(name, got, ref))
+        del ref
+        same_bits(name, got, run)
+        gl, bl, wt, bias_l = gamma.bfloat16(), beta.bfloat16(), w.t(), bias.bfloat16()
+
+        def library():
+            hidden, gate = F.linear(F.layer_norm(x, (k,), gl, bl, 1e-5), wt, bias_l).chunk(2, -1)
+            return hidden * F.gelu(gate)
+
+        report("upscaler shape", run, library, 2.0 * m * k * n,
+               2.0 * (m * k + k * n + m * n // 2) + 8.0 * k + 4.0 * n, launches, sums)
+        del x, w, got
+        torch.cuda.empty_cache()
+    log(f"  fused_ln_matmul over an upscaler UNet call's {UPSCALER_CALL['fused_ln_matmul']} "
+        f"launches: kernel {sums['kernel']:.3f} ms, PyTorch call {sums['PyTorch call']:.3f} ms, "
+        f"bound {sums['bound']:.3f} ms [{card}]")
+
+    log("kernel phase: flash_attention at the x4 VAE's mid attention, (2, 65536, 512)")
+    bh, s, d = 2, 65536, 512
+    q, k, v = randn(bh, s, d), randn(bh, s, d), randn(bh, s, d)
+    run = lambda: fa_mod.flash_attention(q, k, v)
+    got = run()
+    name = f"flash BH={bh} Sq={s} Sk={s} D={d} bf16 (x4 VAE)"
+    fold("flash_attention", compare(name, got, bhsd_twin(q, k, v)))
+    same_bits(name, got, run)
+    library = None
+    try:  # the memory-efficient SDPA takes d = 512; the math one would not fit
+        from torch.nn.attention import SDPBackend, sdpa_kernel
+
+        q4, k4, v4 = q[None], k[None], v[None]
+
+        def library():
+            with sdpa_kernel([SDPBackend.EFFICIENT_ATTENTION]):
+                return F.scaled_dot_product_attention(q4, k4, v4)
+
+        library()
+    except RuntimeError as err:
+        log(f"    PyTorch call: SDPA has no kernel for this shape here ({str(err)[:120]})")
+        library = None
+    report("x4 VAE shape", run, library, 4.0 * bh * s * s * d, 2.0 * bh * d * 2 * (s + s), 1, {})
+    del q, k, v, got
+    torch.cuda.empty_cache()
+
+
+def hash_states(prompts, width: int) -> torch.Tensor:
+    """The CLI's hash-seeded text states (no text checkpoint), on the card."""
+    from divergen_tpu_torch.pipeline.generation.txt2img import encode_prompts_random
+
+    return encode_prompts_random(prompts, width).cuda()
+
+
+def expect_launches(what: str, before: dict, snapshot, want: dict) -> None:
+    got = launched_since(before, snapshot)
+    want = {k: n for k, n in want.items() if n}
+    if got != want:
+        raise AssertionError(f"{what}: launches {got}, expected {want}")
+    log(f"  {what}: launches as expected, {want or 'none'}")
+
+
+def check_images(what: str, imgs: torch.Tensor, shape, lo: float, hi: float) -> None:
+    if tuple(imgs.shape) != shape:
+        raise AssertionError(f"{what}: images {tuple(imgs.shape)}, expected {shape}")
+    if not torch.isfinite(imgs).all() or imgs.min() < lo or imgs.max() > hi:
+        raise AssertionError(f"{what}: images not finite in [{lo}, {hi}]")
+    log(f"  {what}: images {shape}, finite, range [{imgs.min().item():.3f}, "
+        f"{imgs.max().item():.3f}], std {imgs.float().std().item():.4f}")
+
+
+def tiny_if_card_vs_cpu() -> None:
+    """``txt2img --tiny``'s stage-I UNet in float32, three steps of
+    ``IFStageIPipeline.denoise`` on the card and on the CPU from the same
+    weights, latents, contexts and per-step noise."""
+    from divergen_tpu_torch.modeling.layers import flax_init_
+    from divergen_tpu_torch.pipeline.generation.if_unet import IFStageIPipeline, IFUNet
+
+    tiny = dict(channels=(8, 16), layers_per_block=1, encoder_dim=16, head_dim=4, pool_heads=2)
+    cpu = flax_init_(IFUNet(**tiny), torch.Generator().manual_seed(5))
+    card = IFUNet(**tiny, device="cuda")
+    card.load_state_dict(cpu.state_dict())
+    rng = np.random.RandomState(0)
+    lat = rng.randn(2, 16, 16, 3).astype(np.float32)
+    ctx2 = rng.randn(4, 5, 16).astype(np.float32)
+    noises = [rng.randn(2, 16, 16, 3).astype(np.float32) for _ in range(3)]
+    outs = []
+    for unet in (cpu, card):
+        dev = unet.conv_out.weight.device
+        pipe = IFStageIPipeline(unet, steps=3)
+        pipe.step_noise = lambda g, shape, i, dev=dev: torch.from_numpy(noises[i]).to(dev)
+        outs.append(pipe.denoise(torch.from_numpy(lat).to(dev), torch.from_numpy(ctx2).to(dev),
+                                 None).cpu())
+    err = (outs[1] - outs[0]).abs().max().item()
+    log(f"  float32 tiny stage I, 3 steps, card vs CPU: max |diff| {err:.3g} "
+        f"(bound {IF_RANGE_BOUND:g}, 1e-4 of the [-1, 1] range)")
+    if not err <= IF_RANGE_BOUND:
+        raise AssertionError(f"tiny stage I on the card differs from the CPU by {err}")
+
+
+def slice_if_cascade(card: str, tmp: str, pipe, cond, bf16_images, snapshot):
+    """The IF cascade and the x4 upscaler at full width, bf16, seeded random
+    weights, B = 2, then the CLI's IF, x4 and encoder-reuse paths and SDXL
+    with encoder reuse. Exact launches per part. Returns the timings, to be
+    run after the slice's counts are read."""
+    from divergen_tpu_torch.modeling.layers import flax_init_
+    from divergen_tpu_torch.pipeline.generation import txt2img
+    from divergen_tpu_torch.pipeline.generation.if_unet import (IFStageIIPipeline,
+                                                                 IFStageIPipeline, IFUNet)
+    from divergen_tpu_torch.pipeline.generation.pipeline import SDXLPipeline
+    from divergen_tpu_torch.pipeline.generation.upscale import UpscalePipeline, upscaler_unet
+    from divergen_tpu_torch.pipeline.generation.vae import VAEDecoder
+    from divergen_tpu_torch.utils.png import read_png
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev)
+    prompts = ["a photo of a single red apple", "a photo of a single wooden chair"]
+    ctx, unc = hash_states(prompts, 4096), hash_states([""] * 2, 4096)
+    stage_ms = {}
+    img = None
+    for stage, build, seed in (("I", IFUNet.if_i_xl, 10), ("II", IFUNet.if_ii_l, 11)):
+        t0 = time.perf_counter()
+        unet = flax_init_(build(device=dev), gen.manual_seed(seed))
+        n_params = sum(p.numel() for p in unet.parameters())
+        torch.cuda.reset_peak_memory_stats()
+        before = snapshot()
+        if stage == "I":
+            p = IFStageIPipeline(unet, steps=IF_STEPS)
+            run = lambda: p.generate(gen.manual_seed(20), ctx, unc)
+            shape = (2, 64, 64, 3)
+        else:
+            p = IFStageIIPipeline(unet, steps=IF_STEPS)
+            low = img
+            run = lambda: p.generate(gen.manual_seed(21), low, ctx, unc)
+            shape = (2, 256, 256, 3)
+        img = run()
+        torch.cuda.synchronize()
+        check_images(f"IF stage {stage} ({n_params / 1e9:.3f} B parameters, {IF_STEPS} steps, "
+                     f"built and run in {time.perf_counter() - t0:.1f} s)", img, shape, -1, 1)
+        expect_launches(f"IF stage {stage}", before, snapshot, {})
+        stage_ms[stage] = 1e3 * wall_s(run) / IF_STEPS
+        log(f"  IF stage {stage}: {stage_ms[stage]:.1f} ms a CFG step (B = 2, UNet batch 4, "
+            f"{shape[1]}²), peak {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB [{card}]")
+        del p, unet, run
+        torch.cuda.empty_cache()
+
+    unet = flax_init_(upscaler_unet(dtype=torch.bfloat16, device=dev), gen.manual_seed(12))
+    vae = flax_init_(VAEDecoder(channels=(128, 256, 512), dtype=torch.bfloat16, device=dev),
+                     gen.manual_seed(13))
+    up = UpscalePipeline(unet, vae, steps=UPSCALE_STEPS)
+    uctx, uunc = hash_states(prompts, 1024), hash_states([""] * 2, 1024)
+    low = (img + 1.0) * 127.5
+    before = snapshot()
+    out = up.upscale(gen.manual_seed(22), low, uctx, uunc)
+    torch.cuda.synchronize()
+    check_images(f"UpscalePipeline(upscaler_unet()), {UPSCALE_STEPS} steps + x4 decode", out,
+                 (2, 1024, 1024, 3), 0, 255)
+    expect_launches("UpscalePipeline", before, snapshot,
+                    {**{k: n * UPSCALE_STEPS for k, n in UPSCALER_CALL.items()},
+                     "flash_attention": 1})
+    del out, img
+    torch.cuda.empty_cache()
+
+    log("  the CLI: txt2img.main --stages I II; --stages XL x4 at 256²; --encoder_reuse at 512²")
+    call = {k: n for k, n in UPSCALER_CALL.items()}
+    full, reuse = REUSE_LAUNCHES
+    cases = (
+        (["--stages", "I", "II", "--steps", str(IF_STEPS)], {"I": 64, "II": 256}, {}),
+        (["--stages", "XL", "x4", "--height", "256", "--width", "256", "--steps", str(STEPS),
+          "--sampler", "dpmpp_2m"], {"XL": 256, "x4": 1024},
+         {k: full * STEPS + n * max(STEPS // 2, 2) for k, n in call.items()}
+         | {"flash_attention": 2 + 1}),
+        (["--encoder_reuse", "--height", "512", "--width", "512", "--steps", str(STEPS),
+          "--sampler", "dpmpp_2m"], {"XL": 512},
+         {k: (full + reuse) * STEPS // 2 for k in call} | {"flash_attention": 2}),
+    )
+    for i, (extra, sizes, want) in enumerate(cases):
+        out_dir = os.path.join(tmp, f"if_cli{i}")
+        before = snapshot()
+        t0 = time.perf_counter()
+        rc = txt2img.main(["--prompt", "a photo of a single red apple", "--outdir", out_dir,
+                           "--n_samples", "2", "--max_batch_size", "2", *extra])
+        torch.cuda.synchronize()
+        if rc != 0:
+            raise AssertionError(f"txt2img.main {extra} returned {rc}")
+        for stage, size in sizes.items():
+            for name in ("prompt_0000000.png", "prompt_0000001.png"):
+                got = read_png(os.path.join(out_dir, "samples", stage, name))
+                if got.shape != (size, size, 3):
+                    raise AssertionError(f"samples/{stage}/{name}: {got.shape}")
+        log(f"  txt2img.main {' '.join(extra)}: wrote {sizes} in "
+            f"{time.perf_counter() - t0:.1f} s (model builds included)")
+        expect_launches(f"txt2img.main {' '.join(extra)}", before, snapshot, want)
+        torch.cuda.empty_cache()
+
+    ctx_x, unc_x, pooled, unc_pooled = cond
+    pipe_r = SDXLPipeline(pipe.unet, pipe.vae, steps=STEPS, sampler="dpmpp_2m",
+                          encoder_reuse=True)
+    per_call = []
+    forward = pipe.unet.forward
+
+    def counted(*args, **kw):
+        b = snapshot()
+        res = forward(*args, **kw)
+        got = launched_since(b, snapshot)
+        per_call.append((got.get("flash_attention_packed", 0), got.get("fused_ln_matmul", 0)))
+        return res
+
+    pipe.unet.forward = counted
+    try:
+        before = snapshot()
+        imgs = pipe_r.generate(torch.Generator(device=dev).manual_seed(42), ctx_x, unc_x, pooled,
+                               unc_pooled, 1024, 1024)
+        torch.cuda.synchronize()
+    finally:
+        del pipe.unet.forward
+    check_images("SDXLPipeline(encoder_reuse=True), 1024²", imgs, (2, 1024, 1024, 3), 0, 255)
+    want_calls = [(full, full) if i % 2 == 0 else (reuse, reuse) for i in range(STEPS)]
+    if per_call != want_calls:
+        raise AssertionError(f"encoder reuse: kernel 1 and 2 launches per UNet call {per_call}, "
+                             f"expected {want_calls}")
+    expect_launches("SDXLPipeline(encoder_reuse=True)", before, snapshot,
+                    {k: (full + reuse) * STEPS // 2 for k in call} | {"flash_attention": 2})
+    log(f"    per UNet call (kernel 1, kernel 2): {per_call}; mean |diff| from the exact "
+        f"pipeline's images on the same weights and noise "
+        f"{(imgs - bf16_images).abs().mean().item():.3f} of 255 (a smoke number)")
+    tiny_if_card_vs_cpu()
+
+    def timings():
+        lat0 = torch.randn((2, 256, 256, 4), generator=gen.manual_seed(23),
+                           device=dev) * up._init_scale
+        low_n = low / 127.5 - 1.0
+        call_s = statistics.median(wall_s(lambda: up.denoise(lat0, low_n, uctx, uunc))
+                                   for _ in range(3)) / UPSCALE_STEPS
+        lat = up.denoise(lat0, low_n, uctx, uunc)
+        dec_s = statistics.median(wall_s(lambda: up.decode(lat)) for _ in range(3))
+        log(f"  x4 upscaler: {1e3 * call_s:.1f} ms a CFG UNet call (UNet batch 4, 256² latents), "
+            f"decode {dec_s:.3f} s for 2 images 256² → 1024², medians of 3 [{card}]")
+        plain, reused = denoise_in_turns(pipe, pipe_r, cond)
+        log(f"  SDXL CFG step (B = 2, 1024², {STEPS} steps, in turns): exact "
+            f"{1e3 * statistics.median(plain) / STEPS:.1f} ms, encoder reuse "
+            f"{1e3 * statistics.median(reused) / STEPS:.1f} ms (runs {[round(t, 4) for t in plain]}"
+            f" / {[round(t, 4) for t in reused]} s) [{card}]")
+        log(f"  IF: stage I {stage_ms['I']:.1f} ms a step, stage II {stage_ms['II']:.1f} ms a "
+            f"step [{card}]")
+
+    return timings
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -4084,6 +4459,7 @@ def main() -> int:
     log("kernel phase: the forward-only kernels under autograd")
     autograd_guard_phase()
     results.update(serving_kernel_phases(torch.Generator(device="cuda").manual_seed(1)))
+    upscaler_kernel_phases(torch.Generator(device="cuda").manual_seed(5), card, results)
     log("small models")
     small_models()
     small_float32_models()
@@ -4200,7 +4576,21 @@ def main() -> int:
     every = every_option_unet_call(pipe, cond, snapshot)
     fused = {k: fused.get(k, 0) + every.get(k, 0) for k in {**fused, **every}}
     fused_timings(pipe, pipe_f, cond, card)
-    del encoder, pipe, cond, bf16_images, pipe_f
+    del pipe_f
+    torch.cuda.empty_cache()
+
+    log("slice: the IF cascade and the x4 upscaler at full width (IF-I-XL, IF-II-L, "
+        "UpscalePipeline(upscaler_unet()) and its x4 VAE; txt2img --stages I II, --stages XL x4, "
+        "--encoder_reuse; SDXLPipeline(encoder_reuse=True))")
+    reset()
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        if_timings = slice_if_cascade(card, tmp, pipe, cond, bf16_images, snapshot)
+    cascade = read(("flash_attention_packed", "fused_ln_matmul", "flash_attention"),
+                   "the IF cascade and upscaler slice")
+    log(f"  the slice took {time.perf_counter() - t0:.1f} s before its timings")
+    if_timings()
+    del encoder, pipe, cond, bf16_images, if_timings
     torch.cuda.empty_cache()
 
     log("slice: detector train step (the Swin-L flagship at full width)")
@@ -4248,7 +4638,7 @@ def main() -> int:
     architectures = read(("fused_window_attention_packed",
                           "fused_window_attention_packed_backward"), "the architectures slice")
     launches = {}
-    for counts in (sdxl, chain, serving, fused, train, detector, detector_serving,
+    for counts in (sdxl, chain, serving, fused, cascade, train, detector, detector_serving,
                    do_train_counts, architectures):
         for k, n in counts.items():
             launches[k] = launches.get(k, 0) + n

@@ -196,6 +196,9 @@ def _launch_wgmma(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, plan: TileP
     shape (batch, rows, width) (the same tensor for a packed projection),
     into ``out``, a caller's buffer addressed by ``o_strides`` (batch, head,
     row); ``scale`` by default ``1/√d``."""
+    if max(sq, sk, math.prod(plan.items)) >= 2**31:
+        raise ValueError(f"attention of {sq} queries x {sk} keys in {plan.items} work items: "
+                         "the kernel counts rows and work items in 32-bit ints")
     lib = _build.lib()
     entry = lib.dg_flash_attention_sm90 if d == SM90_HEAD_DIM else lib.dg_flash_attention_d512
     sms = torch.cuda.get_device_properties(out.device).multi_processor_count

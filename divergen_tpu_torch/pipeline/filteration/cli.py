@@ -1,4 +1,4 @@
-"""Filtration stage CLIs (torch): four entry points sharing core.py.
+"""Filtration stage CLIs (torch): five entry points sharing core.py.
 
 Counterpart of ``divergen_tpu/pipeline/filteration/cli.py``, with the same
 flags and artifact formats plus ``--device``:
@@ -7,10 +7,16 @@ flags and artifact formats plus ``--device``:
 - ``filter_by_similarity``: avg ≥ threshold keep list
 - ``clip_score``: masked image × "a photo of a single {category}" score,
   mask whitening, per-rank partial results merged by rank 0
+- ``clean_pool``: the best segmentation method per image by CLIP score, the
+  score, area and similarity filters, the RGBA bbox crop as PNG, the pool
+  JSON that ``data/inst_pool.py`` reads (host only)
 
 Without a CLIP checkpoint the towers run on random weights: the artifact
-plumbing still runs end to end. ``clean_pool`` and ``lvis_crop`` (host-only
-image and mask-codec tools) and ``--method dinov2`` are not ported yet.
+plumbing still runs end to end. Images and masks are PNG
+(``utils/png.py``): ``clean_pool`` reads RGB and writes RGBA where the JAX
+CLI's OpenCV reads BGR and writes BGRA, so the files hold the same pixels.
+``lvis_crop`` (it reads LVIS JPEGs) and ``--method dinov2`` are not ported
+yet.
 
     python -c "from divergen_tpu_torch.pipeline.filteration.cli import \\
         extract_features as f; raise SystemExit(f())" --in_dir samples/ \\
@@ -22,8 +28,9 @@ import argparse
 import csv
 import json
 import os
+from collections import defaultdict
 from glob import glob
-from typing import Dict
+from typing import Dict, List
 
 import numpy as np
 
@@ -256,4 +263,96 @@ def clip_score(argv=None) -> int:
         with open(os.path.join(args.out_dir, "results.json"), "w") as f:
             json.dump(merged, f)
     print("clip_score done")
+    return 0
+
+
+# ---------------- 5. pool cleaner ----------------
+def resize_nearest_cv2(mask: np.ndarray, h: int, w: int) -> np.ndarray:
+    """``cv2.resize(mask, (w, h), interpolation=cv2.INTER_NEAREST)``: output
+    pixel i reads input ``min(floor(i · n_in / n_out), n_in − 1)``."""
+    rows = np.minimum(np.floor(np.arange(h) * (mask.shape[0] / h)).astype(np.int64),
+                      mask.shape[0] - 1)
+    cols = np.minimum(np.floor(np.arange(w) * (mask.shape[1] / w)).astype(np.int64),
+                      mask.shape[1] - 1)
+    return mask[rows[:, None], cols[None, :]]
+
+
+def clean_pool(argv=None) -> int:
+    p = argparse.ArgumentParser("clean_pool_if")
+    p.add_argument("--image_dir", required=True)
+    p.add_argument("--mask_dirs", nargs="+", required=True, help="per seg-method mask dirs")
+    p.add_argument("--score_jsons", nargs="+", required=True, help="per seg-method results.json")
+    p.add_argument("--out_dir", required=True)
+    p.add_argument("--out_json", required=True)
+    p.add_argument("--clip_threshold", type=float, default=0.2)
+    p.add_argument("--area_min", type=float, default=0.05)
+    p.add_argument("--area_max", type=float, default=0.95)
+    p.add_argument("--similarity_csv", default="")
+    p.add_argument("--name_to_id_json", default="", help="{category_name: cat_id}")
+    p.add_argument("--workers", type=int, default=16)
+    args = p.parse_args(argv)
+
+    from concurrent.futures import ThreadPoolExecutor
+
+    from ...utils.png import read_gray, read_rgb, write_png
+
+    scores = []
+    for sj in args.score_jsons:
+        with open(sj) as f:
+            scores.append(json.load(f))
+    keep_names = None
+    if args.similarity_csv and os.path.exists(args.similarity_csv):
+        keep_names = set()
+        with open(args.similarity_csv) as f:
+            for row in csv.reader(f):
+                if len(row) >= 2:
+                    keep_names.add(row[1])
+    name2id = {}
+    if args.name_to_id_json:
+        with open(args.name_to_id_json) as f:
+            name2id = json.load(f)
+
+    def subwork(cat, fname):
+        """The best method's mask → filters → the RGBA bbox crop."""
+        key = f"{cat}/{fname}"
+        best, best_score = -1, -1e9
+        for mi, sc in enumerate(scores):
+            if key in sc and sc[key]["clip_score"] > best_score:
+                best, best_score = mi, sc[key]["clip_score"]
+        if best < 0 or best_score < args.clip_threshold:
+            return None
+        if not args.area_min <= scores[best][key]["mask_area"] <= args.area_max:
+            return None
+        if keep_names is not None and fname not in keep_names:
+            return None
+        stem = fname.rsplit(".", 1)[0]
+        img_path = os.path.join(args.image_dir, cat, fname)
+        mask_path = os.path.join(args.mask_dirs[best], cat, stem + ".png")
+        if not (os.path.exists(img_path) and os.path.exists(mask_path)):
+            return None
+        img, mask = read_rgb(img_path), read_gray(mask_path)
+        if mask.shape[:2] != img.shape[:2]:
+            mask = resize_nearest_cv2(mask, *img.shape[:2])
+        ys, xs = np.where(mask > 127)
+        if len(ys) == 0:
+            return None
+        rgba = np.dstack([img, mask])[ys.min():ys.max() + 1, xs.min():xs.max() + 1]
+        out_cat = os.path.join(args.out_dir, cat)
+        os.makedirs(out_cat, exist_ok=True)
+        out_path = os.path.join(out_cat, stem + ".png")
+        write_png(out_path, rgba)
+        return cat, out_path
+
+    jobs = [(cat, f) for cat in sorted(os.listdir(args.image_dir))
+            for f in sorted(os.listdir(os.path.join(args.image_dir, cat)))]
+    pool: Dict[str, List[str]] = defaultdict(list)
+    with ThreadPoolExecutor(max_workers=args.workers) as ex:
+        for res in ex.map(lambda cf: subwork(*cf), jobs):
+            if res:
+                cat, path = res
+                pool[str(name2id.get(cat, cat))].append(path)
+    os.makedirs(os.path.dirname(args.out_json) or ".", exist_ok=True)
+    with open(args.out_json, "w") as f:
+        json.dump(pool, f)
+    print(f"pool: {sum(len(v) for v in pool.values())} instances, {len(pool)} categories")
     return 0

@@ -5,7 +5,10 @@ Counterpart of ``divergen_tpu/pipeline/generation/pipeline.py``. The JAX
 on the 2B-image batch [uncond | cond] and combines the two halves with the
 guidance scale. Both samplers are ported: Euler (SDXL's default) and
 DPM-Solver++ 2M. Decoding runs one image at a time, as at 1024² the
-decoder's full-resolution activations dominate memory. With ``int8`` the
+decoder's full-resolution activations dominate memory. With
+``encoder_reuse`` (Faster-Diffusion, arXiv:2312.09608) even steps run the
+whole UNet and keep its down path's features; odd steps run only mid + up on
+them with the new timestep, under either sampler. With ``int8`` the
 UNet (built with ``quant=True``) holds float weights and quantizes its
 transformer matmuls once per ``denoise`` call, before the step loop, as the
 JAX pipeline quantizes its parameter tree once per generate call.
@@ -39,8 +42,8 @@ class SDXLPipeline:
                  scheduler: Optional[SchedulerConfig] = None, steps: int = 50,
                  guidance_scale: float = 7.5, encoder_reuse: bool = False,
                  int8: bool = False, mesh=None, sampler: str = "euler"):
-        if encoder_reuse or mesh is not None:
-            raise NotImplementedError("encoder_reuse and mesh are not ported yet")
+        if mesh is not None:
+            raise NotImplementedError("mesh (a sharded batch) is not ported yet")
         if sampler not in ("euler", "dpmpp_2m"):
             raise ValueError(f"unknown sampler {sampler!r}")
         if int8 and not unet.quant:
@@ -51,6 +54,7 @@ class SDXLPipeline:
         self.sched = scheduler or make_scheduler("scaled_linear")
         self.steps = steps
         self.guidance = guidance_scale
+        self.encoder_reuse = encoder_reuse
         self.sampler = sampler
         if sampler == "dpmpp_2m":
             ts, sigmas = dpmpp_timesteps_sigmas(self.sched, steps)
@@ -79,10 +83,18 @@ class SDXLPipeline:
         pl = torch.cat([uncond_pooled, pooled], dim=0) if pooled is not None else None
         tid = torch.cat([time_ids, time_ids], dim=0) if time_ids is not None else None
         x0_prev = torch.zeros_like(latents)
+        cache = None
         for i in range(self.steps):
             x = euler_scale_input(latents, sigmas[i])
             t = ts[i].expand(latents.shape[0])
-            eps_u, eps_c = self.unet(torch.cat([x, x]), torch.cat([t, t]), ctx, pl, tid).chunk(2)
+            args = (torch.cat([x, x]), torch.cat([t, t]), ctx, pl, tid)
+            if not self.encoder_reuse:
+                eps2 = self.unet(*args)
+            elif i % 2 == 0:
+                eps2, cache = self.unet(*args, return_encoder=True)
+            else:
+                eps2 = self.unet(*args, cached_encoder=cache)
+            eps_u, eps_c = eps2.chunk(2)
             eps = (eps_u + g * (eps_c - eps_u)).to(latents.dtype)
             if self.sampler == "dpmpp_2m":
                 x0 = latents - sigmas[i] * eps

@@ -1,11 +1,14 @@
 """Diffusion noise schedules and sampler steps for the SDXL pipeline.
 
 Counterpart of ``divergen_tpu/pipeline/generation/scheduler.py``: the numpy
-sigma tables are the same code, and the steps act on torch tensors. Ported
-here: the scaled-linear schedule, Euler discrete (SDXL's default) and
-DPM-Solver++ 2M in the unscaled sigma parametrization (x = x0 + σ·ε). The
-step functions take the step index as a Python int; ``sigmas`` is a 1-D
-float32 tensor on the latents' device.
+sigma tables are the same code, and the steps act on torch tensors. The
+scaled-linear (SD/SDXL) and cosine (DeepFloyd-IF) schedules, the forward
+process ``add_noise``, DDIM (``v_prediction`` too), Euler discrete (SDXL's
+default), DPM-Solver++ 2M in the unscaled sigma parametrization (x = x0 +
+σ·ε), and the ancestral DDPM step with the learned-range variance and dynamic
+thresholding of the IF stages. The step functions take the step index (or
+the timesteps) as Python ints; ``sigmas`` is a 1-D float32 tensor on the
+latents' device.
 """
 from __future__ import annotations
 
@@ -20,19 +23,59 @@ def betas_scaled_linear(n: int = 1000, start: float = 0.00085, end: float = 0.01
     return np.linspace(start**0.5, end**0.5, n, dtype=np.float64) ** 2
 
 
+def betas_cosine(n: int = 1000, s: float = 0.008) -> np.ndarray:
+    """squaredcos_cap_v2 (DeepFloyd-IF)."""
+    t = np.arange(n + 1, dtype=np.float64) / n
+    f = np.cos((t + s) / (1 + s) * np.pi / 2) ** 2
+    betas = 1 - f[1:] / f[:-1]
+    return np.clip(betas, 0, 0.999)
+
+
 class SchedulerConfig(NamedTuple):
     alphas_cumprod: np.ndarray  # (N,)
     num_train_timesteps: int
-    prediction_type: str = "epsilon"
+    prediction_type: str = "epsilon"  # epsilon | v_prediction
 
 
 def make_scheduler(kind: str = "scaled_linear", n: int = 1000,
                    prediction_type: str = "epsilon",
                    start: float = 0.00085, end: float = 0.012) -> SchedulerConfig:
-    if kind != "scaled_linear":
-        raise NotImplementedError(f"schedule {kind!r} is not ported yet")
-    alphas_cumprod = np.cumprod(1.0 - betas_scaled_linear(n, start, end))
-    return SchedulerConfig(alphas_cumprod, n, prediction_type)
+    """``kind`` "cosine" is IF's schedule; any other is scaled-linear from
+    ``start`` to ``end``, as in the JAX package."""
+    betas = betas_cosine(n) if kind == "cosine" else betas_scaled_linear(n, start, end)
+    return SchedulerConfig(np.cumprod(1.0 - betas), n, prediction_type)
+
+
+def _abar(cfg: SchedulerConfig, t: int, like: torch.Tensor) -> torch.Tensor:
+    """ᾱ_t as a float32 0-d tensor on ``like``'s device; 1 for t < 0 (the
+    step after the last)."""
+    value = np.float32(cfg.alphas_cumprod[t]) if t >= 0 else np.float32(1.0)
+    return torch.tensor(value, dtype=torch.float32, device=like.device)
+
+
+def add_noise(cfg: SchedulerConfig, sample: torch.Tensor, noise: torch.Tensor,
+              t: int) -> torch.Tensor:
+    """DDPMScheduler.add_noise: sqrt(ᾱ_t)·x + sqrt(1-ᾱ_t)·ε."""
+    ac = _abar(cfg, int(t), sample)
+    return torch.sqrt(ac) * sample + torch.sqrt(1.0 - ac) * noise
+
+
+# ---------------- DDIM ----------------
+def ddim_timesteps(cfg: SchedulerConfig, steps: int) -> np.ndarray:
+    ratio = cfg.num_train_timesteps // steps
+    return (np.arange(steps) * ratio).round()[::-1].astype(np.int64)
+
+
+def ddim_step(cfg: SchedulerConfig, latents: torch.Tensor, eps: torch.Tensor, t: int,
+              t_prev: int, eta: float = 0.0) -> torch.Tensor:
+    """Deterministic DDIM from timestep ``t`` to ``t_prev`` (< 0: the end)."""
+    a_t, a_prev = _abar(cfg, int(t), latents), _abar(cfg, int(t_prev), latents)
+    if cfg.prediction_type == "v_prediction":
+        x0 = torch.sqrt(a_t) * latents - torch.sqrt(1 - a_t) * eps
+        eps = torch.sqrt(a_t) * eps + torch.sqrt(1 - a_t) * latents
+    else:
+        x0 = (latents - torch.sqrt(1 - a_t) * eps) / torch.sqrt(a_t)
+    return torch.sqrt(a_prev) * x0 + torch.sqrt(1 - a_prev) * eps
 
 
 # ---------------- Euler discrete (SDXL default) ----------------
@@ -110,3 +153,61 @@ def dpmpp_2m_step(latents: torch.Tensor, pred_x0: torch.Tensor,
         d1 = (pred_x0 - pred_x0_prev) / (h0 / h)
         x0_eff = pred_x0 + 0.5 * d1
     return r * latents + (1.0 - r) * x0_eff
+
+
+# ---------------- DDPM, learned-range variance (DeepFloyd-IF stages) -------
+# The diffusers DDPMScheduler of the IF pipelines (variance_type=
+# "learned_range", thresholding, squaredcos_cap_v2 betas). The UNet emits 2·C
+# channels: ε and a per-pixel interpolant v ∈ [−1, 1] between the posterior
+# (min) and β_t (max) log-variances.
+
+
+def ddpm_timesteps(cfg: SchedulerConfig, steps: int) -> np.ndarray:
+    """DDPMScheduler.set_timesteps 'leading' spacing."""
+    ratio = cfg.num_train_timesteps // steps
+    return (np.arange(steps) * ratio).round()[::-1].astype(np.int64)
+
+
+def dynamic_threshold(x0: torch.Tensor, ratio: float = 0.95,
+                      max_value: float = 1.5) -> torch.Tensor:
+    """diffusers _threshold_sample: per-sample abs-quantile s (clamped to
+    [1, max_value]), clip to ±s and rescale into [−1, 1]. The quantile
+    interpolates linearly between the sorted neighbours, as ``jnp.quantile``
+    does (sorted here: ``torch.quantile`` refuses inputs above 2^24
+    elements)."""
+    b = x0.shape[0]
+    flat = x0.reshape(b, -1).abs().float().sort(dim=1).values
+    n = flat.shape[1]
+    pos = torch.tensor(ratio, dtype=torch.float32) * (n - 1)
+    low, high = int(torch.floor(pos)), int(torch.ceil(pos))
+    w_high = (pos - low).to(x0.device)
+    s = flat[:, low] * (1.0 - w_high) + flat[:, high] * w_high
+    s = s.clamp(1.0, max_value).reshape((b,) + (1,) * (x0.dim() - 1))
+    return torch.maximum(torch.minimum(x0, s), -s) / s
+
+
+def ddpm_learned_range_step(cfg: SchedulerConfig, latents: torch.Tensor, eps: torch.Tensor,
+                            var_pred: torch.Tensor, t: int, prev_t: int, noise: torch.Tensor,
+                            thresholding: bool = True, threshold_ratio: float = 0.95,
+                            threshold_max: float = 1.5) -> torch.Tensor:
+    """One ancestral DDPM step with the learned-range variance
+    (DDPMScheduler.step). ``prev_t < 0`` means the final step (ᾱ_prev = 1);
+    at ``t == 0`` no noise is added."""
+    abar_t, abar_prev = _abar(cfg, int(t), latents), _abar(cfg, int(prev_t), latents)
+    current_alpha = abar_t / abar_prev
+    current_beta = 1.0 - current_alpha
+
+    x0 = (latents - torch.sqrt(1.0 - abar_t) * eps) / torch.sqrt(abar_t)
+    if thresholding:
+        x0 = dynamic_threshold(x0, threshold_ratio, threshold_max)
+    coef_x0 = torch.sqrt(abar_prev) * current_beta / (1.0 - abar_t)
+    coef_xt = torch.sqrt(current_alpha) * (1.0 - abar_prev) / (1.0 - abar_t)
+    mean = coef_x0 * x0 + coef_xt * latents
+    if int(t) <= 0:
+        return mean.to(latents.dtype)
+    posterior_var = (1.0 - abar_prev) / (1.0 - abar_t) * current_beta
+    min_log = torch.log(torch.clamp(posterior_var, min=1e-20))
+    max_log = torch.log(torch.clamp(current_beta, min=1e-20))
+    frac = (var_pred.float() + 1.0) / 2.0
+    log_var = frac * max_log + (1.0 - frac) * min_log
+    return (mean + torch.exp(0.5 * log_var) * noise).to(latents.dtype)

@@ -5,11 +5,13 @@ towers, run CLIP ViT-L/14 and OpenCLIP ViT-bigG/14, concatenate their
 penultimate hidden states (768 + 1280 = 2048) as the cross-attention context
 and take bigG's projected EOT embedding (1280) as the pooled add-embedding.
 SDXL has no padding mask, so the pad ids matter: tower 1 pads with EOT,
-tower 2 with 0.
+tower 2 with 0. Stage III (the x4 upscaler) conditions on its own tower's
+final-layer states (``UpscalerTextEncoder``) or, without that checkpoint, on
+the SDXL features sliced to its width (``SDXLTextEncoder.encode_sliced``).
 """
 from __future__ import annotations
 
-from typing import List, Tuple
+from typing import List, Mapping, Tuple
 
 import numpy as np
 import torch
@@ -70,3 +72,57 @@ class SDXLTextEncoder:
         pooled_g, hid_g = self.big_g(tok_g, return_sequence=True, penultimate=True)
         ctx = torch.cat([hid_l.float(), hid_g.float()], dim=-1)
         return ctx, pooled_g.float()
+
+    def encode_sliced(self, prompts: List[str], ctx_dim: int) -> torch.Tensor:
+        """The concatenated tower states at width ``ctx_dim``: sliced, or
+        zero-padded where they are narrower (stage III's conditioning when no
+        upscaler tower is loaded)."""
+        ctx, _ = self.encode(prompts)
+        if ctx.shape[-1] < ctx_dim:
+            return torch.nn.functional.pad(ctx, (0, ctx_dim - ctx.shape[-1]))
+        return ctx[..., :ctx_dim]
+
+
+def tower_from_params(params: Mapping, act: str = "gelu", dtype=torch.float32,
+                      device=None) -> CLIPText:
+    """A ``CLIPText`` of a converted checkpoint's shapes (a tree of
+    ``utils.torch_weights.load_sdxl_text_params``), its weights loaded: the
+    SD-x4 upscaler's OpenCLIP ViT-H tower in HF layout (width 1024, 23 layers,
+    exact GELU)."""
+    from ...utils.convert import params_from_jax
+
+    p = params["params"] if "params" in params else params
+    pos = np.asarray(p["positional_embedding"])
+    vocab, width = np.asarray(p["token_embedding"]["embedding"]).shape
+    tower = CLIPText(embed_dim=int(np.asarray(p["text_projection"]).shape[-1]),
+                     context_length=int(pos.shape[0]), vocab_size=int(vocab), width=int(width),
+                     heads=max(int(width) // 64, 1),
+                     layers=sum(1 for k in p if k.startswith("resblock")), dtype=dtype,
+                     act=act, device=device)
+    tower.load_state_dict(params_from_jax(p))
+    return tower
+
+
+class UpscalerTextEncoder:
+    """Stage-III prompt conditioning through the upscaler's own CLIP tower:
+    its final-layer hidden states (the HF checkpoint ships without its last
+    layer), prompts padded with EOT as diffusers' CLIPTokenizer pads."""
+
+    def __init__(self, tower: CLIPText, bpe_path: str = ""):
+        self.tower = tower.eval()
+        self.tokenizer = (
+            SimpleTokenizer(bpe_path=bpe_path) if bpe_path else SimpleTokenizer(merges=[])
+        )
+
+    @property
+    def device(self) -> torch.device:
+        return self.tower.positional_embedding.device
+
+    @torch.inference_mode()
+    def encode(self, prompts: List[str]) -> torch.Tensor:
+        """prompts → (B, 77, width) float32; the caller slices to the UNet's
+        context width."""
+        tok = self.tokenizer.tokenize(prompts, pad_id=self.tokenizer.eot)
+        _, hidden = self.tower(torch.as_tensor(tok, dtype=torch.long, device=self.device),
+                               return_sequence=True)
+        return hidden.float()

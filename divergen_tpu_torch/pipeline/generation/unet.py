@@ -19,7 +19,10 @@ transformer matmuls through ``ops/int8_matmul.py``, after
 ``conv_matmul="fused"``: each ResBlock's norm → SiLU → 3×3 conv pairs run as
 one ``ops/gn_conv.py:fused_gn_silu_conv3x3`` call each (forward only; the
 ResBlocks then ignore ``fused_gn``, as in JAX). None of them changes the
-parameters, so checkpoints and converters are the same.
+parameters, so checkpoints and converters are the same. The x4 upscaler's
+``num_class_embeds`` (a noise-level embedding added to the time embedding)
+and Faster-Diffusion encoder reuse (``return_encoder`` / ``cached_encoder``)
+are ported as well.
 """
 from __future__ import annotations
 
@@ -340,8 +343,14 @@ class UNetSDXL(nn.Module):
     (``add_embed_1/2``); the JAX module creates it when it is initialized with
     those inputs. ``quant``, ``fused_ln``, ``fused_gn`` and
     ``conv_matmul="fused"`` are the JAX module's serving options (see the
-    module docstring); a ``quant`` UNet runs after :func:`quantize_unet_`. Faster-Diffusion encoder reuse and
-    ``num_class_embeds`` are not ported yet and raise."""
+    module docstring); a ``quant`` UNet runs after :func:`quantize_unet_`.
+    ``num_class_embeds`` adds a learned embedding of ``class_labels`` to the
+    time embedding (``class_embed``; the x4 upscaler's noise level).
+    ``return_encoder`` / ``cached_encoder`` are Faster-Diffusion encoder
+    reuse (arXiv:2312.09608): a call with ``return_encoder`` also returns the
+    down path's ``(x, skips)``, and a call given them skips the down path and
+    runs mid + up on them (cast to the module's dtype) with its own time
+    embedding."""
 
     def __init__(self, in_channels: int = 4, out_channels: int = 4,
                  block_channels: Sequence[int] = (320, 640, 1280),
@@ -353,8 +362,6 @@ class UNetSDXL(nn.Module):
                  quant: bool = False, ln_gemm="geglu", fused_ln: bool = False,
                  fused_gn: bool = False, conv_matmul=False, dtype=torch.float32, device=None):
         super().__init__()
-        if num_class_embeds is not None:
-            raise NotImplementedError("num_class_embeds is not ported yet")
         _check_conv_matmul(conv_matmul)
         self.quant, self.fused_gn, self.conv_matmul = quant, fused_gn, conv_matmul
         self.in_channels = in_channels
@@ -372,6 +379,8 @@ class UNetSDXL(nn.Module):
         if text_time:
             self.add_embed_1 = Dense(pooled_proj_dim, temb, **kw)
             self.add_embed_2 = Dense(temb, temb, **kw)
+        if num_class_embeds is not None:
+            self.class_embed = nn.Embedding(num_class_embeds, temb, **kw)
         self.conv_in = Conv(in_channels, ch0, 3, **kw)
 
         def attn(name, ch, depth):
@@ -418,10 +427,7 @@ class UNetSDXL(nn.Module):
                 time_ids: Optional[torch.Tensor] = None,
                 class_labels: Optional[torch.Tensor] = None,
                 cached_encoder: Optional[Tuple] = None,
-                return_encoder: bool = False) -> torch.Tensor:
-        if class_labels is not None or cached_encoder is not None or return_encoder:
-            raise NotImplementedError(
-                "class labels and Faster-Diffusion encoder reuse are not ported yet")
+                return_encoder: bool = False):
         ch0 = self.block_channels[0]
         emb = self.time_embed_1(timestep_embedding(timesteps, ch0))
         emb = self.time_embed_2(F.silu(emb))
@@ -431,19 +437,27 @@ class UNetSDXL(nn.Module):
             add = torch.cat([pooled_text, ids.to(pooled_text.dtype)], dim=-1)
             add = self.add_embed_2(F.silu(self.add_embed_1(add)))
             emb = emb + add
+        if class_labels is not None and hasattr(self, "class_embed"):
+            emb = emb + self.class_embed(class_labels.long())
 
         context = context.to(self.dtype)
-        x = self.conv_in(latents)
-        skips = [x]
         n = len(self.block_channels)
-        for lvl in range(n):
-            for i in range(self.layers_per_block):
-                x = getattr(self, f"down{lvl}_res{i}")(x, emb)
-                x = self._attn(f"down{lvl}_attn{i}", x, context)
-                skips.append(x)
-            if lvl < n - 1:
-                x = getattr(self, f"down{lvl}_ds")(x)
-                skips.append(x)
+        if cached_encoder is None:
+            x = self.conv_in(latents)
+            skips = [x]
+            for lvl in range(n):
+                for i in range(self.layers_per_block):
+                    x = getattr(self, f"down{lvl}_res{i}")(x, emb)
+                    x = self._attn(f"down{lvl}_attn{i}", x, context)
+                    skips.append(x)
+                if lvl < n - 1:
+                    x = getattr(self, f"down{lvl}_ds")(x)
+                    skips.append(x)
+        else:
+            x, cached_skips = cached_encoder
+            x = x.to(self.dtype)
+            skips = [s.to(self.dtype) for s in cached_skips]
+        encoder_state = (x, tuple(skips))
         x = self.mid_res0(x, emb)
         x = self._attn("mid_attn", x, context)
         x = self.mid_res1(x, emb)
@@ -455,7 +469,8 @@ class UNetSDXL(nn.Module):
             if lvl > 0:
                 x = getattr(self, f"up{lvl}_us")(x)
         x = _group_norm(x, self.norm_out, self.fused_gn, silu=True)
-        return self.conv_out(x)
+        x = self.conv_out(x)
+        return (x, encoder_state) if return_encoder else x
 
     @classmethod
     def tiny(cls, **kw) -> "UNetSDXL":

@@ -2,14 +2,15 @@
 
 The port's own copy of the converters it uses from
 ``divergen_tpu/utils/torch_weights.py``: each maps a torch ``state_dict``
-(openai CLIP, segment-anything SAM, diffusers SDXL UNet / AutoencoderKL, HF
+(openai CLIP, segment-anything SAM, diffusers SDXL and IF UNets / AutoencoderKL, HF
 ``CLIPTextModel``, Swin, a detectron2 detector checkpoint) into the nested tree that the JAX package's flax modules
 hold — linear kernels (in, out), conv kernels (kh, kw, in, out) — which
 ``utils.convert.params_from_jax`` then turns into the port's ``state_dict``.
 Pure name mapping: no module is constructed, ``torch.load`` only
 deserializes tensors. ``load_swin_into`` and ``load_d2_detector_into`` compose
 the detector's converters with ``params_from_jax`` and load the result into
-the port's modules. The IF converter comes with its slice.
+the port's modules. ``convert_if_unet`` maps a diffusers IF UNet checkpoint
+onto ``pipeline/generation/if_unet.py:IFUNet``.
 """
 from __future__ import annotations
 
@@ -902,3 +903,146 @@ def load_d2_detector_into(model, path_or_sd, cfg=None, **kw):
         logger.warning("detector checkpoint: %d keys unmapped: %s",
                        len(stats["unmapped"]), stats["unmapped"][:8])
     return _load_converted(model, converted, "detector checkpoint")
+
+
+# ---------------- DeepFloyd-IF UNet (diffusers) ----------------
+def convert_if_unet(sd: Dict[str, np.ndarray], unet) -> Dict:
+    """diffusers IF ``UNet2DConditionModel`` state dict → ``IFUNet`` params.
+
+    Reference loads these checkpoints via DiffusionPipeline
+    (``DiverGen/generation/txt2img_diffusers_stages_from_txt.py:136-198``).
+    Naming walked from the flax config (channels / layers_per_block /
+    attn_start / noise_level_cond); diffusers up_blocks are indexed
+    deepest→shallowest, ours ``up_{level}``, so up_blocks.k ↔
+    up_{n-1-k}. Returns the flax param tree plus ``_stats`` with unmapped
+    torch keys (empty on a complete checkpoint).
+    """
+    out: Dict[str, Any] = {}
+    used = set()
+
+    def lin(dst, src):
+        if f"{src}.weight" not in sd:
+            return
+        out[dst] = {"kernel": _t_linear(sd[f"{src}.weight"]),
+                    "bias": sd[f"{src}.bias"]}
+        used.update((f"{src}.weight", f"{src}.bias"))
+
+    def conv(dst, src):
+        if f"{src}.weight" not in sd:
+            return
+        out[dst] = {"kernel": _t_conv(sd[f"{src}.weight"]),
+                    "bias": sd[f"{src}.bias"]}
+        used.update((f"{src}.weight", f"{src}.bias"))
+
+    def norm(dst, src):
+        if f"{src}.weight" not in sd:
+            return
+        out[dst] = {"scale": sd[f"{src}.weight"], "bias": sd[f"{src}.bias"]}
+        used.update((f"{src}.weight", f"{src}.bias"))
+
+    def resblock(dst, src):
+        o = {}
+
+        def sub(kind, name, s):
+            if f"{s}.weight" not in sd:
+                return
+            w = sd[f"{s}.weight"]
+            if kind == "norm":
+                o[name] = {"scale": w, "bias": sd[f"{s}.bias"]}
+            elif kind == "conv":
+                o[name] = {"kernel": _t_conv(w), "bias": sd[f"{s}.bias"]}
+            else:
+                o[name] = {"kernel": _t_linear(w), "bias": sd[f"{s}.bias"]}
+            used.update((f"{s}.weight", f"{s}.bias"))
+
+        sub("norm", "norm1", f"{src}.norm1")
+        sub("conv", "conv1", f"{src}.conv1")
+        sub("lin", "time_emb_proj", f"{src}.time_emb_proj")
+        sub("norm", "norm2", f"{src}.norm2")
+        sub("conv", "conv2", f"{src}.conv2")
+        sub("conv", "conv_shortcut", f"{src}.conv_shortcut")
+        if o:
+            out[dst] = o
+
+    def attn(dst, src):
+        o = {}
+
+        def sub(kind, name, s):
+            if f"{s}.weight" not in sd:
+                return
+            w = sd[f"{s}.weight"]
+            if kind == "norm":
+                o[name] = {"scale": w, "bias": sd[f"{s}.bias"]}
+            else:
+                o[name] = {"kernel": _t_linear(w), "bias": sd[f"{s}.bias"]}
+            used.update((f"{s}.weight", f"{s}.bias"))
+
+        sub("norm", "group_norm", f"{src}.group_norm")
+        for k in ("to_q", "to_k", "to_v", "add_k_proj", "add_v_proj"):
+            sub("lin", k, f"{src}.{k}")
+        sub("lin", "to_out", f"{src}.to_out.0")
+        if o:
+            out[dst] = o
+
+    lin("time_emb_1", "time_embedding.linear_1")
+    lin("time_emb_2", "time_embedding.linear_2")
+    if getattr(unet, "noise_level_cond", False):
+        lin("class_emb_1", "class_embedding.linear_1")
+        lin("class_emb_2", "class_embedding.linear_2")
+    add = {}
+    if "add_embedding.norm1.weight" in sd:
+        add["norm1"] = {"scale": sd["add_embedding.norm1.weight"],
+                        "bias": sd["add_embedding.norm1.bias"]}
+        add["norm2"] = {"scale": sd["add_embedding.norm2.weight"],
+                        "bias": sd["add_embedding.norm2.bias"]}
+        pool = {"positional_embedding": sd["add_embedding.pool.positional_embedding"]}
+        for k in ("q_proj", "k_proj", "v_proj"):
+            pool[k] = {
+                "kernel": _t_linear(sd[f"add_embedding.pool.{k}.weight"]),
+                "bias": sd[f"add_embedding.pool.{k}.bias"],
+            }
+        add["pool"] = pool
+        add["proj"] = {"kernel": _t_linear(sd["add_embedding.proj.weight"]),
+                       "bias": sd["add_embedding.proj.bias"]}
+        out["add_embedding"] = add
+        used.update(k for k in sd if k.startswith("add_embedding."))
+    lin("encoder_hid_proj", "encoder_hid_proj")
+    conv("conv_in", "conv_in")
+
+    n = len(unet.channels)
+    lpb = unet.layers_per_block
+    for i in range(n):
+        for j in range(lpb):
+            resblock(f"down_{i}_res_{j}", f"down_blocks.{i}.resnets.{j}")
+            if i >= unet.attn_start:
+                attn(f"down_{i}_attn_{j}", f"down_blocks.{i}.attentions.{j}")
+        if i < n - 1:
+            resblock(f"down_{i}_downsample", f"down_blocks.{i}.downsamplers.0")
+    resblock("mid_res_0", "mid_block.resnets.0")
+    attn("mid_attn", "mid_block.attentions.0")
+    resblock("mid_res_1", "mid_block.resnets.1")
+    for k in range(n):  # diffusers: deepest first
+        lvl = n - 1 - k
+        for j in range(lpb + 1):
+            resblock(f"up_{lvl}_res_{j}", f"up_blocks.{k}.resnets.{j}")
+            if lvl >= unet.attn_start:
+                attn(f"up_{lvl}_attn_{j}", f"up_blocks.{k}.attentions.{j}")
+        if lvl > 0:
+            resblock(f"up_{lvl}_upsample", f"up_blocks.{k}.upsamplers.0")
+    norm("conv_norm_out", "conv_norm_out")
+    conv("conv_out", "conv_out")
+
+    unmapped = sorted(k for k in sd if k not in used)
+    logger.info("convert_if_unet: mapped %d/%d torch keys", len(used), len(sd))
+    return {"params": out, "_stats": {"unmapped": unmapped}}
+
+
+def load_if_unet_params(path: str, unet) -> Dict:
+    """Load + convert a diffusers IF UNet checkpoint (safetensors/.pth)."""
+    sd = load_state_dict(path)
+    out = convert_if_unet(sd, unet)
+    stats = out.pop("_stats")
+    if stats["unmapped"]:
+        logger.warning("IF checkpoint: %d keys unmapped: %s",
+                       len(stats["unmapped"]), stats["unmapped"][:8])
+    return out

@@ -98,9 +98,11 @@ def test_text_encoder_tiny():
 
 
 def test_constructor_rejects_unported_options():
-    for kw in ({"num_class_embeds": 1000}, {"ln_gemm": "all"}):
+    for kw in ({"ln_gemm": "all"}, {"conv_matmul": "im2col"}):
         with pytest.raises((NotImplementedError, ValueError)):
             tunet.UNetSDXL.tiny(**kw)
+    # num_class_embeds is ported: the x4 upscaler's noise-level embedding
+    assert tunet.UNetSDXL.tiny(num_class_embeds=1000).class_embed.num_embeddings == 1000
 
 
 def test_flax_init_scales_like_flax():

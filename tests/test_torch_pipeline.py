@@ -1,11 +1,13 @@
 """The port's SDXL pipeline and txt2img CLI against the JAX package.
 
-The tiny pipeline's denoise loop runs for both samplers from the same numpy
-initial latents and contexts, with the same weights (flax ``init`` →
-``params_from_jax``), float32 on the CPU, then the VAE decode; the images
-must agree within 1e-3 of the 0–255 range (0.255). The CLI test runs the
-port's ``txt2img.main --tiny`` at 64²: reference file naming, resume, and the
-stdlib PNG writer read back by OpenCV.
+The tiny pipeline's denoise loop runs for both samplers, with and without
+Faster-Diffusion encoder reuse, from the same numpy initial latents and
+contexts, with the same weights (flax ``init`` → ``params_from_jax``),
+float32 on the CPU, then the VAE decode; the images must agree within 1e-3 of
+the 0–255 range (0.255). The CLI tests run the port's ``txt2img.main --tiny``
+(SDXL at 64², with ``--encoder_reuse`` and with ``--stages XL x4``; the IF
+cascade with ``--stages I`` and ``I II``): reference file naming under
+``samples/<stage>``, resume, and the stdlib PNG writer read back by OpenCV.
 """
 import os
 
@@ -41,8 +43,9 @@ def tiny_models():
     return (ju, up, jv, vp), (tu, tv)
 
 
+@pytest.mark.parametrize("encoder_reuse", [False, True])
 @pytest.mark.parametrize("sampler", ["euler", "dpmpp_2m"])
-def test_tiny_pipeline_denoise_and_decode(tiny_models, sampler):
+def test_tiny_pipeline_denoise_and_decode(tiny_models, sampler, encoder_reuse):
     (ju, up, jv, vp), (tu, tv) = tiny_models
     rng = np.random.RandomState(3)
     b, steps = 2, 3
@@ -50,13 +53,14 @@ def test_tiny_pipeline_denoise_and_decode(tiny_models, sampler):
     ctx = rng.randn(b, 77, 64).astype(np.float32)
     unc = rng.randn(b, 77, 64).astype(np.float32)
 
-    jp = jpipe.SDXLPipeline(ju, up, jv, vp, steps=steps, sampler=sampler)
+    jp = jpipe.SDXLPipeline(ju, up, jv, vp, steps=steps, sampler=sampler,
+                            encoder_reuse=encoder_reuse)
     want_lat = jp._denoise(up, jnp.asarray(lat * jp._init_scale), jnp.asarray(ctx),
                            jnp.asarray(unc), None, None, None)
     want = np.stack([np.asarray(jnp.clip((jv.apply(vp, l[None])[0] + 1.0) * 127.5, 0, 255))
                      for l in want_lat])
 
-    tp = tpipe.SDXLPipeline(tu, tv, steps=steps, sampler=sampler)
+    tp = tpipe.SDXLPipeline(tu, tv, steps=steps, sampler=sampler, encoder_reuse=encoder_reuse)
     assert tp._init_scale == pytest.approx(jp._init_scale, rel=1e-6)
     got_lat = tp.denoise(torch.from_numpy(lat * tp._init_scale), torch.from_numpy(ctx),
                          torch.from_numpy(unc))
@@ -100,10 +104,77 @@ def test_png_writer_round_trips_through_cv2(tmp_path):
 
 
 def test_unported_flags_exit():
-    for flag in (["--encoder_reuse"], ["--data_parallel"], ["--stages", "XL", "x4"],
-                 ["--stages", "I"]):
-        with pytest.raises(SystemExit, match="not yet ported"):
-            txt2img.main(flag + ["--tiny", "--device", "cpu"])
+    """Of the JAX CLI's flags only --data_parallel is still to be ported."""
+    with pytest.raises(SystemExit, match="not yet ported"):
+        txt2img.main(["--data_parallel", "--tiny", "--device", "cpu"])
+
+
+@pytest.mark.parametrize("stages", [["II"], ["XL", "II"], ["x4", "I"]])
+def test_if_stages_must_start_with_stage_one(stages, tmp_path):
+    """As in JAX: an IF stage list not led by I exits before any model is
+    built, and writes nothing."""
+    with pytest.raises(SystemExit, match="must start with 'I'"):
+        txt2img.main(["--stages", *stages, "--tiny", "--device", "cpu", "--outdir",
+                      str(tmp_path)])
+    assert not os.listdir(tmp_path)
+
+
+def run_cli(tmp_path, *extra):
+    """``txt2img.main --tiny`` over one category file with two samples at
+    offset 5, twice: then again with --disable_overwrite, which must leave
+    every file as it was. Returns {stage dir: sorted names}."""
+    prompts = tmp_path / "prompts"
+    prompts.mkdir(exist_ok=True)
+    (prompts / "37.txt").write_text("a photo of a single cat\n")
+    out = tmp_path / "out"
+    argv = ["--from_file", str(prompts), "--outdir", str(out), "--n_samples", "2",
+            "--max_batch_size", "2", "--offset", "5", "--tiny", "--height", "64", "--width",
+            "64", "--steps", "2", "--device", "cpu", *extra]
+    assert txt2img.main(argv) == 0
+    samples = out / "samples"
+    files = {d: sorted(os.listdir(samples / d)) for d in sorted(os.listdir(samples))}
+    mtimes = {(d, n): os.stat(samples / d / n).st_mtime_ns for d, ns in files.items() for n in ns}
+    assert txt2img.main(argv + ["--disable_overwrite"]) == 0
+    assert {(d, n): os.stat(samples / d / n).st_mtime_ns for d, n in mtimes} == mtimes
+    return samples, files
+
+
+NAMES = ["37_0000005.png", "37_0000006.png"]
+
+
+@pytest.mark.parametrize("extra,shapes", [
+    (["--encoder_reuse"], {"XL": (16, 16, 3)}),
+    (["--encoder_reuse", "--sampler", "dpmpp_2m"], {"XL": (16, 16, 3)}),
+    # the tiny x4 VAE decodes the 16² SDXL image's latent grid x4
+    (["--stages", "XL", "x4"], {"XL": (16, 16, 3), "x4": (64, 64, 3)}),
+    (["--stages", "I"], {"I": (16, 16, 3)}),
+    (["--stages", "I", "II"], {"I": (16, 16, 3), "II": (32, 32, 3)}),
+])
+def test_txt2img_tiny_stages(tmp_path, extra, shapes):
+    samples, files = run_cli(tmp_path, *extra)
+    assert files == {d: NAMES for d in shapes}
+    for d, shape in shapes.items():
+        for n in NAMES:
+            img = cv2.imread(str(samples / d / n), cv2.IMREAD_UNCHANGED)
+            assert img.shape == shape and img.dtype == np.uint8
+
+
+def test_t5_dir_without_transformers_says_so(tmp_path, monkeypatch):
+    """``--t5_dir`` runs T5 through the host's ``transformers``; where it is
+    missing the CLI exits naming it, and never falls back to random states."""
+    import builtins
+
+    real_import = builtins.__import__
+
+    def no_transformers(name, *a, **kw):
+        if name == "transformers" or name.startswith("transformers."):
+            raise ImportError("No module named 'transformers'")
+        return real_import(name, *a, **kw)
+
+    monkeypatch.setattr(builtins, "__import__", no_transformers)
+    with pytest.raises(SystemExit, match="transformers"):
+        txt2img.main(["--stages", "I", "--tiny", "--device", "cpu", "--t5_dir", str(tmp_path),
+                      "--outdir", str(tmp_path / "out"), "--steps", "2"])
 
 
 def _no_device_entry_points():
@@ -115,6 +186,12 @@ def _no_device_entry_points():
     return {
         "txt2img": lambda d: txt2img.main(["--tiny", "--prompt", "x", "--outdir", d]),
         "txt2img_int8": lambda d: txt2img.main(["--tiny", "--int8", "--prompt", "x", "--outdir", d]),
+        "txt2img_if": lambda d: txt2img.main(["--tiny", "--stages", "I", "II", "--prompt", "x",
+                                              "--outdir", d]),
+        "txt2img_x4": lambda d: txt2img.main(["--tiny", "--stages", "XL", "x4", "--prompt", "x",
+                                              "--outdir", d]),
+        "txt2img_reuse": lambda d: txt2img.main(["--tiny", "--encoder_reuse", "--prompt", "x",
+                                                 "--outdir", d]),
         "corner_masks": lambda d: corner_masks.main(["--tiny", "--in_dir", d, "--out_dir", d]),
         "build_sam": lambda d: corner_masks.build_sam(
             corner_masks.build_argparser().parse_args(["--tiny", "--in_dir", d, "--out_dir", d])),
@@ -127,7 +204,8 @@ def _no_device_entry_points():
 
 
 @pytest.mark.skipif(torch.cuda.is_available(), reason="needs a machine without a card")
-@pytest.mark.parametrize("name", ["txt2img", "txt2img_int8", "corner_masks", "build_sam", "ClipEncoder",
+@pytest.mark.parametrize("name", ["txt2img", "txt2img_int8", "txt2img_if", "txt2img_x4",
+                                  "txt2img_reuse", "corner_masks", "build_sam", "ClipEncoder",
                                   "extract_features", "train_entry", "dryrun_train"])
 def test_entry_points_do_not_fall_back_to_the_cpu(name, tmp_path):
     """An entry point that was not asked for the CPU raises when no card is

@@ -554,3 +554,54 @@ def test_catalogs_behave_alike():
         assert "a" not in cat
         meta = mod._MetadataCatalog()
         assert meta.get("m").set(k=2).k == 2 and meta.list() == ["m"]
+
+
+@pytest.mark.parametrize("stage", ["I", "II"])
+def test_convert_if_unet_copy_equals_original_and_loads(stage, tmp_path):
+    """The IF converter's copy on the fake diffusers state dict of
+    ``tests/test_if_cascade.py``, and its tree (through a saved checkpoint and
+    ``load_if_unet_params``) loading into the port's ``IFUNet`` strictly."""
+    import jax
+    import jax.numpy as jnp
+    from test_if_cascade import _fake_diffusers_sd, _tiny_unet
+
+    from divergen_tpu_torch.pipeline.generation.if_unet import IFUNet
+
+    kw = dict(in_channels=6, noise_level_cond=True) if stage == "II" else {}
+    unet = _tiny_unet(**kw)
+    extra = {"noise_level": jnp.zeros((1,), jnp.int32)} if kw else {}
+    params = jax.jit(lambda: unet.init(jax.random.PRNGKey(3),
+                                       jnp.zeros((1, 16, 16, unet.in_channels)),
+                                       jnp.zeros((1,), jnp.int32), jnp.zeros((1, 5, 12)),
+                                       **extra))()
+    sd = _fake_diffusers_sd(unet, params)
+    if stage == "II":
+        for k in ("class_emb_1", "class_emb_2"):
+            node = params["params"][k]
+            src = f"class_embedding.linear_{k[-1]}"
+            sd[f"{src}.weight"] = np.ascontiguousarray(np.asarray(node["kernel"]).T)
+            sd[f"{src}.bias"] = np.asarray(node["bias"])
+    assert_trees_equal(ttw.convert_if_unet(sd, unet), jtw.convert_if_unet(sd, unet))
+    path = str(tmp_path / "if_unet.pt")
+    torch.save({k: torch.tensor(np.array(v)) for k, v in sd.items()}, path)
+    ours = IFUNet(channels=unet.channels, layers_per_block=unet.layers_per_block,
+                  encoder_dim=12, head_dim=4, pool_heads=2, **kw)
+    ours.load_state_dict(params_from_jax(ttw.load_if_unet_params(path, ours)))
+    for name, p in ours.state_dict().items():
+        assert torch.isfinite(p).all(), name
+
+
+def test_sdxl_class_embedding_loads_into_class_embed():
+    """``class_embedding.weight`` of a diffusers x4-upscaler checkpoint maps to
+    the port's ``UNetSDXL.class_embed`` (an ``nn.Embedding``)."""
+    from divergen_tpu.pipeline.generation.upscale import upscaler_unet as jax_upscaler
+    from divergen_tpu_torch.pipeline.generation.upscale import upscaler_unet
+
+    weight = np.random.RandomState(6).randn(1000, 64).astype(np.float32)
+    sd = {"class_embedding.weight": weight}
+    tree = ttw.convert_sdxl_unet(sd, jax_upscaler(tiny=True))
+    assert_trees_equal(tree, jtw.convert_sdxl_unet(sd, jax_upscaler(tiny=True)))
+    unet = upscaler_unet(tiny=True)
+    missing, unexpected = unet.load_state_dict(params_from_jax(tree), strict=False)
+    assert not unexpected and "class_embed.weight" not in missing
+    np.testing.assert_array_equal(unet.class_embed.weight.detach().numpy(), weight)
