@@ -320,7 +320,27 @@ Run from the root of a checkout:  python3 chip_smoke.py
        within 2e-4 of the CPU step (``dryrun_resnet18``).
    It prints seconds per step, ``data_time``, ms per step and per forward,
    and peak memory, with the card's name and power limit.
-12. Prints the kernels' JSON line (the 13 wrappers' entries; the float32
+12. Slice of the real-image data layer, launch counters reset just before
+   it (``slice_real_images``):
+   (a) the committed JPEG fixtures (``tests/data/jpeg``, one per mode and six
+       640 x 480 4:2:0 images) decode (``utils/image_io.py``, the native
+       ``jpeg.cpp``) to the SHA-256 their manifest records of OpenCV's
+       pixels, and the progressive one is refused; prints the decoder's ms
+       per 640 x 480 4:2:0 image and the host CPU's name;
+   (b) ``configs/DiverGen_swinL.yaml`` through ``train_net.main`` at full
+       width for 4 steps over a root whose train images are the six JPEG
+       fixtures (their polygons as annotations), with ``INPUT.USE_COLOR_JITTER``,
+       ``USE_INSTABOOST`` and ``USE_INP_ROTATE`` on: finite metrics, exactly
+       10(b)'s launches a step, and each augmentation changed samples in
+       the loader; prints seconds per step against 10(b)'s PNG-root run and
+       the train loader's images per second with the augmentations on and
+       off;
+   (c) filtration on real crops: ``lvis_crop`` on that JPEG root (padded,
+       blurred background as the real set; tight, white as the other), then
+       ``extract_features`` (CLIP ViT-L/14, random weights) on the card and
+       ``compute_similarity``: one crop per annotation, finite similarities
+       in [-1, 1].
+13. Prints the kernels' JSON line (the 13 wrappers' entries; the float32
    window backward body with its launches in 10; and each padded head-dim
    case of 3 with its checked call's launch), the card line, and as the
    last line {"ok": true, "device": {...}}. Any failed phase raises: exit
@@ -335,6 +355,7 @@ import statistics
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 
 import numpy as np
@@ -3725,23 +3746,26 @@ BSGAL_LAUNCHES = (3 * SWIN_L_BLOCKS, 3 * SWIN_L_BLOCKS)
 DIVERGEN_LAUNCHES = (2 * SWIN_L_BLOCKS, SWIN_L_BLOCKS)
 
 
-def train_net_run(card: str, config: str, root: str, out: str, classes: int, *extra):
+def train_net_run(card: str, config: str, root: str, out: str, classes: int, *extra,
+                  files=None):
     """``train_net.main`` with ``config`` on a synthetic LVIS-format root
     written to ``root`` (``write_training_root``: ``TRAIN_SET`` PNG train
     images of the four ``SERVING_SIZES``, ``VAL_SET`` val images, ``classes``
-    categories, an RGBA pool of 64 instances over 32 categories), with the
-    cuts ``SOLVER.IMS_PER_BATCH 2``, ``CHECKPOINT_PERIOD 3`` and ``extra``
-    (arguments, then config keys); prints seconds per step (median after the
-    first), ``data_time`` and peak memory beside the card. Returns (the final
-    state, ``do_train.last_run``, the steps taken)."""
+    categories, an RGBA pool of 64 instances over 32 categories), or the
+    root ``files`` describes if given, with the cuts ``SOLVER.IMS_PER_BATCH
+    2``, ``CHECKPOINT_PERIOD 3`` and ``extra`` (arguments, then config keys);
+    prints seconds per step (median after the first), ``data_time`` and
+    peak memory beside the card. Returns (the final state,
+    ``do_train.last_run``, the steps taken)."""
     from divergen_tpu_torch import train_net
     from divergen_tpu_torch.data import DatasetCatalog, MetadataCatalog
     from divergen_tpu_torch.data.datasets.synthetic_lvis import write_training_root
     from divergen_tpu_torch.engine.trainer import do_train
 
     t0 = time.perf_counter()
-    files = write_training_root(root, classes, SERVING_SIZES * (TRAIN_SET // 4),
-                                SERVING_SIZES * (VAL_SET // 4), 64, 32, seed=0)
+    if files is None:
+        files = write_training_root(root, classes, SERVING_SIZES * (TRAIN_SET // 4),
+                                    SERVING_SIZES * (VAL_SET // 4), 64, 32, seed=0)
     written = time.perf_counter() - t0
     for name in ("lvis_v1_train", "lvis_v1_val", "lvis_v1_train_norare"):
         DatasetCatalog.remove(name)
@@ -3783,7 +3807,7 @@ def path_launches(per_step, steps: int) -> dict:
 
 
 def counted_train_net_run(card: str, snapshot, config: str, root: str, out: str,
-                          classes: int, *extra):
+                          classes: int, *extra, files=None):
     """``train_net_run`` with the kernel launches of the in-training
     ``do_test`` counted apart from the training's. Returns (the final state,
     ``do_train.last_run``, the steps taken, the launches outside ``do_test``,
@@ -3803,7 +3827,8 @@ def counted_train_net_run(card: str, snapshot, config: str, root: str, out: str,
     before = snapshot()
     eval_loop.do_test = counted_do_test
     try:
-        state, info, steps = train_net_run(card, config, root, out, classes, *extra)
+        state, info, steps = train_net_run(card, config, root, out, classes, *extra,
+                                           files=files)
     finally:
         eval_loop.do_test = do_test
     launched = {k: n - in_eval.get(k, 0) for k, n in launched_since(before, snapshot).items()
@@ -3902,7 +3927,7 @@ def bsgal_run(card: str, config: str, root: str, out: str, per_step, snapshot,
     torch.cuda.empty_cache()
 
 
-def slice_do_train(card: str, tmp: str, snapshot) -> None:
+def slice_do_train(card: str, tmp: str, snapshot) -> float:
     """Both training configs through the port's ``train_net.main`` at full
     width on synthetic LVIS-format sets (``write_training_root``: 24 PNG
     train images of the four ``SERVING_SIZES``, 8 val images, a category-info
@@ -3917,7 +3942,8 @@ def slice_do_train(card: str, tmp: str, snapshot) -> None:
     packed window-attention wrapper only), the decision counts and logs, the
     grad bank's saves and its restore, the metrics, the in-training
     ``do_test`` and the trained checkpoint in ``Predictor``; prints seconds
-    per step, ``data_time`` and peak memory."""
+    per step, ``data_time`` and peak memory. Returns (b)'s seconds per step
+    (median after the first), which the real-image slice compares with."""
     import shutil
 
     from divergen_tpu_torch.engine.checkpoint import Checkpointer
@@ -3939,9 +3965,11 @@ def slice_do_train(card: str, tmp: str, snapshot) -> None:
     for row in map(json.loads, open(os.path.join(out, "metrics.json")).read().splitlines()):
         if not all(math.isfinite(v) for v in row.values()):
             raise AssertionError(f"DiverGen metrics.json: {row}")
+    png_step_s = statistics.median(info["step_s"][1:])
     del state, info
     shutil.rmtree(out)
     torch.cuda.empty_cache()
+    return png_step_s
 
 
 # (label, config keys over get_cfg(), canvas, images) of slice_architectures
@@ -4080,6 +4108,266 @@ UPSCALER_CALL = {"flash_attention_packed": 16, "fused_ln_matmul": 16}
 # reuse step (the 24 transformer blocks of the down path skipped)
 REUSE_LAUNCHES = (70, 46)
 IF_RANGE_BOUND = 1e-4 * 2  # of the [-1, 1] range: the float32 tiny stage I, card vs CPU
+
+
+# -- the real-image data layer (slice 12) ---------------------------------------------
+
+FIXTURES = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests", "data", "jpeg")
+REAL_IMAGE_STEPS = 4
+AUGMENTATIONS = ("INPUT.USE_COLOR_JITTER", "True", "INPUT.USE_INSTABOOST", "True",
+                 "INPUT.USE_INP_ROTATE", "True")
+
+
+def host_cpu() -> str:
+    """The host CPU's model name as /proc/cpuinfo gives it, else its
+    architecture; with the CPUs this process may use."""
+    import platform
+
+    name = ""
+    try:
+        with open("/proc/cpuinfo") as f:
+            for line in f:
+                key = line.split(":", 1)[0].strip().lower()
+                if key in ("model name", "cpu model", "hardware") and ":" in line:
+                    name = line.split(":", 1)[1].strip()
+                    break
+    except OSError:
+        pass
+    name = name or platform.processor() or f"a {platform.machine()} CPU (no model name)"
+    return f"{name}, {len(os.sched_getaffinity(0))} CPUs"
+
+
+def jpeg_fixture_phase(card: str) -> dict:
+    """(a): every fixture of ``tests/data/jpeg/manifest.json`` decodes to
+    the recorded SHA-256 of OpenCV's RGB pixels (the refused one raises the
+    recorded mode); the decoder's time per 640 x 480 4:2:0 image. Returns
+    the manifest."""
+    import hashlib
+
+    from divergen_tpu_torch import native
+    from divergen_tpu_torch.utils.image_io import read_rgb
+
+    with open(os.path.join(FIXTURES, "manifest.json")) as f:
+        manifest = json.load(f)
+    for entry in manifest["files"]:
+        path = os.path.join(FIXTURES, entry["file"])
+        if "raises" in entry:
+            try:
+                read_rgb(path)
+            except ValueError as e:
+                if entry["raises"] not in str(e):
+                    raise AssertionError(f"{path}: refused as {e}, expected {entry['raises']}")
+                continue
+            raise AssertionError(f"{path}: decoded, expected a refusal ({entry['raises']})")
+        rgb = read_rgb(path)
+        if rgb.shape != (entry["height"], entry["width"], 3) or hashlib.sha256(
+                rgb.tobytes()).hexdigest() != entry["sha256_rgb"]:
+            raise AssertionError(f"{path} ({entry['mode']}): pixels differ from OpenCV's")
+    with open(os.path.join(FIXTURES, manifest["lvis_images"][0]), "rb") as f:
+        data = f.read()
+    times = []
+    for _ in range(30):
+        t0 = time.perf_counter()
+        native.jpeg_decode(data)
+        times.append(time.perf_counter() - t0)
+    log(f"  {len(manifest['files'])} JPEG fixtures decode to OpenCV's pixels (manifest "
+        f"SHA-256), the progressive one refused; decode of a 640 x 480 4:2:0 q90 image "
+        f"(native/jpeg.cpp, one thread): {statistics.median(times) * 1e3:.3f} ms median of 30 "
+        f"(min {min(times) * 1e3:.3f}) on {host_cpu()} [{card}]")
+    return manifest
+
+
+def jpeg_training_root(root: str, manifest: dict, classes: int) -> dict:
+    """``write_training_root``'s val set, pool and category info, with the
+    train set replaced by the six LVIS-sized JPEG fixtures, each of their
+    polygons an annotation. Returns ``write_training_root``'s dict."""
+    import shutil
+
+    from divergen_tpu_torch.data.datasets.synthetic_lvis import (
+        write_cat_info,
+        write_training_root,
+    )
+
+    files = write_training_root(root, classes, [(48, 64)] * 2, [(480, 640)] * 2, 64, 32, seed=0)
+    train_json, image_root = files["train"]["json_file"], files["train"]["image_root"]
+    with open(train_json) as f:
+        data = json.load(f)
+    for name in os.listdir(image_root):
+        os.remove(os.path.join(image_root, name))
+    images, anns = [], []
+    for entry in manifest["files"]:
+        if "objects" not in entry:
+            continue
+        shutil.copy(os.path.join(FIXTURES, entry["file"]), os.path.join(image_root, entry["file"]))
+        image_id = len(images) + 1
+        images.append({"id": image_id, "file_name": "train2017/" + entry["file"],
+                       "height": entry["height"], "width": entry["width"],
+                       "not_exhaustive_category_ids": [], "neg_category_ids": []})
+        for obj in entry["objects"]:
+            pts = np.asarray(obj["polygon"], np.float64).reshape(-1, 2)
+            (x0, y0), (x1, y1) = pts.min(0), pts.max(0)
+            anns.append({"id": len(anns) + 1, "image_id": image_id,
+                         "category_id": obj["category_id"], "iscrowd": 0,
+                         "bbox": [float(x0), float(y0), float(x1 - x0), float(y1 - y0)],
+                         "area": float((x1 - x0) * (y1 - y0)), "segmentation": [obj["polygon"]]})
+    data["images"], data["annotations"] = images, anns
+    with open(train_json, "w") as f:
+        json.dump(data, f)
+    write_cat_info(files["cat_info"], train_json)
+    return files
+
+
+def counting_augmentations():
+    """Wrap the three augmentations so that each counts the samples it
+    changed (the loader maps in threads of this process). Returns (the
+    counts, a function that unwraps them)."""
+    from divergen_tpu_torch.data import color_jitter, inp_rotate, instaboost
+
+    counts = {"color_jitter": 0, "instaboost": 0, "inp_rotate": 0}
+    lock = threading.Lock()
+    jitter, boost, rotate = (color_jitter.PhotoMetricDistortion.__call__,
+                             instaboost.InstaBoost.__call__, inp_rotate.inp_rotate_sample)
+
+    def bump(key):
+        with lock:
+            counts[key] += 1
+
+    def counted_jitter(self, sample, rng):
+        before = sample["image"].copy()
+        out = jitter(self, sample, rng)
+        if not np.array_equal(out["image"], before):
+            bump("color_jitter")
+        return out
+
+    def counted_boost(self, record, rng=None):
+        out = boost(self, record, rng)
+        if out is not record and "image_new" in out:
+            bump("instaboost")
+        return out
+
+    def counted_rotate(sample, rng, **kw):
+        out = rotate(sample, rng, **kw)
+        if "patch_valid" in out and out["patch_valid"].any():
+            bump("inp_rotate")
+        return out
+
+    color_jitter.PhotoMetricDistortion.__call__ = counted_jitter
+    instaboost.InstaBoost.__call__ = counted_boost
+    inp_rotate.inp_rotate_sample = counted_rotate
+
+    def restore():
+        color_jitter.PhotoMetricDistortion.__call__ = jitter
+        instaboost.InstaBoost.__call__ = boost
+        inp_rotate.inp_rotate_sample = rotate
+
+    return counts, restore
+
+
+def loader_images_per_s(config: str, out: str, files: dict, extra, batches: int = 12) -> float:
+    """Images per second of ``build_train_loader`` for ``config`` on the
+    root of ``files`` with the config keys ``extra`` (the first batch, which
+    starts the threads, is not timed)."""
+    from divergen_tpu_torch import train_net
+    from divergen_tpu_torch.engine.trainer import build_train_loader
+
+    cfg = train_net.setup(train_net.default_argument_parser().parse_args(
+        ["--config-file", config, *files["overrides"], "SOLVER.IMS_PER_BATCH", "2",
+         "OUTPUT_DIR", out, *extra]))
+    loader = build_train_loader(cfg)
+    it = iter(loader)
+    next(it)
+    t0 = time.perf_counter()
+    for _ in range(batches):
+        next(it)
+    wall = time.perf_counter() - t0
+    loader.stop()
+    return batches * cfg.SOLVER.IMS_PER_BATCH / wall
+
+
+def slice_real_images(card: str, tmp: str, snapshot, png_step_s: float) -> None:
+    """Slice 12: (a) the JPEG fixtures against their manifest; (b)
+    ``configs/DiverGen_swinL.yaml`` through ``train_net`` on the JPEG root
+    with the three augmentations on, launches and augmented samples
+    checked, step and loader times printed; (c) ``lvis_crop`` ->
+    ``extract_features`` -> ``compute_similarity`` on the card."""
+    import shutil
+
+    from divergen_tpu_torch.pipeline.filteration import cli as fcli
+
+    manifest = jpeg_fixture_phase(card)
+
+    # (b) DiverGen on the JPEG root, the augmentations on
+    root, out = os.path.join(tmp, "jpeg_data"), os.path.join(tmp, "jpeg_divergen")
+    config = "configs/DiverGen_swinL.yaml"
+    files = jpeg_training_root(root, manifest, 1453)
+    counts, restore = counting_augmentations()
+    try:
+        state, info, steps, launches, _ = counted_train_net_run(
+            card, snapshot, config, root, out, 1453, "--max-steps", str(REAL_IMAGE_STEPS),
+            "TEST.EVAL_PERIOD", "100", *AUGMENTATIONS, files=files)
+    finally:
+        restore()
+    want = path_launches(DIVERGEN_LAUNCHES, REAL_IMAGE_STEPS)
+    if steps != REAL_IMAGE_STEPS or launches != want:
+        raise AssertionError(f"DiverGen on JPEGs: {steps} steps, launches {launches}, "
+                             f"expected {want}")
+    rows = [json.loads(r) for r in open(os.path.join(out, "metrics.json")).read().splitlines()]
+    if not rows or not all(math.isfinite(v) for row in rows for v in row.values()):
+        raise AssertionError(f"DiverGen on JPEGs: metrics.json {rows}")
+    if not all(counts.values()):
+        raise AssertionError(f"DiverGen on JPEGs: samples each augmentation changed {counts}")
+    jpeg_step_s = statistics.median(info["step_s"][1:])
+    log(f"    samples the augmentations changed in the loader: {counts}; s/step on the JPEG "
+        f"root with them {jpeg_step_s:.3f} against {png_step_s:.3f} on 10(b)'s PNG root "
+        f"(medians after the first step) [{card}]")
+    del state, info
+    torch.cuda.empty_cache()
+    rates = {}
+    for label, extra in (("on", AUGMENTATIONS), ("off", ())):
+        rates[label] = loader_images_per_s(config, os.path.join(tmp, f"loader_{label}"), files,
+                                           extra)
+    log(f"    train loader on the JPEG root (IMS_PER_BATCH 2, NUM_WORKERS of the config, 896 "
+        f"canvas): {rates['on']:.2f} images/s with the three augmentations, {rates['off']:.2f} "
+        f"without, on {host_cpu()} [{card}]")
+    shutil.rmtree(out)
+
+    # (c) filtration on the real crops
+    crops, gen = os.path.join(tmp, "crops_real"), os.path.join(tmp, "crops_other")
+    train_json = files["train"]["json_file"]
+    image_root = os.path.dirname(files["train"]["image_root"])
+    t0 = time.perf_counter()
+    for out_dir, mode, background in ((crops, "padding", "blur"), (gen, "tight", "white")):
+        if fcli.lvis_crop(["--lvis_json", train_json, "--image_root", image_root, "--out_dir",
+                           out_dir, "--crop_mode", mode, "--background", background]) != 0:
+            raise AssertionError("lvis_crop failed")
+    crop_s = time.perf_counter() - t0
+    n_anns = sum(len(e["objects"]) for e in manifest["files"] if "objects" in e)
+    n_crops = sum(len(fs) for _, _, fs in os.walk(crops))
+    if n_crops != n_anns or sum(len(fs) for _, _, fs in os.walk(gen)) != n_anns:
+        raise AssertionError(f"lvis_crop wrote {n_crops} crops for {n_anns} annotations")
+    t0 = time.perf_counter()
+    for in_dir, feat_dir in ((crops, crops + "_feat"), (gen, gen + "_feat")):
+        if fcli.extract_features(["--in_dir", in_dir, "--out_dir", feat_dir, "--batch", "16",
+                                  "--device", "cuda"]) != 0:
+            raise AssertionError("extract_features failed")
+    torch.cuda.synchronize()
+    feat_s = time.perf_counter() - t0
+    sims = os.path.join(tmp, "sims")
+    if fcli.compute_similarity(["--lvis_feature_dir", crops + "_feat", "--gen_feature_dir",
+                                gen + "_feat", "--out_dir", sims]) != 0:
+        raise AssertionError("compute_similarity failed")
+    values = []
+    for cat in os.listdir(sims):
+        with open(os.path.join(sims, cat, "total.json")) as f:
+            values += [v for row in json.load(f).values() for v in row.values()]
+    if len(values) < n_anns or not all(math.isfinite(v) and -1.0001 <= v <= 1.0001
+                                       for v in values):
+        raise AssertionError(f"compute_similarity: {len(values)} similarities, "
+                             f"range {min(values, default=0)}..{max(values, default=0)}")
+    log(f"    lvis_crop on the JPEG root: {n_crops} crops x 2 modes in {crop_s:.2f} s; "
+        f"extract_features (CLIP ViT-L/14, random weights) on {2 * n_crops} crops in "
+        f"{feat_s:.2f} s; compute_similarity: {len(values)} similarities in "
+        f"[{min(values):.4f}, {max(values):.4f}] [{card}]")
 
 
 def packed_twin(qkv: torch.Tensor, heads: int, rows: int = 4096) -> torch.Tensor:
@@ -4625,7 +4913,7 @@ def main() -> int:
     reset()
     small_active_step()  # the float32 main path of the window backward body
     with tempfile.TemporaryDirectory() as tmp:
-        slice_do_train(card, tmp, snapshot)
+        png_step_s = slice_do_train(card, tmp, snapshot)
     do_train_counts = read(("fused_window_attention_packed",
                             "fused_window_attention_packed_backward"), "the do_train slice")
 
@@ -4637,9 +4925,19 @@ def main() -> int:
         slice_architectures(card, tmp, snapshot)
     architectures = read(("fused_window_attention_packed",
                           "fused_window_attention_packed_backward"), "the architectures slice")
+
+    log("slice: real-image data (the JPEG fixtures against their manifest; "
+        "configs/DiverGen_swinL.yaml through train_net on a JPEG root with USE_COLOR_JITTER, "
+        "USE_INSTABOOST and USE_INP_ROTATE; lvis_crop -> extract_features -> "
+        "compute_similarity)")
+    reset()
+    with tempfile.TemporaryDirectory() as tmp:
+        slice_real_images(card, tmp, snapshot, png_step_s)
+    real_images = read(("fused_window_attention_packed",
+                        "fused_window_attention_packed_backward"), "the real-image slice")
     launches = {}
     for counts in (sdxl, chain, serving, fused, cascade, train, detector, detector_serving,
-                   do_train_counts, architectures):
+                   do_train_counts, architectures, real_images):
         for k, n in counts.items():
             launches[k] = launches.get(k, 0) + n
     # the split wrapper is on no slice's path (the packed kernels take any head

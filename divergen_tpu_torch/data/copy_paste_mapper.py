@@ -4,9 +4,12 @@ A copy of ``divergen_tpu/data/copy_paste_mapper.py`` without OpenCV (the
 self-copy crops are resized by ``data/transforms.py:resize_image`` in
 float32, ``INTER_LINEAR`` up to rounding): ``syn_copy`` / ``self_copy`` /
 ``both`` / ``p:<f>``, ``set_dataset`` with RC_ONLY / F_ONLY and RFS v0 / v1,
-every self-copy mode, the blank-ratio rescale and ``SEPARATE_SYN``. Not yet
-ported, and raising when the config asks for them: ``USE_COLOR_JITTER``,
-``USE_INSTABOOST`` and ``USE_INP_ROTATE`` (ROADMAP.md §1, item 6d).
+every self-copy mode, the blank-ratio rescale, ``SEPARATE_SYN``, and
+DiverGen's augmentation switches: ``USE_COLOR_JITTER``
+(``data/color_jitter.py``), ``USE_INSTABOOST`` with ``INSTABOOST_APPLY_TYPE``
+src / dst / both (``data/instaboost.py``) and ``USE_INP_ROTATE``
+(``data/inp_rotate.py``), drawing from the caller's generator in the JAX
+module's order.
 
 The JAX module's sources: ``DiverGen/divergen/data/custom_build_copypaste_mapper.py:669-958``
 (CopyPasteMapper: base mapper → copy-method select both/self_copy/syn_copy/
@@ -20,6 +23,8 @@ box-frame masks and pasted like pool instances.
 """
 from __future__ import annotations
 
+import json
+import os
 from typing import Dict, List, Optional, Sequence
 
 import numpy as np
@@ -62,10 +67,30 @@ class CopyPasteMapper:
                 random_scale_min_size=cfg.INPUT.RANDOM_SCALE_MIN_SIZE,
             )
         self.dataset: Optional[List[dict]] = None
-        for key in ("USE_COLOR_JITTER", "USE_INSTABOOST", "USE_INP_ROTATE"):
-            if cfg.INPUT.get(key, False):
-                raise NotImplementedError(
-                    f"INPUT.{key} is not yet ported (ROADMAP.md §1, item 6d)")
+        self.color_jitter = None
+        if cfg.INPUT.USE_COLOR_JITTER:
+            from .color_jitter import PhotoMetricDistortion
+
+            p = cfg.MODEL.ROI_BOX_HEAD.CAT_FREQ_PATH
+            self.color_jitter = PhotoMetricDistortion(
+                _cid_to_freq(p) if p else {}, tuple(cfg.INPUT.COLOR_JITTER_FREQ)
+            )
+        self.instaboost = None
+        self.instaboost_src = self.instaboost_dst = False
+        if cfg.INPUT.USE_INSTABOOST:
+            from .instaboost import InstaBoost
+
+            p = cfg.MODEL.ROI_BOX_HEAD.CAT_FREQ_PATH
+            self.instaboost = InstaBoost(
+                cid_to_freq=_cid_to_freq(p) if p and os.path.exists(p) else {},
+                apply_freq=tuple(cfg.INPUT.INSTABOOST_FREQ),
+            )
+            apply_type = cfg.INPUT.INSTABOOST_APPLY_TYPE
+            if apply_type not in ("both", "src", "dst"):
+                raise ValueError(f"INPUT.INSTABOOST_APPLY_TYPE: both, src or dst, not "
+                                 f"{apply_type!r}")
+            self.instaboost_src = apply_type in ("both", "src")
+            self.instaboost_dst = apply_type in ("both", "dst")
 
     def set_dataset(self, dataset: Sequence[dict]) -> None:
         """Raw records for self-copy source sampling (mapper.set_dataset,
@@ -77,12 +102,9 @@ class CopyPasteMapper:
         dataset = list(dataset)
         self._cid_to_freq = {}
         if self.cfg.MODEL.ROI_BOX_HEAD.CAT_FREQ_PATH:
-            import json, os
-
             p = self.cfg.MODEL.ROI_BOX_HEAD.CAT_FREQ_PATH
             if os.path.exists(p):
-                with open(p) as f:
-                    self._cid_to_freq = {c["id"] - 1: c["frequency"] for c in json.load(f)}
+                self._cid_to_freq = _cid_to_freq(p)
         if (i.RC_ONLY or i.F_ONLY) and self._cid_to_freq:
             keep = {"f"} if i.F_ONLY else {"r", "c"}
             filtered = []
@@ -161,7 +183,12 @@ class CopyPasteMapper:
         if not idxs:
             return out
         try:
-            src = self.mapper(self.dataset[idxs[0]], rng)
+            src_rec = self.dataset[idxs[0]]
+            if self.instaboost_src:
+                # jitter the SOURCE image's instances before cutting patches
+                # (reference src path, custom_build_copypaste_mapper.py:699-706)
+                src_rec = self.instaboost(src_rec, rng)
+            src = self.mapper(src_rec, rng)
         except FileNotFoundError:
             return out
         valid_idx = np.where(src["gt"]["valid"])[0]
@@ -227,9 +254,31 @@ class CopyPasteMapper:
 
     def __call__(self, record: dict, rng: Optional[np.random.Generator] = None) -> dict:
         rng = rng or np.random.default_rng()
+        if self.instaboost_dst:
+            # jitter the destination image's own instances before mapping
+            # (reference __call__ head, custom_build_copypaste_mapper.py:858-862)
+            record = self.instaboost(record, rng)
         sample = self.mapper(record, rng)
+        if self.color_jitter is not None:
+            sample = self.color_jitter(sample, rng)
         ps = self.pool.patch_size if self.pool else self.cfg.DATALOADER.PATCH_SIZE
         mp = self.max_pastes
+
+        if self.cfg.INPUT.USE_INP_ROTATE and rng.random() < self.cfg.INPUT.INP_ROTATE_PROB:
+            # inpaint-rotate replaces copy-paste for this image (the
+            # reference returns the rotated sample before SCP,
+            # custom_copypaste.py:250-252)
+            from .inp_rotate import inp_rotate_sample
+
+            out = inp_rotate_sample(
+                sample, rng, patch_size=ps, max_pastes=mp,
+                angle_range=float(self.cfg.INPUT.INP_ROTATE_ANG),
+            )
+            if "patches" not in out:
+                out.update(_empty_patches(mp, ps))
+            out.setdefault("patch_angle", np.zeros((mp,), np.float32))
+            out.setdefault("patch_filenames", np.full((mp,), "", dtype="<U256"))
+            return out
 
         method = self.copy_method
         if method == "both" or method.startswith("p:"):
@@ -254,6 +303,12 @@ class CopyPasteMapper:
         # uniform batch schema across the rotate/pool/self-copy paths
         sample.setdefault("patch_angle", np.zeros((mp,), np.float32))
         return sample
+
+
+def _cid_to_freq(path: str) -> Dict[int, str]:
+    """0-based class id -> 'r' / 'c' / 'f' of an LVIS category-info json."""
+    with open(path) as f:
+        return {c["id"] - 1: c["frequency"] for c in json.load(f)}
 
 
 def _empty_patches(max_pastes: int, ps: int) -> Dict[str, np.ndarray]:

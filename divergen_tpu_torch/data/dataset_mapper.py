@@ -1,8 +1,8 @@
 """Dataset mapper: record dict → device-ready padded sample (numpy).
 
 Counterpart of ``divergen_tpu/data/dataset_mapper.py``, both halves, without
-OpenCV: the image read from its file (PNG only, through ``utils/png.py``),
-resized by ``data/transforms.py:resize_image`` (``F.interpolate``; on uint8
+OpenCV: the image read from its file (PNG or baseline JPEG, through
+``utils/image_io.py``), resized by ``data/transforms.py:resize_image`` (``F.interpolate``; on uint8
 within one level of ``cv2.resize``), polygons rasterized by the native
 ``fill_polygon`` (the pixels of ``cv2.fillPoly``) and RLE crops resized in
 float32 (``INTER_LINEAR`` up to rounding). The JAX module's sources:
@@ -28,8 +28,8 @@ from typing import List, Optional
 import numpy as np
 
 from .. import native
+from ..utils.image_io import read_rgb
 from ..utils.mask_codec import rle_decode
-from ..utils.png import read_rgb
 from .transforms import (
     EfficientDetResizeCrop,
     RandomFlip,
@@ -38,20 +38,12 @@ from .transforms import (
     resize_image,
 )
 
-_PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
-
 
 def read_image(path: str) -> np.ndarray:
-    """(H, W, 3) uint8 RGB of a PNG file. Any other format raises: JPEG (what
-    LVIS and COCO ship) is not yet supported, as the port decodes images
-    without OpenCV or PIL. A missing file raises ``FileNotFoundError``, which
-    the train loader skips."""
-    with open(path, "rb") as f:
-        head = f.read(8)
-    if head != _PNG_SIGNATURE:
-        kind = "JPEG" if head[:2] == b"\xff\xd8" else "not a PNG"
-        raise ValueError(f"{path}: {kind}; the port reads PNG images only (JPEG input is not "
-                         "yet supported); convert the image to PNG")
+    """(H, W, 3) uint8 RGB of a PNG or baseline-JPEG file, the pixels of
+    ``cv2.imread`` + BGR -> RGB. A missing file raises ``FileNotFoundError``,
+    which the train loader skips; a file the port does not decode
+    (progressive JPEG, another format) raises ``ValueError`` naming it."""
     return read_rgb(path)
 
 

@@ -1,7 +1,8 @@
 """Host-side RGBA instance pool: selection + decode only.
 
-A copy of ``divergen_tpu/data/inst_pool.py`` without OpenCV: PNGs are read by
-``utils/png.py`` (8-bit RGBA, RGB and gray; an entry it cannot read is
+A copy of ``divergen_tpu/data/inst_pool.py`` without OpenCV: an RGBA entry is
+read by ``utils/png.py``, an ``img|mask`` pair by ``utils/image_io.py`` (PNG or
+baseline JPEG, as ``cv2.imread`` takes either; an entry that cannot be read is
 skipped, as the JAX package's ``except Exception: return None``), the largest
 part of an alpha mask is OpenCV's ``findContours`` + ``contourArea`` +
 ``fillPoly`` rebuilt in ``native/`` (``external_contours``,
@@ -41,7 +42,8 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 
 from .. import native
-from ..utils.png import read_gray, read_png, read_rgb
+from ..utils.image_io import read_gray, read_rgb
+from ..utils.png import read_png
 from .transforms import resize_image
 
 FREQ_KEYS = ("r", "c", "f")

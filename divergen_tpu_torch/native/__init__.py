@@ -1,21 +1,24 @@
-"""Native (C++) host kernels of evaluation, compiled on first use and loaded
-through ctypes.
+"""Native (C++) host kernels, compiled on first use and loaded through ctypes.
 
 Counterpart of ``divergen_tpu/native/__init__.py``: greedy COCO matching and
 the RLE mask IoU (``cocoeval.cpp``), the fused paste + RLE encode of a
 detection mask and the RLE string codec (``mask_codec.cpp``; both files are
-copies of the JAX package's), plus the polygon fill of ``cv2.fillPoly``
-(``polygon_fill.cpp``) and the outer borders of ``cv2.findContours``
-(``contours.cpp``), which the JAX package takes from OpenCV.
+copies of the JAX package's), plus the routines the JAX package takes from
+OpenCV: the polygon fill of ``cv2.fillPoly`` (``polygon_fill.cpp``), the
+outer borders of ``cv2.findContours`` (``contours.cpp``), the baseline-JPEG
+decoder behind ``cv2.imread`` / ``cv2.imdecode`` (``jpeg.cpp``), and
+``cv2.blur``, ``dilate``, ``cvtColor`` RGB <-> HSV, ``warpAffine``,
+``resize`` on float32 and ``inpaint`` (Telea) (``imgproc.cpp``).
 
-The four sources are built with ``g++ -O3 -shared -fPIC -std=c++17`` into
-one library under ``build/native/`` at the root of the checkout, named by a
-hash of the sources, so an edit builds a new one. Nothing is built at import
-time. A failed build raises: there is no numpy fallback here (the JAX package
-falls back with a warning). The numpy versions of these functions are the
-plain twins the tests hold them against (``greedy_match_np`` and
-``mask_iou_np`` in ``evaluation/coco_eval_np.py``, ``paste_mask_np`` +
-``rle_encode``).
+The sources are built with ``g++ -O3 -shared -fPIC -std=c++17
+-ffp-contract=off`` into one library under ``build/native/`` at the root of
+the checkout, named by a hash of the sources, so an edit builds a new one.
+Nothing is built at import time. A failed build raises: there is no numpy or
+Python fallback here (the JAX package falls back with a warning). The numpy
+versions of the evaluation functions are the plain twins the tests hold them
+against (``greedy_match_np`` and ``mask_iou_np`` in
+``evaluation/coco_eval_np.py``, ``paste_mask_np`` + ``rle_encode``); the
+image routines are held against OpenCV itself.
 """
 from __future__ import annotations
 
@@ -31,9 +34,9 @@ import numpy as np
 
 SOURCES = tuple(Path(__file__).resolve().parent / name
                 for name in ("cocoeval.cpp", "mask_codec.cpp", "polygon_fill.cpp",
-                               "contours.cpp"))
+                             "contours.cpp", "jpeg.cpp", "imgproc.cpp"))
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "native"
-GXX_FLAGS = ("-O3", "-shared", "-fPIC", "-std=c++17")
+GXX_FLAGS = ("-O3", "-shared", "-fPIC", "-std=c++17", "-ffp-contract=off")
 
 _lock = threading.Lock()
 _lib = None
@@ -59,7 +62,7 @@ def build() -> Path:
     try:
         res = subprocess.run(cmd, capture_output=True, text=True)
     except FileNotFoundError as e:
-        raise RuntimeError(f"the native evaluation library cannot be built: {e}") from e
+        raise RuntimeError(f"the native library cannot be built: {e}") from e
     if res.returncode != 0:
         tmp.unlink(missing_ok=True)
         raise RuntimeError(f"g++ failed with code {res.returncode}:\n{' '.join(cmd)}\n"
@@ -86,6 +89,21 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.fill_polygon.restype = i64
     lib.external_contours.argtypes = [p, i64, i64, p, i64, p, i64, p]
     lib.external_contours.restype = i64
+    s = ctypes.c_char_p
+    lib.jpeg_probe.argtypes = [s, i64, i64, p, s, i64]
+    lib.jpeg_probe.restype = i64
+    lib.jpeg_decode.argtypes = [s, i64, i64, p, i64, s, i64]
+    lib.jpeg_decode.restype = i64
+    for name, args in (("box_blur_u8", [p, i64, i64, i64, i64, i64, p]),
+                       ("box_blur_f32", [p, i64, i64, i64, i64, i64, p]),
+                       ("dilate_u8", [p, i64, i64, i64, i64, i64, p]),
+                       ("rgb_to_hsv_u8", [p, i64, p]),
+                       ("hsv_to_rgb_u8", [p, i64, p]),
+                       ("warp_affine_u8", [p, i64, i64, i64, p, i64, i64, i64, p]),
+                       ("resize_linear_f32", [p, i64, i64, i64, i64, i64, p]),
+                       ("inpaint_telea_u8", [p, i64, i64, i64, p, ctypes.c_double, p])):
+        getattr(lib, name).argtypes = args
+        getattr(lib, name).restype = None
 
 
 def get_lib() -> ctypes.CDLL:
@@ -227,3 +245,106 @@ def contour_area(pts: np.ndarray) -> float:
         return 0.0
     prev = np.roll(pts, 1, axis=0)
     return abs(float(np.sum(prev[:, 0] * pts[:, 1] - prev[:, 1] * pts[:, 0])) * 0.5)
+
+
+# -- images -----------------------------------------------------------------
+def jpeg_decode(data: bytes, gray: bool = False) -> np.ndarray:
+    """A baseline JPEG's pixels: (H, W, 3) uint8 RGB, or (H, W) with ``gray``,
+    as ``cv2.imdecode`` gives them with ``IMREAD_COLOR`` (then BGR -> RGB) or
+    ``IMREAD_GRAYSCALE``, EXIF orientation applied. A mode it does not decode,
+    or a truncated stream, raises ``ValueError`` with the reason."""
+    lib = get_lib()
+    data = bytes(data)
+    err = ctypes.create_string_buffer(256)
+    dims = np.zeros(5, np.int64)
+    if lib.jpeg_probe(data, len(data), int(gray), _ptr(dims), err, len(err)):
+        raise ValueError(err.value.decode())
+    h, w, c = (int(v) for v in dims[:3])
+    out = np.empty((h, w, c), np.uint8)
+    if lib.jpeg_decode(data, len(data), int(gray), _ptr(out), out.size, err, len(err)):
+        raise ValueError(err.value.decode())
+    return out[..., 0] if gray else out
+
+
+def _image(img: np.ndarray, dtype) -> Tuple[np.ndarray, int, int, int]:
+    if img.dtype != dtype or img.ndim not in (2, 3):
+        raise ValueError(f"an (H, W) or (H, W, C) {np.dtype(dtype).name} image, got "
+                         f"{img.dtype} {img.shape}")
+    img = np.ascontiguousarray(img)
+    return img, img.shape[0], img.shape[1], 1 if img.ndim == 2 else img.shape[2]
+
+
+def box_blur(img: np.ndarray, ksize: Tuple[int, int]) -> np.ndarray:
+    """``cv2.blur(img, ksize)`` (ksize as (width, height)) on uint8 or float32."""
+    if img.dtype not in (np.uint8, np.float32):
+        raise ValueError(f"box_blur: uint8 or float32, got {img.dtype}")
+    img, h, w, c = _image(img, img.dtype)
+    out = np.empty_like(img)
+    fn = get_lib().box_blur_u8 if img.dtype == np.uint8 else get_lib().box_blur_f32
+    fn(_ptr(img), h, w, c, int(ksize[1]), int(ksize[0]), _ptr(out))
+    return out
+
+
+def dilate(mask: np.ndarray, ksize: Tuple[int, int] = (3, 3), iterations: int = 1) -> np.ndarray:
+    """``cv2.dilate(mask, np.ones(ksize[::-1], np.uint8), iterations=...)`` on a
+    2-D uint8 map (ksize as (width, height))."""
+    mask, h, w, c = _image(mask, np.uint8)
+    if c != 1 or mask.ndim != 2:
+        raise ValueError(f"dilate: a 2-D uint8 map, got {mask.shape}")
+    out = np.empty_like(mask)
+    get_lib().dilate_u8(_ptr(mask), h, w, int(ksize[1]), int(ksize[0]), int(iterations),
+                        _ptr(out))
+    return out
+
+
+def _pixels3(img: np.ndarray, fn_name: str) -> np.ndarray:
+    if img.dtype != np.uint8 or img.shape[-1:] != (3,):
+        raise ValueError(f"{fn_name}: (..., 3) uint8, got {img.dtype} {img.shape}")
+    img = np.ascontiguousarray(img)
+    out = np.empty_like(img)
+    getattr(get_lib(), fn_name)(_ptr(img), img.size // 3, _ptr(out))
+    return out
+
+
+def rgb_to_hsv(img: np.ndarray) -> np.ndarray:
+    """``cv2.cvtColor(img, cv2.COLOR_RGB2HSV)`` on uint8 (H in 0..179)."""
+    return _pixels3(img, "rgb_to_hsv_u8")
+
+
+def hsv_to_rgb(img: np.ndarray) -> np.ndarray:
+    """``cv2.cvtColor(img, cv2.COLOR_HSV2RGB)`` on uint8."""
+    return _pixels3(img, "hsv_to_rgb_u8")
+
+
+def warp_affine(img: np.ndarray, m: np.ndarray, dsize: Tuple[int, int],
+                nearest: bool = False) -> np.ndarray:
+    """``cv2.warpAffine(img, m, dsize, flags=INTER_NEAREST if nearest else
+    INTER_LINEAR)`` on uint8, constant-0 border (dsize as (width, height))."""
+    img, h, w, c = _image(img, np.uint8)
+    m = np.ascontiguousarray(np.asarray(m, np.float64).reshape(2, 3))
+    dw, dh = int(dsize[0]), int(dsize[1])
+    out = np.empty((dh, dw) + img.shape[2:], np.uint8)
+    get_lib().warp_affine_u8(_ptr(img), h, w, c, _ptr(m), dh, dw, int(nearest), _ptr(out))
+    return out
+
+
+def resize_linear(img: np.ndarray, h: int, w: int) -> np.ndarray:
+    """``cv2.resize(img, (w, h), interpolation=cv2.INTER_LINEAR)`` on float32
+    (within 2e-6 of the value range)."""
+    img, sh, sw, c = _image(img, np.float32)
+    if (sh, sw) == (h, w):
+        return img.copy()
+    out = np.empty((int(h), int(w)) + img.shape[2:], np.float32)
+    get_lib().resize_linear_f32(_ptr(img), sh, sw, c, int(h), int(w), _ptr(out))
+    return out
+
+
+def inpaint_telea(img: np.ndarray, mask: np.ndarray, radius: float) -> np.ndarray:
+    """``cv2.inpaint(img, mask, radius, cv2.INPAINT_TELEA)`` on uint8."""
+    img, h, w, c = _image(img, np.uint8)
+    mask = np.ascontiguousarray(mask != 0, np.uint8)
+    if mask.shape != (h, w):
+        raise ValueError(f"inpaint_telea: an ({h}, {w}) mask, got {mask.shape}")
+    out = np.empty_like(img)
+    get_lib().inpaint_telea_u8(_ptr(img), h, w, c, _ptr(mask), float(radius), _ptr(out))
+    return out

@@ -1,4 +1,4 @@
-"""Filtration stage CLIs (torch): five entry points sharing core.py.
+"""Filtration stage CLIs (torch): six entry points sharing core.py.
 
 Counterpart of ``divergen_tpu/pipeline/filteration/cli.py``, with the same
 flags and artifact formats plus ``--device``:
@@ -10,13 +10,15 @@ flags and artifact formats plus ``--device``:
 - ``clean_pool``: the best segmentation method per image by CLIP score, the
   score, area and similarity filters, the RGBA bbox crop as PNG, the pool
   JSON that ``data/inst_pool.py`` reads (host only)
+- ``lvis_crop``: per-annotation crops of an LVIS-format set (tight, square
+  or padded box; white, black, box-blurred or original background) as PNG,
+  the real-instance images ``extract_features`` embeds (host only)
 
 Without a CLIP checkpoint the towers run on random weights: the artifact
-plumbing still runs end to end. Images and masks are PNG
-(``utils/png.py``): ``clean_pool`` reads RGB and writes RGBA where the JAX
-CLI's OpenCV reads BGR and writes BGRA, so the files hold the same pixels.
-``lvis_crop`` (it reads LVIS JPEGs) and ``--method dinov2`` are not ported
-yet.
+plumbing still runs end to end. Images are read by ``utils/image_io.py``
+(PNG or baseline JPEG, the pixels of ``cv2.imread``) and written as PNG: the
+port reads RGB and writes RGB(A) where the JAX CLI's OpenCV reads BGR and
+writes BGR(A), so the files hold the same pixels. ``--method dinov2`` is not ported yet.
 
     python -c "from divergen_tpu_torch.pipeline.filteration.cli import \\
         extract_features as f; raise SystemExit(f())" --in_dir samples/ \\
@@ -294,7 +296,8 @@ def clean_pool(argv=None) -> int:
 
     from concurrent.futures import ThreadPoolExecutor
 
-    from ...utils.png import read_gray, read_rgb, write_png
+    from ...utils.image_io import read_gray, read_rgb
+    from ...utils.png import write_png
 
     scores = []
     for sj in args.score_jsons:
@@ -355,4 +358,70 @@ def clean_pool(argv=None) -> int:
     with open(args.out_json, "w") as f:
         json.dump(pool, f)
     print(f"pool: {sum(len(v) for v in pool.values())} instances, {len(pool)} categories")
+    return 0
+
+
+# ---------------- 6. LVIS crop extraction ----------------
+def lvis_crop(argv=None) -> int:
+    """One PNG per annotation, ``<out_dir>/<category_id>/<annotation_id>.png``:
+    the annotation's box cut tight, as a square, or padded by
+    ``--padding_width``, over a white, black, box-blurred (``cv2.blur`` 10 x 10,
+    ``native.box_blur``) or untouched background outside its polygons."""
+    p = argparse.ArgumentParser("convert_lvis_to_coco_crop")
+    p.add_argument("--lvis_json", required=True)
+    p.add_argument("--image_root", required=True)
+    p.add_argument("--out_dir", required=True)
+    p.add_argument("--crop_mode", choices=["tight", "square", "padding"], default="padding")
+    p.add_argument("--background", choices=["white", "blur", "ori", "black"], default="blur")
+    p.add_argument("--padding_width", type=int, default=40)
+    p.add_argument("--max_per_category", type=int, default=0)
+    args = p.parse_args(argv)
+
+    from ... import native
+    from ...utils.image_io import read_rgb
+    from ...utils.mask_codec import polygons_to_bitmask
+    from ...utils.png import write_png
+
+    with open(args.lvis_json) as f:
+        data = json.load(f)
+    imgs = {i["id"]: i for i in data["images"]}
+    per_cat_count: Dict[int, int] = defaultdict(int)
+    for ann in data["annotations"]:
+        cid = ann["category_id"]
+        if args.max_per_category and per_cat_count[cid] >= args.max_per_category:
+            continue
+        info = imgs[ann["image_id"]]
+        fn = info.get("file_name") or info["coco_url"][30:]
+        try:
+            img = read_rgb(os.path.join(args.image_root, fn))
+        except FileNotFoundError:  # cv2.imread gives None: the JAX CLI skips it
+            continue
+        h, w = img.shape[:2]
+        mask = polygons_to_bitmask(ann["segmentation"], h, w).astype(np.uint8)
+        x, y, bw, bh = [int(round(v)) for v in ann["bbox"]]
+        x2, y2 = min(x + bw, w), min(y + bh, h)
+        x, y = max(x, 0), max(y, 0)
+        if x2 - x < 2 or y2 - y < 2:
+            continue
+        if args.background == "white":
+            img = np.where(mask[..., None] > 0, img, 255).astype(np.uint8)
+        elif args.background == "black":
+            img = np.where(mask[..., None] > 0, img, 0).astype(np.uint8)
+        elif args.background == "blur":
+            img = np.where(mask[..., None] > 0, img, native.box_blur(img, (10, 10)))
+        if args.crop_mode == "tight":
+            crop = img[y:y2, x:x2]
+        elif args.crop_mode == "square":
+            side = max(x2 - x, y2 - y)
+            cx, cy = (x + x2) // 2, (y + y2) // 2
+            xx, yy = max(cx - side // 2, 0), max(cy - side // 2, 0)
+            crop = img[yy:min(yy + side, h), xx:min(xx + side, w)]
+        else:  # padding
+            pw = args.padding_width
+            crop = img[max(y - pw, 0):min(y2 + pw, h), max(x - pw, 0):min(x2 + pw, w)]
+        out_cat = os.path.join(args.out_dir, str(cid))
+        os.makedirs(out_cat, exist_ok=True)
+        write_png(os.path.join(out_cat, f"{ann['id']}.png"), np.ascontiguousarray(crop))
+        per_cat_count[cid] += 1
+    print("lvis_crop done")
     return 0

@@ -5,7 +5,8 @@ embeddings for LVIS crops and masked generated images, cosine similarity with
 the total.json / total.csv pivot, masked image × "a photo of a single {c}"
 text score with the mask-area fraction, and the avg ≥ threshold keep list.
 The towers run on a padded fixed-size batch on the encoder's device; features
-are stored as ``.npy``. Images are decoded by ``utils.png`` and resized with
+are stored as ``.npy``. Images are decoded by ``utils.image_io`` (PNG or
+baseline JPEG, the pixels of ``cv2.imread``) and resized with
 ``F.interpolate``: bicubic there has the a = −0.75 kernel of OpenCV's
 ``INTER_CUBIC``, which rounds its 8-bit arithmetic differently (a gray level
 or two per pixel).
@@ -21,7 +22,7 @@ import torch
 import torch.nn.functional as F
 
 from ...utils.dist import rank_world
-from ...utils.png import read_gray, read_rgb
+from ...utils.image_io import read_gray, read_rgb
 
 
 # ---------------- host image prep ----------------

@@ -8,8 +8,8 @@ image_count; files rank-sharded ``i % world == rank``; existence-check
 resume. Files go through the model in fixed-size batches; the resizes (to the
 model's square input, bilinear, and of the mask back to the image's size,
 nearest) run on the device. Without ``--sam_checkpoint`` the model runs on
-random weights drawn from a fixed seed. Inputs are PNGs: there is no JPEG
-decoder without OpenCV or PIL, and a ``.jpg`` raises.
+random weights drawn from a fixed seed. Inputs are PNG or baseline JPEG
+(``utils/image_io.py``, the pixels of ``cv2.imread``).
 
     python -m divergen_tpu_torch.pipeline.segmentation.corner_masks \\
         --in_dir samples/ --out_dir masks/ --model_type vit_h --batch 4
@@ -96,7 +96,8 @@ def predict_instance_masks(sam, images: torch.Tensor, points: torch.Tensor,
 def main(argv=None) -> int:
     args = build_argparser().parse_args(argv)
     from ...utils.dist import entry_device, rank_world
-    from ...utils.png import read_rgb, write_png
+    from ...utils.image_io import read_rgb
+    from ...utils.png import write_png
 
     device = entry_device(args.device)
     rank, world = rank_world(args.dist)

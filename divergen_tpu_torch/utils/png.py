@@ -3,7 +3,8 @@
 The writer stores 8-bit RGB, RGBA or gray, the pixels ``cv2.imwrite`` would
 store for the same array (RGB given as RGB, not BGR). The reader decodes
 8-bit gray, RGB and RGBA, non-interlaced, with all five scanline filters. So
-the port needs neither OpenCV nor PIL. There is no JPEG decoder.
+the port needs neither OpenCV nor PIL. JPEG files go through
+``utils/image_io.py``, which picks this reader or the native JPEG decoder.
 """
 from __future__ import annotations
 
@@ -76,10 +77,14 @@ def read_png(path: str) -> np.ndarray:
     """Decode an 8-bit, non-interlaced PNG: (H, W) uint8 for gray, (H, W, 3)
     for RGB, (H, W, 4) for RGBA."""
     if path.lower().endswith((".jpg", ".jpeg")):
-        raise ValueError(f"{path}: JPEG input is not supported (the port decodes images "
-                         "without OpenCV or PIL); convert it to PNG")
+        raise ValueError(f"{path}: a JPEG name; read_png reads PNG only "
+                         "(utils/image_io.py reads JPEG too)")
     with open(path, "rb") as f:
-        data = f.read()
+        return decode_png(f.read(), path)
+
+
+def decode_png(data: bytes, path: str = "<bytes>") -> np.ndarray:
+    """``read_png`` of a file's bytes (``path`` names it in errors)."""
     if data[:8] != _SIGNATURE:
         raise ValueError(f"{path}: not a PNG")
     pos, idat, header = 8, [], None
@@ -109,17 +114,25 @@ def read_png(path: str) -> np.ndarray:
 
 def read_rgb(path: str) -> np.ndarray:
     """(H, W, 3) uint8 RGB whatever the file's color type (alpha dropped)."""
-    img = read_png(path)
-    if img.ndim == 2:
-        return np.repeat(img[..., None], 3, axis=2)
-    return img[..., :3]
+    return as_rgb(read_png(path))
 
 
 def read_gray(path: str) -> np.ndarray:
     """(H, W) uint8: gray as stored (what ``cv2.imread(path,
     cv2.IMREAD_GRAYSCALE)`` gives), color through the BT.601 weights (within
     one gray level of OpenCV's fixed-point conversion)."""
-    img = read_png(path)
+    return as_gray(read_png(path))
+
+
+def as_rgb(img: np.ndarray) -> np.ndarray:
+    """A decoded PNG as (H, W, 3) RGB (``read_rgb``)."""
+    if img.ndim == 2:
+        return np.repeat(img[..., None], 3, axis=2)
+    return img[..., :3]
+
+
+def as_gray(img: np.ndarray) -> np.ndarray:
+    """A decoded PNG as (H, W) gray (``read_gray``)."""
     if img.ndim == 2:
         return img
     rgb = img[..., :3].astype(np.float32)

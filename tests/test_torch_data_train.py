@@ -292,10 +292,22 @@ def test_train_dataset_mapper_sem_seg_and_flip(synth):
 
 
 def test_unported_augmentations_raise(synth):
+    """The three augmentation switches, once refused, are ported: each builds
+    and gives the JAX mapper's instances on the synthetic root (the pixels are
+    held against the JAX modules in tests/test_torch_augment.py)."""
     for key in ("INPUT.USE_COLOR_JITTER", "INPUT.USE_INSTABOOST", "INPUT.USE_INP_ROTATE"):
-        _, tcfg = mapper_cfgs(synth, **{key: True})
-        with pytest.raises(NotImplementedError, match="not yet ported"):
-            tcpm.CopyPasteMapper(tdm.DatasetMapper(tcfg, True), tcfg)
+        jcfg, tcfg = mapper_cfgs(synth, **{key: True, "INPUT.COPY_METHOD": "self_copy"})
+        jm = jcpm.CopyPasteMapper(jdm.DatasetMapper(jcfg, True), jcfg)
+        tm = tcpm.CopyPasteMapper(tdm.DatasetMapper(tcfg, True), tcfg)
+        jm.set_dataset(synth["records"])
+        tm.set_dataset(synth["records"])
+        for i, rec in enumerate(synth["records"][:3]):
+            want, got = jm(rec, np.random.default_rng(i)), tm(rec, np.random.default_rng(i))
+            assert set(got) == set(want), key
+            for k in ("boxes", "classes", "valid"):
+                np.testing.assert_array_equal(got["gt"][k], want["gt"][k], err_msg=key)
+            for k in ("patch_boxes", "patch_classes", "patch_valid", "patch_angle"):
+                np.testing.assert_array_equal(got[k], want[k], err_msg=key)
 
 
 # -- the loader ------------------------------------------------------------------------

@@ -222,8 +222,37 @@ def test_corner_mask_cli_matches_jax_cli(tmp_path):
 
 
 def test_corner_mask_cli_rejects_jpeg(tmp_path):
+    """The corner-mask CLI reads baseline JPEGs as the JAX CLI does (the
+    decoder gives ``cv2.imread``'s pixels, so the masks are the JPEG inputs'
+    counterpart of test_corner_mask_cli_matches_jax_cli's, at most 2 pixels a
+    mask apart) and rejects the JPEGs the port does not decode (progressive),
+    naming the file."""
+    sd = synthetic_sam_state_dict(np.random.RandomState(7), **SAM_TINY)
+    ckpt = str(tmp_path / "sam_tiny.pt")
+    torch.save({k: torch.from_numpy(v) for k, v in sd.items()}, ckpt)
+    rng = np.random.RandomState(8)
     (tmp_path / "in" / "c").mkdir(parents=True)
-    cv2.imwrite(str(tmp_path / "in" / "c" / "a.jpg"), np.zeros((64, 64, 3), np.uint8))
-    with pytest.raises(ValueError, match="JPEG"):
-        tcm.main(["--in_dir", str(tmp_path / "in"), "--out_dir", str(tmp_path / "out"),
+    for i in range(3):
+        img = cv2.GaussianBlur(rng.randint(0, 255, (64, 64, 3)).astype(np.uint8), (9, 9), 3)
+        cv2.imwrite(str(tmp_path / "in" / "c" / f"7_{i:07d}.jpg"), img,
+                    [cv2.IMWRITE_JPEG_QUALITY, 85])
+    common = ["--in_dir", str(tmp_path / "in"), "--img_size", "64", "--batch", "2", "--tiny",
+              "--sam_checkpoint", ckpt]
+    assert jcm.main(common + ["--out_dir", str(tmp_path / "jax")]) == 0
+    assert tcm.main(common + ["--out_dir", str(tmp_path / "torch"), "--device", "cpu"]) == 0
+    names = sorted(os.listdir(tmp_path / "jax" / "c"))
+    assert names == sorted(os.listdir(tmp_path / "torch" / "c")) == [
+        f"7_{i:07d}.png" for i in range(3)]
+    for name in names:
+        want = cv2.imread(str(tmp_path / "jax" / "c" / name), cv2.IMREAD_UNCHANGED)
+        got = cv2.imread(str(tmp_path / "torch" / "c" / name), cv2.IMREAD_UNCHANGED)
+        assert got.shape == want.shape == (64, 64)
+        assert 0 < (want == 255).mean() < 1
+        assert (got != want).sum() <= 2, (name, (got != want).sum())
+    (tmp_path / "prog" / "c").mkdir(parents=True)
+    bad = str(tmp_path / "prog" / "c" / "a.jpg")
+    cv2.imwrite(bad, np.zeros((64, 64, 3), np.uint8), [cv2.IMWRITE_JPEG_PROGRESSIVE, 1])
+    with pytest.raises(ValueError, match="progressive") as err:
+        tcm.main(["--in_dir", str(tmp_path / "prog"), "--out_dir", str(tmp_path / "out"),
                   "--img_size", "64", "--tiny", "--device", "cpu"])
+    assert bad in str(err.value)

@@ -131,13 +131,22 @@ def test_identity_mapper_is_exact(tmp_path):
 
 
 def test_non_png_and_train_half_raise(tmp_path):
-    jpg = tmp_path / "im.jpg"
-    jpg.write_bytes(b"\xff\xd8\xff\xe0" + bytes(64))
-    with pytest.raises(ValueError, match="JPEG input is not yet supported"):
-        tdm.read_image(str(jpg))
+    """A baseline JPEG reads as the JAX mapper's ``cv2.imread`` reads it; a
+    progressive one, and a file of another format, raise naming the file."""
+    import cv2
+
+    img = (np.random.RandomState(9).rand(37, 53, 3) * 255).astype(np.uint8)
+    jpg = str(tmp_path / "im.jpg")
+    cv2.imwrite(jpg, img, [cv2.IMWRITE_JPEG_QUALITY, 80])
+    np.testing.assert_array_equal(tdm.read_image(jpg), jdm.read_image(jpg))
+    progressive = str(tmp_path / "progressive.jpg")
+    cv2.imwrite(progressive, img, [cv2.IMWRITE_JPEG_PROGRESSIVE, 1])
+    with pytest.raises(ValueError, match="progressive") as err:
+        tdm.read_image(progressive)
+    assert progressive in str(err.value)
     other = tmp_path / "im.png"
     other.write_bytes(b"GIF89a" + bytes(32))
-    with pytest.raises(ValueError, match="not a PNG"):
+    with pytest.raises(ValueError, match="neither a PNG nor a JPEG"):
         tdm.read_image(str(other))
     # the train half is ported: it builds, and a missing image file raises
     # FileNotFoundError, which the train loader skips
