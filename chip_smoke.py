@@ -340,7 +340,38 @@ Run from the root of a checkout:  python3 chip_smoke.py
        ``extract_features`` (CLIP ViT-L/14, random weights) on the card and
        ``compute_similarity``: one crop per annotation, finite similarities
        in [-1, 1].
-13. Prints the kernels' JSON line (the 13 wrappers' entries; the float32
+13. Slice of weak supervision and the rest of the detector's modules, launch
+   counters reset just before it (``slice_weak_supervision``):
+   (a) the flagship (``flagship_cfg``: Swin-L, 1453 classes, 896², B = 2,
+       bf16 over float32 parameters, remat) on an image-labelled batch, one
+       step each (``CustomRCNN.forward(ann_type=…)``, backward, AdamW, EMA)
+       of ``max_size``, ``max_score``, ``min_loss``, ``image`` and ``wsddn``
+       with ``WITH_SOFTMAX_PROP`` on the linear classifier, then on the
+       zero-shot classifier with ``WITH_CAPTION`` a ``captiontag`` step on a
+       random (2, 512) ``cap_emb`` and a step with the dynamic classifier
+       over the image labels: every loss finite, the CenterNet, box and mask
+       losses exactly 0, the backbone's gradients non-zero, exactly 48
+       forward and 24 backward launches of fused_window_attention_packed a
+       step; ms per step;
+   (b) the float32 weak step of ResNet-18 + FPN at 64², ``max_size`` and
+       ``wsddn``, on the card against the CPU: losses within 2e-6 relative,
+       the gradient norm within 2e-4 (``DRYRUN_BOUNDS``);
+   (c) ``Res5ROIHeads.image_label_losses`` on ``configs/BSGAL_R50.yaml``'s
+       model with the Res5 heads, ``wsddn`` on its proposal-score branch,
+       one step, no kernel launch;
+   (d) ``extract_features --method dinov2 --dino_model vitg14`` on 64 crops
+       of the JPEG fixtures, then ``DinoEncoder("vitg14")`` in bf16 at 224²,
+       B = 64: finite unit-norm embeddings, images/s, peak memory; vits14 on
+       the card against the CPU within 1e-4 of max |ref|;
+   (e) ``inference_on_dataset_exp`` and ``LVISToCityscapesInstanceEvaluator``
+       with the flagship on the serving slice's synthetic LVIS set: the
+       ``det_<id>.npz`` files, finite AP, the native scorer's AP 1 against a
+       16-bit ground truth the port writes from the predictions, exactly 24
+       launches a forward; s per image;
+   (f) ``pairwise_iou_rotated`` and ``nms_rotated`` on 2000 boxes on the card
+       against the CPU (IoU within 1e-5, equal keep masks), ms of each.
+   It prints the smoke's wall clock before and after the slice.
+14. Prints the kernels' JSON line (the 13 wrappers' entries; the float32
    window backward body with its launches in 10; and each padded head-dim
    case of 3 with its checked call's launch), the card line, and as the
    last line {"ok": true, "device": {...}}. Any failed phase raises: exit
@@ -4370,6 +4401,472 @@ def slice_real_images(card: str, tmp: str, snapshot, png_step_s: float) -> None:
         f"[{min(values):.4f}, {max(values):.4f}] [{card}]")
 
 
+# ---- weak supervision, DINOv2, Cityscapes, inference_on_dataset_exp, rotated boxes ----
+WEAK_LABELS = 4  # image labels per image of a weak batch, the last one padding
+# (strategy, ROIHeadsConfig changes, ann_type) of the flagship's weak steps (a):
+# the linear classifier's, then the zero-shot classifier's
+WEAK_STEPS = (("max_size", {}, "image"), ("max_score", {}, "image"),
+              ("min_loss", {}, "image"), ("image", {}, "image"),
+              ("wsddn", {"with_softmax_prop": True}, "image"))
+ZEROSHOT_WEAK_STEPS = (("captiontag", {}, "captiontag"), ("dynamic classifier", {}, "image"))
+# the flagship's remat (USE_CHECKPOINT): two forward launches a block a step, one backward
+WEAK_LAUNCHES = (2 * SWIN_L_BLOCKS, SWIN_L_BLOCKS)
+DINO_CROPS = 64
+DINO_VITS_BOUND = 1e-4  # of max |CPU embedding|: vits14 float32, card against CPU
+ROTATED_BOXES = 2000
+# the card's float32 IoU against float64 on the CPU: within twice the CPU's own
+# float32 error, or 1e-5. Coordinates up to 2000 px carry float32 steps of
+# 1.2e-4 px, so either device's float32 IoU of a sliver overlap moves by ~1e-3
+ROTATED_IOU_BOUND = 1e-5
+
+
+def weak_labels(b: int, classes: int, gen: torch.Generator, device) -> dict:
+    """``image_labels`` (b, WEAK_LABELS) of random classes, the last one
+    padding (``image_labels_valid`` False)."""
+    labels = torch.randint(0, classes, (b, WEAK_LABELS), generator=gen).to(device)
+    valid = (torch.arange(WEAK_LABELS) < WEAK_LABELS - 1)[None].expand(b, -1).to(device)
+    return {"image_labels": labels, "image_labels_valid": valid}
+
+
+def check_weak_losses(what: str, losses: dict, image_keys) -> None:
+    """Every loss finite; the image losses positive; every other loss
+    (CenterNet, box, mask) exactly 0."""
+    values = {k: float(v.detach()) for k, v in losses.items()}
+    bad = {k: v for k, v in values.items() if not math.isfinite(v)
+           or (k in image_keys) != (v != 0.0) or (k in image_keys and v <= 0)}
+    if bad or not set(image_keys) <= set(values):
+        raise AssertionError(f"{what}: losses {values}")
+
+
+def backbone_grad_moved(model) -> bool:
+    return any(p.grad is not None and bool(p.grad.abs().max() > 0)
+               for p in model.bottom_up.parameters())
+
+
+def flagship_weak_steps(card: str, snapshot, zeroshot: bool) -> list:
+    """(a) Weak steps of the flagship (``flagship_cfg``: Swin-L, 1453
+    classes, 896², B = 2, bf16 over float32 parameters, AdamW, clipping, EMA,
+    remat) on an image-labelled batch: the forward through
+    ``CustomRCNN.forward(ann_type=…)``, the backward, AdamW and EMA
+    (``train_loop.apply_losses``). ``zeroshot`` builds the zero-shot
+    classifier with ``WITH_CAPTION`` (a captiontag step on a random (2, 512)
+    ``cap_emb``, then a step with the dynamic classifier over the image
+    labels); otherwise the linear classifier takes a step of each of
+    ``WEAK_STEPS``, the strategy set on the heads' config between steps (the
+    cascade builds no WSDDN branch, as in JAX: its ``wsddn`` step with
+    ``with_softmax_prop`` takes the class scores as proposal scores).
+    Each step: finite losses, the CenterNet, box and mask losses exactly 0,
+    the image losses positive, the backbone's gradients non-zero, exactly
+    ``WEAK_LAUNCHES`` of kernel 5. Returns the (label, ms) of each step."""
+    import dataclasses
+
+    from divergen_tpu_torch import graft_entry
+    from divergen_tpu_torch.engine.train_loop import apply_losses
+
+    cfg = graft_entry.flagship_cfg()
+    cfg.merge_from_list(["WITH_IMAGE_LABELS", True, "MODEL.ROI_BOX_HEAD.ADD_IMAGE_BOX", True])
+    if zeroshot:
+        cfg.merge_from_list(["MODEL.ROI_BOX_HEAD.USE_ZEROSHOT_CLS", True,
+                             "MODEL.WITH_CAPTION", True])
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    _, (state, batch, rng) = graft_entry._train_parts(cfg, torch.device("cuda"),
+                                                     cfg.INPUT.TRAIN_SIZE, 2, 20, None)
+    model, heads = state.model, state.model.roi_heads
+    classes = cfg.MODEL.ROI_HEADS.NUM_CLASSES
+    gen = torch.Generator().manual_seed(graft_entry.SEED)
+    gt = dict(batch["gt"], **weak_labels(2, classes, gen, "cuda"))
+    cap = torch.randn(2, cfg.MODEL.ROI_BOX_HEAD.ZEROSHOT_WEIGHT_DIM, generator=gen).cuda()
+    torch.cuda.synchronize()
+    log(f"  flagship weak state ({'zero-shot, captions' if zeroshot else 'linear'} classifier)"
+        f" built in {time.perf_counter() - t0:.1f} s")
+    image_keys = [f"image_loss_stage{s}" for s in range(heads.num_stages)]
+    base = heads.cfg
+    out = []
+    for label, changes, ann_type in (ZEROSHOT_WEAK_STEPS if zeroshot else WEAK_STEPS):
+        heads.cfg = dataclasses.replace(base, image_label_loss="max_size" if zeroshot else label,
+                                        **changes)
+        model.dynamic_classifier = label == "dynamic classifier"
+        before = snapshot()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses = model(batch["image"], batch["image_size"], gt=gt, rng=rng,
+                       fed_weight=batch["fed_weight"], training=True, ann_type=ann_type,
+                       cap_emb=cap if ann_type == "captiontag" else None)
+        metrics = apply_losses(state, losses, 0.999)
+        values = {k: float(v) for k, v in metrics.items()}  # synchronizes
+        ms = 1e3 * (time.perf_counter() - t0)
+        launched = launched_since(before, snapshot)
+        check_weak_losses(f"weak step {label}", losses, image_keys)
+        want = path_launches(WEAK_LAUNCHES, 1)
+        if launched != want or not backbone_grad_moved(model) or not math.isfinite(
+                values["grad_norm"]):
+            raise AssertionError(f"weak step {label}: launches {launched} (expected {want}), "
+                                 f"backbone gradients moved {backbone_grad_moved(model)}, "
+                                 f"grad_norm {values['grad_norm']}")
+        log(f"    weak step {label} (ann_type {ann_type}): "
+            + ", ".join(f"{k} {values[k]:.4f}" for k in image_keys)
+            + f", grad_norm {values['grad_norm']:.4f}; {ms:.1f} ms; launches {launched} [{card}]")
+        out.append((label, ms))
+    model.dynamic_classifier = False
+    log(f"    peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB [{card}]")
+    del state, model, heads, batch
+    torch.cuda.empty_cache()
+    return out
+
+
+def small_weak_losses(device: str, kind: str):
+    """(b) One float32 weak forward and backward of the JAX dryrun's model
+    (``_small_cfg()``: ResNet-18 + FPN, 64²) on ``device``: weights drawn on
+    the CPU (``fast_init_``), a seeded batch. Returns (losses, {name: grad})."""
+    from divergen_tpu_torch import graft_entry
+
+    cfg = graft_entry._small_cfg()
+    cfg.merge_from_list(["WITH_IMAGE_LABELS", True, "MODEL.ROI_BOX_HEAD.ADD_IMAGE_BOX", True,
+                         "MODEL.ROI_BOX_HEAD.WS_NUM_PROPS", 16,
+                         "MODEL.ROI_BOX_HEAD.IMAGE_LABEL_LOSS", kind,
+                         "MODEL.ROI_BOX_HEAD.WITH_SOFTMAX_PROP", kind == "wsddn",
+                         "MODEL.CENTERNET.POST_NMS_TOPK_TRAIN", 16])
+    model = graft_entry.build_model(cfg, input_size=(64, 64), device="cpu",
+                                    param_dtype=torch.float32)
+    graft_entry.fast_init_(model, torch.Generator().manual_seed(graft_entry.SEED))
+    model = model.to(device).train()
+    rng = np.random.RandomState(graft_entry.SEED)
+    images = torch.from_numpy(rng.rand(2, 64, 64, 3).astype(np.float32) * 255).to(device)
+    gt = graft_entry._synth_gt(rng, 2, 8, 8, img=64, device=device)
+    gt.update(weak_labels(2, 8, torch.Generator().manual_seed(1), device))
+    losses = model(images, torch.tensor([[64, 64], [56, 48]], device=device), gt=gt,
+                   rng=torch.Generator().manual_seed(2), training=True, ann_type="image")
+    sum(losses.values()).backward()
+    grads = {n: p.grad.cpu() for n, p in model.named_parameters() if p.grad is not None}
+    return {k: float(v.detach()) for k, v in losses.items()}, grads
+
+
+def small_weak_card_vs_cpu(card: str) -> None:
+    """(b) ``small_weak_losses`` of ``max_size`` and ``wsddn`` on the card
+    against the CPU: every loss within ``DRYRUN_BOUNDS["loss"]`` relative, the
+    gradients' global norm within ``DRYRUN_BOUNDS["grad_norm"]``; the largest
+    per-parameter gap (of that parameter's max |CPU gradient|) printed."""
+    for kind in ("max_size", "wsddn"):
+        got, got_g = small_weak_losses("cuda", kind)
+        want, want_g = small_weak_losses("cpu", kind)
+        norm = lambda g: math.sqrt(sum(float((v.double() ** 2).sum()) for v in g.values()))
+        worst = max(float((got_g[n] - w).abs().max() / w.abs().max().clamp(min=1e-30))
+                    for n, w in want_g.items())
+        bad = [k for k, w in want.items()
+               if abs(got[k] - w) > DRYRUN_BOUNDS["loss"] * abs(w)]
+        gn, gn_ref = norm(got_g), norm(want_g)
+        log(f"    (b) float32 {kind} step, ResNet-18 at 64², card against CPU: image losses "
+            + ", ".join(f"{got[k]:.8f} / {want[k]:.8f}" for k in sorted(want)
+                        if k.startswith("image_loss"))
+            + f"; gradient norm {gn:.8f} / {gn_ref:.8f}; largest per-parameter gap "
+            f"{worst:.3g} of its max |gradient| [{card}]")
+        if (bad or set(got_g) != set(want_g) or abs(gn - gn_ref) > DRYRUN_BOUNDS["grad_norm"] * gn_ref
+                or not any(k.startswith("image_loss") and want[k] > 0 for k in want)):
+            raise AssertionError(f"small weak step {kind}: losses {bad} outside "
+                                 f"{DRYRUN_BOUNDS}, gradient norm {gn} against {gn_ref}")
+
+
+def res5_weak_step(card: str, snapshot) -> None:
+    """(c) ``Res5ROIHeads.image_label_losses`` on ``configs/BSGAL_R50.yaml``'s
+    model (ResNet-50 + FPN, 640², B = 2, bf16 over float32 parameters) with
+    the Res5 heads on p4, ``wsddn`` on its proposal-score branch: one step
+    (forward, backward, AdamW, EMA), finite losses, ``image_loss`` positive,
+    the rest 0, the backbone's gradients non-zero, no kernel launch."""
+    from divergen_tpu_torch import graft_entry
+    from divergen_tpu_torch.config import get_cfg
+    from divergen_tpu_torch.engine.train_loop import apply_losses
+
+    cfg = get_cfg()
+    cfg.merge_from_file(os.path.join(os.path.dirname(os.path.abspath(__file__)), "configs",
+                                     "BSGAL_R50.yaml"))
+    cfg.merge_from_list(["FP16", True, "MODEL.ROI_HEADS.NAME", "CustomRes5ROIHeads",
+                         "MODEL.ROI_HEADS.IN_FEATURES", "['p4']", "WITH_IMAGE_LABELS", True,
+                         "MODEL.ROI_BOX_HEAD.IMAGE_LABEL_LOSS", "wsddn",
+                         "MODEL.ROI_BOX_HEAD.WITH_SOFTMAX_PROP", True,
+                         "MODEL.ROI_BOX_HEAD.ADD_IMAGE_BOX", True])
+    size = cfg.INPUT.TRAIN_SIZE
+    torch.cuda.empty_cache()
+    _, (state, batch, rng) = graft_entry._train_parts(cfg, torch.device("cuda"), size, 2, 20,
+                                                     (size, size))
+    gen = torch.Generator().manual_seed(graft_entry.SEED)
+    gt = dict(batch["gt"], **weak_labels(2, cfg.MODEL.ROI_HEADS.NUM_CLASSES, gen, "cuda"))
+    before = snapshot()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    losses = state.model(batch["image"], batch["image_size"], gt=gt, rng=rng, training=True,
+                         ann_type="image")
+    metrics = apply_losses(state, losses, 0.999)
+    values = {k: float(v) for k, v in metrics.items()}
+    ms = 1e3 * (time.perf_counter() - t0)
+    check_weak_losses("Res5 weak step", losses, ["image_loss"])
+    launched = launched_since(before, snapshot)
+    if launched or not backbone_grad_moved(state.model) or not hasattr(
+            state.model.roi_heads.box_predictor, "prop_score_out"):
+        raise AssertionError(f"Res5 weak step: launches {launched}, backbone gradients moved "
+                             f"{backbone_grad_moved(state.model)}")
+    log(f"    (c) configs/BSGAL_R50.yaml with CustomRes5ROIHeads, wsddn on the proposal-score "
+        f"branch, {size}², B = 2: image_loss {values['image_loss']:.4f}, grad_norm "
+        f"{values['grad_norm']:.4f}, {ms:.1f} ms (first step), no kernel launch [{card}]")
+    del state, batch
+    torch.cuda.empty_cache()
+
+
+def dino_phase(card: str, tmp: str) -> None:
+    """(d) DINOv2 on crops of the six 640 x 480 JPEG fixtures (64, in four
+    category folders): ``extract_features --method dinov2 --dino_model
+    vitg14`` on the card (float32, as the JAX CLI), then
+    ``DinoEncoder("vitg14")`` in bf16 at 224², B = 64 (images/s after a
+    warm-up batch, peak memory); finite, unit-norm embeddings; then vits14 on
+    the card against the same weights on the CPU (``DINO_VITS_BOUND``)."""
+    from divergen_tpu_torch.pipeline.filteration import cli as fcli
+    from divergen_tpu_torch.pipeline.filteration.core import DinoEncoder, load_masked_image
+    from divergen_tpu_torch.utils.image_io import read_rgb
+    from divergen_tpu_torch.utils.png import write_png
+
+    with open(os.path.join(FIXTURES, "manifest.json")) as f:
+        names = json.load(f)["lvis_images"]
+    rng = np.random.RandomState(0)
+    crops_dir, paths = os.path.join(tmp, "dino_crops"), []
+    for k in range(DINO_CROPS):
+        img = read_rgb(os.path.join(FIXTURES, names[k % len(names)]))
+        h, w = rng.randint(64, 320), rng.randint(64, 320)
+        y, x = rng.randint(0, img.shape[0] - h), rng.randint(0, img.shape[1] - w)
+        cat = os.path.join(crops_dir, f"cat{k % 4}")
+        os.makedirs(cat, exist_ok=True)
+        paths.append(os.path.join(cat, f"{k:03d}.png"))
+        write_png(paths[-1], img[y:y + h, x:x + w])
+    t0 = time.perf_counter()
+    if fcli.extract_features(["--in_dir", crops_dir, "--out_dir", crops_dir + "_feat",
+                              "--method", "dinov2", "--dino_model", "vitg14", "--batch",
+                              str(DINO_CROPS), "--device", "cuda"]) != 0:
+        raise AssertionError("extract_features --method dinov2 failed")
+    torch.cuda.synchronize()
+    cli_s = time.perf_counter() - t0
+    feats = np.stack([np.load(p.replace(crops_dir, crops_dir + "_feat")[:-4] + ".npy")
+                      for p in paths])
+    norms = np.linalg.norm(feats, axis=1)
+    if feats.shape != (DINO_CROPS, 1536) or not np.isfinite(feats).all() or np.abs(
+            norms - 1).max() > 1e-4:
+        raise AssertionError(f"extract_features --method dinov2: {feats.shape}, norms "
+                             f"{norms.min()}..{norms.max()}")
+    images = np.stack([load_masked_image(p)[0] for p in paths])
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    enc = DinoEncoder("vitg14", batch=DINO_CROPS, device="cuda", dtype=torch.bfloat16)
+    emb = enc.encode_images(images)  # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    reps = 3
+    for _ in range(reps):
+        emb = enc.encode_images(images)
+    rate = reps * DINO_CROPS / (time.perf_counter() - t0)
+    norms = np.linalg.norm(emb, axis=1)
+    if not np.isfinite(emb).all() or np.abs(norms - 1).max() > 1e-4:
+        raise AssertionError(f"DinoEncoder bf16: norms {norms.min()}..{norms.max()}")
+    log(f"    (d) extract_features --method dinov2 (vitg14, float32, built and run) on "
+        f"{DINO_CROPS} fixture crops in {cli_s:.2f} s; DinoEncoder(vitg14) bf16 at 224², "
+        f"B = {DINO_CROPS}: {rate:.1f} images/s, peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB [{card}]")
+    del enc
+    torch.cuda.empty_cache()
+    cpu = DinoEncoder("vits14", batch=8, device="cpu")
+    gpu = DinoEncoder("vits14", batch=8, device="cuda")
+    gpu.model.load_state_dict(cpu.model.state_dict())
+    want, got = cpu.encode_images(images[:8]), gpu.encode_images(images[:8])
+    err = float(np.abs(got - want).max() / np.abs(want).max())
+    log(f"    (d) vits14 float32, card against CPU on 8 crops: max |diff| / max |ref| "
+        f"{err:.3g} (bound {DINO_VITS_BOUND}) [{'ok' if err <= DINO_VITS_BOUND else 'FAIL'}]")
+    if err > DINO_VITS_BOUND:
+        raise AssertionError("DinoEncoder vits14: the card disagrees with the CPU")
+
+
+def cityscapes_ground_truth(pred_dir: str, gt_dir: str, height: int, width: int,
+                            stem: str) -> int:
+    """The predictions of one image as its Cityscapes ground truth: pixels go
+    to the dump's masks in order (a mask keeps what earlier ones left), each
+    kept region of at least ``MIN_REGION_SIZE`` pixels becomes an instance
+    (label · 1000 + its number) and the mask file is rewritten to exactly
+    that region; smaller ones leave the dump. Writes
+    ``<stem>_gtFine_instanceIds.png`` (16-bit, road elsewhere) with the port's
+    writer. Returns (the instances kept, the masks dumped)."""
+    from divergen_tpu_torch.evaluation.cityscapes_instance_scoring import MIN_REGION_SIZE
+    from divergen_tpu_torch.utils.png import read_png, write_png
+
+    txt = os.path.join(pred_dir, f"{stem}_pred.txt")
+    ids = np.full((height, width), 7, np.uint16)  # road
+    kept, count = [], {}
+    lines = open(txt).read().splitlines()
+    for line in lines:
+        png, label, _ = line.split()
+        own = (read_png(os.path.join(pred_dir, png)) > 0) & (ids == 7)
+        if own.sum() < MIN_REGION_SIZE:
+            continue
+        count[label] = count.get(label, 0) + 1
+        ids[own] = int(label) * 1000 + count[label]
+        write_png(os.path.join(pred_dir, png), own.astype(np.uint8) * 255)
+        kept.append(line + "\n")
+    with open(txt, "w") as f:
+        f.writelines(kept)
+    os.makedirs(os.path.join(gt_dir, "synth"), exist_ok=True)
+    write_png(os.path.join(gt_dir, "synth", f"{stem}_gtFine_instanceIds.png"), ids)
+    return len(kept), len(lines)
+
+
+def evaluation_phase(card: str, tmp: str, snapshot) -> None:
+    """(e) The flagship (bf16, seeded weights) on the serving slice's
+    synthetic LVIS set (16 PNG images, 1453 categories): first
+    ``inference_on_dataset_exp`` (a ``det_<id>.npz`` per image with its
+    boxes, scores, classes and (n, 1453) logits, and the evaluator's logits
+    files; AP finite), then ``LVISToCityscapesInstanceEvaluator`` over the
+    same images (every 5th LVIS class mapped to a Cityscapes thing label):
+    the ``*_pred.txt`` dump scored by the native scorer against a 16-bit
+    ground truth the port writes from the predictions (``cityscapes_ground_
+    truth``): AP 1. Exactly 24 kernel-5 launches a forward of B = 8. Prints
+    s per image of each."""
+    from divergen_tpu_torch import graft_entry
+    from divergen_tpu_torch.data import DatasetCatalog, MetadataCatalog
+    from divergen_tpu_torch.data.dataset_mapper import DatasetMapper
+    from divergen_tpu_torch.data.datasets.lvis import lvis_meta_from_json, register_lvis_instances
+    from divergen_tpu_torch.data.datasets.synthetic_lvis import write_synthetic_lvis
+    from divergen_tpu_torch.engine import eval_loop
+    from divergen_tpu_torch.evaluation.cityscapes_eval import (
+        CITYSCAPES_THING_LABELS, LVISToCityscapesInstanceEvaluator)
+    from divergen_tpu_torch.utils.transfer import to_device, to_host
+
+    model, _ = graft_entry.flagship_entry()
+    cfg = graft_entry.flagship_cfg()
+    classes = cfg.MODEL.ROI_HEADS.NUM_CLASSES
+    files = write_synthetic_lvis(os.path.join(tmp, "lvis_weak"),
+                                 [SERVING_SIZES[k % 4] for k in range(SERVING_IMAGES)], classes,
+                                 seed=graft_entry.SEED, category_ids=range(1, 61))
+    name = SYNTH_LVIS + "_exp"
+    for reg in (DatasetCatalog, MetadataCatalog):
+        reg.remove(name)
+    register_lvis_instances(name, lvis_meta_from_json(files["json_file"]), files["json_file"],
+                            files["image_root"])
+    out_dir = os.path.join(tmp, "exp")
+    before = snapshot()
+    t0 = time.perf_counter()
+    metrics = eval_loop.inference_on_dataset_exp(model, None, cfg, name, out_dir)
+    exp_s = (time.perf_counter() - t0) / SERVING_IMAGES
+    launched = launched_since(before, snapshot)
+    forwards = -(-SERVING_IMAGES // 8)
+    dets = sorted(f for f in os.listdir(out_dir) if f.startswith("det_"))
+    n_dets = 0
+    for f in dets:
+        with np.load(os.path.join(out_dir, f)) as z:
+            n = len(z["scores"])
+            n_dets += n
+            if (z["boxes"].shape != (n, 4) or z["logits"].shape != (n, classes)
+                    or z["classes"].shape != (n,) or not all(
+                        np.isfinite(z[k]).all() for k in ("boxes", "scores", "logits"))):
+                raise AssertionError(f"inference_on_dataset_exp: {f} holds "
+                                     f"{ {k: z[k].shape for k in z.files} }")
+    finite = all(math.isfinite(metrics[t]["AP"]) for t in ("bbox", "segm"))
+    if (len(dets) != SERVING_IMAGES or not n_dets or not finite
+            or launched != {"fused_window_attention_packed": 24 * forwards}):
+        raise AssertionError(f"inference_on_dataset_exp: {len(dets)} det files, {n_dets} "
+                             f"detections, AP {metrics}, launches {launched}")
+    log(f"    (e) inference_on_dataset_exp on {SERVING_IMAGES} synthetic LVIS images: "
+        f"{n_dets} detections with (n, {classes}) logits in {len(dets)} det_*.npz, bbox AP "
+        f"{metrics['bbox']['AP']:.4f}, segm AP {metrics['segm']['AP']:.4f}; {exp_s:.4f} s per "
+        f"image; launches {launched} [{card}]")
+
+    mapper_json = os.path.join(tmp, "lvis_to_cityscapes.json")
+    with open(mapper_json, "w") as f:
+        json.dump({str(c): CITYSCAPES_THING_LABELS[(c // 5) % 8][1]
+                   for c in range(0, classes, 5)}, f)
+    pred_dir, gt_dir = os.path.join(tmp, "cs_pred"), os.path.join(tmp, "cs_gt")
+    ev = LVISToCityscapesInstanceEvaluator(mapper_json, pred_dir, gt_dir=gt_dir)
+    ev.reset()
+    dataset = DatasetCatalog.get(name)
+    before = snapshot()
+    t0 = time.perf_counter()
+    for samples, images, sizes in eval_loop._batches(dataset, DatasetMapper(cfg, is_train=False), 8):
+        dev = to_device({"images": images, "sizes": sizes.astype(np.int64)}, torch.device("cuda"))
+        with torch.no_grad():
+            ev.process(samples, to_host(model(dev["images"], dev["sizes"])))
+    cs_s = (time.perf_counter() - t0) / SERVING_IMAGES
+    launched = launched_since(before, snapshot)
+    instances = dumped = 0
+    for rec in dataset:  # the mapper keeps no file name: the dump is named by image id
+        kept, masks = cityscapes_ground_truth(pred_dir, gt_dir, rec["height"], rec["width"],
+                                              str(rec["image_id"]))
+        instances, dumped = instances + kept, dumped + masks
+    res = ev.evaluate()["segm"]
+    log(f"    (e) LVISToCityscapesInstanceEvaluator: {dumped} mapped masks in "
+        f"{SERVING_IMAGES} *_pred.txt, {cs_s:.4f} s per image (forward, paste, PNG writes); "
+        f"{instances} of them of at least 100 own pixels as the 16-bit ground truth, the "
+        f"native scorer against it: AP {res['AP']:.2f}, "
+        f"AP50 {res['AP50']:.2f} ({res.get('scorer', 'cityscapesscripts')}) [{card}]")
+    if (not instances or res["AP"] != 100.0 or res["AP50"] != 100.0
+            or launched != {"fused_window_attention_packed": 24 * forwards}):
+        raise AssertionError(f"Cityscapes: {instances} instances, {res}, launches {launched}")
+    for reg in (DatasetCatalog, MetadataCatalog):
+        reg.remove(name)
+    del model
+    torch.cuda.empty_cache()
+
+
+def rotated_phase(card: str) -> None:
+    """(f) ``pairwise_iou_rotated`` and ``nms_rotated`` on ``ROTATED_BOXES``
+    boxes (200 clusters of 10 around random centres over 2000 px, angles
+    anywhere) on the card against the CPU: the card's float32 IoU as close
+    to the float64 IoU as the CPU's float32 (``ROTATED_IOU_BOUND``), the
+    same keep mask at thresholds 0.3 and 0.7; ms of each on the card."""
+    from divergen_tpu_torch.ops.rotated import nms_rotated, pairwise_iou_rotated
+
+    rng = np.random.RandomState(0)
+    centres = np.concatenate([rng.rand(200, 2) * 2000, rng.rand(200, 2) * 60 + 10,
+                              rng.rand(200, 1) * 360 - 180], 1)
+    boxes = np.repeat(centres, ROTATED_BOXES // 200, 0) + np.concatenate(
+        [rng.randn(ROTATED_BOXES, 2) * 6, rng.randn(ROTATED_BOXES, 2) * 3,
+         rng.randn(ROTATED_BOXES, 1) * 10], 1)
+    boxes[:, 2:4] = np.abs(boxes[:, 2:4]) + 1
+    boxes = torch.from_numpy(boxes.astype(np.float32))
+    scores = torch.from_numpy(rng.rand(ROTATED_BOXES).astype(np.float32))
+    gb, gs = boxes.cuda(), scores.cuda()
+    iou_ms = time_one(lambda: pairwise_iou_rotated(gb, gb), reps=3)
+    got = pairwise_iou_rotated(gb, gb).cpu()
+    want = pairwise_iou_rotated(boxes, boxes)
+    exact = pairwise_iou_rotated(boxes.double(), boxes.double())
+    err, cpu_err = (float((x.double() - exact).abs().max()) for x in (got, want))
+    overlapping = int((want > 0).sum()) - ROTATED_BOXES
+    keeps = []
+    for thresh in (0.3, 0.7):
+        nms_ms = time_one(lambda: nms_rotated(gb, gs, thresh), reps=3)
+        k_got, k_want = nms_rotated(gb, gs, thresh).cpu(), nms_rotated(boxes, scores, thresh)
+        keeps.append((thresh, int(k_want.sum()), int((k_got != k_want).sum()), nms_ms))
+    log(f"    (f) {ROTATED_BOXES} rotated boxes ({overlapping} overlapping ordered pairs): IoU "
+        f"max |card - float64| {err:.3g}, |CPU - float64| {cpu_err:.3g}, |card - CPU| "
+        f"{float((got - want).abs().max()):.3g} (bound max(2 x the CPU's, "
+        f"{ROTATED_IOU_BOUND})), {iou_ms:.2f} ms on the card; "
+        + "; ".join(f"NMS at {t}: {k} kept, {d} differ, {ms:.2f} ms" for t, k, d, ms in keeps)
+        + f" [{card}]")
+    if (err > max(2 * cpu_err, ROTATED_IOU_BOUND) or any(d for _, _, d, _ in keeps)
+            or overlapping < ROTATED_BOXES):
+        raise AssertionError("rotated boxes: the card disagrees with the CPU")
+
+
+def slice_weak_supervision(card: str, tmp: str, snapshot) -> None:
+    """Slice 13: (a) the flagship's weak steps (``flagship_weak_steps``,
+    linear then zero-shot classifier), (b) the float32 weak step card
+    against CPU, (c) the Res5 heads' weak step, (d) DINOv2, (e)
+    ``inference_on_dataset_exp`` and the Cityscapes evaluator, (f) rotated
+    IoU and NMS."""
+    steps = flagship_weak_steps(card, snapshot, zeroshot=False)
+    steps += flagship_weak_steps(card, snapshot, zeroshot=True)
+    log("    (a) ms per weak step (host clock, one step each, the first includes warm-up): "
+        + ", ".join(f"{label} {ms:.1f}" for label, ms in steps) + f" [{card}]")
+    small_weak_card_vs_cpu(card)
+    res5_weak_step(card, snapshot)
+    dino_phase(card, tmp)
+    evaluation_phase(card, tmp, snapshot)
+    rotated_phase(card)
+
+
 def packed_twin(qkv: torch.Tensor, heads: int, rows: int = 4096) -> torch.Tensor:
     """``reference_attention_packed`` in float32, one batch element and
     ``rows`` queries at a time: a whole call's scores do not fit the card at
@@ -4703,6 +5200,7 @@ def slice_if_cascade(card: str, tmp: str, pipe, cond, bf16_images, snapshot):
 
 
 def main() -> int:
+    started = time.perf_counter()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
@@ -4935,9 +5433,22 @@ def main() -> int:
         slice_real_images(card, tmp, snapshot, png_step_s)
     real_images = read(("fused_window_attention_packed",
                         "fused_window_attention_packed_backward"), "the real-image slice")
+
+    log("slice: weak supervision (the flagship's weak steps, a float32 weak step against the "
+        "CPU, the Res5 heads' weak step), DINOv2, inference_on_dataset_exp and the Cityscapes "
+        "evaluator, rotated IoU and NMS")
+    log(f"  the smoke's wall clock before the slice: {time.perf_counter() - started:.1f} s "
+        f"[{card}]")
+    reset()
+    with tempfile.TemporaryDirectory() as tmp:
+        slice_weak_supervision(card, tmp, snapshot)
+    weak = read(("fused_window_attention_packed", "fused_window_attention_packed_backward"),
+                "the weak-supervision slice")
+    log(f"  the smoke's wall clock after the slice: {time.perf_counter() - started:.1f} s "
+        f"[{card}]")
     launches = {}
     for counts in (sdxl, chain, serving, fused, cascade, train, detector, detector_serving,
-                   do_train_counts, architectures, real_images):
+                   do_train_counts, architectures, real_images, weak):
         for k, n in counts.items():
             launches[k] = launches.get(k, 0) + n
     # the split wrapper is on no slice's path (the packed kernels take any head

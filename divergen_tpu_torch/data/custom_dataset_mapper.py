@@ -5,8 +5,9 @@ Counterpart of ``divergen_tpu/data/custom_dataset_mapper.py``: the port's
 boxes but no masks, so mask targets default to the full box; 'image'
 datasets carry only image-level labels, Detic's weak supervision) and
 ImageNet-in-tar records (``tar_index``) decoded from ``data/tar_dataset.py``
-with a whole-image sample. The model still trains on ``ann_type == 'box'``
-only (``modeling/meta_arch/rcnn.py``). The JAX module's sources:
+with a whole-image sample. The detector takes an image-labelled batch
+through ``CustomRCNN.forward(ann_type=…)``; ``do_train`` routes none there,
+in either package (it never passes ``ann_type``). The JAX module's sources:
 ``DiverGen/divergen/data/custom_dataset_mapper.py:23-279``.
 """
 from __future__ import annotations

@@ -6,9 +6,11 @@ batches of mapped samples, the same data / compute timing after ``warmup``
 images and the same log line, the EMA weights first, ``RESET_CLS_TESTS``
 through ``rcnn.load_zs_weight`` and ``rcnn.reset_cls_test``, one result dict
 per ``DATASETS.TEST`` name. The output dict goes to the host in one copy
-per batch. Not ported yet: the data-parallel (pmap) branch, which needs
-``torch.distributed``, and ``inference_on_dataset_exp``, which needs the ROI
-heads' ``save_feature``.
+per batch. ``inference_on_dataset_exp`` is the analysis variant: the model
+with ``return_logits``, ``LVISEvaluatorWithLogits``, and a
+``det_<image_id>.npz`` of each image's valid boxes, scores, classes and
+per-box class scores. Not ported yet: the data-parallel (pmap) branch, which
+needs ``torch.distributed``.
 """
 from __future__ import annotations
 
@@ -51,6 +53,24 @@ def build_evaluator(cfg, dataset_name: str):
     raise NotImplementedError(etype)
 
 
+def _batches(dataset, mapper, batch_size: int):
+    """(samples, images, sizes) per batch of mapped records, the last batch
+    padded with copies of its last sample; the mapper draws from
+    ``default_rng(0)``, as in the JAX loop."""
+    rng = np.random.default_rng(0)
+    for ofs in range(0, len(dataset), batch_size):
+        samples = []
+        for r in dataset[ofs : ofs + batch_size]:
+            s = mapper(r, rng)
+            s["orig_height"] = r.get("height")
+            s["orig_width"] = r.get("width")
+            samples.append(s)
+        pad = batch_size - len(samples)
+        images = np.stack([s["image"] for s in samples] + [samples[-1]["image"]] * pad)
+        sizes = np.stack([s["image_size"] for s in samples] + [samples[-1]["image_size"]] * pad)
+        yield samples, images, sizes
+
+
 def inference_on_dataset(model, params, cfg, dataset_name: str, evaluator,
                          batch_size: int = 8, max_images: Optional[int] = None,
                          mesh=None) -> Dict:
@@ -75,21 +95,12 @@ def inference_on_dataset(model, params, cfg, dataset_name: str, evaluator,
     evaluator.reset()
     n = len(dataset)
     t_data = t_comp = 0.0
-    rng = np.random.default_rng(0)
     warmup = min(5, n)
     start = time.perf_counter()
+    batches = _batches(dataset, mapper, batch_size)
     for ofs in range(0, n, batch_size):
-        recs = dataset[ofs : ofs + batch_size]
         t0 = time.perf_counter()
-        samples = []
-        for r in recs:
-            s = mapper(r, rng)
-            s["orig_height"] = r.get("height")
-            s["orig_width"] = r.get("width")
-            samples.append(s)
-        pad = batch_size - len(samples)
-        images = np.stack([s["image"] for s in samples] + [samples[-1]["image"]] * pad)
-        sizes = np.stack([s["image_size"] for s in samples] + [samples[-1]["image_size"]] * pad)
+        samples, images, sizes = next(batches)
         t_data += time.perf_counter() - t0
         t0 = time.perf_counter()
         dev = to_device({"images": images, "sizes": sizes.astype(np.int64)}, device)
@@ -172,3 +183,47 @@ def do_test(cfg, model=None, state: Optional[TrainState] = None, resume: bool = 
         )
         logger.info("results[%s] = %s", name, results[name])
     return results
+
+
+def inference_on_dataset_exp(model, params, cfg, dataset_name: str, out_dir: str,
+                             batch_size: int = 8, max_images: Optional[int] = None) -> Dict:
+    """The analysis variant of ``inference_on_dataset``
+    (divergen/evaluation/evaluator.py:221-380): the model with
+    ``return_logits``, evaluated by ``LVISEvaluatorWithLogits`` (which also
+    writes ``<image_id>.npz`` of the logits), and per image
+    ``out_dir/det_<image_id>.npz`` holding the valid ``boxes``, ``scores``,
+    ``classes`` and ``logits`` (each box's class-score vector). ``params``
+    as in ``inference_on_dataset``; the model runs on its own device."""
+    import os
+
+    from ..evaluation.lvis_evaluator import LVISEvaluatorWithLogits
+
+    os.makedirs(out_dir, exist_ok=True)
+    if params is not None:
+        model.load_state_dict(params)
+    model.eval()
+    device = next(model.parameters()).device
+    dataset = DatasetCatalog.get(dataset_name)
+    if max_images:
+        dataset = dataset[:max_images]
+    mapper = DatasetMapper(cfg, is_train=False)
+    evaluator = LVISEvaluatorWithLogits(dataset_name, logits_dir=out_dir)
+    for samples, images, sizes in _batches(dataset, mapper, batch_size):
+        dev = to_device({"images": images, "sizes": sizes.astype(np.int64)}, device)
+        with torch.no_grad():
+            out = to_host(model(dev["images"], dev["sizes"], training=False,
+                                return_logits=True))
+        evaluator.process(samples, out)
+        for b, s in enumerate(samples):
+            valid = np.asarray(out["valid"][b])
+            arrays = {
+                "boxes": np.asarray(out["boxes"][b])[valid],
+                "scores": np.asarray(out["scores"][b])[valid],
+                "classes": np.asarray(out["classes"][b])[valid],
+            }
+            if "logits" in out:  # per-box class-score vectors, as documented
+                arrays["logits"] = np.asarray(out["logits"][b])[valid]
+            np.savez_compressed(
+                os.path.join(out_dir, f"det_{int(s['image_id'])}.npz"), **arrays
+            )
+    return evaluator.evaluate()

@@ -11,10 +11,13 @@ Backbones by ``backbone_name``: ``swin``, ``resnet{D}``, ``res2net{D}``,
 ``dla34``; the neck is the lateral FPN or, with ``fpn_kind="bifpn"``, the
 BiFPN; the ROI heads ``DeticCascadeROIHeads`` or ``CustomRes5ROIHeads``.
 ``CenterNetDetector`` is the standalone CenterNet: no ROI heads, classwise
-losses and detections. In training the box-supervised branch
-(``ann_type='box'``), ``gt_as_proposals`` and the dynamic classifier are
-ported; the weakly supervised ``ann_type``s raise
-``NotImplementedError("… not yet ported")``.
+losses and detections. In training ``ann_type`` picks the branch as in the
+JAX module: ``'box'``, ``'prop'`` and ``'proptag'`` take the box losses;
+every other type (``'image'``, ``'caption'``, ``'captiontag'``, …) is weak
+supervision: the CenterNet losses kept at ``v * 0.0`` and the ROI heads'
+``image_label_losses`` on ``gt["image_labels"]`` and, given ``cap_emb``, the
+local caption bank. ``gt_as_proposals`` and the dynamic classifier (over the
+image labels on a weak batch) are ported too.
 """
 from __future__ import annotations
 
@@ -153,7 +156,9 @@ class CustomRCNN(nn.Module):
                 rng: Optional[Rng] = None, fed_weight: Optional[torch.Tensor] = None,
                 training: bool = False, gt_as_proposals: bool = False,
                 return_logits: bool = False, ann_type: str = "box",
-                dataset_source: Optional[int] = None) -> Dict[str, torch.Tensor]:
+                cap_emb: Optional[torch.Tensor] = None,
+                dataset_source: Optional[int] = None,
+                axis_name: Optional[str] = None) -> Dict[str, torch.Tensor]:
         """images (B, H, W, 3) RGB 0–255 float, image_sizes (B, 2) as (h, w).
 
         ``training=False``: padded detections (``CascadeROIHeads.inference``),
@@ -165,7 +170,22 @@ class CustomRCNN(nn.Module):
         DropPath stays off in training, as in the JAX package, whose backbone
         is called with its default ``deterministic=True``. ``gt_as_proposals``
         makes the ground-truth boxes the only proposals and returns the ROI
-        losses alone."""
+        losses alone.
+
+        Weak supervision (``ann_type`` not ``'box'``, ``'prop'`` or
+        ``'proptag'``): ``gt`` also holds ``image_labels`` (B, L) and
+        ``image_labels_valid`` (B, L) bool; ``cap_emb`` (B, zs_dim) is the
+        batch's caption embeddings, image i's own caption at column i. The
+        loss dict is the CenterNet losses times 0.0 updated with
+        ``roi_heads.image_label_losses``. ``axis_name`` names a reduction
+        over ranks (the JAX module's ``psum`` of the CenterNet positives and
+        ``SYNC_CAPTION_BATCH``'s caption all-gather); it raises: several
+        ranks wait for ``torch.distributed``."""
+        if axis_name is not None:
+            raise NotImplementedError(
+                f"axis_name={axis_name!r}: reductions over ranks (the CenterNet positives, "
+                "SYNC_CAPTION_BATCH's caption all-gather) wait for torch.distributed, "
+                "ROADMAP.md §1 item 4; on one card pass axis_name=None")
         if not training:
             if gt is not None:
                 raise ValueError("ground truth was given with training=False")
@@ -176,8 +196,6 @@ class CustomRCNN(nn.Module):
                                                 return_logits=return_logits)
         if gt is None or rng is None:
             raise ValueError("the training forward needs gt and rng")
-        if ann_type != "box":
-            raise NotImplementedError(f"ann_type {ann_type!r} (weak supervision) is not yet ported")
         features = self.backbone_features(images)
         if gt_as_proposals:
             proposals = {"boxes": gt["boxes"], "valid": gt["valid"],
@@ -187,13 +205,17 @@ class CustomRCNN(nn.Module):
         geom, agn_flat, reg_flat = self._head_outputs(features)
 
         cls_inds = None
-        if self.dynamic_classifier:
+        if self.dynamic_classifier and ann_type != "caption":
             # the zero-shot classifier scores K sampled columns this step, and
-            # the targets move into that compact vocabulary
+            # the targets move into that compact vocabulary: the boxes' classes
+            # on a box batch, the image labels (drawn without the frequency
+            # weights) on any other
+            key = "classes" if ann_type == "box" else "image_labels"
+            ok = gt["valid"] if ann_type == "box" else gt["image_labels_valid"]
             cls_inds, cls_id_map = sample_dynamic_classifier_inds(
-                rng, gt["classes"].reshape(-1), gt["valid"].reshape(-1),
-                self.roi_cfg.num_classes, self.num_sample_cats, fed_weight)
-            gt = dict(gt, classes=cls_id_map[gt["classes"].long()])
+                rng, gt[key].reshape(-1), ok.reshape(-1), self.roi_cfg.num_classes,
+                self.num_sample_cats, fed_weight if ann_type == "box" else None)
+            gt = dict(gt, **{key: cls_id_map[gt[key].long()]})
             if fed_weight is not None:
                 fed_weight = fed_weight[cls_inds]
 
@@ -204,6 +226,17 @@ class CustomRCNN(nn.Module):
         # the proposals carry no gradient into the CenterNet head
         proposals = centernet_proposals(self.centernet_cfg, geom, agn_flat.detach(),
                                         reg_flat.detach(), image_sizes, training=True)
+        if ann_type not in ("box", "prop", "proptag"):
+            # an image-labelled or captioned batch: no matching, the weak losses
+            cap_idx = None
+            if cap_emb is not None:
+                cap_idx = torch.arange(cap_emb.shape[0], device=cap_emb.device)
+            weak = self.roi_heads.image_label_losses(
+                features, proposals, image_sizes, gt["image_labels"], gt["image_labels_valid"],
+                ann_type=ann_type, cap_emb=cap_emb, cap_idx=cap_idx, cls_inds=cls_inds)
+            losses = {k: v * 0.0 for k, v in losses.items()}
+            losses.update(weak)
+            return _apply_dataset_loss_weight(losses, self.dataset_loss_weight, dataset_source)
         losses.update(self.roi_heads.losses(rng, features, proposals, gt, fed_weight=fed_weight,
                                             cls_inds=cls_inds, image_sizes=image_sizes))
         return _apply_dataset_loss_weight(losses, self.dataset_loss_weight, dataset_source)
@@ -323,8 +356,8 @@ def detector_init_(model: CustomRCNN, gen: torch.Generator) -> CustomRCNN:
     start: the CenterNet head's convolutions normal(0.01), its heatmap and
     class-logit biases at the prior ``-log((1 - p) / p)`` and its box bias 8;
     each box predictor's classifier normal(0.01) with the prior bias (sigmoid
-    CE) and its box regressor normal(0.001); the mask predictor
-    normal(0.001)."""
+    CE), its box regressor and WSDDN proposal-score output normal(0.001); the
+    mask predictor normal(0.001)."""
     flax_init_(model, gen)
 
     def normal_(w, std):
@@ -352,6 +385,8 @@ def detector_init_(model: CustomRCNN, gen: torch.Generator) -> CustomRCNN:
             normal_(pred.cls_score.weight, 0.01)
             pred.cls_score.bias.fill_(bias)
         normal_(pred.bbox_pred.weight, 0.001)
+        if pred.with_softmax_prop:
+            normal_(pred.prop_score_out.weight, 0.001)
     if hasattr(heads.mask_head, "predictor"):
         normal_(heads.mask_head.predictor.weight, 0.001)
     return model

@@ -22,8 +22,15 @@ first ROI level: the loss is the staged ``refine_cross_entropy`` (a target
 per supervision size), inference returns the composed final-size logits, and
 a ground truth with ``sem_seg`` adds ``loss_semantic``.
 
-Not ported yet: ``image_label_losses`` (weak supervision), the caption columns
-of the zero-shot classifier and the WSDDN proposal-score branch.
+Weak supervision: ``CascadeROIHeads.image_label_losses`` scores the top
+``ws_num_props`` proposals (and the optional whole-image box) at every stage
+and supervises one proposal per image label (``_weak_image_loss``: the
+strategies ``max_size``, ``max_score``, ``first``, ``image``, ``min_loss``,
+``wsddn`` and ``wsod``); caption embeddings append L2-normalised columns to
+the zero-shot scores and add the caption loss on the image box. As in the JAX
+module, the cascade's predictors are built without the WSDDN proposal-score
+branch whatever ``with_softmax_prop`` says, so ``wsddn`` takes the class
+scores as proposal scores there; ``Res5ROIHeads`` builds the branch.
 """
 from __future__ import annotations
 
@@ -199,7 +206,9 @@ class DeticOutputLayers(nn.Module):
 
     The zero-shot variant projects to ``zs_dim``, L2-normalizes features and
     the ``zs_weight`` (zs_dim, C) columns, scales by ``norm_temp`` and appends
-    the ``bg_bias`` column."""
+    the ``bg_bias`` column. ``with_softmax_prop`` adds the WSDDN
+    proposal-score branch (``prop_score_fc`` → ReLU → ``prop_score_out``,
+    C + 1 columns), read by ``prop_score``."""
 
     raw_init_std = {"zs_weight": 0.01}
 
@@ -208,8 +217,6 @@ class DeticOutputLayers(nn.Module):
                  use_zeroshot_cls: bool = False, zs_dim: int = 512, norm_temp: float = 50.0,
                  with_softmax_prop: bool = False, dtype=torch.float32, device=None):
         super().__init__()
-        if with_softmax_prop:
-            raise NotImplementedError("the WSDDN proposal-score branch is not yet ported")
         self.num_classes, self.norm_temp = num_classes, norm_temp
         self.use_zeroshot_cls = use_zeroshot_cls
         bias_value = -math.log((1 - prior_prob) / prior_prob) if use_sigmoid_ce else 0.0
@@ -221,11 +228,18 @@ class DeticOutputLayers(nn.Module):
         else:
             self.cls_score = Dense(in_features, num_classes + 1, **kw)
         self.bbox_pred = Dense(in_features, 4 if cls_agnostic else 4 * num_classes, **kw)
+        self.with_softmax_prop = with_softmax_prop
+        if with_softmax_prop:
+            self.prop_score_fc = Dense(in_features, in_features, **kw)
+            self.prop_score_out = Dense(in_features, num_classes + 1, **kw)
 
-    def forward(self, x: torch.Tensor,
-                cls_inds: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, torch.Tensor]:
+    def forward(self, x: torch.Tensor, cls_inds: Optional[torch.Tensor] = None,
+                cap_classifier: Optional[torch.Tensor] = None
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
         """``cls_inds`` (K,) restricts the zero-shot classifier to a sampled
-        vocabulary (the dynamic classifier): scores are then (N, K + 1)."""
+        vocabulary (the dynamic classifier): scores are then (N, K + 1).
+        ``cap_classifier`` (zs_dim, N_cap) appends N_cap caption columns,
+        scored against the same normalized embedding (zero-shot only)."""
         if self.use_zeroshot_cls:
             emb = self.linear(x)
             emb = emb / torch.linalg.norm(emb, dim=-1, keepdim=True).clamp(min=1e-6)
@@ -237,9 +251,23 @@ class DeticOutputLayers(nn.Module):
             cls_logits = self.norm_temp * (emb.to(torch.promote_types(emb.dtype, zs.dtype)) @ zs)
             bg = self.bg_bias.to(cls_logits.dtype).expand(x.shape[0], 1)
             scores = torch.cat([cls_logits, bg], dim=-1)
+            if cap_classifier is not None:
+                capw = cap_classifier / torch.linalg.norm(cap_classifier, dim=0,
+                                                          keepdim=True).clamp(min=1e-6)
+                cap_scores = self.norm_temp * (emb @ capw.to(emb.dtype))
+                scores = torch.cat([scores, cap_scores.to(scores.dtype)], dim=-1)
         else:
+            if cap_classifier is not None:
+                raise ValueError("the caption loss needs the zero-shot classifier "
+                                 "(MODEL.ROI_BOX_HEAD.USE_ZEROSHOT_CLS)")
             scores = self.cls_score(x)
         return scores, self.bbox_pred(x)
+
+    def prop_score(self, x: torch.Tensor) -> Optional[torch.Tensor]:
+        """The WSDDN proposal scores (N, C + 1), or None without the branch."""
+        if not self.with_softmax_prop:
+            return None
+        return self.prop_score_out(F.relu(self.prop_score_fc(x)))
 
 
 class MaskRCNNConvUpsampleHead(nn.Module):
@@ -329,8 +357,7 @@ class CascadeROIHeads(nn.Module):
             self.add_module(f"box_predictor{k}", DeticOutputLayers(
                 c.fc_dim if c.num_fc else pooled, c.num_classes, prior_prob=c.prior_prob,
                 cls_agnostic=c.cls_agnostic_bbox_reg, use_sigmoid_ce=c.use_sigmoid_ce,
-                use_zeroshot_cls=c.use_zeroshot_cls, norm_temp=c.norm_temp,
-                with_softmax_prop=c.with_softmax_prop, **kw))
+                use_zeroshot_cls=c.use_zeroshot_cls, norm_temp=c.norm_temp, **kw))
         self.mask_head = None
         self.refine = c.mask_on and c.mask_head_name == "RefineMaskHead"
         if self.refine:
@@ -378,15 +405,17 @@ class CascadeROIHeads(nn.Module):
         return self.mask_head(pooled)
 
     def _run_stage(self, features: Dict[str, torch.Tensor], boxes: torch.Tensor, stage: int,
-                   cls_inds: Optional[torch.Tensor] = None):
+                   cls_inds: Optional[torch.Tensor] = None,
+                   cap_classifier: Optional[torch.Tensor] = None):
         """ROIAlign + box head + predictor of one stage: boxes (B, P, 4) →
-        (scores (B, P, C + 1), deltas (B, P, 4)). The gradient into the
-        pyramid is scaled by 1 / stages, as in the JAX package."""
+        (scores (B, P, C + 1 [+ N_cap]), deltas (B, P, 4)). The gradient into
+        the pyramid is scaled by 1 / stages, as in the JAX package."""
         b, p = boxes.shape[:2]
         pooled = self._pool(features, boxes, self.cfg.pooler_resolution)
         pooled = _scale_gradient(pooled, 1.0 / self.num_stages)
         box_feat = getattr(self, f"box_head{stage}")(pooled)
-        scores, deltas = getattr(self, f"box_predictor{stage}")(box_feat, cls_inds)
+        scores, deltas = getattr(self, f"box_predictor{stage}")(box_feat, cls_inds,
+                                                                cap_classifier)
         return scores.reshape(b, p, -1), deltas.reshape(b, p, -1)
 
     def losses(self, rng: Rng, features: Dict[str, torch.Tensor],
@@ -511,9 +540,54 @@ class CascadeROIHeads(nn.Module):
         total = torch.where(ok, per_roi, torch.zeros_like(per_roi)).sum()
         return total / ok.sum().clamp(min=1.0)
 
-    def image_label_losses(self, *args, **kwargs):
-        raise NotImplementedError("CascadeROIHeads.image_label_losses (weak supervision) is "
-                                  "not yet ported")
+    def image_label_losses(self, features: Dict[str, torch.Tensor],
+                           proposals: Dict[str, torch.Tensor], image_sizes: torch.Tensor,
+                           labels: torch.Tensor, labels_valid: torch.Tensor,
+                           ann_type: str = "image", cap_emb: Optional[torch.Tensor] = None,
+                           cap_idx: Optional[torch.Tensor] = None,
+                           cls_inds: Optional[torch.Tensor] = None) -> Dict[str, torch.Tensor]:
+        """The weak losses of an image-labelled batch: labels (B, L) class ids
+        with labels_valid (B, L); cap_emb (N_cap, zs_dim) caption embeddings
+        with cap_idx (B,) each image's own column; cls_inds as in ``losses``.
+        Each stage scores the clipped top proposals (``weak_proposals``), adds
+        the caption loss on the last (image) box when captions are given and,
+        unless ``ann_type`` is ``'caption'``, the image-label loss; the boxes
+        move on to the next stage without a gradient. ``loss_cls_stage{k}``,
+        ``loss_box_reg_stage{k}`` and ``loss_mask`` are zero."""
+        c = self.cfg
+        boxes, pvalid = weak_proposals(c, proposals, image_sizes)
+        cap_classifier = None if cap_emb is None else cap_emb.t()
+        losses: Dict[str, torch.Tensor] = {}
+        zero = torch.zeros((), device=boxes.device)
+        for stage in range(self.num_stages):
+            scores, deltas = self._run_stage(features, boxes, stage, cls_inds=cls_inds,
+                                             cap_classifier=cap_classifier)
+            scores = scores.float()
+            img_loss = zero
+            if cap_emb is not None:
+                n_cap = cap_emb.shape[0]
+                cls_scores, cap_last = scores[..., :-n_cap], scores[:, -1, -n_cap:]
+                tgt = F.one_hot(cap_idx.long(), n_cap).float()
+                bce = optax_sigmoid_bce(cap_last, tgt)
+                if c.sync_caption_batch:
+                    per_img = (bce * tgt).sum(1) + c.neg_cap_weight * (bce * (1.0 - tgt)).sum(1)
+                else:
+                    per_img = bce.sum(1)
+                img_loss = img_loss + c.caption_weight * per_img.mean()
+            else:
+                cls_scores = scores
+            if ann_type != "caption":
+                img_loss = img_loss + _weak_image_loss(c, cls_scores, None, boxes, pvalid,
+                                                       labels, labels_valid)
+            losses[f"image_loss_stage{stage}"] = img_loss * c.image_loss_weight
+            losses[f"loss_cls_stage{stage}"] = zero
+            losses[f"loss_box_reg_stage{stage}"] = zero
+            boxes = box_regression.apply_deltas(deltas.detach().float(), boxes,
+                                                c.cascade_reg_weights[stage])
+            boxes = box_ops.clip(boxes, image_sizes)
+        if self.mask_head is not None:
+            losses["loss_mask"] = zero
+        return losses
 
     def inference(self, features: Dict[str, torch.Tensor], proposals: Dict[str, torch.Tensor],
                   image_sizes: torch.Tensor, return_logits: bool = False) -> Dict[str, torch.Tensor]:
@@ -562,6 +636,86 @@ class CascadeROIHeads(nn.Module):
             mask_logits = self._mask_logits(features, dets["boxes"])
             dets["mask_logits"] = mask_logits.reshape(b, k, *mask_logits.shape[-2:])
         return dets
+
+
+def weak_proposals(c: ROIHeadsConfig, proposals: Dict[str, torch.Tensor],
+                   image_sizes: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The proposals a weak loss scores: the first ``ws_num_props`` (already
+    score-sorted), without gradient, clipped to the image, and with
+    ``add_image_box`` one more box per image, centred and ``image_box_size``
+    of its size. Returns (boxes (B, P, 4), valid (B, P))."""
+    n = min(c.ws_num_props, proposals["boxes"].shape[1])
+    boxes = box_ops.clip(proposals["boxes"][:, :n].detach().float(), image_sizes)
+    valid = proposals["valid"][:, :n]
+    if c.add_image_box:
+        f = c.image_box_size
+        h, w = image_sizes[:, 0].float(), image_sizes[:, 1].float()
+        ib = torch.stack([w * (1 - f) / 2, h * (1 - f) / 2,
+                          w * (1 - (1 - f) / 2), h * (1 - (1 - f) / 2)], dim=-1)
+        boxes = torch.cat([boxes, ib[:, None, :]], dim=1)
+        valid = torch.cat([valid, torch.ones_like(valid[:, :1])], dim=1)
+    return boxes, valid
+
+
+def _weak_image_loss(c: ROIHeadsConfig, scores: torch.Tensor,
+                     prop_score: Optional[torch.Tensor], boxes: torch.Tensor,
+                     prop_valid: torch.Tensor, labels: torch.Tensor,
+                     labels_valid: torch.Tensor) -> torch.Tensor:
+    """One stage's image-label loss, over (B, L) labels at once: scores and
+    prop_score (B, P, C + 1) float32 logits (prop_score None: the scores take
+    its place), boxes (B, P, 4), prop_valid (B, P).
+
+    ``max_size``: BCE at the largest valid proposal, the last one always left
+    out (also when it is not an image box); ``max_score``: at the valid
+    proposal scoring highest for the label; ``first``: at proposal 0;
+    ``image``: at the last (image) box; ``min_loss``: at the valid proposal of
+    the smallest summed BCE, picked without gradient; ``wsddn`` / ``wsod``:
+    sigmoid(scores) weighted by a softmax over the proposals of the proposal
+    scores (invalid ones at -1e30), summed, clipped to [1e-10, 1 - 1e-10],
+    then the BCE averaged over the classes. ``softmax_weak_loss`` replaces
+    the row's BCE by -log_softmax at the label. Each image averages its
+    valid labels (at least one in the denominator); the batch averages the
+    images."""
+    b, p, c1 = scores.shape
+    lab = labels.long()
+    tgt = (lab[..., None] == torch.arange(c1, device=lab.device)).float()  # (B, L, C1)
+    col = torch.where(lab < 0, lab + c1, lab).clamp(0, c1 - 1)  # the label's column
+    n_lab = lab.shape[1]
+    kind = c.image_label_loss
+    if kind in ("wsddn", "wsod"):
+        ps = scores if prop_score is None else prop_score
+        logits_p = torch.where(prop_valid[..., None], ps, torch.full_like(ps, -1e30))
+        img = (torch.sigmoid(scores) * torch.softmax(logits_p, dim=1)).sum(dim=1)
+        img = img.clamp(1e-10, 1.0 - 1e-10)[:, None, :]  # (B, 1, C1)
+        ll = -(tgt * torch.log(img) + (1 - tgt) * torch.log(1 - img)).mean(dim=-1)
+    else:
+        neg_inf = torch.tensor(float("-inf"), device=scores.device)
+        if kind == "max_size":
+            area = (boxes[..., 2] - boxes[..., 0]) * (boxes[..., 3] - boxes[..., 1])
+            area = torch.where(prop_valid, area, neg_inf)
+            area[:, -1] = float("-inf")
+            ind = area.argmax(dim=1)[:, None].expand(b, n_lab)
+        elif kind == "max_score":
+            per_label = torch.gather(scores, 2, col[:, None, :].expand(b, p, n_lab))
+            ind = torch.where(prop_valid[..., None], per_label, neg_inf).argmax(dim=1)
+        elif kind == "first":
+            ind = torch.zeros((b, n_lab), dtype=torch.long, device=scores.device)
+        elif kind == "image":
+            ind = torch.full((b, n_lab), p - 1, dtype=torch.long, device=scores.device)
+        elif kind == "min_loss":
+            per_row = optax_sigmoid_bce(scores.detach()[:, :, None, :],
+                                        tgt[:, None, :, :].expand(b, p, n_lab, c1)).sum(-1)
+            ind = torch.where(prop_valid[..., None], per_row, -neg_inf).argmin(dim=1)
+        else:
+            raise ValueError(f"unknown image_label_loss {kind}")
+        row = torch.gather(scores, 1, ind[..., None].expand(b, n_lab, c1))  # (B, L, C1)
+        if c.softmax_weak_loss:
+            ll = -torch.gather(torch.log_softmax(row, dim=-1), 2, col[..., None])[..., 0]
+        else:
+            ll = optax_sigmoid_bce(row, tgt).sum(dim=-1)
+    lv = labels_valid.bool()
+    per_image = torch.where(lv, ll, torch.zeros_like(ll)).sum(dim=1)
+    return (per_image / lv.float().sum(dim=1).clamp(min=1.0)).mean()
 
 
 def _fast_rcnn_inference_single(c: ROIHeadsConfig, boxes: torch.Tensor, scores: torch.Tensor,

@@ -8,8 +8,11 @@ Detic output layers, matching, sampling and losses of ``cascade_heads``; the
 mask head runs on the res5 map of the same rows. Children carry the flax
 scope names (``res5_block0.conv1``, ``box_predictor.cls_score``,
 ``mask_head.deconv``, …). Training draws ``match`` (B, P + N) and ``fed0``
-(C + 1,) through ``ops.losses.uniform_draw``. The image-label branch (weak
-supervision) is not ported.
+(C + 1,) through ``ops.losses.uniform_draw``. ``image_label_losses`` is the
+weak branch: one stage of the image-label loss over the top proposals and the
+optional image box, with the WSDDN proposal-score branch under
+``with_softmax_prop``; captions are not read (the head builds no zero-shot
+classifier), as in the JAX module.
 """
 from __future__ import annotations
 
@@ -24,8 +27,8 @@ from ...structures.masks import mask_target_in_box
 from ..backbone.resnet import Bottleneck
 from . import box_regression
 from .cascade_heads import (DeticOutputLayers, MaskRCNNConvUpsampleHead, ROIHeadsConfig,
-                            _fast_rcnn_inference_single, _fast_rcnn_losses, match_proposals,
-                            subsample_proposals)
+                            _fast_rcnn_inference_single, _fast_rcnn_losses, _weak_image_loss,
+                            match_proposals, subsample_proposals, weak_proposals)
 
 
 class Res5ROIHeads(nn.Module):
@@ -108,9 +111,32 @@ class Res5ROIHeads(nn.Module):
             losses["loss_mask"] = (per_roi * w).sum() / w.sum().clamp(min=1.0)
         return losses
 
-    def image_label_losses(self, *args, **kwargs):
-        raise NotImplementedError("Res5ROIHeads.image_label_losses (weak supervision) is not "
-                                  "yet ported")
+    def image_label_losses(self, features: Dict[str, torch.Tensor],
+                           proposals: Dict[str, torch.Tensor], image_sizes: torch.Tensor,
+                           labels: torch.Tensor, labels_valid: torch.Tensor,
+                           ann_type: str = "image", cap_emb=None, cap_idx=None,
+                           cls_inds=None) -> Dict[str, torch.Tensor]:
+        """``image_loss`` of one stage over ``cascade_heads.weak_proposals``
+        through the res5 tower, and ``loss_cls``, ``loss_box_reg`` (and
+        ``loss_mask``) at zero; arguments as
+        ``CascadeROIHeads.image_label_losses``. ``ann_type``, ``cap_emb``,
+        ``cap_idx`` and ``cls_inds`` are not read, as in the JAX module."""
+        c = self.cfg
+        boxes, pvalid = weak_proposals(c, proposals, image_sizes)
+        b, p = boxes.shape[:2]
+        feat = self._res5_features(features, boxes).mean(dim=(1, 2))
+        scores, _ = self.box_predictor(feat)
+        prop = self.box_predictor.prop_score(feat)
+        scores = scores.reshape(b, p, -1).float()
+        if prop is not None:
+            prop = prop.reshape(b, p, -1).float()
+        img_loss = _weak_image_loss(c, scores, prop, boxes, pvalid, labels, labels_valid)
+        zero = torch.zeros((), device=boxes.device)
+        out = {"image_loss": img_loss * c.image_loss_weight, "loss_cls": zero,
+               "loss_box_reg": zero}
+        if self.mask_head is not None:
+            out["loss_mask"] = zero
+        return out
 
     @torch.no_grad()
     def inference(self, features: Dict[str, torch.Tensor], proposals: Dict[str, torch.Tensor],

@@ -32,6 +32,14 @@ def nms_mask(boxes: torch.Tensor, scores: torch.Tensor, iou_threshold: float,
              valid: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Exact greedy NMS. Returns a bool keep mask aligned with input order.
     Invalid rows are never kept and never suppress others."""
+    return greedy_nms(boxes, scores, iou_threshold, valid, box_ops.pairwise_iou)
+
+
+def greedy_nms(boxes: torch.Tensor, scores: torch.Tensor, iou_threshold: float,
+               valid: Optional[torch.Tensor], pairwise_iou) -> torch.Tensor:
+    """``nms_mask`` over the overlaps ``pairwise_iou(boxes, boxes)`` of any
+    box format (``ops/rotated.py:nms_rotated`` passes the rotated IoU); its
+    fixpoint reads are counted in ``nms_mask.host_syncs`` too."""
     n = boxes.shape[0]
     if n == 0:
         return torch.zeros((0,), dtype=torch.bool, device=boxes.device)
@@ -45,7 +53,7 @@ def nms_mask(boxes: torch.Tensor, scores: torch.Tensor, iou_threshold: float,
     alive = valid[order].clone()
     kept = torch.zeros((n,), dtype=torch.bool, device=boxes.device)
     # one (n, n) overlap matrix in score order; [j, i] with j above i counts
-    over_all = box_ops.pairwise_iou(sboxes, sboxes) > iou_threshold
+    over_all = pairwise_iou(sboxes, sboxes) > iou_threshold
     idx = torch.arange(tile, device=boxes.device)
     tri = idx[:, None] < idx[None, :]  # [j, i]: j strictly above i in score order
 

@@ -18,7 +18,8 @@ Without a CLIP checkpoint the towers run on random weights: the artifact
 plumbing still runs end to end. Images are read by ``utils/image_io.py``
 (PNG or baseline JPEG, the pixels of ``cv2.imread``) and written as PNG: the
 port reads RGB and writes RGB(A) where the JAX CLI's OpenCV reads BGR and
-writes BGR(A), so the files hold the same pixels. ``--method dinov2`` is not ported yet.
+writes BGR(A), so the files hold the same pixels. ``--method dinov2
+--dino_model vitg14`` embeds with ``core.DinoEncoder`` (float32, as in JAX).
 
     python -c "from divergen_tpu_torch.pipeline.filteration.cli import \\
         extract_features as f; raise SystemExit(f())" --in_dir samples/ \\
@@ -55,7 +56,8 @@ def _encoder(args) -> ClipEncoder:
     if getattr(args, "method", "clip") == "dinov2":
         from .core import DinoEncoder
 
-        return DinoEncoder(getattr(args, "dino_model", "vitg14"), batch=args.batch)
+        return DinoEncoder(getattr(args, "dino_model", "vitg14"), batch=args.batch,
+                           device=args.device or None)
     params = None
     if getattr(args, "clip_ckpt", ""):
         from ...utils.torch_weights import load_clip_params

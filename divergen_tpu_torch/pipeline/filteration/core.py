@@ -115,11 +115,49 @@ class ClipEncoder:
 
 
 class DinoEncoder:
-    """The DINOv2 image tower of ``--method dinov2``. It waits for the DINOv2
-    backbone's slice of the port."""
+    """The DINOv2 image tower of ``--method dinov2``: ``modeling/backbone/
+    dinov2.py:DinoV2`` (``model_name`` one of vits14, vitb14, vitl14, vitg14)
+    with the ``encode_images`` interface of ``ClipEncoder``; embeddings are
+    L2-normalized (norm at least 1e-8) for the shared cosine similarity, and
+    the last chunk is padded to ``batch`` with zero images. ``params`` is a
+    DINOv2 tree in the JAX module's layout; without it the tower draws random
+    weights from ``rng_seed``. ``dtype`` is the tower's compute dtype
+    (float32, as the JAX encoder runs it, unless the caller asks for
+    another)."""
 
-    def __init__(self, *args, **kwargs):
-        raise NotImplementedError("DinoEncoder (--method dinov2) is not yet ported")
+    def __init__(self, model_name: str = "vitg14", batch: int = 64, params=None,
+                 rng_seed: int = 0, image_size: int = 224, device=None,
+                 dtype=torch.float32):
+        from ...modeling.backbone.dinov2 import DinoV2
+        from ...modeling.layers import flax_init_
+        from ...utils.convert import params_from_jax
+        from ...utils.dist import entry_device
+
+        self.device = entry_device(device)
+        self.batch = batch
+        self.model = DinoV2.from_name(model_name, image_size=image_size, dtype=dtype,
+                                      device=self.device)
+        if params is None:
+            flax_init_(self.model, torch.Generator(device=self.device).manual_seed(rng_seed))
+        else:
+            self.model.load_state_dict(params_from_jax(params))
+        self.model.eval()
+
+    @torch.inference_mode()
+    def encode_images(self, images: np.ndarray) -> np.ndarray:
+        """(N, H, W, 3) RGB 0..255 → (N, D) normalized, padded batching."""
+        from ...modeling.backbone.dinov2 import dinov2_preprocess
+
+        out = []
+        for ofs in range(0, len(images), self.batch):
+            chunk = torch.as_tensor(np.asarray(images[ofs: ofs + self.batch])).to(self.device)
+            pad = self.batch - len(chunk)
+            if pad:
+                chunk = torch.cat([chunk, chunk.new_zeros((pad,) + chunk.shape[1:])])
+            feats = self.model(dinov2_preprocess(chunk))
+            emb = feats / torch.linalg.norm(feats, dim=-1, keepdim=True).clamp(min=1e-8)
+            out.append(emb[: len(images) - ofs].cpu().numpy())
+        return np.concatenate(out) if out else np.zeros((0, 1))
 
 
 def cosine_matrix(a: np.ndarray, b: np.ndarray) -> np.ndarray:

@@ -1,8 +1,10 @@
 """A small PNG writer and reader on the standard library (zlib + struct).
 
 The writer stores 8-bit RGB, RGBA or gray, the pixels ``cv2.imwrite`` would
-store for the same array (RGB given as RGB, not BGR). The reader decodes
-8-bit gray, RGB and RGBA, non-interlaced, with all five scanline filters. So
+store for the same array (RGB given as RGB, not BGR), and 16-bit gray from a
+uint16 array (what PIL writes for an image of mode "I" whose values fit 16
+bits: Cityscapes' ``*_instanceIds.png``). The reader decodes 8-bit gray, RGB
+and RGBA and 16-bit gray, non-interlaced, with all five scanline filters. So
 the port needs neither OpenCV nor PIL. JPEG files go through
 ``utils/image_io.py``, which picks this reader or the native JPEG decoder.
 """
@@ -23,16 +25,20 @@ def _chunk(tag: bytes, data: bytes) -> bytes:
 
 
 def write_png(path: str, img: np.ndarray) -> None:
-    """img: (H, W, 3) uint8 RGB, (H, W, 4) uint8 RGBA, or (H, W) uint8 gray."""
+    """img: (H, W, 3) uint8 RGB, (H, W, 4) uint8 RGBA, (H, W) uint8 gray, or
+    (H, W) uint16 gray (a 16-bit PNG)."""
     img = np.ascontiguousarray(img)
-    if img.dtype != np.uint8 or not (img.ndim == 2 or (img.ndim == 3 and img.shape[2] in (3, 4))):
-        raise ValueError(f"expected (H, W, 3), (H, W, 4) or (H, W) uint8, got {img.shape} "
-                         f"{img.dtype}")
+    deep = img.dtype == np.uint16 and img.ndim == 2
+    if not deep and (img.dtype != np.uint8
+                     or not (img.ndim == 2 or (img.ndim == 3 and img.shape[2] in (3, 4)))):
+        raise ValueError(f"expected (H, W, 3), (H, W, 4) or (H, W) uint8, or (H, W) uint16, "
+                         f"got {img.shape} {img.dtype}")
     h, w = img.shape[:2]
-    # each scanline starts with filter type 0 (none)
-    raw = np.concatenate([np.zeros((h, 1), np.uint8), img.reshape(h, -1)], axis=1)
+    # each scanline starts with filter type 0 (none); samples are big-endian
+    rows = img.astype(">u2").view(np.uint8) if deep else img
+    raw = np.concatenate([np.zeros((h, 1), np.uint8), rows.reshape(h, -1)], axis=1)
     color_type = {3: 2, 4: 6}[img.shape[2]] if img.ndim == 3 else 0
-    ihdr = struct.pack(">IIBBBBB", w, h, 8, color_type, 0, 0, 0)
+    ihdr = struct.pack(">IIBBBBB", w, h, 16 if deep else 8, color_type, 0, 0, 0)
     with open(path, "wb") as f:
         f.write(_SIGNATURE)
         f.write(_chunk(b"IHDR", ihdr))
@@ -74,8 +80,8 @@ def _unfilter(raw: np.ndarray, bpp: int) -> np.ndarray:
 
 
 def read_png(path: str) -> np.ndarray:
-    """Decode an 8-bit, non-interlaced PNG: (H, W) uint8 for gray, (H, W, 3)
-    for RGB, (H, W, 4) for RGBA."""
+    """Decode a non-interlaced PNG: (H, W) uint8 for 8-bit gray, (H, W, 3)
+    for RGB, (H, W, 4) for RGBA, (H, W) uint16 for 16-bit gray."""
     if path.lower().endswith((".jpg", ".jpeg")):
         raise ValueError(f"{path}: a JPEG name; read_png reads PNG only "
                          "(utils/image_io.py reads JPEG too)")
@@ -99,17 +105,21 @@ def decode_png(data: bytes, path: str = "<bytes>") -> np.ndarray:
     if header is None:
         raise ValueError(f"{path}: no IHDR chunk")
     w, h, depth, color_type, _, _, interlace = header
-    if depth != 8 or color_type not in _CHANNELS or interlace:
-        raise ValueError(f"{path}: only 8-bit gray / RGB / RGBA, non-interlaced PNGs are "
-                         f"read (bit depth {depth}, color type {color_type}, "
-                         f"interlace {interlace})")
-    bpp = _CHANNELS[color_type]
+    deep = depth == 16 and color_type == 0
+    if not (depth == 8 or deep) or color_type not in _CHANNELS or interlace:
+        raise ValueError(f"{path}: only 8-bit gray / RGB / RGBA and 16-bit gray, "
+                         f"non-interlaced PNGs are read (bit depth {depth}, color type "
+                         f"{color_type}, interlace {interlace})")
+    channels = _CHANNELS[color_type]
+    bpp = channels * depth // 8  # bytes per pixel, the filters' unit
     raw = np.frombuffer(zlib.decompress(b"".join(idat)), np.uint8)
     if raw.size != h * (1 + w * bpp):
         raise ValueError(f"{path}: {raw.size} bytes of pixel data for {w}x{h}x{bpp}")
     raw = raw.reshape(h, 1 + w * bpp)
     pixels = raw[:, 1:] if not raw[:, 0].any() else _unfilter(raw, bpp)
-    return pixels.reshape((h, w) if bpp == 1 else (h, w, bpp)).copy()
+    if deep:
+        return np.ascontiguousarray(pixels).view(">u2").reshape(h, w).astype(np.uint16)
+    return pixels.reshape((h, w) if channels == 1 else (h, w, channels)).copy()
 
 
 def read_rgb(path: str) -> np.ndarray:
@@ -124,15 +134,22 @@ def read_gray(path: str) -> np.ndarray:
     return as_gray(read_png(path))
 
 
+def _eight_bit(img: np.ndarray) -> None:
+    if img.dtype != np.uint8:
+        raise ValueError(f"a {img.dtype} PNG: read 16-bit gray with read_png")
+
+
 def as_rgb(img: np.ndarray) -> np.ndarray:
-    """A decoded PNG as (H, W, 3) RGB (``read_rgb``)."""
+    """A decoded 8-bit PNG as (H, W, 3) RGB (``read_rgb``)."""
+    _eight_bit(img)
     if img.ndim == 2:
         return np.repeat(img[..., None], 3, axis=2)
     return img[..., :3]
 
 
 def as_gray(img: np.ndarray) -> np.ndarray:
-    """A decoded PNG as (H, W) gray (``read_gray``)."""
+    """A decoded 8-bit PNG as (H, W) gray (``read_gray``)."""
+    _eight_bit(img)
     if img.ndim == 2:
         return img
     rgb = img[..., :3].astype(np.float32)

@@ -144,8 +144,14 @@ def test_artifact_helpers_equal_the_originals(tmp_path):
 
 
 def test_dino_encoder_is_not_ported():
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        tcore.DinoEncoder()
+    # DinoEncoder is ported (tests/test_torch_dinov2.py); as every entry point it
+    # runs on the card unless the caller names another device, and nothing falls
+    # back to the CPU
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            tcore.DinoEncoder("vits14")
+    enc = tcore.DinoEncoder("vits14", batch=2, image_size=28, device="cpu")
+    assert enc.encode_images(np.zeros((3, 28, 28, 3), np.uint8)).shape == (3, 384)
 
 
 def test_filtration_chain_matches_jax_cli(tmp_path, tiny_clip):

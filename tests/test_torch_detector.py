@@ -304,8 +304,14 @@ def test_roi_heads_config_and_not_yet_ported():
     assert sorted(refine.state_dict()) == sorted(want)
     assert {k.split(".")[0] for k in want} >= {"mask_head", "semantic_branch"}
     heads = tch.CascadeROIHeads(tch.ROIHeadsConfig(**ROI), 16)
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        heads.image_label_losses()
+    # ``image_label_losses`` is ported (tests/test_torch_weak_supervision.py): the JAX
+    # package's key set, finite
+    weak = heads.image_label_losses({k: t(v) for k, v in feats.items()},
+                                    {k: t(v) for k, v in props.items()}, t(sizes),
+                                    torch.tensor([[1, 2]] * 2), torch.ones(2, 2, dtype=torch.bool))
+    assert list(weak) == [f"{k}_stage{s}" for s in range(3)
+                          for k in ("image_loss", "loss_cls", "loss_box_reg")] + ["loss_mask"]
+    assert all(torch.isfinite(v) for v in weak.values())
     # ``losses`` is ported: the loss dict of the JAX package, finite
     gt = {"boxes": t(props["boxes"][:, :4]), "classes": torch.tensor([[0, 1, 2, 3]] * 2),
           "valid": torch.ones(2, 4, dtype=torch.bool), "masks": torch.ones(2, 4, 28, 28)}
@@ -374,11 +380,12 @@ def test_custom_rcnn_pyramid(detector_case):
 
 def test_custom_rcnn_not_yet_ported(detector_case):
     _, _, _, tm, images, sizes = detector_case
-    # the training forward is ported for box supervision; weak supervision is not
+    # the training forward is ported for box and weak supervision; reductions over
+    # ranks (axis_name) wait for torch.distributed
     gt = tge._synth_gt(np.random.RandomState(0), 2, 8, 8, img=96)
-    with pytest.raises(NotImplementedError, match="not yet ported"):
+    with pytest.raises(NotImplementedError, match="torch.distributed"):
         tm(t(images), t(sizes), gt=gt, rng=torch.Generator().manual_seed(0), training=True,
-           ann_type="image")
+           ann_type="image", axis_name="data")
     losses = tm(t(images), t(sizes), gt=gt, rng=torch.Generator().manual_seed(0), training=True)
     assert len(losses) == 10 and all(torch.isfinite(v) for v in losses.values())
     # every other architecture builds, with the JAX detector's parameter names

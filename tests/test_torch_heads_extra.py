@@ -247,8 +247,11 @@ def test_res5_losses(res5_case):
     got = tm.losses(res5_draws(key, 30, 8), tt(feats), tt(props), torch_gt(gt), fed_weight=t(fed))
     assert sorted(got) == ["loss_box_reg", "loss_cls", "loss_mask"]
     assert_losses_close(got, want)
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        tm.image_label_losses()
+    # image_label_losses is ported (tests/test_torch_weak_supervision.py)
+    weak = tm.image_label_losses(tt(feats), tt(props), t(sizes), torch.tensor([[2, 5]] * 2),
+                                 torch.ones(2, 2, dtype=torch.bool))
+    assert sorted(weak) == ["image_loss", "loss_box_reg", "loss_cls", "loss_mask"]
+    assert torch.isfinite(weak["image_loss"]) and weak["image_loss"] > 0
 
 
 def test_res5_inference(res5_case):

@@ -10,15 +10,21 @@ import pytest
 from divergen_tpu_torch.utils import png
 
 
-def _encode(img: np.ndarray, filter_type: int) -> bytes:
-    """A PNG whose every scanline uses ``filter_type``."""
-    h, w = img.shape[:2]
-    bpp = 1 if img.ndim == 2 else img.shape[2]
-    rows = img.reshape(h, w * bpp).astype(np.int64)
+def _png(w: int, h: int, depth: int, color_type: int, scanlines: bytes) -> bytes:
+    chunk = lambda tag, data: (struct.pack(">I", len(data)) + tag + data
+                               + struct.pack(">I", zlib.crc32(tag + data) & 0xFFFFFFFF))
+    return (b"\x89PNG\r\n\x1a\n"
+            + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, depth, color_type, 0, 0, 0))
+            + chunk(b"IDAT", zlib.compress(scanlines)) + chunk(b"IEND", b""))
+
+
+def _filtered(rows: np.ndarray, bpp: int, filter_type: int) -> bytes:
+    """(H, W · bpp) bytes → scanlines that all use ``filter_type``; ``bpp`` is
+    the bytes of a pixel, the filters' unit."""
+    rows = rows.astype(np.int64)
     out = bytearray()
-    prev = np.zeros(w * bpp, np.int64)
-    for y in range(h):
-        cur = rows[y]
+    prev = np.zeros(rows.shape[1], np.int64)
+    for cur in rows:
         left = np.concatenate([np.zeros(bpp, np.int64), cur[:-bpp]])
         upleft = np.concatenate([np.zeros(bpp, np.int64), prev[:-bpp]])
         if filter_type == 0:
@@ -36,11 +42,15 @@ def _encode(img: np.ndarray, filter_type: int) -> bytes:
         out.append(filter_type)
         out += bytes(((cur - pred) & 0xFF).astype(np.uint8))
         prev = cur
-    color_type = {1: 0, 3: 2, 4: 6}[bpp]
-    chunk = lambda tag, data: (struct.pack(">I", len(data)) + tag + data
-                               + struct.pack(">I", zlib.crc32(tag + data) & 0xFFFFFFFF))
-    return (b"\x89PNG\r\n\x1a\n" + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, color_type, 0, 0, 0))
-            + chunk(b"IDAT", zlib.compress(bytes(out))) + chunk(b"IEND", b""))
+    return bytes(out)
+
+
+def _encode(img: np.ndarray, filter_type: int) -> bytes:
+    """A PNG whose every scanline uses ``filter_type``."""
+    h, w = img.shape[:2]
+    bpp = 1 if img.ndim == 2 else img.shape[2]
+    return _png(w, h, 8, {1: 0, 3: 2, 4: 6}[bpp], _filtered(img.reshape(h, w * bpp), bpp,
+                                                            filter_type))
 
 
 @pytest.mark.parametrize("filter_type", [0, 1, 2, 3, 4])
@@ -80,7 +90,38 @@ def test_write_png_read_back_by_opencv(tmp_path, shape):
 def test_jpeg_and_16_bit_raise(tmp_path):
     with pytest.raises(ValueError, match="JPEG"):
         png.read_png(str(tmp_path / "a.jpg"))
+    # 16-bit colour stays refused; 16-bit gray is read by read_png alone
     path = str(tmp_path / "deep.png")
-    cv2.imwrite(path, np.zeros((4, 4), np.uint16))
+    cv2.imwrite(path, np.zeros((4, 4, 3), np.uint16))
     with pytest.raises(ValueError, match="8-bit"):
         png.read_png(path)
+    cv2.imwrite(path, np.zeros((4, 4), np.uint16))
+    assert png.read_png(path).dtype == np.uint16
+    for read in (png.read_rgb, png.read_gray):
+        with pytest.raises(ValueError, match="16-bit gray"):
+            read(path)
+    with pytest.raises(ValueError, match="uint16"):
+        png.write_png(path, np.zeros((4, 4, 3), np.uint16))
+
+
+@pytest.mark.parametrize("filter_type", [0, 1, 2, 3, 4])
+def test_16_bit_gray(tmp_path, filter_type):
+    """Cityscapes' instance ids (label · 1000 + instance) as 16-bit gray: PIL's
+    mode "I" and OpenCV write them, the port reads them back; the port writes
+    them and both read them; scanlines filtered by hand with each filter."""
+    from PIL import Image
+
+    rng = np.random.RandomState(filter_type)
+    ids = rng.choice([7, 24, 26, 24001, 26001, 26002, 33000, 65535], (11, 13)).astype(np.uint16)
+    pil_path, cv_path, port_path = (str(tmp_path / f"{n}.png") for n in ("pil", "cv", "port"))
+    Image.fromarray(ids.astype(np.int32), mode="I").save(pil_path)
+    cv2.imwrite(cv_path, ids)
+    for path in (pil_path, cv_path):
+        np.testing.assert_array_equal(png.read_png(path), ids)
+    png.write_png(port_path, ids)
+    np.testing.assert_array_equal(np.asarray(Image.open(port_path), np.int64), ids)
+    np.testing.assert_array_equal(cv2.imread(port_path, cv2.IMREAD_UNCHANGED), ids)
+    # every filter type over the big-endian bytes, two bytes a pixel
+    rows = ids.astype(">u2").view(np.uint8).reshape(11, 26)
+    deep = _png(13, 11, 16, 0, _filtered(rows, 2, filter_type))
+    np.testing.assert_array_equal(png.decode_png(deep), ids)

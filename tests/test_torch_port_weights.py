@@ -472,11 +472,13 @@ import pathlib  # noqa: E402
 
 from divergen_tpu.data import catalog as jcatalog  # noqa: E402
 from divergen_tpu.data.datasets import lvis as jlvis  # noqa: E402
+from divergen_tpu.evaluation import cityscapes_instance_scoring as jcityscapes  # noqa: E402
 from divergen_tpu.evaluation import coco_eval_np as jcoco  # noqa: E402
 from divergen_tpu.evaluation import oid_eval as joid  # noqa: E402
 from divergen_tpu.utils import mask_codec as jmask  # noqa: E402
 from divergen_tpu_torch.data import catalog as tcatalog  # noqa: E402
 from divergen_tpu_torch.data.datasets import lvis as tlvis  # noqa: E402
+from divergen_tpu_torch.evaluation import cityscapes_instance_scoring as tcityscapes  # noqa: E402
 from divergen_tpu_torch.evaluation import coco_eval_np as tcoco  # noqa: E402
 from divergen_tpu_torch.evaluation import oid_eval as toid  # noqa: E402
 from divergen_tpu_torch.utils import mask_codec as tmask  # noqa: E402
@@ -494,6 +496,9 @@ COPIES = [
     (tlvis, jlvis, ["load_lvis_json", "frequency_groups", "lvis_meta_from_json",
                     "register_lvis_instances", "register_synthetic_instances",
                     "register_builtin"]),
+    (tcityscapes, jcityscapes, ["CITYSCAPES_LABELS", "EVAL_INSTANCE_IDS", "VOID_IDS",
+                                "ID_TO_NAME", "DEFAULT_OVERLAPS", "MIN_REGION_SIZE",
+                                "_ImageEval", "InstanceScorer"]),
 ]
 # DetEval: every method but _eval_img_cat, whose matching calls the native
 # library without a numpy fallback
@@ -508,7 +513,8 @@ def test_native_sources_are_copies(name):
 
 
 @pytest.mark.parametrize("port,orig,names", COPIES,
-                         ids=["mask_codec", "coco_eval_np", "oid_eval", "catalog", "lvis"])
+                         ids=["mask_codec", "coco_eval_np", "oid_eval", "catalog", "lvis",
+                              "cityscapes_instance_scoring"])
 def test_evaluation_copies(port, orig, names):
     for name in names:
         got, want = getattr(port, name), getattr(orig, name)

@@ -392,8 +392,11 @@ def test_scale_gradient_and_what_is_not_yet_ported(roi_case):
     assert torch.equal(y, x)
     (y * torch.arange(6.0).reshape(2, 3)).sum().backward()
     np.testing.assert_array_equal(x.grad.numpy(), np.arange(6.0).reshape(2, 3) * 0.25)
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        roi_case[2].image_label_losses()
+    # image_label_losses is ported (tests/test_torch_weak_supervision.py)
+    _, _, tm, feats, props, sizes, _, _, _ = roi_case
+    weak = tm.image_label_losses(tt(feats), tt(props), t(sizes), torch.tensor([[0, 3]] * 2),
+                                 torch.ones(2, 2, dtype=torch.bool))
+    assert all(torch.isfinite(v) for v in weak.values()) and weak["image_loss_stage0"] > 0
 
 
 # -- the detector's training forward ---------------------------------------------------
@@ -489,8 +492,9 @@ def test_training_forward_refuses_what_is_not_ported(tiny_swin):
     images, sizes, gt, fed = detector_batch(33)
     tm = trcnn.build_model(train_cfg(lambda: tge._small_cfg(backbone="swin")), input_size=CANVAS)
     gen = torch.Generator().manual_seed(0)
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        tm(t(images), t(sizes), gt=torch_gt(gt), rng=gen, training=True, ann_type="image")
+    # weak supervision is ported; a reduction over ranks is not
+    with pytest.raises(NotImplementedError, match="torch.distributed"):
+        tm(t(images), t(sizes), gt=torch_gt(gt), rng=gen, training=True, axis_name="data")
     with pytest.raises(ValueError, match="gt and rng"):
         tm(t(images), t(sizes), training=True)
     with pytest.raises(ValueError, match="training=False"):
