@@ -371,7 +371,33 @@ Run from the root of a checkout:  python3 chip_smoke.py
    (f) ``pairwise_iou_rotated`` and ``nms_rotated`` on 2000 boxes on the card
        against the CPU (IoU within 1e-5, equal keep masks), ms of each.
    It prints the smoke's wall clock before and after the slice.
-14. Prints the kernels' JSON line (the 13 wrappers' entries; the float32
+14. Slice of deployment and DLA's deformable aggregation, launch counters
+   reset just before it (``slice_deployment``):
+   (a) the flagship (``flagship_entry``: Swin-L, 1453 classes, 896², B = 2,
+       bf16) exported by ``export.export_inference`` weights-separate and
+       baked (24 ``divergen::window_attention_packed`` ops in each program,
+       no launch while tracing, the plain twin absent), each artifact saved
+       and then both loaded and served on the card by one fresh ``python -c``
+       interpreter that imports only ``divergen_tpu_torch.export`` and
+       ``.ops`` (``SERVE_EXPORTED``; no model code in its ``sys.modules``):
+       exactly 24 kernel-5 launches every forward, the eager forward's
+       detections (``same_detections``), a 448² canvas refused; the export's
+       seconds, the artifact's bytes and ms a forward against eager's (CUDA
+       events, median of 10 after 2). That interpreter's launches are added
+       to the slice's counts;
+   (b) a synthetic detectron2 checkpoint at the flagship's shapes
+       (``synthetic_flagship_checkpoint``) through
+       ``tools.import_reference_checkpoint`` (every entry but the stride-4
+       norm filled), ``tools.convert_imgnet_model_to_lvis`` (1453 -> 1203:
+       the cut leaves' shapes and values, everything else unchanged) and
+       ``tools.export_model --ema --run-sample`` on the card at 1203
+       classes: finite outputs, 24 launches;
+   (c) DLA-34 -> ``DLAUp(node_type="dcn")`` at 640², B = 2, float32, a
+       forward and backward on the card against the CPU within
+       ``DRYRUN_BOUNDS`` (loss, gradient norm), no kernel launch, ms and
+       peak memory; ``deform_conv2d`` at dla2's shape against the CPU within
+       1e-5 of max |ref|, ms and peak memory.
+15. Prints the kernels' JSON line (the 13 wrappers' entries; the float32
    window backward body with its launches in 10; and each padded head-dim
    case of 3 with its checked call's launch), the card line, and as the
    last line {"ok": true, "device": {...}}. Any failed phase raises: exit
@@ -5199,6 +5225,438 @@ def slice_if_cascade(card: str, tmp: str, pipe, cond, bf16_images, snapshot):
     return timings
 
 
+# ---- slice 14: deployment and DLA's deformable aggregation --------------------
+ROOT = os.path.dirname(os.path.abspath(__file__))
+EXPORT_WARMUPS, EXPORT_REPS = 2, 10  # forwards of each program before and in its timing
+DEPLOY_SHAPES = {"prop_idx": (2, 300), "boxes": (2, 300, 4), "scores": (2, 300),
+                 "classes": (2, 300), "valid": (2, 300), "mask_logits": (2, 300, 28, 28)}
+# run in a fresh interpreter: load each artifact with no model code, serve it on
+# the card, print one JSON line per artifact
+SERVE_EXPORTED = r"""
+import json, statistics, sys, torch
+from divergen_tpu_torch.export import load_exported
+from divergen_tpu_torch.ops import window_attention as wa
+inputs_path, warmups, reps, *jobs = sys.argv[1:]
+inputs = torch.load(inputs_path, map_location="cuda", weights_only=True)
+images, sizes = inputs["images"], inputs["sizes"]
+packed = wa.fused_window_attention_packed
+for art_path, out_path in zip(jobs[::2], jobs[1::2]):
+    art = load_exported(art_path)
+    args = (images, sizes) if art.baked else (inputs["params"], images, sizes)
+    start_launches, start_bodies = packed.launches, dict(packed.bodies)
+
+    def forward():
+        before = packed.launches
+        out = art(*args)
+        torch.cuda.synchronize()
+        return out, packed.launches - before
+
+    out, first = forward()
+    per_forward = [first] + [forward()[1] for _ in range(int(warmups))]
+    times = []
+    for _ in range(int(reps)):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        before = packed.launches
+        start.record()
+        art(*args)
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+        per_forward.append(packed.launches - before)
+    try:
+        art(*args[:-2], torch.zeros((2, 448, 448, 3), device="cuda"), sizes)
+        wrong_shape = "no error"
+    except Exception as e:
+        wrong_shape = f"{type(e).__name__}: {str(e).splitlines()[0][:160]}"
+    torch.save({k: v.cpu() for k, v in out.items()}, out_path)
+    bodies = {f"{k[0]}|{k[1]}": n - start_bodies.get(k, 0) for k, n in packed.bodies.items()
+              if n != start_bodies.get(k, 0)}
+    model_code = sorted(m for m in sys.modules if m.startswith((
+        "divergen_tpu_torch.modeling", "divergen_tpu_torch.config",
+        "divergen_tpu_torch.graft_entry", "divergen_tpu_torch.engine", "divergen_tpu.", "jax",
+        "flax")))
+    print(json.dumps({"artifact": art_path, "platforms": list(art.platforms), "baked": art.baked,
+                      "launches": packed.launches - start_launches, "bodies": bodies,
+                      "per_forward": per_forward, "ms": statistics.median(times),
+                      "wrong_shape": wrong_shape, "model_code": model_code}), flush=True)
+    del art, args, out
+"""
+
+
+def events_ms(fn, warmups: int = EXPORT_WARMUPS, reps: int = EXPORT_REPS) -> float:
+    """Median ms of ``fn`` (CUDA events) after ``warmups`` calls."""
+    for _ in range(warmups):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def per_image(dets: dict, i: int) -> dict:
+    keep = dets["valid"][i].cpu().numpy()
+    return {k: dets[k][i].float().cpu().numpy()[keep] if k != "classes"
+            else dets[k][i].cpu().numpy()[keep] for k in ("boxes", "scores", "classes")}
+
+
+def deployment_export(card: str, tmp: str, snapshot) -> dict:
+    """(a) The flagship exported weights-separate and baked, both artifacts
+    loaded and served on the card by one fresh interpreter that imports only
+    ``divergen_tpu_torch.export`` and ``.ops`` (``SERVE_EXPORTED``): 24 kernel-5
+    launches per forward as the eager forward, the eager detections
+    (``same_detections``), a canvas of another shape refused, ms per forward
+    against eager's (CUDA events, median of ``EXPORT_REPS`` after
+    ``EXPORT_WARMUPS``). Returns the launches that interpreter counted,
+    keyed as ``snapshot()`` keys them."""
+    from divergen_tpu_torch import graft_entry
+    from divergen_tpu_torch.export import export_inference, save_exported
+
+    model, (images, sizes) = graft_entry.flagship_entry()
+    sizes = sizes.to(torch.int32)
+    before = snapshot()
+    with torch.no_grad():
+        eager = model(images, sizes)
+    torch.cuda.synchronize()
+    launched = launched_since(before, snapshot)
+    if launched != {"fused_window_attention_packed": SWIN_L_BLOCKS}:
+        raise AssertionError(f"flagship eager forward: launches {launched}")
+    for key, shape in DEPLOY_SHAPES.items():
+        if tuple(eager[key].shape) != shape:
+            raise AssertionError(f"eager {key}: {tuple(eager[key].shape)} != {shape}")
+    with torch.no_grad():
+        eager_ms = events_ms(lambda: model(images, sizes))
+    inputs = os.path.join(tmp, "inputs.pt")
+    torch.save({"images": images.cpu(), "sizes": sizes.cpu(),
+                "params": {k: v.cpu() for k, v in model.state_dict().items()}}, inputs)
+    exported = {}
+    for bake in (False, True):
+        layout = "baked" if bake else "weights-separate"
+        before = snapshot()
+        t0 = time.perf_counter()
+        exp = export_inference(model, model.state_dict(), batch=2, height=images.shape[1],
+                               width=images.shape[2], bake_params=bake)
+        export_s = time.perf_counter() - t0
+        if launched_since(before, snapshot):
+            raise AssertionError(f"{layout} export launched kernels while tracing")
+        ops = [str(n.target) for n in exp.programs["cuda"].graph.nodes
+               if n.op == "call_function"]
+        n_op = ops.count("divergen.window_attention_packed.default")
+        n_loops = sum(op.startswith("while_loop") for op in ops)
+        if n_op != SWIN_L_BLOCKS or "aten.softmax.int" in ops or "aten._softmax.default" in ops:
+            raise AssertionError(f"{layout} program: {n_op} kernel-5 ops, or the plain twin")
+        path = save_exported(exp, os.path.join(tmp, f"flagship_{layout}.pt2z"))
+        exported[layout] = (path, os.path.join(tmp, f"dets_{layout}.pt"), export_s, n_op, n_loops)
+        del exp
+    jobs = [p for path, out, *_ in exported.values() for p in (path, out)]
+    t0 = time.perf_counter()
+    res = subprocess.run([sys.executable, "-c", SERVE_EXPORTED, inputs, str(EXPORT_WARMUPS),
+                          str(EXPORT_REPS), *jobs], cwd=ROOT, capture_output=True, text=True,
+                         timeout=900, env=dict(os.environ, PYTHONPATH=ROOT))
+    serve_s = time.perf_counter() - t0
+    if res.returncode != 0:
+        raise AssertionError(f"serving the artifacts on the card (rc {res.returncode}):\n"
+                             f"{res.stdout[-3000:]}\n{res.stderr[-6000:]}")
+    served = [json.loads(line) for line in res.stdout.strip().splitlines()[-2:]]
+    log(f"    (a) one fresh interpreter loaded and served both artifacts in {serve_s:.1f} s")
+    extra = {}
+    forwards = 1 + EXPORT_WARMUPS + EXPORT_REPS
+    for (layout, (path, out_path, export_s, n_op, n_loops)), got in zip(exported.items(),
+                                                                       served):
+        if got["artifact"] != path:
+            raise AssertionError(f"served {got['artifact']}, expected {path}")
+        if (got["per_forward"] != [SWIN_L_BLOCKS] * forwards
+                or got["launches"] != SWIN_L_BLOCKS * forwards):
+            raise AssertionError(f"{layout} artifact: kernel-5 launches per forward "
+                                 f"{got['per_forward']}, expected {SWIN_L_BLOCKS} each")
+        if got["model_code"]:
+            raise AssertionError(f"{layout} artifact: the loading process imported model code "
+                                 f"{got['model_code']}")
+        if got["wrong_shape"] == "no error":
+            raise AssertionError(f"{layout} artifact took a 448² canvas")
+        dets = torch.load(out_path, weights_only=True)
+        for key, shape in DEPLOY_SHAPES.items():
+            if tuple(dets[key].shape) != shape:
+                raise AssertionError(f"{layout} {key}: {tuple(dets[key].shape)} != {shape}")
+        pairs = [same_detections(per_image(dets, i), per_image(eager, i)) for i in range(2)]
+        equal = all(torch.equal(dets[k], eager[k].cpu()) for k in dets)
+        log(f"    (a) {layout}: export {export_s:.1f} s ({n_op} divergen::window_attention_packed "
+            f"ops, {n_loops} while_loop ops), artifact {os.path.getsize(path)} bytes; served on "
+            f"the card (platforms {got['platforms']}, no model code imported): "
+            f"{got['per_forward'][0]} kernel-5 launches a forward, {got['ms']:.2f} ms a forward "
+            f"against eager {eager_ms:.2f} ms (CUDA events, median of {EXPORT_REPS} after "
+            f"{EXPORT_WARMUPS}); detections against eager: bit-equal {equal}, "
+            + "; ".join(f"image {i}: {p['pairs']} of {int(eager['valid'][i].sum())} paired, "
+                        f"box gap {p['box_gap']:.3g}, score gap {p['score_gap']:.3g}"
+                        for i, p in enumerate(pairs))
+            + f"; a 448² canvas: {got['wrong_shape']} [{card}]")
+        if not all(p["ok"] for p in pairs):
+            raise AssertionError(f"{layout} artifact: detections differ from eager: {pairs}")
+        extra["fused_window_attention_packed"] = (extra.get("fused_window_attention_packed", 0)
+                                                  + got["launches"])
+        for key, n in got["bodies"].items():
+            entry, d = key.split("|")
+            k = ("fused_window_attention_packed", False, entry, int(d))
+            extra[k] = extra.get(k, 0) + n
+        os.remove(path)
+    del model, eager
+    torch.cuda.empty_cache()
+    return extra
+
+
+def synthetic_flagship_checkpoint(seed: int) -> dict:
+    """A detectron2-format checkpoint of the flagship (Swin-L-22k-384 + FPN +
+    CenterNet2 + the three-stage cascade over 1453 classes + the mask head),
+    named and shaped as ``tests/test_torch_port_weights.py``'s
+    ``synthetic_swin_state_dict`` and ``synthetic_detector_state_dict`` make
+    their state dicts, at full width; random float32 values."""
+    rng = np.random.default_rng(seed)
+    sd = {}
+    f = lambda *s, scale=1.0: rng.standard_normal(s, dtype=np.float32) * np.float32(scale)
+
+    def lin(name, out_f, in_f):
+        sd[f"{name}.weight"], sd[f"{name}.bias"] = f(out_f, in_f, scale=in_f ** -0.5), f(out_f,
+                                                                                         scale=0.1)
+
+    def ln(name, c):
+        sd[f"{name}.weight"], sd[f"{name}.bias"] = 1 + f(c, scale=0.1), f(c, scale=0.1)
+
+    def conv(name, out_c, in_c, k):
+        sd[f"{name}.weight"] = f(out_c, in_c, k, k, scale=(in_c * k * k) ** -0.5)
+        sd[f"{name}.bias"] = f(out_c, scale=0.1)
+
+    embed, depths, heads, window = 192, (2, 2, 18, 2), (6, 12, 24, 48), 12
+    bu = "backbone.bottom_up."
+    sd[bu + "patch_embed.proj.weight"] = f(embed, 3, 4, 4, scale=0.1)
+    sd[bu + "patch_embed.proj.bias"] = f(embed, scale=0.1)
+    ln(bu + "patch_embed.norm", embed)
+    dim = embed
+    for stage, depth in enumerate(depths):
+        for blk in range(depth):
+            b = f"{bu}layers.{stage}.blocks.{blk}"
+            ln(f"{b}.norm1", dim)
+            ln(f"{b}.norm2", dim)
+            lin(f"{b}.attn.qkv", 3 * dim, dim)
+            lin(f"{b}.attn.proj", dim, dim)
+            sd[f"{b}.attn.relative_position_bias_table"] = f((2 * window - 1) ** 2, heads[stage],
+                                                             scale=0.5)
+            sd[f"{b}.attn.relative_position_index"] = np.zeros((window ** 2,) * 2, np.int64)
+            lin(f"{b}.mlp.fc1", 4 * dim, dim)
+            lin(f"{b}.mlp.fc2", dim, 4 * dim)
+        if stage:
+            ln(f"{bu}norm{stage}", dim)
+        if stage < len(depths) - 1:
+            ln(f"{bu}layers.{stage}.downsample.norm", 4 * dim)
+            sd[f"{bu}layers.{stage}.downsample.reduction.weight"] = f(2 * dim, 4 * dim, scale=0.1)
+            dim *= 2
+    fpn, fc, mask_dim, classes = 256, 1024, 256, 1453
+    for s, c in zip((3, 4, 5), (2 * embed, 4 * embed, 8 * embed)):
+        conv(f"backbone.fpn_lateral{s}", fpn, c, 1)
+        conv(f"backbone.fpn_output{s}", fpn, fpn, 3)
+    for p in ("p6", "p7"):
+        conv(f"backbone.top_block.{p}", fpn, fpn, 3)
+    head = "proposal_generator.centernet_head"
+    for j in range(4):
+        conv(f"{head}.bbox_tower.{3 * j}", fpn, fpn, 3)
+        ln(f"{head}.bbox_tower.{3 * j + 1}", fpn)
+    conv(f"{head}.agn_hm", 1, fpn, 3)
+    conv(f"{head}.bbox_pred", 4, fpn, 3)
+    for level in range(5):
+        sd[f"{head}.scales.{level}.scale"] = f(1) + 1.0
+    for k in range(3):
+        lin(f"roi_heads.box_head.{k}.fc1", fc, fpn * 49)
+        lin(f"roi_heads.box_head.{k}.fc2", fc, fc)
+        lin(f"roi_heads.box_predictor.{k}.cls_score", classes + 1, fc)
+        lin(f"roi_heads.box_predictor.{k}.bbox_pred", 4, fc)
+        sd[f"roi_heads.box_predictor.{k}.freq_weight"] = f(classes)
+    for i in range(4):
+        conv(f"roi_heads.mask_head.mask_fcn{i + 1}", mask_dim, fpn if i == 0 else mask_dim, 3)
+    sd["roi_heads.mask_head.deconv.weight"] = f(mask_dim, mask_dim, 2, 2, scale=0.2)
+    sd["roi_heads.mask_head.deconv.bias"] = f(mask_dim, scale=0.1)
+    conv("roi_heads.mask_head.predictor", 1, mask_dim, 1)
+    sd["pixel_mean"] = f(3, 1, 1)
+    return sd
+
+
+def checkpoint_round_trip(card: str, tmp: str, snapshot) -> None:
+    """(b) A synthetic detectron2 checkpoint at the flagship's shapes through
+    ``tools.import_reference_checkpoint`` (every entry of the model but the
+    stride-4 norm a detectron2 Swin lacks filled, nothing skipped), then
+    ``tools.convert_imgnet_model_to_lvis`` (1453 -> 1203 classes: each
+    ``cls_score`` weight and bias cut to the first 1203 rows and the
+    background row, in the model and the EMA copy, nothing else changed), then
+    ``tools.export_model --ema --run-sample`` on the card at 1203 classes
+    (finite outputs, 24 kernel-5 launches in the sample run)."""
+    from divergen_tpu_torch.engine.checkpoint import Checkpointer
+    from divergen_tpu_torch.tools import convert_imgnet_model_to_lvis as tconv
+    from divergen_tpu_torch.tools import export_model as texp
+    from divergen_tpu_torch.tools import import_reference_checkpoint as timport
+
+    config = os.path.join(ROOT, "configs", "DiverGen_swinL.yaml")
+    t0 = time.perf_counter()
+    sd = synthetic_flagship_checkpoint(24)
+    ref = os.path.join(tmp, "reference.pth")
+    torch.save({"model": {k: torch.from_numpy(v) for k, v in sd.items()}}, ref)
+    made = time.perf_counter() - t0
+    imported, cut = os.path.join(tmp, "imported"), os.path.join(tmp, "lvis")
+    t0 = time.perf_counter()
+    summary = timport.main(["--config-file", config, "--checkpoint", ref, "--output", imported,
+                            "--ema"])
+    import_s = time.perf_counter() - t0
+    unfilled = set(summary["entries"]) - set(summary["loaded"])
+    if summary["skipped"] or unfilled != {"bottom_up.s2_norm.weight", "bottom_up.s2_norm.bias"}:
+        raise AssertionError(f"import: skipped {summary['skipped'][:8]}, not filled "
+                             f"{sorted(unfilled)[:8]}")
+    t0 = time.perf_counter()
+    tconv.main(["--input_dir", imported, "--output_dir", cut])
+    convert_s = time.perf_counter() - t0
+    src, dst = Checkpointer(imported).load(), Checkpointer(cut).load()
+    if src["ema_params"] is None or dst["ema_params"] is None:
+        raise AssertionError("the imported checkpoint has no EMA slot")
+    for part in ("model", "ema_params"):
+        for name, t in src[part].items():
+            want = t
+            if ".cls_score." in name:
+                want = torch.cat([t[:1203], t[-1:]])
+                if tuple(want.shape) not in ((1204, 1024), (1204,)):
+                    raise AssertionError(f"{part} {name}: cut to {tuple(want.shape)}")
+            if not torch.equal(dst[part][name], want):
+                raise AssertionError(f"convert: {part} {name} is not the cut of the import")
+    w = src["model"]["roi_heads.box_predictor2.cls_score.weight"]
+    if not torch.equal(w, torch.from_numpy(sd["roi_heads.box_predictor.2.cls_score.weight"])):
+        raise AssertionError("import: cls_score of stage 2 is not the checkpoint's")
+    del sd, src, dst
+    torch.cuda.empty_cache()
+    before = snapshot()
+    t0 = time.perf_counter()
+    out = texp.main(["--config-file", config, "--output", os.path.join(tmp, "lvis.pt2z"),
+                     "--checkpoint-dir", cut, "--ema", "--run-sample",
+                     "MODEL.ROI_HEADS.NUM_CLASSES", "1203"])
+    export_s = time.perf_counter() - t0
+    launched = launched_since(before, snapshot)
+    if launched != {"fused_window_attention_packed": SWIN_L_BLOCKS}:
+        raise AssertionError(f"export_model --run-sample: launches {launched}")
+    bad = [k for k, v in out.items() if v.is_floating_point() and not torch.isfinite(v).all()]
+    if bad or tuple(out["boxes"].shape) != (1, 300, 4):
+        raise AssertionError(f"export_model sample run: non-finite {bad}, boxes "
+                             f"{tuple(out['boxes'].shape)}")
+    log(f"    (b) synthetic 1453-class checkpoint {os.path.getsize(ref)} bytes made in "
+        f"{made:.1f} s; import_reference_checkpoint {import_s:.1f} s ({len(summary['loaded'])} "
+        f"of {len(summary['entries'])} entries filled, model + EMA + optimizer); "
+        f"convert_imgnet_model_to_lvis {convert_s:.1f} s (cls_score 1454 -> 1204 rows in 3 "
+        f"stages x model and EMA); export_model --ema --run-sample {export_s:.1f} s: "
+        f"{out['valid'].sum().item()} valid of 300, finite, {launched} [{card}]")
+
+
+def dla_aggregation_phase(card: str, snapshot) -> None:
+    """(c) DLA-34 -> ``DLAUp(node_type="dcn")`` over dla2..dla5 at 640², B = 2,
+    float32 (the architectures slice's DLA size): one forward and backward on
+    the card and on the CPU from the same weights and images (the offset convs
+    drawn away from zero, so the deformable taps move), the loss (mean square
+    of the fused map) and the gradient norm within ``DRYRUN_BOUNDS``; no
+    kernel launch. Then ``deform_conv2d`` at ``dla2``'s shape (2, 160, 160, 64)
+    -> 64 with offsets of several pixels and a mask, card against CPU within
+    1e-5 of max |CPU|, its ms (CUDA events) and peak memory."""
+    import copy
+
+    from divergen_tpu_torch.modeling.backbone.dla import DLA34, OUT_CHANNELS, DeformNode, DLAUp
+    from divergen_tpu_torch.ops.deform_conv import deform_conv2d
+
+    levels = ("dla2", "dla3", "dla4", "dla5")
+
+    class Aggregation(torch.nn.Module):
+        def __init__(self):
+            super().__init__()
+            self.dla = DLA34(out_features=levels)
+            self.up = DLAUp({n: OUT_CHANNELS[n] for n in levels}, 64, "dcn")
+
+        def forward(self, x):
+            return self.up(self.dla(x))["dlaup"]
+
+    torch.manual_seed(0)
+    gen = torch.Generator().manual_seed(0)
+    cpu_net = Aggregation()
+    with torch.no_grad():
+        for m in cpu_net.modules():
+            if isinstance(m, DeformNode):
+                cin = m.offset.weight.shape[1]
+                m.offset.weight.copy_(torch.randn(m.offset.weight.shape, generator=gen)
+                                      / math.sqrt(9 * cin))
+    card_net = copy.deepcopy(cpu_net).cuda()
+    x = torch.rand(2, 640, 640, 3, generator=gen) * 2 - 1
+
+    def step(net, images):
+        out = net(images)
+        loss = out.square().mean()
+        grads = torch.autograd.grad(loss, list(net.parameters()))
+        norm = math.sqrt(sum(float(g.double().square().sum()) for g in grads))
+        return out.detach(), float(loss.detach()), norm
+
+    x_dev = x.cuda()
+    before = snapshot()
+    out, loss, norm = step(card_net, x_dev)
+    torch.cuda.synchronize()
+    launched = launched_since(before, snapshot)
+    if launched:
+        raise AssertionError(f"DLAUp launched kernels: {launched}")
+    ref_out, ref_loss, ref_norm = step(cpu_net, x)
+    out_err = (out.cpu() - ref_out).abs().max().item()
+    out_ref = ref_out.abs().max().item()
+    ok = (abs(loss - ref_loss) <= DRYRUN_BOUNDS["loss"] * abs(ref_loss)
+          and abs(norm - ref_norm) <= DRYRUN_BOUNDS["grad_norm"] * abs(ref_norm))
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    step_ms = events_ms(lambda: step(card_net, x_dev), warmups=1, reps=5)
+    peak = torch.cuda.max_memory_allocated() - base
+    log(f"    (c) DLA-34 -> DLAUp(dcn) at 640², B = 2, float32: fused {tuple(out.shape)}; loss "
+        f"card {loss:.9g} CPU {ref_loss:.9g}, grad norm card {norm:.9g} CPU {ref_norm:.9g} "
+        f"(bounds {DRYRUN_BOUNDS}) [{'ok' if ok else 'FAIL'}]; max |fused diff| {out_err:.3g} "
+        f"of max |CPU| {out_ref:.3g}; step (forward + backward) {step_ms:.2f} ms (CUDA events, "
+        f"median of 5), peak memory {peak / 2**30:.2f} GiB above the weights; no kernel launch "
+        f"[{card}]")
+    if not ok:
+        raise AssertionError("DLAUp: the card's loss or gradient norm disagrees with the CPU's")
+    del card_net, cpu_net, out, ref_out
+    torch.cuda.empty_cache()
+
+    b, h, w, cin, cout = 2, 160, 160, 64, 64
+    args = (torch.rand(b, h, w, cin, generator=gen) * 2 - 1,
+            3 * torch.randn(b, h, w, 18, generator=gen),
+            torch.randn(3, 3, cin, cout, generator=gen) / math.sqrt(9 * cin),
+            torch.rand(b, h, w, 9, generator=gen))
+    ref = deform_conv2d(*args[:3], mask=args[3])
+    dev_args = [a.cuda() for a in args]
+    got = deform_conv2d(*dev_args[:3], mask=dev_args[3])
+    err = (got.cpu() - ref).abs().max().item()
+    scale = ref.abs().max().item()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    ms = events_ms(lambda: deform_conv2d(*dev_args[:3], mask=dev_args[3]))
+    peak = torch.cuda.max_memory_allocated() - base
+    log(f"    (c) deform_conv2d at dla2's shape {(b, h, w, cin)} -> {cout}, offsets of "
+        f"{args[1].abs().max().item():.1f} px at most, with a mask: max |card - CPU| {err:.3g} "
+        f"of max |CPU| {scale:.3g} (bound 1e-5 of it); {ms:.3f} ms (CUDA events, median of "
+        f"{EXPORT_REPS}), peak memory {peak / 2**20:.1f} MiB above its inputs [{card}]")
+    if err > 1e-5 * scale:
+        raise AssertionError("deform_conv2d: the card disagrees with the CPU")
+
+
+def slice_deployment(card: str, tmp: str, snapshot) -> dict:
+    """Slice 14: (a) ``deployment_export``, (b) ``checkpoint_round_trip``, (c)
+    ``dla_aggregation_phase``. Returns (a)'s launches in its serving
+    interpreter."""
+    extra = deployment_export(card, tmp, snapshot)
+    checkpoint_round_trip(card, tmp, snapshot)
+    dla_aggregation_phase(card, snapshot)
+    return extra
+
+
 def main() -> int:
     started = time.perf_counter()
     if not torch.cuda.is_available():
@@ -5446,9 +5904,25 @@ def main() -> int:
                 "the weak-supervision slice")
     log(f"  the smoke's wall clock after the slice: {time.perf_counter() - started:.1f} s "
         f"[{card}]")
+
+    log("slice: deployment and DLA's deformable aggregation (the flagship exported "
+        "weights-separate and baked, each served on the card by a process without the model "
+        "code; import_reference_checkpoint -> convert_imgnet_model_to_lvis -> export_model; "
+        "DLA-34 -> DLAUp(dcn) and deform_conv2d against the CPU)")
+    reset()
+    with tempfile.TemporaryDirectory() as tmp:
+        served = slice_deployment(card, tmp, snapshot)
+    deployment = read(("fused_window_attention_packed",), "the deployment slice")
+    # the exported programs' launches, counted in the interpreter that served them
+    for k, n in served.items():
+        deployment[k] = deployment.get(k, 0) + n
+    log(f"  with the served artifacts' launches: "
+        f"{ {k: n for k, n in deployment.items() if n} }")
+    log(f"  the smoke's wall clock after the slice: {time.perf_counter() - started:.1f} s "
+        f"[{card}]")
     launches = {}
     for counts in (sdxl, chain, serving, fused, cascade, train, detector, detector_serving,
-                   do_train_counts, architectures, real_images, weak):
+                   do_train_counts, architectures, real_images, weak, deployment):
         for k, n in counts.items():
             launches[k] = launches.get(k, 0) + n
     # the split wrapper is on no slice's path (the packed kernels take any head

@@ -34,6 +34,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
+from ...ops.tracing import real
 from ...ops.window_attention import fused_window_attention_packed
 from ..layers import Conv, Dense, DropPath, LayerNorm
 
@@ -77,11 +78,19 @@ def _shift_attn_mask(hp: int, wp: int, window: int, shift: int) -> np.ndarray:
     return np.where(diff, -100.0, 0.0).astype(np.float32)
 
 
-@functools.lru_cache(maxsize=32)
 def _shift_attn_mask_on(hp: int, wp: int, window: int, shift: int,
                         device: torch.device) -> torch.Tensor:
     """The shift mask as a float32 tensor on ``device``, kept between calls
-    (at 224 × 224 tokens and window 12 it is 361 windows of 144 × 144)."""
+    (at 224 × 224 tokens and window 12 it is 361 windows of 144 × 144). It
+    is made on real tensors even under a tracer (``ops.tracing.real``), so
+    the cache never holds a fake one and an exported program holds the mask
+    as a constant on the device."""
+    return real(lambda: _shift_attn_mask_cached(hp, wp, window, shift, device))
+
+
+@functools.lru_cache(maxsize=32)
+def _shift_attn_mask_cached(hp: int, wp: int, window: int, shift: int,
+                            device: torch.device) -> torch.Tensor:
     return torch.from_numpy(_shift_attn_mask(hp, wp, window, shift)).to(device)
 
 

@@ -212,6 +212,15 @@ def resize_nearest(x: torch.Tensor, h: int, w: int) -> torch.Tensor:
     return x
 
 
+def resize_bilinear(x: torch.Tensor, h: int, w: int) -> torch.Tensor:
+    """NHWC ``jax.image.resize(..., "bilinear")`` for an upscale: half-pixel
+    centres, taps past an edge dropped and the rest renormalized, which is
+    ``F.interpolate(align_corners=False)``'s clamp to the edge sample."""
+    y = F.interpolate(x.permute(0, 3, 1, 2), size=(h, w), mode="bilinear",
+                      align_corners=False)
+    return y.permute(0, 2, 3, 1)
+
+
 def get_norm(norm: Optional[str], features: int, device=None) -> Optional[nn.Module]:
     """The norm layer a config string names, or None. "GN" is 32 groups (25
     when the channels do not divide by 32); "BN" and "SyncBN" map to a
@@ -229,6 +238,19 @@ def get_norm(norm: Optional[str], features: int, device=None) -> Optional[nn.Mod
     raise ValueError(f"Unknown norm: {norm}")
 
 
+def add_norm(module: nn.Module, norm: Optional[str], features: int,
+             device=None) -> Optional[str]:
+    """Add the norm a config string names (``get_norm``) to ``module`` under
+    its flax name (``GroupNorm_0``, ``FrozenBatchNorm_0``, ``LayerNorm_0``)
+    and return that name; None, adding nothing, for no norm."""
+    layer = get_norm(norm, features, device=device)
+    if layer is None:
+        return None
+    name = f"{'GroupNorm' if isinstance(layer, GroupNorm) else type(layer).__name__}_0"
+    module.add_module(name, layer)
+    return name
+
+
 class ConvNorm(nn.Module):
     """Conv + optional norm + optional activation on NHWC. The convolution
     pads k // 2 on every side at any stride, and has a bias unless a norm
@@ -243,12 +265,7 @@ class ConvNorm(nn.Module):
         bias = use_bias if use_bias is not None else norm in ("", "GN")
         self.conv = Conv(in_channels, features, kernel_size, stride=strides, bias=bias,
                          dtype=dtype, device=device)
-        layer = get_norm(norm, features, device=device)
-        self.norm_name = None
-        if layer is not None:
-            flax_class = "GroupNorm" if isinstance(layer, GroupNorm) else type(layer).__name__
-            self.norm_name = f"{flax_class}_0"
-            self.add_module(self.norm_name, layer)
+        self.norm_name = add_norm(self, norm, features, device)
         self.activation = activation
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:

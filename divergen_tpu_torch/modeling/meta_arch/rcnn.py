@@ -107,6 +107,7 @@ class CustomRCNN(nn.Module):
         super().__init__()
         self.centernet_cfg, self.roi_cfg = centernet_cfg, roi_cfg
         self.backbone_name, self.fpn_kind = backbone_name, fpn_kind
+        self.fpn_in_features = tuple(fpn_in_features)
         self.compute_dtype = compute_dtype
         self.dynamic_classifier, self.num_sample_cats = dynamic_classifier, num_sample_cats
         self.dataset_loss_weight = tuple(dataset_loss_weight)

@@ -11,10 +11,13 @@ the greedy recurrence ``keep[i] = alive[i] & !any_{j<i} (keep[j] & iou[j, i]
 > t)`` is iterated to its fixpoint, which is unique by induction on the
 triangular order and therefore exactly the greedy result;
 across tiles, the kept boxes of a tile suppress all later tiles in one
-matrix operation. The fixpoint loop asks the host whether the mask still
-changed, which synchronizes the stream once per iteration (suppression
+matrix operation. Eagerly, the fixpoint loop asks the host whether the mask
+still changed, which synchronizes the stream once per iteration (suppression
 chains are rarely deeper than a few boxes): ``nms_mask.host_syncs`` counts
-those reads.
+those reads. Under a tracer (``torch.export``, ``torch.compile``) the same
+iteration is a ``torch._higher_order_ops.while_loop``, the JAX package's
+``lax.while_loop``: the graph holds the loop and no read, and gives the same
+keep mask.
 """
 from __future__ import annotations
 
@@ -22,8 +25,10 @@ from typing import Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch._higher_order_ops import while_loop
 
 from ..structures import boxes as box_ops
+from .tracing import tracing
 
 _TILE = 256
 
@@ -39,7 +44,8 @@ def greedy_nms(boxes: torch.Tensor, scores: torch.Tensor, iou_threshold: float,
                valid: Optional[torch.Tensor], pairwise_iou) -> torch.Tensor:
     """``nms_mask`` over the overlaps ``pairwise_iou(boxes, boxes)`` of any
     box format (``ops/rotated.py:nms_rotated`` passes the rotated IoU); its
-    fixpoint reads are counted in ``nms_mask.host_syncs`` too."""
+    eager fixpoint reads are counted in ``nms_mask.host_syncs`` too, and it
+    traces as ``nms_mask`` does."""
     n = boxes.shape[0]
     if n == 0:
         return torch.zeros((0,), dtype=torch.bool, device=boxes.device)
@@ -62,13 +68,8 @@ def greedy_nms(boxes: torch.Tensor, scores: torch.Tensor, iou_threshold: float,
         ta = alive[start:stop]
         m = stop - start
         over = over_all[start:stop, start:stop] & tri[:m, :m]
-        k = ta
-        while True:
-            k_new = ta & ~(over & k[:, None]).any(dim=0)
-            nms_mask.host_syncs += 1
-            if torch.equal(k_new, k):
-                break
-            k = k_new
+        fixpoint = _traced_fixpoint if tracing() else _eager_fixpoint
+        k = fixpoint(ta, over)
         kept[start:stop] = k
         if stop < n:
             alive[stop:] &= ~(over_all[start:stop, stop:] & k[:, None]).any(dim=0)
@@ -79,6 +80,38 @@ def greedy_nms(boxes: torch.Tensor, scores: torch.Tensor, iou_threshold: float,
 
 
 nms_mask.host_syncs = 0
+
+
+def _suppress(ta: torch.Tensor, over: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
+    """One step of the tile's recurrence: the alive boxes that no box of
+    ``k`` above them overlaps."""
+    return ta & ~(over & k[:, None]).any(dim=0)
+
+
+def _eager_fixpoint(ta: torch.Tensor, over: torch.Tensor) -> torch.Tensor:
+    """The tile's fixpoint from ``ta``, asking the host after each step
+    whether the mask changed."""
+    k = ta
+    while True:
+        k_new = _suppress(ta, over, k)
+        nms_mask.host_syncs += 1
+        if torch.equal(k_new, k):
+            return k
+        k = k_new
+
+
+def _traced_fixpoint(ta: torch.Tensor, over: torch.Tensor) -> torch.Tensor:
+    """The tile's fixpoint as a ``while_loop`` carrying (mask, changed), as
+    ``divergen_tpu/ops/nms.py`` iterates it: no host read in the graph."""
+    def cond(k, changed):
+        return changed.clone()  # a loop's predicate may not alias its carry
+
+    def body(k, changed):
+        k_new = _suppress(ta, over, k)
+        return k_new, (k_new != k).any()
+
+    k0 = _suppress(ta, over, ta)
+    return while_loop(cond, body, (k0, (k0 != ta).any()))[0]
 
 
 def batched_nms_mask(boxes: torch.Tensor, scores: torch.Tensor, classes: torch.Tensor,

@@ -53,7 +53,7 @@ from __future__ import annotations
 import functools
 import math
 from collections import Counter
-from typing import NamedTuple, Optional
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -156,7 +156,8 @@ def _require_kernel_input(name: str, t: torch.Tensor, n: int, strided: bool) -> 
     :func:`attention_f32.kernel_body` (which raises on any other) and pad to
     its width first, and these rules hold for the padded tensor. The device
     is checked last, so the other rules can be exercised without a card (a
-    ``meta`` tensor reaches them)."""
+    ``meta`` tensor reaches them). The data's alignment is checked where the
+    kernel launches (:func:`_require_aligned`): a traced tensor has none."""
     if not 1 <= n <= KERNEL_MAX_TOKENS:
         raise ValueError(f"{n} tokens per window: the kernel takes 1 to {KERNEL_MAX_TOKENS}")
     if strided:
@@ -167,8 +168,12 @@ def _require_kernel_input(name: str, t: torch.Tensor, n: int, strided: bool) -> 
         raise ValueError(f"{name}: the kernel takes a contiguous tensor")
     if t.device.type != "cuda":
         raise ValueError(f"{name}: expected a CUDA or CPU tensor, got {t.device}")
-    if t.data_ptr() % 16:
-        raise ValueError(f"{name}: the kernel needs 16-byte aligned data")
+
+
+def _require_aligned(**tensors: torch.Tensor) -> None:
+    for name, t in tensors.items():
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name}: the kernel needs 16-byte aligned data")
 
 
 def _f32_on(t: Optional[torch.Tensor], device: torch.device) -> Optional[torch.Tensor]:
@@ -382,114 +387,197 @@ def _plan(dtype: torch.dtype, batch: int, heads: int, n: int, d: int,
     return backward_plan(batch, heads, n, device)
 
 
+# The launches are ``torch.library`` custom ops with a CUDA implementation
+# only, so that a tracer (``torch.export``) records them as operators: their
+# fake implementations give the output shapes, and the plans that read the
+# card's multiprocessor count are made inside the CUDA implementation, at run
+# time. The launch counts are kept there too, so an exported program's
+# launches count and its trace does not.
+
+def _window_body(dtype: torch.dtype, true_d: int) -> attention_f32.Body:
+    return attention_f32.kernel_body(dtype, true_d, "window")
+
+
+@torch.library.custom_op("divergen::window_attention", mutates_args=(), device_types="cuda")
+def window_attention_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        bias32: torch.Tensor, mask32: Optional[torch.Tensor],
+                        true_d: int) -> torch.Tensor:
+    """The forward kernel on split (b, h, n, d) q, k, v (checked, padded to
+    the body's width; k and v sharing strides) with float32 bias and mask,
+    at the scale of the caller's head dim ``true_d``."""
+    _require_aligned(q=q, k=k, v=v)
+    b, h, n, d = q.shape
+    scale = 1.0 / math.sqrt(true_d)
+    out = torch.empty((b, h, n, d), dtype=q.dtype, device=q.device)
+    nw = 1 if mask32 is None else mask32.shape[0]
+    attention_f32.count(fused_window_attention, _window_body(q.dtype, true_d), true_d)
+    if q.dtype == torch.float32:
+        attention_f32.launch(
+            q, k.data_ptr(), v.data_ptr(), out, batch=b, heads=h, sq=n, sk=n, d=d,
+            q_strides=q.stride()[:3], kv_strides=k.stride()[:3], o_strides=out.stride()[:3],
+            bias_mode="window", bias=bias32, bias2=mask32, nw=nw, scale=scale)
+    else:
+        code = _build.lib().dg_window_attention_bf16(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), bias32.data_ptr(),
+            None if mask32 is None else mask32.data_ptr(), out.data_ptr(), b, h, n, nw,
+            *forward_plan(b, h, n, q.device), *q.stride()[:3], *k.stride()[:3],
+            *out.stride()[:3], scale, torch.cuda.current_stream(q.device).cuda_stream)
+        _build.check(code, "window attention kernel launch")
+    return out
+
+
+@window_attention_op.register_fake
+def _(q, k, v, bias32, mask32, true_d):
+    return torch.empty(q.shape, dtype=q.dtype, device=q.device)
+
+
+@torch.library.custom_op("divergen::window_attention_backward", mutates_args=(),
+                         device_types="cuda")
+def window_attention_backward_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                                 do: torch.Tensor, bias32: torch.Tensor,
+                                 mask32: Optional[torch.Tensor], true_d: int
+                                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor,
+                                            torch.Tensor]:
+    """The backward kernel: (dq, dk, dv, dbias), dbias float32 (h, n, n)."""
+    b, h, n, d = q.shape
+    do = do.contiguous()
+    dq, dk, dv = (torch.empty((b, h, n, d), dtype=q.dtype, device=q.device) for _ in range(3))
+    dbias = torch.empty((h, n, n), dtype=torch.float32, device=q.device)
+    chunks, per, scratch = _plan(q.dtype, b, h, n, d, q.device)
+    partial = torch.empty(scratch, dtype=torch.float32, device=q.device)
+    attention_f32.count(fused_window_attention, _window_body(q.dtype, true_d), true_d,
+                        backward=True)
+    lib = _build.lib()
+    f32 = q.dtype == torch.float32
+    entry = lib.dg_window_attention_bwd_f32 if f32 else lib.dg_window_attention_bwd_bf16
+    code = entry(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), bias32.data_ptr(),
+        None if mask32 is None else mask32.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+        dv.data_ptr(), dbias.data_ptr(), partial.data_ptr(), b, h, n, *((d,) if f32 else ()),
+        1 if mask32 is None else mask32.shape[0], chunks, per,
+        *q.stride()[:3], *k.stride()[:3], *do.stride()[:3], *dq.stride()[:3],
+        1.0 / math.sqrt(true_d), torch.cuda.current_stream(q.device).cuda_stream)
+    _build.check(code, "window attention backward kernel launch")
+    return dq, dk, dv, dbias
+
+
+@window_attention_backward_op.register_fake
+def _(q, k, v, do, bias32, mask32, true_d):
+    b, h, n, d = q.shape
+    grads = tuple(torch.empty((b, h, n, d), dtype=q.dtype, device=q.device) for _ in range(3))
+    return (*grads, torch.empty((h, n, n), dtype=torch.float32, device=q.device))
+
+
+@torch.library.custom_op("divergen::window_attention_packed", mutates_args=(),
+                         device_types="cuda")
+def window_attention_packed_op(qkv: torch.Tensor, bias32: torch.Tensor,
+                               mask32: Optional[torch.Tensor], heads: int,
+                               true_d: int) -> torch.Tensor:
+    """The packed forward kernel on a checked (bn, n, 3C) ``qkv`` (padded to
+    the body's width) with float32 bias and mask: (bn, n, C)."""
+    _require_aligned(qkv=qkv)
+    bn, n, c3 = qkv.shape
+    scale = 1.0 / math.sqrt(true_d)
+    c = c3 // 3
+    out = torch.empty((bn, n, c), dtype=qkv.dtype, device=qkv.device)
+    nw = 1 if mask32 is None else mask32.shape[0]
+    d = c // heads
+    attention_f32.count(fused_window_attention_packed, _window_body(qkv.dtype, true_d), true_d)
+    if qkv.dtype == torch.float32:
+        strides, size = (n * c3, d, c3), qkv.element_size()
+        attention_f32.launch(
+            qkv, qkv.data_ptr() + c * size, qkv.data_ptr() + 2 * c * size, out, batch=bn,
+            heads=heads, sq=n, sk=n, d=d, q_strides=strides, kv_strides=strides,
+            o_strides=(n * c, d, c),
+            bias_mode="window", bias=bias32, bias2=mask32, nw=nw, scale=scale)
+    else:
+        code = _build.lib().dg_window_attention_packed_bf16(
+            qkv.data_ptr(), bias32.data_ptr(), None if mask32 is None else mask32.data_ptr(),
+            out.data_ptr(), bn, n, heads, nw, *forward_plan(bn, heads, n, qkv.device), scale,
+            torch.cuda.current_stream(qkv.device).cuda_stream)
+        _build.check(code, "packed window attention kernel launch")
+    return out
+
+
+@window_attention_packed_op.register_fake
+def _(qkv, bias32, mask32, heads, true_d):
+    bn, n, c3 = qkv.shape
+    return torch.empty((bn, n, c3 // 3), dtype=qkv.dtype, device=qkv.device)
+
+
+@torch.library.custom_op("divergen::window_attention_packed_backward", mutates_args=(),
+                         device_types="cuda")
+def window_attention_packed_backward_op(qkv: torch.Tensor, do: torch.Tensor,
+                                        bias32: torch.Tensor, mask32: Optional[torch.Tensor],
+                                        heads: int, true_d: int
+                                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The packed backward kernel: (dqkv (bn, n, 3C), dbias float32 (H, n, n))."""
+    bn, n, c3 = qkv.shape
+    do = do.contiguous()
+    dqkv = torch.empty_like(qkv)
+    dbias = torch.empty((heads, n, n), dtype=torch.float32, device=qkv.device)
+    d = c3 // 3 // heads
+    chunks, per, scratch = _plan(qkv.dtype, bn, heads, n, d, qkv.device)
+    partial = torch.empty(scratch, dtype=torch.float32, device=qkv.device)
+    attention_f32.count(fused_window_attention_packed, _window_body(qkv.dtype, true_d), true_d,
+                        backward=True)
+    lib = _build.lib()
+    f32 = qkv.dtype == torch.float32
+    entry = (lib.dg_window_attention_packed_bwd_f32 if f32
+             else lib.dg_window_attention_packed_bwd_bf16)
+    code = entry(
+        qkv.data_ptr(), do.data_ptr(), bias32.data_ptr(),
+        None if mask32 is None else mask32.data_ptr(), dqkv.data_ptr(), dbias.data_ptr(),
+        partial.data_ptr(), bn, n, heads, *((d,) if f32 else ()),
+        1 if mask32 is None else mask32.shape[0], chunks, per, 1.0 / math.sqrt(true_d),
+        torch.cuda.current_stream(qkv.device).cuda_stream)
+    _build.check(code, "packed window attention backward kernel launch")
+    return dqkv, dbias
+
+
+@window_attention_packed_backward_op.register_fake
+def _(qkv, do, bias32, mask32, heads, true_d):
+    bn, n, c3 = qkv.shape
+    return (torch.empty_like(qkv),
+            torch.empty((heads, n, n), dtype=torch.float32, device=qkv.device))
+
+
 class _WindowAttention(torch.autograd.Function):
-    """Split layout on CUDA tensors: forward and backward kernels."""
+    """Split layout on CUDA tensors: the forward and backward ops."""
 
     @staticmethod
-    def forward(ctx, q, k, v, bias, mask, body, true_d):
-        b, h, n, d = q.shape
-        scale = 1.0 / math.sqrt(true_d)
+    def forward(ctx, q, k, v, bias, mask, true_d):
         bias32 = _f32_on(bias, q.device)
         mask32 = _f32_on(mask, q.device)
-        out = torch.empty((b, h, n, d), dtype=q.dtype, device=q.device)
-        nw = 1 if mask32 is None else mask32.shape[0]
-        attention_f32.count(fused_window_attention, body, true_d)
-        if q.dtype == torch.float32:
-            attention_f32.launch(
-                q, k.data_ptr(), v.data_ptr(), out, batch=b, heads=h, sq=n, sk=n, d=d,
-                q_strides=q.stride()[:3], kv_strides=k.stride()[:3], o_strides=out.stride()[:3],
-                bias_mode="window", bias=bias32, bias2=mask32, nw=nw, scale=scale)
-        else:
-            code = _build.lib().dg_window_attention_bf16(
-                q.data_ptr(), k.data_ptr(), v.data_ptr(), bias32.data_ptr(),
-                None if mask32 is None else mask32.data_ptr(), out.data_ptr(), b, h, n, nw,
-                *forward_plan(b, h, n, q.device), *q.stride()[:3], *k.stride()[:3],
-                *out.stride()[:3], scale, torch.cuda.current_stream(q.device).cuda_stream)
-            _build.check(code, "window attention kernel launch")
         ctx.save_for_backward(q, k, v, bias32, mask32)
-        ctx.bias_dtype, ctx.scale, ctx.body, ctx.true_d = bias.dtype, scale, body, true_d
-        return out
+        ctx.bias_dtype, ctx.true_d = bias.dtype, true_d
+        return window_attention_op(q, k, v, bias32, mask32, true_d)
 
     @staticmethod
     def backward(ctx, do):
         q, k, v, bias32, mask32 = ctx.saved_tensors
-        b, h, n, d = q.shape
-        do = do.contiguous()
-        dq, dk, dv = (torch.empty((b, h, n, d), dtype=q.dtype, device=q.device) for _ in range(3))
-        dbias = torch.empty((h, n, n), dtype=torch.float32, device=q.device)
-        chunks, per, scratch = _plan(q.dtype, b, h, n, d, q.device)
-        partial = torch.empty(scratch, dtype=torch.float32, device=q.device)
-        attention_f32.count(fused_window_attention, ctx.body, ctx.true_d, backward=True)
-        lib = _build.lib()
-        f32 = q.dtype == torch.float32
-        entry = lib.dg_window_attention_bwd_f32 if f32 else lib.dg_window_attention_bwd_bf16
-        code = entry(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), bias32.data_ptr(),
-            None if mask32 is None else mask32.data_ptr(), dq.data_ptr(), dk.data_ptr(),
-            dv.data_ptr(), dbias.data_ptr(), partial.data_ptr(), b, h, n, *((d,) if f32 else ()),
-            1 if mask32 is None else mask32.shape[0], chunks, per,
-            *q.stride()[:3], *k.stride()[:3], *do.stride()[:3], *dq.stride()[:3],
-            ctx.scale, torch.cuda.current_stream(q.device).cuda_stream)
-        _build.check(code, "window attention backward kernel launch")
-        return dq, dk, dv, dbias.to(ctx.bias_dtype), None, None, None
+        dq, dk, dv, dbias = window_attention_backward_op(q, k, v, do, bias32, mask32,
+                                                         ctx.true_d)
+        return dq, dk, dv, dbias.to(ctx.bias_dtype), None, None
 
 
 class _WindowAttentionPacked(torch.autograd.Function):
-    """Packed layout on a CUDA tensor: forward and backward kernels."""
+    """Packed layout on a CUDA tensor: the forward and backward ops."""
 
     @staticmethod
-    def forward(ctx, qkv, bias, mask, heads, body, true_d):
-        bn, n, c3 = qkv.shape
-        scale = 1.0 / math.sqrt(true_d)
-        c = c3 // 3
+    def forward(ctx, qkv, bias, mask, heads, true_d):
         bias32 = _f32_on(bias, qkv.device)
         mask32 = _f32_on(mask, qkv.device)
-        out = torch.empty((bn, n, c), dtype=qkv.dtype, device=qkv.device)
-        nw = 1 if mask32 is None else mask32.shape[0]
-        d = c // heads
-        attention_f32.count(fused_window_attention_packed, body, true_d)
-        if qkv.dtype == torch.float32:
-            strides, size = (n * c3, d, c3), qkv.element_size()
-            attention_f32.launch(
-                qkv, qkv.data_ptr() + c * size, qkv.data_ptr() + 2 * c * size, out, batch=bn,
-                heads=heads, sq=n, sk=n, d=d, q_strides=strides, kv_strides=strides,
-                o_strides=(n * c, d, c),
-                bias_mode="window", bias=bias32, bias2=mask32, nw=nw, scale=scale)
-        else:
-            code = _build.lib().dg_window_attention_packed_bf16(
-                qkv.data_ptr(), bias32.data_ptr(), None if mask32 is None else mask32.data_ptr(),
-                out.data_ptr(), bn, n, heads, nw, *forward_plan(bn, heads, n, qkv.device), scale,
-                torch.cuda.current_stream(qkv.device).cuda_stream)
-            _build.check(code, "packed window attention kernel launch")
         ctx.save_for_backward(qkv, bias32, mask32)
-        ctx.heads, ctx.bias_dtype, ctx.scale = heads, bias.dtype, scale
-        ctx.body, ctx.true_d = body, true_d
-        return out
+        ctx.heads, ctx.bias_dtype, ctx.true_d = heads, bias.dtype, true_d
+        return window_attention_packed_op(qkv, bias32, mask32, heads, true_d)
 
     @staticmethod
     def backward(ctx, do):
         qkv, bias32, mask32 = ctx.saved_tensors
-        bn, n, c3 = qkv.shape
-        heads = ctx.heads
-        do = do.contiguous()
-        dqkv = torch.empty_like(qkv)
-        dbias = torch.empty((heads, n, n), dtype=torch.float32, device=qkv.device)
-        d = c3 // 3 // heads
-        chunks, per, scratch = _plan(qkv.dtype, bn, heads, n, d, qkv.device)
-        partial = torch.empty(scratch, dtype=torch.float32, device=qkv.device)
-        attention_f32.count(fused_window_attention_packed, ctx.body, ctx.true_d, backward=True)
-        lib = _build.lib()
-        f32 = qkv.dtype == torch.float32
-        entry = (lib.dg_window_attention_packed_bwd_f32 if f32
-                 else lib.dg_window_attention_packed_bwd_bf16)
-        code = entry(
-            qkv.data_ptr(), do.data_ptr(), bias32.data_ptr(),
-            None if mask32 is None else mask32.data_ptr(), dqkv.data_ptr(), dbias.data_ptr(),
-            partial.data_ptr(), bn, n, heads, *((d,) if f32 else ()),
-            1 if mask32 is None else mask32.shape[0], chunks, per, ctx.scale,
-            torch.cuda.current_stream(qkv.device).cuda_stream)
-        _build.check(code, "packed window attention backward kernel launch")
-        return dqkv, dbias.to(ctx.bias_dtype), None, None, None, None
+        dqkv, dbias = window_attention_packed_backward_op(qkv, do, bias32, mask32, ctx.heads,
+                                                          ctx.true_d)
+        return dqkv, dbias.to(ctx.bias_dtype), None, None, None
 
 
 def fused_window_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -516,7 +604,7 @@ def fused_window_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         _require_kernel_input(name, t, n, strided=True)
     if k.stride() != v.stride():
         raise ValueError(f"k and v must share strides, got {k.stride()} and {v.stride()}")
-    out = _WindowAttention.apply(q, k, v, bias, mask, body, d)
+    out = _WindowAttention.apply(q, k, v, bias, mask, d)
     return out if body.width == d else out[..., :d].contiguous()
 
 
@@ -551,7 +639,7 @@ def fused_window_attention_packed(qkv: torch.Tensor, bias: torch.Tensor,
     if body.width != d:
         qkv = pad_packed(qkv, heads, body.width)
     _require_kernel_input("qkv", qkv, n, strided=False)
-    out = _WindowAttentionPacked.apply(qkv, bias, mask, heads, body, d)
+    out = _WindowAttentionPacked.apply(qkv, bias, mask, heads, d)
     return out if body.width == d else unpad_packed(out, heads, d)
 
 

@@ -38,7 +38,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from ...modeling.layers import Conv, Dense, GroupNorm, LayerNorm, avg_pool
+from ...modeling.layers import Conv, Dense, GroupNorm, LayerNorm, avg_pool, resize_bilinear
 from .scheduler import (
     SchedulerConfig,
     add_noise,
@@ -285,15 +285,6 @@ class IFUNet(nn.Module):
         deepest levels, 6-channel input, noise-level conditioning."""
         return cls(channels=(320, 640, 1280, 1280), layers_per_block=3, in_channels=6,
                    attn_start=2, noise_level_cond=True, dtype=dtype, device=device)
-
-
-def resize_bilinear(x: torch.Tensor, h: int, w: int) -> torch.Tensor:
-    """NHWC ``jax.image.resize(..., "bilinear")`` for an upscale: half-pixel
-    centres, taps past an edge dropped and the rest renormalized, which is
-    ``F.interpolate(align_corners=False)``'s clamp to the edge sample."""
-    y = F.interpolate(x.permute(0, 3, 1, 2), size=(h, w), mode="bilinear",
-                      align_corners=False)
-    return y.permute(0, 2, 3, 1)
 
 
 class IFStageIPipeline:
