@@ -397,11 +397,37 @@ Run from the root of a checkout:  python3 chip_smoke.py
        ``DRYRUN_BOUNDS`` (loss, gradient norm), no kernel launch, ms and
        peak memory; ``deform_conv2d`` at dla2's shape against the CPU within
        1e-5 of max |ref|, ms and peak memory.
-15. Prints the kernels' JSON line (the 13 wrappers' entries; the float32
+15. Slice of ranks (``torch.distributed``), launch counters reset just
+   before it (``slice_ranks``); each rank is this script in its
+   ``--rank-child SPEC`` mode, started by ``torch.distributed.run``, and
+   reports its own launches, which are added to the slice's counts:
+   (a) ``train_net --multi-host --deterministic`` under ``torchrun
+       --nproc_per_node=1`` (NCCL, a live group of one rank) on
+       ``configs/BSGAL_SwinL.yaml`` at full width (B = 2, 896², bf16 over
+       float32 parameters) for ``RANK_STEPS`` steps, against the same run as
+       one plain process without a group: the parameters after every step (a
+       float64 checksum) and at the end (SHA-256 of their bytes) and the
+       decisions equal bit for bit; s/step of both, peak memory, the bytes
+       the gradient reductions moved a step;
+   (b) two gloo ranks sharing the card (NCCL refuses two ranks on one
+       device): (1) the float32 flagship step (``float32_flagship_step``),
+       one image a rank, against this process's step on both images from
+       the same weights and draws, within ``RANK_BOUNDS`` (every metric 2e-4
+       relative; every update within twice the learning rate, sized ones
+       within 1e-2 of it), both ranks' parameters equal; (2) BSGAL through
+       ``train_net --multi-host --dist-backend gloo --device cuda:0`` for
+       ``RANK_STEPS`` steps: the ranks' parameters equal after every step,
+       one decision a step on both (their logs), one checkpoint and one
+       ``metrics.json`` row; (3) ``inference_on_dataset`` over the two ranks
+       on ``RANK_EVAL_IMAGES`` synthetic images in one batch, against this
+       process's loop in batches of half as many (the same forwards): the
+       detections of every image and the results equal bit for bit. Prints
+       each rank's peak memory and step time.
+16. Prints the kernels' JSON line (the 13 wrappers' entries; the float32
    window backward body with its launches in 10; and each padded head-dim
    case of 3 with its checked call's launch), the card line, and as the
    last line {"ok": true, "device": {...}}. Any failed phase raises: exit
-   code != 0.
+   code != 0. ``python3 chip_smoke.py`` needs one card.
 """
 from __future__ import annotations
 
@@ -5657,6 +5683,435 @@ def slice_deployment(card: str, tmp: str, snapshot) -> dict:
     return extra
 
 
+# slice 15: ranks. RANK_STEPS BSGAL steps in each train_net run ((b)2 saves
+# at the last); RANK_EVAL_IMAGES synthetic images in one batch split over two
+# ranks
+RANK_STEPS = 4
+RANK_EVAL_IMAGES = 8
+# (b)1's bounds, those of tests/test_torch_train_step.py: every metric within
+# RANK_BOUNDS["rel"] relative; an element's update within twice the learning
+# rate, and where its first moment is sized within RANK_BOUNDS["sized"] of it
+RANK_BOUNDS = {"rel": 2e-4, "abs": 1e-6, "sized": 1e-2}
+
+
+def rank_command(spec: dict, tmp: str, nproc: int = 0) -> dict:
+    """This script in its ``--rank-child`` mode on ``spec``: under ``torchrun
+    --standalone --nproc_per_node=nproc`` or, with ``nproc`` 0, as one plain
+    process. Every child runs one intra-op thread (torchrun's default): the
+    host's bilinear resize rounds a few pixels one level apart at other
+    thread counts (3-5 of an 896-side image between 1 and 8 threads), and on
+    random weights that reorders near-tied detections. Returns what rank 0
+    wrote (every rank's result under ``ranks``) and the wall clock of the
+    command; a failing child raises with the end of its output."""
+    name = spec["name"]
+    spec = dict(spec, result=os.path.join(tmp, f"{name}.result.json"))
+    path = os.path.join(tmp, f"{name}.spec.json")
+    with open(path, "w") as f:
+        json.dump(spec, f)
+    script = os.path.abspath(__file__)
+    cmd = [sys.executable, script, "--rank-child", path]
+    if nproc:
+        cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+               f"--nproc_per_node={nproc}", script, "--rank-child", path]
+    out = os.path.join(tmp, f"{name}.log")
+    t0 = time.perf_counter()
+    with open(out, "w") as f:
+        proc = subprocess.run(cmd, cwd=os.path.dirname(script), stdout=f,
+                              stderr=subprocess.STDOUT, timeout=900,
+                              env=dict(os.environ, OMP_NUM_THREADS="1"))
+    wall = time.perf_counter() - t0
+    text = open(out, errors="replace").read()
+    if proc.returncode:
+        raise AssertionError(f"{name}: exit {proc.returncode}; its output ends\n{text[-8000:]}")
+    warned = sorted({line.strip() for line in text.splitlines()
+                     if "does not have a deterministic implementation" in line})
+    with open(spec["result"]) as f:
+        res = json.load(f)
+    res.update(wall_s=wall, nondeterministic=warned)
+    return res
+
+
+def child_launches() -> dict:
+    from divergen_tpu_torch.ops.window_attention import fused_window_attention_packed as wa
+
+    return {"forward": wa.launches, "backward": wa.backward_launches,
+            "bodies": [[list(k), n] for k, n in wa.bodies.items()],
+            "backward_bodies": [[list(k), n] for k, n in wa.backward_bodies.items()]}
+
+
+def params_sha256(model) -> str:
+    import hashlib
+
+    h = hashlib.sha256()
+    for p in model.parameters():
+        h.update(p.detach().float().cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def float32_flagship_step(dev):
+    """``graft_entry``'s flagship train parts in float32 (``FP16`` off,
+    rematerialized Swin blocks): (cfg, state, batch of two 896² images, the
+    seeded generator of the step's draws)."""
+    from divergen_tpu_torch import graft_entry
+
+    cfg = graft_entry.flagship_cfg()
+    cfg.FP16 = False
+    _, (state, batch, gen) = graft_entry._train_parts(cfg, dev, cfg.INPUT.TRAIN_SIZE, 2, 20, None)
+    return cfg, state, batch, gen
+
+
+class RecordingEvaluator:
+    """Keeps the detections ``process`` is given, around an evaluator."""
+
+    def __init__(self, inner):
+        self.inner, self.outputs = inner, []
+
+    def reset(self):
+        self.inner.reset()
+        self.outputs = []
+
+    def process(self, inputs, outputs):
+        self.outputs.append(({k: np.asarray(v) for k, v in outputs.items()},
+                             [int(x["image_id"]) for x in inputs]))
+        self.inner.process(inputs, outputs)
+
+    def evaluate(self):
+        return self.inner.evaluate()
+
+
+def eval_split(files: dict, batch_size: int, group):
+    """The flagship (bf16, seeded weights) through ``inference_on_dataset`` on
+    the synthetic set ``files``: (results, recorded detections)."""
+    from divergen_tpu_torch import graft_entry
+    from divergen_tpu_torch.data import DatasetCatalog, MetadataCatalog
+    from divergen_tpu_torch.data.datasets.lvis import lvis_meta_from_json, register_lvis_instances
+    from divergen_tpu_torch.engine.eval_loop import build_evaluator, inference_on_dataset
+    from divergen_tpu_torch.parallel.mesh import create_mesh, shard_pytree
+
+    name = "smoke_ranks_synth_lvis"
+    for reg in (DatasetCatalog, MetadataCatalog):
+        reg.remove(name)
+    register_lvis_instances(name, lvis_meta_from_json(files["json_file"]), files["json_file"],
+                            files["image_root"])
+    model, _ = graft_entry.flagship_entry()
+    if group is not None:
+        shard_pytree(model, create_mesh())
+    cfg = graft_entry.flagship_cfg()
+    evaluator = RecordingEvaluator(build_evaluator(cfg, name))
+    results = inference_on_dataset(model, None, cfg, name, evaluator, batch_size=batch_size,
+                                   group=group)
+    return results, evaluator.outputs
+
+
+def rank_child(spec_path: str) -> int:
+    """``--rank-child SPEC``: one rank (or one plain process) of slice 15.
+    ``kind`` ``train_net``: ``train_net.main(args)`` with a parameter
+    checksum after every step; ``step``: (b)1's float32 step on this rank's
+    image; ``evaluate``: (b)3's split evaluation. Rank 0 writes every rank's
+    result to ``result``."""
+    import torch.distributed as dist
+
+    from divergen_tpu_torch.utils import comm
+
+    with open(spec_path) as f:
+        spec = json.load(f)
+    # float32 products as main() takes them (a float32 step, a bit-equal split)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    res = {"kind": spec["kind"]}
+    if spec["kind"] == "train_net":
+        from divergen_tpu_torch import train_net
+        from divergen_tpu_torch.active import bsgal
+        from divergen_tpu_torch.engine.trainer import do_train
+
+        os.environ["DETECTRON2_DATASETS"] = spec["root"]
+        sums, make = [], bsgal.make_active_train_step
+
+        def recording(model, optimizer, cfg, group=None):
+            step = make(model, optimizer, cfg, group=group)
+            params = list(model.parameters())
+
+            def step_fn(*args):
+                out = step(*args)
+                sums.append(float(torch.stack([p.detach().double().sum() for p in params]).sum()))
+                return out
+
+            return step_fn
+
+        bsgal.make_active_train_step = recording
+        traffic = dict(comm.GRAD_TRAFFIC)
+        state = train_net.main(train_net.default_argument_parser().parse_args(spec["args"]))
+        run, astate = do_train.last_run, do_train.last_run["active_state"]
+        res.update(step_s=run["step_s"], data_time=run["data_time"], sums=sums,
+                   sha256=params_sha256(state.model), world=run["world"],
+                   counts=[int(astate.n_paste), int(astate.n_discard)],
+                   steps=state.step - run["start_iter"],
+                   params=sum(p.numel() for p in state.model.parameters()),
+                   traffic={k: comm.GRAD_TRAFFIC[k] - traffic[k] for k in traffic})
+    elif spec["kind"] == "step":
+        from divergen_tpu_torch.engine.trainer import make_paste_train_step
+        from divergen_tpu_torch.ops.losses import RankDraws
+        from divergen_tpu_torch.parallel.mesh import create_mesh, shard_pytree
+        from divergen_tpu_torch.utils.dist import init_distributed
+
+        dev = init_distributed(spec["backend"], device="cuda:0")
+        rank, world = dist.get_rank(), dist.get_world_size()
+        cfg, state, batch, gen = float32_flagship_step(dev)
+        mesh = create_mesh()
+        shard_pytree(state.model, mesh)
+        step = make_paste_train_step(state.model, state.optimizer, cfg, group=mesh.group)
+        b = batch["image"].shape[0]
+        rows = slice(rank * b // world, (rank + 1) * b // world)
+        cut = lambda v: {k: cut(x) for k, x in v.items()} if isinstance(v, dict) else v[rows]
+        local = {k: (v if k == "fed_weight" else cut(v)) for k, v in batch.items()}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, metrics = step(state, local, RankDraws(gen, rank, world))
+        torch.cuda.synchronize()
+        res.update(step_s=time.perf_counter() - t0,
+                   metrics=comm.reduce_dict({k: float(v) for k, v in metrics.items()}),
+                   sha256=params_sha256(state.model))
+        if rank == 0:
+            torch.save({n: p.detach().cpu() for n, p in state.model.named_parameters()},
+                       spec["params_out"])
+    elif spec["kind"] == "evaluate":
+        from divergen_tpu_torch.utils.dist import init_distributed
+
+        if spec["backend"]:
+            init_distributed(spec["backend"], device="cuda:0")
+        t0 = time.perf_counter()
+        results, outputs = eval_split(spec["files"], spec["batch_size"],
+                                      dist.group.WORLD if spec["backend"] else None)
+        res["eval_s"] = time.perf_counter() - t0
+        if comm.get_rank() == 0:
+            torch.save({"results": results, "outputs": outputs}, spec["eval_out"])
+    res.update(launches=child_launches(), peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+               rank=comm.get_rank(),
+               backend=dist.get_backend() if dist.is_initialized() else None)
+    every = comm.all_gather(res)
+    if comm.get_rank() == 0:
+        with open(spec["result"], "w") as f:
+            json.dump({"ranks": every}, f)
+    if dist.is_initialized():
+        dist.destroy_process_group()
+    return 0
+
+
+def ranks_training_root(tmp: str) -> dict:
+    from divergen_tpu_torch.data.datasets.synthetic_lvis import write_training_root
+
+    return write_training_root(os.path.join(tmp, "ranks_data"), 1203,
+                               SERVING_SIZES * (TRAIN_SET // 4), SERVING_SIZES * (VAL_SET // 4),
+                               64, 32, seed=0)
+
+
+def train_net_args(files: dict, out: str, save: bool, *extra) -> list:
+    """``configs/BSGAL_SwinL.yaml`` for ``RANK_STEPS`` steps of two images
+    on ``files``' root; with ``save`` a checkpoint at the last step."""
+    return ["--config-file", "configs/BSGAL_SwinL.yaml", "--max-steps", str(RANK_STEPS), *extra,
+            *files["overrides"], "SOLVER.IMS_PER_BATCH", "2", "SOLVER.CHECKPOINT_PERIOD",
+            str(RANK_STEPS if save else 10 * RANK_STEPS), "TEST.EVAL_PERIOD", "0",
+            "OUTPUT_DIR", out]
+
+
+def step_summary(res: dict, saved: bool = False) -> str:
+    """s/step: the median after the first (and before a saving last step)."""
+    s = res["step_s"]
+    steady = s[1:-1] if saved else s[1:]
+    return (f"s/step {statistics.median(steady) if steady else s[0]:.3f} (median after the "
+            f"first{', before the saving last' if saved else ''}; every step "
+            f"{[round(x, 3) for x in s]})")
+
+
+def nccl_world_one(card: str, tmp: str, files: dict) -> list:
+    """(a) ``train_net --multi-host`` under ``torchrun --nproc_per_node=1``
+    (NCCL, a live group of one rank) against the same run without a group,
+    both ``--deterministic``: the parameters after every step (a float64
+    checksum) and at the end (SHA-256 of their bytes) equal bit for bit.
+    Returns both runs' results."""
+    group = rank_command({"name": "nccl_world_1", "kind": "train_net", "root": files["root"],
+                          "args": train_net_args(files, os.path.join(tmp, "nccl"), False,
+                                                 "--multi-host", "--deterministic")},
+                         tmp, nproc=1)
+    alone = rank_command({"name": "no_group", "kind": "train_net", "root": files["root"],
+                          "args": train_net_args(files, os.path.join(tmp, "alone"), False,
+                                                 "--deterministic")}, tmp)
+    (g,), (a,) = group["ranks"], alone["ranks"]
+    if g["backend"] != "nccl" or a["backend"] is not None or g["world"] != 1:
+        raise AssertionError(f"(a): backends {g['backend']} / {a['backend']}, world {g['world']}")
+    for res in (group, alone):
+        if res["nondeterministic"]:
+            log(f"    ops without a deterministic kernel: {res['nondeterministic']}")
+    if g["sums"] != a["sums"] or g["sha256"] != a["sha256"] or g["counts"] != a["counts"]:
+        raise AssertionError(f"(a): NCCL at world size 1 differs from the run without a group: "
+                             f"checksums {g['sums']} / {a['sums']}, SHA-256 {g['sha256'][:16]} / "
+                             f"{a['sha256'][:16]}, decisions {g['counts']} / {a['counts']}")
+    per_step = g["traffic"]["bytes"] / g["steps"]
+    log(f"  (a) NCCL at world size 1: {g['steps']} BSGAL steps bit equal to the run without a "
+        f"group (checksums {g['sums']}, SHA-256 {g['sha256'][:16]}); with the group "
+        f"{step_summary(g)}, peak {g['peak_gib']:.2f} GiB, command {group['wall_s']:.1f} s; "
+        f"without {step_summary(a)}, peak {a['peak_gib']:.2f} GiB, command "
+        f"{alone['wall_s']:.1f} s; all-reduced {per_step / 1e6:.1f} MB a step "
+        f"({g['traffic']['calls'] / g['steps']:.0f} gradient reductions of {g['params']} "
+        f"parameters x 4 B = {g['params'] * 4 / 1e6:.1f} MB, "
+        f"{g['traffic']['buckets'] / g['steps']:.0f} buckets) [{card}]")
+    return [g, a]
+
+
+def gloo_step(card: str, tmp: str) -> list:
+    """(b)1: the float32 flagship step on two gloo ranks sharing the card, one
+    image each, against this process's step on both images from the same
+    weights and draws, within ``RANK_BOUNDS``."""
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    cfg, state, batch, gen = float32_flagship_step(torch.device("cuda"))
+    from divergen_tpu_torch.engine.trainer import make_paste_train_step
+
+    step = make_paste_train_step(state.model, state.optimizer, cfg)
+    before = {n: p.detach().cpu().clone() for n, p in state.model.named_parameters()}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state, want = step(state, batch, gen)
+    torch.cuda.synchronize()
+    one_s, one_peak = time.perf_counter() - t0, torch.cuda.max_memory_allocated() / 2**30
+    want = {k: float(v) for k, v in want.items()}
+    lr = state.optimizer.schedule(0)
+    after = {n: p.detach().cpu() for n, p in state.model.named_parameters()}
+    moments = {n: state.optimizer.optim.state[p]["exp_avg"].abs().cpu()
+               for n, p in state.model.named_parameters()}
+    del state, batch, step
+    torch.cuda.empty_cache()
+    params_out = os.path.join(tmp, "gloo_step_params.pt")
+    res = rank_command({"name": "gloo_step", "kind": "step", "backend": "gloo",
+                        "params_out": params_out}, tmp, nproc=2)
+    r0, r1 = res["ranks"]
+    if r0["sha256"] != r1["sha256"] or r0["metrics"] != r1["metrics"]:
+        raise AssertionError("(b)1: the two ranks' parameters or metrics differ")
+    got = torch.load(params_out)
+    bad = [k for k, w in want.items() if abs(r0["metrics"][k] - w)
+           > RANK_BOUNDS["rel"] * abs(w) + RANK_BOUNDS["abs"]]
+    largest = max(float(m.max()) for m in moments.values())
+    worst = {"all": 0.0, "sized": 0.0}
+    for n, w in after.items():
+        diff = ((got[n] - before[n]) - (w - before[n])).abs()
+        ulps = 2e-7 * max(1.0, float(w.abs().max()))
+        worst["all"] = max(worst["all"], (float(diff.max()) - ulps) / lr)
+        sized = moments[n] > max(1e-3 * float(moments[n].max()), 1e-5 * largest)
+        if sized.any():
+            worst["sized"] = max(worst["sized"], (float(diff[sized].max()) - ulps) / lr)
+    log(f"  (b)1 float32 step, two gloo ranks of one image each against one process of both: "
+        f"metrics {'within' if not bad else 'OUTSIDE'} {RANK_BOUNDS['rel']} relative "
+        f"(largest gap {max(abs(r0['metrics'][k] - w) / max(abs(w), 1e-12) for k, w in want.items()):.3g}), "
+        f"updates off by at most {worst['all']:.3g} x lr (bound 2), sized ones "
+        f"{worst['sized']:.3g} x lr (bound {RANK_BOUNDS['sized']}); the ranks' step "
+        f"{max(r['step_s'] for r in res['ranks']):.3f} s against one process's {one_s:.3f} s "
+        f"(first steps), peak {r0['peak_gib']:.2f} / {r1['peak_gib']:.2f} GiB a rank against "
+        f"{one_peak:.2f} GiB [{card}]")
+    if bad or worst["all"] > 2.0 or worst["sized"] > RANK_BOUNDS["sized"]:
+        raise AssertionError(f"(b)1: metrics {bad}, updates {worst}")
+    return res["ranks"]
+
+
+def gloo_do_train(card: str, tmp: str, files: dict) -> list:
+    """(b)2: BSGAL through ``train_net --multi-host --dist-backend gloo`` on
+    two ranks sharing the card (one image each): the parameters equal on
+    both ranks after every step, one decision a step on both, one checkpoint
+    and one ``metrics.json``."""
+    from divergen_tpu_torch.engine.checkpoint import Checkpointer
+
+    out = os.path.join(tmp, "gloo_bsgal")
+    res = rank_command({"name": "gloo_bsgal", "kind": "train_net", "root": files["root"],
+                        "args": train_net_args(files, out, True, "--multi-host",
+                                               "--dist-backend", "gloo", "--device", "cuda:0",
+                                               "MODEL.ACTIVE.LOG_PERIOD", "1")}, tmp, nproc=2)
+    r0, r1 = res["ranks"]
+    decisions = []
+    for r in range(2):
+        lines = open(os.path.join(out, "paste_source", f"rank_{r}", "10000.txt")).read().splitlines()
+        decisions.append(sorted({(int(x.split(" iter: ")[1].split()[0]),
+                                  int(x.split(" paste: ")[1].split()[0]),
+                                  x.split(" sim_paste_init: ")[1].split()[0]) for x in lines}))
+    rows = open(os.path.join(out, "metrics.json")).read().splitlines()
+    ckpts = Checkpointer(out).all_steps()
+    if (r0["sums"] != r1["sums"] or len(r0["sums"]) != RANK_STEPS or r0["sha256"] != r1["sha256"]
+            or r0["counts"] != r1["counts"] or decisions[0] != decisions[1]
+            or len(decisions[0]) != RANK_STEPS or ckpts != [RANK_STEPS] or len(rows) != 1
+            or r0["world"] != 2 or r0["backend"] != "gloo"):
+        raise AssertionError(f"(b)2: checksums {r0['sums']} / {r1['sums']}, decisions "
+                             f"{decisions}, checkpoints {ckpts}, metrics.json rows {len(rows)}")
+    log(f"  (b)2 BSGAL over two gloo ranks on one card: {RANK_STEPS} steps, the ranks' "
+        f"parameters equal after every step (checksums {r0['sums']}), decisions (iter, paste, "
+        f"sim) {decisions[0]} on both, checkpoints {ckpts}, {len(rows)} metrics.json row; "
+        f"{step_summary(r0, saved=True)}, peak {r0['peak_gib']:.2f} / {r1['peak_gib']:.2f} GiB a rank, "
+        f"command {res['wall_s']:.1f} s [{card}]")
+    return res["ranks"]
+
+
+def gloo_eval(card: str, tmp: str) -> list:
+    """(b)3: ``inference_on_dataset`` over two gloo ranks, one batch of
+    ``RANK_EVAL_IMAGES`` split in halves, against one process's loop (a
+    plain child, as fresh as the ranks) in batches of half as many, so the
+    same forwards: detections and results equal bit for bit."""
+    from divergen_tpu_torch import graft_entry
+    from divergen_tpu_torch.data.datasets.synthetic_lvis import write_synthetic_lvis
+
+    files = write_synthetic_lvis(os.path.join(tmp, "ranks_lvis"),
+                                 [SERVING_SIZES[k % 4] for k in range(RANK_EVAL_IMAGES)],
+                                 graft_entry.flagship_cfg().MODEL.ROI_HEADS.NUM_CLASSES,
+                                 seed=graft_entry.SEED, category_ids=range(1, 61))
+    runs = {}
+    for name, backend, nproc, batch in (("one_card_eval", None, 0, RANK_EVAL_IMAGES // 2),
+                                        ("gloo_eval", "gloo", 2, RANK_EVAL_IMAGES)):
+        out = os.path.join(tmp, f"{name}.pt")
+        res = rank_command({"name": name, "kind": "evaluate", "backend": backend,
+                            "files": files, "batch_size": batch, "eval_out": out}, tmp, nproc)
+        runs[name] = (res["ranks"], torch.load(out, weights_only=False))
+    (one_rank,), want = runs["one_card_eval"]
+    split, got = runs["gloo_eval"]
+    ids = [i for _, batch in got["outputs"] for i in batch]
+    want_ids = [i for _, batch in want["outputs"] for i in batch]
+    merged = {k: np.concatenate([o[k] for o, _ in want["outputs"]]) for k in want["outputs"][0][0]}
+    differ = {k: float(np.abs(got["outputs"][0][0][k].astype(np.float64) - v).max())
+              for k, v in merged.items() if not np.array_equal(got["outputs"][0][0][k], v)}
+    same_results = all(
+        got["results"][t][k] == v or (math.isnan(v) and math.isnan(got["results"][t][k]))
+        for t in want["results"] for k, v in want["results"][t].items())
+    if ids != want_ids or differ or not same_results:
+        raise AssertionError(f"(b)3: the split evaluation differs: images {ids} / {want_ids}, "
+                             f"outputs (largest gap) {differ}, results {got['results']} / "
+                             f"{want['results']}")
+    log(f"  (b)3 inference_on_dataset over two gloo ranks ({RANK_EVAL_IMAGES} images, 4 a rank): "
+        f"detections and results equal to one card's bit for bit (bbox AP "
+        f"{want['results']['bbox']['AP']:.4f}); {max(r['eval_s'] for r in split):.1f} s against "
+        f"{one_rank['eval_s']:.1f} s on one card, peak {[round(r['peak_gib'], 2) for r in split]} "
+        f"GiB a rank against {one_rank['peak_gib']:.2f} [{card}]")
+    return split + [one_rank]
+
+
+def slice_ranks(card: str, tmp: str) -> dict:
+    """Slice 15: (a) ``nccl_world_one``, (b) ``gloo_step``, ``gloo_do_train``,
+    ``gloo_eval``. Returns the children's launches of the packed window
+    attention, by the keys of ``snapshot()``."""
+    files = ranks_training_root(tmp)
+    files["root"] = os.path.join(tmp, "ranks_data")
+    children = nccl_world_one(card, tmp, files)
+    children += gloo_step(card, tmp)
+    children += gloo_do_train(card, tmp, files)
+    children += gloo_eval(card, tmp)
+    launched = {}
+    for r in children:
+        c = r["launches"]
+        for key, n in (("fused_window_attention_packed", c["forward"]),
+                       ("fused_window_attention_packed_backward", c["backward"])):
+            launched[key] = launched.get(key, 0) + n
+        for back, pairs in ((False, c["bodies"]), (True, c["backward_bodies"])):
+            for k, n in pairs:
+                key = ("fused_window_attention_packed", back, *k)
+                launched[key] = launched.get(key, 0) + n
+    log(f"  the children's launches: { {k: n for k, n in launched.items() if isinstance(k, str)} }")
+    return launched
+
+
 def main() -> int:
     started = time.perf_counter()
     if not torch.cuda.is_available():
@@ -5920,9 +6375,23 @@ def main() -> int:
         f"{ {k: n for k, n in deployment.items() if n} }")
     log(f"  the smoke's wall clock after the slice: {time.perf_counter() - started:.1f} s "
         f"[{card}]")
+
+    log("slice 15: ranks ((a) train_net --multi-host under torchrun at NCCL world size 1, bit "
+        "equal to the run without a group; (b) two gloo ranks sharing the card: the float32 "
+        "step against one process, BSGAL through train_net, the split inference_on_dataset)")
+    reset()
+    with tempfile.TemporaryDirectory() as tmp:
+        children = slice_ranks(card, tmp)
+    ranks = read(("fused_window_attention_packed",
+                  "fused_window_attention_packed_backward"), "the ranks slice")
+    for k, n in children.items():  # the ranks' own launches, counted in their processes
+        ranks[k] = ranks.get(k, 0) + n
+    log(f"  with the ranks' launches: { {k: n for k, n in ranks.items() if n and isinstance(k, str)} }")
+    log(f"  the smoke's wall clock after the slice: {time.perf_counter() - started:.1f} s "
+        f"[{card}]")
     launches = {}
     for counts in (sdxl, chain, serving, fused, cascade, train, detector, detector_serving,
-                   do_train_counts, architectures, real_images, weak, deployment):
+                   do_train_counts, architectures, real_images, weak, deployment, ranks):
         for k, n in counts.items():
             launches[k] = launches.get(k, 0) + n
     # the split wrapper is on no slice's path (the packed kernels take any head
@@ -6006,4 +6475,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--rank-child"]:
+        sys.exit(rank_child(sys.argv[2]))
     sys.exit(main())

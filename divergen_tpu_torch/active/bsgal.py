@@ -42,8 +42,9 @@ import numpy as np
 import torch
 
 from ..ops.copy_paste import normalize_cp_method
-from ..ops.losses import Rng, uniform_draw
+from ..ops.losses import RankDraws, Rng, uniform_draw
 from ..solver.build import ema_update
+from ..utils.comm import all_reduce_grads, global_mean_count, group_size
 
 
 @dataclasses.dataclass
@@ -360,7 +361,13 @@ class ActiveConfig:
 def split_rng(rng: Rng) -> Tuple[Rng, Rng, Rng, Rng]:
     """(probe, paste, final, compare) draws of one step: a generator serves
     all four in turn; a mapping holds the first three under their names and
-    the compare uniform under ``"compare"``."""
+    the compare uniform under ``"compare"``; over ranks either one in a
+    ``RankDraws``."""
+    if isinstance(rng, RankDraws):
+        if isinstance(rng.source, torch.Generator):
+            return rng, rng, rng, rng
+        part = lambda k: RankDraws(rng.source[k], rng.rank, rng.world)
+        return part("probe"), part("paste"), part("final"), rng
     if isinstance(rng, torch.Generator):
         return rng, rng, rng, rng
     return rng["probe"], rng["paste"], rng["final"], rng
@@ -388,7 +395,7 @@ def _pad_rows(x: torch.Tensor, n: int) -> torch.Tensor:
     return torch.cat([x, x.new_zeros((x.shape[0], extra, *x.shape[2:]))], dim=1)
 
 
-def make_active_train_step(model, optimizer, cfg) -> Callable:
+def make_active_train_step(model, optimizer, cfg, group=None) -> Callable:
     """``step(state, active_state, batch, rng) → (state, active_state,
     metrics)``; the state, the model, the optimizer, the EMA copy and the
     active state are updated in place and returned.
@@ -399,11 +406,17 @@ def make_active_train_step(model, optimizer, cfg) -> Callable:
     (ACTIVE_TEST_BATCHSIZE images). Metrics: ``total_loss`` (the final
     step's losses without the split keys), ``grad_sim``, ``paste_used``,
     ``threshold``, ``paste_num``, every loss of the final forward but the
-    ``aux_*`` rows, and with the per-paste rows ``aux_paste_rows``.
+    ``aux_*`` rows, and with the per-paste rows ``aux_paste_rows``. ``group``:
+    the ranks whose batches (and probes) make the global batch (module
+    docstring).
     """
+    from ..engine.train_loop import reduce_grads_
     from ..engine.trainer import composite
 
     acfg = ActiveConfig.from_cfg(cfg)
+    if acfg.per_instance and group_size(group) > 1:
+        raise NotImplementedError("ACTIVE.PER_INSTANCE over several ranks (a quantile over the "
+                                  "global batch's pastes) is not ported: ROADMAP.md §1, item 4")
     ema_decay = cfg.MODEL.MODEL_EMA
     named = [(n, p) for n, p in model.named_parameters() if p.requires_grad]
     names, params = [n for n, _ in named], [p for _, p in named]
@@ -411,10 +424,10 @@ def make_active_train_step(model, optimizer, cfg) -> Callable:
     def grads_of(loss: torch.Tensor, retain: bool = False) -> Dict[str, torch.Tensor]:
         grads = torch.autograd.grad(loss, params, retain_graph=retain, allow_unused=True,
                                     materialize_grads=True)
-        return dict(zip(names, grads))
+        return dict(zip(names, all_reduce_grads(grads, group)))
 
     def forward(images, sizes, gt, rng, **kw):
-        return model(images, sizes, gt=gt, rng=rng, training=True, **kw)
+        return model(images, sizes, gt=gt, rng=rng, training=True, group=group, **kw)
 
     def probe_loss(probe, rng, call=forward) -> torch.Tensor:
         losses = call(probe["image"], probe["image_size"], probe["gt"], rng, gt_as_proposals=True)
@@ -431,7 +444,8 @@ def make_active_train_step(model, optimizer, cfg) -> Callable:
                                               dict(gt=gt, rng=r, training=True, **kw))
 
         with torch.no_grad():
-            return probe_loss(probe, rng, call=call)
+            # each rank's loss holds its share of the global probe's: their mean
+            return global_mean_count(probe_loss(probe, rng, call=call), group)
 
     def step_fn(state, astate: ActiveState, batch, rng: Rng):
         assert state.model is model and state.optimizer is optimizer
@@ -540,6 +554,7 @@ def make_active_train_step(model, optimizer, cfg) -> Callable:
         total = _sum(losses, _scalar_keys(losses))
         optimizer.zero_grad()
         total.backward()
+        reduce_grads_(optimizer, group)
         if acfg.mode == "paste_or_zero":
             # a discard still steps the optimizer, on zero gradients
             zero_out = ~use_paste
@@ -551,7 +566,10 @@ def make_active_train_step(model, optimizer, cfg) -> Callable:
         if state.ema_params is not None:
             ema_update(state.ema_params, state.params, ema_decay)
         state.step += 1
-        paste_num = ((gt_pasted["instance_source"] > 0) & gt_pasted["valid"]).sum()
+        # the pasted instances of the global batch
+        paste_num = global_mean_count(
+            ((gt_pasted["instance_source"] > 0) & gt_pasted["valid"]).sum(), group) \
+            * group_size(group)
         metrics = {
             "total_loss": total.detach(),
             "grad_sim": sim,

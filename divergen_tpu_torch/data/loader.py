@@ -20,7 +20,7 @@ from __future__ import annotations
 import queue
 import threading
 from concurrent.futures import ThreadPoolExecutor
-from typing import Callable, Dict, Iterator, List, Sequence
+from typing import Callable, Dict, Iterator, List, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -42,7 +42,14 @@ def _stack_samples(samples: List[dict]) -> Dict[str, np.ndarray]:
 
 
 class TrainLoader:
-    """Infinite batches: sampler indices → mapper (thread pool) → stack."""
+    """Infinite batches: sampler indices → mapper (thread pool) → stack.
+
+    ``rows``: the rows ``[lo, hi)`` of each batch this process maps and hands
+    out, taken in turn batch by batch (default: every row). The sampler and
+    the per-sample seeds advance over the whole batch, so the ranks of a node
+    that each take their rows together hand out what one loader hands out.
+    A file that cannot be read then raises: the whole-batch loader's backfill
+    would move rows from one rank to another."""
 
     def __init__(
         self,
@@ -53,11 +60,13 @@ class TrainLoader:
         num_workers: int = 4,
         queue_size: int = 8,
         seed: int = 0,
+        rows: Sequence[Tuple[int, int]] = (),
     ):
         self.dataset = dataset
         self.mapper = mapper
         self.sampler = sampler
         self.batch_size = batch_size
+        self.rows = list(rows) or [(0, batch_size)]
         self.num_workers = max(num_workers, 1)
         self.queue: "queue.Queue" = queue.Queue(maxsize=queue_size)
         self._seed = seed
@@ -71,23 +80,34 @@ class TrainLoader:
         return self.mapper(self.dataset[idx], rng)
 
     def _produce(self):
+        try:
+            self._produce_batches()
+        except Exception as e:  # handed to the consumer, which raises it
+            self.queue.put(e)
+
+    def _produce_batches(self):
         pool = ThreadPoolExecutor(max_workers=self.num_workers)
         it = iter(self.sampler)
         counter = 0
+        batches = 0
         pending: "queue.Queue" = queue.Queue()
         # pipeline: keep 2 batches of futures in flight
         def submit_batch():
-            nonlocal counter
+            nonlocal counter, batches
+            lo, hi = self.rows[batches % len(self.rows)]
+            batches += 1
             futs = []
-            for _ in range(self.batch_size):
+            for row in range(self.batch_size):
                 idx = next(it)
-                try:
-                    futs.append(pool.submit(self._map_one, (idx, self._seed * 1_000_003 + counter)))
-                except RuntimeError:
-                    # interpreter/pool shutdown raced the daemon producer —
-                    # treat as a stop signal instead of dying noisily
-                    self._stop.set()
-                    return
+                if lo <= row < hi:
+                    try:
+                        futs.append(pool.submit(self._map_one,
+                                                (idx, self._seed * 1_000_003 + counter)))
+                    except RuntimeError:
+                        # interpreter/pool shutdown raced the daemon producer —
+                        # treat as a stop signal instead of dying noisily
+                        self._stop.set()
+                        return
                 counter += 1
             pending.put(futs)
 
@@ -95,14 +115,17 @@ class TrainLoader:
         submit_batch()
         while not self._stop.is_set():
             futs = pending.get()
+            whole = len(futs) == self.batch_size
             samples = []
             for f in futs:
                 try:
                     samples.append(f.result())
-                except FileNotFoundError:
-                    continue
+                except FileNotFoundError as e:
+                    if not whole:
+                        raise RuntimeError(f"{e}: a loader that maps some rows of each batch "
+                                           "cannot skip a missing file") from e
             # backfill failed decodes synchronously
-            while len(samples) < self.batch_size:
+            while whole and len(samples) < self.batch_size:
                 idx = next(it)
                 try:
                     samples.append(self._map_one((idx, self._seed * 1_000_003 + counter)))
@@ -118,7 +141,10 @@ class TrainLoader:
             self._thread.start()
             self._started = True
         while True:
-            yield self.queue.get()
+            item = self.queue.get()
+            if isinstance(item, Exception):
+                raise item
+            yield item
 
     def stop(self):
         """Stop the producer: set the flag, then take what is queued, so that

@@ -1,7 +1,7 @@
 """do_test: timed inference over the test sets → LVIS/COCO metrics.
 
 Counterpart of ``divergen_tpu/engine/eval_loop.py`` (``build_evaluator``,
-``inference_on_dataset``, ``do_test``) on one card: the same loop over
+``inference_on_dataset``, ``do_test``) on one card or over ranks: the same loop over
 batches of mapped samples, the same data / compute timing after ``warmup``
 images and the same log line, the EMA weights first, ``RESET_CLS_TESTS``
 through ``rcnn.load_zs_weight`` and ``rcnn.reset_cls_test``, one result dict
@@ -9,8 +9,14 @@ per ``DATASETS.TEST`` name. The output dict goes to the host in one copy
 per batch. ``inference_on_dataset_exp`` is the analysis variant: the model
 with ``return_logits``, ``LVISEvaluatorWithLogits``, and a
 ``det_<image_id>.npz`` of each image's valid boxes, scores, classes and
-per-box class scores. Not ported yet: the data-parallel (pmap) branch, which
-needs ``torch.distributed``.
+per-box class scores.
+
+Over ranks (``group``, or a ``mesh``'s data axis) ``inference_on_dataset``
+splits each batch as the JAX loop's ``pmap`` does: the batch size is rounded
+up to a multiple of the ranks, every rank maps the whole batch and infers its
+contiguous rows, the fixed-capacity detections are all-gathered back into
+batch order, and rank 0 alone runs the evaluator (the other ranks return an
+empty dict).
 """
 from __future__ import annotations
 
@@ -25,6 +31,8 @@ from ..data import DatasetCatalog, MetadataCatalog
 from ..data.dataset_mapper import DatasetMapper
 from ..evaluation.lvis_evaluator import CustomCOCOEvaluator, LVISEvaluator, OIDEvaluator
 from ..modeling.meta_arch.rcnn import build_model
+from ..parallel.mesh import MODEL_PARALLEL_ITEM
+from ..utils import comm
 from ..utils.dist import entry_device
 from ..utils.transfer import to_device, to_host
 from .checkpoint import Checkpointer
@@ -73,16 +81,29 @@ def _batches(dataset, mapper, batch_size: int):
 
 def inference_on_dataset(model, params, cfg, dataset_name: str, evaluator,
                          batch_size: int = 8, max_images: Optional[int] = None,
-                         mesh=None) -> Dict:
+                         mesh=None, group=None) -> Dict:
     """Timed eval loop (divergen/evaluation/evaluator.py:106-216) on the
     model's device. ``params``: a ``state_dict`` to load into ``model`` first,
-    or None to run the model as it is. A data-parallel width above 1
-    (``mesh``, ``PARALLEL.DATA_PARALLEL``) raises: spreading the batch over
-    cards waits for ``torch.distributed``."""
-    if mesh is not None or cfg.PARALLEL.DATA_PARALLEL > 1:
-        raise NotImplementedError(
-            "data-parallel inference over several cards is not yet ported (it needs "
-            "torch.distributed: ROADMAP.md §1 item 6c); run with PARALLEL.DATA_PARALLEL -1 or 1")
+    or None to run the model as it is. Over the ranks of ``group`` (or of
+    ``mesh``'s data axis) each batch is split as the module docstring says;
+    ``PARALLEL.DATA_PARALLEL`` -1, 0 or at least the ranks takes them all, as
+    the JAX loop takes every device, a narrower data axis and a model axis
+    above 1 raise."""
+    if mesh is not None:
+        if mesh.shape["model"] > 1:
+            raise NotImplementedError(MODEL_PARALLEL_ITEM)
+        group = mesh.group
+    world, rank = comm.group_size(group), comm.group_rank(group)
+    dp = cfg.PARALLEL.DATA_PARALLEL if mesh is None else mesh.shape["data"]
+    if dp in (-1, 0) or dp >= world:
+        dp = world
+    else:
+        raise ValueError(f"PARALLEL.DATA_PARALLEL {dp} over {world} ranks: a data axis narrower "
+                         "than the ranks is not ported")
+    # the batch divisible by the data axis, so the shares are even
+    batch_size = max(batch_size, dp)
+    batch_size += (-batch_size) % dp
+    rows = slice(rank * batch_size // dp, (rank + 1) * batch_size // dp)
     if params is not None:
         model.load_state_dict(params)
     model.eval()
@@ -103,12 +124,16 @@ def inference_on_dataset(model, params, cfg, dataset_name: str, evaluator,
         samples, images, sizes = next(batches)
         t_data += time.perf_counter() - t0
         t0 = time.perf_counter()
-        dev = to_device({"images": images, "sizes": sizes.astype(np.int64)}, device)
+        dev = to_device({"images": images[rows], "sizes": sizes[rows].astype(np.int64)}, device)
         with torch.no_grad():
-            out = to_host(model(dev["images"], dev["sizes"], training=False))
+            out = model(dev["images"], dev["sizes"], training=False)
+            out = {k: comm.all_gather_rows(v, group) for k, v in out.items()}
+        if rank == 0:
+            out = to_host(out)
         if ofs >= warmup:
             t_comp += time.perf_counter() - t0
-        evaluator.process(samples, out)
+        if rank == 0:
+            evaluator.process(samples, out)
     total = time.perf_counter() - start
     logger.info(
         "inference on %s: %d imgs, %.4f s/img total (data %.4f, compute %.4f)",
@@ -118,7 +143,7 @@ def inference_on_dataset(model, params, cfg, dataset_name: str, evaluator,
         "images": n, "total_s_per_image": total / max(n, 1),
         "data_s_per_image": t_data / max(n, 1),
         "compute_s_per_image": t_comp / max(n - warmup, 1)}
-    return evaluator.evaluate()
+    return evaluator.evaluate() if rank == 0 else {}
 
 
 inference_on_dataset.last_timing = None
@@ -137,7 +162,7 @@ def _load_weights(model, model_state: Dict[str, torch.Tensor],
 
 
 def do_test(cfg, model=None, state: Optional[TrainState] = None, resume: bool = True,
-            max_images: Optional[int] = None, device=None) -> Dict:
+            max_images: Optional[int] = None, device=None, group=None) -> Dict:
     """One result dict per ``cfg.DATASETS.TEST`` name, from ``state`` (its EMA
     weights when it has them) or, without one, from the newest checkpoint
     under ``cfg.OUTPUT_DIR`` (its EMA weights first). ``model``: the module
@@ -179,7 +204,7 @@ def do_test(cfg, model=None, state: Optional[TrainState] = None, resume: bool = 
             reset_cls_test(eval_model, w)
         evaluator = build_evaluator(cfg, name)
         results[name] = inference_on_dataset(
-            eval_model, None, cfg, name, evaluator, max_images=max_images
+            eval_model, None, cfg, name, evaluator, max_images=max_images, group=group
         )
         logger.info("results[%s] = %s", name, results[name])
     return results

@@ -5,10 +5,21 @@ Counterpart of ``divergen_tpu/engine/trainer.py``: ``load_fed_weight``,
 optimizer → EMA on the device), ``build_train_loader`` and ``do_train`` with
 the BSGAL branch (``active/bsgal.py``). The host loader only decodes and
 assembles patch stacks (``data/loader.py``); batches reach the card through
-``device_prefetch``. One card: a data-parallel width above 1 raises (it needs
-``torch.distributed``, ROADMAP.md §1 item 6c). The JAX package's
-``_init_params`` (flax ``init``) is ``modeling/meta_arch/rcnn.py:detector_init_``
-with a generator seeded from ``SEED``.
+``device_prefetch``. The JAX package's ``_init_params`` (flax ``init``) is
+``modeling/meta_arch/rcnn.py:detector_init_`` with a generator seeded from
+``SEED``.
+
+Over ranks (one rank a card, ``utils/dist.py:init_distributed``) the layout
+is the JAX package's, where a process is a host and a chip a device: the
+sampler is sharded over the nodes, each node's batch is ``IMS_PER_BATCH``,
+and local rank ``l`` of ``L`` maps and trains on rows ``[l·B/L, (l+1)·B/L)``
+of it (with BSGAL, its rows of the probe too). Every random draw is taken
+at the global batch's shape from the same generator state on every rank
+(``ops.losses.RankDraws``), the losses' normalizers and the gradients are
+reduced over the ranks, and the parameters start equal (a broadcast from
+rank 0), so W ranks compute what one process computes on the global batch.
+Checkpoints, ``metrics.json`` and the log are rank 0's; the metrics are
+``comm.reduce_dict`` means over the ranks.
 """
 from __future__ import annotations
 
@@ -35,9 +46,11 @@ from ..data.samplers import (
 )
 from ..modeling.meta_arch.rcnn import build_model, detector_init_, load_zs_weight, reset_cls_test
 from ..ops.copy_paste import normalize_cp_method, paste_instances_boxframe
-from ..ops.losses import Rng
+from ..ops.losses import RankDraws, Rng
+from ..parallel.mesh import MODEL_PARALLEL_ITEM, create_mesh, shard_pytree
 from ..solver.build import SolverOptimizer, build_optimizer
-from ..utils.dist import entry_device, rank_world
+from ..utils import comm
+from ..utils.dist import Layout, entry_device, layout
 from ..utils.transfer import to_host
 from .checkpoint import Checkpointer, PeriodicCheckpointer
 from .events import CommonMetricPrinter, EventStorage, JSONWriter
@@ -77,14 +90,16 @@ def composite(batch, mode: str):
                                               "instance_source")}
 
 
-def make_paste_train_step(model: nn.Module, optimizer: SolverOptimizer, cfg) -> Callable:
+def make_paste_train_step(model: nn.Module, optimizer: SolverOptimizer, cfg,
+                          group=None) -> Callable:
     """``step(state, batch, rng) -> (state, metrics)`` with the compositing in
     front of the forward. batch: ``image`` (B, H, W, 3), ``image_size`` (B, 2),
     ``gt`` (masks, boxes, classes, valid, instance_source), and with
     ``INPUT.USE_COPY_PASTE`` the patches to paste (``patches`` (B, P, ps, ps,
     4), ``patch_boxes``, ``patch_classes``, ``patch_valid``, ``patch_flip``,
     optionally ``patch_angle``); ``fed_weight`` in the batch overrides the
-    file's. The metrics are ``total_loss`` and every loss."""
+    file's. The metrics are ``total_loss`` and every loss. ``group``: the
+    ranks whose batches make the global batch (``train_loop.make_train_step``)."""
     ema_decay = cfg.MODEL.MODEL_EMA
     mode = normalize_cp_method(cfg.INPUT.CP_METHOD)
     use_paste = cfg.INPUT.USE_COPY_PASTE
@@ -96,12 +111,28 @@ def make_paste_train_step(model: nn.Module, optimizer: SolverOptimizer, cfg) -> 
         fed = batch.get("fed_weight", fed_weight)
         if fed is not None:
             fed = fed.to(images.device)
-        losses = model(images, batch["image_size"], gt=gt, rng=rng, fed_weight=fed, training=True)
-        metrics = apply_losses(state, losses, ema_decay)
+        losses = model(images, batch["image_size"], gt=gt, rng=rng, fed_weight=fed, training=True,
+                       group=group)
+        metrics = apply_losses(state, losses, ema_decay, group=group)
         del metrics["grad_norm"]
         return state, metrics
 
     return step_fn
+
+
+def train_rows(cfg, lay: Layout):
+    """(rows of each batch, rows of each probe batch) that local rank
+    ``lay.local_rank`` of ``lay.local_world`` takes: its contiguous share of
+    the node's ``IMS_PER_BATCH`` and, with BSGAL, of the ``PROBE_BATCH``
+    first rows of the probe batch. A share that is not whole raises."""
+    b, n, l = cfg.SOLVER.IMS_PER_BATCH, lay.local_world, lay.local_rank
+    if b % n:
+        raise ValueError(f"SOLVER.IMS_PER_BATCH {b} does not split over the {n} ranks of a node")
+    probe = min(cfg.MODEL.ACTIVE.PROBE_BATCH, b)
+    if cfg.MODEL.ACTIVE.ENABLED and probe % n:
+        raise ValueError(f"MODEL.ACTIVE.PROBE_BATCH {probe} does not split over the {n} ranks "
+                         "of a node")
+    return (l * b // n, (l + 1) * b // n), (l * probe // n, (l + 1) * probe // n)
 
 
 def build_train_loader(cfg, mapper=None) -> TrainLoader:
@@ -110,7 +141,10 @@ def build_train_loader(cfg, mapper=None) -> TrainLoader:
     ``INPUT.USE_COPY_PASTE``, its self-copy sources set to the records), and
     the sampler: ``MultiDatasetSampler`` over several datasets, repeat-factor
     sampling with ``INPUT.USE_RFS`` or ``RepeatFactorTrainingSampler``, else
-    ``TrainingSampler``; seeded from ``SEED``, sharded by rank."""
+    ``TrainingSampler``; seeded from ``SEED`` and sharded over the nodes.
+    Over several ranks of a node each maps only its rows (``train_rows``);
+    with BSGAL every second batch is a probe. ``WORLD_SIZE`` above 1 without
+    a process group raises (``utils/dist.py:layout``)."""
     names = list(cfg.DATASETS.TRAIN)
     dataset = []
     for n in names:
@@ -120,7 +154,10 @@ def build_train_loader(cfg, mapper=None) -> TrainLoader:
         mapper = CopyPasteMapper(base, cfg) if cfg.INPUT.USE_COPY_PASTE else base
         if isinstance(mapper, CopyPasteMapper):
             mapper.set_dataset(dataset)
-    rank, world = rank_world()
+    lay = layout()
+    rank, world = lay.node, lay.nodes
+    rows, probe_rows = train_rows(cfg, lay)
+    rows = [rows, probe_rows] if cfg.MODEL.ACTIVE.ENABLED and lay.local_world > 1 else [rows]
     use_rfs = cfg.INPUT.USE_RFS or (cfg.DATALOADER.SAMPLER_TRAIN == "RepeatFactorTrainingSampler")
     if len(names) > 1:
         # per-dataset ratio x optional per-dataset RFS
@@ -145,7 +182,7 @@ def build_train_loader(cfg, mapper=None) -> TrainLoader:
     else:
         sampler = TrainingSampler(len(dataset), seed=cfg.SEED, rank=rank, world_size=world)
     return TrainLoader(dataset, mapper, sampler, batch_size=cfg.SOLVER.IMS_PER_BATCH,
-                       num_workers=cfg.DATALOADER.NUM_WORKERS, seed=cfg.SEED)
+                       num_workers=cfg.DATALOADER.NUM_WORKERS, seed=cfg.SEED, rows=rows)
 
 
 def _probe_of(probe: Dict, size: int) -> Dict:
@@ -199,12 +236,22 @@ def do_train(cfg, resume: bool = False, max_steps: Optional[int] = None,
     iterations of this call. ``do_train.last_run`` keeps what a caller may
     check: ``start_iter``, the restored bank's step, decision counts and
     norm, ``data_time`` and ``step_s`` per iteration, the last ``do_test``
-    result and the ``ActiveState``."""
+    result, the ``ActiveState`` and the ``world`` size.
+
+    Over the ranks of an initialized process group (module docstring):
+    ``PARALLEL.DATA_PARALLEL`` is -1 or the world size, ``MODEL_PARALLEL``
+    above 1 raises, and rank 0 alone writes checkpoints, the grad bank,
+    ``metrics.json``, the log and the profile; each rank keeps its decision
+    log."""
     dev = entry_device(device)
-    if cfg.PARALLEL.DATA_PARALLEL > 1:
-        raise NotImplementedError(
-            "data-parallel training over several cards is not yet ported (it needs "
-            "torch.distributed: ROADMAP.md §1 item 6c); run with PARALLEL.DATA_PARALLEL -1 or 1")
+    lay = layout()
+    if cfg.PARALLEL.MODEL_PARALLEL > 1:
+        raise NotImplementedError(MODEL_PARALLEL_ITEM)
+    if cfg.PARALLEL.DATA_PARALLEL not in (-1, lay.world):
+        raise ValueError(f"PARALLEL.DATA_PARALLEL {cfg.PARALLEL.DATA_PARALLEL}: the data axis "
+                         f"takes every rank, -1 or the world size {lay.world}")
+    mesh = create_mesh(cfg.PARALLEL.DATA_PARALLEL, cfg.PARALLEL.MODEL_PARALLEL, world=lay.world)
+    group, main = mesh.group, lay.rank == 0
     out_dir = cfg.OUTPUT_DIR
     os.makedirs(out_dir, exist_ok=True)
     canvas = (cfg.INPUT.TRAIN_SIZE,) * 2
@@ -216,19 +263,21 @@ def do_train(cfg, resume: bool = False, max_steps: Optional[int] = None,
         # (C, zs_dim) (modeling/utils.py:40-43)
         reset_cls_test(model, load_zs_weight(zs_path,
                                              zs_dim=cfg.MODEL.ROI_BOX_HEAD.ZEROSHOT_WEIGHT_DIM))
+    shard_pytree(model, mesh)  # rank 0's weights on every rank
     logger.info("model parameters: %.2fM", sum(p.numel() for p in model.parameters()) / 1e6)
     loader = build_train_loader(cfg)
+    probe_rows = train_rows(cfg, lay)[1]
 
     optimizer = build_optimizer(cfg, model)
     state = create_train_state(model, optimizer, ema=cfg.MODEL.MODEL_EMA > 0)
     ckpt = Checkpointer(out_dir)
     state, start_iter = ckpt.resume_or_load(state, resume=resume)
+    _same_on_every_rank("resumed step", start_iter)
     periodic = PeriodicCheckpointer(ckpt, cfg.SOLVER.CHECKPOINT_PERIOD, cfg.SOLVER.MAX_ITER)
-    run: Dict = {"start_iter": start_iter, "eval": None}
+    run: Dict = {"start_iter": start_iter, "eval": None, "world": lay.world}
     do_train.last_run = run
 
     active = cfg.MODEL.ACTIVE.ENABLED
-    rank, _ = rank_world()
     if active:
         from ..active.bsgal import (DecisionLogger, init_active_state, make_active_train_step,
                                     paste_ins_rows)
@@ -237,25 +286,28 @@ def do_train(cfg, resume: bool = False, max_steps: Optional[int] = None,
                                    queue_size=cfg.MODEL.ACTIVE.QUEUE_SIZE)
         a_ckpt = Checkpointer(os.path.join(out_dir, "grad_bank"), max_to_keep=2)
         astate, a_it = a_ckpt.resume_or_load(astate, resume=resume)
+        _same_on_every_rank("resumed grad-bank step", a_it)
         norm2 = torch.stack([(v.double() ** 2).sum() for v in astate.grad_bank.values()]).sum()
         run.update(active_state=astate, bank_step=a_it,
                    restored_counts=(int(astate.n_paste), int(astate.n_discard)),
                    restored_bank_norm=math.sqrt(float(norm2)))
-        step = make_active_train_step(model, optimizer, cfg)
+        step = make_active_train_step(model, optimizer, cfg, group=group)
         # per-rank decision logs in the reference layout (custom_rcnn.py:
         # 610-686: paste_source/rank_*/N0000.txt + paste_ins_loss/rank_*/N0000.txt)
-        decision_log = DecisionLogger(out_dir, rank)
+        decision_log = DecisionLogger(out_dir, lay.rank)
     else:
-        step = make_paste_train_step(model, optimizer, cfg)
+        step = make_paste_train_step(model, optimizer, cfg, group=group)
     storage = EventStorage(start_iter)
     writers = [CommonMetricPrinter(cfg.SOLVER.MAX_ITER),
-               JSONWriter(os.path.join(out_dir, "metrics.json"))]
-    rng = torch.Generator(device=dev).manual_seed(cfg.SEED + 1)
+               JSONWriter(os.path.join(out_dir, "metrics.json"))] if main else []
+    rng: Rng = torch.Generator(device=dev).manual_seed(cfg.SEED + 1)
+    if group is not None:
+        rng = RankDraws(rng, lay.rank, lay.world)
     max_iter = (cfg.SOLVER.MAX_ITER if max_steps is None
                 else min(cfg.SOLVER.MAX_ITER, start_iter + max_steps))
     data_iter = device_prefetch(iter(loader), size=cfg.DATALOADER.PREFETCH_TO_DEVICE, device=dev)
     # torch.profiler window over iterations [PROFILE_START_ITER, +PROFILE_NUM_ITERS)
-    prof_start = cfg.get("PROFILE_START_ITER", -1)
+    prof_start = cfg.get("PROFILE_START_ITER", -1) if main else -1
     prof_n = cfg.get("PROFILE_NUM_ITERS", 5)
     prof = None
     eval_model = None
@@ -283,7 +335,7 @@ def do_train(cfg, resume: bool = False, max_steps: Optional[int] = None,
             # probe = the next real batch (ACTIVE_TEST 'select' pairing is the
             # mapper's job; any real batch works as the default)
             probe = next(data_iter)
-            batch["probe"] = _probe_of(probe, cfg.MODEL.ACTIVE.PROBE_BATCH)
+            batch["probe"] = _probe_of(probe, probe_rows[1] - probe_rows[0])
             state, astate, metrics = step(state, astate, batch, rng)
             aux_rows = metrics.pop("aux_paste_rows", None)
             if (it + 1) % max(cfg.MODEL.ACTIVE.LOG_PERIOD, 1) == 0 or it == start_iter:
@@ -305,18 +357,21 @@ def do_train(cfg, resume: bool = False, max_steps: Optional[int] = None,
                     rows = paste_ins_rows(to_host(aux_rows), paste_filenames)
                     if rows:
                         decision_log.log_paste_ins(it, rows, int(h["use"]), int(h["num"]))
-            if (it + 1) % cfg.MODEL.ACTIVE.BANK_CKPT_PERIOD == 0:
+            if main and (it + 1) % cfg.MODEL.ACTIVE.BANK_CKPT_PERIOD == 0:
                 a_ckpt.save(it + 1, astate)
         else:
             state, metrics = step(state, batch, rng)
         if (it + 1) % 20 == 0 or it == start_iter:
-            host = to_host(metrics)
+            # the mean over the ranks: the global batch's losses
+            host = comm.reduce_dict({k: float(v) for k, v in to_host(metrics).items()},
+                                    group=group)
             if not np.isfinite(host["total_loss"]):
                 raise FloatingPointError(f"non-finite loss at iter {it}: {host}")
-            storage.put_scalars(**{k: float(v) for k, v in host.items()})
+            storage.put_scalars(**host)
             for w in writers:
                 w.write(storage)
-        periodic.step(it, state)
+        if main:
+            periodic.step(it, state)
         if cfg.TEST.EVAL_PERIOD > 0 and (it + 1) % cfg.TEST.EVAL_PERIOD == 0:
             from .eval_loop import do_test
 
@@ -324,16 +379,26 @@ def do_train(cfg, resume: bool = False, max_steps: Optional[int] = None,
             # into the model it is given
             if eval_model is None:
                 eval_model = build_model(cfg, input_size=(cfg.INPUT.TEST_SIZE,) * 2, device=dev)
-            run["eval"] = do_test(cfg, model=eval_model, state=state, device=dev)
+            run["eval"] = do_test(cfg, model=eval_model, state=state, device=dev, group=group)
         storage.step()
         clock.mark()
         t_data = time.perf_counter()
     if prof is not None:  # the window reached past the last iteration
         _stop_profile(prof, out_dir)
     run.update(data_time=data_times, step_s=clock.seconds())
-    writers[1].close()
+    for w in writers[1:]:
+        w.close()
     loader.stop()
     return state
+
+
+def _same_on_every_rank(what: str, value) -> None:
+    """Raise unless every rank holds ``value``: the ranks must read one
+    ``OUTPUT_DIR``."""
+    values = comm.all_gather(value)
+    if len(set(values)) > 1:
+        raise RuntimeError(f"the ranks hold different {what}s {values}: every rank must read "
+                           "the same OUTPUT_DIR")
 
 
 do_train.last_run = None

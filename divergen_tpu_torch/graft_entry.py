@@ -2,9 +2,9 @@
 a ready-to-call train step.
 
 Counterpart of ``__graft_entry__.py`` (``_small_cfg``, ``_synth_gt``,
-``_fast_init``, ``entry``, and ``dryrun_train`` for the one-device part of
-``dryrun_multichip``), plus ``flagship_cfg`` for ``configs/DiverGen_swinL.yaml``.
-The mesh and the processes of ``dryrun_multichip`` are not ported yet.
+``_fast_init``, ``entry``, ``dryrun_train`` for the one-device part of
+``dryrun_multichip``, and ``dryrun_multichip`` over gloo processes on the
+CPU), plus ``flagship_cfg`` for ``configs/DiverGen_swinL.yaml``.
 
     model, (images, image_sizes) = entry()          # on the card
     dets = model(images, image_sizes)               # padded detections
@@ -14,6 +14,7 @@ The mesh and the processes of ``dryrun_multichip`` are not ported yet.
     state, metrics = step(state, batch, rng)
     step, args = flagship_train_entry()             # the same at full width
     dryrun_train()                                  # one checked step (ResNet-18)
+    dryrun_multichip(4)                             # the same over 4 gloo ranks
 """
 from __future__ import annotations
 
@@ -264,6 +265,16 @@ def flagship_train_entry(device=None, remat: bool = True):
     return _train_parts(cfg, dev, cfg.INPUT.TRAIN_SIZE, 2, 20, None)
 
 
+def _dryrun_cfg() -> ConfigNode:
+    """The JAX dryrun's ResNet-18 + FPN at 64², with clipping."""
+    cfg = _small_cfg()
+    cfg.MODEL.ROI_HEADS.BATCH_SIZE_PER_IMAGE = 32
+    cfg.MODEL.CENTERNET.PRE_NMS_TOPK_TRAIN = 32
+    cfg.MODEL.CENTERNET.POST_NMS_TOPK_TRAIN = 16
+    cfg.SOLVER.CLIP_GRADIENTS.ENABLED = True
+    return cfg
+
+
 def dryrun_train(device=None) -> Dict[str, float]:
     """One train step on the JAX dryrun's model, ResNet-18 + FPN
     (``_small_cfg()``), at 64 × 64 with clipping and EMA on (the one-device
@@ -273,11 +284,7 @@ def dryrun_train(device=None) -> Dict[str, float]:
     Weights, batch and the step's uniform draws come from CPU generators and
     numpy seeds, so the card and the CPU take the same step."""
     dev = entry_device(device)
-    cfg = _small_cfg()
-    cfg.MODEL.ROI_HEADS.BATCH_SIZE_PER_IMAGE = 32
-    cfg.MODEL.CENTERNET.PRE_NMS_TOPK_TRAIN = 32
-    cfg.MODEL.CENTERNET.POST_NMS_TOPK_TRAIN = 16
-    cfg.SOLVER.CLIP_GRADIENTS.ENABLED = True
+    cfg = _dryrun_cfg()
     model = build_model(cfg, input_size=(64, 64), device=dev, param_dtype=torch.float32)
     fast_init_(model, torch.Generator().manual_seed(SEED))
     optimizer = build_optimizer(cfg, model)
@@ -294,3 +301,65 @@ def dryrun_train(device=None) -> Dict[str, float]:
         assert math.isfinite(v), f"{k} not finite"
     print(f"dryrun_train OK: device={dev}, total_loss={out['total_loss']:.4f}")
     return out
+
+
+def _dryrun_rank(rank: int, n: int, store: str, out: str) -> None:
+    """One rank of ``dryrun_multichip``: its image of the global batch."""
+    import json
+
+    import torch.distributed as dist
+
+    from .ops.losses import RankDraws
+    from .parallel.mesh import batch_sharding, create_mesh, shard_pytree
+    from .utils import comm
+
+    torch.set_num_threads(1)
+    dist.init_process_group("gloo", store=dist.FileStore(store, n), rank=rank, world_size=n)
+    try:
+        mesh = create_mesh(data=-1, model=1)
+        cfg = _dryrun_cfg()
+        model = build_model(cfg, input_size=(64, 64), device="cpu", param_dtype=torch.float32)
+        fast_init_(model, torch.Generator().manual_seed(SEED + rank))  # rank 0's win
+        shard_pytree(model, mesh)
+        optimizer = build_optimizer(cfg, model)
+        state = create_train_state(model, optimizer, ema=True)
+        rng = np.random.RandomState(0)
+        b = mesh.shape["data"]  # one image a rank, as the JAX dryrun
+        batch = batch_sharding(mesh)({
+            "images": torch.from_numpy(rng.rand(b, 64, 64, 3).astype(np.float32) * 255),
+            "image_sizes": torch.tensor([[64, 64]] * b), "gt": _synth_gt(rng, b, 8, 8, img=64)})
+        step = make_train_step(model, optimizer, ema_decay=0.999, group=mesh)
+        state, metrics = step(state, batch, RankDraws(torch.Generator().manual_seed(2), rank, b))
+        metrics = comm.reduce_dict({k: float(v) for k, v in metrics.items()})
+        if rank == 0:
+            with open(out, "w") as f:
+                json.dump({"step": state.step, "metrics": metrics}, f)
+    finally:
+        dist.destroy_process_group()
+
+
+def dryrun_multichip(n_devices: int) -> Dict[str, float]:
+    """``dryrun_train`` over ``n_devices`` ranks: gloo processes on the CPU
+    (``torch.multiprocessing.spawn``, a ``FileStore`` rendezvous), one image a
+    rank, the model axis 1 (the JAX dryrun's ``model = 2`` layout is not
+    ported: ROADMAP.md §1, item 4). Checks that the step counter is 1 and
+    every metric (the mean over the ranks) is finite; prints and returns the
+    metrics."""
+    import json
+    import os
+    import tempfile
+
+    import torch.multiprocessing as mp
+
+    with tempfile.TemporaryDirectory() as tmp:
+        out = os.path.join(tmp, "metrics.json")
+        mp.spawn(_dryrun_rank, args=(n_devices, os.path.join(tmp, "store"), out),
+                 nprocs=n_devices)
+        with open(out) as f:
+            res = json.load(f)
+    assert res["step"] == 1
+    for k, v in res["metrics"].items():
+        assert math.isfinite(v), f"{k} not finite"
+    print(f"dryrun_multichip OK: mesh=({n_devices}x1), batch={n_devices}, "
+          f"total_loss={res['metrics']['total_loss']:.4f}")
+    return res["metrics"]

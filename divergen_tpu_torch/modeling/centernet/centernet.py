@@ -20,6 +20,7 @@ import torch.nn.functional as F
 
 from ...ops.losses import heatmap_focal_loss, iou_loss
 from ...ops.nms import batched_nms_mask, nms_mask, stable_topk, top_scoring
+from ...utils.comm import global_mean_count, group_size
 from ..layers import ConvNorm, Scale
 
 
@@ -248,26 +249,30 @@ def centernet_ground_truth(cfg: CenterNetConfig, geom: Dict, gt_boxes: torch.Ten
 
 def centernet_losses(cfg: CenterNetConfig, agn_hm_pred: torch.Tensor, reg_pred: torch.Tensor,
                      reg_targets: torch.Tensor, heatmaps: torch.Tensor,
-                     pos_count: torch.Tensor) -> Dict[str, torch.Tensor]:
+                     pos_count: torch.Tensor, group=None) -> Dict[str, torch.Tensor]:
     """``loss_centernet_loc``, ``loss_centernet_agn_pos`` and
     ``loss_centernet_agn_neg`` from agn_hm_pred (B, M) logits and reg_pred
-    (B, M, 4) in stride units (one process, so the normalizers are this
-    batch's own). With ``not_norm_reg`` off the regression is weighted by
-    the heatmap's maximum over the image's locations, as the JAX package
-    weights it: its maximum over the last axis of the (B, M) heatmap
-    broadcasts against (B, M) only at B = 1, so other batch sizes raise."""
-    num_pos_avg = pos_count.sum().float().clamp(min=1.0)
+    (B, M, 4) in stride units. The normalizers (the positives, the
+    regression weights) are the global batch's over the ranks of ``group``
+    (``comm.global_mean_count``: the JAX module's ``pmean`` with
+    ``axis_name``), this batch's own with ``group`` None. With
+    ``not_norm_reg`` off the regression is weighted by the heatmap's maximum
+    over the image's locations, as the JAX package weights it: its maximum
+    over the last axis of the (B, M) heatmap broadcasts against (B, M) only
+    at a global batch of 1, so other batch sizes raise."""
+    num_pos_avg = global_mean_count(pos_count.sum(), group, floor=1.0)
     reg_valid = reg_targets.amax(dim=-1) >= 0  # (B, M)
     reg_weight_map = reg_valid.float()
     if not cfg.not_norm_reg:
-        if heatmaps.shape[0] != 1:
+        images = heatmaps.shape[0] * group_size(group)
+        if images != 1:
             raise ValueError(
-                f"NOT_NORM_REG false at a batch of {heatmaps.shape[0]} images: the JAX "
+                f"NOT_NORM_REG false at a batch of {images} images: the JAX "
                 f"package's weight jnp.max(heatmaps, axis=-1), one value per image, "
                 f"broadcasts against the (B, M) locations only at B = 1")
         reg_weight_map = torch.where(reg_valid, heatmaps.amax(dim=-1, keepdim=True),
                                      torch.zeros((), device=heatmaps.device))
-    reg_norm = reg_weight_map.sum().clamp(min=1.0)
+    reg_norm = global_mean_count(reg_weight_map.sum(), group, floor=1.0)
 
     flat_tgt = torch.where(reg_valid.reshape(-1, 1), reg_targets.reshape(-1, 4),
                            torch.zeros((), device=reg_targets.device))
@@ -385,20 +390,20 @@ def centernet_ground_truth_classwise(cfg: CenterNetConfig, geom: Dict, gt_boxes:
 def centernet_losses_classwise(cfg: CenterNetConfig, cls_logits: torch.Tensor,
                                agn_hm_pred: Optional[torch.Tensor], reg_pred: torch.Tensor,
                                reg_targets: torch.Tensor, hm_agn: torch.Tensor,
-                               hm_cls: torch.Tensor,
-                               pos_cls: torch.Tensor) -> Dict[str, torch.Tensor]:
+                               hm_cls: torch.Tensor, pos_cls: torch.Tensor,
+                               group=None) -> Dict[str, torch.Tensor]:
     """The standalone detector's losses: ``centernet_losses`` over the
     positive locations of every class (without the agnostic terms when
     ``agn_hm_pred`` is None), plus the classwise focal terms
     ``loss_centernet_pos`` and ``loss_centernet_neg`` of cls_logits
-    (B, M, C)."""
+    (B, M, C); the normalizers over ``group`` as in ``centernet_losses``."""
     losses = centernet_losses(
         cfg, agn_hm_pred if agn_hm_pred is not None else torch.zeros_like(hm_agn), reg_pred,
-        reg_targets, hm_agn, pos_cls.sum(dim=-1))
+        reg_targets, hm_agn, pos_cls.sum(dim=-1), group=group)
     if agn_hm_pred is None:
         losses.pop("loss_centernet_agn_pos")
         losses.pop("loss_centernet_agn_neg")
-    num_pos_avg = pos_cls.sum().float().clamp(min=1.0)
+    num_pos_avg = global_mean_count(pos_cls.sum(), group, floor=1.0)
     pos_loss, neg_loss = heatmap_focal_loss(
         cls_logits.float(), hm_cls, pos_cls, alpha=cfg.hm_focal_alpha, beta=cfg.hm_focal_beta,
         gamma=cfg.loss_gamma, sigmoid_clamp=cfg.sigmoid_clamp, ignore_high_fp=cfg.ignore_high_fp)

@@ -16,8 +16,10 @@ JAX module: ``'box'``, ``'prop'`` and ``'proptag'`` take the box losses;
 every other type (``'image'``, ``'caption'``, ``'captiontag'``, …) is weak
 supervision: the CenterNet losses kept at ``v * 0.0`` and the ROI heads'
 ``image_label_losses`` on ``gt["image_labels"]`` and, given ``cap_emb``, the
-local caption bank. ``gt_as_proposals`` and the dynamic classifier (over the
-image labels on a weak batch) are ported too.
+caption bank (the local batch's, or with ``SYNC_CAPTION_BATCH`` over ranks the
+global batch's). ``gt_as_proposals`` and the dynamic classifier (over the
+image labels on a weak batch) are ported too. ``forward(group=…)`` reduces
+the losses' normalizers over ranks (``utils/comm.py``).
 """
 from __future__ import annotations
 
@@ -41,6 +43,7 @@ from ..centernet.centernet import (CenterNetConfig, CenterNetHead, centernet_det
                                    centernet_ground_truth, centernet_ground_truth_classwise,
                                    centernet_losses, centernet_losses_classwise,
                                    centernet_proposals, level_geometry)
+from ...utils.comm import all_gather_differentiable, group_rank
 from ..layers import flax_init_, set_param_dtype_
 from ..roi_heads.cascade_heads import CascadeROIHeads, ROIHeadsConfig
 from ..roi_heads.res5_roi_heads import Res5ROIHeads
@@ -159,34 +162,35 @@ class CustomRCNN(nn.Module):
                 return_logits: bool = False, ann_type: str = "box",
                 cap_emb: Optional[torch.Tensor] = None,
                 dataset_source: Optional[int] = None,
-                axis_name: Optional[str] = None) -> Dict[str, torch.Tensor]:
+                axis_name: Optional[str] = None, group=None) -> Dict[str, torch.Tensor]:
         """images (B, H, W, 3) RGB 0–255 float, image_sizes (B, 2) as (h, w).
 
         ``training=False``: padded detections (``CascadeROIHeads.inference``),
         without gradients. ``training=True``: the loss dict, from ``gt``
         (boxes (B, N, 4), classes (B, N), valid (B, N) bool, masks
         (B, N, S, S), instance_source (B, N)), ``rng`` (a ``torch.Generator``
-        on the images' device, or a mapping of named draws:
-        ``ops.losses.uniform_draw``) and optionally ``fed_weight`` (C,).
-        DropPath stays off in training, as in the JAX package, whose backbone
-        is called with its default ``deterministic=True``. ``gt_as_proposals``
-        makes the ground-truth boxes the only proposals and returns the ROI
-        losses alone.
+        on the images' device, ``ops.losses.RankDraws`` over ranks, or a
+        mapping of named draws: ``ops.losses.uniform_draw``) and optionally
+        ``fed_weight`` (C,). DropPath stays off in training, as in the JAX
+        package, whose backbone is called with its default
+        ``deterministic=True``. ``gt_as_proposals`` makes the ground-truth
+        boxes the only proposals and returns the ROI losses alone.
 
         Weak supervision (``ann_type`` not ``'box'``, ``'prop'`` or
         ``'proptag'``): ``gt`` also holds ``image_labels`` (B, L) and
         ``image_labels_valid`` (B, L) bool; ``cap_emb`` (B, zs_dim) is the
         batch's caption embeddings, image i's own caption at column i. The
         loss dict is the CenterNet losses times 0.0 updated with
-        ``roi_heads.image_label_losses``. ``axis_name`` names a reduction
-        over ranks (the JAX module's ``psum`` of the CenterNet positives and
-        ``SYNC_CAPTION_BATCH``'s caption all-gather); it raises: several
-        ranks wait for ``torch.distributed``."""
-        if axis_name is not None:
-            raise NotImplementedError(
-                f"axis_name={axis_name!r}: reductions over ranks (the CenterNet positives, "
-                "SYNC_CAPTION_BATCH's caption all-gather) wait for torch.distributed, "
-                "ROADMAP.md §1 item 4; on one card pass axis_name=None")
+        ``roi_heads.image_label_losses``.
+
+        Over ranks: ``group`` (a ``torch.distributed`` process group; this
+        rank's batch is its rows of the global batch) makes every normalizer
+        of the losses the global batch's (the JAX module's ``pmean`` of the
+        CenterNet positives, and what GSPMD gives the ROI heads), and with
+        ``SYNC_CAPTION_BATCH`` the caption bank the global batch's, gathered
+        with its gradient flowing back to each rank's own rows.
+        ``axis_name``, the JAX argument, names the default group instead."""
+        group = _group_of(axis_name, group)
         if not training:
             if gt is not None:
                 raise ValueError("ground truth was given with training=False")
@@ -202,7 +206,7 @@ class CustomRCNN(nn.Module):
             proposals = {"boxes": gt["boxes"], "valid": gt["valid"],
                          "scores": torch.ones(gt["boxes"].shape[:2], device=images.device)}
             return self.roi_heads.losses(rng, features, proposals, gt, fed_weight=fed_weight,
-                                         image_sizes=image_sizes)
+                                         image_sizes=image_sizes, group=group)
         geom, agn_flat, reg_flat = self._head_outputs(features)
 
         cls_inds = None
@@ -215,7 +219,7 @@ class CustomRCNN(nn.Module):
             ok = gt["valid"] if ann_type == "box" else gt["image_labels_valid"]
             cls_inds, cls_id_map = sample_dynamic_classifier_inds(
                 rng, gt[key].reshape(-1), ok.reshape(-1), self.roi_cfg.num_classes,
-                self.num_sample_cats, fed_weight if ann_type == "box" else None)
+                self.num_sample_cats, fed_weight if ann_type == "box" else None, group=group)
             gt = dict(gt, **{key: cls_id_map[gt[key].long()]})
             if fed_weight is not None:
                 fed_weight = fed_weight[cls_inds]
@@ -223,7 +227,7 @@ class CustomRCNN(nn.Module):
         reg_targets, heatmaps, pos_count = centernet_ground_truth(
             self.centernet_cfg, geom, gt["boxes"], gt["valid"])
         losses = centernet_losses(self.centernet_cfg, agn_flat, reg_flat, reg_targets, heatmaps,
-                                  pos_count)
+                                  pos_count, group=group)
         # the proposals carry no gradient into the CenterNet head
         proposals = centernet_proposals(self.centernet_cfg, geom, agn_flat.detach(),
                                         reg_flat.detach(), image_sizes, training=True)
@@ -231,7 +235,13 @@ class CustomRCNN(nn.Module):
             # an image-labelled or captioned batch: no matching, the weak losses
             cap_idx = None
             if cap_emb is not None:
-                cap_idx = torch.arange(cap_emb.shape[0], device=cap_emb.device)
+                b = cap_emb.shape[0]
+                cap_idx = torch.arange(b, device=cap_emb.device)
+                if self.roi_cfg.sync_caption_batch and group is not None:
+                    # _sync_caption_features (custom_rcnn.py:210-223): the
+                    # caption columns grow to the global batch's
+                    cap_emb = all_gather_differentiable(cap_emb, group)
+                    cap_idx = group_rank(group) * b + cap_idx
             weak = self.roi_heads.image_label_losses(
                 features, proposals, image_sizes, gt["image_labels"], gt["image_labels_valid"],
                 ann_type=ann_type, cap_emb=cap_emb, cap_idx=cap_idx, cls_inds=cls_inds)
@@ -239,8 +249,22 @@ class CustomRCNN(nn.Module):
             losses.update(weak)
             return _apply_dataset_loss_weight(losses, self.dataset_loss_weight, dataset_source)
         losses.update(self.roi_heads.losses(rng, features, proposals, gt, fed_weight=fed_weight,
-                                            cls_inds=cls_inds, image_sizes=image_sizes))
+                                            cls_inds=cls_inds, image_sizes=image_sizes,
+                                            group=group))
         return _apply_dataset_loss_weight(losses, self.dataset_loss_weight, dataset_source)
+
+
+def _group_of(axis_name: Optional[str], group):
+    """The process group a forward reduces over: ``group``, else for an
+    ``axis_name`` (the JAX argument) the default group, which must exist."""
+    if axis_name is None or group is not None:
+        return group
+    import torch.distributed as dist
+
+    if not (dist.is_available() and dist.is_initialized()):
+        raise ValueError(f"axis_name={axis_name!r} names a reduction over ranks, but no "
+                         "process group is initialized (utils.dist.init_distributed)")
+    return dist.group.WORLD
 
 
 def _apply_dataset_loss_weight(losses, weights, dataset_source):
@@ -254,15 +278,18 @@ def _apply_dataset_loss_weight(losses, weights, dataset_source):
 class CenterNetDetector(CustomRCNN):
     """The standalone CenterNet (``only_proposal=False``): backbone → neck →
     classwise CenterNet head; no ROI heads are built, as the JAX init
-    materializes none. Training returns the classwise losses, inference the
-    class-aware NMS'd detections (boxes, scores, classes, valid)."""
+    materializes none. Training returns the classwise losses (their
+    normalizers over ``group`` or ``axis_name`` as ``CustomRCNN.forward``
+    takes them), inference the class-aware NMS'd detections (boxes, scores,
+    classes, valid)."""
 
     builds_roi_heads = False
 
     def forward(self, images: torch.Tensor, image_sizes: torch.Tensor, gt=None,
-                rng: Optional[Rng] = None, training: bool = False,
-                **_) -> Dict[str, torch.Tensor]:
+                rng: Optional[Rng] = None, training: bool = False, group=None,
+                axis_name: Optional[str] = None, **_) -> Dict[str, torch.Tensor]:
         c = self.centernet_cfg
+        group = _group_of(axis_name, group)
         if training and gt is None:
             raise ValueError("the training forward needs gt")
         with torch.set_grad_enabled(training and torch.is_grad_enabled()):
@@ -280,7 +307,7 @@ class CenterNetDetector(CustomRCNN):
                                                            gt["valid"])
                 reg_targets, hm_agn, hm_cls, pos_cls = targets
                 return centernet_losses_classwise(c, cls_flat, agn_flat, reg_flat, reg_targets,
-                                                  hm_agn, hm_cls, pos_cls)
+                                                  hm_agn, hm_cls, pos_cls, group=group)
             return centernet_detections(c, geom, cls_flat, agn_flat, reg_flat, image_sizes,
                                         training=False)
 

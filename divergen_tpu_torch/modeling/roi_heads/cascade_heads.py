@@ -13,8 +13,13 @@ Children carry the flax scope names (``box_head0.fc1``,
 Training: ``CascadeROIHeads.losses`` (matching, sampling, per-stage
 ``_fast_rcnn_losses`` with the federated class mask, ``_mask_loss``) returns
 the JAX package's loss dict. Its random draws come through
-``ops.losses.uniform_draw``: ``match`` and ``mask`` of shape (B, P + N) and
-``fed0``, ``fed1``, ``fed2`` of shape (C + 1,).
+``ops.losses.uniform_draw``: ``match`` and ``mask`` of shape (B, P + N) (per
+image) and ``fed0``, ``fed1``, ``fed2`` of shape (C + 1,). Over ranks
+(``group``) every normalizer taken over the batch is the global batch's:
+the valid rows of the class loss, the foreground rows of the box loss, the
+mask head's rows and pixels, and the federated classes' union
+(``utils/comm.py``); the means over images need nothing, every rank holding
+as many.
 
 With ``mask_head_name="RefineMaskHead"`` the mask head is
 ``refine_mask_head.RefineMaskHead`` with its ``semantic_branch`` over the
@@ -48,6 +53,7 @@ from ...ops.nms import batched_nms_mask, stable_topk, top_scoring
 from ...ops.roi_align import multilevel_roi_align, roi_align
 from ...structures import boxes as box_ops
 from ...structures.masks import mask_target_in_box
+from ...utils.comm import global_mean_count
 from ..layers import Conv, ConvTranspose, Dense, resize_nearest
 from . import box_regression
 from .refine_mask_head import (RefineMaskHead, SemanticBranch, compose_stage_preds,
@@ -422,14 +428,16 @@ class CascadeROIHeads(nn.Module):
                proposals: Dict[str, torch.Tensor], gt: Dict[str, torch.Tensor],
                fed_weight: Optional[torch.Tensor] = None,
                cls_inds: Optional[torch.Tensor] = None,
-               image_sizes: Optional[torch.Tensor] = None) -> Dict[str, torch.Tensor]:
+               image_sizes: Optional[torch.Tensor] = None,
+               group=None) -> Dict[str, torch.Tensor]:
         """The cascade's training losses. proposals: boxes (B, P, 4), scores
         (B, P), valid (B, P); gt: boxes (B, N, 4), classes (B, N), valid
         (B, N), masks (B, N, S, S) in their own box frames and optionally
         instance_source (B, N); fed_weight (C,) the federated-loss class
         weights; cls_inds (K,) the dynamic classifier's columns; image_sizes
-        (B, 2) to clip the boxes between stages. ``rng`` feeds the draws
-        ``match``, ``mask`` and ``fed{stage}`` (module docstring)."""
+        (B, 2) to clip the boxes between stages; ``group`` the ranks whose
+        batches make the global batch (None: this one). ``rng`` feeds the
+        draws ``match``, ``mask`` and ``fed{stage}`` (module docstring)."""
         c = self.cfg
         if c.add_gt_to_proposals:
             pb = torch.cat([proposals["boxes"], gt["boxes"]], dim=1).float()
@@ -444,7 +452,7 @@ class CascadeROIHeads(nn.Module):
         for stage, iou_t in enumerate(c.cascade_ious):
             if stage == 0:
                 # match, then subsample to batch_size_per_image
-                r = uniform_draw(rng, "match", tuple(pv.shape), pb.device)
+                r = uniform_draw(rng, "match", tuple(pv.shape), pb.device, per_image=True)
                 picked = []
                 for i in range(b):
                     midx, fg_i = match_proposals(pb[i], gt_boxes[i], gt["valid"][i], iou_t)
@@ -470,7 +478,7 @@ class CascadeROIHeads(nn.Module):
             scores, deltas = self._run_stage(features, boxes, stage, cls_inds=cls_inds)
             stage_losses = _fast_rcnn_losses(c, rng, f"fed{stage}", scores, deltas, boxes,
                                              gt_classes, gt_boxes_m, sample_valid, inst_src,
-                                             c.cascade_reg_weights[stage], fed_weight)
+                                             c.cascade_reg_weights[stage], fed_weight, group)
             losses.update({f"{k}_stage{stage}": v for k, v in stage_losses.items()})
 
             # the next stage's boxes carry no gradient; they are clipped to the
@@ -483,7 +491,8 @@ class CascadeROIHeads(nn.Module):
             boxes = refined
 
         if self.mask_head is not None:
-            losses["loss_mask"] = c.mask_weight * self._mask_loss(rng, features, gt, proposals)
+            losses["loss_mask"] = c.mask_weight * self._mask_loss(rng, features, gt, proposals,
+                                                                  group)
             if self.refine and "sem_seg" in gt:
                 # the auxiliary semantic loss, its target resized (nearest) to the logits
                 _, sem_logits = self.semantic_branch(features[c.in_features[0]])
@@ -494,10 +503,11 @@ class CascadeROIHeads(nn.Module):
 
     def _mask_loss(self, rng: Rng, features: Dict[str, torch.Tensor],
                    gt: Dict[str, torch.Tensor],
-                   proposals: Dict[str, torch.Tensor]) -> torch.Tensor:
+                   proposals: Dict[str, torch.Tensor], group=None) -> torch.Tensor:
         """The mask head trains on up to ``mask_fg_capacity`` foreground rows
         per image of the proposals with the ground truth appended, picked by
-        the draw ``mask``."""
+        the draw ``mask``; its mean is over the rows of every rank of
+        ``group``."""
         c = self.cfg
         pb = torch.cat([proposals["boxes"], gt["boxes"]], dim=1).float()
         pv = torch.cat([proposals["valid"], gt["valid"]], dim=1)
@@ -505,7 +515,7 @@ class CascadeROIHeads(nn.Module):
         gt_boxes = gt["boxes"].float()
         cap = min(c.mask_fg_capacity, pb.shape[1])
         src = gt.get("instance_source")
-        r = uniform_draw(rng, "mask", tuple(pv.shape), pb.device)
+        r = uniform_draw(rng, "mask", tuple(pv.shape), pb.device, per_image=True)
         picked = []
         for i in range(b):
             midx, fg_i = match_proposals(pb[i], gt_boxes[i], gt["valid"][i], c.cascade_ious[0])
@@ -531,14 +541,14 @@ class CascadeROIHeads(nn.Module):
             n = len(stages)
             return refine_cross_entropy(
                 stages, [target(lg.shape[-1]).reshape(b * cap, *lg.shape[-2:]) for lg in stages],
-                ok.reshape(-1), stage_weights=tuple((i + 1) / n for i in range(n)))
+                ok.reshape(-1), stage_weights=tuple((i + 1) / n for i in range(n)), group=group)
         logits = self.mask_head(pooled)
         out_res = logits.shape[-1]
         logits = logits.reshape(b, cap, out_res, out_res)
         tgt = target(out_res)
         per_roi = optax_sigmoid_bce(logits, tgt).mean(dim=(2, 3))
         total = torch.where(ok, per_roi, torch.zeros_like(per_roi)).sum()
-        return total / ok.sum().clamp(min=1.0)
+        return total / global_mean_count(ok.sum(), group, floor=1.0)
 
     def image_label_losses(self, features: Dict[str, torch.Tensor],
                            proposals: Dict[str, torch.Tensor], image_sizes: torch.Tensor,
@@ -745,19 +755,20 @@ def _fast_rcnn_losses(c: ROIHeadsConfig, rng: Rng, draw_name: str, scores: torch
                       deltas: torch.Tensor, proposal_boxes: torch.Tensor,
                       gt_classes: torch.Tensor, gt_boxes: torch.Tensor, valid: torch.Tensor,
                       instance_source: Optional[torch.Tensor], reg_weights: Tuple[float, ...],
-                      fed_weight: Optional[torch.Tensor]) -> Dict[str, torch.Tensor]:
+                      fed_weight: Optional[torch.Tensor], group=None) -> Dict[str, torch.Tensor]:
     """``loss_cls`` (sigmoid CE over C columns with the federated class mask,
     over the valid rows) and ``loss_box_reg`` (class-agnostic, foreground
     rows) of one stage: scores (B, P, C + 1), deltas (B, P, 4), gt_classes
     (B, P) with background = C. With ``split_paste_loss`` also the CE split by
     whether a row matched a pasted instance, with ``per_paste_loss`` the
-    ``aux_*`` per-row columns."""
+    ``aux_*`` per-row columns. The row counts and the federated classes are
+    taken over the ranks of ``group``."""
     b, p, cp1 = scores.shape
     num_classes = cp1 - 1
     flat_scores = scores.reshape(-1, cp1).float()
     flat_classes = gt_classes.reshape(-1)
     flat_valid = valid.reshape(-1)
-    n_valid = flat_valid.sum().clamp(min=1.0)
+    n_valid = global_mean_count(flat_valid.sum(), group, floor=1.0)
 
     # an id at or beyond the background column is an all-zero target
     target = F.one_hot(flat_classes.clamp(max=num_classes), cp1)[:, :num_classes].float()
@@ -767,7 +778,7 @@ def _fast_rcnn_losses(c: ROIHeadsConfig, rng: Rng, draw_name: str, scores: torch
         background = torch.full_like(flat_classes, num_classes)
         fed_mask = get_fed_loss_classes(rng, torch.where(flat_valid, flat_classes, background),
                                         flat_valid, num_classes, c.fed_loss_num_cat, fed_weight,
-                                        draw_name=draw_name)
+                                        draw_name=draw_name, group=group)
         bce = bce * fed_mask[None, :num_classes]
     bce = bce * flat_valid[:, None]
     loss_cls = bce.sum() / n_valid
@@ -804,10 +815,10 @@ def _fast_rcnn_losses(c: ROIHeadsConfig, rng: Rng, draw_name: str, scores: torch
     if c.box_reg_loss_type == "smooth_l1":
         gt_deltas = box_regression.get_deltas(flat_pb, flat_gb, reg_weights)
         reg = smooth_l1_loss(flat_deltas, gt_deltas, c.smooth_l1_beta).sum(dim=-1)
-        denom = (fg.sum() * 4.0).clamp(min=1.0)
+        denom = global_mean_count(fg.sum() * 4.0, group, floor=1.0)
     else:
         reg = giou_loss_xyxy(box_regression.apply_deltas(flat_deltas, flat_pb, reg_weights),
                              flat_gb)
-        denom = (fg.sum() * 1.0).clamp(min=1.0)
+        denom = global_mean_count(fg.sum() * 1.0, group, floor=1.0)
     loss_box = torch.where(fg, reg, torch.zeros_like(reg)).sum() / denom
     return {"loss_cls": loss_cls, "loss_box_reg": loss_box, **extra}

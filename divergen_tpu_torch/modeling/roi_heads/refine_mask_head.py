@@ -210,16 +210,23 @@ class RefineMaskHead(nn.Module):
         return tuple(outs)
 
 
-def _masked_mean(x: torch.Tensor, m: torch.Tensor) -> torch.Tensor:
-    return torch.where(m, x, torch.zeros_like(x)).sum() / m.sum().clamp(min=1.0)
+def _masked_mean(x: torch.Tensor, m: torch.Tensor, group=None) -> torch.Tensor:
+    """The mean of ``x`` where ``m``, the count over the ranks of ``group``."""
+    from ...utils.comm import global_mean_count
+
+    return torch.where(m, x, torch.zeros_like(x)).sum() / global_mean_count(m.sum(), group,
+                                                                             floor=1.0)
 
 
 def refine_cross_entropy(stage_logits: Sequence[torch.Tensor],
                          stage_targets: Sequence[torch.Tensor], valid: torch.Tensor,
                          stage_weights: Sequence[float] = (0.25, 0.5, 0.75, 1.0),
-                         boundary_width: int = 2, start_stage: int = 1) -> torch.Tensor:
+                         boundary_width: int = 2, start_stage: int = 1,
+                         group=None) -> torch.Tensor:
     """The weighted sum over stages of the boundary-gated BCE: stage_logits
-    and stage_targets (N, s_i, s_i) each, valid (N,) the rows that count."""
+    and stage_targets (N, s_i, s_i) each, valid (N,) the rows that count;
+    each stage's mean over the pixels that count on every rank of
+    ``group``."""
     total = torch.zeros((), dtype=torch.float32, device=valid.device)
     v1 = valid[:, None, None]
     pre_pred = None
@@ -228,14 +235,14 @@ def refine_cross_entropy(stage_logits: Sequence[torch.Tensor],
         s = lg.shape[-1]
         bce = optax_sigmoid_bce(lg.float(), tgt)
         if idx <= start_stage:
-            total = total + w * _masked_mean(bce, v1.expand(bce.shape))
+            total = total + w * _masked_mean(bce, v1.expand(bce.shape), group)
             pre_pred = torch.sigmoid(lg.detach()) >= 0.5
             continue
         pre = pre_pred.float()
         pre_b = generate_block_target(pre, boundary_width) == 1
         tgt_b = generate_block_target(stage_targets[idx - 1].float(), boundary_width) == 1
         region = resize_align_corners((pre_b | tgt_b).float(), s, s) >= 0.5
-        total = total + w * _masked_mean(bce, region & v1.expand(region.shape))
+        total = total + w * _masked_mean(bce, region & v1.expand(region.shape), group)
         # the running prediction composed as inference composes it: outside
         # the width-1 boundary band the coarser stage's upsampled logits stay
         pre_b1 = resize_align_corners((generate_block_target(pre, 1) == 1).float(), s, s) >= 0.5

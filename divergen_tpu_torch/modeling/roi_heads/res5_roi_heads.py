@@ -22,6 +22,7 @@ import torch
 import torch.nn as nn
 
 from ...ops.losses import Rng, optax_sigmoid_bce, uniform_draw
+from ...utils.comm import global_mean_count
 from ...ops.roi_align import roi_align
 from ...structures.masks import mask_target_in_box
 from ..backbone.resnet import Bottleneck
@@ -70,17 +71,18 @@ class Res5ROIHeads(nn.Module):
                proposals: Dict[str, torch.Tensor], gt: Dict[str, torch.Tensor],
                fed_weight: Optional[torch.Tensor] = None,
                cls_inds: Optional[torch.Tensor] = None,
-               image_sizes: Optional[torch.Tensor] = None) -> Dict[str, torch.Tensor]:
+               image_sizes: Optional[torch.Tensor] = None,
+               group=None) -> Dict[str, torch.Tensor]:
         """``loss_cls``, ``loss_box_reg`` and ``loss_mask`` of the sampled
         proposals (the ground truth appended); arguments as
         ``CascadeROIHeads.losses`` (``image_sizes`` is not needed: one stage
-        refines no boxes)."""
+        refines no boxes), the normalizers over the ranks of ``group``."""
         c = self.cfg
         pb = torch.cat([proposals["boxes"], gt["boxes"]], dim=1).float()
         pv = torch.cat([proposals["valid"], gt["valid"]], dim=1)
         b = pb.shape[0]
         gt_boxes = gt["boxes"].float()
-        r = uniform_draw(rng, "match", tuple(pv.shape), pb.device)
+        r = uniform_draw(rng, "match", tuple(pv.shape), pb.device, per_image=True)
         picked = []
         for i in range(b):
             midx, fg_i = match_proposals(pb[i], gt_boxes[i], gt["valid"][i], c.cascade_ious[0])
@@ -98,7 +100,7 @@ class Res5ROIHeads(nn.Module):
         p = boxes.shape[1]
         losses = dict(_fast_rcnn_losses(c, rng, "fed0", scores.reshape(b, p, -1),
                                         deltas.reshape(b, p, -1), boxes, gt_classes, gt_boxes_m,
-                                        ok, None, c.cascade_reg_weights[0], fed_weight))
+                                        ok, None, c.cascade_reg_weights[0], fed_weight, group))
         if self.mask_head is not None:
             logits = self.mask_head(x)
             res = logits.shape[-1]
@@ -108,7 +110,8 @@ class Res5ROIHeads(nn.Module):
             tgt = (mask_target_in_box(crops, gt_boxes_m, boxes, res) >= 0.5).float()
             per_roi = optax_sigmoid_bce(logits.reshape(b, p, res, res), tgt).mean(dim=(2, 3))
             w = fg.float()
-            losses["loss_mask"] = (per_roi * w).sum() / w.sum().clamp(min=1.0)
+            losses["loss_mask"] = (per_roi * w).sum() / global_mean_count(w.sum(), group,
+                                                                          floor=1.0)
         return losses
 
     def image_label_losses(self, features: Dict[str, torch.Tensor],

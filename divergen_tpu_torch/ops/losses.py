@@ -9,23 +9,56 @@ takes its array from :func:`uniform_draw`, whose ``rng`` is either a
 ``torch.Generator`` on the device of the draw or a mapping from the draw's
 name to an array made elsewhere (the tests hand in the arrays the JAX keys
 produce). Everything after the draw is deterministic.
+
+Over ranks a step draws through :class:`RankDraws`: every rank holds the same
+generator state and takes every draw at the global batch's shape, so W ranks
+draw what one process draws for the global batch. The batch-wide reductions
+of the federated and dynamic class samples take ``group`` (a
+``torch.distributed`` process group, None for one process).
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Mapping, Optional, Tuple, Union
 
 import torch
 import torch.nn.functional as F
 
+from ..utils.comm import all_reduce_max
 from .nms import stable_topk
 
-Rng = Union[torch.Generator, Mapping[str, torch.Tensor]]
+
+@dataclasses.dataclass(frozen=True)
+class RankDraws:
+    """A step's draws on rank ``rank`` of ``world``. ``source`` is a
+    ``torch.Generator`` in the same state on every rank, or a mapping of
+    named arrays drawn for the global batch. A per-image draw (batch leading)
+    is taken for ``world`` times this rank's rows (or looked up whole) and
+    sliced to rows ``rank · b`` to ``(rank + 1) · b``, the rank's contiguous
+    rows of the global batch; any other draw is taken whole. Each rank thus
+    advances a generator as one process does on the global batch."""
+
+    source: Union[torch.Generator, Mapping[str, torch.Tensor]]
+    rank: int
+    world: int
 
 
-def uniform_draw(rng: Rng, name: str, shape: Tuple[int, ...], device) -> torch.Tensor:
+Rng = Union[torch.Generator, RankDraws, Mapping[str, torch.Tensor]]
+
+
+def uniform_draw(rng: Rng, name: str, shape: Tuple[int, ...], device,
+                 per_image: bool = False) -> torch.Tensor:
     """U[0, 1) float32 of ``shape`` on ``device``: drawn from a generator (on
     the generator's own device, then moved), or looked up by ``name`` in a
-    mapping of arrays drawn elsewhere."""
+    mapping of arrays drawn elsewhere. ``per_image``: the leading axis is the
+    batch's, which ``RankDraws`` draws (or looks up) for the global batch and
+    slices."""
+    if isinstance(rng, RankDraws):
+        if per_image and rng.world > 1:
+            b, rows = shape[0], slice(rng.rank * shape[0], (rng.rank + 1) * shape[0])
+            whole = (b * rng.world, *shape[1:])
+            return uniform_draw(rng.source, name, whole, device)[rows]
+        rng = rng.source
     if isinstance(rng, torch.Generator):
         u = torch.rand(shape, generator=rng, device=rng.device, dtype=torch.float32)
         return u.to(device)
@@ -132,12 +165,14 @@ def _gumbel(u: torch.Tensor) -> torch.Tensor:
 
 def get_fed_loss_classes(rng: Rng, gt_classes: torch.Tensor, gt_valid: torch.Tensor,
                          num_classes: int, num_sample_cats: int, freq_weight: torch.Tensor,
-                         draw_name: str = "fed") -> torch.Tensor:
+                         draw_name: str = "fed", group=None) -> torch.Tensor:
     """Federated-loss class mask, (num_classes + 1,) float32: 1 for every
     ground-truth class and for negatives sampled without replacement in
     proportion to ``freq_weight`` (Gumbel top-k on the draw ``draw_name`` of
-    shape (num_classes + 1,)) until ``num_sample_cats`` classes are in."""
-    appeared = _appeared(gt_classes, gt_valid, num_classes)
+    shape (num_classes + 1,)) until ``num_sample_cats`` classes are in. The
+    ground-truth classes are the union over the ranks of ``group``: the
+    global batch's, as in the JAX step."""
+    appeared = all_reduce_max(_appeared(gt_classes, gt_valid, num_classes), group)
     prob = torch.cat([freq_weight, freq_weight.new_zeros(1)])
     prob = torch.where(appeared, torch.zeros_like(prob), prob)
     need = (num_sample_cats - appeared.sum()).clamp(min=0)
@@ -155,14 +190,15 @@ def get_fed_loss_classes(rng: Rng, gt_classes: torch.Tensor, gt_valid: torch.Ten
 def sample_dynamic_classifier_inds(rng: Rng, gt_classes: torch.Tensor, gt_valid: torch.Tensor,
                                    num_classes: int, num_sample_cats: int,
                                    freq_weight: Optional[torch.Tensor] = None,
-                                   draw_name: str = "dyn"):
+                                   draw_name: str = "dyn", group=None):
     """Dynamic classifier sampling: ``num_sample_cats`` classifier columns,
-    every class of the batch first and then frequency-weighted random
-    negatives (the draw ``draw_name`` of shape (num_classes,)). Returns
-    ``(inds (K,), cls_id_map (C + 1,))``; the map sends original ids to compact
-    ids and everything else, the background C included, to K."""
+    every class of the batch (the global batch: the union over ``group``)
+    first and then frequency-weighted random negatives (the draw
+    ``draw_name`` of shape (num_classes,)). Returns ``(inds (K,), cls_id_map
+    (C + 1,))``; the map sends original ids to compact ids and everything
+    else, the background C included, to K."""
     dev = gt_classes.device
-    appeared = _appeared(gt_classes, gt_valid, num_classes)[:num_classes]
+    appeared = all_reduce_max(_appeared(gt_classes, gt_valid, num_classes), group)[:num_classes]
     w = freq_weight if freq_weight is not None else torch.ones(num_classes, device=dev)
     gumbel = _gumbel(uniform_draw(rng, draw_name, (num_classes,), dev))
     score = torch.where(w > 0, torch.log(w + 1e-20) + gumbel, torch.full_like(gumbel, -1e30))

@@ -2,17 +2,25 @@
 
 Counterpart of the root ``train_net.py`` (``DiverGen/train_net.py:1-390`` /
 ``BSGAL/train_net.py``): ``setup`` (config merge, the ``/auto`` OUTPUT_DIR,
-freeze), ``do_train`` or, with ``--eval-only``, ``do_test``. One card; the
-device is the card unless ``--device`` names another.
+freeze), ``do_train`` or, with ``--eval-only``, ``do_test``. The device is
+the card unless ``--device`` names another.
 
     python -m divergen_tpu_torch.train_net --config-file configs/BSGAL_SwinL.yaml \\
         [--resume] [--eval-only] [--max-steps N] [--device cpu] [KEY VALUE ...]
 
-The datasets of ``DATASETS.TRAIN`` / ``TEST`` are the builtin LVIS splits
-under ``$DETECTRON2_DATASETS`` (``data/datasets/lvis.py:register_builtin``),
-or any name a caller registered before ``main``. ``--multi-host`` raises:
-training over several cards or hosts waits for ``torch.distributed``
-(ROADMAP.md §1, item 6c).
+Over several cards, one process a card, ``--multi-host`` joins the process
+group ``torchrun`` describes (``utils/dist.py:init_distributed``, as the JAX
+``train_net --multi-host`` calls ``jax.distributed.initialize()``): NCCL on
+the cards, gloo with ``--device cpu`` or ``--dist-backend gloo``.
+
+    torchrun --nproc_per_node=N -m divergen_tpu_torch.train_net --multi-host \\
+        --config-file configs/BSGAL_SwinL.yaml [KEY VALUE ...]
+
+``--deterministic`` asks PyTorch for its deterministic kernels (two runs
+give the same bits). The datasets of ``DATASETS.TRAIN`` / ``TEST`` are the
+builtin LVIS splits under ``$DETECTRON2_DATASETS``
+(``data/datasets/lvis.py:register_builtin``), or any name a caller
+registered before ``main``.
 """
 from __future__ import annotations
 
@@ -29,9 +37,15 @@ def default_argument_parser() -> argparse.ArgumentParser:
     p.add_argument("--eval-only", action="store_true")
     p.add_argument("--max-steps", type=int, default=None, help="cap iterations (smoke runs)")
     p.add_argument("--multi-host", action="store_true",
-                   help="several hosts (not yet ported: raises)")
+                   help="join the torchrun process group (utils.dist.init_distributed)")
+    p.add_argument("--dist-backend", default=None,
+                   help="with --multi-host: the backend (default: nccl on the card, gloo on the "
+                        "CPU; gloo lets several ranks share one card)")
+    p.add_argument("--deterministic", action="store_true",
+                   help="PyTorch's deterministic kernels (reproducible bits)")
     p.add_argument("--device", default=None,
-                   help="run on this device (default: the card; 'cpu' to run without one)")
+                   help="run on this device (default: the card, with --multi-host "
+                        "cuda:LOCAL_RANK; 'cpu' to run without one)")
     p.add_argument("opts", default=None, nargs=argparse.REMAINDER)
     return p
 
@@ -59,9 +73,20 @@ def setup(args):
 
 def main(args):
     """``do_test``'s results with ``--eval-only``, else ``do_train``'s state."""
+    if args.deterministic:
+        import torch
+
+        # cuBLAS reads this when it makes its first handle
+        os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        torch.backends.cudnn.benchmark = False
+    device = args.device
     if args.multi_host:
-        raise NotImplementedError("--multi-host: training over several hosts is not yet ported "
-                                  "(it needs torch.distributed: ROADMAP.md §1 item 6c)")
+        from .utils.dist import init_distributed
+
+        device = init_distributed(args.dist_backend, device=args.device)
+    elif args.dist_backend:
+        raise ValueError("--dist-backend is an option of --multi-host")
     cfg = setup(args)
 
     from .data.datasets.lvis import register_builtin
@@ -71,11 +96,14 @@ def main(args):
     if args.eval_only:
         from .engine.eval_loop import do_test
 
-        return do_test(cfg, resume=args.resume, device=args.device)
+        from .parallel.mesh import create_mesh
+
+        group = create_mesh(cfg.PARALLEL.DATA_PARALLEL, cfg.PARALLEL.MODEL_PARALLEL).group
+        return do_test(cfg, resume=args.resume, device=device, group=group)
 
     from .engine.trainer import do_train
 
-    return do_train(cfg, resume=args.resume, max_steps=args.max_steps, device=args.device)
+    return do_train(cfg, resume=args.resume, max_steps=args.max_steps, device=device)
 
 
 if __name__ == "__main__":

@@ -378,16 +378,19 @@ def test_custom_rcnn_pyramid(detector_case):
         assert_rel_close(got[k].numpy(), want[k], 1e-4)
 
 
-def test_custom_rcnn_not_yet_ported(detector_case):
+def test_custom_rcnn_not_yet_ported(detector_case, tmp_path):
+    from torch_ranks import one_rank_group
+
     _, _, _, tm, images, sizes = detector_case
-    # the training forward is ported for box and weak supervision; reductions over
-    # ranks (axis_name) wait for torch.distributed
+    # the training forward is ported for box and weak supervision, and its
+    # reductions over ranks (axis_name): over one gloo rank they change nothing
     gt = tge._synth_gt(np.random.RandomState(0), 2, 8, 8, img=96)
-    with pytest.raises(NotImplementedError, match="torch.distributed"):
-        tm(t(images), t(sizes), gt=gt, rng=torch.Generator().manual_seed(0), training=True,
-           ann_type="image", axis_name="data")
     losses = tm(t(images), t(sizes), gt=gt, rng=torch.Generator().manual_seed(0), training=True)
     assert len(losses) == 10 and all(torch.isfinite(v) for v in losses.values())
+    with one_rank_group(tmp_path):
+        over = tm(t(images), t(sizes), gt=gt, rng=torch.Generator().manual_seed(0),
+                  training=True, axis_name="data")
+    assert all(torch.equal(over[k], losses[k]) for k in losses)
     # every other architecture builds, with the JAX detector's parameter names
     jentry = importlib.import_module("__graft_entry__")
     for key, value, size in (("MODEL.BACKBONE.NAME", "build_p67_timm_fpn_backbone", 64),

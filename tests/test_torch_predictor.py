@@ -265,11 +265,21 @@ def test_do_test_against_jax_inference_on_dataset(eval_case):
 
 
 def test_inference_on_dataset_refuses_data_parallel(eval_case):
+    """A model axis above 1 raises, naming the ROADMAP item; a data axis wider
+    than the ranks takes them all, as the JAX loop takes every device."""
+    from divergen_tpu_torch.parallel.mesh import create_mesh
+
     tcfg, _, _, model = eval_case
     cfg = tcfg.clone()
+    with pytest.raises(NotImplementedError, match="ROADMAP.md §1, item 4"):
+        teval.inference_on_dataset(model, None, cfg, DATASET, teval.build_evaluator(cfg, DATASET),
+                                   mesh=create_mesh(1, 2, world=2))
     cfg.PARALLEL.DATA_PARALLEL = 2
-    with pytest.raises(NotImplementedError, match="6c"):
-        teval.inference_on_dataset(model, None, cfg, DATASET, teval.build_evaluator(cfg, DATASET))
+    wide = teval.inference_on_dataset(model, None, cfg, DATASET,
+                                      teval.build_evaluator(cfg, DATASET), max_images=2)
+    cfg.PARALLEL.DATA_PARALLEL = 1
+    assert_close_results(wide, teval.inference_on_dataset(
+        model, None, cfg, DATASET, teval.build_evaluator(cfg, DATASET), max_images=2), tol=0)
 
 
 def test_transfer_keeps_dtypes_and_bits():

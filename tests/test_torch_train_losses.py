@@ -488,13 +488,22 @@ def test_custom_rcnn_training_losses_and_gradients(tiny_swin, variant):
         assert live == moved >= len(list(tm.parameters())) - 13
 
 
-def test_training_forward_refuses_what_is_not_ported(tiny_swin):
+def test_training_forward_refuses_what_is_not_ported(tiny_swin, tmp_path):
+    from torch_ranks import one_rank_group
+
     images, sizes, gt, fed = detector_batch(33)
     tm = trcnn.build_model(train_cfg(lambda: tge._small_cfg(backbone="swin")), input_size=CANVAS)
     gen = torch.Generator().manual_seed(0)
-    # weak supervision is ported; a reduction over ranks is not
-    with pytest.raises(NotImplementedError, match="torch.distributed"):
+    # the reductions over ranks are ported: axis_name needs a process group, and
+    # over one rank (gloo) the losses are those without a group, bit for bit
+    with pytest.raises(ValueError, match="no process group"):
         tm(t(images), t(sizes), gt=torch_gt(gt), rng=gen, training=True, axis_name="data")
+    alone = tm(t(images), t(sizes), gt=torch_gt(gt), rng=torch.Generator().manual_seed(1),
+               fed_weight=t(fed), training=True)
+    with one_rank_group(tmp_path):
+        over = tm(t(images), t(sizes), gt=torch_gt(gt), rng=torch.Generator().manual_seed(1),
+                  fed_weight=t(fed), training=True, axis_name="data")
+    assert list(over) == list(alone) and all(torch.equal(over[k], alone[k]) for k in alone)
     with pytest.raises(ValueError, match="gt and rng"):
         tm(t(images), t(sizes), training=True)
     with pytest.raises(ValueError, match="training=False"):

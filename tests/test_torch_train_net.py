@@ -186,10 +186,19 @@ def test_do_train_divergen_cli(tiny_swin, tmp_path, monkeypatch):
 
 def test_train_net_refuses(tmp_path, monkeypatch):
     parse = train_net.default_argument_parser().parse_args
-    with pytest.raises(NotImplementedError, match="item 6c"):
-        train_net.main(parse(["--multi-host", "OUTPUT_DIR", str(tmp_path)]))
+    # --multi-host joins the group torchrun describes; without its environment it raises
+    for k in ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR", "MASTER_PORT"):
+        monkeypatch.delenv(k, raising=False)
+    with pytest.raises(RuntimeError, match="torchrun"):
+        train_net.main(parse(["--multi-host", "--device", "cpu", "OUTPUT_DIR", str(tmp_path)]))
+    with pytest.raises(ValueError, match="--dist-backend"):
+        train_net.main(parse(["--dist-backend", "gloo", "OUTPUT_DIR", str(tmp_path)]))
+    # the data axis takes every rank: 2 at world size 1 raises, and so does a model axis
     cfg = train_net.setup(parse(["OUTPUT_DIR", str(tmp_path), "PARALLEL.DATA_PARALLEL", "2"]))
-    with pytest.raises(NotImplementedError, match="item 6c"):
+    with pytest.raises(ValueError, match="DATA_PARALLEL 2"):
+        do_train(cfg, device="cpu")
+    cfg = train_net.setup(parse(["OUTPUT_DIR", str(tmp_path), "PARALLEL.MODEL_PARALLEL", "2"]))
+    with pytest.raises(NotImplementedError, match="ROADMAP.md §1, item 4"):
         do_train(cfg, device="cpu")
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):

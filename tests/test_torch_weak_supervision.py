@@ -307,9 +307,31 @@ def test_custom_rcnn_weak_losses_and_gradients(tiny_swin, variant):
     assert any(p.grad is not None and p.grad.any() for p in tm.bottom_up.parameters())
 
 
-def test_weak_forward_refuses_ranks(tiny_swin):
+def test_weak_forward_refuses_ranks(tiny_swin, tmp_path):
+    """The caption bank over one rank (a gloo group of this process): the
+    all-gather and the reductions run, and the losses and the gradient of
+    ``cap_emb`` are those of the forward without a group, bit for bit."""
+    from torch_ranks import one_rank_group
+
+    keys = dict(DETECTOR_CASES["captiontag, zero-shot, sync_caption_batch"][0],
+                WITH_IMAGE_LABELS=True)
     images, sizes, gt, fed = detector_batch(58)
-    tm = trcnn.build_model(train_cfg(lambda: tge._small_cfg(backbone="swin")), input_size=CANVAS)
-    with pytest.raises(NotImplementedError, match="torch.distributed"):
-        tm(t(images), t(sizes), gt=torch_gt(gt), rng=torch.Generator().manual_seed(0),
-           training=True, ann_type="caption", cap_emb=torch.zeros(2, 512), axis_name="data")
+    tm = trcnn.build_model(train_cfg(lambda: tge._small_cfg(backbone="swin"), **keys),
+                           input_size=CANVAS)
+    tgt = torch_gt(gt)
+    tgt["image_labels"] = torch.tensor([[3, 5, 0], [6, 6, 1]])
+    tgt["image_labels_valid"] = torch.tensor([[True, True, False], [True, False, True]])
+    cap = torch.randn(2, 512, generator=torch.Generator().manual_seed(3)) * 0.1
+
+    def run(**kw):
+        c = cap.clone().requires_grad_(True)
+        losses = tm(t(images), t(sizes), gt=tgt, rng=torch.Generator().manual_seed(0),
+                    training=True, ann_type="caption", cap_emb=c, **kw)
+        total_of(losses).backward()
+        return {k: v.detach() for k, v in losses.items()}, c.grad
+
+    alone, grad = run()
+    with one_rank_group(tmp_path) as group:
+        over, over_grad = run(group=group)
+    assert list(over) == list(alone) and all(torch.equal(over[k], alone[k]) for k in alone)
+    assert torch.equal(over_grad, grad) and grad.abs().max() > 0
