@@ -401,14 +401,14 @@ Run from the root of a checkout:  python3 chip_smoke.py
    before it (``slice_ranks``); each rank is this script in its
    ``--rank-child SPEC`` mode, started by ``torch.distributed.run``, and
    reports its own launches, which are added to the slice's counts:
-   (a) ``train_net --multi-host --deterministic`` under ``torchrun
+   (a) ``train_net --multi-host`` under ``torchrun
        --nproc_per_node=1`` (NCCL, a live group of one rank) on
        ``configs/BSGAL_SwinL.yaml`` at full width (B = 2, 896², bf16 over
        float32 parameters) for ``RANK_STEPS`` steps, against the same run as
-       one plain process without a group: the parameters after every step (a
-       float64 checksum) and at the end (SHA-256 of their bytes) and the
-       decisions equal bit for bit; s/step of both, peak memory, the bytes
-       the gradient reductions moved a step;
+       one plain process without a group: the parameters after every step (a float64 checksum) and at the end (SHA-256 of their bytes) and
+       the decisions equal bit for bit; s/step of both, peak memory, the
+       bytes ``torch.distributed.all_reduce`` moved a step (counted by a
+       wrapper in the child) beside the parameter count x 4 B;
    (b) two gloo ranks sharing the card (NCCL refuses two ranks on one
        device): (1) the float32 flagship step (``float32_flagship_step``),
        one image a rank, against this process's step on both images from
@@ -5723,11 +5723,9 @@ def rank_command(spec: dict, tmp: str, nproc: int = 0) -> dict:
     text = open(out, errors="replace").read()
     if proc.returncode:
         raise AssertionError(f"{name}: exit {proc.returncode}; its output ends\n{text[-8000:]}")
-    warned = sorted({line.strip() for line in text.splitlines()
-                     if "does not have a deterministic implementation" in line})
     with open(spec["result"]) as f:
         res = json.load(f)
-    res.update(wall_s=wall, nondeterministic=warned)
+    res.update(wall_s=wall)
     return res
 
 
@@ -5839,15 +5837,22 @@ def rank_child(spec_path: str) -> int:
             return step_fn
 
         bsgal.make_active_train_step = recording
-        traffic = dict(comm.GRAD_TRAFFIC)
+        reduced, all_reduce = {"calls": 0, "bytes": 0}, dist.all_reduce
+
+        def counting(tensor, *args, **kwargs):
+            reduced["calls"] += 1
+            reduced["bytes"] += tensor.numel() * tensor.element_size()
+            return all_reduce(tensor, *args, **kwargs)
+
+        dist.all_reduce = counting
         state = train_net.main(train_net.default_argument_parser().parse_args(spec["args"]))
+        dist.all_reduce = all_reduce
         run, astate = do_train.last_run, do_train.last_run["active_state"]
         res.update(step_s=run["step_s"], data_time=run["data_time"], sums=sums,
                    sha256=params_sha256(state.model), world=run["world"],
                    counts=[int(astate.n_paste), int(astate.n_discard)],
                    steps=state.step - run["start_iter"],
-                   params=sum(p.numel() for p in state.model.parameters()),
-                   traffic={k: comm.GRAD_TRAFFIC[k] - traffic[k] for k in traffic})
+                   params=sum(p.numel() for p in state.model.parameters()), reduced=reduced)
     elif spec["kind"] == "step":
         from divergen_tpu_torch.engine.trainer import make_paste_train_step
         from divergen_tpu_torch.ops.losses import RankDraws
@@ -5925,36 +5930,31 @@ def step_summary(res: dict, saved: bool = False) -> str:
 
 def nccl_world_one(card: str, tmp: str, files: dict) -> list:
     """(a) ``train_net --multi-host`` under ``torchrun --nproc_per_node=1``
-    (NCCL, a live group of one rank) against the same run without a group,
-    both ``--deterministic``: the parameters after every step (a float64
-    checksum) and at the end (SHA-256 of their bytes) equal bit for bit.
-    Returns both runs' results."""
+    (NCCL, a live group of one rank) against the same run without a group:
+    the parameters after every step (a float64 checksum) and at the end
+    (SHA-256 of their bytes) equal bit for bit. Returns both runs' results."""
     group = rank_command({"name": "nccl_world_1", "kind": "train_net", "root": files["root"],
                           "args": train_net_args(files, os.path.join(tmp, "nccl"), False,
-                                                 "--multi-host", "--deterministic")},
-                         tmp, nproc=1)
+                                                 "--multi-host")}, tmp, nproc=1)
     alone = rank_command({"name": "no_group", "kind": "train_net", "root": files["root"],
-                          "args": train_net_args(files, os.path.join(tmp, "alone"), False,
-                                                 "--deterministic")}, tmp)
+                          "args": train_net_args(files, os.path.join(tmp, "alone"), False)}, tmp)
     (g,), (a,) = group["ranks"], alone["ranks"]
     if g["backend"] != "nccl" or a["backend"] is not None or g["world"] != 1:
         raise AssertionError(f"(a): backends {g['backend']} / {a['backend']}, world {g['world']}")
-    for res in (group, alone):
-        if res["nondeterministic"]:
-            log(f"    ops without a deterministic kernel: {res['nondeterministic']}")
     if g["sums"] != a["sums"] or g["sha256"] != a["sha256"] or g["counts"] != a["counts"]:
         raise AssertionError(f"(a): NCCL at world size 1 differs from the run without a group: "
                              f"checksums {g['sums']} / {a['sums']}, SHA-256 {g['sha256'][:16]} / "
                              f"{a['sha256'][:16]}, decisions {g['counts']} / {a['counts']}")
-    per_step = g["traffic"]["bytes"] / g["steps"]
+    if a["reduced"]["calls"]:
+        raise AssertionError(f"(a): the run without a group all-reduced {a['reduced']}")
+    per_step = g["reduced"]["bytes"] / g["steps"]
     log(f"  (a) NCCL at world size 1: {g['steps']} BSGAL steps bit equal to the run without a "
-        f"group (checksums {g['sums']}, SHA-256 {g['sha256'][:16]}); with the group "
-        f"{step_summary(g)}, peak {g['peak_gib']:.2f} GiB, command {group['wall_s']:.1f} s; "
-        f"without {step_summary(a)}, peak {a['peak_gib']:.2f} GiB, command "
-        f"{alone['wall_s']:.1f} s; all-reduced {per_step / 1e6:.1f} MB a step "
-        f"({g['traffic']['calls'] / g['steps']:.0f} gradient reductions of {g['params']} "
-        f"parameters x 4 B = {g['params'] * 4 / 1e6:.1f} MB, "
-        f"{g['traffic']['buckets'] / g['steps']:.0f} buckets) [{card}]")
+        f"group (checksums {g['sums']}, SHA-256 {g['sha256'][:16]}); with the group {step_summary(g)}, peak "
+        f"{g['peak_gib']:.2f} GiB, command {group['wall_s']:.1f} s; without {step_summary(a)}, "
+        f"peak {a['peak_gib']:.2f} GiB, command {alone['wall_s']:.1f} s; all_reduce moved "
+        f"{per_step / 1e6:.1f} MB a step in {g['reduced']['calls'] / g['steps']:.1f} calls "
+        f"({g['params']} parameters x 4 B = {g['params'] * 4 / 1e6:.1f} MB a gradient "
+        f"reduction) [{card}]")
     return [g, a]
 
 

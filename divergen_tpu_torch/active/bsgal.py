@@ -40,11 +40,12 @@ from typing import Any, Callable, Dict, List, Optional, Tuple, Union
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..ops.copy_paste import normalize_cp_method
 from ..ops.losses import RankDraws, Rng, uniform_draw
 from ..solver.build import ema_update
-from ..utils.comm import all_reduce_grads, global_mean_count, group_size
+from ..utils.comm import all_reduce_grads, all_reduce_sum, global_mean_count
 
 
 @dataclasses.dataclass
@@ -414,7 +415,7 @@ def make_active_train_step(model, optimizer, cfg, group=None) -> Callable:
     from ..engine.trainer import composite
 
     acfg = ActiveConfig.from_cfg(cfg)
-    if acfg.per_instance and group_size(group) > 1:
+    if acfg.per_instance and group is not None and dist.get_world_size(group) > 1:
         raise NotImplementedError("ACTIVE.PER_INSTANCE over several ranks (a quantile over the "
                                   "global batch's pastes) is not ported: ROADMAP.md §1, item 4")
     ema_decay = cfg.MODEL.MODEL_EMA
@@ -567,9 +568,8 @@ def make_active_train_step(model, optimizer, cfg, group=None) -> Callable:
             ema_update(state.ema_params, state.params, ema_decay)
         state.step += 1
         # the pasted instances of the global batch
-        paste_num = global_mean_count(
-            ((gt_pasted["instance_source"] > 0) & gt_pasted["valid"]).sum(), group) \
-            * group_size(group)
+        paste_num = all_reduce_sum(
+            ((gt_pasted["instance_source"] > 0) & gt_pasted["valid"]).sum(), group)
         metrics = {
             "total_loss": total.detach(),
             "grad_sim": sim,

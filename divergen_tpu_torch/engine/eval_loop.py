@@ -11,12 +11,13 @@ with ``return_logits``, ``LVISEvaluatorWithLogits``, and a
 ``det_<image_id>.npz`` of each image's valid boxes, scores, classes and
 per-box class scores.
 
-Over ranks (``group``, or a ``mesh``'s data axis) ``inference_on_dataset``
-splits each batch as the JAX loop's ``pmap`` does: the batch size is rounded
-up to a multiple of the ranks, every rank maps the whole batch and infers its
-contiguous rows, the fixed-capacity detections are all-gathered back into
-batch order, and rank 0 alone runs the evaluator (the other ranks return an
-empty dict).
+Over the ranks of ``group`` ``inference_on_dataset`` splits each batch as
+the JAX loop's ``pmap`` does: the batch size is rounded up to a multiple of
+the ranks, and each rank maps and infers only its contiguous rows (as the
+train loader maps only a rank's rows). The fixed-capacity detections are
+all-gathered back into batch order, and so are the samples without their
+pixels. Rank 0 alone runs the evaluator; the other ranks return an empty
+dict.
 """
 from __future__ import annotations
 
@@ -26,6 +27,7 @@ from typing import Dict, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..data import DatasetCatalog, MetadataCatalog
 from ..data.dataset_mapper import DatasetMapper
@@ -61,40 +63,46 @@ def build_evaluator(cfg, dataset_name: str):
     raise NotImplementedError(etype)
 
 
-def _batches(dataset, mapper, batch_size: int):
+def _batches(dataset, mapper, batch_size: int, rows: Optional[slice] = None):
     """(samples, images, sizes) per batch of mapped records, the last batch
-    padded with copies of its last sample; the mapper draws from
-    ``default_rng(0)``, as in the JAX loop."""
+    padded with copies of the dataset's last sample. With ``rows`` only
+    those rows of each batch are mapped: ``images`` and ``sizes`` are theirs,
+    ``samples`` those of them that are not padding. The mapper draws from
+    ``default_rng(0)``, as in the JAX loop (the test mapper draws nothing,
+    so a rank's rows map as they would in the whole batch)."""
     rng = np.random.default_rng(0)
-    for ofs in range(0, len(dataset), batch_size):
+    rows = rows or slice(0, batch_size)
+    n = len(dataset)
+    for ofs in range(0, n, batch_size):
         samples = []
-        for r in dataset[ofs : ofs + batch_size]:
+        for i in range(ofs + rows.start, min(ofs + rows.stop, n)):
+            r = dataset[i]
             s = mapper(r, rng)
             s["orig_height"] = r.get("height")
             s["orig_width"] = r.get("width")
             samples.append(s)
-        pad = batch_size - len(samples)
-        images = np.stack([s["image"] for s in samples] + [samples[-1]["image"]] * pad)
-        sizes = np.stack([s["image_size"] for s in samples] + [samples[-1]["image_size"]] * pad)
+        # every row of a rank past the dataset's end is padding
+        last = samples[-1] if samples else mapper(dataset[n - 1], rng)
+        pad = rows.stop - rows.start - len(samples)
+        images = np.stack([s["image"] for s in samples] + [last["image"]] * pad)
+        sizes = np.stack([s["image_size"] for s in samples] + [last["image_size"]] * pad)
         yield samples, images, sizes
 
 
 def inference_on_dataset(model, params, cfg, dataset_name: str, evaluator,
                          batch_size: int = 8, max_images: Optional[int] = None,
-                         mesh=None, group=None) -> Dict:
+                         group=None) -> Dict:
     """Timed eval loop (divergen/evaluation/evaluator.py:106-216) on the
     model's device. ``params``: a ``state_dict`` to load into ``model`` first,
-    or None to run the model as it is. Over the ranks of ``group`` (or of
-    ``mesh``'s data axis) each batch is split as the module docstring says;
-    ``PARALLEL.DATA_PARALLEL`` -1, 0 or at least the ranks takes them all, as
-    the JAX loop takes every device, a narrower data axis and a model axis
-    above 1 raise."""
-    if mesh is not None:
-        if mesh.shape["model"] > 1:
-            raise NotImplementedError(MODEL_PARALLEL_ITEM)
-        group = mesh.group
-    world, rank = comm.group_size(group), comm.group_rank(group)
-    dp = cfg.PARALLEL.DATA_PARALLEL if mesh is None else mesh.shape["data"]
+    or None to run the model as it is. Over the ranks of ``group`` (a mesh's
+    ``mesh.group``; None is one process) each batch is split as the module
+    docstring says; ``PARALLEL.DATA_PARALLEL`` -1, 0 or at least the ranks
+    takes them all, as the JAX loop takes every device, a narrower data axis
+    and ``PARALLEL.MODEL_PARALLEL`` above 1 raise."""
+    if cfg.PARALLEL.MODEL_PARALLEL > 1:
+        raise NotImplementedError(MODEL_PARALLEL_ITEM)
+    world, rank = (1, 0) if group is None else (dist.get_world_size(group), dist.get_rank(group))
+    dp = cfg.PARALLEL.DATA_PARALLEL
     if dp in (-1, 0) or dp >= world:
         dp = world
     else:
@@ -118,13 +126,19 @@ def inference_on_dataset(model, params, cfg, dataset_name: str, evaluator,
     t_data = t_comp = 0.0
     warmup = min(5, n)
     start = time.perf_counter()
-    batches = _batches(dataset, mapper, batch_size)
+    batches = _batches(dataset, mapper, batch_size, rows)
     for ofs in range(0, n, batch_size):
         t0 = time.perf_counter()
         samples, images, sizes = next(batches)
+        if group is not None:
+            # rank 0's evaluator reads each sample's id and transforms, not its pixels
+            parts = [None] * world
+            dist.all_gather_object(parts, [{k: v for k, v in s.items() if k not in ("image", "gt")}
+                                           for s in samples], group=group)
+            samples = [s for part in parts for s in part]
         t_data += time.perf_counter() - t0
         t0 = time.perf_counter()
-        dev = to_device({"images": images[rows], "sizes": sizes[rows].astype(np.int64)}, device)
+        dev = to_device({"images": images, "sizes": sizes.astype(np.int64)}, device)
         with torch.no_grad():
             out = model(dev["images"], dev["sizes"], training=False)
             out = {k: comm.all_gather_rows(v, group) for k, v in out.items()}

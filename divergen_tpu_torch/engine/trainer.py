@@ -363,8 +363,7 @@ def do_train(cfg, resume: bool = False, max_steps: Optional[int] = None,
             state, metrics = step(state, batch, rng)
         if (it + 1) % 20 == 0 or it == start_iter:
             # the mean over the ranks: the global batch's losses
-            host = comm.reduce_dict({k: float(v) for k, v in to_host(metrics).items()},
-                                    group=group)
+            host = comm.reduce_dict({k: float(v) for k, v in to_host(metrics).items()})
             if not np.isfinite(host["total_loss"]):
                 raise FloatingPointError(f"non-finite loss at iter {it}: {host}")
             storage.put_scalars(**host)

@@ -15,12 +15,13 @@ import math
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
+import torch.distributed as dist
 import torch.nn as nn
 import torch.nn.functional as F
 
 from ...ops.losses import heatmap_focal_loss, iou_loss
 from ...ops.nms import batched_nms_mask, nms_mask, stable_topk, top_scoring
-from ...utils.comm import global_mean_count, group_size
+from ...utils.comm import global_mean_count
 from ..layers import ConvNorm, Scale
 
 
@@ -264,7 +265,9 @@ def centernet_losses(cfg: CenterNetConfig, agn_hm_pred: torch.Tensor, reg_pred: 
     reg_valid = reg_targets.amax(dim=-1) >= 0  # (B, M)
     reg_weight_map = reg_valid.float()
     if not cfg.not_norm_reg:
-        images = heatmaps.shape[0] * group_size(group)
+        images = heatmaps.shape[0]
+        if group is not None:
+            images *= dist.get_world_size(group)
         if images != 1:
             raise ValueError(
                 f"NOT_NORM_REG false at a batch of {images} images: the JAX "

@@ -29,6 +29,7 @@ from typing import Dict, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.nn as nn
 
 from ..backbone.bifpn import BiFPN
@@ -43,7 +44,7 @@ from ..centernet.centernet import (CenterNetConfig, CenterNetHead, centernet_det
                                    centernet_ground_truth, centernet_ground_truth_classwise,
                                    centernet_losses, centernet_losses_classwise,
                                    centernet_proposals, level_geometry)
-from ...utils.comm import all_gather_differentiable, group_rank
+from ...utils.comm import all_gather_differentiable
 from ..layers import flax_init_, set_param_dtype_
 from ..roi_heads.cascade_heads import CascadeROIHeads, ROIHeadsConfig
 from ..roi_heads.res5_roi_heads import Res5ROIHeads
@@ -241,7 +242,7 @@ class CustomRCNN(nn.Module):
                     # _sync_caption_features (custom_rcnn.py:210-223): the
                     # caption columns grow to the global batch's
                     cap_emb = all_gather_differentiable(cap_emb, group)
-                    cap_idx = group_rank(group) * b + cap_idx
+                    cap_idx = dist.get_rank(group) * b + cap_idx
             weak = self.roi_heads.image_label_losses(
                 features, proposals, image_sizes, gt["image_labels"], gt["image_labels_valid"],
                 ann_type=ann_type, cap_emb=cap_emb, cap_idx=cap_idx, cls_inds=cls_inds)
@@ -259,8 +260,6 @@ def _group_of(axis_name: Optional[str], group):
     ``axis_name`` (the JAX argument) the default group, which must exist."""
     if axis_name is None or group is not None:
         return group
-    import torch.distributed as dist
-
     if not (dist.is_available() and dist.is_initialized()):
         raise ValueError(f"axis_name={axis_name!r} names a reduction over ranks, but no "
                          "process group is initialized (utils.dist.init_distributed)")

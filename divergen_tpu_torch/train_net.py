@@ -16,11 +16,9 @@ the cards, gloo with ``--device cpu`` or ``--dist-backend gloo``.
     torchrun --nproc_per_node=N -m divergen_tpu_torch.train_net --multi-host \\
         --config-file configs/BSGAL_SwinL.yaml [KEY VALUE ...]
 
-``--deterministic`` asks PyTorch for its deterministic kernels (two runs
-give the same bits). The datasets of ``DATASETS.TRAIN`` / ``TEST`` are the
-builtin LVIS splits under ``$DETECTRON2_DATASETS``
-(``data/datasets/lvis.py:register_builtin``), or any name a caller
-registered before ``main``.
+The datasets of ``DATASETS.TRAIN`` / ``TEST`` are the builtin LVIS splits
+under ``$DETECTRON2_DATASETS`` (``data/datasets/lvis.py:register_builtin``),
+or any name a caller registered before ``main``.
 """
 from __future__ import annotations
 
@@ -41,8 +39,6 @@ def default_argument_parser() -> argparse.ArgumentParser:
     p.add_argument("--dist-backend", default=None,
                    help="with --multi-host: the backend (default: nccl on the card, gloo on the "
                         "CPU; gloo lets several ranks share one card)")
-    p.add_argument("--deterministic", action="store_true",
-                   help="PyTorch's deterministic kernels (reproducible bits)")
     p.add_argument("--device", default=None,
                    help="run on this device (default: the card, with --multi-host "
                         "cuda:LOCAL_RANK; 'cpu' to run without one)")
@@ -73,13 +69,6 @@ def setup(args):
 
 def main(args):
     """``do_test``'s results with ``--eval-only``, else ``do_train``'s state."""
-    if args.deterministic:
-        import torch
-
-        # cuBLAS reads this when it makes its first handle
-        os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
-        torch.use_deterministic_algorithms(True, warn_only=True)
-        torch.backends.cudnn.benchmark = False
     device = args.device
     if args.multi_host:
         from .utils.dist import init_distributed

@@ -21,14 +21,16 @@ BSGAL takes its gradients with ``torch.autograd.grad``):
   ``local sum / global_mean_count(count, floor=1)``, averaged over the ranks
   as the gradients are, is the one-process ``global sum / max(global count,
   1)``;
-- ``all_reduce_max``: the union of a mask over ranks;
+- ``all_reduce_sum`` / ``all_reduce_max``: a sum over ranks, the union of a
+  mask over ranks;
 - ``all_gather_rows``: tensors of every rank, concatenated along dim 0 in
   rank order.
 
-Every device helper takes ``group``: None means one process and makes no
-collective. Gloo moves CUDA tensors through the host inside its own
-collectives; NCCL keeps them on the card. Nothing here copies a tensor to the
-host under NCCL.
+The host helpers speak of every process, as the JAX ones do, and take no
+group. Every device helper takes the step's ``group``: None means one
+process and makes no collective. Gloo moves CUDA tensors through the host
+inside its own collectives; NCCL keeps them on the card. Nothing here copies
+a tensor to the host under NCCL.
 """
 from __future__ import annotations
 
@@ -41,78 +43,65 @@ import torch.distributed as dist
 # a bucket of flat gradients is at most this many bytes: a few all-reduces a
 # step, each large enough to keep the link busy
 BUCKET_BYTES = 256 << 20
-# what all_reduce_grads has reduced in this process: calls, buckets and bytes
-# (each rank's share it sends in); read it as a difference over a window
-GRAD_TRAFFIC = {"calls": 0, "buckets": 0, "bytes": 0}
 
 
 def _initialized() -> bool:
     return dist.is_available() and dist.is_initialized()
 
 
-def get_world_size(group=None) -> int:
-    return dist.get_world_size(group) if _initialized() else 1
+def get_world_size() -> int:
+    return dist.get_world_size() if _initialized() else 1
 
 
-def get_rank(group=None) -> int:
-    return dist.get_rank(group) if _initialized() else 0
+def get_rank() -> int:
+    return dist.get_rank() if _initialized() else 0
 
 
 def is_main_process() -> bool:
     return get_rank() == 0
 
 
-def synchronize(group=None) -> None:
+def synchronize() -> None:
     """A barrier over the ranks (comm.synchronize); a no-op at world size 1."""
-    if get_world_size(group) == 1:
+    if get_world_size() == 1:
         return
-    dist.barrier(group=group)
+    dist.barrier()
 
 
-def all_gather(data: Any, group=None) -> List[Any]:
+def all_gather(data: Any) -> List[Any]:
     """Picklable ``data`` of every rank, in rank order (comm.all_gather)."""
-    world = get_world_size(group)
+    world = get_world_size()
     if world == 1:
         return [data]
     out: List[Any] = [None] * world
-    dist.all_gather_object(out, data, group=group)
+    dist.all_gather_object(out, data)
     return out
 
 
-def gather(data: Any, dst: int = 0, group=None) -> List[Any]:
+def gather(data: Any, dst: int = 0) -> List[Any]:
     """comm.gather: every rank's ``data`` on ``dst``, an empty list elsewhere."""
-    result = all_gather(data, group)
-    return result if get_rank(group) == dst else []
+    result = all_gather(data)
+    return result if get_rank() == dst else []
 
 
-def shared_random_seed(group=None) -> int:
+def shared_random_seed() -> int:
     """One seed all ranks agree on: rank 0's draw (comm.shared_random_seed)."""
     seed = int(np.random.randint(2**31))
-    return int(all_gather(seed, group)[0])
+    return int(all_gather(seed)[0])
 
 
-def reduce_dict(d: Dict[str, float], average: bool = True, group=None) -> Dict[str, float]:
+def reduce_dict(d: Dict[str, float], average: bool = True) -> Dict[str, float]:
     """The sum, or with ``average`` the mean, over ranks of a dict of scalars
     (comm.reduce_dict); every rank gets the result."""
-    world = get_world_size(group)
+    world = get_world_size()
     if world == 1:
         return dict(d)
-    gathered = all_gather({k: float(v) for k, v in d.items()}, group)
+    gathered = all_gather({k: float(v) for k, v in d.items()})
     return {k: float(np.sum([g[k] for g in gathered])) / (world if average else 1)
             for k in sorted(d)}
 
 
 # -- device reductions of a step ---------------------------------------------------------------
-
-def group_size(group) -> int:
-    """Ranks in ``group``; None is one process."""
-    return 1 if group is None else dist.get_world_size(group)
-
-
-def group_rank(group) -> int:
-    """This process's rank in ``group``; 0 for None."""
-    return 0 if group is None else dist.get_rank(group)
-
 
 def all_reduce_grads(grads: Sequence[Optional[torch.Tensor]], group,
                      like: Optional[Sequence[torch.Tensor]] = None) -> List[torch.Tensor]:
@@ -127,7 +116,6 @@ def all_reduce_grads(grads: Sequence[Optional[torch.Tensor]], group,
     if group is None:
         return grads
     world = dist.get_world_size(group)
-    GRAD_TRAFFIC["calls"] += 1
     out: List[Optional[torch.Tensor]] = [None] * len(grads)
     by_dtype: Dict[tuple, List[int]] = {}
     for i, g in enumerate(grads):
@@ -143,8 +131,6 @@ def all_reduce_grads(grads: Sequence[Optional[torch.Tensor]], group,
                     size += nbytes
                     continue
             flat = torch.cat([grads[j].reshape(-1) for j in bucket])
-            GRAD_TRAFFIC["buckets"] += 1
-            GRAD_TRAFFIC["bytes"] += flat.numel() * flat.element_size()
             dist.all_reduce(flat, op=dist.ReduceOp.SUM, group=group)
             flat.div_(world)
             for j, part in zip(bucket, flat.split([grads[j].numel() for j in bucket])):
@@ -161,14 +147,20 @@ def global_mean_count(x: torch.Tensor, group, floor: Optional[float] = None) -> 
     ``all_reduce_grads`` averages its gradients), is the global sum divided
     by ``max(global count, floor)``, the one-process value on the global
     batch. With ``group`` None it is ``x`` (floored)."""
-    total = x.detach().float().clone()
-    world = 1
-    if group is not None:
-        dist.all_reduce(total, op=dist.ReduceOp.SUM, group=group)
-        world = dist.get_world_size(group)
+    total = all_reduce_sum(x.detach().float(), group)
     if floor is not None:
         total = total.clamp(min=floor)
-    return total / world if world > 1 else total
+    return total if group is None else total / dist.get_world_size(group)
+
+
+def all_reduce_sum(x: torch.Tensor, group) -> torch.Tensor:
+    """The elementwise sum of ``x`` over the ranks, without gradient; ``x``
+    itself with ``group`` None."""
+    if group is None:
+        return x
+    total = x.detach().clone()
+    dist.all_reduce(total, op=dist.ReduceOp.SUM, group=group)
+    return total
 
 
 def all_reduce_max(mask: torch.Tensor, group) -> torch.Tensor:

@@ -91,9 +91,9 @@ def layout() -> Layout:
     ``LOCAL_WORLD_SIZE`` and ``GROUP_RANK``, else one node), or one process.
     ``WORLD_SIZE`` above 1 without an initialized group raises: each process
     would train alone on its own stride of the data."""
-    import torch.distributed as dist
+    from . import comm
 
-    if not (dist.is_available() and dist.is_initialized()):
+    if not comm._initialized():
         env_world = int(os.environ.get("WORLD_SIZE", 1))
         if env_world > 1:
             raise RuntimeError(
@@ -101,7 +101,7 @@ def layout() -> Layout:
                 "initialized: each process would train alone. Launch with torchrun ... "
                 "-m divergen_tpu_torch.train_net --multi-host, or call init_distributed()")
         return Layout()
-    rank, world = dist.get_rank(), dist.get_world_size()
+    rank, world = comm.get_rank(), comm.get_world_size()
     local_world = int(os.environ.get("LOCAL_WORLD_SIZE", world))
     if world % local_world:
         raise ValueError(f"WORLD_SIZE {world} is not a multiple of LOCAL_WORLD_SIZE {local_world}")

@@ -265,15 +265,19 @@ def test_do_test_against_jax_inference_on_dataset(eval_case):
 
 
 def test_inference_on_dataset_refuses_data_parallel(eval_case):
-    """A model axis above 1 raises, naming the ROADMAP item; a data axis wider
-    than the ranks takes them all, as the JAX loop takes every device."""
+    """A model axis above 1 raises, naming the ROADMAP item (in the loop and
+    in a mesh's group); a data axis wider than the ranks takes them all, as
+    the JAX loop takes every device."""
     from divergen_tpu_torch.parallel.mesh import create_mesh
 
     tcfg, _, _, model = eval_case
     cfg = tcfg.clone()
+    cfg.PARALLEL.MODEL_PARALLEL = 2
     with pytest.raises(NotImplementedError, match="ROADMAP.md §1, item 4"):
-        teval.inference_on_dataset(model, None, cfg, DATASET, teval.build_evaluator(cfg, DATASET),
-                                   mesh=create_mesh(1, 2, world=2))
+        teval.inference_on_dataset(model, None, cfg, DATASET, teval.build_evaluator(cfg, DATASET))
+    with pytest.raises(NotImplementedError, match="ROADMAP.md §1, item 4"):
+        create_mesh(1, 2, world=2).group
+    cfg.PARALLEL.MODEL_PARALLEL = 1
     cfg.PARALLEL.DATA_PARALLEL = 2
     wide = teval.inference_on_dataset(model, None, cfg, DATASET,
                                       teval.build_evaluator(cfg, DATASET), max_images=2)

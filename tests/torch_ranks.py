@@ -75,6 +75,7 @@ def comm_checks(rank, world):
     out["count"] = comm.global_mean_count(torch.tensor(float(rank)), group)
     out["count_floor"] = comm.global_mean_count(torch.tensor(0.0), group, floor=1.0)
     out["union"] = comm.all_reduce_max(torch.tensor([rank == 0, rank == 1, False]), group)
+    out["device_sum"] = comm.all_reduce_sum(torch.tensor([rank, 3]), group)
     out["gathered"] = comm.all_gather_rows(torch.tensor([[rank, 10 + rank]]), group)
     out["gathered_bool"] = comm.all_gather_rows(torch.tensor([rank == 1, True]), group)
     x = torch.full((2, 3), float(rank + 1), requires_grad=True)
