@@ -423,7 +423,29 @@ Run from the root of a checkout:  python3 chip_smoke.py
        process's loop in batches of half as many (the same forwards): the
        detections of every image and the results equal bit for bit. Prints
        each rank's peak memory and step time.
-16. Prints the kernels' JSON line (the 13 wrappers' entries; the float32
+16. Slice 16, the rest of ``torch.distributed``, in three parts, each with
+   its own counts: (a) (``generation_mesh``, run after slice 8, while the
+   SDXL pipeline is alive, its counts reset just before it and read just
+   after) ``SDXLPipeline(mesh=[cuda:0, cuda:0])`` at 1024², bf16, B = 2,
+   ``STEPS`` DPM-Solver++ 2M steps: exactly 70 + 70 launches of kernels 1
+   and 2 a UNet call for 2 x ``STEPS`` calls and one of kernel 3 a block;
+   the images equal bit for bit to two one-device B = 1 runs of the same
+   noise rows, within ``MESH_IMAGE_BOUND`` of one B = 2 run (printed with
+   both walls); (b) (in the serving slice's (d), after its read; one worker
+   thread, so its kernel-5 launches are counted exactly and added here)
+   ``AsyncPredictor`` with its default ``num_workers``: one worker a local
+   card, results equal to ``Predictor``'s; (c) two gloo ranks sharing the
+   card as data 1 x model 2 (``PARALLEL.MODEL_PARALLEL 2``): (1) the float32
+   flagship step (a second child of ``gloo_step``) within ``RANK_BOUNDS`` of
+   this process's step on both images, with each rank's peak memory and
+   train-state bytes (parameters, gradients, moments, EMA) beside one
+   process's; (2) (``model_axis_train_net``) BSGAL through ``train_net`` for
+   ``RANK_STEPS`` steps, saving at the last, then the next step resumed from
+   that checkpoint at model 2 and, as one plain process, at model 1: the
+   same decision, every parameter within twice the learning rate. The
+   ranks' launches of kernel 5 (forward and backward) are added to (c)'s
+   counts, which must hold both.
+17. Prints the kernels' JSON line (the 13 wrappers' entries; the float32
    window backward body with its launches in 10; and each padded head-dim
    case of 3 with its checked call's launch), the card line, and as the
    last line {"ok": true, "device": {...}}. Any failed phase raises: exit
@@ -3461,6 +3483,36 @@ def slice_serving(card: str, tmp: str):
             f"{max(c['box_gap'] for c in checks):.3g}, scores "
             f"{max(c['score_gap'] for c in checks):.3g}; {8 / wall:.2f} images/s with masks "
             f"[{card}]")
+        return default_workers(params)
+
+    def default_workers(params):
+        """Slice 16 (b): ``AsyncPredictor`` with its default ``num_workers``,
+        one worker a local card (one here, on cuda:0): results in request
+        order equal to Predictor's. One worker thread, so its launches of the
+        packed window attention are counted exactly: returned."""
+        torch.cuda.synchronize()
+        ap = AsyncPredictor(cfg, params)
+        try:
+            if ap.devices != [torch.device("cuda", i) for i in range(torch.cuda.device_count())]:
+                raise AssertionError(f"(b): workers on {ap.devices}")
+            before, bodies = wa.launches, dict(wa.bodies)
+            for img in images:
+                ap.put(img)
+            got = [ap.get() for _ in images]
+            launched = wa.launches - before
+            by_body = {("fused_window_attention_packed", False, *k): n - bodies.get(k, 0)
+                       for k, n in wa.bodies.items() if n != bodies.get(k, 0)}
+        finally:
+            ap.shutdown()
+        checks = [same_detections(res, ref) for res, ref in zip(got, results)]
+        if not all(c["ok"] for c in checks) or not launched:
+            raise AssertionError(f"(b): AsyncPredictor with its default workers against "
+                                 f"Predictor: {checks}, {launched} launches")
+        log(f"  slice 16 (b) AsyncPredictor(num_workers default): {len(ap.devices)} worker on "
+            f"{ap.devices}; {len(images)} results in request order equal to Predictor's "
+            f"({sum(c['pairs'] for c in checks)} detections paired); {launched} launches of the "
+            f"packed window attention [{card}]")
+        return {"fused_window_attention_packed": launched, **by_body}
 
     return async_part
 
@@ -5683,10 +5735,76 @@ def slice_deployment(card: str, tmp: str, snapshot) -> dict:
     return extra
 
 
-# slice 15: ranks. RANK_STEPS BSGAL steps in each train_net run ((b)2 saves
-# at the last); RANK_EVAL_IMAGES synthetic images in one batch split over two
+# slice 16 (a): SDXLPipeline over a mesh that names the card twice, against
+# one B = 2 run on one device (another batch, so other GEMM tilings and
+# sums): the largest difference allowed on the 0-255 scale of the images
+MESH_IMAGE_BOUND = 16.0
+
+
+def generation_mesh(pipe, cond, card: str) -> None:
+    """Slice 16 (a): ``SDXLPipeline(mesh=[cuda:0, cuda:0])`` at 1024², bf16, B
+    = 2, ``STEPS`` DPM-Solver++ 2M steps over ``pipe``'s UNet and VAE: each
+    row block's denoise loop and whole-block decode on its mesh entry, the
+    blocks' steps interleaved. The images equal, bit for bit, two one-device
+    B = 1 runs of ``pipe`` on the same noise rows (the same shapes and
+    kernels), and stay within ``MESH_IMAGE_BOUND`` of one B = 2 run."""
+    from divergen_tpu_torch.pipeline.generation.pipeline import SDXLPipeline
+
+    ctx, unc, pooled, unc_pooled = cond
+    mesh = SDXLPipeline(pipe.unet, pipe.vae, steps=STEPS, sampler="dpmpp_2m",
+                        mesh=["cuda:0", "cuda:0"])
+    if len(mesh._replicas) != 1 or mesh._replicas[torch.device("cuda", 0)][0] is not pipe.unet:
+        raise AssertionError("(a): a mesh naming one card twice must hold one replica")
+
+    def wall(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0, out
+
+    gen = torch.Generator(device="cuda")
+    mesh_s, got = wall(lambda: mesh.generate(gen.manual_seed(7), ctx, unc, pooled, unc_pooled,
+                                             1024, 1024))
+    return lambda: generation_mesh_checks(pipe, mesh, cond, got, mesh_s, wall, card)
+
+
+def generation_mesh_checks(pipe, mesh, cond, got, mesh_s, wall, card: str) -> None:
+    """The checks of ``generation_mesh``, after its launches were read."""
+    ctx, unc, pooled, unc_pooled = cond
+    gen = torch.Generator(device="cuda")
+    lat = torch.randn((2, 128, 128, 4), generator=gen.manual_seed(7), device="cuda",
+                      dtype=torch.float32) * pipe._init_scale
+    tid = torch.tensor([1024.0, 1024, 0, 0, 1024, 1024], device="cuda").expand(1, 6)
+    rows = []
+    for i in range(2):
+        r = slice(i, i + 1)
+        with torch.inference_mode():
+            out = pipe.denoise(lat[r], ctx[r], unc[r], pooled[r], unc_pooled[r], tid)
+            rows.append(torch.clamp((pipe.vae(out) + 1.0) * 127.5, 0, 255))
+    per_block = torch.cat(rows)
+    one_s, one = wall(lambda: pipe.generate(gen.manual_seed(7), ctx, unc, pooled, unc_pooled,
+                                            1024, 1024))
+    if tuple(got.shape) != (2, 1024, 1024, 3) or not torch.isfinite(got).all():
+        raise AssertionError(f"(a): images {tuple(got.shape)}, finite {torch.isfinite(got).all()}")
+    if not torch.equal(got, per_block):
+        raise AssertionError(f"(a): the mesh's images differ from the one-device B = 1 runs of "
+                             f"their rows by {float((got - per_block).abs().max()):.4g}")
+    gap = float((got.float() - one.float()).abs().max())
+    log(f"  (a) SDXLPipeline(mesh=[cuda:0, cuda:0]), 1024², B = 2, {STEPS} DPM-Solver++ 2M "
+        f"steps: equal bit for bit to two one-device B = 1 runs of its noise rows; against one "
+        f"B = 2 run max |diff| {gap:.4g} (mean {float((got.float() - one.float()).abs().mean()):.4g}"
+        f", bound {MESH_IMAGE_BOUND}) on the 0-255 scale; wall {mesh_s:.3f} s over the mesh "
+        f"against {one_s:.3f} s for the B = 2 run [{card}]")
+    if gap > MESH_IMAGE_BOUND:
+        raise AssertionError(f"(a): {gap} from the B = 2 run, over {MESH_IMAGE_BOUND}")
+
+
+# slice 15: ranks. RANK_STEPS BSGAL steps in each train_net run ((b)2 and
+# slice 16 (c)2 save at the last; 4 until slice 16 came, 3 to keep the smoke
+# near 1000 s); RANK_EVAL_IMAGES synthetic images in one batch split over two
 # ranks
-RANK_STEPS = 4
+RANK_STEPS = 3
 RANK_EVAL_IMAGES = 8
 # (b)1's bounds, those of tests/test_torch_train_step.py: every metric within
 # RANK_BOUNDS["rel"] relative; an element's update within twice the learning
@@ -5735,6 +5853,22 @@ def child_launches() -> dict:
     return {"forward": wa.launches, "backward": wa.backward_launches,
             "bodies": [[list(k), n] for k, n in wa.bodies.items()],
             "backward_bodies": [[list(k), n] for k, n in wa.backward_bodies.items()]}
+
+
+def state_bytes(state) -> int:
+    """The bytes of a train state this rank holds: parameters, gradients,
+    the optimizer's moments and the EMA copy."""
+    total = 0
+    for p in state.model.parameters():
+        total += p.numel() * p.element_size()
+        if p.grad is not None:
+            total += p.grad.numel() * p.grad.element_size()
+        for v in state.optimizer.optim.state.get(p, {}).values():
+            if isinstance(v, torch.Tensor) and v.dim():
+                total += v.numel() * v.element_size()
+    for v in (state.ema_params or {}).values():
+        total += v.numel() * v.element_size()
+    return total
 
 
 def params_sha256(model) -> str:
@@ -5846,8 +5980,27 @@ def rank_child(spec_path: str) -> int:
 
         dist.all_reduce = counting
         state = train_net.main(train_net.default_argument_parser().parse_args(spec["args"]))
+        if spec.get("then_args"):  # a second run in the same processes (a resume)
+            first = {"counts": [int(x) for x in (do_train.last_run["active_state"].n_paste,
+                                                   do_train.last_run["active_state"].n_discard)],
+                     "step_s": do_train.last_run["step_s"], "peak_gib":
+                     torch.cuda.max_memory_allocated() / 2**30, "state_bytes": state_bytes(state)}
+            del state
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            sums.clear()
+            state = train_net.main(train_net.default_argument_parser().parse_args(
+                spec["then_args"]))
+            res["first"] = first
         dist.all_reduce = all_reduce
         run, astate = do_train.last_run, do_train.last_run["active_state"]
+        res["state_bytes"] = state_bytes(state)
+        if spec.get("params_out"):  # the full parameters (gathered at a model axis above 1)
+            shards = getattr(state.model, "model_shards", None)
+            named = dict(state.model.named_parameters())
+            full = shards.full_tree(named) if shards is not None else named
+            if comm.get_rank() == 0:
+                torch.save({n: p.detach().cpu() for n, p in full.items()}, spec["params_out"])
         res.update(step_s=run["step_s"], data_time=run["data_time"], sums=sums,
                    sha256=params_sha256(state.model), world=run["world"],
                    counts=[int(astate.n_paste), int(astate.n_discard)],
@@ -5859,26 +6012,38 @@ def rank_child(spec_path: str) -> int:
         from divergen_tpu_torch.parallel.mesh import create_mesh, shard_pytree
         from divergen_tpu_torch.utils.dist import init_distributed
 
+        from divergen_tpu_torch.engine.train_loop import create_train_state
+        from divergen_tpu_torch.parallel.mesh import model_shards, param_sharding_rules
+        from divergen_tpu_torch.solver.build import build_optimizer
+
         dev = init_distributed(spec["backend"], device="cuda:0")
         rank, world = dist.get_rank(), dist.get_world_size()
         cfg, state, batch, gen = float32_flagship_step(dev)
-        mesh = create_mesh()
-        shard_pytree(state.model, mesh)
+        model_axis = spec.get("model", 1)
+        mesh = create_mesh(-1, model_axis)
+        rules = param_sharding_rules(state.model, mesh) if model_axis > 1 else None
+        shard_pytree(state.model, mesh, rules=rules)
+        shards = model_shards(state.model)
+        if shards is not None:  # the optimizer and the EMA copy over the slices
+            state = create_train_state(state.model, build_optimizer(cfg, state.model),
+                                       ema=state.ema_params is not None)
         step = make_paste_train_step(state.model, state.optimizer, cfg, group=mesh.group)
-        b = batch["image"].shape[0]
-        rows = slice(rank * b // world, (rank + 1) * b // world)
+        b, (d, data) = batch["image"].shape[0], (mesh.index()[0], mesh.shape["data"])
+        rows = slice(d * b // data, (d + 1) * b // data)
         cut = lambda v: {k: cut(x) for k, x in v.items()} if isinstance(v, dict) else v[rows]
         local = {k: (v if k == "fed_weight" else cut(v)) for k, v in batch.items()}
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        state, metrics = step(state, local, RankDraws(gen, rank, world))
+        state, metrics = step(state, local, RankDraws(gen, d, data))
         torch.cuda.synchronize()
+        named = dict(state.model.named_parameters())
+        full = shards.full_tree(named) if shards is not None else named
         res.update(step_s=time.perf_counter() - t0,
                    metrics=comm.reduce_dict({k: float(v) for k, v in metrics.items()}),
-                   sha256=params_sha256(state.model))
+                   sha256=params_sha256(state.model), state_bytes=state_bytes(state),
+                   sliced=len(shards.dims) if shards is not None else 0)
         if rank == 0:
-            torch.save({n: p.detach().cpu() for n, p in state.model.named_parameters()},
-                       spec["params_out"])
+            torch.save({n: p.detach().cpu() for n, p in full.items()}, spec["params_out"])
     elif spec["kind"] == "evaluate":
         from divergen_tpu_torch.utils.dist import init_distributed
 
@@ -5902,12 +6067,20 @@ def rank_child(spec_path: str) -> int:
     return 0
 
 
-def ranks_training_root(tmp: str) -> dict:
+def ranks_files(tmp: str) -> dict:
+    """The synthetic training root of slices 15 and 16 under ``tmp``, written
+    on the first call."""
     from divergen_tpu_torch.data.datasets.synthetic_lvis import write_training_root
 
-    return write_training_root(os.path.join(tmp, "ranks_data"), 1203,
-                               SERVING_SIZES * (TRAIN_SET // 4), SERVING_SIZES * (VAL_SET // 4),
-                               64, 32, seed=0)
+    root = os.path.join(tmp, "ranks_data")
+    if root not in _RANKS_FILES:
+        files = write_training_root(root, 1203, SERVING_SIZES * (TRAIN_SET // 4),
+                                    SERVING_SIZES * (VAL_SET // 4), 64, 32, seed=0)
+        _RANKS_FILES[root] = dict(files, root=root)
+    return _RANKS_FILES[root]
+
+
+_RANKS_FILES: dict = {}
 
 
 def train_net_args(files: dict, out: str, save: bool, *extra) -> list:
@@ -5958,10 +6131,14 @@ def nccl_world_one(card: str, tmp: str, files: dict) -> list:
     return [g, a]
 
 
-def gloo_step(card: str, tmp: str) -> list:
+def gloo_step(card: str, tmp: str):
     """(b)1: the float32 flagship step on two gloo ranks sharing the card, one
     image each, against this process's step on both images from the same
-    weights and draws, within ``RANK_BOUNDS``."""
+    weights and draws, within ``RANK_BOUNDS``; then slice 16 (c)1: the same
+    step on the two ranks as data 1 x model 2 (both images on each, the
+    leaves JAX's rule shards held as slices), against the same step, with
+    each rank's peak memory and train-state bytes beside this process's.
+    Returns the ranks' results of both."""
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     cfg, state, batch, gen = float32_flagship_step(torch.device("cuda"))
@@ -5974,6 +6151,7 @@ def gloo_step(card: str, tmp: str) -> list:
     state, want = step(state, batch, gen)
     torch.cuda.synchronize()
     one_s, one_peak = time.perf_counter() - t0, torch.cuda.max_memory_allocated() / 2**30
+    one_bytes = state_bytes(state)
     want = {k: float(v) for k, v in want.items()}
     lr = state.optimizer.schedule(0)
     after = {n: p.detach().cpu() for n, p in state.model.named_parameters()}
@@ -5981,35 +6159,50 @@ def gloo_step(card: str, tmp: str) -> list:
                for n, p in state.model.named_parameters()}
     del state, batch, step
     torch.cuda.empty_cache()
-    params_out = os.path.join(tmp, "gloo_step_params.pt")
-    res = rank_command({"name": "gloo_step", "kind": "step", "backend": "gloo",
-                        "params_out": params_out}, tmp, nproc=2)
-    r0, r1 = res["ranks"]
-    if r0["sha256"] != r1["sha256"] or r0["metrics"] != r1["metrics"]:
-        raise AssertionError("(b)1: the two ranks' parameters or metrics differ")
-    got = torch.load(params_out)
-    bad = [k for k, w in want.items() if abs(r0["metrics"][k] - w)
-           > RANK_BOUNDS["rel"] * abs(w) + RANK_BOUNDS["abs"]]
     largest = max(float(m.max()) for m in moments.values())
-    worst = {"all": 0.0, "sized": 0.0}
-    for n, w in after.items():
-        diff = ((got[n] - before[n]) - (w - before[n])).abs()
-        ulps = 2e-7 * max(1.0, float(w.abs().max()))
-        worst["all"] = max(worst["all"], (float(diff.max()) - ulps) / lr)
-        sized = moments[n] > max(1e-3 * float(moments[n].max()), 1e-5 * largest)
-        if sized.any():
-            worst["sized"] = max(worst["sized"], (float(diff[sized].max()) - ulps) / lr)
-    log(f"  (b)1 float32 step, two gloo ranks of one image each against one process of both: "
-        f"metrics {'within' if not bad else 'OUTSIDE'} {RANK_BOUNDS['rel']} relative "
-        f"(largest gap {max(abs(r0['metrics'][k] - w) / max(abs(w), 1e-12) for k, w in want.items()):.3g}), "
-        f"updates off by at most {worst['all']:.3g} x lr (bound 2), sized ones "
-        f"{worst['sized']:.3g} x lr (bound {RANK_BOUNDS['sized']}); the ranks' step "
-        f"{max(r['step_s'] for r in res['ranks']):.3f} s against one process's {one_s:.3f} s "
-        f"(first steps), peak {r0['peak_gib']:.2f} / {r1['peak_gib']:.2f} GiB a rank against "
-        f"{one_peak:.2f} GiB [{card}]")
-    if bad or worst["all"] > 2.0 or worst["sized"] > RANK_BOUNDS["sized"]:
-        raise AssertionError(f"(b)1: metrics {bad}, updates {worst}")
-    return res["ranks"]
+
+    def against_one(name: str, model_axis: int) -> list:
+        params_out = os.path.join(tmp, f"{name}_params.pt")
+        res = rank_command({"name": name, "kind": "step", "backend": "gloo", "model": model_axis,
+                            "params_out": params_out}, tmp, nproc=2)
+        r0, r1 = res["ranks"]
+        if r0["metrics"] != r1["metrics"] or (model_axis == 1 and r0["sha256"] != r1["sha256"]):
+            raise AssertionError(f"{name}: the two ranks' parameters or metrics differ")
+        got = torch.load(params_out)
+        bad = [k for k, w in want.items() if abs(r0["metrics"][k] - w)
+               > RANK_BOUNDS["rel"] * abs(w) + RANK_BOUNDS["abs"]]
+        worst = {"all": 0.0, "sized": 0.0}
+        for n, w in after.items():
+            diff = ((got[n] - before[n]) - (w - before[n])).abs()
+            ulps = 2e-7 * max(1.0, float(w.abs().max()))
+            worst["all"] = max(worst["all"], (float(diff.max()) - ulps) / lr)
+            sized = moments[n] > max(1e-3 * float(moments[n].max()), 1e-5 * largest)
+            if sized.any():
+                worst["sized"] = max(worst["sized"], (float(diff[sized].max()) - ulps) / lr)
+        gap = max(abs(r0["metrics"][k] - w) / max(abs(w), 1e-12) for k, w in want.items())
+        log(f"    metrics {'within' if not bad else 'OUTSIDE'} {RANK_BOUNDS['rel']} relative "
+            f"(largest gap {gap:.3g}), updates off by at most {worst['all']:.3g} x lr (bound 2), "
+            f"sized ones {worst['sized']:.3g} x lr (bound {RANK_BOUNDS['sized']}); the ranks' "
+            f"step {max(r['step_s'] for r in res['ranks']):.3f} s against one process's "
+            f"{one_s:.3f} s (first steps), peak {r0['peak_gib']:.2f} / {r1['peak_gib']:.2f} GiB "
+            f"a rank against {one_peak:.2f} GiB, train state (parameters, gradients, moments, "
+            f"EMA) {r0['state_bytes'] / 2**30:.3f} / {r1['state_bytes'] / 2**30:.3f} GiB a rank "
+            f"against {one_bytes / 2**30:.3f} GiB [{card}]")
+        if bad or worst["all"] > 2.0 or worst["sized"] > RANK_BOUNDS["sized"]:
+            raise AssertionError(f"{name}: metrics {bad}, updates {worst}")
+        return res["ranks"]
+
+    log("  (b)1 float32 step, two gloo ranks of one image each against one process of both:")
+    data_ranks = against_one("gloo_step", 1)
+    log("  slice 16 (c)1 float32 step, two gloo ranks as data 1 x model 2 (both images on each) "
+        "against one process of both:")
+    model_ranks = against_one("gloo_model_step", 2)
+    if not model_ranks[0]["sliced"] or model_ranks[0]["state_bytes"] >= 0.75 * one_bytes:
+        raise AssertionError(f"(c)1: {model_ranks[0]['sliced']} leaves sliced, "
+                             f"{model_ranks[0]['state_bytes']} bytes a rank against {one_bytes}")
+    log(f"    {model_ranks[0]['sliced']} leaves sliced; the train state fell by "
+        f"{(one_bytes - model_ranks[0]['state_bytes']) / 2**30:.3f} GiB a rank [{card}]")
+    return data_ranks, model_ranks
 
 
 def gloo_do_train(card: str, tmp: str, files: dict) -> list:
@@ -6088,16 +6281,84 @@ def gloo_eval(card: str, tmp: str) -> list:
     return split + [one_rank]
 
 
-def slice_ranks(card: str, tmp: str) -> dict:
+def model_axis_train_net(card: str, tmp: str, files: dict) -> list:
+    """Slice 16 (c)2: BSGAL through ``train_net --multi-host --dist-backend
+    gloo`` at ``PARALLEL.MODEL_PARALLEL 2`` on two ranks sharing the card
+    (data 1: both images on each rank) for ``RANK_STEPS`` steps, saving the
+    checkpoint and the grad bank at the last. Then one more step resumed from
+    it twice: at model 2 by the same two ranks (``train_net --resume`` again
+    in their processes), and at model 1 as one plain process, which reads
+    the file as a run at model 1 wrote it. The two next steps take the same
+    decision and move every parameter alike (within twice the learning rate,
+    as ``RANK_BOUNDS``; the largest gap printed). Returns the ranks' results."""
+    from divergen_tpu_torch import train_net
+    from divergen_tpu_torch.engine.checkpoint import Checkpointer
+    from divergen_tpu_torch.solver.build import build_lr_schedule
+
+    out = os.path.join(tmp, "model_axis")
+    gloo = ("--multi-host", "--dist-backend", "gloo", "--device", "cuda:0")
+    axis = ("PARALLEL.MODEL_PARALLEL", "2")
+    bank = ("MODEL.ACTIVE.BANK_CKPT_PERIOD", str(RANK_STEPS))
+
+    def resume(*extra) -> list:
+        args = ["--resume", *train_net_args(files, out, True, *extra, *bank)]
+        args[args.index("--max-steps") + 1] = "1"
+        return args
+
+    p2, p1 = os.path.join(tmp, "model_axis_2.pt"), os.path.join(tmp, "model_axis_1.pt")
+    r2 = rank_command({"name": "model_axis_bsgal", "kind": "train_net", "root": files["root"],
+                       "args": train_net_args(files, out, True, *gloo, *axis, *bank),
+                       "then_args": resume(*gloo, *axis), "params_out": p2}, tmp, nproc=2)
+    r1 = rank_command({"name": "model_axis_resume_1", "kind": "train_net", "root": files["root"],
+                       "args": resume("--device", "cuda:0"), "params_out": p1}, tmp)
+    # the resumed steps save nothing: the one checkpoint is the first run's
+    saved = [Checkpointer(out).all_steps(), Checkpointer(os.path.join(out, "grad_bank")).all_steps()]
+    if saved != [[RANK_STEPS], [RANK_STEPS]]:
+        raise AssertionError(f"(c)2: checkpoints and grad banks {saved}")
+    cfg = train_net.setup(train_net.default_argument_parser().parse_args(
+        train_net_args(files, out, True)))
+    lr = build_lr_schedule(cfg)(RANK_STEPS)
+    w1, w2 = torch.load(p1), torch.load(p2)
+    gap = max(float((w2[n] - w).abs().max()) for n, w in w1.items()) / lr
+    (a, a1), (b,) = r2["ranks"], r1["ranks"]
+    first = a["first"]
+    if (first["counts"] != a1["first"]["counts"] or a["counts"] != b["counts"]
+            or a1["counts"] != a["counts"] or not a["steps"] == b["steps"] == 1
+            or set(w1) != set(w2) or gap > 2.0):
+        raise AssertionError(f"(c)2: the step after the model-2 checkpoint differs at model 2 "
+                             f"and model 1: decisions {a['counts']} / {b['counts']}, steps "
+                             f"{a['steps']} / {b['steps']}, parameters off by {gap:.3g} x lr")
+    log(f"  slice 16 (c)2 BSGAL through train_net at data 1 x model 2 on two gloo ranks: "
+        f"{RANK_STEPS} steps, decisions {first['counts']} on both, "
+        f"{step_summary(first, saved=True)}, peak {first['peak_gib']:.2f} / "
+        f"{a1['first']['peak_gib']:.2f} GiB a rank, train state {first['state_bytes'] / 2**30:.3f} "
+        f"GiB a rank; checkpoint and grad bank at step {RANK_STEPS}. The next step resumed from "
+        f"it at model 2 (the same ranks) and at model 1 (one process): decisions "
+        f"{a['counts']} both, parameters off by at most {gap:.3g} x lr (bound 2); peak "
+        f"{a['peak_gib']:.2f} / {b['peak_gib']:.2f} GiB; commands {r2['wall_s']:.1f} (both "
+        f"runs) / {r1['wall_s']:.1f} s [{card}]")
+    return r2["ranks"] + r1["ranks"]
+
+
+def slice_ranks(card: str, tmp: str):
     """Slice 15: (a) ``nccl_world_one``, (b) ``gloo_step``, ``gloo_do_train``,
     ``gloo_eval``. Returns the children's launches of the packed window
-    attention, by the keys of ``snapshot()``."""
-    files = ranks_training_root(tmp)
-    files["root"] = os.path.join(tmp, "ranks_data")
+    attention, by the keys of ``snapshot()``, and the results of slice 16
+    (c)1's ranks (run by ``gloo_step`` beside (b)1, on its reference)."""
+    files = ranks_files(tmp)
     children = nccl_world_one(card, tmp, files)
-    children += gloo_step(card, tmp)
+    data_ranks, model_ranks = gloo_step(card, tmp)
+    children += data_ranks
     children += gloo_do_train(card, tmp, files)
     children += gloo_eval(card, tmp)
+    launched = children_launches(children)
+    log(f"  the children's launches: { {k: n for k, n in launched.items() if isinstance(k, str)} }")
+    return launched, model_ranks
+
+
+def children_launches(children: list) -> dict:
+    """The packed window attention's launches the children counted, by the
+    keys of ``snapshot()``."""
     launched = {}
     for r in children:
         c = r["launches"]
@@ -6108,7 +6369,6 @@ def slice_ranks(card: str, tmp: str) -> dict:
             for k, n in pairs:
                 key = ("fused_window_attention_packed", back, *k)
                 launched[key] = launched.get(key, 0) + n
-    log(f"  the children's launches: { {k: n for k, n in launched.items() if isinstance(k, str)} }")
     return launched
 
 
@@ -6289,7 +6549,24 @@ def main() -> int:
                    "the IF cascade and upscaler slice")
     log(f"  the slice took {time.perf_counter() - t0:.1f} s before its timings")
     if_timings()
-    del encoder, pipe, cond, bf16_images, if_timings
+    del if_timings
+    torch.cuda.empty_cache()
+
+    log("slice 16 (a): SDXLPipeline over a mesh (mesh=[cuda:0, cuda:0], 1024², B = 2)")
+    reset()
+    mesh_checks = generation_mesh(pipe, cond, card)
+    # the sampler's UNet calls (a block each per step) and one decode a block
+    mesh_counts = read(("flash_attention_packed", "fused_ln_matmul", "flash_attention"),
+                       "slice 16 (a)")
+    want = {"flash_attention_packed": 70 * 2 * STEPS, "fused_ln_matmul": 70 * 2 * STEPS,
+            "flash_attention": 2}
+    wrong = {k: (mesh_counts[k], n) for k, n in want.items() if mesh_counts[k] != n}
+    if wrong:
+        raise AssertionError(f"slice 16 (a): launches (got, expected) {wrong}")
+    log(f"  launches as expected: 70 + 70 a UNet call x {STEPS} steps x 2 blocks, one VAE "
+        f"attention a block: { {k: mesh_counts[k] for k in want} }")
+    mesh_checks()
+    del encoder, pipe, cond, bf16_images, mesh_checks
     torch.cuda.empty_cache()
 
     log("slice: detector train step (the Swin-L flagship at full width)")
@@ -6313,8 +6590,9 @@ def main() -> int:
         async_part = slice_serving(card, tmp)
         detector_serving = read(("fused_window_attention_packed",), "the serving slice")
         # worker threads bump the plain-int counters concurrently: AsyncPredictor
-        # runs after the read, and its launches are counted in no slice
-        async_part()
+        # runs after the read, and its launches are counted in no slice, but
+        # those of slice 16 (b), one worker, which it returns
+        one_worker = async_part()
     del async_part
     torch.cuda.empty_cache()
 
@@ -6381,17 +6659,37 @@ def main() -> int:
         "step against one process, BSGAL through train_net, the split inference_on_dataset)")
     reset()
     with tempfile.TemporaryDirectory() as tmp:
-        children = slice_ranks(card, tmp)
-    ranks = read(("fused_window_attention_packed",
-                  "fused_window_attention_packed_backward"), "the ranks slice")
-    for k, n in children.items():  # the ranks' own launches, counted in their processes
-        ranks[k] = ranks.get(k, 0) + n
-    log(f"  with the ranks' launches: { {k: n for k, n in ranks.items() if n and isinstance(k, str)} }")
-    log(f"  the smoke's wall clock after the slice: {time.perf_counter() - started:.1f} s "
-        f"[{card}]")
+        children, model_ranks = slice_ranks(card, tmp)
+        ranks = read(("fused_window_attention_packed",
+                      "fused_window_attention_packed_backward"), "the ranks slice")
+        for k, n in children.items():  # the ranks' own launches, counted in their processes
+            ranks[k] = ranks.get(k, 0) + n
+        log(f"  with the ranks' launches: "
+            f"{ {k: n for k, n in ranks.items() if n and isinstance(k, str)} }")
+        log(f"  the smoke's wall clock after the slice: {time.perf_counter() - started:.1f} s "
+            f"[{card}]")
+
+        log("slice 16 (c): the model axis (two gloo ranks sharing the card as data 1 x model 2: "
+            "(c)1 the float32 step, run beside slice 15's (b)1; (c)2 BSGAL through train_net at "
+            "PARALLEL.MODEL_PARALLEL 2, its checkpoint resumed at model 2 and at model 1)")
+        reset()
+        model_ranks += model_axis_train_net(card, tmp, ranks_files(tmp))
+        axis = read((), "slice 16 (c)")
+    for k, n in children_launches(model_ranks).items():  # counted in the ranks' processes
+        axis[k] = axis.get(k, 0) + n
+    for k, n in one_worker.items():  # slice 16 (b), read in the serving slice
+        axis[k] = axis.get(k, 0) + n
+    missing = [k for k in ("fused_window_attention_packed", "fused_window_attention_packed_backward")
+               if not axis.get(k)]
+    if missing:
+        raise AssertionError(f"slice 16 (b, c): kernels not launched: {missing}")
+    log(f"  slice 16 (b, c) with the ranks' launches: "
+        f"{ {k: n for k, n in axis.items() if n and isinstance(k, str)} }")
+    log(f"  the smoke's wall clock after slice 16: {time.perf_counter() - started:.1f} s [{card}]")
     launches = {}
-    for counts in (sdxl, chain, serving, fused, cascade, train, detector, detector_serving,
-                   do_train_counts, architectures, real_images, weak, deployment, ranks):
+    for counts in (sdxl, chain, serving, fused, cascade, mesh_counts, train, detector,
+                   detector_serving, do_train_counts, architectures, real_images, weak, deployment,
+                   ranks, axis):
         for k, n in counts.items():
             launches[k] = launches.get(k, 0) + n
     # the split wrapper is on no slice's path (the packed kernels take any head

@@ -25,6 +25,11 @@ and decides paste or discard:
   discard, with zero gradients (assigned, never ``None``): AdamW still
   decays the weights and its moments and counts the step, as optax does.
 
+Over ranks the gradients are reduced over the data group before every use;
+the per-instance quantile is taken over the global batch's pastes (each
+rank's per-paste means gathered); at a model axis above 1 the cosine's dot
+products and norms add the slices' shares over the model group.
+
 The step takes its random draws from a ``torch.Generator`` (every forward
 draws from it in turn) or from a mapping ``{"probe", "paste", "final":
 mappings of named draws for ``ops.losses.uniform_draw``, "compare": the
@@ -40,12 +45,11 @@ from typing import Any, Callable, Dict, List, Optional, Tuple, Union
 
 import numpy as np
 import torch
-import torch.distributed as dist
 
 from ..ops.copy_paste import normalize_cp_method
 from ..ops.losses import RankDraws, Rng, uniform_draw
 from ..solver.build import ema_update
-from ..utils.comm import all_reduce_grads, all_reduce_sum, global_mean_count
+from ..utils.comm import all_gather_rows, all_reduce_grads, all_reduce_sum, global_mean_count
 
 
 @dataclasses.dataclass
@@ -98,15 +102,25 @@ def init_active_state(params: Dict[str, torch.Tensor], queue_size: int = 1000) -
     )
 
 
-def tree_cosine(a: Dict[str, torch.Tensor], b: Dict[str, torch.Tensor]) -> torch.Tensor:
+def tree_cosine(a: Dict[str, torch.Tensor], b: Dict[str, torch.Tensor],
+                shards=None) -> torch.Tensor:
     """cos(flat(a), flat(b)) without flattening: per-name float32 dot products
-    and squared norms, summed (compute_grad_sim, :1074-1086)."""
+    and squared norms, summed (compute_grad_sim, :1074-1086). ``shards``: the
+    ``parallel.mesh.ModelShards`` whose leaves ``a`` and ``b`` hold as this
+    rank's slices; their shares are summed over the model group, so the
+    cosine is the full gradients'."""
     xs = [a[k].float().reshape(-1) for k in a]
     ys = [b[k].float().reshape(-1) for k in a]
-    dot = torch.stack([torch.dot(x, y) for x, y in zip(xs, ys)]).sum()
-    na = torch.stack([torch.dot(x, x) for x in xs]).sum().sqrt()
-    nb = torch.stack([torch.dot(y, y) for y in ys]).sum().sqrt()
-    return dot / torch.clamp(na * nb, min=1e-12)
+    terms = [torch.stack([torch.dot(x, y) for x, y in zip(xs, ys)]),
+             torch.stack([torch.dot(x, x) for x in xs]), torch.stack([torch.dot(y, y) for y in ys])]
+    if shards is None:
+        dot, na2, nb2 = (t.sum() for t in terms)
+    else:
+        sliced = torch.tensor([k in shards.dims for k in a], device=terms[0].device)
+        dot, na2, nb2 = (torch.stack([t[~sliced].sum() for t in terms])
+                         + all_reduce_sum(torch.stack([t[sliced].sum() for t in terms]),
+                                          shards.group))
+    return dot / torch.clamp(na2.sqrt() * nb2.sqrt(), min=1e-12)
 
 
 @torch.no_grad()
@@ -413,11 +427,13 @@ def make_active_train_step(model, optimizer, cfg, group=None) -> Callable:
     """
     from ..engine.train_loop import reduce_grads_
     from ..engine.trainer import composite
+    from ..parallel.mesh import Mesh, model_shards
 
+    if isinstance(group, Mesh):
+        group = group.group
     acfg = ActiveConfig.from_cfg(cfg)
-    if acfg.per_instance and group is not None and dist.get_world_size(group) > 1:
-        raise NotImplementedError("ACTIVE.PER_INSTANCE over several ranks (a quantile over the "
-                                  "global batch's pastes) is not ported: ROADMAP.md §1, item 4")
+    shards = model_shards(model)
+    cosine = lambda a, b: tree_cosine(a, b, shards)
     ema_decay = cfg.MODEL.MODEL_EMA
     named = [(n, p) for n, p in model.named_parameters() if p.requires_grad]
     names, params = [n for n, _ in named], [p for _, p in named]
@@ -476,12 +492,12 @@ def make_active_train_step(model, optimizer, cfg, group=None) -> Callable:
                 paste_losses = forward(images_pasted, sizes, gt_pasted, k_paste)
                 paste_part = _sum(paste_losses, [k for k in paste_losses if "loss_paste_ins" in k])
                 if acfg.gt_compare:  # ONCE_MODE 'only_gt' (:523-529): one forward
-                    sim = tree_cosine(grads_of(paste_part, retain=True), bank)
+                    sim = cosine(grads_of(paste_part, retain=True), bank)
                     nopaste = _sum(paste_losses,
                                    [k for k in paste_losses if "loss_nopaste_ins" in k])
-                    thr = tree_cosine(grads_of(nopaste), bank)
+                    thr = cosine(grads_of(nopaste), bank)
                 else:
-                    sim = tree_cosine(grads_of(paste_part), bank)
+                    sim = cosine(grads_of(paste_part), bank)
                     if acfg.dynamic_linear is not None:
                         s_r, e_r = acfg.dynamic_linear
                         frac = torch.clamp(torch.tensor(state.step, dtype=torch.float32)
@@ -496,9 +512,9 @@ def make_active_train_step(model, optimizer, cfg, group=None) -> Callable:
                 # two-forward grad compare (:366-383, :555-560): full-batch
                 # grads of both candidates against the bank
                 paste_losses = forward(images_pasted, sizes, gt_pasted, k_paste)
-                sim = tree_cosine(grads_of(_sum(paste_losses, _scalar_keys(paste_losses))), bank)
+                sim = cosine(grads_of(_sum(paste_losses, _scalar_keys(paste_losses))), bank)
                 ori = forward(batch["image"], sizes, gt_orig, k_paste)
-                thr = tree_cosine(grads_of(_sum(ori, _scalar_keys(ori))), bank)
+                thr = cosine(grads_of(_sum(ori, _scalar_keys(ori))), bank)
         else:
             # loss-compare (ref ACTIVE_GRAD_COMPARE=False default,
             # :341-399,555-575): virtual inner-SGD step on each candidate,
@@ -528,7 +544,8 @@ def make_active_train_step(model, optimizer, cfg, group=None) -> Callable:
         if acfg.per_instance:
             # per-INSTANCE decision: drop pasted instances whose stage-0
             # per-paste CE sits above the per_instance_percent quantile of
-            # this batch's pastes
+            # the global batch's pastes (each rank's means gathered over the
+            # ranks; a paste's rows all lie on the rank holding its image)
             row_loss = paste_losses["aux_paste_row_loss_stage0"].detach().reshape(-1).float()
             row_id = paste_losses["aux_paste_row_id_stage0"].reshape(-1).long()
             n_ids = gt_pasted["instance_source"].numel() + 1  # static id cap
@@ -537,10 +554,12 @@ def make_active_train_step(model, optimizer, cfg, group=None) -> Callable:
             per_id = seg / torch.clamp(cnt, min=1.0)
             present = cnt > 0
             present[0] = False
-            n_present = torch.clamp(present.sum(), min=1)
-            s = torch.sort(torch.where(present, per_id, torch.full_like(per_id, float("inf")))).values
+            n_present = torch.clamp(all_reduce_sum(present.sum(), group), min=1)
+            ranked = all_gather_rows(torch.where(present, per_id,
+                                                 torch.full_like(per_id, float("inf"))), group)
+            s = torch.sort(ranked).values
             qidx = torch.clamp((acfg.per_instance_percent * (n_present - 1)).to(torch.int32),
-                               0, n_ids - 1)
+                               0, s.shape[0] - 1)
             keep_id = per_id <= s[qidx.long()]
             ids_gt = gt_pasted["instance_source"].long()
             drop = (ids_gt > 0) & present[ids_gt] & ~keep_id[ids_gt]

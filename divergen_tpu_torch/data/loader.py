@@ -4,7 +4,8 @@ Counterpart of ``divergen_tpu/data/loader.py``: ``_stack_samples``,
 ``TrainLoader`` and ``build_test_loader`` are copies (the same batches in the
 same order for a seed: per-sample generator ``seed * 1_000_003 + counter``,
 futures consumed in order, a synchronous backfill after a
-``FileNotFoundError``); ``device_prefetch`` moves batches to the card from
+``FileNotFoundError``; a loader that maps some rows of each batch composes
+the same batch from a check of every row's file); ``device_prefetch`` moves batches to the card from
 pinned host memory on a side CUDA stream, ``size`` batches ahead.
 
 The JAX module's sources: ``DiverGen/divergen/data/custom_dataset_dataloader.py:88-127``
@@ -17,6 +18,8 @@ so ``data_time`` is worth watching).
 """
 from __future__ import annotations
 
+import collections
+import os
 import queue
 import threading
 from concurrent.futures import ThreadPoolExecutor
@@ -48,8 +51,12 @@ class TrainLoader:
     out, taken in turn batch by batch (default: every row). The sampler and
     the per-sample seeds advance over the whole batch, so the ranks of a node
     that each take their rows together hand out what one loader hands out.
-    A file that cannot be read then raises: the whole-batch loader's backfill
-    would move rows from one rank to another."""
+    A row whose ``file_name`` is missing is skipped and the batch backfilled
+    from the index stream, as the whole-batch loader does: a loader that
+    takes some rows checks every row of the batch for its file first (a
+    ``stat`` each), so every rank composes the same batch and then maps its
+    own rows of it. A ``FileNotFoundError`` from such a rank's mapper (a file
+    that was there when checked, or another file) raises."""
 
     def __init__(
         self,
@@ -81,7 +88,10 @@ class TrainLoader:
 
     def _produce(self):
         try:
-            self._produce_batches()
+            if self.rows == [(0, self.batch_size)]:
+                self._produce_batches()
+            else:
+                self._produce_rows()
         except Exception as e:  # handed to the consumer, which raises it
             self.queue.put(e)
 
@@ -89,25 +99,20 @@ class TrainLoader:
         pool = ThreadPoolExecutor(max_workers=self.num_workers)
         it = iter(self.sampler)
         counter = 0
-        batches = 0
         pending: "queue.Queue" = queue.Queue()
         # pipeline: keep 2 batches of futures in flight
         def submit_batch():
-            nonlocal counter, batches
-            lo, hi = self.rows[batches % len(self.rows)]
-            batches += 1
+            nonlocal counter
             futs = []
-            for row in range(self.batch_size):
+            for _ in range(self.batch_size):
                 idx = next(it)
-                if lo <= row < hi:
-                    try:
-                        futs.append(pool.submit(self._map_one,
-                                                (idx, self._seed * 1_000_003 + counter)))
-                    except RuntimeError:
-                        # interpreter/pool shutdown raced the daemon producer —
-                        # treat as a stop signal instead of dying noisily
-                        self._stop.set()
-                        return
+                try:
+                    futs.append(pool.submit(self._map_one, (idx, self._seed * 1_000_003 + counter)))
+                except RuntimeError:
+                    # interpreter/pool shutdown raced the daemon producer —
+                    # treat as a stop signal instead of dying noisily
+                    self._stop.set()
+                    return
                 counter += 1
             pending.put(futs)
 
@@ -115,23 +120,81 @@ class TrainLoader:
         submit_batch()
         while not self._stop.is_set():
             futs = pending.get()
-            whole = len(futs) == self.batch_size
             samples = []
             for f in futs:
                 try:
                     samples.append(f.result())
-                except FileNotFoundError as e:
-                    if not whole:
-                        raise RuntimeError(f"{e}: a loader that maps some rows of each batch "
-                                           "cannot skip a missing file") from e
+                except FileNotFoundError:
+                    continue
             # backfill failed decodes synchronously
-            while whole and len(samples) < self.batch_size:
+            while len(samples) < self.batch_size:
                 idx = next(it)
                 try:
                     samples.append(self._map_one((idx, self._seed * 1_000_003 + counter)))
                 except FileNotFoundError:
                     pass
                 counter += 1
+            submit_batch()
+            self.queue.put(_stack_samples(samples))
+        pool.shutdown(wait=False)
+
+    def _readable(self, idx: int) -> bool:
+        rec = self.dataset[idx]
+        name = rec.get("file_name") if isinstance(rec, dict) else None
+        return name is None or os.path.exists(name)
+
+    def _plan(self) -> Iterator[List[Tuple[int, int]]]:
+        """The (index, seed) rows of each whole batch, drawn from the sampler
+        in the order of ``_produce_batches``: two batches drawn ahead, a
+        batch's rows without their file dropped and refilled from the stream
+        after the next batch's draws."""
+        it = iter(self.sampler)
+        counter = 0
+        drawn: "collections.deque" = collections.deque()
+
+        def draw():
+            nonlocal counter
+            counter += 1
+            return next(it), self._seed * 1_000_003 + counter - 1
+
+        drawn.append([draw() for _ in range(self.batch_size)])
+        drawn.append([draw() for _ in range(self.batch_size)])
+        while True:
+            rows = [r for r in drawn.popleft() if self._readable(r[0])]
+            while len(rows) < self.batch_size:
+                r = draw()
+                if self._readable(r[0]):
+                    rows.append(r)
+            drawn.append([draw() for _ in range(self.batch_size)])
+            yield rows
+
+    def _produce_rows(self):
+        pool = ThreadPoolExecutor(max_workers=self.num_workers)
+        plan = self._plan()
+        batches = 0
+        pending: "queue.Queue" = queue.Queue()
+
+        def submit_batch():
+            nonlocal batches
+            lo, hi = self.rows[batches % len(self.rows)]
+            batches += 1
+            try:
+                pending.put([pool.submit(self._map_one, r) for r in next(plan)[lo:hi]])
+            except RuntimeError:  # the pool shut down under the daemon producer
+                self._stop.set()
+
+        submit_batch()
+        submit_batch()
+        while not self._stop.is_set():
+            futs = pending.get()
+            samples = []
+            for f in futs:
+                try:
+                    samples.append(f.result())
+                except FileNotFoundError as e:
+                    raise RuntimeError(f"{e}: a file checked before the batch was composed, or "
+                                       "one its record does not name, cannot be read; the ranks "
+                                       "would compose different batches") from e
             submit_batch()
             self.queue.put(_stack_samples(samples))
         pool.shutdown(wait=False)

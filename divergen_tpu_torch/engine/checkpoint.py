@@ -11,6 +11,13 @@ of ``{"step", "model" (state_dict), "ema_params", "optimizer"}`` for a
 ``torch.load(weights_only=True)``. orbax checkpoints are not read (that
 needs JAX); JAX weights come in through ``utils/convert.py:params_from_jax``.
 Saves are synchronous, so ``wait`` has nothing to wait for.
+
+A model whose leaves are held as slices over the model group
+(``parallel/mesh.py:ModelShards``, given as ``shards``) is written whole: every
+rank calls ``save``, the slices of the model, the EMA copy, the optimizer's
+moments and the grad bank are gathered, and the writer alone (``write``)
+writes them, in the file of an unsliced model. ``restore`` cuts them back,
+so a checkpoint moves between model axes.
 """
 from __future__ import annotations
 
@@ -39,10 +46,10 @@ def _cpu(tree):
 
 
 class Checkpointer:
-    def __init__(self, output_dir: str, max_to_keep: int = 5):
+    def __init__(self, output_dir: str, max_to_keep: int = 5, write: bool = True, shards=None):
         self.dir = os.path.abspath(os.path.join(output_dir, "checkpoints"))
         os.makedirs(self.dir, exist_ok=True)
-        self.max_to_keep = max_to_keep
+        self.max_to_keep, self.write, self.shards = max_to_keep, write, shards
 
     def path(self, step: int) -> str:
         return os.path.join(self.dir, f"step_{int(step)}.pt")
@@ -58,17 +65,28 @@ class Checkpointer:
         if os.path.exists(path) and not force:
             logger.info("checkpoint step %d exists; not overwritten", step)
             return
+        if not (self.write or self.shards):
+            return
+        full = self.shards.full_tree if self.shards else dict
         if not isinstance(state, TrainState):
-            payload = {"step": int(step), "active_state": _cpu(state.state_dict())}
+            raw = state.state_dict()
+            raw["grad_bank"] = full(raw["grad_bank"])
+            payload = {"step": int(step), "active_state": _cpu(raw)}
         else:
             opt = state.optimizer
+            optim = None
+            if opt is not None:
+                optim = (self.shards.full_optimizer_state(opt.optim) if self.shards
+                         else opt.optim.state_dict())
             payload = {
                 "step": int(state.step),
-                "model": _cpu(state.model.state_dict()),
-                "ema_params": _cpu(state.ema_params) if state.ema_params is not None else None,
+                "model": _cpu(full(state.model.state_dict())),
+                "ema_params": _cpu(full(state.ema_params)) if state.ema_params is not None else None,
                 "optimizer": (None if opt is None else
-                              {"optim": _cpu(opt.optim.state_dict()), "count": int(opt.count)}),
+                              {"optim": _cpu(optim), "count": int(opt.count)}),
             }
+        if not self.write:
+            return
         tmp = f"{path}.{os.getpid()}.tmp"
         torch.save(payload, tmp)
         os.replace(tmp, path)  # atomic: a reader never sees a partial file
@@ -95,15 +113,21 @@ class Checkpointer:
         EMA copy and optimizer (an ``ActiveState``'s tensors), in place, and
         return it."""
         raw = self.load(step)
+        local = self.shards.local_tree if self.shards else dict
         if not isinstance(state_template, TrainState):
-            return state_template.load_state_dict(raw["active_state"])
-        state_template.model.load_state_dict(raw["model"])
+            active = dict(raw["active_state"])
+            active["grad_bank"] = local(active["grad_bank"])
+            return state_template.load_state_dict(active)
+        state_template.model.load_state_dict(local(raw["model"]))
         if state_template.ema_params is not None and raw["ema_params"] is not None:
-            for k, v in raw["ema_params"].items():
+            for k, v in local(raw["ema_params"]).items():
                 state_template.ema_params[k].copy_(v)
         opt = state_template.optimizer
         if opt is not None and raw["optimizer"] is not None:
-            opt.optim.load_state_dict(raw["optimizer"]["optim"])
+            optim = raw["optimizer"]["optim"]
+            if self.shards:
+                optim = self.shards.local_optimizer_state(opt.optim, optim)
+            opt.optim.load_state_dict(optim)
             opt.count = raw["optimizer"]["count"]
         state_template.step = raw["step"]
         return state_template

@@ -12,12 +12,15 @@ with ``return_logits``, ``LVISEvaluatorWithLogits``, and a
 per-box class scores.
 
 Over the ranks of ``group`` ``inference_on_dataset`` splits each batch as
-the JAX loop's ``pmap`` does: the batch size is rounded up to a multiple of
-the ranks, and each rank maps and infers only its contiguous rows (as the
-train loader maps only a rank's rows). The fixed-capacity detections are
-all-gathered back into batch order, and so are the samples without their
-pixels. Rank 0 alone runs the evaluator; the other ranks return an empty
-dict.
+the JAX loop's ``pmap`` does over its ``dp`` devices: the first ``dp`` ranks
+(all of them at ``PARALLEL.DATA_PARALLEL`` -1 or 0), whatever the model
+axis, each with the full weights. The batch size is rounded up to a
+multiple of ``dp``, and each of those ranks maps and infers only its
+contiguous rows (as the train loader maps only a rank's rows); the other
+ranks map nothing and take part only in the gathers. The fixed-capacity
+detections are all-gathered back into batch order, and so are the samples
+without their pixels. Rank 0 alone runs the evaluator; the other ranks
+return an empty dict.
 """
 from __future__ import annotations
 
@@ -33,7 +36,7 @@ from ..data import DatasetCatalog, MetadataCatalog
 from ..data.dataset_mapper import DatasetMapper
 from ..evaluation.lvis_evaluator import CustomCOCOEvaluator, LVISEvaluator, OIDEvaluator
 from ..modeling.meta_arch.rcnn import build_model
-from ..parallel.mesh import MODEL_PARALLEL_ITEM
+from ..parallel.mesh import model_shards
 from ..utils import comm
 from ..utils.dist import entry_device
 from ..utils.transfer import to_device, to_host
@@ -94,24 +97,20 @@ def inference_on_dataset(model, params, cfg, dataset_name: str, evaluator,
                          group=None) -> Dict:
     """Timed eval loop (divergen/evaluation/evaluator.py:106-216) on the
     model's device. ``params``: a ``state_dict`` to load into ``model`` first,
-    or None to run the model as it is. Over the ranks of ``group`` (a mesh's
-    ``mesh.group``; None is one process) each batch is split as the module
-    docstring says; ``PARALLEL.DATA_PARALLEL`` -1, 0 or at least the ranks
-    takes them all, as the JAX loop takes every device, a narrower data axis
-    and ``PARALLEL.MODEL_PARALLEL`` above 1 raise."""
-    if cfg.PARALLEL.MODEL_PARALLEL > 1:
-        raise NotImplementedError(MODEL_PARALLEL_ITEM)
+    or None to run the model as it is (with its full weights). Over the ranks
+    of ``group`` (None is one process) each batch is split over the first
+    ``PARALLEL.DATA_PARALLEL`` ranks as the module docstring says: -1, 0 or
+    more than the ranks takes them all, as the JAX loop takes every device,
+    and ``PARALLEL.MODEL_PARALLEL`` plays no part, as in JAX."""
     world, rank = (1, 0) if group is None else (dist.get_world_size(group), dist.get_rank(group))
     dp = cfg.PARALLEL.DATA_PARALLEL
-    if dp in (-1, 0) or dp >= world:
+    if dp in (-1, 0) or dp > world:
         dp = world
-    else:
-        raise ValueError(f"PARALLEL.DATA_PARALLEL {dp} over {world} ranks: a data axis narrower "
-                         "than the ranks is not ported")
     # the batch divisible by the data axis, so the shares are even
     batch_size = max(batch_size, dp)
     batch_size += (-batch_size) % dp
-    rows = slice(rank * batch_size // dp, (rank + 1) * batch_size // dp)
+    mapping = rank < dp
+    rows = slice(rank * batch_size // dp, (rank + 1) * batch_size // dp) if mapping else None
     if params is not None:
         model.load_state_dict(params)
     model.eval()
@@ -126,10 +125,11 @@ def inference_on_dataset(model, params, cfg, dataset_name: str, evaluator,
     t_data = t_comp = 0.0
     warmup = min(5, n)
     start = time.perf_counter()
-    batches = _batches(dataset, mapper, batch_size, rows)
+    batches = _batches(dataset, mapper, batch_size, rows) if mapping else None
+    like = None  # the shapes of a mapping rank's detections, for the others' gathers
     for ofs in range(0, n, batch_size):
         t0 = time.perf_counter()
-        samples, images, sizes = next(batches)
+        samples, images, sizes = next(batches) if mapping else ([], None, None)
         if group is not None:
             # rank 0's evaluator reads each sample's id and transforms, not its pixels
             parts = [None] * world
@@ -138,10 +138,21 @@ def inference_on_dataset(model, params, cfg, dataset_name: str, evaluator,
             samples = [s for part in parts for s in part]
         t_data += time.perf_counter() - t0
         t0 = time.perf_counter()
-        dev = to_device({"images": images, "sizes": sizes.astype(np.int64)}, device)
         with torch.no_grad():
-            out = model(dev["images"], dev["sizes"], training=False)
-            out = {k: comm.all_gather_rows(v, group) for k, v in out.items()}
+            if mapping:
+                dev = to_device({"images": images, "sizes": sizes.astype(np.int64)}, device)
+                out = model(dev["images"], dev["sizes"], training=False)
+            if dp < world:
+                if like is None:
+                    shapes = [{k: (tuple(v.shape), v.dtype) for k, v in out.items()}
+                              if rank == 0 else None]
+                    dist.broadcast_object_list(shapes, src=dist.get_global_rank(group, 0),
+                                               group=group)
+                    like = shapes[0]
+                if not mapping:
+                    out = {k: torch.zeros(shape, dtype=dtype, device=device)
+                           for k, (shape, dtype) in like.items()}
+            out = {k: comm.all_gather_rows(v, group)[:batch_size] for k, v in out.items()}
         if rank == 0:
             out = to_host(out)
         if ofs >= warmup:
@@ -182,10 +193,16 @@ def do_test(cfg, model=None, state: Optional[TrainState] = None, resume: bool = 
     under ``cfg.OUTPUT_DIR`` (its EMA weights first). ``model``: the module
     to evaluate in (default: built for the test canvas on ``device``, the
     card unless the caller names another); with ``MODEL.RESET_CLS_TESTS``
-    the second and later test sets get a new one."""
+    the second and later test sets get a new one. A ``state`` whose model is
+    held as slices over the model group is gathered first (every rank of the
+    group calls this)."""
     dev = entry_device(device)
     canvas = cfg.INPUT.TEST_SIZE
-    if state is None:
+    shards = model_shards(state.model) if state is not None else None
+    if shards is not None:
+        # the full weights of a model held as slices over the model group
+        model_state, ema = shards.state_dict(), shards.full_tree(state.ema_params or {}) or None
+    elif state is None:
         ckpt = Checkpointer(cfg.OUTPUT_DIR)
         step = ckpt.latest_step()
         if step is None:

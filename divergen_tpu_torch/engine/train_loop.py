@@ -12,7 +12,11 @@ Over ranks (``group``): each rank's forward reduces its losses' normalizers
 over the group, and between the backward and the optimizer the gradients are
 averaged over it (``utils/comm.py:all_reduce_grads``), so the clip inside
 ``optimizer.step`` sees the global norm, as the JAX optax chain does on the
-GSPMD gradients of the global batch.
+GSPMD gradients of the global batch. At a model axis above 1 ``group`` is the
+data axis of a ``parallel.mesh.Mesh``; the leaves held as slices
+(``ModelShards``) take their slice of the gradient from the backward, and the
+optimizer's ``shards`` sums the slices' squares over the model group for the
+clip.
 """
 from __future__ import annotations
 

@@ -20,6 +20,16 @@ reduced over the ranks, and the parameters start equal (a broadcast from
 rank 0), so W ranks compute what one process computes on the global batch.
 Checkpoints, ``metrics.json`` and the log are rank 0's; the metrics are
 ``comm.reduce_dict`` means over the ranks.
+
+At ``PARALLEL.MODEL_PARALLEL`` M above 1 the ranks form the JAX package's
+(data, model) grid (``parallel/mesh.py``): the batch is split over the data
+axis only (the M model ranks of a data index take the same rows and draws),
+the leaves JAX's rule shards (``param_sharding_rules``, ``min_size`` 2**18 as
+the JAX ``do_train``) are held as slices with their gradients, moments and
+EMA copy, the gradients are averaged over the data group, and the clip's
+norm and BSGAL's cosine sum the slices' shares over the model group. Every
+rank takes part in a save, which writes the full tensors in the layout of a
+run at model 1, so a checkpoint resumes at either.
 """
 from __future__ import annotations
 
@@ -47,7 +57,7 @@ from ..data.samplers import (
 from ..modeling.meta_arch.rcnn import build_model, detector_init_, load_zs_weight, reset_cls_test
 from ..ops.copy_paste import normalize_cp_method, paste_instances_boxframe
 from ..ops.losses import RankDraws, Rng
-from ..parallel.mesh import MODEL_PARALLEL_ITEM, create_mesh, shard_pytree
+from ..parallel.mesh import create_mesh, model_shards, param_sharding_rules, shard_pytree
 from ..solver.build import SolverOptimizer, build_optimizer
 from ..utils import comm
 from ..utils.dist import Layout, entry_device, layout
@@ -122,10 +132,16 @@ def make_paste_train_step(model: nn.Module, optimizer: SolverOptimizer, cfg,
 
 def train_rows(cfg, lay: Layout):
     """(rows of each batch, rows of each probe batch) that local rank
-    ``lay.local_rank`` of ``lay.local_world`` takes: its contiguous share of
-    the node's ``IMS_PER_BATCH`` and, with BSGAL, of the ``PROBE_BATCH``
-    first rows of the probe batch. A share that is not whole raises."""
-    b, n, l = cfg.SOLVER.IMS_PER_BATCH, lay.local_world, lay.local_rank
+    ``lay.local_rank`` of ``lay.local_world`` takes: its local data index's
+    contiguous share (``local_rank // MODEL_PARALLEL`` of ``local_world //
+    MODEL_PARALLEL``) of the node's ``IMS_PER_BATCH`` and, with BSGAL, of the
+    ``PROBE_BATCH`` first rows of the probe batch. A share that is not whole,
+    or a node whose ranks do not split into whole rows of the grid, raises."""
+    m = max(cfg.PARALLEL.MODEL_PARALLEL, 1)
+    if lay.local_world % m:
+        raise ValueError(f"PARALLEL.MODEL_PARALLEL {m} does not divide the {lay.local_world} "
+                         "ranks of a node")
+    b, n, l = cfg.SOLVER.IMS_PER_BATCH, lay.local_world // m, lay.local_rank // m
     if b % n:
         raise ValueError(f"SOLVER.IMS_PER_BATCH {b} does not split over the {n} ranks of a node")
     probe = min(cfg.MODEL.ACTIVE.PROBE_BATCH, b)
@@ -239,18 +255,22 @@ def do_train(cfg, resume: bool = False, max_steps: Optional[int] = None,
     result, the ``ActiveState`` and the ``world`` size.
 
     Over the ranks of an initialized process group (module docstring):
-    ``PARALLEL.DATA_PARALLEL`` is -1 or the world size, ``MODEL_PARALLEL``
-    above 1 raises, and rank 0 alone writes checkpoints, the grad bank,
-    ``metrics.json``, the log and the profile; each rank keeps its decision
-    log."""
+    ``PARALLEL.DATA_PARALLEL`` is -1 or the world size over
+    ``MODEL_PARALLEL``, which must divide it, and rank 0 alone writes
+    checkpoints, the grad bank, ``metrics.json``, the log and the profile;
+    each rank keeps its decision log. ``TEST.EVAL_PERIOD``'s evaluation takes
+    the full weights and every rank (``eval_loop.inference_on_dataset``)."""
     dev = entry_device(device)
     lay = layout()
-    if cfg.PARALLEL.MODEL_PARALLEL > 1:
-        raise NotImplementedError(MODEL_PARALLEL_ITEM)
-    if cfg.PARALLEL.DATA_PARALLEL not in (-1, lay.world):
+    model_axis = max(cfg.PARALLEL.MODEL_PARALLEL, 1)
+    if lay.world % model_axis:
+        raise ValueError(f"PARALLEL.MODEL_PARALLEL {model_axis} does not divide the "
+                         f"{lay.world} ranks")
+    data_axis = lay.world // model_axis
+    if cfg.PARALLEL.DATA_PARALLEL not in (-1, data_axis):
         raise ValueError(f"PARALLEL.DATA_PARALLEL {cfg.PARALLEL.DATA_PARALLEL}: the data axis "
-                         f"takes every rank, -1 or the world size {lay.world}")
-    mesh = create_mesh(cfg.PARALLEL.DATA_PARALLEL, cfg.PARALLEL.MODEL_PARALLEL, world=lay.world)
+                         f"takes every rank left by the model axis, -1 or {data_axis}")
+    mesh = create_mesh(data_axis, model_axis, world=lay.world)
     group, main = mesh.group, lay.rank == 0
     out_dir = cfg.OUTPUT_DIR
     os.makedirs(out_dir, exist_ok=True)
@@ -263,14 +283,17 @@ def do_train(cfg, resume: bool = False, max_steps: Optional[int] = None,
         # (C, zs_dim) (modeling/utils.py:40-43)
         reset_cls_test(model, load_zs_weight(zs_path,
                                              zs_dim=cfg.MODEL.ROI_BOX_HEAD.ZEROSHOT_WEIGHT_DIM))
-    shard_pytree(model, mesh)  # rank 0's weights on every rank
     logger.info("model parameters: %.2fM", sum(p.numel() for p in model.parameters()) / 1e6)
+    # rank 0's weights on every rank, then each model rank's slices
+    rules = param_sharding_rules(model, mesh) if model_axis > 1 else None
+    shard_pytree(model, mesh, rules=rules)
+    shards = model_shards(model)
     loader = build_train_loader(cfg)
     probe_rows = train_rows(cfg, lay)[1]
 
     optimizer = build_optimizer(cfg, model)
     state = create_train_state(model, optimizer, ema=cfg.MODEL.MODEL_EMA > 0)
-    ckpt = Checkpointer(out_dir)
+    ckpt = Checkpointer(out_dir, write=main, shards=shards)
     state, start_iter = ckpt.resume_or_load(state, resume=resume)
     _same_on_every_rank("resumed step", start_iter)
     periodic = PeriodicCheckpointer(ckpt, cfg.SOLVER.CHECKPOINT_PERIOD, cfg.SOLVER.MAX_ITER)
@@ -284,7 +307,8 @@ def do_train(cfg, resume: bool = False, max_steps: Optional[int] = None,
 
         astate = init_active_state({n: p for n, p in model.named_parameters() if p.requires_grad},
                                    queue_size=cfg.MODEL.ACTIVE.QUEUE_SIZE)
-        a_ckpt = Checkpointer(os.path.join(out_dir, "grad_bank"), max_to_keep=2)
+        a_ckpt = Checkpointer(os.path.join(out_dir, "grad_bank"), max_to_keep=2, write=main,
+                              shards=shards)
         astate, a_it = a_ckpt.resume_or_load(astate, resume=resume)
         _same_on_every_rank("resumed grad-bank step", a_it)
         norm2 = torch.stack([(v.double() ** 2).sum() for v in astate.grad_bank.values()]).sum()
@@ -301,8 +325,8 @@ def do_train(cfg, resume: bool = False, max_steps: Optional[int] = None,
     writers = [CommonMetricPrinter(cfg.SOLVER.MAX_ITER),
                JSONWriter(os.path.join(out_dir, "metrics.json"))] if main else []
     rng: Rng = torch.Generator(device=dev).manual_seed(cfg.SEED + 1)
-    if group is not None:
-        rng = RankDraws(rng, lay.rank, lay.world)
+    if mesh.shape["data"] > 1:
+        rng = RankDraws(rng, mesh.index(lay.rank)[0], mesh.shape["data"])
     max_iter = (cfg.SOLVER.MAX_ITER if max_steps is None
                 else min(cfg.SOLVER.MAX_ITER, start_iter + max_steps))
     data_iter = device_prefetch(iter(loader), size=cfg.DATALOADER.PREFETCH_TO_DEVICE, device=dev)
@@ -357,7 +381,7 @@ def do_train(cfg, resume: bool = False, max_steps: Optional[int] = None,
                     rows = paste_ins_rows(to_host(aux_rows), paste_filenames)
                     if rows:
                         decision_log.log_paste_ins(it, rows, int(h["use"]), int(h["num"]))
-            if main and (it + 1) % cfg.MODEL.ACTIVE.BANK_CKPT_PERIOD == 0:
+            if (it + 1) % cfg.MODEL.ACTIVE.BANK_CKPT_PERIOD == 0:
                 a_ckpt.save(it + 1, astate)
         else:
             state, metrics = step(state, batch, rng)
@@ -369,16 +393,16 @@ def do_train(cfg, resume: bool = False, max_steps: Optional[int] = None,
             storage.put_scalars(**host)
             for w in writers:
                 w.write(storage)
-        if main:
-            periodic.step(it, state)
+        periodic.step(it, state)
         if cfg.TEST.EVAL_PERIOD > 0 and (it + 1) % cfg.TEST.EVAL_PERIOD == 0:
             from .eval_loop import do_test
 
-            # evaluated in a model of its own: do_test loads the EMA weights
-            # into the model it is given
+            # evaluated in a model of its own: do_test loads the (full) EMA
+            # weights into the model it is given, over every rank
             if eval_model is None:
                 eval_model = build_model(cfg, input_size=(cfg.INPUT.TEST_SIZE,) * 2, device=dev)
-            run["eval"] = do_test(cfg, model=eval_model, state=state, device=dev, group=group)
+            run["eval"] = do_test(cfg, model=eval_model, state=state, device=dev,
+                                  group=comm.world_group())
         storage.step()
         clock.mark()
         t_data = time.perf_counter()

@@ -303,63 +303,69 @@ def dryrun_train(device=None) -> Dict[str, float]:
     return out
 
 
-def _dryrun_rank(rank: int, n: int, store: str, out: str) -> None:
-    """One rank of ``dryrun_multichip``: its image of the global batch."""
+def _dryrun_rank(rank: int, n: int, model_axis: int, store: str, out: str) -> None:
+    """One rank of ``dryrun_multichip``: its data index's image of the global
+    batch, its slices of the sharded leaves."""
     import json
 
     import torch.distributed as dist
 
     from .ops.losses import RankDraws
-    from .parallel.mesh import batch_sharding, create_mesh, shard_pytree
+    from .parallel.mesh import batch_sharding, create_mesh, param_sharding_rules, shard_pytree
     from .utils import comm
 
     torch.set_num_threads(1)
     dist.init_process_group("gloo", store=dist.FileStore(store, n), rank=rank, world_size=n)
     try:
-        mesh = create_mesh(data=-1, model=1)
+        mesh = create_mesh(data=-1, model=model_axis)
         cfg = _dryrun_cfg()
         model = build_model(cfg, input_size=(64, 64), device="cpu", param_dtype=torch.float32)
         fast_init_(model, torch.Generator().manual_seed(SEED + rank))  # rank 0's win
-        shard_pytree(model, mesh)
+        shard_pytree(model, mesh, rules=param_sharding_rules(model, mesh, min_size=2**12))
         optimizer = build_optimizer(cfg, model)
         state = create_train_state(model, optimizer, ema=True)
         rng = np.random.RandomState(0)
-        b = mesh.shape["data"]  # one image a rank, as the JAX dryrun
+        b = mesh.shape["data"]  # one image a data index, as the JAX dryrun
         batch = batch_sharding(mesh)({
             "images": torch.from_numpy(rng.rand(b, 64, 64, 3).astype(np.float32) * 255),
             "image_sizes": torch.tensor([[64, 64]] * b), "gt": _synth_gt(rng, b, 8, 8, img=64)})
         step = make_train_step(model, optimizer, ema_decay=0.999, group=mesh)
-        state, metrics = step(state, batch, RankDraws(torch.Generator().manual_seed(2), rank, b))
+        draws = RankDraws(torch.Generator().manual_seed(2), mesh.index()[0], b)
+        state, metrics = step(state, batch, draws)
         metrics = comm.reduce_dict({k: float(v) for k, v in metrics.items()})
+        sliced = len(optimizer.shards.dims) if optimizer.shards is not None else 0
         if rank == 0:
             with open(out, "w") as f:
-                json.dump({"step": state.step, "metrics": metrics}, f)
+                json.dump({"step": state.step, "metrics": metrics, "sliced": sliced}, f)
     finally:
         dist.destroy_process_group()
 
 
 def dryrun_multichip(n_devices: int) -> Dict[str, float]:
     """``dryrun_train`` over ``n_devices`` ranks: gloo processes on the CPU
-    (``torch.multiprocessing.spawn``, a ``FileStore`` rendezvous), one image a
-    rank, the model axis 1 (the JAX dryrun's ``model = 2`` layout is not
-    ported: ROADMAP.md §1, item 4). Checks that the step counter is 1 and
-    every metric (the mean over the ranks) is finite; prints and returns the
-    metrics."""
+    (``torch.multiprocessing.spawn``, a ``FileStore`` rendezvous), as the JAX
+    dryrun lays them out: a model axis of 2 when ``n_devices`` is even and
+    above 1, with the leaves of at least 2**12 elements sharded on it
+    (``param_sharding_rules(min_size=2**12)``), one image a data index.
+    Checks that the step counter is 1 and every metric (the mean over the
+    ranks) is finite; prints and returns the metrics."""
     import json
     import os
     import tempfile
 
     import torch.multiprocessing as mp
 
+    model_axis = 2 if n_devices % 2 == 0 and n_devices > 1 else 1
     with tempfile.TemporaryDirectory() as tmp:
         out = os.path.join(tmp, "metrics.json")
-        mp.spawn(_dryrun_rank, args=(n_devices, os.path.join(tmp, "store"), out),
+        mp.spawn(_dryrun_rank, args=(n_devices, model_axis, os.path.join(tmp, "store"), out),
                  nprocs=n_devices)
         with open(out) as f:
             res = json.load(f)
     assert res["step"] == 1
     for k, v in res["metrics"].items():
         assert math.isfinite(v), f"{k} not finite"
-    print(f"dryrun_multichip OK: mesh=({n_devices}x1), batch={n_devices}, "
-          f"total_loss={res['metrics']['total_loss']:.4f}")
+    dp = n_devices // model_axis
+    print(f"dryrun_multichip OK: mesh=({dp}x{model_axis}), batch={dp}, "
+          f"{res['sliced']} leaves sharded, total_loss={res['metrics']['total_loss']:.4f}")
     return res["metrics"]

@@ -23,7 +23,9 @@ Without checkpoints the modules run on random weights drawn from fixed seeds
 ``--if_unet_ckpt2`` load the IF-I-XL / IF-II-L releases); without both SDXL
 text checkpoints the full-width path conditions on hash-seeded
 pseudo-embeddings, and ``--tiny`` runs tiny random models and text towers.
-``--data_parallel`` is not ported yet.
+``--data_parallel`` splits each SDXL batch over every local card where there
+is more than one (``SDXLPipeline(mesh=…)``), as the JAX CLI shards it over
+``jax.devices()``; on one card it changes nothing.
 
     python -m divergen_tpu_torch.pipeline.generation.txt2img \\
         --from_file prompts/ --n_samples 4 --sampler dpmpp_2m --steps 25
@@ -37,9 +39,6 @@ from typing import List, Optional, Tuple
 
 import numpy as np
 import torch
-
-_NOT_PORTED = ("data_parallel",)
-
 
 def build_argparser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser("txt2img")
@@ -86,7 +85,8 @@ def build_argparser() -> argparse.ArgumentParser:
                    help="W8A8 int8 transformer matmuls (hand-written int8 GEMM kernels)")
     p.add_argument("--encoder_reuse", action="store_true",
                    help="Faster-Diffusion encoder reuse: skip the UNet down path on odd steps")
-    p.add_argument("--data_parallel", action="store_true")
+    p.add_argument("--data_parallel", action="store_true",
+                   help="split each SDXL batch over every local card (more than one)")
     p.add_argument("--device", type=str, default="",
                    help="torch device (default: cuda; without a card pass cpu, nothing falls back)")
     return p
@@ -134,8 +134,12 @@ def _build_pipeline(args, device: torch.device):
         _load(vae, load_sdxl_vae_params(args.vae_ckpt, n_levels=len(vae.channels)))
     else:
         flax_init_(vae, gen.manual_seed(1))
+    mesh = None
+    if args.data_parallel and device.type == "cuda" and torch.cuda.device_count() > 1:
+        mesh = [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
     pipe = SDXLPipeline(unet, vae, steps=args.steps, guidance_scale=args.guidance,
-                        encoder_reuse=args.encoder_reuse, int8=args.int8, sampler=args.sampler)
+                        encoder_reuse=args.encoder_reuse, int8=args.int8, mesh=mesh,
+                        sampler=args.sampler)
     return pipe, unet.context_dim
 
 
@@ -316,9 +320,6 @@ def run_if_cascade(args) -> int:
 
 def main(argv=None) -> int:
     args = build_argparser().parse_args(argv)
-    for flag in _NOT_PORTED:
-        if getattr(args, flag):
-            raise SystemExit(f"--{flag} is not yet ported")
     if args.stages and args.stages[0] == "I":
         return run_if_cascade(args)
     if "I" in args.stages or "II" in args.stages:

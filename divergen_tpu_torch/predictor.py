@@ -149,19 +149,33 @@ class BatchPredictor:
             yield from flush_one()
 
 
+def worker_devices(device: torch.device, num_workers: int) -> List[torch.device]:
+    """The device of each ``AsyncPredictor`` worker: ``cuda:(wid % n)`` over
+    the ``n`` local cards for a CUDA device without an index (the JAX class's
+    ``devices[wid % len(devices)]``), else ``device`` for every worker."""
+    if device.type == "cuda" and device.index is None:
+        n = max(torch.cuda.device_count(), 1)
+        return [torch.device("cuda", wid % n) for wid in range(num_workers)]
+    return [device] * num_workers
+
+
 class AsyncPredictor:
     """Asynchronous multi-worker predictor (divergen/predictor.py:164-253
     API parity: put/get in request order, __call__, __len__, shutdown,
     default_buffer_size).
 
-    Worker threads on the one card (the multi-device spread of the JAX class
-    waits for ``torch.distributed``): each builds its own ``Predictor`` from
-    ``cfg`` and ``params`` and runs it on a CUDA stream of its own. The
-    workers' Python (the launch-bound forward, the mask paste) shares the
-    interpreter lock, so one worker's host work overlaps another's device
-    work only where it waits on the card or runs outside the lock. The
-    kernel wrappers launch on the current stream. Their launch counters are
-    plain ints, not meant to be read while workers run."""
+    Worker threads spread over the local cards as the JAX class spreads them
+    over ``jax.local_devices()``: ``num_workers`` defaults to the number of
+    local CUDA devices (1 on the CPU), and worker ``wid`` runs on
+    ``cuda:(wid % n)`` (``worker_devices``), where a device without an index
+    is asked for; a device with an index, or the CPU, takes every worker.
+    Each builds its own ``Predictor`` from ``cfg`` and ``params`` and runs it
+    on a CUDA stream of its own. The workers' Python (the launch-bound
+    forward, the mask paste) shares the interpreter lock, so one worker's
+    host work overlaps another's device work only where it waits on the card
+    or runs outside the lock. The kernel wrappers launch on the current
+    stream. Their launch counters are plain ints, not meant to be read while
+    workers run."""
 
     class _StopToken:
         pass
@@ -173,17 +187,18 @@ class AsyncPredictor:
         import threading
 
         device = entry_device(device)
-        if device.type == "cuda" and device.index is None:  # the workers' threads set it
-            device = torch.device("cuda", torch.cuda.current_device())
-        num_workers = max(num_workers or 1, 1)
+        if num_workers is None:
+            num_workers = torch.cuda.device_count() if device.type == "cuda" else 1
+        num_workers = max(num_workers, 1)
+        self.devices = worker_devices(device, num_workers)
         self.task_queue: "queue.Queue" = queue.Queue(maxsize=num_workers * 3)
         self.result_queue: "queue.Queue" = queue.Queue()
         self._threads = []
         self._ready = threading.Barrier(num_workers + 1)
         self._errors: List[Exception] = []
-        for _ in range(num_workers):
+        for dev in self.devices:
             t = threading.Thread(
-                target=self._worker, args=(cfg, params, device, score_thresh),
+                target=self._worker, args=(cfg, params, dev, score_thresh),
                 daemon=True,
             )
             t.start()

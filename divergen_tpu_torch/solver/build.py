@@ -89,12 +89,16 @@ def _lr_multiplier_labels(names: Iterable[str], backbone_prefix: str,
 
 class SolverOptimizer:
     """A ``torch.optim`` optimizer with its schedule, its groups' multipliers
-    and the clipping limit; ``count`` is the number of steps taken."""
+    and the clipping limit; ``count`` is the number of steps taken.
+    ``shards``: the ``parallel.mesh.ModelShards`` of a model whose leaves are
+    held as slices over the model group, whose squares the global norm sums
+    over that group."""
 
     def __init__(self, optim: torch.optim.Optimizer, schedule: Callable[[int], float],
                  clip_value: Optional[float]):
         self.optim, self.schedule, self.clip_value = optim, schedule, clip_value
         self.count = 0
+        self.shards = None
 
     def parameters(self):
         return [p for group in self.optim.param_groups for p in group["params"]]
@@ -113,9 +117,18 @@ class SolverOptimizer:
         grads = [p.grad for p in params]
         # float64 sums: the CPU's float32 norm of a 12.8 M-element weight
         # drifts by 7e-4 (ResNet-18's box-head fc1), where XLA's stays exact
-        norm = torch.linalg.vector_norm(torch.stack(
-            torch._foreach_norm(grads, 2, dtype=torch.float64))).float() if grads \
-            else torch.zeros(())
+        norms = torch.stack(torch._foreach_norm(grads, 2, dtype=torch.float64)) if grads \
+            else torch.zeros((1,), dtype=torch.float64)
+        if self.shards is None:
+            norm = torch.linalg.vector_norm(norms).float()
+        else:
+            from ..utils.comm import all_reduce_sum
+
+            held = self.shards.held()
+            sliced = torch.tensor([id(p) in held for p in params], device=norms.device)
+            sq = norms.square()
+            norm = (sq[~sliced].sum() + all_reduce_sum(sq[sliced].sum(), self.shards.group)
+                    ).sqrt().float()
         if self.clip_value is not None:
             scale = torch.where(norm < self.clip_value, torch.ones_like(norm),
                                 self.clip_value / norm)
@@ -133,7 +146,8 @@ def build_optimizer(cfg, model: nn.Module) -> SolverOptimizer:
     schedule, the per-group multipliers (``SOLVER.BACKBONE_MULTIPLIER`` for
     names under ``bottom_up``, ``SOLVER.CUSTOM_MULTIPLIER`` for names holding a
     ``SOLVER.CUSTOM_MULTIPLIER_NAME`` keyword) and full-model gradient
-    clipping."""
+    clipping. Over a model whose leaves ``parallel.mesh.shard_pytree`` cut to
+    slices, the norm sums the slices' squares over the model group."""
     custom = {name: cfg.SOLVER.CUSTOM_MULTIPLIER for name in cfg.SOLVER.CUSTOM_MULTIPLIER_NAME}
     multipliers = {"default": 1.0, "backbone": cfg.SOLVER.BACKBONE_MULTIPLIER,
                    **{f"custom:{name}": mult for name, mult in custom.items()}}
@@ -153,8 +167,9 @@ def build_optimizer(cfg, model: nn.Module) -> SolverOptimizer:
     else:
         raise ValueError(f"unknown optimizer {opt_name}")
     clip = cfg.SOLVER.CLIP_GRADIENTS
-    return SolverOptimizer(optim, build_lr_schedule(cfg),
-                           clip.CLIP_VALUE if clip.ENABLED else None)
+    opt = SolverOptimizer(optim, build_lr_schedule(cfg), clip.CLIP_VALUE if clip.ENABLED else None)
+    opt.shards = getattr(model, "model_shards", None)  # a model cut by parallel.mesh.shard_pytree
+    return opt
 
 
 @torch.no_grad()

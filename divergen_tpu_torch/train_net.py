@@ -84,11 +84,11 @@ def main(args):
 
     if args.eval_only:
         from .engine.eval_loop import do_test
+        from .utils import comm
 
-        from .parallel.mesh import create_mesh
-
-        group = create_mesh(cfg.PARALLEL.DATA_PARALLEL, cfg.PARALLEL.MODEL_PARALLEL).group
-        return do_test(cfg, resume=args.resume, device=device, group=group)
+        # evaluation splits its batches over the ranks whatever the model
+        # axis, as the JAX loop pmaps over its devices
+        return do_test(cfg, resume=args.resume, device=device, group=comm.world_group())
 
     from .engine.trainer import do_train
 

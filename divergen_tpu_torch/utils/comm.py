@@ -61,6 +61,11 @@ def is_main_process() -> bool:
     return get_rank() == 0
 
 
+def world_group():
+    """The default process group once one is initialized, else None."""
+    return dist.group.WORLD if _initialized() else None
+
+
 def synchronize() -> None:
     """A barrier over the ranks (comm.synchronize); a no-op at world size 1."""
     if get_world_size() == 1:

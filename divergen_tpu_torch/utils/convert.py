@@ -125,3 +125,18 @@ def load_adam_state(optim: torch.optim.Optimizer, module: nn.Module, mu: Mapping
             "exp_avg": first[name].to(p.device, p.dtype).contiguous(),
             "exp_avg_sq": second[name].to(p.device, p.dtype).contiguous(),
         }
+
+
+def jax_last_dim(module: nn.Module, name: str) -> int:
+    """The dim of ``module``'s parameter ``name`` that holds the last axis of
+    its JAX leaf, by the mapping of :func:`params_from_jax`: dim 0 of a Dense
+    or Conv ``weight`` (a flax ``kernel``: (in, out) → (out, in), (kh, kw,
+    in, out) → (out, in, kh, kw)), dim 1 of a ``ConvTranspose2d`` weight, and
+    the last dim of everything else (embeddings, norm scales, biases, raw
+    parameters), which keeps the JAX layout."""
+    prefix, _, leaf = name.rpartition(".")
+    owner = module.get_submodule(prefix)
+    p = getattr(owner, leaf)
+    if leaf == "weight" and p.dim() >= 2 and not isinstance(owner, nn.Embedding):
+        return 1 if isinstance(owner, nn.ConvTranspose2d) else 0
+    return p.dim() - 1

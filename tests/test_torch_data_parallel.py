@@ -1,7 +1,8 @@
 """Data parallelism over two gloo ranks on the CPU against one process and the JAX step.
 
-One session of two ranks (``torch_ranks.detector_session``, a ``FileStore``
-rendezvous) runs four tasks on the tiny Swin detector, float32:
+One session of two ranks (``torch_ranks.sessions``, a ``FileStore``
+rendezvous) runs the tasks of ``detector_session`` and then those of
+``model_axis_session`` on the tiny Swin detector, float32. The first four:
 
 - the train step (``make_train_step(group=…)``), each rank holding one of the
   two images of the batch of ``test_torch_train_step.py`` and its rows of
@@ -32,6 +33,13 @@ rendezvous) runs four tasks on the tiny Swin detector, float32:
   mask logits within 1e-4 (a forward of two images against one of four: the
   convolutions sum in another order, 2e-5 seen), and the same results on
   rank 0 (an empty dict on rank 1).
+
+The model axis's tasks (data 1 × model 2 unless said): the train step of the
+first task, with the leaves JAX's rule shards at ``min_size`` 2**12 held as
+slices, against the JAX step and the one-process step, then saved and
+stepped again; BSGAL's step; BSGAL with ``PER_INSTANCE`` over the two ranks
+as data ranks; ``inference_on_dataset`` at ``DATA_PARALLEL 1``. The row-split
+loader with missing files is held against the JAX loader without ranks.
 
 The JAX programs and the session run once per module.
 """
@@ -66,7 +74,7 @@ from test_torch_detector import TINY_SWIN, randomized, shape_init, t
 from test_torch_train_losses import CANVAS, detector_batch, jax_draws, jx, torch_gt, train_cfg
 from test_torch_train_step import SOLVER, adam_moments, metrics_close, moments_close, \
     named_as_tree, updates_close
-from torch_ranks import RecordingEvaluator, detector_session, rows_of, run_ranks
+from torch_ranks import RecordingEvaluator, rows_of, run_ranks, sessions
 
 torch.set_num_threads(1)
 
@@ -167,8 +175,8 @@ def jax_caption_case(tiny):
                      "draws": jax_draws(key, 2, 24, 8), "ann_type": "captiontag"}}
 
 
-def bsgal_case(tiny, train):
-    cfg = train_cfg(lambda: tge._small_cfg(backbone="swin"), **ACTIVE)
+def bsgal_case(tiny, train, **keys):
+    cfg = train_cfg(lambda: tge._small_cfg(backbone="swin"), **dict(ACTIVE, **keys))
     batch = torch_batch(active_batch(51))
     tm = trcnn.build_model(cfg, input_size=CANVAS)
     tm.load_state_dict(train["state_dict"])
@@ -214,14 +222,24 @@ def session(tmp_path_factory):
         caption = jax_caption_case(tiny)
         bsgal = bsgal_case(tiny, train)
         evaluate = eval_case(train, tmp_path_factory.mktemp("data"))
+        train_task = {"cfg": train["tcfg"], "state_dict": train["state_dict"], "canvas": CANVAS,
+                      "batch": train["batch"], "draws": train["draws"],
+                      "loss_weights": LOSS_WEIGHTS}
         spec = {"tiny_swin": TINY_SWIN, "caption": caption["task"], "bsgal": bsgal["task"],
-                "evaluate": evaluate["task"],
-                "train": {"cfg": train["tcfg"], "state_dict": train["state_dict"],
-                          "canvas": CANVAS, "batch": train["batch"], "draws": train["draws"],
-                          "loss_weights": LOSS_WEIGHTS}}
-        ranks = run_ranks(detector_session, 2, tmp_path_factory.mktemp("ranks"), spec)
+                "evaluate": evaluate["task"], "train": train_task}
+        # the model axis's tasks run next in the same two ranks (``model_axis``)
+        per_instance = bsgal_case(tiny, train, **PER_INSTANCE)
+        narrow = dict(evaluate["task"], cfg=evaluate["task"]["cfg"].clone())
+        narrow["cfg"].PARALLEL.DATA_PARALLEL, narrow["cfg"].PARALLEL.MODEL_PARALLEL = 1, 2
+        model_spec = {"tiny_swin": TINY_SWIN, "bsgal": bsgal["task"],
+                      "per_instance": per_instance["task"], "evaluate": narrow,
+                      "train": train_task}
+        ckpt = str(tmp_path_factory.mktemp("model_axis_ckpt"))
+        both = run_ranks(sessions, 2, tmp_path_factory.mktemp("ranks"), spec, model_spec, ckpt)
         yield {"train": train, "caption": caption, "bsgal": bsgal, "evaluate": evaluate,
-               "ranks": ranks}
+               "ranks": [r["detector"] for r in both],
+               "model_axis": {"ranks": [r["model_axis"] for r in both],
+                              "per_instance": per_instance, "ckpt": ckpt}}
     finally:
         DatasetCatalog.remove(DATASET)
         MetadataCatalog.remove(DATASET)
@@ -416,3 +434,231 @@ def test_train_rows_and_the_row_split_loader():
         hi = [(2, 4), (1, 2)][i % 2]
         np.testing.assert_array_equal(parts[0][i], w[lo[0]:lo[1]])
         np.testing.assert_array_equal(parts[1][i], w[hi[0]:hi[1]])
+
+
+def test_row_split_loader_backfills_a_missing_file_as_jax(tmp_path):
+    """Files missing from a row-split loader's records are skipped and the
+    batch backfilled from the index stream as the JAX loader does: the two
+    ranks' rows of each batch (and of each probe batch) concatenate to the
+    JAX loader's batch, per-sample seeds included; every rank composes the
+    batch, each maps only its own rows."""
+    from divergen_tpu.data import loader as jloader
+    from divergen_tpu.data import samplers as jsamplers
+    from divergen_tpu_torch.data.loader import TrainLoader
+    from divergen_tpu_torch.data.samplers import TrainingSampler
+
+    records = []
+    for i in range(12):
+        path = tmp_path / f"{i}.txt"
+        if i not in (2, 7, 8):  # three missing files, two of them neighbours
+            path.write_text(str(i))
+        records.append({"file_name": str(path), "image_id": i})
+
+    def mapper_logging(log):
+        def mapper(rec, rng):
+            with open(rec["file_name"]) as f:  # FileNotFoundError for a missing file
+                value = int(f.read())
+            row = (value, int(rng.integers(1 << 30)))  # the draw names the row's seed
+            log.append(row)
+            return {"image": np.array(row), "image_id": rec["image_id"]}
+        return mapper
+
+    def take(loader, n):
+        out = [b["image"] for _, b in zip(range(n), iter(loader))]
+        loader.stop()
+        return out
+
+    # the JAX loader's batches, far enough ahead to cover the port loaders' prefetch
+    want = take(jloader.TrainLoader(records, mapper_logging([]),
+                                    jsamplers.TrainingSampler(12, seed=5), 4, num_workers=2,
+                                    seed=3), 16)
+    rows = [[(0, 2), (0, 1)], [(2, 4), (1, 2)]]
+    parts, logs = [], [[], []]
+    for r, log in zip(rows, logs):
+        parts.append(take(TrainLoader(records, mapper_logging(log), TrainingSampler(12, seed=5),
+                                      4, num_workers=2, queue_size=1, seed=3, rows=r), 6))
+    assert not any(int(v) in (2, 7, 8) for w in want for v in w[:, 0])
+    for r, log in zip(rows, logs):
+        # every row a rank mapped is one of its own rows of a batch
+        own = {tuple(int(x) for x in row) for i, w in enumerate(want)
+               for row in w[r[i % 2][0]:r[i % 2][1]]}
+        assert log and set(log) <= own
+    for i, w in enumerate(want[:6]):
+        got = np.concatenate([parts[0][i], parts[1][i]])
+        lo, hi = rows[0][i % 2], rows[1][i % 2]
+        np.testing.assert_array_equal(got, np.concatenate([w[lo[0]:lo[1]], w[hi[0]:hi[1]]]))
+
+
+# -- the model axis ---------------------------------------------------------------------------
+
+# at 0.3 the global quantile of three pastes keeps one; per rank (two and one
+# pastes) it would keep one of each
+PER_INSTANCE = {"MODEL.ACTIVE.PER_INSTANCE": True, "MODEL.ACTIVE.PER_INSTANCE_PERCENT": 0.3}
+
+
+@pytest.fixture(scope="module")
+def model_axis(session):
+    """The session's model-axis tasks (``torch_ranks.model_axis_session``,
+    after ``detector_session`` in the same two ranks): as data 1 × model 2
+    the train step, its checkpoint, BSGAL and the evaluation on the first
+    rank; as two data ranks BSGAL with ``PER_INSTANCE``; with the
+    one-process step they are held against."""
+    return session["model_axis"]
+
+
+def jax_sharded_leaves(params, min_size):
+    """The port names of the leaves JAX's rule shards on a (1, 2) mesh."""
+    from divergen_tpu.parallel import mesh as jmesh
+
+    sh = jmesh.param_sharding_rules(params["params"], jmesh.create_mesh(
+        1, 2, devices=jax.devices("cpu")[:2]), min_size=min_size)
+    leaf = {"kernel": "weight", "scale": "weight", "embedding": "weight"}
+    out = set()
+    for path, s in jax.tree_util.tree_leaves_with_path(sh):
+        names = [str(p.key) for p in path]
+        if "model" in s.spec:
+            out.add(".".join(names[:-1] + [leaf.get(names[-1], names[-1])]))
+    return out
+
+
+def test_model_axis_slices_what_jax_shards(session, model_axis):
+    """The only leaves held as slices are those JAX's rule shards (``min_size``
+    2**12, as the JAX dryrun); each one's parameter, gradient, AdamW moments
+    and EMA copy are half the full shape on each rank, along the dim that
+    holds the JAX leaf's last axis; every other leaf is whole."""
+    train = session["train"]
+    got = model_axis["ranks"][0]["train"]
+    assert got["groups"] == (True, True)  # no data group at data 1; a model group
+    assert set(got["sliced"]) == jax_sharded_leaves(train["params"], 2**12)
+    assert len(got["sliced"]) > 10
+    full = {n: tuple(v.shape) for n, v in train["state_dict"].items()}
+    for n, shapes in got["shapes"].items():
+        want = list(full[n])
+        if n in got["sliced"]:
+            want[got["sliced"][n]] //= 2
+        assert set(shapes.values()) == {tuple(want)}, n
+    assert model_axis["ranks"][1]["train"]["shapes"] == got["shapes"]
+
+
+def test_model_axis_step_against_jax_and_one_process(session, model_axis):
+    """One train step at data 1 × model 2 against the JAX step on the global
+    batch (the bounds of ``test_train_step_against_jax``) and against the
+    port's one process (metrics within 1e-5 relative, the gathered moments
+    within 1e-5 of each leaf's largest, the parameters within 1e-4 of the
+    learning rate where the first moment is sized)."""
+    train = session["train"]
+    a, b = (r["train"] for r in model_axis["ranks"])
+    assert a["metrics"] == b["metrics"]
+    for key in ("params", "exp_avg", "exp_avg_sq", "ema"):
+        for n, v in a["first"][key].items():
+            assert torch.equal(v, b["first"][key][n]), (key, n)
+    metrics_close(a["metrics"], train["metrics"])
+    mu, nu, _ = train["moments"]
+    tcfg, before = train["tcfg"], train["params"]
+    holder = trcnn.build_model(tcfg, input_size=CANVAS)
+    holder.load_state_dict(a["first"]["params"])
+    opt = tsolver.build_optimizer(tcfg, holder)
+    for n, p in holder.named_parameters():
+        opt.optim.state[p] = {"exp_avg": a["first"]["exp_avg"][n],
+                              "exp_avg_sq": a["first"]["exp_avg_sq"][n]}
+    moments_close("model 2", tcfg, opt, holder, mu, nu, before)
+    updates_close("model 2", tree_from_module(holder, before), train["after"], before, mu,
+                  train["lr"])
+    updates_close("model 2, ema", named_as_tree(tcfg, a["first"]["ema"], before), train["ema"],
+                  before, mu, train["lr"], scale=0.1)
+    tm, topt, want = port_train_step(train, train["batch"], train["draws"])
+    for k, w in want.items():
+        assert a["metrics"][k] == pytest.approx(w, rel=1e-5, abs=1e-7), k
+    for n, p in tm.named_parameters():
+        for key in ("exp_avg", "exp_avg_sq"):
+            w = topt.optim.state[p][key]
+            assert float((a["first"][key][n] - w).abs().max()) <= 1e-5 * float(w.abs().max()) \
+                + 1e-12, (n, key)
+        diff = (a["first"]["params"][n] - p.detach()).abs()
+        assert float(diff.max()) <= 1e-4 * train["lr"] + 2e-7 * float(p.detach().abs().max()), n
+
+
+def test_model_axis_checkpoint_resumes_at_model_one(session, model_axis):
+    """The checkpoint written at model 2 is an unsliced model's file: it
+    restores at model 1 to the gathered tensors bit for bit, and the next
+    step there equals the second step at model 2 (metrics within 1e-5
+    relative, parameters within 1e-4 of the learning rate)."""
+    from divergen_tpu_torch.engine.checkpoint import Checkpointer
+
+    train = session["train"]
+    a = model_axis["ranks"][0]["train"]
+    raw = Checkpointer(model_axis["ckpt"]).load(1)
+    assert raw["step"] == 1 and set(raw["model"]) == set(train["state_dict"])
+    for n, v in a["first"]["params"].items():
+        assert torch.equal(raw["model"][n], v) and torch.equal(raw["ema_params"][n], a["first"]["ema"][n]), n
+    tm = trcnn.build_model(train["tcfg"], input_size=CANVAS)
+    topt = tsolver.build_optimizer(train["tcfg"], tm)
+    state = Checkpointer(model_axis["ckpt"]).restore(tloop.create_train_state(tm, topt, ema=True))
+    assert state.step == 1 and topt.count == 1
+    for n, p in tm.named_parameters():
+        assert torch.equal(p.detach(), a["first"]["params"][n]), n
+        assert torch.equal(topt.optim.state[p]["exp_avg"], a["first"]["exp_avg"][n]), n
+    step = tloop.make_train_step(tm, topt, ema_decay=0.9, loss_weights=LOSS_WEIGHTS)
+    _, metrics = step(state, train["batch"], train["draws"])
+    for k, v in metrics.items():
+        assert float(v) == pytest.approx(a["second"]["metrics"][k], rel=1e-5, abs=1e-7), k
+    for n, p in tm.named_parameters():
+        diff = (a["second"]["params"][n] - p.detach()).abs()
+        assert float(diff.max()) <= 1e-4 * train["lr"] + 2e-7 * float(p.detach().abs().max()), n
+
+
+def test_model_axis_bsgal_step(session, model_axis):
+    """BSGAL's step at data 1 × model 2 (its cosines and norms summed over
+    the slices) takes the one process's decision, ``grad_sim`` within 1e-5."""
+    one = session["bsgal"]
+    a, b = (r["bsgal"] for r in model_axis["ranks"])
+    assert a["metrics"] == b["metrics"] and a["counts"] == b["counts"] == one["counts"]
+    for k, w in one["metrics"].items():
+        assert a["metrics"][k] == pytest.approx(w, rel=1e-5, abs=1e-5 if k == "grad_sim" else 1e-7), k
+    for n, p in one["model"].named_parameters():
+        assert float((a["params"][n] - p.detach()).abs().max()) <= 2e-7 * max(
+            1.0, float(p.detach().abs().max())) + 1e-6 * float(tsolver.build_lr_schedule(
+                one["task"]["cfg"])(0)), n
+
+
+def test_per_instance_over_two_data_ranks(model_axis):
+    """BSGAL with ``PER_INSTANCE`` over two data ranks: the quantile is taken
+    over the global batch's pastes (the ranks hold two and one), so the
+    decision, the pastes kept and every metric are the one process's
+    (1e-5); a quantile per rank would keep two pastes, not one."""
+    one = model_axis["per_instance"]
+    a, b = (r["per_instance"] for r in model_axis["ranks"])
+    assert a["counts"] == b["counts"] == one["counts"] and a["checksum"] == b["checksum"]
+    for k, w in one["metrics"].items():
+        assert a["metrics"][k] == pytest.approx(w, rel=1e-5, abs=1e-5), k
+    assert one["metrics"]["paste_num"] == a["metrics"]["paste_num"] == 1.0
+
+
+def test_inference_on_the_first_rank_at_model_two(session, model_axis):
+    """``inference_on_dataset`` at ``DATA_PARALLEL 1``, ``MODEL_PARALLEL 2``
+    over two ranks: as the JAX loop on its first device, rank 0 maps and
+    infers every row (batches of 3), rank 1 maps nothing and only takes part
+    in the gathers. Each image's detections against the one-process loop's
+    (batches of 4): equal classes and validity, boxes and scores within 1e-5
+    of their largest, mask logits within 1e-4; the same results."""
+    one = session["evaluate"]
+    a, b = (r["evaluate"] for r in model_axis["ranks"])
+    assert b == {"results": {}, "outputs": []}
+
+    def by_image(outputs):
+        rows = {}
+        for out, ids in outputs:
+            for j, i in enumerate(ids):
+                rows[i] = {k: v[j] for k, v in out.items()}
+        return rows
+
+    got, want = by_image(a["outputs"]), by_image(one["outputs"])
+    assert [ids for _, ids in a["outputs"]] == [[1, 2, 3], [4, 5, 6]] and set(got) == set(want)
+    for i, w in want.items():
+        for k in ("classes", "valid"):
+            np.testing.assert_array_equal(got[i][k], w[k], err_msg=k)
+        for k, tol in (("boxes", 1e-5), ("scores", 1e-5), ("mask_logits", 1e-4)):
+            assert np.abs(got[i][k] - w[k]).max() <= tol * max(np.abs(w[k]).max(), 1e-12), k
+    for task in one["results"]:
+        for k, v in one["results"][task].items():
+            assert a["results"][task][k] == pytest.approx(v, abs=1e-6, nan_ok=True), (task, k)

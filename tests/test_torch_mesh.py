@@ -4,8 +4,11 @@
 function on the 8 virtual CPU devices of ``tests/conftest.py``: the same
 shape and axis names for every (data, model) it takes, a refusal where it
 refuses. A rank's rows of a batch are the rows the JAX batch sharding puts
-on the device at the same place of the grid. A model axis above 1 raises
-where the JAX package would shard parameters.
+on the device at the same place of the grid. ``param_sharding_rules`` shards
+the leaves JAX's rule shards: on JAX-layout arrays, and on the detector of
+the JAX dryrun (ResNet-18 + FPN, ``min_size`` 2**12 as there), whose flax
+tree is traced with ``jax.eval_shape`` and whose port module is built on the
+meta device, the leaves named as ``params_from_jax`` names them.
 """
 import jax
 import jax.numpy as jnp
@@ -57,13 +60,61 @@ def test_batch_rows_against_jax_sharding():
 
 
 def test_replicated_and_the_model_axis():
+    """At model 1 every leaf is replicated; at model 2 the rule shards the
+    leaves JAX's shards (on the same JAX-layout arrays), and a grid without a
+    process group has no groups."""
     mesh = tmesh.create_mesh(world=1)
     assert mesh.shape == {"data": 1, "model": 1} and mesh.group is None
     tree = {"w": torch.ones(2)}
     assert tmesh.replicated(mesh)(tree) is tree
     assert tmesh.shard_pytree(tree, mesh) is tree  # one process: nothing to broadcast
-    assert set(tmesh.param_sharding_rules(tree, mesh)) == {"w"}
+    assert tmesh.param_sharding_rules(tree, mesh) == {"w": None}
     wide = tmesh.create_mesh(1, 2, world=2)
-    for fn in (lambda: tmesh.param_sharding_rules(tree, wide), lambda: wide.group):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md §1, item 4"):
-            fn()
+    assert wide.group is None and wide.model_group is None and wide.index(1) == (0, 1)
+    shapes = {"vec": (8192,), "odd_last": (4096, 3), "small": (32, 64), "big": (64, 64),
+              "conv": (3, 3, 64, 32), "wide_last": (3, 4096)}
+    leaves = {k: np.zeros(v, np.float32) for k, v in shapes.items()}
+    jmesh_wide = jmesh.create_mesh(1, 2, devices=jax.devices("cpu")[:2])
+    want = jmesh.param_sharding_rules(leaves, jmesh_wide, min_size=2**12)
+    got = tmesh.param_sharding_rules({k: torch.from_numpy(v) for k, v in leaves.items()}, wide,
+                                     min_size=2**12)
+    assert {k for k, s in want.items() if "model" in s.spec} == {k for k, d in got.items()
+                                                                 if d is not None}
+    assert {k: d for k, d in got.items() if d is not None} == {"big": 1, "conv": 3,
+                                                               "wide_last": 1}
+
+
+def test_param_sharding_rules_on_the_dryrun_detector():
+    """The port's rule shards the same leaves of the JAX dryrun's detector as
+    JAX's rule at ``min_size=2**12`` and model 2, each on the torch dim that
+    holds the JAX leaf's last axis (dim 0 of a Dense or Conv weight)."""
+    import importlib
+
+    from divergen_tpu.modeling.meta_arch import rcnn as jrcnn
+    from divergen_tpu_torch import graft_entry as tge
+    from divergen_tpu_torch.modeling.meta_arch import rcnn as trcnn
+
+    jentry = importlib.import_module("__graft_entry__")
+    images = jnp.zeros((1, 64, 64, 3))
+    sizes = jnp.array([[64, 64]])
+    shapes = jax.eval_shape(lambda k: jrcnn.build_model(jentry._small_cfg()).init(
+        k, images, sizes, training=False), jax.random.PRNGKey(0))["params"]
+    want_sh = jmesh.param_sharding_rules(shapes, jmesh.create_mesh(
+        1, 2, devices=jax.devices("cpu")[:2]), min_size=2**12)
+    leaf = {"kernel": "weight", "scale": "weight", "embedding": "weight"}
+    want = {}
+    for path, s in jax.tree_util.tree_leaves_with_path(want_sh):
+        names = [str(p.key) for p in path]
+        want[".".join(names[:-1] + [leaf.get(names[-1], names[-1])])] = "model" in s.spec
+    model = trcnn.build_model(tge._small_cfg(), input_size=(64, 64), device="meta")
+    got = tmesh.param_sharding_rules(model, tmesh.create_mesh(1, 2, world=2), min_size=2**12)
+    assert set(got) == set(want)
+    assert {k for k, d in got.items() if d is not None} == {k for k, v in want.items() if v}
+    named = dict(model.named_parameters())
+    sharded = {k: d for k, d in got.items() if d is not None}
+    assert len(sharded) > 20
+    for k, d in sharded.items():
+        owner = model.get_submodule(k.rpartition(".")[0])
+        kernel = k.endswith("weight") and named[k].dim() >= 2
+        assert d == ((1 if isinstance(owner, torch.nn.ConvTranspose2d) else 0) if kernel
+                     else named[k].dim() - 1), k

@@ -73,6 +73,44 @@ def test_tiny_pipeline_denoise_and_decode(tiny_models, sampler, encoder_reuse):
     assert u8.dtype == np.uint8 and u8.shape == (b, 16, 16, 3)
 
 
+def test_tiny_pipeline_over_a_mesh(tiny_models):
+    """``SDXLPipeline(mesh=[cpu, cpu])`` against the JAX pipeline over a
+    two-device ``"data"`` mesh (the batch sharded, the whole batch decoded at
+    once) on the same noise: images within 1e-3 of 255. Each row block equals
+    a one-device run of its rows bit for bit (the same shapes and ops). A
+    mesh entry the modules cannot run on raises."""
+    from jax.sharding import Mesh
+
+    (ju, up, jv, vp), (tu, tv) = tiny_models
+    rng = np.random.RandomState(8)
+    b, steps = 2, 2
+    lat = rng.randn(b, 8, 8, 4).astype(np.float32)
+    ctx = rng.randn(b, 77, 64).astype(np.float32)
+    unc = rng.randn(b, 77, 64).astype(np.float32)
+    jp = jpipe.SDXLPipeline(ju, up, jv, vp, steps=steps, sampler="dpmpp_2m",
+                            mesh=Mesh(np.array(jax.devices("cpu")[:2]), ("data",)))
+    put = lambda x: jax.device_put(jnp.asarray(x), jp._batch_sharding)
+    want_lat = jp._denoise(jp.unet_params, put(lat * jp._init_scale), put(ctx), put(unc), None,
+                           None, None)
+    want = np.asarray(jnp.clip((jv.apply(jp.vae_params, want_lat) + 1.0) * 127.5, 0, 255))
+
+    tp = tpipe.SDXLPipeline(tu, tv, steps=steps, sampler="dpmpp_2m", mesh=["cpu", "cpu"])
+    assert tp.mesh == [torch.device("cpu")] * 2 and tp._replicas[torch.device("cpu")][0] is tu
+    x, c, u = (torch.from_numpy(v) for v in (lat * tp._init_scale, ctx, unc))
+    got = tp._generate_mesh(x, c, u, None, None, None, decode=True)
+    assert got.shape == (b, 16, 16, 3)
+    assert np.abs(got.numpy() - want).max() <= 1e-3 * 255
+    one = tpipe.SDXLPipeline(tu, tv, steps=steps, sampler="dpmpp_2m")
+    for i in range(b):
+        rows = one.denoise(x[i:i + 1], c[i:i + 1], u[i:i + 1])
+        assert torch.equal(got[i:i + 1], one.decode(rows)), i
+    with pytest.raises(ValueError, match="does not split"):
+        tp._generate_mesh(x[:1], c[:1], u[:1], None, None, None, decode=False)
+    meta = tunet.UNetSDXL.tiny(device="meta")
+    with pytest.raises(ValueError, match="mesh entry cpu"):
+        tpipe.SDXLPipeline(meta, None, steps=steps, mesh=["cpu"])
+
+
 def test_txt2img_tiny_naming_resume_png(tmp_path):
     prompts = tmp_path / "prompts"
     prompts.mkdir()
@@ -103,10 +141,19 @@ def test_png_writer_round_trips_through_cv2(tmp_path):
                                   cv2.imread(str(tmp_path / "a.png")))
 
 
-def test_unported_flags_exit():
-    """Of the JAX CLI's flags only --data_parallel is still to be ported."""
-    with pytest.raises(SystemExit, match="not yet ported"):
-        txt2img.main(["--data_parallel", "--tiny", "--device", "cpu"])
+def test_unported_flags_exit(tmp_path):
+    """Every flag of the JAX CLI is ported: --data_parallel splits a batch over
+    the local cards where there are several, so on the CPU (as on one card)
+    it writes the images of a run without it, bit for bit."""
+    argv = ["--tiny", "--height", "64", "--width", "64", "--steps", "2", "--n_samples", "2",
+            "--device", "cpu", "--outdir"]
+    assert txt2img.main(argv + [str(tmp_path / "a")]) == 0
+    assert txt2img.main(argv + [str(tmp_path / "b"), "--data_parallel"]) == 0
+    names = sorted(os.listdir(tmp_path / "a" / "samples" / "XL"))
+    assert len(names) == 2 and names == sorted(os.listdir(tmp_path / "b" / "samples" / "XL"))
+    for n in names:
+        np.testing.assert_array_equal(cv2.imread(str(tmp_path / "a" / "samples" / "XL" / n)),
+                                      cv2.imread(str(tmp_path / "b" / "samples" / "XL" / n)))
 
 
 @pytest.mark.parametrize("stages", [["II"], ["XL", "II"], ["x4", "I"]])

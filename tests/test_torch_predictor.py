@@ -154,6 +154,26 @@ def test_async_predictor_order_and_equality(predictor_case):
         ap.shutdown()
 
 
+def test_async_predictor_spreads_workers_over_the_cards(predictor_case, monkeypatch):
+    """Worker ``wid`` runs on ``cuda:(wid % n)`` over the ``n`` local cards,
+    as the JAX class pins it to ``devices[wid % len(devices)]`` (the device
+    count patched to 3); a device with an index, or the CPU, takes every
+    worker; on the CPU ``num_workers`` defaults to 1."""
+    tcfg, sd, tp, images, _, _ = predictor_case
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 3)
+    spread = tpred.worker_devices(torch.device("cuda"), 5)
+    assert spread == [torch.device("cuda", i % 3) for i in range(5)]
+    assert [d.index for d in spread] == [list(range(3))[wid % 3] for wid in range(5)]
+    assert tpred.worker_devices(torch.device("cuda", 2), 2) == [torch.device("cuda", 2)] * 2
+    assert tpred.worker_devices(torch.device("cpu"), 2) == [torch.device("cpu")] * 2
+    ap = tpred.AsyncPredictor(tcfg, sd, score_thresh=PRED_THRESH, device="cpu")
+    try:
+        assert ap.devices == [torch.device("cpu")] and ap.default_buffer_size == 5
+        assert_detections_match(ap(images[0]), tp(images[0]), tol=0)
+    finally:
+        ap.shutdown()
+
+
 def test_visualization_demo(predictor_case, tmp_path):
     from divergen_tpu_torch.utils.visualizer import save_visualization
 
@@ -265,25 +285,26 @@ def test_do_test_against_jax_inference_on_dataset(eval_case):
 
 
 def test_inference_on_dataset_refuses_data_parallel(eval_case):
-    """A model axis above 1 raises, naming the ROADMAP item (in the loop and
-    in a mesh's group); a data axis wider than the ranks takes them all, as
-    the JAX loop takes every device."""
+    """Evaluation ignores the model axis, as the JAX loop does: at
+    ``MODEL_PARALLEL 2`` it gives the results of model 1 (a mesh of one data
+    rank and two model ranks has no group without a process group); a data
+    axis wider than the ranks takes them all, as the JAX loop takes every
+    device."""
     from divergen_tpu_torch.parallel.mesh import create_mesh
 
     tcfg, _, _, model = eval_case
     cfg = tcfg.clone()
+    one = teval.inference_on_dataset(model, None, cfg, DATASET,
+                                     teval.build_evaluator(cfg, DATASET), max_images=2)
     cfg.PARALLEL.MODEL_PARALLEL = 2
-    with pytest.raises(NotImplementedError, match="ROADMAP.md §1, item 4"):
-        teval.inference_on_dataset(model, None, cfg, DATASET, teval.build_evaluator(cfg, DATASET))
-    with pytest.raises(NotImplementedError, match="ROADMAP.md §1, item 4"):
-        create_mesh(1, 2, world=2).group
+    assert_close_results(teval.inference_on_dataset(
+        model, None, cfg, DATASET, teval.build_evaluator(cfg, DATASET), max_images=2), one, tol=0)
+    wide = create_mesh(1, 2, world=2)
+    assert wide.group is None and wide.model_group is None
     cfg.PARALLEL.MODEL_PARALLEL = 1
     cfg.PARALLEL.DATA_PARALLEL = 2
-    wide = teval.inference_on_dataset(model, None, cfg, DATASET,
-                                      teval.build_evaluator(cfg, DATASET), max_images=2)
-    cfg.PARALLEL.DATA_PARALLEL = 1
-    assert_close_results(wide, teval.inference_on_dataset(
-        model, None, cfg, DATASET, teval.build_evaluator(cfg, DATASET), max_images=2), tol=0)
+    assert_close_results(teval.inference_on_dataset(
+        model, None, cfg, DATASET, teval.build_evaluator(cfg, DATASET), max_images=2), one, tol=0)
 
 
 def test_transfer_keeps_dtypes_and_bits():

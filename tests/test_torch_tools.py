@@ -220,7 +220,26 @@ def test_export_model_exports_the_checkpoints_ema_weights(tmp_path, monkeypatch,
 
     if bake:
         return
+    # without a checkpoint: the seeded random weights go to the export. A
+    # weights-separate program holds no weights, so the one just traced for
+    # this architecture and canvas serves (tracing it again would give the
+    # same graph); the artifact is still saved, loaded and its inputs checked
+    from divergen_tpu_torch import export as texport
+
+    traced, handed = texport.load_exported(str(tmp_path / "m.pt2z")), {}
+
+    def export_once(model, params, **kw):
+        assert not kw["bake_params"] and (kw["height"], kw["width"]) == (64, 64)
+        handed.update(params)
+        return traced.exported
+
+    monkeypatch.setattr(texport, "export_inference", export_once)
     texp.main(["--config-file", str(cfg_file), "--output", str(tmp_path / "r.pt2z"),
                "--height", "64", "--width", "64", "--checkpoint-dir", str(tmp_path / "none"),
                "--device", "cpu"])
     assert "exporting random init" in capsys.readouterr().out
+    seeded = trcnn.build_model(cfg, input_size=(64, 64), device="cpu").eval()
+    tge.fast_init_(seeded, torch.Generator().manual_seed(0))
+    assert set(handed) == set(seeded.state_dict())
+    assert all(torch.equal(handed[k], v) for k, v in seeded.state_dict().items())
+    assert texport.load_exported(str(tmp_path / "r.pt2z")).in_avals == traced.in_avals

@@ -193,12 +193,13 @@ def test_train_net_refuses(tmp_path, monkeypatch):
         train_net.main(parse(["--multi-host", "--device", "cpu", "OUTPUT_DIR", str(tmp_path)]))
     with pytest.raises(ValueError, match="--dist-backend"):
         train_net.main(parse(["--dist-backend", "gloo", "OUTPUT_DIR", str(tmp_path)]))
-    # the data axis takes every rank: 2 at world size 1 raises, and so does a model axis
+    # the data axis takes every rank the model axis leaves: 2 at world size 1
+    # raises, and so does a model axis that does not divide the ranks
     cfg = train_net.setup(parse(["OUTPUT_DIR", str(tmp_path), "PARALLEL.DATA_PARALLEL", "2"]))
     with pytest.raises(ValueError, match="DATA_PARALLEL 2"):
         do_train(cfg, device="cpu")
     cfg = train_net.setup(parse(["OUTPUT_DIR", str(tmp_path), "PARALLEL.MODEL_PARALLEL", "2"]))
-    with pytest.raises(NotImplementedError, match="ROADMAP.md §1, item 4"):
+    with pytest.raises(ValueError, match="MODEL_PARALLEL 2 does not divide the 1 ranks"):
         do_train(cfg, device="cpu")
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):

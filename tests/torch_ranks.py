@@ -214,7 +214,11 @@ def _evaluate(rank, world, group, spec):
     from divergen_tpu_torch.data.datasets.lvis import lvis_meta_from_json, register_lvis_instances
     from divergen_tpu_torch.engine.eval_loop import build_evaluator, inference_on_dataset
 
+    from divergen_tpu_torch.data import DatasetCatalog, MetadataCatalog
+
     files, name, cfg = spec["files"], spec["dataset"], spec["cfg"]
+    DatasetCatalog.remove(name)  # a second evaluation in the same ranks
+    MetadataCatalog.remove(name)
     register_lvis_instances(name, lvis_meta_from_json(files["json_file"]), files["json_file"],
                             files["image_root"])
     model = _model(cfg, spec["state_dict"], spec["canvas"]).eval()
@@ -249,3 +253,100 @@ class one_rank_group:
 
     def __exit__(self, *exc):
         dist.destroy_process_group()
+
+
+# -- the model axis -------------------------------------------------------------------------
+
+def _sharded_state(spec, mesh, min_size):
+    """The tiny detector of ``spec`` with its leaves cut over the model axis
+    of ``mesh`` (``min_size`` as the JAX dryrun's), its optimizer and EMA."""
+    from divergen_tpu_torch.engine.train_loop import create_train_state
+    from divergen_tpu_torch.parallel.mesh import param_sharding_rules, shard_pytree
+    from divergen_tpu_torch.solver.build import build_optimizer
+
+    model = _model(spec["cfg"], spec["state_dict"], spec["canvas"])
+    shard_pytree(model, mesh, rules=param_sharding_rules(model, mesh, min_size=min_size))
+    opt = build_optimizer(spec["cfg"], model)
+    return create_train_state(model, opt, ema=True)
+
+
+def _full(state):
+    """Gathered parameters, moments and EMA of a sliced state (a collective)."""
+    shards = state.model.model_shards
+    names = {id(p): n for n, p in state.model.named_parameters()}
+    params = state.optimizer.parameters()
+    optim = shards.full_optimizer_state(state.optimizer.optim)["state"]
+    moments = {key: {names[id(params[i])]: st[key] for i, st in optim.items()}
+               for key in ("exp_avg", "exp_avg_sq")}
+    full = {"params": shards.full_tree(dict(state.model.named_parameters())),
+            "ema": shards.full_tree(state.ema_params), **moments}
+    # copies: the unsliced leaves are the live tensors, which the next step moves
+    return {k: {n: v.detach().clone() for n, v in tree.items()} for k, tree in full.items()}
+
+
+def _train_model_axis(rank, world, spec, tmp):
+    """The train step at data 1 × model 2: both ranks take the whole batch.
+    Then both ranks save (rank 0 writes) and take a second step."""
+    from divergen_tpu_torch.engine.checkpoint import Checkpointer
+    from divergen_tpu_torch.engine.train_loop import make_train_step
+    from divergen_tpu_torch.parallel.mesh import create_mesh
+    from divergen_tpu_torch.utils import comm
+
+    mesh = create_mesh(1, 2)
+    state = _sharded_state(spec, mesh, 2**12)
+    model, opt = state.model, state.optimizer
+    step = make_train_step(model, opt, ema_decay=0.9, loss_weights=spec["loss_weights"],
+                           group=mesh)
+    draws = RankDraws(spec["draws"], mesh.index()[0], mesh.shape["data"])
+    state, metrics = step(state, spec["batch"], draws)
+    sliced = model.model_shards.dims
+    shapes = {n: {"param": tuple(p.shape), "grad": tuple(p.grad.shape),
+                  "exp_avg": tuple(opt.optim.state[p]["exp_avg"].shape),
+                  "exp_avg_sq": tuple(opt.optim.state[p]["exp_avg_sq"].shape),
+                  "ema": tuple(state.ema_params[n].shape)}
+              for n, p in model.named_parameters()}
+    out = {"metrics": {k: float(v) for k, v in metrics.items()}, "sliced": dict(sliced),
+           "shapes": shapes, "groups": (mesh.group is None, mesh.model_group is not None),
+           "first": _full(state)}
+    Checkpointer(tmp, write=rank == 0, shards=model.model_shards).save(1, state)
+    comm.synchronize()
+    state, metrics = step(state, spec["batch"], draws)
+    out["second"] = dict(_full(state), metrics={k: float(v) for k, v in metrics.items()})
+    return out
+
+
+def _bsgal_model_axis(rank, world, spec):
+    """BSGAL's step at data 1 × model 2 (its cosines over the slices)."""
+    from divergen_tpu_torch.active import bsgal
+    from divergen_tpu_torch.parallel.mesh import create_mesh
+
+    mesh = create_mesh(1, 2)
+    state = _sharded_state(spec, mesh, 2**12)
+    astate = bsgal.init_active_state(dict(state.model.named_parameters()), queue_size=8)
+    step = bsgal.make_active_train_step(state.model, state.optimizer, spec["cfg"], group=mesh)
+    state, astate, metrics = step(state, astate, spec["batch"],
+                                  torch.Generator().manual_seed(spec["seed"]))
+    metrics.pop("aux_paste_rows", None)
+    return {"metrics": {k: float(v) for k, v in metrics.items()},
+            "counts": (int(astate.n_paste), int(astate.n_discard)),
+            "params": _full(state)["params"]}
+
+
+def model_axis_session(rank, world, spec, tmp):
+    """The tasks of the model axis on the small Swin: the train step and
+    its checkpoint at data 1 × model 2, BSGAL at data 1 × model 2, BSGAL
+    with ``PER_INSTANCE`` over the two ranks as data ranks, and
+    ``inference_on_dataset`` at ``DATA_PARALLEL 1``, ``MODEL_PARALLEL 2``."""
+    from divergen_tpu_torch.modeling.backbone import swin
+
+    swin.SIZE2CONFIG["tiny"] = spec["tiny_swin"]
+    return {"train": _train_model_axis(rank, world, spec["train"], tmp),
+            "bsgal": _bsgal_model_axis(rank, world, spec["bsgal"]),
+            "per_instance": _bsgal(rank, world, dist.group.WORLD, spec["per_instance"]),
+            "evaluate": _evaluate(rank, world, dist.group.WORLD, spec["evaluate"])}
+
+
+def sessions(rank, world, spec, model_spec, tmp):
+    """``detector_session`` and then ``model_axis_session`` in the same ranks."""
+    return {"detector": detector_session(rank, world, spec),
+            "model_axis": model_axis_session(rank, world, model_spec, tmp)}
