@@ -5996,7 +5996,9 @@ def rank_child(spec_path: str) -> int:
         run, astate = do_train.last_run, do_train.last_run["active_state"]
         res["state_bytes"] = state_bytes(state)
         if spec.get("params_out"):  # the full parameters (gathered at a model axis above 1)
-            shards = getattr(state.model, "model_shards", None)
+            from divergen_tpu_torch.parallel.mesh import model_shards
+
+            shards = model_shards(state.model)
             named = dict(state.model.named_parameters())
             full = shards.full_tree(named) if shards is not None else named
             if comm.get_rank() == 0:

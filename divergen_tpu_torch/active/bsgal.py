@@ -116,10 +116,7 @@ def tree_cosine(a: Dict[str, torch.Tensor], b: Dict[str, torch.Tensor],
     if shards is None:
         dot, na2, nb2 = (t.sum() for t in terms)
     else:
-        sliced = torch.tensor([k in shards.dims for k in a], device=terms[0].device)
-        dot, na2, nb2 = (torch.stack([t[~sliced].sum() for t in terms])
-                         + all_reduce_sum(torch.stack([t[sliced].sum() for t in terms]),
-                                          shards.group))
+        dot, na2, nb2 = shards.global_sum(torch.stack(terms), [k in shards.dims for k in a])
     return dot / torch.clamp(na2.sqrt() * nb2.sqrt(), min=1e-12)
 
 

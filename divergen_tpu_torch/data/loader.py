@@ -3,9 +3,10 @@
 Counterpart of ``divergen_tpu/data/loader.py``: ``_stack_samples``,
 ``TrainLoader`` and ``build_test_loader`` are copies (the same batches in the
 same order for a seed: per-sample generator ``seed * 1_000_003 + counter``,
-futures consumed in order, a synchronous backfill after a
-``FileNotFoundError``; a loader that maps some rows of each batch composes
-the same batch from a check of every row's file); ``device_prefetch`` moves batches to the card from
+futures consumed in order, a record whose file is missing skipped and the
+batch backfilled from the stream, found by a check of every row's file
+before the batch is mapped, so that a loader that maps some rows of each
+batch composes the same batch); ``device_prefetch`` moves batches to the card from
 pinned host memory on a side CUDA stream, ``size`` batches ahead.
 
 The JAX module's sources: ``DiverGen/divergen/data/custom_dataset_dataloader.py:88-127``
@@ -52,11 +53,12 @@ class TrainLoader:
     the per-sample seeds advance over the whole batch, so the ranks of a node
     that each take their rows together hand out what one loader hands out.
     A row whose ``file_name`` is missing is skipped and the batch backfilled
-    from the index stream, as the whole-batch loader does: a loader that
-    takes some rows checks every row of the batch for its file first (a
-    ``stat`` each), so every rank composes the same batch and then maps its
-    own rows of it. A ``FileNotFoundError`` from such a rank's mapper (a file
-    that was there when checked, or another file) raises."""
+    from the index stream, as the JAX loader does: every row of the batch is
+    checked for its file first (a ``stat`` each), so every rank composes the
+    same batch and then maps its own rows of it. A ``FileNotFoundError`` from
+    the mapper (a file that was there when checked, or one the record does
+    not name, which the JAX loader skips) raises: the ranks would compose
+    different batches."""
 
     def __init__(
         self,
@@ -86,68 +88,18 @@ class TrainLoader:
         rng = np.random.default_rng(sample_seed)
         return self.mapper(self.dataset[idx], rng)
 
-    def _produce(self):
-        try:
-            if self.rows == [(0, self.batch_size)]:
-                self._produce_batches()
-            else:
-                self._produce_rows()
-        except Exception as e:  # handed to the consumer, which raises it
-            self.queue.put(e)
-
-    def _produce_batches(self):
-        pool = ThreadPoolExecutor(max_workers=self.num_workers)
-        it = iter(self.sampler)
-        counter = 0
-        pending: "queue.Queue" = queue.Queue()
-        # pipeline: keep 2 batches of futures in flight
-        def submit_batch():
-            nonlocal counter
-            futs = []
-            for _ in range(self.batch_size):
-                idx = next(it)
-                try:
-                    futs.append(pool.submit(self._map_one, (idx, self._seed * 1_000_003 + counter)))
-                except RuntimeError:
-                    # interpreter/pool shutdown raced the daemon producer —
-                    # treat as a stop signal instead of dying noisily
-                    self._stop.set()
-                    return
-                counter += 1
-            pending.put(futs)
-
-        submit_batch()
-        submit_batch()
-        while not self._stop.is_set():
-            futs = pending.get()
-            samples = []
-            for f in futs:
-                try:
-                    samples.append(f.result())
-                except FileNotFoundError:
-                    continue
-            # backfill failed decodes synchronously
-            while len(samples) < self.batch_size:
-                idx = next(it)
-                try:
-                    samples.append(self._map_one((idx, self._seed * 1_000_003 + counter)))
-                except FileNotFoundError:
-                    pass
-                counter += 1
-            submit_batch()
-            self.queue.put(_stack_samples(samples))
-        pool.shutdown(wait=False)
-
     def _readable(self, idx: int) -> bool:
         rec = self.dataset[idx]
-        name = rec.get("file_name") if isinstance(rec, dict) else None
+        if not isinstance(rec, dict) or "tar_index" in rec:  # not read from its own file
+            return True
+        name = rec.get("file_name")
         return name is None or os.path.exists(name)
 
     def _plan(self) -> Iterator[List[Tuple[int, int]]]:
         """The (index, seed) rows of each whole batch, drawn from the sampler
-        in the order of ``_produce_batches``: two batches drawn ahead, a
-        batch's rows without their file dropped and refilled from the stream
-        after the next batch's draws."""
+        in the JAX loader's order: two batches drawn ahead, a batch's rows
+        without their file dropped and refilled from the stream after the
+        next batch's draws."""
         it = iter(self.sampler)
         counter = 0
         drawn: "collections.deque" = collections.deque()
@@ -168,19 +120,28 @@ class TrainLoader:
             drawn.append([draw() for _ in range(self.batch_size)])
             yield rows
 
-    def _produce_rows(self):
+    def _produce(self):
+        try:
+            self._map_batches()
+        except Exception as e:  # handed to the consumer, which raises it
+            self.queue.put(e)
+
+    def _map_batches(self):
         pool = ThreadPoolExecutor(max_workers=self.num_workers)
         plan = self._plan()
         batches = 0
         pending: "queue.Queue" = queue.Queue()
 
         def submit_batch():
+            # keep 2 batches of futures in flight
             nonlocal batches
             lo, hi = self.rows[batches % len(self.rows)]
             batches += 1
             try:
                 pending.put([pool.submit(self._map_one, r) for r in next(plan)[lo:hi]])
-            except RuntimeError:  # the pool shut down under the daemon producer
+            except RuntimeError:
+                # interpreter/pool shutdown raced the daemon producer: a stop
+                # signal, not an error
                 self._stop.set()
 
         submit_batch()
@@ -193,8 +154,7 @@ class TrainLoader:
                     samples.append(f.result())
                 except FileNotFoundError as e:
                     raise RuntimeError(f"{e}: a file checked before the batch was composed, or "
-                                       "one its record does not name, cannot be read; the ranks "
-                                       "would compose different batches") from e
+                                       "one its record does not name, cannot be read") from e
             submit_batch()
             self.queue.put(_stack_samples(samples))
         pool.shutdown(wait=False)

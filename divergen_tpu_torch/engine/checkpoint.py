@@ -14,10 +14,12 @@ Saves are synchronous, so ``wait`` has nothing to wait for.
 
 A model whose leaves are held as slices over the model group
 (``parallel/mesh.py:ModelShards``, given as ``shards``) is written whole: every
-rank calls ``save``, the slices of the model, the EMA copy, the optimizer's
-moments and the grad bank are gathered, and the writer alone (``write``)
-writes them, in the file of an unsliced model. ``restore`` cuts them back,
-so a checkpoint moves between model axes.
+rank calls ``save``; the ranks of the writer's model row (data index 0, which
+holds rank 0) decide together whether the step is to be written, gather the
+slices of the model, the EMA copy, the optimizer's moments and the grad bank,
+and the writer alone (``write``) writes them, in the file of an unsliced
+model; the other rows return at once. ``restore`` cuts them back, so a
+checkpoint moves between model axes.
 """
 from __future__ import annotations
 
@@ -28,6 +30,7 @@ from typing import Any, Dict, List, Optional
 
 import torch
 
+from ..utils.comm import all_reduce_max
 from .train_loop import TrainState
 
 logger = logging.getLogger(__name__)
@@ -62,7 +65,13 @@ class Checkpointer:
         ``step`` (``force`` overwrites an existing step), then keep the newest
         ``max_to_keep`` steps."""
         path = self.path(step)
-        if os.path.exists(path) and not force:
+        if self.shards is not None and self.shards.row != 0:
+            return  # the writer's model row gathers
+        exists = os.path.exists(path) and not force
+        if self.shards is not None:  # one decision for the row: any rank that sees the step
+            exists = bool(all_reduce_max(torch.tensor(exists, device=self.shards.device),
+                                         self.shards.group))
+        if exists:
             logger.info("checkpoint step %d exists; not overwritten", step)
             return
         if not (self.write or self.shards):

@@ -22,7 +22,7 @@ its devices:
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable, Dict, List, Mapping, Optional, Tuple
+from typing import Any, Callable, Dict, List, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -182,7 +182,8 @@ class ModelShards:
     removes them. The gathers of one call are one ``all_gather``."""
 
     def __init__(self, module: nn.Module, rules: Mapping[str, Optional[int]], mesh: Mesh):
-        self.group, self.size, self.rank = mesh.model_group, mesh.shape["model"], mesh.index()[1]
+        self.group, self.size = mesh.model_group, mesh.shape["model"]
+        self.row, self.rank = mesh.index()  # (data index, model index) of this rank
         self.dims = {k: d for k, d in rules.items() if d is not None}
         self._owners: Dict[str, Tuple[nn.Module, str]] = {}
         by_owner: Dict[int, List[str]] = {}
@@ -230,6 +231,15 @@ class ModelShards:
                 out[i] = torch.cat([pr[j].view_as(slices[i]) for pr in per_rank], dim=dims[i])
         return out  # type: ignore[return-value]
 
+    def global_sum(self, values: torch.Tensor, sliced: Sequence[bool]) -> torch.Tensor:
+        """Sums over the last dim of ``values``, which holds one term per
+        leaf (``sliced``: whether the leaf is held as this rank's slice), as
+        over the full tensors: the replicated leaves' terms once, the slices'
+        summed over the model group (a collective)."""
+        mask = torch.tensor(list(sliced), dtype=torch.bool, device=values.device)
+        return values[..., ~mask].sum(-1) + comm.all_reduce_sum(values[..., mask].sum(-1),
+                                                                 self.group)
+
     def full_tree(self, tree: Mapping[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
         """``tree`` (by parameter name) with every sharded leaf gathered."""
         names = [k for k in tree if k in self.dims]
@@ -273,6 +283,12 @@ class ModelShards:
                 slots += [(i, k, self.dims[name]) for k, v in sorted(st.items())
                           if isinstance(v, torch.Tensor) and v.dim() > 0]
         return slots
+
+    @property
+    def device(self) -> torch.device:
+        """Where the slices live (the device of the model group's collectives)."""
+        owner, leaf = next(iter(self._owners.values()))
+        return owner._parameters[leaf].device
 
     def held(self) -> set:
         """The ids of the sliced parameters."""

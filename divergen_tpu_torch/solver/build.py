@@ -26,6 +26,8 @@ from typing import Callable, Dict, Iterable, Optional, Sequence
 import torch
 import torch.nn as nn
 
+from ..parallel.mesh import model_shards
+
 
 def warmup_cosine_lr(base_lr: float, max_iter: int, warmup_iters: int,
                      warmup_factor: float = 1e-3) -> Callable[[int], float]:
@@ -122,13 +124,9 @@ class SolverOptimizer:
         if self.shards is None:
             norm = torch.linalg.vector_norm(norms).float()
         else:
-            from ..utils.comm import all_reduce_sum
-
             held = self.shards.held()
-            sliced = torch.tensor([id(p) in held for p in params], device=norms.device)
-            sq = norms.square()
-            norm = (sq[~sliced].sum() + all_reduce_sum(sq[sliced].sum(), self.shards.group)
-                    ).sqrt().float()
+            norm = self.shards.global_sum(norms.square(), [id(p) in held for p in params]
+                                          ).sqrt().float()
         if self.clip_value is not None:
             scale = torch.where(norm < self.clip_value, torch.ones_like(norm),
                                 self.clip_value / norm)
@@ -168,7 +166,7 @@ def build_optimizer(cfg, model: nn.Module) -> SolverOptimizer:
         raise ValueError(f"unknown optimizer {opt_name}")
     clip = cfg.SOLVER.CLIP_GRADIENTS
     opt = SolverOptimizer(optim, build_lr_schedule(cfg), clip.CLIP_VALUE if clip.ENABLED else None)
-    opt.shards = getattr(model, "model_shards", None)  # a model cut by parallel.mesh.shard_pytree
+    opt.shards = model_shards(model)
     return opt
 
 

@@ -4,7 +4,9 @@ weights, on the CPU with the tiny Swin detector: a save / restore round trip
 of model, EMA copy, optimizer and step; ``latest_step`` and ``max_to_keep``;
 the periodic schedule of the JAX class; ``do_test`` evaluating the EMA
 weights before the model's, from a state and from the newest checkpoint;
-``RESET_CLS_TESTS`` through ``load_zs_weight`` and ``reset_cls_test``.
+``RESET_CLS_TESTS`` through ``load_zs_weight`` and ``reset_cls_test``. Over
+four gloo ranks as a 2 × 2 (data, model) grid, a model held as slices saves
+and restores (``torch_ranks.checkpoint_grid``).
 """
 import json
 
@@ -13,6 +15,7 @@ import pytest
 import torch
 
 from divergen_tpu_torch import graft_entry as tge
+from divergen_tpu_torch.config import get_cfg
 from divergen_tpu_torch.data import catalog as tcat
 from divergen_tpu_torch.data.datasets import lvis as tlvis
 from divergen_tpu_torch.data.datasets.synthetic_lvis import write_synthetic_lvis
@@ -23,6 +26,7 @@ from divergen_tpu_torch.modeling.backbone import swin as tswin
 from divergen_tpu_torch.modeling.meta_arch import rcnn as trcnn
 from divergen_tpu_torch.solver.build import build_optimizer
 from test_torch_detector import TINY_SWIN, tiny_cfg
+from torch_ranks import checkpoint_grid, run_ranks
 
 torch.set_num_threads(1)
 
@@ -179,3 +183,37 @@ def test_do_test_reset_cls_tests(setup, tmp_path, monkeypatch):
     cfg.MODEL.RESET_CLS_TESTS = False  # the trained 5-class vocabulary scores otherwise
     assert run_do_test(monkeypatch, cfg, state=state)[1] != got_dets
     assert json.dumps(got[DATASET], sort_keys=True) == json.dumps(want, sort_keys=True)
+
+
+def test_save_and_restore_over_a_two_by_two_grid(tmp_path):
+    """Data 2 × model 2: only the writer's model row (ranks 0 and 1)
+    gathers, and it decides as one whether the step exists: a second save
+    is skipped without a gather, and so is a save in which rank 1 alone does
+    not see the file. The file holds the full tensors of an unsliced model
+    (equal bit for bit to the gathered ones); every rank restores its own
+    slices of the parameters, moments and EMA copy bit for bit; and the
+    file restores at model 1 into the unsliced MLP."""
+    ranks = run_ranks(checkpoint_grid, 4, tmp_path, tmp_path)
+    first = ranks[0]["gathers"][0]
+    assert first > 0 and [r["gathers"] for r in ranks] == [[first, 0, 0]] * 2 + [[0, 0, 0]] * 2
+    assert set(ranks[0]["sliced"]) == {"0.weight", "2.weight"}
+    for r in ranks:
+        for n, v in r["slices"].items():
+            assert torch.equal(r["restored"][n], v), n
+        for got, want in zip(r["restored_moments"], r["moments"]):
+            assert all(torch.equal(got[k], want[k]) for k in want)
+    for d in (0, 1):  # the data rows took different rows, the grid one mean gradient
+        assert all(torch.equal(ranks[2 * d]["full"][n], ranks[0]["full"][n])
+                   for n in ranks[0]["full"])
+    raw = Checkpointer(str(tmp_path / "shared")).load(1)
+    for n, v in ranks[0]["full"].items():
+        assert torch.equal(raw["model"][n], v) and torch.equal(raw["ema_params"][n],
+                                                               ranks[0]["ema"][n]), n
+    assert not (tmp_path / "own" / "checkpoints" / "step_1.pt").exists()
+    model = torch.nn.Sequential(torch.nn.Linear(8, 32), torch.nn.ReLU(), torch.nn.Linear(32, 8))
+    state = create_train_state(model, build_optimizer(get_cfg(), model), ema=True)
+    Checkpointer(str(tmp_path / "shared")).restore(state)
+    assert state.step == 1
+    for n, p in model.named_parameters():
+        assert torch.equal(p.detach(), ranks[0]["full"][n]), n
+        assert torch.equal(state.ema_params[n], ranks[0]["ema"][n]), n

@@ -37,8 +37,10 @@ rendezvous) runs the tasks of ``detector_session`` and then those of
 The model axis's tasks (data 1 × model 2 unless said): the train step of the
 first task, with the leaves JAX's rule shards at ``min_size`` 2**12 held as
 slices, against the JAX step and the one-process step, then saved and
-stepped again; BSGAL's step; BSGAL with ``PER_INSTANCE`` over the two ranks
-as data ranks; ``inference_on_dataset`` at ``DATA_PARALLEL 1``. The row-split
+stepped again; BSGAL's step with ``PER_INSTANCE``, at model 2 and over the
+two ranks as data ranks, each against the JAX step on the global batch (one
+more JAX program: the draws are the JAX step's) and against the port's one
+process; ``inference_on_dataset`` at ``DATA_PARALLEL 1``. The row-split
 loader with missing files is held against the JAX loader without ranks.
 
 The JAX programs and the session run once per module.
@@ -51,6 +53,7 @@ import numpy as np
 import pytest
 import torch
 
+from divergen_tpu.active import bsgal as jb
 from divergen_tpu.engine import train_loop as jloop
 from divergen_tpu.modeling.backbone import swin as jswin
 from divergen_tpu.modeling.meta_arch import rcnn as jrcnn
@@ -69,7 +72,7 @@ from divergen_tpu_torch.ops.losses import RankDraws, uniform_draw
 from divergen_tpu_torch.solver import build as tsolver
 from divergen_tpu_torch.utils import dist as tdist
 from divergen_tpu_torch.utils.convert import params_from_jax, tree_from_module
-from test_torch_bsgal import ACTIVE, active_batch, torch_batch
+from test_torch_bsgal import ACTIVE, active_batch, step_draws, torch_batch
 from test_torch_detector import TINY_SWIN, randomized, shape_init, t
 from test_torch_train_losses import CANVAS, detector_batch, jax_draws, jx, torch_gt, train_cfg
 from test_torch_train_step import SOLVER, adam_moments, metrics_close, moments_close, \
@@ -175,7 +178,10 @@ def jax_caption_case(tiny):
                      "draws": jax_draws(key, 2, 24, 8), "ann_type": "captiontag"}}
 
 
-def bsgal_case(tiny, train, **keys):
+def bsgal_case(tiny, train, draws=None, **keys):
+    """The port's one-process BSGAL step on ``active_batch(51)`` from the
+    train case's weights, with a generator (seed 5) or the JAX step's
+    ``draws``."""
     cfg = train_cfg(lambda: tge._small_cfg(backbone="swin"), **dict(ACTIVE, **keys))
     batch = torch_batch(active_batch(51))
     tm = trcnn.build_model(cfg, input_size=CANVAS)
@@ -183,13 +189,30 @@ def bsgal_case(tiny, train, **keys):
     topt = tsolver.build_optimizer(cfg, tm)
     state = tloop.create_train_state(tm, topt, ema=True)
     astate = tb.init_active_state(dict(tm.named_parameters()), queue_size=8)
-    _, astate, metrics = tb.make_active_train_step(tm, topt, cfg)(
-        state, astate, batch, torch.Generator().manual_seed(5))
-    metrics.pop("aux_paste_rows", None)
+    rng = torch.Generator().manual_seed(5) if draws is None else draws
+    state, astate, metrics = tb.make_active_train_step(tm, topt, cfg)(state, astate, batch, rng)
+    rows = metrics.pop("aux_paste_rows", None)
+    task = {"cfg": cfg, "state_dict": train["state_dict"], "canvas": CANVAS, "batch": batch}
+    task.update({"seed": 5} if draws is None else {"draws": draws})
     return {"model": tm, "optimizer": topt, "metrics": {k: float(v) for k, v in metrics.items()},
-            "counts": (int(astate.n_paste), int(astate.n_discard)),
-            "task": {"cfg": cfg, "state_dict": train["state_dict"], "canvas": CANVAS,
-                     "batch": batch, "seed": 5}}
+            "counts": (int(astate.n_paste), int(astate.n_discard)), "rows": rows, "task": task}
+
+
+def jax_per_instance_case(tiny, train):
+    """The JAX BSGAL step with ``PER_INSTANCE`` on the global batch
+    (``active_batch(51)``) from the train case's weights, and the port's one
+    process on the same draws."""
+    jcfg = train_cfg(lambda: tiny._small_cfg(backbone="swin"), **dict(ACTIVE, **PER_INSTANCE))
+    key = jax.random.PRNGKey(10)
+    jm = jrcnn.build_model(jcfg)
+    opt = jsolver.build_optimizer(jcfg, train["params"])
+    jstate = jloop.create_train_state(jx(train["params"]), opt, ema=True)
+    jastate = jb.init_active_state(jstate.params, queue_size=8)
+    jout = jb.make_active_train_step(jm, opt, jcfg)(jstate, jastate, jx(active_batch(51)), key)
+    one = bsgal_case(tiny, train, draws=step_draws(key, 0), **PER_INSTANCE)
+    rows = {k: np.asarray(v) for k, v in jout[2]["aux_paste_rows"].items()}
+    return dict(one, jax=jout, jax_rows=rows,
+                jax_metrics={k: float(v) for k, v in jout[2].items() if k != "aux_paste_rows"})
 
 
 def eval_case(train, root):
@@ -228,11 +251,11 @@ def session(tmp_path_factory):
         spec = {"tiny_swin": TINY_SWIN, "caption": caption["task"], "bsgal": bsgal["task"],
                 "evaluate": evaluate["task"], "train": train_task}
         # the model axis's tasks run next in the same two ranks (``model_axis``)
-        per_instance = bsgal_case(tiny, train, **PER_INSTANCE)
+        per_instance = jax_per_instance_case(tiny, train)
         narrow = dict(evaluate["task"], cfg=evaluate["task"]["cfg"].clone())
         narrow["cfg"].PARALLEL.DATA_PARALLEL, narrow["cfg"].PARALLEL.MODEL_PARALLEL = 1, 2
-        model_spec = {"tiny_swin": TINY_SWIN, "bsgal": bsgal["task"],
-                      "per_instance": per_instance["task"], "evaluate": narrow,
+        model_spec = {"tiny_swin": TINY_SWIN, "per_instance": per_instance["task"],
+                      "evaluate": narrow,
                       "train": train_task}
         ckpt = str(tmp_path_factory.mktemp("model_axis_ckpt"))
         both = run_ranks(sessions, 2, tmp_path_factory.mktemp("ranks"), spec, model_spec, ckpt)
@@ -437,11 +460,13 @@ def test_train_rows_and_the_row_split_loader():
 
 
 def test_row_split_loader_backfills_a_missing_file_as_jax(tmp_path):
-    """Files missing from a row-split loader's records are skipped and the
-    batch backfilled from the index stream as the JAX loader does: the two
-    ranks' rows of each batch (and of each probe batch) concatenate to the
-    JAX loader's batch, per-sample seeds included; every rank composes the
-    batch, each maps only its own rows."""
+    """Files missing from a loader's records are skipped and the batch
+    backfilled from the index stream as the JAX loader does: a loader of
+    whole batches hands out the JAX loader's batches, and the two ranks'
+    rows of each batch (and of each probe batch) concatenate to them,
+    per-sample seeds included; every rank composes the batch, each maps only
+    its own rows. A file the mapper cannot read that the record does not
+    name (which the JAX loader skips) raises."""
     from divergen_tpu.data import loader as jloader
     from divergen_tpu.data import samplers as jsamplers
     from divergen_tpu_torch.data.loader import TrainLoader
@@ -472,6 +497,10 @@ def test_row_split_loader_backfills_a_missing_file_as_jax(tmp_path):
     want = take(jloader.TrainLoader(records, mapper_logging([]),
                                     jsamplers.TrainingSampler(12, seed=5), 4, num_workers=2,
                                     seed=3), 16)
+    whole = take(TrainLoader(records, mapper_logging([]), TrainingSampler(12, seed=5), 4,
+                             num_workers=2, seed=3), 6)
+    for w, got in zip(want, whole):
+        np.testing.assert_array_equal(got, w)
     rows = [[(0, 2), (0, 1)], [(2, 4), (1, 2)]]
     parts, logs = [], [[], []]
     for r, log in zip(rows, logs):
@@ -488,6 +517,14 @@ def test_row_split_loader_backfills_a_missing_file_as_jax(tmp_path):
         lo, hi = rows[0][i % 2], rows[1][i % 2]
         np.testing.assert_array_equal(got, np.concatenate([w[lo[0]:lo[1]], w[hi[0]:hi[1]]]))
 
+    def reads_another_file(rec, rng):
+        open(str(tmp_path / "2.txt")).close()  # a file the record does not name
+        return {"image": np.zeros(2)}
+
+    with pytest.raises(RuntimeError, match="does not name"):
+        take(TrainLoader(records, reads_another_file, TrainingSampler(12, seed=5), 4,
+                         num_workers=2, seed=3), 1)
+
 
 # -- the model axis ---------------------------------------------------------------------------
 
@@ -500,9 +537,10 @@ PER_INSTANCE = {"MODEL.ACTIVE.PER_INSTANCE": True, "MODEL.ACTIVE.PER_INSTANCE_PE
 def model_axis(session):
     """The session's model-axis tasks (``torch_ranks.model_axis_session``,
     after ``detector_session`` in the same two ranks): as data 1 × model 2
-    the train step, its checkpoint, BSGAL and the evaluation on the first
-    rank; as two data ranks BSGAL with ``PER_INSTANCE``; with the
-    one-process step they are held against."""
+    the train step, its checkpoint, BSGAL with ``PER_INSTANCE`` and the
+    evaluation on the first rank; as two data ranks BSGAL with
+    ``PER_INSTANCE``; with the JAX and one-process steps they are held
+    against."""
     return session["model_axis"]
 
 
@@ -607,12 +645,42 @@ def test_model_axis_checkpoint_resumes_at_model_one(session, model_axis):
         assert float(diff.max()) <= 1e-4 * train["lr"] + 2e-7 * float(p.detach().abs().max()), n
 
 
+def close_to_jax(got, want):
+    """A BSGAL step's metrics against the JAX step's, within the bounds of
+    ``test_torch_bsgal.py``: the decision equal, ``grad_sim`` and the
+    threshold within 1e-4, every other metric within 2e-4 relative."""
+    assert set(got) == set(want) and got["paste_used"] == want["paste_used"]
+    for k, w in want.items():
+        if k in ("grad_sim", "threshold"):
+            assert got[k] == pytest.approx(w, abs=1e-4), k
+        else:
+            assert got[k] == pytest.approx(w, rel=2e-4, abs=1e-6), k
+
+
+def pastes_against_jax(rows, want):
+    """The per-paste rows of a step (the ranks' concatenated) against the JAX
+    step's: the same pasted instances kept (valid after the quantile's
+    drop), the same proposal rows on a paste, their losses within 2e-4
+    relative. The ids themselves are numbered per rank."""
+    rows = {k: np.asarray(v) for k, v in rows.items()}
+    kept = lambda r: (r["gt_ids"] > 0) & r["gt_valid"]
+    np.testing.assert_array_equal(kept(rows), kept(want))
+    np.testing.assert_array_equal(rows["id"] > 0, want["id"] > 0)
+    np.testing.assert_allclose(rows["loss"], want["loss"], rtol=2e-4, atol=1e-6)
+
+
 def test_model_axis_bsgal_step(session, model_axis):
-    """BSGAL's step at data 1 × model 2 (its cosines and norms summed over
-    the slices) takes the one process's decision, ``grad_sim`` within 1e-5."""
-    one = session["bsgal"]
+    """BSGAL's step with ``PER_INSTANCE`` at data 1 × model 2 (its cosines
+    and norms summed over the slices) against the JAX step on the same
+    batch and draws (``close_to_jax``, ``pastes_against_jax``) and against
+    the port's one process: the same decision and pastes kept, every metric
+    within 1e-5 relative (``grad_sim`` within 1e-5), the parameters within
+    1e-6 of the learning rate."""
+    one = model_axis["per_instance"]
     a, b = (r["bsgal"] for r in model_axis["ranks"])
     assert a["metrics"] == b["metrics"] and a["counts"] == b["counts"] == one["counts"]
+    close_to_jax(a["metrics"], one["jax_metrics"])
+    pastes_against_jax(a["rows"], one["jax_rows"])
     for k, w in one["metrics"].items():
         assert a["metrics"][k] == pytest.approx(w, rel=1e-5, abs=1e-5 if k == "grad_sim" else 1e-7), k
     for n, p in one["model"].named_parameters():
@@ -621,17 +689,35 @@ def test_model_axis_bsgal_step(session, model_axis):
                 one["task"]["cfg"])(0)), n
 
 
-def test_per_instance_over_two_data_ranks(model_axis):
+def test_per_instance_over_two_data_ranks(session, model_axis):
     """BSGAL with ``PER_INSTANCE`` over two data ranks: the quantile is taken
-    over the global batch's pastes (the ranks hold two and one), so the
-    decision, the pastes kept and every metric are the one process's
-    (1e-5); a quantile per rank would keep two pastes, not one."""
+    over the global batch's pastes (the ranks hold two and one), as the JAX
+    step takes it on the global batch. The port's one process against the
+    JAX step: its metrics (``close_to_jax``), its paste rows (ids and the
+    pastes kept equal, losses within 2e-4 relative) and its parameters
+    (``test_torch_train_step.updates_close``); the ranks against the JAX step
+    (``close_to_jax``, ``pastes_against_jax``) and against the one process
+    (every metric within 1e-5); a quantile per rank would keep two pastes,
+    not one."""
     one = model_axis["per_instance"]
+    jstate, _, _ = one["jax"]
+    before = session["train"]["params"]
+    close_to_jax(one["metrics"], one["jax_metrics"])
+    pastes_against_jax(one["rows"], one["jax_rows"])
+    for k in ("id", "gt_ids"):
+        np.testing.assert_array_equal(one["rows"][k].numpy(), one["jax_rows"][k], err_msg=k)
+    mu = adam_moments(jstate.opt_state, before)[0]
+    updates_close("per instance", tree_from_module(one["model"], before),
+                  jax.tree.map(np.asarray, jstate.params), before, mu,
+                  float(tsolver.build_lr_schedule(one["task"]["cfg"])(0)))
     a, b = (r["per_instance"] for r in model_axis["ranks"])
     assert a["counts"] == b["counts"] == one["counts"] and a["checksum"] == b["checksum"]
+    close_to_jax(a["metrics"], one["jax_metrics"])
+    pastes_against_jax({k: torch.cat([a["rows"][k], b["rows"][k]]) for k in one["rows"]},
+                       one["jax_rows"])
     for k, w in one["metrics"].items():
         assert a["metrics"][k] == pytest.approx(w, rel=1e-5, abs=1e-5), k
-    assert one["metrics"]["paste_num"] == a["metrics"]["paste_num"] == 1.0
+    assert one["jax_metrics"]["paste_num"] == a["metrics"]["paste_num"] == 1.0
 
 
 def test_inference_on_the_first_rank_at_model_two(session, model_axis):

@@ -7,6 +7,7 @@ only, so a rank starts in seconds; each function takes ``(rank, world,
 ...)`` and returns what the test compares, which ``run_ranks`` hands back
 by rank.
 """
+import datetime
 import os
 
 import numpy as np
@@ -18,8 +19,9 @@ from divergen_tpu_torch.ops.losses import RankDraws
 
 def _rank_main(rank, world, store, out, fn, args):
     torch.set_num_threads(1)
+    # a rank left waiting on a collective fails after the timeout rather than hanging the run
     dist.init_process_group("gloo", store=dist.FileStore(store, world), rank=rank,
-                            world_size=world)
+                            world_size=world, timeout=datetime.timedelta(seconds=300))
     try:
         torch.save(fn(rank, world, *args), f"{out}.{rank}")
     finally:
@@ -178,13 +180,15 @@ def _bsgal(rank, world, group, spec):
     state = create_train_state(model, opt, ema=True)
     astate = bsgal.init_active_state(dict(model.named_parameters()), queue_size=8)
     step = bsgal.make_active_train_step(model, opt, spec["cfg"], group=group)
-    rng = RankDraws(torch.Generator().manual_seed(spec["seed"]), rank, world)
-    state, astate, metrics = step(state, astate, rows_of(spec["batch"], rank, world), rng)
-    metrics.pop("aux_paste_rows", None)
+    source = spec["draws"] if "draws" in spec else torch.Generator().manual_seed(spec["seed"])
+    state, astate, metrics = step(state, astate, rows_of(spec["batch"], rank, world),
+                                  RankDraws(source, rank, world))
+    rows = metrics.pop("aux_paste_rows", None)
     out = {"metrics": comm.reduce_dict({k: float(v) for k, v in metrics.items()}),
            "local": {k: float(v) for k, v in metrics.items()},
            "counts": (int(astate.n_paste), int(astate.n_discard)), "checksum": checksum(model),
-           "bank_checksum": float(sum(v.double().sum() for v in astate.grad_bank.values()))}
+           "bank_checksum": float(sum(v.double().sum() for v in astate.grad_bank.values())),
+           "rows": rows}
     if rank == 0:
         out["params"] = {n: p.detach().clone() for n, p in model.named_parameters()}
     return out
@@ -272,7 +276,9 @@ def _sharded_state(spec, mesh, min_size):
 
 def _full(state):
     """Gathered parameters, moments and EMA of a sliced state (a collective)."""
-    shards = state.model.model_shards
+    from divergen_tpu_torch.parallel.mesh import model_shards
+
+    shards = model_shards(state.model)
     names = {id(p): n for n, p in state.model.named_parameters()}
     params = state.optimizer.parameters()
     optim = shards.full_optimizer_state(state.optimizer.optim)["state"]
@@ -289,7 +295,7 @@ def _train_model_axis(rank, world, spec, tmp):
     Then both ranks save (rank 0 writes) and take a second step."""
     from divergen_tpu_torch.engine.checkpoint import Checkpointer
     from divergen_tpu_torch.engine.train_loop import make_train_step
-    from divergen_tpu_torch.parallel.mesh import create_mesh
+    from divergen_tpu_torch.parallel.mesh import create_mesh, model_shards
     from divergen_tpu_torch.utils import comm
 
     mesh = create_mesh(1, 2)
@@ -299,7 +305,7 @@ def _train_model_axis(rank, world, spec, tmp):
                            group=mesh)
     draws = RankDraws(spec["draws"], mesh.index()[0], mesh.shape["data"])
     state, metrics = step(state, spec["batch"], draws)
-    sliced = model.model_shards.dims
+    sliced = model_shards(model).dims
     shapes = {n: {"param": tuple(p.shape), "grad": tuple(p.grad.shape),
                   "exp_avg": tuple(opt.optim.state[p]["exp_avg"].shape),
                   "exp_avg_sq": tuple(opt.optim.state[p]["exp_avg_sq"].shape),
@@ -308,7 +314,7 @@ def _train_model_axis(rank, world, spec, tmp):
     out = {"metrics": {k: float(v) for k, v in metrics.items()}, "sliced": dict(sliced),
            "shapes": shapes, "groups": (mesh.group is None, mesh.model_group is not None),
            "first": _full(state)}
-    Checkpointer(tmp, write=rank == 0, shards=model.model_shards).save(1, state)
+    Checkpointer(tmp, write=rank == 0, shards=model_shards(model)).save(1, state)
     comm.synchronize()
     state, metrics = step(state, spec["batch"], draws)
     out["second"] = dict(_full(state), metrics={k: float(v) for k, v in metrics.items()})
@@ -316,7 +322,8 @@ def _train_model_axis(rank, world, spec, tmp):
 
 
 def _bsgal_model_axis(rank, world, spec):
-    """BSGAL's step at data 1 × model 2 (its cosines over the slices)."""
+    """BSGAL's step at data 1 × model 2 (its cosines over the slices), on
+    the JAX step's draws."""
     from divergen_tpu_torch.active import bsgal
     from divergen_tpu_torch.parallel.mesh import create_mesh
 
@@ -324,24 +331,93 @@ def _bsgal_model_axis(rank, world, spec):
     state = _sharded_state(spec, mesh, 2**12)
     astate = bsgal.init_active_state(dict(state.model.named_parameters()), queue_size=8)
     step = bsgal.make_active_train_step(state.model, state.optimizer, spec["cfg"], group=mesh)
-    state, astate, metrics = step(state, astate, spec["batch"],
-                                  torch.Generator().manual_seed(spec["seed"]))
-    metrics.pop("aux_paste_rows", None)
-    return {"metrics": {k: float(v) for k, v in metrics.items()},
+    state, astate, metrics = step(state, astate, spec["batch"], spec["draws"])
+    return {"rows": metrics.pop("aux_paste_rows", None),
+            "metrics": {k: float(v) for k, v in metrics.items()},
             "counts": (int(astate.n_paste), int(astate.n_discard)),
             "params": _full(state)["params"]}
 
 
+def checkpoint_grid(rank, world, tmp):
+    """Over a 2 × 2 grid, a small MLP whose two weights are cut over the
+    model axis takes one step, each data row on its own rows of the batch;
+    then every rank saves it: to ``tmp/shared``, twice (the second save of
+    the step is skipped by the writer's whole row), and once more with rank
+    1 alone pointed at an empty ``tmp/own`` (it does not see the file; its
+    row still skips). Each rank then restores the step into a fresh model
+    at model 2. Returns the full tensors before the save and after the
+    restore, the slices, and how many gathers each save made."""
+    from divergen_tpu_torch.config import get_cfg
+    from divergen_tpu_torch.engine.checkpoint import Checkpointer
+    from divergen_tpu_torch.engine.train_loop import create_train_state, reduce_grads_
+    from divergen_tpu_torch.parallel.mesh import (create_mesh, model_shards, param_sharding_rules,
+                                                  shard_pytree)
+    from divergen_tpu_torch.solver.build import build_optimizer, ema_update
+
+    cfg = get_cfg()
+    mesh = create_mesh(2, 2)
+
+    def build():
+        torch.manual_seed(0)
+        model = torch.nn.Sequential(torch.nn.Linear(8, 32), torch.nn.ReLU(), torch.nn.Linear(32, 8))
+        shard_pytree(model, mesh, rules=param_sharding_rules(model, mesh, min_size=64))
+        return create_train_state(model, build_optimizer(cfg, model), ema=True)
+
+    state = build()
+    x = torch.randn(4, 8, generator=torch.Generator().manual_seed(1))
+    d = mesh.index()[0]
+    state.model(x[2 * d:2 * d + 2]).square().mean().backward()
+    reduce_grads_(state.optimizer, mesh.group)
+    state.optimizer.step()
+    ema_update(state.ema_params, state.params, 0.9)
+    state.step = 1
+    shards = model_shards(state.model)
+    gathers = []
+
+    def counted(save):
+        calls = [0]
+        gather = shards.gather
+        shards.gather = lambda *a: (calls.__setitem__(0, calls[0] + 1), gather(*a))[1]
+        try:
+            save()
+        finally:
+            del shards.gather
+        gathers.append(calls[0])
+
+    shared, own = os.path.join(str(tmp), "shared"), os.path.join(str(tmp), "own")
+    ckpt = Checkpointer(shared, write=rank == 0, shards=shards)
+    counted(lambda: ckpt.save(1, state))
+    counted(lambda: ckpt.save(1, state))
+    mine = Checkpointer(own if rank == 1 else shared, write=rank == 0, shards=shards)
+    counted(lambda: mine.save(1, state))
+    dist.barrier()
+    named = lambda st: dict(st.model.named_parameters())
+    out = {"gathers": gathers, "sliced": dict(shards.dims),
+           "slices": {n: p.detach().clone() for n, p in named(state).items()},
+           "full": {k: v.detach().clone() for k, v in shards.full_tree(named(state)).items()},
+           "ema": shards.full_tree(state.ema_params)}
+    fresh = build()
+    Checkpointer(shared, shards=model_shards(fresh.model)).restore(fresh)
+    out["restored"] = {n: p.detach().clone() for n, p in named(fresh).items()}
+    out["restored_ema"] = {k: v.clone() for k, v in fresh.ema_params.items()}
+    out["restored_moments"] = [
+        {k: v.clone() for k, v in fresh.optimizer.optim.state[p].items()}
+        for p in fresh.optimizer.parameters()]
+    out["moments"] = [{k: v.clone() for k, v in state.optimizer.optim.state[p].items()}
+                      for p in state.optimizer.parameters()]
+    return out
+
+
 def model_axis_session(rank, world, spec, tmp):
     """The tasks of the model axis on the small Swin: the train step and
-    its checkpoint at data 1 × model 2, BSGAL at data 1 × model 2, BSGAL
-    with ``PER_INSTANCE`` over the two ranks as data ranks, and
+    its checkpoint at data 1 × model 2, BSGAL with ``PER_INSTANCE`` at data
+    1 × model 2 and over the two ranks as data ranks, and
     ``inference_on_dataset`` at ``DATA_PARALLEL 1``, ``MODEL_PARALLEL 2``."""
     from divergen_tpu_torch.modeling.backbone import swin
 
     swin.SIZE2CONFIG["tiny"] = spec["tiny_swin"]
     return {"train": _train_model_axis(rank, world, spec["train"], tmp),
-            "bsgal": _bsgal_model_axis(rank, world, spec["bsgal"]),
+            "bsgal": _bsgal_model_axis(rank, world, spec["per_instance"]),
             "per_instance": _bsgal(rank, world, dist.group.WORLD, spec["per_instance"]),
             "evaluate": _evaluate(rank, world, dist.group.WORLD, spec["evaluate"])}
 
